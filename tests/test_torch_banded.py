@@ -1,0 +1,133 @@
+"""The port's plain chunked SPIKE factor and solve (what kernels K2-K4 are
+held to on the card) against scipy's sparse LU and the JAX package's
+``factor_linearized``, to 1e-10 relative in f64.
+
+Cases cover block sizes s = 1 and s = 2 (halo 2, or two variables),
+cyclic and acyclic reduced systems, several (C, Mc) plans and the fused
+state add (``add_to``)."""
+
+import functools
+
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import scipy.sparse.linalg as spla
+import torch
+
+from triflow_tpu.ops import banded as banded_jax
+from triflow_tpu.ops.banded import factor_linearized
+from triflow_tpu_torch.core.routines import bands_to_csc
+from triflow_tpu_torch.ops import banded, chunked
+
+torch.set_num_threads(1)
+
+RTOL = 1e-10
+ALPHA, BETA = 1.0, -0.3
+
+
+def random_bands(W, nvar, N, seed):
+    """Random J bands whose alpha*I + beta*J is diagonally dominant."""
+    rng = np.random.default_rng(seed)
+    bands = rng.standard_normal((W, nvar, nvar, N))
+    h = W // 2
+    for m in range(nvar):
+        bands[h, m, m] -= 3.0 * W * nvar / abs(BETA)
+    return bands
+
+
+def _plan(N, nvar, halo, periodic, C):
+    g = max(halo, 1)
+    return chunked.Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C,
+                        bool(periodic) and halo > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(W, nvar, N, periodic):
+    """(bands, rhs, scipy's x) of one random system: every chunk plan of
+    the same system is held to the same answer."""
+    bands = random_bands(W, nvar, N, seed=W * 100 + nvar * 10 + N)
+    rhs = np.random.default_rng(7).standard_normal((nvar, N))
+    A = ALPHA * sps.identity(N * nvar) + BETA * bands_to_csc(bands, periodic)
+    x_scipy = spla.spsolve(A.tocsc(), rhs.T.reshape(-1)).reshape(N, nvar).T
+    return bands, rhs, x_scipy
+
+
+@functools.lru_cache(maxsize=None)
+def reference_jax(W, nvar, N, periodic):
+    """The JAX package's solution of the same system (its eager solver
+    compiles per shape, so only some systems are held against it)."""
+    bands, rhs, _ = reference(W, nvar, N, periodic)
+    return np.asarray(factor_linearized(ALPHA, BETA, bands, None, periodic)
+                      .solve(rhs))
+
+
+#: (W, nvar, N, periodic, C, against the JAX package too):
+#: s = nvar * max(W // 2, 1) is 1, 2 or 4
+CASES = [
+    (3, 1, 128, True, 8, True), (3, 1, 128, True, 32, True),
+    (3, 1, 120, False, 1, True), (3, 1, 120, False, 5, True),
+    (3, 1, 120, False, 12, True),
+    (5, 1, 128, True, 8, True), (5, 1, 128, True, 16, True),
+    (5, 1, 96, False, 3, False), (5, 1, 96, False, 12, False),
+    (3, 2, 64, True, 8, False), (3, 2, 64, True, 16, False),
+    (3, 2, 60, False, 6, True), (5, 2, 48, False, 4, False),
+]
+
+
+@pytest.mark.parametrize("W,nvar,N,periodic,C,against_jax", CASES)
+def test_chunked_solve_vs_scipy_and_jax(W, nvar, N, periodic, C, against_jax):
+    bands, rhs, x_scipy = reference(W, nvar, N, periodic)
+    plan = _plan(N, nvar, W // 2, periodic, C)
+    fact = chunked.factor(ALPHA, BETA, torch.tensor(bands), periodic, plan)
+    x = fact.solve(torch.tensor(rhs)).numpy()
+    scale = np.abs(x_scipy).max()
+    assert np.abs(x - x_scipy).max() <= RTOL * scale
+    if against_jax:
+        x_jax = reference_jax(W, nvar, N, periodic)
+        assert np.abs(x - x_jax).max() <= RTOL * scale
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_add_to_fuses_the_state_add(periodic):
+    W, nvar, N = 5, 1, 128
+    bands = torch.tensor(random_bands(W, nvar, N, seed=3))
+    rng = np.random.default_rng(4)
+    rhs, u = (torch.tensor(rng.standard_normal((nvar, N))) for _ in range(2))
+    fact = chunked.factor(ALPHA, BETA, bands, periodic)
+    expect = u + fact.solve(rhs)
+    got = chunked.solve(fact, rhs, add_to=u)
+    assert torch.allclose(got, expect, rtol=0, atol=1e-14)
+
+
+@pytest.mark.parametrize("W,nvar", [(3, 1), (5, 2)])
+def test_identity_and_axpy_bands_match_jax(W, nvar):
+    N = 16
+    bands = random_bands(W, nvar, N, seed=5)
+    eye = banded.identity_bands(W, nvar, N)
+    assert np.array_equal(eye.numpy(),
+                          np.asarray(banded_jax.identity_bands(W, nvar, N)))
+    got = banded.axpy_bands(0.7, -0.2, torch.tensor(bands)).numpy()
+    want = np.asarray(banded_jax.axpy_bands(0.7, -0.2, bands))
+    assert np.abs(got - want).max() <= 1e-15 * np.abs(want).max()
+
+
+def test_plan_choice():
+    big = chunked.make_plan(1 << 20, 1, 1, True)
+    assert (big.C, big.Mc, big.cyclic) == (4096, 256, True)
+    readme = chunked.make_plan(200, 1, 1, False)
+    assert (readme.C, readme.Mc, readme.cyclic) == (25, 8, False)
+    ks = chunked.make_plan(2048, 1, 2, True)
+    assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 64, 16)
+    # the plan is the cheapest admissible one under the cost model
+    M = big.M
+    assert all(chunked.plan_cost_us(M, big.C) <= chunked.plan_cost_us(M, C)
+               for C in (1024, 2048, 8192, 16384))
+    # no halo: no coupling, nothing cyclic even on a periodic grid
+    assert not chunked.make_plan(64, 1, 0, True).cyclic
+
+
+def test_periodic_grid_without_power_of_two_chunks_raises():
+    with pytest.raises(ValueError, match="WrappedPcr"):
+        chunked.make_plan(100, 1, 1, True)
+    with pytest.raises(ValueError, match="multiple of the supernode"):
+        chunked.make_plan(101, 1, 2, False)

@@ -1,0 +1,77 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions.
+
+The kernel checks need an NVIDIA GPU and nvcc: they carry the ``cuda``
+marker and skip where torch sees no CUDA device.  On the card, run
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+They are the checks of phase 1 of ``chip_smoke.py``
+(``triflow_tpu_torch.ops.kernel_checks``).  The other tests here run
+anywhere: the same harness on CPU tensors (where every wrapper takes its
+plain version), and the wrappers' refusal of any device they have no
+kernel for.
+"""
+
+import pytest
+import torch
+
+from triflow_tpu_torch import Model
+from triflow_tpu_torch.ops import _launch, chunked, kernel_checks, pcr, thomas
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest tests/test_torch_kernels.py)")
+    return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_kernels_match_plain_versions(cuda_device, dtype):
+    results = kernel_checks.run_all(cuda_device, dtypes=(dtype,))
+    name = str(dtype).replace("torch.", "")
+    assert set(_launch.COUNTERS) <= set(results[name])
+
+
+@pytest.mark.cuda
+def test_theta_step_launches_every_kernel(cuda_device):
+    model = Model("-U * dxU + nu * dxxU", "U", "nu", device=cuda_device)
+    N = 4096
+    x = torch.arange(N, dtype=torch.float64, device=cuda_device) * 0.5
+    fields = model.fields_template(x=x, U=torch.cos(2 * torch.pi * x / x[-1]))
+    from triflow_tpu_torch import schemes
+
+    _launch.reset_counters()
+    schemes.Theta(model)(0.0, fields, 0.05, {"periodic": True, "nu": 0.5})
+    assert all(c == 1 for c in _launch.counts().values())
+
+
+def test_check_harness_on_cpu():
+    """The harness itself, on CPU tensors: plain against plain, and the
+    plain solve's residual at every check shape."""
+    before = _launch.counts()
+    results = kernel_checks.run_all("cpu")
+    assert all(r["residual"] < 1e-6 for r in results.values())
+    assert _launch.counts() == before  # the plain route launches nothing
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA device raises instead of taking the plain version."""
+    meta = {"device": "meta", "dtype": torch.float64}
+    plan = chunked.make_plan(64, 1, 1, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        thomas.spike_factor(torch.empty((3, 1, 1, 64), **meta), 1.0, -0.1,
+                            plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        pcr.pcr_factor(torch.empty((2, 2, 8), **meta),
+                       torch.empty((2, 2, 8), **meta), True)
+    model = Model("k * dxxU", "U", "k")
+    args = [torch.empty(shape, **meta) for shape in ((1, 64), (0, 64), (1, 64), (64,))]
+    with pytest.raises(ValueError, match="CUDA"):
+        model.backend.F(*args, periodic=True)

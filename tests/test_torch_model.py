@@ -1,0 +1,123 @@
+"""The port's F and banded J against the JAX package's backends.
+
+The same seeded state goes through ``triflow_tpu_torch``'s plain versions
+(what kernel K1 is held to on the card) and through ``triflow_tpu``'s
+``JaxBackend`` and ``NumpyBackend``; they agree to 1e-12 relative in f64.
+Also checks K1's code generation: deterministic, and every floating-point
+literal a ``T(...)`` value, so the float kernel never computes in double.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import triflow_tpu as tj
+import triflow_tpu_torch as tt
+from triflow_tpu.core.compiler import NumpyBackend
+from triflow_tpu_torch.ops.stencil import BARE_LITERAL
+
+torch.set_num_threads(1)
+
+#: (equations, dependent variables, parameters): heat, advection-diffusion,
+#: Burgers, Kuramoto-Sivashinsky (halo 2, s = 2), a 2-variable system and
+#: a model with Max/Min (upwind) and Heaviside
+MODELS = {
+    "heat": ("k * dxxU", "U", ["k"]),
+    "advdiff": ("k * dxxU - c * dxU", "U", ["k", "c"]),
+    "burgers": ("-U * dxU + nu * dxxU", "U", ["nu"]),
+    "ks": ("-dxxU - dxxxxU - U * dxU", "U", []),
+    "twovar": (["k * dxxU - c * dxV", "k * dxxV - c * dxU + U * V"],
+               ["U", "V"], ["k", "c"]),
+    "maxheav": ("-upwind(U, U, 2) + k * dxxU + c * Heaviside(x - 1.5)", "U",
+                ["k", "c"]),
+}
+
+RTOL = 1e-12
+N = 48
+
+
+def _state(model_t, pars, seed=0):
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 3.0, N)
+    u = rng.standard_normal((model_t.system.nvar, N))
+    p = {k: 0.5 + rng.random() for k in pars}
+    return x, u, p
+
+
+def _rel(a, b):
+    b = np.asarray(b)
+    return np.abs(np.asarray(a) - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_F_J_match_jax_and_numpy(name, periodic):
+    eqs, dep, pars = MODELS[name]
+    model_t = tt.Model(eqs, dep, pars)
+    model_j = tj.Model(eqs, dep, pars)
+    ref_np = NumpyBackend(model_j.system, dtype=np.float64)
+    x, u, p = _state(model_t, pars)
+    pstack = np.stack([np.full(N, p[k]) for k in pars]) if pars \
+        else np.zeros((0, N))
+    helpers = np.zeros((0, N))
+    b = model_t.backend
+    args_t = [torch.tensor(a) for a in (u, helpers, pstack, x)]
+    F_t = b.F(*args_t, periodic=periodic).numpy()
+    J_t = b.J_bands(*args_t, periodic=periodic).numpy()
+    for backend in (model_j.backend, ref_np):
+        F_r = backend.F(u, helpers, pstack, x, periodic=periodic)
+        J_r = backend.J_bands(u, helpers, pstack, x, periodic=periodic)
+        assert _rel(F_t, F_r) <= RTOL
+        assert _rel(J_t, J_r) <= RTOL
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_routines_match_jax(name):
+    """The host routines: interleaved flat F and the CSC Jacobian."""
+    eqs, dep, pars = MODELS[name]
+    model_t = tt.Model(eqs, dep, pars)
+    model_j = tj.Model(eqs, dep, pars)
+    x, u, p = _state(model_t, pars, seed=1)
+    p["periodic"] = True
+    vals = dict(zip(model_t.system.dep_vars, u))
+    f_t = model_t.fields_template(x=torch.tensor(x),
+                                  **{k: torch.tensor(v) for k, v in vals.items()})
+    f_j = model_j.fields_template(x=x, **vals)
+    assert _rel(model_t.F(f_t, p), model_j.F(f_j, p)) <= RTOL
+    assert _rel(model_t.J(f_t, p).toarray(), model_j.J(f_j, p).toarray()) <= RTOL
+
+
+def _generated_block(source):
+    start = source.index("#define TF_NVAR")
+    return source[start:source.index("// ---- end of generated block")]
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_stencil_codegen_deterministic_and_typed(name):
+    eqs, dep, pars = MODELS[name]
+    first = tt.Model(eqs, dep, pars).backend.stencil.source()
+    second = tt.Model(eqs, dep, pars, double=False).backend.stencil.source()
+    assert first == second
+    block = _generated_block(first)
+    assert "tf_F" in block and "tf_J" in block
+    assert BARE_LITERAL.findall(block) == []
+    assert "double" not in block
+
+
+def test_bare_literal_pattern():
+    assert BARE_LITERAL.findall("T(-0.5) + T(1.5e-3) * T(2)") == []
+    assert BARE_LITERAL.findall("x * 0.5 + (1.5) + 3e5") == ["0.5", "1.5", "3e5"]
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.Model("k * dxxU", "U", "k", device="cuda")
+
+
+def test_model_dtype_and_unported_precision():
+    assert tt.Model("k * dxxU", "U", "k").dtype == torch.float64
+    assert tt.Model("k * dxxU", "U", "k", double=False).dtype == torch.float32
+    with pytest.raises(NotImplementedError):
+        tt.Model("k * dxxU", "U", "k", double="df64")

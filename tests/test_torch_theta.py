@@ -1,0 +1,192 @@
+"""The port's theta step and Simulation against the JAX package's, from one
+state handed to both with ``state_from_numpy``.
+
+* one step of Theta (theta = 1, 0.5 and 0) to 1e-11;
+* ten output steps of the README model (advection-diffusion, N = 200,
+  Dirichlet hook) and of Burgers (periodic, N = 2048, so both packages take
+  their chunked solvers) to 1e-9 relative to max|u|.
+
+The JAX package steps ``u2 = A^-1 (dt*(F - theta*J*u) + u)``; the port
+steps ``u2 = u + A^-1 (dt*F)``.  The two agree to rounding times the
+condition number of ``A = I - theta*dt*J``."""
+
+import numpy as np
+import pytest
+import torch
+
+import triflow_tpu as tj
+import triflow_tpu_torch as tt
+from triflow_tpu_torch.utils.convert import state_from_numpy
+
+torch.set_num_threads(1)
+
+README = ("k * dxxU - c * dxU", "U", ["k", "c"])
+BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
+KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
+
+
+def dirichlet_jax(t, fields, pars):
+    fields["U"] = fields["U"].at[0].set(1.0).at[-1].set(0.0)
+    return fields, pars
+
+
+def dirichlet_torch(t, fields, pars):
+    fields["U"][0] = 1.0
+    fields["U"][-1] = 0.0
+    return fields, pars
+
+
+def readme_state(N=200):
+    x = np.linspace(0, 1, N)
+    return {"x": x, "U": np.cos(2 * np.pi * x * 5)}, dict(periodic=False,
+                                                          k=1e-3, c=3e-3)
+
+
+def burgers_state(N):
+    x = np.arange(N) * 0.5
+    return ({"x": x, "U": np.cos(2 * np.pi * np.arange(N) / N * 4)},
+            dict(periodic=True, nu=0.5))
+
+
+def ks_state(N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 32 * np.pi, N, endpoint=False)
+    return {"x": x, "U": np.cos(x / 16) + 0.1 * rng.standard_normal(N)}, \
+        dict(periodic=True)
+
+
+def _both(eqs, state, double=True):
+    fields_np, pars = state
+    model_j = tj.Model(*eqs)
+    model_t = tt.Model(*eqs, double=double)
+    fields_j = model_j.fields_template(**fields_np)
+    fields_t, pars_t = state_from_numpy(fields_np, pars, model_t)
+    return model_j, fields_j, model_t, fields_t, pars, pars_t
+
+
+ONE_STEP = [
+    ("readme-theta1", README, readme_state(), 5.0, 1.0, True),
+    ("readme-cn", README, readme_state(), 5.0, 0.5, True),
+    ("burgers-theta1", BURGERS, burgers_state(256), 0.05, 1.0, False),
+    ("ks-theta1", KS, ks_state(256), 0.01, 1.0, False),
+    ("burgers-euler", BURGERS, burgers_state(256), 0.05, 0.0, False),
+    ("readme-euler", README, readme_state(), 0.01, 0.0, True),
+]
+
+
+@pytest.mark.parametrize("name,eqs,state,dt,theta,hooked",
+                         ONE_STEP, ids=[c[0] for c in ONE_STEP])
+def test_one_theta_step_matches_jax(name, eqs, state, dt, theta, hooked):
+    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(eqs, state)
+    hook_j = dirichlet_jax if hooked else tj.schemes.null_hook
+    hook_t = dirichlet_torch if hooked else tt.schemes.null_hook
+    t_j, out_j = tj.schemes.Theta(model_j, theta=theta)(0.0, fields_j, dt, pars,
+                                                         hook=hook_j)
+    t_t, out_t = tt.schemes.Theta(model_t, theta=theta)(0.0, fields_t, dt,
+                                                         pars_t, hook=hook_t)
+    assert t_t == t_j
+    u_j = np.asarray(out_j["U"])
+    assert np.abs(out_t["U"].numpy() - u_j).max() <= 1e-11 * np.abs(u_j).max()
+
+
+def _run_both(eqs, state, dt, tmax, hooks):
+    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(eqs, state)
+    sim_j = tj.Simulation(model_j, fields_j, pars, dt=dt, tmax=tmax,
+                          scheme=tj.schemes.Theta, theta=1.0,
+                          time_stepping=False, hook=hooks[0])
+    sim_t = tt.Simulation(model_t, fields_t, pars_t, dt=dt, tmax=tmax,
+                          scheme=tt.schemes.Theta, theta=1.0,
+                          time_stepping=False, hook=hooks[1])
+    traj_j = [(t, np.asarray(f["U"])) for t, f in sim_j]
+    traj_t = [(t, f["U"].clone().numpy()) for t, f in sim_t]
+    return sim_t, traj_j, traj_t
+
+
+@pytest.mark.parametrize("case", ["readme", "burgers"])
+def test_simulation_trajectory_matches_jax(case):
+    if case == "readme":
+        sim, traj_j, traj_t = _run_both(README, readme_state(), 5.0, 50.0,
+                                        (dirichlet_jax, dirichlet_torch))
+    else:
+        sim, traj_j, traj_t = _run_both(BURGERS, burgers_state(2048), 0.05,
+                                        0.5, (tj.schemes.null_hook,
+                                              tt.schemes.null_hook))
+    assert len(traj_t) == len(traj_j) == 10
+    assert sim.status == "finished" and sim.i == 10
+    for (t_j, u_j), (t_t, u_t) in zip(traj_j, traj_t):
+        assert t_t == pytest.approx(t_j, rel=1e-14)
+        assert np.abs(u_t - u_j).max() <= 1e-9 * np.abs(u_j).max()
+    if case == "readme":
+        assert traj_t[-1][1][0] == 1.0 and traj_t[-1][1][-1] == 0.0
+
+
+def test_dt_clamps_at_tmax():
+    fields_np, pars = readme_state(40)
+    model = tt.Model(*README)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = tt.Simulation(model, fields, pars_t, dt=0.3, tmax=1.0,
+                        time_stepping=False)
+    times = [t for t, _ in sim]
+    assert len(times) == 4 and times[-1] == pytest.approx(1.0)
+    assert sim.dt == pytest.approx(0.1)
+
+
+def test_post_process_stream_and_timer():
+    fields_np, pars = readme_state(40)
+    model = tt.Model(*README)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=3.0,
+                        time_stepping=False, hook=dirichlet_torch)
+    seen, emitted = [], []
+    sim.add_post_process("max", lambda s: seen.append(float(s.fields["U"].max())))
+    sim.stream.sink(lambda s: emitted.append(s.i))
+    t, fields = sim.run(progress=False)
+    assert t == pytest.approx(3.0) and len(seen) == 4
+    assert emitted == [0, 1, 2, 3]
+    assert sim.timer.total > 0 and "finished" in repr(sim)
+
+
+def test_unported_features_raise():
+    fields_np, pars = readme_state(40)
+    model = tt.Model(*README)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    with pytest.raises(NotImplementedError, match="time_stepping"):
+        tt.Simulation(model, fields, pars_t, dt=1.0)
+    sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=2.0,
+                        time_stepping=False)
+    with pytest.raises(NotImplementedError):
+        sim.attach_container("somewhere")
+    with pytest.raises(NotImplementedError):
+        sim.save_checkpoint("somewhere")
+    with pytest.raises(NotImplementedError):
+        sim.run(progress=False, device_chunk=4)
+    with pytest.raises(NotImplementedError):
+        tt.Simulation(model, fields, pars_t, dt=1.0, time_stepping=False,
+                      mesh=object())
+
+
+def test_yielded_states_stay_as_yielded():
+    """An in-place hook never reaches a state the iterator yielded before."""
+    def bump(t, fields, pars):
+        fields["U"][0] += 1.0
+        return fields, pars
+
+    fields_np, pars = readme_state(40)
+    model = tt.Model(*README)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=3.0,
+                        time_stepping=False, hook=bump)
+    kept = [(f, f["U"].clone()) for _, f in sim]
+    assert len(kept) == 3
+    assert all(torch.equal(f["U"], u) for f, u in kept)
+
+
+def test_hook_does_not_touch_the_callers_arrays():
+    fields_np, pars = readme_state(40)
+    before = fields_np["U"].copy()
+    model = tt.Model(*README)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=1.0,
+                        time_stepping=False, hook=dirichlet_torch)
+    sim.run(progress=False)
+    assert np.array_equal(fields_np["U"], before)

@@ -1,0 +1,129 @@
+"""Model: a 1D PDE system discretized in space and compiled to tensor
+functions on one device.
+
+Counterpart of ``triflow_tpu.core.model``:
+
+>>> from triflow_tpu_torch import Model
+>>> model = Model("k * dxxU", "U", "k")
+
+``double=True`` computes in ``torch.float64``, ``double=False`` in
+``torch.float32``.  ``device`` is explicit: the model's tensors and kernels
+live there, and asking for ``"cuda"`` on a machine without a card raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import sympy as sp
+import torch
+
+from . import fields as fields_mod
+from .compiler import TorchBackend
+from .routines import F_Routine, J_Routine
+from .symbolic import build_discrete_system
+
+
+def _coerce(arg):
+    if arg is None:
+        return tuple()
+    if isinstance(arg, str):
+        return (arg,)
+    return tuple(arg)
+
+
+def resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but torch sees no "
+                           "CUDA device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {device}: the port runs on cpu or cuda")
+    return device
+
+
+class Model:
+    """The finite-difference approximation of ``dtU = F(U)`` and its
+    compiled routines.
+
+    Parameters
+    ----------
+    differential_equations : str or iterable of str
+    dependent_variables : str or iterable of str
+    parameters : str or iterable of str, optional
+        scalar or per-node (N,) parameters.
+    help_functions : str or iterable of str, optional
+        fields differenced in space but not evolved in time.
+    double : bool
+        float64 (True) or float32 (False).
+    device : str or torch.device
+        "cpu" or "cuda" (or "cuda:<index>").
+    simplify, fdiff_jac, high_order : as in the reference.
+
+    Attributes
+    ----------
+    F : F_Routine, the interleaved flat RHS (host API).
+    J : J_Routine, the scipy CSC Jacobian (host API).
+    backend : TorchBackend with ``F`` -> (nvar, N) and ``J_bands`` ->
+        (window, nvar, nvar, N).
+    """
+
+    def __init__(self, differential_equations, dependent_variables,
+                 parameters=None, help_functions=None, *, simplify=False,
+                 fdiff_jac=False, double=True, high_order=False,
+                 device="cpu"):
+        if double not in (True, False):
+            raise NotImplementedError(
+                f"double={double!r}: the port has float64 (True) and float32 "
+                "(False); the precision modes are queued (ROADMAP A8)")
+        self._diff_eqs = _coerce(differential_equations)
+        self._dep_vars = _coerce(dependent_variables)
+        self._pars = _coerce(parameters)
+        self._help_funcs = _coerce(help_functions)
+        self._double = double
+        self.device = resolve_device(device)
+        self.system = build_discrete_system(
+            self._diff_eqs, self._dep_vars, self._pars, self._help_funcs,
+            simplify=simplify, fdiff_jac=fdiff_jac, high_order=high_order)
+        self.F_array = np.array(self.system.F_exprs, dtype=object)
+        lo, hi = self.system.bounds
+        nvar = len(self._dep_vars)
+        self.J_array = np.array(
+            [self.system.J_band_exprs.get((m, n, off - lo), sp.S.Zero)
+             for off in range(lo, hi + 1) for n in range(nvar)
+             for m in range(nvar)], dtype=object)
+        dtype = torch.float64 if double else torch.float32
+        self.backend = TorchBackend(self.system, dtype, self.device)
+        var_names = self._dep_vars + self._help_funcs
+        self.F = F_Routine(self.F_array, var_names, self._pars, self.backend)
+        self.J = J_Routine(self.J_array[self.J_array != 0], var_names,
+                           self._pars, self.backend)
+
+    @property
+    def fields_template(self):
+        return fields_mod.factory1D(self._dep_vars, self._help_funcs)
+
+    @property
+    def precision(self):
+        return "f64" if self._double else "f32"
+
+    @property
+    def halo(self):
+        return self.system.halo
+
+    @property
+    def window(self):
+        return self.system.window
+
+    @property
+    def dtype(self):
+        return self.backend.dtype
+
+    def __repr__(self):
+        return "\n".join([
+            *self._diff_eqs, "",
+            "Variables", "---------",
+            f"unknowns:       {', '.join(self._dep_vars)}",
+            f"helpers:        {', '.join(self._help_funcs) or None}",
+            f"parameters:     {', '.join(self._pars) or None}",
+            f"device:         {self.device} ({self.precision})",
+        ])

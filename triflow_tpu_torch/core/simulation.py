@@ -1,0 +1,246 @@
+"""Simulation driver: the user-facing time loop.
+
+Counterpart of ``triflow_tpu.core.simulation``: an iterable yielding
+``(t, fields)`` every output ``dt`` until ``tmax``, with the hook applied
+on the host before each output step, the last step's dt clamped to land on
+``tmax``, post-processes, a stream fan-out, per-step timers and a status
+lifecycle.  Persistence containers, checkpoints, scan-chunked runs and the
+step-doubling wrapper (``time_stepping=True``) are not ported yet and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import inspect
+import logging
+import pprint
+import time
+import warnings
+from collections import namedtuple
+from datetime import datetime, timedelta
+from uuid import uuid1
+
+import numpy as np
+
+from . import schemes
+from ..utils.streams import Stream
+
+logger = logging.getLogger(__name__)
+logger.addHandler(logging.NullHandler())
+
+null_hook = schemes.null_hook
+
+
+class Timer:
+    """Wall time of the scheme calls: the last one and the total."""
+
+    def __init__(self, last, total):
+        self.last = last
+        self.total = total
+
+    @staticmethod
+    def _fmt(seconds):
+        return str(timedelta(seconds=float(seconds)))
+
+    def __repr__(self):
+        return f"last:   {self._fmt(self.last)}\ntotal:  {self._fmt(self.total)}"
+
+
+PostProcess = namedtuple("PostProcess", ["name", "function", "description"])
+
+
+class Simulation:
+    """A model run through time.
+
+    Parameters
+    ----------
+    model : triflow_tpu_torch.Model
+    fields : Fields or mapping of initial conditions (numpy arrays or
+        tensors; copied onto the model's device and dtype)
+    parameters : dict, with the 'periodic' key
+    dt : float, output time step
+    t : float, initial time
+    tmax : float or None (None: endless iterator)
+    id : str, simulation name (generated if omitted)
+    hook : callable ``(t, fields, pars) -> (fields, pars)``; the fields hold
+        tensors, updated in place (``fields["U"][0] = 1.0``) or rebound
+    scheme : scheme class (default ``schemes.Theta``)
+    time_stepping : bool; True (the reference's adaptive step doubling)
+        is not ported yet and raises, so pass ``time_stepping=False``
+    **kwargs : passed to the scheme where its signature takes them
+    """
+
+    def __init__(self, model, fields, parameters, dt, t=0, tmax=None,
+                 id=None, hook=null_hook, scheme=schemes.Theta,
+                 time_stepping=True, mesh=None, **kwargs):
+        if mesh is not None:
+            raise NotImplementedError(
+                "spatial sharding (mesh=...) is not ported yet (ROADMAP A9)")
+        self.id = str(uuid1())[:6] if not id else id
+        self.model = model
+        self.parameters = dict(parameters)
+        keys = fields.keys()
+        tensor = model.backend.as_tensor
+        self.fields = model.fields_template(
+            **{k: tensor(fields[k]).clone() for k in keys})
+        self.t = t
+        self.user_dt = self.dt = dt
+        self.tmax = tmax
+        self.i = 0
+        self._stream = Stream()
+        self._pprocesses = []
+        params = inspect.signature(scheme.__init__).parameters
+        self._scheme = scheme(model, **{k: v for k, v in kwargs.items()
+                                        if k in params})
+        if time_stepping and not getattr(self._scheme, "_time_control", False):
+            raise NotImplementedError(
+                f"time_stepping=True wraps {scheme.__name__} in the "
+                "step-doubling controller, which is not ported yet (ROADMAP "
+                "A3b, DeviceTimeStepping); pass time_stepping=False")
+        self.status = "created"
+        self._total_running = 0
+        self._last_running = 0
+        self._created_timestamp = datetime.now()
+        self._started_timestamp = None
+        self._last_timestamp = None
+        self._actual_timestamp = datetime.now()
+        self._hook = hook
+        self._iterator = self.compute()
+
+    # ------------------------------------------------------------------ loop
+    def _compute_one_step(self, t, fields, pars):
+        if self._hook is not null_hook:
+            # hooks update tensors in place: a copy keeps every state
+            # yielded before as it was yielded
+            fields, pars = self._hook(t, fields.copy(), pars)
+        self.dt = (self.tmax - t
+                   if self.tmax and (t + self.dt >= self.tmax) else self.dt)
+        before = time.monotonic()
+        t, fields = self._scheme(t, fields, self.dt, pars, hook=self._hook)
+        self._last_running = time.monotonic() - before
+        self._total_running += self._last_running
+        self._last_timestamp = self._actual_timestamp
+        self._actual_timestamp = datetime.now()
+        return t, fields, pars
+
+    def compute(self):
+        """Generator yielding the state every dt."""
+        fields, t, pars = self.fields, self.t, self.parameters
+        self._started_timestamp = datetime.now()
+        self.stream.emit(self)
+        self.status = "running"
+        try:
+            while True:
+                if self.tmax and np.isclose(t, self.tmax):
+                    self.status = "finished"
+                    return
+                t, fields, pars = self._compute_one_step(t, fields, pars)
+                self.i += 1
+                self.t, self.fields, self.parameters = t, fields, pars
+                for pprocess in self.post_processes:
+                    pprocess.function(self)
+                self.stream.emit(self)
+                yield self.t, self.fields
+        except RuntimeError:
+            self.status = "failed"
+            raise
+
+    def run(self, progress=True, verbose=False, device_chunk=1):
+        """Compute all steps (never returns when tmax is not set)."""
+        if device_chunk and device_chunk > 1:
+            raise NotImplementedError(
+                "device_chunk > 1 (several output steps per device call) is "
+                "not ported yet (ROADMAP A6)")
+        log = logger.info if verbose else logger.debug
+        t, fields = self.t, self.fields
+        ran = False
+        pbar = None
+        if progress:
+            import tqdm
+
+            total = int((self.tmax // self.user_dt) if self.tmax else 0)
+            pbar = tqdm.tqdm(initial=min(self.i, total), total=total)
+        try:
+            for t, fields in self:
+                ran = True
+                if pbar is not None:
+                    pbar.update(1)
+                log("%s running: t: %g" % (self.id, t))
+        finally:
+            if pbar is not None:
+                pbar.close()
+        if not ran:
+            warnings.warn("Simulation already ended")
+        return t, fields
+
+    # ------------------------------------------------------------- plumbing
+    def attach_container(self, *args, **kwargs):
+        raise NotImplementedError(
+            "persistence containers are not ported yet (ROADMAP A10)")
+
+    def save_checkpoint(self, path):
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
+
+    @staticmethod
+    def from_checkpoint(path, model, **kwargs):
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
+
+    @property
+    def post_processes(self):
+        return self._pprocesses
+
+    @property
+    def stream(self):
+        return self._stream
+
+    @property
+    def container(self):
+        return None
+
+    @property
+    def timer(self):
+        return Timer(self._last_running, self._total_running)
+
+    def add_post_process(self, name, post_process, description=""):
+        """Register a per-step callback taking the simulation."""
+        self._pprocesses.append(PostProcess(name, post_process, description))
+        self._pprocesses[-1].function(self)
+
+    def remove_post_process(self, name):
+        self._pprocesses = [pp for pp in self._pprocesses if pp.name != name]
+
+    def __repr__(self):
+        def stamp(ts):
+            return ts.isoformat(" ", "seconds") if ts else "never"
+
+        lines = [
+            f" Simulation {self.id} ".center(40, "="),
+            f"status      {self.status}",
+            f"created     {stamp(self._created_timestamp)}",
+            f"started     {stamp(self._started_timestamp)}",
+            f"last step   {stamp(self._last_timestamp)}",
+            "",
+            f"t           {self.t:g}"
+            + (f" / tmax {self.tmax:g}" if self.tmax else ""),
+            f"iteration   {self.i}",
+            f"timing      last {self._last_running:g}s, "
+            f"total {self._total_running:g}s",
+            "",
+            "parameters:",
+        ]
+        lines += [f"  {key:<10} {pprint.pformat(value)}"
+                  for key, value in self.parameters.items()]
+        if self._hook is not null_hook:
+            try:
+                hook_src = inspect.getsource(self._hook).rstrip()
+            except (OSError, TypeError):
+                hook_src = repr(self._hook)
+            lines += ["", "hook:", *("  " + ln for ln in hook_src.splitlines())]
+        lines += ["", "model:", str(self.model), "=" * 40]
+        return "\n".join(lines)
+
+    def __iter__(self):
+        return self.compute()
+
+    def __next__(self):
+        return next(self._iterator)

@@ -1,0 +1,197 @@
+// K2: chunked block-Thomas / SPIKE factorization of A = alpha*I + beta*J,
+// read straight from the banded J.
+//
+// Replaces, on the TPU: ops/folded.py factor_sweeps_folded (the forward
+// sweep, fwd_kernel) and ops/pallas_thomas.py _bwd_factor_call_cols (the
+// backward spike sweep).  The TPU ran them as two launches only because its
+// grid is sequential; here one thread walks one chunk through both sweeps.
+//
+// Layout.  The N nodes form M = N / g supernodes of g = max(halo, 1) nodes
+// (block size S = nvar * g, entry a * nvar + m = variable m at local node
+// a).  Chunk c owns supernodes [c * Mc, (c + 1) * Mc).  Every per-row output
+// is stored chunk-minor, (Mc, S, S, C), so the threads of a warp (neighbour
+// chunks) touch neighbouring addresses.
+//
+// Per chunk, rows j = 0 .. Mc-1 of the block-tridiagonal system (L_j, D_j,
+// U_j) are assembled from the bands (the reference's
+// _row_from_folded_bands), the chunk's outer couplings Tl = L_0 and
+// Tr = U_{Mc-1} are split off, and
+//   forward:  fac_j = L_j Dh_{j-1},  Dh_j = (D_j - fac_j U_{j-1})^-1,
+//             wt_j  = Tl (j = 0) or -fac_j wt_{j-1}
+//   backward: DU_j = Dh_j U_j,  W_j = Dh_j wt_j - DU_j W_{j+1},
+//             V_j  = Dh_j [Tr if j = Mc-1] - DU_j V_{j+1}
+// It then writes the chunk's rows of the 2S x 2S reduced interface system
+// (the reference's _reduced_LU): unknowns (x_c^top, x_c^bot) couple to
+// x_{c-1}^bot through W and to x_{c+1}^top through V.  With `cyclic` the
+// wrap couplings of chunks 0 and C-1 stay (periodic closure inside the
+// reduced system); otherwise they are zeroed.
+//
+// Bound: each step of the sweep reads its band rows and writes five S x S
+// blocks, and the Mc steps of a chunk are sequential, so the kernel is
+// bound by memory latency along the sweep rather than by bandwidth or
+// arithmetic.  The design answers with many independent chunks (one thread
+// each, C up to 16384) and coalesced chunk-minor stores.  The band reads
+// are node-major (stride Mc * g between neighbour threads); that is the
+// first thing to fix when this kernel is made fast.
+#include "common.cuh"
+
+namespace {
+
+using tf::Blk;
+
+template <typename T, int S>
+__device__ __forceinline__ Blk<T, S> band_block(const T* __restrict__ bands, long I,
+                                               int dblock, T alpha, T beta, int N,
+                                               int nvar, int g, int h) {
+  Blk<T, S> out;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int a = r / nvar, m = r % nvar;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int b = q / nvar, n = q % nvar;
+      const int delta = (b - a) + dblock * g;
+      T val = T(0);
+      if (delta >= -h && delta <= h)
+        val = beta * bands[((long)((h + delta) * nvar + m) * nvar + n) * N + I * g + a];
+      if (dblock == 0 && r == q) val += alpha;
+      out.v[r][q] = val;
+    }
+  }
+  return out;
+}
+
+template <typename T, int S>
+__device__ __forceinline__ Blk<T, S> sub(const Blk<T, S>& a, const Blk<T, S>& b) {
+  Blk<T, S> c;
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int j = 0; j < S; ++j) c.v[i][j] = a.v[i][j] - b.v[i][j];
+  return c;
+}
+
+template <typename T, int S>
+__global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
+                                    T* Wsp, T* Vsp, T* Lred, T* Ured, int N, int nvar,
+                                    int g, int h, int Mc, int C, int cyclic, T alpha,
+                                    T beta) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  Blk<T, S> dh, up, wt, Tl, Tr;
+  tf::zero(dh);
+  tf::zero(up);
+  tf::zero(wt);
+  tf::zero(Tl);
+  tf::zero(Tr);
+  for (int j = 0; j < Mc; ++j) {
+    const long I = (long)c * Mc + j;
+    Blk<T, S> L = band_block<T, S>(bands, I, -1, alpha, beta, N, nvar, g, h);
+    Blk<T, S> D = band_block<T, S>(bands, I, 0, alpha, beta, N, nvar, g, h);
+    Blk<T, S> U = band_block<T, S>(bands, I, 1, alpha, beta, N, nvar, g, h);
+    if (j == 0) {
+      Tl = L;
+      if (!cyclic && c == 0) tf::zero(Tl);
+      tf::zero(L);
+    }
+    if (j == Mc - 1) {
+      Tr = U;
+      if (!cyclic && c == C - 1) tf::zero(Tr);
+      tf::zero(U);
+    }
+    const Blk<T, S> f = tf::mm(L, dh);
+    dh = tf::inv(sub(D, tf::mm(f, up)));
+    if (j == 0) {
+      wt = Tl;
+    } else {
+      Blk<T, S> z;
+      tf::zero(z);
+      wt = sub(z, tf::mm(f, wt));
+    }
+    tf::store_blk(fac, j, c, C, f);
+    tf::store_blk(Dhinv, j, c, C, dh);
+    tf::store_blk(Wsp, j, c, C, wt);  // wt_j, overwritten by W_j below
+    tf::store_blk(DU, j, c, C, U);    // U_j, overwritten by Dh_j U_j below
+    up = U;
+  }
+
+  Blk<T, S> Wn, Vn, W0, V0, Wl, Vl;
+  tf::zero(Wn);
+  tf::zero(Vn);
+  for (int j = Mc - 1; j >= 0; --j) {
+    const Blk<T, S> dhj = tf::load_blk<T, S>(Dhinv, j, c, C);
+    const Blk<T, S> du = tf::mm(dhj, tf::load_blk<T, S>(DU, j, c, C));
+    const Blk<T, S> W = sub(tf::mm(dhj, tf::load_blk<T, S>(Wsp, j, c, C)), tf::mm(du, Wn));
+    Blk<T, S> V;
+    if (j == Mc - 1) {
+      V = tf::mm(dhj, Tr);
+      Wl = W;
+      Vl = V;
+    } else {
+      Blk<T, S> z;
+      tf::zero(z);
+      V = sub(z, tf::mm(du, Vn));
+    }
+    tf::store_blk(DU, j, c, C, du);
+    tf::store_blk(Wsp, j, c, C, W);
+    tf::store_blk(Vsp, j, c, C, V);
+    Wn = W;
+    Vn = V;
+  }
+  W0 = Wn;
+  V0 = Vn;
+
+  const bool keep_l = cyclic || c != 0;
+  const bool keep_u = cyclic || c != C - 1;
+#pragma unroll
+  for (int r = 0; r < 2 * S; ++r)
+#pragma unroll
+    for (int q = 0; q < 2 * S; ++q) {
+      T lv = T(0), uv = T(0);
+      if (q >= S) lv = (r < S) ? W0.v[r][q - S] : Wl.v[r - S][q - S];
+      if (q < S) uv = (r < S) ? V0.v[r][q] : Vl.v[r - S][q];
+      Lred[((long)r * 2 * S + q) * C + c] = keep_l ? lv : T(0);
+      Ured[((long)r * 2 * S + q) * C + c] = keep_u ? uv : T(0);
+    }
+}
+
+template <typename T>
+int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured, int N,
+           int nvar, int g, int h, int Mc, int C, int cyclic, double alpha, double beta,
+           cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (C + threads - 1) / threads;
+  const T a = T(alpha), b = T(beta);
+  switch (nvar * g) {
+#define TF_CASE(S)                                                                   \
+  case S:                                                                            \
+    spike_factor_kernel<T, S><<<blocks, threads, 0, stream>>>(                       \
+        bands, fac, Dhinv, DU, W, V, Lred, Ured, N, nvar, g, h, Mc, C, cyclic, a, b); \
+    break;
+    TF_CASE(1)
+    TF_CASE(2)
+    TF_CASE(3)
+    TF_CASE(4)
+#undef TF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define TF_ENTRY(NAME, T)                                                                \
+  extern "C" int NAME(const void* bands, void* fac, void* Dhinv, void* DU, void* W,     \
+                      void* V, void* Lred, void* Ured, int N, int nvar, int g, int h,   \
+                      int Mc, int C, int cyclic, double alpha, double beta,             \
+                      void* stream) {                                                   \
+    return launch<T>(static_cast<const T*>(bands), static_cast<T*>(fac),                \
+                     static_cast<T*>(Dhinv), static_cast<T*>(DU), static_cast<T*>(W),   \
+                     static_cast<T*>(V), static_cast<T*>(Lred), static_cast<T*>(Ured),  \
+                     N, nvar, g, h, Mc, C, cyclic, alpha, beta,                         \
+                     static_cast<cudaStream_t>(stream));                                \
+  }
+
+TF_ENTRY(tf_spike_factor_f32, float)
+TF_ENTRY(tf_spike_factor_f64, double)

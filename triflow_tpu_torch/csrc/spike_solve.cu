@@ -1,0 +1,163 @@
+// K3: the per-right-hand-side part of the chunked SPIKE solve, two entries.
+//
+// Replaces, on the TPU: ops/pallas_thomas.py chunked_solve_flat (the
+// chunk-local forward and backward Thomas sweeps) and the spike correction
+// of ops/folded.py _solve_folded_flat, which the reference left to an XLA
+// expression with the state add (`add_to`) fused in.
+//
+// thomas_sweep: one thread per chunk.  With the factors of K2 it solves the
+// chunk-local system with the outer couplings removed,
+//   bt_j = b_j - fac_j bt_{j-1},   y_j = Dh_j bt_j - DU_j y_{j+1},
+// writes y in the node layout (nvar, N) of the right-hand side, and the
+// interface right-hand side yred (2S, C) = (y_0, y_{Mc-1}) of every chunk.
+//
+// spike_correct: one thread per node.  With the interface unknowns of the
+// neighbours from K4 (xm1 = x_{c-1}^bot, xp1 = x_{c+1}^top, each (S, C)),
+//   x = y - W xm1 - V xp1   (+ add_to, the theta step's u + A^-1 dt F).
+//
+// Bound: the sweep is latency-bound along the Mc sequential rows of a
+// chunk, like K2; its node-layout reads and writes are strided by Mc * g
+// between neighbour threads.  The correction is elementwise and
+// bandwidth-bound: it reads y, the two spikes and add_to once and writes x
+// once.
+#include "common.cuh"
+
+namespace {
+
+using tf::Blk;
+
+template <typename T, int S>
+__global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
+                                    const T* __restrict__ DU, const T* __restrict__ rhs, T* y,
+                                    T* yred, int N, int nvar, int g, int Mc, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  T bt[S], t[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) bt[r] = T(0);
+  for (int j = 0; j < Mc; ++j) {
+    const long base = ((long)c * Mc + j) * g;
+    tf::mv(tf::load_blk<T, S>(fac, j, c, C), bt, t);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const long at = (long)(r % nvar) * N + base + r / nvar;
+      bt[r] = rhs[at] - t[r];
+      y[at] = bt[r];
+    }
+  }
+  T yn[S], p[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) yn[r] = T(0);
+  for (int j = Mc - 1; j >= 0; --j) {
+    const long base = ((long)c * Mc + j) * g;
+#pragma unroll
+    for (int r = 0; r < S; ++r) bt[r] = y[(long)(r % nvar) * N + base + r / nvar];
+    tf::mv(tf::load_blk<T, S>(Dhinv, j, c, C), bt, p);
+    tf::mv(tf::load_blk<T, S>(DU, j, c, C), yn, t);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      yn[r] = p[r] - t[r];
+      y[(long)(r % nvar) * N + base + r / nvar] = yn[r];
+      if (j == Mc - 1) yred[(long)(S + r) * C + c] = yn[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < S; ++r) yred[(long)r * C + c] = yn[r];
+}
+
+template <typename T, int S>
+__global__ void spike_correct_kernel(const T* __restrict__ y, const T* __restrict__ Wsp,
+                                     const T* __restrict__ Vsp, const T* __restrict__ xm1,
+                                     const T* __restrict__ xp1, const T* __restrict__ add_to,
+                                     T* out, int N, int nvar, int g, int Mc, int C,
+                                     int has_add) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const long I = i / g;
+  const int a = (int)(i % g);
+  const int c = (int)(I / Mc);
+  const long j = I % Mc;
+  for (int m = 0; m < nvar; ++m) {
+    const int r = a * nvar + m;
+    T corr = T(0);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const long at = ((j * S + r) * S + q) * C + c;
+      corr += Wsp[at] * xm1[(long)q * C + c] + Vsp[at] * xp1[(long)q * C + c];
+    }
+    const long k = (long)m * N + i;
+    const T x = y[k] - corr;
+    out[k] = has_add ? add_to[k] + x : x;
+  }
+}
+
+template <typename T>
+int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred, int N,
+          int nvar, int g, int Mc, int C, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (C + threads - 1) / threads;
+  switch (nvar * g) {
+#define TF_CASE(S)                                                                     \
+  case S:                                                                              \
+    thomas_sweep_kernel<T, S><<<blocks, threads, 0, stream>>>(fac, Dhinv, DU, rhs, y, \
+                                                              yred, N, nvar, g, Mc, C); \
+    break;
+    TF_CASE(1)
+    TF_CASE(2)
+    TF_CASE(3)
+    TF_CASE(4)
+#undef TF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, const T* add_to,
+            T* out, int N, int nvar, int g, int Mc, int C, int has_add, cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (N + threads - 1) / threads;
+  switch (nvar * g) {
+#define TF_CASE(S)                                                                   \
+  case S:                                                                            \
+    spike_correct_kernel<T, S><<<blocks, threads, 0, stream>>>(                      \
+        y, W, V, xm1, xp1, add_to, out, N, nvar, g, Mc, C, has_add);                 \
+    break;
+    TF_CASE(1)
+    TF_CASE(2)
+    TF_CASE(3)
+    TF_CASE(4)
+#undef TF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define TF_ENTRIES(SUFFIX, T)                                                             \
+  extern "C" int tf_thomas_sweep_##SUFFIX(const void* fac, const void* Dhinv,            \
+                                          const void* DU, const void* rhs, void* y,      \
+                                          void* yred, int N, int nvar, int g, int Mc,    \
+                                          int C, void* stream) {                         \
+    return sweep<T>(static_cast<const T*>(fac), static_cast<const T*>(Dhinv),            \
+                    static_cast<const T*>(DU), static_cast<const T*>(rhs),               \
+                    static_cast<T*>(y), static_cast<T*>(yred), N, nvar, g, Mc, C,        \
+                    static_cast<cudaStream_t>(stream));                                  \
+  }                                                                                      \
+  extern "C" int tf_spike_correct_##SUFFIX(const void* y, const void* W, const void* V,  \
+                                           const void* xm1, const void* xp1,             \
+                                           const void* add_to, void* out, int N,         \
+                                           int nvar, int g, int Mc, int C, int has_add,  \
+                                           void* stream) {                               \
+    return correct<T>(static_cast<const T*>(y), static_cast<const T*>(W),                \
+                      static_cast<const T*>(V), static_cast<const T*>(xm1),              \
+                      static_cast<const T*>(xp1), static_cast<const T*>(add_to),         \
+                      static_cast<T*>(out), N, nvar, g, Mc, C, has_add,                  \
+                      static_cast<cudaStream_t>(stream));                                \
+  }
+
+TF_ENTRIES(f32, float)
+TF_ENTRIES(f64, double)

@@ -1,0 +1,162 @@
+// K1: the stencil RHS F and the banded Jacobian J of one model, generated
+// per model from its SymPy expressions (ops/stencil.py prints them into
+// the block marked GENERATED below) and compiled at first use.
+//
+// Replaces, on the TPU: ops/folded.py eval_F_folded (the theta step's
+// dt * F) and, for J, ops/folded.py eval_J_folded and ops/pallas_stencil.py
+// eval_F / eval_J_bands, which compute the same functions in other layouts.
+//
+// One thread per node i, in the reference's node layout: u (nvar, N),
+// helpers (nhelp, N), parameters (npar, N), x (N,).  The thread gathers the
+// argument vector of the expressions (x, every variable at every stencil
+// offset, the parameters, dx) with the boundary closure applied to the
+// index (periodic: modular; edge: clamped, as compiler.shift does), then
+//   F entry: out[m, i] = scale * F_m
+//   J entry: bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), shape
+//            (W, nvar, nvar, N), with the edge fold of compiler.fold_edges
+//            applied on the boundary nodes when not periodic.
+// dx = (x[N-1] - x[0]) / (N - 1) is computed in the kernel, so the caller
+// never reads the grid back to the host.
+//
+// Bound: a stencil of a few flops per loaded value, so both entries are
+// bound by device-memory bandwidth: each reads the (nvar + nhelp) rows W
+// times (neighbours hit in L1/L2) and writes nvar (F) or W * nvar^2 (J)
+// rows once, all coalesced.
+#include <cuda_runtime.h>
+
+extern "C" const char* tf_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// ---- GENERATED: model constants and expression bodies ----
+// @GENERATED@
+// ---- end of generated block ----
+
+namespace {
+
+constexpr int kW = 2 * TF_H + 1;
+constexpr int kNJ = kW * TF_NVAR * TF_NVAR;
+
+template <typename T>
+__device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const T* u,
+                                       const T* hlp, const T* par, const T* x) {
+  int idx = 0;
+  a[idx++] = x[i];
+#pragma unroll
+  for (int off = -TF_H; off <= TF_H; ++off) {
+    long j = i + off;
+    if (periodic) {
+      j %= N;
+      if (j < 0) j += N;
+    } else {
+      j = j < 0 ? 0 : (j > N - 1 ? N - 1 : j);
+    }
+#pragma unroll
+    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = u[v * N + j];
+#pragma unroll
+    for (int v = 0; v < TF_NHELP; ++v) a[idx++] = hlp[v * N + j];
+  }
+#pragma unroll
+  for (int q = 0; q < TF_NPAR; ++q) a[idx++] = par[q * N + i];
+  a[idx] = (x[N - 1] - x[0]) / T(N - 1);
+}
+
+template <typename T>
+__global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                                 const T* __restrict__ par, const T* __restrict__ x,
+                                 T* __restrict__ out, long N, int periodic, T scale) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  T a[TF_NARGS];
+  T f[TF_NVAR];
+  gather(a, i, N, periodic, u, hlp, par, x);
+  tf_F(a, f);
+#pragma unroll
+  for (int m = 0; m < TF_NVAR; ++m) out[m * N + i] = scale * f[m];
+}
+
+template <typename T>
+__global__ void stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                                 const T* __restrict__ par, const T* __restrict__ x,
+                                 T* __restrict__ bands, long N, int periodic) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  T a[TF_NARGS];
+  T b[kNJ];
+#pragma unroll
+  for (int e = 0; e < kNJ; ++e) b[e] = T(0);
+  gather(a, i, N, periodic, u, hlp, par, x);
+  tf_J(a, b);
+  if (!periodic) {
+    // ghost-node dependencies fold onto the boundary columns, in the
+    // order of compiler.fold_edges
+    constexpr int NN = TF_NVAR * TF_NVAR;
+#pragma unroll
+    for (int ii = 0; ii < TF_H; ++ii) {
+      if (i == ii) {
+#pragma unroll
+        for (int k = 0; k < TF_H - ii; ++k)
+#pragma unroll
+          for (int e = 0; e < NN; ++e) {
+            b[(TF_H - ii) * NN + e] += b[k * NN + e];
+            b[k * NN + e] = T(0);
+          }
+      }
+      if (i == N - 1 - ii) {
+#pragma unroll
+        for (int k = 0; k < TF_H - ii; ++k) {
+          const int koff = kW - 1 - k;
+#pragma unroll
+          for (int e = 0; e < NN; ++e) {
+            b[(TF_H + ii) * NN + e] += b[koff * NN + e];
+            b[koff * NN + e] = T(0);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kNJ; ++e) bands[e * N + i] = b[e];
+}
+
+template <typename T>
+int launch_F(const T* u, const T* hlp, const T* par, const T* x, T* out, long N,
+             int periodic, double scale, cudaStream_t stream) {
+  const int threads = 256;
+  const long blocks = (N + threads - 1) / threads;
+  stencil_F_kernel<T><<<blocks, threads, 0, stream>>>(u, hlp, par, x, out, N, periodic,
+                                                      T(scale));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long N,
+             int periodic, cudaStream_t stream) {
+  const int threads = 256;
+  const long blocks = (N + threads - 1) / threads;
+  stencil_J_kernel<T><<<blocks, threads, 0, stream>>>(u, hlp, par, x, bands, N, periodic);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define TF_ENTRIES(SUFFIX, T)                                                               \
+  extern "C" int tf_stencil_F_##SUFFIX(const void* u, const void* hlp, const void* par,    \
+                                       const void* x, void* out, int N, int periodic,      \
+                                       double scale, void* stream) {                       \
+    return launch_F<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
+                       static_cast<const T*>(par), static_cast<const T*>(x),               \
+                       static_cast<T*>(out), N, periodic, scale,                           \
+                       static_cast<cudaStream_t>(stream));                                 \
+  }                                                                                        \
+  extern "C" int tf_stencil_J_##SUFFIX(const void* u, const void* hlp, const void* par,    \
+                                       const void* x, void* bands, int N, int periodic,    \
+                                       void* stream) {                                     \
+    return launch_J<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
+                       static_cast<const T*>(par), static_cast<const T*>(x),               \
+                       static_cast<T*>(bands), N, periodic,                                \
+                       static_cast<cudaStream_t>(stream));                                 \
+  }
+
+TF_ENTRIES(f32, float)
+TF_ENTRIES(f64, double)

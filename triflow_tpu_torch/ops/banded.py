@@ -1,0 +1,259 @@
+"""Plain PyTorch block-banded linear algebra: the reference version of the
+solver kernels K2-K4.
+
+Counterpart of the parts of ``triflow_tpu.ops.banded`` that the theta step
+needs.  A banded matrix ``A (W, nvar, nvar, N)`` (``A[k, m, n, i]`` couples
+node i to node i + k - h) is grouped into supernodes of ``g = max(h, 1)``
+nodes, which makes it block-tridiagonal with dense ``s = nvar * g`` blocks
+(``assemble_blocks``).  The block-tridiagonal system is cut into C chunks
+of Mc rows; each chunk is eliminated by a block-Thomas sweep and the chunks
+are coupled through a reduced system over their interface rows (Wang's
+algorithm, also called SPIKE), which is solved by parallel cyclic
+reduction (PCR).
+
+Block stacks keep the reference's ``(..., s, s, M)`` convention (block
+index last); the chunked arrays are ``(Mc, s, s, C)``, the layout the CUDA
+kernels store.  Loops over rows are Python loops, vectorised over chunks.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def identity_bands(window: int, nvar: int, N: int, dtype=torch.float64,
+                   device="cpu"):
+    """Banded representation of the identity matrix."""
+    bands = torch.zeros((window, nvar, nvar, N), dtype=dtype, device=device)
+    idx = torch.arange(nvar, device=device)
+    bands[window // 2, idx, idx] = 1.0
+    return bands
+
+
+def axpy_bands(alpha, beta, J_bands):
+    """``alpha * I + beta * J`` in banded form."""
+    W, nvar = J_bands.shape[-4], J_bands.shape[-3]
+    A = beta * J_bands
+    idx = torch.arange(nvar, device=J_bands.device)
+    A[..., W // 2, idx, idx, :] += alpha
+    return A
+
+
+def mm(a, b):
+    """Block product over (..., m, k, M) @ (..., k, n, M)."""
+    return torch.einsum("...ikM,...kjM->...ijM", a, b)
+
+
+def mv(a, b):
+    """Block matvec (..., m, k, M) @ (..., k, M) -> (..., m, M)."""
+    return torch.einsum("...ikM,...kM->...iM", a, b)
+
+
+def small_inv(D):
+    """Inverse of small (..., s, s, M) blocks: the closed forms and the
+    block-Schur recursion of the reference's ``_small_inv``."""
+    s = D.shape[-3]
+    if s == 1:
+        return 1.0 / D
+    if s == 2:
+        a, b = D[..., 0, 0, :], D[..., 0, 1, :]
+        c, d = D[..., 1, 0, :], D[..., 1, 1, :]
+        inv_det = 1.0 / (a * d - b * c)
+        return torch.stack([torch.stack([d * inv_det, -b * inv_det], -2),
+                            torch.stack([-c * inv_det, a * inv_det], -2)], -3)
+    if s <= 8:
+        p = s // 2
+        A, B = D[..., :p, :p, :], D[..., :p, p:, :]
+        C, Dd = D[..., p:, :p, :], D[..., p:, p:, :]
+        Ainv = small_inv(A)
+        AinvB = mm(Ainv, B)
+        CAinv = mm(C, Ainv)
+        Sinv = small_inv(Dd - mm(C, AinvB))
+        top = torch.cat([Ainv + mm(AinvB, mm(Sinv, CAinv)), -mm(AinvB, Sinv)], -2)
+        bot = torch.cat([-mm(Sinv, CAinv), Sinv], -2)
+        return torch.cat([top, bot], -3)
+    return torch.linalg.inv(D.movedim(-1, -3)).movedim(-3, -1)
+
+
+def supernode_size(W: int, nvar: int):
+    """(g, s): nodes per supernode and block size of a W-band system."""
+    g = max(W // 2, 1)
+    return g, nvar * g
+
+
+def assemble_blocks(A_bands):
+    """Block-tridiagonal (L, D, U), each (s, s, M), of the banded matrix
+    ``A_bands (W, nvar, nvar, N)``: entry ``[a*nvar + m, b*nvar + n]`` of
+    supernode I's block at block offset ``db`` is
+    ``A[h + (b - a) + db*g, m, n, I*g + a]``.  Couplings that leave the
+    grid (the periodic wrap of supernodes 0 and M-1) stay in L[..., 0] and
+    U[..., M-1]; the chunked factor keeps or drops them."""
+    W, nvar, _, N = A_bands.shape
+    h = W // 2
+    g, s = supernode_size(W, nvar)
+    if N % g:
+        raise ValueError(f"N = {N} is not a multiple of the supernode size "
+                         f"g = {g}")
+    M = N // g
+    # (W, nvar, nvar, M, g) -> (g, W, nvar, nvar, M)
+    A_t = A_bands.reshape(W, nvar, nvar, M, g).permute(4, 0, 1, 2, 3)
+    zero = torch.zeros(M, dtype=A_bands.dtype, device=A_bands.device)
+
+    def block(db):
+        rows = []
+        for a in range(g):
+            for m in range(nvar):
+                row = []
+                for b in range(g):
+                    for n in range(nvar):
+                        delta = (b - a) + db * g
+                        row.append(A_t[a, h + delta, m, n] if abs(delta) <= h
+                                   else zero)
+                rows.append(torch.stack(row))
+        return torch.stack(rows)
+
+    return block(-1), block(0), block(1)
+
+
+def to_chunks(A, C: int):
+    """(..., M) -> (Mc, ..., C): chunk c owns rows [c*Mc, (c+1)*Mc)."""
+    M = A.shape[-1]
+    return A.reshape(A.shape[:-1] + (C, M // C)).movedim(-1, 0)
+
+
+def nodes_to_rows(u, g: int, C: int):
+    """Node layout (nvar, N) -> chunk rows (Mc, s, C), entry a*nvar + m of
+    row j of chunk c = variable m at node (c*Mc + j)*g + a."""
+    nvar, N = u.shape
+    Mc = N // (g * C)
+    rows = u.reshape(nvar, C, Mc, g).permute(2, 3, 0, 1)
+    return rows.reshape(Mc, g * nvar, C)
+
+
+def rows_to_nodes(rows, nvar: int):
+    """Inverse of ``nodes_to_rows``."""
+    Mc, s, C = rows.shape
+    g = s // nvar
+    u = rows.reshape(Mc, g, nvar, C).permute(2, 3, 0, 1)
+    return u.reshape(nvar, C * Mc * g)
+
+
+class SpikeFactor(NamedTuple):
+    """Chunked factorization: per-row Thomas operators and spikes
+    (Mc, s, s, C), and the reduced interface system's couplings
+    (2s, 2s, C)."""
+
+    fac: torch.Tensor
+    Dhinv: torch.Tensor
+    DU: torch.Tensor
+    W: torch.Tensor
+    V: torch.Tensor
+    Lred: torch.Tensor
+    Ured: torch.Tensor
+
+
+def chunked_factor(L, D, U, C: int, cyclic: bool) -> SpikeFactor:
+    """Wang/SPIKE factorization of a block-tridiagonal system in C chunks.
+
+    Chunk c's outer couplings Tl = L_0 (to chunk c-1) and Tr = U_{Mc-1}
+    (to chunk c+1) leave the chunk's sweep and enter the reduced system.
+    With ``cyclic`` the couplings of chunk 0 and chunk C-1 are the periodic
+    wrap and stay; otherwise they are dropped."""
+    Lc, Dc, Uc = (to_chunks(X, C).clone(memory_format=torch.contiguous_format)
+                  for X in (L, D, U))
+    Mc = Lc.shape[0]
+    Tl, Tr = Lc[0].clone(), Uc[-1].clone()
+    if not cyclic:
+        Tl[..., 0] = 0.0
+        Tr[..., -1] = 0.0
+    Lc[0] = 0.0
+    Uc[-1] = 0.0
+    fac = torch.empty_like(Lc)
+    Dhinv = torch.empty_like(Lc)
+    wt = torch.empty_like(Lc)
+    dh = torch.zeros_like(Tl)
+    for j in range(Mc):
+        fac[j] = mm(Lc[j], dh)
+        dh = small_inv(Dc[j] - mm(fac[j], Uc[j - 1] if j else torch.zeros_like(Tl)))
+        Dhinv[j] = dh
+        wt[j] = Tl if j == 0 else -mm(fac[j], wt[j - 1])
+    DU = mm(Dhinv, Uc).contiguous()
+    W = torch.empty_like(Lc)
+    V = torch.empty_like(Lc)
+    Wn = torch.zeros_like(Tl)
+    Vn = torch.zeros_like(Tl)
+    for j in reversed(range(Mc)):
+        Wn = mm(Dhinv[j], wt[j]) - mm(DU[j], Wn)
+        Vn = (mm(Dhinv[j], Tr) if j == Mc - 1 else 0.0) - mm(DU[j], Vn)
+        W[j], V[j] = Wn, Vn
+    s = L.shape[0]
+    Lred = torch.zeros((2 * s, 2 * s, C), dtype=L.dtype, device=L.device)
+    Ured = torch.zeros_like(Lred)
+    Lred[:s, s:], Lred[s:, s:] = W[0], W[-1]
+    Ured[:s, :s], Ured[s:, :s] = V[0], V[-1]
+    if not cyclic:
+        Lred[..., 0] = 0.0
+        Ured[..., -1] = 0.0
+    return SpikeFactor(fac, Dhinv, DU, W, V, Lred, Ured)
+
+
+def chunked_sweep(fac, Dhinv, DU, b):
+    """Chunk-local forward and backward Thomas sweeps of the right-hand
+    side rows b (Mc, s, C) -> y (Mc, s, C)."""
+    Mc = b.shape[0]
+    bt = torch.empty_like(b)
+    prev = torch.zeros_like(b[0])
+    for j in range(Mc):
+        prev = bt[j] = b[j] - mv(fac[j], prev)
+    y = torch.empty_like(b)
+    nxt = torch.zeros_like(b[0])
+    for j in reversed(range(Mc)):
+        nxt = y[j] = mv(Dhinv[j], bt[j]) - mv(DU[j], nxt)
+    return y
+
+
+def _roll(a, d):
+    """``out[..., c] = a[..., c - d]`` around the ring of chunks."""
+    return torch.roll(a, d, dims=-1)
+
+
+def pcr_factor(L, D, U, cyclic: bool):
+    """PCR factorization of a block-tridiagonal system of (s2, s2, C)
+    blocks: per-level (alpha, beta) and the final block inverse.
+
+    Level d combines row c with rows c -+ d, so after ceil(log2 C) levels
+    the system is block-diagonal.  Acyclic rows whose neighbour falls
+    outside keep no coupling; cyclic (C a power of two) rows wrap, and the
+    couplings left at distance C are the diagonal itself."""
+    C = L.shape[-1]
+    if cyclic and C & (C - 1):
+        raise ValueError("cyclic PCR requires a power-of-two C")
+    idx = torch.arange(C, device=L.device)
+    alphas, betas = [], []
+    d = 1
+    while d < C:
+        Dinv = small_inv(D)
+        alpha = -mm(L, _roll(Dinv, d))
+        beta = -mm(U, _roll(Dinv, -d))
+        if not cyclic:
+            alpha = torch.where(idx >= d, alpha, 0.0)
+            beta = torch.where(idx < C - d, beta, 0.0)
+        D = D + mm(alpha, _roll(U, d)) + mm(beta, _roll(L, -d))
+        L, U = mm(alpha, _roll(L, d)), mm(beta, _roll(U, -d))
+        alphas.append(alpha)
+        betas.append(beta)
+        d *= 2
+    if cyclic:
+        D = D + L + U
+    return alphas, betas, small_inv(D)
+
+
+def pcr_solve(alphas, betas, Dinv, b):
+    """Solve with a ``pcr_factor`` result; b is (..., s2, C)."""
+    d = 1
+    for alpha, beta in zip(alphas, betas):
+        b = b + mv(alpha, _roll(b, d)) + mv(beta, _roll(b, -d))
+        d *= 2
+    return mv(Dinv, b)

@@ -1,0 +1,122 @@
+"""Chunked SPIKE factor and solve of ``alpha*I + beta*J``: the plan and the
+orchestration of kernels K2-K4.
+
+Counterpart of ``triflow_tpu.ops.folded``'s ``factor_folded`` and
+``_solve_folded_flat``, without the TPU's sublane packing of the chunk
+axis: state and right-hand sides stay in the node layout ``(nvar, N)`` and
+the kernels store their per-row arrays chunk-minor.
+
+A periodic grid closes its ring inside the reduced interface system
+(block-cyclic PCR), which needs a power-of-two chunk count.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from . import pcr, thomas
+
+#: smallest power-of-two chunk count of a periodic plan
+MIN_CYCLIC_C = 8
+
+#: cost model of a plan, in microseconds, fitted to the chunk-count sweep
+#: of Burgers at N = 2^20 on one H100 (PERF.md): K2 and K3's sweep walk
+#: the Mc rows of a chunk one after the other, and every level of K4's PCR
+#: costs a fixed latency plus one slab per pcr.BLOCK_THREADS chunks
+ROW_US = 1.5
+LEVEL_US = 9.0
+SLAB_US = 3.5
+
+
+def plan_cost_us(M: int, C: int) -> float:
+    """Modelled time of the sequential parts of one factor and solve with
+    C chunks of M // C rows."""
+    slabs = -(-C // pcr.BLOCK_THREADS)
+    return ROW_US * (M // C) + pcr.n_levels(C) * (LEVEL_US + SLAB_US * slabs)
+
+
+class Plan(NamedTuple):
+    N: int        # nodes
+    nvar: int
+    halo: int
+    g: int        # nodes per supernode, max(halo, 1)
+    W: int        # band window, 2 * halo + 1
+    C: int        # chunks
+    Mc: int       # supernode rows per chunk
+    cyclic: bool  # the reduced system carries the periodic wrap
+
+    @property
+    def s(self):
+        return self.nvar * self.g
+
+    @property
+    def M(self):
+        return self.N // self.g
+
+
+def _divisors(M):
+    out = set()
+    d = 1
+    while d * d <= M:
+        if M % d == 0:
+            out.update((d, M // d))
+        d += 1
+    return sorted(out)
+
+
+def make_plan(N: int, nvar: int, halo: int, periodic: bool) -> Plan:
+    """Chunk plan: the admissible chunk count C (at least 2 rows per chunk,
+    at most ``pcr.MAX_C`` chunks) of least ``plan_cost_us``.  Periodic
+    grids need C a power of two >= 8."""
+    g = max(halo, 1)
+    if N % g:
+        raise ValueError(f"N = {N} is not a multiple of the supernode size "
+                         f"g = {g}")
+    M = N // g
+    cyclic = bool(periodic) and halo > 0
+    cands = [C for C in _divisors(M) if C <= pcr.MAX_C and M // C >= 2]
+    if cyclic:
+        cands = [C for C in cands if C >= MIN_CYCLIC_C and C & (C - 1) == 0]
+        if not cands:
+            raise ValueError(
+                f"no chunk plan for a periodic grid of {M} supernodes: the "
+                "block-cyclic reduced system needs a power-of-two chunk "
+                f"count >= {MIN_CYCLIC_C} dividing it; other periodic grids "
+                "wait for the Woodbury closure (WrappedPcr), which is queued "
+                "(ROADMAP A2b)")
+    if not cands:
+        raise ValueError(f"no chunk plan for a grid of {M} supernodes")
+    C = min(cands, key=lambda C: (plan_cost_us(M, C), C))
+    return Plan(N, nvar, halo, g, 2 * halo + 1, C, M // C, cyclic)
+
+
+class ChunkedFactorization:
+    """Factorization of ``alpha*I + beta*J`` for the chunked solve."""
+
+    def __init__(self, spikes, red, plan: Plan):
+        self.spikes = spikes
+        self.red = red
+        self.plan = plan
+
+    def solve(self, rhs, add_to=None):
+        """``add_to + A^-1 rhs`` (or ``A^-1 rhs``), rhs of shape (nvar, N)."""
+        plan = self.plan
+        y, yred = thomas.thomas_sweep(self.spikes, rhs, plan)
+        xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.cyclic)
+        return thomas.spike_correct(self.spikes, y, xm1, xp1, plan,
+                                    add_to=add_to)
+
+
+def factor(alpha, beta, bands, periodic: bool, plan: Plan = None):
+    """Factor ``alpha*I + beta*J`` from J's bands (W, nvar, nvar, N);
+    ``plan`` defaults to ``make_plan`` of their shape."""
+    if plan is None:
+        W, nvar, _, N = bands.shape
+        plan = make_plan(N, nvar, W // 2, periodic)
+    spikes = thomas.spike_factor(bands, alpha, beta, plan)
+    red = pcr.pcr_factor(spikes.Lred, spikes.Ured, plan.cyclic)
+    return ChunkedFactorization(spikes, red, plan)
+
+
+def solve(fact: ChunkedFactorization, rhs, add_to=None):
+    return fact.solve(rhs, add_to=add_to)

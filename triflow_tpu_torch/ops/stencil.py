@@ -1,0 +1,187 @@
+"""Kernel K1: the per-model stencil kernel for ``F`` and the banded ``J``.
+
+The CUDA source is generated from the model's SymPy expressions (the
+counterpart of the run-time code generation of the original triflow, which
+compiled Theano graphs): each ``F_exprs`` entry and each ``J_band_exprs``
+entry is printed as a C++ expression templated on the element type ``T``
+and spliced into ``csrc/stencil.cu``.  The printer keeps every literal a
+``T`` value, so the float instantiation never computes in double.
+
+Replaces the TPU's ``ops/folded.py:eval_F_folded`` (and computes the same
+functions as ``eval_J_folded`` and ``ops/pallas_stencil.py:eval_F`` /
+``eval_J_bands``).  The plain versions are ``TorchBackend.F_impl`` and
+``TorchBackend.J_bands_impl``.
+"""
+
+from __future__ import annotations
+
+import re
+
+import sympy as sp
+import torch
+from sympy.printing.c import C99CodePrinter
+
+from . import _build
+from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+
+#: launches of the F entry and of the J entry made by the wrappers below
+F_LAUNCHES = Counter("K1.F")
+J_LAUNCHES = Counter("K1.J")
+
+
+class KernelPrinter(C99CodePrinter):
+    """C++ printer for expressions evaluated in element type ``T``.
+
+    Symbols print as entries ``a[i]`` of the argument vector; numbers as
+    ``T(...)`` values; integer powers as products; ``Max``/``Min`` as
+    ``fmax``/``fmin``; ``Heaviside(a, h0)`` as
+    ``a > 0 ? 1 : (a < 0 ? 0 : h0)``."""
+
+    def __init__(self, arg_index):
+        super().__init__()
+        self._arg_index = arg_index
+
+    def _print_Symbol(self, expr):
+        try:
+            return f"a[{self._arg_index[expr]}]"
+        except KeyError:
+            raise ValueError(f"symbol {expr} is not a kernel argument") from None
+
+    def _print_Integer(self, expr):
+        return f"T({int(expr)})"
+
+    def _print_Float(self, expr):
+        return f"T({float(expr)!r})"
+
+    def _print_Rational(self, expr):
+        return f"(T({int(expr.p)}) / T({int(expr.q)}))"
+
+    def _print_Half(self, expr):
+        return self._print_Rational(expr)
+
+    def _print_NumberSymbol(self, expr):
+        return f"T({float(expr)!r})"
+
+    _print_Pi = _print_NumberSymbol
+    _print_Exp1 = _print_NumberSymbol
+
+    def _print_Pow(self, expr):
+        base = self._print(expr.base)
+        exp = expr.exp
+        if exp.is_Integer:
+            n = int(exp)
+            if n == 0:
+                return "T(1)"
+            prod = "*".join([f"({base})"] * abs(n))
+            return f"({prod})" if n > 0 else f"(T(1) / ({prod}))"
+        if exp == sp.S.Half:
+            return f"sqrt({base})"
+        if exp == -sp.S.Half:
+            return f"(T(1) / sqrt({base}))"
+        return f"pow({base}, {self._print(exp)})"
+
+    def _minmax(self, fn, args):
+        out = self._print(args[0])
+        for arg in args[1:]:
+            out = f"{fn}({out}, {self._print(arg)})"
+        return out
+
+    def _print_Max(self, expr):
+        return self._minmax("fmax", expr.args)
+
+    def _print_Min(self, expr):
+        return self._minmax("fmin", expr.args)
+
+    def _print_Heaviside(self, expr):
+        a = self._print(expr.args[0])
+        h0 = self._print(expr.args[1] if len(expr.args) > 1 else sp.S.Half)
+        return f"(({a}) > T(0) ? T(1) : (({a}) < T(0) ? T(0) : {h0}))"
+
+    def _print_sign(self, expr):
+        a = self._print(expr.args[0])
+        return f"(({a}) > T(0) ? T(1) : (({a}) < T(0) ? T(-1) : T(0)))"
+
+    def _print_Abs(self, expr):
+        return f"fabs({self._print(expr.args[0])})"
+
+
+def generate_source(system, args_symbols) -> str:
+    """The model's K1 CUDA source: the template with the constants and the
+    expression bodies of ``system`` spliced in."""
+    printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
+    nvar = system.nvar
+    lines = [
+        f"#define TF_NVAR {nvar}",
+        f"#define TF_NHELP {len(system.help_funcs)}",
+        f"#define TF_NPAR {len(system.pars)}",
+        f"#define TF_H {system.halo}",
+        f"#define TF_NARGS {len(args_symbols)}",
+        "template <typename T>",
+        "__device__ __forceinline__ void tf_F(const T* a, T* f) {",
+    ]
+    for m, expr in enumerate(system.F_exprs):
+        lines.append(f"  f[{m}] = {printer.doprint(expr)};")
+    lines += ["}", "template <typename T>",
+              "__device__ __forceinline__ void tf_J(const T* a, T* b) {"]
+    for (m, n, k), expr in system.J_band_exprs.items():
+        lines.append(f"  b[{(k * nvar + m) * nvar + n}] = {printer.doprint(expr)};")
+    lines.append("}")
+    template = (_build.CSRC / "stencil.cu").read_text()
+    return template.replace("// @GENERATED@", "\n".join(lines))
+
+
+#: a floating-point literal that does not sit directly inside ``T(...)``
+#: (such a literal would be a double in the float instantiation)
+BARE_LITERAL = re.compile(
+    r"(?<![\w.])(?<!T\()(?<!T\(-)\d+(?:\.\d*(?:[eE][-+]?\d+)?|[eE][-+]?\d+)")
+
+
+def library(system, args_symbols) -> _build.Library:
+    """The model's K1 library, generated and built at its first launch."""
+    return _build.Library("stencil",
+                          lambda: generate_source(system, args_symbols))
+
+
+def _kernel_inputs(backend, u, helpers, pstack, x):
+    check_cuda((u, helpers, pstack, x), backend.dtype, "K1 stencil")
+    sysm = backend.system
+    N = x.shape[-1]
+    check_shapes("K1 stencil", u=(u, (sysm.nvar, N)),
+                 helpers=(helpers, (len(sysm.help_funcs), N)),
+                 pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
+    return N
+
+
+def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0):
+    """``scale * F(u)``, shape (nvar, N).  CPU tensors take the plain
+    version; CUDA tensors launch K1's F entry."""
+    if u.device.type == "cpu":
+        out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
+        return out if scale == 1.0 else scale * out
+    N = _kernel_inputs(backend, u, helpers, pstack, x)
+    out = torch.empty((backend.system.nvar, N), dtype=u.dtype, device=u.device)
+    lib = backend.stencil
+    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 5, 2, 1)
+    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+            out.data_ptr(), N, int(bool(periodic)), float(scale), stream_of(u))
+    lib.check(rc, "K1 stencil F")
+    F_LAUNCHES.add()
+    return out
+
+
+def eval_J(backend, u, helpers, pstack, x, periodic):
+    """Banded J, shape (W, nvar, nvar, N), edge-folded when not periodic.
+    CPU tensors take the plain version; CUDA tensors launch K1's J entry."""
+    if u.device.type == "cpu":
+        return backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+    N = _kernel_inputs(backend, u, helpers, pstack, x)
+    nvar = backend.system.nvar
+    bands = torch.empty((backend.window, nvar, nvar, N), dtype=u.dtype,
+                        device=u.device)
+    lib = backend.stencil
+    fn = lib.fn(f"tf_stencil_J_{suffix(u.dtype)}", 5, 2)
+    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+            bands.data_ptr(), N, int(bool(periodic)), stream_of(u))
+    lib.check(rc, "K1 stencil J")
+    J_LAUNCHES.add()
+    return bands
