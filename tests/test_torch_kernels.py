@@ -15,7 +15,7 @@ kernel for.
 import pytest
 import torch
 
-from triflow_tpu_torch import Model
+from triflow_tpu_torch import Model, schemes
 from triflow_tpu_torch.ops import _launch, chunked, kernel_checks, pcr, thomas
 
 torch.set_num_threads(1)
@@ -38,17 +38,41 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
     assert set(_launch.COUNTERS) <= set(results[name])
 
 
+#: the kernel entries one Theta step launches once each (all but K5)
+THETA_KERNELS = ("K1.F", "K1.J", "K2.spike_factor", "K3.thomas_sweep",
+                 "K3.spike_correct", "K4.pcr_factor", "K4.pcr_solve_shift")
+
+
+def _burgers_on(device, N=4096):
+    model = Model("-U * dxU + nu * dxxU", "U", "nu", device=device)
+    x = torch.arange(N, dtype=torch.float64, device=device) * 0.5
+    fields = model.fields_template(x=x, U=torch.cos(2 * torch.pi * x / x[-1]))
+    return model, fields, {"periodic": True, "nu": 0.5}
+
+
 @pytest.mark.cuda
 def test_theta_step_launches_every_kernel(cuda_device):
-    model = Model("-U * dxU + nu * dxxU", "U", "nu", device=cuda_device)
-    N = 4096
-    x = torch.arange(N, dtype=torch.float64, device=cuda_device) * 0.5
-    fields = model.fields_template(x=x, U=torch.cos(2 * torch.pi * x / x[-1]))
-    from triflow_tpu_torch import schemes
-
+    model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
-    schemes.Theta(model)(0.0, fields, 0.05, {"periodic": True, "nu": 0.5})
-    assert all(c == 1 for c in _launch.counts().values())
+    schemes.Theta(model)(0.0, fields, 0.05, pars)
+    counts = _launch.counts()
+    assert {k: counts[k] for k in THETA_KERNELS} == dict.fromkeys(THETA_KERNELS, 1)
+    assert counts["K5.combine"] == 0
+
+
+@pytest.mark.cuda
+def test_rodaspr_step_launches_every_kernel(cuda_device):
+    """One fixed RODASPR step: one J and one factor, six biased F and six
+    solves, and five stage combinations plus the final one."""
+    model, fields, pars = _burgers_on(cuda_device)
+    _launch.reset_counters()
+    schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
+                                                           pars)
+    counts = _launch.counts()
+    assert all(c > 0 for c in counts.values())
+    assert counts["K1.J"] == counts["K2.spike_factor"] == 1
+    assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
+    assert counts["K5.combine"] == 6
 
 
 def test_check_harness_on_cpu():
@@ -71,7 +95,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         pcr.pcr_factor(torch.empty((2, 2, 8), **meta),
                        torch.empty((2, 2, 8), **meta), True)
-    model = Model("k * dxxU", "U", "k")
+    model = Model("k * dxxU", "U", "k", device="cpu")
     args = [torch.empty(shape, **meta) for shape in ((1, 64), (0, 64), (1, 64), (64,))]
     with pytest.raises(ValueError, match="CUDA"):
         model.backend.F(*args, periodic=True)

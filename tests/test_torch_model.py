@@ -53,7 +53,7 @@ def _rel(a, b):
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_F_J_match_jax_and_numpy(name, periodic):
     eqs, dep, pars = MODELS[name]
-    model_t = tt.Model(eqs, dep, pars)
+    model_t = tt.Model(eqs, dep, pars, device="cpu")
     model_j = tj.Model(eqs, dep, pars)
     ref_np = NumpyBackend(model_j.system, dtype=np.float64)
     x, u, p = _state(model_t, pars)
@@ -75,7 +75,7 @@ def test_F_J_match_jax_and_numpy(name, periodic):
 def test_routines_match_jax(name):
     """The host routines: interleaved flat F and the CSC Jacobian."""
     eqs, dep, pars = MODELS[name]
-    model_t = tt.Model(eqs, dep, pars)
+    model_t = tt.Model(eqs, dep, pars, device="cpu")
     model_j = tj.Model(eqs, dep, pars)
     x, u, p = _state(model_t, pars, seed=1)
     p["periodic"] = True
@@ -95,8 +95,8 @@ def _generated_block(source):
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_stencil_codegen_deterministic_and_typed(name):
     eqs, dep, pars = MODELS[name]
-    first = tt.Model(eqs, dep, pars).backend.stencil.source()
-    second = tt.Model(eqs, dep, pars, double=False).backend.stencil.source()
+    first = tt.Model(eqs, dep, pars, device="cpu").backend.stencil.source()
+    second = tt.Model(eqs, dep, pars, double=False, device="cpu").backend.stencil.source()
     assert first == second
     block = _generated_block(first)
     assert "tf_F" in block and "tf_J" in block
@@ -116,8 +116,17 @@ def test_cuda_device_without_card_raises():
         tt.Model("k * dxxU", "U", "k", device="cuda")
 
 
+def test_default_device_is_the_card(monkeypatch):
+    """Without ``device=`` a model targets the card, so it raises where
+    torch sees none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.Model("k * dxxU", "U", "k")
+
+
 def test_model_dtype_and_unported_precision():
-    assert tt.Model("k * dxxU", "U", "k").dtype == torch.float64
-    assert tt.Model("k * dxxU", "U", "k", double=False).dtype == torch.float32
+    assert tt.Model("k * dxxU", "U", "k", device="cpu").dtype == torch.float64
+    assert tt.Model("k * dxxU", "U", "k", double=False,
+                    device="cpu").dtype == torch.float32
     with pytest.raises(NotImplementedError):
-        tt.Model("k * dxxU", "U", "k", double="df64")
+        tt.Model("k * dxxU", "U", "k", double="df64", device="cpu")

@@ -58,7 +58,7 @@ def ks_state(N, seed=0):
 def _both(eqs, state, double=True):
     fields_np, pars = state
     model_j = tj.Model(*eqs)
-    model_t = tt.Model(*eqs, double=double)
+    model_t = tt.Model(*eqs, double=double, device="cpu")
     fields_j = model_j.fields_template(**fields_np)
     fields_t, pars_t = state_from_numpy(fields_np, pars, model_t)
     return model_j, fields_j, model_t, fields_t, pars, pars_t
@@ -122,7 +122,7 @@ def test_simulation_trajectory_matches_jax(case):
 
 def test_dt_clamps_at_tmax():
     fields_np, pars = readme_state(40)
-    model = tt.Model(*README)
+    model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     sim = tt.Simulation(model, fields, pars_t, dt=0.3, tmax=1.0,
                         time_stepping=False)
@@ -133,7 +133,7 @@ def test_dt_clamps_at_tmax():
 
 def test_post_process_stream_and_timer():
     fields_np, pars = readme_state(40)
-    model = tt.Model(*README)
+    model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=3.0,
                         time_stepping=False, hook=dirichlet_torch)
@@ -148,10 +148,14 @@ def test_post_process_stream_and_timer():
 
 def test_unported_features_raise():
     fields_np, pars = readme_state(40)
-    model = tt.Model(*README)
+    model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
-    with pytest.raises(NotImplementedError, match="time_stepping"):
-        tt.Simulation(model, fields, pars_t, dt=1.0)
+    for knob in (dict(compensated=True), dict(refine=1),
+                 dict(df64_mixed_solve=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.schemes.RODASPR(model, **knob)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.Simulation(model, fields, pars_t, dt=1.0, **knob)
     sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=2.0,
                         time_stepping=False)
     with pytest.raises(NotImplementedError):
@@ -172,7 +176,7 @@ def test_yielded_states_stay_as_yielded():
         return fields, pars
 
     fields_np, pars = readme_state(40)
-    model = tt.Model(*README)
+    model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=3.0,
                         time_stepping=False, hook=bump)
@@ -184,7 +188,7 @@ def test_yielded_states_stay_as_yielded():
 def test_hook_does_not_touch_the_callers_arrays():
     fields_np, pars = readme_state(40)
     before = fields_np["U"].copy()
-    model = tt.Model(*README)
+    model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     sim = tt.Simulation(model, fields, pars_t, dt=1.0, tmax=1.0,
                         time_stepping=False, hook=dirichlet_torch)

@@ -152,9 +152,12 @@ class TorchBackend:
         self.stencil = stencil.library(system, self.args_symbols)
 
     # ------------------------------------------------------- kernel route
-    def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0):
-        """``scale * F``, shape (nvar, N): kernel K1 on CUDA tensors."""
-        return stencil.eval_F(self, u, helpers, pstack, x, periodic, scale)
+    def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0,
+          bias=None):
+        """``scale * F (+ bias)``, shape (nvar, N): kernel K1 on CUDA
+        tensors."""
+        return stencil.eval_F(self, u, helpers, pstack, x, periodic, scale,
+                              bias)
 
     def J_bands(self, u, helpers, pstack, x, *, periodic: bool):
         """Banded J, shape (W, nvar, nvar, N): kernel K1 on CUDA tensors."""

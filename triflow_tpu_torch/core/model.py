@@ -4,11 +4,12 @@ functions on one device.
 Counterpart of ``triflow_tpu.core.model``:
 
 >>> from triflow_tpu_torch import Model
->>> model = Model("k * dxxU", "U", "k")
+>>> model = Model("k * dxxU", "U", "k", device="cpu")
 
 ``double=True`` computes in ``torch.float64``, ``double=False`` in
-``torch.float32``.  ``device`` is explicit: the model's tensors and kernels
-live there, and asking for ``"cuda"`` on a machine without a card raises.
+``torch.float32``.  The model's tensors and kernels live on ``device``,
+which is the card (``"cuda"``) unless the caller asks for ``"cpu"``;
+asking for the card on a machine without one raises.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ class Model:
     double : bool
         float64 (True) or float32 (False).
     device : str or torch.device
-        "cpu" or "cuda" (or "cuda:<index>").
+        "cuda" (the default, or "cuda:<index>") or "cpu", where every
+        kernel takes its plain PyTorch version.
     simplify, fdiff_jac, high_order : as in the reference.
 
     Attributes
@@ -70,7 +72,7 @@ class Model:
     def __init__(self, differential_equations, dependent_variables,
                  parameters=None, help_functions=None, *, simplify=False,
                  fdiff_jac=False, double=True, high_order=False,
-                 device="cpu"):
+                 device="cuda"):
         if double not in (True, False):
             raise NotImplementedError(
                 f"double={double!r}: the port has float64 (True) and float32 "

@@ -1,16 +1,25 @@
 """Temporal schemes: callables ``scheme(t, fields, dt, pars, hook) -> (t,
 fields)`` that step the discretized system on the model's device.
 
-Counterpart of the parts of ``triflow_tpu.core.schemes`` on the theta
-step's path: ``null_hook``, the device-state plumbing (``_DeviceProblem``,
-``_SchemeBase``) and ``Theta``.  The Rosenbrock-Wanner family, the
-explicit Runge-Kutta family and the step-doubling wrapper are queued.
+Counterpart of the parts of ``triflow_tpu.core.schemes`` on the implicit
+main path: ``null_hook``, the device-state plumbing (``_DeviceProblem``,
+``_SchemeBase``), ``Theta``, the Rosenbrock-Wanner family (``ROW_general``,
+``ROS2``, ``ROS3PRw``, ``ROS3PRL``, ``RODASPR``) with its embedded-error
+controller, and the step-doubling wrapper (``DeviceTimeStepping``,
+``time_stepping``).  The explicit Runge-Kutta family is queued.
 
 Hooks keep the reference contract ``hook(t, fields, pars) -> (fields,
 pars)``.  The fields hold torch tensors, so a Dirichlet condition is the
 in-place ``fields["U"][0] = 1.0`` (returning the same fields); rebinding a
-name to a new tensor works too.  The hook runs before the step at ``t`` and
-after it at ``t + dt``, as in the reference.
+name to a new tensor works too.  The hook runs before every attempted step
+at its start time and once after the output step at ``t + dt``, as in the
+reference.
+
+The adaptive loops run on the host.  An attempt is enqueued on the device
+and its error estimate is the one scalar read back, which decides it.
+Every controller quantity (t, dt, err, the new dt) is a numpy scalar of the
+model's dtype, so a float32 run takes the decisions the float32 reference
+takes in ``u.dtype``.
 """
 
 from __future__ import annotations
@@ -19,10 +28,27 @@ import numpy as np
 import torch
 
 from ..ops import chunked
+from ..ops.combine import combine
 
 
 def null_hook(t, fields, pars):
     return fields, pars
+
+
+def _seed_internal_dt(scheme, dt):
+    """First-call internal dt for an adaptive scheme: small (1e-6) so the
+    controller ramps up safely from an unknown state, but never below the
+    user's dt_min (the 10x-per-accept growth cap cannot escape a seed under
+    the floor).  The step-doubling wrapper seeds with the output dt."""
+    if not getattr(scheme, "_time_control", False):
+        return dt
+    if getattr(scheme, "_seed_with_dt", False):
+        return dt
+    dt_min = getattr(scheme, "_dt_min", None)
+    seed = 1e-6
+    if dt_min is not None:
+        seed = max(seed, dt_min)
+    return min(seed, dt)
 
 
 class _DeviceProblem:
@@ -61,9 +87,9 @@ class _DeviceProblem:
                    if sysm.pars else pstack)
         return u2, helpers2, pstack2.contiguous(), x2.contiguous()
 
-    def F(self, u, helpers, pstack, x, scale=1.0):
+    def F(self, u, helpers, pstack, x, scale=1.0, bias=None):
         return self.backend.F(u, helpers, pstack, x, periodic=self.periodic,
-                              scale=scale)
+                              scale=scale, bias=bias)
 
     def J_bands(self, u, helpers, pstack, x):
         return self.backend.J_bands(u, helpers, pstack, x,
@@ -71,11 +97,20 @@ class _DeviceProblem:
 
 
 class _SchemeBase:
-    """Splits Fields into device tensors, steps them, rebuilds Fields."""
+    """Splits Fields into device tensors, steps them, rebuilds Fields.
+
+    Subclasses define ``fixed_step(problem, t, u, helpers, pstack, x, dt)
+    -> (u', helpers', pstack', x', err)``: the hook at ``t``, then one step
+    of ``dt`` (the counterpart of the reference's ``_fixed_step_fn``).
+    ``err`` is the embedded error estimate as a 0-d tensor, or None for a
+    scheme without one."""
+
+    _time_control = False
 
     def __init__(self, model):
         self._model = model
         self._problems = {}
+        self._plans = {}
         self._np_dtype = np.float64 if model.dtype == torch.float64 \
             else np.float32
 
@@ -85,9 +120,19 @@ class _SchemeBase:
             self._problems[key] = _DeviceProblem(self._model, hook, periodic)
         return self._problems[key]
 
-    def _advance(self, t, dt):
-        """``t + dt`` rounded as the model's dtype adds them."""
-        return float(self._np_dtype(t) + self._np_dtype(dt))
+    def _plan(self, N, periodic):
+        key = (N, periodic)
+        if key not in self._plans:
+            self._plans[key] = chunked.make_plan(
+                N, self._model.system.nvar, self._model.halo, periodic)
+        return self._plans[key]
+
+    def _factor(self, problem, u, helpers, pstack, x, beta):
+        """J's bands (K1) and the chunked factor of ``I + beta*J`` (K2,
+        K4)."""
+        plan = self._plan(x.shape[-1], problem.periodic)
+        bands = problem.J_bands(u, helpers, pstack, x)
+        return chunked.factor(1.0, beta, bands, problem.periodic, plan)
 
     def _split(self, fields, pars):
         backend = self._model.backend
@@ -119,32 +164,457 @@ class Theta(_SchemeBase):
                 "Theta(solver=...): custom linear solvers are not ported yet")
         super().__init__(model)
         self._theta = theta
-        self._plans = {}
 
-    def _plan(self, N, periodic):
-        key = (N, periodic)
-        if key not in self._plans:
-            self._plans[key] = chunked.make_plan(
-                N, self._model.system.nvar, self._model.halo, periodic)
-        return self._plans[key]
-
-    def fixed_step(self, problem, u, helpers, pstack, x, dt):
-        """One step of dt from a hooked state: returns the new u."""
+    def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
+        u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
         dt = float(self._np_dtype(dt))
         theta = self._theta
         rhs = problem.F(u, helpers, pstack, x, scale=dt)
         if theta == 0:
-            return u + rhs
-        plan = self._plan(x.shape[-1], problem.periodic)
-        bands = problem.J_bands(u, helpers, pstack, x)
-        fact = chunked.factor(1.0, -theta * dt, bands, problem.periodic, plan)
-        return fact.solve(rhs, add_to=u)
+            return u + rhs, helpers, pstack, x, None
+        fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
+        return fact.solve(rhs, add_to=u), helpers, pstack, x, None
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
+        T = self._np_dtype
         problem = self._problem(hook, bool(pars.get("periodic", False)))
         u, helpers, pstack, x = self._split(fields, pars)
+        u2, helpers, pstack, x, _ = self.fixed_step(problem, t, u, helpers,
+                                                    pstack, x, dt)
+        t2 = T(t) + T(dt)
+        u2, helpers, pstack, x = problem.apply_hook(float(t2), u2, helpers,
+                                                    pstack, x)
+        return float(t2), self._rebuild(u2, helpers, x)
+
+
+def _combos(rows, arrays):
+    """``combine`` (K5) with the columns that are zero in every row
+    dropped, as the reference's stage algebra does."""
+    cols = [j for j in range(len(arrays))
+            if any(rows[k][j] for k in range(len(rows)))]
+    return combine([[rows[k][j] for j in cols] for k in range(len(rows))],
+                   [arrays[j] for j in cols])
+
+
+class ROW_general(_SchemeBase):
+    """Generic s-stage Rosenbrock-Wanner solver with one banded
+    factorization per step reused across all stages, an embedded-order
+    error estimate and an adaptive-dt controller.
+
+    The stages use the Hairer-Wanner transformed tables (Solving ODEs II,
+    ch. IV.7): with ``ut_i = sum_{j<=i} gamma_ij k_j`` each stage is
+    ``(I - g00*dt*J) ut_i = g00*dt*F(u + sum a_ij ut_j) + g00 * sum_{j<i}
+    c_ij ut_j``, so a step is one J (K1), one factor (K2, K4), and per
+    stage one combination (K5), one biased F (K1) and one solve (K3, K4,
+    K3), then one final combination (K5)."""
+
+    def __init__(self, model, alpha, gamma, b, b_pred=None,
+                 time_stepping=False, tol=None, max_iter=None, dt_min=None,
+                 safety_factor=0.9, recompute_target=True,
+                 compensated=False, refine=0, df64_mixed_solve=None):
+        if compensated:
+            raise NotImplementedError(
+                "compensated=True (the Kahan-summed state) is not ported yet "
+                "(ROADMAP A8)")
+        if refine:
+            raise NotImplementedError(
+                "refine > 0 needs the banded matvec kernel, which is not "
+                "ported yet (ROADMAP B10)")
+        if df64_mixed_solve is not None:
+            raise NotImplementedError(
+                "df64_mixed_solve: the df64 precision mode is not ported yet "
+                "(ROADMAP A8)")
+        super().__init__(model)
+        self._alpha = np.asarray(alpha, dtype=np.float64)
+        self._gamma = np.asarray(gamma, dtype=np.float64)
+        self._b = np.asarray(b, dtype=np.float64)
+        self._b_pred = None if b_pred is None else np.asarray(b_pred, np.float64)
+        self._s = len(b)
+        s = self._s
+        g00 = self._gamma[0, 0]
+        G = np.tril(self._gamma, -1) + g00 * np.eye(s)
+        Ginv = np.linalg.inv(G)
+        self._a_t = self._alpha @ Ginv                  # strictly lower
+        self._c_t = -np.tril(Ginv, -1)                  # strictly lower
+        self._m_t = self._b @ Ginv
+        self._m_pred_t = (None if b_pred is None
+                          else np.asarray(b_pred, np.float64) @ Ginv)
+        self._time_control = time_stepping
+        self._tol = tol
+        self._safety_factor = safety_factor
+        self._max_iter = max_iter
+        self._dt_min = dt_min
+        self._recompute_target = recompute_target
+        self._internal_dt = None
+        self._internal_iter = None
+        if time_stepping and b_pred is None:
+            raise NotImplementedError(
+                "time stepping requires the predictor (b_pred) coefficients")
+        if time_stepping and tol is None:
+            raise ValueError("time_stepping=True requires a tolerance (tol)")
+
+    def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
+        """The hook at ``t``, then one ROW step of ``dt`` in the order of
+        the reference's ``_row_folded_core``.  ``err = max|u_new - u_pred|``
+        (inf where not finite); with neither a tolerance nor time stepping
+        no controller reads it, so the final combination emits ``u_new``
+        alone and ``err`` is inf."""
         u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
-        u2 = self.fixed_step(problem, u, helpers, pstack, x, dt)
-        t2 = self._advance(t, dt)
-        u2, helpers, pstack, x = problem.apply_hook(t2, u2, helpers, pstack, x)
-        return t2, self._rebuild(u2, helpers, x)
+        T = self._np_dtype
+        g00 = self._gamma[0, 0]
+        # g00 * dt rounded as the model's dtype multiplies them
+        gdt = float(T(g00) * T(dt))
+        fact = self._factor(problem, u, helpers, pstack, x, -gdt)
+        a_t, c_t = self._a_t, self._c_t
+        us = []
+        for i in range(self._s):
+            terms = [(1.0, 0.0, u)]
+            for j in range(i):
+                a, b = float(a_t[i, j]), float(g00 * c_t[i, j])
+                if a or b:
+                    terms.append((a, b, us[j]))
+            a_row = [term[0] for term in terms]
+            c_row = [term[1] for term in terms]
+            arrays = [term[2] for term in terms]
+            if not any(c_row):
+                u_i = u if len(terms) == 1 else _combos([a_row], arrays)[0]
+                csum = None
+            else:
+                u_i, csum = _combos([a_row, c_row], arrays)
+            rhs = problem.F(u_i, helpers, pstack, x, scale=gdt, bias=csum)
+            us.append(fact.solve(rhs))
+        m_t = [float(m) for m in self._m_t]
+        if self._m_pred_t is None or (self._tol is None
+                                      and not self._time_control):
+            u_new = _combos([[1.0] + m_t], [u] + us)[0]
+            err = torch.full((), np.inf, dtype=u.dtype, device=u.device)
+        else:
+            d_t = [float(m - p) for m, p in zip(self._m_t, self._m_pred_t)]
+            u_new, diff = _combos([[1.0] + m_t, [0.0] + d_t], [u] + us)
+            err = diff.abs().max()
+            err = torch.where(torch.isfinite(err), err,
+                              torch.full_like(err, np.inf))
+        return u_new, helpers, pstack, x, err
+
+    def _adaptive(self, problem, t, u, helpers, pstack, x, dt, internal_dt):
+        """Advance from ``t`` to ``t + dt`` through accepted attempts: the
+        counterpart of the reference's ``_adaptive_embedded_loop`` with the
+        ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt,
+        10*dt)``.  Returns (next_t, u, helpers, pstack, x, dt_i, niter,
+        status), status 1 for max_iter and 2 for the dt floor."""
+        T = self._np_dtype
+        info = np.finfo(T)
+        tol, safety = T(self._tol), T(self._safety_factor)
+        interpolate = not self._recompute_target
+        next_t = T(t) + T(dt)
+        eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+        if self._dt_min is not None:
+            dt_floor = T(self._dt_min)
+        else:
+            dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
+        t_ = T(t)
+        dt_i = T(internal_dt) if interpolate \
+            else np.minimum(T(internal_dt), T(dt))
+        tp, up = t_, u
+        niter, status = 0, 0
+        while next_t - t_ > eps and status == 0:
+            if interpolate:
+                clamped, dt_eff = False, dt_i
+            else:
+                remaining = next_t - t_
+                clamped = dt_i >= remaining
+                dt_eff = np.minimum(dt_i, remaining)
+            u2, h2, p2, _x2, err = self.fixed_step(
+                problem, float(t_), u, helpers, pstack, x, dt_eff)
+            err = T(err.item())
+            accept = err <= tol
+            dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))
+            dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
+                                 T(10.0) * dt_eff)
+            if accept:
+                tp, up = t_, u
+                t_ = t_ + dt_eff
+                u, helpers, pstack = u2, h2, p2
+            if not (accept and clamped):
+                dt_i = dt_next
+            niter += 1
+            if self._max_iter is not None and niter > self._max_iter:
+                status = 1
+            if dt_i < dt_floor:
+                status = 2
+        if interpolate:
+            span = np.maximum(t_ - tp, info.tiny)
+            w = np.clip((next_t - tp) / span, T(0.0), T(1.0))
+            u = up + float(w) * (u - up)
+        return next_t, u, helpers, pstack, x, dt_i, niter, status
+
+    def __call__(self, t, fields, dt, pars, hook=null_hook):
+        """Advance from t to t + dt (one output step, any number of
+        internal attempts)."""
+        T = self._np_dtype
+        problem = self._problem(hook, bool(pars.get("periodic", False)))
+        u, helpers, pstack, x = self._split(fields, pars)
+        internal_dt = self._internal_dt
+        if internal_dt is None:
+            internal_dt = _seed_internal_dt(self, dt)
+        if self._time_control:
+            t2, u2, h2, p2, x2, dt_i, niter, status = self._adaptive(
+                problem, t, u, helpers, pstack, x, dt, internal_dt)
+        else:
+            u2, h2, p2, x2, _ = self.fixed_step(problem, t, u, helpers,
+                                                pstack, x, T(dt))
+            t2, dt_i, niter, status = T(t) + T(dt), T(internal_dt), 0, 0
+        if status == 1:
+            raise RuntimeError(
+                "Rosenbrock internal iteration above max iterations authorized")
+        if status == 2:
+            raise RuntimeError(
+                "Rosenbrock internal time step less than authorized")
+        u2, h2, p2, x2 = problem.apply_hook(float(t2), u2, h2, p2, x2)
+        self._internal_dt = float(dt_i)
+        self._internal_iter = int(niter)
+        return float(t2), self._rebuild(u2, h2, x2)
+
+
+class ROS2(ROW_general):
+    """2nd-order 2-stage Rosenbrock scheme, no time stepping."""
+
+    def __init__(self, model, df64_mixed_solve=None):
+        gamma = np.array([[2.928932188134e-1, 0],
+                          [-5.857864376269e-1, 2.928932188134e-1]])
+        alpha = np.array([[0, 0],
+                          [1, 0]])
+        b = np.array([1 / 2, 1 / 2])
+        super().__init__(model, alpha, gamma, b, time_stepping=False,
+                         df64_mixed_solve=df64_mixed_solve)
+
+
+class ROS3PRw(ROW_general):
+    """3rd-order W-method ROS3PRw with embedded error control (Rang 2013)."""
+
+    def __init__(self, model, tol=1e-1, time_stepping=True,
+                 max_iter=None, dt_min=None, recompute_target=True,
+                 compensated=False, refine=0, df64_mixed_solve=None):
+        alpha = np.zeros((3, 3))
+        gamma = np.zeros((3, 3))
+        gamma_i = 7.8867513459481287e-01
+        b = [5.0544867840851759e-01,
+             -1.1571687603637559e-01,
+             6.1026819762785800e-01]
+        b_pred = [2.8973180237214197e-01,
+                  1.0000000000000001e-01,
+                  6.1026819762785800e-01]
+        alpha[1, 0] = 2.3660254037844388e+00
+        alpha[2, 0] = 5.0000000000000000e-01
+        alpha[2, 1] = 7.6794919243112270e-01
+        gamma[0, 0] = gamma[1, 1] = gamma[2, 2] = gamma_i
+        gamma[1, 0] = -2.3660254037844388e+00
+        gamma[2, 0] = -8.6791218280355165e-01
+        gamma[2, 1] = -8.7306695894642317e-01
+        super().__init__(model, alpha, gamma, b, b_pred=b_pred,
+                         time_stepping=time_stepping, tol=tol,
+                         max_iter=max_iter, dt_min=dt_min,
+                         recompute_target=recompute_target,
+                         compensated=compensated, refine=refine,
+                         df64_mixed_solve=df64_mixed_solve)
+
+
+class ROS3PRL(ROW_general):
+    """4-stage stiffly-accurate ROS3PRL with embedded error control (Rang
+    2013)."""
+
+    def __init__(self, model, tol=1e-1, time_stepping=True,
+                 max_iter=None, dt_min=None, recompute_target=True,
+                 compensated=False, refine=0, df64_mixed_solve=None):
+        alpha = np.zeros((4, 4))
+        gamma = np.zeros((4, 4))
+        gamma_i = 4.3586652150845900e-01
+        b = [2.1103008548132443e-03,
+             8.8607515441580453e-01,
+             -3.2405197677907682e-01,
+             4.3586652150845900e-01]
+        b_pred = [5.0000000000000000e-01,
+                  3.8752422953298199e-01,
+                  -2.0949226315045236e-01,
+                  3.2196803361747034e-01]
+        alpha[1, 0] = .5
+        alpha[2, 0] = .5
+        alpha[2, 1] = .5
+        alpha[3, 0] = .5
+        alpha[3, 1] = .5
+        alpha[3, 2] = 0
+        for i in range(len(b)):
+            gamma[i, i] = gamma_i
+        gamma[1, 0] = -5.0000000000000000e-01
+        gamma[2, 0] = -7.9156480420464204e-01
+        gamma[2, 1] = 3.5244216792751432e-01
+        gamma[3, 0] = -4.9788969914518677e-01
+        gamma[3, 1] = 3.8607515441580453e-01
+        gamma[3, 2] = -3.2405197677907682e-01
+        super().__init__(model, alpha, gamma, b, b_pred=b_pred,
+                         time_stepping=time_stepping, tol=tol,
+                         max_iter=max_iter, dt_min=dt_min,
+                         recompute_target=recompute_target,
+                         compensated=compensated, refine=refine,
+                         df64_mixed_solve=df64_mixed_solve)
+
+
+class RODASPR(ROW_general):
+    """6-stage RODASPR, order 4(3), the default scheme (Rang 2013)."""
+
+    def __init__(self, model, tol=1e-1, time_stepping=True,
+                 max_iter=None, dt_min=None, recompute_target=True,
+                 compensated=False, refine=0, df64_mixed_solve=None):
+        alpha = np.zeros((6, 6))
+        gamma = np.zeros((6, 6))
+        b = [-7.9683251690137014e-1,
+             6.2136401428192344e-2,
+             1.1198553514719862e0,
+             4.7198362114404874e-1,
+             -1.0714285714285714e-1,
+             2.5e-1]
+        b_pred = [-7.3844531665375115e0,
+                  -3.0593419030174646e-1,
+                  7.8622074209377981e0,
+                  5.7817993590145966e-1,
+                  2.5e-1,
+                  0]
+        alpha[1, 0] = 7.5e-1
+        alpha[2, 0] = 7.5162877593868457e-2
+        alpha[2, 1] = 2.4837122406131545e-2
+        alpha[3, 0] = 1.6532708886396510e0
+        alpha[3, 1] = 2.1545706385445562e-1
+        alpha[3, 2] = -1.3157488872766792e0
+        alpha[4, 0] = 1.9385003738039885e1
+        alpha[4, 1] = 1.2007117225835324e0
+        alpha[4, 2] = -1.9337924059522791e1
+        alpha[4, 3] = -2.4779140110062559e-1
+        alpha[5, 0] = -7.3844531665375115e0
+        alpha[5, 1] = -3.0593419030174646e-1
+        alpha[5, 2] = 7.8622074209377981e0
+        alpha[5, 3] = 5.7817993590145966e-1
+        alpha[5, 4] = 2.5e-1
+        gamma_i = .25
+        for i in range(len(b)):
+            gamma[i, i] = gamma_i
+        gamma[1, 0] = -7.5e-1
+        gamma[2, 0] = -8.8644e-2
+        gamma[2, 1] = -2.868897e-2
+        gamma[3, 0] = -4.84700e0
+        gamma[3, 1] = -3.1583e-1
+        gamma[3, 2] = 4.9536568e0
+        gamma[4, 0] = -2.67694569e1
+        gamma[4, 1] = -1.5066459e0
+        gamma[4, 2] = 2.720013e1
+        gamma[4, 3] = 8.25971337e-1
+        gamma[5, 0] = 6.58762e0
+        gamma[5, 1] = 3.6807059e-1
+        gamma[5, 2] = -6.74235e0
+        gamma[5, 3] = -1.061963e-1
+        gamma[5, 4] = -3.57142857e-1
+        super().__init__(model, alpha, gamma, b, b_pred=b_pred,
+                         time_stepping=time_stepping, tol=tol,
+                         max_iter=max_iter, dt_min=dt_min,
+                         recompute_target=recompute_target,
+                         compensated=compensated, refine=refine,
+                         df64_mixed_solve=df64_mixed_solve)
+
+
+class DeviceTimeStepping(_SchemeBase):
+    """Richardson (step-doubling) error control for a scheme without its
+    own estimator: every attempt compares one coarse step of ``dt`` with
+    ``m`` fine steps of ``dt/m`` of the wrapped scheme.
+
+    err = max over variables of ``||coarse - fine||_ord / (m^2 - 1)``; the
+    attempt is rejected when the controller asks for a shrink beyond
+    ``reject_factor``, and a dt below the roundoff floor raises
+    ``RuntimeError``."""
+
+    _time_control = True
+    _seed_with_dt = True  # the first coarse attempt is the output dt
+
+    def __init__(self, scheme, tol=1e-1, ord=2, m=10, reject_factor=2):
+        super().__init__(scheme._model)
+        self._inner = scheme
+        self._tol = tol
+        self._ord = ord
+        self._m = m
+        self._reject_factor = reject_factor
+        self._internal_dt = None
+        self._internal_iter = None
+
+    def _norm(self, diff):
+        """np.linalg.norm(coarse - fine, ord) per variable, max over the
+        variables; diff is (nvar, N)."""
+        if self._ord == np.inf:
+            per_var = diff.abs().amax(dim=-1)
+        elif self._ord == 2:
+            per_var = torch.sqrt(torch.sum(diff * diff, dim=-1))
+        else:
+            per_var = torch.sum(diff.abs() ** self._ord, dim=-1) ** (
+                1.0 / self._ord)
+        return per_var.max()
+
+    def _attempt(self, problem, t, u, helpers, pstack, x, dt_eff):
+        """(fine state, err) of the coarse-versus-m-fine pair."""
+        T = self._np_dtype
+        step = self._inner.fixed_step
+        uc = step(problem, float(t), u, helpers, pstack, x, dt_eff)[0]
+        dt_f = dt_eff / T(self._m)
+        tf, uf, hf, pf, xf = t, u, helpers, pstack, x
+        for _ in range(self._m):
+            uf, hf, pf, xf, _ = step(problem, float(tf), uf, hf, pf, xf, dt_f)
+            tf = tf + dt_f
+        err = T(self._norm(uc - uf).item()) / T(self._m * self._m - 1)
+        if not np.isfinite(err):
+            err = T(np.inf)
+        return uf, hf, pf, err
+
+    def __call__(self, t, fields, dt, pars, hook=null_hook):
+        T = self._np_dtype
+        info = np.finfo(T)
+        problem = self._problem(hook, bool(pars.get("periodic", False)))
+        u, helpers, pstack, x = self._split(fields, pars)
+        internal_dt = self._internal_dt
+        if internal_dt is None:
+            internal_dt = _seed_internal_dt(self, dt)
+        tol = T(self._tol)
+        next_t = T(t) + T(dt)
+        eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
+        t_ = T(t)
+        dt_i = np.minimum(T(internal_dt), T(dt))
+        niter, status = 0, 0
+        while t_ < next_t - eps and status == 0:
+            remaining = next_t - t_
+            clamped = dt_i >= remaining
+            dt_eff = np.minimum(dt_i, remaining)
+            uf, hf, pf, err = self._attempt(problem, t_, u, helpers, pstack,
+                                            x, dt_eff)
+            dt_next = dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))
+            dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
+                                 T(10.0) * dt_eff)
+            accept = dt_next >= dt_eff / T(self._reject_factor)
+            if accept:
+                t_ = t_ + dt_eff
+                u, helpers, pstack = uf, hf, pf
+            if not (accept and clamped):
+                dt_i = dt_next
+            niter += 1
+            if dt_i < dt_floor:
+                status = 2
+        if status == 2:
+            raise RuntimeError(
+                "step-doubling internal time step less than authorized")
+        u, helpers, pstack, x = problem.apply_hook(float(next_t), u, helpers,
+                                                   pstack, x)
+        self._internal_dt = float(dt_i)
+        self._internal_iter = int(niter)
+        return float(next_t), self._rebuild(u, helpers, x)
+
+
+def time_stepping(scheme, tol=1e-1, ord=2, m=10, reject_factor=2):
+    """Step-doubling adaptive wrapper around a scheme without its own error
+    control (every scheme of the port exposes a fixed step)."""
+    return DeviceTimeStepping(scheme, tol=tol, ord=ord, m=m,
+                              reject_factor=reject_factor)

@@ -4,9 +4,11 @@ Counterpart of ``triflow_tpu.core.simulation``: an iterable yielding
 ``(t, fields)`` every output ``dt`` until ``tmax``, with the hook applied
 on the host before each output step, the last step's dt clamped to land on
 ``tmax``, post-processes, a stream fan-out, per-step timers and a status
-lifecycle.  Persistence containers, checkpoints, scan-chunked runs and the
-step-doubling wrapper (``time_stepping=True``) are not ported yet and
-raise ``NotImplementedError``.
+lifecycle.  The default scheme is ``RODASPR`` with its own adaptive
+controller; a scheme without one is wrapped in the step-doubling
+controller (``schemes.time_stepping``) unless ``time_stepping=False``.
+Persistence containers, checkpoints and scan-chunked runs are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,14 +66,16 @@ class Simulation:
     id : str, simulation name (generated if omitted)
     hook : callable ``(t, fields, pars) -> (fields, pars)``; the fields hold
         tensors, updated in place (``fields["U"][0] = 1.0``) or rebound
-    scheme : scheme class (default ``schemes.Theta``)
-    time_stepping : bool; True (the reference's adaptive step doubling)
-        is not ported yet and raises, so pass ``time_stepping=False``
-    **kwargs : passed to the scheme where its signature takes them
+    scheme : scheme class (default ``schemes.RODASPR``)
+    time_stepping : bool, passed to the scheme where its signature takes
+        it; a scheme left without its own controller is wrapped in
+        ``schemes.time_stepping`` (step doubling) when True
+    **kwargs : passed to the scheme, and to ``schemes.time_stepping`` when
+        it wraps the scheme, where their signatures take them
     """
 
     def __init__(self, model, fields, parameters, dt, t=0, tmax=None,
-                 id=None, hook=null_hook, scheme=schemes.Theta,
+                 id=None, hook=null_hook, scheme=schemes.RODASPR,
                  time_stepping=True, mesh=None, **kwargs):
         if mesh is not None:
             raise NotImplementedError(
@@ -89,14 +93,17 @@ class Simulation:
         self.i = 0
         self._stream = Stream()
         self._pprocesses = []
-        params = inspect.signature(scheme.__init__).parameters
-        self._scheme = scheme(model, **{k: v for k, v in kwargs.items()
-                                        if k in params})
-        if time_stepping and not getattr(self._scheme, "_time_control", False):
-            raise NotImplementedError(
-                f"time_stepping=True wraps {scheme.__name__} in the "
-                "step-doubling controller, which is not ported yet (ROADMAP "
-                "A3b, DeviceTimeStepping); pass time_stepping=False")
+
+        def accepted(function):
+            params = inspect.signature(function).parameters
+            return {k: v for k, v in kwargs.items() if k in params}
+
+        kwargs["time_stepping"] = time_stepping
+        self._scheme = scheme(model, **accepted(scheme.__init__))
+        # a scheme with its own adaptive controller is not wrapped again
+        if time_stepping and not self._scheme._time_control:
+            self._scheme = schemes.time_stepping(
+                self._scheme, **accepted(schemes.time_stepping))
         self.status = "created"
         self._total_running = 0
         self._last_running = 0

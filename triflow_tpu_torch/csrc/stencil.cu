@@ -3,7 +3,8 @@
 // the block marked GENERATED below) and compiled at first use.
 //
 // Replaces, on the TPU: ops/folded.py eval_F_folded (the theta step's
-// dt * F) and, for J, ops/folded.py eval_J_folded and ops/pallas_stencil.py
+// dt * F and, in its scale/bias mode, the ROW stage right-hand side
+// g00 dt F(u_i) + csum) and, for J, ops/folded.py eval_J_folded and ops/pallas_stencil.py
 // eval_F / eval_J_bands, which compute the same functions in other layouts.
 //
 // One thread per node i, in the reference's node layout: u (nvar, N),
@@ -11,7 +12,8 @@
 // argument vector of the expressions (x, every variable at every stencil
 // offset, the parameters, dx) with the boundary closure applied to the
 // index (periodic: modular; edge: clamped, as compiler.shift does), then
-//   F entry: out[m, i] = scale * F_m
+//   F entry: out[m, i] = scale * F_m (+ bias[m, i] when a bias is given;
+//            a null bias pointer means none, as add_to in K3)
 //   J entry: bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), shape
 //            (W, nvar, nvar, N), with the edge fold of compiler.fold_edges
 //            applied on the boundary nodes when not periodic.
@@ -21,7 +23,9 @@
 // Bound: a stencil of a few flops per loaded value, so both entries are
 // bound by device-memory bandwidth: each reads the (nvar + nhelp) rows W
 // times (neighbours hit in L1/L2) and writes nvar (F) or W * nvar^2 (J)
-// rows once, all coalesced.
+// rows once, all coalesced.  The bias costs one more coalesced read of
+// nvar rows, which saves the separate pass of the stage algebra that would
+// re-read F and the bias and write the sum.
 #include <cuda_runtime.h>
 
 extern "C" const char* tf_error_string(int err) {
@@ -64,7 +68,8 @@ __device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const
 template <typename T>
 __global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
                                  const T* __restrict__ par, const T* __restrict__ x,
-                                 T* __restrict__ out, long N, int periodic, T scale) {
+                                 const T* __restrict__ bias, T* __restrict__ out, long N,
+                                 int periodic, T scale) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   T a[TF_NARGS];
@@ -72,7 +77,10 @@ __global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ 
   gather(a, i, N, periodic, u, hlp, par, x);
   tf_F(a, f);
 #pragma unroll
-  for (int m = 0; m < TF_NVAR; ++m) out[m * N + i] = scale * f[m];
+  for (int m = 0; m < TF_NVAR; ++m) {
+    const T v = scale * f[m];
+    out[m * N + i] = bias ? v + bias[m * N + i] : v;
+  }
 }
 
 template <typename T>
@@ -120,12 +128,12 @@ __global__ void stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ 
 }
 
 template <typename T>
-int launch_F(const T* u, const T* hlp, const T* par, const T* x, T* out, long N,
-             int periodic, double scale, cudaStream_t stream) {
+int launch_F(const T* u, const T* hlp, const T* par, const T* x, const T* bias, T* out,
+             long N, int periodic, double scale, cudaStream_t stream) {
   const int threads = 256;
   const long blocks = (N + threads - 1) / threads;
-  stencil_F_kernel<T><<<blocks, threads, 0, stream>>>(u, hlp, par, x, out, N, periodic,
-                                                      T(scale));
+  stencil_F_kernel<T><<<blocks, threads, 0, stream>>>(u, hlp, par, x, bias, out, N,
+                                                      periodic, T(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,12 +150,12 @@ int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long 
 
 #define TF_ENTRIES(SUFFIX, T)                                                               \
   extern "C" int tf_stencil_F_##SUFFIX(const void* u, const void* hlp, const void* par,    \
-                                       const void* x, void* out, int N, int periodic,      \
-                                       double scale, void* stream) {                       \
+                                       const void* x, const void* bias, void* out, int N,  \
+                                       int periodic, double scale, void* stream) {         \
     return launch_F<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
                        static_cast<const T*>(par), static_cast<const T*>(x),               \
-                       static_cast<T*>(out), N, periodic, scale,                           \
-                       static_cast<cudaStream_t>(stream));                                 \
+                       static_cast<const T*>(bias), static_cast<T*>(out), N, periodic,     \
+                       scale, static_cast<cudaStream_t>(stream));                          \
   }                                                                                        \
   extern "C" int tf_stencil_J_##SUFFIX(const void* u, const void* hlp, const void* par,    \
                                        const void* x, void* bands, int N, int periodic,    \

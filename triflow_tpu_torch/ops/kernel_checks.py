@@ -7,7 +7,10 @@ Inputs are made with numpy from a seed.  Tolerances: float64 F and J within
 entry; float32 F and J within 1e-5 of the largest entry, float32 solver
 pieces within 1e-4, and the float32 solve's residual ``|A x - b| / |b|``
 within 1e-4.  float32 is looser because FMA contraction and summation order
-differ between the kernel and torch.
+differ between the kernel and torch.  K5 (combine) rounds every product and
+sum as its plain version does, in the same order, so it should agree to
+the last bit; it is held to 1e-15 (f64) and 1e-6 (f32) of the largest
+entry, a few units in the last place.
 """
 
 from __future__ import annotations
@@ -15,10 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import chunked, pcr, thomas
+from . import chunked, combine, pcr, stencil, thomas
 
-TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10},
-       torch.float32: {"FJ": 1e-5, "solve": 1e-4}}
+TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10, "combine": 1e-15},
+       torch.float32: {"FJ": 1e-5, "solve": 1e-4, "combine": 1e-6}}
 
 #: (equations, dependent variables, parameters) the K1 checks compile
 STENCIL_MODELS = {
@@ -49,8 +52,8 @@ def _record(results, name, got, want, tol, what):
 
 
 def check_stencil(model, N, periodic, device, seed=0, results=None):
-    """K1's F (with a scale) and J entries against ``F_impl`` /
-    ``J_bands_impl`` on random inputs of the model's dtype."""
+    """K1's F (with a scale, then with a scale and a bias) and J entries
+    against their plain versions on random inputs of the model's dtype."""
     results = {} if results is None else results
     b = model.backend
     dtype = b.dtype
@@ -69,9 +72,59 @@ def check_stencil(model, N, periodic, device, seed=0, results=None):
     F_k = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale)
     F_p = scale * b.F_impl(u, helpers, pstack, x, periodic=periodic)
     _record(results, "K1.F", F_k, F_p, tol, f"N={N} periodic={periodic}")
+    bias = t(rng.standard_normal((sysm.nvar, N)))
+    F_k = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale, bias=bias)
+    F_p = stencil.eval_F_plain(b, u, helpers, pstack, x, periodic, scale, bias)
+    _record(results, "K1.F", F_k, F_p, tol,
+            f"N={N} periodic={periodic} with bias")
     J_k = b.J_bands(u, helpers, pstack, x, periodic=periodic)
     J_p = b.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
     _record(results, "K1.J", J_k, J_p, tol, f"N={N} periodic={periodic}")
+    return results
+
+
+def check_combine(rows, arrays, results=None):
+    """K5 against its plain version on the same arrays."""
+    results = {} if results is None else results
+    tol = TOL[arrays[0].dtype]["combine"]
+    what = (f"A={len(arrays)} R={len(rows)} shape={tuple(arrays[0].shape)} "
+            f"rows={rows}")
+    got = combine.combine(rows, arrays)
+    want = combine.combine_plain(rows, arrays)
+    for g, w in zip(got, want):
+        _record(results, "K5.combine", g, w, tol, what)
+    return results
+
+
+#: (nvar, N) shapes of the K5 checks: N neither a multiple of the block
+#: (256) nor of a warp, and two variables
+COMBINE_SHAPES = [(1, 1000), (2, 777), (1, 4096)]
+
+
+def combine_cases(rng):
+    """(rows, n_arrays) of the K5 checks: A from 1 to 7, R of 1 and 2,
+    rows with zero and unit coefficients and a row that is all zero."""
+    cases = []
+    for A in range(1, 8):
+        for R in (1, 2):
+            rows = rng.standard_normal((R, A)).tolist()
+            rows[0][0] = 1.0
+            if A > 2:
+                rows[-1][1] = 0.0
+            cases.append(rows)
+    cases.append([[0.0, 0.0, 1.0], [0.0, 0.0, 0.0]])
+    cases.append([[1.0, 1.0], [1.0, -1.0]])
+    return cases
+
+
+def check_all_combines(device, dtype, results=None, seed=0):
+    results = {} if results is None else results
+    rng = np.random.default_rng(seed)
+    for shape in COMBINE_SHAPES:
+        for rows in combine_cases(rng):
+            arrays = [torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                   device=device) for _ in rows[0]]
+            check_combine(rows, arrays, results)
     return results
 
 
@@ -176,5 +229,6 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         for i, (W, nvar, N, periodic) in enumerate(SOLVER_CASES):
             bands = random_bands(W, nvar, N, dtype, device, seed=i)
             check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results)
+        check_all_combines(device, dtype, results)
         out[str(dtype).replace("torch.", "")] = results
     return out

@@ -7,10 +7,13 @@ entry is printed as a C++ expression templated on the element type ``T``
 and spliced into ``csrc/stencil.cu``.  The printer keeps every literal a
 ``T`` value, so the float instantiation never computes in double.
 
-Replaces the TPU's ``ops/folded.py:eval_F_folded`` (and computes the same
-functions as ``eval_J_folded`` and ``ops/pallas_stencil.py:eval_F`` /
-``eval_J_bands``).  The plain versions are ``TorchBackend.F_impl`` and
-``TorchBackend.J_bands_impl``.
+Replaces the TPU's ``ops/folded.py:eval_F_folded`` in its plain and its
+``scale``/``bias`` mode (``scale * F(u) + bias``, the ROW stage right-hand
+side), and computes the same functions as ``eval_J_folded`` and
+``ops/pallas_stencil.py:eval_F`` / ``eval_J_bands``.  ``eval_F_folded``'s
+fused ``u_terms`` mode runs only on the reference's ensemble plans and is
+not ported yet (ROADMAP A7).  The plain versions are
+``scale * TorchBackend.F_impl + bias`` and ``TorchBackend.J_bands_impl``.
 """
 
 from __future__ import annotations
@@ -152,18 +155,32 @@ def _kernel_inputs(backend, u, helpers, pstack, x):
     return N
 
 
-def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0):
-    """``scale * F(u)``, shape (nvar, N).  CPU tensors take the plain
-    version; CUDA tensors launch K1's F entry."""
+def eval_F_plain(backend, u, helpers, pstack, x, periodic, scale=1.0,
+                 bias=None):
+    out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
+    if scale != 1.0:
+        out = scale * out
+    return out if bias is None else out + bias
+
+
+def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
+    """``scale * F(u) (+ bias)``, shape (nvar, N); ``bias`` is None or of
+    shape (nvar, N).  CPU tensors take the plain version; CUDA tensors
+    launch K1's F entry."""
     if u.device.type == "cpu":
-        out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
-        return out if scale == 1.0 else scale * out
+        return eval_F_plain(backend, u, helpers, pstack, x, periodic, scale,
+                            bias)
     N = _kernel_inputs(backend, u, helpers, pstack, x)
-    out = torch.empty((backend.system.nvar, N), dtype=u.dtype, device=u.device)
+    nvar = backend.system.nvar
+    if bias is not None:
+        check_cuda((bias,), backend.dtype, "K1 stencil F bias")
+        check_shapes("K1 stencil F", bias=(bias, (nvar, N)))
+    out = torch.empty((nvar, N), dtype=u.dtype, device=u.device)
     lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 5, 2, 1)
+    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 6, 2, 1)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            out.data_ptr(), N, int(bool(periodic)), float(scale), stream_of(u))
+            0 if bias is None else bias.data_ptr(), out.data_ptr(), N,
+            int(bool(periodic)), float(scale), stream_of(u))
     lib.check(rc, "K1 stencil F")
     F_LAUNCHES.add()
     return out

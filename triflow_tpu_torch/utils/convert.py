@@ -10,8 +10,14 @@ def state_from_numpy(fields, pars, model):
     arrays: ``fields`` maps each coordinate and variable name to an array
     (for example ``np.asarray`` of each column of a ``triflow_tpu`` Fields)
     and ``pars`` is the parameter dict.  Arrays land on the model's device
-    and dtype; scalar parameters and the ``periodic`` flag stay Python
-    values."""
+    (the card, unless the model was built with ``device="cpu"``) and
+    dtype; scalar parameters and the ``periodic`` flag stay Python values.
+
+    On the CPU, as the parity tests run it::
+
+        model = Model("k * dxxU", "U", "k", device="cpu")
+        fields, pars = state_from_numpy({"x": x, "U": u}, {"k": 1.0}, model)
+    """
     tensor = model.backend.as_tensor
     template = model.fields_template
     names = (*template.coords, *template.dependent_variables,
