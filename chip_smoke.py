@@ -6,27 +6,40 @@
 Phases (any failure raises, and the script exits non-zero with no result):
 
 0. the card's name and power limit; build every kernel from ``csrc/``, one
-   nvcc per source, all at once; registers and spills of each library and
-   of the s = 2 solver instantiations the KS path runs.
+   nvcc per source, all at once (K1 and K6 once per model); registers and
+   spills of each library, of the s = 2 solver instantiations the KS path
+   runs, and of K6 at s = 1, 2 and 4 in both dtypes.
 1. each kernel against its plain PyTorch version on CUDA tensors, f64 and
-   f32: the checks of ``triflow_tpu_torch.ops.kernel_checks`` at small and
-   odd shapes, then at the shapes of the main paths below.
-2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64:
-   the Theta path (Burgers N = 2^20, 10 steps; the README model N = 200
-   with its Dirichlet hook, to t = 50), then the Rosenbrock path:
-   Kuramoto-Sivashinsky at N = 2^20 with ``RODASPR`` at a fixed dt
-   (4 steps of 0.05) and adaptive (tol 1e-3, 2 output steps of 1.0), the
-   README model through ``Simulation``'s defaults (RODASPR, adaptive) and
-   through example 01's call (Theta with step doubling).  Every kernel
-   entry must have launched in this phase; the results must be finite and
-   agree with the port's CPU f64 run (plain versions) of the same case, in
-   f64 with the same number of attempts in every output step.
+   f32: first the readings behind the limit on K6's adapted dt (eight
+   seeds, and the gap of an err twice too large), then the checks of
+   ``triflow_tpu_torch.ops.kernel_checks`` at small and odd shapes (K6 at
+   the shapes of ``tests/test_torch_megastep.py``), then at the shapes of
+   the main paths below.
+2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64,
+   each case driven with the launch counts set to 0 just before it and read
+   just after: the Theta path (Burgers N = 2^20, 10 steps; the README model
+   N = 200 with its Dirichlet hook, to t = 50, through K6), then the
+   Rosenbrock path: Kuramoto-Sivashinsky at N = 2^20 with ``RODASPR`` at a
+   fixed dt (4 steps of 0.05) and adaptive (tol 1e-3, 2 output steps of
+   1.0), KS at N = 2^13 adaptive the same way with no hook (one K6 launch
+   per output step), the README model through ``Simulation``'s defaults
+   (RODASPR, adaptive, K6 steps) and through example 01's call (Theta with
+   step doubling).  The N = 2^20 cases must launch every entry of K1-K5,
+   the small ones K6; the results must be finite and agree with the port's
+   CPU f64 run (plain versions) of the same case, in f64 with the same
+   number of attempts in every output step.
 3. timing with CUDA events at N = 2^20: ms per Theta step (Burgers) and
    per fixed RODASPR step (KS) with cell updates per second, ms per
    adaptive attempt, each kernel entry against its plain version at the KS
    path's shapes, K5 against one ``torch.mm`` over pre-stacked operands,
    and a ``torch.profiler`` breakdown of the Theta and RODASPR steps by
-   kernel.
+   kernel; then the small grids: the README step at N = 200 per
+   synchronised step (K6 and the multi-launch path) and K6's step under
+   ``torch.profiler``, ``device_fixed_scan`` at 100 steps, the KS N = 2^13 adaptive output step, K6's chunk-count
+   sweeps with a cost fit per block size (behind its plan), and the
+   crossover sweeps N = 2^10 .. 2^16 of fixed RODASPR and Theta steps,
+   K6 against the multi-launch path, for Burgers (s = 1), KS (s = 2) and
+   the two-variable model (s = 4), behind K6's gate per block size.
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
@@ -40,20 +53,24 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import sympy as sp
 import torch
 
 from triflow_tpu_torch import Model, Simulation, schemes
+from triflow_tpu_torch.core.rosenbrock import adaptive_controller
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
-                                   pcr, stencil, thomas)
+                                   megastep, pcr, stencil, thomas)
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 N_BIG = 1 << 20
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 README = ("k * dxxU - c * dxU", "U", ["k", "c"])
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
+TWO_VAR = kernel_checks.MEGA_MODELS["two_var"]
+N_SMALL = 1 << 13
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 #: the card's rates (NVIDIA H100 SXM data sheet, at the 700 W limit):
@@ -81,13 +98,20 @@ KERNELS = {
                            "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
     "K5.combine": ("cuda", "triflow_tpu_torch/csrc/combine.cu",
                    "triflow_tpu/ops/folded.py:543 combine_folded"),
+    "K6.step": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                "triflow_tpu/ops/megastep.py:1491 _launch"),
+    "K6.adaptive": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                    "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded"),
 }
+MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")]
+THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 
 #: substrings of the device kernels' names in a profiler trace
 TRACE_NAMES = {"stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor": "K4.pcr_factor", "pcr_solve": "K4.pcr_solve_shift",
-               "combine_kernel": "K5.combine"}
+               "combine_kernel": "K5.combine", "step_kernel": "K6.step",
+               "adaptive_kernel": "K6.adaptive"}
 
 
 def log(msg):
@@ -108,6 +132,15 @@ def ks_case(dt, tmax, N=N_BIG):
             dict(periodic=True), dt, tmax, None)
 
 
+def two_var_case(dt, tmax, N):
+    """The two-variable model's state of the reference's megastep tests."""
+    rng = np.random.RandomState(3)
+    i = np.arange(N)
+    h, q = (1.2 + 0.1 * np.cos(2 * np.pi * i / N * 5 + k) + 0.01 * rng.randn(N)
+            for k in range(2))
+    return {"x": i * 0.5, "h": h, "q": q}, dict(periodic=True), dt, tmax, None
+
+
 def dirichlet(t, fields, pars):
     fields["U"][0] = 1.0
     fields["U"][-1] = 0.0
@@ -122,18 +155,43 @@ def readme_case():
 
 THETA = dict(scheme=schemes.Theta, theta=1.0, time_stepping=False)
 
-#: (name, equations, case, Simulation kwargs, f32 tolerance, f64 tolerance)
+#: K6's chunk-count sweeps, one cost fit each (megastep.plan_cost_us has
+#: the RODASPR fits by block size s): (name, grids as (equations, case),
+#: table)
+CHUNK_SWEEPS = [
+    ("rodaspr s=1", [(README, readme_case()), (BURGERS, burgers_case(N_SMALL))],
+     kernel_checks.rodaspr_table(False)),
+    ("rodaspr s=2", [(KS, ks_case(0.05, 0.2, N)) for N in (512, 2048, N_SMALL, 1 << 15)],
+     kernel_checks.rodaspr_table(False)),
+    ("rodaspr s=4", [(TWO_VAR, two_var_case(0.02, 0.2, N)) for N in (1024, N_SMALL)],
+     kernel_checks.rodaspr_table(False)),
+    ("theta s=2", [(KS, ks_case(0.05, 0.2, N_SMALL))], megastep.theta_table(1.0)),
+]
+#: the crossover sweep, K6 against the multi-launch path: (name,
+#: equations, case of N, block size s) by scheme, at N = 2^e
+SWEEP_MODELS = [("burgers", BURGERS, burgers_case, 1),
+                ("ks", KS, lambda N: ks_case(0.05, 0.2, N), 2),
+                ("two-var", TWO_VAR, lambda N: two_var_case(0.02, 0.2, N), 4)]
+SWEEP_SCHEMES = {"rodaspr": lambda m: schemes.RODASPR(m, time_stepping=False, tol=None),
+                 "theta": lambda m: schemes.Theta(m, theta=1.0)}
+SWEEP_EXPONENTS = range(10, 17)
+
+#: (name, equations, case, Simulation kwargs, f32 tolerance, f64 tolerance,
+#: the kernel entries the case must launch: the grids K6's gate admits step
+#: through K6 alone, the N = 2^20 grids through K1-K5 alone)
 CASES = [
-    ("burgers N=2^20 theta", BURGERS, burgers_case(), THETA, 1e-4, 1e-10),
-    ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10),
+    ("burgers N=2^20 theta", BURGERS, burgers_case(), THETA, 1e-4, 1e-10, THETA_KERNELS),
+    ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"]),
     ("ks N=2^20 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2),
-     dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9),
+     dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH),
     ("ks N=2^20 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0),
-     dict(tol=1e-3), 1e-2, 1e-9),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH),
+    ("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
+     ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"]),
     ("readme N=200 Simulation defaults (rodaspr)", README, readme_case(), {}, 1e-2,
-     1e-9),
+     1e-9, ["K6.step"]),
     ("readme N=200 example 01 (theta, step doubling)", README, readme_case(),
-     dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9),
+     dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9, ["K6.step"]),
 ]
 
 
@@ -165,16 +223,32 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(path):
+    """(function, registers, stack bytes, spill store bytes) of every kernel
+    and non-inlined function in an nvcc ``-Xptxas -v`` log."""
+    out, fn, stack, spill = [], None, 0, 0
+    for line in path.read_text().splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif "bytes stack frame" in line:
+            stack = int(re.findall(r"(\d+) bytes stack frame", line)[0])
+            spill = int((re.findall(r"(\d+) bytes spill stores", line) or ["0"])[0])
+        elif "Used" in line and "registers" in line:
+            out.append((fn, int(line.split("Used")[1].split()[0]), stack, spill))
+            stack = spill = 0
+    return out
+
+
 def phase0():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"phase 0: card {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     start = time.perf_counter()
-    stencils = [Model(*eqs).backend.stencil for eqs in (BURGERS, README, KS)]
+    models = [Model(*eqs).backend for eqs in (BURGERS, README, KS, TWO_VAR)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
                                  combine.LIB)]
-    jobs += [st.load for st in stencils]
+    jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
             fut.result()
@@ -182,24 +256,24 @@ def phase0():
         f"{time.perf_counter() - start:.1f} s (nvcc: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
         + ")")
+    mega_logs = {}
+    for b, label in zip(models, ("s=1 burgers", "s=1 readme", "s=2 ks",
+                                 "s=4 two-variable")):
+        mega_logs[Path(b.megastep.lib._name).with_suffix(".log")] = label
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
-        regs, spills, fn, s2 = [], [], None, []
-        for line in path.read_text().splitlines():
-            if "Function properties for" in line:
-                fn = line.split("Function properties for")[-1].strip()
-            elif int((re.findall(r"(\d+) bytes spill stores", line) or ["0"])[0]):
-                spills.append(f"{fn} ({line.strip()})")
-            elif "Used" in line and "registers" in line:
-                n = int(line.split("Used")[1].split()[0])
-                regs.append(n)
-                # the s = 2 instantiations of K2/K3 and S2 = 4 of K4 (the KS path)
-                if fn and (("spike" in fn or "thomas" in fn) and "Li2E" in fn
-                           or "pcr" in fn and "Li4E" in fn):
-                    s2.append(f"{fn}: {n}")
-        log(f"  ptxas {path.stem}: {len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers; spills: {'; '.join(spills) or 'none'}")
-        for entry in s2:
-            log(f"    registers {entry}")
+        report = ptxas_report(path)
+        spills = [f"{fn} ({sp} bytes spill stores)" for fn, _, _, sp in report if sp]
+        log(f"  ptxas {path.stem}: {len(report)} kernels, at most "
+            f"{max((r for _, r, _, _ in report), default=0)} registers; spills: "
+            f"{'; '.join(spills) or 'none'}")
+        for fn, regs, stack, spill in report:
+            # the s = 2 instantiations of K2/K3 and S2 = 4 of K4 (the KS path)
+            if fn and (("spike" in fn or "thomas" in fn) and "Li2E" in fn
+                       or "pcr" in fn and "Li4E" in fn):
+                log(f"    registers {fn}: {regs}")
+            if path in mega_logs:
+                log(f"    K6 {mega_logs[path]} {fn}: {regs} registers, {stack} bytes "
+                    f"stack, {spill} bytes spill stores")
     return smi
 
 
@@ -225,6 +299,21 @@ def rodaspr_rows():
 
 def phase1():
     log("phase 1: kernels against their plain versions")
+    off = []
+    for dt_name, dtype in DTYPES.items():
+        limit = kernel_checks.TOL[dtype]["dt"]
+        for case, rows in kernel_checks.adaptive_dt_readings("cuda", dtype).items():
+            gaps = [g for _, g, _, _, _ in rows]
+            caught = [not same or bad > limit for _, _, _, bad, same in rows]
+            log(f"  K6.adaptive dt_i readings {case} {dt_name} (seed: kernel gap, "
+                "attempts equal; err x 2 gap, attempts equal): "
+                + "; ".join(f"{sd}: {g:.3e} {a}; {b:.3e} {c}" for sd, g, a, b, c in rows)
+                + f" -> largest kernel gap {max(gaps):.3e}, limit {limit:.0e}, "
+                f"wrong err caught in {sum(caught)} of {len(rows)}")
+            if max(gaps) > limit or not all(a for _, _, a, _, _ in rows):
+                off.append(f"{case} {dt_name}")
+    if off:
+        raise RuntimeError(f"K6.adaptive dt_i or attempts off the plain version: {off}")
     small = kernel_checks.run_all("cuda")
     for dt_name, res in small.items():
         log(f"  small shapes {dt_name}: " + json.dumps(res))
@@ -255,6 +344,10 @@ def phase1():
                                    device="cuda") for _ in range(A)]
             stage_rows = [row[:A] for row in rows] if A < 7 else rows
             kernel_checks.check_combine(stage_rows, arrays, res)
+        # K6 on the small KS path of phase 2 (N = 2^13, its state and plan)
+        sm, _, _, sargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
+        kernel_checks.check_megastep(sm, N_SMALL, True, 0.05, "cuda", res,
+                                     adaptive=(1.0, 1e-6, 1e-3), state=sargs)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
     return errs
@@ -262,21 +355,33 @@ def phase1():
 
 def phase2():
     log("phase 2: the main paths through Simulation on the card")
-    _launch.reset_counters()
-    runs = {}
-    for name, eqs, case, kwargs, _, _ in CASES:
+    runs, launches = {}, dict.fromkeys(KERNELS, 0)
+    for name, eqs, case, kwargs, _, _, needs in CASES:
         for dt_name, dtype in DTYPES.items():
             torch.cuda.synchronize()
+            _launch.reset_counters()
             start = time.perf_counter()
             steps, u, attempts = run_simulation(eqs, case, "cuda", dtype, kwargs)
             torch.cuda.synchronize()
-            runs[(name, dt_name)] = (steps, u, attempts, time.perf_counter() - start)
-    launches = _launch.counts()
-    log("  launches: " + json.dumps(launches))
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main paths: {missing}")
-    for name, eqs, case, kwargs, tol32, tol64 in CASES:
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            runs[(name, dt_name)] = (steps, u, attempts, secs)
+            log(f"  {name} {dt_name}: launches "
+                + json.dumps({k: v for k, v in counts.items() if v}))
+            missing = [k for k in needs if counts[k] <= 0]
+            small = any(k.startswith("K6") for k in needs)
+            others = [k for k in KERNELS if k not in needs and counts[k]
+                      and (small or k.startswith("K6"))]
+            if missing or others:
+                raise RuntimeError(f"{name} {dt_name}: kernels not launched {missing}, "
+                                   f"launched off this path {others}")
+            if "K6.adaptive" in needs and counts["K6.adaptive"] != steps:
+                raise RuntimeError(f"{name} {dt_name}: {counts['K6.adaptive']} K6 "
+                                   f"adaptive launches for {steps} output steps")
+            for k in KERNELS:
+                launches[k] += counts[k]
+    log("  launches over phase 2: " + json.dumps(launches))
+    for name, eqs, case, kwargs, tol32, tol64, _ in CASES:
         start = time.perf_counter()
         steps_ref, u_ref, att_ref = run_simulation(eqs, case, "cpu", torch.float64,
                                                    kwargs)
@@ -461,22 +566,232 @@ def phase3():
                 f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                 f"{ops} operations)"
                 + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
-        # small N is latency: host clock around each synchronised step
+    return times
+
+
+def latency_ms(step, n=51):
+    """(median, p10, p90) ms of one synchronised call of step(), host clock,
+    after one warm-up call."""
+    lat = []
+    for _ in range(n):
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - start)
+    lat = sorted(lat[1:])
+    k = len(lat)
+    return lat[k // 2] * 1e3, lat[k // 10] * 1e3, lat[(9 * k) // 10] * 1e3
+
+
+def multi_launch(scheme, N, periodic):
+    """The scheme with K6's plan withheld for the grid: the K1-K5 path."""
+    scheme._mega_plans[(N, periodic)] = None
+    return scheme
+
+
+def step_scalars(table, dt, T):
+    """(factor shift, F scale) of one step of ``dt`` with ``table``, in
+    the model's dtype ``T``: -g00 dt and g00 dt for a ROW table, -theta dt
+    and dt for the theta table."""
+    if len(table.stages) == 1:
+        return -table.g00 * float(T(dt)), float(T(dt))
+    gdt = float(T(table.g00) * T(dt))
+    return -gdt, gdt
+
+
+def k6_work(model, plan, table, dtype, attempts=1):
+    """(bytes, operations) of K6 on these inputs: each input read once and
+    the state written once; per attempt the operations of J, the factor,
+    the PCR factor, and per stage the combinations its table row really
+    makes (none where the stage's input is u, a bias only where the row
+    has one), F, the sweep, the reduced solve and the correction, then the
+    final rows over their columns and err's max."""
+    sysm = model.system
+    N, nvar, s, C, M = plan.N, sysm.nvar, plan.s, plan.C, plan.M
+    s2, nlev, n = 2 * s, pcr.n_levels(plan.C), nvar * plan.N
+    item = torch.finfo(dtype).bits // 8
+    n_in = (nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
+    f_ops = expr_ops(sysm.F_exprs) * N
+    solve = 6 * s * s * M + 4 * s2 * s2 * C * nlev + 4 * s * n
+    per_step = (expr_ops(sysm.J_band_exprs.values()) * N + 8 * s ** 3 * M
+                + 12 * s2 ** 3 * C * nlev)
+    for a_row, c_row in table.stages:
+        combos = 0 if megastep._is_u(a_row) else 2 * len(a_row) * n
+        if c_row is not None:
+            combos += 2 * len(c_row) * n
+        per_step += combos + f_ops + (1 + (c_row is not None)) * n + solve
+    per_step += sum(2 * len(row) * n for row in table.final)
+    per_step += 2 * n * (len(table.final) - 1)
+    return (n_in + n) * item + 32, attempts * per_step
+
+
+def fit_cost(points):
+    """Least-squares fit of us = a * (rows walked per thread) + b * (PCR
+    levels x passes) + c_M over (M, C, us) points, one intercept c_M per
+    grid (its per-node work); returns (a, b, relative residual of each
+    point)."""
+    grids = sorted({M for M, _, _ in points})
+    rows, ys = [], []
+    for M, C, us in points:
+        passes = -(-C // megastep.BLOCK_THREADS)
+        rows.append([passes * (M // C), passes * pcr.n_levels(C)]
+                    + [float(M == m) for m in grids])
+        ys.append(us)
+    A, y = np.array(rows), np.array(ys)
+    fit = np.linalg.lstsq(A, y, rcond=None)[0]
+    return fit[0], fit[1], list(np.abs(A @ fit - y) / y)
+
+
+def phase3_small():
+    """The small grids: K6 against the multi-launch path, the gate and the
+    cost model, K6's entries against their plain versions."""
+    log("phase 3: small grids (K6)")
+    times, sweep = {}, {}
+    ros_table = kernel_checks.rodaspr_table(False)
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
         rm = Model(*README, double=dtype == torch.float64, device="cuda")
         fields_np, pars, rdt, _, hook = readme_case()
         rf, rp = state_from_numpy(fields_np, pars, rm)
-        for label, rs in (("theta", schemes.Theta(rm, theta=1.0)),
-                          ("rodaspr fixed", schemes.RODASPR(rm, time_stepping=False,
-                                                            tol=None))):
-            lat = []
-            for _ in range(51):
-                start = time.perf_counter()
-                rs(0.0, rf, rdt, rp, hook=hook)
+        makers = (("theta", lambda: schemes.Theta(rm, theta=1.0)),
+                  ("rodaspr fixed",
+                   lambda: schemes.RODASPR(rm, time_stepping=False, tol=None)))
+        for label, make in makers:
+            k6, multi = make(), multi_launch(make(), 200, False)
+            res = {}
+            for route, sch in (("K6", k6), ("multi-launch", multi), ("multi-launch", multi),
+                               ("K6", k6)):
+                res.setdefault(route, []).append(
+                    latency_ms(lambda: sch(0.0, rf, rdt, rp, hook=hook)))
+            for route, runs in res.items():
+                log(f"  readme N=200 {label} step {dt_name} {route}: median "
+                    + " / ".join(f"{m:.4f}" for m, _, _ in runs) + " ms (p10 "
+                    + " / ".join(f"{a:.4f}" for _, a, _ in runs) + ", p90 "
+                    + " / ".join(f"{b:.4f}" for _, _, b in runs)
+                    + "), host clock per synchronised step, two runs")
+            # nsteps = 100 fixed steps in one launch
+            u, helpers, x = rm.backend.split_fields(rf)
+            pstack = rm.backend.pack_pars(rp, x)
+            scan = k6.device_fixed_scan(200, periodic=False)
+            ms = cuda_ms(lambda: scan(0.0, u, helpers, pstack, x, rdt, 100), 5)
+            log(f"  readme N=200 {label} device_fixed_scan {dt_name}: "
+                f"{ms * 10:.4f} us per step at nsteps = 100 (CUDA events)")
+        log_profile("readme N=200 rodaspr fixed K6 step", dt_name,
+                    profile_step(schemes.RODASPR(rm, time_stepping=False, tol=None),
+                                 rf, rp, rdt))
+        # K6.step against its plain version at the README RODASPR step
+        plan = megastep.plan_for(200, 1, 1, False)
+        u, helpers, x = rm.backend.split_fields(rf)
+        args = (u, helpers, rm.backend.pack_pars(rp, x), x)
+        T = np.float64 if dtype == torch.float64 else np.float32
+        gdt = float(T(ros_table.g00) * T(rdt))
+        k_fn = lambda: megastep.step(rm.backend, plan, ros_table, False, *args, -gdt, gdt)
+        p_fn = lambda: megastep.step_plain(rm.backend, plan, ros_table, False, *args,
+                                           -gdt, gdt)
+        p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (p_fn, k_fn, k_fn, p_fn))
+        nbytes, ops = k6_work(rm, plan, ros_table, dtype)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        times[dt_name]["K6.step"] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+        log(f"  K6.step readme N=200 rodaspr {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, "
+            f"{ops} operations), plan C={plan.C} Mc={plan.Mc}")
+        # the small KS path: adaptive output steps through K6
+        km, kfields, kpars, kargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
+        for rep in range(2):
+            ada = schemes.RODASPR(km, tol=1e-3)
+            t, f, per = 0.0, kfields, []
+            for _ in range(2):
                 torch.cuda.synchronize()
-                lat.append(time.perf_counter() - start)
-            lat = sorted(lat[1:])
-            log(f"  readme N=200 {label} step {dt_name}: median {lat[25] * 1e3:.4f} ms "
-                f"(p10 {lat[5] * 1e3:.4f}, p90 {lat[45] * 1e3:.4f}), host clock")
+                start = time.perf_counter()
+                t, f = ada(t, f, 1.0, kpars)
+                torch.cuda.synchronize()
+                per.append(((time.perf_counter() - start) * 1e3, ada._internal_iter))
+            log(f"  ks N=2^13 adaptive output step {dt_name} (run {rep}): "
+                + ", ".join(f"{ms:.4f} ms for {it} attempts" for ms, it in per)
+                + " (host clock, synchronised)")
+        scan = schemes.RODASPR(km, time_stepping=False, tol=None).device_fixed_scan(N_SMALL)
+        ms = cuda_ms(lambda: scan(0.0, *kargs, 0.05, 100), 3)
+        log(f"  ks N=2^13 rodaspr device_fixed_scan {dt_name}: {ms * 10:.4f} us per step "
+            "at nsteps = 100 (CUDA events)")
+        kplan = megastep.plan_for(N_SMALL, 1, 2, True)
+        table = kernel_checks.rodaspr_table()
+        a_args = (adaptive_controller, km.backend, kplan, table, True, *kargs, 0.0, 1.0,
+                  1e-6, 1e-3, 0.9, None, None)
+        attempts = megastep.row_adaptive_step(*a_args)[2]
+        p1, k1, k2, p2 = (cuda_ms(lambda: fn(*a_args), 2) for fn in (
+            megastep.adaptive_plain, megastep.row_adaptive_step,
+            megastep.row_adaptive_step, megastep.adaptive_plain))
+        nbytes, ops = k6_work(km, kplan, table, dtype, attempts)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        times[dt_name]["K6.adaptive"] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+        log(f"  K6.adaptive ks N=2^13 first output step ({attempts} attempts) {dt_name}: "
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}: {nbytes} bytes, {ops} operations), plan C={kplan.C} Mc={kplan.Mc}")
+        # the chunk-count sweeps behind megastep.plan_cost_us, one fit each
+        for fit_name, grids, tb in CHUNK_SWEEPS:
+            points, grids_of = [], {}
+            for eqs, case in grids:
+                model, _, _, cargs, cdt = path_inputs(eqs, case, dtype)
+                sysm = model.system
+                N, periodic = cargs[-1].shape[-1], case[1]["periodic"]
+                g = max(sysm.halo, 1)
+                M = N // g
+                beta, scale = step_scalars(tb, cdt, T)
+                cands = [C for C in chunked._divisors(M) if M // C >= 2
+                         and (not periodic or (C >= 8 and C & (C - 1) == 0))]
+                row = []
+                for C in cands:
+                    cp = chunked.Plan(N, sysm.nvar, sysm.halo, g, 2 * sysm.halo + 1, C,
+                                      M // C, periodic)
+                    # 20 steps in one launch: the device time of a step, not the host's
+                    us = 1e3 / 20 * cuda_ms(lambda: megastep.step(
+                        model.backend, cp, tb, periodic, *cargs, beta, scale, 20), 3)
+                    points.append((M, C, us))
+                    row.append(f"C={C}: {us:.2f}")
+                grids_of[M] = (N, sysm.nvar, sysm.halo, periodic)
+                log(f"  K6 {fit_name} step by chunk count {dt_name} N={N} (us per step, "
+                    "20 steps per launch, CUDA events): " + ", ".join(row))
+            a, b, resid = fit_cost(points)
+            log(f"  K6 cost fit {fit_name} {dt_name}: {a:.4f} us per row walked, "
+                f"{b:.4f} us per PCR level pass (one intercept per grid), relative "
+                f"residuals max {max(resid):.4f} rms {np.sqrt(np.mean(np.square(resid))):.4f}; "
+                f"plan_cost_us has {megastep.ROW_US} and {megastep.LEVEL_US}")
+            for M, (N, nvar, halo, periodic) in sorted(grids_of.items()):
+                meas = {C: us for m, C, us in points if m == M}
+                passes = {C: -(-C // megastep.BLOCK_THREADS) for C in meas}
+                fit_c = min(meas, key=lambda C: passes[C] * (a * (M // C)
+                                                             + b * pcr.n_levels(C)))
+                best = min(meas, key=meas.get)
+                plan_c = megastep.make_plan(N, nvar, halo, periodic).C
+                log(f"    M={M}: the fit's plan C={fit_c} ({meas[fit_c]:.2f} us), "
+                    f"megastep.make_plan's C={plan_c} ({meas[plan_c]:.2f} us), measured "
+                    f"best C={best} ({meas[best]:.2f} us)")
+        # the crossover: fixed steps, K6 against the multi-launch path, for
+        # each block size and scheme
+        for label, eqs, make_case, s_blk in SWEEP_MODELS:
+            for sch_name, make in SWEEP_SCHEMES.items():
+                model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+                sysm = model.system
+                for e in SWEEP_EXPONENTS:
+                    N = 1 << e
+                    fields_np, pars, dt, _, _ = make_case(N)
+                    fields, pars_t = state_from_numpy(fields_np, pars, model)
+                    k6 = make(model)
+                    k6._mega_plans[(N, True)] = megastep.make_plan(N, sysm.nvar, sysm.halo,
+                                                                   True)
+                    multi = multi_launch(make(model), N, True)
+                    m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+                                      for sch in (multi, k6, k6, multi))
+                    sweep.setdefault((s_blk, sch_name), {}).setdefault(N, []).append(
+                        min(k1, k2) < min(m1, m2))
+                    log(f"  {label} (s={s_blk}) N=2^{e} {sch_name} fixed step {dt_name}: "
+                        f"K6 {k1:.4f}/{k2:.4f} ms, multi-launch {m1:.4f}/{m2:.4f} ms "
+                        "(CUDA events over 10 steps)")
+    for (s_blk, sch_name), by_n in sorted(sweep.items()):
+        wins = [N for N in sorted(by_n) if all(all(by_n[M]) for M in by_n if M <= N)]
+        log(f"  crossover s={s_blk} {sch_name}: K6 faster at every N up to "
+            f"{max(wins, default=0)} in both dtypes (the gate megastep.MAX_N[{s_blk}] is "
+            f"{megastep.MAX_N.get(s_blk)})")
     return times
 
 
@@ -488,6 +803,8 @@ def main():
     errs = phase1()
     launches = phase2()
     times = phase3()
+    for dt_name, small in phase3_small().items():
+        times[dt_name].update(small)
     record = []
     for name, (route, source, replaces) in KERNELS.items():
         e32, e64 = errs["float32"][name], errs["float64"][name]

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from triflow_tpu_torch import Model, schemes
-from triflow_tpu_torch.ops import _launch, chunked, kernel_checks, pcr, thomas
+from triflow_tpu_torch.ops import _launch, chunked, kernel_checks, megastep, pcr, thomas
 
 torch.set_num_threads(1)
 
@@ -38,12 +38,17 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
     assert set(_launch.COUNTERS) <= set(results[name])
 
 
-#: the kernel entries one Theta step launches once each (all but K5)
+#: the kernel entries one Theta step launches once each (all but K5) on a
+#: grid above K6's gate
 THETA_KERNELS = ("K1.F", "K1.J", "K2.spike_factor", "K3.thomas_sweep",
                  "K3.spike_correct", "K4.pcr_factor", "K4.pcr_solve_shift")
 
 
-def _burgers_on(device, N=4096):
+def _burgers_on(device, N=None):
+    """Burgers on a periodic grid, by default the smallest power of two
+    above K6's gate (the multi-launch path)."""
+    if N is None:
+        N = 1 << megastep.MAX_N[1].bit_length()
     model = Model("-U * dxU + nu * dxxU", "U", "nu", device=device)
     x = torch.arange(N, dtype=torch.float64, device=device) * 0.5
     fields = model.fields_template(x=x, U=torch.cos(2 * torch.pi * x / x[-1]))
@@ -57,7 +62,7 @@ def test_theta_step_launches_every_kernel(cuda_device):
     schemes.Theta(model)(0.0, fields, 0.05, pars)
     counts = _launch.counts()
     assert {k: counts[k] for k in THETA_KERNELS} == dict.fromkeys(THETA_KERNELS, 1)
-    assert counts["K5.combine"] == 0
+    assert counts["K5.combine"] == counts["K6.step"] == 0
 
 
 @pytest.mark.cuda
@@ -69,10 +74,26 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
-    assert all(c > 0 for c in counts.values())
+    assert all(c > 0 for k, c in counts.items() if not k.startswith("K6"))
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
     assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
     assert counts["K5.combine"] == 6
+    assert counts["K6.step"] == counts["K6.adaptive"] == 0
+
+
+@pytest.mark.cuda
+def test_small_grid_steps_launch_k6_once(cuda_device):
+    """Below K6's gate a fixed step is one K6 launch and an adaptive output
+    step (no hook) one launch of K6's adaptive entry, and nothing else."""
+    model, fields, pars = _burgers_on(cuda_device, N=4096)
+    for scheme, kw, entry in ((schemes.Theta, {}, "K6.step"),
+                              (schemes.RODASPR, {"time_stepping": False, "tol": None},
+                               "K6.step"),
+                              (schemes.RODASPR, {"tol": 1e-3}, "K6.adaptive")):
+        _launch.reset_counters()
+        scheme(model, **kw)(0.0, fields, 0.05, pars)
+        counts = _launch.counts()
+        assert counts == {**dict.fromkeys(counts, 0), entry: 1}
 
 
 def test_check_harness_on_cpu():
@@ -82,6 +103,19 @@ def test_check_harness_on_cpu():
     results = kernel_checks.run_all("cpu")
     assert all(r["residual"] < 1e-6 for r in results.values())
     assert _launch.counts() == before  # the plain route launches nothing
+
+
+def test_adapted_dt_limit_catches_a_wrong_err():
+    """The float32 limit on K6's adapted dt against a wrong err: on CPU
+    tensors the kernel's side is the plain version (no gap), and an err
+    twice too large moves dt_i past the limit or changes the attempts."""
+    limit = kernel_checks.TOL[torch.float32]["dt"]
+    readings = kernel_checks.adaptive_dt_readings("cpu", torch.float32, seeds=(0,))
+    assert len(readings) == 2
+    for rows in readings.values():
+        for _, gap, same, bad_gap, bad_same in rows:
+            assert gap == 0.0 and same
+            assert bad_gap > limit or not bad_same
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

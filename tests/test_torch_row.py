@@ -13,9 +13,19 @@ on the CPU, from one state handed to both with ``state_from_numpy``.
   difference of stage solutions, of the size of ``tol`` or below: the two
   packages' states agree to ~1e-13 absolute (their banded solvers
   differ), so at tol = 1e-3 the errs that set dt agree to ~1e-9
-  relative, not to rounding;
+  relative, not to rounding.  A dt set by an err k times below tol
+  carries k times more of that rounding, and how much depends on the
+  chunk plan (KS at N = 512 with output steps of 1.0 sets one dt from an
+  err of 0.036 tol, which agreed to 3e-9 to 1.7e-8 over chunk counts 8 to
+  128), so the cases are chosen with every dt set by an err near tol: KS
+  takes output steps of 0.5, whose dts agree to 3.1e-10 or better at
+  every one of those chunk counts;
 * the interpolating mode (``recompute_target=False``) and the status
   codes (``max_iter``, ``dt_min``), which raise the same ``RuntimeError``;
+* each of the above on both routes of the port: through kernel K6 (its
+  plain version on the CPU), which these small grids take, and, in the
+  ``..._multi_launch`` twins, through the multi-launch path of larger grids
+  (the stage loop of K5 combinations, biased F and chunked solves);
 * kernel K5's plain version against the reference's ``combine_folded``
   (in interpret mode, on folded arrays) with the rows RODASPR emits, and
   K1's F with a bias against the reference's F times the scale plus the
@@ -35,12 +45,12 @@ import triflow_tpu as tj
 import triflow_tpu_torch as tt
 from triflow_tpu.ops import folded
 from triflow_tpu_torch.ops import combine as combine_mod
-from triflow_tpu_torch.ops import stencil
+from triflow_tpu_torch.ops import megastep, stencil
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 from .test_torch_theta import (BURGERS, KS, README, burgers_state,
                                dirichlet_jax, dirichlet_torch, ks_state,
-                               readme_state)
+                               multi_launch, readme_state)
 
 torch.set_num_threads(1)
 
@@ -68,17 +78,25 @@ def _hooks(hooked):
             else (tj.schemes.null_hook, tt.schemes.null_hook))
 
 
-def _record_errors(scheme):
-    """Wrap the port scheme's fixed step so every attempt's err is kept."""
+def _record_errors(scheme, monkeypatch):
+    """Wrap the port scheme's fixed step, and the step of K6's plain
+    adaptive route, so every attempt's err is kept."""
     errs = []
     step = scheme.fixed_step
+    plain = megastep.step_plain
 
     def recording(*args):
         out = step(*args)
         errs.append(float(out[-1]))
         return out
 
+    def recording_plain(*args):
+        out = plain(*args)
+        errs.append(float(out[-1]))
+        return out
+
     scheme.fixed_step = recording
+    monkeypatch.setattr(megastep, "step_plain", recording_plain)
     return errs
 
 
@@ -129,23 +147,31 @@ def test_one_fixed_step_matches_jax(scheme, name, eqs, state, dt, hooked):
         assert float(err_t) == pytest.approx(float(err_j), rel=1e-9)
 
 
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("name,eqs,state,dt,hooked", MODELS,
+                         ids=[m[0] for m in MODELS])
+def test_one_fixed_step_matches_jax_multi_launch(multi_launch, scheme, name, eqs,
+                                                 state, dt, hooked):
+    test_one_fixed_step_matches_jax(scheme, name, eqs, state, dt, hooked)
+
+
 #: (name, equations, state, output dt, tmax, hooked, Simulation kwargs)
 ADAPTIVE = [
     ("readme-defaults", README, readme_state(), 5.0, 50.0, True, {}),
-    ("ks-512", KS, ks_state(512), 1.0, 5.0, False, {"tol": 1e-3}),
+    ("ks-512", KS, ks_state(512), 0.5, 3.0, False, {"tol": 1e-3}),
     ("burgers-2048", BURGERS, burgers_state(2048), 1.0, 5.0, False,
      {"tol": 1e-3}),
 ]
 
 
-def _trajectories(eqs, state, dt, tmax, hooked, kwargs):
+def _trajectories(eqs, state, dt, tmax, hooked, kwargs, monkeypatch):
     model_j, fields_j, model_t, fields_t, pars, pars_t = _both(eqs, state)
     hook_j, hook_t = _hooks(hooked)
     sim_j = tj.Simulation(model_j, fields_j, pars, dt=dt, tmax=tmax,
                           hook=hook_j, **kwargs)
     sim_t = tt.Simulation(model_t, fields_t, pars_t, dt=dt, tmax=tmax,
                           hook=hook_t, **kwargs)
-    errs = (_record_errors(sim_t._scheme)
+    errs = (_record_errors(sim_t._scheme, monkeypatch)
             if hasattr(sim_t._scheme, "fixed_step") else None)
     traj_j = [(t, np.asarray(f["U"]), sim_j._scheme._internal_iter,
                sim_j._scheme._internal_dt) for t, f in sim_j]
@@ -166,9 +192,9 @@ def _assert_same_trajectory(traj_j, traj_t, n_steps):
 @pytest.mark.parametrize("name,eqs,state,dt,tmax,hooked,kwargs", ADAPTIVE,
                          ids=[c[0] for c in ADAPTIVE])
 def test_adaptive_trajectory_matches_jax(name, eqs, state, dt, tmax, hooked,
-                                         kwargs):
+                                         kwargs, monkeypatch):
     sim, traj_j, traj_t, errs = _trajectories(eqs, state, dt, tmax, hooked,
-                                              kwargs)
+                                              kwargs, monkeypatch)
     assert isinstance(sim._scheme, tt.schemes.RODASPR)
     assert sim._scheme._time_control and sim.status == "finished"
     _assert_same_trajectory(traj_j, traj_t, round(tmax / dt))
@@ -178,15 +204,28 @@ def test_adaptive_trajectory_matches_jax(name, eqs, state, dt, tmax, hooked,
         assert traj_t[-1][1][0] == 1.0 and traj_t[-1][1][-1] == 0.0
 
 
-def test_interpolating_mode_matches_jax():
+@pytest.mark.parametrize("name,eqs,state,dt,tmax,hooked,kwargs", ADAPTIVE,
+                         ids=[c[0] for c in ADAPTIVE])
+def test_adaptive_trajectory_matches_jax_multi_launch(multi_launch, name, eqs,
+                                                      state, dt, tmax, hooked,
+                                                      kwargs, monkeypatch):
+    test_adaptive_trajectory_matches_jax(name, eqs, state, dt, tmax, hooked,
+                                         kwargs, monkeypatch)
+
+
+def test_interpolating_mode_matches_jax(monkeypatch):
     """``recompute_target=False``: internal steps overshoot the output time
     and the output state is interpolated between the bracketing steps."""
     sim, traj_j, traj_t, errs = _trajectories(
         KS, ks_state(512), 1.0, 4.0, False,
-        {"tol": 1e-3, "recompute_target": False})
+        {"tol": 1e-3, "recompute_target": False}, monkeypatch)
     assert not sim._scheme._recompute_target
     _assert_same_trajectory(traj_j, traj_t, 4)
     _assert_not_marginal(errs, 1e-3)
+
+
+def test_interpolating_mode_matches_jax_multi_launch(multi_launch, monkeypatch):
+    test_interpolating_mode_matches_jax(monkeypatch)
 
 
 @pytest.mark.parametrize("knob,message", [
@@ -204,8 +243,18 @@ def test_status_codes_raise_like_jax(knob, message):
         assert str(info.value).startswith("Rosenbrock internal")
 
 
-def _stage_combinations(eqs, state, dt):
-    """(rows, arrays) of every K5 call of one RODASPR step of the port."""
+@pytest.mark.parametrize("knob,message", [
+    ({"max_iter": 1}, "above max iterations authorized"),
+    ({"dt_min": 0.5, "tol": 1e-12}, "time step less than authorized"),
+], ids=["max_iter", "dt_min"])
+def test_status_codes_raise_like_jax_multi_launch(multi_launch, knob, message):
+    test_status_codes_raise_like_jax(knob, message)
+
+
+def _stage_combinations(eqs, state, dt, monkeypatch):
+    """(rows, arrays) of every K5 call of one RODASPR step of the port's
+    multi-launch path (which K6 replaces on grids this small)."""
+    monkeypatch.setattr(megastep, "plan_for", lambda *args: None)
     _, _, model_t, fields_t, _, pars_t = _both(eqs, state)
     calls = []
     plain = combine_mod.combine
@@ -234,7 +283,7 @@ def test_combine_plain_matches_combine_folded(case, monkeypatch):
     monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
     eqs, state = ((BURGERS, burgers_state(2048)) if case == "burgers-2048"
                   else (KS, ks_state(4096)))
-    model_t, calls = _stage_combinations(eqs, state, 1e-3)
+    model_t, calls = _stage_combinations(eqs, state, 1e-3, monkeypatch)
     # stages 1..5 combine their inputs, then the final (u_new, diff) pair
     assert len(calls) == 6 and len(calls[-1][1]) == 7 and len(calls[-1][0]) == 2
     sysm = model_t.system

@@ -3,8 +3,16 @@ state handed to both with ``state_from_numpy``.
 
 * one step of Theta (theta = 1, 0.5 and 0) to 1e-11;
 * ten output steps of the README model (advection-diffusion, N = 200,
-  Dirichlet hook) and of Burgers (periodic, N = 2048, so both packages take
-  their chunked solvers) to 1e-9 relative to max|u|.
+  Dirichlet hook) and of Burgers (periodic, N = 2048) to 1e-9 relative to
+  max|u|.
+
+Each runs on both routes of the port: these grids are small enough for
+kernel K6's plan (``ops.megastep.plan_for``), so the tests named
+``..._matches_jax`` step through K6 (its plain version on the CPU), and
+their ``..._multi_launch`` twins withhold that plan (the ``multi_launch``
+fixture), so the same steps take the multi-launch path that larger grids
+take (K1-K5's plain versions: the chunked factor, the solve that adds the
+state, the stage combinations).
 
 The JAX package steps ``u2 = A^-1 (dt*(F - theta*J*u) + u)``; the port
 steps ``u2 = u + A^-1 (dt*F)``.  The two agree to rounding times the
@@ -16,6 +24,7 @@ import torch
 
 import triflow_tpu as tj
 import triflow_tpu_torch as tt
+from triflow_tpu_torch.ops import megastep
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 torch.set_num_threads(1)
@@ -23,6 +32,22 @@ torch.set_num_threads(1)
 README = ("k * dxxU - c * dxU", "U", ["k", "c"])
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
+
+
+@pytest.fixture
+def multi_launch(monkeypatch):
+    """Withhold K6's plan from every grid: the schemes take the multi-launch
+    path, and the test fails if anything still reaches K6."""
+    monkeypatch.setattr(megastep, "plan_for", lambda *args: None)
+    reached = []
+    for name in ("step", "row_adaptive_step"):
+        def refuse(*args, _name=name, **kw):
+            reached.append(_name)
+            raise AssertionError(f"megastep.{_name} reached with its plan withheld")
+
+        monkeypatch.setattr(megastep, name, refuse)
+    yield
+    assert not reached
 
 
 def dirichlet_jax(t, fields, pars):
@@ -89,6 +114,13 @@ def test_one_theta_step_matches_jax(name, eqs, state, dt, theta, hooked):
     assert np.abs(out_t["U"].numpy() - u_j).max() <= 1e-11 * np.abs(u_j).max()
 
 
+@pytest.mark.parametrize("name,eqs,state,dt,theta,hooked",
+                         ONE_STEP, ids=[c[0] for c in ONE_STEP])
+def test_one_theta_step_matches_jax_multi_launch(multi_launch, name, eqs, state,
+                                                 dt, theta, hooked):
+    test_one_theta_step_matches_jax(name, eqs, state, dt, theta, hooked)
+
+
 def _run_both(eqs, state, dt, tmax, hooks):
     model_j, fields_j, model_t, fields_t, pars, pars_t = _both(eqs, state)
     sim_j = tj.Simulation(model_j, fields_j, pars, dt=dt, tmax=tmax,
@@ -118,6 +150,11 @@ def test_simulation_trajectory_matches_jax(case):
         assert np.abs(u_t - u_j).max() <= 1e-9 * np.abs(u_j).max()
     if case == "readme":
         assert traj_t[-1][1][0] == 1.0 and traj_t[-1][1][-1] == 0.0
+
+
+@pytest.mark.parametrize("case", ["readme", "burgers"])
+def test_simulation_trajectory_matches_jax_multi_launch(multi_launch, case):
+    test_simulation_trajectory_matches_jax(case)
 
 
 def test_dt_clamps_at_tmax():

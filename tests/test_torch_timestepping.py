@@ -11,7 +11,9 @@ the same adapted dt to 1e-8 relative (the dt goes as ``err**-1/2``, and
 absolute agreement over its own size, not to rounding).  ROS2, which has
 no error estimate of its own, is wrapped the same way.  The cases are
 chosen with no attempt whose decision is within 1e-6 relative of the
-acceptance line, and the test asserts that margin.
+acceptance line, and the test asserts that margin.  The
+``..._multi_launch`` twins run the same cases with kernel K6's plan
+withheld, so the wrapped scheme's steps take the multi-launch path.
 """
 
 import numpy as np
@@ -22,7 +24,8 @@ import triflow_tpu as tj
 import triflow_tpu_torch as tt
 
 from .test_torch_row import _assert_same_trajectory, _both, _hooks
-from .test_torch_theta import BURGERS, README, burgers_state, readme_state
+from .test_torch_theta import (BURGERS, README, burgers_state, multi_launch,
+                               readme_state)
 
 torch.set_num_threads(1)
 
@@ -89,6 +92,14 @@ def test_step_doubling_trajectory_matches_jax(name, eqs, state, dt, tmax,
         assert traj_t[-1][1][0] == 1.0 and traj_t[-1][1][-1] == 0.0
 
 
+@pytest.mark.parametrize("name,eqs,state,dt,tmax,hooked,scheme,kwargs",
+                         CASES, ids=[c[0] for c in CASES])
+def test_step_doubling_trajectory_matches_jax_multi_launch(
+        multi_launch, name, eqs, state, dt, tmax, hooked, scheme, kwargs):
+    test_step_doubling_trajectory_matches_jax(name, eqs, state, dt, tmax,
+                                              hooked, scheme, kwargs)
+
+
 def test_dt_floor_raises_like_jax():
     """An error that no dt satisfies collapses dt to the roundoff floor,
     which raises in both packages."""
@@ -101,3 +112,7 @@ def test_dt_floor_raises_like_jax():
         with pytest.raises(RuntimeError, match="step-doubling internal time "
                                                "step less than authorized"):
             wrapped(0.0, fields, 5.0, p)
+
+
+def test_dt_floor_raises_like_jax_multi_launch(multi_launch):
+    test_dt_floor_raises_like_jax()

@@ -148,8 +148,11 @@ class TorchBackend:
         self._F_fns = [lambdify(e) for e in system.F_exprs]
         self._J_fns = {key: lambdify(e)
                        for key, e in system.J_band_exprs.items()}
-        #: the model's K1 library (generated CUDA source, built at first use)
+        #: the model's K1 and K6 libraries (generated CUDA sources, built at
+        #: first use)
         self.stencil = stencil.library(system, self.args_symbols)
+        self.megastep = stencil.library(system, self.args_symbols,
+                                        "megastep.cu")
 
     # ------------------------------------------------------- kernel route
     def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0,

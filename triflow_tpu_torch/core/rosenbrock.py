@@ -1,0 +1,135 @@
+"""The Rosenbrock-Wanner pieces below the schemes: the Hairer-Wanner
+transform of a table, RODASPR's coefficients, and the embedded-error
+step-size controller.
+
+``core.schemes`` builds its ROW schemes on them; kernel K6's plain
+adaptive step (``ops.megastep.adaptive_plain``) is handed the controller,
+and the kernel checks build RODASPR's table from the coefficients.  This
+module imports neither the schemes nor the kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def transformed(alpha, gamma, b, b_pred=None):
+    """The Hairer-Wanner transformed tables (Solving ODEs II, ch. IV.7) of
+    ``(alpha, gamma, b, b_pred)``: ``(a_t, c_t, m_t, m_pred_t)``, with
+    ``a_t`` and ``c_t`` strictly lower and ``m_pred_t`` None without
+    ``b_pred``."""
+    alpha, gamma = np.asarray(alpha, np.float64), np.asarray(gamma, np.float64)
+    s = len(b)
+    G = np.tril(gamma, -1) + gamma[0, 0] * np.eye(s)
+    Ginv = np.linalg.inv(G)
+    m_pred_t = None if b_pred is None else np.asarray(b_pred, np.float64) @ Ginv
+    return (alpha @ Ginv, -np.tril(Ginv, -1), np.asarray(b, np.float64) @ Ginv,
+            m_pred_t)
+
+
+def rodaspr_coefficients():
+    """``(alpha, gamma, b, b_pred)`` of RODASPR, order 4(3) (Rang 2013)."""
+    alpha = np.zeros((6, 6))
+    gamma = np.zeros((6, 6))
+    b = [-7.9683251690137014e-1,
+         6.2136401428192344e-2,
+         1.1198553514719862e0,
+         4.7198362114404874e-1,
+         -1.0714285714285714e-1,
+         2.5e-1]
+    b_pred = [-7.3844531665375115e0,
+              -3.0593419030174646e-1,
+              7.8622074209377981e0,
+              5.7817993590145966e-1,
+              2.5e-1,
+              0]
+    alpha[1, 0] = 7.5e-1
+    alpha[2, 0] = 7.5162877593868457e-2
+    alpha[2, 1] = 2.4837122406131545e-2
+    alpha[3, 0] = 1.6532708886396510e0
+    alpha[3, 1] = 2.1545706385445562e-1
+    alpha[3, 2] = -1.3157488872766792e0
+    alpha[4, 0] = 1.9385003738039885e1
+    alpha[4, 1] = 1.2007117225835324e0
+    alpha[4, 2] = -1.9337924059522791e1
+    alpha[4, 3] = -2.4779140110062559e-1
+    alpha[5, 0] = -7.3844531665375115e0
+    alpha[5, 1] = -3.0593419030174646e-1
+    alpha[5, 2] = 7.8622074209377981e0
+    alpha[5, 3] = 5.7817993590145966e-1
+    alpha[5, 4] = 2.5e-1
+    gamma_i = .25
+    for i in range(len(b)):
+        gamma[i, i] = gamma_i
+    gamma[1, 0] = -7.5e-1
+    gamma[2, 0] = -8.8644e-2
+    gamma[2, 1] = -2.868897e-2
+    gamma[3, 0] = -4.84700e0
+    gamma[3, 1] = -3.1583e-1
+    gamma[3, 2] = 4.9536568e0
+    gamma[4, 0] = -2.67694569e1
+    gamma[4, 1] = -1.5066459e0
+    gamma[4, 2] = 2.720013e1
+    gamma[4, 3] = 8.25971337e-1
+    gamma[5, 0] = 6.58762e0
+    gamma[5, 1] = 3.6807059e-1
+    gamma[5, 2] = -6.74235e0
+    gamma[5, 3] = -1.061963e-1
+    gamma[5, 4] = -3.57142857e-1
+    return alpha, gamma, b, b_pred
+
+
+def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
+                        max_iter, dt_min, interpolate, state):
+    """One output step from ``t`` to ``t + dt`` through accepted attempts:
+    the counterpart of the reference's ``_adaptive_embedded_loop`` with the
+    ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt, 10*dt)``,
+    every quantity a numpy scalar of ``T`` (the model's dtype).
+
+    ``attempt(t_, state, dt_eff) -> (state2, err)`` runs one step of
+    ``dt_eff`` (err a ``T`` scalar); ``state[0]`` is u.  ``interpolate``
+    (``recompute_target=False``) overshoots the output time and
+    interpolates u between the bracketing steps.  Returns (next_t, state,
+    dt_i, niter, status), status 1 for max_iter and 2 for the dt floor.
+    K6's adaptive entry runs the same arithmetic in the same order."""
+    info = np.finfo(T)
+    tol, safety = T(tol), T(safety)
+    next_t = T(t) + T(dt)
+    eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+    if dt_min is not None:
+        dt_floor = T(dt_min)
+    else:
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
+    t_ = T(t)
+    dt_i = T(internal_dt) if interpolate \
+        else np.minimum(T(internal_dt), T(dt))
+    tp, sp_ = t_, state
+    niter, status = 0, 0
+    while next_t - t_ > eps and status == 0:
+        if interpolate:
+            clamped, dt_eff = False, dt_i
+        else:
+            remaining = next_t - t_
+            clamped = dt_i >= remaining
+            dt_eff = np.minimum(dt_i, remaining)
+        state2, err = attempt(t_, state, dt_eff)
+        accept = err <= tol
+        dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))
+        dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
+                             T(10.0) * dt_eff)
+        if accept:
+            tp, sp_ = t_, state
+            t_ = t_ + dt_eff
+            state = state2
+        if not (accept and clamped):
+            dt_i = dt_next
+        niter += 1
+        if max_iter is not None and niter > max_iter:
+            status = 1
+        if dt_i < dt_floor:
+            status = 2
+    if interpolate:
+        span = np.maximum(t_ - tp, info.tiny)
+        w = np.clip((next_t - tp) / span, T(0.0), T(1.0))
+        state = (sp_[0] + float(w) * (state[0] - sp_[0]),) + tuple(state[1:])
+    return next_t, state, dt_i, niter, status

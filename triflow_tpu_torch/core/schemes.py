@@ -15,11 +15,16 @@ name to a new tensor works too.  The hook runs before every attempted step
 at its start time and once after the output step at ``t + dt``, as in the
 reference.
 
-The adaptive loops run on the host.  An attempt is enqueued on the device
-and its error estimate is the one scalar read back, which decides it.
-Every controller quantity (t, dt, err, the new dt) is a numpy scalar of the
-model's dtype, so a float32 run takes the decisions the float32 reference
-takes in ``u.dtype``.
+A grid that ``ops.megastep.plan_for`` admits (a small one) steps through
+kernel K6, one launch per implicit step; larger grids take the multi-launch
+path (K1-K5).  With no hook and ``recompute_target=True`` the adaptive
+controller of a Rosenbrock scheme runs inside K6 too, one launch and one
+read-back per output step.  Otherwise the adaptive loops run on the host:
+an attempt is enqueued on the device and its error estimate is the one
+scalar read back, which decides it.  Every controller quantity (t, dt, err,
+the new dt) is a numpy scalar (or a kernel value) of the model's dtype, so
+a float32 run takes the decisions the float32 reference takes in
+``u.dtype``.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chunked
+from ..ops import chunked, megastep
 from ..ops.combine import combine
+from . import rosenbrock
 
 
 def null_hook(t, fields, pars):
@@ -111,6 +117,7 @@ class _SchemeBase:
         self._model = model
         self._problems = {}
         self._plans = {}
+        self._mega_plans = {}
         self._np_dtype = np.float64 if model.dtype == torch.float64 \
             else np.float32
 
@@ -126,6 +133,15 @@ class _SchemeBase:
             self._plans[key] = chunked.make_plan(
                 N, self._model.system.nvar, self._model.halo, periodic)
         return self._plans[key]
+
+    def _mega_plan(self, N, periodic):
+        """K6's plan of the grid, or None where the multi-launch path
+        serves it."""
+        key = (N, periodic)
+        if key not in self._mega_plans:
+            self._mega_plans[key] = megastep.plan_for(
+                N, self._model.system.nvar, self._model.halo, periodic)
+        return self._mega_plans[key]
 
     def _factor(self, problem, u, helpers, pstack, x, beta):
         """J's bands (K1) and the chunked factor of ``I + beta*J`` (K2,
@@ -156,7 +172,8 @@ class Theta(_SchemeBase):
     The implicit step uses the identity ``B = dt*(F - theta*J*u) + u =
     A*u + dt*F`` with ``A = I - theta*dt*J``, so ``u2 = u + A^-1 (dt*F)``:
     J's bands (K1), the chunked factor of A (K2, K4), dt*F (K1) and one
-    solve (K3, K4, K3) whose last kernel adds the state."""
+    solve (K3, K4, K3) whose last kernel adds the state; on a grid K6
+    admits, all of it in one K6 launch."""
 
     def __init__(self, model, theta=1, solver=None):
         if solver is not None:
@@ -169,11 +186,34 @@ class Theta(_SchemeBase):
         u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
         dt = float(self._np_dtype(dt))
         theta = self._theta
+        plan = self._mega_plan(x.shape[-1], problem.periodic)
+        if plan is not None and theta != 0:
+            u2 = megastep.theta_step(self._model.backend, plan, theta,
+                                     problem.periodic, u, helpers, pstack, x,
+                                     dt)
+            return u2, helpers, pstack, x, None
         rhs = problem.F(u, helpers, pstack, x, scale=dt)
         if theta == 0:
             return u + rhs, helpers, pstack, x, None
         fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
         return fact.solve(rhs, add_to=u), helpers, pstack, x, None
+
+    def device_fixed_scan(self, N, periodic=True):
+        """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
+        theta steps of ``dt`` (no hook) in ONE K6 launch, in the node layout;
+        None where K6's plan does not apply or theta = 0.  The counterpart of
+        the reference's ``device_fixed_scan_folded`` (the port has no
+        folded layout)."""
+        plan = self._mega_plan(N, periodic)
+        if plan is None or self._theta == 0:
+            return None
+        backend, theta = self._model.backend, self._theta
+
+        def scan(t, u, helpers, pstack, x, dt, nsteps):
+            return megastep.theta_scan(backend, plan, theta, periodic, u,
+                                       helpers, pstack, x, dt, nsteps)
+
+        return scan
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
         T = self._np_dtype
@@ -206,7 +246,8 @@ class ROW_general(_SchemeBase):
     ``(I - g00*dt*J) ut_i = g00*dt*F(u + sum a_ij ut_j) + g00 * sum_{j<i}
     c_ij ut_j``, so a step is one J (K1), one factor (K2, K4), and per
     stage one combination (K5), one biased F (K1) and one solve (K3, K4,
-    K3), then one final combination (K5)."""
+    K3), then one final combination (K5); on a grid K6 admits, all of it in
+    one K6 launch."""
 
     def __init__(self, model, alpha, gamma, b, b_pred=None,
                  time_stepping=False, tol=None, max_iter=None, dt_min=None,
@@ -230,15 +271,8 @@ class ROW_general(_SchemeBase):
         self._b = np.asarray(b, dtype=np.float64)
         self._b_pred = None if b_pred is None else np.asarray(b_pred, np.float64)
         self._s = len(b)
-        s = self._s
-        g00 = self._gamma[0, 0]
-        G = np.tril(self._gamma, -1) + g00 * np.eye(s)
-        Ginv = np.linalg.inv(G)
-        self._a_t = self._alpha @ Ginv                  # strictly lower
-        self._c_t = -np.tril(Ginv, -1)                  # strictly lower
-        self._m_t = self._b @ Ginv
-        self._m_pred_t = (None if b_pred is None
-                          else np.asarray(b_pred, np.float64) @ Ginv)
+        self._a_t, self._c_t, self._m_t, self._m_pred_t = \
+            rosenbrock.transformed(alpha, gamma, b, b_pred)
         self._time_control = time_stepping
         self._tol = tol
         self._safety_factor = safety_factor
@@ -247,11 +281,25 @@ class ROW_general(_SchemeBase):
         self._recompute_target = recompute_target
         self._internal_dt = None
         self._internal_iter = None
+        self._tables = {}
         if time_stepping and b_pred is None:
             raise NotImplementedError(
                 "time stepping requires the predictor (b_pred) coefficients")
         if time_stepping and tol is None:
             raise ValueError("time_stepping=True requires a tolerance (tol)")
+
+    def _table(self, with_err):
+        """K6's combination table of this scheme."""
+        if with_err not in self._tables:
+            self._tables[with_err] = megastep.row_table(
+                self._a_t, self._c_t, self._m_t, self._m_pred_t,
+                self._gamma[0, 0], with_err)
+        return self._tables[with_err]
+
+    def _with_err(self):
+        """Whether a controller reads the embedded error of a step."""
+        return self._m_pred_t is not None and (self._tol is not None
+                                               or self._time_control)
 
     def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
         """The hook at ``t``, then one ROW step of ``dt`` in the order of
@@ -260,6 +308,12 @@ class ROW_general(_SchemeBase):
         no controller reads it, so the final combination emits ``u_new``
         alone and ``err`` is inf."""
         u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
+        plan = self._mega_plan(x.shape[-1], problem.periodic)
+        if plan is not None:
+            u_new, err = megastep.row_step(
+                self._model.backend, plan, self._table(self._with_err()),
+                problem.periodic, u, helpers, pstack, x, dt)
+            return u_new, helpers, pstack, x, err
         T = self._np_dtype
         g00 = self._gamma[0, 0]
         # g00 * dt rounded as the model's dtype multiplies them
@@ -284,8 +338,7 @@ class ROW_general(_SchemeBase):
             rhs = problem.F(u_i, helpers, pstack, x, scale=gdt, bias=csum)
             us.append(fact.solve(rhs))
         m_t = [float(m) for m in self._m_t]
-        if self._m_pred_t is None or (self._tol is None
-                                      and not self._time_control):
+        if not self._with_err():
             u_new = _combos([[1.0] + m_t], [u] + us)[0]
             err = torch.full((), np.inf, dtype=u.dtype, device=u.device)
         else:
@@ -296,56 +349,50 @@ class ROW_general(_SchemeBase):
                               torch.full_like(err, np.inf))
         return u_new, helpers, pstack, x, err
 
+    def device_fixed_scan(self, N, periodic=True):
+        """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
+        fixed steps of ``dt`` (no hook, no error estimate) in ONE K6 launch,
+        in the node layout; None where K6's plan does not apply.  The
+        counterpart of the reference's ``device_fixed_scan_folded`` (the
+        port has no folded layout)."""
+        plan = self._mega_plan(N, periodic)
+        if plan is None:
+            return None
+        backend, table = self._model.backend, self._table(False)
+
+        def scan(t, u, helpers, pstack, x, dt, nsteps):
+            return megastep.row_scan(backend, plan, table, periodic, u,
+                                     helpers, pstack, x, dt, nsteps)
+
+        return scan
+
     def _adaptive(self, problem, t, u, helpers, pstack, x, dt, internal_dt):
-        """Advance from ``t`` to ``t + dt`` through accepted attempts: the
-        counterpart of the reference's ``_adaptive_embedded_loop`` with the
-        ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt,
-        10*dt)``.  Returns (next_t, u, helpers, pstack, x, dt_i, niter,
-        status), status 1 for max_iter and 2 for the dt floor."""
+        """Advance from ``t`` to ``t + dt`` through accepted attempts (the
+        controller of ``rosenbrock.adaptive_controller``).  With no hook and
+        ``recompute_target=True`` on a grid K6 admits, the whole output
+        step is one K6 launch; otherwise every attempt is a ``fixed_step``
+        decided on the host.  Returns (next_t, u, helpers, pstack, x, dt_i,
+        niter, status), status 1 for max_iter and 2 for the dt floor."""
         T = self._np_dtype
-        info = np.finfo(T)
-        tol, safety = T(self._tol), T(self._safety_factor)
-        interpolate = not self._recompute_target
-        next_t = T(t) + T(dt)
-        eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
-        if self._dt_min is not None:
-            dt_floor = T(self._dt_min)
-        else:
-            dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
-        t_ = T(t)
-        dt_i = T(internal_dt) if interpolate \
-            else np.minimum(T(internal_dt), T(dt))
-        tp, up = t_, u
-        niter, status = 0, 0
-        while next_t - t_ > eps and status == 0:
-            if interpolate:
-                clamped, dt_eff = False, dt_i
-            else:
-                remaining = next_t - t_
-                clamped = dt_i >= remaining
-                dt_eff = np.minimum(dt_i, remaining)
+        plan = self._mega_plan(x.shape[-1], problem.periodic)
+        if (plan is not None and problem.hook is null_hook
+                and self._recompute_target):
+            u2, dt_i, niter, status = megastep.row_adaptive_step(
+                rosenbrock.adaptive_controller, self._model.backend, plan, self._table(True), problem.periodic,
+                u, helpers, pstack, x, t, dt, internal_dt, self._tol,
+                self._safety_factor, self._max_iter, self._dt_min)
+            return T(t) + T(dt), u2, helpers, pstack, x, dt_i, niter, status
+
+        def attempt(t_, state, dt_eff):
             u2, h2, p2, _x2, err = self.fixed_step(
-                problem, float(t_), u, helpers, pstack, x, dt_eff)
-            err = T(err.item())
-            accept = err <= tol
-            dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))
-            dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
-                                 T(10.0) * dt_eff)
-            if accept:
-                tp, up = t_, u
-                t_ = t_ + dt_eff
-                u, helpers, pstack = u2, h2, p2
-            if not (accept and clamped):
-                dt_i = dt_next
-            niter += 1
-            if self._max_iter is not None and niter > self._max_iter:
-                status = 1
-            if dt_i < dt_floor:
-                status = 2
-        if interpolate:
-            span = np.maximum(t_ - tp, info.tiny)
-            w = np.clip((next_t - tp) / span, T(0.0), T(1.0))
-            u = up + float(w) * (u - up)
+                problem, float(t_), *state, x, dt_eff)
+            return (u2, h2, p2), T(err.item())
+
+        next_t, (u, helpers, pstack), dt_i, niter, status = \
+            rosenbrock.adaptive_controller(
+                attempt, T, t, dt, internal_dt, self._tol, self._safety_factor,
+                self._max_iter, self._dt_min, not self._recompute_target,
+                (u, helpers, pstack))
         return next_t, u, helpers, pstack, x, dt_i, niter, status
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
@@ -465,53 +512,7 @@ class RODASPR(ROW_general):
     def __init__(self, model, tol=1e-1, time_stepping=True,
                  max_iter=None, dt_min=None, recompute_target=True,
                  compensated=False, refine=0, df64_mixed_solve=None):
-        alpha = np.zeros((6, 6))
-        gamma = np.zeros((6, 6))
-        b = [-7.9683251690137014e-1,
-             6.2136401428192344e-2,
-             1.1198553514719862e0,
-             4.7198362114404874e-1,
-             -1.0714285714285714e-1,
-             2.5e-1]
-        b_pred = [-7.3844531665375115e0,
-                  -3.0593419030174646e-1,
-                  7.8622074209377981e0,
-                  5.7817993590145966e-1,
-                  2.5e-1,
-                  0]
-        alpha[1, 0] = 7.5e-1
-        alpha[2, 0] = 7.5162877593868457e-2
-        alpha[2, 1] = 2.4837122406131545e-2
-        alpha[3, 0] = 1.6532708886396510e0
-        alpha[3, 1] = 2.1545706385445562e-1
-        alpha[3, 2] = -1.3157488872766792e0
-        alpha[4, 0] = 1.9385003738039885e1
-        alpha[4, 1] = 1.2007117225835324e0
-        alpha[4, 2] = -1.9337924059522791e1
-        alpha[4, 3] = -2.4779140110062559e-1
-        alpha[5, 0] = -7.3844531665375115e0
-        alpha[5, 1] = -3.0593419030174646e-1
-        alpha[5, 2] = 7.8622074209377981e0
-        alpha[5, 3] = 5.7817993590145966e-1
-        alpha[5, 4] = 2.5e-1
-        gamma_i = .25
-        for i in range(len(b)):
-            gamma[i, i] = gamma_i
-        gamma[1, 0] = -7.5e-1
-        gamma[2, 0] = -8.8644e-2
-        gamma[2, 1] = -2.868897e-2
-        gamma[3, 0] = -4.84700e0
-        gamma[3, 1] = -3.1583e-1
-        gamma[3, 2] = 4.9536568e0
-        gamma[4, 0] = -2.67694569e1
-        gamma[4, 1] = -1.5066459e0
-        gamma[4, 2] = 2.720013e1
-        gamma[4, 3] = 8.25971337e-1
-        gamma[5, 0] = 6.58762e0
-        gamma[5, 1] = 3.6807059e-1
-        gamma[5, 2] = -6.74235e0
-        gamma[5, 3] = -1.061963e-1
-        gamma[5, 4] = -3.57142857e-1
+        alpha, gamma, b, b_pred = rosenbrock.rodaspr_coefficients()
         super().__init__(model, alpha, gamma, b, b_pred=b_pred,
                          time_stepping=time_stepping, tol=tol,
                          max_iter=max_iter, dt_min=dt_min,

@@ -29,7 +29,9 @@ namespace {
 constexpr int kMaxA = 8;
 constexpr int kMaxR = 2;
 
-enum Role : unsigned char { kSkip = 0, kUnit = 1, kScale = 2 };
+using tf::kScale;
+using tf::kSkip;
+using tf::kUnit;
 
 template <typename T>
 struct Args {
@@ -39,11 +41,6 @@ struct Args {
   unsigned char role[kMaxR][kMaxA];
 };
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
 template <typename T, int A, int R>
 __global__ void combine_kernel(const Args<T> args, long n) {
   const long stride = (long)gridDim.x * blockDim.x;
@@ -52,19 +49,8 @@ __global__ void combine_kernel(const Args<T> args, long n) {
 #pragma unroll
     for (int j = 0; j < A; ++j) v[j] = args.in[j][i];
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
-      T acc = T(0);
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < A; ++j) {
-        const unsigned char role = args.role[k][j];
-        if (role == kSkip) continue;
-        const T t = role == kUnit ? v[j] : mul_rn(args.coef[k][j], v[j]);
-        acc = any ? add_rn(acc, t) : t;
-        any = true;
-      }
-      args.out[k][i] = acc;
-    }
+    for (int k = 0; k < R; ++k)
+      args.out[k][i] = tf::lin_comb(A, args.coef[k], args.role[k], [&](int j) { return v[j]; });
   }
 }
 

@@ -1,5 +1,6 @@
 // Shared pieces of the hand-written kernels: the error-string entry every
-// library exports, and S x S block algebra held in registers.
+// library exports, rounding that nvcc never contracts, the linear
+// combination of K5 and K6, and S x S block algebra held in registers.
 //
 // The solver kernels work on dense S x S blocks (S = nvar * max(halo, 1),
 // the supernode size).  Blocks are small (1..4 in the instantiated set),
@@ -14,6 +15,40 @@ extern "C" const char* tf_error_string(int err) {
 }
 
 namespace tf {
+
+// Products, sums, differences and quotients rounded one at a time: nvcc
+// never contracts these into an FMA, so a kernel computes exactly what the
+// same operations compute on the host (numpy, torch) in the same order.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// Role of one coefficient of a linear combination, decided on the host from
+// its double value as the reference decides it: 0 skips the column, 1 adds
+// the value unmultiplied, anything else multiplies.
+enum Role : unsigned char { kSkip = 0, kUnit = 1, kScale = 2 };
+
+// sum_j coef[j] * value(j) over the A columns, in column order, each term
+// and each sum rounded on its own (0 when every column is skipped).
+template <typename T, typename Value>
+__device__ __forceinline__ T lin_comb(int A, const T* coef, const unsigned char* role,
+                                      Value value) {
+  T acc = T(0);
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < A; ++j) {
+    if (role[j] == kSkip) continue;
+    const T t = role[j] == kUnit ? value(j) : mul_rn(coef[j], value(j));
+    acc = any ? add_rn(acc, t) : t;
+    any = true;
+  }
+  return acc;
+}
 
 template <typename T, int S>
 struct Blk {

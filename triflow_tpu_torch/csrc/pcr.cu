@@ -25,92 +25,19 @@
 // (C <= 16384 rows of S2 x S2), so the kernel is bound by the latency of
 // its 2 log2 C dependent phases, not by bandwidth or arithmetic; one block
 // avoids any grid-wide synchronisation.
-#include "common.cuh"
+//
+// The bodies live in pcr.cuh, shared with K6 (megastep.cu).
+#include "pcr.cuh"
 
 namespace {
 
-using tf::Blk;
-
 constexpr int kThreads = 512;
-
-template <typename T, int S>
-__device__ __forceinline__ Blk<T, S> add(const Blk<T, S>& a, const Blk<T, S>& b) {
-  Blk<T, S> c;
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) c.v[i][j] = a.v[i][j] + b.v[i][j];
-  return c;
-}
-
-template <typename T, int S>
-__device__ __forceinline__ Blk<T, S> neg(const Blk<T, S>& a) {
-  Blk<T, S> c;
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) c.v[i][j] = -a.v[i][j];
-  return c;
-}
 
 template <typename T, int S2>
 __global__ void __launch_bounds__(kThreads)
     pcr_factor_kernel(const T* __restrict__ Lred, const T* __restrict__ Ured, T* alphas,
                       T* betas, T* Dinv, T* scratch, int C, int cyclic) {
-  const long sz = (long)S2 * S2 * C;
-  T* Lb[2] = {scratch, scratch + 3 * sz};
-  T* Db[2] = {scratch + sz, scratch + 4 * sz};
-  T* Ub[2] = {scratch + 2 * sz, scratch + 5 * sz};
-  T* Dt = scratch + 6 * sz;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    Blk<T, S2> I;
-    tf::eye(I);
-    tf::store_blk(Lb[0], 0, c, C, tf::load_blk<T, S2>(Lred, 0, c, C));
-    tf::store_blk(Ub[0], 0, c, C, tf::load_blk<T, S2>(Ured, 0, c, C));
-    tf::store_blk(Db[0], 0, c, C, I);
-  }
-  __syncthreads();
-  int cur = 0, lev = 0;
-  for (int d = 1; d < C; d *= 2, ++lev) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      tf::store_blk(Dt, 0, c, C, tf::inv(tf::load_blk<T, S2>(Db[cur], 0, c, C)));
-    __syncthreads();
-    const int nxt = cur ^ 1;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const int cm = (c - d + C) % C, cp = (c + d) % C;
-      Blk<T, S2> alpha = neg(tf::mm(tf::load_blk<T, S2>(Lb[cur], 0, c, C),
-                                    tf::load_blk<T, S2>(Dt, 0, cm, C)));
-      Blk<T, S2> beta = neg(tf::mm(tf::load_blk<T, S2>(Ub[cur], 0, c, C),
-                                   tf::load_blk<T, S2>(Dt, 0, cp, C)));
-      if (!cyclic && c < d) tf::zero(alpha);
-      if (!cyclic && c >= C - d) tf::zero(beta);
-      const Blk<T, S2> Lm = tf::load_blk<T, S2>(Lb[cur], 0, cm, C);
-      const Blk<T, S2> Um = tf::load_blk<T, S2>(Ub[cur], 0, cm, C);
-      const Blk<T, S2> Lp = tf::load_blk<T, S2>(Lb[cur], 0, cp, C);
-      const Blk<T, S2> Up = tf::load_blk<T, S2>(Ub[cur], 0, cp, C);
-      const Blk<T, S2> D = add(add(tf::load_blk<T, S2>(Db[cur], 0, c, C), tf::mm(alpha, Um)),
-                               tf::mm(beta, Lp));
-      tf::store_blk(Db[nxt], 0, c, C, D);
-      tf::store_blk(Lb[nxt], 0, c, C, tf::mm(alpha, Lm));
-      tf::store_blk(Ub[nxt], 0, c, C, tf::mm(beta, Up));
-      tf::store_blk(alphas, lev, c, C, alpha);
-      tf::store_blk(betas, lev, c, C, beta);
-    }
-    __syncthreads();
-    cur = nxt;
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    Blk<T, S2> D = tf::load_blk<T, S2>(Db[cur], 0, c, C);
-    if (cyclic)
-      D = add(D, add(tf::load_blk<T, S2>(Lb[cur], 0, c, C), tf::load_blk<T, S2>(Ub[cur], 0, c, C)));
-    tf::store_blk(Dinv, 0, c, C, tf::inv(D));
-  }
-}
-
-template <typename T, int S2>
-__device__ __forceinline__ void load_vec(const T* p, int c, int C, T (&v)[S2]) {
-#pragma unroll
-  for (int r = 0; r < S2; ++r) v[r] = p[(long)r * C + c];
+  tf::pcr_factor_block<T, S2>(Lred, Ured, alphas, betas, Dinv, scratch, C, cyclic);
 }
 
 template <typename T, int S2>
@@ -118,47 +45,7 @@ __global__ void __launch_bounds__(kThreads)
     pcr_solve_shift_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
                            const T* __restrict__ Dinv, const T* __restrict__ yred, T* xm1,
                            T* xp1, T* scratch, int C, int cyclic) {
-  constexpr int S = S2 / 2;
-  T* bb[2] = {scratch, scratch + (long)S2 * C};
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-#pragma unroll
-    for (int r = 0; r < S2; ++r) bb[0][(long)r * C + c] = yred[(long)r * C + c];
-  __syncthreads();
-  int cur = 0, lev = 0;
-  for (int d = 1; d < C; d *= 2, ++lev) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const int cm = (c - d + C) % C, cp = (c + d) % C;
-      T b[S2], bm[S2], bp[S2], ta[S2], tb[S2];
-      load_vec<T, S2>(bb[cur], c, C, b);
-      load_vec<T, S2>(bb[cur], cm, C, bm);
-      load_vec<T, S2>(bb[cur], cp, C, bp);
-      tf::mv(tf::load_blk<T, S2>(alphas, lev, c, C), bm, ta);
-      tf::mv(tf::load_blk<T, S2>(betas, lev, c, C), bp, tb);
-#pragma unroll
-      for (int r = 0; r < S2; ++r) bb[cur ^ 1][(long)r * C + c] = b[r] + ta[r] + tb[r];
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    T b[S2], z[S2];
-    load_vec<T, S2>(bb[cur], c, C, b);
-    tf::mv(tf::load_blk<T, S2>(Dinv, 0, c, C), b, z);
-#pragma unroll
-    for (int r = 0; r < S2; ++r) bb[cur ^ 1][(long)r * C + c] = z[r];
-  }
-  __syncthreads();
-  const T* z = bb[cur ^ 1];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int cm = (c - 1 + C) % C, cp = (c + 1) % C;
-    const bool has_m = cyclic || c != 0;
-    const bool has_p = cyclic || c != C - 1;
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      xm1[(long)r * C + c] = has_m ? z[(long)(S + r) * C + cm] : T(0);
-      xp1[(long)r * C + c] = has_p ? z[(long)r * C + cp] : T(0);
-    }
-  }
+  tf::pcr_solve_shift_block<T, S2>(alphas, betas, Dinv, yred, xm1, xp1, scratch, C, cyclic);
 }
 
 template <typename T>

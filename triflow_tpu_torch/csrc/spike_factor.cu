@@ -33,43 +33,11 @@
 // each, C up to 16384) and coalesced chunk-minor stores.  The band reads
 // are node-major (stride Mc * g between neighbour threads); that is the
 // first thing to fix when this kernel is made fast.
-#include "common.cuh"
+//
+// The bodies live in factor.cuh, shared with K6 (megastep.cu).
+#include "factor.cuh"
 
 namespace {
-
-using tf::Blk;
-
-template <typename T, int S>
-__device__ __forceinline__ Blk<T, S> band_block(const T* __restrict__ bands, long I,
-                                               int dblock, T alpha, T beta, int N,
-                                               int nvar, int g, int h) {
-  Blk<T, S> out;
-#pragma unroll
-  for (int r = 0; r < S; ++r) {
-    const int a = r / nvar, m = r % nvar;
-#pragma unroll
-    for (int q = 0; q < S; ++q) {
-      const int b = q / nvar, n = q % nvar;
-      const int delta = (b - a) + dblock * g;
-      T val = T(0);
-      if (delta >= -h && delta <= h)
-        val = beta * bands[((long)((h + delta) * nvar + m) * nvar + n) * N + I * g + a];
-      if (dblock == 0 && r == q) val += alpha;
-      out.v[r][q] = val;
-    }
-  }
-  return out;
-}
-
-template <typename T, int S>
-__device__ __forceinline__ Blk<T, S> sub(const Blk<T, S>& a, const Blk<T, S>& b) {
-  Blk<T, S> c;
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) c.v[i][j] = a.v[i][j] - b.v[i][j];
-  return c;
-}
 
 template <typename T, int S>
 __global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
@@ -78,81 +46,8 @@ __global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhin
                                     T beta) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  Blk<T, S> dh, up, wt, Tl, Tr;
-  tf::zero(dh);
-  tf::zero(up);
-  tf::zero(wt);
-  tf::zero(Tl);
-  tf::zero(Tr);
-  for (int j = 0; j < Mc; ++j) {
-    const long I = (long)c * Mc + j;
-    Blk<T, S> L = band_block<T, S>(bands, I, -1, alpha, beta, N, nvar, g, h);
-    Blk<T, S> D = band_block<T, S>(bands, I, 0, alpha, beta, N, nvar, g, h);
-    Blk<T, S> U = band_block<T, S>(bands, I, 1, alpha, beta, N, nvar, g, h);
-    if (j == 0) {
-      Tl = L;
-      if (!cyclic && c == 0) tf::zero(Tl);
-      tf::zero(L);
-    }
-    if (j == Mc - 1) {
-      Tr = U;
-      if (!cyclic && c == C - 1) tf::zero(Tr);
-      tf::zero(U);
-    }
-    const Blk<T, S> f = tf::mm(L, dh);
-    dh = tf::inv(sub(D, tf::mm(f, up)));
-    if (j == 0) {
-      wt = Tl;
-    } else {
-      Blk<T, S> z;
-      tf::zero(z);
-      wt = sub(z, tf::mm(f, wt));
-    }
-    tf::store_blk(fac, j, c, C, f);
-    tf::store_blk(Dhinv, j, c, C, dh);
-    tf::store_blk(Wsp, j, c, C, wt);  // wt_j, overwritten by W_j below
-    tf::store_blk(DU, j, c, C, U);    // U_j, overwritten by Dh_j U_j below
-    up = U;
-  }
-
-  Blk<T, S> Wn, Vn, W0, V0, Wl, Vl;
-  tf::zero(Wn);
-  tf::zero(Vn);
-  for (int j = Mc - 1; j >= 0; --j) {
-    const Blk<T, S> dhj = tf::load_blk<T, S>(Dhinv, j, c, C);
-    const Blk<T, S> du = tf::mm(dhj, tf::load_blk<T, S>(DU, j, c, C));
-    const Blk<T, S> W = sub(tf::mm(dhj, tf::load_blk<T, S>(Wsp, j, c, C)), tf::mm(du, Wn));
-    Blk<T, S> V;
-    if (j == Mc - 1) {
-      V = tf::mm(dhj, Tr);
-      Wl = W;
-      Vl = V;
-    } else {
-      Blk<T, S> z;
-      tf::zero(z);
-      V = sub(z, tf::mm(du, Vn));
-    }
-    tf::store_blk(DU, j, c, C, du);
-    tf::store_blk(Wsp, j, c, C, W);
-    tf::store_blk(Vsp, j, c, C, V);
-    Wn = W;
-    Vn = V;
-  }
-  W0 = Wn;
-  V0 = Vn;
-
-  const bool keep_l = cyclic || c != 0;
-  const bool keep_u = cyclic || c != C - 1;
-#pragma unroll
-  for (int r = 0; r < 2 * S; ++r)
-#pragma unroll
-    for (int q = 0; q < 2 * S; ++q) {
-      T lv = T(0), uv = T(0);
-      if (q >= S) lv = (r < S) ? W0.v[r][q - S] : Wl.v[r - S][q - S];
-      if (q < S) uv = (r < S) ? V0.v[r][q] : Vl.v[r - S][q];
-      Lred[((long)r * 2 * S + q) * C + c] = keep_l ? lv : T(0);
-      Ured[((long)r * 2 * S + q) * C + c] = keep_u ? uv : T(0);
-    }
+  tf::spike_factor_chunk<T, S>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, nvar, g, h,
+                               Mc, C, cyclic, alpha, beta, c);
 }
 
 template <typename T>

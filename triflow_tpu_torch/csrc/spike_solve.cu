@@ -20,11 +20,11 @@
 // between neighbour threads.  The correction is elementwise and
 // bandwidth-bound: it reads y, the two spikes and add_to once and writes x
 // once.
-#include "common.cuh"
+//
+// The bodies live in sweep.cuh, shared with K6 (megastep.cu).
+#include "sweep.cuh"
 
 namespace {
-
-using tf::Blk;
 
 template <typename T, int S>
 __global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
@@ -32,37 +32,7 @@ __global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restri
                                     T* yred, int N, int nvar, int g, int Mc, int C) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  T bt[S], t[S];
-#pragma unroll
-  for (int r = 0; r < S; ++r) bt[r] = T(0);
-  for (int j = 0; j < Mc; ++j) {
-    const long base = ((long)c * Mc + j) * g;
-    tf::mv(tf::load_blk<T, S>(fac, j, c, C), bt, t);
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      const long at = (long)(r % nvar) * N + base + r / nvar;
-      bt[r] = rhs[at] - t[r];
-      y[at] = bt[r];
-    }
-  }
-  T yn[S], p[S];
-#pragma unroll
-  for (int r = 0; r < S; ++r) yn[r] = T(0);
-  for (int j = Mc - 1; j >= 0; --j) {
-    const long base = ((long)c * Mc + j) * g;
-#pragma unroll
-    for (int r = 0; r < S; ++r) bt[r] = y[(long)(r % nvar) * N + base + r / nvar];
-    tf::mv(tf::load_blk<T, S>(Dhinv, j, c, C), bt, p);
-    tf::mv(tf::load_blk<T, S>(DU, j, c, C), yn, t);
-#pragma unroll
-    for (int r = 0; r < S; ++r) {
-      yn[r] = p[r] - t[r];
-      y[(long)(r % nvar) * N + base + r / nvar] = yn[r];
-      if (j == Mc - 1) yred[(long)(S + r) * C + c] = yn[r];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < S; ++r) yred[(long)r * C + c] = yn[r];
+  tf::thomas_sweep_chunk<T, S>(fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, c);
 }
 
 template <typename T, int S>
@@ -73,22 +43,8 @@ __global__ void spike_correct_kernel(const T* __restrict__ y, const T* __restric
                                      int has_add) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  const long I = i / g;
-  const int a = (int)(i % g);
-  const int c = (int)(I / Mc);
-  const long j = I % Mc;
-  for (int m = 0; m < nvar; ++m) {
-    const int r = a * nvar + m;
-    T corr = T(0);
-#pragma unroll
-    for (int q = 0; q < S; ++q) {
-      const long at = ((j * S + r) * S + q) * C + c;
-      corr += Wsp[at] * xm1[(long)q * C + c] + Vsp[at] * xp1[(long)q * C + c];
-    }
-    const long k = (long)m * N + i;
-    const T x = y[k] - corr;
-    out[k] = has_add ? add_to[k] + x : x;
-  }
+  tf::spike_correct_node<T, S>(y, Wsp, Vsp, xm1, xp1, has_add ? add_to : nullptr, out, N,
+                               nvar, g, Mc, C, i);
 }
 
 template <typename T>

@@ -1,6 +1,7 @@
 // K1: the stencil RHS F and the banded Jacobian J of one model, generated
 // per model from its SymPy expressions (ops/stencil.py prints them into
-// the block marked GENERATED below) and compiled at first use.
+// the block marked GENERATED below) and compiled at first use.  The
+// per-node bodies live in stencil.cuh, shared with K6 (megastep.cu).
 //
 // Replaces, on the TPU: ops/folded.py eval_F_folded (the theta step's
 // dt * F and, in its scale/bias mode, the ROW stage right-hand side
@@ -36,34 +37,9 @@ extern "C" const char* tf_error_string(int err) {
 // @GENERATED@
 // ---- end of generated block ----
 
+#include "stencil.cuh"
+
 namespace {
-
-constexpr int kW = 2 * TF_H + 1;
-constexpr int kNJ = kW * TF_NVAR * TF_NVAR;
-
-template <typename T>
-__device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const T* u,
-                                       const T* hlp, const T* par, const T* x) {
-  int idx = 0;
-  a[idx++] = x[i];
-#pragma unroll
-  for (int off = -TF_H; off <= TF_H; ++off) {
-    long j = i + off;
-    if (periodic) {
-      j %= N;
-      if (j < 0) j += N;
-    } else {
-      j = j < 0 ? 0 : (j > N - 1 ? N - 1 : j);
-    }
-#pragma unroll
-    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = u[v * N + j];
-#pragma unroll
-    for (int v = 0; v < TF_NHELP; ++v) a[idx++] = hlp[v * N + j];
-  }
-#pragma unroll
-  for (int q = 0; q < TF_NPAR; ++q) a[idx++] = par[q * N + i];
-  a[idx] = (x[N - 1] - x[0]) / T(N - 1);
-}
 
 template <typename T>
 __global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
@@ -72,15 +48,7 @@ __global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ 
                                  int periodic, T scale) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  T a[TF_NARGS];
-  T f[TF_NVAR];
-  gather(a, i, N, periodic, u, hlp, par, x);
-  tf_F(a, f);
-#pragma unroll
-  for (int m = 0; m < TF_NVAR; ++m) {
-    const T v = scale * f[m];
-    out[m * N + i] = bias ? v + bias[m * N + i] : v;
-  }
+  tf::stencil_F_node<T>(u, hlp, par, x, bias, out, N, periodic, scale, i);
 }
 
 template <typename T>
@@ -89,42 +57,7 @@ __global__ void stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ 
                                  T* __restrict__ bands, long N, int periodic) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  T a[TF_NARGS];
-  T b[kNJ];
-#pragma unroll
-  for (int e = 0; e < kNJ; ++e) b[e] = T(0);
-  gather(a, i, N, periodic, u, hlp, par, x);
-  tf_J(a, b);
-  if (!periodic) {
-    // ghost-node dependencies fold onto the boundary columns, in the
-    // order of compiler.fold_edges
-    constexpr int NN = TF_NVAR * TF_NVAR;
-#pragma unroll
-    for (int ii = 0; ii < TF_H; ++ii) {
-      if (i == ii) {
-#pragma unroll
-        for (int k = 0; k < TF_H - ii; ++k)
-#pragma unroll
-          for (int e = 0; e < NN; ++e) {
-            b[(TF_H - ii) * NN + e] += b[k * NN + e];
-            b[k * NN + e] = T(0);
-          }
-      }
-      if (i == N - 1 - ii) {
-#pragma unroll
-        for (int k = 0; k < TF_H - ii; ++k) {
-          const int koff = kW - 1 - k;
-#pragma unroll
-          for (int e = 0; e < NN; ++e) {
-            b[(TF_H + ii) * NN + e] += b[koff * NN + e];
-            b[koff * NN + e] = T(0);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kNJ; ++e) bands[e * N + i] = b[e];
+  tf::stencil_J_node<T>(u, hlp, par, x, bands, N, periodic, i);
 }
 
 template <typename T>

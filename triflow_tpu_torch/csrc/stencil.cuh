@@ -1,0 +1,96 @@
+// The per-node bodies of K1 (stencil.cu), shared with K6 (megastep.cu).
+// Include after the generated block that defines TF_NVAR, TF_NHELP,
+// TF_NPAR, TF_H, TF_NARGS, tf_F and tf_J; stencil.cu describes the layouts,
+// the boundary closure and the edge fold.  No __restrict__ on the
+// pointers: K6 evaluates F at stage states it wrote in the same launch.
+#pragma once
+
+namespace tf {
+
+constexpr int kW = 2 * TF_H + 1;
+constexpr int kNJ = kW * TF_NVAR * TF_NVAR;
+
+template <typename T>
+__device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const T* u,
+                                       const T* hlp, const T* par, const T* x) {
+  int idx = 0;
+  a[idx++] = x[i];
+#pragma unroll
+  for (int off = -TF_H; off <= TF_H; ++off) {
+    long j = i + off;
+    if (periodic) {
+      j %= N;
+      if (j < 0) j += N;
+    } else {
+      j = j < 0 ? 0 : (j > N - 1 ? N - 1 : j);
+    }
+#pragma unroll
+    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = u[v * N + j];
+#pragma unroll
+    for (int v = 0; v < TF_NHELP; ++v) a[idx++] = hlp[v * N + j];
+  }
+#pragma unroll
+  for (int q = 0; q < TF_NPAR; ++q) a[idx++] = par[q * N + i];
+  a[idx] = (x[N - 1] - x[0]) / T(N - 1);
+}
+
+// out[m, i] = scale * F_m(i) (+ bias[m, i] when bias is not null)
+template <typename T>
+__device__ __forceinline__ void stencil_F_node(const T* u, const T* hlp, const T* par,
+                                               const T* x, const T* bias, T* out, long N,
+                                               int periodic, T scale, long i) {
+  T a[TF_NARGS];
+  T f[TF_NVAR];
+  gather(a, i, N, periodic, u, hlp, par, x);
+  tf_F(a, f);
+#pragma unroll
+  for (int m = 0; m < TF_NVAR; ++m) {
+    const T v = scale * f[m];
+    out[m * N + i] = bias ? v + bias[m * N + i] : v;
+  }
+}
+
+// bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic
+template <typename T>
+__device__ __forceinline__ void stencil_J_node(const T* u, const T* hlp, const T* par,
+                                               const T* x, T* bands, long N, int periodic,
+                                               long i) {
+  T a[TF_NARGS];
+  T b[kNJ];
+#pragma unroll
+  for (int e = 0; e < kNJ; ++e) b[e] = T(0);
+  gather(a, i, N, periodic, u, hlp, par, x);
+  tf_J(a, b);
+  if (!periodic) {
+    // ghost-node dependencies fold onto the boundary columns, in the
+    // order of compiler.fold_edges
+    constexpr int NN = TF_NVAR * TF_NVAR;
+#pragma unroll
+    for (int ii = 0; ii < TF_H; ++ii) {
+      if (i == ii) {
+#pragma unroll
+        for (int k = 0; k < TF_H - ii; ++k)
+#pragma unroll
+          for (int e = 0; e < NN; ++e) {
+            b[(TF_H - ii) * NN + e] += b[k * NN + e];
+            b[k * NN + e] = T(0);
+          }
+      }
+      if (i == N - 1 - ii) {
+#pragma unroll
+        for (int k = 0; k < TF_H - ii; ++k) {
+          const int koff = kW - 1 - k;
+#pragma unroll
+          for (int e = 0; e < NN; ++e) {
+            b[(TF_H + ii) * NN + e] += b[koff * NN + e];
+            b[koff * NN + e] = T(0);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kNJ; ++e) bands[e * N + i] = b[e];
+}
+
+}  // namespace tf

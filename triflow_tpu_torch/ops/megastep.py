@@ -1,0 +1,377 @@
+"""Kernel K6: the whole implicit step of a small grid in one launch;
+the plan and its gate, the wrappers, and their plain versions.
+
+Replaces the TPU's ``ops/megastep.py:_launch`` (one or ``nsteps`` whole ROW
+or theta steps: ``row_step_folded``, ``theta_step_folded``,
+``row_scan_folded``, ``theta_scan_folded``) and
+``row_adaptive_step_folded`` (one adaptive output step with its
+accept/reject loop in the kernel).  Source ``csrc/megastep.cu``, generated
+per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
+(shared through the headers in ``csrc/``) phase after phase in one thread
+block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
+
+``plan_for`` alone decides whether a grid takes K6 or the multi-launch
+path (K1-K5), on the CPU as on the card.  The plain versions compose the
+plain chunked factor, sweep, PCR and combination on K6's plan; a CPU tensor
+takes them, a CUDA tensor launches K6 or raises.  The plain adaptive step
+is handed the scheme's controller (``core.rosenbrock.adaptive_controller``,
+which ``ROW_general._adaptive`` runs on the host); the kernel runs the same
+arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import chunked, combine, pcr, stencil, thomas
+from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+
+#: launches of the fixed-step entry (1 or nsteps steps) and of the adaptive
+#: entry (one output step)
+STEP_LAUNCHES = Counter("K6.step")
+ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
+
+#: stages of the widest table (RODASPR); kMaxStages in csrc/megastep.cu
+MAX_STAGES = 6
+#: threads of the one block (kThreads in csrc/megastep.cu)
+BLOCK_THREADS = 256
+#: largest grid K6 takes, by block size s = nvar * max(halo, 1): the
+#: largest N at which K6 beat the multi-launch path in every pairing of
+#: chip_smoke.py's crossover sweep, for fixed RODASPR and Theta steps alike
+#: (PERF.md); a block size no sweep measured takes the multi-launch path
+MAX_N = {1: 1 << 14, 2: 1 << 13, 4: 1 << 12}
+
+#: cost model of K6's plan by block size s, in microseconds of one RODASPR
+#: step, fitted to chip_smoke.py's device-time chunk-count sweeps (float64,
+#: PERF.md): every pass of the block's threads over the chunks walks Mc rows
+#: one after the other, and every PCR level is a dependent phase
+ROW_US = {1: 2.20, 2: 3.41, 4: 6.57}
+LEVEL_US = {1: 3.33, 2: 10.42, 4: 70.47}
+
+
+def plan_cost_us(M: int, C: int, s: int) -> float:
+    """Modelled time of the sequential parts of one K6 step with C chunks of
+    M // C rows of block size s."""
+    passes = -(-C // BLOCK_THREADS)
+    return passes * (ROW_US[s] * (M // C) + LEVEL_US[s] * pcr.n_levels(C))
+
+
+def make_plan(N: int, nvar: int, halo: int, periodic: bool):
+    """K6's chunk plan of a grid (at least 2 rows per chunk; a periodic
+    plan a power-of-two C >= 8): the chunk count of least ``plan_cost_us``,
+    whatever N is; None when the grid has none or its block size has no
+    fitted cost."""
+    g = max(halo, 1)
+    s = nvar * g
+    if N % g or s not in ROW_US:
+        return None
+    M = N // g
+    cyclic = bool(periodic) and halo > 0
+    cands = [C for C in chunked._divisors(M) if M // C >= 2]
+    if cyclic:
+        cands = [C for C in cands
+                 if C >= chunked.MIN_CYCLIC_C and C & (C - 1) == 0]
+    if not cands:
+        return None
+    C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
+    return chunked.Plan(N, nvar, halo, g, 2 * halo + 1, C, M // C, cyclic)
+
+
+def plan_for(N: int, nvar: int, halo: int, periodic: bool):
+    """The plan of a grid K6 takes, or None: the multi-launch path serves
+    it (or raises, for a periodic grid without a power-of-two plan)."""
+    if N > MAX_N.get(nvar * max(halo, 1), 0):
+        return None
+    return make_plan(N, nvar, halo, periodic)
+
+
+class Table(NamedTuple):
+    """The linear combinations of one step.  ``stages[k] = (a_row,
+    c_row)``: stage k's input ``Σ a_row[j] * cols[j]`` and bias
+    ``Σ c_row[j] * cols[j]`` (c_row None: no bias) over ``cols = (u, u_0,
+    ..., u_{k-1})``; ``final``: the row of u_new, then the error row
+    u_new - u_pred if any, over ``(u, u_0, ...)``; ``g00`` makes the
+    adaptive entry's factor shift ``-g00 * dt``."""
+
+    stages: tuple
+    final: tuple
+    g00: float
+
+
+def row_table(a_t, c_t, m_t, m_pred_t, g00, with_err: bool) -> Table:
+    """The table of a ROW step (the Hairer-Wanner transformed
+    coefficients), with the error row when ``with_err``."""
+    stages = []
+    for i in range(len(m_t)):
+        a_row = (1.0,) + tuple(float(a_t[i, j]) for j in range(i))
+        c_row = (0.0,) + tuple(float(g00 * c_t[i, j]) for j in range(i))
+        stages.append((a_row, c_row if any(c_row) else None))
+    final = ((1.0,) + tuple(float(m) for m in m_t),)
+    if with_err:
+        final += ((0.0,) + tuple(float(m - p) for m, p in zip(m_t, m_pred_t)),)
+    return Table(tuple(stages), final, float(g00))
+
+
+def theta_table(theta) -> Table:
+    """The theta step as a one-stage table: u2 = u + (I - theta dt J)^-1
+    (dt F(u))."""
+    return Table((((1.0,), None),), ((1.0, 1.0),), float(theta))
+
+
+def _is_u(a_row):
+    return a_row[0] == 1.0 and not any(a_row[1:])
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _err_of(outs, u):
+    if len(outs) == 1:
+        return torch.full((), np.inf, dtype=u.dtype, device=u.device)
+    err = outs[1].abs().max()
+    return torch.where(torch.isfinite(err), err, torch.full_like(err, np.inf))
+
+
+def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
+               beta, scale):
+    """One step: J, the chunked factor of ``I + beta*J`` on K6's plan, and
+    for each stage ``scale*F(u_i) + bias`` solved; returns (u_new, err),
+    err inf without an error row and where not finite."""
+    bands = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+    fact = thomas.spike_factor_plain(bands, 1.0, beta, plan)
+    red = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
+    us = []
+    for a_row, c_row in table.stages:
+        cols = [u] + us
+        u_i = u if _is_u(a_row) else combine.combine_plain([a_row], cols)[0]
+        bias = None if c_row is None else combine.combine_plain([c_row], cols)[0]
+        rhs = stencil.eval_F_plain(backend, u_i, helpers, pstack, x, periodic,
+                                   scale, bias)
+        y, yred = thomas.thomas_sweep_plain(fact, rhs, plan)
+        xm1, xp1 = pcr.pcr_solve_shift_plain(red, yred, plan.cyclic)
+        us.append(thomas.spike_correct_plain(fact, y, xm1, xp1, plan))
+    outs = combine.combine_plain(list(table.final), [u] + us)
+    return outs[0], _err_of(outs, u)
+
+
+def scan_plain(backend, plan, table, periodic, u, helpers, pstack, x, beta,
+               scale, nsteps):
+    for _ in range(nsteps):
+        u = step_plain(backend, plan, table, periodic, u, helpers, pstack, x,
+                       beta, scale)[0]
+    return u
+
+
+def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
+                   pstack, x, t, dt, internal_dt, tol, safety, max_iter,
+                   dt_min):
+    """One adaptive output step (clamp and recompute) of plain steps,
+    decided by ``controller``: the scheme's
+    ``core.rosenbrock.adaptive_controller``, whose arithmetic K6's adaptive
+    entry runs.  Returns (u, dt_i, niter, status)."""
+    T = _np_type(u)
+    g00 = T(table.g00)
+
+    def attempt(_t, state, dt_eff):
+        gdt = float(g00 * dt_eff)
+        u2, err = step_plain(backend, plan, table, periodic, state[0], helpers,
+                             pstack, x, -gdt, gdt)
+        return (u2,), T(err.item())
+
+    _, (u2,), dt_i, niter, status = controller(
+        attempt, T, t, dt, internal_dt, tol, safety, max_iter, dt_min, False,
+        (u,))
+    return u2, dt_i, niter, status
+
+
+# --------------------------------------------------------------- kernel
+
+#: the scratch buffers of one launch, in the order of csrc/megastep.cu's
+#: Work after (u0, hlp, par, x, info, out)
+_BUFFERS = ("bands", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
+            "alphas", "betas", "Dinv", "pscr", "us", "ui", "bias", "rhs", "y",
+            "yred", "xm1", "xp1", "buf0", "buf1")
+
+
+def _sizes(plan, n_stages):
+    N, nvar, s, C, Mc = plan.N, plan.nvar, plan.s, plan.C, plan.Mc
+    n, s2 = nvar * N, 2 * plan.s
+    rows, red = Mc * s * s * C, s2 * s2 * C
+    return dict(bands=plan.W * nvar * nvar * N, fac=rows, Dhinv=rows,
+                DU=rows, Wsp=rows, Vsp=rows, Lred=red, Ured=red,
+                alphas=pcr.n_levels(C) * red, betas=pcr.n_levels(C) * red,
+                Dinv=red, pscr=7 * red, us=n_stages * n, ui=n, bias=n, rhs=n,
+                y=n, yred=s2 * C, xm1=s * C, xp1=s * C, buf0=n, buf1=n)
+
+
+class _Prepared(NamedTuple):
+    """What one launch configuration passes the kernel besides the tensor
+    addresses and the scalars: built once, reused by every launch."""
+
+    offsets: tuple  # element offset of each _BUFFERS entry in the scratch
+    total: int      # scratch elements
+    ints: object    # ctypes int array
+    reals: object   # ctypes double array; the first 9 are set per launch
+
+
+_PREPARED = {}
+
+
+def _prepare(plan, table, periodic, nsteps, max_iter, dt_min):
+    key = (plan, table, periodic, nsteps, max_iter, dt_min is not None)
+    if key in _PREPARED:
+        return _PREPARED[key]
+    n_stages = len(table.stages)
+    sizes = _sizes(plan, n_stages)
+    offsets, at = [], 0
+    for name in _BUFFERS:
+        offsets.append(at)
+        at += sizes[name]
+    coefs = np.zeros((MAX_STAGES + 1, 2, MAX_STAGES + 1))
+    for k, (a_row, c_row) in enumerate(table.stages):
+        coefs[k, 0, :len(a_row)] = a_row
+        if c_row is not None:
+            coefs[k, 1, :len(c_row)] = c_row
+    for r, row in enumerate(table.final):
+        coefs[n_stages, r, :len(row)] = row
+    rows = [1 + (c is not None) for _, c in table.stages] + [len(table.final)]
+    rows += [1] * (MAX_STAGES + 1 - len(rows))
+    ints = [plan.N, plan.Mc, plan.C, int(plan.cyclic), int(bool(periodic)),
+            n_stages, nsteps, -1 if max_iter is None else int(max_iter),
+            int(dt_min is not None)] + rows
+    prepared = _Prepared(tuple(offsets), at, (ctypes.c_int * len(ints))(*ints),
+                         (ctypes.c_double * (9 + coefs.size))(*[0.0] * 9,
+                                                              *coefs.ravel()))
+    _PREPARED[key] = prepared
+    return prepared
+
+
+def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
+            pstack, x, reals, nsteps=1, max_iter=None, dt_min=None):
+    """Check the inputs, allocate the outputs and the scratch, launch one
+    K6 entry; returns (u_out, info (4,) float64 on the device)."""
+    what = f"K6 {entry}"
+    check_cuda((u, helpers, pstack, x), backend.dtype, what)
+    sysm = backend.system
+    N = plan.N
+    check_shapes(what, u=(u, (sysm.nvar, N)),
+                 helpers=(helpers, (len(sysm.help_funcs), N)),
+                 pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
+    if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo) or plan.s > thomas.MAX_S:
+        raise ValueError(f"{what}: plan {plan} does not fit the model")
+    if not 1 <= len(table.stages) <= MAX_STAGES:
+        raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
+                                  f"kernel takes 1 to {MAX_STAGES}")
+    prep = _prepare(plan, table, periodic, nsteps, max_iter, dt_min)
+    work = torch.empty(prep.total, dtype=u.dtype, device=u.device)
+    info = torch.empty(4, dtype=torch.float64, device=u.device)
+    out = torch.empty_like(u)
+    item, base = u.element_size(), work.data_ptr()
+    ptrs = (ctypes.c_uint64 * (6 + len(_BUFFERS)))(
+        u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+        info.data_ptr(), out.data_ptr(), *(base + at * item for at in prep.offsets))
+    prep.reals[:9] = reals
+    lib = backend.megastep
+    fn = lib.fn(f"tf_mega_{entry}_{suffix(u.dtype)}", 3, 0)
+    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
+            ctypes.addressof(prep.reals), stream_of(u))
+    lib.check(rc, what)
+    counter.add()
+    return out, info
+
+
+def _reals(beta=0.0, scale=0.0, g00=0.0, t=0.0, dt=0.0, internal_dt=0.0,
+           tol=0.0, safety=0.0, dt_min=None):
+    return [beta, scale, g00, t, dt, internal_dt, tol, safety,
+            0.0 if dt_min is None else float(dt_min)]
+
+
+def _np_type(u):
+    return np.float64 if u.dtype == torch.float64 else np.float32
+
+
+def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
+         nsteps=1):
+    """``nsteps`` steps of the table with factor shift ``beta`` and F scale
+    ``scale`` (both values of the model's dtype): returns (u_new, err), err
+    of the last step (a 0-d tensor; inf without an error row or where not
+    finite).  CPU tensors take the plain version; CUDA tensors launch
+    K6's step entry once."""
+    if u.device.type == "cpu":
+        if nsteps == 1:
+            return step_plain(backend, plan, table, periodic, u, helpers,
+                              pstack, x, beta, scale)
+        u2 = scan_plain(backend, plan, table, periodic, u, helpers, pstack, x,
+                        beta, scale, nsteps)
+        return u2, torch.full((), np.inf, dtype=u.dtype)
+    if nsteps < 1:
+        raise ValueError(f"K6 step: nsteps = {nsteps} < 1")
+    out, info = _launch("step", STEP_LAUNCHES, backend, plan, table, periodic,
+                        u, helpers, pstack, x,
+                        _reals(beta=float(beta), scale=float(scale)),
+                        nsteps=int(nsteps))
+    return out, info[0]
+
+
+def row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
+             nsteps=1):
+    """``nsteps`` ROW steps of ``dt`` -> (u_new, err): the factor shift is
+    ``-g00*dt`` and the F scale ``g00*dt``, rounded as the model's dtype
+    multiplies them."""
+    T = _np_type(u)
+    gdt = float(T(table.g00) * T(dt))
+    return step(backend, plan, table, periodic, u, helpers, pstack, x, -gdt,
+                gdt, nsteps)
+
+
+def theta_step(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
+               nsteps=1):
+    """``nsteps`` linearized theta steps of ``dt`` -> u_new."""
+    dt = float(_np_type(u)(dt))
+    return step(backend, plan, theta_table(theta), periodic, u, helpers,
+                pstack, x, -theta * dt, dt, nsteps)[0]
+
+
+def row_scan(backend, plan, table, periodic, u, helpers, pstack, x, dt,
+             nsteps):
+    """``nsteps`` fixed ROW steps in one launch -> u (no controller reads
+    err, so the table should carry no error row)."""
+    return row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
+                    nsteps)[0]
+
+
+def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
+               nsteps):
+    """``nsteps`` fixed theta steps in one launch -> u."""
+    return theta_step(backend, plan, theta, periodic, u, helpers, pstack, x,
+                      dt, nsteps)
+
+
+def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
+                      pstack, x, t, dt, internal_dt, tol, safety, max_iter,
+                      dt_min):
+    """One adaptive output step from ``t`` to ``t + dt`` (clamp and
+    recompute): returns (u, dt_i, niter, status) with dt_i a scalar of the
+    model's dtype.  CPU tensors take the plain version, decided by
+    ``controller`` (``core.rosenbrock.adaptive_controller``); CUDA tensors
+    launch K6's adaptive entry, which runs that controller's arithmetic,
+    once and read its results back once."""
+    if len(table.final) != 2:
+        raise ValueError("K6 adaptive: the table has no error row")
+    if u.device.type == "cpu":
+        return adaptive_plain(controller, backend, plan, table, periodic, u,
+                              helpers, pstack, x, t, dt, internal_dt, tol,
+                              safety, max_iter, dt_min)
+    out, info = _launch(
+        "adaptive", ADAPTIVE_LAUNCHES, backend, plan, table, periodic, u,
+        helpers, pstack, x,
+        _reals(g00=table.g00, t=float(t), dt=float(dt),
+               internal_dt=float(internal_dt), tol=float(tol),
+               safety=float(safety), dt_min=dt_min),
+        max_iter=max_iter, dt_min=dt_min)
+    _err, dt_i, niter, status = info.tolist()
+    return out, _np_type(u)(dt_i), int(niter), int(status)

@@ -108,9 +108,10 @@ class KernelPrinter(C99CodePrinter):
         return f"fabs({self._print(expr.args[0])})"
 
 
-def generate_source(system, args_symbols) -> str:
-    """The model's K1 CUDA source: the template with the constants and the
-    expression bodies of ``system`` spliced in."""
+def generate_source(system, args_symbols, template="stencil.cu") -> str:
+    """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu`` or
+    K6's ``megastep.cu``) with the constants and the expression bodies of
+    ``system`` spliced in."""
     printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
     nvar = system.nvar
     lines = [
@@ -129,8 +130,8 @@ def generate_source(system, args_symbols) -> str:
     for (m, n, k), expr in system.J_band_exprs.items():
         lines.append(f"  b[{(k * nvar + m) * nvar + n}] = {printer.doprint(expr)};")
     lines.append("}")
-    template = (_build.CSRC / "stencil.cu").read_text()
-    return template.replace("// @GENERATED@", "\n".join(lines))
+    text = (_build.CSRC / template).read_text()
+    return text.replace("// @GENERATED@", "\n".join(lines))
 
 
 #: a floating-point literal that does not sit directly inside ``T(...)``
@@ -139,10 +140,12 @@ BARE_LITERAL = re.compile(
     r"(?<![\w.])(?<!T\()(?<!T\(-)\d+(?:\.\d*(?:[eE][-+]?\d+)?|[eE][-+]?\d+)")
 
 
-def library(system, args_symbols) -> _build.Library:
-    """The model's K1 library, generated and built at its first launch."""
-    return _build.Library("stencil",
-                          lambda: generate_source(system, args_symbols))
+def library(system, args_symbols, template="stencil.cu") -> _build.Library:
+    """The model's K1 library (or, with ``template="megastep.cu"``, its K6
+    library), generated and built at its first launch."""
+    return _build.Library(template.split(".")[0],
+                          lambda: generate_source(system, args_symbols,
+                                                  template))
 
 
 def _kernel_inputs(backend, u, helpers, pstack, x):
