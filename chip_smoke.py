@@ -17,23 +17,32 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the main paths below.
 2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64,
    each case driven with the launch counts set to 0 just before it and read
-   just after: the Theta path (Burgers N = 2^20, 10 steps; the README model
-   N = 200 with its Dirichlet hook, to t = 50, through K6), then the
-   Rosenbrock path: Kuramoto-Sivashinsky at N = 2^20 with ``RODASPR`` at a
-   fixed dt (4 steps of 0.05) and adaptive (tol 1e-3, 2 output steps of
-   1.0), KS at N = 2^13 adaptive the same way with no hook (one K6 launch
-   per output step), the README model through ``Simulation``'s defaults
+   just after: the Theta path (Burgers at the reference's N = 10^6, 10
+   steps, and N = 2^20, 4 steps; the README model N = 200 with its
+   Dirichlet hook, to t = 50, through K6), then the Rosenbrock path:
+   Kuramoto-Sivashinsky at N = 10^6 with ``RODASPR`` at a fixed dt (4
+   steps of 0.05) and adaptive (tol 1e-3, 2 output steps of 1.0), at
+   N = 2^20 the same with 2 steps and 1 output step, KS at N = 2^13 (K6) and
+   10^4 (K1-K5) adaptive the same way with no hook, Burgers at N = 10^4
+   adaptive through K6, the README model through ``Simulation``'s defaults
    (RODASPR, adaptive, K6 steps) and through example 01's call (Theta with
-   step doubling).  The N = 2^20 cases must launch every entry of K1-K5,
-   the small ones K6; the results must be finite and agree with the port's
-   CPU f64 run (plain versions) of the same case, in f64 with the same
-   number of attempts in every output step.
-3. timing with CUDA events at N = 2^20: ms per Theta step (Burgers) and
-   per fixed RODASPR step (KS) with cell updates per second, ms per
-   adaptive attempt, each kernel entry against its plain version at the KS
-   path's shapes, K5 against one ``torch.mm`` over pre-stacked operands,
-   and a ``torch.profiler`` breakdown of the Theta and RODASPR steps by
-   kernel; then the small grids: the README step at N = 200 per
+   step doubling).  Each case's chunk plan is the one named in ``CASES``:
+   the power-of-two grids close their ring block-cyclic, the others
+   (N = 10^6, 10^4) through the Woodbury correction, whose set-up
+   launches K4.pcr_solve once per factor on the multi-launch path and
+   runs inside K6 on K6's.  The large cases must launch every entry of
+   K1-K5 they need, the small ones K6 alone; the results must be finite
+   and agree with the port's CPU f64 run (plain versions) of the same
+   case, in f64 with the same number of attempts in every output step.
+3. timing with CUDA events at N = 2^20 and 10^6: ms per Theta step
+   (Burgers) and per fixed RODASPR step (KS) with cell updates per second,
+   ms per adaptive attempt, each kernel entry against its plain version at
+   the KS path's shapes (K4.pcr_solve, the Woodbury set-up, and the
+   Woodbury correction of K4.pcr_solve_shift at 10^6), K5 against one
+   ``torch.mm`` over pre-stacked operands, and a ``torch.profiler``
+   breakdown of the Theta and RODASPR steps by kernel; then the small
+   grids: the KS N = 10^4 and Burgers N = 10^4 (K6, Woodbury) adaptive
+   output steps, the README step at N = 200 per
    synchronised step (K6 and the multi-launch path) and K6's step under
    ``torch.profiler``, ``device_fixed_scan`` at 100 steps, the KS N = 2^13 adaptive output step, K6's chunk-count
    sweeps with a cost fit per block size (behind its plan), and the
@@ -43,7 +52,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
-bound and library call, with f64 beside them), the card's ``nvidia-smi``
+bound and library call, with f64 beside them; K4.pcr_solve at KS
+N = 10^6, the others at KS N = 2^20), the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +76,8 @@ from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_che
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 N_BIG = 1 << 20
+N_REF = 10 ** 6  # the reference benchmark's headline grids (bench.py)
+N_REF_SMALL = 10 ** 4
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 README = ("k * dxxU - c * dxU", "U", ["k", "c"])
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
@@ -96,6 +108,8 @@ KERNELS = {
                       "triflow_tpu/ops/pallas_pcr.py:246 pcr_factor_fused_sub"),
     "K4.pcr_solve_shift": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
                            "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
+    "K4.pcr_solve": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                     "triflow_tpu/ops/pallas_pcr.py:408 pcr_solve_fused_sub"),
     "K5.combine": ("cuda", "triflow_tpu_torch/csrc/combine.cu",
                    "triflow_tpu/ops/folded.py:543 combine_folded"),
     "K6.step": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
@@ -103,13 +117,17 @@ KERNELS = {
     "K6.adaptive": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                     "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded"),
 }
-MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")]
+#: the kernel entries of the multi-launch path on a block-cyclic plan; a
+#: Woodbury plan adds K4.pcr_solve
+MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6") and k != "K4.pcr_solve"]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
+WOOD = ["K4.pcr_solve"]
 
 #: substrings of the device kernels' names in a profiler trace
 TRACE_NAMES = {"stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
-               "pcr_factor": "K4.pcr_factor", "pcr_solve": "K4.pcr_solve_shift",
+               "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
+               "pcr_solve_kernel": "K4.pcr_solve",
                "combine_kernel": "K5.combine", "step_kernel": "K6.step",
                "adaptive_kernel": "K6.adaptive"}
 
@@ -118,10 +136,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def burgers_case(N=N_BIG):
+def burgers_case(N=N_BIG, dt=0.05, tmax=10 * 0.05):
     i = np.arange(N)
     return ({"x": i * 0.5, "U": np.cos(2 * np.pi * i / N * 4)},
-            dict(periodic=True, nu=0.5), 0.05, 10 * 0.05, None)
+            dict(periodic=True, nu=0.5), dt, tmax, None)
 
 
 def ks_case(dt, tmax, N=N_BIG):
@@ -177,22 +195,51 @@ SWEEP_SCHEMES = {"rodaspr": lambda m: schemes.RODASPR(m, time_stepping=False, to
 SWEEP_EXPONENTS = range(10, 17)
 
 #: (name, equations, case, Simulation kwargs, f32 tolerance, f64 tolerance,
-#: the kernel entries the case must launch: the grids K6's gate admits step
-#: through K6 alone, the N = 2^20 grids through K1-K5 alone)
+#: the kernel entries the case must launch (the grids K6's gate admits step
+#: through K6 alone, the others through K1-K5 alone), and the plan the
+#: grid must take: (route, C, Woodbury))
 CASES = [
-    ("burgers N=2^20 theta", BURGERS, burgers_case(), THETA, 1e-4, 1e-10, THETA_KERNELS),
-    ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"]),
-    ("ks N=2^20 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2),
-     dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH),
-    ("ks N=2^20 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH),
+    ("burgers N=2^20 theta (4 steps)", BURGERS, burgers_case(N_BIG, 0.05, 4 * 0.05), THETA,
+     1e-4, 1e-10, THETA_KERNELS, ("chunked", 4096, False)),
+    ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF), THETA, 1e-4, 1e-10,
+     THETA_KERNELS + WOOD, ("chunked", 4000, True)),
+    ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"],
+     ("megastep", 100, False)),
+    ("ks N=2^20 rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1),
+     dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH,
+     ("chunked", 4096, False)),
+    ("ks N=10^6 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
+     dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9,
+     MULTI_LAUNCH + WOOD, ("chunked", 2500, True)),
+    ("ks N=2^20 rodaspr adaptive tol 1e-3 (1 x 1.0)", KS, ks_case(1.0, 1.0),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 4096, False)),
+    ("ks N=10^6 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0, N_REF),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 2500, True)),
     ("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
-     ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"]),
+     ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
+     ("megastep", 256, False)),
+    ("ks N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
+     ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD,
+     ("chunked", 500, True)),
+    ("burgers N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", BURGERS,
+     burgers_case(N_REF_SMALL, 1.0, 2.0), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
+     ("megastep", 250, True)),
     ("readme N=200 Simulation defaults (rodaspr)", README, readme_case(), {}, 1e-2,
-     1e-9, ["K6.step"]),
+     1e-9, ["K6.step"], ("megastep", 100, False)),
     ("readme N=200 example 01 (theta, step doubling)", README, readme_case(),
-     dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9, ["K6.step"]),
+     dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9, ["K6.step"],
+     ("megastep", 100, False)),
 ]
+
+
+def case_plan(eqs, case, route):
+    """The chunk plan the case's grid takes on its route."""
+    fields_np, pars, _, _, _ = case
+    sysm = Model(*eqs, device="cpu").system
+    N = len(fields_np["x"])
+    if route == "megastep":
+        return megastep.plan_for(N, sysm.nvar, sysm.halo, pars["periodic"])
+    return chunked.make_plan(N, sysm.nvar, sysm.halo, pars["periodic"])
 
 
 def run_simulation(eqs, case, device, dtype, kwargs):
@@ -348,6 +395,17 @@ def phase1():
         sm, _, _, sargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
         kernel_checks.check_megastep(sm, N_SMALL, True, 0.05, "cuda", res,
                                      adaptive=(1.0, 1e-6, 1e-3), state=sargs)
+        # the reference's grids, Woodbury plans: the solver at Burgers and KS
+        # N = 10^6 and KS N = 10^4, K6 on Burgers N = 10^4
+        for eqs, case, g00 in ((BURGERS, burgers_case(N_REF), 1.0),
+                               (KS, ks_case(0.05, 0.2, N_REF), 0.25),
+                               (KS, ks_case(0.05, 0.2, N_REF_SMALL), 0.25)):
+            wm, _, _, wargs, wdt = path_inputs(eqs, case, dtype)
+            wbands = wm.backend.J_bands(*wargs, periodic=True)
+            kernel_checks.check_solver(wbands, 1.0, -g00 * wdt, True, results=res)
+        bm, _, _, bargs, _ = path_inputs(BURGERS, burgers_case(N_REF_SMALL, 1.0, 2.0), dtype)
+        kernel_checks.check_megastep(bm, N_REF_SMALL, True, 0.05, "cuda", res,
+                                     adaptive=(1.0, 1e-6, 1e-3), state=bargs)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
     return errs
@@ -356,7 +414,13 @@ def phase1():
 def phase2():
     log("phase 2: the main paths through Simulation on the card")
     runs, launches = {}, dict.fromkeys(KERNELS, 0)
-    for name, eqs, case, kwargs, _, _, needs in CASES:
+    for name, eqs, case, kwargs, _, _, needs, (route, C, wood) in CASES:
+        plan = case_plan(eqs, case, route)
+        if plan is None or (plan.C, plan.woodbury) != (C, wood):
+            raise RuntimeError(f"{name}: plan {plan} on the {route} route, expected C={C} "
+                               f"woodbury={wood}")
+        log(f"  {name}: plan C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury} ({route})")
         for dt_name, dtype in DTYPES.items():
             torch.cuda.synchronize()
             _launch.reset_counters()
@@ -378,10 +442,16 @@ def phase2():
             if "K6.adaptive" in needs and counts["K6.adaptive"] != steps:
                 raise RuntimeError(f"{name} {dt_name}: {counts['K6.adaptive']} K6 "
                                    f"adaptive launches for {steps} output steps")
+            # the Woodbury set-up: one launch per factor on the multi-launch
+            # path, none on a block-cyclic plan (inside K6 on K6's route)
+            factors = counts["K2.spike_factor"] if wood and route == "chunked" else 0
+            if counts["K4.pcr_solve"] != factors:
+                raise RuntimeError(f"{name} {dt_name}: {counts['K4.pcr_solve']} K4.pcr_solve "
+                                   f"launches for {counts['K2.spike_factor']} factors")
             for k in KERNELS:
                 launches[k] += counts[k]
     log("  launches over phase 2: " + json.dumps(launches))
-    for name, eqs, case, kwargs, tol32, tol64, _ in CASES:
+    for name, eqs, case, kwargs, tol32, tol64, _, _ in CASES:
         start = time.perf_counter()
         steps_ref, u_ref, att_ref = run_simulation(eqs, case, "cpu", torch.float64,
                                                    kwargs)
@@ -419,69 +489,92 @@ def expr_ops(exprs):
     return sum(int(sp.count_ops(e)) for e in exprs)
 
 
-def ks_pairs(dtype):
+def ks_pairs(dtype, N=N_BIG):
     """Kernel entry -> (kernel call, plain call, bytes, operations, library
     call or None), on the inputs of the first fixed RODASPR step of KS at
-    N = 2^20 (g00 dt = 0.0125)."""
-    model, _, _, (u, helpers, pstack, x), dt = path_inputs(KS, ks_case(0.05, 0.2), dtype)
+    N (g00 dt = 0.0125); on a Woodbury plan with K4.pcr_solve (the set-up)
+    and, timed beside the corrected solve, K4.pcr_solve_shift without the
+    correction."""
+    model, _, _, (u, helpers, pstack, x), dt = path_inputs(KS, ks_case(0.05, 0.2, N), dtype)
     b, sysm = model.backend, model.system
     item = torch.finfo(dtype).bits // 8
     rows, g00 = rodaspr_rows()
     gdt = g00 * dt
-    plan = chunked.make_plan(N_BIG, 1, 2, True)
+    plan = chunked.make_plan(N, 1, 2, True)
     s, C, Mc, W, nlev = plan.s, plan.C, plan.Mc, plan.W, pcr.n_levels(plan.C)
-    M = N_BIG // plan.g
+    s2 = 2 * s
+    M = N // plan.g
     nvar = sysm.nvar
-    n_in = (nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N_BIG
+    n_in = (nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
     rng = np.random.default_rng(2)
-    bias = torch.tensor(rng.standard_normal((nvar, N_BIG)), dtype=dtype, device="cuda")
+    bias = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device="cuda")
     bands = b.J_bands(u, helpers, pstack, x, periodic=True)
     sp_ = thomas.spike_factor(bands, 1.0, -gdt, plan)
-    red = pcr.pcr_factor(sp_.Lred, sp_.Ured, True)
+    red = pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic)
+    wood = pcr.woodbury(red, sp_.Lred, sp_.Ured) if plan.woodbury else ()
     rhs = b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias)
     y, yred = thomas.thomas_sweep(sp_, rhs, plan)
-    xm1, xp1 = pcr.pcr_solve_shift(red, yred, True)
-    arrays = [u] + [torch.tensor(rng.standard_normal((nvar, N_BIG)) * 1e-3, dtype=dtype,
+    xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+    arrays = [u] + [torch.tensor(rng.standard_normal((nvar, N)) * 1e-3, dtype=dtype,
                                  device="cuda") for _ in range(6)]
     A, R = len(arrays), len(rows)
     coefs = torch.tensor(rows, dtype=dtype, device="cuda")
     stacked = torch.stack(arrays).view(A, -1)
     blk = s * s * C
-    return {
+    red_bytes = (2 * nlev + 1) * s2 * s2 * C
+    # the Woodbury correction reads Z's entries at the 2s shifted rows of
+    # every chunk and the capacitance inverse
+    wood_bytes = (s2 * s2 * C + s2 * s2) if plan.woodbury else 0
+    pairs = {
         "K1.F": (lambda: b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias),
                  lambda: stencil.eval_F_plain(b, u, helpers, pstack, x, True, gdt, bias),
-                 (n_in + 2 * nvar * N_BIG) * item,
-                 (expr_ops(sysm.F_exprs) + 2 * nvar) * N_BIG, None),
+                 (n_in + 2 * nvar * N) * item,
+                 (expr_ops(sysm.F_exprs) + 2 * nvar) * N, None),
         "K1.J": (lambda: b.J_bands(u, helpers, pstack, x, periodic=True),
                  lambda: b.J_bands_impl(u, helpers, pstack, x, periodic=True),
-                 (n_in + W * nvar * nvar * N_BIG) * item,
-                 expr_ops(sysm.J_band_exprs.values()) * N_BIG, None),
+                 (n_in + W * nvar * nvar * N) * item,
+                 expr_ops(sysm.J_band_exprs.values()) * N, None),
         # rows: a block inverse and three block products per supernode row
         "K2.spike_factor": (lambda: thomas.spike_factor(bands, 1.0, -gdt, plan),
                             lambda: thomas.spike_factor_plain(bands, 1.0, -gdt, plan),
-                            (W * nvar * nvar * N_BIG + 5 * Mc * blk
-                             + 2 * (2 * s) ** 2 * C) * item, 8 * s ** 3 * M, None),
+                            (W * nvar * nvar * N + 5 * Mc * blk
+                             + 2 * s2 ** 2 * C) * item, 8 * s ** 3 * M, None),
         "K3.thomas_sweep": (lambda: thomas.thomas_sweep(sp_, rhs, plan),
                             lambda: thomas.thomas_sweep_plain(sp_, rhs, plan),
-                            (3 * Mc * blk + 2 * nvar * N_BIG + 2 * s * C) * item,
+                            (3 * Mc * blk + 2 * nvar * N + 2 * s * C) * item,
                             6 * s * s * M, None),
-        "K4.pcr_factor": (lambda: pcr.pcr_factor(sp_.Lred, sp_.Ured, True),
-                          lambda: pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, True),
-                          (2 * (2 * s) ** 2 * C + (2 * nlev + 1) * (2 * s) ** 2 * C)
-                          * item, 12 * (2 * s) ** 3 * C * nlev, None),
-        "K4.pcr_solve_shift": (lambda: pcr.pcr_solve_shift(red, yred, True),
-                               lambda: pcr.pcr_solve_shift_plain(red, yred, True),
-                               ((2 * nlev + 1) * (2 * s) ** 2 * C + 4 * s * C) * item,
-                               4 * (2 * s) ** 2 * C * nlev, None),
+        "K4.pcr_factor": (lambda: pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic),
+                          lambda: pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, plan.cyclic),
+                          (2 * s2 ** 2 * C + red_bytes) * item, 12 * s2 ** 3 * C * nlev,
+                          None),
+        "K4.pcr_solve_shift": (lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                               lambda: pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood),
+                               (red_bytes + wood_bytes + 4 * s * C) * item,
+                               4 * s2 ** 2 * C * nlev + (4 * s * s2 * C if wood else 0),
+                               None),
         "K3.spike_correct": (lambda: thomas.spike_correct(sp_, y, xm1, xp1, plan),
                              lambda: thomas.spike_correct_plain(sp_, y, xm1, xp1, plan),
-                             (2 * nvar * N_BIG + 2 * Mc * blk + 2 * s * C) * item,
-                             4 * s * nvar * N_BIG, None),
+                             (2 * nvar * N + 2 * Mc * blk + 2 * s * C) * item,
+                             4 * s * nvar * N, None),
         "K5.combine": (lambda: combine.combine(rows, arrays),
                        lambda: combine.combine_plain(rows, arrays),
-                       (A + R) * nvar * N_BIG * item, 2 * A * R * nvar * N_BIG,
+                       (A + R) * nvar * N * item, 2 * A * R * nvar * N,
                        lambda: torch.mm(coefs, stacked)),
     }
+    if plan.woodbury:
+        # the set-up: 2s columns through every level and Dinv, the
+        # capacitance's Gauss-Jordan; reads the factor and two corner
+        # blocks, writes Z and cap_inv
+        pairs["K4.pcr_solve"] = (
+            lambda: pcr.woodbury(red, sp_.Lred, sp_.Ured),
+            lambda: pcr.woodbury_plain(red, sp_.Lred, sp_.Ured),
+            (red_bytes + 2 * s2 * s + s2 * s2 * C + s2 * s2) * item,
+            s2 * C * (4 * s2 * s2 * nlev + 2 * s2 * s2) + 2 * s2 ** 3, None)
+        pairs["K4.pcr_solve_shift without the correction"] = (
+            lambda: pcr.pcr_solve_shift(red, yred, True),
+            lambda: pcr.pcr_solve_shift_plain(red, yred, True),
+            (red_bytes + 4 * s * C) * item, 4 * s2 ** 2 * C * nlev, None)
+    return plan, pairs
 
 
 def profile_step(scheme, fields, pars, dt, steps=5):
@@ -523,49 +616,55 @@ def log_profile(what, dt_name, prof):
 
 
 def phase3():
-    log("phase 3: timing at N = 2^20 (CUDA events)")
+    log("phase 3: timing at N = 2^20 and 10^6 (CUDA events)")
     times = {}
     for dt_name, dtype in DTYPES.items():
         times[dt_name] = {}
-        # the Theta path (Burgers), as before
-        model, fields, pars_t, _, dt = path_inputs(BURGERS, burgers_case(), dtype)
-        scheme = schemes.Theta(model, theta=1.0)
-        step_ms = cuda_ms(lambda: scheme(0.0, fields, dt, pars_t), 20)
-        log(f"  theta step burgers {dt_name}: {step_ms:.4f} ms/step, "
-            f"{N_BIG / (step_ms * 1e-3):.4e} cell-updates/s")
-        log_profile("theta step burgers", dt_name, profile_step(scheme, fields, pars_t, dt))
-        # the Rosenbrock path (KS): fixed step, adaptive attempts
-        model, fields, pars_t, _, dt = path_inputs(KS, ks_case(0.05, 0.2), dtype)
-        ros = schemes.RODASPR(model, time_stepping=False, tol=None)
-        ros_ms = cuda_ms(lambda: ros(0.0, fields, dt, pars_t), 10)
-        log(f"  rodaspr fixed step ks {dt_name}: {ros_ms:.4f} ms/step, "
-            f"{N_BIG / (ros_ms * 1e-3):.4e} cell-updates/s")
-        times[dt_name]["rodaspr_step_ms"] = ros_ms
-        for rep in range(2):
-            ada = schemes.RODASPR(model, tol=1e-3)
-            t, f, attempts = 0.0, fields, []
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            for _ in range(2):
-                t, f = ada(t, f, 1.0, pars_t)
-                attempts.append(ada._internal_iter)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - start
-            log(f"  rodaspr adaptive ks {dt_name} (run {rep}): {secs * 1e3 / sum(attempts):.4f} "
-                f"ms per attempt, attempts per output step {attempts} "
-                f"(host clock, synchronised)")
-        times[dt_name]["ms_per_attempt"] = secs * 1e3 / sum(attempts)
-        log_profile("rodaspr fixed step ks", dt_name, profile_step(ros, fields, pars_t, dt))
-        for name, (kern, plain, nbytes, ops, library) in ks_pairs(dtype).items():
-            # plain, kernel, kernel, plain: drift in clocks shows as a spread
-            p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
-            lib_ms = min(cuda_ms(library, 5) for _ in range(2)) if library else None
-            b_ms, b_by = bound(nbytes, ops, dtype)
-            times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, lib_ms)
-            log(f"  {name} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
-                f"{ops} operations)"
-                + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        for N in (N_BIG, N_REF):
+            grid = "N=2^20" if N == N_BIG else "N=10^6"
+            # the Theta path (Burgers)
+            model, fields, pars_t, _, dt = path_inputs(BURGERS, burgers_case(N), dtype)
+            scheme = schemes.Theta(model, theta=1.0)
+            step_ms = cuda_ms(lambda: scheme(0.0, fields, dt, pars_t), 20)
+            log(f"  theta step burgers {grid} {dt_name}: {step_ms:.4f} ms/step, "
+                f"{N / (step_ms * 1e-3):.4e} cell-updates/s")
+            log_profile(f"theta step burgers {grid}", dt_name,
+                        profile_step(scheme, fields, pars_t, dt))
+            # the Rosenbrock path (KS): fixed step, adaptive attempts
+            model, fields, pars_t, _, dt = path_inputs(KS, ks_case(0.05, 0.2, N), dtype)
+            ros = schemes.RODASPR(model, time_stepping=False, tol=None)
+            ros_ms = cuda_ms(lambda: ros(0.0, fields, dt, pars_t), 10)
+            log(f"  rodaspr fixed step ks {grid} {dt_name}: {ros_ms:.4f} ms/step, "
+                f"{N / (ros_ms * 1e-3):.4e} cell-updates/s")
+            for rep in range(2):
+                ada = schemes.RODASPR(model, tol=1e-3)
+                t, f, attempts = 0.0, fields, []
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for _ in range(2):
+                    t, f = ada(t, f, 1.0, pars_t)
+                    attempts.append(ada._internal_iter)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - start
+                log(f"  rodaspr adaptive ks {grid} {dt_name} (run {rep}): "
+                    f"{secs * 1e3 / sum(attempts):.4f} ms per attempt, attempts per output "
+                    f"step {attempts} (host clock, synchronised)")
+            log_profile(f"rodaspr fixed step ks {grid}", dt_name,
+                        profile_step(ros, fields, pars_t, dt))
+            plan, pairs = ks_pairs(dtype, N)
+            log(f"  kernels at ks {grid}: plan C={plan.C} Mc={plan.Mc} "
+                f"woodbury={plan.woodbury}")
+            for name, (kern, plain, nbytes, ops, library) in pairs.items():
+                # plain, kernel, kernel, plain: drift in clocks shows as a spread
+                p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
+                lib_ms = min(cuda_ms(library, 5) for _ in range(2)) if library else None
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                if N == N_BIG or name == "K4.pcr_solve":
+                    times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, lib_ms)
+                log(f"  {name} {grid} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                    f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
+                    f"{ops} operations)"
+                    + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
     return times
 
 
@@ -713,6 +812,30 @@ def phase3_small():
         ms = cuda_ms(lambda: scan(0.0, *kargs, 0.05, 100), 3)
         log(f"  ks N=2^13 rodaspr device_fixed_scan {dt_name}: {ms * 10:.4f} us per step "
             "at nsteps = 100 (CUDA events)")
+        # the reference's N = 10^4 grids, Woodbury plans: KS (K1-K5, above
+        # K6's s = 2 gate) and Burgers (K6)
+        for label, eqs, case in (("ks N=10^4", KS, ks_case(1.0, 2.0, N_REF_SMALL)),
+                                 ("burgers N=10^4 (K6)", BURGERS,
+                                  burgers_case(N_REF_SMALL, 1.0, 2.0))):
+            wm, wfields, wpars, wargs, _ = path_inputs(eqs, case, dtype)
+            for rep in range(2):
+                ada = schemes.RODASPR(wm, tol=1e-3)
+                t, f, per = 0.0, wfields, []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    t, f = ada(t, f, 1.0, wpars)
+                    torch.cuda.synchronize()
+                    per.append(((time.perf_counter() - start) * 1e3, ada._internal_iter))
+                log(f"  {label} adaptive output step {dt_name} (run {rep}): "
+                    + ", ".join(f"{ms:.4f} ms for {it} attempts" for ms, it in per)
+                    + " (host clock, synchronised)")
+        bm, _, _, bargs, _ = path_inputs(BURGERS, burgers_case(N_REF_SMALL), dtype)
+        scan = schemes.RODASPR(bm, time_stepping=False, tol=None).device_fixed_scan(
+            N_REF_SMALL)
+        ms = cuda_ms(lambda: scan(0.0, *bargs, 0.05, 100), 3)
+        log(f"  burgers N=10^4 (K6, woodbury) rodaspr device_fixed_scan {dt_name}: "
+            f"{ms * 10:.4f} us per step at nsteps = 100 (CUDA events)")
         kplan = megastep.plan_for(N_SMALL, 1, 2, True)
         table = kernel_checks.rodaspr_table()
         a_args = (adaptive_controller, km.backend, kplan, table, True, *kargs, 0.0, 1.0,
@@ -741,8 +864,7 @@ def phase3_small():
                          and (not periodic or (C >= 8 and C & (C - 1) == 0))]
                 row = []
                 for C in cands:
-                    cp = chunked.Plan(N, sysm.nvar, sysm.halo, g, 2 * sysm.halo + 1, C,
-                                      M // C, periodic)
+                    cp = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C)
                     # 20 steps in one launch: the device time of a step, not the host's
                     us = 1e3 / 20 * cuda_ms(lambda: megastep.step(
                         model.backend, cp, tb, periodic, *cargs, beta, scale, 20), 3)

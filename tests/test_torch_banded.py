@@ -4,7 +4,11 @@ held to on the card) against scipy's sparse LU and the JAX package's
 
 Cases cover block sizes s = 1 and s = 2 (halo 2, or two variables),
 cyclic and acyclic reduced systems, several (C, Mc) plans and the fused
-state add (``add_to``)."""
+state add (``add_to``).  Periodic grids on chunk counts that are no power
+of two >= 8 close their ring with the Woodbury correction: those solves
+are held to a dense ``torch.linalg.solve`` and the JAX package's
+``solve_banded(..., periodic=True)`` to 1e-12, at s = 1, 2 and 4 and
+C = 2, 4 and counts that are no power of two."""
 
 import functools
 
@@ -17,7 +21,7 @@ import torch
 from triflow_tpu.ops import banded as banded_jax
 from triflow_tpu.ops.banded import factor_linearized
 from triflow_tpu_torch.core.routines import bands_to_csc
-from triflow_tpu_torch.ops import banded, chunked
+from triflow_tpu_torch.ops import banded, chunked, pcr, thomas
 
 torch.set_num_threads(1)
 
@@ -36,9 +40,7 @@ def random_bands(W, nvar, N, seed):
 
 
 def _plan(N, nvar, halo, periodic, C):
-    g = max(halo, 1)
-    return chunked.Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C,
-                        bool(periodic) and halo > 0)
+    return chunked.plan_with(N, nvar, halo, periodic, C)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +129,72 @@ def test_plan_choice():
 
 
 def test_periodic_grid_without_power_of_two_chunks_raises():
-    with pytest.raises(ValueError, match="WrappedPcr"):
-        chunked.make_plan(100, 1, 1, True)
+    """A periodic grid takes any chunk count >= 2: one with no power of two
+    >= 8 among its divisors closes its ring through the Woodbury
+    correction; only a prime supernode count has no plan."""
+    plan = chunked.make_plan(100, 1, 1, True)
+    assert plan.wrap and plan.woodbury and not plan.cyclic
+    assert plan.C * plan.Mc == 100 and plan.C >= 2 and plan.Mc >= 2
+    with pytest.raises(ValueError, match="A2c"):
+        chunked.make_plan(101, 1, 1, True)
     with pytest.raises(ValueError, match="multiple of the supernode"):
         chunked.make_plan(101, 1, 2, False)
+
+
+def test_reference_grids_take_the_least_cost_divisor():
+    """The reference benchmark's periodic grids (N = 10^6 and 10^4) plan
+    over every divisor; a power-of-two grid keeps its block-cyclic plan."""
+    for N, halo, C in ((10 ** 6, 1, 4000), (10 ** 6, 2, 2500),
+                       (10 ** 4, 2, 500)):
+        plan = chunked.make_plan(N, 1, halo, True)
+        M = plan.M
+        every = [c for c in chunked._divisors(M) if M // c >= 2 and c >= 2]
+        best = min(every, key=lambda c: (chunked.plan_cost_us(M, c), c))
+        assert (plan.C, plan.Mc) == (best, M // best) == (C, M // C)
+        assert plan.wrap and plan.woodbury and C & (C - 1)
+    big = chunked.make_plan(1 << 20, 1, 1, True)
+    assert (big.C, big.cyclic, big.wrap, big.woodbury) == (4096, True, True,
+                                                            False)
+
+
+#: (W, nvar, N, C) of the Woodbury solves: s = 1, 2, 4; C = 2, 4 and
+#: counts that are no power of two
+WOODBURY_CASES = [(3, 1, 120, 2), (3, 1, 120, 4), (3, 1, 120, 15),
+                  (5, 1, 120, 2), (5, 1, 120, 4), (5, 1, 120, 6),
+                  (3, 2, 60, 2), (3, 2, 60, 4), (3, 2, 60, 5),
+                  (5, 2, 48, 2), (5, 2, 48, 4), (5, 2, 48, 12)]
+
+
+@pytest.mark.parametrize("W,nvar,N,C", WOODBURY_CASES)
+def test_woodbury_solve_vs_dense_and_jax(W, nvar, N, C):
+    bands, rhs, _ = reference(W, nvar, N, True)
+    plan = _plan(N, nvar, W // 2, True, C)
+    assert plan.woodbury and plan.s == nvar * max(W // 2, 1)
+    x = chunked.factor(ALPHA, BETA, torch.tensor(bands), True, plan).solve(
+        torch.tensor(rhs))
+    A = (ALPHA * np.eye(N * nvar)
+         + BETA * bands_to_csc(bands, True).toarray())
+    x_dense = torch.linalg.solve(torch.tensor(A), torch.tensor(
+        rhs.T.reshape(-1))).reshape(N, nvar).T
+    scale = float(x_dense.abs().max())
+    assert float((x - x_dense).abs().max()) <= 1e-12 * scale
+    x_jax = np.asarray(banded_jax.solve_banded(
+        banded_jax.axpy_bands(ALPHA, BETA, bands), rhs, periodic=True))
+    assert np.abs(x.numpy() - x_jax).max() <= 1e-12 * scale
+
+
+def test_acyclic_pcr_factor_ignores_the_corner_blocks():
+    """The reduced system of a Woodbury plan keeps the ring's corner blocks
+    in Lred[..., 0] and Ured[..., C-1]; the acyclic PCR factor gives the
+    same operators, bit for bit, as with them masked."""
+    bands, _, _ = reference(5, 2, 48, True)
+    plan = _plan(48, 2, 2, True, 6)
+    spikes = thomas.spike_factor(torch.tensor(bands), ALPHA, BETA, plan)
+    assert spikes.Lred[..., 0].abs().max() > 0
+    assert spikes.Ured[..., -1].abs().max() > 0
+    Lm, Um = spikes.Lred.clone(), spikes.Ured.clone()
+    Lm[..., 0] = 0.0
+    Um[..., -1] = 0.0
+    got = pcr.pcr_factor_plain(spikes.Lred, spikes.Ured, False)
+    want = pcr.pcr_factor_plain(Lm, Um, False)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -68,17 +68,83 @@ def test_theta_step_launches_every_kernel(cuda_device):
 @pytest.mark.cuda
 def test_rodaspr_step_launches_every_kernel(cuda_device):
     """One fixed RODASPR step: one J and one factor, six biased F and six
-    solves, and five stage combinations plus the final one."""
+    solves, and five stage combinations plus the final one; a block-cyclic
+    plan has no Woodbury set-up."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
-    assert all(c > 0 for k, c in counts.items() if not k.startswith("K6"))
+    assert all(c > 0 for k, c in counts.items()
+               if not k.startswith("K6") and k != "K4.pcr_solve")
+    assert counts["K4.pcr_solve"] == 0
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
     assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
     assert counts["K5.combine"] == 6
     assert counts["K6.step"] == counts["K6.adaptive"] == 0
+
+
+#: a periodic grid above K6's gate whose ring closes through the Woodbury
+#: correction (M = 30000 supernodes: no power of two >= 8 divides it)
+N_WOODBURY = 30000
+
+
+def test_woodbury_grid_plan():
+    plan = chunked.make_plan(N_WOODBURY, 1, 1, True)
+    assert plan.woodbury and N_WOODBURY > megastep.MAX_N[1]
+
+
+@pytest.mark.cuda
+def test_woodbury_theta_step_launches_the_setup_once(cuda_device):
+    """A Theta step on a Woodbury plan: every K1-K4 entry once, the
+    closure's set-up (K4.pcr_solve) once, for the one factor."""
+    model, fields, pars = _burgers_on(cuda_device, N=N_WOODBURY)
+    _launch.reset_counters()
+    schemes.Theta(model)(0.0, fields, 0.05, pars)
+    counts = _launch.counts()
+    want = THETA_KERNELS + ("K4.pcr_solve",)
+    assert {k: counts[k] for k in want} == dict.fromkeys(want, 1)
+
+
+#: the Woodbury cases of the kernel checks: the solver's and K6's
+WOODBURY_SOLVER_CASES = [c for c in kernel_checks.SOLVER_CASES
+                         if chunked.make_plan(c[2], c[1], c[0] // 2, c[3]).woodbury]
+WOODBURY_MEGA_CASES = [c for c in kernel_checks.MEGA_CASES
+                       if megastep.make_plan(c[1], 2 if c[0] == "two_var" else 1,
+                                             2 if c[0] != "readme" else 1, c[2]).woodbury]
+
+
+def _woodbury_checks(device, dtype):
+    results = {}
+    for i, (W, nvar, N, periodic) in enumerate(WOODBURY_SOLVER_CASES):
+        bands = kernel_checks.random_bands(W, nvar, N, dtype, device, seed=i)
+        kernel_checks.check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results)
+    for name, N, periodic, dt, adaptive in WOODBURY_MEGA_CASES:
+        model = Model(*kernel_checks.MEGA_MODELS[name],
+                      double=dtype == torch.float64, device=device)
+        kernel_checks.check_megastep(model, N, periodic, dt, device, results, adaptive)
+    return results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_woodbury_kernels_match_plain_versions(cuda_device, dtype):
+    """K4.pcr_solve (the set-up), K4.pcr_solve_shift's Woodbury correction,
+    K2 with wrap and K6 on Woodbury plans against their plain versions."""
+    results = _woodbury_checks(cuda_device, dtype)
+    assert {"K2.spike_factor", "K4.pcr_solve", "K4.pcr_solve_shift",
+            "K6.step"} <= set(results)
+
+
+def test_woodbury_check_harness_on_cpu():
+    """The Woodbury checks on CPU tensors: plain against plain, every case
+    a Woodbury plan (s = 1, 2, 4 for the solver; s = 1, 2, 4 for K6)."""
+    assert len(WOODBURY_SOLVER_CASES) == 4 and len(WOODBURY_MEGA_CASES) == 3
+    before = _launch.counts()
+    results = _woodbury_checks("cpu", torch.float64)
+    assert results["residual"] < 1e-12
+    assert _launch.counts() == before
 
 
 @pytest.mark.cuda

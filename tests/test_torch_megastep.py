@@ -4,11 +4,14 @@ composes the plain chunked factor, sweep, PCR and combination on K6's
 plan; these tests hold that route against the JAX package's own step,
 float64 on the CPU, from one state handed to both.
 
-* ``plan_for`` admits the README grid and small periodic grids with a
-  power-of-two plan, and refuses what the multi-launch path serves;
+* ``plan_for`` admits the README grid and small periodic grids, whose
+  ring closes block-cyclic on a power-of-two plan and through the
+  Woodbury correction on any other, and refuses what the multi-launch
+  path serves;
 * one Theta step and one fixed RODASPR step (README model, N = 200,
   Dirichlet hook; KS at N = 256, s = 2; a two-variable model at N = 512,
-  s = 4) within 1e-10 relative of JAX;
+  s = 4; Woodbury plans of KS at N = 200 and the two-variable model at
+  N = 600) within 1e-10 relative of JAX;
 * the adaptive output steps of the null-hook route (one K6 launch each on
   the card) take the attempts JAX's RODASPR takes, and the states agree to
   1e-9 relative; no attempt's err lies within 1e-6 relative of ``tol``
@@ -72,8 +75,12 @@ def test_plan_for_gate():
     assert ks.C >= chunked.MIN_CYCLIC_C and ks.C & (ks.C - 1) == 0
     assert megastep.plan_for(1 << 13, 1, 2, True) is not None
     assert megastep.plan_for(512, 2, 2, True).s == 4
-    # KS at N = 200: no power-of-two chunk count divides 100 supernodes
-    assert megastep.plan_for(200, 1, 2, True) is None
+    # KS at N = 200: no power-of-two chunk count >= 8 divides its 100
+    # supernodes, so its ring closes through the Woodbury correction
+    ks200 = megastep.plan_for(200, 1, 2, True)
+    assert ks200 is not None and ks200.woodbury and ks200.C * ks200.Mc == 100
+    burgers = megastep.plan_for(10 ** 4, 1, 1, True)
+    assert burgers.woodbury and burgers.C & (burgers.C - 1)
     # above the gate, and blocks wider than the kernels' s <= 4
     assert megastep.plan_for(2 * megastep.MAX_N[1], 1, 1, True) is None
     assert megastep.make_plan(2 * megastep.MAX_N[1], 1, 1, True) is not None
@@ -95,6 +102,8 @@ STEP_CASES = [
     ("ks-256", KS, ks_state(256), 0.05, False),
     ("two-var-512", TWO_VAR, two_var_state(512, True), 0.02, False),
     ("two-var-512-edge", TWO_VAR, two_var_state(512, False), 0.02, False),
+    ("ks-200-woodbury", KS, ks_state(200), 0.05, False),
+    ("two-var-600-woodbury", TWO_VAR, two_var_state(600, True), 0.02, False),
 ]
 
 
@@ -112,7 +121,8 @@ def test_one_step_matches_jax(scheme, name, eqs, state, dt, hooked):
     ref = getattr(tj.schemes, scheme)(model_j, **kw)
     port = getattr(tt.schemes, scheme)(model_t, **kw)
     N = state[0]["x"].size
-    assert port._mega_plan(N, periodic) is not None
+    plan = port._mega_plan(N, periodic)
+    assert plan is not None and plan.woodbury == name.endswith("woodbury")
     u, h, p, x = ref._split(fields_j, pars)
     u_j, *_, err_j = jax.jit(ref.device_fixed_step(hook_j, periodic))(
         0.0, u, h, p, x, dt)
@@ -148,10 +158,8 @@ def _record_plain_errors(monkeypatch):
     return errs
 
 
-def test_adaptive_route_matches_jax(monkeypatch):
-    """KS at N = 256, periodic, tol 1e-3, no hook: every output step is one
-    call of K6's adaptive entry (its plain version here)."""
-    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(KS, ks_state(256))
+def _adaptive_route(N, monkeypatch):
+    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(KS, ks_state(N))
     calls = []
     adaptive = megastep.row_adaptive_step
 
@@ -176,6 +184,19 @@ def test_adaptive_route_matches_jax(monkeypatch):
         assert _rel(u_t, u_j) <= 1e-9
     margin = min(abs(e / 1e-3 - 1.0) for e in errs)
     assert margin > 1e-6, f"an attempt's err is within {margin:.1e} of tol"
+
+
+def test_adaptive_route_matches_jax(monkeypatch):
+    """KS at N = 256, periodic, tol 1e-3, no hook: every output step is one
+    call of K6's adaptive entry (its plain version here)."""
+    _adaptive_route(256, monkeypatch)
+
+
+def test_adaptive_route_matches_jax_on_a_woodbury_plan(monkeypatch):
+    """The same at N = 200, whose ring closes through the Woodbury
+    correction (C = 25)."""
+    assert megastep.plan_for(200, 1, 2, True).woodbury
+    _adaptive_route(200, monkeypatch)
 
 
 @pytest.mark.parametrize("scheme", ["Theta", "RODASPR"])

@@ -4,8 +4,9 @@ on the CPU, from one state handed to both with ``state_from_numpy``.
 * the Hairer-Wanner transformed tables of ROS2, ROS3PRw, ROS3PRL and
   RODASPR equal the reference's exactly;
 * one fixed step of each scheme, on the README model (Dirichlet hook), on
-  Burgers and on Kuramoto-Sivashinsky (N = 256), within 1e-11 max|u|, and
-  the same embedded error;
+  Burgers and on Kuramoto-Sivashinsky (N = 256, and N = 1000, whose
+  periodic plans close the ring through the Woodbury correction), within
+  1e-11 max|u|, and the same embedded error;
 * adaptive trajectories (``Simulation``'s defaults: RODASPR with its own
   controller) within 1e-9 max|u| of the reference, with the same number
   of attempts in every output step and the same adapted dt to 1e-8
@@ -19,7 +20,9 @@ on the CPU, from one state handed to both with ``state_from_numpy``.
   err of 0.036 tol, which agreed to 3e-9 to 1.7e-8 over chunk counts 8 to
   128), so the cases are chosen with every dt set by an err near tol: KS
   takes output steps of 0.5, whose dts agree to 3.1e-10 or better at
-  every one of those chunk counts;
+  every one of those chunk counts.  KS at N = 1000 (Woodbury plans) sets
+  one dt 2.6e-8 apart at tol 1e-3 and 7.7e-10 apart at tol 3e-3, the
+  tolerance its case takes;
 * the interpolating mode (``recompute_target=False``) and the status
   codes (``max_iter``, ``dt_min``), which raise the same ``RuntimeError``;
 * each of the above on both routes of the port: through kernel K6 (its
@@ -61,6 +64,8 @@ MODELS = [
     ("readme", README, readme_state(), 5.0, True),
     ("burgers", BURGERS, burgers_state(256), 0.05, False),
     ("ks", KS, ks_state(256), 0.05, False),
+    ("burgers-1000-woodbury", BURGERS, burgers_state(1000), 0.05, False),
+    ("ks-1000-woodbury", KS, ks_state(1000), 0.05, False),
 ]
 
 
@@ -160,6 +165,9 @@ ADAPTIVE = [
     ("readme-defaults", README, readme_state(), 5.0, 50.0, True, {}),
     ("ks-512", KS, ks_state(512), 0.5, 3.0, False, {"tol": 1e-3}),
     ("burgers-2048", BURGERS, burgers_state(2048), 1.0, 5.0, False,
+     {"tol": 1e-3}),
+    ("ks-1000-woodbury", KS, ks_state(1000), 0.5, 3.0, False, {"tol": 3e-3}),
+    ("burgers-1000-woodbury", BURGERS, burgers_state(1000), 1.0, 5.0, False,
      {"tol": 1e-3}),
 ]
 

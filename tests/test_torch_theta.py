@@ -1,7 +1,9 @@
 """The port's theta step and Simulation against the JAX package's, from one
 state handed to both with ``state_from_numpy``.
 
-* one step of Theta (theta = 1, 0.5 and 0) to 1e-11;
+* one step of Theta (theta = 1, 0.5 and 0) to 1e-11, also on Burgers and
+  KS at N = 1000, periodic grids whose plans close the ring through the
+  Woodbury correction on both routes;
 * ten output steps of the README model (advection-diffusion, N = 200,
   Dirichlet hook) and of Burgers (periodic, N = 2048) to 1e-9 relative to
   max|u|.
@@ -96,6 +98,8 @@ ONE_STEP = [
     ("ks-theta1", KS, ks_state(256), 0.01, 1.0, False),
     ("burgers-euler", BURGERS, burgers_state(256), 0.05, 0.0, False),
     ("readme-euler", README, readme_state(), 0.01, 0.0, True),
+    ("burgers-1000-woodbury", BURGERS, burgers_state(1000), 0.05, 1.0, False),
+    ("ks-1000-woodbury", KS, ks_state(1000), 0.01, 1.0, False),
 ]
 
 

@@ -47,7 +47,7 @@ template <typename T, int S>
 __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dhinv, T* DU,
                                                    T* Wsp, T* Vsp, T* Lred, T* Ured, int N,
                                                    int nvar, int g, int h, int Mc, int C,
-                                                   int cyclic, T alpha, T beta, int c) {
+                                                   int wrap, T alpha, T beta, int c) {
   Blk<T, S> dh, up, wt, Tl, Tr;
   zero(dh);
   zero(up);
@@ -61,12 +61,12 @@ __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dh
     Blk<T, S> U = band_block<T, S>(bands, I, 1, alpha, beta, N, nvar, g, h);
     if (j == 0) {
       Tl = L;
-      if (!cyclic && c == 0) zero(Tl);
+      if (!wrap && c == 0) zero(Tl);
       zero(L);
     }
     if (j == Mc - 1) {
       Tr = U;
-      if (!cyclic && c == C - 1) zero(Tr);
+      if (!wrap && c == C - 1) zero(Tr);
       zero(U);
     }
     const Blk<T, S> f = mm(L, dh);
@@ -111,8 +111,8 @@ __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dh
   W0 = Wn;
   V0 = Vn;
 
-  const bool keep_l = cyclic || c != 0;
-  const bool keep_u = cyclic || c != C - 1;
+  const bool keep_l = wrap || c != 0;
+  const bool keep_u = wrap || c != C - 1;
 #pragma unroll
   for (int r = 0; r < 2 * S; ++r)
 #pragma unroll

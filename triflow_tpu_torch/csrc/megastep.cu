@@ -21,10 +21,13 @@
 // One step, in the order of the multi-launch path (K1-K5):
 //   1. J at every node (K1's body), the chunked factor of I + beta*J (K2's
 //      body, one thread per chunk) and the PCR factor of the interface
-//      system (K4's body);
+//      system (K4's body); on a Woodbury plan (a ring whose chunk count is
+//      no power of two >= 8) the closure's set-up (K4's solve body: Z and
+//      the capacitance inverse, kept in shared memory);
 //   2. per stage: the stage input sum a*u_j and bias sum c*u_j (K5's
 //      arithmetic), rhs = scale*F + bias (K1), the chunk sweep (K3), the
-//      reduced solve with shifts (K4) and the spike correction (K3);
+//      reduced solve with the Woodbury correction where the plan has one
+//      and the shifts (K4) and the spike correction (K3);
 //   3. the final combination and err = max|sum (m - mhat)*u_j|, NaN and inf
 //      becoming inf.
 // Phases are separated by __syncthreads(); threads stride over nodes for F,
@@ -62,7 +65,7 @@ constexpr int kS = TF_NVAR * kG;
 constexpr int kMaxStages = 6;
 constexpr int kCombos = kMaxStages + 1;
 constexpr int kCols = kMaxStages + 1;
-constexpr int kPtrs = 28;
+constexpr int kPtrs = 29;
 
 using tf::add_rn;
 using tf::div_rn;
@@ -91,9 +94,9 @@ struct Work {
   const T* x;
   T* out;
   double* info;  // err, dt_i, attempts, status
-  T *bands, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr;
+  T *bands, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr, *Z;
   T *us, *ui, *bias, *rhs, *y, *yred, *xm1, *xp1, *buf0, *buf1;
-  int N, Mc, C, cyclic, periodic;
+  int N, Mc, C, cyclic, wrap, periodic;
 };
 
 template <typename T>
@@ -111,22 +114,29 @@ template <typename T>
 __device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* dst, T beta,
                       T scale) {
   __shared__ T s_max[kThreads];
+  __shared__ T s_cap_inv[4 * kS * kS];
   __shared__ int s_bad;
   const int tid = threadIdx.x;
   const int N = w.N;
   const long n = (long)TF_NVAR * N;
+  const bool wood = w.wrap && !w.cyclic;
 
   for (long i = tid; i < N; i += kThreads)
     tf::stencil_J_node<T>(src, w.hlp, w.par, w.x, w.bands, N, w.periodic, i);
   __syncthreads();
   for (int c = tid; c < w.C; c += kThreads)
     tf::spike_factor_chunk<T, kS>(w.bands, w.fac, w.Dhinv, w.DU, w.Wsp, w.Vsp, w.Lred,
-                                  w.Ured, N, TF_NVAR, kG, TF_H, w.Mc, w.C, w.cyclic, T(1),
+                                  w.Ured, N, TF_NVAR, kG, TF_H, w.Mc, w.C, w.wrap, T(1),
                                   beta, c);
   __syncthreads();
   tf::pcr_factor_block<T, 2 * kS>(w.Lred, w.Ured, w.alphas, w.betas, w.Dinv, w.pscr, w.C,
                                   w.cyclic);
   __syncthreads();
+  if (wood) {
+    tf::woodbury_block<T, 2 * kS>(w.alphas, w.betas, w.Dinv, w.Lred, w.Ured, w.Z, s_cap_inv,
+                                  w.pscr, w.C);
+    __syncthreads();
+  }
 
   for (int k = 0; k < tab.n_stages; ++k) {
     const bool with_bias = tab.rows[k] == 2;
@@ -147,8 +157,12 @@ __device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* ds
       tf::thomas_sweep_chunk<T, kS>(w.fac, w.Dhinv, w.DU, w.rhs, w.y, w.yred, N, TF_NVAR, kG,
                                     w.Mc, w.C, c);
     __syncthreads();
-    tf::pcr_solve_shift_block<T, 2 * kS>(w.alphas, w.betas, w.Dinv, w.yred, w.xm1, w.xp1,
-                                         w.pscr, w.C, w.cyclic);
+    if (wood)
+      tf::pcr_solve_shift_block<T, 2 * kS, true>(w.alphas, w.betas, w.Dinv, w.yred, w.Z,
+                                                 s_cap_inv, w.xm1, w.xp1, w.pscr, w.C, w.wrap);
+    else
+      tf::pcr_solve_shift_block<T, 2 * kS, false>(w.alphas, w.betas, w.Dinv, w.yred, nullptr,
+                                                  nullptr, w.xm1, w.xp1, w.pscr, w.C, w.wrap);
     __syncthreads();
     T* uk = w.us + (long)k * n;
     for (long i = tid; i < N; i += kThreads)
@@ -268,8 +282,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ptrs (kPtrs device addresses, in the order of Work), ints (N, Mc, C,
-// cyclic, periodic, n_stages, nsteps, max_iter (-1: none), has_dt_min, then
-// the rows of the kCombos combinations) and reals (beta, scale, g00, t, dt,
+// cyclic, wrap, periodic, n_stages, nsteps, max_iter (-1: none),
+// has_dt_min, then the rows of the kCombos combinations) and reals (beta, scale, g00, t, dt,
 // internal_dt, tol, safety, dt_min, then the kCombos x 2 x kCols
 // coefficients [combination][row][column]) live in host memory and are
 // read before the launch returns.
@@ -279,8 +293,8 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
   T** slots[] = {&w.out, &w.bands, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
-                 &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.us, &w.ui, &w.bias,
-                 &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
+                 &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.us, &w.ui,
+                 &w.bias, &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
   w.u0 = reinterpret_cast<const T*>(p[0]);
   w.hlp = reinterpret_cast<const T*>(p[1]);
   w.par = reinterpret_cast<const T*>(p[2]);
@@ -291,13 +305,14 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
   w.Mc = iv[1];
   w.C = iv[2];
   w.cyclic = iv[3];
-  w.periodic = iv[4];
-  tab.n_stages = iv[5];
+  w.wrap = iv[4];
+  w.periodic = iv[5];
+  tab.n_stages = iv[6];
   if (w.N < 1 || w.Mc < 1 || w.C < 1 || (long)w.Mc * w.C * kG != w.N || tab.n_stages < 1 ||
-      tab.n_stages > kMaxStages)
+      tab.n_stages > kMaxStages || (w.cyclic && !w.wrap) || (w.wrap && !w.cyclic && w.C < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kCombos; ++k) {
-    tab.rows[k] = (unsigned char)iv[9 + k];
+    tab.rows[k] = (unsigned char)iv[10 + k];
     if (k <= tab.n_stages && tab.rows[k] != 1 && tab.rows[k] != 2)
       return static_cast<int>(cudaErrorInvalidValue);
     for (int r = 0; r < 2; ++r)
@@ -324,7 +339,7 @@ int step(const void* ptrs, const void* ints, const void* reals, void* stream) {
   if (rc) return rc;
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
-  const int nsteps = iv[6];
+  const int nsteps = iv[7];
   if (nsteps < 1) return static_cast<int>(cudaErrorInvalidValue);
   step_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, T(rv[0]),
                                                                         T(rv[1]), nsteps);
@@ -347,8 +362,8 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, void* stream
   ctl.tol = T(rv[6]);
   ctl.safety = T(rv[7]);
   ctl.dt_min = T(rv[8]);
-  ctl.max_iter = iv[7];
-  ctl.has_dt_min = iv[8];
+  ctl.max_iter = iv[8];
+  ctl.has_dt_min = iv[9];
   adaptive_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, ctl);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
-// K4: parallel cyclic reduction (PCR) of the chunk-interface system, two
+// K4: parallel cyclic reduction (PCR) of the chunk-interface system, three
 // entries.
 //
-// Replaces, on the TPU: ops/pallas_pcr.py pcr_factor_fused_sub (factor)
-// and interface_shift_solve (per right-hand side: reduced solve plus the
-// neighbour shifts).  The Woodbury wrap correction of interface_shift_solve
-// is not here: a periodic grid takes the block-cyclic form instead, which
-// needs a power-of-two chunk count.
+// Replaces, on the TPU: ops/pallas_pcr.py pcr_factor_fused_sub (factor),
+// pcr_solve_fused_sub (the solve of R right-hand sides; here it also sets
+// up the Woodbury closure, folded._reduced_factor's wrap branch) and
+// interface_shift_solve (per right-hand side: reduced solve, the Woodbury
+// correction where the plan has one, and the neighbour shifts).
 //
 // The reduced system has C block rows of size S2 = 2S (unknowns
 // (x_c^top, x_c^bot)), identity diagonal blocks and the couplings Lred
@@ -19,7 +19,17 @@
 // whose neighbour falls outside keep no coupling; cyclic (C a power of two)
 // rows wrap, and the couplings left at distance C are the diagonal itself.
 //
-// Both entries run in ONE thread block: the level loop is sequential, and
+// A periodic ring on any other chunk count is factored acyclic (its corner
+// blocks Lred[..., 0] and Ured[..., C-1] are never read: the acyclic
+// alpha / beta of those rows are zero) and closed by a rank-S2 Woodbury
+// correction A^-1 b = y - Z (I + V^T Z)^-1 V^T y, y = A0^-1 b, where the
+// columns U carry the corner blocks and V^T reads the two ring-end
+// unknowns (pcr.cuh: woodbury_block).  The solve entry sets it up in one
+// launch per factor: the S2 columns of Z share every level's phase and
+// sync (the TPU kernel ran its right-hand sides' levels one after the
+// other), and the S2 x S2 capacitance is inverted in shared memory.
+//
+// Every entry runs in ONE thread block: the level loop is sequential, and
 // __syncthreads() between the phases of a level makes each phase's global
 // scratch writes visible to the whole block.  The reduced system is small
 // (C <= 16384 rows of S2 x S2), so the kernel is bound by the latency of
@@ -42,10 +52,28 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int S2>
 __global__ void __launch_bounds__(kThreads)
+    pcr_solve_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
+                     const T* __restrict__ Dinv, const T* __restrict__ b,
+                     const T* __restrict__ Lred, const T* __restrict__ Ured, T* out, T* cap_inv,
+                     T* scratch, int C, int R) {
+  if (b) {
+    const long col = (long)S2 * C;
+    tf::pcr_solve_cols_block<T, S2>(
+        alphas, betas, Dinv, [&](int r, int row, int c) { return b[r * col + (long)row * C + c]; },
+        out, scratch, C, R);
+  } else {
+    tf::woodbury_block<T, S2>(alphas, betas, Dinv, Lred, Ured, out, cap_inv, scratch, C);
+  }
+}
+
+template <typename T, int S2, bool kWood>
+__global__ void __launch_bounds__(kThreads)
     pcr_solve_shift_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
-                           const T* __restrict__ Dinv, const T* __restrict__ yred, T* xm1,
-                           T* xp1, T* scratch, int C, int cyclic) {
-  tf::pcr_solve_shift_block<T, S2>(alphas, betas, Dinv, yred, xm1, xp1, scratch, C, cyclic);
+                           const T* __restrict__ Dinv, const T* __restrict__ yred,
+                           const T* __restrict__ Z, const T* __restrict__ cap_inv, T* xm1,
+                           T* xp1, T* scratch, int C, int wrap) {
+  tf::pcr_solve_shift_block<T, S2, kWood>(alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1,
+                                          scratch, C, wrap);
 }
 
 template <typename T>
@@ -68,14 +96,46 @@ int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratc
   return static_cast<int>(cudaGetLastError());
 }
 
+// b (R, S2, C) -> out; or, b null, the Woodbury set-up (R = S2): out = Z,
+// and cap_inv
 template <typename T>
-int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, T* xm1, T* xp1,
-                T* scratch, int C, int S2, int cyclic, cudaStream_t stream) {
+int solve(const T* alphas, const T* betas, const T* Dinv, const T* b, const T* Lred,
+          const T* Ured, T* out, T* cap_inv, T* scratch, int C, int S2, int R,
+          cudaStream_t stream) {
+  if (R < 1 || (!b && (R != S2 || !Lred || !Ured || !cap_inv || C < 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
 #define TF_CASE(S2)                                                                    \
   case S2:                                                                             \
-    pcr_solve_shift_kernel<T, S2><<<1, kThreads, 0, stream>>>(                         \
-        alphas, betas, Dinv, yred, xm1, xp1, scratch, C, cyclic);                      \
+    pcr_solve_kernel<T, S2><<<1, kThreads, 0, stream>>>(alphas, betas, Dinv, b, Lred,  \
+                                                        Ured, out, cap_inv, scratch, C, R); \
+    break;
+    TF_CASE(2)
+    TF_CASE(4)
+    TF_CASE(6)
+    TF_CASE(8)
+#undef TF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Z and cap_inv null: no Woodbury correction
+template <typename T>
+int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, const T* Z,
+                const T* cap_inv, T* xm1, T* xp1, T* scratch, int C, int S2, int wrap,
+                cudaStream_t stream) {
+  if (Z && (!cap_inv || !wrap)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (S2) {
+#define TF_CASE(S2)                                                                    \
+  case S2:                                                                             \
+    if (Z)                                                                             \
+      pcr_solve_shift_kernel<T, S2, true><<<1, kThreads, 0, stream>>>(                 \
+          alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, scratch, C, wrap);          \
+    else                                                                               \
+      pcr_solve_shift_kernel<T, S2, false><<<1, kThreads, 0, stream>>>(                \
+          alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, scratch, C, wrap);          \
     break;
     TF_CASE(2)
     TF_CASE(4)
@@ -99,14 +159,28 @@ int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, T
                      static_cast<T*>(Dinv), static_cast<T*>(scratch), C, S2, cyclic,      \
                      static_cast<cudaStream_t>(stream));                                  \
   }                                                                                       \
+  extern "C" int tf_pcr_solve_##SUFFIX(const void* alphas, const void* betas,             \
+                                       const void* Dinv, const void* b, const void* Lred, \
+                                       const void* Ured, void* out, void* cap_inv,        \
+                                       void* scratch, int C, int S2, int R,               \
+                                       void* stream) {                                    \
+    return solve<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),          \
+                    static_cast<const T*>(Dinv), static_cast<const T*>(b),                \
+                    static_cast<const T*>(Lred), static_cast<const T*>(Ured),             \
+                    static_cast<T*>(out), static_cast<T*>(cap_inv),                       \
+                    static_cast<T*>(scratch), C, S2, R,                                   \
+                    static_cast<cudaStream_t>(stream));                                   \
+  }                                                                                       \
   extern "C" int tf_pcr_solve_shift_##SUFFIX(const void* alphas, const void* betas,       \
                                              const void* Dinv, const void* yred,          \
+                                             const void* Z, const void* cap_inv,          \
                                              void* xm1, void* xp1, void* scratch, int C,  \
-                                             int S2, int cyclic, void* stream) {          \
+                                             int S2, int wrap, void* stream) {            \
     return solve_shift<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),    \
                           static_cast<const T*>(Dinv), static_cast<const T*>(yred),       \
+                          static_cast<const T*>(Z), static_cast<const T*>(cap_inv),       \
                           static_cast<T*>(xm1), static_cast<T*>(xp1),                     \
-                          static_cast<T*>(scratch), C, S2, cyclic,                        \
+                          static_cast<T*>(scratch), C, S2, wrap,                          \
                           static_cast<cudaStream_t>(stream));                             \
   }
 

@@ -22,9 +22,11 @@
 //             V_j  = Dh_j [Tr if j = Mc-1] - DU_j V_{j+1}
 // It then writes the chunk's rows of the 2S x 2S reduced interface system
 // (the reference's _reduced_LU): unknowns (x_c^top, x_c^bot) couple to
-// x_{c-1}^bot through W and to x_{c+1}^top through V.  With `cyclic` the
-// wrap couplings of chunks 0 and C-1 stay (periodic closure inside the
-// reduced system); otherwise they are zeroed.
+// x_{c-1}^bot through W and to x_{c+1}^top through V.  With `wrap` the
+// wrap couplings of chunks 0 and C-1 stay (the periodic ring closes inside
+// the reduced system, block-cyclic or through K4's Woodbury correction):
+// Lred[..., 0] and Ured[..., C-1] hold the ring's corner blocks; otherwise
+// they are zeroed.
 //
 // Bound: each step of the sweep reads its band rows and writes five S x S
 // blocks, and the Mc steps of a chunk are sequential, so the kernel is
@@ -42,17 +44,17 @@ namespace {
 template <typename T, int S>
 __global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
                                     T* Wsp, T* Vsp, T* Lred, T* Ured, int N, int nvar,
-                                    int g, int h, int Mc, int C, int cyclic, T alpha,
+                                    int g, int h, int Mc, int C, int wrap, T alpha,
                                     T beta) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   tf::spike_factor_chunk<T, S>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, nvar, g, h,
-                               Mc, C, cyclic, alpha, beta, c);
+                               Mc, C, wrap, alpha, beta, c);
 }
 
 template <typename T>
 int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured, int N,
-           int nvar, int g, int h, int Mc, int C, int cyclic, double alpha, double beta,
+           int nvar, int g, int h, int Mc, int C, int wrap, double alpha, double beta,
            cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (C + threads - 1) / threads;
@@ -61,7 +63,7 @@ int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured
 #define TF_CASE(S)                                                                   \
   case S:                                                                            \
     spike_factor_kernel<T, S><<<blocks, threads, 0, stream>>>(                       \
-        bands, fac, Dhinv, DU, W, V, Lred, Ured, N, nvar, g, h, Mc, C, cyclic, a, b); \
+        bands, fac, Dhinv, DU, W, V, Lred, Ured, N, nvar, g, h, Mc, C, wrap, a, b);   \
     break;
     TF_CASE(1)
     TF_CASE(2)
@@ -79,12 +81,12 @@ int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured
 #define TF_ENTRY(NAME, T)                                                                \
   extern "C" int NAME(const void* bands, void* fac, void* Dhinv, void* DU, void* W,     \
                       void* V, void* Lred, void* Ured, int N, int nvar, int g, int h,   \
-                      int Mc, int C, int cyclic, double alpha, double beta,             \
+                      int Mc, int C, int wrap, double alpha, double beta,               \
                       void* stream) {                                                   \
     return launch<T>(static_cast<const T*>(bands), static_cast<T*>(fac),                \
                      static_cast<T*>(Dhinv), static_cast<T*>(DU), static_cast<T*>(W),   \
                      static_cast<T*>(V), static_cast<T*>(Lred), static_cast<T*>(Ured),  \
-                     N, nvar, g, h, Mc, C, cyclic, alpha, beta,                         \
+                     N, nvar, g, h, Mc, C, wrap, alpha, beta,                           \
                      static_cast<cudaStream_t>(stream));                                \
   }
 

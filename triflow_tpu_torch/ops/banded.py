@@ -9,7 +9,10 @@ nodes, which makes it block-tridiagonal with dense ``s = nvar * g`` blocks
 of Mc rows; each chunk is eliminated by a block-Thomas sweep and the chunks
 are coupled through a reduced system over their interface rows (Wang's
 algorithm, also called SPIKE), which is solved by parallel cyclic
-reduction (PCR).
+reduction (PCR).  A periodic grid closes its ring in that reduced system:
+block-cyclic PCR where the chunk count is a power of two >= 8, otherwise
+acyclic PCR and a rank-2s Woodbury correction (``woodbury_setup``,
+``woodbury_correct``).
 
 Block stacks keep the reference's ``(..., s, s, M)`` convention (block
 index last); the chunked arrays are ``(Mc, s, s, C)``, the layout the CUDA
@@ -154,18 +157,19 @@ class SpikeFactor(NamedTuple):
     Ured: torch.Tensor
 
 
-def chunked_factor(L, D, U, C: int, cyclic: bool) -> SpikeFactor:
+def chunked_factor(L, D, U, C: int, wrap: bool) -> SpikeFactor:
     """Wang/SPIKE factorization of a block-tridiagonal system in C chunks.
 
     Chunk c's outer couplings Tl = L_0 (to chunk c-1) and Tr = U_{Mc-1}
     (to chunk c+1) leave the chunk's sweep and enter the reduced system.
-    With ``cyclic`` the couplings of chunk 0 and chunk C-1 are the periodic
-    wrap and stay; otherwise they are dropped."""
+    With ``wrap`` the couplings of chunk 0 and chunk C-1 are the periodic
+    wrap and stay, so ``Lred[..., 0]`` and ``Ured[..., C-1]`` hold the
+    ring's corner blocks; otherwise they are dropped."""
     Lc, Dc, Uc = (to_chunks(X, C).clone(memory_format=torch.contiguous_format)
                   for X in (L, D, U))
     Mc = Lc.shape[0]
     Tl, Tr = Lc[0].clone(), Uc[-1].clone()
-    if not cyclic:
+    if not wrap:
         Tl[..., 0] = 0.0
         Tr[..., -1] = 0.0
     Lc[0] = 0.0
@@ -193,7 +197,7 @@ def chunked_factor(L, D, U, C: int, cyclic: bool) -> SpikeFactor:
     Ured = torch.zeros_like(Lred)
     Lred[:s, s:], Lred[s:, s:] = W[0], W[-1]
     Ured[:s, :s], Ured[s:, :s] = V[0], V[-1]
-    if not cyclic:
+    if not wrap:
         Lred[..., 0] = 0.0
         Ured[..., -1] = 0.0
     return SpikeFactor(fac, Dhinv, DU, W, V, Lred, Ured)
@@ -257,3 +261,37 @@ def pcr_solve(alphas, betas, Dinv, b):
         b = b + mv(alpha, _roll(b, d)) + mv(beta, _roll(b, -d))
         d *= 2
     return mv(Dinv, b)
+
+
+def _vt(y):
+    """``v_i^T y`` of the Woodbury closure for y (..., s2, C): i < s reads
+    ``y[s+i]`` at chunk C-1, i >= s reads ``y[i-s]`` at chunk 0."""
+    s = y.shape[-2] // 2
+    return torch.cat([y[..., s:, -1], y[..., :s, 0]], dim=-1)
+
+
+def woodbury_setup(alphas, betas, Dinv, Lred, Ured):
+    """The rank-2s Woodbury closure of a periodic ring whose reduced system
+    was factored acyclic (``pcr_factor`` with ``cyclic=False``, which
+    ignores the corner blocks ``Lred[..., 0]`` and ``Ured[..., C-1]``):
+    the reduced matrix is ``A0 + U V^T`` with the columns
+    ``u_j = e_0 (x) Lred[:, s+j, 0]`` (j < s) and
+    ``u_j = e_{C-1} (x) Ured[:, j-s, C-1]`` (j >= s), and ``v_i`` reading
+    ``y[s+i]`` at chunk C-1 (i < s) and ``y[i-s]`` at chunk 0 (i >= s).
+    Returns ``Z = A0^-1 U`` (2s_j, 2s_v, C) and ``cap_inv = (I + V^T Z)^-1``
+    (2s, 2s): the reference's ``folded._reduced_factor`` (one member)."""
+    s2, _, C = Lred.shape
+    s = s2 // 2
+    U = Lred.new_zeros((s2, s2, C))
+    U[:s, :, 0] = Lred[:, s:, 0].T
+    U[s:, :, C - 1] = Ured[:, :s, C - 1].T
+    Z = pcr_solve(alphas, betas, Dinv, U).contiguous()
+    cap = torch.eye(s2, dtype=Z.dtype, device=Z.device) + _vt(Z).T
+    return Z, small_inv(cap[..., None])[..., 0].contiguous()
+
+
+def woodbury_correct(Z, cap_inv, y):
+    """``y - Z (cap_inv V^T y)``: the acyclic reduced solution y (s2, C)
+    corrected to the ring's (the reference's ``WrappedPcr.solve``)."""
+    coef = cap_inv @ _vt(y)
+    return y - torch.tensordot(coef, Z, dims=([-1], [0]))

@@ -6,8 +6,10 @@ Counterpart of ``triflow_tpu.ops.folded``'s ``factor_folded`` and
 axis: state and right-hand sides stay in the node layout ``(nvar, N)`` and
 the kernels store their per-row arrays chunk-minor.
 
-A periodic grid closes its ring inside the reduced interface system
-(block-cyclic PCR), which needs a power-of-two chunk count.
+A periodic grid closes its ring inside the reduced interface system:
+block-cyclic PCR where the chunk count C is a power of two >= 8 (the
+reference's ``cyclic_ok``), otherwise acyclic PCR and a rank-2s Woodbury
+correction (the reference's ``WrappedPcr``), so any C >= 2 serves.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 
 from . import pcr, thomas
 
-#: smallest power-of-two chunk count of a periodic plan
+#: smallest power-of-two chunk count whose ring closes block-cyclic
 MIN_CYCLIC_C = 8
 
 #: cost model of a plan, in microseconds, fitted to the chunk-count sweep
@@ -43,11 +45,17 @@ class Plan(NamedTuple):
     W: int        # band window, 2 * halo + 1
     C: int        # chunks
     Mc: int       # supernode rows per chunk
-    cyclic: bool  # the reduced system carries the periodic wrap
+    cyclic: bool  # block-cyclic PCR of the reduced system
+    wrap: bool    # periodic ring: K2 keeps the wrap couplings and the
+                  # shifts close the ring; with not cyclic, Woodbury
 
     @property
     def s(self):
         return self.nvar * self.g
+
+    @property
+    def woodbury(self):
+        return self.wrap and not self.cyclic
 
     @property
     def M(self):
@@ -64,45 +72,61 @@ def _divisors(M):
     return sorted(out)
 
 
-def make_plan(N: int, nvar: int, halo: int, periodic: bool) -> Plan:
-    """Chunk plan: the admissible chunk count C (at least 2 rows per chunk,
-    at most ``pcr.MAX_C`` chunks) of least ``plan_cost_us``.  Periodic
-    grids need C a power of two >= 8."""
+def plan_with(N: int, nvar: int, halo: int, periodic: bool, C: int) -> Plan:
+    """The plan of C chunks: a periodic grid (with a halo) wraps, and its
+    ring closes block-cyclic where C is a power of two >= 8, through the
+    Woodbury correction otherwise."""
+    g = max(halo, 1)
+    wrap = bool(periodic) and halo > 0
+    cyclic = wrap and C >= MIN_CYCLIC_C and C & (C - 1) == 0
+    return Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C, cyclic, wrap)
+
+
+def chunk_counts(N: int, halo: int, periodic: bool):
+    """The admissible chunk counts of a grid: divisors C of its M
+    supernodes with at least 2 rows per chunk, and C >= 2 on a ring (the
+    Woodbury closure couples chunk 0 to chunk C-1).  Raises where N is no
+    multiple of the supernode size."""
     g = max(halo, 1)
     if N % g:
         raise ValueError(f"N = {N} is not a multiple of the supernode size "
-                         f"g = {g}")
+                         f"g = {g} (identity padding is queued: ROADMAP A2c)")
     M = N // g
-    cyclic = bool(periodic) and halo > 0
-    cands = [C for C in _divisors(M) if C <= pcr.MAX_C and M // C >= 2]
-    if cyclic:
-        cands = [C for C in cands if C >= MIN_CYCLIC_C and C & (C - 1) == 0]
-        if not cands:
-            raise ValueError(
-                f"no chunk plan for a periodic grid of {M} supernodes: the "
-                "block-cyclic reduced system needs a power-of-two chunk "
-                f"count >= {MIN_CYCLIC_C} dividing it; other periodic grids "
-                "wait for the Woodbury closure (WrappedPcr), which is queued "
-                "(ROADMAP A2b)")
+    wrap = bool(periodic) and halo > 0
+    return [C for C in _divisors(M) if M // C >= 2 and (C >= 2 or not wrap)]
+
+
+def make_plan(N: int, nvar: int, halo: int, periodic: bool) -> Plan:
+    """Chunk plan: the admissible chunk count C (``chunk_counts``, at most
+    ``pcr.MAX_C``) of least ``plan_cost_us``."""
+    M = N // max(halo, 1)
+    cands = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
     if not cands:
-        raise ValueError(f"no chunk plan for a grid of {M} supernodes")
+        raise ValueError(
+            f"no chunk plan for a {'periodic ' if periodic else ''}grid of "
+            f"{M} supernodes: no divisor leaves 2 rows per chunk"
+            + (" in 2 chunks or more" if periodic else "")
+            + " (identity padding is queued: ROADMAP A2c)")
     C = min(cands, key=lambda C: (plan_cost_us(M, C), C))
-    return Plan(N, nvar, halo, g, 2 * halo + 1, C, M // C, cyclic)
+    return plan_with(N, nvar, halo, periodic, C)
 
 
 class ChunkedFactorization:
     """Factorization of ``alpha*I + beta*J`` for the chunked solve."""
 
-    def __init__(self, spikes, red, plan: Plan):
+    def __init__(self, spikes, red, plan: Plan, Z=None, cap_inv=None):
         self.spikes = spikes
         self.red = red
         self.plan = plan
+        self.Z = Z              # Woodbury plans: the closure's columns
+        self.cap_inv = cap_inv  # and its capacitance inverse
 
     def solve(self, rhs, add_to=None):
         """``add_to + A^-1 rhs`` (or ``A^-1 rhs``), rhs of shape (nvar, N)."""
         plan = self.plan
         y, yred = thomas.thomas_sweep(self.spikes, rhs, plan)
-        xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.cyclic)
+        xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.wrap, self.Z,
+                                       self.cap_inv)
         return thomas.spike_correct(self.spikes, y, xm1, xp1, plan,
                                     add_to=add_to)
 
@@ -115,7 +139,9 @@ def factor(alpha, beta, bands, periodic: bool, plan: Plan = None):
         plan = make_plan(N, nvar, W // 2, periodic)
     spikes = thomas.spike_factor(bands, alpha, beta, plan)
     red = pcr.pcr_factor(spikes.Lred, spikes.Ured, plan.cyclic)
-    return ChunkedFactorization(spikes, red, plan)
+    wood = (pcr.woodbury(red, spikes.Lred, spikes.Ured) if plan.woodbury
+            else ())
+    return ChunkedFactorization(spikes, red, plan, *wood)
 
 
 def solve(fact: ChunkedFactorization, rhs, add_to=None):

@@ -182,16 +182,18 @@ def banded_matvec(A_bands, x, periodic):
 
 def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
                  plan=None):
-    """K2, K4 (factor, solve with shifts) and K3 (sweep, correction)
-    against their plain versions on the same inputs, then the kernels'
-    whole solve by its residual.  ``bands`` are J's bands on the card."""
+    """K2, K4 (factor; the R-column solve; on a Woodbury plan the closure's
+    set-up; solve with shifts) and K3 (sweep, correction) against their
+    plain versions on the same inputs, then the kernels' whole solve by its
+    residual.  ``bands`` are J's bands on the card."""
     results = {} if results is None else results
     W, nvar, _, N = bands.shape
     dtype, device = bands.dtype, bands.device
     tol = TOL[dtype]["solve"]
     if plan is None:
         plan = chunked.make_plan(N, nvar, W // 2, periodic)
-    what = f"N={N} s={plan.s} C={plan.C} cyclic={plan.cyclic}"
+    what = (f"N={N} s={plan.s} C={plan.C} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury}")
     rng = np.random.default_rng(seed)
     rhs = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
     add = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
@@ -205,14 +207,30 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
     for got, want in zip(red_k, red_p):
         _record(results, "K4.pcr_factor", got, want, tol, what)
+    wood = ()
+    if plan.woodbury:
+        # the acyclic factor of the ring's reduced system ignores its
+        # corner blocks: held against the plain factor with them masked
+        Lm, Um = sp_p.Lred.clone(), sp_p.Ured.clone()
+        Lm[..., 0] = 0.0
+        Um[..., -1] = 0.0
+        for got, want in zip(red_k, pcr.pcr_factor_plain(Lm, Um, False)):
+            _record(results, "K4.pcr_factor", got, want, tol, f"masked {what}")
+        wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
+        for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
+            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
+    cols = torch.tensor(rng.standard_normal((2 * plan.s, 2 * plan.s, plan.C)),
+                        dtype=dtype, device=device)
+    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
+            pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
 
     y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
     y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
     _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
     _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
 
-    sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.cyclic)
-    sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.cyclic)
+    sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
+    sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
     for got, want in zip(sh_k, sh_p):
         _record(results, "K4.pcr_solve_shift", got, want, tol, what)
 
@@ -301,7 +319,7 @@ def check_megastep(model, N, periodic, dt, device, results=None,
     sysm = b.system
     plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)
     what = (f"N={N} s={plan.s} C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
-            f"{dtype}")
+            f"woodbury={plan.woodbury} {dtype}")
     tol = TOL[dtype]["solve"]
     args = mega_state(model, N, periodic, device) if state is None else state
     ros = rodaspr_table()
@@ -379,11 +397,16 @@ def adaptive_dt_readings(device, dtype, seeds=range(8)):
 
 
 #: (model, N, periodic, fixed dt, adaptive (output dt, internal dt, tol) or
-#: None): the test shapes, s = 1, 2 and 4
+#: None): the test shapes, s = 1, 2 and 4, and rings closed block-cyclic
+#: (KS N = 256, the two-variable N = 512) and by the Woodbury correction
+#: (C = 250, 25 and 15 chunks)
 MEGA_CASES = [("readme", 200, False, 5.0, (5.0, 1e-6, 1e-1)),
               ("ks", 256, True, 0.05, (1.0, 1e-6, 1e-3)),
               ("two_var", 512, True, 0.02, None),
-              ("two_var", 512, False, 0.02, None)]
+              ("two_var", 512, False, 0.02, None),
+              ("readme", 1000, True, 0.5, None),
+              ("ks", 200, True, 0.05, None),
+              ("two_var", 600, True, 0.02, None)]
 
 
 def check_all_megasteps(device, dtype, results=None):
@@ -397,10 +420,13 @@ def check_all_megasteps(device, dtype, results=None):
     return results
 
 
-#: (W, nvar, N, periodic): block sizes 1 and 2, cyclic and acyclic,
-#: chunk counts that are and are not powers of two
+#: (W, nvar, N, periodic): block sizes 1, 2 and 4, acyclic, and rings
+#: closed block-cyclic (power-of-two plans) and by the Woodbury correction
+#: (plans of 125, 4, 120 and 30 chunks)
 SOLVER_CASES = [(3, 1, 4096, True), (3, 1, 4000, False), (5, 1, 4096, True),
-                (5, 1, 2000, False), (3, 2, 2048, True), (3, 2, 1200, False)]
+                (5, 1, 2000, False), (3, 2, 2048, True), (3, 2, 1200, False),
+                (3, 1, 1000, True), (5, 1, 200, True), (3, 2, 1200, True),
+                (5, 2, 2048, True), (5, 2, 600, True), (5, 2, 1000, False)]
 
 
 def run_all(device, dtypes=(torch.float64, torch.float32)):

@@ -61,29 +61,25 @@ def plan_cost_us(M: int, C: int, s: int) -> float:
 
 
 def make_plan(N: int, nvar: int, halo: int, periodic: bool):
-    """K6's chunk plan of a grid (at least 2 rows per chunk; a periodic
-    plan a power-of-two C >= 8): the chunk count of least ``plan_cost_us``,
-    whatever N is; None when the grid has none or its block size has no
-    fitted cost."""
+    """K6's chunk plan of a grid: the admissible chunk count
+    (``chunked.chunk_counts``: any divisor with at least 2 rows per chunk,
+    C >= 2 on a ring) of least ``plan_cost_us``, whatever N is; None when
+    the grid has none or its block size has no fitted cost."""
     g = max(halo, 1)
     s = nvar * g
     if N % g or s not in ROW_US:
         return None
     M = N // g
-    cyclic = bool(periodic) and halo > 0
-    cands = [C for C in chunked._divisors(M) if M // C >= 2]
-    if cyclic:
-        cands = [C for C in cands
-                 if C >= chunked.MIN_CYCLIC_C and C & (C - 1) == 0]
+    cands = chunked.chunk_counts(N, halo, periodic)
     if not cands:
         return None
     C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
-    return chunked.Plan(N, nvar, halo, g, 2 * halo + 1, C, M // C, cyclic)
+    return chunked.plan_with(N, nvar, halo, periodic, C)
 
 
 def plan_for(N: int, nvar: int, halo: int, periodic: bool):
     """The plan of a grid K6 takes, or None: the multi-launch path serves
-    it (or raises, for a periodic grid without a power-of-two plan)."""
+    it (or raises, for a grid without a chunk plan)."""
     if N > MAX_N.get(nvar * max(halo, 1), 0):
         return None
     return make_plan(N, nvar, halo, periodic)
@@ -144,6 +140,8 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
     bands = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
     fact = thomas.spike_factor_plain(bands, 1.0, beta, plan)
     red = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
+    wood = (pcr.woodbury_plain(red, fact.Lred, fact.Ured) if plan.woodbury
+            else ())
     us = []
     for a_row, c_row in table.stages:
         cols = [u] + us
@@ -152,7 +150,7 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
         rhs = stencil.eval_F_plain(backend, u_i, helpers, pstack, x, periodic,
                                    scale, bias)
         y, yred = thomas.thomas_sweep_plain(fact, rhs, plan)
-        xm1, xp1 = pcr.pcr_solve_shift_plain(red, yred, plan.cyclic)
+        xm1, xp1 = pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood)
         us.append(thomas.spike_correct_plain(fact, y, xm1, xp1, plan))
     outs = combine.combine_plain(list(table.final), [u] + us)
     return outs[0], _err_of(outs, u)
@@ -193,8 +191,8 @@ def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
 #: the scratch buffers of one launch, in the order of csrc/megastep.cu's
 #: Work after (u0, hlp, par, x, info, out)
 _BUFFERS = ("bands", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
-            "alphas", "betas", "Dinv", "pscr", "us", "ui", "bias", "rhs", "y",
-            "yred", "xm1", "xp1", "buf0", "buf1")
+            "alphas", "betas", "Dinv", "pscr", "Z", "us", "ui", "bias", "rhs",
+            "y", "yred", "xm1", "xp1", "buf0", "buf1")
 
 
 def _sizes(plan, n_stages):
@@ -204,8 +202,8 @@ def _sizes(plan, n_stages):
     return dict(bands=plan.W * nvar * nvar * N, fac=rows, Dhinv=rows,
                 DU=rows, Wsp=rows, Vsp=rows, Lred=red, Ured=red,
                 alphas=pcr.n_levels(C) * red, betas=pcr.n_levels(C) * red,
-                Dinv=red, pscr=7 * red, us=n_stages * n, ui=n, bias=n, rhs=n,
-                y=n, yred=s2 * C, xm1=s * C, xp1=s * C, buf0=n, buf1=n)
+                Dinv=red, pscr=7 * red, Z=red, us=n_stages * n, ui=n, bias=n,
+                rhs=n, y=n, yred=s2 * C, xm1=s * C, xp1=s * C, buf0=n, buf1=n)
 
 
 class _Prepared(NamedTuple):
@@ -240,8 +238,9 @@ def _prepare(plan, table, periodic, nsteps, max_iter, dt_min):
         coefs[n_stages, r, :len(row)] = row
     rows = [1 + (c is not None) for _, c in table.stages] + [len(table.final)]
     rows += [1] * (MAX_STAGES + 1 - len(rows))
-    ints = [plan.N, plan.Mc, plan.C, int(plan.cyclic), int(bool(periodic)),
-            n_stages, nsteps, -1 if max_iter is None else int(max_iter),
+    ints = [plan.N, plan.Mc, plan.C, int(plan.cyclic), int(plan.wrap),
+            int(bool(periodic)), n_stages, nsteps,
+            -1 if max_iter is None else int(max_iter),
             int(dt_min is not None)] + rows
     prepared = _Prepared(tuple(offsets), at, (ctypes.c_int * len(ints))(*ints),
                          (ctypes.c_double * (9 + coefs.size))(*[0.0] * 9,

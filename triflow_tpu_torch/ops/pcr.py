@@ -1,13 +1,22 @@
-"""Kernel K4: PCR of the chunk-interface system (factor, and the per
+"""Kernel K4: PCR of the chunk-interface system (the factor; the solve of
+R right-hand sides, which also sets up the Woodbury closure; the per
 right-hand side solve with neighbour shifts); wrappers and plain versions.
 
-Replaces the TPU's ``ops/pallas_pcr.py:pcr_factor_fused_sub`` and
-``interface_shift_solve``; source ``csrc/pcr.cu``.  The plain versions are
-``ops/banded.py``'s ``pcr_factor`` / ``pcr_solve``.  The reduced system
-has identity diagonal blocks and the couplings ``Lred`` / ``Ured``
-(2s, 2s, C) that K2 writes.
+Replaces the TPU's ``ops/pallas_pcr.py:pcr_factor_fused_sub``,
+``pcr_solve_fused_sub`` and ``interface_shift_solve``; source
+``csrc/pcr.cu``.  The plain versions are ``ops/banded.py``'s
+``pcr_factor`` / ``pcr_solve`` / ``woodbury_setup`` /
+``woodbury_correct``.  The reduced system has identity diagonal blocks and
+the couplings ``Lred`` / ``Ured`` (2s, 2s, C) that K2 writes.
 
-Both kernel entries run in one thread block, so the chunk count is capped
+A periodic ring on a chunk count that is no power of two >= 8 is factored
+acyclic (which ignores the corner blocks ``Lred[..., 0]`` and
+``Ured[..., C-1]``); ``woodbury`` then solves for the closure's 2s columns
+Z and inverts its capacitance in one launch, and every
+``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
+close the ring.
+
+Every kernel entry runs in one thread block, so the chunk count is capped
 at ``MAX_C``.
 """
 
@@ -23,6 +32,7 @@ from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 
 FACTOR_LAUNCHES = Counter("K4.pcr_factor")
 SOLVE_LAUNCHES = Counter("K4.pcr_solve_shift")
+COLS_LAUNCHES = Counter("K4.pcr_solve")
 
 #: most chunks the one-block kernels take
 MAX_C = 16384
@@ -86,38 +96,110 @@ def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     return PcrFactor(ops[0], ops[1], Dinv)
 
 
-def pcr_solve_shift_plain(red: PcrFactor, yred, cyclic: bool):
+def pcr_solve_plain(red: PcrFactor, b):
+    return banded.pcr_solve(red.alphas, red.betas, red.Dinv, b)
+
+
+def _check_factor(red: PcrFactor, s2, C, dtype, what, *more):
+    check_cuda((red.alphas, red.betas, red.Dinv) + more, dtype, what)
+    ops = (n_levels(C), s2, s2, C)
+    check_shapes(what, alphas=(red.alphas, ops), betas=(red.betas, ops),
+                 Dinv=(red.Dinv, (s2, s2, C)))
+    _check_sizes(s2, C, what)
+
+
+def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R):
+    """One launch of the R-column solve: of b, or (b None) of the Woodbury
+    columns read off Lred / Ured, which also writes cap_inv."""
+    s2, _, C = red.Dinv.shape
+    dtype, device = red.Dinv.dtype, red.Dinv.device
+    scratch = torch.empty((2, R, s2, C), dtype=dtype, device=device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    fn = LIB.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 3)
+    rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
+            ptr(b), ptr(Lred), ptr(Ured), out.data_ptr(), ptr(cap_inv),
+            scratch.data_ptr(), C, s2, R, stream_of(red.Dinv))
+    LIB.check(rc, "K4 pcr_solve")
+    COLS_LAUNCHES.add()
+
+
+def pcr_solve(red: PcrFactor, b):
+    """Solve the reduced system for R right-hand sides ``b (R, s2, C)``
+    in one launch; returns (R, s2, C)."""
+    if b.device.type == "cpu":
+        return pcr_solve_plain(red, b)
+    R, s2, C = b.shape
+    _check_factor(red, s2, C, b.dtype, "K4 pcr_solve", b)
+    out = torch.empty_like(b)
+    _launch_cols(red, b, None, None, out, None, R)
+    return out
+
+
+def woodbury_plain(red: PcrFactor, Lred, Ured):
+    return banded.woodbury_setup(red.alphas, red.betas, red.Dinv, Lred, Ured)
+
+
+def woodbury(red: PcrFactor, Lred, Ured):
+    """The Woodbury closure of a ring factored acyclic: ``Z (2s, 2s, C)``,
+    the acyclic solve of its 2s columns, and ``cap_inv (2s, 2s)``, in one
+    K4 launch (``banded.woodbury_setup`` has the algebra)."""
+    if Lred.device.type == "cpu":
+        return woodbury_plain(red, Lred, Ured)
+    s2, _, C = Lred.shape
+    _check_factor(red, s2, C, Lred.dtype, "K4 pcr_solve", Lred, Ured)
+    check_shapes("K4 pcr_solve", Lred=(Lred, (s2, s2, C)),
+                 Ured=(Ured, (s2, s2, C)))
+    if C < 2:
+        raise ValueError("K4 pcr_solve: the Woodbury closure needs C >= 2")
+    Z = torch.empty((s2, s2, C), dtype=Lred.dtype, device=Lred.device)
+    cap_inv = torch.empty((s2, s2), dtype=Lred.dtype, device=Lred.device)
+    _launch_cols(red, None, Lred, Ured, Z, cap_inv, s2)
+    return Z, cap_inv
+
+
+def pcr_solve_shift_plain(red: PcrFactor, yred, wrap: bool, Z=None,
+                          cap_inv=None):
     s = yred.shape[0] // 2
-    z = banded.pcr_solve(red.alphas, red.betas, red.Dinv, yred)
+    z = pcr_solve_plain(red, yred)
+    if Z is not None:
+        z = banded.woodbury_correct(Z, cap_inv, z)
     xm1 = torch.roll(z[s:], 1, dims=-1)
     xp1 = torch.roll(z[:s], -1, dims=-1)
-    if not cyclic:
+    if not wrap:
         xm1[:, 0] = 0.0
         xp1[:, -1] = 0.0
     return xm1, xp1
 
 
-def pcr_solve_shift(red: PcrFactor, yred, cyclic: bool):
+def pcr_solve_shift(red: PcrFactor, yred, wrap: bool, Z=None, cap_inv=None):
     """Solve the reduced system for ``yred (2s, C)`` and return the
     neighbour interface unknowns of every chunk: ``xm1[:, c]`` = bottom of
-    chunk c-1 and ``xp1[:, c]`` = top of chunk c+1, each (s, C); zero past
-    the ends when acyclic."""
+    chunk c-1 and ``xp1[:, c]`` = top of chunk c+1, each (s, C); around
+    the ring with ``wrap``, zero past the ends without.  With the Woodbury
+    closure ``(Z, cap_inv)`` of ``woodbury`` the acyclic solution is
+    corrected to the ring's first."""
     if yred.device.type == "cpu":
-        return pcr_solve_shift_plain(red, yred, cyclic)
+        return pcr_solve_shift_plain(red, yred, wrap, Z, cap_inv)
     s2, C = yred.shape
     s = s2 // 2
-    check_cuda((yred, red.alphas, red.betas, red.Dinv), yred.dtype,
-               "K4 pcr_solve_shift")
-    ops = (n_levels(C), s2, s2, C)
-    check_shapes("K4 pcr_solve_shift", alphas=(red.alphas, ops),
-                 betas=(red.betas, ops), Dinv=(red.Dinv, (s2, s2, C)))
-    _check_sizes(s2, C, "K4 pcr_solve_shift")
+    what = "K4 pcr_solve_shift"
+    wood = () if Z is None else (Z, cap_inv)
+    _check_factor(red, s2, C, yred.dtype, what, yred, *wood)
+    if Z is not None:
+        if not wrap:
+            raise ValueError(f"{what}: the Woodbury closure needs wrap")
+        check_shapes(what, Z=(Z, (s2, s2, C)), cap_inv=(cap_inv, (s2, s2)))
     out = torch.empty((2, s, C), dtype=yred.dtype, device=yred.device)
     scratch = torch.empty((2, s2, C), dtype=yred.dtype, device=yred.device)
-    fn = LIB.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 7, 3)
+    fn = LIB.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 3)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
-            yred.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            scratch.data_ptr(), C, s2, int(bool(cyclic)), stream_of(yred))
-    LIB.check(rc, "K4 pcr_solve_shift")
+            yred.data_ptr(), 0 if Z is None else Z.data_ptr(),
+            0 if Z is None else cap_inv.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), scratch.data_ptr(), C, s2, int(bool(wrap)),
+            stream_of(yred))
+    LIB.check(rc, what)
     SOLVE_LAUNCHES.add()
     return out[0], out[1]

@@ -44,7 +44,7 @@ def _rows_shape(plan):
 
 def spike_factor_plain(bands, alpha, beta, plan):
     L, D, U = banded.assemble_blocks(banded.axpy_bands(alpha, beta, bands))
-    return banded.chunked_factor(L, D, U, plan.C, plan.cyclic)
+    return banded.chunked_factor(L, D, U, plan.C, plan.wrap)
 
 
 def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
@@ -64,7 +64,7 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
     fn = FACTOR_LIB.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 8, 7, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
             red[0].data_ptr(), red[1].data_ptr(), plan.N, plan.nvar, plan.g,
-            plan.halo, plan.Mc, C, int(plan.cyclic), float(alpha), float(beta),
+            plan.halo, plan.Mc, C, int(plan.wrap), float(alpha), float(beta),
             stream_of(bands))
     FACTOR_LIB.check(rc, "K2 spike_factor")
     FACTOR_LAUNCHES.add()
