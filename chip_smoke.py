@@ -6,7 +6,7 @@
 Phases (any failure raises, and the script exits non-zero with no result):
 
 0. the card's name and power limit; build every kernel from ``csrc/``, one
-   nvcc per source, all at once (K1 and K6 once per model); registers and
+   nvcc per source, all at once (K1 and K6 once per model and dtype); registers and
    spills of each library, of the s = 2 solver instantiations the KS path
    runs, and of K6 at s = 1, 2 and 4 in both dtypes.
 1. each kernel against its plain PyTorch version on CUDA tensors, f64 and
@@ -50,6 +50,22 @@ Phases (any failure raises, and the script exits non-zero with no result):
    K6 against the multi-launch path, for Burgers (s = 1), KS (s = 2) and
    the two-variable model (s = 4), behind K6's gate per block size.
 
+The ensemble path (``parallel.Ensemble``, since PR 5) runs in each phase:
+phase 1 holds the member axis of K1-K4 and K6 (B = 4, block-cyclic and
+Woodbury rings, f32 and f64), K1.F_terms and K6.adaptive_scan (a shared
+dt and per member) against their plain versions, and K6's entries at the
+sweep's shapes; phase 2 runs the reference's config 5 (B = 1024 KS members
+at N = 10^5, 3 fixed RODASPR steps, K1-K5 with a member axis) and its
+sweep (B = 64 KS members at N = 200: ``steps(100)`` fixed, ``steps(4,
+0.1)`` adaptive with a shared dt and per member, each one K6 launch, and
+one shared adaptive ``step``), each with its launch counts, members 0 and
+B - 1 against the port's single-grid run on the card, and the sweep
+against the port's CPU f64 run; phase 3 times them (aggregate
+cell-updates/s, ms per ``steps(100)``), breaks a config-5 step down by
+kernel, times K1.F_terms against the combination and the biased F, sweeps
+the chunk count of config 5 behind ``chunked.batch_plan_cost_us``, and
+sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve at KS
@@ -57,11 +73,14 @@ N = 10^6, the others at KS N = 2^20), the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -70,10 +89,11 @@ import sympy as sp
 import torch
 
 from triflow_tpu_torch import Model, Simulation, schemes
-from triflow_tpu_torch.core.rosenbrock import adaptive_controller
+from triflow_tpu_torch.core.rosenbrock import adaptive_controller, member_controller
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
                                    megastep, pcr, stencil, thomas)
-from triflow_tpu_torch.utils.convert import state_from_numpy
+from triflow_tpu_torch.parallel import Ensemble
+from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
 N_BIG = 1 << 20
 N_REF = 10 ** 6  # the reference benchmark's headline grids (bench.py)
@@ -94,6 +114,8 @@ OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 KERNELS = {
     "K1.F": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
              "triflow_tpu/ops/folded.py:469 eval_F_folded"),
+    "K1.F_terms": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
+                   "triflow_tpu/ops/folded.py:469 eval_F_folded (u_terms mode)"),
     "K1.J": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
              "triflow_tpu/ops/folded.py:667 eval_J_folded"),
     "K2.spike_factor": ("cuda", "triflow_tpu_torch/csrc/spike_factor.cu",
@@ -116,20 +138,23 @@ KERNELS = {
                 "triflow_tpu/ops/megastep.py:1491 _launch"),
     "K6.adaptive": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                     "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded"),
+    "K6.adaptive_scan": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                         "triflow_tpu/ops/megastep.py:1313 row_adaptive_scan_folded"),
 }
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
 #: Woodbury plan adds K4.pcr_solve
-MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6") and k != "K4.pcr_solve"]
+MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")
+                and k not in ("K4.pcr_solve", "K1.F_terms")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 
 #: substrings of the device kernels' names in a profiler trace
-TRACE_NAMES = {"stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
+TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
                "combine_kernel": "K5.combine", "step_kernel": "K6.step",
-               "adaptive_kernel": "K6.adaptive"}
+               "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan"}
 
 
 def log(msg):
@@ -232,6 +257,63 @@ CASES = [
 ]
 
 
+#: the reference's ensembles (bench.py: config 5, bench_ensemble, and the
+#: sweep, bench_sweep): B KS members on x = 0.5 i, periodic
+B_ENS, N_ENS = 1024, 10 ** 5
+B_SWEEP, N_SWEEP = 64, 200
+FIXED = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None)
+SHARED = dict(scheme=schemes.RODASPR, tol=1e-3)
+PER_MEMBER = dict(scheme=schemes.RODASPR, tol=1e-3, per_member_dt=True)
+
+
+@functools.lru_cache(maxsize=None)
+def ensemble_state(B, N, seed, waves):
+    """bench.py's ensemble state: cos(2 pi waves i / N + phase_b) + 0.1
+    randn, the phases and the noise from one seed."""
+    rng = np.random.RandomState(seed)
+    phases = rng.rand(B, 1) * 2 * np.pi
+    i = np.arange(N)
+    return 0.5 * i, np.cos(2 * np.pi * i[None] / N * waves + phases) + 0.1 * rng.randn(B, N)
+
+
+def make_ensemble(B, N, seed, waves, dtype, device, kwargs):
+    x, u0 = ensemble_state(B, N, seed, waves)
+    model = Model(*KS, double=dtype == torch.float64, device=device)
+    return Ensemble(model, **ensemble_from_numpy(model, u0, x, dict(periodic=True)),
+                    **kwargs)
+
+
+#: (name, B, N, seed, waves, Ensemble kwargs, calls ((n, dt): steps(n, dt),
+#: (None, dt): step(dt)), route, launches of the whole case (a callable of
+#: the plan for the multi-launch route), compare with the CPU f64 run)
+ENSEMBLE_CASES = [
+    ("config 5: B=1024 x ks N=10^5 rodaspr fixed (steps(3, 0.05))", B_ENS, N_ENS, 1, 10,
+     FIXED, [(3, 0.05)], "host",
+     lambda plan: {"K1.J": 3, "K2.spike_factor": 3, "K4.pcr_factor": 3,
+                   "K4.pcr_solve": 3 if plan.woodbury else 0, "K1.F_terms": 18,
+                   "K3.thomas_sweep": 18, "K4.pcr_solve_shift": 18,
+                   "K3.spike_correct": 18, "K5.combine": 3}, False),
+    ("sweep: B=64 x ks N=200 rodaspr fixed (steps(100, 0.05))", B_SWEEP, N_SWEEP, 2, 5,
+     FIXED, [(100, 0.05)], "K6", lambda plan: {"K6.step": 1}, True),
+    ("sweep: B=64 x ks N=200 rodaspr shared dt tol 1e-3 (steps(4, 0.1))", B_SWEEP,
+     N_SWEEP, 2, 5, SHARED, [(4, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1}, True),
+    ("sweep: B=64 x ks N=200 rodaspr shared dt tol 1e-3 (step(0.1))", B_SWEEP,
+     N_SWEEP, 2, 5, SHARED, [(None, 0.1)], "K6", lambda plan: {"K6.adaptive": 1}, True),
+    ("sweep: B=64 x ks N=200 rodaspr per-member dt tol 1e-3 (steps(4, 0.1))", B_SWEEP,
+     N_SWEEP, 2, 5, PER_MEMBER, [(4, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1},
+     True),
+]
+
+
+def drive(ens, calls):
+    for n, dt in calls:
+        if n is None:
+            ens.step(dt)
+        else:
+            ens.steps(n, dt)
+    return ens
+
+
 def case_plan(eqs, case, route):
     """The chunk plan the case's grid takes on its route."""
     fields_np, pars, _, _, _ = case
@@ -292,7 +374,9 @@ def phase0():
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"phase 0: card {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     start = time.perf_counter()
-    models = [Model(*eqs).backend for eqs in (BURGERS, README, KS, TWO_VAR)]
+    # K1 and K6 carry one dtype each: both dtypes of each model
+    models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
+              for d in (True, False)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
                                  combine.LIB)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
@@ -304,8 +388,9 @@ def phase0():
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
         + ")")
     mega_logs = {}
-    for b, label in zip(models, ("s=1 burgers", "s=1 readme", "s=2 ks",
-                                 "s=4 two-variable")):
+    for b, label in zip(models, [f"{m} {d}" for m in ("s=1 burgers", "s=1 readme", "s=2 ks",
+                                                       "s=4 two-variable")
+                                 for d in ("f64", "f32")]):
         mega_logs[Path(b.megastep.lib._name).with_suffix(".log")] = label
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         report = ptxas_report(path)
@@ -408,6 +493,21 @@ def phase1():
                                      adaptive=(1.0, 1e-6, 1e-3), state=bargs)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
+    # the member axis: K1-K4 and K6 on B = 4 members (block-cyclic and
+    # Woodbury rings), K1.F_terms, K6.adaptive_scan with a shared dt and per
+    # member; then K6's entries at the sweep's shapes (B = 64, KS N = 200)
+    batched = kernel_checks.run_batched("cuda")
+    for dt_name, dtype in DTYPES.items():
+        res = batched[dt_name]
+        log(f"  member axis, B = {kernel_checks.BATCH}, small shapes {dt_name}: "
+            + json.dumps(res))
+        model = Model(*KS, double=dtype == torch.float64, device="cuda")
+        kernel_checks.check_megastep_batched(model, N_SWEEP, True, 0.05, "cuda", res,
+                                             adaptive=(0.1, 1e-6, 1e-3), B=B_SWEEP)
+        log(f"  member axis, the sweep's shapes (B = {B_SWEEP}, ks N = {N_SWEEP}) "
+            f"{dt_name}: " + json.dumps(res))
+        for name, err in res.items():
+            errs[dt_name][name] = max(errs[dt_name].get(name, 0.0), err)
     return errs
 
 
@@ -435,7 +535,7 @@ def phase2():
             missing = [k for k in needs if counts[k] <= 0]
             small = any(k.startswith("K6") for k in needs)
             others = [k for k in KERNELS if k not in needs and counts[k]
-                      and (small or k.startswith("K6"))]
+                      and (small or k.startswith("K6") or k == "K1.F_terms")]
             if missing or others:
                 raise RuntimeError(f"{name} {dt_name}: kernels not launched {missing}, "
                                    f"launched off this path {others}")
@@ -451,11 +551,10 @@ def phase2():
             for k in KERNELS:
                 launches[k] += counts[k]
     log("  launches over phase 2: " + json.dumps(launches))
+    refs = cpu_refs()
     for name, eqs, case, kwargs, tol32, tol64, _, _ in CASES:
-        start = time.perf_counter()
-        steps_ref, u_ref, att_ref = run_simulation(eqs, case, "cpu", torch.float64,
-                                                   kwargs)
-        cpu_s = time.perf_counter() - start
+        steps_ref, u_ref, att_ref, cpu_s = refs[name]
+        u_ref = torch.from_numpy(u_ref)
         scale = float(u_ref.abs().max())
         _, _, dt, tmax, _ = case
         log(f"  {name}: horizon {tmax:g} in output steps of {dt:g}; CPU f64 "
@@ -474,6 +573,159 @@ def phase2():
             if dt_name == "float64" and attempts != att_ref:
                 raise RuntimeError(f"{name} f64: attempts {attempts} differ from the "
                                    f"CPU run's {att_ref}")
+    return launches
+
+
+def cpu_reference_runs(conn):
+    """The port's CPU f64 runs (the plain versions) of phase 2's cases and
+    of the ensemble cases that compare with one, sent through ``conn``:
+    run in a process of its own, started before phase 0, so that they
+    overlap the card's work.  {case name: (steps, u, attempts, s)} and
+    {ensemble case name: (u, t, attempts, member attempts, s)}, or
+    ("error", traceback)."""
+    try:
+        torch.set_num_threads(4)
+        out = {}
+        for name, eqs, case, kwargs, *_ in CASES:
+            start = time.perf_counter()
+            steps, u, attempts = run_simulation(eqs, case, "cpu", torch.float64, kwargs)
+            out[name] = (steps, u.numpy(), attempts, time.perf_counter() - start)
+        for name, B, N, seed, waves, kwargs, calls, _, _, cpu in ENSEMBLE_CASES:
+            if cpu:
+                start = time.perf_counter()
+                ens = drive(make_ensemble(B, N, seed, waves, torch.float64, "cpu", kwargs),
+                            calls)
+                out[name] = (ens.u.numpy(), ens.t, ens.attempts, ens.member_iters,
+                             time.perf_counter() - start)
+        # numpy, not tensors: torch would share tensors through file
+        # descriptors that close with this process
+        conn.send(out)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+_CPU = {}
+
+
+def start_cpu_refs():
+    ctx = multiprocessing.get_context("spawn")
+    mine, theirs = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=cpu_reference_runs, args=(theirs,))
+    proc.start()
+    theirs.close()
+    _CPU.update(conn=mine, proc=proc)
+
+
+def cpu_refs():
+    """The CPU runs' results, waiting for them the first time."""
+    if "refs" not in _CPU:
+        start = time.perf_counter()
+        refs = _CPU["conn"].recv()
+        _CPU["proc"].join()
+        if isinstance(refs, tuple):
+            raise RuntimeError(f"the CPU reference runs failed:\n{refs[1]}")
+        _CPU["refs"] = refs
+        log(f"  (waited {time.perf_counter() - start:.1f} s for the CPU f64 runs)")
+    return _CPU["refs"]
+
+
+def stop_cpu_refs():
+    proc = _CPU.get("proc")
+    if proc is not None and proc.is_alive():
+        proc.terminate()
+        proc.join()
+
+
+def member_runs(B, N, seed, waves, dtype, kwargs, calls):
+    """Members 0 and B - 1 of an ensemble case run alone on the card (the
+    port's single-grid scheme): {member: (u, attempts)}."""
+    x, u0 = ensemble_state(B, N, seed, waves)
+    kw = {k: v for k, v in kwargs.items() if k not in ("scheme", "per_member_dt")}
+    out = {}
+    for b in (0, B - 1):
+        model = Model(*KS, double=dtype == torch.float64, device="cuda")
+        fields, pars = state_from_numpy({"x": x, "U": u0[b]}, {"periodic": True}, model)
+        scheme = kwargs["scheme"](model, **kw)
+        t, attempts = 0.0, 0
+        for n, dt in calls:
+            for _ in range(n or 1):
+                t, fields = scheme(t, fields, dt, pars)
+                attempts += getattr(scheme, "_internal_iter", None) or 0
+        out[b] = (fields["U"], attempts)
+    return out
+
+
+def phase2_ensembles(launches):
+    """The ensemble path: config 5 and the sweep through ``Ensemble`` on the
+    card, each case's launch counts, members 0 and B - 1 against the
+    single-grid runs, the sweep against the CPU f64 run."""
+    log("phase 2: the ensemble path (parallel.Ensemble) on the card")
+    for name, B, N, seed, waves, kwargs, calls, route, want, cpu in ENSEMBLE_CASES:
+        ref = cpu_refs().get(name)
+        if ref is not None:
+            log(f"  {name}: CPU f64 run in {ref[4]:.1f} s; attempts {ref[2]}, member "
+                f"attempts {None if ref[3] is None else ref[3].tolist()}")
+        for dt_name, dtype in DTYPES.items():
+            ens = make_ensemble(B, N, seed, waves, dtype, "cuda", kwargs)
+            plan = (ens._scheme._plan(N, True, B) if route == "host"
+                    else ens._scheme._mega_plan(N, True, B))
+            if ens.route != route:
+                raise RuntimeError(f"{name}: route {ens.route}, expected {route}")
+            torch.cuda.synchronize()
+            _launch.reset_counters()
+            start = time.perf_counter()
+            drive(ens, calls)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            expected = {**dict.fromkeys(counts, 0), **want(plan)}
+            log(f"  {name} {dt_name}: route {route}, plan C={plan.C} Mc={plan.Mc} "
+                f"woodbury={plan.woodbury}; launches "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; {secs:.3f} s wall (first call, launch included); attempts "
+                f"{ens.attempts}, member attempts "
+                f"{None if ens.member_iters is None else ens.member_iters.tolist()}")
+            if counts != expected:
+                raise RuntimeError(f"{name} {dt_name}: launches {counts}, expected "
+                                   f"{expected}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            u = ens.u
+            if not bool(torch.isfinite(u).all()) or tuple(u.shape) != (B, 1, N):
+                raise RuntimeError(f"{name} {dt_name}: non-finite or misshapen")
+            adaptive = kwargs is not FIXED
+            tol = (1e-2 if adaptive else 1e-4) if dtype == torch.float32 else (
+                1e-9 if adaptive else 1e-10)
+            if kwargs is not SHARED:
+                # alone, a member takes the same steps (fixed, or its own dt)
+                for b, (ub, att) in member_runs(B, N, seed, waves, dtype, kwargs,
+                                                calls).items():
+                    err = float((u[b].double() - ub.double()).abs().max()
+                                / ub.double().abs().max())
+                    same = ens.member_iters is None or int(ens.member_iters[b]) == att
+                    log(f"    member {b} against its single-grid run: max|du| / max|u| "
+                        f"= {err:.3e} (tolerance {tol:.0e}); attempts {att}")
+                    if not err <= tol or (dtype == torch.float64 and not same):
+                        raise RuntimeError(f"{name} {dt_name}: member {b} off its "
+                                           "single-grid run")
+            if ref is not None:
+                u_ref, t_ref, att_ref, iters_ref, _ = ref
+                u_ref = torch.from_numpy(u_ref)
+                err = float((u.double().cpu() - u_ref).abs().max() / u_ref.abs().max())
+                log(f"    against the CPU f64 run: max|du| / max|u| = {err:.3e} "
+                    f"(tolerance {tol:.0e}), t {ens.t} / {t_ref}")
+                same = (ens.attempts == att_ref and (
+                    iters_ref is None or np.array_equal(ens.member_iters, iters_ref)))
+                # the clock adds in the model's dtype
+                t_off = not np.isclose(ens.t, t_ref, rtol=0 if dtype == torch.float64
+                                       else 1e-6, atol=0)
+                if not err <= tol or t_off or (dtype == torch.float64 and not same):
+                    raise RuntimeError(f"{name} {dt_name}: disagrees with the CPU run")
+            del ens
+            torch.cuda.empty_cache()
+    log("  launches over phase 2 with the ensembles: " + json.dumps(launches))
     return launches
 
 
@@ -581,13 +833,18 @@ def profile_step(scheme, fields, pars, dt, steps=5):
     """Device µs per step by kernel, busy and idle share of the device span,
     from torch.profiler over ``steps`` whole fixed steps; None when the
     profiler records no device time."""
+    return profile_calls(lambda: scheme(0.0, fields, dt, pars), steps)
+
+
+def profile_calls(fn, steps):
+    """``profile_step`` of ``steps`` calls of ``fn`` (one step each)."""
     from torch.profiler import ProfilerActivity, profile
 
-    scheme(0.0, fields, dt, pars)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            scheme(0.0, fields, dt, pars)
+            fn()
         torch.cuda.synchronize()
     by_name, busy, first, last = {}, 0.0, None, None
     for ev in prof.events():
@@ -665,6 +922,187 @@ def phase3():
                     f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                     f"{ops} operations)"
                     + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    return times
+
+
+#: chunk counts of config 5's sweep (divisors of its M = 50000 supernodes)
+BATCH_CHUNKS = [10, 25, 50, 100, 125, 200, 250, 400, 500, 625, 1000, 1250, 2500]
+
+
+def fit_batch_cost(points, B):
+    """Least-squares fit, relative weights, of us = a * rows walked + b *
+    levels walked + c * doublings (``chunked.batch_features``) plus one
+    intercept per dtype over {dtype: [(M, C, us), ...]}; returns (a, b,
+    c, relative residual of each point)."""
+    names = sorted(points)
+    rows, ys = [], []
+    for k, name in enumerate(names):
+        for M, C, us in points[name]:
+            rows.append([*chunked.batch_features(M, C, B)]
+                        + [float(k == j) for j in range(len(names))])
+            ys.append(us)
+    A, y = np.array(rows), np.array(ys)
+    fit = np.linalg.lstsq(A / y[:, None], np.ones_like(y), rcond=None)[0]
+    return fit[0], fit[1], fit[2], list(np.abs(A @ fit - y) / y)
+
+
+def phase3_ensembles():
+    """The ensemble path: config 5's step rate and its breakdown, the
+    sweep's steps(100), K1.F_terms and K6.adaptive_scan against their
+    plain versions, config 5's chunk-count sweep and K6's crossover at
+    B = 64."""
+    log("phase 3: the ensemble path")
+    times, chunk_points = {}, {}
+    ros = schemes.RODASPR(Model(*KS, device="cpu"), time_stepping=False, tol=None)
+    g00 = float(ros._gamma[0, 0])
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
+        T = np.float64 if dtype == torch.float64 else np.float32
+        item = torch.finfo(dtype).bits // 8
+        ens = make_ensemble(B_ENS, N_ENS, 1, 10, dtype, "cuda", FIXED)
+        plan = ens._scheme._plan(N_ENS, True, B_ENS)
+        ens.steps(1, 0.05)
+        for rep in range(2):
+            ms = cuda_ms(lambda: ens.steps(3, 0.05), 1) / 3
+            log(f"  config 5 (B={B_ENS} x ks N={N_ENS}, C={plan.C} Mc={plan.Mc}) fixed "
+                f"rodaspr {dt_name} (run {rep}): {ms:.4f} ms per step, "
+                f"{B_ENS * N_ENS / (ms * 1e-3):.4e} aggregate cell-updates/s (CUDA events "
+                "over steps(3, 0.05))")
+        log(f"  peak device memory config 5 {dt_name}: "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        log_profile("config 5 fixed rodaspr step", dt_name,
+                    profile_calls(lambda: ens.steps(1, 0.05), 2))
+        # K1.F_terms against the combination and the biased F: RODASPR's
+        # last stage (six terms) at config 5's shapes
+        b = ens.model.backend
+        rng = np.random.default_rng(4)
+        stages = [ens.u] + [torch.tensor(1e-3 * rng.standard_normal((B_ENS, 1, N_ENS)),
+                                         dtype=dtype, device="cuda") for _ in range(5)]
+        a_row = [1.0] + [float(ros._a_t[5, j]) for j in range(5)]
+        c_row = [0.0] + [float(g00 * ros._c_t[5, j]) for j in range(5)]
+        terms = list(zip(a_row, c_row, stages))
+        gdt = float(T(g00) * T(0.05))
+        args = (ens.helpers, ens.pstack, ens.x)
+        kern = lambda: b.F_terms(terms, *args, periodic=True, scale=gdt)
+        plain = lambda: stencil.eval_F_terms_plain(b, terms, *args, True, gdt)
+
+        def pair():
+            u_i, csum = combine.combine([a_row, c_row], stages)
+            return b.F(u_i, *args, periodic=True, scale=gdt, bias=csum)
+
+        got, want = kern(), plain()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not rel <= kernel_checks.TOL[dtype]["FJ"]:
+            raise RuntimeError(f"K1.F_terms config 5 {dt_name}: relative error {rel:.3e}")
+        p1, k1, c1, c2, k2, p2 = (cuda_ms(f, 3) for f in (plain, kern, pair, pair, kern,
+                                                         plain))
+        A, n = len(terms), B_ENS * N_ENS
+        sysm = b.system
+        nbytes = (A + 1) * n * item + N_ENS * item
+        # per node: the combination at every stencil point, F, the scale
+        # and the bias terms
+        ops = (2 * A * b.window + expr_ops(sysm.F_exprs) + 1
+               + 2 * sum(1 for c in c_row if c)) * n
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        times[dt_name]["K1.F_terms"] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+        log(f"  K1.F_terms config 5 (6 terms) {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"combination + biased F (K5 + K1.F) {c1:.4f}/{c2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} "
+            f"operations), kernel against plain {rel:.3e} relative")
+        # K3's sweep with the member axis (the batched chunked_solve_sweeps)
+        # on config 5's factor and the right-hand side above
+        bands = b.J_bands(ens.u, *args, periodic=True)
+        sp_ = thomas.spike_factor(bands, 1.0, -gdt, plan)
+        kern = lambda: thomas.thomas_sweep(sp_, got, plan)
+        plain = lambda: thomas.thomas_sweep_plain(sp_, got, plan)
+        rel = float((kern()[0] - plain()[0]).abs().max() / plain()[0].abs().max())
+        if not rel <= kernel_checks.TOL[dtype]["solve"]:
+            raise RuntimeError(f"K3.thomas_sweep config 5 {dt_name}: relative error {rel:.3e}")
+        p1, k1, k2, p2 = (cuda_ms(f, 1) for f in (plain, kern, kern, plain))
+        blk, s_ = plan.s ** 2 * plan.C * B_ENS, plan.s
+        nbytes = (3 * plan.Mc * blk + 2 * n + 2 * 2 * s_ * plan.C * B_ENS) * item
+        b_ms, b_by = bound(nbytes, 6 * s_ * s_ * (N_ENS // 2) * B_ENS, dtype)
+        log(f"  K3.thomas_sweep config 5 (member axis, C={plan.C} Mc={plan.Mc}) {dt_name}: "
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {nbytes} bytes), kernel against plain {rel:.3e} relative")
+        del stages, terms, got, want, bands, sp_
+        # config 5's chunk-count sweep: one fixed step per plan
+        row = []
+        M = N_ENS // 2
+        for C in sorted(set(BATCH_CHUNKS) | {plan.C}):
+            ens._scheme._plans[(N_ENS, True, B_ENS)] = chunked.plan_with(
+                N_ENS, 1, 2, True, C, B_ENS)
+            us = 1e3 * cuda_ms(lambda: ens.steps(1, 0.05), 1)
+            chunk_points.setdefault(dt_name, []).append((M, C, us))
+            row.append(f"C={C}: {us / 1e3:.2f}")
+        ens._scheme._plans[(N_ENS, True, B_ENS)] = plan
+        log(f"  config 5 step by chunk count {dt_name} (ms per step, CUDA events): "
+            + ", ".join(row))
+        del ens
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the sweep: steps(100) fixed, one K6 launch
+        sw = make_ensemble(B_SWEEP, N_SWEEP, 2, 5, dtype, "cuda", FIXED)
+        ms = [cuda_ms(lambda: sw.steps(100, 0.05), 1) for _ in range(2)]
+        _launch.reset_counters()
+        sw.steps(100, 0.05)
+        count = _launch.counts()["K6.step"]
+        log(f"  sweep (B={B_SWEEP} x ks N={N_SWEEP}) steps(100, 0.05) {dt_name}: "
+            + " / ".join(f"{m:.4f}" for m in ms) + f" ms per call ({count} K6 launch), "
+            f"{B_SWEEP * N_SWEEP * 100 / (min(ms) * 1e-3):.4e} aggregate cell-updates/s "
+            "(CUDA events)")
+        # K6.adaptive_scan against its plain version: steps(4, 0.1), a shared dt
+        ad = make_ensemble(B_SWEEP, N_SWEEP, 2, 5, dtype, "cuda", SHARED)
+        kplan = ad._scheme._mega_plan(N_SWEEP, True, B_SWEEP)
+        table = ad._scheme._table(True)
+        s_args = (adaptive_controller, ad.model.backend, kplan, table, True, ad.u,
+                  ad.helpers, ad.pstack, ad.x, 0.0, 0.1, 1e-6, 1e-3, 0.9, None, None, 4)
+        out = megastep.adaptive_scan(*s_args, attempts=True)
+        attempts = out[4]
+        p1, k1, k2, p2 = (cuda_ms(lambda: fn(*s_args), 1) for fn in (
+            megastep.adaptive_scan_plain, megastep.adaptive_scan, megastep.adaptive_scan,
+            megastep.adaptive_scan_plain))
+        nbytes, ops = k6_work(ad.model, kplan, table, dtype, attempts)
+        b_ms, b_by = bound(B_SWEEP * nbytes, B_SWEEP * ops, dtype)
+        times[dt_name]["K6.adaptive_scan"] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+        log(f"  K6.adaptive_scan sweep steps(4, 0.1) shared dt ({attempts} attempts) "
+            f"{dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), plan C={kplan.C} Mc={kplan.Mc}, "
+            f"{min(B_SWEEP, megastep.capacity(ad.model.backend, dtype, megastep.SHARED_KIND))}"
+            " blocks")
+        pm = make_ensemble(B_SWEEP, N_SWEEP, 2, 5, dtype, "cuda", PER_MEMBER)
+        ms = [cuda_ms(lambda: pm.steps(4, 0.1), 1) for _ in range(2)]
+        log(f"  sweep steps(4, 0.1) per-member dt {dt_name}: " + " / ".join(
+            f"{m:.4f}" for m in ms) + f" ms per call, member attempts "
+            f"{pm.member_iters.min()}..{pm.member_iters.max()}")
+        # K6 against K1-K5 at B = 64: fixed steps(10, 0.05)
+        for e in range(8, 14):
+            N = 1 << e
+            k6 = make_ensemble(B_SWEEP, N, 2, 5, dtype, "cuda", FIXED)
+            multi = make_ensemble(B_SWEEP, N, 2, 5, dtype, "cuda", FIXED)
+            multi._scheme._mega_plans[(N, True, B_SWEEP)] = None
+            m1, k1, k2, m2 = (cuda_ms(lambda: ens_.steps(10, 0.05), 1) / 10
+                              for ens_ in (multi, k6, k6, multi))
+            log(f"  ks B={B_SWEEP} N=2^{e} rodaspr fixed step {dt_name}: K6 {k1:.4f}/"
+                f"{k2:.4f} ms, multi-launch {m1:.4f}/{m2:.4f} ms (CUDA events over "
+                f"steps(10)); K6 {'faster' if min(k1, k2) < min(m1, m2) else 'slower'} "
+                f"(the gate admits N <= {megastep.MAX_N[2]})")
+    a, bb, c, resid = fit_batch_cost(chunk_points, B_ENS)
+    log(f"  batch cost fit config 5 (f64 and f32 pooled): {a:.4f} us per row walked, "
+        f"{bb:.4f} us per level walked, {c:.4f} us per doubling of C; relative residuals "
+        f"max {max(resid):.4f} rms {np.sqrt(np.mean(np.square(resid))):.4f}; "
+        f"batch_plan_cost_us has {chunked.BATCH_ROW_US}, {chunked.BATCH_LEVEL_US} and "
+        f"{chunked.BATCH_SPLIT_US}")
+    M = N_ENS // 2
+    plan_c = chunked.make_plan(N_ENS, 1, 2, True, B_ENS).C
+    for dt_name, pts in chunk_points.items():
+        meas = {C: us for _, C, us in pts}
+        feats = {C: chunked.batch_features(M, C, B_ENS) for C in meas}
+        fit_c = min(meas, key=lambda C: a * feats[C][0] + bb * feats[C][1] + c * feats[C][2])
+        best = min(meas, key=meas.get)
+        log(f"    {dt_name}: the fit's plan C={fit_c} ({meas[fit_c] / 1e3:.2f} ms), "
+            f"make_plan's C={plan_c} ({meas[plan_c] / 1e3:.2f} ms), measured best "
+            f"C={best} ({meas[best] / 1e3:.2f} ms)")
     return times
 
 
@@ -917,16 +1355,32 @@ def phase3_small():
     return times
 
 
+def timed(fn, *args):
+    start = time.perf_counter()
+    out = fn(*args)
+    log(f"({fn.__name__}: {time.perf_counter() - start:.1f} s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    smi = phase0()
-    errs = phase1()
-    launches = phase2()
-    times = phase3()
-    for dt_name, small in phase3_small().items():
-        times[dt_name].update(small)
+    start_cpu_refs()
+    try:
+        return run()
+    finally:
+        stop_cpu_refs()
+
+
+def run():
+    smi = timed(phase0)
+    errs = timed(phase1)
+    launches = timed(phase2_ensembles, timed(phase2))
+    times = timed(phase3)
+    for part in (timed(phase3_small), timed(phase3_ensembles)):
+        for dt_name, more in part.items():
+            times[dt_name].update(more)
     record = []
     for name, (route, source, replaces) in KERNELS.items():
         e32, e64 = errs["float32"][name], errs["float64"][name]

@@ -18,10 +18,13 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_loads_no_jax():
     code = ("import sys, triflow_tpu_torch, triflow_tpu_torch.utils.convert; "
             "import triflow_tpu_torch.core.simulation; "
-            "print('jax' in sys.modules)")
+            "import triflow_tpu_torch.parallel.ensemble; "
+            "print('jax' in sys.modules, "
+            "any(m.startswith('triflow_tpu.') or m == 'triflow_tpu' "
+            "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "False False"
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

@@ -29,13 +29,18 @@ def cuda_device():
     return "cuda"
 
 
+#: the kernel entries only an ensemble runs: ``kernel_checks.run_batched``
+#: holds them against their plain versions (below)
+MEMBER_AXIS_ONLY = {"K1.F_terms", "K6.adaptive_scan"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 def test_kernels_match_plain_versions(cuda_device, dtype):
     results = kernel_checks.run_all(cuda_device, dtypes=(dtype,))
     name = str(dtype).replace("torch.", "")
-    assert set(_launch.COUNTERS) <= set(results[name])
+    assert set(_launch.COUNTERS) - MEMBER_AXIS_ONLY <= set(results[name])
 
 
 #: the kernel entries one Theta step launches once each (all but K5) on a
@@ -69,15 +74,16 @@ def test_theta_step_launches_every_kernel(cuda_device):
 def test_rodaspr_step_launches_every_kernel(cuda_device):
     """One fixed RODASPR step: one J and one factor, six biased F and six
     solves, and five stage combinations plus the final one; a block-cyclic
-    plan has no Woodbury set-up."""
+    plan has no Woodbury set-up, and one grid no fused stage right-hand
+    side (an ensemble's)."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
-               if not k.startswith("K6") and k != "K4.pcr_solve")
-    assert counts["K4.pcr_solve"] == 0
+               if not k.startswith("K6") and k not in ("K4.pcr_solve", "K1.F_terms"))
+    assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == 0
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
     assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
     assert counts["K5.combine"] == 6
@@ -199,3 +205,49 @@ def test_wrappers_refuse_devices_without_a_kernel():
     args = [torch.empty(shape, **meta) for shape in ((1, 64), (0, 64), (1, 64), (64,))]
     with pytest.raises(ValueError, match="CUDA"):
         model.backend.F(*args, periodic=True)
+
+
+#: the kernel entries the member-axis checks hold against plain versions
+MEMBER_AXIS_ENTRIES = {"K1.F", "K1.F_terms", "K1.J", "K2.spike_factor",
+                       "K3.thomas_sweep", "K3.spike_correct", "K4.pcr_factor",
+                       "K4.pcr_solve", "K4.pcr_solve_shift", "K6.step",
+                       "K6.adaptive", "K6.adaptive_scan"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_member_axis_kernels_match_plain_versions(cuda_device, dtype):
+    """K1 (F, F_terms, J), K2-K4 and K6 (step, adaptive with a shared dt
+    and per member, adaptive_scan) on B = 4 members against their plain
+    versions: block-cyclic and Woodbury rings, per-member shifts and
+    scales."""
+    results = kernel_checks.run_batched(cuda_device, dtypes=(dtype,))
+    name = str(dtype).replace("torch.", "")
+    assert MEMBER_AXIS_ENTRIES <= set(results[name])
+
+
+def test_member_axis_check_harness_on_cpu():
+    """The member-axis checks on CPU tensors: plain against plain, every
+    member's solve by its residual, and nothing launched."""
+    before = _launch.counts()
+    results = kernel_checks.run_batched("cpu", dtypes=(torch.float64,))
+    assert MEMBER_AXIS_ENTRIES <= set(results["float64"])
+    assert results["float64"]["residual"] < 1e-12
+    assert _launch.counts() == before
+
+
+def test_member_axis_wrappers_refuse_devices_without_a_kernel():
+    """The member-axis entries raise on a device they have no kernel for,
+    as the single-grid ones do."""
+    meta = {"device": "meta", "dtype": torch.float64}
+    model = Model("k * dxxU", "U", "k", device="cpu")
+    u, h, p = (torch.empty(shape, **meta) for shape in ((2, 1, 64), (2, 0, 64),
+                                                       (2, 1, 64)))
+    x = torch.empty(64, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        model.backend.F_terms([(1.0, 0.5, u)], h, p, x, periodic=True, scale=0.1)
+    plan = chunked.make_plan(64, 1, 1, True, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        thomas.spike_factor(torch.empty((2, 3, 1, 1, 64), **meta), 1.0, -0.1,
+                            plan)

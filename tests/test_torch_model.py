@@ -97,7 +97,9 @@ def test_stencil_codegen_deterministic_and_typed(name):
     eqs, dep, pars = MODELS[name]
     first = tt.Model(eqs, dep, pars, device="cpu").backend.stencil.source()
     second = tt.Model(eqs, dep, pars, double=False, device="cpu").backend.stencil.source()
-    assert first == second
+    # the two dtypes differ only in which dtype's entries the library carries
+    assert "#define TF_F32 0" in first
+    assert first.replace("#define TF_F32 0", "#define TF_F32 1") == second
     block = _generated_block(first)
     assert "tf_F" in block and "tf_J" in block
     assert BARE_LITERAL.findall(block) == []

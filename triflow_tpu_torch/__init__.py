@@ -9,6 +9,7 @@ tensors take the kernels' plain PyTorch versions.  The JAX package
 
 import logging
 
+from . import parallel  # noqa: F401
 from .core import schemes  # noqa: F401
 from .core.fields import Fields, factory1D  # noqa: F401
 from .core.model import Model  # noqa: F401
@@ -16,4 +17,5 @@ from .core.simulation import Simulation  # noqa: F401
 
 logging.getLogger(__name__).addHandler(logging.NullHandler())
 
-__all__ = ["Model", "Simulation", "schemes", "Fields", "factory1D"]
+__all__ = ["Model", "Simulation", "schemes", "Fields", "factory1D",
+           "parallel"]

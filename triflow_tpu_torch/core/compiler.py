@@ -13,7 +13,9 @@ versions of the stencil RHS ``F`` and the banded Jacobian ``J``:
 Layouts follow the reference: ``F`` is ``(nvar, N)``, the bands are
 ``(W, nvar, nvar, N)`` with ``bands[k, m, n, i] = dF_m(i) / du_n(i + k - h)``,
 and in edge mode the ghost-node dependencies are folded onto the boundary
-columns (``fold_edges``).
+columns (``fold_edges``).  Each also takes a leading member axis (an
+ensemble's B grids: ``(B, nvar, N)`` and ``(B, W, nvar, nvar, N)``, x
+shared).
 """
 
 from __future__ import annotations
@@ -148,19 +150,26 @@ class TorchBackend:
         self._F_fns = [lambdify(e) for e in system.F_exprs]
         self._J_fns = {key: lambdify(e)
                        for key, e in system.J_band_exprs.items()}
-        #: the model's K1 and K6 libraries (generated CUDA sources, built at
-        #: first use)
-        self.stencil = stencil.library(system, self.args_symbols)
+        #: the model's K1 and K6 libraries (generated CUDA sources for its
+        #: dtype, built at first use)
+        self.stencil = stencil.library(system, self.args_symbols,
+                                       dtype=dtype)
         self.megastep = stencil.library(system, self.args_symbols,
-                                        "megastep.cu")
+                                        "megastep.cu", dtype)
 
     # ------------------------------------------------------- kernel route
     def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0,
           bias=None):
-        """``scale * F (+ bias)``, shape (nvar, N): kernel K1 on CUDA
+        """``scale * F (+ bias)``, shape ((B,) nvar, N): kernel K1 on CUDA
         tensors."""
         return stencil.eval_F(self, u, helpers, pstack, x, periodic, scale,
                               bias)
+
+    def F_terms(self, terms, helpers, pstack, x, *, periodic: bool, scale):
+        """``scale * F(Σ a_j u_j) + Σ c_j u_j`` for ``terms = [(a_j, c_j,
+        u_j), ...]``: kernel K1's F_terms entry on CUDA tensors."""
+        return stencil.eval_F_terms(self, terms, helpers, pstack, x, periodic,
+                                    scale)
 
     def J_bands(self, u, helpers, pstack, x, *, periodic: bool):
         """Banded J, shape (W, nvar, nvar, N): kernel K1 on CUDA tensors."""
@@ -170,37 +179,40 @@ class TorchBackend:
     def _eval_args(self, u, helpers, pstack, x, periodic: bool):
         named = {}
         for i, name in enumerate(self.system.dep_vars):
-            named[name] = u[i]
+            named[name] = u[..., i, :]
         for i, name in enumerate(self.system.help_funcs):
-            named[name] = helpers[i]
+            named[name] = helpers[..., i, :]
         N = x.shape[-1]
         dx = (x[-1] - x[0]) / (N - 1)
         args = [x]
         for var, off in self._offset_args:
             args.append(shift(named[var], off, periodic))
         for i, _p in enumerate(self.system.pars):
-            args.append(pstack[i])
+            args.append(pstack[..., i, :])
         args.append(dx)
         return args, N
 
-    def _row(self, value, x):
+    def _row(self, value, x, shape):
         return torch.broadcast_to(_as_tensor_like(value, x).to(x.dtype),
-                                  x.shape)
+                                  shape)
 
     def F_impl(self, u, helpers, pstack, x, *, periodic: bool):
-        """Plain RHS of the dynamical system, shape (nvar, N)."""
-        args, _ = self._eval_args(u, helpers, pstack, x, periodic)
-        return torch.stack([self._row(fn(*args), x) for fn in self._F_fns])
+        """Plain RHS of the dynamical system, shape ((B,) nvar, N)."""
+        args, N = self._eval_args(u, helpers, pstack, x, periodic)
+        shape = (*u.shape[:-2], N)
+        return torch.stack([self._row(fn(*args), x, shape)
+                            for fn in self._F_fns], dim=-2)
 
     def J_bands_impl(self, u, helpers, pstack, x, *, periodic: bool):
-        """Plain banded Jacobian, shape (W, nvar, nvar, N), edge-folded
-        when not periodic."""
+        """Plain banded Jacobian, shape ((B,) W, nvar, nvar, N),
+        edge-folded when not periodic."""
         args, N = self._eval_args(u, helpers, pstack, x, periodic)
         nvar = self.system.nvar
-        bands = torch.zeros((self.window, nvar, nvar, N), dtype=x.dtype,
-                            device=x.device)
+        lead = u.shape[:-2]
+        bands = torch.zeros((*lead, self.window, nvar, nvar, N),
+                            dtype=x.dtype, device=x.device)
         for (m, n, k), fn in self._J_fns.items():
-            bands[k, m, n] = self._row(fn(*args), x)
+            bands[..., k, m, n, :] = self._row(fn(*args), x, (*lead, N))
         if not periodic:
             fold_edges(bands, self.halo)
         return bands

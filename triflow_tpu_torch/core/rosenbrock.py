@@ -4,13 +4,16 @@ step-size controller.
 
 ``core.schemes`` builds its ROW schemes on them; kernel K6's plain
 adaptive step (``ops.megastep.adaptive_plain``) is handed the controller,
-and the kernel checks build RODASPR's table from the coefficients.  This
-module imports neither the schemes nor the kernels.
+and the kernel checks build RODASPR's table from the coefficients.  An
+ensemble (``parallel.Ensemble``) runs the shared controller on the max
+error over its members and ``member_controller`` for per-member clocks.
+This module imports neither the schemes nor the kernels.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def transformed(alpha, gamma, b, b_pred=None):
@@ -133,3 +136,79 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
         w = np.clip((next_t - tp) / span, T(0.0), T(1.0))
         state = (sp_[0] + float(w) * (state[0] - sp_[0]),) + tuple(state[1:])
     return next_t, state, dt_i, niter, status
+
+
+def _where_members(mask, a, b):
+    """Per-member select of two member-leading tensors by a (B,) mask."""
+    return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
+                      dt_min, interpolate, state):
+    """One output step from ``t`` to ``t + dt`` in which every member of an
+    ensemble runs its own clock and step size: the counterpart of the
+    reference's ``_per_member_adaptive_loop`` (masked freezing: a member
+    that reached ``t + dt`` no longer moves while the others retry), with
+    the same controller as ``adaptive_controller`` per member, every
+    quantity a numpy array of ``T`` over the B members.
+
+    ``attempt(tb, state, dt_eff) -> (state2, errs)`` steps every member
+    from its clock ``tb`` by its ``dt_eff`` (arrays of B) and returns the
+    members' errors (B,); ``state`` is a tuple of member-leading tensors,
+    u first, updated where a member accepts.  ``internal_dt`` is a number
+    or one per member.  ``interpolate`` (``recompute_target=False``)
+    overshoots and interpolates each member's u between its own bracketing
+    steps.  Returns (next_t, state, dt_b, niter_b, status): status 1 when
+    an active member exceeds ``max_iter`` attempts, 2 when a member still
+    short of ``t + dt`` has its dt below the floor; the loop stops for all
+    members at the first."""
+    info = np.finfo(T)
+    tol, safety = T(tol), T(safety)
+    next_t = T(t) + T(dt)
+    eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+    if dt_min is not None:
+        dt_floor = T(dt_min)
+    else:
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
+    device = state[0].device
+    B = state[0].shape[0]
+    tb = np.full(B, T(t), dtype=T)
+    idt = np.broadcast_to(np.asarray(internal_dt, dtype=T), (B,)).copy()
+    dtb = idt if interpolate else np.minimum(idt, T(dt))
+    tpb, sp_ = tb.copy(), state
+    nb = np.zeros(B, dtype=np.int64)
+    status = 0
+    while np.any(next_t - tb > eps) and status == 0:
+        remaining = next_t - tb
+        active = remaining > eps
+        if interpolate:
+            clamped = np.zeros(B, dtype=bool)
+            dt_eff = dtb
+        else:
+            clamped = dtb >= remaining
+            dt_eff = np.minimum(dtb, remaining)
+        state2, errs = attempt(tb, state, dt_eff)
+        errs = np.asarray(errs, dtype=T)
+        accept = (errs <= tol) & active
+        dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(errs, info.tiny))
+        dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
+                             T(10.0) * dt_eff)
+        dtb = np.where(active & ~(accept & clamped), dt_next, dtb)
+        mask = torch.as_tensor(accept, device=device)
+        if interpolate:
+            tpb = np.where(accept, tb, tpb)
+            sp_ = tuple(_where_members(mask, a, b) for a, b in zip(state, sp_))
+        tb = np.where(accept, tb + dt_eff, tb)
+        state = tuple(_where_members(mask, a, b) for a, b in zip(state2, state))
+        nb += active
+        if max_iter is not None and np.any(active & (nb > max_iter)):
+            status = 1
+        if np.any((next_t - tb > eps) & (dtb < dt_floor)):
+            status = 2
+    if interpolate:
+        span = np.maximum(tb - tpb, info.tiny)
+        w = np.clip((next_t - tpb) / span, T(0.0), T(1.0))
+        w = torch.as_tensor(w, device=device).reshape(
+            (-1,) + (1,) * (state[0].ndim - 1))
+        state = (sp_[0] + w * (state[0] - sp_[0]),) + tuple(state[1:])
+    return next_t, state, dtb, nb, status

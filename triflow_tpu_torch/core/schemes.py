@@ -15,6 +15,13 @@ name to a new tensor works too.  The hook runs before every attempted step
 at its start time and once after the output step at ``t + dt``, as in the
 reference.
 
+An ensemble (``parallel.Ensemble``) steps B grids at once through
+``fixed_step_batched``: the same order of operations with a leading member
+axis, a per-member dt where the controller gives one, and the ROW stage
+right-hand side through K1's fused ``F_terms`` entry (the reference's
+``u_terms`` mode of its member-merged plans); a single grid keeps the
+combination (K5) and the biased F (K1).
+
 A grid that ``ops.megastep.plan_for`` admits (a small one) steps through
 kernel K6, one launch per implicit step; larger grids take the multi-launch
 path (K1-K5).  With no hook and ``recompute_target=True`` the adaptive
@@ -93,9 +100,28 @@ class _DeviceProblem:
                    if sysm.pars else pstack)
         return u2, helpers2, pstack2.contiguous(), x2.contiguous()
 
+    def apply_hook_members(self, t, u, helpers, pstack, x):
+        """The hook on each member of an ensemble's state (leading axis B)
+        at its time: ``t`` is one time or one per member.  A loop over
+        member views: the hook sees one grid's fields, as in ``Simulation``,
+        and may update them in place; x is shared and stays."""
+        if self.hook is null_hook:
+            return u, helpers, pstack, x
+        B = u.shape[0]
+        tb = np.broadcast_to(np.asarray(t, dtype=np.float64), (B,))
+        outs = [self.apply_hook(float(tb[b]), u[b], helpers[b], pstack[b], x)
+                for b in range(B)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]),
+                torch.stack([o[2] for o in outs]), x)
+
     def F(self, u, helpers, pstack, x, scale=1.0, bias=None):
         return self.backend.F(u, helpers, pstack, x, periodic=self.periodic,
                               scale=scale, bias=bias)
+
+    def F_terms(self, terms, helpers, pstack, x, scale):
+        return self.backend.F_terms(terms, helpers, pstack, x,
+                                    periodic=self.periodic, scale=scale)
 
     def J_bands(self, u, helpers, pstack, x):
         return self.backend.J_bands(u, helpers, pstack, x,
@@ -127,26 +153,29 @@ class _SchemeBase:
             self._problems[key] = _DeviceProblem(self._model, hook, periodic)
         return self._problems[key]
 
-    def _plan(self, N, periodic):
-        key = (N, periodic)
+    def _plan(self, N, periodic, B=1):
+        key = (N, periodic, B)
         if key not in self._plans:
             self._plans[key] = chunked.make_plan(
-                N, self._model.system.nvar, self._model.halo, periodic)
+                N, self._model.system.nvar, self._model.halo, periodic, B)
         return self._plans[key]
 
-    def _mega_plan(self, N, periodic):
-        """K6's plan of the grid, or None where the multi-launch path
-        serves it."""
-        key = (N, periodic)
+    def _mega_plan(self, N, periodic, B=1):
+        """K6's plan of the grid (for each of B members), or None where the
+        multi-launch path serves it."""
+        # one grid keeps the key (N, periodic) that callers withhold by
+        key = (N, periodic) if B == 1 else (N, periodic, B)
         if key not in self._mega_plans:
             self._mega_plans[key] = megastep.plan_for(
-                N, self._model.system.nvar, self._model.halo, periodic)
+                N, self._model.system.nvar, self._model.halo, periodic, B)
         return self._mega_plans[key]
 
     def _factor(self, problem, u, helpers, pstack, x, beta):
         """J's bands (K1) and the chunked factor of ``I + beta*J`` (K2,
-        K4)."""
-        plan = self._plan(x.shape[-1], problem.periodic)
+        K4); u of B members (B, nvar, N) factors B systems, ``beta`` a
+        number or one per member."""
+        B = u.shape[0] if u.ndim == 3 else 1
+        plan = self._plan(x.shape[-1], problem.periodic, B)
         bands = problem.J_bands(u, helpers, pstack, x)
         return chunked.factor(1.0, beta, bands, problem.periodic, plan)
 
@@ -187,6 +216,27 @@ class Theta(_SchemeBase):
         dt = float(self._np_dtype(dt))
         theta = self._theta
         plan = self._mega_plan(x.shape[-1], problem.periodic)
+        if plan is not None and theta != 0:
+            u2 = megastep.theta_step(self._model.backend, plan, theta,
+                                     problem.periodic, u, helpers, pstack, x,
+                                     dt)
+            return u2, helpers, pstack, x, None
+        rhs = problem.F(u, helpers, pstack, x, scale=dt)
+        if theta == 0:
+            return u + rhs, helpers, pstack, x, None
+        fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
+        return fact.solve(rhs, add_to=u), helpers, pstack, x, None
+
+    def fixed_step_batched(self, problem, t, u, helpers, pstack, x, dt):
+        """``fixed_step`` of an ensemble: the hook on every member at ``t``
+        (one time, or one per member), then one theta step of ``dt`` of the
+        B members (u (B, nvar, N)): one K6 launch where K6's plan admits
+        the grid, else K1-K4 with a member axis."""
+        u, helpers, pstack, x = problem.apply_hook_members(t, u, helpers,
+                                                           pstack, x)
+        dt = float(self._np_dtype(dt))
+        theta = self._theta
+        plan = self._mega_plan(x.shape[-1], problem.periodic, u.shape[0])
         if plan is not None and theta != 0:
             u2 = megastep.theta_step(self._model.backend, plan, theta,
                                      problem.periodic, u, helpers, pstack, x,
@@ -345,6 +395,51 @@ class ROW_general(_SchemeBase):
             d_t = [float(m - p) for m, p in zip(self._m_t, self._m_pred_t)]
             u_new, diff = _combos([[1.0] + m_t, [0.0] + d_t], [u] + us)
             err = diff.abs().max()
+            err = torch.where(torch.isfinite(err), err,
+                              torch.full_like(err, np.inf))
+        return u_new, helpers, pstack, x, err
+
+    def fixed_step_batched(self, problem, t, u, helpers, pstack, x, dt):
+        """``fixed_step`` of an ensemble: the hook on every member at ``t``
+        (one time, or one per member), then one ROW step of the B members
+        (u (B, nvar, N)) of ``dt``, one step size or one per member (a
+        numpy array of the model's dtype).  Where K6's plan admits the grid
+        the step is one K6 launch; otherwise one J (K1), one factor (K2,
+        K4) and per stage the fused right-hand side ``g00 dt F(u + Σ a u_j)
+        + Σ g00 c u_j`` (K1.F_terms) and one solve (K3, K4, K3), then the
+        final combination (K5), in the order of the reference's
+        ``_row_folded_core`` on its member-merged plans.  err is each
+        member's (B,), inf where not finite or with no error row."""
+        u, helpers, pstack, x = problem.apply_hook_members(t, u, helpers,
+                                                           pstack, x)
+        plan = self._mega_plan(x.shape[-1], problem.periodic, u.shape[0])
+        if plan is not None:
+            u_new, err = megastep.row_step(
+                self._model.backend, plan, self._table(self._with_err()),
+                problem.periodic, u, helpers, pstack, x, dt)
+            return u_new, helpers, pstack, x, err
+        g00 = self._gamma[0, 0]
+        gdt = megastep.gdt_of(self._np_dtype, g00, dt, u.device)
+        fact = self._factor(problem, u, helpers, pstack, x, -gdt)
+        a_t, c_t = self._a_t, self._c_t
+        us = []
+        for i in range(self._s):
+            terms = [(1.0, 0.0, u)]
+            for j in range(i):
+                a, b = float(a_t[i, j]), float(g00 * c_t[i, j])
+                if a or b:
+                    terms.append((a, b, us[j]))
+            rhs = problem.F_terms(terms, helpers, pstack, x, scale=gdt)
+            us.append(fact.solve(rhs))
+        m_t = [float(m) for m in self._m_t]
+        if not self._with_err():
+            u_new = _combos([[1.0] + m_t], [u] + us)[0]
+            err = torch.full(u.shape[:1], np.inf, dtype=u.dtype,
+                             device=u.device)
+        else:
+            d_t = [float(m - p) for m, p in zip(self._m_t, self._m_pred_t)]
+            u_new, diff = _combos([[1.0] + m_t, [0.0] + d_t], [u] + us)
+            err = diff.abs().amax(dim=(-2, -1))
             err = torch.where(torch.isfinite(err), err,
                               torch.full_like(err, np.inf))
         return u_new, helpers, pstack, x, err

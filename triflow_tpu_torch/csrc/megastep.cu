@@ -9,15 +9,45 @@
 // TPU's folded (8, C8) layout, its VMEM budget and its f32-only gate are
 // not carried over; this kernel serves float and double.
 //
-// Two entries, each ONE thread block of kThreads threads:
-//   step:     nsteps >= 1 steps of fixed dt from u0 (beta = -gamma00*dt or
-//             -theta*dt factor shift, scale = the F scale), writing the last
-//             state and the last step's err;
-//   adaptive: one output step of the clamp-and-recompute controller of
-//             ROW_general._adaptive, run by thread 0 in the model's type
-//             with every product, sum and quotient rounded as the host
-//             rounds it; it writes the accepted state, dt_i, the attempts
-//             and the status (1: max_iter exceeded, 2: dt below its floor).
+// Replaces also row_adaptive_scan_folded (nsteps adaptive output steps in
+// one launch, shared or per-member clocks), which only the reference's
+// ensembles call.
+//
+// Three entries; a member (one grid of an ensemble of B; B = 1 for one
+// grid) is stepped by ONE thread block of kThreads threads, and the grid
+// has nblk = min(B, the blocks the card holds at once) blocks, block k
+// taking members k, k + nblk, ...:
+//   step:          nsteps >= 1 steps of fixed dt from u0 (beta = -gamma00*dt
+//                  or -theta*dt factor shift, scale = the F scale, numbers
+//                  or per-member device arrays), writing the last state and
+//                  each member's last err;
+//   adaptive:      one output step of the clamp-and-recompute controller of
+//                  ROW_general._adaptive, run by thread 0 in the model's type
+//                  with every product, sum and quotient rounded as the host
+//                  rounds it; it writes the accepted state, dt_i, the
+//                  attempts and the status (1: max_iter exceeded, 2: dt
+//                  below its floor);
+//   adaptive_scan: nsteps such output steps, every one re-clamping its
+//                  starting dt to the output dt, the loop ending at the
+//                  first nonzero status; it also writes the output steps
+//                  done.
+// The adaptive entries of an ensemble run in two modes (scan_kernel).
+// Shared dt (one clock for the ensemble, the reference's shared-dt
+// controller): an attempt's err is the max over all members, so every
+// attempt ends in a grid-wide barrier (the kernel is launched
+// cooperatively, every block resident: an atomic counter, a generation
+// word, and the block maxima in a double buffer); each block's thread 0
+// then runs the same controller on the same err, so the blocks agree with
+// no further traffic.  Per member (per_member_dt): each member's clock,
+// dt, attempts and status are its own (the reference's masked per-member
+// controller, where a member that reached the output time is frozen), so
+// members never wait for each other.  The per-block scratch (bands, factor
+// rows, interface operators, stage vectors) is reused by the block's
+// members one after the other; the accepted and trial states are kept per
+// member.  One grid (B = 1) runs kernels without member offsets
+// (kMembers false: the scratch addresses straight from the parameters)
+// and its one-output-step adaptive entry its own kernel (adaptive_kernel):
+// the member versions cost one grid registers and time (PERF.md).
 // One step, in the order of the multi-launch path (K1-K5):
 //   1. J at every node (K1's body), the chunked factor of I + beta*J (K2's
 //      body, one thread per chunk) and the PCR factor of the interface
@@ -36,14 +66,14 @@
 // is global scratch the wrapper allocates; at the sizes the gate admits it
 // stays in L2.
 //
-// Bound: a step is a chain of dependent phases on one SM, about
+// Bound: a member's step is a chain of dependent phases on one SM, about
 // n_stages * (2 Mc + 2 log2 C) row and level latencies plus the factor's
 // Mc rows and log2 C levels, each an L2 round trip; the bytes (a few state
 // vectors per stage) and the operations are far below the card's rates at
 // these sizes.  The design spends no launch, no host round trip and no
 // device-memory round trip between phases; what it leaves on the table is
-// the L2 latency of every phase (shared memory would shorten it) and the
-// other 131 SMs.
+// the L2 latency of every phase (shared memory would shorten it) and, for
+// one grid, the other 131 SMs.
 #include <cuda/std/limits>
 
 #include "common.cuh"
@@ -65,7 +95,8 @@ constexpr int kS = TF_NVAR * kG;
 constexpr int kMaxStages = 6;
 constexpr int kCombos = kMaxStages + 1;
 constexpr int kCols = kMaxStages + 1;
-constexpr int kPtrs = 29;
+constexpr int kPtrs = 34;
+constexpr int kInfo = 5;  // per member: err, dt_i, attempts, status, output steps done
 
 using tf::add_rn;
 using tf::div_rn;
@@ -83,7 +114,7 @@ struct Table {
   unsigned char rows[kCombos];
   unsigned char is_u[kMaxStages];  // stage k's input is u itself
   int n_stages;
-  T g00;  // the adaptive entry's factor shift is -g00 * dt
+  T g00;  // the adaptive entries' factor shift is -g00 * dt
 };
 
 template <typename T>
@@ -93,10 +124,17 @@ struct Work {
   const T* par;
   const T* x;
   T* out;
-  double* info;  // err, dt_i, attempts, status
+  double* info;        // (B, kInfo), or kInfo for the shared adaptive mode
+  const T* beta_b;     // per-member factor shift of the step entry, or null
+  const T* scale_b;    // per-member F scale of the step entry, or null
+  const T* idt_b;      // per-member starting internal dt (per-member mode)
+  unsigned* sync;      // grid barrier: arrivals, generation
+  T* errs;             // 2 x nblk block maxima of err (shared mode)
+  // block 0's scratch; block k's at k * slab elements further
   T *bands, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr, *Z;
-  T *us, *ui, *bias, *rhs, *y, *yred, *xm1, *xp1, *buf0, *buf1;
-  int N, Mc, C, cyclic, wrap, periodic;
+  T *us, *ui, *bias, *rhs, *y, *yred, *xm1, *xp1;
+  T *buf0, *buf1;      // accepted and trial states, member m's at m * n
+  int N, Mc, C, cyclic, wrap, periodic, B, slab;
 };
 
 template <typename T>
@@ -108,11 +146,11 @@ struct Ctl {
 template <typename T>
 using Lim = cuda::std::numeric_limits<T>;
 
-// One step from src to dst; every thread gets err (inf without an error
-// row).  All threads of the block must call it.
-template <typename T>
-__device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* dst, T beta,
-                      T scale) {
+// One step of member m's grid from src to dst; every thread gets err (inf
+// without an error row).  All threads of the block must call it.
+template <typename T, bool kMembers>
+__device__ T one_step(const Work<T>& w, const Table<T>& tab, int m, const T* src, T* dst,
+                      T beta, T scale) {
   __shared__ T s_max[kThreads];
   __shared__ T s_cap_inv[4 * kS * kS];
   __shared__ int s_bad;
@@ -120,21 +158,27 @@ __device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* ds
   const int N = w.N;
   const long n = (long)TF_NVAR * N;
   const bool wood = w.wrap && !w.cyclic;
+  const T* hlp = kMembers ? w.hlp + (long)m * TF_NHELP * N : w.hlp;
+  const T* par = kMembers ? w.par + (long)m * TF_NPAR * N : w.par;
+  // this block's scratch (block 0's for one grid: the parameters as they are)
+  const long o = kMembers ? (long)blockIdx.x * w.slab : 0;
+  T *bands = w.bands + o, *fac = w.fac + o, *Dhinv = w.Dhinv + o, *DU = w.DU + o;
+  T *Wsp = w.Wsp + o, *Vsp = w.Vsp + o, *Lred = w.Lred + o, *Ured = w.Ured + o;
+  T *alphas = w.alphas + o, *betas = w.betas + o, *Dinv = w.Dinv + o, *pscr = w.pscr + o;
+  T *Z = w.Z + o, *us = w.us + o, *ui = w.ui + o, *bias = w.bias + o, *rhs = w.rhs + o;
+  T *y = w.y + o, *yred = w.yred + o, *xm1 = w.xm1 + o, *xp1 = w.xp1 + o;
 
   for (long i = tid; i < N; i += kThreads)
-    tf::stencil_J_node<T>(src, w.hlp, w.par, w.x, w.bands, N, w.periodic, i);
+    tf::stencil_J_node<T>(src, hlp, par, w.x, bands, N, w.periodic, i);
   __syncthreads();
   for (int c = tid; c < w.C; c += kThreads)
-    tf::spike_factor_chunk<T, kS>(w.bands, w.fac, w.Dhinv, w.DU, w.Wsp, w.Vsp, w.Lred,
-                                  w.Ured, N, TF_NVAR, kG, TF_H, w.Mc, w.C, w.wrap, T(1),
-                                  beta, c);
+    tf::spike_factor_chunk<T, kS>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, TF_NVAR, kG,
+                                  TF_H, w.Mc, w.C, w.wrap, T(1), beta, c);
   __syncthreads();
-  tf::pcr_factor_block<T, 2 * kS>(w.Lred, w.Ured, w.alphas, w.betas, w.Dinv, w.pscr, w.C,
-                                  w.cyclic);
+  tf::pcr_factor_block<T, 2 * kS>(Lred, Ured, alphas, betas, Dinv, pscr, w.C, w.cyclic);
   __syncthreads();
   if (wood) {
-    tf::woodbury_block<T, 2 * kS>(w.alphas, w.betas, w.Dinv, w.Lred, w.Ured, w.Z, s_cap_inv,
-                                  w.pscr, w.C);
+    tf::woodbury_block<T, 2 * kS>(alphas, betas, Dinv, Lred, Ured, Z, s_cap_inv, pscr, w.C);
     __syncthreads();
   }
 
@@ -142,53 +186,54 @@ __device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* ds
     const bool with_bias = tab.rows[k] == 2;
     if (!tab.is_u[k] || with_bias) {
       for (long e = tid; e < n; e += kThreads) {
-        auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
-        if (!tab.is_u[k]) w.ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
-        if (with_bias) w.bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
+        auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
+        if (!tab.is_u[k])
+          ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
+        if (with_bias)
+          bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
       }
       __syncthreads();
     }
-    const T* stage_u = tab.is_u[k] ? src : w.ui;
+    const T* stage_u = tab.is_u[k] ? src : ui;
     for (long i = tid; i < N; i += kThreads)
-      tf::stencil_F_node<T>(stage_u, w.hlp, w.par, w.x, with_bias ? w.bias : nullptr, w.rhs,
+      tf::stencil_F_node<T>(stage_u, hlp, par, w.x, with_bias ? bias : nullptr, rhs,
                             N, w.periodic, scale, i);
     __syncthreads();
     for (int c = tid; c < w.C; c += kThreads)
-      tf::thomas_sweep_chunk<T, kS>(w.fac, w.Dhinv, w.DU, w.rhs, w.y, w.yred, N, TF_NVAR, kG,
-                                    w.Mc, w.C, c);
+      tf::thomas_sweep_chunk<T, kS>(fac, Dhinv, DU, rhs, y, yred, N, TF_NVAR, kG, w.Mc, w.C, c);
     __syncthreads();
     if (wood)
-      tf::pcr_solve_shift_block<T, 2 * kS, true>(w.alphas, w.betas, w.Dinv, w.yred, w.Z,
-                                                 s_cap_inv, w.xm1, w.xp1, w.pscr, w.C, w.wrap);
+      tf::pcr_solve_shift_block<T, 2 * kS, true>(alphas, betas, Dinv, yred, Z, s_cap_inv, xm1,
+                                                 xp1, pscr, w.C, w.wrap);
     else
-      tf::pcr_solve_shift_block<T, 2 * kS, false>(w.alphas, w.betas, w.Dinv, w.yred, nullptr,
-                                                  nullptr, w.xm1, w.xp1, w.pscr, w.C, w.wrap);
+      tf::pcr_solve_shift_block<T, 2 * kS, false>(alphas, betas, Dinv, yred, nullptr, nullptr,
+                                                  xm1, xp1, pscr, w.C, w.wrap);
     __syncthreads();
-    T* uk = w.us + (long)k * n;
+    T* uk = us + (long)k * n;
     for (long i = tid; i < N; i += kThreads)
-      tf::spike_correct_node<T, kS>(w.y, w.Wsp, w.Vsp, w.xm1, w.xp1, nullptr, uk, N, TF_NVAR,
-                                    kG, w.Mc, w.C, i);
+      tf::spike_correct_node<T, kS>(y, Wsp, Vsp, xm1, xp1, nullptr, uk, N, TF_NVAR, kG, w.Mc,
+                                    w.C, i);
     __syncthreads();
   }
 
   const int fin = tab.n_stages;
   const bool with_err = tab.rows[fin] == 2;
-  T m = T(0);
+  T mx = T(0);
   int bad = 0;
   for (long e = tid; e < n; e += kThreads) {
-    auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
+    auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
     dst[e] = tf::lin_comb(fin + 1, tab.coef[fin][0], tab.role[fin][0], value);
     if (with_err) {
       const T d = fabs(tf::lin_comb(fin + 1, tab.coef[fin][1], tab.role[fin][1], value));
       // fmax drops NaN: a non-finite term is flagged on its own
       if (isfinite(d))
-        m = fmax(m, d);
+        mx = fmax(mx, d);
       else
         bad = 1;
     }
   }
   if (tid == 0) s_bad = 0;
-  s_max[tid] = m;
+  s_max[tid] = mx;
   __syncthreads();
   if (bad) s_bad = 1;
   for (int off = kThreads / 2; off > 0; off >>= 1) {
@@ -200,24 +245,55 @@ __device__ T one_step(const Work<T>& w, const Table<T>& tab, const T* src, T* ds
   return err;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kMembers>
+__global__ void __launch_bounds__(kThreads, 1)
     step_kernel(const Work<T> w, const Table<T> tab_in, T beta, T scale, int nsteps) {
   __shared__ Table<T> tab;
   if (threadIdx.x == 0) tab = tab_in;
   __syncthreads();
-  const T* src = w.u0;
-  T err = Lim<T>::infinity();
-  for (int k = 0; k < nsteps; ++k) {
-    T* dst = k == nsteps - 1 ? w.out : (k % 2 ? w.buf1 : w.buf0);
-    err = one_step(w, tab, src, dst, beta, scale);
-    src = dst;
+  const long n = (long)TF_NVAR * w.N;
+  for (int m = kMembers ? (int)blockIdx.x : 0; m < (kMembers ? w.B : 1);
+       m += kMembers ? gridDim.x : 1) {
+    const long at = kMembers ? m * n : 0;
+    const T bm = w.beta_b ? w.beta_b[m] : beta;
+    const T sm = w.scale_b ? w.scale_b[m] : scale;
+    const T* src = w.u0 + at;
+    T err = Lim<T>::infinity();
+    for (int k = 0; k < nsteps; ++k) {
+      T* dst = (k == nsteps - 1 ? w.out : (k % 2 ? w.buf1 : w.buf0)) + at;
+      err = one_step<T, kMembers>(w, tab, m, src, dst, bm, sm);
+      src = dst;
+    }
+    if (threadIdx.x == 0) w.info[(long)m * kInfo] = (double)err;
   }
-  if (threadIdx.x == 0) w.info[0] = (double)err;
 }
 
+// All blocks of a cooperative launch meet here (the kernel's thread 0 of
+// every block arrives; the last arrival resets the count and bumps the
+// generation the others spin on).
+__device__ __forceinline__ void grid_sync(unsigned* sync) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = sync + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(sync, 1u) == gridDim.x - 1) {
+      atomicExch(sync, 0u);
+      __threadfence();
+      atomicAdd(sync + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// One adaptive output step of one grid (the entry ROW_general._adaptive
+// launches, with no member axis): the controller's state in shared memory,
+// the accepted and trial states switched by pointer.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     adaptive_kernel(const Work<T> w, const Table<T> tab_in, const Ctl<T> ctl) {
   __shared__ Table<T> tab;
   __shared__ T s_t, s_next_t, s_eps, s_floor, s_dt_i, s_dt_eff;
@@ -252,7 +328,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const T dt_eff = s_dt_eff;
     const T gdt = mul_rn(tab.g00, dt_eff);
-    err = one_step(w, tab, cur, trial, -gdt, gdt);
+    err = one_step<T, false>(w, tab, 0, cur, trial, -gdt, gdt);
     if (tid == 0) {
       const bool accept = err <= ctl.tol;
       T dt_next = mul_rn(mul_rn(ctl.safety, dt_eff), sqrt(div_rn(ctl.tol, fmax(err, tiny))));
@@ -278,29 +354,158 @@ __global__ void __launch_bounds__(kThreads)
     w.info[1] = (double)s_dt_i;
     w.info[2] = (double)s_niter;
     w.info[3] = (double)s_status;
+    w.info[4] = 1.0;
   }
 }
 
-// ptrs (kPtrs device addresses, in the order of Work), ints (N, Mc, C,
-// cyclic, wrap, periodic, n_stages, nsteps, max_iter (-1: none),
-// has_dt_min, then the rows of the kCombos combinations) and reals (beta, scale, g00, t, dt,
-// internal_dt, tol, safety, dt_min, then the kCombos x 2 x kCols
-// coefficients [combination][row][column]) live in host memory and are
-// read before the launch returns.
+// nsteps adaptive output steps of an ensemble.  shared: one clock and dt
+// for every member, err the max over all members (blocks agree through
+// grid_sync); otherwise each member of the block runs its own clock, dt
+// and attempts.
+// The mode is a runtime flag: a template parameter doubled the kernel's
+// code and the s = 4 library's build time (96 s against 47 s on H100).
+// The controller's state lives in shared memory, written by thread 0:
+// across a member's step (one_step, the kernel's register peak) only the
+// member index and the block's err maximum stay in registers.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    scan_kernel(const Work<T> w, const Table<T> tab_in, const Ctl<T> ctl, int nsteps,
+                int shared) {
+  __shared__ Table<T> tab;
+  __shared__ T s_tout, s_t, s_next_t, s_eps, s_floor, s_dt_i, s_dt_eff, s_err;
+  __shared__ int s_go, s_clamped, s_niter, s_total, s_status, s_done, s_cur, s_par;
+  const int tid = threadIdx.x;
+  if (tid == 0) tab = tab_in;
+  // shared: one pass of the controller for all of the block's members
+  // (blocks k, k + nblk, ...); otherwise one pass per member
+  for (int mm = blockIdx.x; mm < w.B; mm += shared ? w.B : gridDim.x) {
+    if (tid == 0) {
+      s_tout = ctl.t;
+      s_dt_i = shared ? ctl.internal_dt : w.idt_b[mm];
+      s_status = 0;
+      s_done = 0;
+      s_total = 0;
+      s_cur = 0;  // the accepted state: 0 u0, 1 buf0, 2 buf1
+      s_par = 0;
+      s_err = Lim<T>::infinity();
+    }
+    __syncthreads();
+    while (s_done < nsteps && s_status == 0) {
+      if (tid == 0) {
+        // in the order of ROW_general._adaptive
+        const T next_t = add_rn(s_tout, ctl.dt);
+        s_next_t = next_t;
+        s_eps = mul_rn(T(1e-12), fmax(fabs(next_t), T(1)));
+        s_floor = ctl.has_dt_min
+                      ? ctl.dt_min
+                      : add_rn(mul_rn(T(1e3), Lim<T>::min()),
+                               mul_rn(mul_rn(T(2), Lim<T>::epsilon()), fabs(next_t)));
+        s_t = s_tout;
+        s_dt_i = fmin(s_dt_i, ctl.dt);
+        s_niter = 0;
+        s_go = sub_rn(next_t, s_t) > s_eps;
+      }
+      __syncthreads();
+      while (s_go) {
+        if (tid == 0) {
+          const T remaining = sub_rn(s_next_t, s_t);
+          s_clamped = s_dt_i >= remaining;
+          s_dt_eff = fmin(s_dt_i, remaining);
+        }
+        __syncthreads();
+        T bmax = T(0);
+        for (int m = shared ? (int)blockIdx.x : mm; m < w.B; m += shared ? gridDim.x : w.B) {
+          const long at = (long)m * TF_NVAR * w.N;
+          const T* src = s_cur == 0 ? w.u0 + at : (s_cur == 1 ? w.buf0 : w.buf1) + at;
+          T* dst = (s_cur == 1 ? w.buf1 : w.buf0) + at;
+          const T gdt = mul_rn(tab.g00, s_dt_eff);
+          bmax = fmax(bmax, one_step<T, true>(w, tab, m, src, dst, -gdt, gdt));
+        }
+        if (shared && gridDim.x > 1) {
+          if (tid == 0) w.errs[s_par * gridDim.x + blockIdx.x] = bmax;
+          grid_sync(w.sync);
+          if (tid == 0) {
+            volatile const T* e = w.errs + s_par * gridDim.x;
+            T mx = e[0];
+            for (int k = 1; k < gridDim.x; ++k) mx = fmax(mx, e[k]);
+            bmax = mx;
+            s_par ^= 1;
+          }
+        }
+        if (tid == 0) {
+          const T err = bmax, dt_eff = s_dt_eff;
+          const bool accept = err <= ctl.tol;
+          T dt_next = mul_rn(mul_rn(ctl.safety, dt_eff),
+                             sqrt(div_rn(ctl.tol, fmax(err, Lim<T>::min()))));
+          dt_next = fmin(fmax(dt_next, mul_rn(T(0.1), dt_eff)), mul_rn(T(10), dt_eff));
+          if (accept) s_t = add_rn(s_t, dt_eff);
+          if (!(accept && s_clamped)) s_dt_i = dt_next;
+          s_niter += 1;
+          if (ctl.max_iter >= 0 && s_niter > ctl.max_iter) s_status = 1;
+          const bool still = sub_rn(s_next_t, s_t) > s_eps;
+          // a member that reached the output time is frozen: its dt floor
+          // no longer trips (the per-member controller)
+          if (s_dt_i < s_floor && (shared || still)) s_status = 2;
+          if (accept) s_cur = s_cur == 1 ? 2 : 1;
+          s_err = err;
+          s_go = still && s_status == 0;
+        }
+        __syncthreads();
+      }
+      if (tid == 0) {
+        s_tout = s_next_t;
+        s_total += s_niter;
+        s_done += 1;
+      }
+      __syncthreads();
+    }
+    for (int m = shared ? (int)blockIdx.x : mm; m < w.B; m += shared ? gridDim.x : w.B) {
+      const long at = (long)m * TF_NVAR * w.N;
+      const T* src = s_cur == 0 ? w.u0 + at : (s_cur == 1 ? w.buf0 : w.buf1) + at;
+      for (long e = tid; e < (long)TF_NVAR * w.N; e += kThreads) w.out[at + e] = src[e];
+      if (tid == 0 && (!shared || m == 0)) {
+        double* info = w.info + (long)m * kInfo;
+        info[0] = (double)s_err;
+        info[1] = (double)s_dt_i;
+        info[2] = (double)s_total;
+        info[3] = (double)s_status;
+        info[4] = (double)s_done;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ptrs (kPtrs device addresses, in the order of Work: block 0's scratch),
+// ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter (-1:
+// none), has_dt_min, B, nblk, slab, then the rows of the kCombos
+// combinations) and reals (beta, scale, g00, t, dt, internal_dt, tol,
+// safety, dt_min, then the kCombos x 2 x kCols coefficients
+// [combination][row][column]) live in host memory and are read before the
+// launch returns.
+constexpr int kInts = 13;
+constexpr int kReals = 9;
+
 template <typename T>
 int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Table<T>& tab) {
   const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
-  T** slots[] = {&w.out, &w.bands, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
-                 &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.us, &w.ui,
-                 &w.bias, &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
   w.u0 = reinterpret_cast<const T*>(p[0]);
   w.hlp = reinterpret_cast<const T*>(p[1]);
   w.par = reinterpret_cast<const T*>(p[2]);
   w.x = reinterpret_cast<const T*>(p[3]);
   w.info = reinterpret_cast<double*>(p[4]);
-  for (int k = 0; k < kPtrs - 5; ++k) *slots[k] = reinterpret_cast<T*>(p[5 + k]);
+  w.out = reinterpret_cast<T*>(p[5]);
+  w.beta_b = reinterpret_cast<const T*>(p[6]);
+  w.scale_b = reinterpret_cast<const T*>(p[7]);
+  w.idt_b = reinterpret_cast<const T*>(p[8]);
+  w.sync = reinterpret_cast<unsigned*>(p[9]);
+  w.errs = reinterpret_cast<T*>(p[10]);
+  T** slots[] = {&w.bands, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
+                 &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.us,
+                 &w.ui, &w.bias, &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
+  for (int k = 0; k < kPtrs - 11; ++k) *slots[k] = reinterpret_cast<T*>(p[11 + k]);
   w.N = iv[0];
   w.Mc = iv[1];
   w.C = iv[2];
@@ -308,16 +513,19 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
   w.wrap = iv[4];
   w.periodic = iv[5];
   tab.n_stages = iv[6];
+  w.B = iv[10];
+  w.slab = iv[12];
   if (w.N < 1 || w.Mc < 1 || w.C < 1 || (long)w.Mc * w.C * kG != w.N || tab.n_stages < 1 ||
-      tab.n_stages > kMaxStages || (w.cyclic && !w.wrap) || (w.wrap && !w.cyclic && w.C < 2))
+      tab.n_stages > kMaxStages || (w.cyclic && !w.wrap) || (w.wrap && !w.cyclic && w.C < 2) ||
+      w.B < 1 || iv[11] < 1 || iv[11] > w.B)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kCombos; ++k) {
-    tab.rows[k] = (unsigned char)iv[10 + k];
+    tab.rows[k] = (unsigned char)iv[kInts + k];
     if (k <= tab.n_stages && tab.rows[k] != 1 && tab.rows[k] != 2)
       return static_cast<int>(cudaErrorInvalidValue);
     for (int r = 0; r < 2; ++r)
       for (int j = 0; j < kCols; ++j) {
-        const double c = rv[9 + (k * 2 + r) * kCols + j];
+        const double c = rv[kReals + (k * 2 + r) * kCols + j];
         tab.coef[k][r][j] = T(c);
         tab.role[k][r][j] = c == 0.0 ? tf::kSkip : (c == 1.0 ? tf::kUnit : tf::kScale);
       }
@@ -331,6 +539,24 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
   return 0;
 }
 
+// Blocks of each kernel the card holds at once (its SMs times the blocks
+// per SM): kind 0 step, 1 and 2 adaptive (a shared dt, per member);
+// negative: a CUDA error.
+template <typename T>
+int capacity(int kind) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    if (kind == 0)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<T, true>,
+                                                        kThreads, 0);
+    else
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<T>, kThreads, 0);
+  }
+  return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
+}
+
 template <typename T>
 int step(const void* ptrs, const void* ints, const void* reals, void* stream) {
   Work<T> w = {};
@@ -341,20 +567,28 @@ int step(const void* ptrs, const void* ints, const void* reals, void* stream) {
   const double* rv = static_cast<const double*>(reals);
   const int nsteps = iv[7];
   if (nsteps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  step_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, T(rv[0]),
-                                                                        T(rv[1]), nsteps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w.B > 1)
+    step_kernel<T, true><<<iv[11], kThreads, 0, s>>>(w, tab, T(rv[0]), T(rv[1]), nsteps);
+  else
+    step_kernel<T, false><<<1, kThreads, 0, s>>>(w, tab, T(rv[0]), T(rv[1]), nsteps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int adaptive(const void* ptrs, const void* ints, const void* reals, void* stream) {
+int adaptive(const void* ptrs, const void* ints, const void* reals, int per_member,
+             void* stream) {
   Work<T> w = {};
   Table<T> tab = {};
   const int rc = fill<T>(ptrs, ints, reals, w, tab);
   if (rc) return rc;
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
-  if (tab.rows[tab.n_stages] != 2) return static_cast<int>(cudaErrorInvalidValue);
+  int nsteps = iv[7];
+  const int nblk = iv[11];
+  if (tab.rows[tab.n_stages] != 2 || nsteps < 1 || (per_member && !w.idt_b) ||
+      (!per_member && nblk > 1 && (!w.sync || !w.errs)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Ctl<T> ctl;
   ctl.t = T(rv[3]);
   ctl.dt = T(rv[4]);
@@ -364,7 +598,19 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, void* stream
   ctl.dt_min = T(rv[8]);
   ctl.max_iter = iv[8];
   ctl.has_dt_min = iv[9];
-  adaptive_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, ctl);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int shared = !per_member;
+  if (shared && w.B == 1 && nsteps == 1) {
+    adaptive_kernel<T><<<1, kThreads, 0, s>>>(w, tab, ctl);
+  } else if (!shared || nblk == 1) {
+    scan_kernel<T><<<nblk, kThreads, 0, s>>>(w, tab, ctl, nsteps, shared);
+  } else {
+    // every block must be resident for the grid barrier: the cooperative
+    // launch refuses a grid the card cannot hold at once
+    void* args[] = {&w, &tab, &ctl, &nsteps, &shared};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(scan_kernel<T>), dim3(nblk), dim3(kThreads), args, 0, s));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,9 +622,23 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, void* stream
     return step<T>(ptrs, ints, reals, stream);                                             \
   }                                                                                        \
   extern "C" int tf_mega_adaptive_##SUFFIX(const void* ptrs, const void* ints,             \
-                                           const void* reals, void* stream) {              \
-    return adaptive<T>(ptrs, ints, reals, stream);                                         \
+                                           const void* reals, int per_member,              \
+                                           void* stream) {                                 \
+    return adaptive<T>(ptrs, ints, reals, per_member, stream);                             \
+  }                                                                                        \
+  extern "C" int tf_mega_adaptive_scan_##SUFFIX(const void* ptrs, const void* ints,        \
+                                                const void* reals, int per_member,         \
+                                                void* stream) {                            \
+    return adaptive<T>(ptrs, ints, reals, per_member, stream);                             \
+  }                                                                                        \
+  extern "C" int tf_mega_capacity_##SUFFIX(int kind, void* stream) {                       \
+    (void)stream;                                                                          \
+    return capacity<T>(kind);                                                              \
   }
 
+// a model computes in one dtype: its library carries that dtype's entries
+#if TF_F32
 TF_ENTRIES(f32, float)
+#else
 TF_ENTRIES(f64, double)
+#endif

@@ -28,6 +28,15 @@
 // Lred[..., 0] and Ured[..., C-1] hold the ring's corner blocks; otherwise
 // they are zeroed.
 //
+// Member axis: an ensemble's B grids factor in one launch, one thread per
+// (member, chunk), B * C threads.  Every array of member b is one grid's
+// layout at an offset of b times its size (bands (B, W, nvar, nvar, N),
+// rows (B, Mc, S, S, C), reduced couplings (B, 2S, 2S, C)); members never
+// couple, so each member's chunk 0 and chunk C-1 close its own ring.  The
+// factor shift beta is a number, or (beta_b not null) member b's entry of a
+// device array: shared and per-member step sizes take one code.  One grid
+// (B = 1) launches the instantiation without member offsets (kMembers).
+//
 // Bound: each step of the sweep reads its band rows and writes five S x S
 // blocks, and the Mc steps of a chunk are sequential, so the kernel is
 // bound by memory latency along the sweep rather than by bandwidth or
@@ -41,35 +50,47 @@
 
 namespace {
 
-template <typename T, int S>
+template <typename T, int S, bool kMembers>
 __global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
-                                    T* Wsp, T* Vsp, T* Lred, T* Ured, int N, int nvar,
-                                    int g, int h, int Mc, int C, int wrap, T alpha,
-                                    T beta) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  tf::spike_factor_chunk<T, S>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, nvar, g, h,
-                               Mc, C, wrap, alpha, beta, c);
+                                    T* Wsp, T* Vsp, T* Lred, T* Ured,
+                                    const T* __restrict__ beta_b, int N, int nvar, int g,
+                                    int h, int Mc, int C, int wrap, int B, T alpha, T beta) {
+  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long)B * C) return;
+  const int b = kMembers ? (int)(q / C) : 0, c = kMembers ? (int)(q % C) : (int)q;
+  const long band = (long)(2 * h + 1) * nvar * nvar * N;
+  const long rows = (long)Mc * S * S * C;
+  const long red = 4L * S * S * C;
+  tf::spike_factor_chunk<T, S>(bands + b * band, fac + b * rows, Dhinv + b * rows,
+                               DU + b * rows, Wsp + b * rows, Vsp + b * rows,
+                               Lred + b * red, Ured + b * red, N, nvar, g, h, Mc, C, wrap,
+                               alpha, beta_b ? beta_b[b] : beta, c);
 }
 
 template <typename T>
-int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured, int N,
-           int nvar, int g, int h, int Mc, int C, int wrap, double alpha, double beta,
-           cudaStream_t stream) {
+int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured,
+           const T* beta_b, int N, int nvar, int g, int h, int Mc, int C, int wrap, int B,
+           double alpha, double beta, cudaStream_t stream) {
   const int threads = 128;
-  const int blocks = (C + threads - 1) / threads;
-  const T a = T(alpha), b = T(beta);
+  const long blocks = ((long)B * C + threads - 1) / threads;
+  const T a = T(alpha), bt = T(beta);
   switch (nvar * g) {
-#define TF_CASE(S)                                                                   \
-  case S:                                                                            \
-    spike_factor_kernel<T, S><<<blocks, threads, 0, stream>>>(                       \
-        bands, fac, Dhinv, DU, W, V, Lred, Ured, N, nvar, g, h, Mc, C, wrap, a, b);   \
+#define TF_LAUNCH(S, MEM)                                                               \
+  spike_factor_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(                       \
+      bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, nvar, g, h, Mc, C, wrap, B, a, bt)
+#define TF_CASE(S)                                                                      \
+  case S:                                                                               \
+    if (B > 1)                                                                          \
+      TF_LAUNCH(S, true);                                                               \
+    else                                                                                \
+      TF_LAUNCH(S, false);                                                              \
     break;
     TF_CASE(1)
     TF_CASE(2)
     TF_CASE(3)
     TF_CASE(4)
 #undef TF_CASE
+#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -80,14 +101,14 @@ int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured
 
 #define TF_ENTRY(NAME, T)                                                                \
   extern "C" int NAME(const void* bands, void* fac, void* Dhinv, void* DU, void* W,     \
-                      void* V, void* Lred, void* Ured, int N, int nvar, int g, int h,   \
-                      int Mc, int C, int wrap, double alpha, double beta,               \
-                      void* stream) {                                                   \
+                      void* V, void* Lred, void* Ured, const void* beta_b, int N,       \
+                      int nvar, int g, int h, int Mc, int C, int wrap, int B,           \
+                      double alpha, double beta, void* stream) {                        \
     return launch<T>(static_cast<const T*>(bands), static_cast<T*>(fac),                \
                      static_cast<T*>(Dhinv), static_cast<T*>(DU), static_cast<T*>(W),   \
                      static_cast<T*>(V), static_cast<T*>(Lred), static_cast<T*>(Ured),  \
-                     N, nvar, g, h, Mc, C, wrap, alpha, beta,                           \
-                     static_cast<cudaStream_t>(stream));                                \
+                     static_cast<const T*>(beta_b), N, nvar, g, h, Mc, C, wrap, B,      \
+                     alpha, beta, static_cast<cudaStream_t>(stream));                   \
   }
 
 TF_ENTRY(tf_spike_factor_f32, float)

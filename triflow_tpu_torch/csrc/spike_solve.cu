@@ -15,6 +15,12 @@
 // neighbours from K4 (xm1 = x_{c-1}^bot, xp1 = x_{c+1}^top, each (S, C)),
 //   x = y - W xm1 - V xp1   (+ add_to, the theta step's u + A^-1 dt F).
 //
+// Member axis: both entries take B grids (an ensemble) in one launch, one
+// thread per (member, chunk) or (member, node); member b's arrays sit at b
+// times one grid's size (rhs, y, add_to and out (B, nvar, N), factor rows
+// (B, Mc, S, S, C), yred (B, 2S, C), xm1 and xp1 (B, S, C)).  One grid
+// (B = 1) launches the instantiations without member offsets (kMembers).
+//
 // Bound: the sweep is latency-bound along the Mc sequential rows of a
 // chunk, like K2; its node-layout reads and writes are strided by Mc * g
 // between neighbour threads.  The correction is elementwise and
@@ -26,43 +32,55 @@
 
 namespace {
 
-template <typename T, int S>
+template <typename T, int S, bool kMembers>
 __global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
                                     const T* __restrict__ DU, const T* __restrict__ rhs, T* y,
-                                    T* yred, int N, int nvar, int g, int Mc, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  tf::thomas_sweep_chunk<T, S>(fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, c);
+                                    T* yred, int N, int nvar, int g, int Mc, int C, int B) {
+  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long)B * C) return;
+  const int b = kMembers ? (int)(q / C) : 0, c = kMembers ? (int)(q % C) : (int)q;
+  const long rows = (long)Mc * S * S * C, n = (long)nvar * N;
+  tf::thomas_sweep_chunk<T, S>(fac + b * rows, Dhinv + b * rows, DU + b * rows, rhs + b * n,
+                               y + b * n, yred + b * 2L * S * C, N, nvar, g, Mc, C, c);
 }
 
-template <typename T, int S>
+template <typename T, int S, bool kMembers>
 __global__ void spike_correct_kernel(const T* __restrict__ y, const T* __restrict__ Wsp,
                                      const T* __restrict__ Vsp, const T* __restrict__ xm1,
                                      const T* __restrict__ xp1, const T* __restrict__ add_to,
                                      T* out, int N, int nvar, int g, int Mc, int C,
-                                     int has_add) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  tf::spike_correct_node<T, S>(y, Wsp, Vsp, xm1, xp1, has_add ? add_to : nullptr, out, N,
-                               nvar, g, Mc, C, i);
+                                     int has_add, int B) {
+  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long)B * N) return;
+  const long b = kMembers ? q / N : 0, i = kMembers ? q % N : q;
+  const long rows = (long)Mc * S * S * C, n = (long)nvar * N, sc = (long)S * C;
+  tf::spike_correct_node<T, S>(y + b * n, Wsp + b * rows, Vsp + b * rows, xm1 + b * sc,
+                               xp1 + b * sc, has_add ? add_to + b * n : nullptr, out + b * n,
+                               N, nvar, g, Mc, C, i);
 }
 
 template <typename T>
 int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred, int N,
-          int nvar, int g, int Mc, int C, cudaStream_t stream) {
+          int nvar, int g, int Mc, int C, int B, cudaStream_t stream) {
   const int threads = 128;
-  const int blocks = (C + threads - 1) / threads;
+  const long blocks = ((long)B * C + threads - 1) / threads;
   switch (nvar * g) {
-#define TF_CASE(S)                                                                     \
-  case S:                                                                              \
-    thomas_sweep_kernel<T, S><<<blocks, threads, 0, stream>>>(fac, Dhinv, DU, rhs, y, \
-                                                              yred, N, nvar, g, Mc, C); \
+#define TF_LAUNCH(S, MEM)                                                               \
+  thomas_sweep_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(fac, Dhinv, DU, rhs, y, \
+                                                                 yred, N, nvar, g, Mc, C, B)
+#define TF_CASE(S)                                                                      \
+  case S:                                                                               \
+    if (B > 1)                                                                          \
+      TF_LAUNCH(S, true);                                                               \
+    else                                                                                \
+      TF_LAUNCH(S, false);                                                              \
     break;
     TF_CASE(1)
     TF_CASE(2)
     TF_CASE(3)
     TF_CASE(4)
 #undef TF_CASE
+#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -71,20 +89,27 @@ int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred
 
 template <typename T>
 int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, const T* add_to,
-            T* out, int N, int nvar, int g, int Mc, int C, int has_add, cudaStream_t stream) {
+            T* out, int N, int nvar, int g, int Mc, int C, int has_add, int B,
+            cudaStream_t stream) {
   const int threads = 256;
-  const int blocks = (N + threads - 1) / threads;
+  const long blocks = ((long)B * N + threads - 1) / threads;
   switch (nvar * g) {
+#define TF_LAUNCH(S, MEM)                                                            \
+  spike_correct_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(                   \
+      y, W, V, xm1, xp1, add_to, out, N, nvar, g, Mc, C, has_add, B)
 #define TF_CASE(S)                                                                   \
   case S:                                                                            \
-    spike_correct_kernel<T, S><<<blocks, threads, 0, stream>>>(                      \
-        y, W, V, xm1, xp1, add_to, out, N, nvar, g, Mc, C, has_add);                 \
+    if (B > 1)                                                                       \
+      TF_LAUNCH(S, true);                                                            \
+    else                                                                             \
+      TF_LAUNCH(S, false);                                                           \
     break;
     TF_CASE(1)
     TF_CASE(2)
     TF_CASE(3)
     TF_CASE(4)
 #undef TF_CASE
+#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -97,21 +122,21 @@ int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, cons
   extern "C" int tf_thomas_sweep_##SUFFIX(const void* fac, const void* Dhinv,            \
                                           const void* DU, const void* rhs, void* y,      \
                                           void* yred, int N, int nvar, int g, int Mc,    \
-                                          int C, void* stream) {                         \
+                                          int C, int B, void* stream) {                  \
     return sweep<T>(static_cast<const T*>(fac), static_cast<const T*>(Dhinv),            \
                     static_cast<const T*>(DU), static_cast<const T*>(rhs),               \
-                    static_cast<T*>(y), static_cast<T*>(yred), N, nvar, g, Mc, C,        \
+                    static_cast<T*>(y), static_cast<T*>(yred), N, nvar, g, Mc, C, B,     \
                     static_cast<cudaStream_t>(stream));                                  \
   }                                                                                      \
   extern "C" int tf_spike_correct_##SUFFIX(const void* y, const void* W, const void* V,  \
                                            const void* xm1, const void* xp1,             \
                                            const void* add_to, void* out, int N,         \
                                            int nvar, int g, int Mc, int C, int has_add,  \
-                                           void* stream) {                               \
+                                           int B, void* stream) {                        \
     return correct<T>(static_cast<const T*>(y), static_cast<const T*>(W),                \
                       static_cast<const T*>(V), static_cast<const T*>(xm1),              \
                       static_cast<const T*>(xp1), static_cast<const T*>(add_to),         \
-                      static_cast<T*>(out), N, nvar, g, Mc, C, has_add,                  \
+                      static_cast<T*>(out), N, nvar, g, Mc, C, has_add, B,               \
                       static_cast<cudaStream_t>(stream));                                \
   }
 

@@ -10,8 +10,11 @@ namespace tf {
 constexpr int kW = 2 * TF_H + 1;
 constexpr int kNJ = kW * TF_NVAR * TF_NVAR;
 
-template <typename T>
-__device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const T* u,
+// uval(v, j, off): variable v at node j, the neighbour at stencil offset
+// off (a stored row read at j, or K1.F_terms's tile read at off;
+// stencil.cu)
+template <typename T, typename UVal>
+__device__ __forceinline__ void gather(T* a, long i, long N, int periodic, UVal uval,
                                        const T* hlp, const T* par, const T* x) {
   int idx = 0;
   a[idx++] = x[i];
@@ -25,7 +28,7 @@ __device__ __forceinline__ void gather(T* a, long i, long N, int periodic, const
       j = j < 0 ? 0 : (j > N - 1 ? N - 1 : j);
     }
 #pragma unroll
-    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = u[v * N + j];
+    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = uval(v, j, off);
 #pragma unroll
     for (int v = 0; v < TF_NHELP; ++v) a[idx++] = hlp[v * N + j];
   }
@@ -41,7 +44,7 @@ __device__ __forceinline__ void stencil_F_node(const T* u, const T* hlp, const T
                                                int periodic, T scale, long i) {
   T a[TF_NARGS];
   T f[TF_NVAR];
-  gather(a, i, N, periodic, u, hlp, par, x);
+  gather(a, i, N, periodic, [&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x);
   tf_F(a, f);
 #pragma unroll
   for (int m = 0; m < TF_NVAR; ++m) {
@@ -59,7 +62,7 @@ __device__ __forceinline__ void stencil_J_node(const T* u, const T* hlp, const T
   T b[kNJ];
 #pragma unroll
   for (int e = 0; e < kNJ; ++e) b[e] = T(0);
-  gather(a, i, N, periodic, u, hlp, par, x);
+  gather(a, i, N, periodic, [&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x);
   tf_J(a, b);
   if (!periodic) {
     // ghost-node dependencies fold onto the boundary columns, in the

@@ -17,6 +17,11 @@ acyclic PCR and a rank-2s Woodbury correction (``woodbury_setup``,
 Block stacks keep the reference's ``(..., s, s, M)`` convention (block
 index last); the chunked arrays are ``(Mc, s, s, C)``, the layout the CUDA
 kernels store.  Loops over rows are Python loops, vectorised over chunks.
+
+Every function also takes a leading member axis (an ensemble's B grids,
+each its own system): bands ``(B, W, nvar, nvar, N)``, blocks
+``(B, s, s, M)``, chunk rows ``(Mc, B, s, s, C)`` and reduced systems
+``(B, s2, s2, C)``.  Members never couple: each closes its own ring.
 """
 
 from __future__ import annotations
@@ -35,10 +40,19 @@ def identity_bands(window: int, nvar: int, N: int, dtype=torch.float64,
     return bands
 
 
+def per_member(v, ndim):
+    """A per-member (B,) tensor shaped to broadcast against member-leading
+    arrays of ``ndim`` dimensions; a Python number passes through."""
+    if isinstance(v, torch.Tensor) and v.ndim:
+        return v.reshape((-1,) + (1,) * (ndim - 1))
+    return v
+
+
 def axpy_bands(alpha, beta, J_bands):
-    """``alpha * I + beta * J`` in banded form."""
+    """``alpha * I + beta * J`` in banded form; ``beta`` may be a
+    per-member (B,) tensor for bands ``(B, W, nvar, nvar, N)``."""
     W, nvar = J_bands.shape[-4], J_bands.shape[-3]
-    A = beta * J_bands
+    A = per_member(beta, J_bands.ndim) * J_bands
     idx = torch.arange(nvar, device=J_bands.device)
     A[..., W // 2, idx, idx, :] += alpha
     return A
@@ -87,22 +101,22 @@ def supernode_size(W: int, nvar: int):
 
 
 def assemble_blocks(A_bands):
-    """Block-tridiagonal (L, D, U), each (s, s, M), of the banded matrix
-    ``A_bands (W, nvar, nvar, N)``: entry ``[a*nvar + m, b*nvar + n]`` of
-    supernode I's block at block offset ``db`` is
-    ``A[h + (b - a) + db*g, m, n, I*g + a]``.  Couplings that leave the
-    grid (the periodic wrap of supernodes 0 and M-1) stay in L[..., 0] and
-    U[..., M-1]; the chunked factor keeps or drops them."""
-    W, nvar, _, N = A_bands.shape
+    """Block-tridiagonal (L, D, U), each (..., s, s, M), of the banded
+    matrix ``A_bands (..., W, nvar, nvar, N)``: entry
+    ``[a*nvar + m, b*nvar + n]`` of supernode I's block at block offset
+    ``db`` is ``A[h + (b - a) + db*g, m, n, I*g + a]``.  Couplings that
+    leave the grid (the periodic wrap of supernodes 0 and M-1) stay in
+    L[..., 0] and U[..., M-1]; the chunked factor keeps or drops them."""
+    *lead, W, nvar, _, N = A_bands.shape
     h = W // 2
     g, s = supernode_size(W, nvar)
     if N % g:
         raise ValueError(f"N = {N} is not a multiple of the supernode size "
                          f"g = {g}")
     M = N // g
-    # (W, nvar, nvar, M, g) -> (g, W, nvar, nvar, M)
-    A_t = A_bands.reshape(W, nvar, nvar, M, g).permute(4, 0, 1, 2, 3)
-    zero = torch.zeros(M, dtype=A_bands.dtype, device=A_bands.device)
+    # (..., W, nvar, nvar, M, g) -> (g, ..., W, nvar, nvar, M)
+    A_t = A_bands.reshape(*lead, W, nvar, nvar, M, g).movedim(-1, 0)
+    zero = torch.zeros((*lead, M), dtype=A_bands.dtype, device=A_bands.device)
 
     def block(db):
         rows = []
@@ -112,10 +126,10 @@ def assemble_blocks(A_bands):
                 for b in range(g):
                     for n in range(nvar):
                         delta = (b - a) + db * g
-                        row.append(A_t[a, h + delta, m, n] if abs(delta) <= h
-                                   else zero)
-                rows.append(torch.stack(row))
-        return torch.stack(rows)
+                        row.append(A_t[a][..., h + delta, m, n, :]
+                                   if abs(delta) <= h else zero)
+                rows.append(torch.stack(row, dim=-2))
+        return torch.stack(rows, dim=-3)
 
     return block(-1), block(0), block(1)
 
@@ -127,20 +141,20 @@ def to_chunks(A, C: int):
 
 
 def nodes_to_rows(u, g: int, C: int):
-    """Node layout (nvar, N) -> chunk rows (Mc, s, C), entry a*nvar + m of
-    row j of chunk c = variable m at node (c*Mc + j)*g + a."""
-    nvar, N = u.shape
+    """Node layout (..., nvar, N) -> chunk rows (Mc, ..., s, C), entry
+    a*nvar + m of row j of chunk c = variable m at node (c*Mc + j)*g + a."""
+    *lead, nvar, N = u.shape
     Mc = N // (g * C)
-    rows = u.reshape(nvar, C, Mc, g).permute(2, 3, 0, 1)
-    return rows.reshape(Mc, g * nvar, C)
+    rows = u.reshape(*lead, nvar, C, Mc, g).movedim(-2, 0).movedim(-1, -3)
+    return rows.reshape(Mc, *lead, g * nvar, C)
 
 
 def rows_to_nodes(rows, nvar: int):
     """Inverse of ``nodes_to_rows``."""
-    Mc, s, C = rows.shape
+    Mc, *lead, s, C = rows.shape
     g = s // nvar
-    u = rows.reshape(Mc, g, nvar, C).permute(2, 3, 0, 1)
-    return u.reshape(nvar, C * Mc * g)
+    u = rows.reshape(Mc, *lead, g, nvar, C).movedim(-3, -1).movedim(0, -2)
+    return u.reshape(*lead, nvar, C * Mc * g)
 
 
 class SpikeFactor(NamedTuple):
@@ -158,7 +172,8 @@ class SpikeFactor(NamedTuple):
 
 
 def chunked_factor(L, D, U, C: int, wrap: bool) -> SpikeFactor:
-    """Wang/SPIKE factorization of a block-tridiagonal system in C chunks.
+    """Wang/SPIKE factorization of a block-tridiagonal system in C chunks
+    (blocks (..., s, s, M); each leading index is a system of its own).
 
     Chunk c's outer couplings Tl = L_0 (to chunk c-1) and Tr = U_{Mc-1}
     (to chunk c+1) leave the chunk's sweep and enter the reduced system.
@@ -192,11 +207,12 @@ def chunked_factor(L, D, U, C: int, wrap: bool) -> SpikeFactor:
         Wn = mm(Dhinv[j], wt[j]) - mm(DU[j], Wn)
         Vn = (mm(Dhinv[j], Tr) if j == Mc - 1 else 0.0) - mm(DU[j], Vn)
         W[j], V[j] = Wn, Vn
-    s = L.shape[0]
-    Lred = torch.zeros((2 * s, 2 * s, C), dtype=L.dtype, device=L.device)
+    *lead, s, _, _ = L.shape
+    Lred = torch.zeros((*lead, 2 * s, 2 * s, C), dtype=L.dtype,
+                       device=L.device)
     Ured = torch.zeros_like(Lred)
-    Lred[:s, s:], Lred[s:, s:] = W[0], W[-1]
-    Ured[:s, :s], Ured[s:, :s] = V[0], V[-1]
+    Lred[..., :s, s:, :], Lred[..., s:, s:, :] = W[0], W[-1]
+    Ured[..., :s, :s, :], Ured[..., s:, :s, :] = V[0], V[-1]
     if not wrap:
         Lred[..., 0] = 0.0
         Ured[..., -1] = 0.0
@@ -254,10 +270,16 @@ def pcr_factor(L, D, U, cyclic: bool):
     return alphas, betas, small_inv(D)
 
 
+def _levels(ops):
+    """The per-level operators of a factor: a list, or a stacked tensor
+    (..., nlev, s2, s2, C)."""
+    return ops.unbind(-4) if isinstance(ops, torch.Tensor) else ops
+
+
 def pcr_solve(alphas, betas, Dinv, b):
     """Solve with a ``pcr_factor`` result; b is (..., s2, C)."""
     d = 1
-    for alpha, beta in zip(alphas, betas):
+    for alpha, beta in zip(_levels(alphas), _levels(betas)):
         b = b + mv(alpha, _roll(b, d)) + mv(beta, _roll(b, -d))
         d *= 2
     return mv(Dinv, b)
@@ -278,20 +300,26 @@ def woodbury_setup(alphas, betas, Dinv, Lred, Ured):
     ``u_j = e_0 (x) Lred[:, s+j, 0]`` (j < s) and
     ``u_j = e_{C-1} (x) Ured[:, j-s, C-1]`` (j >= s), and ``v_i`` reading
     ``y[s+i]`` at chunk C-1 (i < s) and ``y[i-s]`` at chunk 0 (i >= s).
-    Returns ``Z = A0^-1 U`` (2s_j, 2s_v, C) and ``cap_inv = (I + V^T Z)^-1``
-    (2s, 2s): the reference's ``folded._reduced_factor`` (one member)."""
-    s2, _, C = Lred.shape
+    Returns ``Z = A0^-1 U`` (..., 2s_j, 2s_v, C) and
+    ``cap_inv = (I + V^T Z)^-1`` (..., 2s, 2s): the reference's
+    ``folded._reduced_factor`` (one member)."""
+    *lead, s2, _, C = Lred.shape
     s = s2 // 2
-    U = Lred.new_zeros((s2, s2, C))
-    U[:s, :, 0] = Lred[:, s:, 0].T
-    U[s:, :, C - 1] = Ured[:, :s, C - 1].T
-    Z = pcr_solve(alphas, betas, Dinv, U).contiguous()
-    cap = torch.eye(s2, dtype=Z.dtype, device=Z.device) + _vt(Z).T
+    U = Lred.new_zeros((*lead, s2, s2, C))
+    U[..., :s, :, 0] = Lred[..., :, s:, 0].transpose(-1, -2)
+    U[..., s:, :, C - 1] = Ured[..., :, :s, C - 1].transpose(-1, -2)
+    # the 2s columns ride a column axis in front of the member's rows
+    Z = pcr_solve([a.unsqueeze(-4) for a in _levels(alphas)],
+                  [b.unsqueeze(-4) for b in _levels(betas)],
+                  Dinv.unsqueeze(-4), U).contiguous()
+    cap = (torch.eye(s2, dtype=Z.dtype, device=Z.device)
+           + _vt(Z).transpose(-1, -2))
     return Z, small_inv(cap[..., None])[..., 0].contiguous()
 
 
 def woodbury_correct(Z, cap_inv, y):
-    """``y - Z (cap_inv V^T y)``: the acyclic reduced solution y (s2, C)
-    corrected to the ring's (the reference's ``WrappedPcr.solve``)."""
-    coef = cap_inv @ _vt(y)
-    return y - torch.tensordot(coef, Z, dims=([-1], [0]))
+    """``y - Z (cap_inv V^T y)``: the acyclic reduced solution y
+    (..., s2, C) corrected to the ring's (the reference's
+    ``WrappedPcr.solve``)."""
+    coef = torch.einsum("...ij,...j->...i", cap_inv, _vt(y))
+    return y - torch.einsum("...j,...jrc->...rc", coef, Z)

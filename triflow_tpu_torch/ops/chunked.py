@@ -6,6 +6,10 @@ Counterpart of ``triflow_tpu.ops.folded``'s ``factor_folded`` and
 axis: state and right-hand sides stay in the node layout ``(nvar, N)`` and
 the kernels store their per-row arrays chunk-minor.
 
+An ensemble's B grids (``Plan.B``) factor and solve in the same launches
+with a leading member axis; C stays the chunk count of each member, chosen
+by a cost fitted to B members (``batch_plan_cost_us``).
+
 A periodic grid closes its ring inside the reduced interface system:
 block-cyclic PCR where the chunk count C is a power of two >= 8 (the
 reference's ``cyclic_ok``), otherwise acyclic PCR and a rank-2s Woodbury
@@ -15,6 +19,8 @@ correction (the reference's ``WrappedPcr``), so any C >= 2 serves.
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import numpy as np
 
 from . import pcr, thomas
 
@@ -37,6 +43,37 @@ def plan_cost_us(M: int, C: int) -> float:
     return ROW_US * (M // C) + pcr.n_levels(C) * (LEVEL_US + SLAB_US * slabs)
 
 
+#: cost model of an ensemble's plan (B members of C chunks each), in
+#: microseconds of one fixed RODASPR step, fitted to chip_smoke.py's
+#: chunk-count sweep at config 5 (B = 1024 x KS N = 10^5, float64 and
+#: float32 pooled, relative weights; PERF.md): every thread of K2 and K3
+#: walks its chunk's Mc rows; K4 walks log2 C levels of ceil(C / 512)
+#: slabs for ceil(B / SMS) waves of member blocks; and each doubling of C
+#: costs a share of the ensemble's traffic, BATCH_SPLIT_US at config 5's
+#: BATCH_REF_ROWS supernodes, in proportion to B * M elsewhere (the step is
+#: bound by device memory, and more, shorter chunks read it less well)
+BATCH_ROW_US = 3.391
+BATCH_LEVEL_US = 21.918
+BATCH_SPLIT_US = 4177.857
+BATCH_REF_ROWS = 1024 * 50000
+SMS = 132
+
+
+def batch_features(M: int, C: int, B: int):
+    """(rows walked, levels walked, doublings) of ``batch_plan_cost_us``."""
+    slabs = -(-C // pcr.BLOCK_THREADS)
+    return (M // C, pcr.n_levels(C) * slabs * -(-B // SMS),
+            np.log2(C) * B * M / BATCH_REF_ROWS)
+
+
+def batch_plan_cost_us(M: int, C: int, B: int) -> float:
+    """Modelled time of one step of B members with C chunks of M // C rows
+    each (without the part no chunk count changes)."""
+    rows, levels, doublings = batch_features(M, C, B)
+    return (BATCH_ROW_US * rows + BATCH_LEVEL_US * levels
+            + BATCH_SPLIT_US * doublings)
+
+
 class Plan(NamedTuple):
     N: int        # nodes
     nvar: int
@@ -48,6 +85,7 @@ class Plan(NamedTuple):
     cyclic: bool  # block-cyclic PCR of the reduced system
     wrap: bool    # periodic ring: K2 keeps the wrap couplings and the
                   # shifts close the ring; with not cyclic, Woodbury
+    B: int = 1    # members (an ensemble's grids), each of C chunks
 
     @property
     def s(self):
@@ -72,14 +110,16 @@ def _divisors(M):
     return sorted(out)
 
 
-def plan_with(N: int, nvar: int, halo: int, periodic: bool, C: int) -> Plan:
-    """The plan of C chunks: a periodic grid (with a halo) wraps, and its
-    ring closes block-cyclic where C is a power of two >= 8, through the
-    Woodbury correction otherwise."""
+def plan_with(N: int, nvar: int, halo: int, periodic: bool, C: int,
+              B: int = 1) -> Plan:
+    """The plan of C chunks (per member, of B): a periodic grid (with a
+    halo) wraps, and its ring closes block-cyclic where C is a power of two
+    >= 8, through the Woodbury correction otherwise."""
     g = max(halo, 1)
     wrap = bool(periodic) and halo > 0
     cyclic = wrap and C >= MIN_CYCLIC_C and C & (C - 1) == 0
-    return Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C, cyclic, wrap)
+    return Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C, cyclic, wrap,
+                B)
 
 
 def chunk_counts(N: int, halo: int, periodic: bool):
@@ -96,9 +136,11 @@ def chunk_counts(N: int, halo: int, periodic: bool):
     return [C for C in _divisors(M) if M // C >= 2 and (C >= 2 or not wrap)]
 
 
-def make_plan(N: int, nvar: int, halo: int, periodic: bool) -> Plan:
+def make_plan(N: int, nvar: int, halo: int, periodic: bool,
+              B: int = 1) -> Plan:
     """Chunk plan: the admissible chunk count C (``chunk_counts``, at most
-    ``pcr.MAX_C``) of least ``plan_cost_us``."""
+    ``pcr.MAX_C``) of least ``plan_cost_us``, or for B > 1 members of
+    least ``batch_plan_cost_us``."""
     M = N // max(halo, 1)
     cands = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
     if not cands:
@@ -107,8 +149,11 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool) -> Plan:
             f"{M} supernodes: no divisor leaves 2 rows per chunk"
             + (" in 2 chunks or more" if periodic else "")
             + " (identity padding is queued: ROADMAP A2c)")
-    C = min(cands, key=lambda C: (plan_cost_us(M, C), C))
-    return plan_with(N, nvar, halo, periodic, C)
+    if B > 1:
+        C = min(cands, key=lambda C: (batch_plan_cost_us(M, C, B), C))
+    else:
+        C = min(cands, key=lambda C: (plan_cost_us(M, C), C))
+    return plan_with(N, nvar, halo, periodic, C, B)
 
 
 class ChunkedFactorization:
@@ -122,7 +167,8 @@ class ChunkedFactorization:
         self.cap_inv = cap_inv  # and its capacitance inverse
 
     def solve(self, rhs, add_to=None):
-        """``add_to + A^-1 rhs`` (or ``A^-1 rhs``), rhs of shape (nvar, N)."""
+        """``add_to + A^-1 rhs`` (or ``A^-1 rhs``), rhs of shape
+        ((B,) nvar, N)."""
         plan = self.plan
         y, yred = thomas.thomas_sweep(self.spikes, rhs, plan)
         xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.wrap, self.Z,
@@ -132,11 +178,13 @@ class ChunkedFactorization:
 
 
 def factor(alpha, beta, bands, periodic: bool, plan: Plan = None):
-    """Factor ``alpha*I + beta*J`` from J's bands (W, nvar, nvar, N);
-    ``plan`` defaults to ``make_plan`` of their shape."""
+    """Factor ``alpha*I + beta*J`` from J's bands ((B,) W, nvar, nvar, N);
+    ``beta`` is a number or a per-member (B,) tensor; ``plan`` defaults to
+    ``make_plan`` of their shape."""
     if plan is None:
-        W, nvar, _, N = bands.shape
-        plan = make_plan(N, nvar, W // 2, periodic)
+        W, nvar, _, N = bands.shape[-4:]
+        B = bands.shape[0] if bands.ndim == 5 else 1
+        plan = make_plan(N, nvar, W // 2, periodic, B)
     spikes = thomas.spike_factor(bands, alpha, beta, plan)
     red = pcr.pcr_factor(spikes.Lred, spikes.Ured, plan.cyclic)
     wood = (pcr.woodbury(red, spikes.Lred, spikes.Ured) if plan.woodbury

@@ -26,6 +26,13 @@ KS), while an err twice too large moves dt_i by 0.12 and more and changes
 the attempts on KS, and moves it by 0.23 and more on the README grid; in
 float32 on KS the two ranges meet, and it is the equal attempts that
 catch a wrong err there.
+
+The member axis (``run_batched``): K1's F, F_terms and J, K2-K4 and K6's
+entries on B = 4 members with per-member parameters, shifts and scales,
+against their plain versions at the same tolerances; K6's adaptive entries
+with a shared dt and per member (the same attempts per member as the plain
+controllers), and its adaptive scan bit for bit against the same number
+of adaptive launches.
 """
 
 from __future__ import annotations
@@ -448,5 +455,249 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
             check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results)
         check_all_combines(device, dtype, results)
         check_all_megasteps(device, dtype, results)
+        out[str(dtype).replace("torch.", "")] = results
+    return out
+
+
+# ----------------------------------------------------------- member axis
+
+#: the members of the batched checks
+BATCH = 4
+
+
+def _member_stack(fn, B):
+    """Stack each component of ``fn(b)`` over the members b < B."""
+    parts = [fn(b) for b in range(B)]
+    return tuple(torch.stack([p[k] for p in parts])
+                 for k in range(len(parts[0])))
+
+
+def check_stencil_batched(model, N, periodic, device, B=BATCH, seed=0,
+                          results=None):
+    """K1's F (per-member scale and a bias), F_terms (RODASPR's last
+    stage: six terms with unit, zero and scaled coefficients) and J on B
+    members against their plain versions."""
+    results = {} if results is None else results
+    b = model.backend
+    dtype = b.dtype
+    rng = np.random.default_rng(seed)
+    sysm = b.system
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    u = t(rng.standard_normal((B, sysm.nvar, N)))
+    helpers = t(rng.standard_normal((B, len(sysm.help_funcs), N)))
+    pstack = t(0.5 + rng.random((B, len(sysm.pars), 1)) * np.ones((1, N)))
+    x = t(np.linspace(0.0, 0.001 * N, N))
+    tol = TOL[dtype]["FJ"]
+    what = f"B={B} N={N} periodic={periodic}"
+    scale = t(0.05 * (1.0 + np.arange(B)))
+    bias = t(rng.standard_normal((B, sysm.nvar, N)))
+    F_k = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale, bias=bias)
+    F_p = stencil.eval_F_plain(b, u, helpers, pstack, x, periodic, scale, bias)
+    _record(results, "K1.F", F_k, F_p, tol, f"{what} per-member scale")
+    stages = [t(1e-2 * rng.standard_normal((B, sysm.nvar, N))) for _ in range(5)]
+    coefs = [(1.0, 0.0), (0.75, 0.3), (0.0, -1.2), (1.0, 1.0), (2.5, 0.0),
+             (-0.4, 0.7)]
+    terms = [(a, c, arr) for (a, c), arr in zip(coefs, [u] + stages)]
+    for sc in (0.0125, scale):
+        got = b.F_terms(terms, helpers, pstack, x, periodic=periodic, scale=sc)
+        want = stencil.eval_F_terms_plain(b, terms, helpers, pstack, x,
+                                          periodic, sc)
+        _record(results, "K1.F_terms", got, want, tol, what)
+    J_k = b.J_bands(u, helpers, pstack, x, periodic=periodic)
+    J_p = b.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+    _record(results, "K1.J", J_k, J_p, tol, what)
+    return results
+
+
+def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
+                         seed=0, results=None):
+    """K2-K4 on B members of random bands, each with its own factor shift,
+    against their plain versions, and each member's solve by its
+    residual."""
+    results = {} if results is None else results
+    tol = TOL[dtype]["solve"]
+    bands = torch.stack([random_bands(W, nvar, N, dtype, device,
+                                      seed=seed + b, beta=-0.2)
+                         for b in range(B)])
+    betas = torch.tensor(np.linspace(-0.3, -0.2, B), dtype=dtype,
+                         device=device)
+    plan = chunked.make_plan(N, nvar, W // 2, periodic, B)
+    what = (f"B={B} N={N} s={plan.s} C={plan.C} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury}")
+    rng = np.random.default_rng(seed)
+    rhs = torch.tensor(rng.standard_normal((B, nvar, N)), dtype=dtype,
+                       device=device)
+    add = torch.tensor(rng.standard_normal((B, nvar, N)), dtype=dtype,
+                       device=device)
+    sp_k = thomas.spike_factor(bands, 1.0, betas, plan)
+    sp_p = thomas.spike_factor_plain(bands, 1.0, betas, plan)
+    for got, want in zip(sp_k, sp_p):
+        _record(results, "K2.spike_factor", got, want, tol, what)
+    red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
+    red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
+    for got, want in zip(red_k, red_p):
+        _record(results, "K4.pcr_factor", got, want, tol, what)
+    wood = ()
+    if plan.woodbury:
+        wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
+        for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
+            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
+    cols = torch.tensor(rng.standard_normal((B, 2 * plan.s, 2 * plan.s, plan.C)),
+                        dtype=dtype, device=device)
+    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
+            pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
+    y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
+    y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
+    _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
+    _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
+    sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
+    sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
+    for got, want in zip(sh_k, sh_p):
+        _record(results, "K4.pcr_solve_shift", got, want, tol, what)
+    x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
+    x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
+    _record(results, "K3.spike_correct", x_k, x_p, tol, what)
+    x = chunked.factor(1.0, betas, bands, periodic, plan).solve(rhs)
+    for b in range(B):
+        A = float(betas[b]) * bands[b].double()
+        A[W // 2, torch.arange(nvar), torch.arange(nvar)] += 1.0
+        resid = banded_matvec(A, x[b].double(), periodic) - rhs[b].double()
+        res = float(resid.norm() / rhs[b].double().norm())
+        if not res <= tol:
+            raise CheckFailed(f"member {b} solve residual {res:.3e} > "
+                              f"{tol:.0e} ({what})")
+        results["residual"] = max(results.get("residual", 0.0), res)
+    return results
+
+
+def mega_members(model, N, periodic, device, B=BATCH):
+    """(u, helpers, pstack, x) of B members: ``mega_state`` of seeds
+    0 .. B-1, x shared."""
+    u, h, p = _member_stack(
+        lambda b: mega_state(model, N, periodic, device, seed=b)[:3], B)
+    return u, h, p, mega_state(model, N, periodic, device)[3]
+
+
+def check_megastep_batched(model, N, periodic, dt, device, results=None,
+                           adaptive=None, B=BATCH):
+    """K6 on B members: the step entry with a shared and with per-member
+    shifts (RODASPR, Theta), its 3-step launch bit for bit against three
+    launches; with ``adaptive = (output dt, internal dt, tol)`` the
+    adaptive entry with a shared dt and per member against the plain
+    controllers (equal attempts and status, dt_i within the dt limit), and
+    the adaptive scan of two output steps bit for bit against two
+    adaptive launches, per mode."""
+    from ..core.rosenbrock import adaptive_controller, member_controller
+
+    results = {} if results is None else results
+    b = model.backend
+    dtype = b.dtype
+    T = np.float64 if dtype == torch.float64 else np.float32
+    sysm = b.system
+    plan = megastep.plan_for(N, sysm.nvar, sysm.halo, periodic, B)
+    if plan is None:
+        plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)._replace(B=B)
+    what = (f"B={B} N={N} s={plan.s} C={plan.C} woodbury={plan.woodbury} "
+            f"{dtype}")
+    tol = TOL[dtype]["solve"]
+    args = mega_members(model, N, periodic, device, B)
+    ros = rodaspr_table()
+    dts = np.asarray(dt * (1.0 + 0.25 * np.arange(B)), dtype=T)
+    gdt_b = megastep.gdt_of(T, ros.g00, dts, device)
+    cases = [("rodaspr", ros, -float(T(ros.g00) * T(dt)), float(T(ros.g00) * T(dt))),
+             ("rodaspr per-member", ros, -gdt_b, gdt_b),
+             ("theta=1", megastep.theta_table(1.0), -float(T(dt)), float(T(dt)))]
+    for name, table, beta, scale in cases:
+        u_k, err_k = megastep.step(b, plan, table, periodic, *args, beta, scale)
+        u_p, err_p = megastep.step_plain(b, plan, table, periodic, *args, beta,
+                                         scale)
+        _record(results, "K6.step", u_k, u_p, tol, f"{name} {what}")
+        if len(table.final) == 2:
+            _record(results, "K6.step", err_k, err_p, tol, f"{name} err {what}",
+                    scale=float(u_p.abs().max()))
+        u3 = megastep.step(b, plan, table, periodic, *args, beta, scale, nsteps=3)[0]
+        seq = args[0]
+        for _ in range(3):
+            seq = megastep.step(b, plan, table, periodic, seq, *args[1:], beta,
+                                scale)[0]
+        if not torch.equal(u3, seq):
+            raise CheckFailed(f"K6.step {name} {what}: 3 steps in one launch "
+                              "differ from 3 launches")
+    if adaptive is None:
+        return results
+    out_dt, internal_dt, atol = adaptive
+    for per_member, ctl in ((False, adaptive_controller), (True, member_controller)):
+        mode = "per-member" if per_member else "shared"
+        a_args = (ctl, b, plan, ros, periodic, *args, 0.0, out_dt, internal_dt,
+                  atol, 0.9, None, None)
+        got = megastep.row_adaptive_step(*a_args, per_member=per_member)
+        want = megastep.adaptive_plain(*a_args, per_member=per_member)
+        if not (np.array_equal(got[2], want[2]) and got[3] == want[3]):
+            raise CheckFailed(f"K6.adaptive {mode} {what}: (attempts, status) "
+                              f"{got[2:]} against the plain controller's {want[2:]}")
+        _record(results, "K6.adaptive", got[0], want[0], tol, f"u {mode} {what}")
+        gap = float(np.max(np.abs(np.asarray(got[1], np.float64)
+                                  - np.asarray(want[1], np.float64))
+                           / np.abs(np.asarray(want[1], np.float64))))
+        if not gap <= TOL[dtype]["dt"]:
+            raise CheckFailed(f"K6.adaptive {mode} dt_i {what}: relative error "
+                              f"{gap:.3e} > {TOL[dtype]['dt']:.0e}")
+        results["K6.adaptive dt_i"] = max(results.get("K6.adaptive dt_i", 0.0), gap)
+        # two output steps in one scan against two adaptive launches
+        scan = megastep.adaptive_scan(*a_args, 2, per_member=per_member,
+                                      attempts=True)
+        one = megastep.row_adaptive_step(*a_args, per_member=per_member)
+        two = megastep.row_adaptive_step(
+            ctl, b, plan, ros, periodic, one[0], *args[1:], T(0.0) + T(out_dt),
+            out_dt, one[1], atol, 0.9, None, None, per_member=per_member)
+        if not (torch.equal(scan[0], two[0]) and np.array_equal(scan[2], two[1])
+                and scan[1] == 2):
+            raise CheckFailed(f"K6.adaptive_scan {mode} {what}: 2 output steps "
+                              "in one launch differ from 2 adaptive launches")
+        plain = megastep.adaptive_scan_plain(*a_args, 2, per_member=per_member)
+        _record(results, "K6.adaptive_scan", scan[0], plain[0], tol,
+                f"{mode} {what}")
+        if not np.array_equal(scan[4], plain[4]):
+            raise CheckFailed(f"K6.adaptive_scan {mode} {what}: attempts "
+                              f"{scan[4]} against the plain {plain[4]}")
+    return results
+
+
+#: (W, nvar, N, periodic) of the batched solver checks: block-cyclic and
+#: Woodbury rings, s = 1, 2 (and 4), and an acyclic grid
+BATCH_SOLVER_CASES = [(5, 1, 1024, True), (5, 1, 1000, True), (3, 2, 1200, True),
+                      (5, 2, 600, True), (3, 1, 2000, False)]
+#: (model, N, periodic, dt, adaptive) of the batched K6 checks
+BATCH_MEGA_CASES = [("ks", 256, True, 0.05, (1.0, 1e-6, 1e-3)),
+                    ("ks", 200, True, 0.05, (1.0, 1e-6, 1e-3)),
+                    ("readme", 200, False, 5.0, (5.0, 1e-6, 1e-1)),
+                    ("two_var", 600, True, 0.02, None)]
+
+
+def run_batched(device, dtypes=(torch.float64, torch.float32), B=BATCH):
+    """The member-axis checks at small shapes, both dtypes; returns
+    {dtype name: {kernel entry: max abs error}}."""
+    from ..core.model import Model
+
+    out = {}
+    for dtype in dtypes:
+        results = {}
+        for name in ("burgers", "ks", "readme"):
+            model = Model(*STENCIL_MODELS[name], double=dtype == torch.float64,
+                          device=device)
+            for periodic in (True, False):
+                check_stencil_batched(model, 1000, periodic, device, B,
+                                      results=results)
+        for i, (W, nvar, N, periodic) in enumerate(BATCH_SOLVER_CASES):
+            check_solver_batched(W, nvar, N, periodic, dtype, device, B, seed=i,
+                                 results=results)
+        for name, N, periodic, dt, adaptive in BATCH_MEGA_CASES:
+            model = Model(*MEGA_MODELS[name], double=dtype == torch.float64,
+                          device=device)
+            check_megastep_batched(model, N, periodic, dt, device, results,
+                                   adaptive, B)
         out[str(dtype).replace("torch.", "")] = results
     return out

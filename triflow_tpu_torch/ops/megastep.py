@@ -3,12 +3,20 @@ the plan and its gate, the wrappers, and their plain versions.
 
 Replaces the TPU's ``ops/megastep.py:_launch`` (one or ``nsteps`` whole ROW
 or theta steps: ``row_step_folded``, ``theta_step_folded``,
-``row_scan_folded``, ``theta_scan_folded``) and
-``row_adaptive_step_folded`` (one adaptive output step with its
-accept/reject loop in the kernel).  Source ``csrc/megastep.cu``, generated
+``row_scan_folded``, ``theta_scan_folded``), ``row_adaptive_step_folded``
+(one adaptive output step with its accept/reject loop in the kernel) and
+``row_adaptive_scan_folded`` (``nsteps`` adaptive output steps, shared or
+per-member clocks: ``adaptive_scan``).  Source ``csrc/megastep.cu``, generated
 per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
 (shared through the headers in ``csrc/``) phase after phase in one thread
 block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
+
+Every entry takes a leading member axis (an ensemble's B grids, u
+``(B, nvar, N)``): one thread block per member, as many blocks as the card
+holds at once, each looping over its share of the members.  With a shared
+dt the adaptive entries take every attempt's err as the max over all
+members (a cooperative launch with a grid-wide barrier per attempt); with
+``per_member=True`` each member runs its own controller.
 
 ``plan_for`` alone decides whether a grid takes K6 or the multi-launch
 path (K1-K5), on the CPU as on the card.  The plain versions compose the
@@ -29,11 +37,13 @@ import torch
 
 from . import chunked, combine, pcr, stencil, thomas
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from .thomas import members
 
-#: launches of the fixed-step entry (1 or nsteps steps) and of the adaptive
-#: entry (one output step)
+#: launches of the fixed-step entry (1 or nsteps steps), of the adaptive
+#: entry (one output step) and of the adaptive scan (nsteps output steps)
 STEP_LAUNCHES = Counter("K6.step")
 ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
+SCAN_LAUNCHES = Counter("K6.adaptive_scan")
 
 #: stages of the widest table (RODASPR); kMaxStages in csrc/megastep.cu
 MAX_STAGES = 6
@@ -77,12 +87,14 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool):
     return chunked.plan_with(N, nvar, halo, periodic, C)
 
 
-def plan_for(N: int, nvar: int, halo: int, periodic: bool):
-    """The plan of a grid K6 takes, or None: the multi-launch path serves
-    it (or raises, for a grid without a chunk plan)."""
+def plan_for(N: int, nvar: int, halo: int, periodic: bool, B: int = 1):
+    """The plan of a grid K6 takes (for each of B members), or None: the
+    multi-launch path serves it (or raises, for a grid without a chunk
+    plan)."""
     if N > MAX_N.get(nvar * max(halo, 1), 0):
         return None
-    return make_plan(N, nvar, halo, periodic)
+    plan = make_plan(N, nvar, halo, periodic)
+    return None if plan is None else plan._replace(B=B)
 
 
 class Table(NamedTuple):
@@ -126,9 +138,12 @@ def _is_u(a_row):
 
 
 def _err_of(outs, u):
+    """err of each member (a 0-d tensor for one grid): max|u_new - u_pred|,
+    inf without an error row and where not finite."""
+    lead = u.shape[:-2]
     if len(outs) == 1:
-        return torch.full((), np.inf, dtype=u.dtype, device=u.device)
-    err = outs[1].abs().max()
+        return torch.full(lead, np.inf, dtype=u.dtype, device=u.device)
+    err = outs[1].abs().amax(dim=(-2, -1))
     return torch.where(torch.isfinite(err), err, torch.full_like(err, np.inf))
 
 
@@ -136,7 +151,8 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
                beta, scale):
     """One step: J, the chunked factor of ``I + beta*J`` on K6's plan, and
     for each stage ``scale*F(u_i) + bias`` solved; returns (u_new, err),
-    err inf without an error row and where not finite."""
+    err inf without an error row and where not finite.  With a member axis
+    ``beta`` and ``scale`` may be per-member (B,) tensors and err is (B,)."""
     bands = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
     fact = thomas.spike_factor_plain(bands, 1.0, beta, plan)
     red = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
@@ -164,21 +180,34 @@ def scan_plain(backend, plan, table, periodic, u, helpers, pstack, x, beta,
     return u
 
 
+def gdt_of(T, g00, dt, device):
+    """g00 * dt rounded as the model's dtype multiplies them: a number for
+    a shared dt, a (B,) tensor for per-member dts."""
+    if np.ndim(dt):
+        return torch.as_tensor(T(g00) * np.asarray(dt, dtype=T),
+                               device=device)
+    return float(T(g00) * T(dt))
+
+
 def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
                    pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                   dt_min):
+                   dt_min, per_member=False):
     """One adaptive output step (clamp and recompute) of plain steps,
     decided by ``controller``: the scheme's
-    ``core.rosenbrock.adaptive_controller``, whose arithmetic K6's adaptive
-    entry runs.  Returns (u, dt_i, niter, status)."""
+    ``core.rosenbrock.adaptive_controller`` (a shared dt: with a member
+    axis err is the max over the members), or with ``per_member``
+    ``core.rosenbrock.member_controller`` (each member's own clock and
+    dt).  K6's adaptive entries run the same arithmetic.  Returns (u,
+    dt_i, niter, status), dt_i and niter per member with ``per_member``."""
     T = _np_type(u)
-    g00 = T(table.g00)
 
     def attempt(_t, state, dt_eff):
-        gdt = float(g00 * dt_eff)
+        gdt = gdt_of(T, table.g00, dt_eff, u.device)
         u2, err = step_plain(backend, plan, table, periodic, state[0], helpers,
                              pstack, x, -gdt, gdt)
-        return (u2,), T(err.item())
+        if per_member:
+            return (u2,), err.cpu().numpy().astype(T)
+        return (u2,), T(err.max().item())
 
     _, (u2,), dt_i, niter, status = controller(
         attempt, T, t, dt, internal_dt, tol, safety, max_iter, dt_min, False,
@@ -186,13 +215,40 @@ def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
     return u2, dt_i, niter, status
 
 
+def adaptive_scan_plain(controller, backend, plan, table, periodic, u,
+                        helpers, pstack, x, t, dt, internal_dt, tol, safety,
+                        max_iter, dt_min, nsteps, per_member=False):
+    """``nsteps`` output steps of ``adaptive_plain``, each from the last
+    one's output time, stopping after the first with a nonzero status:
+    (u, steps_done, dt_i, status, attempts), dt_i and the attempts summed
+    over the steps per member with ``per_member``."""
+    T = _np_type(u)
+    t_, dt_i, done, status, total = T(t), internal_dt, 0, 0, 0
+    while done < nsteps and status == 0:
+        u, dt_i, niter, st = adaptive_plain(
+            controller, backend, plan, table, periodic, u, helpers, pstack, x,
+            t_, dt, dt_i, tol, safety, max_iter, dt_min, per_member)
+        t_ = t_ + T(dt)
+        done += 1
+        total = total + niter
+        status = max(status, st)
+    return u, done, dt_i, status, total
+
+
 # --------------------------------------------------------------- kernel
 
-#: the scratch buffers of one launch, in the order of csrc/megastep.cu's
-#: Work after (u0, hlp, par, x, info, out)
+#: the per-block scratch buffers of one launch, in the order of
+#: csrc/megastep.cu's Work after its 11 leading addresses (block 0's; block
+#: k's lie k slabs further); then the per-member states buf0 and buf1
 _BUFFERS = ("bands", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
             "alphas", "betas", "Dinv", "pscr", "Z", "us", "ui", "bias", "rhs",
-            "y", "yred", "xm1", "xp1", "buf0", "buf1")
+            "y", "yred", "xm1", "xp1")
+#: doubles per member of a launch's info: err, dt_i, attempts, status,
+#: output steps done
+INFO = 5
+#: kernel kinds of the capacity query: the step entry, the adaptive entries
+#: with a shared dt, and per member
+STEP_KIND, SHARED_KIND, MEMBER_KIND = 0, 1, 2
 
 
 def _sizes(plan, n_stages):
@@ -203,24 +259,39 @@ def _sizes(plan, n_stages):
                 DU=rows, Wsp=rows, Vsp=rows, Lred=red, Ured=red,
                 alphas=pcr.n_levels(C) * red, betas=pcr.n_levels(C) * red,
                 Dinv=red, pscr=7 * red, Z=red, us=n_stages * n, ui=n, bias=n,
-                rhs=n, y=n, yred=s2 * C, xm1=s * C, xp1=s * C, buf0=n, buf1=n)
+                rhs=n, y=n, yred=s2 * C, xm1=s * C, xp1=s * C)
 
 
 class _Prepared(NamedTuple):
     """What one launch configuration passes the kernel besides the tensor
     addresses and the scalars: built once, reused by every launch."""
 
-    offsets: tuple  # element offset of each _BUFFERS entry in the scratch
-    total: int      # scratch elements
+    offsets: tuple  # element offset of each _BUFFERS entry in a block's slab
+    slab: int       # scratch elements of one block
     ints: object    # ctypes int array
     reals: object   # ctypes double array; the first 9 are set per launch
 
 
 _PREPARED = {}
+_CAPACITY = {}
 
 
-def _prepare(plan, table, periodic, nsteps, max_iter, dt_min):
-    key = (plan, table, periodic, nsteps, max_iter, dt_min is not None)
+def capacity(backend, dtype, kind):
+    """Blocks of a K6 kernel the card holds at once (its SMs times the
+    blocks per SM at the kernel's registers), by kernel kind."""
+    key = (id(backend.megastep), dtype, kind)
+    if key not in _CAPACITY:
+        fn = backend.megastep.fn(f"tf_mega_capacity_{suffix(dtype)}", 0, 1)
+        got = fn(kind, None)
+        if got <= 0:
+            backend.megastep.check(-got or 1, "K6 capacity")
+        _CAPACITY[key] = got
+    return _CAPACITY[key]
+
+
+def _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk):
+    key = (plan, table, periodic, nsteps, max_iter, dt_min is not None, B,
+           nblk)
     if key in _PREPARED:
         return _PREPARED[key]
     n_stages = len(table.stages)
@@ -241,7 +312,10 @@ def _prepare(plan, table, periodic, nsteps, max_iter, dt_min):
     ints = [plan.N, plan.Mc, plan.C, int(plan.cyclic), int(plan.wrap),
             int(bool(periodic)), n_stages, nsteps,
             -1 if max_iter is None else int(max_iter),
-            int(dt_min is not None)] + rows
+            int(dt_min is not None), B, nblk, at] + rows
+    if at >= 2 ** 31:
+        raise ValueError(f"K6: {at} scratch elements per block, more than the "
+                         "kernel's 32-bit slab size")
     prepared = _Prepared(tuple(offsets), at, (ctypes.c_int * len(ints))(*ints),
                          (ctypes.c_double * (9 + coefs.size))(*[0.0] * 9,
                                                               *coefs.ravel()))
@@ -249,35 +323,61 @@ def _prepare(plan, table, periodic, nsteps, max_iter, dt_min):
     return prepared
 
 
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
-            pstack, x, reals, nsteps=1, max_iter=None, dt_min=None):
+            pstack, x, reals, nsteps=1, max_iter=None, dt_min=None,
+            kind=STEP_KIND, beta_b=None, scale_b=None, idt_b=None):
     """Check the inputs, allocate the outputs and the scratch, launch one
-    K6 entry; returns (u_out, info (4,) float64 on the device)."""
+    K6 entry; returns (u_out, info (B, INFO) float64 on the device)."""
     what = f"K6 {entry}"
     check_cuda((u, helpers, pstack, x), backend.dtype, what)
     sysm = backend.system
     N = plan.N
-    check_shapes(what, u=(u, (sysm.nvar, N)),
-                 helpers=(helpers, (len(sysm.help_funcs), N)),
-                 pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
+    B, lead = members(u, 2)
+    check_shapes(what, u=(u, (*lead, sysm.nvar, N)),
+                 helpers=(helpers, (*lead, len(sysm.help_funcs), N)),
+                 pstack=(pstack, (*lead, len(sysm.pars), N)), x=(x, (N,)))
+    per_member = [t for t in (beta_b, scale_b, idt_b) if t is not None]
+    check_cuda(per_member, backend.dtype, what)
+    check_shapes(what, **{f"per-member[{k}]": (t, (B,))
+                          for k, t in enumerate(per_member)})
     if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo) or plan.s > thomas.MAX_S:
         raise ValueError(f"{what}: plan {plan} does not fit the model")
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")
-    prep = _prepare(plan, table, periodic, nsteps, max_iter, dt_min)
-    work = torch.empty(prep.total, dtype=u.dtype, device=u.device)
-    info = torch.empty(4, dtype=torch.float64, device=u.device)
+    nblk = min(B, capacity(backend, u.dtype, kind))
+    prep = _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk)
+    n = sysm.nvar * N
+    work = torch.empty(nblk * prep.slab + 2 * B * n, dtype=u.dtype,
+                       device=u.device)
+    info = torch.empty((B, INFO), dtype=torch.float64, device=u.device)
     out = torch.empty_like(u)
+    sync = errs = None
+    if kind == SHARED_KIND and nblk > 1:
+        sync = torch.zeros(2, dtype=torch.int32, device=u.device)
+        errs = torch.empty(2 * nblk, dtype=u.dtype, device=u.device)
     item, base = u.element_size(), work.data_ptr()
-    ptrs = (ctypes.c_uint64 * (6 + len(_BUFFERS)))(
+    states = base + nblk * prep.slab * item
+    ptrs = (ctypes.c_uint64 * (11 + len(_BUFFERS) + 2))(
         u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-        info.data_ptr(), out.data_ptr(), *(base + at * item for at in prep.offsets))
+        info.data_ptr(), out.data_ptr(), _ptr(beta_b), _ptr(scale_b),
+        _ptr(idt_b), _ptr(sync), _ptr(errs),
+        *(base + at * item for at in prep.offsets), states,
+        states + B * n * item)
     prep.reals[:9] = reals
     lib = backend.megastep
-    fn = lib.fn(f"tf_mega_{entry}_{suffix(u.dtype)}", 3, 0)
-    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
-            ctypes.addressof(prep.reals), stream_of(u))
+    args = (ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
+            ctypes.addressof(prep.reals))
+    if entry == "step":
+        fn = lib.fn(f"tf_mega_step_{suffix(u.dtype)}", 3, 0)
+        rc = fn(*args, stream_of(u))
+    else:
+        fn = lib.fn(f"tf_mega_{entry}_{suffix(u.dtype)}", 3, 1)
+        rc = fn(*args, int(kind == MEMBER_KIND), stream_of(u))
     lib.check(rc, what)
     counter.add()
     return out, info
@@ -293,12 +393,20 @@ def _np_type(u):
     return np.float64 if u.dtype == torch.float64 else np.float32
 
 
+def _member_arg(v):
+    """(tensor or None, number) of a factor shift or F scale."""
+    if isinstance(v, torch.Tensor):
+        return v, 0.0
+    return None, float(v)
+
+
 def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
          nsteps=1):
     """``nsteps`` steps of the table with factor shift ``beta`` and F scale
-    ``scale`` (both values of the model's dtype): returns (u_new, err), err
-    of the last step (a 0-d tensor; inf without an error row or where not
-    finite).  CPU tensors take the plain version; CUDA tensors launch
+    ``scale`` (values of the model's dtype, or per-member (B,) tensors for
+    u ``(B, nvar, N)``): returns (u_new, err), err of the last step (a 0-d
+    tensor, or (B,) with a member axis; inf without an error row or where
+    not finite).  CPU tensors take the plain version; CUDA tensors launch
     K6's step entry once."""
     if u.device.type == "cpu":
         if nsteps == 1:
@@ -306,23 +414,24 @@ def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
                               pstack, x, beta, scale)
         u2 = scan_plain(backend, plan, table, periodic, u, helpers, pstack, x,
                         beta, scale, nsteps)
-        return u2, torch.full((), np.inf, dtype=u.dtype)
+        return u2, torch.full(u.shape[:-2], np.inf, dtype=u.dtype)
     if nsteps < 1:
         raise ValueError(f"K6 step: nsteps = {nsteps} < 1")
+    beta_b, beta_v = _member_arg(beta)
+    scale_b, scale_v = _member_arg(scale)
     out, info = _launch("step", STEP_LAUNCHES, backend, plan, table, periodic,
                         u, helpers, pstack, x,
-                        _reals(beta=float(beta), scale=float(scale)),
-                        nsteps=int(nsteps))
-    return out, info[0]
+                        _reals(beta=beta_v, scale=scale_v),
+                        nsteps=int(nsteps), beta_b=beta_b, scale_b=scale_b)
+    return out, (info[:, 0] if u.ndim == 3 else info[0, 0])
 
 
 def row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
              nsteps=1):
     """``nsteps`` ROW steps of ``dt`` -> (u_new, err): the factor shift is
     ``-g00*dt`` and the F scale ``g00*dt``, rounded as the model's dtype
-    multiplies them."""
-    T = _np_type(u)
-    gdt = float(T(table.g00) * T(dt))
+    multiplies them; ``dt`` may be a per-member array."""
+    gdt = gdt_of(_np_type(u), table.g00, dt, u.device)
     return step(backend, plan, table, periodic, u, helpers, pstack, x, -gdt,
                 gdt, nsteps)
 
@@ -350,27 +459,86 @@ def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
                       dt, nsteps)
 
 
+def _adaptive_launch(entry, counter, backend, plan, table, periodic, u,
+                     helpers, pstack, x, t, dt, internal_dt, tol, safety,
+                     max_iter, dt_min, nsteps, per_member):
+    """One launch of an adaptive entry; (u, info rows on the host)."""
+    if len(table.final) != 2:
+        raise ValueError(f"K6 {entry}: the table has no error row")
+    idt_b = None
+    if per_member:
+        B, _ = members(u, 2)
+        idt_b = torch.as_tensor(np.broadcast_to(
+            np.asarray(internal_dt, _np_type(u)), (B,)).copy(), device=u.device)
+        internal_dt = 0.0
+    out, info = _launch(
+        entry, counter, backend, plan, table, periodic, u, helpers, pstack, x,
+        _reals(g00=table.g00, t=float(t), dt=float(dt),
+               internal_dt=float(internal_dt), tol=float(tol),
+               safety=float(safety), dt_min=dt_min),
+        nsteps=nsteps, max_iter=max_iter, dt_min=dt_min,
+        kind=MEMBER_KIND if per_member else SHARED_KIND, idt_b=idt_b)
+    return out, info.cpu().numpy()
+
+
 def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
                       pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                      dt_min):
+                      dt_min, per_member=False):
     """One adaptive output step from ``t`` to ``t + dt`` (clamp and
     recompute): returns (u, dt_i, niter, status) with dt_i a scalar of the
-    model's dtype.  CPU tensors take the plain version, decided by
-    ``controller`` (``core.rosenbrock.adaptive_controller``); CUDA tensors
-    launch K6's adaptive entry, which runs that controller's arithmetic,
-    once and read its results back once."""
+    model's dtype, or with ``per_member`` (u of B members, each its own
+    controller) dt_i and niter per member.  CPU tensors take the plain
+    version, decided by ``controller`` (``core.rosenbrock``'s
+    ``adaptive_controller``, or ``member_controller`` per member); CUDA
+    tensors launch K6's adaptive entry, which runs that controller's
+    arithmetic, once and read its results back once."""
     if len(table.final) != 2:
         raise ValueError("K6 adaptive: the table has no error row")
     if u.device.type == "cpu":
         return adaptive_plain(controller, backend, plan, table, periodic, u,
                               helpers, pstack, x, t, dt, internal_dt, tol,
-                              safety, max_iter, dt_min)
-    out, info = _launch(
-        "adaptive", ADAPTIVE_LAUNCHES, backend, plan, table, periodic, u,
-        helpers, pstack, x,
-        _reals(g00=table.g00, t=float(t), dt=float(dt),
-               internal_dt=float(internal_dt), tol=float(tol),
-               safety=float(safety), dt_min=dt_min),
-        max_iter=max_iter, dt_min=dt_min)
-    _err, dt_i, niter, status = info.tolist()
-    return out, _np_type(u)(dt_i), int(niter), int(status)
+                              safety, max_iter, dt_min, per_member)
+    out, info = _adaptive_launch("adaptive", ADAPTIVE_LAUNCHES, backend, plan,
+                                 table, periodic, u, helpers, pstack, x, t, dt,
+                                 internal_dt, tol, safety, max_iter, dt_min,
+                                 1, per_member)
+    T = _np_type(u)
+    if per_member:
+        return (out, info[:, 1].astype(T), info[:, 2].astype(np.int64),
+                int(info[:, 3].max()))
+    return out, T(info[0, 1]), int(info[0, 2]), int(info[0, 3])
+
+
+def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
+                  pstack, x, t, dt, internal_dt, tol, safety, max_iter,
+                  dt_min, nsteps, per_member=False, attempts=False):
+    """``nsteps`` adaptive output steps of ``dt`` from ``t`` in one launch
+    (the reference's ``row_adaptive_scan_folded``): every output step
+    re-clamps its starting dt to ``dt``, and the loop stops after the first
+    step with a nonzero status.  A shared dt returns (u, steps_done, dt_i,
+    status); ``per_member`` (each member its own clock, dt and attempts)
+    returns (u, steps_done, dt_b, status, niter_b), the attempts summed
+    over the steps.  With ``attempts`` a shared dt also returns the
+    attempts summed over the steps.  CPU tensors take the plain version
+    (``adaptive_scan_plain``, decided by ``controller``); CUDA tensors
+    launch K6's adaptive_scan entry once and read its results back once.
+    Per member a member stops at its own first nonzero status;
+    steps_done is the fewest any member did and status the largest."""
+    if nsteps < 1:
+        raise ValueError(f"K6 adaptive_scan: nsteps = {nsteps} < 1")
+    if u.device.type == "cpu":
+        out = adaptive_scan_plain(controller, backend, plan, table, periodic,
+                                  u, helpers, pstack, x, t, dt, internal_dt,
+                                  tol, safety, max_iter, dt_min, nsteps,
+                                  per_member)
+        return out if per_member or attempts else out[:4]
+    u2, info = _adaptive_launch("adaptive_scan", SCAN_LAUNCHES, backend, plan,
+                                table, periodic, u, helpers, pstack, x, t, dt,
+                                internal_dt, tol, safety, max_iter, dt_min,
+                                int(nsteps), per_member)
+    T = _np_type(u)
+    if per_member:
+        return (u2, int(info[:, 4].min()), info[:, 1].astype(T),
+                int(info[:, 3].max()), info[:, 2].astype(np.int64))
+    out = (u2, int(info[0, 4]), T(info[0, 1]), int(info[0, 3]))
+    return out + (int(info[0, 2]),) if attempts else out

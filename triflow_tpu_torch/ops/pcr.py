@@ -16,8 +16,11 @@ Z and inverts its capacitance in one launch, and every
 ``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
 close the ring.
 
-Every kernel entry runs in one thread block, so the chunk count is capped
-at ``MAX_C``.
+Every kernel entry runs one thread block per member, so the chunk count is
+capped at ``MAX_C``.  Member axis: an ensemble's reduced systems
+``Lred, Ured (B, 2s, 2s, C)`` factor into level operators
+``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block each
+(``gridDim.x = B``); right-hand sides lead with B the same way.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import banded, thomas
+from .thomas import members
 from ._build import csrc_library
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 
@@ -43,7 +47,8 @@ LIB = csrc_library("pcr.cu")
 
 
 class PcrFactor(NamedTuple):
-    """Per-level operators (nlev, s2, s2, C) and final inverse (s2, s2, C)."""
+    """Per-level operators ((B,) nlev, s2, s2, C) and final inverse
+    ((B,) s2, s2, C)."""
 
     alphas: torch.Tensor
     betas: torch.Tensor
@@ -63,78 +68,97 @@ def _check_sizes(s2, C, what):
 
 
 def pcr_factor_plain(Lred, Ured, cyclic: bool) -> PcrFactor:
-    s2, _, C = Lred.shape
+    *lead, s2, _, C = Lred.shape
     eye = torch.eye(s2, dtype=Lred.dtype, device=Lred.device)
     alphas, betas, Dinv = banded.pcr_factor(
-        Lred, eye[..., None].expand(s2, s2, C), Ured, cyclic)
-    empty = Lred.new_zeros((0, s2, s2, C))
-    return PcrFactor(torch.stack(alphas) if alphas else empty,
-                     torch.stack(betas) if betas else empty, Dinv)
+        Lred, eye[..., None].expand(*lead, s2, s2, C), Ured, cyclic)
+    empty = Lred.new_zeros((*lead, 0, s2, s2, C))
+    return PcrFactor(torch.stack(alphas, dim=-4) if alphas else empty,
+                     torch.stack(betas, dim=-4) if betas else empty, Dinv)
 
 
 def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     """Factor the reduced system with identity diagonal blocks."""
     if Lred.device.type == "cpu":
         return pcr_factor_plain(Lred, Ured, cyclic)
-    s2, _, C = Lred.shape
-    check_cuda((Lred, Ured), Lred.dtype, "K4 pcr_factor")
-    check_shapes("K4 pcr_factor", Lred=(Lred, (s2, s2, C)),
-                 Ured=(Ured, (s2, s2, C)))
-    _check_sizes(s2, C, "K4 pcr_factor")
+    B, lead = members(Lred, 3)
+    s2, _, C = Lred.shape[-3:]
+    what = "K4 pcr_factor"
+    check_cuda((Lred, Ured), Lred.dtype, what)
+    check_shapes(what, Lred=(Lred, (*lead, s2, s2, C)),
+                 Ured=(Ured, (*lead, s2, s2, C)))
+    _check_sizes(s2, C, what)
     if cyclic and C & (C - 1):
-        raise ValueError("K4 pcr_factor: cyclic PCR requires a power-of-two C")
+        raise ValueError(f"{what}: cyclic PCR requires a power-of-two C")
     nlev = n_levels(C)
-    ops = torch.empty((2, nlev, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
-    Dinv = torch.empty((s2, s2, C), dtype=Lred.dtype, device=Lred.device)
-    scratch = torch.empty((7, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
-    fn = LIB.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 3)
+    ops = torch.empty((2, *lead, nlev, s2, s2, C), dtype=Lred.dtype,
+                      device=Lred.device)
+    Dinv = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
+    scratch = torch.empty((B, 7, s2, s2, C), dtype=Lred.dtype,
+                          device=Lred.device)
+    fn = LIB.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
     rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
             ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
-            int(bool(cyclic)), stream_of(Lred))
-    LIB.check(rc, "K4 pcr_factor")
+            int(bool(cyclic)), B, stream_of(Lred))
+    LIB.check(rc, what)
     FACTOR_LAUNCHES.add()
     return PcrFactor(ops[0], ops[1], Dinv)
 
 
+def _columns(red: PcrFactor, lead):
+    """The factor's operators with a column axis in front of each member's
+    rows, for right-hand sides ((B,) R, s2, C)."""
+    if not lead:
+        return red
+    return PcrFactor(red.alphas.unsqueeze(1), red.betas.unsqueeze(1),
+                     red.Dinv.unsqueeze(1))
+
+
 def pcr_solve_plain(red: PcrFactor, b):
+    lead = red.Dinv.shape[:-3]
+    if lead and b.ndim == 4:
+        red = _columns(red, lead)
+        return banded.pcr_solve(red.alphas.unbind(-4), red.betas.unbind(-4),
+                                red.Dinv, b)
     return banded.pcr_solve(red.alphas, red.betas, red.Dinv, b)
 
 
-def _check_factor(red: PcrFactor, s2, C, dtype, what, *more):
+def _check_factor(red: PcrFactor, s2, C, dtype, what, lead, *more):
     check_cuda((red.alphas, red.betas, red.Dinv) + more, dtype, what)
-    ops = (n_levels(C), s2, s2, C)
+    ops = (*lead, n_levels(C), s2, s2, C)
     check_shapes(what, alphas=(red.alphas, ops), betas=(red.betas, ops),
-                 Dinv=(red.Dinv, (s2, s2, C)))
+                 Dinv=(red.Dinv, (*lead, s2, s2, C)))
     _check_sizes(s2, C, what)
 
 
-def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R):
+def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R, B):
     """One launch of the R-column solve: of b, or (b None) of the Woodbury
     columns read off Lred / Ured, which also writes cap_inv."""
-    s2, _, C = red.Dinv.shape
+    s2, _, C = red.Dinv.shape[-3:]
     dtype, device = red.Dinv.dtype, red.Dinv.device
-    scratch = torch.empty((2, R, s2, C), dtype=dtype, device=device)
+    scratch = torch.empty((B, 2, R, s2, C), dtype=dtype, device=device)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    fn = LIB.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 3)
+    fn = LIB.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 4)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
             ptr(b), ptr(Lred), ptr(Ured), out.data_ptr(), ptr(cap_inv),
-            scratch.data_ptr(), C, s2, R, stream_of(red.Dinv))
+            scratch.data_ptr(), C, s2, R, B, stream_of(red.Dinv))
     LIB.check(rc, "K4 pcr_solve")
     COLS_LAUNCHES.add()
 
 
 def pcr_solve(red: PcrFactor, b):
-    """Solve the reduced system for R right-hand sides ``b (R, s2, C)``
-    in one launch; returns (R, s2, C)."""
+    """Solve the reduced system for R right-hand sides ``b ((B,) R, s2,
+    C)`` in one launch; returns b's shape."""
     if b.device.type == "cpu":
         return pcr_solve_plain(red, b)
-    R, s2, C = b.shape
-    _check_factor(red, s2, C, b.dtype, "K4 pcr_solve", b)
+    B, lead = members(b, 3)
+    R, s2, C = b.shape[-3:]
+    _check_factor(red, s2, C, b.dtype, "K4 pcr_solve", lead, b)
     out = torch.empty_like(b)
-    _launch_cols(red, b, None, None, out, None, R)
+    _launch_cols(red, b, None, None, out, None, R, B)
     return out
 
 
@@ -143,62 +167,67 @@ def woodbury_plain(red: PcrFactor, Lred, Ured):
 
 
 def woodbury(red: PcrFactor, Lred, Ured):
-    """The Woodbury closure of a ring factored acyclic: ``Z (2s, 2s, C)``,
-    the acyclic solve of its 2s columns, and ``cap_inv (2s, 2s)``, in one
-    K4 launch (``banded.woodbury_setup`` has the algebra)."""
+    """The Woodbury closure of a ring factored acyclic: ``Z ((B,) 2s, 2s,
+    C)``, the acyclic solve of its 2s columns, and ``cap_inv ((B,) 2s,
+    2s)``, in one K4 launch (``banded.woodbury_setup`` has the algebra)."""
     if Lred.device.type == "cpu":
         return woodbury_plain(red, Lred, Ured)
-    s2, _, C = Lred.shape
-    _check_factor(red, s2, C, Lred.dtype, "K4 pcr_solve", Lred, Ured)
-    check_shapes("K4 pcr_solve", Lred=(Lred, (s2, s2, C)),
-                 Ured=(Ured, (s2, s2, C)))
+    B, lead = members(Lred, 3)
+    s2, _, C = Lred.shape[-3:]
+    what = "K4 pcr_solve"
+    _check_factor(red, s2, C, Lred.dtype, what, lead, Lred, Ured)
+    check_shapes(what, Lred=(Lred, (*lead, s2, s2, C)),
+                 Ured=(Ured, (*lead, s2, s2, C)))
     if C < 2:
-        raise ValueError("K4 pcr_solve: the Woodbury closure needs C >= 2")
-    Z = torch.empty((s2, s2, C), dtype=Lred.dtype, device=Lred.device)
-    cap_inv = torch.empty((s2, s2), dtype=Lred.dtype, device=Lred.device)
-    _launch_cols(red, None, Lred, Ured, Z, cap_inv, s2)
+        raise ValueError(f"{what}: the Woodbury closure needs C >= 2")
+    Z = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
+    cap_inv = torch.empty((*lead, s2, s2), dtype=Lred.dtype,
+                          device=Lred.device)
+    _launch_cols(red, None, Lred, Ured, Z, cap_inv, s2, B)
     return Z, cap_inv
 
 
 def pcr_solve_shift_plain(red: PcrFactor, yred, wrap: bool, Z=None,
                           cap_inv=None):
-    s = yred.shape[0] // 2
+    s = yred.shape[-2] // 2
     z = pcr_solve_plain(red, yred)
     if Z is not None:
         z = banded.woodbury_correct(Z, cap_inv, z)
-    xm1 = torch.roll(z[s:], 1, dims=-1)
-    xp1 = torch.roll(z[:s], -1, dims=-1)
+    xm1 = torch.roll(z[..., s:, :], 1, dims=-1)
+    xp1 = torch.roll(z[..., :s, :], -1, dims=-1)
     if not wrap:
-        xm1[:, 0] = 0.0
-        xp1[:, -1] = 0.0
+        xm1[..., 0] = 0.0
+        xp1[..., -1] = 0.0
     return xm1, xp1
 
 
 def pcr_solve_shift(red: PcrFactor, yred, wrap: bool, Z=None, cap_inv=None):
-    """Solve the reduced system for ``yred (2s, C)`` and return the
-    neighbour interface unknowns of every chunk: ``xm1[:, c]`` = bottom of
-    chunk c-1 and ``xp1[:, c]`` = top of chunk c+1, each (s, C); around
-    the ring with ``wrap``, zero past the ends without.  With the Woodbury
-    closure ``(Z, cap_inv)`` of ``woodbury`` the acyclic solution is
-    corrected to the ring's first."""
+    """Solve the reduced system for ``yred ((B,) 2s, C)`` and return the
+    neighbour interface unknowns of every chunk: ``xm1[..., :, c]`` =
+    bottom of chunk c-1 and ``xp1[..., :, c]`` = top of chunk c+1, each
+    ((B,) s, C); around the ring with ``wrap``, zero past the ends
+    without.  With the Woodbury closure ``(Z, cap_inv)`` of ``woodbury``
+    the acyclic solution is corrected to the ring's first."""
     if yred.device.type == "cpu":
         return pcr_solve_shift_plain(red, yred, wrap, Z, cap_inv)
-    s2, C = yred.shape
+    B, lead = members(yred, 2)
+    s2, C = yred.shape[-2:]
     s = s2 // 2
     what = "K4 pcr_solve_shift"
     wood = () if Z is None else (Z, cap_inv)
-    _check_factor(red, s2, C, yred.dtype, what, yred, *wood)
+    _check_factor(red, s2, C, yred.dtype, what, lead, yred, *wood)
     if Z is not None:
         if not wrap:
             raise ValueError(f"{what}: the Woodbury closure needs wrap")
-        check_shapes(what, Z=(Z, (s2, s2, C)), cap_inv=(cap_inv, (s2, s2)))
-    out = torch.empty((2, s, C), dtype=yred.dtype, device=yred.device)
-    scratch = torch.empty((2, s2, C), dtype=yred.dtype, device=yred.device)
-    fn = LIB.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 3)
+        check_shapes(what, Z=(Z, (*lead, s2, s2, C)),
+                     cap_inv=(cap_inv, (*lead, s2, s2)))
+    out = torch.empty((2, *lead, s, C), dtype=yred.dtype, device=yred.device)
+    scratch = torch.empty((B, 2, s2, C), dtype=yred.dtype, device=yred.device)
+    fn = LIB.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 4)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
             yred.data_ptr(), 0 if Z is None else Z.data_ptr(),
             0 if Z is None else cap_inv.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), scratch.data_ptr(), C, s2, int(bool(wrap)),
+            out[1].data_ptr(), scratch.data_ptr(), C, s2, int(bool(wrap)), B,
             stream_of(yred))
     LIB.check(rc, what)
     SOLVE_LAUNCHES.add()

@@ -7,17 +7,24 @@ entry is printed as a C++ expression templated on the element type ``T``
 and spliced into ``csrc/stencil.cu``.  The printer keeps every literal a
 ``T`` value, so the float instantiation never computes in double.
 
-Replaces the TPU's ``ops/folded.py:eval_F_folded`` in its plain and its
+Replaces the TPU's ``ops/folded.py:eval_F_folded`` in its plain, its
 ``scale``/``bias`` mode (``scale * F(u) + bias``, the ROW stage right-hand
-side), and computes the same functions as ``eval_J_folded`` and
-``ops/pallas_stencil.py:eval_F`` / ``eval_J_bands``.  ``eval_F_folded``'s
-fused ``u_terms`` mode runs only on the reference's ensemble plans and is
-not ported yet (ROADMAP A7).  The plain versions are
-``scale * TorchBackend.F_impl + bias`` and ``TorchBackend.J_bands_impl``.
+side) and its fused ``u_terms`` mode (``eval_F_terms``, entry
+``K1.F_terms``: F at ``Σ a_j u_j`` plus ``Σ c_j u_j`` in one pass, which
+the reference runs on its ensemble plans), and computes the same functions
+as ``eval_J_folded`` and ``ops/pallas_stencil.py:eval_F`` /
+``eval_J_bands``.  The plain versions are ``scale * TorchBackend.F_impl +
+bias``, the same with the terms combined in the kernel's order, and
+``TorchBackend.J_bands_impl``.
+
+Every entry takes a leading member axis (an ensemble's B grids: u,
+helpers, parameters, bias and the stage vectors ``(B, rows, N)``, x shared)
+and a per-member F scale, a (B,) tensor on the card, beside the number.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 
 import sympy as sp
@@ -26,10 +33,17 @@ from sympy.printing.c import C99CodePrinter
 
 from . import _build
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from .banded import per_member
+from .thomas import beta_args, members
 
-#: launches of the F entry and of the J entry made by the wrappers below
+#: launches of the F, F_terms and J entries made by the wrappers below
 F_LAUNCHES = Counter("K1.F")
+F_TERMS_LAUNCHES = Counter("K1.F_terms")
 J_LAUNCHES = Counter("K1.J")
+
+#: most stage vectors of one F_terms launch (kMaxTerms in csrc/stencil.cu):
+#: u and RODASPR's five earlier stages, with room for one more
+MAX_TERMS = 8
 
 
 class KernelPrinter(C99CodePrinter):
@@ -108,13 +122,16 @@ class KernelPrinter(C99CodePrinter):
         return f"fabs({self._print(expr.args[0])})"
 
 
-def generate_source(system, args_symbols, template="stencil.cu") -> str:
+def generate_source(system, args_symbols, template="stencil.cu",
+                    dtype=torch.float64) -> str:
     """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu`` or
     K6's ``megastep.cu``) with the constants and the expression bodies of
-    ``system`` spliced in."""
+    ``system`` spliced in, and the entries of the model's ``dtype`` only
+    (the one it computes in: half the build of both)."""
     printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
     nvar = system.nvar
     lines = [
+        f"#define TF_F32 {int(dtype == torch.float32)}",
         f"#define TF_NVAR {nvar}",
         f"#define TF_NHELP {len(system.help_funcs)}",
         f"#define TF_NPAR {len(system.pars)}",
@@ -140,68 +157,142 @@ BARE_LITERAL = re.compile(
     r"(?<![\w.])(?<!T\()(?<!T\(-)\d+(?:\.\d*(?:[eE][-+]?\d+)?|[eE][-+]?\d+)")
 
 
-def library(system, args_symbols, template="stencil.cu") -> _build.Library:
+def library(system, args_symbols, template="stencil.cu",
+            dtype=torch.float64) -> _build.Library:
     """The model's K1 library (or, with ``template="megastep.cu"``, its K6
-    library), generated and built at its first launch."""
+    library) for ``dtype``, generated and built at its first launch."""
     return _build.Library(template.split(".")[0],
                           lambda: generate_source(system, args_symbols,
-                                                  template))
+                                                  template, dtype))
 
 
 def _kernel_inputs(backend, u, helpers, pstack, x):
+    """(N, B, lead) of checked kernel inputs."""
     check_cuda((u, helpers, pstack, x), backend.dtype, "K1 stencil")
     sysm = backend.system
     N = x.shape[-1]
-    check_shapes("K1 stencil", u=(u, (sysm.nvar, N)),
-                 helpers=(helpers, (len(sysm.help_funcs), N)),
-                 pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
-    return N
+    B, lead = members(u, 2)
+    check_shapes("K1 stencil", u=(u, (*lead, sysm.nvar, N)),
+                 helpers=(helpers, (*lead, len(sysm.help_funcs), N)),
+                 pstack=(pstack, (*lead, len(sysm.pars), N)), x=(x, (N,)))
+    return N, B, lead
+
+
+def _scaled(scale, out):
+    if isinstance(scale, torch.Tensor):
+        return per_member(scale, out.ndim) * out
+    return out if scale == 1.0 else scale * out
 
 
 def eval_F_plain(backend, u, helpers, pstack, x, periodic, scale=1.0,
                  bias=None):
-    out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
-    if scale != 1.0:
-        out = scale * out
+    out = _scaled(scale, backend.F_impl(u, helpers, pstack, x,
+                                        periodic=periodic))
     return out if bias is None else out + bias
 
 
 def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
-    """``scale * F(u) (+ bias)``, shape (nvar, N); ``bias`` is None or of
-    shape (nvar, N).  CPU tensors take the plain version; CUDA tensors
-    launch K1's F entry."""
+    """``scale * F(u) (+ bias)``, shape ((B,) nvar, N); ``bias`` is None
+    or of u's shape, ``scale`` a number or a per-member (B,) tensor.  CPU
+    tensors take the plain version; CUDA tensors launch K1's F entry."""
     if u.device.type == "cpu":
         return eval_F_plain(backend, u, helpers, pstack, x, periodic, scale,
                             bias)
-    N = _kernel_inputs(backend, u, helpers, pstack, x)
+    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
     nvar = backend.system.nvar
     if bias is not None:
         check_cuda((bias,), backend.dtype, "K1 stencil F bias")
-        check_shapes("K1 stencil F", bias=(bias, (nvar, N)))
-    out = torch.empty((nvar, N), dtype=u.dtype, device=u.device)
+        check_shapes("K1 stencil F", bias=(bias, (*lead, nvar, N)))
+    scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device,
+                                     "K1 stencil F scale")
+    out = torch.empty((*lead, nvar, N), dtype=u.dtype, device=u.device)
     lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 6, 2, 1)
+    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            0 if bias is None else bias.data_ptr(), out.data_ptr(), N,
-            int(bool(periodic)), float(scale), stream_of(u))
+            0 if bias is None else bias.data_ptr(), out.data_ptr(), scale_ptr,
+            N, B, int(bool(periodic)), scale_val, stream_of(u))
     lib.check(rc, "K1 stencil F")
     F_LAUNCHES.add()
     return out
 
 
+def _lin(coefs, arrays):
+    """``Σ c_j * arrays[j]`` in term order, a zero coefficient skipped and a
+    unit one added unmultiplied (None when every coefficient is zero)."""
+    acc = None
+    for c, arr in zip(coefs, arrays):
+        if c:
+            t = arr if c == 1.0 else c * arr
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def eval_F_terms_plain(backend, terms, helpers, pstack, x, periodic, scale):
+    arrays = [t[2] for t in terms]
+    u = _lin([float(t[0]) for t in terms], arrays)
+    if u is None:
+        u = torch.zeros_like(arrays[0])
+    out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
+    out = (per_member(scale, out.ndim) if isinstance(scale, torch.Tensor)
+           else scale) * out
+    for c, arr in zip((float(t[1]) for t in terms), arrays):
+        if c:
+            out = out + (arr if c == 1.0 else c * arr)
+    return out
+
+
+def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale):
+    """The fused ROW stage right-hand side ``scale * F(Σ a_j u_j) +
+    Σ c_j u_j`` for ``terms = [(a_j, c_j, u_j), ...]`` (Python numbers;
+    stage vectors of one shape ((B,) nvar, N)), in one pass over the stage
+    vectors: the reference's ``eval_F_folded(..., u_terms=terms)``.  The
+    bias terms are added one by one after the scaled F, in term order.
+    CPU tensors take the plain version; CUDA tensors launch K1's F_terms
+    entry."""
+    arrays = [t[2] for t in terms]
+    u0 = arrays[0]
+    if u0.device.type == "cpu":
+        return eval_F_terms_plain(backend, terms, helpers, pstack, x,
+                                  periodic, scale)
+    what = "K1 stencil F_terms"
+    A = len(terms)
+    if not 1 <= A <= MAX_TERMS:
+        raise NotImplementedError(f"{what}: {A} terms; the kernel takes 1 to "
+                                  f"{MAX_TERMS}")
+    N, B, lead = _kernel_inputs(backend, u0, helpers, pstack, x)
+    check_cuda(arrays, backend.dtype, what)
+    check_shapes(what, **{f"terms[{k}]": (a, u0.shape)
+                          for k, a in enumerate(arrays)})
+    scale_ptr, scale_val = beta_args(scale, B, u0.dtype, u0.device,
+                                     f"{what} scale")
+    out = torch.empty_like(u0)
+    in_ptrs = (ctypes.c_uint64 * A)(*(a.data_ptr() for a in arrays))
+    coefs = (ctypes.c_double * (2 * A))(*(float(t[0]) for t in terms),
+                                        *(float(t[1]) for t in terms))
+    lib = backend.stencil
+    fn = lib.fn(f"tf_stencil_F_terms_{suffix(u0.dtype)}", 7, 4, 1)
+    rc = fn(ctypes.addressof(in_ptrs), ctypes.addressof(coefs),
+            helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(), out.data_ptr(),
+            scale_ptr, A, N, B, int(bool(periodic)), scale_val, stream_of(u0))
+    lib.check(rc, what)
+    F_TERMS_LAUNCHES.add()
+    return out
+
+
 def eval_J(backend, u, helpers, pstack, x, periodic):
-    """Banded J, shape (W, nvar, nvar, N), edge-folded when not periodic.
-    CPU tensors take the plain version; CUDA tensors launch K1's J entry."""
+    """Banded J, shape ((B,) W, nvar, nvar, N), edge-folded when not
+    periodic.  CPU tensors take the plain version; CUDA tensors launch K1's
+    J entry."""
     if u.device.type == "cpu":
         return backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
-    N = _kernel_inputs(backend, u, helpers, pstack, x)
+    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
     nvar = backend.system.nvar
-    bands = torch.empty((backend.window, nvar, nvar, N), dtype=u.dtype,
+    bands = torch.empty((*lead, backend.window, nvar, nvar, N), dtype=u.dtype,
                         device=u.device)
     lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_J_{suffix(u.dtype)}", 5, 2)
+    fn = lib.fn(f"tf_stencil_J_{suffix(u.dtype)}", 5, 3)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            bands.data_ptr(), N, int(bool(periodic)), stream_of(u))
+            bands.data_ptr(), N, B, int(bool(periodic)), stream_of(u))
     lib.check(rc, "K1 stencil J")
     J_LAUNCHES.add()
     return bands

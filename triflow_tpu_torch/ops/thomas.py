@@ -10,6 +10,15 @@ and sweeps of ``ops/banded.py``.
 
 Every wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``plan`` is an ``ops.chunked.Plan``.
+
+Member axis: bands ``(B, W, nvar, nvar, N)`` (an ensemble's B grids) give
+a factor whose arrays lead with B, each member's slab laid out as one
+grid's (rows ``(B, Mc, s, s, C)``, reduced couplings ``(B, 2s, 2s, C)``),
+and right-hand sides ``(B, nvar, N)``.  The kernels run one thread per
+(member, chunk) or (member, node); members never couple, and each member's
+ring closes on itself.  The factor shift ``beta`` is a number or a
+per-member (B,) tensor on the bands' device (the kernel reads it there,
+so shared and per-member step sizes take one code).
 """
 
 from __future__ import annotations
@@ -38,95 +47,142 @@ def _check_s(plan, what):
             "instantiation yet")
 
 
-def _rows_shape(plan):
-    return (plan.Mc, plan.s, plan.s, plan.C)
+def members(t, unbatched_ndim):
+    """(B, lead): the member count of ``t`` and the shape prefix its
+    arrays carry, () for one grid (``unbatched_ndim`` dimensions)."""
+    if t.ndim == unbatched_ndim:
+        return 1, ()
+    if t.ndim == unbatched_ndim + 1:
+        return t.shape[0], (t.shape[0],)
+    raise ValueError(f"tensor of shape {tuple(t.shape)}: expected "
+                     f"{unbatched_ndim} dimensions, or one more for members")
+
+
+def beta_args(beta, B, dtype, device, what):
+    """(pointer, number) of a factor shift or F scale: a per-member (B,)
+    tensor goes by its device address (the number is then unused), a
+    number by value."""
+    if isinstance(beta, torch.Tensor):
+        check_cuda((beta,), dtype, what)
+        check_shapes(what, beta=(beta, (B,)))
+        return beta.data_ptr(), 0.0
+    return 0, float(beta)
+
+
+def _rows_shape(plan, lead=()):
+    return (*lead, plan.Mc, plan.s, plan.s, plan.C)
+
+
+def _chunk_major(t, lead):
+    """A factor array of the kernel layout ((B,) Mc, ...) with Mc first,
+    as the plain sweeps walk it."""
+    return t.movedim(1, 0) if lead else t
 
 
 def spike_factor_plain(bands, alpha, beta, plan):
     L, D, U = banded.assemble_blocks(banded.axpy_bands(alpha, beta, bands))
-    return banded.chunked_factor(L, D, U, plan.C, plan.wrap)
+    fact = banded.chunked_factor(L, D, U, plan.C, plan.wrap)
+    if bands.ndim == 4:
+        return fact
+    rows = [t.movedim(0, 1).contiguous() for t in fact[:5]]
+    return banded.SpikeFactor(*rows, fact.Lred, fact.Ured)
 
 
 def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
     """Chunked factorization of ``alpha*I + beta*J`` from the bands
-    ``(W, nvar, nvar, N)`` of J."""
+    ``((B,) W, nvar, nvar, N)`` of J."""
     if bands.device.type == "cpu":
         return spike_factor_plain(bands, alpha, beta, plan)
-    check_cuda((bands,), bands.dtype, "K2 spike_factor")
-    check_shapes("K2 spike_factor",
-                 bands=(bands, (plan.W, plan.nvar, plan.nvar, plan.N)))
-    _check_s(plan, "K2 spike_factor")
+    B, lead = members(bands, 4)
+    what = "K2 spike_factor"
+    check_cuda((bands,), bands.dtype, what)
+    check_shapes(what, bands=(bands, (*lead, plan.W, plan.nvar, plan.nvar,
+                                      plan.N)))
+    _check_s(plan, what)
+    beta_ptr, beta_val = beta_args(beta, B, bands.dtype, bands.device, what)
     s, C = plan.s, plan.C
-    rows = torch.empty((5, plan.Mc, s, s, C), dtype=bands.dtype,
+    rows = torch.empty((5, *_rows_shape(plan, lead)), dtype=bands.dtype,
                        device=bands.device)
-    red = torch.empty((2, 2 * s, 2 * s, C), dtype=bands.dtype,
+    red = torch.empty((2, *lead, 2 * s, 2 * s, C), dtype=bands.dtype,
                       device=bands.device)
-    fn = FACTOR_LIB.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 8, 7, 2)
+    fn = FACTOR_LIB.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 8, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
-            red[0].data_ptr(), red[1].data_ptr(), plan.N, plan.nvar, plan.g,
-            plan.halo, plan.Mc, C, int(plan.wrap), float(alpha), float(beta),
-            stream_of(bands))
-    FACTOR_LIB.check(rc, "K2 spike_factor")
+            red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.N, plan.nvar,
+            plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, float(alpha),
+            beta_val, stream_of(bands))
+    FACTOR_LIB.check(rc, what)
     FACTOR_LAUNCHES.add()
     return banded.SpikeFactor(*rows, red[0], red[1])
 
 
 def thomas_sweep_plain(fact: banded.SpikeFactor, rhs, plan):
-    y = banded.chunked_sweep(fact.fac, fact.Dhinv, fact.DU,
+    _, lead = members(rhs, 2)
+    y = banded.chunked_sweep(*(_chunk_major(t, lead) for t in fact[:3]),
                              banded.nodes_to_rows(rhs, plan.g, plan.C))
-    return banded.rows_to_nodes(y, plan.nvar), torch.cat([y[0], y[-1]], dim=0)
+    return banded.rows_to_nodes(y, plan.nvar), torch.cat([y[0], y[-1]], dim=-2)
 
 
 def thomas_sweep(fact: banded.SpikeFactor, rhs, plan):
-    """Chunk-local Thomas solve of ``rhs (nvar, N)``: returns y (nvar, N)
-    and the interface right-hand side yred (2s, C)."""
+    """Chunk-local Thomas solve of ``rhs ((B,) nvar, N)``: returns y of
+    rhs's shape and the interface right-hand side yred ((B,) 2s, C)."""
     if rhs.device.type == "cpu":
         return thomas_sweep_plain(fact, rhs, plan)
-    check_cuda((rhs, fact.fac, fact.Dhinv, fact.DU), rhs.dtype, "K3 thomas_sweep")
-    rows = _rows_shape(plan)
-    check_shapes("K3 thomas_sweep", rhs=(rhs, (plan.nvar, plan.N)),
+    B, lead = members(rhs, 2)
+    what = "K3 thomas_sweep"
+    check_cuda((rhs, fact.fac, fact.Dhinv, fact.DU), rhs.dtype, what)
+    rows = _rows_shape(plan, lead)
+    check_shapes(what, rhs=(rhs, (*lead, plan.nvar, plan.N)),
                  fac=(fact.fac, rows), Dhinv=(fact.Dhinv, rows),
                  DU=(fact.DU, rows))
-    _check_s(plan, "K3 thomas_sweep")
+    _check_s(plan, what)
     y = torch.empty_like(rhs)
-    yred = torch.empty((2 * plan.s, plan.C), dtype=rhs.dtype, device=rhs.device)
-    fn = SOLVE_LIB.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 5)
+    yred = torch.empty((*lead, 2 * plan.s, plan.C), dtype=rhs.dtype,
+                       device=rhs.device)
+    fn = SOLVE_LIB.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 6)
     rc = fn(fact.fac.data_ptr(), fact.Dhinv.data_ptr(), fact.DU.data_ptr(),
             rhs.data_ptr(), y.data_ptr(), yred.data_ptr(), plan.N, plan.nvar,
-            plan.g, plan.Mc, plan.C, stream_of(rhs))
-    SOLVE_LIB.check(rc, "K3 thomas_sweep")
+            plan.g, plan.Mc, plan.C, B, stream_of(rhs))
+    SOLVE_LIB.check(rc, what)
     SWEEP_LAUNCHES.add()
     return y, yred
 
 
 def spike_correct_plain(fact: banded.SpikeFactor, y, xm1, xp1, plan,
                         add_to=None):
+    _, lead = members(y, 2)
     rows = banded.nodes_to_rows(y, plan.g, plan.C)
-    x = banded.rows_to_nodes(
-        rows - banded.mv(fact.W, xm1) - banded.mv(fact.V, xp1), plan.nvar)
+    if lead:
+        # member-major rows against the member-major spikes
+        rows = rows.movedim(0, 1)
+        xm1, xp1 = xm1.unsqueeze(1), xp1.unsqueeze(1)
+    rows = rows - banded.mv(fact.W, xm1) - banded.mv(fact.V, xp1)
+    x = banded.rows_to_nodes(_chunk_major(rows, lead), plan.nvar)
     return x if add_to is None else add_to + x
 
 
 def spike_correct(fact: banded.SpikeFactor, y, xm1, xp1, plan, add_to=None):
-    """``add_to + (y - W xm1 - V xp1)`` in the node layout (nvar, N); xm1
-    and xp1 (s, C) are the neighbours' interface unknowns."""
+    """``add_to + (y - W xm1 - V xp1)`` in the node layout ((B,) nvar, N);
+    xm1 and xp1 ((B,) s, C) are the neighbours' interface unknowns."""
     if y.device.type == "cpu":
         return spike_correct_plain(fact, y, xm1, xp1, plan, add_to)
-    rows = _rows_shape(plan)
-    shapes = dict(y=(y, (plan.nvar, plan.N)), xm1=(xm1, (plan.s, plan.C)),
-                  xp1=(xp1, (plan.s, plan.C)), W=(fact.W, rows),
+    B, lead = members(y, 2)
+    what = "K3 spike_correct"
+    rows = _rows_shape(plan, lead)
+    shapes = dict(y=(y, (*lead, plan.nvar, plan.N)),
+                  xm1=(xm1, (*lead, plan.s, plan.C)),
+                  xp1=(xp1, (*lead, plan.s, plan.C)), W=(fact.W, rows),
                   V=(fact.V, rows))
     if add_to is not None:
-        shapes["add_to"] = (add_to, (plan.nvar, plan.N))
-    check_cuda([t for t, _ in shapes.values()], y.dtype, "K3 spike_correct")
-    check_shapes("K3 spike_correct", **shapes)
-    _check_s(plan, "K3 spike_correct")
+        shapes["add_to"] = (add_to, (*lead, plan.nvar, plan.N))
+    check_cuda([t for t, _ in shapes.values()], y.dtype, what)
+    check_shapes(what, **shapes)
+    _check_s(plan, what)
     out = torch.empty_like(y)
-    fn = SOLVE_LIB.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 6)
+    fn = SOLVE_LIB.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 7)
     rc = fn(y.data_ptr(), fact.W.data_ptr(), fact.V.data_ptr(), xm1.data_ptr(),
             xp1.data_ptr(), 0 if add_to is None else add_to.data_ptr(),
             out.data_ptr(), plan.N, plan.nvar, plan.g, plan.Mc, plan.C,
-            int(add_to is not None), stream_of(y))
-    SOLVE_LIB.check(rc, "K3 spike_correct")
+            int(add_to is not None), B, stream_of(y))
+    SOLVE_LIB.check(rc, what)
     CORRECT_LAUNCHES.add()
     return out

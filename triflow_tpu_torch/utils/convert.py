@@ -1,4 +1,4 @@
-"""Hand one state to the port: numpy arrays in, the model's tensors out."""
+"""Hand a state to the port: numpy arrays in, the model's tensors out."""
 
 from __future__ import annotations
 
@@ -34,3 +34,40 @@ def state_from_numpy(fields, pars, model):
         else:
             out_pars[key] = tensor(arr).clone()
     return out_fields, out_pars
+
+
+def ensemble_from_numpy(model, u0, x, parameter_sets, helpers0=None):
+    """The inputs of the port's ``parallel.Ensemble`` from numpy arrays, as
+    keyword arguments: ``u0`` (B, nvar, N) (or (B, N) for one variable),
+    ``x`` (N,), ``parameter_sets`` (one dict for every member, or a list of
+    B dicts of numbers and (N,) arrays) and ``helpers0`` (B, nhelp, N) or
+    None.  Arrays land on the model's device (the card, unless the model
+    was built with ``device="cpu"``) and dtype; numbers and the
+    ``periodic`` flag stay Python values.
+
+    On the CPU, as the parity tests run it::
+
+        model = Model("k * dxxU", "U", "k", device="cpu")
+        ens = Ensemble(model, **ensemble_from_numpy(
+            model, u0, x, [{"k": k, "periodic": True} for k in ks]))
+    """
+    tensor = model.backend.as_tensor
+
+    def pars(p):
+        out = {}
+        for key, value in dict(p).items():
+            arr = np.asarray(value)
+            if key == "periodic":
+                out[key] = bool(value)
+            elif arr.ndim == 0:
+                out[key] = float(arr)
+            else:
+                out[key] = tensor(arr).clone()
+        return out
+
+    sets = (pars(parameter_sets) if isinstance(parameter_sets, dict)
+            else [pars(p) for p in parameter_sets])
+    return dict(u0=tensor(np.asarray(u0)).clone(),
+                x=tensor(np.asarray(x)).clone(), parameter_sets=sets,
+                helpers0=None if helpers0 is None
+                else tensor(np.asarray(helpers0)).clone())
