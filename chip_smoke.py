@@ -50,7 +50,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    K6 against the multi-launch path, for Burgers (s = 1), KS (s = 2) and
    the two-variable model (s = 4), behind K6's gate per block size.
 
-The ensemble path (``parallel.Ensemble``, since PR 5) runs in each phase:
+The ensemble path (``parallel.Ensemble``) runs in each phase:
 phase 1 holds the member axis of K1-K4 and K6 (B = 4, block-cyclic and
 Woodbury rings, f32 and f64), K1.F_terms and K6.adaptive_scan (a shared
 dt and per member) against their plain versions, and K6's entries at the
@@ -62,9 +62,12 @@ one shared adaptive ``step``), each with its launch counts, members 0 and
 B - 1 against the port's single-grid run on the card, and the sweep
 against the port's CPU f64 run; phase 3 times them (aggregate
 cell-updates/s, ms per ``steps(100)``), breaks a config-5 step down by
-kernel, times K1.F_terms against the combination and the biased F, sweeps
-the chunk count of config 5 behind ``chunked.batch_plan_cost_us``, and
-sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
+kernel, holds every kernel of that step against its plain version at
+config 5's shapes, times K1.F_terms against the combination and the
+biased F, sweeps the chunk count of config 5 (behind
+``chunked.batch_plan_cost_us``) and of two more shapes through K1-K5 (B =
+64 at KS N = 2^13, B = 4 at N = 10^5: which plans the model picks there),
+and sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
@@ -298,7 +301,8 @@ ENSEMBLE_CASES = [
     ("sweep: B=64 x ks N=200 rodaspr shared dt tol 1e-3 (steps(4, 0.1))", B_SWEEP,
      N_SWEEP, 2, 5, SHARED, [(4, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1}, True),
     ("sweep: B=64 x ks N=200 rodaspr shared dt tol 1e-3 (step(0.1))", B_SWEEP,
-     N_SWEEP, 2, 5, SHARED, [(None, 0.1)], "K6", lambda plan: {"K6.adaptive": 1}, True),
+     N_SWEEP, 2, 5, SHARED, [(None, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1},
+     True),
     ("sweep: B=64 x ks N=200 rodaspr per-member dt tol 1e-3 (steps(4, 0.1))", B_SWEEP,
      N_SWEEP, 2, 5, PER_MEMBER, [(4, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1},
      True),
@@ -927,30 +931,55 @@ def phase3():
 
 #: chunk counts of config 5's sweep (divisors of its M = 50000 supernodes)
 BATCH_CHUNKS = [10, 25, 50, 100, 125, 200, 250, 400, 500, 625, 1000, 1250, 2500]
+#: the other shapes of the batch chunk sweep, all through K1-K5: (B, KS N,
+#: chunk counts, fixed steps per timed call); B = 64 at N = 2^13 is the
+#: largest grid K6 takes at s = 2, here with K6 withheld
+BATCH_SHAPES = [(64, 1 << 13, [2 ** k for k in range(1, 12)], 5),
+                (4, N_ENS, BATCH_CHUNKS, 3)]
 
 
-def fit_batch_cost(points, B):
+def fit_batch_cost(points):
     """Least-squares fit, relative weights, of us = a * rows walked + b *
     levels walked + c * doublings (``chunked.batch_features``) plus one
-    intercept per dtype over {dtype: [(M, C, us), ...]}; returns (a, b,
-    c, relative residual of each point)."""
-    names = sorted(points)
+    intercept per (dtype, shape) over {(dtype, B, N): [(C, us), ...]}
+    (KS, M = N / 2 supernodes); returns (a, b, c, {key: relative residual
+    of each point})."""
+    keys = sorted(points)
     rows, ys = [], []
-    for k, name in enumerate(names):
-        for M, C, us in points[name]:
-            rows.append([*chunked.batch_features(M, C, B)]
-                        + [float(k == j) for j in range(len(names))])
+    for k, (_, B, N) in enumerate(keys):
+        for C, us in points[keys[k]]:
+            rows.append([*chunked.batch_features(N // 2, C, B)]
+                        + [float(k == j) for j in range(len(keys))])
             ys.append(us)
     A, y = np.array(rows), np.array(ys)
     fit = np.linalg.lstsq(A / y[:, None], np.ones_like(y), rcond=None)[0]
-    return fit[0], fit[1], fit[2], list(np.abs(A @ fit - y) / y)
+    resid = list(np.abs(A @ fit - y) / y)
+    out, at = {}, 0
+    for key in keys:
+        out[key] = resid[at:at + len(points[key])]
+        at += len(points[key])
+    return fit[0], fit[1], fit[2], out
 
 
-def phase3_ensembles():
-    """The ensemble path: config 5's step rate and its breakdown, the
-    sweep's steps(100), K1.F_terms and K6.adaptive_scan against their
-    plain versions, config 5's chunk-count sweep and K6's crossover at
-    B = 64."""
+def chunk_sweep(ens, B, N, chunks, steps):
+    """[(C, us per fixed step)] of an ensemble on the K1-K5 route under
+    each chunk plan (CUDA events over ``steps(steps)``)."""
+    key = (N, True, B)
+    plan = ens._scheme._plan(N, True, B)
+    out = []
+    for C in sorted(set(chunks) | {plan.C}):
+        ens._scheme._plans[key] = chunked.plan_with(N, 1, 2, True, C, B)
+        out.append((C, 1e3 * cuda_ms(lambda: ens.steps(steps, 0.05), 1) / steps))
+    ens._scheme._plans[key] = plan
+    return out
+
+
+def phase3_ensembles(errs):
+    """The ensemble path: config 5's step rate and its breakdown, every
+    kernel of its multi-launch step against its plain version at config
+    5's shapes (their errors join ``errs``), the sweep's steps(100),
+    K6.adaptive_scan against its plain version, the batch chunk-count
+    sweeps and their cost fit, and K6's crossover at B = 64."""
     log("phase 3: the ensemble path")
     times, chunk_points = {}, {}
     ros = schemes.RODASPR(Model(*KS, device="cpu"), time_stepping=False, tol=None)
@@ -994,6 +1023,8 @@ def phase3_ensembles():
         rel = float((got - want).abs().max() / want.abs().max())
         if not rel <= kernel_checks.TOL[dtype]["FJ"]:
             raise RuntimeError(f"K1.F_terms config 5 {dt_name}: relative error {rel:.3e}")
+        errs[dt_name]["K1.F_terms"] = max(errs[dt_name]["K1.F_terms"],
+                                          float((got - want).abs().max()))
         p1, k1, c1, c2, k2, p2 = (cuda_ms(f, 3) for f in (plain, kern, pair, pair, kern,
                                                          plain))
         A, n = len(terms), B_ENS * N_ENS
@@ -1010,37 +1041,53 @@ def phase3_ensembles():
             f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} "
             f"operations), kernel against plain {rel:.3e} relative")
         # K3's sweep with the member axis (the batched chunked_solve_sweeps)
-        # on config 5's factor and the right-hand side above
+        # on config 5's factor and the right-hand side above (held against
+        # its plain version below)
         bands = b.J_bands(ens.u, *args, periodic=True)
         sp_ = thomas.spike_factor(bands, 1.0, -gdt, plan)
         kern = lambda: thomas.thomas_sweep(sp_, got, plan)
         plain = lambda: thomas.thomas_sweep_plain(sp_, got, plan)
-        rel = float((kern()[0] - plain()[0]).abs().max() / plain()[0].abs().max())
-        if not rel <= kernel_checks.TOL[dtype]["solve"]:
-            raise RuntimeError(f"K3.thomas_sweep config 5 {dt_name}: relative error {rel:.3e}")
         p1, k1, k2, p2 = (cuda_ms(f, 1) for f in (plain, kern, kern, plain))
         blk, s_ = plan.s ** 2 * plan.C * B_ENS, plan.s
         nbytes = (3 * plan.Mc * blk + 2 * n + 2 * 2 * s_ * plan.C * B_ENS) * item
         b_ms, b_by = bound(nbytes, 6 * s_ * s_ * (N_ENS // 2) * B_ENS, dtype)
         log(f"  K3.thomas_sweep config 5 (member axis, C={plan.C} Mc={plan.Mc}) {dt_name}: "
             f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}: {nbytes} bytes), kernel against plain {rel:.3e} relative")
-        del stages, terms, got, want, bands, sp_
-        # config 5's chunk-count sweep: one fixed step per plan
-        row = []
-        M = N_ENS // 2
-        for C in sorted(set(BATCH_CHUNKS) | {plan.C}):
-            ens._scheme._plans[(N_ENS, True, B_ENS)] = chunked.plan_with(
-                N_ENS, 1, 2, True, C, B_ENS)
-            us = 1e3 * cuda_ms(lambda: ens.steps(1, 0.05), 1)
-            chunk_points.setdefault(dt_name, []).append((M, C, us))
-            row.append(f"C={C}: {us / 1e3:.2f}")
-        ens._scheme._plans[(N_ENS, True, B_ENS)] = plan
+            f"({b_by}: {nbytes} bytes)")
+        # K1.J and every solver piece (K2, K4's factor, Woodbury set-up,
+        # R-column solve and per-stage solve, K3's sweep and correction) on
+        # config 5's state, factor shift and right-hand side against its
+        # plain version; a miss raises
+        del sp_
+        start = time.perf_counter()
+        res = kernel_checks.check_J(b, ens.u, *args, True, f"config 5 {dt_name}")
+        kernel_checks.check_solver_pieces(bands, -gdt, plan, got, ens.u, seed=5,
+                                          results=res)
+        for name, err in res.items():
+            errs[dt_name][name] = max(errs[dt_name].get(name, 0.0), err)
+        log(f"  config 5's shapes (B={B_ENS}, C={plan.C}, Mc={plan.Mc}, woodbury="
+            f"{plan.woodbury}) {dt_name}, kernels against plain versions (max abs error, "
+            f"{time.perf_counter() - start:.1f} s): " + json.dumps(res))
+        del stages, terms, got, want, bands, res
+        # the batch chunk-count sweeps: config 5, then the other shapes
+        pts = chunk_points[(dt_name, B_ENS, N_ENS)] = chunk_sweep(
+            ens, B_ENS, N_ENS, BATCH_CHUNKS, 1)
         log(f"  config 5 step by chunk count {dt_name} (ms per step, CUDA events): "
-            + ", ".join(row))
+            + ", ".join(f"C={C}: {us / 1e3:.2f}" for C, us in pts))
         del ens
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        for B, N, chunks, steps in BATCH_SHAPES:
+            ens = make_ensemble(B, N, 1, 10, dtype, "cuda", FIXED)
+            ens._scheme._mega_plans[(N, True, B)] = None
+            ens.steps(1, 0.05)
+            pts = chunk_points[(dt_name, B, N)] = chunk_sweep(ens, B, N, chunks, steps)
+            log(f"  ks B={B} N={N} (K1-K5) step by chunk count {dt_name} (ms per step, "
+                f"CUDA events over steps({steps})): "
+                + ", ".join(f"C={C}: {us / 1e3:.4f}" for C, us in pts))
+            log_profile(f"ks B={B} N={N} (K1-K5, make_plan's C) fixed rodaspr step",
+                        dt_name, profile_calls(lambda: ens.steps(1, 0.05), steps))
+            del ens
         # the sweep: steps(100) fixed, one K6 launch
         sw = make_ensemble(B_SWEEP, N_SWEEP, 2, 5, dtype, "cuda", FIXED)
         ms = [cuda_ms(lambda: sw.steps(100, 0.05), 1) for _ in range(2)]
@@ -1087,22 +1134,34 @@ def phase3_ensembles():
                 f"{k2:.4f} ms, multi-launch {m1:.4f}/{m2:.4f} ms (CUDA events over "
                 f"steps(10)); K6 {'faster' if min(k1, k2) < min(m1, m2) else 'slower'} "
                 f"(the gate admits N <= {megastep.MAX_N[2]})")
-    a, bb, c, resid = fit_batch_cost(chunk_points, B_ENS)
-    log(f"  batch cost fit config 5 (f64 and f32 pooled): {a:.4f} us per row walked, "
-        f"{bb:.4f} us per level walked, {c:.4f} us per doubling of C; relative residuals "
-        f"max {max(resid):.4f} rms {np.sqrt(np.mean(np.square(resid))):.4f}; "
-        f"batch_plan_cost_us has {chunked.BATCH_ROW_US}, {chunked.BATCH_LEVEL_US} and "
-        f"{chunked.BATCH_SPLIT_US}")
-    M = N_ENS // 2
-    plan_c = chunked.make_plan(N_ENS, 1, 2, True, B_ENS).C
-    for dt_name, pts in chunk_points.items():
-        meas = {C: us for _, C, us in pts}
-        feats = {C: chunked.batch_features(M, C, B_ENS) for C in meas}
-        fit_c = min(meas, key=lambda C: a * feats[C][0] + bb * feats[C][1] + c * feats[C][2])
+    # batch_plan_cost_us is fitted to config 5; the other shapes check the
+    # plans it picks there, and a fit over every shape shows what pooling
+    # them would pick
+    fits = {"config 5": {k: v for k, v in chunk_points.items() if k[1] == B_ENS},
+            "every shape": chunk_points}
+    for what, pts_ in fits.items():
+        a, bb, c, resid = fit_batch_cost(pts_)
+        every = [r for rs in resid.values() for r in rs]
+        picks = []
+        for (dt_name, B, N), pts in chunk_points.items():
+            meas = dict(pts)
+            feats = {C: chunked.batch_features(N // 2, C, B) for C in meas}
+            pick = min(meas, key=lambda C: a * feats[C][0] + bb * feats[C][1]
+                       + c * feats[C][2])
+            picks.append(f"B={B} {dt_name} C={pick}")
+        log(f"  batch cost fit ({what}, f64 and f32 pooled): {a:.4f} us per row walked, "
+            f"{bb:.4f} us per level walked, {c:.4f} us per doubling of C; relative "
+            f"residuals max {max(every):.4f} rms {np.sqrt(np.mean(np.square(every))):.4f}; "
+            f"it picks " + ", ".join(picks))
+    log(f"  batch_plan_cost_us has {chunked.BATCH_ROW_US}, {chunked.BATCH_LEVEL_US} and "
+        f"{chunked.BATCH_SPLIT_US}:")
+    for (dt_name, B, N), pts in chunk_points.items():
+        meas = dict(pts)
+        plan_c = chunked.make_plan(N, 1, 2, True, B).C
         best = min(meas, key=meas.get)
-        log(f"    {dt_name}: the fit's plan C={fit_c} ({meas[fit_c] / 1e3:.2f} ms), "
-            f"make_plan's C={plan_c} ({meas[plan_c] / 1e3:.2f} ms), measured best "
-            f"C={best} ({meas[best] / 1e3:.2f} ms)")
+        log(f"    B={B} N={N} {dt_name}: make_plan's C={plan_c} ({meas[plan_c]:.1f} us, "
+            f"{100 * (meas[plan_c] / meas[best] - 1):.1f} % above the best), measured best "
+            f"C={best} ({meas[best]:.1f} us)")
     return times
 
 
@@ -1378,7 +1437,7 @@ def run():
     errs = timed(phase1)
     launches = timed(phase2_ensembles, timed(phase2))
     times = timed(phase3)
-    for part in (timed(phase3_small), timed(phase3_ensembles)):
+    for part in (timed(phase3_small), timed(phase3_ensembles, errs)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

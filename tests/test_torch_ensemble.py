@@ -41,8 +41,7 @@ import triflow_tpu_torch as tt
 from triflow_tpu.core import schemes as schemes_j
 from triflow_tpu.parallel import Ensemble as EnsembleJ
 from triflow_tpu.parallel import stack_parameters as stack_parameters_j
-from triflow_tpu_torch.core import rosenbrock
-from triflow_tpu_torch.ops import banded, chunked, combine, megastep, pcr, stencil, thomas
+from triflow_tpu_torch.ops import chunked, combine, megastep, pcr, stencil, thomas
 from triflow_tpu_torch.parallel import Ensemble, stack_parameters
 from triflow_tpu_torch.utils.convert import ensemble_from_numpy
 

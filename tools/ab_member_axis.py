@@ -2,21 +2,28 @@
 """Time the PyTorch port's single-grid paths in two checkouts, in turns on
 one NVIDIA GPU: what an ensemble's member axis costs one grid.
 
-    python3 tools/ab_member_axis.py OTHER_CHECKOUT
+    python3 tools/ab_member_axis.py OTHER_CHECKOUT [PAIRS]
 
-runs OTHER, this checkout, this checkout, OTHER, each in a process of its
-own (one ``triflow_tpu_torch`` per process, each building its own
-kernels), and prints one JSON line per run: the card's name, and per dtype
-the CUDA-event ms of one fixed RODASPR step of KS at N = 10^6 (K1-K5,
-Woodbury plan) and of its K4 factor and per-stage solve, of one Theta step
-of Burgers at N = 10^6, of one K6 RODASPR step of the README model (N =
-200, ``device_fixed_scan`` of 100 steps), and of one K6 adaptive output
-step of KS at N = 2^13 (tol 1e-3, from t = 0); and per kernel entry of
-the Burgers Theta step its CUDA-event ms, with the host's ms to enqueue
-one step (host clock over 20 unsynchronised steps).
+runs OTHER, this checkout, this checkout, OTHER (PAIRS times, default 1),
+each in a process of its own (one ``triflow_tpu_torch`` per process; the
+first process of each checkout builds its kernels), and prints one JSON
+line per run: the card's name, and per dtype the CUDA-event ms of one
+fixed RODASPR step of KS at N = 10^6 (K1-K5, Woodbury plan), that step's
+device µs per kernel function (``torch.profiler`` over 5 steps, template
+arguments dropped), the CUDA-event ms of every kernel entry at that
+step's shapes, of one Theta step of Burgers at N =
+10^6 and of every kernel entry at its shapes, with the host's ms to
+enqueue one Theta step (host clock over 20 unsynchronised steps), of one
+K6 RODASPR step of the README model (N = 200, ``device_fixed_scan`` of
+100 steps), and of one K6 adaptive output step of KS at N = 2^13 (tol
+1e-3, from t = 0).  Then one JSON line per measurement: its mean over
+OTHER's runs and over this checkout's, this against OTHER in per cent,
+and the spread (max - min over mean, per cent) within each side.
 """
 
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +44,61 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def entries(b, u, helpers, pstack, x, plan, beta, scale):
+    """{kernel entry: callable} of one implicit stage's kernels on a grid:
+    K1's F (with a bias) and J, K2, K4 (factor, the Woodbury set-up where
+    the plan has one, the per-stage solve), K3's sweep and correction, and
+    K5's two-row combination of six arrays (a RODASPR stage's sums)."""
+    from triflow_tpu_torch.ops import combine, pcr, thomas
+
+    bands = b.J_bands(u, helpers, pstack, x, periodic=True)
+    sp = thomas.spike_factor(bands, 1.0, beta, plan)
+    red = pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic)
+    wood = pcr.woodbury(red, sp.Lred, sp.Ured) if plan.woodbury else ()
+    rhs = b.F(u, helpers, pstack, x, periodic=True, scale=scale, bias=u)
+    y, yred = thomas.thomas_sweep(sp, rhs, plan)
+    xm1, xp1 = pcr.pcr_solve_shift(red, yred, True, *wood)
+    arrays = [u + k for k in range(6)]
+    rows = [[1.0, 0.5, -0.25, 0.125, 2.0, -1.0], [0.0, 0.3, 0.7, -0.2, 0.1, 0.4]]
+    out = {
+        "K1.F": lambda: b.F(u, helpers, pstack, x, periodic=True, scale=scale, bias=u),
+        "K1.J": lambda: b.J_bands(u, helpers, pstack, x, periodic=True),
+        "K2.spike_factor": lambda: thomas.spike_factor(bands, 1.0, beta, plan),
+        "K4.pcr_factor": lambda: pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic),
+        "K3.thomas_sweep": lambda: thomas.thomas_sweep(sp, rhs, plan),
+        "K4.pcr_solve_shift": lambda: pcr.pcr_solve_shift(red, yred, True, *wood),
+        "K3.spike_correct": lambda: thomas.spike_correct(sp, y, xm1, xp1, plan,
+                                                         add_to=u),
+        "K5.combine": lambda: combine.combine(rows, arrays),
+    }
+    if plan.woodbury:
+        out["K4.pcr_solve (woodbury)"] = lambda: pcr.woodbury(red, sp.Lred, sp.Ured)
+    return out
+
+
+def device_us(torch, fn, steps=5):
+    """{kernel function: device µs per call of fn} under torch.profiler,
+    and their sum under "busy"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void\s+", "", ev.name.replace("(anonymous namespace)::", ""))
+        name = re.match(r"[\w:]*", name).group(0).split("::")[-1] or ev.name
+        dur = (ev.time_range.end - ev.time_range.start) / steps
+        out[name] = out.get(name, 0.0) + dur
+        out["busy"] = out.get("busy", 0.0) + dur
+    return out
 
 
 def run(root):
@@ -73,22 +135,16 @@ def run(root):
         model, fields, pars = state(KS, {"x": 0.5 * i, "U": u0}, {"periodic": True}, dtype)
         ros = schemes.RODASPR(model, time_stepping=False, tol=None)
         out[f"{dt_name} ks N=10^6 rodaspr step ms"] = cuda_ms(
-            torch, lambda: ros(0.0, fields, 0.05, pars), 10)
+            torch, lambda: ros(0.0, fields, 0.05, pars), 20)
+        for name, us in device_us(torch, lambda: ros(0.0, fields, 0.05, pars)).items():
+            out[f"{dt_name} ks N=10^6 rodaspr step device {name} us"] = us
         b = model.backend
         u, helpers, x = b.split_fields(fields)
         pstack = b.pack_pars(pars, x)
-        plan = chunked.make_plan(N, 1, 2, True)
         gdt = 0.25 * 0.05
-        bands = b.J_bands(u, helpers, pstack, x, periodic=True)
-        sp = thomas.spike_factor(bands, 1.0, -gdt, plan)
-        red = pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic)
-        wood = pcr.woodbury(red, sp.Lred, sp.Ured) if plan.woodbury else ()
-        rhs = b.F(u, helpers, pstack, x, periodic=True, scale=gdt)
-        _, yred = thomas.thomas_sweep(sp, rhs, plan)
-        out[f"{dt_name} ks N=10^6 K4 pcr_factor ms"] = cuda_ms(
-            torch, lambda: pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic), 10)
-        out[f"{dt_name} ks N=10^6 K4 pcr_solve_shift ms"] = cuda_ms(
-            torch, lambda: pcr.pcr_solve_shift(red, yred, True, *wood), 20)
+        for name, fn in entries(b, u, helpers, pstack, x, chunked.make_plan(N, 1, 2, True),
+                                -gdt, gdt).items():
+            out[f"{dt_name} ks N=10^6 {name} ms"] = cuda_ms(torch, fn, 20)
         model, fields, pars = state(BURGERS, {"x": 0.5 * i, "U": np.cos(2 * np.pi * i / N * 4)},
                                     {"periodic": True, "nu": 0.5}, dtype)
         theta = schemes.Theta(model, theta=1.0)
@@ -104,26 +160,8 @@ def run(root):
         b = model.backend
         u, helpers, x = b.split_fields(fields)
         pstack = b.pack_pars(pars, x)
-        plan = chunked.make_plan(N, 1, 1, True)
-        bands = b.J_bands(u, helpers, pstack, x, periodic=True)
-        sp = thomas.spike_factor(bands, 1.0, -0.05, plan)
-        red = pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic)
-        wood = pcr.woodbury(red, sp.Lred, sp.Ured) if plan.woodbury else ()
-        rhs = b.F(u, helpers, pstack, x, periodic=True, scale=0.05)
-        y, yred = thomas.thomas_sweep(sp, rhs, plan)
-        xm1, xp1 = pcr.pcr_solve_shift(red, yred, True, *wood)
-        entries = {
-            "K1.F": lambda: b.F(u, helpers, pstack, x, periodic=True, scale=0.05),
-            "K1.J": lambda: b.J_bands(u, helpers, pstack, x, periodic=True),
-            "K2.spike_factor": lambda: thomas.spike_factor(bands, 1.0, -0.05, plan),
-            "K4.pcr_factor": lambda: pcr.pcr_factor(sp.Lred, sp.Ured, plan.cyclic),
-            "K4.pcr_solve (woodbury)": lambda: pcr.woodbury(red, sp.Lred, sp.Ured),
-            "K3.thomas_sweep": lambda: thomas.thomas_sweep(sp, rhs, plan),
-            "K4.pcr_solve_shift": lambda: pcr.pcr_solve_shift(red, yred, True, *wood),
-            "K3.spike_correct": lambda: thomas.spike_correct(sp, y, xm1, xp1, plan,
-                                                             add_to=u),
-        }
-        for name, fn in entries.items():
+        for name, fn in entries(b, u, helpers, pstack, x, chunked.make_plan(N, 1, 1, True),
+                                -0.05, 0.05).items():
             out[f"{dt_name} burgers N=10^6 {name} ms"] = cuda_ms(torch, fn, 20)
         xr = np.linspace(0, 1, 200)
         model, fields, pars = state(README, {"x": xr, "U": np.cos(2 * np.pi * xr * 5)},
@@ -144,16 +182,42 @@ def run(root):
     print(json.dumps(out), flush=True)
 
 
+def summary(runs):
+    """One JSON line per measurement: each side's mean, this against the
+    other in per cent, each side's spread in per cent."""
+    for key in runs["this"][0]:
+        if not key.endswith(("ms", "us")) or any(key not in r for rs in runs.values()
+                                                  for r in rs):
+            continue
+        sides = {side: [r[key] for r in rs] for side, rs in runs.items()}
+        mean = {side: statistics.fmean(v) for side, v in sides.items()}
+        print(json.dumps({
+            "measurement": key, "other_mean": mean["other"], "this_mean": mean["this"],
+            "this_vs_other_pct": 100 * (mean["this"] / mean["other"] - 1),
+            "other_spread_pct": 100 * (max(sides["other"]) - min(sides["other"]))
+            / mean["other"],
+            "this_spread_pct": 100 * (max(sides["this"]) - min(sides["this"]))
+            / mean["this"]}), flush=True)
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--run":
         return run(Path(sys.argv[2]).resolve())
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
     other = Path(sys.argv[1]).resolve()
     this = Path(__file__).resolve().parents[1]
-    for root in (other, this, this, other):
-        subprocess.run([sys.executable, __file__, "--run", str(root)], check=True)
+    pairs = int(sys.argv[2]) if len(sys.argv) == 3 else 1
+    runs = {"other": [], "this": []}
+    for _ in range(pairs):
+        for side, root in (("other", other), ("this", this), ("this", this),
+                           ("other", other)):
+            proc = subprocess.run([sys.executable, __file__, "--run", str(root)],
+                                  check=True, stdout=subprocess.PIPE, text=True)
+            print(proc.stdout, end="", flush=True)
+            runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    summary(runs)
     return 0
 
 

@@ -16,8 +16,9 @@ at its start time and once after the output step at ``t + dt``, as in the
 reference.
 
 An ensemble (``parallel.Ensemble``) steps B grids at once through
-``fixed_step_batched``: the same order of operations with a leading member
-axis, a per-member dt where the controller gives one, and the ROW stage
+``fixed_step_batched`` (``Theta``'s is its ``fixed_step``, which takes the
+member axis): the same order of operations with a leading member axis, a
+per-member dt where the controller gives one, and the ROW stage
 right-hand side through K1's fused ``F_terms`` entry (the reference's
 ``u_terms`` mode of its member-merged plans); a single grid keeps the
 combination (K5) and the biased F (K1).
@@ -212,10 +213,18 @@ class Theta(_SchemeBase):
         self._theta = theta
 
     def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
-        u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
+        """The hook at ``t``, then one theta step of ``dt``: one K6 launch
+        where K6's plan admits the grid, else K1-K4.  An ensemble's state
+        (u (B, nvar, N)) runs the hook on every member (``t`` one time or
+        one per member) and steps its B members together, with a member
+        axis through the same kernels."""
+        batched = u.ndim == 3
+        hook = problem.apply_hook_members if batched else problem.apply_hook
+        u, helpers, pstack, x = hook(t, u, helpers, pstack, x)
         dt = float(self._np_dtype(dt))
         theta = self._theta
-        plan = self._mega_plan(x.shape[-1], problem.periodic)
+        plan = self._mega_plan(x.shape[-1], problem.periodic,
+                               u.shape[0] if batched else 1)
         if plan is not None and theta != 0:
             u2 = megastep.theta_step(self._model.backend, plan, theta,
                                      problem.periodic, u, helpers, pstack, x,
@@ -227,26 +236,9 @@ class Theta(_SchemeBase):
         fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
         return fact.solve(rhs, add_to=u), helpers, pstack, x, None
 
-    def fixed_step_batched(self, problem, t, u, helpers, pstack, x, dt):
-        """``fixed_step`` of an ensemble: the hook on every member at ``t``
-        (one time, or one per member), then one theta step of ``dt`` of the
-        B members (u (B, nvar, N)): one K6 launch where K6's plan admits
-        the grid, else K1-K4 with a member axis."""
-        u, helpers, pstack, x = problem.apply_hook_members(t, u, helpers,
-                                                           pstack, x)
-        dt = float(self._np_dtype(dt))
-        theta = self._theta
-        plan = self._mega_plan(x.shape[-1], problem.periodic, u.shape[0])
-        if plan is not None and theta != 0:
-            u2 = megastep.theta_step(self._model.backend, plan, theta,
-                                     problem.periodic, u, helpers, pstack, x,
-                                     dt)
-            return u2, helpers, pstack, x, None
-        rhs = problem.F(u, helpers, pstack, x, scale=dt)
-        if theta == 0:
-            return u + rhs, helpers, pstack, x, None
-        fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
-        return fact.solve(rhs, add_to=u), helpers, pstack, x, None
+    #: an ensemble's step (``parallel.Ensemble``): ``fixed_step`` takes the
+    #: member axis
+    fixed_step_batched = fixed_step
 
     def device_fixed_scan(self, N, periodic=True):
         """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``

@@ -13,7 +13,7 @@
 // one launch, shared or per-member clocks), which only the reference's
 // ensembles call.
 //
-// Three entries; a member (one grid of an ensemble of B; B = 1 for one
+// Two entries; a member (one grid of an ensemble of B; B = 1 for one
 // grid) is stepped by ONE thread block of kThreads threads, and the grid
 // has nblk = min(B, the blocks the card holds at once) blocks, block k
 // taking members k, k + nblk, ...:
@@ -21,17 +21,18 @@
 //                  or -theta*dt factor shift, scale = the F scale, numbers
 //                  or per-member device arrays), writing the last state and
 //                  each member's last err;
-//   adaptive:      one output step of the clamp-and-recompute controller of
-//                  ROW_general._adaptive, run by thread 0 in the model's type
-//                  with every product, sum and quotient rounded as the host
-//                  rounds it; it writes the accepted state, dt_i, the
-//                  attempts and the status (1: max_iter exceeded, 2: dt
-//                  below its floor);
-//   adaptive_scan: nsteps such output steps, every one re-clamping its
-//                  starting dt to the output dt, the loop ending at the
-//                  first nonzero status; it also writes the output steps
-//                  done.
-// The adaptive entries of an ensemble run in two modes (scan_kernel).
+//   adaptive:      nsteps >= 1 output steps of the clamp-and-recompute
+//                  controller of ROW_general._adaptive, run by thread 0 in
+//                  the model's type with every product, sum and quotient
+//                  rounded as the host rounds it, every output step
+//                  re-clamping its starting dt to the output dt and the loop
+//                  ending at the first nonzero status; it writes the
+//                  accepted state, dt_i, the attempts, the status (1:
+//                  max_iter exceeded, 2: dt below its floor) and the output
+//                  steps done.  Its caller picks the kernel: adaptive_kernel
+//                  (one output step of one grid with a shared dt) or
+//                  scan_kernel (everything else), and counts that kernel.
+// An ensemble's adaptive steps run scan_kernel in two modes.
 // Shared dt (one clock for the ensemble, the reference's shared-dt
 // controller): an attempt's err is the max over all members, so every
 // attempt ends in a grid-wide barrier (the kernel is launched
@@ -576,7 +577,7 @@ int step(const void* ptrs, const void* ints, const void* reals, void* stream) {
 }
 
 template <typename T>
-int adaptive(const void* ptrs, const void* ints, const void* reals, int per_member,
+int adaptive(const void* ptrs, const void* ints, const void* reals, int per_member, int scan,
              void* stream) {
   Work<T> w = {};
   Table<T> tab = {};
@@ -587,7 +588,8 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   int nsteps = iv[7];
   const int nblk = iv[11];
   if (tab.rows[tab.n_stages] != 2 || nsteps < 1 || (per_member && !w.idt_b) ||
-      (!per_member && nblk > 1 && (!w.sync || !w.errs)))
+      (!per_member && nblk > 1 && (!w.sync || !w.errs)) ||
+      (!scan && (per_member || w.B != 1 || nsteps != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Ctl<T> ctl;
   ctl.t = T(rv[3]);
@@ -600,7 +602,7 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   ctl.has_dt_min = iv[9];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int shared = !per_member;
-  if (shared && w.B == 1 && nsteps == 1) {
+  if (!scan) {
     adaptive_kernel<T><<<1, kThreads, 0, s>>>(w, tab, ctl);
   } else if (!shared || nblk == 1) {
     scan_kernel<T><<<nblk, kThreads, 0, s>>>(w, tab, ctl, nsteps, shared);
@@ -622,14 +624,9 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
     return step<T>(ptrs, ints, reals, stream);                                             \
   }                                                                                        \
   extern "C" int tf_mega_adaptive_##SUFFIX(const void* ptrs, const void* ints,             \
-                                           const void* reals, int per_member,              \
+                                           const void* reals, int per_member, int scan,    \
                                            void* stream) {                                 \
-    return adaptive<T>(ptrs, ints, reals, per_member, stream);                             \
-  }                                                                                        \
-  extern "C" int tf_mega_adaptive_scan_##SUFFIX(const void* ptrs, const void* ints,        \
-                                                const void* reals, int per_member,         \
-                                                void* stream) {                            \
-    return adaptive<T>(ptrs, ints, reals, per_member, stream);                             \
+    return adaptive<T>(ptrs, ints, reals, per_member, scan, stream);                       \
   }                                                                                        \
   extern "C" int tf_mega_capacity_##SUFFIX(int kind, void* stream) {                       \
     (void)stream;                                                                          \

@@ -36,12 +36,20 @@ template <typename T, int S, bool kMembers>
 __global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
                                     const T* __restrict__ DU, const T* __restrict__ rhs, T* y,
                                     T* yred, int N, int nvar, int g, int Mc, int C, int B) {
-  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (long)B * C) return;
-  const int b = kMembers ? (int)(q / C) : 0, c = kMembers ? (int)(q % C) : (int)q;
-  const long rows = (long)Mc * S * S * C, n = (long)nvar * N;
-  tf::thomas_sweep_chunk<T, S>(fac + b * rows, Dhinv + b * rows, DU + b * rows, rhs + b * n,
-                               y + b * n, yred + b * 2L * S * C, N, nvar, g, Mc, C, c);
+  if constexpr (kMembers) {
+    const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= (long)B * C) return;
+    const int b = (int)(q / C), c = (int)(q % C);
+    const long rows = (long)Mc * S * S * C, n = (long)nvar * N;
+    tf::thomas_sweep_chunk<T, S>(fac + b * rows, Dhinv + b * rows, DU + b * rows, rhs + b * n,
+                                 y + b * n, yred + b * 2L * S * C, N, nvar, g, Mc, C, c);
+  } else {
+    // one grid: the member-free text, whose code runs faster than the
+    // member version with b folded to 0 (PERF.md)
+    const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= C) return;
+    tf::thomas_sweep_chunk<T, S>(fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, c);
+  }
 }
 
 template <typename T, int S, bool kMembers>

@@ -51,7 +51,11 @@ def plan_cost_us(M: int, C: int) -> float:
 #: slabs for ceil(B / SMS) waves of member blocks; and each doubling of C
 #: costs a share of the ensemble's traffic, BATCH_SPLIT_US at config 5's
 #: BATCH_REF_ROWS supernodes, in proportion to B * M elsewhere (the step is
-#: bound by device memory, and more, shorter chunks read it less well)
+#: bound by device memory, and more, shorter chunks read it less well).
+#: The same sweep at B = 64 x KS N = 2^13 and B = 4 x KS N = 10^5 checks
+#: it: there it picks the fastest float64 plan (C = 256, 500); a fit
+#: pooled over the three shapes describes them worse and picks slower
+#: plans everywhere (PERF.md)
 BATCH_ROW_US = 3.391
 BATCH_LEVEL_US = 21.918
 BATCH_SPLIT_US = 4177.857

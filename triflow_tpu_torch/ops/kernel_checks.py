@@ -506,17 +506,68 @@ def check_stencil_batched(model, N, periodic, device, B=BATCH, seed=0,
         want = stencil.eval_F_terms_plain(b, terms, helpers, pstack, x,
                                           periodic, sc)
         _record(results, "K1.F_terms", got, want, tol, what)
-    J_k = b.J_bands(u, helpers, pstack, x, periodic=periodic)
-    J_p = b.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
-    _record(results, "K1.J", J_k, J_p, tol, what)
+    return check_J(b, u, helpers, pstack, x, periodic, what, results)
+
+
+def check_J(backend, u, helpers, pstack, x, periodic, what, results=None):
+    """K1's J entry against its plain version on the given inputs ((B,)
+    rows, N)."""
+    results = {} if results is None else results
+    J_k = backend.J_bands(u, helpers, pstack, x, periodic=periodic)
+    J_p = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+    _record(results, "K1.J", J_k, J_p, TOL[backend.dtype]["FJ"], what)
+    return results
+
+
+def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
+    """K2 (factor of ``I + beta*J``, beta a number or one per member), K4
+    (PCR factor, the Woodbury set-up on a Woodbury plan, an R-column
+    solve, the per-stage solve and shifts) and K3 (sweep of ``rhs``,
+    correction added to ``add``) on J's bands ((B,) W, nvar, nvar, N)
+    against their plain versions, each kernel on its plain inputs."""
+    results = {} if results is None else results
+    dtype, device = bands.dtype, bands.device
+    tol = TOL[dtype]["solve"]
+    lead = tuple(bands.shape[:-4])
+    what = (f"B={plan.B} N={plan.N} s={plan.s} C={plan.C} Mc={plan.Mc} "
+            f"cyclic={plan.cyclic} woodbury={plan.woodbury}")
+    rng = np.random.default_rng(seed)
+    sp_k = thomas.spike_factor(bands, 1.0, beta, plan)
+    sp_p = thomas.spike_factor_plain(bands, 1.0, beta, plan)
+    for got, want in zip(sp_k, sp_p):
+        _record(results, "K2.spike_factor", got, want, tol, what)
+    red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
+    red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
+    for got, want in zip(red_k, red_p):
+        _record(results, "K4.pcr_factor", got, want, tol, what)
+    wood = ()
+    if plan.woodbury:
+        wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
+        for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
+            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
+    cols = torch.tensor(rng.standard_normal((*lead, 2 * plan.s, 2 * plan.s,
+                                             plan.C)), dtype=dtype, device=device)
+    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
+            pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
+    y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
+    y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
+    _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
+    _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
+    sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
+    sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
+    for got, want in zip(sh_k, sh_p):
+        _record(results, "K4.pcr_solve_shift", got, want, tol, what)
+    x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
+    x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
+    _record(results, "K3.spike_correct", x_k, x_p, tol, what)
     return results
 
 
 def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
                          seed=0, results=None):
     """K2-K4 on B members of random bands, each with its own factor shift,
-    against their plain versions, and each member's solve by its
-    residual."""
+    against their plain versions (``check_solver_pieces``), and each
+    member's solve by its residual."""
     results = {} if results is None else results
     tol = TOL[dtype]["solve"]
     bands = torch.stack([random_bands(W, nvar, N, dtype, device,
@@ -532,34 +583,7 @@ def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
                        device=device)
     add = torch.tensor(rng.standard_normal((B, nvar, N)), dtype=dtype,
                        device=device)
-    sp_k = thomas.spike_factor(bands, 1.0, betas, plan)
-    sp_p = thomas.spike_factor_plain(bands, 1.0, betas, plan)
-    for got, want in zip(sp_k, sp_p):
-        _record(results, "K2.spike_factor", got, want, tol, what)
-    red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
-    red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
-    for got, want in zip(red_k, red_p):
-        _record(results, "K4.pcr_factor", got, want, tol, what)
-    wood = ()
-    if plan.woodbury:
-        wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
-        for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
-            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
-    cols = torch.tensor(rng.standard_normal((B, 2 * plan.s, 2 * plan.s, plan.C)),
-                        dtype=dtype, device=device)
-    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
-            pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
-    y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
-    y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
-    _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
-    _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
-    sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
-    sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
-    for got, want in zip(sh_k, sh_p):
-        _record(results, "K4.pcr_solve_shift", got, want, tol, what)
-    x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
-    x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
-    _record(results, "K3.spike_correct", x_k, x_p, tol, what)
+    check_solver_pieces(bands, betas, plan, rhs, add, seed, results)
     x = chunked.factor(1.0, betas, bands, periodic, plan).solve(rhs)
     for b in range(B):
         A = float(betas[b]) * bands[b].double()
@@ -585,11 +609,11 @@ def check_megastep_batched(model, N, periodic, dt, device, results=None,
                            adaptive=None, B=BATCH):
     """K6 on B members: the step entry with a shared and with per-member
     shifts (RODASPR, Theta), its 3-step launch bit for bit against three
-    launches; with ``adaptive = (output dt, internal dt, tol)`` the
-    adaptive entry with a shared dt and per member against the plain
-    controllers (equal attempts and status, dt_i within the dt limit), and
-    the adaptive scan of two output steps bit for bit against two
-    adaptive launches, per mode."""
+    launches; with ``adaptive = (output dt, internal dt, tol)`` one
+    adaptive output step with a shared dt and per member (B members run
+    the scan kernel) against the plain controllers (equal attempts and
+    status, dt_i within the dt limit), and the adaptive scan of two output
+    steps bit for bit against two one-step launches, per mode."""
     from ..core.rosenbrock import adaptive_controller, member_controller
 
     results = {} if results is None else results
@@ -636,16 +660,19 @@ def check_megastep_batched(model, N, periodic, dt, device, results=None,
         got = megastep.row_adaptive_step(*a_args, per_member=per_member)
         want = megastep.adaptive_plain(*a_args, per_member=per_member)
         if not (np.array_equal(got[2], want[2]) and got[3] == want[3]):
-            raise CheckFailed(f"K6.adaptive {mode} {what}: (attempts, status) "
-                              f"{got[2:]} against the plain controller's {want[2:]}")
-        _record(results, "K6.adaptive", got[0], want[0], tol, f"u {mode} {what}")
+            raise CheckFailed(f"K6.adaptive_scan {mode} one output step {what}: "
+                              f"(attempts, status) {got[2:]} against the plain "
+                              f"controller's {want[2:]}")
+        _record(results, "K6.adaptive_scan", got[0], want[0], tol,
+                f"u {mode} one output step {what}")
         gap = float(np.max(np.abs(np.asarray(got[1], np.float64)
                                   - np.asarray(want[1], np.float64))
                            / np.abs(np.asarray(want[1], np.float64))))
         if not gap <= TOL[dtype]["dt"]:
-            raise CheckFailed(f"K6.adaptive {mode} dt_i {what}: relative error "
-                              f"{gap:.3e} > {TOL[dtype]['dt']:.0e}")
-        results["K6.adaptive dt_i"] = max(results.get("K6.adaptive dt_i", 0.0), gap)
+            raise CheckFailed(f"K6.adaptive_scan {mode} dt_i {what}: relative "
+                              f"error {gap:.3e} > {TOL[dtype]['dt']:.0e}")
+        results["K6.adaptive_scan dt_i"] = max(
+            results.get("K6.adaptive_scan dt_i", 0.0), gap)
         # two output steps in one scan against two adaptive launches
         scan = megastep.adaptive_scan(*a_args, 2, per_member=per_member,
                                       attempts=True)
@@ -656,7 +683,7 @@ def check_megastep_batched(model, N, periodic, dt, device, results=None,
         if not (torch.equal(scan[0], two[0]) and np.array_equal(scan[2], two[1])
                 and scan[1] == 2):
             raise CheckFailed(f"K6.adaptive_scan {mode} {what}: 2 output steps "
-                              "in one launch differ from 2 adaptive launches")
+                              "in one launch differ from 2 one-step launches")
         plain = megastep.adaptive_scan_plain(*a_args, 2, per_member=per_member)
         _record(results, "K6.adaptive_scan", scan[0], plain[0], tol,
                 f"{mode} {what}")

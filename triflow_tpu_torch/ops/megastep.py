@@ -14,7 +14,7 @@ block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
 Every entry takes a leading member axis (an ensemble's B grids, u
 ``(B, nvar, N)``): one thread block per member, as many blocks as the card
 holds at once, each looping over its share of the members.  With a shared
-dt the adaptive entries take every attempt's err as the max over all
+dt the adaptive kernels take every attempt's err as the max over all
 members (a cooperative launch with a grid-wide barrier per attempt); with
 ``per_member=True`` each member runs its own controller.
 
@@ -39,8 +39,10 @@ from . import chunked, combine, pcr, stencil, thomas
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 from .thomas import members
 
-#: launches of the fixed-step entry (1 or nsteps steps), of the adaptive
-#: entry (one output step) and of the adaptive scan (nsteps output steps)
+#: launches of the fixed-step entry (1 or nsteps steps) and of the adaptive
+#: entry's two kernels: adaptive_kernel (one output step of one grid with a
+#: shared dt) and scan_kernel (the adaptive scan: nsteps output steps, and
+#: every adaptive output step of B > 1 members or per member)
 STEP_LAUNCHES = Counter("K6.step")
 ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
 SCAN_LAUNCHES = Counter("K6.adaptive_scan")
@@ -376,8 +378,9 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
         fn = lib.fn(f"tf_mega_step_{suffix(u.dtype)}", 3, 0)
         rc = fn(*args, stream_of(u))
     else:
-        fn = lib.fn(f"tf_mega_{entry}_{suffix(u.dtype)}", 3, 1)
-        rc = fn(*args, int(kind == MEMBER_KIND), stream_of(u))
+        fn = lib.fn(f"tf_mega_adaptive_{suffix(u.dtype)}", 3, 2)
+        rc = fn(*args, int(kind == MEMBER_KIND), int(entry == "adaptive_scan"),
+                stream_of(u))
     lib.check(rc, what)
     counter.add()
     return out, info
@@ -459,20 +462,25 @@ def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
                       dt, nsteps)
 
 
-def _adaptive_launch(entry, counter, backend, plan, table, periodic, u,
-                     helpers, pstack, x, t, dt, internal_dt, tol, safety,
-                     max_iter, dt_min, nsteps, per_member):
-    """One launch of an adaptive entry; (u, info rows on the host)."""
+def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
+                     t, dt, internal_dt, tol, safety, max_iter, dt_min, nsteps,
+                     per_member):
+    """One launch of the adaptive entry; (u, info rows on the host).  One
+    output step of one grid with a shared dt launches adaptive_kernel
+    (counted as K6.adaptive), anything else scan_kernel (counted as
+    K6.adaptive_scan)."""
+    B, _ = members(u, 2)
+    scan = per_member or B > 1 or nsteps > 1
+    entry = "adaptive_scan" if scan else "adaptive"
     if len(table.final) != 2:
         raise ValueError(f"K6 {entry}: the table has no error row")
     idt_b = None
     if per_member:
-        B, _ = members(u, 2)
         idt_b = torch.as_tensor(np.broadcast_to(
             np.asarray(internal_dt, _np_type(u)), (B,)).copy(), device=u.device)
         internal_dt = 0.0
     out, info = _launch(
-        entry, counter, backend, plan, table, periodic, u, helpers, pstack, x,
+        entry, SCAN_LAUNCHES if scan else ADAPTIVE_LAUNCHES, backend, plan, table, periodic, u, helpers, pstack, x,
         _reals(g00=table.g00, t=float(t), dt=float(dt),
                internal_dt=float(internal_dt), tol=float(tol),
                safety=float(safety), dt_min=dt_min),
@@ -491,17 +499,18 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
     version, decided by ``controller`` (``core.rosenbrock``'s
     ``adaptive_controller``, or ``member_controller`` per member); CUDA
     tensors launch K6's adaptive entry, which runs that controller's
-    arithmetic, once and read its results back once."""
+    arithmetic, once and read its results back once: one grid with a
+    shared dt its adaptive_kernel (K6.adaptive), B > 1 members or per
+    member its scan_kernel (K6.adaptive_scan)."""
     if len(table.final) != 2:
         raise ValueError("K6 adaptive: the table has no error row")
     if u.device.type == "cpu":
         return adaptive_plain(controller, backend, plan, table, periodic, u,
                               helpers, pstack, x, t, dt, internal_dt, tol,
                               safety, max_iter, dt_min, per_member)
-    out, info = _adaptive_launch("adaptive", ADAPTIVE_LAUNCHES, backend, plan,
-                                 table, periodic, u, helpers, pstack, x, t, dt,
-                                 internal_dt, tol, safety, max_iter, dt_min,
-                                 1, per_member)
+    out, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
+                                 pstack, x, t, dt, internal_dt, tol, safety,
+                                 max_iter, dt_min, 1, per_member)
     T = _np_type(u)
     if per_member:
         return (out, info[:, 1].astype(T), info[:, 2].astype(np.int64),
@@ -521,7 +530,9 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
     over the steps.  With ``attempts`` a shared dt also returns the
     attempts summed over the steps.  CPU tensors take the plain version
     (``adaptive_scan_plain``, decided by ``controller``); CUDA tensors
-    launch K6's adaptive_scan entry once and read its results back once.
+    launch K6's scan_kernel (K6.adaptive_scan) once and read its results
+    back once; one output step of one grid with a shared dt launches
+    adaptive_kernel (K6.adaptive) instead.
     Per member a member stops at its own first nonzero status;
     steps_done is the fewest any member did and status the largest."""
     if nsteps < 1:
@@ -532,10 +543,9 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
                                   tol, safety, max_iter, dt_min, nsteps,
                                   per_member)
         return out if per_member or attempts else out[:4]
-    u2, info = _adaptive_launch("adaptive_scan", SCAN_LAUNCHES, backend, plan,
-                                table, periodic, u, helpers, pstack, x, t, dt,
-                                internal_dt, tol, safety, max_iter, dt_min,
-                                int(nsteps), per_member)
+    u2, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
+                                pstack, x, t, dt, internal_dt, tol, safety,
+                                max_iter, dt_min, int(nsteps), per_member)
     T = _np_type(u)
     if per_member:
         return (u2, int(info[:, 4].min()), info[:, 1].astype(T),
