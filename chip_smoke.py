@@ -14,7 +14,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    seeds, and the gap of an err twice too large), then the checks of
    ``triflow_tpu_torch.ops.kernel_checks`` at small and odd shapes (K6 at
    the shapes of ``tests/test_torch_megastep.py``), then at the shapes of
-   the main paths below.
+   the main paths below, K7 (the banded matvec) among them on the bands
+   and vectors of the refine and solver cases (``matvec_path_checks``).
 2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64,
    each case driven with the launch counts set to 0 just before it and read
    just after: the Theta path (Burgers at the reference's N = 10^6, 10
@@ -34,13 +35,24 @@ Phases (any failure raises, and the script exits non-zero with no result):
    K1-K5 they need, the small ones K6 alone; the results must be finite
    and agree with the port's CPU f64 run (plain versions) of the same
    case, in f64 with the same number of attempts in every output step.
+   Then the paths that run K7 and never K6 (``REFINE_CHECKS``): KS at
+   N = 10^6 with ``RODASPR(refine=1)``, 4 fixed steps (exactly 24 K7
+   launches, against the same case without refinement on the card),
+   the advection-diffusion trajectory of ``tests/test_precision.py``
+   (N = 1024, 500 steps of 0.01, a grid K6 admits: refine=1 in float32
+   within the reference's 5e-5 of the float64 run without it), KS at
+   N = 10^4 adaptive with ``refine=1`` (the CPU run's attempts), and
+   Burgers at N = 10^6 through ``Theta(solver=...)`` with the port's own
+   chunked solve as the solver (10 K7 launches, against the plain Theta).
 3. timing with CUDA events at N = 2^20 and 10^6: ms per Theta step
    (Burgers) and per fixed RODASPR step (KS) with cell updates per second,
    ms per adaptive attempt, each kernel entry against its plain version at
    the KS path's shapes (K4.pcr_solve, the Woodbury set-up, and the
    Woodbury correction of K4.pcr_solve_shift at 10^6), K5 against one
-   ``torch.mm`` over pre-stacked operands, and a ``torch.profiler``
-   breakdown of the Theta and RODASPR steps by kernel; then the small
+   ``torch.mm`` over pre-stacked operands, K7 against one ``torch.sparse``
+   CSR matvec of the same matrix (at N = 10^6), and a ``torch.profiler``
+   breakdown of the Theta and RODASPR steps by kernel, and at N = 10^6 of
+   the RODASPR step with ``refine=1`` beside its time; then the small
    grids: the KS N = 10^4 and Burgers N = 10^4 (K6, Woodbury) adaptive
    output steps, the README step at N = 200 per
    synchronised step (K6 and the multi-launch path) and K6's step under
@@ -58,7 +70,9 @@ sweep's shapes; phase 2 runs the reference's config 5 (B = 1024 KS members
 at N = 10^5, 3 fixed RODASPR steps, K1-K5 with a member axis) and its
 sweep (B = 64 KS members at N = 200: ``steps(100)`` fixed, ``steps(4,
 0.1)`` adaptive with a shared dt and per member, each one K6 launch, and
-one shared adaptive ``step``), each with its launch counts, members 0 and
+one shared adaptive ``step``) and B = 4 KS members at N = 10^5 with
+``refine=1`` (the host route, K7 with a member axis), each with its
+launch counts, members 0 and
 B - 1 against the port's single-grid run on the card, and the sweep
 against the port's CPU f64 run; phase 3 times them (aggregate
 cell-updates/s, ms per ``steps(100)``), breaks a config-5 step down by
@@ -71,7 +85,7 @@ and sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
-bound and library call, with f64 beside them; K4.pcr_solve at KS
+bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
 N = 10^6, the others at KS N = 2^20), the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -84,6 +98,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -94,7 +109,7 @@ import torch
 from triflow_tpu_torch import Model, Simulation, schemes
 from triflow_tpu_torch.core.rosenbrock import adaptive_controller, member_controller
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
-                                   megastep, pcr, stencil, thomas)
+                                   matvec, megastep, pcr, stencil, thomas)
 from triflow_tpu_torch.parallel import Ensemble
 from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
@@ -143,13 +158,18 @@ KERNELS = {
                     "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded"),
     "K6.adaptive_scan": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                          "triflow_tpu/ops/megastep.py:1313 row_adaptive_scan_folded"),
+    "K7.matvec": ("cuda", "triflow_tpu_torch/csrc/matvec.cu",
+                  "triflow_tpu/ops/pallas_stencil.py:381 banded_matvec_pallas + "
+                  "triflow_tpu/ops/folded.py:700 matvec_folded"),
 }
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
-#: Woodbury plan adds K4.pcr_solve
+#: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
+#: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")
-                and k not in ("K4.pcr_solve", "K1.F_terms")]
+                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
+K7 = ["K7.matvec"]
 
 #: substrings of the device kernels' names in a profiler trace
 TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
@@ -157,7 +177,8 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
                "combine_kernel": "K5.combine", "step_kernel": "K6.step",
-               "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan"}
+               "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan",
+               "matvec_kernel": "K7.matvec"}
 
 
 def log(msg):
@@ -200,6 +221,22 @@ def readme_case():
 
 
 THETA = dict(scheme=schemes.Theta, theta=1.0, time_stepping=False)
+FIXED = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None)
+REFINED = dict(FIXED, refine=1)
+
+
+def advdiff_case():
+    """``tests/test_precision.py``'s trajectory: advection-diffusion on a
+    periodic N = 1024 grid, 500 steps of 0.01."""
+    x = np.linspace(0, 10, 1024, endpoint=False)
+    return ({"x": x, "U": np.cos(x * 2 * np.pi / 10) + 2.0},
+            dict(periodic=True, k=0.05, c=0.3), 0.01, 500 * 0.01, None)
+
+
+def chunked_solver(A, B, periodic):
+    """``Theta(solver=...)``'s solver: the port's own chunked factor and
+    solve of A (K2, K4, K3)."""
+    return chunked.factor(0.0, 1.0, A, periodic).solve(B)
 
 #: K6's chunk-count sweeps, one cost fit each (megastep.plan_cost_us has
 #: the RODASPR fits by block size s): (name, grids as (equations, case),
@@ -257,16 +294,53 @@ CASES = [
     ("readme N=200 example 01 (theta, step doubling)", README, readme_case(),
      dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9, ["K6.step"],
      ("megastep", 100, False)),
+    # refine= and Theta(solver=): K1-K5 and K7, never K6 (REFINE_CHECKS)
+    ("ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 2500, True)),
+    ("advdiff N=1024 rodaspr fixed (500 x 0.01)", README, advdiff_case(), FIXED,
+     1e-4, 1e-9, ["K6.step"], ("megastep", 256, False)),
+    ("advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)", README, advdiff_case(),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 64, False)),
+    ("ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook", KS,
+     ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3, refine=1), 1e-2, 1e-9,
+     MULTI_LAUNCH + WOOD + K7, ("chunked", 500, True)),
+    ("burgers N=10^6 theta solver= (10 steps)", BURGERS, burgers_case(N_REF),
+     dict(THETA, solver=chunked_solver), 1e-4, 1e-10,
+     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 4000, True)),
 ]
+#: cases driven by ``scheme(t, fields, dt, pars)`` a fixed number of times
+#: (``run_steps``), not by ``Simulation``: 500 steps of 0.01 do not land on
+#: one end time in float32 and float64 alike
+FIXED_STEP_CASES = {"advdiff N=1024 rodaspr fixed (500 x 0.01)": 500,
+                    "advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)": 500}
+#: the refine and solver cases beyond the CPU comparison: their exact
+#: launches, and (case, its dtype or None for the same, f32 limit, f64
+#: limit, relative to max|u| or absolute) of the run on the card each must
+#: agree with: refine=1 with refine=0 (KS), the reference's f32 envelope
+#: against the f64 run without refinement (advection-diffusion), the
+#: user's chunked solver with the plain Theta (Burgers)
+REFINE_CHECKS = {
+    "ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)":
+        ({"K7.matvec": 24, "K6.step": 0},
+         ("ks N=10^6 rodaspr fixed (4 x 0.05)", None, 1e-4, 1e-10, True)),
+    "advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)":
+        ({"K7.matvec": 3000, "K6.step": 0},
+         ("advdiff N=1024 rodaspr fixed (500 x 0.01)", "float64", 5e-5, 5e-5, False)),
+    "ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook":
+        ({"K6.adaptive": 0, "K6.step": 0}, None),
+    "burgers N=10^6 theta solver= (10 steps)":
+        ({"K7.matvec": 10, "K6.step": 0},
+         ("burgers N=10^6 theta", None, 1e-4, 1e-10, True)),
+}
 
 
 #: the reference's ensembles (bench.py: config 5, bench_ensemble, and the
 #: sweep, bench_sweep): B KS members on x = 0.5 i, periodic
 B_ENS, N_ENS = 1024, 10 ** 5
 B_SWEEP, N_SWEEP = 64, 200
-FIXED = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None)
 SHARED = dict(scheme=schemes.RODASPR, tol=1e-3)
 PER_MEMBER = dict(scheme=schemes.RODASPR, tol=1e-3, per_member_dt=True)
+B_REFINE = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,6 +380,14 @@ ENSEMBLE_CASES = [
     ("sweep: B=64 x ks N=200 rodaspr per-member dt tol 1e-3 (steps(4, 0.1))", B_SWEEP,
      N_SWEEP, 2, 5, PER_MEMBER, [(4, 0.1)], "K6", lambda plan: {"K6.adaptive_scan": 1},
      True),
+    # refine=1: the host route, a residual (K7 with a member axis, K5) and
+    # one more solve per stage
+    ("B=4 x ks N=10^5 rodaspr fixed refine=1 (steps(2, 0.05))", B_REFINE, N_ENS, 1, 10,
+     REFINED, [(2, 0.05)], "host",
+     lambda plan: {"K1.J": 2, "K2.spike_factor": 2, "K4.pcr_factor": 2,
+                   "K4.pcr_solve": 2 if plan.woodbury else 0, "K1.F_terms": 12,
+                   "K3.thomas_sweep": 24, "K4.pcr_solve_shift": 24,
+                   "K3.spike_correct": 24, "K5.combine": 14, "K7.matvec": 12}, False),
 ]
 
 
@@ -326,6 +408,28 @@ def case_plan(eqs, case, route):
     if route == "megastep":
         return megastep.plan_for(N, sysm.nvar, sysm.halo, pars["periodic"])
     return chunked.make_plan(N, sysm.nvar, sysm.halo, pars["periodic"])
+
+
+def run_case(name, eqs, case, device, dtype, kwargs):
+    """(output steps, final u, attempts in each output step) of a case of
+    ``CASES``."""
+    if name in FIXED_STEP_CASES:
+        return run_steps(eqs, case, device, dtype, kwargs, FIXED_STEP_CASES[name])
+    return run_simulation(eqs, case, device, dtype, kwargs)
+
+
+def run_steps(eqs, case, device, dtype, kwargs, n):
+    """``run_simulation`` of n calls of the scheme itself (no attempts
+    kept: these schemes are fixed-step)."""
+    fields_np, pars, dt, _, hook = case
+    model = Model(*eqs, double=dtype == torch.float64, device=device)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    kw = {k: v for k, v in kwargs.items() if k != "scheme"}
+    scheme = kwargs["scheme"](model, **kw)
+    t = 0.0
+    for _ in range(n):
+        t, fields = scheme(t, fields, dt, pars_t, hook=hook or schemes.null_hook)
+    return n, fields["U"], []
 
 
 def run_simulation(eqs, case, device, dtype, kwargs):
@@ -382,7 +486,7 @@ def phase0():
     models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
               for d in (True, False)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
-                                 combine.LIB)]
+                                 combine.LIB, matvec.LIB)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
@@ -431,6 +535,43 @@ def rodaspr_rows():
     m = [float(v) for v in ros._m_t]
     d = [float(a - b) for a, b in zip(ros._m_t, ros._m_pred_t)]
     return [[1.0] + m, [0.0] + d], float(ros._gamma[0, 0])
+
+
+def matvec_path_checks(dtype, res):
+    """K7 against its plain version on the bands and vectors of phase 2's
+    refine and solver cases: J's bands of each case's state with the first
+    stage's solution and g00 dt (the ROW residual), or the state and
+    -theta dt (the Theta right-hand side); the B = 4 ensemble's member
+    bands with a shared and a per-member scale."""
+    T = np.float64 if dtype == torch.float64 else np.float32
+    _, g00 = rodaspr_rows()
+    for eqs, case, row in ((KS, ks_case(0.05, 0.2, N_REF), True),
+                           (README, advdiff_case(), True),
+                           (KS, ks_case(1.0, 2.0, N_REF_SMALL), True),
+                           (BURGERS, burgers_case(N_REF), False)):
+        model, _, _, args, dt = path_inputs(eqs, case, dtype)
+        b, periodic = model.backend, case[1]["periodic"]
+        N = args[-1].shape[-1]
+        bands = b.J_bands(*args, periodic=periodic)
+        if row:
+            gdt = float(T(g00) * T(dt))
+            rhs = b.F(*args, periodic=periodic, scale=gdt)
+            k = chunked.factor(1.0, -gdt, bands, periodic).solve(rhs)
+            kernel_checks.check_matvec(bands, k, periodic, gdt, res, f"N={N} stage 1")
+        else:
+            kernel_checks.check_matvec(bands, args[0], periodic, -dt, res, f"N={N} theta")
+    ens = make_ensemble(B_REFINE, N_ENS, 1, 10, dtype, "cuda", REFINED)
+    b = ens.model.backend
+    args = (ens.u, ens.helpers, ens.pstack, ens.x)
+    bands = b.J_bands(*args, periodic=True)
+    gdt = float(T(g00) * T(0.05))
+    plan = ens._scheme._plan(N_ENS, True, B_REFINE)
+    k = chunked.factor(1.0, -gdt, bands, True, plan).solve(
+        b.F(*args, periodic=True, scale=gdt))
+    per_member = megastep.gdt_of(T, g00, 0.05 / 2.0 ** np.arange(B_REFINE), "cuda")
+    for scale in (gdt, per_member):
+        kernel_checks.check_matvec(bands, k, True, scale, res,
+                                   f"B={B_REFINE} N={N_ENS} stage 1")
 
 
 def phase1():
@@ -495,6 +636,7 @@ def phase1():
         bm, _, _, bargs, _ = path_inputs(BURGERS, burgers_case(N_REF_SMALL, 1.0, 2.0), dtype)
         kernel_checks.check_megastep(bm, N_REF_SMALL, True, 0.05, "cuda", res,
                                      adaptive=(1.0, 1e-6, 1e-3), state=bargs)
+        matvec_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
     # the member axis: K1-K4 and K6 on B = 4 members (block-cyclic and
@@ -529,7 +671,7 @@ def phase2():
             torch.cuda.synchronize()
             _launch.reset_counters()
             start = time.perf_counter()
-            steps, u, attempts = run_simulation(eqs, case, "cuda", dtype, kwargs)
+            steps, u, attempts = run_case(name, eqs, case, "cuda", dtype, kwargs)
             torch.cuda.synchronize()
             secs = time.perf_counter() - start
             counts = _launch.counts()
@@ -539,7 +681,7 @@ def phase2():
             missing = [k for k in needs if counts[k] <= 0]
             small = any(k.startswith("K6") for k in needs)
             others = [k for k in KERNELS if k not in needs and counts[k]
-                      and (small or k.startswith("K6") or k == "K1.F_terms")]
+                      and (small or k.startswith("K6") or k in ("K1.F_terms", "K7.matvec"))]
             if missing or others:
                 raise RuntimeError(f"{name} {dt_name}: kernels not launched {missing}, "
                                    f"launched off this path {others}")
@@ -552,9 +694,28 @@ def phase2():
             if counts["K4.pcr_solve"] != factors:
                 raise RuntimeError(f"{name} {dt_name}: {counts['K4.pcr_solve']} K4.pcr_solve "
                                    f"launches for {counts['K2.spike_factor']} factors")
+            exact, _ = REFINE_CHECKS.get(name, ({}, None))
+            off = {k: counts[k] for k, v in exact.items() if counts[k] != v}
+            if off:
+                raise RuntimeError(f"{name} {dt_name}: launches {off}, expected {exact}")
             for k in KERNELS:
                 launches[k] += counts[k]
     log("  launches over phase 2: " + json.dumps(launches))
+    for name, (_, against) in REFINE_CHECKS.items():
+        if against is None:
+            continue
+        other, other_dt, lim32, lim64, relative = against
+        for dt_name in DTYPES:
+            u = runs[(name, dt_name)][1].double()
+            ref = runs[(other, other_dt or dt_name)][1].double()
+            err = float((u - ref).abs().max())
+            if relative:
+                err /= float(ref.abs().max())
+            lim = lim32 if dt_name == "float32" else lim64
+            log(f"  {name} {dt_name} against {other} {other_dt or dt_name} on the card: "
+                f"max|du|{' / max|u|' if relative else ''} = {err:.3e} (limit {lim:.0e})")
+            if not err <= lim:
+                raise RuntimeError(f"{name} {dt_name}: off {other} on the card")
     refs = cpu_refs()
     for name, eqs, case, kwargs, tol32, tol64, _, _ in CASES:
         steps_ref, u_ref, att_ref, cpu_s = refs[name]
@@ -592,7 +753,7 @@ def cpu_reference_runs(conn):
         out = {}
         for name, eqs, case, kwargs, *_ in CASES:
             start = time.perf_counter()
-            steps, u, attempts = run_simulation(eqs, case, "cpu", torch.float64, kwargs)
+            steps, u, attempts = run_case(name, eqs, case, "cpu", torch.float64, kwargs)
             out[name] = (steps, u.numpy(), attempts, time.perf_counter() - start)
         for name, B, N, seed, waves, kwargs, calls, _, _, cpu in ENSEMBLE_CASES:
             if cpu:
@@ -699,7 +860,7 @@ def phase2_ensembles(launches):
             u = ens.u
             if not bool(torch.isfinite(u).all()) or tuple(u.shape) != (B, 1, N):
                 raise RuntimeError(f"{name} {dt_name}: non-finite or misshapen")
-            adaptive = kwargs is not FIXED
+            adaptive = kwargs.get("tol") is not None
             tol = (1e-2 if adaptive else 1e-4) if dtype == torch.float32 else (
                 1e-9 if adaptive else 1e-10)
             if kwargs is not SHARED:
@@ -745,6 +906,23 @@ def expr_ops(exprs):
     return sum(int(sp.count_ops(e)) for e in exprs)
 
 
+def banded_csr(bands, periodic, scale):
+    """``scale * A`` of one grid's bands (W, nvar, nvar, N) as a
+    torch.sparse CSR matrix on the bands' device, rows and columns in the
+    node layout: the library call's operand, built outside its timing."""
+    W, nvar, _, N = bands.shape
+    k, m, n, i = torch.meshgrid(*(torch.arange(d, device=bands.device)
+                                  for d in (W, nvar, nvar, N)), indexing="ij")
+    j = i + k - W // 2
+    keep = torch.ones_like(j, dtype=torch.bool) if periodic else (j >= 0) & (j < N)
+    idx = torch.stack([(m * N + i)[keep], (n * N + j % N)[keep]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the sparse layouts' beta notices
+        coo = torch.sparse_coo_tensor(idx, scale * bands[keep], (nvar * N, nvar * N),
+                                      check_invariants=False)
+        return coo.coalesce().to_sparse_csr()
+
+
 def ks_pairs(dtype, N=N_BIG):
     """Kernel entry -> (kernel call, plain call, bytes, operations, library
     call or None), on the inputs of the first fixed RODASPR step of KS at
@@ -771,6 +949,8 @@ def ks_pairs(dtype, N=N_BIG):
     rhs = b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias)
     y, yred = thomas.thomas_sweep(sp_, rhs, plan)
     xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+    k = thomas.spike_correct(sp_, y, xm1, xp1, plan)
+    csr = banded_csr(bands, True, gdt)
     arrays = [u] + [torch.tensor(rng.standard_normal((nvar, N)) * 1e-3, dtype=dtype,
                                  device="cuda") for _ in range(6)]
     A, R = len(arrays), len(rows)
@@ -816,6 +996,13 @@ def ks_pairs(dtype, N=N_BIG):
                        lambda: combine.combine_plain(rows, arrays),
                        (A + R) * nvar * N * item, 2 * A * R * nvar * N,
                        lambda: torch.mm(coefs, stacked)),
+        # the refinement's residual product on a stage's solution: reads the
+        # bands and v once, writes one vector
+        "K7.matvec": (lambda: matvec.banded_matvec(bands, k, True, gdt),
+                      lambda: matvec.banded_matvec_plain(bands, k, True, gdt),
+                      (W * nvar * nvar * N + 2 * nvar * N) * item,
+                      (2 * W * nvar + 1) * nvar * N,
+                      lambda: torch.mv(csr, k.view(-1))),
     }
     if plan.woodbury:
         # the set-up: 2s columns through every level and Dinv, the
@@ -912,6 +1099,16 @@ def phase3():
                     f"step {attempts} (host clock, synchronised)")
             log_profile(f"rodaspr fixed step ks {grid}", dt_name,
                         profile_step(ros, fields, pars_t, dt))
+            if N == N_REF:
+                # refine=1: one residual (K7, K5) and one more solve per stage
+                ros_r = schemes.RODASPR(model, time_stepping=False, tol=None, refine=1)
+                r_ms = [cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+                        for sch in (ros, ros_r, ros_r, ros)]
+                log(f"  rodaspr fixed step ks {grid} {dt_name}, refine=0 / refine=1 / "
+                    "refine=1 / refine=0: " + " / ".join(f"{m:.4f}" for m in r_ms)
+                    + " ms/step (CUDA events)")
+                log_profile(f"rodaspr fixed step refine=1 ks {grid}", dt_name,
+                            profile_step(ros_r, fields, pars_t, dt))
             plan, pairs = ks_pairs(dtype, N)
             log(f"  kernels at ks {grid}: plan C={plan.C} Mc={plan.Mc} "
                 f"woodbury={plan.woodbury}")
@@ -920,12 +1117,18 @@ def phase3():
                 p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
                 lib_ms = min(cuda_ms(library, 5) for _ in range(2)) if library else None
                 b_ms, b_by = bound(nbytes, ops, dtype)
-                if N == N_BIG or name == "K4.pcr_solve":
+                if N == N_BIG and name != "K7.matvec" or N == N_REF and name in (
+                        "K4.pcr_solve", "K7.matvec"):
                     times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, lib_ms)
                 log(f"  {name} {grid} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
                     f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                     f"{ops} operations)"
                     + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+                if name == "K7.matvec":
+                    # back-to-back launches of a kernel this short time the
+                    # wrapper's host work; the profiler gives the device's
+                    log_profile(f"K7.matvec alone {grid} (device us per launch)", dt_name,
+                                profile_calls(kern, 20))
     return times
 
 

@@ -7,6 +7,11 @@ float64 on the CPU, where the JAX ``Ensemble`` takes its vmapped route.
   relative, and ROS2 (the default scheme) on Burgers;
 * Theta with a Dirichlet hook and a per-member diffusivity, ten output
   steps, to 1e-9;
+* ``refine=1`` (the residual refinement through the banded matvec K7
+  with a member axis and each member's g00*dt): the reference's own case
+  (``tests/test_ensemble.py``: B = 4 KS members at N = 1024, fixed
+  steps), and the shared and per-member adaptive controllers, to the
+  limits below; the port takes its host route (K6 has no refinement);
 * the adaptive RODASPR controller with a shared dt (``step`` and
   ``steps(3)``: equal times and attempts, u to 1e-9) and per member
   (``per_member_dt``: equal ``member_iters``, u to 1e-9), and the
@@ -199,6 +204,7 @@ def _dirichlet_torch(t, fields, pars):
 
 
 _X256, _U256 = ks_members(256)
+_X1024, _U1024 = ks_members(1024, B=4, seed=3)
 _X1000, _U1000 = ks_members(1000, seed=7)
 _XB = np.linspace(0, 10, 64, endpoint=False)
 _UB = np.stack([np.cos(2 * np.pi * _XB / 10 + p)
@@ -241,6 +247,18 @@ CASES = {
                                          recompute_target=False),
                                     ((None, 0.7),)),
 }
+_REFINE_CASES = {
+    "ks-1024-refine": (KS, _U1024, _X1024, dict(periodic=True),
+                       dict(_FIXED, refine=1), ((None, 0.02), (2, 0.02))),
+    "ks-shared-adaptive-refine": (KS, _U256, _X256, dict(periodic=True),
+                                  dict(scheme="RODASPR", tol=1e-4, refine=1),
+                                  ((None, 0.5), (2, 0.5))),
+    "ks-per-member-refine": (KS, _U256, _X256, dict(periodic=True),
+                             dict(scheme="RODASPR", tol=1e-4, refine=1,
+                                  per_member_dt=True),
+                             ((None, 1.0),)),
+}
+CASES.update(_REFINE_CASES)
 #: the cases of the K6 route's parity tests and their multi-launch twins
 ROUTED = ["ks-periodic", "ks-edges", "ks-1000-woodbury", "burgers-ros2-default",
           "readme-theta-hook", "ks-shared-adaptive", "ks-per-member"]
@@ -312,6 +330,15 @@ def test_interpolating_mode_matches_jax(multi_launch, case, monkeypatch):
     overshoots the output time and u is interpolated between the
     bracketing steps, on K1-K5 with a member axis."""
     _assert_matches_jax(case, monkeypatch, "host")
+
+
+@pytest.mark.parametrize("case", sorted(_REFINE_CASES))
+def test_refined_ensemble_matches_jax(case, monkeypatch):
+    """``Ensemble(..., refine=1)``: the host route over K1-K5 and K7 with a
+    member axis, on a grid K6 would take otherwise."""
+    ens, _ = _assert_matches_jax(case, monkeypatch, "host")
+    assert ens._scheme._refine == 1
+    assert megastep.plan_for(ens.N, 1, 2, True, ens.B) is not None
 
 
 def test_woodbury_plans_on_both_routes():

@@ -32,6 +32,8 @@ def cuda_device():
 #: the kernel entries only an ensemble runs: ``kernel_checks.run_batched``
 #: holds them against their plain versions (below)
 MEMBER_AXIS_ONLY = {"K1.F_terms", "K6.adaptive_scan"}
+#: the kernel entries only ``refine=`` and ``Theta(solver=)`` run
+REFINE_ONLY = {"K7.matvec"}
 
 
 @pytest.mark.cuda
@@ -41,6 +43,7 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
     results = kernel_checks.run_all(cuda_device, dtypes=(dtype,))
     name = str(dtype).replace("torch.", "")
     assert set(_launch.COUNTERS) - MEMBER_AXIS_ONLY <= set(results[name])
+    assert REFINE_ONLY <= set(results[name])
 
 
 #: the kernel entries one Theta step launches once each (all but K5) on a
@@ -74,20 +77,66 @@ def test_theta_step_launches_every_kernel(cuda_device):
 def test_rodaspr_step_launches_every_kernel(cuda_device):
     """One fixed RODASPR step: one J and one factor, six biased F and six
     solves, and five stage combinations plus the final one; a block-cyclic
-    plan has no Woodbury set-up, and one grid no fused stage right-hand
-    side (an ensemble's)."""
+    plan has no Woodbury set-up, one grid no fused stage right-hand side
+    (an ensemble's), and a step without ``refine=`` no matvec."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
-               if not k.startswith("K6") and k not in ("K4.pcr_solve", "K1.F_terms"))
-    assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == 0
+               if not k.startswith("K6")
+               and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec"))
+    assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == counts["K7.matvec"] == 0
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
     assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
     assert counts["K5.combine"] == 6
     assert counts["K6.step"] == counts["K6.adaptive"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [1, 2])
+def test_refined_rodaspr_step_launches_k7_six_times_per_pass(cuda_device, refine):
+    """A fixed RODASPR step with ``refine=r`` on a grid K6 admits: no K6,
+    K7 6 r times, and K3, K4's per-stage solve and K5 6 r more times
+    each than the unrefined multi-launch step."""
+    model, fields, pars = _burgers_on(cuda_device, N=4096)
+    _launch.reset_counters()
+    schemes.RODASPR(model, time_stepping=False, tol=None, refine=refine)(
+        0.0, fields, 0.05, pars)
+    counts = _launch.counts()
+    r6 = 6 * refine
+    assert counts["K6.step"] == counts["K6.adaptive"] == 0
+    assert counts["K7.matvec"] == r6
+    assert counts["K3.thomas_sweep"] == counts["K3.spike_correct"] == 6 + r6
+    assert counts["K4.pcr_solve_shift"] == 6 + r6
+    assert counts["K5.combine"] == 6 + r6
+    assert counts["K1.J"] == counts["K2.spike_factor"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_matvec_matches_plain_version(cuda_device, dtype):
+    """K7 at every small shape (one to three variables, W = 3, 5, 7, edge
+    and periodic, one grid and four members with a number and a
+    per-member scale), and on J's bands of a Burgers grid."""
+    results = kernel_checks.check_all_matvecs(cuda_device, dtype)
+    model, fields, pars = _burgers_on(cuda_device)
+    b = model.backend
+    u, helpers, x = b.split_fields(fields)
+    bands = b.J_bands(u, helpers, b.pack_pars(pars, x), x, periodic=True)
+    kernel_checks.check_matvec(bands.to(dtype), u.to(dtype), True, -0.05,
+                               results)
+    assert set(results) == REFINE_ONLY
+
+
+def test_matvec_check_harness_on_cpu():
+    """K7's checks on CPU tensors: plain against plain, nothing launched."""
+    before = _launch.counts()
+    results = kernel_checks.check_all_matvecs("cpu", torch.float64)
+    assert results == {"K7.matvec": 0.0}
+    assert _launch.counts() == before
 
 
 #: a periodic grid above K6's gate whose ring closes through the Woodbury

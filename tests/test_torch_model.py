@@ -132,3 +132,71 @@ def test_model_dtype_and_unported_precision():
                     device="cpu").dtype == torch.float32
     with pytest.raises(NotImplementedError):
         tt.Model("k * dxxU", "U", "k", double="df64", device="cpu")
+
+
+def test_signature_is_the_references():
+    """The reference's parameters, in its order, then the port's device."""
+    import inspect
+
+    ref = list(inspect.signature(tj.Model).parameters)
+    port = list(inspect.signature(tt.Model).parameters)
+    assert port == ref + ["device"]
+
+
+def test_reference_positional_form_builds():
+    """``Model(eqs, vars, pars, helps, bdcs, compiler=...)`` as the
+    reference is called; the boundary conditions are kept and unused."""
+    eqs, dep, pars = MODELS["advdiff"]
+    for compiler in ("jax", "theano", "torch"):
+        model = tt.Model(eqs, dep, pars, None, "dxU", compiler=compiler,
+                         device="cpu")
+        assert model._bdcs == ("dxU",) and model.device.type == "cpu"
+    ref = tj.Model(eqs, dep, pars, None, "dxU")
+    assert np.array_equal(model.F_array, ref.F_array)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_numpy_compiler_matches_numpy_backend(name, periodic):
+    """``compiler="numpy"``: the plain versions on the CPU, whatever the
+    device, against the reference's NumpyBackend."""
+    eqs, dep, pars = MODELS[name]
+    model_t = tt.Model(eqs, dep, pars, compiler="numpy")
+    assert model_t.device.type == "cpu"
+    ref = tj.Model(eqs, dep, pars, compiler="numpy").backend
+    assert isinstance(ref, NumpyBackend)
+    x, u, p = _state(model_t, pars, seed=2)
+    pstack = np.stack([np.full(N, p[k]) for k in pars]) if pars \
+        else np.zeros((0, N))
+    helpers = np.zeros((0, N))
+    args_t = [torch.tensor(a) for a in (u, helpers, pstack, x)]
+    b = model_t.backend
+    assert _rel(b.F(*args_t, periodic=periodic).numpy(),
+                ref.F(u, helpers, pstack, x, periodic=periodic)) <= RTOL
+    assert _rel(b.J_bands(*args_t, periodic=periodic).numpy(),
+                ref.J_bands(u, helpers, pstack, x, periodic=periodic)) <= RTOL
+
+
+def test_hold_compilation_then_compile():
+    model = tt.Model("k * dxxU", "U", "k", hold_compilation=True)
+    assert not hasattr(model, "backend") and model.precision == "f64"
+    assert model.system.window == 3
+    model.compile("numpy")
+    x = torch.linspace(0.0, 1.0, 16, dtype=torch.float64)
+    fields = model.fields_template(x=x, U=x ** 2)
+    assert np.allclose(model.F(fields, {"k": 1.0, "periodic": False})[1:-1], 2.0)
+    seen = []
+
+    def compiler(m):
+        seen.append(m)
+        return tt.core.compiler.TorchBackend(m.system, torch.float32, "cpu")
+
+    held = tt.Model("k * dxxU", "U", "k", hold_compilation=True)
+    held.compile(compiler)
+    assert seen == [held] and held.dtype == torch.float32
+
+
+def test_unknown_compiler_raises():
+    for pkg in (tj, tt):
+        with pytest.raises(ValueError, match="unknown compiler"):
+            pkg.Model("k * dxxU", "U", "k", compiler="fortran")

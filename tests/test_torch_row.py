@@ -29,6 +29,14 @@ on the CPU, from one state handed to both with ``state_from_numpy``.
   plain version on the CPU), which these small grids take, and, in the
   ``..._multi_launch`` twins, through the multi-launch path of larger grids
   (the stage loop of K5 combinations, biased F and chunked solves);
+* ``refine=`` (the reference's iterative refinement of every stage solve
+  against J's true bands, through the banded matvec K7): one fixed
+  RODASPR step on KS with a block-cyclic (N = 256) and a Woodbury
+  (N = 1000) plan and on a two-variable edge model with a Dirichlet hook,
+  to 1e-12; adaptive trajectories with equal attempts and dt to 1e-8; and
+  the reference's float32 envelope (``tests/test_precision.py``): the f32
+  advection-diffusion run with ``refine=1`` within 5e-5 of the f64 run
+  after 500 steps.  Such schemes never take K6 (``test_torch_matvec.py``);
 * kernel K5's plain version against the reference's ``combine_folded``
   (in interpret mode, on folded arrays) with the rows RODASPR emits, and
   K1's F with a bias against the reference's F times the scale plus the
@@ -48,7 +56,7 @@ import triflow_tpu as tj
 import triflow_tpu_torch as tt
 from triflow_tpu.ops import folded
 from triflow_tpu_torch.ops import combine as combine_mod
-from triflow_tpu_torch.ops import megastep, stencil
+from triflow_tpu_torch.ops import chunked, megastep, stencil
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 from .test_torch_theta import (BURGERS, KS, README, burgers_state,
@@ -335,3 +343,111 @@ def test_biased_F_matches_jax(name, eqs, periodic):
         model_t.backend, *(torch.tensor(a) for a in (u, helpers, pstack, x)),
         periodic, scale, torch.tensor(bias)).numpy()
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+TWO_VAR = (["k * dxxU - c * dxV", "k * dxxV - c * dxU + U * V"], ["U", "V"],
+           ["k", "c"])
+
+
+def two_var_state(N=300):
+    x = np.linspace(0, 1, N)
+    return ({"x": x, "U": np.cos(2 * np.pi * x * 3), "V": np.sin(2 * np.pi * x * 2)},
+            dict(periodic=False, k=1e-3, c=3e-3))
+
+
+def dirichlet2_jax(t, fields, pars):
+    fields["U"] = fields["U"].at[0].set(1.0).at[-1].set(0.0)
+    fields["V"] = fields["V"].at[0].set(0.0)
+    return fields, pars
+
+
+def dirichlet2_torch(t, fields, pars):
+    fields["U"][0] = 1.0
+    fields["U"][-1] = 0.0
+    fields["V"][0] = 0.0
+    return fields, pars
+
+
+#: (name, equations, state, dt, hooks, refine, plan (cyclic, woodbury))
+REFINED = [
+    ("ks-256-cyclic", KS, ks_state(256), 0.05, None, 1, (True, False)),
+    ("ks-256-cyclic-refine2", KS, ks_state(256), 0.05, None, 2, (True, False)),
+    ("ks-1000-woodbury", KS, ks_state(1000), 0.05, None, 1, (False, True)),
+    ("two-var-300-edge-hook", TWO_VAR, two_var_state(), 0.5,
+     (dirichlet2_jax, dirichlet2_torch), 1, (False, False)),
+]
+
+
+@pytest.mark.parametrize("name,eqs,state,dt,hooks,refine,plan", REFINED,
+                         ids=[c[0] for c in REFINED])
+def test_refined_fixed_step_matches_jax(name, eqs, state, dt, hooks, refine,
+                                        plan):
+    import jax
+
+    fields_np, pars = state
+    model_j = tj.Model(*eqs)
+    model_t = tt.Model(*eqs, device="cpu")
+    fields_j = model_j.fields_template(**fields_np)
+    fields_t, pars_t = state_from_numpy(fields_np, pars, model_t)
+    hook_j, hook_t = hooks or (tj.schemes.null_hook, tt.schemes.null_hook)
+    kw = dict(time_stepping=False, tol=1e-3, refine=refine)
+    ref = tj.schemes.RODASPR(model_j, **kw)
+    port = tt.schemes.RODASPR(model_t, **kw)
+    periodic = bool(pars["periodic"])
+    sysm = model_t.system
+    N = fields_np["x"].size
+    p = chunked.make_plan(N, sysm.nvar, sysm.halo, periodic)
+    assert (p.cyclic, p.woodbury) == plan
+    fixed_j = jax.jit(ref.device_fixed_step(hook_j, periodic))
+    u_j, *_, err_j = fixed_j(0.0, *ref._split(fields_j, pars), dt)
+    problem = port._problem(hook_t, periodic)
+    u_t, *_, err_t = port.fixed_step(problem, 0.0,
+                                     *port._split(fields_t, pars_t), dt)
+    u_j = np.asarray(u_j)
+    assert u_t.shape == u_j.shape
+    assert np.abs(u_t.numpy() - u_j).max() <= 1e-12 * np.abs(u_j).max()
+    assert float(err_t) == pytest.approx(float(err_j), rel=1e-9)
+
+
+@pytest.mark.parametrize("name", ["ks-512", "ks-1000-woodbury"])
+def test_refined_adaptive_trajectory_matches_jax(name, monkeypatch):
+    """Adaptive RODASPR with ``refine=1`` through ``Simulation``: the host
+    controller over refined fixed steps; the output steps of the
+    unrefined cases keep every dt set by an err near tol."""
+    _, eqs, state, dt, tmax, hooked, kwargs = next(c for c in ADAPTIVE
+                                                  if c[0] == name)
+    sim, traj_j, traj_t, errs = _trajectories(
+        eqs, state, dt, tmax, hooked, {**kwargs, "refine": 1}, monkeypatch)
+    assert sim._scheme._refine == 1 and sim.status == "finished"
+    _assert_same_trajectory(traj_j, traj_t, round(tmax / dt))
+    _assert_not_marginal(errs, kwargs["tol"])
+    assert sum(it for *_, it, _dt in traj_t) > len(traj_t)
+
+
+def _advdiff_trajectory(double, steps, N=1024, **scheme_kwargs):
+    """``tests/test_precision.py``'s trajectory on the port: fixed RODASPR
+    steps of 0.01 of advection-diffusion, periodic, N = 1024."""
+    model = tt.Model("k * dxxU - c * dxU", "U", ["k", "c"], double=double,
+                     device="cpu")
+    scheme = tt.schemes.RODASPR(model, time_stepping=False, tol=None,
+                                **scheme_kwargs)
+    xs = np.linspace(0, 10, N, endpoint=False)
+    fields, pars = state_from_numpy(
+        {"x": xs, "U": np.cos(xs * 2 * np.pi / 10) + 2.0},
+        dict(k=0.05, c=0.3, periodic=True), model)
+    problem = scheme._problem(tt.schemes.null_hook, True)
+    u, h, p, x = scheme._split(fields, pars)
+    T = scheme._np_dtype
+    t, dt = T(0.0), T(0.01)
+    for _ in range(steps):
+        u, h, p, x, _ = scheme.fixed_step(problem, float(t), u, h, p, x, dt)
+        t = t + dt
+    return u.double().numpy()
+
+
+def test_f32_refined_stays_in_envelope():
+    """The reference's ``test_f32_options_stay_in_envelope`` for
+    ``refine=1``: 500 f32 steps within 5e-5 of the f64 run."""
+    err = np.abs(_advdiff_trajectory(False, 500, refine=1)
+                 - _advdiff_trajectory(True, 500)).max()
+    assert err < 5e-5, err

@@ -6,7 +6,13 @@ state handed to both with ``state_from_numpy``.
   Woodbury correction on both routes;
 * ten output steps of the README model (advection-diffusion, N = 200,
   Dirichlet hook) and of Burgers (periodic, N = 2048) to 1e-9 relative to
-  max|u|.
+  max|u|;
+* ``Theta(solver=...)``: both packages get the same dense solve of the
+  banded matrix they hand it; one step (theta = 1, 0.5 and 0, edge with
+  the Dirichlet hook and periodic) to 1e-12, and the README trajectory
+  through ``Simulation(..., solver=...)`` to 1e-9.  This path never takes
+  K6 (J's bands, dt*F, the right-hand side through K7 and K5, then the
+  user's solver).
 
 Each runs on both routes of the port: these grids are small enough for
 kernel K6's plan (``ops.megastep.plan_for``), so the tests named
@@ -27,7 +33,7 @@ import torch
 import triflow_tpu as tj
 import triflow_tpu_torch as tt
 from triflow_tpu_torch.ops import megastep
-from triflow_tpu_torch.utils.convert import state_from_numpy
+from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
 torch.set_num_threads(1)
 
@@ -191,8 +197,7 @@ def test_unported_features_raise():
     fields_np, pars = readme_state(40)
     model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
-    for knob in (dict(compensated=True), dict(refine=1),
-                 dict(df64_mixed_solve=2)):
+    for knob in (dict(compensated=True), dict(df64_mixed_solve=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.schemes.RODASPR(model, **knob)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -208,6 +213,12 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         tt.Simulation(model, fields, pars_t, dt=1.0, time_stepping=False,
                       mesh=object())
+    x = fields_np["x"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt.parallel.Ensemble(
+            model, **ensemble_from_numpy(model, np.stack([fields_np["U"]] * 2),
+                                         x, pars),
+            scheme=tt.schemes.Theta, solver=dense_solver_torch)
 
 
 def test_yielded_states_stay_as_yielded():
@@ -235,3 +246,84 @@ def test_hook_does_not_touch_the_callers_arrays():
                         time_stepping=False, hook=dirichlet_torch)
     sim.run(progress=False)
     assert np.array_equal(fields_np["U"], before)
+
+
+def banded_index(W, nvar, N, periodic):
+    """(rows, cols, flat band index) of every entry of a banded matrix
+    ((W, nvar, nvar, N), node layout) in its dense form."""
+    k, m, n, i = np.meshgrid(np.arange(W), np.arange(nvar), np.arange(nvar),
+                             np.arange(N), indexing="ij")
+    j = i + k - W // 2
+    keep = np.ones(j.shape, bool) if periodic else (j >= 0) & (j < N)
+    flat = np.arange(W * nvar * nvar * N).reshape(j.shape)
+    return m[keep] * N + i[keep], n[keep] * N + j[keep] % N, flat[keep]
+
+
+def dense_solver_jax(A, B, periodic):
+    """The dense solve of the banded system, traced by jax.jit."""
+    import jax.numpy as jnp
+
+    W, nvar, _, N = A.shape
+    rows, cols, flat = banded_index(W, nvar, N, periodic)
+    M = jnp.zeros((nvar * N, nvar * N), A.dtype).at[rows, cols].add(
+        A.reshape(-1)[flat])
+    return jnp.linalg.solve(M, B.reshape(-1)).reshape(B.shape)
+
+
+def dense_solver_torch(A, B, periodic):
+    """The same dense solve on torch tensors."""
+    W, nvar, _, N = A.shape
+    rows, cols, flat = (torch.as_tensor(a) for a in banded_index(W, nvar, N,
+                                                                  periodic))
+    M = torch.zeros((nvar * N, nvar * N), dtype=A.dtype, device=A.device)
+    M.index_put_((rows, cols), A.reshape(-1)[flat], accumulate=True)
+    return torch.linalg.solve(M, B.reshape(-1)).reshape(B.shape)
+
+
+SOLVER_STEPS = [c for c in ONE_STEP if c[0] in (
+    "readme-theta1", "readme-cn", "burgers-theta1", "ks-theta1",
+    "readme-euler", "ks-1000-woodbury")]
+
+
+@pytest.mark.parametrize("name,eqs,state,dt,theta,hooked", SOLVER_STEPS,
+                         ids=[c[0] for c in SOLVER_STEPS])
+def test_one_theta_solver_step_matches_jax(name, eqs, state, dt, theta,
+                                           hooked):
+    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(eqs, state)
+    hook_j = dirichlet_jax if hooked else tj.schemes.null_hook
+    hook_t = dirichlet_torch if hooked else tt.schemes.null_hook
+    calls = []
+
+    def solver(A, B, periodic):
+        calls.append(periodic)
+        return dense_solver_torch(A, B, periodic)
+
+    scheme_j = tj.schemes.Theta(model_j, theta=theta, solver=dense_solver_jax)
+    scheme_t = tt.schemes.Theta(model_t, theta=theta, solver=solver)
+    t_j, out_j = scheme_j(0.0, fields_j, dt, pars, hook=hook_j)
+    t_t, out_t = scheme_t(0.0, fields_t, dt, pars_t, hook=hook_t)
+    assert t_t == t_j
+    assert calls == ([] if theta == 0 else [bool(pars["periodic"])])
+    u_j = np.asarray(out_j["U"])
+    assert np.abs(out_t["U"].numpy() - u_j).max() <= 1e-12 * np.abs(u_j).max()
+
+
+def test_simulation_with_solver_matches_jax():
+    """``Simulation(..., scheme=Theta, solver=...)`` forwards the solver."""
+    model_j, fields_j, model_t, fields_t, pars, pars_t = _both(
+        README, readme_state())
+    sims = [pkg.Simulation(model, fields, p, dt=5.0, tmax=50.0,
+                           scheme=pkg.schemes.Theta, theta=1.0,
+                           time_stepping=False, solver=solver, hook=hook)
+            for pkg, model, fields, p, solver, hook in (
+                (tj, model_j, fields_j, pars, dense_solver_jax, dirichlet_jax),
+                (tt, model_t, fields_t, pars_t, dense_solver_torch,
+                 dirichlet_torch))]
+    assert sims[1]._scheme._solver is dense_solver_torch
+    traj_j = [(t, np.asarray(f["U"])) for t, f in sims[0]]
+    traj_t = [(t, f["U"].clone().numpy()) for t, f in sims[1]]
+    assert len(traj_t) == len(traj_j) == 10
+    for (t_j, u_j), (t_t, u_t) in zip(traj_j, traj_t):
+        assert t_t == pytest.approx(t_j, rel=1e-14)
+        assert np.abs(u_t - u_j).max() <= 1e-9 * np.abs(u_j).max()
+    assert traj_t[-1][1][0] == 1.0 and traj_t[-1][1][-1] == 0.0

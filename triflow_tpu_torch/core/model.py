@@ -6,10 +6,12 @@ Counterpart of ``triflow_tpu.core.model``:
 >>> from triflow_tpu_torch import Model
 >>> model = Model("k * dxxU", "U", "k", device="cpu")
 
-``double=True`` computes in ``torch.float64``, ``double=False`` in
-``torch.float32``.  The model's tensors and kernels live on ``device``,
-which is the card (``"cuda"``) unless the caller asks for ``"cpu"``;
-asking for the card on a machine without one raises.
+The constructor takes the reference's parameters in the reference's order
+(``Model(eqs, vars, pars, helps, bdcs, compiler=...)``), then the port's
+own ``device``.  ``double=True`` computes in ``torch.float64``,
+``double=False`` in ``torch.float32``.  The model's tensors and kernels
+live on ``device``, which is the card (``"cuda"``) unless the caller asks
+for ``"cpu"``; asking for the card on a machine without one raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ def _coerce(arg):
     if isinstance(arg, str):
         return (arg,)
     return tuple(arg)
+
+
+#: the reference's compiler names.  Each is the port's ``TorchBackend``:
+#: "numpy" on the CPU (the kernels' plain versions, what the reference's
+#: NumpyBackend is to its JAX backend), the others on the model's device
+COMPILERS = ("jax", "numpy", "theano", "torch")
 
 
 def resolve_device(device) -> torch.device:
@@ -54,8 +62,19 @@ class Model:
         scalar or per-node (N,) parameters.
     help_functions : str or iterable of str, optional
         fields differenced in space but not evolved in time.
+    bdc_conditions : str or iterable of str, optional
+        parsed and discretized as the reference does, and not used by the
+        backend (the reference's backends do not use them either):
+        boundary conditions are hooks or the periodic flag.
+    compiler : "torch" (the default), "jax", "theano", "numpy" or callable
+        every name is the port's ``TorchBackend`` (``COMPILERS``), "numpy"
+        on the CPU whatever ``device`` says; a callable ``compiler(model)``
+        returns the backend.  Another name raises ``ValueError``.
     double : bool
         float64 (True) or float32 (False).
+    hold_compilation : bool
+        build the SymPy system only; ``compile(compiler)`` builds the
+        backend later.
     device : str or torch.device
         "cuda" (the default, or "cuda:<index>") or "cpu", where every
         kernel takes its plain PyTorch version.
@@ -70,8 +89,9 @@ class Model:
     """
 
     def __init__(self, differential_equations, dependent_variables,
-                 parameters=None, help_functions=None, *, simplify=False,
-                 fdiff_jac=False, double=True, high_order=False,
+                 parameters=None, help_functions=None, bdc_conditions=None,
+                 compiler="torch", simplify=False, fdiff_jac=False,
+                 double=True, hold_compilation=False, high_order=False,
                  device="cuda"):
         if double not in (True, False):
             raise NotImplementedError(
@@ -81,11 +101,15 @@ class Model:
         self._dep_vars = _coerce(dependent_variables)
         self._pars = _coerce(parameters)
         self._help_funcs = _coerce(help_functions)
+        self._bdcs = _coerce(bdc_conditions)
         self._double = double
-        self.device = resolve_device(device)
+        self.device = torch.device(device)
         self.system = build_discrete_system(
             self._diff_eqs, self._dep_vars, self._pars, self._help_funcs,
             simplify=simplify, fdiff_jac=fdiff_jac, high_order=high_order)
+        if self._bdcs:
+            build_discrete_system(self._bdcs, self._dep_vars, self._pars,
+                                  self._help_funcs, high_order=high_order)
         self.F_array = np.array(self.system.F_exprs, dtype=object)
         lo, hi = self.system.bounds
         nvar = len(self._dep_vars)
@@ -93,12 +117,26 @@ class Model:
             [self.system.J_band_exprs.get((m, n, off - lo), sp.S.Zero)
              for off in range(lo, hi + 1) for n in range(nvar)
              for m in range(nvar)], dtype=object)
-        dtype = torch.float64 if double else torch.float32
-        self.backend = TorchBackend(self.system, dtype, self.device)
+        if not hold_compilation:
+            self.compile(compiler)
+
+    def compile(self, compiler="torch"):
+        """Build the backend and the host routines ``F`` and ``J``."""
+        if callable(compiler):
+            backend = compiler(self)
+        elif compiler in COMPILERS:
+            dtype = torch.float64 if self._double else torch.float32
+            device = "cpu" if compiler == "numpy" else self.device
+            backend = TorchBackend(self.system, dtype, resolve_device(device))
+        else:
+            raise ValueError(f"unknown compiler '{compiler}' (available: "
+                             f"{sorted(COMPILERS)})")
+        self.backend = backend
+        self.device = backend.device
         var_names = self._dep_vars + self._help_funcs
-        self.F = F_Routine(self.F_array, var_names, self._pars, self.backend)
+        self.F = F_Routine(self.F_array, var_names, self._pars, backend)
         self.J = J_Routine(self.J_array[self.J_array != 0], var_names,
-                           self._pars, self.backend)
+                           self._pars, backend)
 
     @property
     def fields_template(self):

@@ -25,9 +25,12 @@ combination (K5) and the biased F (K1).
 
 A grid that ``ops.megastep.plan_for`` admits (a small one) steps through
 kernel K6, one launch per implicit step; larger grids take the multi-launch
-path (K1-K5).  With no hook and ``recompute_target=True`` the adaptive
-controller of a Rosenbrock scheme runs inside K6 too, one launch and one
-read-back per output step.  Otherwise the adaptive loops run on the host:
+path (K1-K5).  A ROW scheme with a residual refinement (``refine=r``) and
+a Theta with a custom solver (``solver=``) never take K6, which has no
+pass for either: they run K1-K5 and the banded matvec K7 on every grid
+(``_SchemeBase._mega_plan``).  With no hook and ``recompute_target=True``
+the adaptive controller of a Rosenbrock scheme runs inside K6 too, one
+launch and one read-back per output step.  Otherwise the adaptive loops run on the host:
 an attempt is enqueued on the device and its error estimate is the one
 scalar read back, which decides it.  Every controller quantity (t, dt, err,
 the new dt) is a numpy scalar (or a kernel value) of the model's dtype, so
@@ -41,7 +44,9 @@ import numpy as np
 import torch
 
 from ..ops import chunked, megastep
+from ..ops.banded import axpy_bands
 from ..ops.combine import combine
+from ..ops.matvec import banded_matvec
 from . import rosenbrock
 
 
@@ -139,6 +144,10 @@ class _SchemeBase:
     scheme without one."""
 
     _time_control = False
+    #: residual refinement passes per stage solve (ROW ``refine=``)
+    _refine = 0
+    #: a custom linear solver (Theta ``solver=``)
+    _solver = None
 
     def __init__(self, model):
         self._model = model
@@ -163,7 +172,11 @@ class _SchemeBase:
 
     def _mega_plan(self, N, periodic, B=1):
         """K6's plan of the grid (for each of B members), or None where the
-        multi-launch path serves it."""
+        multi-launch path serves it: always for a scheme that refines its
+        solves or has a custom solver, as the reference leaves its
+        single-launch and folded paths for them."""
+        if self._refine or self._solver is not None:
+            return None
         # one grid keeps the key (N, periodic) that callers withhold by
         key = (N, periodic) if B == 1 else (N, periodic, B)
         if key not in self._mega_plans:
@@ -174,11 +187,13 @@ class _SchemeBase:
     def _factor(self, problem, u, helpers, pstack, x, beta):
         """J's bands (K1) and the chunked factor of ``I + beta*J`` (K2,
         K4); u of B members (B, nvar, N) factors B systems, ``beta`` a
-        number or one per member."""
+        number or one per member.  Returns (factor, bands), the bands None
+        unless the scheme refines its solves against them."""
         B = u.shape[0] if u.ndim == 3 else 1
         plan = self._plan(x.shape[-1], problem.periodic, B)
         bands = problem.J_bands(u, helpers, pstack, x)
-        return chunked.factor(1.0, beta, bands, problem.periodic, plan)
+        fact = chunked.factor(1.0, beta, bands, problem.periodic, plan)
+        return fact, (bands if self._refine else None)
 
     def _split(self, fields, pars):
         backend = self._model.backend
@@ -203,14 +218,18 @@ class Theta(_SchemeBase):
     A*u + dt*F`` with ``A = I - theta*dt*J``, so ``u2 = u + A^-1 (dt*F)``:
     J's bands (K1), the chunked factor of A (K2, K4), dt*F (K1) and one
     solve (K3, K4, K3) whose last kernel adds the state; on a grid K6
-    admits, all of it in one K6 launch."""
+    admits, all of it in one K6 launch.
+
+    With ``solver``, a callable ``solver(A_bands, B, periodic) -> u2`` on
+    torch tensors of the model's device, the step is the reference's: J's
+    bands and dt*F (K1), ``B = dt*F - theta*dt*J*u + u`` (K7, K5), and
+    ``A = I - theta*dt*J`` in banded form handed to the solver (theta = 0
+    stays forward Euler, with no solver call)."""
 
     def __init__(self, model, theta=1, solver=None):
-        if solver is not None:
-            raise NotImplementedError(
-                "Theta(solver=...): custom linear solvers are not ported yet")
         super().__init__(model)
         self._theta = theta
+        self._solver = solver
 
     def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
         """The hook at ``t``, then one theta step of ``dt``: one K6 launch
@@ -233,7 +252,14 @@ class Theta(_SchemeBase):
         rhs = problem.F(u, helpers, pstack, x, scale=dt)
         if theta == 0:
             return u + rhs, helpers, pstack, x, None
-        fact = self._factor(problem, u, helpers, pstack, x, -theta * dt)
+        if self._solver is not None:
+            bands = problem.J_bands(u, helpers, pstack, x)
+            Ju = banded_matvec(bands, u, problem.periodic, -theta * dt)
+            B = combine([[1.0, 1.0, 1.0]], [rhs, Ju, u])[0]
+            u2 = self._solver(axpy_bands(1.0, -theta * dt, bands), B,
+                              problem.periodic)
+            return u2, helpers, pstack, x, None
+        fact, _ = self._factor(problem, u, helpers, pstack, x, -theta * dt)
         return fact.solve(rhs, add_to=u), helpers, pstack, x, None
 
     #: an ensemble's step (``parallel.Ensemble``): ``fixed_step`` takes the
@@ -289,7 +315,12 @@ class ROW_general(_SchemeBase):
     c_ij ut_j``, so a step is one J (K1), one factor (K2, K4), and per
     stage one combination (K5), one biased F (K1) and one solve (K3, K4,
     K3), then one final combination (K5); on a grid K6 admits, all of it in
-    one K6 launch."""
+    one K6 launch.
+
+    ``refine=r`` adds the reference's iterative refinement to every stage
+    solve: r times the residual ``rhs - k + g00*dt*J*k`` against J's true
+    bands (K7, K5) and one more solve that adds its correction into k, so
+    a step launches K7 r times per stage.  Such a scheme never takes K6."""
 
     def __init__(self, model, alpha, gamma, b, b_pred=None,
                  time_stepping=False, tol=None, max_iter=None, dt_min=None,
@@ -299,15 +330,12 @@ class ROW_general(_SchemeBase):
             raise NotImplementedError(
                 "compensated=True (the Kahan-summed state) is not ported yet "
                 "(ROADMAP A8)")
-        if refine:
-            raise NotImplementedError(
-                "refine > 0 needs the banded matvec kernel, which is not "
-                "ported yet (ROADMAP B10)")
         if df64_mixed_solve is not None:
             raise NotImplementedError(
                 "df64_mixed_solve: the df64 precision mode is not ported yet "
                 "(ROADMAP A8)")
         super().__init__(model)
+        self._refine = int(refine)
         self._alpha = np.asarray(alpha, dtype=np.float64)
         self._gamma = np.asarray(gamma, dtype=np.float64)
         self._b = np.asarray(b, dtype=np.float64)
@@ -338,6 +366,18 @@ class ROW_general(_SchemeBase):
                 self._gamma[0, 0], with_err)
         return self._tables[with_err]
 
+    def _solve(self, fact, bands, rhs, gdt, periodic):
+        """``(I - gdt*J)^-1 rhs`` through the factor (K3, K4, K3), then the
+        ``refine`` passes: the residual ``rhs - k + gdt*J*k`` (K7, K5) and
+        one solve whose last kernel adds its correction into k; ``gdt`` a
+        number or one per member."""
+        k = fact.solve(rhs)
+        for _ in range(self._refine):
+            Jk = banded_matvec(bands, k, periodic, gdt)
+            r = combine([[1.0, -1.0, 1.0]], [rhs, k, Jk])[0]
+            k = fact.solve(r, add_to=k)
+        return k
+
     def _with_err(self):
         """Whether a controller reads the embedded error of a step."""
         return self._m_pred_t is not None and (self._tol is not None
@@ -360,7 +400,7 @@ class ROW_general(_SchemeBase):
         g00 = self._gamma[0, 0]
         # g00 * dt rounded as the model's dtype multiplies them
         gdt = float(T(g00) * T(dt))
-        fact = self._factor(problem, u, helpers, pstack, x, -gdt)
+        fact, bands = self._factor(problem, u, helpers, pstack, x, -gdt)
         a_t, c_t = self._a_t, self._c_t
         us = []
         for i in range(self._s):
@@ -378,7 +418,7 @@ class ROW_general(_SchemeBase):
             else:
                 u_i, csum = _combos([a_row, c_row], arrays)
             rhs = problem.F(u_i, helpers, pstack, x, scale=gdt, bias=csum)
-            us.append(fact.solve(rhs))
+            us.append(self._solve(fact, bands, rhs, gdt, problem.periodic))
         m_t = [float(m) for m in self._m_t]
         if not self._with_err():
             u_new = _combos([[1.0] + m_t], [u] + us)[0]
@@ -412,7 +452,7 @@ class ROW_general(_SchemeBase):
             return u_new, helpers, pstack, x, err
         g00 = self._gamma[0, 0]
         gdt = megastep.gdt_of(self._np_dtype, g00, dt, u.device)
-        fact = self._factor(problem, u, helpers, pstack, x, -gdt)
+        fact, bands = self._factor(problem, u, helpers, pstack, x, -gdt)
         a_t, c_t = self._a_t, self._c_t
         us = []
         for i in range(self._s):
@@ -422,7 +462,7 @@ class ROW_general(_SchemeBase):
                 if a or b:
                     terms.append((a, b, us[j]))
             rhs = problem.F_terms(terms, helpers, pstack, x, scale=gdt)
-            us.append(fact.solve(rhs))
+            us.append(self._solve(fact, bands, rhs, gdt, problem.periodic))
         m_t = [float(m) for m in self._m_t]
         if not self._with_err():
             u_new = _combos([[1.0] + m_t], [u] + us)[0]

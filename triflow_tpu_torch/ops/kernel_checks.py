@@ -27,6 +27,10 @@ the attempts on KS, and moves it by 0.23 and more on the README grid; in
 float32 on KS the two ranges meet, and it is the equal attempts that
 catch a wrong err there.
 
+K7 (the banded matvec) is held to the F/J tolerance of the size of its
+terms, ``max |scale| |A| |v|``, not of its result: the product of J's
+bands with a smooth state cancels to far below its terms.
+
 The member axis (``run_batched``): K1's F, F_terms and J, K2-K4 and K6's
 entries on B = 4 members with per-member parameters, shifts and scales,
 against their plain versions at the same tolerances; K6's adaptive entries
@@ -40,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import chunked, combine, megastep, pcr, stencil, thomas
+from . import chunked, combine, matvec, megastep, pcr, stencil, thomas
 
 TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10, "combine": 1e-15,
                        "dt": 1e-8},
@@ -170,21 +174,48 @@ def random_bands(W, nvar, N, dtype, device, seed=0, beta=-0.3):
     return torch.tensor(bands, dtype=dtype, device=device)
 
 
-def banded_matvec(A_bands, x, periodic):
-    """``A @ x`` for banded A (W, nvar, nvar, N) and x (nvar, N)."""
-    W, _, _, N = A_bands.shape
-    h = W // 2
-    out = torch.zeros_like(x)
-    for k in range(W):
-        off = k - h
-        if periodic:
-            xs = torch.roll(x, -off, dims=-1)
-        else:
-            xs = torch.zeros_like(x)
-            lo, hi = max(0, -off), min(N, N - off)
-            xs[:, lo:hi] = x[:, lo + off:hi + off]
-        out += torch.einsum("mni,ni->mi", A_bands[k], xs)
-    return out
+def check_matvec(bands, v, periodic, scale=1.0, results=None, what=""):
+    """K7 against its plain version on the same bands, vector and scale, at
+    the F/J tolerance of the size of the terms, ``max |scale| |A| |v|``:
+    a product that cancels (J u of a smooth state) carries the rounding of
+    its terms, which the two versions sum in different orders."""
+    results = {} if results is None else results
+    got = matvec.banded_matvec(bands, v, periodic, scale)
+    want = matvec.banded_matvec_plain(bands, v, periodic, scale)
+    terms = matvec.banded_matvec_plain(bands.abs(), v.abs(), periodic,
+                                       abs(scale))
+    kind = "per-member" if isinstance(scale, torch.Tensor) else "number"
+    _record(results, "K7.matvec", got, want, TOL[v.dtype]["FJ"],
+            f"bands {tuple(bands.shape)} periodic={periodic} scale {kind} "
+            f"{what}", scale=float(terms.max()))
+    return results
+
+
+#: (nvar, W, N) of K7's small-shape checks: one to three variables, three
+#: band widths, a grid narrower than a warp and grids no multiple of the
+#: block (256)
+MATVEC_SHAPES = [(nvar, W, N) for nvar in (1, 2, 3) for W in (3, 5, 7)
+                 for N in (7, 64, 1000)]
+
+
+def check_all_matvecs(device, dtype, results=None, seed=0):
+    """K7 at every ``MATVEC_SHAPES`` shape, edge and periodic, for one grid
+    (a number scale) and B = 4 members (a number and a per-member scale)."""
+    results = {} if results is None else results
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    for nvar, W, N in MATVEC_SHAPES:
+        for lead in ((), (BATCH,)):
+            bands = t(rng.standard_normal((*lead, W, nvar, nvar, N)))
+            v = t(rng.standard_normal((*lead, nvar, N)))
+            scales = [0.3] + ([t(rng.standard_normal(BATCH))] if lead else [])
+            for periodic in (True, False):
+                for scale in scales:
+                    check_matvec(bands, v, periodic, scale, results)
+    return results
 
 
 def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
@@ -249,7 +280,8 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     A = torch.zeros_like(bands).double()
     A += beta * bands.double()
     A[W // 2, torch.arange(nvar), torch.arange(nvar)] += alpha
-    resid = banded_matvec(A, x.double(), periodic) - rhs.double()
+    resid = (matvec.banded_matvec_plain(A, x.double(), periodic)
+             - rhs.double())
     res = float(resid.norm() / rhs.double().norm())
     if not res <= tol:
         raise CheckFailed(f"solve residual {res:.3e} > {tol:.0e} ({what})")
@@ -454,6 +486,7 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
             bands = random_bands(W, nvar, N, dtype, device, seed=i)
             check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results)
         check_all_combines(device, dtype, results)
+        check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
         out[str(dtype).replace("torch.", "")] = results
     return out
@@ -588,7 +621,8 @@ def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
     for b in range(B):
         A = float(betas[b]) * bands[b].double()
         A[W // 2, torch.arange(nvar), torch.arange(nvar)] += 1.0
-        resid = banded_matvec(A, x[b].double(), periodic) - rhs[b].double()
+        resid = (matvec.banded_matvec_plain(A, x[b].double(), periodic)
+                 - rhs[b].double())
         res = float(resid.norm() / rhs[b].double().norm())
         if not res <= tol:
             raise CheckFailed(f"member {b} solve residual {res:.3e} > "

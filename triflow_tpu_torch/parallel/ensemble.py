@@ -13,15 +13,17 @@ member count (``ops.chunked.Plan.B``).
 
 Routes (``route``):
 
-* ``"K6"``: a grid K6 admits (``ops.megastep.plan_for``), no hook, and for
-  an adaptive scheme ``recompute_target=True``.  ``steps(n, dt)`` is ONE
+* ``"K6"``: a grid K6 admits (``ops.megastep.plan_for``), no hook, for
+  an adaptive scheme ``recompute_target=True``, and no ``refine=`` (the
+  scheme's ``_mega_plan`` gate).  ``steps(n, dt)`` is ONE
   launch: K6's step entry for a fixed scheme, its ``adaptive_scan`` entry
   for an adaptive ROW scheme (a shared dt, or each member's own with
   ``per_member_dt``); ``step(dt)`` is one launch of the step or adaptive
   entry.
 * ``"host"``: otherwise.  Every output step runs on the host: the scheme's
-  ``fixed_step_batched`` (K1-K5 with a member axis, or one K6 launch where
-  K6's plan admits the grid), under the shared-dt controller
+  ``fixed_step_batched`` (K1-K5 with a member axis, with ``refine=`` also
+  K7 with each member's g00*dt as its scale, or one K6 launch where K6's
+  plan admits the grid), under the shared-dt controller
   (``core.rosenbrock.adaptive_controller`` on the max member error, one
   scalar read per attempt) or the per-member one
   (``core.rosenbrock.member_controller``, one (B,) read per attempt).
@@ -35,7 +37,9 @@ Python calls and one stack per application, so a hooked ensemble is
 host-bound at small N.
 
 Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9),
-df64 models (A8), containers and checkpoints (A10).
+df64 models (A8), Theta with a custom ``solver=`` (A12: what a user's
+solver gets per member is not defined in the port), containers and
+checkpoints (A10).
 """
 
 from __future__ import annotations
@@ -153,6 +157,10 @@ class Ensemble:
             raise NotImplementedError(
                 f"{type(self._scheme).__name__} has no batched step in the "
                 "port (ensembles take Theta and the ROW family)")
+        if self._scheme._solver is not None:
+            raise NotImplementedError(
+                "Ensemble with Theta(solver=...): a custom solver's contract "
+                "for a member axis is not defined in the port (ROADMAP A12)")
         self._adaptive = bool(getattr(self._scheme, "_time_control", False))
         self._hook = hook
         self._per_member_dt = bool(per_member_dt) and self._adaptive
