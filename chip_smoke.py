@@ -83,10 +83,34 @@ biased F, sweeps the chunk count of config 5 (behind
 64 at KS N = 2^13, B = 4 at N = 10^5: which plans the model picks there),
 and sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
 
+The df64 mode (``Model(double="df64")``: native float64, float32 step
+sizes) runs in each phase too: phase 0 builds K8 (``mixed_residual.cu``;
+K6's mixed entry is in every float64 K6 library); phase 1 holds K8 and
+K6's mixed entry against their plain versions at small shapes
+(``kernel_checks.check_all_mixed``) and on the KS N = 10^6 df64 residual,
+the KS N = 2^13 state and Burgers N = 10^4 (``mixed_path_checks``);
+phase 2 runs ``DF64_CASES`` (bench.py's ``bench_df64`` and
+``bench_df64_smalln`` grids: KS N = 10^6 with ``df64_mixed_solve=1``,
+exactly 24 K8 launches in 4 steps, and with the full solver; KS N = 10^4
+for 200 steps on the route the mixed gate picks; KS N = 2^13 through
+``device_fixed_scan(200)``, one launch of the mixed entry; Burgers N =
+10^4 through a mixed Theta; the README model with its hook; an adaptive
+KS N = 10^4 mixed run), each with its exact launches and against the
+card's ``double=True`` run of the same case or the port's CPU df64 run;
+phase 3 (``phase3_df64``) times the KS N = 10^6 step in double=True, df64
+full and df64 mixed (alternated, with profiles), K8 against its bound and
+a ``torch.sparse`` CSR matvec with the combination and the cast, K6's
+mixed entry at KS N = 2^13 beside K6.step, the Burgers N = 10^6
+``Theta(solver=...)`` step beside the plain Theta, and the mixed entry
+against the multi-launch mixed path at N = 2^10 .. 2^15 and 10^4 for s =
+1, 2, 4 (behind ``megastep.MIXED_MAX_N``).
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
-N = 10^6, the others at KS N = 2^20), the card's ``nvidia-smi``
+N = 10^6, the others at KS N = 2^20; K8 and K6's mixed entry have one
+type pair, their main keys the float64 column and null float32 keys),
+the card's ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -109,7 +133,7 @@ import torch
 from triflow_tpu_torch import Model, Simulation, schemes
 from triflow_tpu_torch.core.rosenbrock import adaptive_controller, member_controller
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
-                                   matvec, megastep, pcr, stencil, thomas)
+                                   matvec, megastep, mixed, pcr, stencil, thomas)
 from triflow_tpu_torch.parallel import Ensemble
 from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
@@ -161,12 +185,20 @@ KERNELS = {
     "K7.matvec": ("cuda", "triflow_tpu_torch/csrc/matvec.cu",
                   "triflow_tpu/ops/pallas_stencil.py:381 banded_matvec_pallas + "
                   "triflow_tpu/ops/folded.py:700 matvec_folded"),
+    "K8.residual": ("cuda", "triflow_tpu_torch/csrc/mixed_residual.cu",
+                    "triflow_tpu/ops/folded.py:777 matvec_df_folded + "
+                    "triflow_tpu/ops/banded_df.py:720 banded_matvec_df"),
+    "K6.step_mixed": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                      "triflow_tpu/ops/megastep.py:821 row_step_df_folded + "
+                      ":907 theta_step_df_folded"),
 }
+#: the kernel entries of the df64 mode's mixed solve: float64 operands only
+DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
 #: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
 #: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")
-                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec")]
+                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 K7 = ["K7.matvec"]
@@ -176,7 +208,8 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
-               "combine_kernel": "K5.combine", "step_kernel": "K6.step",
+               "combine_kernel": "K5.combine", "step_mixed_kernel": "K6.step_mixed",
+               "step_kernel": "K6.step", "mixed_residual": "K8.residual",
                "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan",
                "matvec_kernel": "K7.matvec"}
 
@@ -391,6 +424,82 @@ ENSEMBLE_CASES = [
 ]
 
 
+#: the df64 mode's step (bench.py:461 bench_df64 and :545 bench_df64_smalln:
+#: 0.0625, exact in float32, so the card's double=True run takes the same dt)
+DF64_DT = 0.0625
+MIXED1 = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None, df64_mixed_solve=1)
+DF64_FULL = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None)
+
+
+def df64_expect_mixed(per_step):
+    """The launches of a df64 mixed case: K6's mixed entry once per step
+    where its gate admits the grid, else K8 six times per step (RODASPR,
+    one pass) and no K6 entry."""
+    def expect(plan, steps):
+        if plan is not None:
+            return {"K6.step_mixed": steps, "K8.residual": 0}
+        return {"K8.residual": per_step * steps, "K6.step_mixed": 0, "K6.step": 0}
+    return expect
+
+
+#: the df64 mode on the card (model double="df64"): (name, equations, case,
+#: kwargs, how it runs (("steps", n): n scheme calls; ("scan", n): one
+#: device_fixed_scan of n steps; ("sim", None): Simulation), the kernel
+#: entries it must launch at least once, the exact launches as a callable of
+#: (K6 mixed plan or None, steps or attempts), what it is held to ("f64":
+#: the card's double=True run of the same case; "cpu": the port's CPU df64
+#: run, attempts equal) and the limit on max|du| / max|u|)
+DF64_CASES = [
+    ("(a) ks N=10^6 rodaspr df64 mixed=1 (4 x 0.0625)", KS,
+     ks_case(DF64_DT, 4 * DF64_DT, N_REF), MIXED1, ("steps", 4),
+     MULTI_LAUNCH + WOOD + ["K8.residual"],
+     lambda plan, n: {"K8.residual": 24, "K6.step_mixed": 0, "K6.step": 0}, "f64", 1e-11),
+    ("(b) ks N=10^6 rodaspr df64 full (4 x 0.0625)", KS,
+     ks_case(DF64_DT, 4 * DF64_DT, N_REF), DF64_FULL, ("steps", 4), MULTI_LAUNCH + WOOD,
+     lambda plan, n: {"K8.residual": 0, "K6.step_mixed": 0, "K6.step": 0}, "f64", 1e-10),
+    ("(c) ks N=10^4 rodaspr df64 mixed=1 (200 x 0.0625)", KS,
+     ks_case(DF64_DT, 200 * DF64_DT, N_REF_SMALL), MIXED1, ("steps", 200), [],
+     df64_expect_mixed(6), "f64", 1e-10),
+    ("(d) ks N=2^13 rodaspr df64 mixed=1 device_fixed_scan(200)", KS,
+     ks_case(DF64_DT, 200 * DF64_DT, N_SMALL), MIXED1, ("scan", 200), ["K6.step_mixed"],
+     lambda plan, n: {"K6.step_mixed": 1, "K8.residual": 0, "K6.step": 0}, "f64", 1e-10),
+    ("(e) burgers N=10^4 theta df64 mixed=1 (10 x 0.0625)", BURGERS,
+     burgers_case(N_REF_SMALL, DF64_DT, 10 * DF64_DT),
+     dict(scheme=schemes.Theta, theta=1.0, df64_mixed_solve=1), ("steps", 10),
+     ["K6.step_mixed"],
+     lambda plan, n: {"K6.step_mixed": 10, "K8.residual": 0, "K6.step": 0}, "f64", 1e-10),
+    ("(f) readme N=200 Simulation defaults df64 (hook, full solver)", README,
+     readme_case(), {}, ("sim", None), ["K6.step"],
+     lambda plan, n: {"K6.step": n, "K8.residual": 0, "K6.step_mixed": 0,
+                      "K6.adaptive": 0}, "cpu", 1e-10),
+    ("(g) ks N=10^4 rodaspr df64 mixed=1 adaptive tol 1e-3 (2 x 1.0)", KS,
+     ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3, df64_mixed_solve=1), ("sim", None), [],
+     df64_expect_mixed(6), "cpu", 1e-10),
+]
+
+
+def run_df64(case, device, double):
+    """(u, attempts per output step, steps or attempts) of a df64 case run
+    with the model's mode ``double`` ("df64", or True for its float64
+    twin) on ``device``."""
+    _, eqs, state, kwargs, (how, n), *_ = case
+    if how == "sim":
+        _, u, attempts = run_simulation(eqs, state, device, torch.float64, kwargs, double)
+        return u, attempts, sum(attempts)
+    if how == "steps":
+        _, u, _ = run_steps(eqs, state, device, torch.float64, kwargs, n, double)
+        return u, [], n
+    fields_np, pars, dt, _, _ = state
+    model = Model(*eqs, double=double, device=device)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    b = model.backend
+    u, helpers, x = b.split_fields(fields)
+    kw = {k: v for k, v in kwargs.items() if k != "scheme"}
+    scan = kwargs["scheme"](model, **kw).device_fixed_scan(x.shape[-1], periodic=True)
+    # the U row of the final state, as the other runs give it
+    return scan(0.0, u, helpers, b.pack_pars(pars_t, x), x, dt, n)[0], [], n
+
+
 def drive(ens, calls):
     for n, dt in calls:
         if n is None:
@@ -418,11 +527,12 @@ def run_case(name, eqs, case, device, dtype, kwargs):
     return run_simulation(eqs, case, device, dtype, kwargs)
 
 
-def run_steps(eqs, case, device, dtype, kwargs, n):
+def run_steps(eqs, case, device, dtype, kwargs, n, double=None):
     """``run_simulation`` of n calls of the scheme itself (no attempts
     kept: these schemes are fixed-step)."""
     fields_np, pars, dt, _, hook = case
-    model = Model(*eqs, double=dtype == torch.float64, device=device)
+    double = dtype == torch.float64 if double is None else double
+    model = Model(*eqs, double=double, device=device)
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     kw = {k: v for k, v in kwargs.items() if k != "scheme"}
     scheme = kwargs["scheme"](model, **kw)
@@ -432,10 +542,12 @@ def run_steps(eqs, case, device, dtype, kwargs, n):
     return n, fields["U"], []
 
 
-def run_simulation(eqs, case, device, dtype, kwargs):
-    """(output steps, final u, attempts in each output step)."""
+def run_simulation(eqs, case, device, dtype, kwargs, double=None):
+    """(output steps, final u, attempts in each output step); ``double``
+    overrides the model's mode (``"df64"``)."""
     fields_np, pars, dt, tmax, hook = case
-    model = Model(*eqs, double=dtype == torch.float64, device=device)
+    double = dtype == torch.float64 if double is None else double
+    model = Model(*eqs, double=double, device=device)
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     sim = Simulation(model, fields, pars_t, dt=dt, tmax=tmax,
                      hook=hook or schemes.null_hook, **kwargs)
@@ -486,7 +598,7 @@ def phase0():
     models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
               for d in (True, False)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
-                                 combine.LIB, matvec.LIB)]
+                                 combine.LIB, matvec.LIB, mixed.LIB)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
@@ -517,11 +629,13 @@ def phase0():
     return smi
 
 
-def path_inputs(eqs, case, dtype):
+def path_inputs(eqs, case, dtype, double=None):
     """A model on the card, its state, and the inputs each kernel gets on
-    the path's first step."""
+    the path's first step; ``double`` overrides the model's mode
+    (``"df64"``)."""
     fields_np, pars, dt, _, _ = case
-    model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+    double = dtype == torch.float64 if double is None else double
+    model = Model(*eqs, double=double, device="cuda")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
     b = model.backend
     u, helpers, x = b.split_fields(fields)
@@ -572,6 +686,30 @@ def matvec_path_checks(dtype, res):
     for scale in (gdt, per_member):
         kernel_checks.check_matvec(bands, k, True, scale, res,
                                    f"B={B_REFINE} N={N_ENS} stage 1")
+
+
+def mixed_path_checks(res):
+    """The df64 mode's kernels on the main paths' inputs: K8 on the bands,
+    the first stage's solution and right-hand side of the KS N = 10^6 df64
+    case (its first residual pass); K6's mixed entry (RODASPR and Theta,
+    one pass: one step, and 3 steps in one launch bit for bit against 3
+    launches) on the KS N = 2^13 path's state and on Burgers N = 10^4."""
+    _, g00 = rodaspr_rows()
+    gdt = g00 * DF64_DT
+    model, _, _, args, _ = path_inputs(KS, ks_case(DF64_DT, 4 * DF64_DT, N_REF),
+                                       torch.float64, "df64")
+    b = model.backend
+    bands = b.J_bands(*args, periodic=True)
+    plan = chunked.make_plan(N_REF, 1, 2, True)
+    rhs = b.F(*args, periodic=True, scale=gdt)
+    k = mixed.MixedFactorization(bands, gdt, True, plan, 0).solve(rhs)
+    kernel_checks.check_mixed_residual(bands, k, rhs, gdt, True, res,
+                                       f"KS N={N_REF} stage 1")
+    for eqs, case in ((KS, ks_case(DF64_DT, 1.0, N_SMALL)),
+                      (BURGERS, burgers_case(N_REF_SMALL, DF64_DT, 1.0))):
+        m, _, _, a, _ = path_inputs(eqs, case, torch.float64, "df64")
+        kernel_checks.check_megastep_mixed(m, a[-1].shape[-1], True, DF64_DT, "cuda",
+                                           res, state=a, passes=(1,))
 
 
 def phase1():
@@ -637,6 +775,8 @@ def phase1():
         kernel_checks.check_megastep(bm, N_REF_SMALL, True, 0.05, "cuda", res,
                                      adaptive=(1.0, 1e-6, 1e-3), state=bargs)
         matvec_path_checks(dtype, res)
+        if dtype == torch.float64:
+            mixed_path_checks(res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
     # the member axis: K1-K4 and K6 on B = 4 members (block-cyclic and
@@ -681,7 +821,8 @@ def phase2():
             missing = [k for k in needs if counts[k] <= 0]
             small = any(k.startswith("K6") for k in needs)
             others = [k for k in KERNELS if k not in needs and counts[k]
-                      and (small or k.startswith("K6") or k in ("K1.F_terms", "K7.matvec"))]
+                      and (small or k.startswith("K6")
+                           or k in ("K1.F_terms", "K7.matvec", "K8.residual"))]
             if missing or others:
                 raise RuntimeError(f"{name} {dt_name}: kernels not launched {missing}, "
                                    f"launched off this path {others}")
@@ -741,13 +882,66 @@ def phase2():
     return launches
 
 
+def phase2_df64(launches):
+    """The df64 mode through the port's entry points on the card
+    (``DF64_CASES``): each case with the launch counts set to 0 just before
+    it and read just after, held to its exact launches and to the card's
+    double=True run of the same case or the port's CPU df64 run."""
+    log("phase 2: the df64 mode (Model(double='df64')) on the card")
+    for case in DF64_CASES:
+        name, eqs, state, kwargs, _, needs, exact, against, limit = case
+        fields_np, pars = state[0], state[1]
+        N = len(fields_np["x"])
+        sysm = Model(*eqs, device="cpu").system
+        plan = (megastep.mixed_plan_for(N, sysm.nvar, sysm.halo, pars["periodic"])
+                if kwargs.get("df64_mixed_solve") else None)
+        torch.cuda.synchronize()
+        _launch.reset_counters()
+        start = time.perf_counter()
+        u, attempts, count = run_df64(case, "cuda", "df64")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = _launch.counts()
+        want = exact(plan, count)
+        off = {k: counts[k] for k, v in want.items() if counts[k] != v}
+        missing = [k for k in needs if counts[k] <= 0]
+        log(f"  {name}: mixed entry plan "
+            + ("none (multi-launch)" if plan is None else f"C={plan.C} Mc={plan.Mc} "
+               f"woodbury={plan.woodbury}")
+            + f"; launches " + json.dumps({k: v for k, v in counts.items() if v})
+            + f"; {secs:.3f} s wall (first call, launch included); attempts per output "
+            f"step {attempts}")
+        if off or missing:
+            raise RuntimeError(f"{name}: launches {off} against {want}, not launched "
+                               f"{missing}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if against == "f64":
+            ref, ref_attempts, _ = run_df64(case, "cuda", True)
+            what = "the card's double=True run"
+        else:
+            ref_u, ref_attempts, cpu_s = cpu_refs()[name]
+            ref = torch.from_numpy(ref_u)
+            what = f"the port's CPU df64 run ({cpu_s:.1f} s)"
+        ref = ref.double().cpu()
+        if not bool(torch.isfinite(u).all()) or u.shape != ref.shape:
+            raise RuntimeError(f"{name}: non-finite or misshapen")
+        err = float((u.double().cpu() - ref).abs().max() / ref.abs().max())
+        log(f"    against {what}: max|du| / max|u| = {err:.3e} (limit {limit:.0e}); "
+            f"attempts {ref_attempts}")
+        if not err <= limit or (against == "cpu" and attempts != ref_attempts):
+            raise RuntimeError(f"{name}: disagrees with {what}")
+    log("  launches over phase 2 with the df64 mode: " + json.dumps(launches))
+    return launches
+
+
 def cpu_reference_runs(conn):
-    """The port's CPU f64 runs (the plain versions) of phase 2's cases and
-    of the ensemble cases that compare with one, sent through ``conn``:
-    run in a process of its own, started before phase 0, so that they
-    overlap the card's work.  {case name: (steps, u, attempts, s)} and
-    {ensemble case name: (u, t, attempts, member attempts, s)}, or
-    ("error", traceback)."""
+    """The port's CPU f64 runs (the plain versions) of phase 2's cases, of
+    the ensemble cases that compare with one and of the df64 cases held to
+    one, sent through ``conn``: run in a process of its own, started before
+    phase 0, so that they overlap the card's work.  {case name: (steps, u,
+    attempts, s)}, {ensemble case name: (u, t, attempts, member attempts,
+    s)} and {df64 case name: (u, attempts, s)}, or ("error", traceback)."""
     try:
         torch.set_num_threads(4)
         out = {}
@@ -762,6 +956,11 @@ def cpu_reference_runs(conn):
                             calls)
                 out[name] = (ens.u.numpy(), ens.t, ens.attempts, ens.member_iters,
                              time.perf_counter() - start)
+        for case in DF64_CASES:
+            if case[7] == "cpu":
+                start = time.perf_counter()
+                u, attempts, _ = run_df64(case, "cpu", "df64")
+                out[case[0]] = (u.numpy(), attempts, time.perf_counter() - start)
         # numpy, not tensors: torch would share tensors through file
         # descriptors that close with this process
         conn.send(out)
@@ -1617,6 +1816,155 @@ def phase3_small():
     return times
 
 
+#: the grids of the mixed entry's crossover sweep behind
+#: megastep.MIXED_MAX_N: powers of two and the reference's N = 10^4
+#: (bench.py:545 bench_df64_smalln)
+MIXED_SWEEP_NS = sorted([1 << e for e in range(10, 16)] + [N_REF_SMALL])
+MIXED_SWEEP_SCHEMES = {
+    "rodaspr": lambda m: schemes.RODASPR(m, time_stepping=False, tol=None,
+                                         df64_mixed_solve=1),
+    "theta": lambda m: schemes.Theta(m, theta=1.0, df64_mixed_solve=1)}
+
+
+def k6_mixed_work(model, plan, table, passes):
+    """(bytes, float64 operations, float32 operations) of K6's mixed entry
+    on these inputs: each input read once and the state written once; per
+    step J, the stage sums and bias, F, the residual passes, the final rows
+    and err in float64, the factor, the PCR factor and (1 + passes) solves
+    per stage in float32."""
+    sysm = model.system
+    N, nvar, s, C, M = plan.N, sysm.nvar, plan.s, plan.C, plan.M
+    s2, nlev, n = 2 * s, pcr.n_levels(plan.C), nvar * plan.N
+    n_in = (nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
+    solve = 6 * s * s * M + 4 * s2 * s2 * C * nlev + 4 * s * n
+    residual = (2 * plan.W * nvar + 3) * n
+    ops64 = expr_ops(sysm.J_band_exprs.values()) * N
+    ops32 = 8 * s ** 3 * M + 12 * s2 ** 3 * C * nlev
+    for a_row, c_row in table.stages:
+        combos = 0 if megastep._is_u(a_row) else 2 * len(a_row) * n
+        if c_row is not None:
+            combos += 3 * len(c_row) * n
+        ops64 += combos + expr_ops(sysm.F_exprs) * N + n + passes * residual
+        ops32 += (1 + passes) * solve
+    ops64 += sum(2 * len(row) * n for row in table.final) + 2 * n * (len(table.final) - 1)
+    return (n_in + n) * 8 + 32, ops64, ops32
+
+
+def mixed_bound(nbytes, ops64, ops32):
+    """``bound`` of work in two types: float64 operations over the float64
+    peak plus float32 ones over the float32 peak, against the bytes."""
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    t_ops = (ops64 / OPS_PER_S[torch.float64] + ops32 / OPS_PER_S[torch.float32]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase3_df64():
+    """The df64 mode: ms per KS 10^6 RODASPR step in double=True, df64 full
+    and df64 mixed=1 (alternated, with profiles); K8 against its bound,
+    plain version and library call; K6's mixed entry at KS 2^13 beside
+    K6.step in float64; Burgers 10^6 Theta(solver=) per step; the mixed
+    entry's crossover sweep behind its gate."""
+    log("phase 3: the df64 mode (CUDA events)")
+    times = {}
+    _, g00 = rodaspr_rows()
+    gdt = g00 * DF64_DT
+    runs = {}
+    for label, double, passes in (("double=True", True, None), ("df64 full", "df64", None),
+                                  ("df64 mixed=1", "df64", 1)):
+        model, fields, pars_t, _, _ = path_inputs(KS, ks_case(DF64_DT, 4 * DF64_DT, N_REF),
+                                                  torch.float64, double)
+        runs[label] = (schemes.RODASPR(model, time_stepping=False, tol=None,
+                                       df64_mixed_solve=passes), fields, pars_t)
+    order = ["double=True", "df64 full", "df64 mixed=1", "df64 mixed=1", "df64 full",
+             "double=True"]
+    ms = [cuda_ms(lambda: runs[label][0](0.0, runs[label][1], DF64_DT, runs[label][2]), 10)
+          for label in order]
+    log("  rodaspr fixed step ks N=10^6 (dt 0.0625), ms/step, "
+        + " / ".join(order) + ": " + " / ".join(f"{m:.4f}" for m in ms)
+        + " (CUDA events over 10 steps)")
+    for label, (sch, f, p) in runs.items():
+        log_profile(f"rodaspr fixed step ks N=10^6 {label}", "float64",
+                    profile_step(sch, f, p, DF64_DT))
+    # K8 on the first residual pass of the KS 10^6 df64 step
+    model, _, _, args, _ = path_inputs(KS, ks_case(DF64_DT, 4 * DF64_DT, N_REF),
+                                       torch.float64, "df64")
+    b = model.backend
+    bands = b.J_bands(*args, periodic=True)
+    rhs = b.F(*args, periodic=True, scale=gdt)
+    k = mixed.MixedFactorization(bands, gdt, True, chunked.make_plan(N_REF, 1, 2, True),
+                                 0).solve(rhs)
+    W, nvar, N = bands.shape[0], 1, N_REF
+    csr = banded_csr(bands, True, gdt)
+    kern = lambda: mixed.mixed_residual(bands, k, rhs, gdt, True)
+    plain = lambda: mixed.mixed_residual_plain(bands, k, rhs, gdt, True)
+    library = lambda: ((rhs - k) + torch.mv(csr, k.view(-1)).view_as(k)).float()
+    nbytes = (W * nvar * nvar * N + 2 * nvar * N) * 8 + nvar * N * 4
+    ops = (2 * W * nvar + 3) * nvar * N
+    p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
+    lib_ms = min(cuda_ms(library, 5) for _ in range(2))
+    b_ms, b_by = bound(nbytes, ops, torch.float64)
+    times["K8.residual"] = (min(k1, k2), min(p1, p2), b_ms, b_by, lib_ms)
+    log(f"  K8.residual ks N=10^6: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} operations), library "
+        f"(torch.sparse CSR matvec, combination, cast) {lib_ms:.4f} ms")
+    log_profile("K8.residual alone ks N=10^6 (device us per launch)", "float64",
+                profile_calls(kern, 20))
+    # K6's mixed entry at KS N = 2^13 beside K6.step in float64
+    km, _, _, kargs, _ = path_inputs(KS, ks_case(DF64_DT, 1.0, N_SMALL), torch.float64, "df64")
+    kb = km.backend
+    kplan = megastep.make_plan(N_SMALL, 1, 2, True)
+    table = kernel_checks.rodaspr_table(False)
+    mixed_fn = lambda n=1: megastep.step_mixed(kb, kplan, table, True, *kargs, -gdt, gdt, 1,
+                                               nsteps=n)
+    plain_fn = lambda: megastep.step_plain(kb, kplan, table, True, *kargs, -gdt, gdt, 1)
+    f64_fn = lambda n=1: megastep.step(kb, kplan, table, True, *kargs, -gdt, gdt, nsteps=n)
+    p1, k1, k2, p2 = (cuda_ms(f, 3) for f in (plain_fn, mixed_fn, mixed_fn, plain_fn))
+    per = [1e3 / 20 * cuda_ms(lambda: fn(20), 3) for fn in (f64_fn, mixed_fn, mixed_fn, f64_fn)]
+    nbytes, o64, o32 = k6_mixed_work(km, kplan, table, 1)
+    b_ms, b_by = mixed_bound(nbytes, o64, o32)
+    times["K6.step_mixed"] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+    log(f"  K6.step_mixed ks N=2^13 rodaspr one pass: kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, {o64} float64 "
+        f"and {o32} float32 operations), plan C={kplan.C} Mc={kplan.Mc}; us per step at "
+        f"20 steps per launch, K6.step f64 / mixed / mixed / K6.step f64: "
+        + " / ".join(f"{v:.2f}" for v in per))
+    # Burgers 10^6 Theta(solver=), beside the plain Theta
+    for dt_name, dtype in DTYPES.items():
+        model, fields, pars_t, _, dt = path_inputs(BURGERS, burgers_case(N_REF), dtype)
+        plain_t = schemes.Theta(model, theta=1.0)
+        solver_t = schemes.Theta(model, theta=1.0, solver=chunked_solver)
+        r = [cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+             for sch in (plain_t, solver_t, solver_t, plain_t)]
+        log(f"  theta step burgers N=10^6 {dt_name}, plain / solver= / solver= / plain: "
+            + " / ".join(f"{m:.4f}" for m in r) + " ms/step (CUDA events over 10 steps)")
+    # the mixed entry against the multi-launch mixed path, per block size
+    sweep = {}
+    for label, eqs, make_case, s_blk in SWEEP_MODELS:
+        model = Model(*eqs, double="df64", device="cuda")
+        sysm = model.system
+        for sch_name, make in MIXED_SWEEP_SCHEMES.items():
+            row = []
+            for N in MIXED_SWEEP_NS:
+                fields_np, pars, dt, _, _ = make_case(N)
+                fields, pars_t = state_from_numpy(fields_np, pars, model)
+                k6, multi = make(model), make(model)
+                k6._mega_plans[(N, True, "mixed")] = megastep.make_plan(N, sysm.nvar,
+                                                                        sysm.halo, True)
+                multi._mega_plans[(N, True, "mixed")] = None
+                m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+                                  for sch in (multi, k6, k6, multi))
+                sweep.setdefault((s_blk, sch_name), {})[N] = min(k1, k2) < min(m1, m2)
+                row.append(f"N={N}: {k1:.4f}/{k2:.4f} vs {m1:.4f}/{m2:.4f}")
+            log(f"  df64 mixed=1 {label} (s={s_blk}) {sch_name} fixed step, K6 mixed entry vs "
+                "multi-launch (ms, CUDA events over 10 steps): " + "; ".join(row))
+    for (s_blk, sch_name), by_n in sorted(sweep.items()):
+        wins = [N for N in sorted(by_n) if all(by_n[M] for M in by_n if M <= N)]
+        log(f"  mixed crossover s={s_blk} {sch_name}: K6's mixed entry faster at every N up "
+            f"to {max(wins, default=0)} (the gate megastep.MIXED_MAX_N[{s_blk}] is "
+            f"{megastep.MIXED_MAX_N.get(s_blk)})")
+    return {"float64": times}
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -1638,21 +1986,29 @@ def main():
 def run():
     smi = timed(phase0)
     errs = timed(phase1)
-    launches = timed(phase2_ensembles, timed(phase2))
+    launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
     times = timed(phase3)
-    for part in (timed(phase3_small), timed(phase3_ensembles, errs)):
+    for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []
     for name, (route, source, replaces) in KERNELS.items():
-        e32, e64 = errs["float32"][name], errs["float64"][name]
-        k32, p32, b32, by32, l32 = times["float32"][name]
-        k64, p64, b64, _, l64 = times["float64"][name]
+        e64 = errs["float64"][name]
+        k64, p64, b64, by64, l64 = times["float64"][name]
+        if name in DF64_ONLY:
+            # one type pair (float64 operands, float32 inside or out): the
+            # main keys carry the float64 column, the float32 one is null
+            e32 = k32 = p32 = b32 = l32 = None
+            main = (e64, k64, p64, b64, by64, l64)
+        else:
+            e32 = errs["float32"][name]
+            k32, p32, b32, by32, l32 = times["float32"][name]
+            main = (max(e32, e64), k32, p32, b32, by32, l32)
         record.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(e32, e64),
-            "ms": k32, "plain_ms": p32, "bound_ms": b32, "bound_by": by32,
-            "library_ms": l32,
+            "launches": launches[name], **dict(zip(
+                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                main)),
             "max_abs_err_f32": e32, "max_abs_err_f64": e64,
             "ms_f64": k64, "plain_ms_f64": p64, "bound_ms_f64": b64,
             "library_ms_f64": l64,

@@ -19,7 +19,7 @@ def test_import_loads_no_jax():
     code = ("import sys, triflow_tpu_torch, triflow_tpu_torch.utils.convert; "
             "import triflow_tpu_torch.core.simulation; "
             "import triflow_tpu_torch.parallel.ensemble; "
-            "import triflow_tpu_torch.ops.matvec; "
+            "import triflow_tpu_torch.ops.matvec, triflow_tpu_torch.ops.mixed; "
             "print('jax' in sys.modules, "
             "any(m.startswith('triflow_tpu.') or m == 'triflow_tpu' "
             "for m in sys.modules))")

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from triflow_tpu_torch import Model, schemes
-from triflow_tpu_torch.ops import _launch, chunked, kernel_checks, megastep, pcr, thomas
+from triflow_tpu_torch.ops import (_launch, chunked, kernel_checks, megastep, mixed,
+                                   pcr, thomas)
 
 torch.set_num_threads(1)
 
@@ -34,6 +35,8 @@ def cuda_device():
 MEMBER_AXIS_ONLY = {"K1.F_terms", "K6.adaptive_scan"}
 #: the kernel entries only ``refine=`` and ``Theta(solver=)`` run
 REFINE_ONLY = {"K7.matvec"}
+#: the kernel entries of the df64 mode's mixed solve: float64 only
+DF64_ONLY = {"K8.residual", "K6.step_mixed"}
 
 
 @pytest.mark.cuda
@@ -42,7 +45,8 @@ REFINE_ONLY = {"K7.matvec"}
 def test_kernels_match_plain_versions(cuda_device, dtype):
     results = kernel_checks.run_all(cuda_device, dtypes=(dtype,))
     name = str(dtype).replace("torch.", "")
-    assert set(_launch.COUNTERS) - MEMBER_AXIS_ONLY <= set(results[name])
+    skip = MEMBER_AXIS_ONLY | (DF64_ONLY if dtype == torch.float32 else set())
+    assert set(_launch.COUNTERS) - skip <= set(results[name])
     assert REFINE_ONLY <= set(results[name])
 
 
@@ -78,7 +82,8 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     """One fixed RODASPR step: one J and one factor, six biased F and six
     solves, and five stage combinations plus the final one; a block-cyclic
     plan has no Woodbury set-up, one grid no fused stage right-hand side
-    (an ensemble's), and a step without ``refine=`` no matvec."""
+    (an ensemble's), a step without ``refine=`` no matvec, and a float64
+    model no mixed-solve residual (the df64 mode's K8)."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
@@ -86,8 +91,9 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
                if not k.startswith("K6")
-               and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec"))
+               and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual"))
     assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == counts["K7.matvec"] == 0
+    assert counts["K8.residual"] == 0
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
     assert counts["K1.F"] == counts["K3.thomas_sweep"] == 6
     assert counts["K5.combine"] == 6
@@ -239,6 +245,49 @@ def test_adapted_dt_limit_catches_a_wrong_err():
             assert bad_gap > limit or not bad_same
 
 
+@pytest.mark.cuda
+def test_df64_kernels_match_plain_versions(cuda_device):
+    """K8 at every small shape (one grid and four members, a number and a
+    per-member coef) and K6's mixed entry (s = 1, 2, 4; edge,
+    block-cyclic and Woodbury; 1 and 2 residual passes; 3 steps in one
+    launch bit for bit) against their plain versions."""
+    results = kernel_checks.check_all_mixed(cuda_device)
+    assert set(results) == DF64_ONLY
+
+
+def test_df64_check_harness_on_cpu():
+    """The df64 checks on CPU tensors: plain against plain, nothing
+    launched."""
+    before = _launch.counts()
+    results = kernel_checks.check_all_mixed("cpu")
+    assert results == dict.fromkeys(DF64_ONLY, 0.0)
+    assert _launch.counts() == before
+
+
+@pytest.mark.cuda
+def test_df64_mixed_steps_launch_k8_or_the_mixed_entry(cuda_device):
+    """A df64 RODASPR step with ``df64_mixed_solve=n``: above the mixed
+    entry's gate K8 6 n times, K2 and K4's factor once (float32) and no
+    K6; below it one launch of K6's mixed entry and nothing else."""
+    for N, passes in ((2 * megastep.MIXED_MAX_N[1], 1),
+                      (2 * megastep.MIXED_MAX_N[1], 2), (4096, 1)):
+        model = Model("-U * dxU + nu * dxxU", "U", "nu", double="df64",
+                      device=cuda_device)
+        _, fields, pars = _burgers_on(cuda_device, N=N)
+        scheme = schemes.RODASPR(model, time_stepping=False, tol=None,
+                                 df64_mixed_solve=passes)
+        _launch.reset_counters()
+        scheme(0.0, fields, 0.0625, pars)
+        counts = _launch.counts()
+        if scheme._mixed_plan(N, True) is None:
+            assert counts["K8.residual"] == 6 * passes
+            assert counts["K2.spike_factor"] == counts["K4.pcr_factor"] == 1
+            assert counts["K3.thomas_sweep"] == 6 * (1 + passes)
+            assert all(counts[k] == 0 for k in counts if k.startswith("K6"))
+        else:
+            assert counts == {**dict.fromkeys(counts, 0), "K6.step_mixed": 1}
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     """No silent fallback: a tensor that is neither on the CPU nor on a
     CUDA device raises instead of taking the plain version."""
@@ -254,6 +303,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
     args = [torch.empty(shape, **meta) for shape in ((1, 64), (0, 64), (1, 64), (64,))]
     with pytest.raises(ValueError, match="CUDA"):
         model.backend.F(*args, periodic=True)
+    # the df64 mode's kernels
+    bands, v = torch.empty((3, 1, 1, 64), **meta), torch.empty((1, 64), **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        mixed.mixed_residual(bands, v, v, 0.1, True)
+    table = megastep.theta_table(1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        megastep.step_mixed(model.backend, megastep.make_plan(64, 1, 1, True),
+                            table, True, *args, -0.1, 0.1, 1)
 
 
 #: the kernel entries the member-axis checks hold against plain versions

@@ -130,8 +130,12 @@ def test_model_dtype_and_unported_precision():
     assert tt.Model("k * dxxU", "U", "k", device="cpu").dtype == torch.float64
     assert tt.Model("k * dxxU", "U", "k", double=False,
                     device="cpu").dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tt.Model("k * dxxU", "U", "k", double="df64", device="cpu")
+    # the df64 mode computes in native float64; other modes stay refused
+    df64 = tt.Model("k * dxxU", "U", "k", double="df64", device="cpu")
+    assert df64.dtype == torch.float64 and df64.precision == "df64"
+    for double in ("df32", "f16"):
+        with pytest.raises(NotImplementedError):
+            tt.Model("k * dxxU", "U", "k", double=double, device="cpu")
 
 
 def test_signature_is_the_references():

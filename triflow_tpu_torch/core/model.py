@@ -9,7 +9,12 @@ Counterpart of ``triflow_tpu.core.model``:
 The constructor takes the reference's parameters in the reference's order
 (``Model(eqs, vars, pars, helps, bdcs, compiler=...)``), then the port's
 own ``device``.  ``double=True`` computes in ``torch.float64``,
-``double=False`` in ``torch.float32``.  The model's tensors and kernels
+``double=False`` in ``torch.float32``.  ``double="df64"`` is the
+reference's double-float precision mode, which the TPU carries as (hi, lo)
+float32 pairs because it has no float64; Hopper has, so the port keeps the
+mode's API (``precision == "df64"``, float64 host fields, float32 step
+sizes, ``df64_mixed_solve=``) and computes it in native ``torch.float64``.
+The model's tensors and kernels
 live on ``device``, which is the card (``"cuda"``) unless the caller asks
 for ``"cpu"``; asking for the card on a machine without one raises.
 """
@@ -70,8 +75,10 @@ class Model:
         every name is the port's ``TorchBackend`` (``COMPILERS``), "numpy"
         on the CPU whatever ``device`` says; a callable ``compiler(model)``
         returns the backend.  Another name raises ``ValueError``.
-    double : bool
-        float64 (True) or float32 (False).
+    double : bool or "df64"
+        float64 (True), float32 (False), or the df64 precision mode
+        (native float64 state and kernels; the schemes round every step
+        size to float32 and take ``df64_mixed_solve=``).
     hold_compilation : bool
         build the SymPy system only; ``compile(compiler)`` builds the
         backend later.
@@ -93,10 +100,10 @@ class Model:
                  compiler="torch", simplify=False, fdiff_jac=False,
                  double=True, hold_compilation=False, high_order=False,
                  device="cuda"):
-        if double not in (True, False):
+        if double not in (True, False, "df64"):
             raise NotImplementedError(
-                f"double={double!r}: the port has float64 (True) and float32 "
-                "(False); the precision modes are queued (ROADMAP A8)")
+                f"double={double!r}: the port has float64 (True), float32 "
+                "(False) and the df64 mode (\"df64\")")
         self._diff_eqs = _coerce(differential_equations)
         self._dep_vars = _coerce(dependent_variables)
         self._pars = _coerce(parameters)
@@ -144,6 +151,10 @@ class Model:
 
     @property
     def precision(self):
+        """'df64' (the double-float mode, native float64 on the card),
+        'f64' or 'f32'."""
+        if self._double == "df64":
+            return "df64"
         return "f64" if self._double else "f32"
 
     @property

@@ -83,7 +83,7 @@ def rodaspr_coefficients():
 
 
 def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
-                        max_iter, dt_min, interpolate, state):
+                        max_iter, dt_min, interpolate, state, clock=None):
     """One output step from ``t`` to ``t + dt`` through accepted attempts:
     the counterpart of the reference's ``_adaptive_embedded_loop`` with the
     ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt, 10*dt)``,
@@ -94,16 +94,24 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
     (``recompute_target=False``) overshoots the output time and
     interpolates u between the bracketing steps.  Returns (next_t, state,
     dt_i, niter, status), status 1 for max_iter and 2 for the dt floor.
-    K6's adaptive entry runs the same arithmetic in the same order."""
+    K6's adaptive entry runs the same arithmetic in the same order.
+
+    ``clock`` (the df64 mode: float64, with ``T`` float32) carries the
+    times in a type of their own, as the reference's compensated (hi, lo)
+    float32 clock does: every attempt's dt is still a ``T`` value, the
+    remaining time rounded to ``T`` where the attempt is clamped to the
+    output time, so the clamped attempt may leave a remainder below ``T``'s
+    resolution that one more attempt takes, as in the reference."""
     info = np.finfo(T)
+    Tc = T if clock is None else clock
     tol, safety = T(tol), T(safety)
-    next_t = T(t) + T(dt)
-    eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+    next_t = Tc(t) + Tc(dt)
+    eps = Tc(1e-12) * np.maximum(abs(next_t), Tc(1.0))
     if dt_min is not None:
         dt_floor = T(dt_min)
     else:
-        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
-    t_ = T(t)
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * T(abs(next_t))
+    t_ = Tc(t)
     dt_i = T(internal_dt) if interpolate \
         else np.minimum(T(internal_dt), T(dt))
     tp, sp_ = t_, state
@@ -114,7 +122,7 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
         else:
             remaining = next_t - t_
             clamped = dt_i >= remaining
-            dt_eff = np.minimum(dt_i, remaining)
+            dt_eff = T(np.minimum(dt_i, remaining))
         state2, err = attempt(t_, state, dt_eff)
         accept = err <= tol
         dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))

@@ -30,12 +30,27 @@ a Theta with a custom solver (``solver=``) never take K6, which has no
 pass for either: they run K1-K5 and the banded matvec K7 on every grid
 (``_SchemeBase._mega_plan``).  With no hook and ``recompute_target=True``
 the adaptive controller of a Rosenbrock scheme runs inside K6 too, one
-launch and one read-back per output step.  Otherwise the adaptive loops run on the host:
-an attempt is enqueued on the device and its error estimate is the one
-scalar read back, which decides it.  Every controller quantity (t, dt, err,
-the new dt) is a numpy scalar (or a kernel value) of the model's dtype, so
-a float32 run takes the decisions the float32 reference takes in
-``u.dtype``.
+launch and one read-back per output step.  Otherwise the adaptive loops
+run on the host: an attempt is enqueued on the device and its error
+estimate is the one scalar read back, which decides it.  Every controller
+quantity (t, dt, err, the new dt) is a numpy scalar (or a kernel value) of
+the model's dtype, so a float32 run takes the decisions the float32
+reference takes in ``u.dtype``.
+
+A ``double="df64"`` model (the reference's double-float mode) computes in
+native float64: its state, F, J, stage vectors and residuals are float64
+tensors, and its full solver (``df64_mixed_solve=None`` or 0) is the
+float64 route above.  As in the reference, every step size it takes is a
+float32 value and its controllers decide in float32 (err rounded to
+float32), while the clock is carried in float64 (the reference's
+compensated float32 pair).  ``df64_mixed_solve=n`` (ROW and Theta; ignored
+on other models, as the reference ignores it) is the reference's mixed
+solve: J's bands rounded to float32 are factored (K2, K4 in float32), each
+stage is solved in float32 and corrected by n residual passes against the
+float64 bands (kernel K8, ``ops/mixed.py``).  On a grid its own gate
+admits (``megastep.mixed_plan_for``) a whole mixed step is one launch of
+K6's mixed entry; the adaptive loop then runs on the host with one launch
+per attempt.  Hooks see float64 fields and set float64 values.
 """
 
 from __future__ import annotations
@@ -43,7 +58,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chunked, megastep
+from ..ops import chunked, megastep, mixed
 from ..ops.banded import axpy_bands
 from ..ops.combine import combine
 from ..ops.matvec import banded_matvec
@@ -148,6 +163,8 @@ class _SchemeBase:
     _refine = 0
     #: a custom linear solver (Theta ``solver=``)
     _solver = None
+    #: residual passes of the df64 mode's mixed solve (0: the full solve)
+    _mixed = 0
 
     def __init__(self, model):
         self._model = model
@@ -156,6 +173,25 @@ class _SchemeBase:
         self._mega_plans = {}
         self._np_dtype = np.float64 if model.dtype == torch.float64 \
             else np.float32
+        self._df64 = model.precision == "df64"
+        #: the type of the step sizes and of the controllers' decisions:
+        #: float32 in the df64 mode (the reference's device steps take a
+        #: float32 dt), else the model's
+        self._dt_type = np.float32 if self._df64 else self._np_dtype
+        #: the adaptive clock's own type in the df64 mode, else None
+        self._clock = np.float64 if self._df64 else None
+
+    def _step_dt(self, dt):
+        """The step size a step takes: in the df64 mode ``dt`` rounded to
+        float32, else ``dt`` as it is."""
+        return float(np.float32(dt)) if self._df64 else dt
+
+    def _advance(self, t, dt):
+        """The output time ``t + dt`` of a step: in the model's dtype, or in
+        the df64 mode in float64 with dt rounded to float32."""
+        T = self._dt_type
+        Tc = self._clock or T
+        return Tc(t) + Tc(T(dt))
 
     def _problem(self, hook, periodic):
         key = (hook, periodic)
@@ -174,8 +210,9 @@ class _SchemeBase:
         """K6's plan of the grid (for each of B members), or None where the
         multi-launch path serves it: always for a scheme that refines its
         solves or has a custom solver, as the reference leaves its
-        single-launch and folded paths for them."""
-        if self._refine or self._solver is not None:
+        single-launch and folded paths for them, and for the df64 mode's
+        mixed solve (``_mixed_plan``)."""
+        if self._refine or self._solver is not None or self._mixed:
             return None
         # one grid keeps the key (N, periodic) that callers withhold by
         key = (N, periodic) if B == 1 else (N, periodic, B)
@@ -184,15 +221,33 @@ class _SchemeBase:
                 N, self._model.system.nvar, self._model.halo, periodic, B)
         return self._mega_plans[key]
 
+    def _mixed_plan(self, N, periodic):
+        """The plan of K6's mixed entry for one grid of a scheme with the
+        df64 mode's mixed solve, or None where the multi-launch mixed path
+        serves it (always with ``refine=`` or a custom solver)."""
+        if not self._mixed or self._refine or self._solver is not None:
+            return None
+        key = (N, periodic, "mixed")
+        if key not in self._mega_plans:
+            self._mega_plans[key] = megastep.mixed_plan_for(
+                N, self._model.system.nvar, self._model.halo, periodic)
+        return self._mega_plans[key]
+
     def _factor(self, problem, u, helpers, pstack, x, beta):
         """J's bands (K1) and the chunked factor of ``I + beta*J`` (K2,
-        K4); u of B members (B, nvar, N) factors B systems, ``beta`` a
+        K4), or with the df64 mode's mixed solve its float32 factor
+        (``mixed.MixedFactorization``: K2, K4 in float32, K8 per residual
+        pass); u of B members (B, nvar, N) factors B systems, ``beta`` a
         number or one per member.  Returns (factor, bands), the bands None
         unless the scheme refines its solves against them."""
         B = u.shape[0] if u.ndim == 3 else 1
         plan = self._plan(x.shape[-1], problem.periodic, B)
         bands = problem.J_bands(u, helpers, pstack, x)
-        fact = chunked.factor(1.0, beta, bands, problem.periodic, plan)
+        if self._mixed:
+            fact = mixed.MixedFactorization(bands, -beta, problem.periodic,
+                                            plan, self._mixed)
+        else:
+            fact = chunked.factor(1.0, beta, bands, problem.periodic, plan)
         return fact, (bands if self._refine else None)
 
     def _split(self, fields, pars):
@@ -224,12 +279,18 @@ class Theta(_SchemeBase):
     torch tensors of the model's device, the step is the reference's: J's
     bands and dt*F (K1), ``B = dt*F - theta*dt*J*u + u`` (K7, K5), and
     ``A = I - theta*dt*J`` in banded form handed to the solver (theta = 0
-    stays forward Euler, with no solver call)."""
+    stays forward Euler, with no solver call).
 
-    def __init__(self, model, theta=1, solver=None):
+    ``df64_mixed_solve=n`` on a df64 model solves ``A`` by the mixed solve
+    (the module doc): one launch of K6's mixed entry where its gate admits
+    the grid, else J (K1), dt*F (K1), the float32 factor and solves and n
+    K8 residuals; the user's ``solver=`` takes precedence over it."""
+
+    def __init__(self, model, theta=1, solver=None, df64_mixed_solve=None):
         super().__init__(model)
         self._theta = theta
         self._solver = solver
+        self._mixed = int(df64_mixed_solve or 0) if self._df64 else 0
 
     def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
         """The hook at ``t``, then one theta step of ``dt``: one K6 launch
@@ -240,14 +301,21 @@ class Theta(_SchemeBase):
         batched = u.ndim == 3
         hook = problem.apply_hook_members if batched else problem.apply_hook
         u, helpers, pstack, x = hook(t, u, helpers, pstack, x)
-        dt = float(self._np_dtype(dt))
+        dt = float(self._np_dtype(self._step_dt(dt)))
         theta = self._theta
-        plan = self._mega_plan(x.shape[-1], problem.periodic,
+        N = x.shape[-1]
+        plan = self._mega_plan(N, problem.periodic,
                                u.shape[0] if batched else 1)
         if plan is not None and theta != 0:
             u2 = megastep.theta_step(self._model.backend, plan, theta,
                                      problem.periodic, u, helpers, pstack, x,
                                      dt)
+            return u2, helpers, pstack, x, None
+        plan = None if batched else self._mixed_plan(N, problem.periodic)
+        if plan is not None and theta != 0:
+            u2 = megastep.theta_step_mixed(self._model.backend, plan, theta,
+                                           problem.periodic, u, helpers,
+                                           pstack, x, dt, self._mixed)
             return u2, helpers, pstack, x, None
         rhs = problem.F(u, helpers, pstack, x, scale=dt)
         if theta == 0:
@@ -268,28 +336,33 @@ class Theta(_SchemeBase):
 
     def device_fixed_scan(self, N, periodic=True):
         """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
-        theta steps of ``dt`` (no hook) in ONE K6 launch, in the node layout;
-        None where K6's plan does not apply or theta = 0.  The counterpart of
-        the reference's ``device_fixed_scan_folded`` (the port has no
-        folded layout)."""
-        plan = self._mega_plan(N, periodic)
-        if plan is None or self._theta == 0:
+        theta steps of ``dt`` (no hook) in ONE K6 launch (of its mixed
+        entry with the df64 mode's mixed solve), in the node layout; None
+        where K6's plan does not apply or theta = 0.  The counterpart of the
+        reference's ``device_fixed_scan_folded`` (the port has no folded
+        layout)."""
+        if self._theta == 0:
             return None
-        backend, theta = self._model.backend, self._theta
+        plan, mplan = self._mega_plan(N, periodic), self._mixed_plan(N, periodic)
+        backend, theta, passes = self._model.backend, self._theta, self._mixed
 
         def scan(t, u, helpers, pstack, x, dt, nsteps):
-            return megastep.theta_scan(backend, plan, theta, periodic, u,
-                                       helpers, pstack, x, dt, nsteps)
+            dt = self._step_dt(dt)
+            if plan is not None:
+                return megastep.theta_scan(backend, plan, theta, periodic, u,
+                                           helpers, pstack, x, dt, nsteps)
+            return megastep.theta_step_mixed(backend, mplan, theta, periodic,
+                                             u, helpers, pstack, x, dt,
+                                             passes, nsteps)
 
-        return scan
+        return None if plan is None and mplan is None else scan
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
-        T = self._np_dtype
         problem = self._problem(hook, bool(pars.get("periodic", False)))
         u, helpers, pstack, x = self._split(fields, pars)
         u2, helpers, pstack, x, _ = self.fixed_step(problem, t, u, helpers,
                                                     pstack, x, dt)
-        t2 = T(t) + T(dt)
+        t2 = self._advance(t, dt)
         u2, helpers, pstack, x = problem.apply_hook(float(t2), u2, helpers,
                                                     pstack, x)
         return float(t2), self._rebuild(u2, helpers, x)
@@ -320,7 +393,14 @@ class ROW_general(_SchemeBase):
     ``refine=r`` adds the reference's iterative refinement to every stage
     solve: r times the residual ``rhs - k + g00*dt*J*k`` against J's true
     bands (K7, K5) and one more solve that adds its correction into k, so
-    a step launches K7 r times per stage.  Such a scheme never takes K6."""
+    a step launches K7 r times per stage.  Such a scheme never takes K6.
+
+    ``df64_mixed_solve=n`` on a df64 model makes every stage solve the
+    mixed solve (the module doc): n K8 launches per stage on the
+    multi-launch path, or one launch of K6's mixed entry per step where
+    its gate admits the grid; ``refine=`` wraps the mixed solve as it
+    wraps the full one.  On another model the argument is ignored, as in
+    the reference."""
 
     def __init__(self, model, alpha, gamma, b, b_pred=None,
                  time_stepping=False, tol=None, max_iter=None, dt_min=None,
@@ -328,13 +408,10 @@ class ROW_general(_SchemeBase):
                  compensated=False, refine=0, df64_mixed_solve=None):
         if compensated:
             raise NotImplementedError(
-                "compensated=True (the Kahan-summed state) is not ported yet "
-                "(ROADMAP A8)")
-        if df64_mixed_solve is not None:
-            raise NotImplementedError(
-                "df64_mixed_solve: the df64 precision mode is not ported yet "
-                "(ROADMAP A8)")
+                "compensated=True (the Kahan-summed float32 state) is not "
+                "ported yet (ROADMAP A8b)")
         super().__init__(model)
+        self._mixed = int(df64_mixed_solve or 0) if self._df64 else 0
         self._refine = int(refine)
         self._alpha = np.asarray(alpha, dtype=np.float64)
         self._gamma = np.asarray(gamma, dtype=np.float64)
@@ -390,11 +467,19 @@ class ROW_general(_SchemeBase):
         no controller reads it, so the final combination emits ``u_new``
         alone and ``err`` is inf."""
         u, helpers, pstack, x = problem.apply_hook(t, u, helpers, pstack, x)
-        plan = self._mega_plan(x.shape[-1], problem.periodic)
+        dt = self._step_dt(dt)
+        N = x.shape[-1]
+        plan = self._mega_plan(N, problem.periodic)
         if plan is not None:
             u_new, err = megastep.row_step(
                 self._model.backend, plan, self._table(self._with_err()),
                 problem.periodic, u, helpers, pstack, x, dt)
+            return u_new, helpers, pstack, x, err
+        plan = self._mixed_plan(N, problem.periodic)
+        if plan is not None:
+            u_new, err = megastep.row_step_mixed(
+                self._model.backend, plan, self._table(self._with_err()),
+                problem.periodic, u, helpers, pstack, x, dt, self._mixed)
             return u_new, helpers, pstack, x, err
         T = self._np_dtype
         g00 = self._gamma[0, 0]
@@ -478,32 +563,39 @@ class ROW_general(_SchemeBase):
 
     def device_fixed_scan(self, N, periodic=True):
         """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
-        fixed steps of ``dt`` (no hook, no error estimate) in ONE K6 launch,
-        in the node layout; None where K6's plan does not apply.  The
-        counterpart of the reference's ``device_fixed_scan_folded`` (the
-        port has no folded layout)."""
-        plan = self._mega_plan(N, periodic)
-        if plan is None:
-            return None
-        backend, table = self._model.backend, self._table(False)
+        fixed steps of ``dt`` (no hook, no error estimate) in ONE K6 launch
+        (of its mixed entry with the df64 mode's mixed solve: the
+        reference's ``device_fixed_scan_df_folded``), in the node layout;
+        None where K6's plan does not apply.  The counterpart of the
+        reference's ``device_fixed_scan_folded`` (the port has no folded
+        layout)."""
+        plan, mplan = self._mega_plan(N, periodic), self._mixed_plan(N, periodic)
+        backend, table, passes = self._model.backend, self._table(False), self._mixed
 
         def scan(t, u, helpers, pstack, x, dt, nsteps):
-            return megastep.row_scan(backend, plan, table, periodic, u,
-                                     helpers, pstack, x, dt, nsteps)
+            dt = self._step_dt(dt)
+            if plan is not None:
+                return megastep.row_scan(backend, plan, table, periodic, u,
+                                         helpers, pstack, x, dt, nsteps)
+            return megastep.row_step_mixed(backend, mplan, table, periodic, u,
+                                           helpers, pstack, x, dt, passes,
+                                           nsteps)[0]
 
-        return scan
+        return None if plan is None and mplan is None else scan
 
     def _adaptive(self, problem, t, u, helpers, pstack, x, dt, internal_dt):
         """Advance from ``t`` to ``t + dt`` through accepted attempts (the
         controller of ``rosenbrock.adaptive_controller``).  With no hook and
         ``recompute_target=True`` on a grid K6 admits, the whole output
-        step is one K6 launch; otherwise every attempt is a ``fixed_step``
-        decided on the host.  Returns (next_t, u, helpers, pstack, x, dt_i,
-        niter, status), status 1 for max_iter and 2 for the dt floor."""
-        T = self._np_dtype
+        step is one K6 launch; otherwise (and always in the df64 mode, whose
+        controller decides in float32 on a float64 clock) every attempt is
+        a ``fixed_step`` decided on the host.  Returns (next_t, u, helpers,
+        pstack, x, dt_i, niter, status), status 1 for max_iter and 2 for
+        the dt floor."""
+        T = self._dt_type
         plan = self._mega_plan(x.shape[-1], problem.periodic)
         if (plan is not None and problem.hook is null_hook
-                and self._recompute_target):
+                and self._recompute_target and not self._df64):
             u2, dt_i, niter, status = megastep.row_adaptive_step(
                 rosenbrock.adaptive_controller, self._model.backend, plan, self._table(True), problem.periodic,
                 u, helpers, pstack, x, t, dt, internal_dt, self._tol,
@@ -519,13 +611,13 @@ class ROW_general(_SchemeBase):
             rosenbrock.adaptive_controller(
                 attempt, T, t, dt, internal_dt, self._tol, self._safety_factor,
                 self._max_iter, self._dt_min, not self._recompute_target,
-                (u, helpers, pstack))
+                (u, helpers, pstack), self._clock)
         return next_t, u, helpers, pstack, x, dt_i, niter, status
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
         """Advance from t to t + dt (one output step, any number of
         internal attempts)."""
-        T = self._np_dtype
+        T = self._dt_type
         problem = self._problem(hook, bool(pars.get("periodic", False)))
         u, helpers, pstack, x = self._split(fields, pars)
         internal_dt = self._internal_dt
@@ -537,7 +629,8 @@ class ROW_general(_SchemeBase):
         else:
             u2, h2, p2, x2, _ = self.fixed_step(problem, t, u, helpers,
                                                 pstack, x, T(dt))
-            t2, dt_i, niter, status = T(t) + T(dt), T(internal_dt), 0, 0
+            t2, dt_i, niter, status = (self._advance(t, dt), T(internal_dt),
+                                       0, 0)
         if status == 1:
             raise RuntimeError(
                 "Rosenbrock internal iteration above max iterations authorized")
@@ -685,7 +778,7 @@ class DeviceTimeStepping(_SchemeBase):
 
     def _attempt(self, problem, t, u, helpers, pstack, x, dt_eff):
         """(fine state, err) of the coarse-versus-m-fine pair."""
-        T = self._np_dtype
+        T = self._dt_type
         step = self._inner.fixed_step
         uc = step(problem, float(t), u, helpers, pstack, x, dt_eff)[0]
         dt_f = dt_eff / T(self._m)
@@ -699,7 +792,10 @@ class DeviceTimeStepping(_SchemeBase):
         return uf, hf, pf, err
 
     def __call__(self, t, fields, dt, pars, hook=null_hook):
-        T = self._np_dtype
+        # the df64 mode: float32 step sizes and decisions on a float64
+        # clock, as in ``rosenbrock.adaptive_controller``
+        T = self._dt_type
+        Tc = self._clock or T
         info = np.finfo(T)
         problem = self._problem(hook, bool(pars.get("periodic", False)))
         u, helpers, pstack, x = self._split(fields, pars)
@@ -707,16 +803,16 @@ class DeviceTimeStepping(_SchemeBase):
         if internal_dt is None:
             internal_dt = _seed_internal_dt(self, dt)
         tol = T(self._tol)
-        next_t = T(t) + T(dt)
-        eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
-        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
-        t_ = T(t)
+        next_t = Tc(t) + Tc(T(dt))
+        eps = Tc(1e-12) * np.maximum(abs(next_t), Tc(1.0))
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * T(abs(next_t))
+        t_ = Tc(t)
         dt_i = np.minimum(T(internal_dt), T(dt))
         niter, status = 0, 0
         while t_ < next_t - eps and status == 0:
             remaining = next_t - t_
             clamped = dt_i >= remaining
-            dt_eff = np.minimum(dt_i, remaining)
+            dt_eff = T(np.minimum(dt_i, remaining))
             uf, hf, pf, err = self._attempt(problem, t_, u, helpers, pstack,
                                             x, dt_eff)
             dt_next = dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))

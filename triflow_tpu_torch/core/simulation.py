@@ -4,9 +4,11 @@ Counterpart of ``triflow_tpu.core.simulation``: an iterable yielding
 ``(t, fields)`` every output ``dt`` until ``tmax``, with the hook applied
 on the host before each output step, the last step's dt clamped to land on
 ``tmax``, post-processes, a stream fan-out, per-step timers and a status
-lifecycle.  The default scheme is ``RODASPR`` with its own adaptive
-controller; a scheme without one is wrapped in the step-doubling
-controller (``schemes.time_stepping``) unless ``time_stepping=False``.
+lifecycle.  A ``double="df64"`` model keeps float64 fields and rounds the
+output dt to float32, as the reference does.  The default scheme is
+``RODASPR`` with its own adaptive controller; a scheme without one is
+wrapped in the step-doubling controller (``schemes.time_stepping``) unless
+``time_stepping=False``.
 Persistence containers, checkpoints and scan-chunked runs are not ported
 yet and raise ``NotImplementedError``.
 """
@@ -88,6 +90,11 @@ class Simulation:
         self.fields = model.fields_template(
             **{k: tensor(fields[k]).clone() for k in keys})
         self.t = t
+        if model.precision == "df64":
+            # the df64 mode's steps are float32 values (as the reference's
+            # device steps are): round the requested dt to one up front, so
+            # the float64 clock advances by the dt the state integrates with
+            dt = float(np.float32(dt))
         self.user_dt = self.dt = dt
         self.tmax = tmax
         self.i = 0

@@ -20,12 +20,14 @@
 // arithmetic peaks.
 //
 // Design (simple first): one thread per (node, member), blockIdx.y the
-// member; each thread loops over the output variable m, the band k and
-// the input variable n.  The bands are node-minor, so the 32 threads of a
-// warp read 32 neighbouring values of each band: every band byte is read
-// once, coalesced.  The v window of a warp (32 + W - 1 nodes per variable)
-// is read through L1, where neighbouring threads find each other's values.
+// member; each thread loops over the output variable m and walks the band
+// row (matvec.cuh, shared with K8 and K6's mixed entry).  The bands are
+// node-minor, so the 32 threads of a warp read 32 neighbouring values of
+// each band: every band byte is read once, coalesced.  The v window of a
+// warp (32 + W - 1 nodes per variable) is read through L1, where
+// neighbouring threads find each other's values.
 #include "common.cuh"
+#include "matvec.cuh"
 
 namespace {
 
@@ -43,20 +45,9 @@ __global__ void matvec_kernel(const T* __restrict__ bands, const T* __restrict__
   const T* A = bands + b * W * nvar * n;
   const T* vb = v + b * n;
   const T sc = scale_b ? scale_b[b] : scale;
-  const int h = W / 2;
-  for (int m = 0; m < nvar; ++m) {
-    T acc = T(0);
-    for (int k = 0; k < W; ++k) {
-      long j = i + k - h;
-      if (j < 0 || j >= N) {
-        if (!periodic) continue;
-        j = ((j % N) + N) % N;
-      }
-      const T* Akm = A + (long)(k * nvar + m) * n;
-      for (int q = 0; q < nvar; ++q) acc += Akm[q * N + i] * vb[q * N + j];
-    }
-    out[b * n + m * N + i] = sc * acc;
-  }
+  for (int m = 0; m < nvar; ++m)
+    out[b * n + m * N + i] = sc * tf::band_row(A, vb, W, nvar, N, periodic, i, m,
+                                               tf::ReadOnlyLoad());
 }
 
 template <typename T>

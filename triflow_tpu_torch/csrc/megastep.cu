@@ -49,6 +49,21 @@
 // (kMembers false: the scratch addresses straight from the parameters)
 // and its one-output-step adaptive entry its own kernel (adaptive_kernel):
 // the member versions cost one grid registers and time (PERF.md).
+// A float64 library has a third entry, K6's mixed entry (step_mixed, one
+// grid): nsteps >= 1 steps of the df64 precision mode's mixed-precision
+// stage solve, the reference's row_step_df_folded / theta_step_df_folded
+// (ops/megastep.py) on native float64.  Per step: J in double (K1's node
+// body), its bands rounded to float, the chunked factor, the PCR factor
+// and on a Woodbury plan the closure's set-up in float (the float
+// instantiations of factor.cuh and pcr.cuh); per stage the stage sums and
+// F in double, the first solve in float on the rounded right-hand side,
+// then `passes` times K8's residual body (matvec.cuh's band walk against
+// the block's double bands, rounded to float) and a float solve whose
+// widened result is added to the stage's double solution; the final
+// combination and err in double.  The factor takes the rounded bands of
+// J(u), not J of the rounded state: both are float-accurate
+// preconditioners, and the residual passes correct against the double
+// operator either way.  Its scratch is two slabs, one double and one float.
 // One step, in the order of the multi-launch path (K1-K5):
 //   1. J at every node (K1's body), the chunked factor of I + beta*J (K2's
 //      body, one thread per chunk) and the PCR factor of the interface
@@ -84,6 +99,7 @@
 // ---- end of generated block ----
 
 #include "factor.cuh"
+#include "matvec.cuh"
 #include "pcr.cuh"
 #include "stencil.cuh"
 #include "sweep.cuh"
@@ -477,6 +493,166 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+#if !TF_F32
+// ---- K6's mixed entry (the float64 library only) ----
+
+// The mixed entry's operands and scratch (one grid): the double slab
+// (bands, stage solutions, stage input, bias, right-hand side, the states
+// between steps) and the float slab (the rounded bands, the factor, the
+// interface operators, the solve's vectors).
+struct MixedWork {
+  const double* u0;
+  const double* hlp;
+  const double* par;
+  const double* x;
+  double* info;
+  double* out;
+  double *bands, *us, *ui, *bias, *rhs, *buf0, *buf1;
+  float *bands32, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr,
+      *Z, *r32, *y, *yred, *xm1, *xp1, *d32;
+  int N, Mc, C, cyclic, wrap, periodic, passes;
+};
+
+// One mixed-precision step of the grid from src to dst; every thread gets
+// err (inf without an error row).  All threads of the block must call it.
+__device__ double one_step_mixed(const MixedWork& w, const Table<double>& tab,
+                                 const double* src, double* dst, double beta, double scale) {
+  __shared__ double s_max[kThreads];
+  __shared__ float s_cap_inv[4 * kS * kS];
+  __shared__ int s_bad;
+  const int tid = threadIdx.x;
+  const int N = w.N;
+  const long n = (long)TF_NVAR * N;
+  const bool wood = w.wrap && !w.cyclic;
+  // the residual's coefficient: the system is I + beta J = I - coef J
+  const double coef = -beta;
+
+  // J in double, and the bands the float factor takes: each thread rounds
+  // the entries of its own nodes, which it has just written
+  for (long i = tid; i < N; i += kThreads) {
+    tf::stencil_J_node<double>(src, w.hlp, w.par, w.x, w.bands, N, w.periodic, i);
+    for (int e = 0; e < tf::kNJ; ++e) w.bands32[e * N + i] = (float)w.bands[e * N + i];
+  }
+  __syncthreads();
+  for (int c = tid; c < w.C; c += kThreads)
+    tf::spike_factor_chunk<float, kS>(w.bands32, w.fac, w.Dhinv, w.DU, w.Wsp, w.Vsp, w.Lred,
+                                      w.Ured, N, TF_NVAR, kG, TF_H, w.Mc, w.C, w.wrap, 1.0f,
+                                      (float)beta, c);
+  __syncthreads();
+  tf::pcr_factor_block<float, 2 * kS>(w.Lred, w.Ured, w.alphas, w.betas, w.Dinv, w.pscr, w.C,
+                                      w.cyclic);
+  __syncthreads();
+  if (wood) {
+    tf::woodbury_block<float, 2 * kS>(w.alphas, w.betas, w.Dinv, w.Lred, w.Ured, w.Z, s_cap_inv,
+                                      w.pscr, w.C);
+    __syncthreads();
+  }
+
+  for (int k = 0; k < tab.n_stages; ++k) {
+    const bool with_bias = tab.rows[k] == 2;
+    if (!tab.is_u[k] || with_bias) {
+      for (long e = tid; e < n; e += kThreads) {
+        auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
+        if (!tab.is_u[k])
+          w.ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
+        if (with_bias)
+          w.bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
+      }
+      __syncthreads();
+    }
+    const double* stage_u = tab.is_u[k] ? src : w.ui;
+    double* uk = w.us + (long)k * n;
+    // rhs = scale F + bias in double; the first solve takes its rounding
+    for (long i = tid; i < N; i += kThreads) {
+      tf::stencil_F_node<double>(stage_u, w.hlp, w.par, w.x, with_bias ? w.bias : nullptr, w.rhs,
+                                 N, w.periodic, scale, i);
+      for (int m = 0; m < TF_NVAR; ++m) w.r32[m * N + i] = (float)w.rhs[m * N + i];
+    }
+    __syncthreads();
+    for (int pass = 0; pass <= w.passes; ++pass) {
+      if (pass > 0) {
+        // K8's residual body: float((rhs - k) + coef * J k) against the
+        // double bands
+        for (long i = tid; i < N; i += kThreads)
+          for (int m = 0; m < TF_NVAR; ++m) {
+            const long e = (long)m * N + i;
+            const double Jk = tf::band_row(w.bands, uk, tf::kW, TF_NVAR, N, w.periodic, i, m);
+            w.r32[e] = (float)((w.rhs[e] - uk[e]) + coef * Jk);
+          }
+        __syncthreads();
+      }
+      for (int c = tid; c < w.C; c += kThreads)
+        tf::thomas_sweep_chunk<float, kS>(w.fac, w.Dhinv, w.DU, w.r32, w.y, w.yred, N, TF_NVAR,
+                                          kG, w.Mc, w.C, c);
+      __syncthreads();
+      if (wood)
+        tf::pcr_solve_shift_block<float, 2 * kS, true>(w.alphas, w.betas, w.Dinv, w.yred, w.Z,
+                                                       s_cap_inv, w.xm1, w.xp1, w.pscr, w.C,
+                                                       w.wrap);
+      else
+        tf::pcr_solve_shift_block<float, 2 * kS, false>(w.alphas, w.betas, w.Dinv, w.yred,
+                                                        nullptr, nullptr, w.xm1, w.xp1, w.pscr,
+                                                        w.C, w.wrap);
+      __syncthreads();
+      // the float correction, widened into the stage's double solution by
+      // the thread that wrote it
+      for (long i = tid; i < N; i += kThreads) {
+        tf::spike_correct_node<float, kS>(w.y, w.Wsp, w.Vsp, w.xm1, w.xp1, nullptr, w.d32, N,
+                                          TF_NVAR, kG, w.Mc, w.C, i);
+        for (int m = 0; m < TF_NVAR; ++m) {
+          const long e = (long)m * N + i;
+          uk[e] = pass == 0 ? (double)w.d32[e] : uk[e] + (double)w.d32[e];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  const int fin = tab.n_stages;
+  const bool with_err = tab.rows[fin] == 2;
+  double mx = 0.0;
+  int bad = 0;
+  for (long e = tid; e < n; e += kThreads) {
+    auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
+    dst[e] = tf::lin_comb(fin + 1, tab.coef[fin][0], tab.role[fin][0], value);
+    if (with_err) {
+      const double d = fabs(tf::lin_comb(fin + 1, tab.coef[fin][1], tab.role[fin][1], value));
+      if (isfinite(d))
+        mx = fmax(mx, d);
+      else
+        bad = 1;
+    }
+  }
+  if (tid == 0) s_bad = 0;
+  s_max[tid] = mx;
+  __syncthreads();
+  if (bad) s_bad = 1;
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if (tid < off) s_max[tid] = fmax(s_max[tid], s_max[tid + off]);
+    __syncthreads();
+  }
+  const double err = (with_err && !s_bad) ? s_max[0] : Lim<double>::infinity();
+  __syncthreads();
+  return err;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    step_mixed_kernel(const MixedWork w, const Table<double> tab_in, double beta, double scale,
+                      int nsteps) {
+  __shared__ Table<double> tab;
+  if (threadIdx.x == 0) tab = tab_in;
+  __syncthreads();
+  const double* src = w.u0;
+  double err = Lim<double>::infinity();
+  for (int k = 0; k < nsteps; ++k) {
+    double* dst = k == nsteps - 1 ? w.out : (k % 2 ? w.buf1 : w.buf0);
+    err = one_step_mixed(w, tab, src, dst, beta, scale);
+    src = dst;
+  }
+  if (threadIdx.x == 0) w.info[0] = err;
+}
+#endif
+
 // ptrs (kPtrs device addresses, in the order of Work: block 0's scratch),
 // ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter (-1:
 // none), has_dt_min, B, nblk, slab, then the rows of the kCombos
@@ -488,10 +664,12 @@ constexpr int kInts = 13;
 constexpr int kReals = 9;
 
 template <typename T>
+int fill_table(const void* ints, const void* reals, Table<T>& tab);
+
+template <typename T>
 int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Table<T>& tab) {
   const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
-  const double* rv = static_cast<const double*>(reals);
   w.u0 = reinterpret_cast<const T*>(p[0]);
   w.hlp = reinterpret_cast<const T*>(p[1]);
   w.par = reinterpret_cast<const T*>(p[2]);
@@ -513,12 +691,21 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
   w.cyclic = iv[3];
   w.wrap = iv[4];
   w.periodic = iv[5];
-  tab.n_stages = iv[6];
   w.B = iv[10];
   w.slab = iv[12];
-  if (w.N < 1 || w.Mc < 1 || w.C < 1 || (long)w.Mc * w.C * kG != w.N || tab.n_stages < 1 ||
-      tab.n_stages > kMaxStages || (w.cyclic && !w.wrap) || (w.wrap && !w.cyclic && w.C < 2) ||
-      w.B < 1 || iv[11] < 1 || iv[11] > w.B)
+  if (w.B < 1 || iv[11] < 1 || iv[11] > w.B) return static_cast<int>(cudaErrorInvalidValue);
+  return fill_table<T>(ints, reals, tab);
+}
+
+// The plan's integers and the table, as fill reads them: 0 or a CUDA error.
+template <typename T>
+int fill_table(const void* ints, const void* reals, Table<T>& tab) {
+  const int* iv = static_cast<const int*>(ints);
+  const double* rv = static_cast<const double*>(reals);
+  const int N = iv[0], Mc = iv[1], C = iv[2], cyclic = iv[3], wrap = iv[4];
+  tab.n_stages = iv[6];
+  if (N < 1 || Mc < 1 || C < 1 || (long)Mc * C * kG != N || tab.n_stages < 1 ||
+      tab.n_stages > kMaxStages || (cyclic && !wrap) || (wrap && !cyclic && C < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kCombos; ++k) {
     tab.rows[k] = (unsigned char)iv[kInts + k];
@@ -616,6 +803,45 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   return static_cast<int>(cudaGetLastError());
 }
 
+#if !TF_F32
+// ptrs (6 + 7 + 19 device addresses, in the order of MixedWork), ints and
+// reals as the step entry's (B = 1); passes >= 0 residual passes.
+int step_mixed(const void* ptrs, const void* ints, const void* reals, int passes,
+               void* stream) {
+  MixedWork w = {};
+  Table<double> tab = {};
+  const int rc = fill_table<double>(ints, reals, tab);
+  if (rc) return rc;
+  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
+  const int* iv = static_cast<const int*>(ints);
+  const double* rv = static_cast<const double*>(reals);
+  w.u0 = reinterpret_cast<const double*>(p[0]);
+  w.hlp = reinterpret_cast<const double*>(p[1]);
+  w.par = reinterpret_cast<const double*>(p[2]);
+  w.x = reinterpret_cast<const double*>(p[3]);
+  w.info = reinterpret_cast<double*>(p[4]);
+  w.out = reinterpret_cast<double*>(p[5]);
+  double** dslots[] = {&w.bands, &w.us, &w.ui, &w.bias, &w.rhs, &w.buf0, &w.buf1};
+  for (int k = 0; k < 7; ++k) *dslots[k] = reinterpret_cast<double*>(p[6 + k]);
+  float** fslots[] = {&w.bands32, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
+                      &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.r32,
+                      &w.y, &w.yred, &w.xm1, &w.xp1, &w.d32};
+  for (int k = 0; k < 19; ++k) *fslots[k] = reinterpret_cast<float*>(p[13 + k]);
+  w.N = iv[0];
+  w.Mc = iv[1];
+  w.C = iv[2];
+  w.cyclic = iv[3];
+  w.wrap = iv[4];
+  w.periodic = iv[5];
+  w.passes = passes;
+  const int nsteps = iv[7];
+  if (nsteps < 1 || passes < 0 || iv[10] != 1) return static_cast<int>(cudaErrorInvalidValue);
+  step_mixed_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, rv[0], rv[1],
+                                                                            nsteps);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 }  // namespace
 
 #define TF_ENTRIES(SUFFIX, T)                                                               \
@@ -638,4 +864,8 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
 TF_ENTRIES(f32, float)
 #else
 TF_ENTRIES(f64, double)
+extern "C" int tf_mega_step_mixed_f64(const void* ptrs, const void* ints, const void* reals,
+                                      int passes, void* stream) {
+  return step_mixed(ptrs, ints, reals, passes, stream);
+}
 #endif

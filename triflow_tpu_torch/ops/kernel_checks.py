@@ -31,6 +31,22 @@ K7 (the banded matvec) is held to the F/J tolerance of the size of its
 terms, ``max |scale| |A| |v|``, not of its result: the product of J's
 bands with a smooth state cancels to far below its terms.
 
+The df64 mode's kernels (float64 only): K8 (the mixed solve's residual,
+rounded to float32) is held entry by entry to one float32 ulp of its
+plain version's |r| plus 1e-13 of the entry's terms ``|coef| sum |a| |k|
++ |rhs| + |k|`` (the two round the same double value to float32, and a
+residual that cancels far below its terms may sit on a rounding
+boundary); K6's mixed entry to the solver tolerance or to twice the
+mixed solve's own residue, whichever is larger: its float32 solves differ
+from the plain version's in rounding, and n residual passes leave a
+residue of about (float32 eps x condition)^(n + 1) of the float64 step,
+so two runs of the mixed solve may differ by up to both their residues.
+The residue is the plain mixed step's distance from the plain float64
+step (on the CPU: 2.7e-10 relative for Theta on the README grid at dt =
+5 with one pass, where I - 5 J is stiff; 1e-13 and below on KS at dt =
+0.0625).  Its ``nsteps = 3`` launch is held bit for bit to three
+launches.
+
 The member axis (``run_batched``): K1's F, F_terms and J, K2-K4 and K6's
 entries on B = 4 members with per-member parameters, shifts and scales,
 against their plain versions at the same tolerances; K6's adaptive entries
@@ -44,7 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import chunked, combine, matvec, megastep, pcr, stencil, thomas
+from . import chunked, combine, matvec, megastep, mixed, pcr, stencil, thomas
 
 TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10, "combine": 1e-15,
                        "dt": 1e-8},
@@ -215,6 +231,56 @@ def check_all_matvecs(device, dtype, results=None, seed=0):
             for periodic in (True, False):
                 for scale in scales:
                     check_matvec(bands, v, periodic, scale, results)
+    return results
+
+
+#: K8's limit in units of its terms (the module doc)
+MIXED_TERMS_TOL = 1e-13
+
+
+def check_mixed_residual(bands, k, rhs, coef, periodic, results=None,
+                         what=""):
+    """K8 against its plain version on the same float64 operands: every
+    entry within one float32 ulp of the plain |r| plus ``MIXED_TERMS_TOL``
+    of its terms.  Records the largest absolute gap."""
+    results = {} if results is None else results
+    got = mixed.mixed_residual(bands, k, rhs, coef, periodic)
+    want = mixed.mixed_residual_plain(bands, k, rhs, coef, periodic)
+    c = coef.abs() if isinstance(coef, torch.Tensor) else abs(coef)
+    terms = (matvec.banded_matvec_plain(bands.abs(), k.abs(), periodic, c)
+             + rhs.abs() + k.abs())
+    mag = want.abs()
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag)
+    gap = (got.double() - want.double()).abs()
+    ratio = float((gap / (ulp.double() + MIXED_TERMS_TOL * terms)).max()) \
+        if gap.numel() else 0.0
+    kind = "per-member" if isinstance(coef, torch.Tensor) else "number"
+    if got.dtype != torch.float32 or not ratio <= 1.0:
+        raise CheckFailed(f"K8.residual bands {tuple(bands.shape)} periodic="
+                          f"{periodic} coef {kind} {what}: {ratio:.3e} of the "
+                          "limit")
+    results["K8.residual"] = max(results.get("K8.residual", 0.0),
+                                 float(gap.max()) if gap.numel() else 0.0)
+    return results
+
+
+def check_all_mixed_residuals(device, results=None, seed=0):
+    """K8 at every ``MATVEC_SHAPES`` shape, edge and periodic, for one grid
+    (a number coef) and B = 4 members (a number and a per-member coef)."""
+    results = {} if results is None else results
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float64, device=device)
+
+    for nvar, W, N in MATVEC_SHAPES:
+        for lead in ((), (BATCH,)):
+            bands = t(rng.standard_normal((*lead, W, nvar, nvar, N)))
+            k, rhs = (t(rng.standard_normal((*lead, nvar, N))) for _ in range(2))
+            coefs = [0.3] + ([t(rng.standard_normal(BATCH))] if lead else [])
+            for periodic in (True, False):
+                for coef in coefs:
+                    check_mixed_residual(bands, k, rhs, coef, periodic, results)
     return results
 
 
@@ -402,6 +468,79 @@ def check_megastep(model, N, periodic, dt, device, results=None,
     return results
 
 
+def check_megastep_mixed(model, N, periodic, dt, device, results=None,
+                         state=None, passes=(1, 2)):
+    """K6's mixed entry (RODASPR and Theta at theta = 1, each residual
+    pass count of ``passes``) and its 3-step launch against the plain
+    version, on a float64 model: u and err within the solver tolerance,
+    three steps in one launch bit for bit equal to three launches.
+    ``state`` (u, helpers, pstack, x) defaults to ``mega_state``."""
+    results = {} if results is None else results
+    b = model.backend
+    sysm = b.system
+    plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)
+    what = (f"N={N} s={plan.s} C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury}")
+    tol = TOL[torch.float64]["solve"]
+    args = mega_state(model, N, periodic, device) if state is None else state
+    ros = rodaspr_table()
+    dt = float(np.float32(dt))
+    gdt = ros.g00 * dt
+    for n in passes:
+        for name, table, beta, scale in (
+                ("rodaspr", ros, -gdt, gdt),
+                ("theta=1", megastep.theta_table(1.0), -dt, dt)):
+            u_k, err_k = megastep.step_mixed(b, plan, table, periodic, *args,
+                                             beta, scale, n)
+            u_p, err_p = megastep.step_plain(b, plan, table, periodic, *args,
+                                             beta, scale, n)
+            u_f = megastep.step_plain(b, plan, table, periodic, *args, beta,
+                                      scale)[0]
+            # the limit: the solver tolerance, or twice the mixed solve's
+            # residue (module doc)
+            lim = max(tol, 2.0 * _err(u_p, u_f)[1])
+            tag = f"{name} passes={n} {what}"
+            _record(results, "K6.step_mixed", u_k, u_p, lim, tag)
+            if len(table.final) == 2:
+                _record(results, "K6.step_mixed", err_k, err_p, lim,
+                        f"err {tag}", scale=float(u_p.abs().max()))
+            u3 = megastep.step_mixed(b, plan, table, periodic, *args, beta,
+                                     scale, n, nsteps=3)[0]
+            seq = args[0]
+            for _ in range(3):
+                seq = megastep.step_mixed(b, plan, table, periodic, seq,
+                                          *args[1:], beta, scale, n)[0]
+            if not torch.equal(u3, seq):
+                raise CheckFailed(f"K6.step_mixed {tag}: 3 steps in one launch "
+                                  "differ from 3 launches")
+            want3 = megastep.scan_plain(b, plan, table, periodic, *args, beta,
+                                        scale, 3, n)
+            full3 = megastep.scan_plain(b, plan, table, periodic, *args, beta,
+                                        scale, 3)
+            _record(results, "K6.step_mixed", u3, want3,
+                    max(tol, 2.0 * _err(want3, full3)[1]), f"3 steps {tag}")
+    return results
+
+
+#: (model, N, periodic, dt) of the mixed entry's checks: s = 1, 2, 4, edge,
+#: block-cyclic and Woodbury rings
+MIXED_CASES = [("readme", 200, False, 5.0), ("ks", 256, True, 0.0625),
+               ("ks", 200, True, 0.0625), ("two_var", 512, True, 0.02)]
+
+
+def check_all_mixed(device, results=None):
+    """K8 at the small shapes and K6's mixed entry at ``MIXED_CASES``, on
+    df64 models (float64)."""
+    from ..core.model import Model
+
+    results = {} if results is None else results
+    check_all_mixed_residuals(device, results)
+    for name, N, periodic, dt in MIXED_CASES:
+        model = Model(*MEGA_MODELS[name], double="df64", device=device)
+        check_megastep_mixed(model, N, periodic, dt, device, results)
+    return results
+
+
 def adaptive_dt_readings(device, dtype, seeds=range(8)):
     """The readings behind the adapted dt's tolerance: for each seed of the
     state (README N = 200 and KS N = 256, the adaptive cases below), the
@@ -469,8 +608,9 @@ SOLVER_CASES = [(3, 1, 4096, True), (3, 1, 4000, False), (5, 1, 4096, True),
 
 
 def run_all(device, dtypes=(torch.float64, torch.float32)):
-    """Every check above at small and odd shapes, both dtypes; returns
-    {dtype name: {kernel entry: max abs error}}."""
+    """Every check above at small and odd shapes, both dtypes (the df64
+    mode's K8 and mixed entry with float64); returns {dtype name: {kernel
+    entry: max abs error}}."""
     from ..core.model import Model
 
     out = {}
@@ -488,6 +628,8 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         check_all_combines(device, dtype, results)
         check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
+        if dtype == torch.float64:
+            check_all_mixed(device, results)
         out[str(dtype).replace("torch.", "")] = results
     return out
 

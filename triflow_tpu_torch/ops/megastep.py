@@ -11,6 +11,17 @@ per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
 (shared through the headers in ``csrc/``) phase after phase in one thread
 block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
 
+A float64 library has a third entry, **K6's mixed entry** (``step_mixed``,
+counter ``K6.step_mixed``, one grid): ``nsteps`` steps of the df64
+precision mode's mixed-precision stage solve (``df64_mixed_solve=n``) in
+one launch, replacing the TPU's ``row_step_df_folded`` and
+``theta_step_df_folded`` (``ops/megastep.py``, the theta step as a
+one-stage table with ``rhs = dt F``).  J, F, the stage sums and the final
+combination are float64; the factor, the PCR factor and the solves are
+float32 on J's bands rounded to float32; each of the ``passes`` residual
+passes per stage is K8's body against the float64 bands.  Its own gate,
+``mixed_plan_for`` (``MIXED_MAX_N``), decides where it serves.
+
 Every entry takes a leading member axis (an ensemble's B grids, u
 ``(B, nvar, N)``): one thread block per member, as many blocks as the card
 holds at once, each looping over its share of the members.  With a shared
@@ -35,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import chunked, combine, pcr, stencil, thomas
+from . import chunked, combine, mixed, pcr, stencil, thomas
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 from .thomas import members
 
@@ -46,6 +57,8 @@ from .thomas import members
 STEP_LAUNCHES = Counter("K6.step")
 ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
 SCAN_LAUNCHES = Counter("K6.adaptive_scan")
+#: launches of the mixed entry (1 or nsteps mixed-precision steps)
+MIXED_LAUNCHES = Counter("K6.step_mixed")
 
 #: stages of the widest table (RODASPR); kMaxStages in csrc/megastep.cu
 MAX_STAGES = 6
@@ -56,6 +69,15 @@ BLOCK_THREADS = 256
 #: chip_smoke.py's crossover sweep, for fixed RODASPR and Theta steps alike
 #: (PERF.md); a block size no sweep measured takes the multi-launch path
 MAX_N = {1: 1 << 14, 2: 1 << 13, 4: 1 << 12}
+
+#: largest grid K6's mixed entry takes, by block size s: the largest N at
+#: which the mixed entry beat the multi-launch mixed path (K1, K2-K4 in
+#: float32, K8) in every pairing of chip_smoke.py's crossover sweep of
+#: fixed df64 RODASPR and Theta steps with one residual pass, over N =
+#: 2^10 .. 2^15 and the reference's 10^4, in each of two runs (PERF.md):
+#: RODASPR sets it at s = 2 (2^14 lost in one run to the host-bound
+#: multi-launch path) and s = 4 (2^13 lost)
+MIXED_MAX_N = {1: 1 << 14, 2: 10 ** 4, 4: 1 << 12}
 
 #: cost model of K6's plan by block size s, in microseconds of one RODASPR
 #: step, fitted to chip_smoke.py's device-time chunk-count sweeps (float64,
@@ -97,6 +119,16 @@ def plan_for(N: int, nvar: int, halo: int, periodic: bool, B: int = 1):
         return None
     plan = make_plan(N, nvar, halo, periodic)
     return None if plan is None else plan._replace(B=B)
+
+
+def mixed_plan_for(N: int, nvar: int, halo: int, periodic: bool):
+    """The plan of a grid K6's mixed entry takes (one grid), or None: the
+    multi-launch mixed path serves it.  The TPU's lane-utilization plan
+    and VMEM budget (``df64_small_plan_for``, ``applicable_df``) are not
+    carried over: the chunk plan is ``make_plan``'s."""
+    if N > MIXED_MAX_N.get(nvar * max(halo, 1), 0):
+        return None
+    return make_plan(N, nvar, halo, periodic)
 
 
 class Table(NamedTuple):
@@ -149,17 +181,46 @@ def _err_of(outs, u):
     return torch.where(torch.isfinite(err), err, torch.full_like(err, np.inf))
 
 
-def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
-               beta, scale):
-    """One step: J, the chunked factor of ``I + beta*J`` on K6's plan, and
-    for each stage ``scale*F(u_i) + bias`` solved; returns (u_new, err),
-    err inf without an error row and where not finite.  With a member axis
-    ``beta`` and ``scale`` may be per-member (B,) tensors and err is (B,)."""
-    bands = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
-    fact = thomas.spike_factor_plain(bands, 1.0, beta, plan)
+def _plain_solver(bands, beta, plan, periodic, passes):
+    """``solve(rhs)`` of ``I + beta*J`` on K6's plan from J's bands: the
+    chunked factor and solve in the bands' dtype, or with ``passes`` (not
+    None) the mixed solve: the factor of the bands rounded to float32, a
+    float32 solve of the rounded rhs, then per pass the residual (K8's
+    plain version) solved and added, widened."""
+    fbands = bands if passes is None else bands.float()
+    fact = thomas.spike_factor_plain(fbands, 1.0, beta, plan)
     red = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
     wood = (pcr.woodbury_plain(red, fact.Lred, fact.Ured) if plan.woodbury
             else ())
+
+    def solve(rhs):
+        y, yred = thomas.thomas_sweep_plain(fact, rhs, plan)
+        xm1, xp1 = pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood)
+        return thomas.spike_correct_plain(fact, y, xm1, xp1, plan)
+
+    if passes is None:
+        return solve
+
+    def solve_mixed(rhs):
+        k = solve(rhs.float()).double()
+        for _ in range(passes):
+            k = k + solve(mixed.mixed_residual_plain(bands, k, rhs, -beta,
+                                                     periodic))
+        return k
+
+    return solve_mixed
+
+
+def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
+               beta, scale, passes=None):
+    """One step: J, the chunked factor of ``I + beta*J`` on K6's plan, and
+    for each stage ``scale*F(u_i) + bias`` solved; returns (u_new, err),
+    err inf without an error row and where not finite.  With a member axis
+    ``beta`` and ``scale`` may be per-member (B,) tensors and err is (B,).
+    With ``passes`` (float64 u) the stage solves are the mixed solve of
+    ``_plain_solver``: the mixed entry's plain version."""
+    bands = backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+    solve = _plain_solver(bands, beta, plan, periodic, passes)
     us = []
     for a_row, c_row in table.stages:
         cols = [u] + us
@@ -167,18 +228,16 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
         bias = None if c_row is None else combine.combine_plain([c_row], cols)[0]
         rhs = stencil.eval_F_plain(backend, u_i, helpers, pstack, x, periodic,
                                    scale, bias)
-        y, yred = thomas.thomas_sweep_plain(fact, rhs, plan)
-        xm1, xp1 = pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood)
-        us.append(thomas.spike_correct_plain(fact, y, xm1, xp1, plan))
+        us.append(solve(rhs))
     outs = combine.combine_plain(list(table.final), [u] + us)
     return outs[0], _err_of(outs, u)
 
 
 def scan_plain(backend, plan, table, periodic, u, helpers, pstack, x, beta,
-               scale, nsteps):
+               scale, nsteps, passes=None):
     for _ in range(nsteps):
         u = step_plain(backend, plan, table, periodic, u, helpers, pstack, x,
-                       beta, scale)[0]
+                       beta, scale, passes)[0]
     return u
 
 
@@ -460,6 +519,100 @@ def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
     """``nsteps`` fixed theta steps in one launch -> u."""
     return theta_step(backend, plan, theta, periodic, u, helpers, pstack, x,
                       dt, nsteps)
+
+
+#: the mixed entry's scratch: the float64 slab's buffers, then the float32
+#: slab's, in the order of csrc/megastep.cu's MixedWork after its six
+#: leading addresses
+_MIXED64 = ("bands", "us", "ui", "bias", "rhs", "buf0", "buf1")
+_MIXED32 = ("bands32", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
+            "alphas", "betas", "Dinv", "pscr", "Z", "r32", "y", "yred", "xm1",
+            "xp1", "d32")
+
+
+def _mixed_offsets(plan, n_stages):
+    """(float64 offsets, float64 elements, float32 offsets, float32
+    elements) of the mixed entry's two slabs."""
+    sizes = _sizes(plan, n_stages)
+    n = plan.nvar * plan.N
+    sizes.update(bands32=sizes["bands"], r32=n, d32=n, buf0=n, buf1=n)
+    out = []
+    for names in (_MIXED64, _MIXED32):
+        offsets, at = [], 0
+        for name in names:
+            offsets.append(at)
+            at += sizes[name]
+        out += [offsets, at]
+    return out
+
+
+def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
+               scale, passes, nsteps=1):
+    """``nsteps`` mixed-precision steps of the table (module doc) with
+    factor shift ``beta`` and F scale ``scale`` (numbers) and ``passes``
+    residual passes per stage solve, of one float64 grid: returns (u_new,
+    err), err of the last step (a 0-d tensor; inf without an error row or
+    where not finite).  CPU tensors take the plain version
+    (``step_plain`` with ``passes``); CUDA tensors launch K6's mixed entry
+    once."""
+    if u.device.type == "cpu":
+        if nsteps == 1:
+            return step_plain(backend, plan, table, periodic, u, helpers,
+                              pstack, x, beta, scale, passes)
+        u2 = scan_plain(backend, plan, table, periodic, u, helpers, pstack, x,
+                        beta, scale, nsteps, passes)
+        return u2, torch.full((), np.inf, dtype=u.dtype)
+    what = "K6 step_mixed"
+    check_cuda((u, helpers, pstack, x), torch.float64, what)
+    sysm = backend.system
+    N = plan.N
+    check_shapes(what, u=(u, (sysm.nvar, N)),
+                 helpers=(helpers, (len(sysm.help_funcs), N)),
+                 pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
+    if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo) or plan.s > thomas.MAX_S:
+        raise ValueError(f"{what}: plan {plan} does not fit the model")
+    if not 1 <= len(table.stages) <= MAX_STAGES:
+        raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
+                                  f"kernel takes 1 to {MAX_STAGES}")
+    if nsteps < 1 or passes < 0:
+        raise ValueError(f"{what}: nsteps = {nsteps}, passes = {passes}")
+    prep = _prepare(plan, table, periodic, int(nsteps), None, None, 1, 1)
+    off64, n64, off32, n32 = _mixed_offsets(plan, len(table.stages))
+    work64 = torch.empty(n64, dtype=torch.float64, device=u.device)
+    work32 = torch.empty(n32, dtype=torch.float32, device=u.device)
+    info = torch.empty((1, INFO), dtype=torch.float64, device=u.device)
+    out = torch.empty_like(u)
+    b64, b32 = work64.data_ptr(), work32.data_ptr()
+    ptrs = (ctypes.c_uint64 * (6 + len(_MIXED64) + len(_MIXED32)))(
+        u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+        info.data_ptr(), out.data_ptr(), *(b64 + 8 * at for at in off64),
+        *(b32 + 4 * at for at in off32))
+    prep.reals[:9] = _reals(beta=float(beta), scale=float(scale))
+    lib = backend.megastep
+    fn = lib.fn("tf_mega_step_mixed_f64", 3, 1)
+    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
+            ctypes.addressof(prep.reals), int(passes), stream_of(u))
+    lib.check(rc, what)
+    MIXED_LAUNCHES.add()
+    return out, info[0, 0]
+
+
+def row_step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, dt,
+                   passes, nsteps=1):
+    """``nsteps`` mixed-precision ROW steps of ``dt`` -> (u_new, err): the
+    factor shift ``-g00*dt`` and the F scale ``g00*dt`` in float64."""
+    gdt = float(table.g00) * float(dt)
+    return step_mixed(backend, plan, table, periodic, u, helpers, pstack, x,
+                      -gdt, gdt, passes, nsteps)
+
+
+def theta_step_mixed(backend, plan, theta, periodic, u, helpers, pstack, x,
+                     dt, passes, nsteps=1):
+    """``nsteps`` mixed-precision linearized theta steps of ``dt`` ->
+    u_new: ``u + (I - theta dt J)^-1 (dt F(u))``."""
+    dt = float(dt)
+    return step_mixed(backend, plan, theta_table(theta), periodic, u, helpers,
+                      pstack, x, -theta * dt, dt, passes, nsteps)[0]
 
 
 def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,

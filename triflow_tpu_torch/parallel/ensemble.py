@@ -37,7 +37,7 @@ Python calls and one stack per application, so a hooked ensemble is
 host-bound at small N.
 
 Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9),
-df64 models (A8), Theta with a custom ``solver=`` (A12: what a user's
+df64 models (A8b), Theta with a custom ``solver=`` (A12: what a user's
 solver gets per member is not defined in the port), containers and
 checkpoints (A10).
 """
@@ -119,8 +119,8 @@ class Ensemble:
                 "over devices is not ported yet (ROADMAP A9)")
         if getattr(model, "precision", None) == "df64":
             raise NotImplementedError(
-                "df64 ensembles: the df64 precision mode is not ported yet "
-                "(ROADMAP A8)")
+                "df64 ensembles: one grid of a df64 model runs on the port, "
+                "an ensemble of them is not ported yet (ROADMAP A8b)")
         self.model = model
         backend = model.backend
         nvar = backend.system.nvar

@@ -36,6 +36,15 @@ def state_from_numpy(fields, pars, model):
     return out_fields, out_pars
 
 
+def state_from_df(hi, lo):
+    """The float64 value ``hi + lo`` of a double-float pair (the JAX
+    package's df64 state: ``DF.hi`` and ``DF.lo``, float32 arrays), as a
+    numpy float64 array: both components widen exactly and their sum is
+    exact in float64 (``|lo| <= ulp(hi) / 2``), so a ``double="df64"``
+    model of the port starts from the reference's state unchanged."""
+    return np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+
+
 def ensemble_from_numpy(model, u0, x, parameter_sets, helpers0=None):
     """The inputs of the port's ``parallel.Ensemble`` from numpy arrays, as
     keyword arguments: ``u0`` (B, nvar, N) (or (B, N) for one variable),
