@@ -84,11 +84,12 @@ biased F, sweeps the chunk count of config 5 (behind
 and sweeps K6 against K1-K5 at B = 64 (KS, N = 2^8 .. 2^13).
 
 The df64 mode (``Model(double="df64")``: native float64, float32 step
-sizes) runs in each phase too: phase 0 builds K8 (``mixed_residual.cu``;
-K6's mixed entry is in every float64 K6 library); phase 1 holds K8 and
+sizes) runs in each phase too: phase 0 builds K8 (``mixed_residual.cu``)
+and each float64 model's library of K6's mixed entry; phase 1 holds K8 and
 K6's mixed entry against their plain versions at small shapes
 (``kernel_checks.check_all_mixed``) and on the KS N = 10^6 df64 residual,
-the KS N = 2^13 state and Burgers N = 10^4 (``mixed_path_checks``);
+the KS N = 2^13 and N = 10^4 states and Burgers N = 10^4
+(``mixed_path_checks``);
 phase 2 runs ``DF64_CASES`` (bench.py's ``bench_df64`` and
 ``bench_df64_smalln`` grids: KS N = 10^6 with ``df64_mixed_solve=1``,
 exactly 24 K8 launches in 4 steps, and with the full solver; KS N = 10^4
@@ -99,7 +100,9 @@ KS N = 10^4 mixed run), each with its exact launches and against the
 card's ``double=True`` run of the same case or the port's CPU df64 run;
 phase 3 (``phase3_df64``) times the KS N = 10^6 step in double=True, df64
 full and df64 mixed (alternated, with profiles), K8 against its bound and
-a ``torch.sparse`` CSR matvec with the combination and the cast, K6's
+a ``torch.sparse`` CSR matvec with the combination and the cast (each call
+on one of three copies of the operands in turn, so that L2 holds none),
+K6's
 mixed entry at KS N = 2^13 beside K6.step, the Burgers N = 10^6
 ``Theta(solver=...)`` step beside the plain Theta, and the mixed entry
 against the multi-launch mixed path at N = 2^10 .. 2^15 and 10^4 for s =
@@ -116,6 +119,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 import functools
 import json
+import itertools
 import multiprocessing
 import re
 import subprocess
@@ -594,12 +598,14 @@ def phase0():
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"phase 0: card {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     start = time.perf_counter()
-    # K1 and K6 carry one dtype each: both dtypes of each model
+    # K1 and K6 carry one dtype each: both dtypes of each model, and the
+    # float64 models' libraries of K6's mixed entry (the df64 cases)
     models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
               for d in (True, False)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
                                  combine.LIB, matvec.LIB, mixed.LIB)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
+    jobs += [b.megastep_mixed.load for b in models[::2]]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
             fut.result()
@@ -612,6 +618,9 @@ def phase0():
                                                        "s=4 two-variable")
                                  for d in ("f64", "f32")]):
         mega_logs[Path(b.megastep.lib._name).with_suffix(".log")] = label
+        if b.megastep_mixed.lib is not None:
+            mega_logs[Path(b.megastep_mixed.lib._name).with_suffix(".log")] = (
+                f"{label} mixed entry")
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         report = ptxas_report(path)
         spills = [f"{fn} ({sp} bytes spill stores)" for fn, _, _, sp in report if sp]
@@ -693,7 +702,8 @@ def mixed_path_checks(res):
     the first stage's solution and right-hand side of the KS N = 10^6 df64
     case (its first residual pass); K6's mixed entry (RODASPR and Theta,
     one pass: one step, and 3 steps in one launch bit for bit against 3
-    launches) on the KS N = 2^13 path's state and on Burgers N = 10^4."""
+    launches) on the KS N = 2^13 path's state, on the KS N = 10^4 path's
+    (cases (c) and (g)) and on Burgers N = 10^4 (case (e))."""
     _, g00 = rodaspr_rows()
     gdt = g00 * DF64_DT
     model, _, _, args, _ = path_inputs(KS, ks_case(DF64_DT, 4 * DF64_DT, N_REF),
@@ -706,6 +716,7 @@ def mixed_path_checks(res):
     kernel_checks.check_mixed_residual(bands, k, rhs, gdt, True, res,
                                        f"KS N={N_REF} stage 1")
     for eqs, case in ((KS, ks_case(DF64_DT, 1.0, N_SMALL)),
+                      (KS, ks_case(DF64_DT, 1.0, N_REF_SMALL)),
                       (BURGERS, burgers_case(N_REF_SMALL, DF64_DT, 1.0))):
         m, _, _, a, _ = path_inputs(eqs, case, torch.float64, "df64")
         kernel_checks.check_megastep_mixed(m, a[-1].shape[-1], True, DF64_DT, "cuda",
@@ -1254,6 +1265,36 @@ def profile_calls(fn, steps):
             "idle_share": 1.0 - busy / span}
 
 
+def launch_us(fn, key, launches=20, tries=3):
+    """(device µs per launch, launches recorded) of the kernel ``key`` (a
+    ``TRACE_NAMES`` value) over ``launches`` calls of ``fn`` alone under
+    torch.profiler; µs None where the profiler recorded another number of
+    its launches in each of ``tries`` windows (it can drop a window's
+    events, and an average over the launches left would read low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and next((k for sub, k in TRACE_NAMES.items() if sub in ev.name), None) == key]
+        if len(times) == launches:
+            return sum(times) / launches, launches
+    return None, len(times)
+
+
+def log_launch_us(what, fn, key, launches=20):
+    us, seen = launch_us(fn, key, launches)
+    log(f"  {what}: " + (f"{us:.4f} device us per launch over {launches} launches"
+                         if us is not None else
+                         f"not measured (the profiler recorded {seen} of {launches} launches)"))
+
+
 def log_profile(what, dt_name, prof):
     if prof is None:
         log(f"  profiler {what} {dt_name}: no device time recorded; breakdown "
@@ -1326,8 +1367,7 @@ def phase3():
                 if name == "K7.matvec":
                     # back-to-back launches of a kernel this short time the
                     # wrapper's host work; the profiler gives the device's
-                    log_profile(f"K7.matvec alone {grid} (device us per launch)", dt_name,
-                                profile_calls(kern, 20))
+                    log_launch_us(f"K7.matvec alone {grid} {dt_name}", kern, "K7.matvec")
     return times
 
 
@@ -1894,10 +1934,19 @@ def phase3_df64():
     k = mixed.MixedFactorization(bands, gdt, True, chunked.make_plan(N_REF, 1, 2, True),
                                  0).solve(rhs)
     W, nvar, N = bands.shape[0], 1, N_REF
-    csr = banded_csr(bands, True, gdt)
-    kern = lambda: mixed.mixed_residual(bands, k, rhs, gdt, True)
-    plain = lambda: mixed.mixed_residual_plain(bands, k, rhs, gdt, True)
-    library = lambda: ((rhs - k) + torch.mv(csr, k.view(-1)).view_as(k)).float()
+    # three copies of the operands (3 x 60 MB against the 50 MB L2), taken
+    # in turn, so that no call finds its operands in L2, as the bound counts
+    sets = [(bands, k, rhs)] + [tuple(a.clone() for a in (bands, k, rhs)) for _ in range(2)]
+    sets = [(a, v, r, banded_csr(a, True, gdt)) for a, v, r in sets]
+    turn = itertools.count()
+
+    def in_turn(fn):
+        return lambda: fn(*sets[next(turn) % len(sets)])
+
+    kern = in_turn(lambda a, v, r, _: mixed.mixed_residual(a, v, r, gdt, True))
+    plain = in_turn(lambda a, v, r, _: mixed.mixed_residual_plain(a, v, r, gdt, True))
+    library = in_turn(lambda a, v, r, csr: (
+        (r - v) + torch.mv(csr, v.view(-1)).view_as(v)).float())
     nbytes = (W * nvar * nvar * N + 2 * nvar * N) * 8 + nvar * N * 4
     ops = (2 * W * nvar + 3) * nvar * N
     p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
@@ -1907,8 +1956,8 @@ def phase3_df64():
     log(f"  K8.residual ks N=10^6: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} operations), library "
         f"(torch.sparse CSR matvec, combination, cast) {lib_ms:.4f} ms")
-    log_profile("K8.residual alone ks N=10^6 (device us per launch)", "float64",
-                profile_calls(kern, 20))
+    log_launch_us("K8.residual alone ks N=10^6 float64, operands taken in turn from three "
+                  "copies", kern, "K8.residual", 21)
     # K6's mixed entry at KS N = 2^13 beside K6.step in float64
     km, _, _, kargs, _ = path_inputs(KS, ks_case(DF64_DT, 1.0, N_SMALL), torch.float64, "df64")
     kb = km.backend

@@ -287,6 +287,19 @@ def test_adaptive_mixed_attempts_take_the_mixed_entry(calls):
     assert calls["K6.adaptive"] == calls["K8"] == 0
 
 
+def test_mixed_entry_has_a_library_of_its_own():
+    """K6's mixed entry is built from K6's source into a library of its
+    own, which only the mixed solve loads: a float64 model's K6 library
+    carries the float64 entries alone."""
+    b = tt.Model(*EQS["ks"], double="df64", device="cpu").backend
+    k6, mixed_lib = b.megastep.source(), b.megastep_mixed.source()
+    assert "#define TF_MIXED 0" in k6 and "#define TF_MIXED 1" in mixed_lib
+    assert k6.replace("#define TF_MIXED 0", "#define TF_MIXED 1") == mixed_lib
+    assert (b.megastep.name, b.megastep_mixed.name) == ("megastep",
+                                                        "megastep_mixed")
+    assert b.megastep_mixed.lib is None and b.megastep.lib is None
+
+
 # ------------------------------------------------------- repair, refusals
 
 def test_df64_mixed_solve_is_ignored_off_df64():

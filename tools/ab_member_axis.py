@@ -11,7 +11,10 @@ line per run: the card's name, and per dtype the CUDA-event ms of one
 fixed RODASPR step of KS at N = 10^6 (K1-K5, Woodbury plan), that step's
 device µs per kernel function (``torch.profiler`` over 5 steps, template
 arguments dropped), the CUDA-event ms of every kernel entry at that
-step's shapes, of one Theta step of Burgers at N =
+step's shapes, the device µs per launch (``torch.profiler`` over 20
+launches alone) of the banded matvec K7 on that step's bands and state
+and, in float64 where the checkout has it, of the df64 residual K8 on the
+same bands and state with a right-hand side of its own, of one Theta step of Burgers at N =
 10^6 and of every kernel entry at its shapes, with the host's ms to
 enqueue one Theta step (host clock over 20 unsynchronised steps), of one
 K6 RODASPR step of the README model (N = 200, ``device_fixed_scan`` of
@@ -78,6 +81,26 @@ def entries(b, u, helpers, pstack, x, plan, beta, scale):
     return out
 
 
+def kernel_us(torch, fn, name, launches=20, tries=3):
+    """Device µs per launch of the kernel whose name holds ``name``; a
+    window in which the profiler did not record every launch (it can drop
+    a window's events) is measured again, and raises after ``tries``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
+        if len(times) == launches:
+            return sum(times) / launches
+    raise RuntimeError(f"the profiler recorded {len(times)} of {launches} {name} launches")
+
+
 def device_us(torch, fn, steps=5):
     """{kernel function: device µs per call of fn} under torch.profiler,
     and their sum under "busy"."""
@@ -113,10 +136,15 @@ def run(root):
     # build every library the run needs at once (one nvcc each)
     from concurrent.futures import ThreadPoolExecutor
 
-    from triflow_tpu_torch.ops import combine
+    from triflow_tpu_torch.ops import combine, matvec
 
+    try:
+        from triflow_tpu_torch.ops import mixed
+    except ImportError:  # a checkout from before K8
+        mixed = None
     backends = [Model(*eqs).backend for eqs in (KS, BURGERS, README)]
-    jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB)]
+    jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
+                                 matvec.LIB) + ((mixed.LIB,) if mixed else ())]
     jobs += [b.stencil.load for b in backends] + [b.megastep.load for b in backends[::2]]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
@@ -145,6 +173,14 @@ def run(root):
         for name, fn in entries(b, u, helpers, pstack, x, chunked.make_plan(N, 1, 2, True),
                                 -gdt, gdt).items():
             out[f"{dt_name} ks N=10^6 {name} ms"] = cuda_ms(torch, fn, 20)
+        bands = b.J_bands(u, helpers, pstack, x, periodic=True)
+        out[f"{dt_name} ks N=10^6 K7.matvec device us"] = kernel_us(
+            torch, lambda: matvec.banded_matvec(bands, u, True, gdt), "matvec_kernel")
+        if mixed is not None and dtype == torch.float64:
+            rhs = 0.5 * u
+            out[f"{dt_name} ks N=10^6 K8.residual device us"] = kernel_us(
+                torch, lambda: mixed.mixed_residual(bands, u, rhs, gdt, True),
+                "mixed_residual")
         model, fields, pars = state(BURGERS, {"x": 0.5 * i, "U": np.cos(2 * np.pi * i / N * 4)},
                                     {"periodic": True, "nu": 0.5}, dtype)
         theta = schemes.Theta(model, theta=1.0)

@@ -151,11 +151,14 @@ class TorchBackend:
         self._J_fns = {key: lambdify(e)
                        for key, e in system.J_band_exprs.items()}
         #: the model's K1 and K6 libraries (generated CUDA sources for its
-        #: dtype, built at first use)
+        #: dtype, built at first use), and the library of K6's mixed entry,
+        #: which only the df64 mode's mixed solve launches (float64)
         self.stencil = stencil.library(system, self.args_symbols,
                                        dtype=dtype)
         self.megastep = stencil.library(system, self.args_symbols,
                                         "megastep.cu", dtype)
+        self.megastep_mixed = stencil.library(system, self.args_symbols,
+                                              "megastep.cu", dtype, True)
 
     # ------------------------------------------------------- kernel route
     def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0,

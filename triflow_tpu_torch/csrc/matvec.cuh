@@ -8,8 +8,8 @@
 //
 // Every load goes through `load`: ReadOnlyLoad (__ldg, the read-only data
 // path) where A and v do not change during the launch (K7, K8; the walk
-// inlined with plain loads ran K7's float32 instance 7 % slower on H100,
-// tools/ab_matvec.py), PlainLoad in K6, which reads bands and vectors it
+// inlined with plain loads ran K7's float32 instance 7 % slower on an H100,
+// PERF.md), PlainLoad in K6, which reads bands and vectors it
 // wrote earlier in the same launch (a read-only load there could return
 // stale data).
 #pragma once

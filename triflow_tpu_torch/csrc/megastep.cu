@@ -49,7 +49,8 @@
 // (kMembers false: the scratch addresses straight from the parameters)
 // and its one-output-step adaptive entry its own kernel (adaptive_kernel):
 // the member versions cost one grid registers and time (PERF.md).
-// A float64 library has a third entry, K6's mixed entry (step_mixed, one
+// A df64 model's mixed library (TF_MIXED, built only where its mixed
+// solve runs) has one entry instead, K6's mixed entry (step_mixed, one
 // grid): nsteps >= 1 steps of the df64 precision mode's mixed-precision
 // stage solve, the reference's row_step_df_folded / theta_step_df_folded
 // (ops/megastep.py) on native float64.  Per step: J in double (K1's node
@@ -64,6 +65,8 @@
 // J(u), not J of the rounded state: both are float-accurate
 // preconditioners, and the residual passes correct against the double
 // operator either way.  Its scratch is two slabs, one double and one float.
+// It shares one_step's stage sums, final combination and err (stage_sums,
+// finish) and the step loop (run_steps).
 // One step, in the order of the multi-launch path (K1-K5):
 //   1. J at every node (K1's body), the chunked factor of I + beta*J (K2's
 //      body, one thread per chunk) and the PCR factor of the interface
@@ -134,14 +137,20 @@ struct Table {
   T g00;  // the adaptive entries' factor shift is -g00 * dt
 };
 
+// The operands and the plan every entry takes.
 template <typename T>
-struct Work {
+struct Grid {
   const T* u0;
   const T* hlp;
   const T* par;
   const T* x;
-  T* out;
   double* info;        // (B, kInfo), or kInfo for the shared adaptive mode
+  T* out;
+  int N, Mc, C, cyclic, wrap, periodic;
+};
+
+template <typename T>
+struct Work : Grid<T> {
   const T* beta_b;     // per-member factor shift of the step entry, or null
   const T* scale_b;    // per-member F scale of the step entry, or null
   const T* idt_b;      // per-member starting internal dt (per-member mode)
@@ -151,7 +160,7 @@ struct Work {
   T *bands, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr, *Z;
   T *us, *ui, *bias, *rhs, *y, *yred, *xm1, *xp1;
   T *buf0, *buf1;      // accepted and trial states, member m's at m * n
-  int N, Mc, C, cyclic, wrap, periodic, B, slab;
+  int B, slab;
 };
 
 template <typename T>
@@ -163,76 +172,32 @@ struct Ctl {
 template <typename T>
 using Lim = cuda::std::numeric_limits<T>;
 
-// One step of member m's grid from src to dst; every thread gets err (inf
-// without an error row).  All threads of the block must call it.
-template <typename T, bool kMembers>
-__device__ T one_step(const Work<T>& w, const Table<T>& tab, int m, const T* src, T* dst,
-                      T beta, T scale) {
+// Stage k's input sum a*u_j into ui (unless the input is u itself) and, with
+// rows[k] = 2, its bias sum c*u_j into bias, over the columns (src, us_0,
+// ...).  All threads of the block must call it.
+template <typename T>
+__device__ void stage_sums(const Table<T>& tab, int k, const T* src, const T* us, T* ui,
+                           T* bias, long n) {
+  const bool with_bias = tab.rows[k] == 2;
+  if (tab.is_u[k] && !with_bias) return;
+  for (long e = threadIdx.x; e < n; e += kThreads) {
+    auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
+    if (!tab.is_u[k])
+      ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
+    if (with_bias)
+      bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
+  }
+  __syncthreads();
+}
+
+// The final combination into dst and the step's err = max|error row|, which
+// every thread gets (inf without an error row, and where a term is not
+// finite).  All threads of the block must call it.
+template <typename T>
+__device__ T finish(const Table<T>& tab, const T* src, const T* us, T* dst, long n) {
   __shared__ T s_max[kThreads];
-  __shared__ T s_cap_inv[4 * kS * kS];
   __shared__ int s_bad;
   const int tid = threadIdx.x;
-  const int N = w.N;
-  const long n = (long)TF_NVAR * N;
-  const bool wood = w.wrap && !w.cyclic;
-  const T* hlp = kMembers ? w.hlp + (long)m * TF_NHELP * N : w.hlp;
-  const T* par = kMembers ? w.par + (long)m * TF_NPAR * N : w.par;
-  // this block's scratch (block 0's for one grid: the parameters as they are)
-  const long o = kMembers ? (long)blockIdx.x * w.slab : 0;
-  T *bands = w.bands + o, *fac = w.fac + o, *Dhinv = w.Dhinv + o, *DU = w.DU + o;
-  T *Wsp = w.Wsp + o, *Vsp = w.Vsp + o, *Lred = w.Lred + o, *Ured = w.Ured + o;
-  T *alphas = w.alphas + o, *betas = w.betas + o, *Dinv = w.Dinv + o, *pscr = w.pscr + o;
-  T *Z = w.Z + o, *us = w.us + o, *ui = w.ui + o, *bias = w.bias + o, *rhs = w.rhs + o;
-  T *y = w.y + o, *yred = w.yred + o, *xm1 = w.xm1 + o, *xp1 = w.xp1 + o;
-
-  for (long i = tid; i < N; i += kThreads)
-    tf::stencil_J_node<T>(src, hlp, par, w.x, bands, N, w.periodic, i);
-  __syncthreads();
-  for (int c = tid; c < w.C; c += kThreads)
-    tf::spike_factor_chunk<T, kS>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, TF_NVAR, kG,
-                                  TF_H, w.Mc, w.C, w.wrap, T(1), beta, c);
-  __syncthreads();
-  tf::pcr_factor_block<T, 2 * kS>(Lred, Ured, alphas, betas, Dinv, pscr, w.C, w.cyclic);
-  __syncthreads();
-  if (wood) {
-    tf::woodbury_block<T, 2 * kS>(alphas, betas, Dinv, Lred, Ured, Z, s_cap_inv, pscr, w.C);
-    __syncthreads();
-  }
-
-  for (int k = 0; k < tab.n_stages; ++k) {
-    const bool with_bias = tab.rows[k] == 2;
-    if (!tab.is_u[k] || with_bias) {
-      for (long e = tid; e < n; e += kThreads) {
-        auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
-        if (!tab.is_u[k])
-          ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
-        if (with_bias)
-          bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
-      }
-      __syncthreads();
-    }
-    const T* stage_u = tab.is_u[k] ? src : ui;
-    for (long i = tid; i < N; i += kThreads)
-      tf::stencil_F_node<T>(stage_u, hlp, par, w.x, with_bias ? bias : nullptr, rhs,
-                            N, w.periodic, scale, i);
-    __syncthreads();
-    for (int c = tid; c < w.C; c += kThreads)
-      tf::thomas_sweep_chunk<T, kS>(fac, Dhinv, DU, rhs, y, yred, N, TF_NVAR, kG, w.Mc, w.C, c);
-    __syncthreads();
-    if (wood)
-      tf::pcr_solve_shift_block<T, 2 * kS, true>(alphas, betas, Dinv, yred, Z, s_cap_inv, xm1,
-                                                 xp1, pscr, w.C, w.wrap);
-    else
-      tf::pcr_solve_shift_block<T, 2 * kS, false>(alphas, betas, Dinv, yred, nullptr, nullptr,
-                                                  xm1, xp1, pscr, w.C, w.wrap);
-    __syncthreads();
-    T* uk = us + (long)k * n;
-    for (long i = tid; i < N; i += kThreads)
-      tf::spike_correct_node<T, kS>(y, Wsp, Vsp, xm1, xp1, nullptr, uk, N, TF_NVAR, kG, w.Mc,
-                                    w.C, i);
-    __syncthreads();
-  }
-
   const int fin = tab.n_stages;
   const bool with_err = tab.rows[fin] == 2;
   T mx = T(0);
@@ -262,6 +227,79 @@ __device__ T one_step(const Work<T>& w, const Table<T>& tab, int m, const T* src
   return err;
 }
 
+// nsteps steps of one_step(src, dst) from src, between the state buffers
+// buf0 and buf1, the last into out: the last step's err.
+template <typename T, typename OneStep>
+__device__ T run_steps(const T* src, T* out, T* buf0, T* buf1, int nsteps, OneStep one_step) {
+  T err = Lim<T>::infinity();
+  for (int k = 0; k < nsteps; ++k) {
+    T* dst = k == nsteps - 1 ? out : (k % 2 ? buf1 : buf0);
+    err = one_step(src, dst);
+    src = dst;
+  }
+  return err;
+}
+
+// One step of member m's grid from src to dst; every thread gets err (inf
+// without an error row).  All threads of the block must call it.
+template <typename T, bool kMembers>
+__device__ T one_step(const Work<T>& w, const Table<T>& tab, int m, const T* src, T* dst,
+                      T beta, T scale) {
+  __shared__ T s_cap_inv[4 * kS * kS];
+  const int tid = threadIdx.x;
+  const int N = w.N;
+  const long n = (long)TF_NVAR * N;
+  const bool wood = w.wrap && !w.cyclic;
+  const T* hlp = kMembers ? w.hlp + (long)m * TF_NHELP * N : w.hlp;
+  const T* par = kMembers ? w.par + (long)m * TF_NPAR * N : w.par;
+  // this block's scratch (block 0's for one grid: the parameters as they are)
+  const long o = kMembers ? (long)blockIdx.x * w.slab : 0;
+  T *bands = w.bands + o, *fac = w.fac + o, *Dhinv = w.Dhinv + o, *DU = w.DU + o;
+  T *Wsp = w.Wsp + o, *Vsp = w.Vsp + o, *Lred = w.Lred + o, *Ured = w.Ured + o;
+  T *alphas = w.alphas + o, *betas = w.betas + o, *Dinv = w.Dinv + o, *pscr = w.pscr + o;
+  T *Z = w.Z + o, *us = w.us + o, *ui = w.ui + o, *bias = w.bias + o, *rhs = w.rhs + o;
+  T *y = w.y + o, *yred = w.yred + o, *xm1 = w.xm1 + o, *xp1 = w.xp1 + o;
+
+  for (long i = tid; i < N; i += kThreads)
+    tf::stencil_J_node<T>(src, hlp, par, w.x, bands, N, w.periodic, i);
+  __syncthreads();
+  for (int c = tid; c < w.C; c += kThreads)
+    tf::spike_factor_chunk<T, kS>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, TF_NVAR, kG,
+                                  TF_H, w.Mc, w.C, w.wrap, T(1), beta, c);
+  __syncthreads();
+  tf::pcr_factor_block<T, 2 * kS>(Lred, Ured, alphas, betas, Dinv, pscr, w.C, w.cyclic);
+  __syncthreads();
+  if (wood) {
+    tf::woodbury_block<T, 2 * kS>(alphas, betas, Dinv, Lred, Ured, Z, s_cap_inv, pscr, w.C);
+    __syncthreads();
+  }
+
+  for (int k = 0; k < tab.n_stages; ++k) {
+    stage_sums<T>(tab, k, src, us, ui, bias, n);
+    const T* stage_u = tab.is_u[k] ? src : ui;
+    for (long i = tid; i < N; i += kThreads)
+      tf::stencil_F_node<T>(stage_u, hlp, par, w.x, tab.rows[k] == 2 ? bias : nullptr, rhs,
+                            N, w.periodic, scale, i);
+    __syncthreads();
+    for (int c = tid; c < w.C; c += kThreads)
+      tf::thomas_sweep_chunk<T, kS>(fac, Dhinv, DU, rhs, y, yred, N, TF_NVAR, kG, w.Mc, w.C, c);
+    __syncthreads();
+    if (wood)
+      tf::pcr_solve_shift_block<T, 2 * kS, true>(alphas, betas, Dinv, yred, Z, s_cap_inv, xm1,
+                                                 xp1, pscr, w.C, w.wrap);
+    else
+      tf::pcr_solve_shift_block<T, 2 * kS, false>(alphas, betas, Dinv, yred, nullptr, nullptr,
+                                                  xm1, xp1, pscr, w.C, w.wrap);
+    __syncthreads();
+    T* uk = us + (long)k * n;
+    for (long i = tid; i < N; i += kThreads)
+      tf::spike_correct_node<T, kS>(y, Wsp, Vsp, xm1, xp1, nullptr, uk, N, TF_NVAR, kG, w.Mc,
+                                    w.C, i);
+    __syncthreads();
+  }
+  return finish<T>(tab, src, us, dst, n);
+}
+
 template <typename T, bool kMembers>
 __global__ void __launch_bounds__(kThreads, 1)
     step_kernel(const Work<T> w, const Table<T> tab_in, T beta, T scale, int nsteps) {
@@ -274,13 +312,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const long at = kMembers ? m * n : 0;
     const T bm = w.beta_b ? w.beta_b[m] : beta;
     const T sm = w.scale_b ? w.scale_b[m] : scale;
-    const T* src = w.u0 + at;
-    T err = Lim<T>::infinity();
-    for (int k = 0; k < nsteps; ++k) {
-      T* dst = (k == nsteps - 1 ? w.out : (k % 2 ? w.buf1 : w.buf0)) + at;
-      err = one_step<T, kMembers>(w, tab, m, src, dst, bm, sm);
-      src = dst;
-    }
+    const T err = run_steps<T>(w.u0 + at, w.out + at, w.buf0 + at, w.buf1 + at, nsteps,
+                               [&](const T* src, T* dst) {
+                                 return one_step<T, kMembers>(w, tab, m, src, dst, bm, sm);
+                               });
     if (threadIdx.x == 0) w.info[(long)m * kInfo] = (double)err;
   }
 }
@@ -493,33 +528,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-#if !TF_F32
-// ---- K6's mixed entry (the float64 library only) ----
+#if TF_MIXED
+// ---- K6's mixed entry (a df64 model's mixed library only) ----
+static_assert(!TF_F32, "the mixed entry steps a float64 state");
 
-// The mixed entry's operands and scratch (one grid): the double slab
-// (bands, stage solutions, stage input, bias, right-hand side, the states
-// between steps) and the float slab (the rounded bands, the factor, the
-// interface operators, the solve's vectors).
-struct MixedWork {
-  const double* u0;
-  const double* hlp;
-  const double* par;
-  const double* x;
-  double* info;
-  double* out;
+// The mixed entry's scratch (one grid): the double slab (bands, stage
+// solutions, stage input, bias, right-hand side, the states between steps)
+// and the float slab (the rounded bands, the factor, the interface
+// operators, the solve's vectors).
+struct MixedWork : Grid<double> {
   double *bands, *us, *ui, *bias, *rhs, *buf0, *buf1;
   float *bands32, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr,
       *Z, *r32, *y, *yred, *xm1, *xp1, *d32;
-  int N, Mc, C, cyclic, wrap, periodic, passes;
+  int passes;
 };
 
 // One mixed-precision step of the grid from src to dst; every thread gets
 // err (inf without an error row).  All threads of the block must call it.
 __device__ double one_step_mixed(const MixedWork& w, const Table<double>& tab,
                                  const double* src, double* dst, double beta, double scale) {
-  __shared__ double s_max[kThreads];
   __shared__ float s_cap_inv[4 * kS * kS];
-  __shared__ int s_bad;
   const int tid = threadIdx.x;
   const int N = w.N;
   const long n = (long)TF_NVAR * N;
@@ -549,23 +577,13 @@ __device__ double one_step_mixed(const MixedWork& w, const Table<double>& tab,
   }
 
   for (int k = 0; k < tab.n_stages; ++k) {
-    const bool with_bias = tab.rows[k] == 2;
-    if (!tab.is_u[k] || with_bias) {
-      for (long e = tid; e < n; e += kThreads) {
-        auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
-        if (!tab.is_u[k])
-          w.ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
-        if (with_bias)
-          w.bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
-      }
-      __syncthreads();
-    }
+    stage_sums<double>(tab, k, src, w.us, w.ui, w.bias, n);
     const double* stage_u = tab.is_u[k] ? src : w.ui;
     double* uk = w.us + (long)k * n;
     // rhs = scale F + bias in double; the first solve takes its rounding
     for (long i = tid; i < N; i += kThreads) {
-      tf::stencil_F_node<double>(stage_u, w.hlp, w.par, w.x, with_bias ? w.bias : nullptr, w.rhs,
-                                 N, w.periodic, scale, i);
+      tf::stencil_F_node<double>(stage_u, w.hlp, w.par, w.x, tab.rows[k] == 2 ? w.bias : nullptr,
+                                 w.rhs, N, w.periodic, scale, i);
       for (int m = 0; m < TF_NVAR; ++m) w.r32[m * N + i] = (float)w.rhs[m * N + i];
     }
     __syncthreads();
@@ -607,33 +625,7 @@ __device__ double one_step_mixed(const MixedWork& w, const Table<double>& tab,
       __syncthreads();
     }
   }
-
-  const int fin = tab.n_stages;
-  const bool with_err = tab.rows[fin] == 2;
-  double mx = 0.0;
-  int bad = 0;
-  for (long e = tid; e < n; e += kThreads) {
-    auto value = [&](int j) { return j == 0 ? src[e] : w.us[(long)(j - 1) * n + e]; };
-    dst[e] = tf::lin_comb(fin + 1, tab.coef[fin][0], tab.role[fin][0], value);
-    if (with_err) {
-      const double d = fabs(tf::lin_comb(fin + 1, tab.coef[fin][1], tab.role[fin][1], value));
-      if (isfinite(d))
-        mx = fmax(mx, d);
-      else
-        bad = 1;
-    }
-  }
-  if (tid == 0) s_bad = 0;
-  s_max[tid] = mx;
-  __syncthreads();
-  if (bad) s_bad = 1;
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (tid < off) s_max[tid] = fmax(s_max[tid], s_max[tid + off]);
-    __syncthreads();
-  }
-  const double err = (with_err && !s_bad) ? s_max[0] : Lim<double>::infinity();
-  __syncthreads();
-  return err;
+  return finish<double>(tab, src, w.us, dst, n);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -642,13 +634,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ Table<double> tab;
   if (threadIdx.x == 0) tab = tab_in;
   __syncthreads();
-  const double* src = w.u0;
-  double err = Lim<double>::infinity();
-  for (int k = 0; k < nsteps; ++k) {
-    double* dst = k == nsteps - 1 ? w.out : (k % 2 ? w.buf1 : w.buf0);
-    err = one_step_mixed(w, tab, src, dst, beta, scale);
-    src = dst;
-  }
+  const double err = run_steps<double>(w.u0, w.out, w.buf0, w.buf1, nsteps,
+                                       [&](const double* src, double* dst) {
+                                         return one_step_mixed(w, tab, src, dst, beta, scale);
+                                       });
   if (threadIdx.x == 0) w.info[0] = err;
 }
 #endif
@@ -666,16 +655,32 @@ constexpr int kReals = 9;
 template <typename T>
 int fill_table(const void* ints, const void* reals, Table<T>& tab);
 
+// The operands (the first six addresses, in the order of Grid), the plan's
+// integers and the table: 0 or a CUDA error.
+template <typename T>
+int fill_grid(const void* ptrs, const void* ints, const void* reals, Grid<T>& g,
+              Table<T>& tab) {
+  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
+  const int* iv = static_cast<const int*>(ints);
+  g.u0 = reinterpret_cast<const T*>(p[0]);
+  g.hlp = reinterpret_cast<const T*>(p[1]);
+  g.par = reinterpret_cast<const T*>(p[2]);
+  g.x = reinterpret_cast<const T*>(p[3]);
+  g.info = reinterpret_cast<double*>(p[4]);
+  g.out = reinterpret_cast<T*>(p[5]);
+  g.N = iv[0];
+  g.Mc = iv[1];
+  g.C = iv[2];
+  g.cyclic = iv[3];
+  g.wrap = iv[4];
+  g.periodic = iv[5];
+  return fill_table<T>(ints, reals, tab);
+}
+
 template <typename T>
 int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Table<T>& tab) {
   const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
-  w.u0 = reinterpret_cast<const T*>(p[0]);
-  w.hlp = reinterpret_cast<const T*>(p[1]);
-  w.par = reinterpret_cast<const T*>(p[2]);
-  w.x = reinterpret_cast<const T*>(p[3]);
-  w.info = reinterpret_cast<double*>(p[4]);
-  w.out = reinterpret_cast<T*>(p[5]);
   w.beta_b = reinterpret_cast<const T*>(p[6]);
   w.scale_b = reinterpret_cast<const T*>(p[7]);
   w.idt_b = reinterpret_cast<const T*>(p[8]);
@@ -685,19 +690,14 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Tabl
                  &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.us,
                  &w.ui, &w.bias, &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
   for (int k = 0; k < kPtrs - 11; ++k) *slots[k] = reinterpret_cast<T*>(p[11 + k]);
-  w.N = iv[0];
-  w.Mc = iv[1];
-  w.C = iv[2];
-  w.cyclic = iv[3];
-  w.wrap = iv[4];
-  w.periodic = iv[5];
   w.B = iv[10];
   w.slab = iv[12];
   if (w.B < 1 || iv[11] < 1 || iv[11] > w.B) return static_cast<int>(cudaErrorInvalidValue);
-  return fill_table<T>(ints, reals, tab);
+  return fill_grid<T>(ptrs, ints, reals, w, tab);
 }
 
-// The plan's integers and the table, as fill reads them: 0 or a CUDA error.
+// The plan's integers and the table, as fill_grid reads them: 0 or a CUDA
+// error.
 template <typename T>
 int fill_table(const void* ints, const void* reals, Table<T>& tab) {
   const int* iv = static_cast<const int*>(ints);
@@ -803,36 +803,24 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   return static_cast<int>(cudaGetLastError());
 }
 
-#if !TF_F32
+#if TF_MIXED
 // ptrs (6 + 7 + 19 device addresses, in the order of MixedWork), ints and
 // reals as the step entry's (B = 1); passes >= 0 residual passes.
 int step_mixed(const void* ptrs, const void* ints, const void* reals, int passes,
                void* stream) {
   MixedWork w = {};
   Table<double> tab = {};
-  const int rc = fill_table<double>(ints, reals, tab);
+  const int rc = fill_grid<double>(ptrs, ints, reals, w, tab);
   if (rc) return rc;
   const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
-  w.u0 = reinterpret_cast<const double*>(p[0]);
-  w.hlp = reinterpret_cast<const double*>(p[1]);
-  w.par = reinterpret_cast<const double*>(p[2]);
-  w.x = reinterpret_cast<const double*>(p[3]);
-  w.info = reinterpret_cast<double*>(p[4]);
-  w.out = reinterpret_cast<double*>(p[5]);
   double** dslots[] = {&w.bands, &w.us, &w.ui, &w.bias, &w.rhs, &w.buf0, &w.buf1};
   for (int k = 0; k < 7; ++k) *dslots[k] = reinterpret_cast<double*>(p[6 + k]);
   float** fslots[] = {&w.bands32, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
                       &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.r32,
                       &w.y, &w.yred, &w.xm1, &w.xp1, &w.d32};
   for (int k = 0; k < 19; ++k) *fslots[k] = reinterpret_cast<float*>(p[13 + k]);
-  w.N = iv[0];
-  w.Mc = iv[1];
-  w.C = iv[2];
-  w.cyclic = iv[3];
-  w.wrap = iv[4];
-  w.periodic = iv[5];
   w.passes = passes;
   const int nsteps = iv[7];
   if (nsteps < 1 || passes < 0 || iv[10] != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -859,13 +847,15 @@ int step_mixed(const void* ptrs, const void* ints, const void* reals, int passes
     return capacity<T>(kind);                                                              \
   }
 
-// a model computes in one dtype: its library carries that dtype's entries
-#if TF_F32
-TF_ENTRIES(f32, float)
-#else
-TF_ENTRIES(f64, double)
+// a model computes in one dtype: its library carries that dtype's entries;
+// a df64 model's mixed library carries the mixed entry alone
+#if TF_MIXED
 extern "C" int tf_mega_step_mixed_f64(const void* ptrs, const void* ints, const void* reals,
                                       int passes, void* stream) {
   return step_mixed(ptrs, ints, reals, passes, stream);
 }
+#elif TF_F32
+TF_ENTRIES(f32, float)
+#else
+TF_ENTRIES(f64, double)
 #endif

@@ -11,8 +11,11 @@ per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
 (shared through the headers in ``csrc/``) phase after phase in one thread
 block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
 
-A float64 library has a third entry, **K6's mixed entry** (``step_mixed``,
-counter ``K6.step_mixed``, one grid): ``nsteps`` steps of the df64
+A third entry, **K6's mixed entry** (``step_mixed``, counter
+``K6.step_mixed``, one grid), is a library of its own, built from the same
+source for a float64 model at the mixed entry's first launch
+(``backend.megastep_mixed``: a ``double=True`` model never builds it):
+``nsteps`` steps of the df64
 precision mode's mixed-precision stage solve (``df64_mixed_solve=n``) in
 one launch, replacing the TPU's ``row_step_df_folded`` and
 ``theta_step_df_folded`` (``ops/megastep.py``, the theta step as a
@@ -588,7 +591,7 @@ def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
         info.data_ptr(), out.data_ptr(), *(b64 + 8 * at for at in off64),
         *(b32 + 4 * at for at in off32))
     prep.reals[:9] = _reals(beta=float(beta), scale=float(scale))
-    lib = backend.megastep
+    lib = backend.megastep_mixed
     fn = lib.fn("tf_mega_step_mixed_f64", 3, 1)
     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
             ctypes.addressof(prep.reals), int(passes), stream_of(u))

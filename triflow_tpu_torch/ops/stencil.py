@@ -123,15 +123,17 @@ class KernelPrinter(C99CodePrinter):
 
 
 def generate_source(system, args_symbols, template="stencil.cu",
-                    dtype=torch.float64) -> str:
+                    dtype=torch.float64, mixed=False) -> str:
     """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu`` or
     K6's ``megastep.cu``) with the constants and the expression bodies of
     ``system`` spliced in, and the entries of the model's ``dtype`` only
-    (the one it computes in: half the build of both)."""
+    (the one it computes in: half the build of both); ``mixed``: K6's
+    mixed entry alone (float64)."""
     printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
     nvar = system.nvar
     lines = [
         f"#define TF_F32 {int(dtype == torch.float32)}",
+        f"#define TF_MIXED {int(mixed)}",
         f"#define TF_NVAR {nvar}",
         f"#define TF_NHELP {len(system.help_funcs)}",
         f"#define TF_NPAR {len(system.pars)}",
@@ -158,12 +160,13 @@ BARE_LITERAL = re.compile(
 
 
 def library(system, args_symbols, template="stencil.cu",
-            dtype=torch.float64) -> _build.Library:
+            dtype=torch.float64, mixed=False) -> _build.Library:
     """The model's K1 library (or, with ``template="megastep.cu"``, its K6
-    library) for ``dtype``, generated and built at its first launch."""
-    return _build.Library(template.split(".")[0],
-                          lambda: generate_source(system, args_symbols,
-                                                  template, dtype))
+    library; with ``mixed`` too, its library of K6's mixed entry) for
+    ``dtype``, generated and built at its first launch."""
+    name = template.split(".")[0] + ("_mixed" if mixed else "")
+    return _build.Library(name, lambda: generate_source(
+        system, args_symbols, template, dtype, mixed))
 
 
 def _kernel_inputs(backend, u, helpers, pstack, x):
