@@ -108,19 +108,42 @@ mixed entry at KS N = 2^13 beside K6.step, the Burgers N = 10^6
 against the multi-launch mixed path at N = 2^10 .. 2^15 and 10^4 for s =
 1, 2, 4 (behind ``megastep.MIXED_MAX_N``).
 
+The opt-in two-pass theta step (kernel K9, ``csrc/megatheta.cu``, the
+reference's ``TRIFLOW_MEGATHETA=1`` route of
+``Theta.device_fixed_step_folded``) runs in each phase too: phase 0 builds
+K9 for Burgers (s = 1) and KS (s = 2) in both dtypes and prints its
+registers and spills; phase 1 holds its two entries and its step against
+their plain versions at small and odd shapes (``kernel_checks``) and at
+Burgers N = 10^6 (Woodbury) and KS N = 2^20 (block-cyclic), on a noisy
+state and on the increment each step makes; phase 2
+(``phase2_megatheta``) steps Burgers N = 10^6 (bench.py's config 2: x =
+0.5 i, cos(8 pi i / N), nu = 0.5, dt = 0.05) 10 times, the same grid with
+noise 3 times and KS N = 2^20 4 times through that entry with the
+variable set, with exact launches (K9's two entries, K4's factor and solve
+with shifts and, on the Woodbury plan, its set-up once per step; nothing
+else), against the same entry without the variable on the card (K1-K4)
+and the port's CPU f64 run, on the state and on the increment from the
+first state; phase 3
+(``phase3_megatheta``) times the Burgers 10^6 step through K9 against the
+K1-K4 route (alternated, with profiles), K9's entries against their plain
+versions and bound, and the chunk-count sweep behind
+``megatheta.plan_for``.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
-N = 10^6, the others at KS N = 2^20; K8 and K6's mixed entry have one
-type pair, their main keys the float64 column and null float32 keys),
-the card's ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``.
+N = 10^6, K9 at Burgers N = 10^6, the others at KS N = 2^20; K8 and K6's
+mixed entry have one type pair, their main keys the float64 column and
+null float32 keys), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
 import json
 import itertools
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -137,7 +160,8 @@ import torch
 from triflow_tpu_torch import Model, Simulation, schemes
 from triflow_tpu_torch.core.rosenbrock import adaptive_controller, member_controller
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
-                                   matvec, megastep, mixed, pcr, stencil, thomas)
+                                   matvec, megastep, megatheta, mixed, pcr, stencil,
+                                   thomas)
 from triflow_tpu_torch.parallel import Ensemble
 from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
@@ -195,13 +219,17 @@ KERNELS = {
     "K6.step_mixed": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                       "triflow_tpu/ops/megastep.py:821 row_step_df_folded + "
                       ":907 theta_step_df_folded"),
+    "K9.interface": ("cuda", "triflow_tpu_torch/csrc/megatheta.cu",
+                     "triflow_tpu/ops/megatheta.py:284 theta_step_tiled (kernel_a)"),
+    "K9.correct": ("cuda", "triflow_tpu_torch/csrc/megatheta.cu",
+                   "triflow_tpu/ops/megatheta.py:284 theta_step_tiled (kernel_b)"),
 }
 #: the kernel entries of the df64 mode's mixed solve: float64 operands only
 DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
 #: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
 #: K7.matvec
-MULTI_LAUNCH = [k for k in KERNELS if not k.startswith("K6")
+MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9"))
                 and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
@@ -215,7 +243,9 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "combine_kernel": "K5.combine", "step_mixed_kernel": "K6.step_mixed",
                "step_kernel": "K6.step", "mixed_residual": "K8.residual",
                "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan",
-               "matvec_kernel": "K7.matvec"}
+               "matvec_kernel": "K7.matvec",
+               "megatheta_interface_kernel": "K9.interface",
+               "megatheta_correct_kernel": "K9.correct"}
 
 
 def log(msg):
@@ -369,6 +399,36 @@ REFINE_CHECKS = {
         ({"K7.matvec": 10, "K6.step": 0},
          ("burgers N=10^6 theta", None, 1e-4, 1e-10, True)),
 }
+
+
+def noisy_burgers_case(N):
+    """bench.py's Burgers state with noise of 0.05 (seed 0), the state of
+    ``kernel_checks.megatheta_state``: its steps move u by some 5e-2 of
+    max|u|, where those of the smooth state move it by some 3e-6."""
+    fields, pars, dt, tmax, hook = burgers_case(N)
+    fields["U"] = fields["U"] + 0.05 * np.random.default_rng(0).standard_normal(N)
+    return fields, pars, dt, tmax, hook
+
+
+#: the opt-in two-pass theta step (K9) through the reference's entry
+#: ``Theta(model, theta=1).device_fixed_step_folded(N, periodic=True)`` with
+#: ``TRIFLOW_MEGATHETA=1``: Burgers at bench.py's config 2 (``bench_burgers``,
+#: N = 10^6, a Woodbury plan), the same with noise, and KS at N = 2^20 (s =
+#: 2, block-cyclic), dt 0.05: (name, equations, case, steps, Woodbury plan,
+#: the dtypes held on the increment).  Ten steps of the smooth Burgers state
+#: move u by some 3e-5 of max|u|, under a quarter of float32's limit of
+#: 1e-4 over one ulp of u (``kernel_checks.increment_error``): its float32
+#: run is held on the state alone, and the noisy case holds float32's
+#: increment on the same grid and plan
+MEGATHETA_CASES = [
+    ("burgers N=10^6 theta opt-in (10 steps)", BURGERS, burgers_case(N_REF), 10, True,
+     ("float64",)),
+    ("burgers N=10^6 noisy theta opt-in (3 steps)", BURGERS, noisy_burgers_case(N_REF), 3,
+     True, ("float64", "float32")),
+    ("ks N=2^20 theta opt-in (4 steps)", KS, ks_case(0.05, 0.2), 4, False,
+     ("float64", "float32")),
+]
+K9 = ["K9.interface", "K9.correct"]
 
 
 #: the reference's ensembles (bench.py: config 5, bench_ensemble, and the
@@ -606,6 +666,9 @@ def phase0():
                                  combine.LIB, matvec.LIB, mixed.LIB)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     jobs += [b.megastep_mixed.load for b in models[::2]]
+    # K9 for Burgers (s = 1) and KS (s = 2), both dtypes
+    k9_models = models[:2] + models[4:6]
+    jobs += [b.megatheta.load for b in k9_models]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
             fut.result()
@@ -621,6 +684,9 @@ def phase0():
         if b.megastep_mixed.lib is not None:
             mega_logs[Path(b.megastep_mixed.lib._name).with_suffix(".log")] = (
                 f"{label} mixed entry")
+    k9_logs = {Path(b.megatheta.lib._name).with_suffix(".log"): label for b, label in
+               zip(k9_models, ("s=1 burgers f64", "s=1 burgers f32", "s=2 ks f64",
+                               "s=2 ks f32"))}
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         report = ptxas_report(path)
         spills = [f"{fn} ({sp} bytes spill stores)" for fn, _, _, sp in report if sp]
@@ -634,6 +700,9 @@ def phase0():
                 log(f"    registers {fn}: {regs}")
             if path in mega_logs:
                 log(f"    K6 {mega_logs[path]} {fn}: {regs} registers, {stack} bytes "
+                    f"stack, {spill} bytes spill stores")
+            if path in k9_logs:
+                log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
     return smi
 
@@ -786,6 +855,13 @@ def phase1():
         kernel_checks.check_megastep(bm, N_REF_SMALL, True, 0.05, "cuda", res,
                                      adaptive=(1.0, 1e-6, 1e-3), state=bargs)
         matvec_path_checks(dtype, res)
+        # K9 at the opt-in path's shapes and plans: Burgers N = 10^6
+        # (Woodbury) and KS N = 2^20 (block-cyclic), on megatheta_state's
+        # noisy state, where a step moves u by far more than the limits
+        for eqs, case in ((BURGERS, burgers_case(N_REF)), (KS, ks_case(0.05, 0.2))):
+            model, plan, _, _ = megatheta_entry(eqs, case, "cuda", dtype, True)
+            kernel_checks.check_megatheta(model, plan.N, case[2], 1.0, "cuda", res,
+                                          plan=plan)
         if dtype == torch.float64:
             mixed_path_checks(res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
@@ -972,6 +1048,10 @@ def cpu_reference_runs(conn):
                 start = time.perf_counter()
                 u, attempts, _ = run_df64(case, "cpu", "df64")
                 out[case[0]] = (u.numpy(), attempts, time.perf_counter() - start)
+        for name, eqs, case, steps, *_ in MEGATHETA_CASES:
+            start = time.perf_counter()
+            _, u = megatheta_run(eqs, case, steps, "cpu", torch.float64, True)
+            out[name] = (u.numpy(), time.perf_counter() - start)
         # numpy, not tensors: torch would share tensors through file
         # descriptors that close with this process
         conn.send(out)
@@ -2013,6 +2093,234 @@ def phase3_df64():
             f"{megastep.MIXED_MAX_N.get(s_blk)})")
     return {"float64": times}
 
+@contextlib.contextmanager
+def megatheta_opt_in(on):
+    """``TRIFLOW_MEGATHETA=1`` (``on``) or unset, while an entry is built."""
+    old = os.environ.pop("TRIFLOW_MEGATHETA", None)
+    if on:
+        os.environ["TRIFLOW_MEGATHETA"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("TRIFLOW_MEGATHETA", None)
+        if old is not None:
+            os.environ["TRIFLOW_MEGATHETA"] = old
+
+
+def megatheta_entry(eqs, case, device, dtype, opt_in):
+    """(model, plan, step, (u, helpers, pstack, x)) of the reference's
+    theta entry on a case's grid, built with ``TRIFLOW_MEGATHETA=1``
+    (``opt_in``) or without it; ``step(u) -> u'`` is one fixed step of the
+    case's dt."""
+    fields_np, pars, dt, _, _ = case
+    N = len(fields_np["x"])
+    model = Model(*eqs, double=dtype == torch.float64, device=device)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    scheme = schemes.Theta(model, theta=1.0)
+    with megatheta_opt_in(opt_in):
+        plan, fixed = scheme.device_fixed_step_folded(N, periodic=True)
+    args = scheme._split(fields, pars_t)
+    dx = 0.5  # the cases' grid step, x = 0.5 i
+    return model, plan, (lambda u: fixed(0.0, u, *args[1:], dx, dt)[0]), args
+
+
+def megatheta_run(eqs, case, steps, device, dtype, opt_in):
+    """(plan, u after ``steps`` steps) of ``megatheta_entry``."""
+    _, plan, step, args = megatheta_entry(eqs, case, device, dtype, opt_in)
+    u = args[0]
+    for _ in range(steps):
+        u = step(u)
+    return plan, u
+
+
+def phase2_megatheta(launches):
+    """The opt-in two-pass theta step through the reference's entry
+    (``MEGATHETA_CASES``): each case with the launch counts set to 0 just
+    before it and read just after, held to its exact launches (K9's two
+    entries, K4's factor and solve with shifts once per step, the Woodbury
+    set-up once per step on a Woodbury plan, nothing else), to the same
+    entry without the opt-in on the card (K1-K4) and to the port's CPU f64
+    run of the opt-in (plain versions): on the state relative to max|u|,
+    and in the case's increment dtypes on the increment from the first
+    state (``kernel_checks.increment_error``), both to the same limit."""
+    log("phase 2: the opt-in two-pass theta step (TRIFLOW_MEGATHETA=1: K9)")
+    refs = cpu_refs()
+    for name, eqs, case, steps, wood, inc_dtypes in MEGATHETA_CASES:
+        N = len(case[0]["x"])
+        sysm = Model(*eqs, device="cpu").system
+        want = megatheta.plan_for(N, sysm.nvar, sysm.halo)
+        if want is None or want.woodbury != wood:
+            raise RuntimeError(f"{name}: plan {want}, expected woodbury={wood}")
+        u_cpu, cpu_s = refs[name]
+        u_cpu = torch.from_numpy(u_cpu)
+        for dt_name, dtype in DTYPES.items():
+            _, plan, step, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+            if plan != want:
+                raise RuntimeError(f"{name} {dt_name}: the entry took plan {plan}, "
+                                   f"not K9's {want}")
+            u = u0 = args[0]
+            torch.cuda.synchronize()
+            _launch.reset_counters()
+            start = time.perf_counter()
+            for _ in range(steps):
+                u = step(u)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            exact = dict.fromkeys(counts, 0)
+            exact.update(dict.fromkeys(K9 + ["K4.pcr_factor", "K4.pcr_solve_shift"], steps))
+            exact["K4.pcr_solve"] = steps if wood else 0
+            off = {k: counts[k] for k in counts if counts[k] != exact[k]}
+            log(f"  {name} {dt_name}: plan C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
+                f"woodbury={plan.woodbury}; launches "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; {secs:.3f} s wall (first call, build included)")
+            if off:
+                raise RuntimeError(f"{name} {dt_name}: launches {off} off {exact}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            _launch.reset_counters()
+            _, u_route = megatheta_run(eqs, case, steps, "cuda", dtype, False)
+            if any(_launch.counts()[k] for k in K9):
+                raise RuntimeError(f"{name} {dt_name}: K9 launched without the opt-in")
+            lim = 1e-10 if dtype == torch.float64 else 1e-4
+            if not bool(torch.isfinite(u).all()) or u.shape != u_cpu.shape:
+                raise RuntimeError(f"{name} {dt_name}: non-finite or misshapen")
+            refs_k = {"the entry without the opt-in on the card (K1-K4)": u_route.double().cpu(),
+                      f"the port's CPU f64 run of the opt-in ({cpu_s:.1f} s)": u_cpu}
+            got = u.double().cpu()
+            errs = []
+            for against, ref in refs_k.items():
+                err = float((got - ref).abs().max() / ref.abs().max())
+                text = f"max|du| / max|u| = {err:.3e}"
+                errs.append(err)
+                if dt_name in inc_dtypes:
+                    err = kernel_checks.increment_error(u, ref, u0, lim, name)[1]
+                    text += f", of the increment max|du| / max|u - u0| = {err:.3e}"
+                    errs.append(err)
+                log(f"    against {against}: {text} (limit {lim:.0e})")
+            if not all(e <= lim for e in errs):
+                raise RuntimeError(f"{name} {dt_name}: disagrees")
+    log("  launches over phase 2 with the opt-in: " + json.dumps(launches))
+    return launches
+
+
+def k9_work(model, plan):
+    """(bytes, operations) of K9's interface and correct entries: each reads
+    u, the helpers, the parameters and x once; the interface pass writes the
+    reduced system and its right-hand side, the correction pass reads the
+    2s interface unknowns of every chunk and writes u2.  Operations: F and
+    J at every node and, per supernode row, the band scaling and the block
+    elimination (two products, an inverse, a matrix-vector product: about
+    4 s^3 + 4 s^2), once per sweep (two sweeps each; the interface pass
+    carries a spike column in each, 2 s^3 more)."""
+    sysm, item = model.system, torch.finfo(model.dtype).bits // 8
+    N, s, C, g = plan.N, plan.s, plan.C, plan.g
+    M = N // g
+    n_in = (sysm.nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
+    evals = (expr_ops(sysm.F_exprs) + expr_ops(sysm.J_band_exprs.values())
+             + sysm.nvar) * N + 3 * s * s * M
+    elim = (4 * s ** 3 + 4 * s * s) * M
+    interface = ((n_in + (2 * (2 * s) ** 2 + 2 * s) * C) * item,
+                 2 * (evals + elim + 2 * s ** 3 * M))
+    correct = ((n_in + 2 * s * C + sysm.nvar * N) * item, 2 * (evals + elim))
+    return interface, correct
+
+
+#: the chunk-count sweep behind ``megatheta.plan_for``: (label, equations,
+#: case)
+MEGATHETA_SWEEPS = [("burgers N=10^6", BURGERS, burgers_case(N_REF)),
+                    ("ks N=2^20", KS, ks_case(0.05, 0.2))]
+
+
+def phase3_megatheta():
+    """K9 at Burgers N = 10^6 and KS N = 2^20: ms per step against the
+    K1-K4 route of the same entry without the opt-in (alternated, CUDA
+    events over 10 steps); at Burgers each step under torch.profiler and
+    each entry against its plain version and its bound; then the
+    chunk-count sweep of the K9 step at both grids with the fit of
+    ``megatheta.plan_cost_us`` it gives."""
+    log("phase 3: the opt-in two-pass theta step (CUDA events)")
+    for label, eqs, case in MEGATHETA_SWEEPS:
+        for dt_name, dtype in DTYPES.items():
+            _, plan, k9, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+            _, plan14, k14, _ = megatheta_entry(eqs, case, "cuda", dtype, False)
+            u = args[0]
+            ms = [cuda_ms(lambda: f(u), 10) for f in (k14, k9, k9, k14)]
+            log(f"  theta step {label} {dt_name}, K1-K4 (C={plan14.C}) / K9 (C={plan.C}) "
+                "/ K9 / K1-K4: " + " / ".join(f"{m:.4f}" for m in ms)
+                + " ms/step (CUDA events over 10 steps)")
+    times = {}
+    _, eqs, case, *_ = MEGATHETA_CASES[0]
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
+        model, plan, k9, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+        _, _, k14, _ = megatheta_entry(eqs, case, "cuda", dtype, False)
+        u = args[0]
+        for label, f in (("K9", k9), ("K1-K4", k14)):
+            log_profile(f"theta step burgers N=10^6 {label}", dt_name,
+                        profile_calls(lambda: f(u), 5))
+        b = model.backend
+        beta, dts = megatheta.scalars(dtype, 1.0, case[2])
+        Lred, Ured, yred = megatheta.interface(b, plan, *args, beta, dts)
+        red = pcr.pcr_factor(Lred, Ured, plan.cyclic)
+        wood = pcr.woodbury(red, Lred, Ured) if plan.woodbury else ()
+        xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+        work = k9_work(model, plan)
+        pairs = {
+            "K9.interface": (lambda: megatheta.interface(b, plan, *args, beta, dts),
+                             lambda: megatheta.interface_plain(b, plan, *args, beta, dts)),
+            "K9.correct": (lambda: megatheta.correct(b, plan, *args, beta, dts, xm1, xp1),
+                           lambda: megatheta.correct_plain(b, plan, *args, beta, dts, xm1,
+                                                           xp1)),
+        }
+        for (key, (kern, plain)), (nbytes, ops) in zip(pairs.items(), work):
+            p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
+            b_ms, b_by = bound(nbytes, ops, dtype)
+            times[dt_name][key] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+            log(f"  {key} burgers N=10^6 {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} "
+                "operations), library none (no PyTorch call does an implicit step)")
+            log_launch_us(f"{key} alone burgers N=10^6 {dt_name}", kern, key)
+    # the chunk-count sweep: ms per K9 step at every chunk count it takes
+    fit = {}
+    for label, eqs, case in MEGATHETA_SWEEPS:
+        for dt_name, dtype in DTYPES.items():
+            model, plan0, _, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+            sysm, N = model.system, plan0.N
+            M = N // plan0.g
+            row = {}
+            for C in megatheta.chunk_counts(N, sysm.nvar, sysm.halo):
+                plan = megatheta.plan_for(N, sysm.nvar, sysm.halo, C)
+                row[C] = min(cuda_ms(lambda: megatheta.theta_step(
+                    model.backend, plan, 1.0, *args, case[2]), 10) for _ in range(2))
+                fit.setdefault(plan.s, []).append((dt_name, M, C, row[C]))
+            best = min(row, key=row.get)
+            log(f"  K9 chunk sweep {label} {dt_name} (ms per step, the lower of two CUDA-event "
+                "means over 10 steps): " + "; ".join(f"C={C} Mc={M // C}: {v:.4f}"
+                                                    for C, v in row.items())
+                + f" -> fastest C={best}; plan_for's C={plan0.C} at "
+                f"{row[plan0.C] / row[best] - 1:+.2%}")
+    for s_blk, points in sorted(fit.items()):
+        # t = ROW_US Mc + SLAB_US levels slabs + an offset per dtype, least
+        # squares over both dtypes: the constants of megatheta.plan_cost_us
+        dts = sorted({dt_name for dt_name, *_ in points})
+        A = np.array([[M // C, pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
+                      + [float(dt_name == d) for d in dts] for dt_name, M, C, _ in points])
+        y = np.array([1e3 * t for *_, t in points])
+        coef, *_ = np.linalg.lstsq(A, y, rcond=None)
+        picks = []
+        for d in dts:
+            rows = [(C, M, t) for dt_name, M, C, t in points if dt_name == d]
+            pick = min(rows, key=lambda r: (coef[0] * (r[1] // r[0]) + coef[1] * pcr.n_levels(
+                r[0]) * -(-r[0] // pcr.BLOCK_THREADS), r[0]))
+            best = min(rows, key=lambda r: r[2])
+            picks.append(f"{d}: the fit picks C={pick[0]}, fastest C={best[0]}")
+        log(f"  K9 cost fit s={s_blk}: ROW_US = {coef[0]:.3f}, SLAB_US = {coef[1]:.3f} "
+            f"(megatheta's {megatheta.ROW_US[s_blk]}, {megatheta.SLAB_US[s_blk]}); "
+            + "; ".join(picks))
+    return times
+
 
 def timed(fn, *args):
     start = time.perf_counter()
@@ -2036,8 +2344,10 @@ def run():
     smi = timed(phase0)
     errs = timed(phase1)
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
+    launches = timed(phase2_megatheta, launches)
     times = timed(phase3)
-    for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64)):
+    for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
+                 timed(phase3_megatheta)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

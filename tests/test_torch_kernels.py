@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from triflow_tpu_torch import Model, schemes
-from triflow_tpu_torch.ops import (_launch, chunked, kernel_checks, megastep, mixed,
-                                   pcr, thomas)
+from triflow_tpu_torch.ops import (_launch, chunked, kernel_checks, megastep,
+                                   megatheta, mixed, pcr, thomas)
 
 torch.set_num_threads(1)
 
@@ -82,16 +82,18 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     """One fixed RODASPR step: one J and one factor, six biased F and six
     solves, and five stage combinations plus the final one; a block-cyclic
     plan has no Woodbury set-up, one grid no fused stage right-hand side
-    (an ensemble's), a step without ``refine=`` no matvec, and a float64
-    model no mixed-solve residual (the df64 mode's K8)."""
+    (an ensemble's), a step without ``refine=`` no matvec, a float64
+    model no mixed-solve residual (the df64 mode's K8), and a step of
+    ``Simulation``'s schemes never the opt-in two-pass theta step (K9)."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
-               if not k.startswith("K6")
+               if not k.startswith(("K6", "K9"))
                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual"))
+    assert counts["K9.interface"] == counts["K9.correct"] == 0
     assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == counts["K7.matvec"] == 0
     assert counts["K8.residual"] == 0
     assert counts["K1.J"] == counts["K2.spike_factor"] == 1
@@ -311,6 +313,55 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         megastep.step_mixed(model.backend, megastep.make_plan(64, 1, 1, True),
                             table, True, *args, -0.1, 0.1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megatheta_kernels_match_plain_versions(cuda_device, dtype):
+    """K9's interface and correct entries and its whole step against their
+    plain versions (s = 1 and 2; Woodbury and block-cyclic rings; Mc up to
+    MAX_MC), and the plain step against the plain K1-K4 step."""
+    results = kernel_checks.check_all_megathetas(cuda_device, dtype)
+    assert {"K9.interface", "K9.correct", "K9 step"} <= set(results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,wood", [(30000, True), (1 << 15, False)],
+                         ids=["woodbury", "block-cyclic"])
+def test_megatheta_entry_launches_k9_twice_per_step(cuda_device, monkeypatch, N, wood):
+    """Theta's ``device_fixed_step_folded`` with ``TRIFLOW_MEGATHETA=1``: one
+    step is K9.interface, K4's factor (the Woodbury set-up on a Woodbury
+    plan) and solve with shifts, K9.correct, and nothing else; without the
+    variable it is the K1-K4 step, and it agrees with the K9 step."""
+    model, fields, pars = _burgers_on(cuda_device, N=N)
+    scheme = schemes.Theta(model)
+    args = scheme._split(fields, pars)
+    monkeypatch.setenv("TRIFLOW_MEGATHETA", "1")
+    plan, fixed = scheme.device_fixed_step_folded(N)
+    assert plan.woodbury is wood and plan == megatheta.plan_for(N, 1, 1)
+    _launch.reset_counters()
+    u9 = fixed(0.0, *args, 0.5, 0.05)[0]
+    counts = _launch.counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({"K9.interface": 1, "K9.correct": 1, "K4.pcr_factor": 1,
+                 "K4.pcr_solve_shift": 1, "K4.pcr_solve": int(wood)})
+    assert counts == want
+    monkeypatch.delenv("TRIFLOW_MEGATHETA")
+    _, default = scheme.device_fixed_step_folded(N)
+    _launch.reset_counters()
+    u = default(0.0, *args, 0.5, 0.05)[0]
+    assert _launch.counts()["K9.interface"] == 0
+    assert (u9 - u).abs().max() <= 1e-10 * u.abs().max()
+
+
+def test_megatheta_check_harness_on_cpu():
+    """K9's checks on CPU tensors: plain against plain, nothing launched."""
+    before = _launch.counts()
+    results = kernel_checks.check_all_megathetas("cpu", torch.float64)
+    assert results["K9.interface"] == results["K9.correct"] == 0.0
+    assert results["K9 plain step against K1-K4's"] < 1e-12
+    assert _launch.counts() == before
 
 
 #: the kernel entries the member-axis checks hold against plain versions

@@ -28,7 +28,7 @@ import torch
 from sympy import Symbol
 from sympy.printing.pytorch import TorchPrinter
 
-from ..ops import stencil
+from ..ops import megatheta, stencil
 from .symbolic import DiscreteSystem, offset_symbol
 
 
@@ -150,13 +150,16 @@ class TorchBackend:
         self._F_fns = [lambdify(e) for e in system.F_exprs]
         self._J_fns = {key: lambdify(e)
                        for key, e in system.J_band_exprs.items()}
-        #: the model's K1 and K6 libraries (generated CUDA sources for its
-        #: dtype, built at first use), and the library of K6's mixed entry,
-        #: which only the df64 mode's mixed solve launches (float64)
+        #: the model's K1, K6 and K9 libraries (generated CUDA sources for
+        #: its dtype, built at first use), and the library of K6's mixed
+        #: entry, which only the df64 mode's mixed solve launches (float64)
         self.stencil = stencil.library(system, self.args_symbols,
                                        dtype=dtype)
         self.megastep = stencil.library(system, self.args_symbols,
                                         "megastep.cu", dtype)
+        self.megatheta = stencil.library(
+            system, self.args_symbols, "megatheta.cu", dtype,
+            defines={"TF_MAX_MC": megatheta.MAX_MC})
         self.megastep_mixed = stencil.library(system, self.args_symbols,
                                               "megastep.cu", dtype, True)
 

@@ -37,6 +37,12 @@ quantity (t, dt, err, the new dt) is a numpy scalar (or a kernel value) of
 the model's dtype, so a float32 run takes the decisions the float32
 reference takes in ``u.dtype``.
 
+``device_fixed_step_folded`` is the reference's entry for a caller that
+steps on its own (its benchmark's loop): a fixed step with no hook, in the
+node layout.  For Theta, ``TRIFLOW_MEGATHETA`` opts into the two-pass
+step of kernel K9 (``ops/megatheta.py``) on a periodic grid it admits, as
+in the reference; ``Simulation`` and ``fixed_step`` never take K9.
+
 A ``double="df64"`` model (the reference's double-float mode) computes in
 native float64: its state, F, J, stage vectors and residuals are float64
 tensors, and its full solver (``df64_mixed_solve=None`` or 0) is the
@@ -58,7 +64,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chunked, megastep, mixed
+from ..ops import chunked, megastep, megatheta, mixed
 from ..ops.banded import axpy_bands
 from ..ops.combine import combine
 from ..ops.matvec import banded_matvec
@@ -357,6 +363,41 @@ class Theta(_SchemeBase):
 
         return None if plan is None and mplan is None else scan
 
+    def device_fixed_step_folded(self, N, periodic=True):
+        """``(plan, fixed_f)`` with ``fixed_f(t, u, helpers, pstack, x, dx,
+        dt) -> (u', err)``: one theta step of ``dt`` (no hook; err a zero
+        0-d tensor), or None with theta = 0, a custom solver or the df64
+        mode, as the reference's entry.  The state stays in the node
+        layout (the port has no folded one) and the kernels derive the
+        grid step from x, so ``dx`` is taken and not read.
+
+        ``TRIFLOW_MEGATHETA`` (set, and ``TRIFLOW_NO_MEGATHETA`` not, when
+        the entry is built) opts into the two-pass step of kernel K9
+        (``ops/megatheta.py``) where ``megatheta.applicable`` holds: its
+        plan, then K9.interface, K4 and K9.correct per step.  Otherwise
+        ``fixed_f`` is the step ``fixed_step`` takes (K6 where its plan
+        admits the grid, else K1-K4) and ``plan`` its chunk plan."""
+        if self._theta == 0 or self._solver is not None or self._df64:
+            return None
+        model, theta = self._model, self._theta
+        zero = torch.zeros((), dtype=model.dtype, device=model.device)
+        if megatheta.opted_in():
+            plan = megatheta.plan_for(N, model.system.nvar, model.halo)
+            if megatheta.applicable(model, plan, periodic):
+                def fixed_t(t, u, helpers, pstack, x, dx, dt):
+                    return megatheta.theta_step(
+                        model.backend, plan, theta, u, helpers, pstack, x,
+                        self._step_dt(dt)), zero
+
+                return plan, fixed_t
+        problem = self._problem(null_hook, periodic)
+        plan = self._mega_plan(N, periodic) or self._plan(N, periodic)
+
+        def fixed_f(t, u, helpers, pstack, x, dx, dt):
+            return self.fixed_step(problem, t, u, helpers, pstack, x, dt)[0], zero
+
+        return plan, fixed_f
+
     def __call__(self, t, fields, dt, pars, hook=null_hook):
         problem = self._problem(hook, bool(pars.get("periodic", False)))
         u, helpers, pstack, x = self._split(fields, pars)
@@ -582,6 +623,27 @@ class ROW_general(_SchemeBase):
                                            nsteps)[0]
 
         return None if plan is None and mplan is None else scan
+
+    def device_fixed_step_folded(self, N, periodic=True):
+        """``(plan, fixed_f)`` with ``fixed_f(t, u, helpers, pstack, x, dx,
+        dt) -> (u', err)``: one ROW step of ``dt`` with no hook, the step
+        ``fixed_step`` takes, ``plan`` its chunk plan (K6's or K1-K5's);
+        None in the df64 mode, as the reference's entry.  With neither a
+        tolerance nor time stepping the final combination emits u' alone
+        and err is inf (the reference's single-output table).  The state
+        stays in the node layout and ``dx`` is taken and not read, as
+        ``Theta.device_fixed_step_folded``'s."""
+        if self._df64:
+            return None
+        problem = self._problem(null_hook, periodic)
+        plan = self._mega_plan(N, periodic) or self._plan(N, periodic)
+
+        def fixed_f(t, u, helpers, pstack, x, dx, dt):
+            u2, _, _, _, err = self.fixed_step(problem, t, u, helpers, pstack,
+                                               x, dt)
+            return u2, err
+
+        return plan, fixed_f
 
     def _adaptive(self, problem, t, u, helpers, pstack, x, dt, internal_dt):
         """Advance from ``t`` to ``t + dt`` through accepted attempts (the

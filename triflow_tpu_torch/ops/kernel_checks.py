@@ -47,6 +47,12 @@ step (on the CPU: 2.7e-10 relative for Theta on the README grid at dt =
 0.0625).  Its ``nsteps = 3`` launch is held bit for bit to three
 launches.
 
+K9 (the two-pass theta step) is held to the solver tolerances: each
+entry against its plain version on the same inputs (the correction pass
+on the plain interface solve's unknowns), the whole K9 step against its
+plain version, and the plain step against the plain K1-K4 step (K2's
+factor, K3's sweep and correction that adds the state) on the same plan.
+
 The member axis (``run_batched``): K1's F, F_terms and J, K2-K4 and K6's
 entries on B = 4 members with per-member parameters, shifts and scales,
 against their plain versions at the same tolerances; K6's adaptive entries
@@ -60,7 +66,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import chunked, combine, matvec, megastep, mixed, pcr, stencil, thomas
+from . import (chunked, combine, matvec, megastep, megatheta, mixed, pcr,
+               stencil, thomas)
 
 TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10, "combine": 1e-15,
                        "dt": 1e-8},
@@ -102,6 +109,36 @@ def _record(results, name, got, want, tol, what, scale=None):
         raise CheckFailed(f"{name} {what}: relative error {rel:.3e} > {tol:.0e}")
     prev = results.get(name, 0.0)
     results[name] = max(prev, abs_err)
+
+
+#: a step's result is held on its increment only where one ulp of the state
+#: is at most this share of the limit on the increment; below that, the
+#: state's rounding hides a wrong increment
+RESOLVED_SHARE = 0.25
+
+
+def increment_error(got, want, u0, tol, what):
+    """(max abs error, max abs error relative to max|want - u0|): a step's
+    result (or that of several steps) ``got`` against ``want``, held on the
+    increment it makes from u0.  Raises CheckFailed where one ulp of
+    max|u0| in got's dtype exceeds ``RESOLVED_SHARE * tol`` of that
+    increment: there no limit ``tol`` could fail a wrong increment."""
+    eps = torch.finfo(got.dtype).eps
+    got, want, u0 = (a.double().cpu() for a in (got, want, u0))
+    inc = float((want - u0).abs().max())
+    ulp = eps * float(u0.abs().max())
+    if not ulp <= RESOLVED_SHARE * tol * inc:
+        raise CheckFailed(f"{what}: the increment max|du| = {inc:.3e} is within "
+                          f"{ulp / inc:.1e} of the state's ulp, too small to be held "
+                          f"to {tol:.0e}")
+    return _err(got - u0, want - u0, inc)
+
+
+def _record_step(results, name, got, want, u0, tol, what):
+    abs_err, rel = increment_error(got, want, u0, tol, f"{name} {what}")
+    if not rel <= tol:
+        raise CheckFailed(f"{name} {what}: error {rel:.3e} of the increment > {tol:.0e}")
+    results[name] = max(results.get(name, 0.0), abs_err)
 
 
 def check_stencil(model, N, periodic, device, seed=0, results=None):
@@ -598,6 +635,89 @@ def check_all_megasteps(device, dtype, results=None):
     return results
 
 
+def megatheta_state(model, N, device, seed=0):
+    """(u, helpers, pstack, x) of the K9 checks: the reference benchmark's
+    Burgers grid (x = 0.5 i, cos(8 pi i / N), nu = 0.5; KS takes the same
+    x and u) with noise of 0.05 from ``seed``."""
+    b = model.backend
+    sysm = b.system
+    i = np.arange(N)
+    u = (np.cos(2 * np.pi * i / N * 4)
+         + 0.05 * np.random.default_rng(seed).standard_normal(N))[None]
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=b.dtype, device=device)
+
+    return (t(u), t(np.zeros((len(sysm.help_funcs), N))),
+            t(np.full((len(sysm.pars), N), 0.5)), t(0.5 * i))
+
+
+def check_megatheta(model, N, dt, theta, device, results=None, plan=None):
+    """K9's interface and correct entries and its whole step (with K4)
+    against their plain versions, and its plain step against the plain
+    K1-K4 step, on ``plan`` (default ``megatheta.plan_for``) of a periodic
+    grid at ``megatheta_state``; the steps are held on the increment they
+    make (``increment_error``)."""
+    results = {} if results is None else results
+    b = model.backend
+    sysm = b.system
+    tol = TOL[b.dtype]["solve"]
+    if plan is None:
+        plan = megatheta.plan_for(N, sysm.nvar, sysm.halo)
+    what = (f"N={N} s={plan.s} C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury} theta={theta} {b.dtype}")
+    args = megatheta_state(model, N, device)
+    u = args[0]
+    beta, dts = megatheta.scalars(b.dtype, theta, dt)
+    got = megatheta.interface(b, plan, *args, beta, dts)
+    want = megatheta.interface_plain(b, plan, *args, beta, dts)
+    for g, w in zip(got, want):
+        _record(results, "K9.interface", g, w, tol, what)
+    Lred, Ured, yred = want
+    red = pcr.pcr_factor_plain(Lred, Ured, plan.cyclic)
+    wood = pcr.woodbury_plain(red, Lred, Ured) if plan.woodbury else ()
+    shifts = pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood)
+    _record_step(results, "K9.correct",
+                 megatheta.correct(b, plan, *args, beta, dts, *shifts),
+                 megatheta.correct_plain(b, plan, *args, beta, dts, *shifts), u,
+                 tol, what)
+    plain = megatheta.step_plain(b, plan, theta, *args, dt)
+    _record_step(results, "K9 step", megatheta.theta_step(b, plan, theta, *args, dt),
+                 plain, u, tol, what)
+    # the K1-K4 route's plain step on the same plan
+    solve = megastep._plain_solver(b.J_bands_impl(*args, periodic=True), beta,
+                                   plan, True, None)
+    _record_step(results, "K9 plain step against K1-K4's", plain,
+                 u + solve(stencil.eval_F_plain(b, *args, True, dts)), u, tol,
+                 what)
+    return results
+
+
+#: (model, N, chunk count or None for plan_for's, dt, theta) of K9's
+#: small-shape checks: block sizes 1 and 2, Woodbury (C = 50, 300, 2) and
+#: block-cyclic (C = 256, 64) rings, chunks that are no multiple of the
+#: warp, and the most rows a chunk takes (Mc = megatheta.MAX_MC = 1024)
+MEGATHETA_CASES = [("burgers", 1000, None, 0.05, 1.0),
+                   ("burgers", 4096, None, 0.05, 0.5),
+                   ("burgers", 2048, 2, 0.05, 1.0),
+                   ("ks", 1200, 300, 0.05, 1.0),
+                   ("ks", 4096, None, 0.05, 1.0),
+                   ("ks", 4096, 2, 0.01, 0.5)]
+
+
+def check_all_megathetas(device, dtype, results=None):
+    from ..core.model import Model
+
+    results = {} if results is None else results
+    for name, N, C, dt, theta in MEGATHETA_CASES:
+        model = Model(*STENCIL_MODELS[name], double=dtype == torch.float64,
+                      device=device)
+        sysm = model.system
+        plan = megatheta.plan_for(N, sysm.nvar, sysm.halo, C)
+        check_megatheta(model, N, dt, theta, device, results, plan)
+    return results
+
+
 #: (W, nvar, N, periodic): block sizes 1, 2 and 4, acyclic, and rings
 #: closed block-cyclic (power-of-two plans) and by the Woodbury correction
 #: (plans of 125, 4, 120 and 30 chunks)
@@ -628,6 +748,7 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         check_all_combines(device, dtype, results)
         check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
+        check_all_megathetas(device, dtype, results)
         if dtype == torch.float64:
             check_all_mixed(device, results)
         out[str(dtype).replace("torch.", "")] = results

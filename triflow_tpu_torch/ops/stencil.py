@@ -123,12 +123,13 @@ class KernelPrinter(C99CodePrinter):
 
 
 def generate_source(system, args_symbols, template="stencil.cu",
-                    dtype=torch.float64, mixed=False) -> str:
-    """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu`` or
-    K6's ``megastep.cu``) with the constants and the expression bodies of
-    ``system`` spliced in, and the entries of the model's ``dtype`` only
-    (the one it computes in: half the build of both); ``mixed``: K6's
-    mixed entry alone (float64)."""
+                    dtype=torch.float64, mixed=False, defines=None) -> str:
+    """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu``,
+    K6's ``megastep.cu`` or K9's ``megatheta.cu``) with the constants and
+    the expression bodies of ``system`` spliced in, and the entries of the
+    model's ``dtype`` only (the one it computes in: half the build of
+    both); ``mixed``: K6's mixed entry alone (float64); ``defines``: more
+    constants {name: value} of the template, owned by its Python module."""
     printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
     nvar = system.nvar
     lines = [
@@ -139,6 +140,7 @@ def generate_source(system, args_symbols, template="stencil.cu",
         f"#define TF_NPAR {len(system.pars)}",
         f"#define TF_H {system.halo}",
         f"#define TF_NARGS {len(args_symbols)}",
+        *(f"#define {k} {v}" for k, v in (defines or {}).items()),
         "template <typename T>",
         "__device__ __forceinline__ void tf_F(const T* a, T* f) {",
     ]
@@ -160,13 +162,14 @@ BARE_LITERAL = re.compile(
 
 
 def library(system, args_symbols, template="stencil.cu",
-            dtype=torch.float64, mixed=False) -> _build.Library:
+            dtype=torch.float64, mixed=False, defines=None) -> _build.Library:
     """The model's K1 library (or, with ``template="megastep.cu"``, its K6
-    library; with ``mixed`` too, its library of K6's mixed entry) for
-    ``dtype``, generated and built at its first launch."""
+    library; with ``mixed`` too, its library of K6's mixed entry; with
+    ``template="megatheta.cu"``, its K9 library) for ``dtype``, generated
+    and built at its first launch."""
     name = template.split(".")[0] + ("_mixed" if mixed else "")
     return _build.Library(name, lambda: generate_source(
-        system, args_symbols, template, dtype, mixed))
+        system, args_symbols, template, dtype, mixed, defines))
 
 
 def _kernel_inputs(backend, u, helpers, pstack, x):
