@@ -129,10 +129,27 @@ K1-K4 route (alternated, with profiles), K9's entries against their plain
 versions and bound, and the chunk-count sweep behind
 ``megatheta.plan_for``.
 
+Block sizes S = 5..8 (K2-K4's wide libraries, ``csrc/*.cu`` built with
+TF_WIDE) run in each phase too: phase 0 builds them and the falling film's
+K1 and prints every wide instantiation's registers and spills; phase 1
+(``phase1_film``) holds K2-K4 at S = 5..8 against their plain versions in
+both dtypes (``kernel_checks.run_wide``: random bands on block-cyclic,
+Woodbury and acyclic plans, and B = 4 members at S = 6 and 8), on the
+film's own path at N = 10^6 and 2^20, and in float32 on the bands the df64
+mixed solve rounds; phase 2 (``phase2_film``) runs the three-field falling
+film (S = 6, ``FILM``) through ``Simulation``'s defaults at N = 10^6
+(tol 1e-4, 3 output steps of 0.5, against the CPU run at N = 10^4 tiled)
+and through fixed RODASPR and Theta steps at N = 10^6 and 2^20, with exact
+launches of K1, K5 and the wide entries; phase 3 (``phase3_film``) times
+its steps, profiles them, holds each wide entry against its plain version
+and bound, and sweeps the chunk count behind ``chunked.WIDE_ROW_US`` /
+``WIDE_PASS_US``.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
-N = 10^6, K9 at Burgers N = 10^6, the others at KS N = 2^20; K8 and K6's
+N = 10^6, K9 at Burgers N = 10^6, K2-K4's wide entries at the film's N =
+10^6, the others at KS N = 2^20; K8 and K6's
 mixed entry have one type pair, their main keys the float64 column and
 null float32 keys), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -223,20 +240,38 @@ KERNELS = {
                      "triflow_tpu/ops/megatheta.py:284 theta_step_tiled (kernel_a)"),
     "K9.correct": ("cuda", "triflow_tpu_torch/csrc/megatheta.cu",
                    "triflow_tpu/ops/megatheta.py:284 theta_step_tiled (kernel_b)"),
+    # K2-K4 at block sizes s = 5..8: the same sources built with TF_WIDE
+    "K2.spike_factor_wide": ("cuda", "triflow_tpu_torch/csrc/spike_factor.cu",
+                             "triflow_tpu/ops/pallas_thomas.py:368 chunked_factor_sweeps + "
+                             ":451 fused_factor_sweeps"),
+    "K3.thomas_sweep_wide": ("cuda", "triflow_tpu_torch/csrc/spike_solve.cu",
+                             "triflow_tpu/ops/pallas_thomas.py:729 chunked_solve_flat"),
+    "K3.spike_correct_wide": ("cuda", "triflow_tpu_torch/csrc/spike_solve.cu",
+                              "triflow_tpu/ops/pallas_thomas.py:729 chunked_solve_flat "
+                              "(spike correction of triflow_tpu/ops/folded.py:1478)"),
+    "K4.pcr_factor_wide": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                           "triflow_tpu/ops/pallas_pcr.py:246 pcr_factor_fused_sub"),
+    "K4.pcr_solve_shift_wide": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                                "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
+    "K4.pcr_solve_wide": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                          "triflow_tpu/ops/pallas_pcr.py:408 pcr_solve_fused_sub"),
 }
+#: the wide instantiations of K2-K4 (block sizes 5..8), which count apart
+WIDE = [k for k in KERNELS if k.endswith("_wide")]
 #: the kernel entries of the df64 mode's mixed solve: float64 operands only
 DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
 #: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
 #: K7.matvec
-MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9"))
+MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9")) and k not in WIDE
                 and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 K7 = ["K7.matvec"]
 
 #: substrings of the device kernels' names in a profiler trace
-TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J": "K1.J", "spike_factor": "K2.spike_factor",
+TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J": "K1.J",
+               "spike_factor_wide": "K2.spike_factor_wide", "spike_factor": "K2.spike_factor",
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
@@ -663,7 +698,10 @@ def phase0():
     models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
               for d in (True, False)]
     jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
-                                 combine.LIB, matvec.LIB, mixed.LIB)]
+                                 combine.LIB, matvec.LIB, mixed.LIB, thomas.FACTOR_WIDE_LIB,
+                                 thomas.SOLVE_WIDE_LIB, pcr.WIDE_LIB)]
+    # the falling film's K1 (S = 6), both dtypes
+    jobs += [Model(*FILM, double=d).backend.stencil.load for d in (True, False)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     jobs += [b.megastep_mixed.load for b in models[::2]]
     # K9 for Burgers (s = 1) and KS (s = 2), both dtypes
@@ -704,6 +742,13 @@ def phase0():
             if path in k9_logs:
                 log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
+            # the wide instantiations: kernel<type, S, flags...>
+            wide = re.search(r"([a-z][a-z_]*_kernel)I([df])Li(\d+)E((?:Lb[01]E)*)", fn or "")
+            if "_wide-" in path.name and wide:
+                name, typ, size, flags = wide.groups()
+                log(f"    wide {name}<{'double' if typ == 'd' else 'float'}, {size}"
+                    + "".join(f", {f}" for f in re.findall(r"Lb([01])E", flags))
+                    + f">: {regs} registers, {stack} bytes stack, {spill} bytes spill stores")
     return smi
 
 
@@ -1065,32 +1110,38 @@ _CPU = {}
 
 
 def start_cpu_refs():
+    """Start the CPU f64 runs, in two processes of their own: phase 2's
+    cases (``cpu_reference_runs``) and the falling film's
+    (``film_cpu_runs``)."""
     ctx = multiprocessing.get_context("spawn")
-    mine, theirs = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=cpu_reference_runs, args=(theirs,))
-    proc.start()
-    theirs.close()
-    _CPU.update(conn=mine, proc=proc)
+    for key, target in (("main", cpu_reference_runs), ("film", film_cpu_runs)):
+        mine, theirs = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=target, args=(theirs,))
+        proc.start()
+        theirs.close()
+        _CPU[key] = dict(conn=mine, proc=proc)
 
 
-def cpu_refs():
+def cpu_refs(key="main"):
     """The CPU runs' results, waiting for them the first time."""
-    if "refs" not in _CPU:
+    slot = _CPU[key]
+    if "refs" not in slot:
         start = time.perf_counter()
-        refs = _CPU["conn"].recv()
-        _CPU["proc"].join()
+        refs = slot["conn"].recv()
+        slot["proc"].join()
         if isinstance(refs, tuple):
-            raise RuntimeError(f"the CPU reference runs failed:\n{refs[1]}")
-        _CPU["refs"] = refs
-        log(f"  (waited {time.perf_counter() - start:.1f} s for the CPU f64 runs)")
-    return _CPU["refs"]
+            raise RuntimeError(f"the CPU reference runs ({key}) failed:\n{refs[1]}")
+        slot["refs"] = refs
+        log(f"  (waited {time.perf_counter() - start:.1f} s for the CPU f64 runs, {key})")
+    return slot["refs"]
 
 
 def stop_cpu_refs():
-    proc = _CPU.get("proc")
-    if proc is not None and proc.is_alive():
-        proc.terminate()
-        proc.join()
+    for slot in _CPU.values():
+        proc = slot["proc"]
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
 
 
 def member_runs(B, N, seed, waves, dtype, kwargs, calls):
@@ -1213,44 +1264,97 @@ def banded_csr(bands, periodic, scale):
         return coo.coalesce().to_sparse_csr()
 
 
+def solver_pairs(bands, gdt, plan, rhs):
+    """(kernel entry -> (kernel call, plain call, bytes, operations, None),
+    the solution) of K2-K4 on one grid's J bands, the factor of I - gdt J
+    and the solve of ``rhs``, each entry on the inputs the chunked solve
+    gives it; on a Woodbury plan also K4.pcr_solve (the set-up) and, timed
+    beside the corrected solve, K4.pcr_solve_shift without the correction.
+    Entries are named by the plan's block size
+    (``kernel_checks.solver_entry``)."""
+    W, nvar, _, N = bands.shape
+    item = bands.element_size()
+    s, C, Mc, nlev = plan.s, plan.C, plan.Mc, pcr.n_levels(plan.C)
+    s2, M = 2 * s, plan.M
+
+    def n(name):
+        return kernel_checks.solver_entry(name, s)
+
+    sp_ = thomas.spike_factor(bands, 1.0, -gdt, plan)
+    red = pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic)
+    wood = pcr.woodbury(red, sp_.Lred, sp_.Ured) if plan.woodbury else ()
+    y, yred = thomas.thomas_sweep(sp_, rhs, plan)
+    xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+    k = thomas.spike_correct(sp_, y, xm1, xp1, plan)
+    blk = s * s * C
+    red_bytes = (2 * nlev + 1) * s2 * s2 * C
+    # the Woodbury correction reads Z's entries at the 2s shifted rows of
+    # every chunk and the capacitance inverse
+    wood_bytes = (s2 * s2 * C + s2 * s2) if plan.woodbury else 0
+    pairs = {
+        # rows: a block inverse and three block products per supernode row
+        n("K2.spike_factor"): (lambda: thomas.spike_factor(bands, 1.0, -gdt, plan),
+                               lambda: thomas.spike_factor_plain(bands, 1.0, -gdt, plan),
+                               (W * nvar * nvar * N + 5 * Mc * blk
+                                + 2 * s2 ** 2 * C) * item, 8 * s ** 3 * M, None),
+        n("K3.thomas_sweep"): (lambda: thomas.thomas_sweep(sp_, rhs, plan),
+                               lambda: thomas.thomas_sweep_plain(sp_, rhs, plan),
+                               (3 * Mc * blk + 2 * nvar * N + 2 * s * C) * item,
+                               6 * s * s * M, None),
+        n("K4.pcr_factor"): (lambda: pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic),
+                             lambda: pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, plan.cyclic),
+                             (2 * s2 ** 2 * C + red_bytes) * item, 12 * s2 ** 3 * C * nlev,
+                             None),
+        n("K4.pcr_solve_shift"): (lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                                  lambda: pcr.pcr_solve_shift_plain(red, yred, plan.wrap,
+                                                                    *wood),
+                                  (red_bytes + wood_bytes + 4 * s * C) * item,
+                                  4 * s2 ** 2 * C * nlev + (4 * s * s2 * C if wood else 0),
+                                  None),
+        n("K3.spike_correct"): (lambda: thomas.spike_correct(sp_, y, xm1, xp1, plan),
+                                lambda: thomas.spike_correct_plain(sp_, y, xm1, xp1, plan),
+                                (2 * nvar * N + 2 * Mc * blk + 2 * s * C) * item,
+                                4 * s * nvar * N, None),
+    }
+    if plan.woodbury:
+        # the set-up: 2s columns through every level and Dinv, the
+        # capacitance's Gauss-Jordan; reads the factor and two corner
+        # blocks, writes Z and cap_inv
+        pairs[n("K4.pcr_solve")] = (
+            lambda: pcr.woodbury(red, sp_.Lred, sp_.Ured),
+            lambda: pcr.woodbury_plain(red, sp_.Lred, sp_.Ured),
+            (red_bytes + 2 * s2 * s + s2 * s2 * C + s2 * s2) * item,
+            s2 * C * (4 * s2 * s2 * nlev + 2 * s2 * s2) + 2 * s2 ** 3, None)
+        pairs[n("K4.pcr_solve_shift") + " without the correction"] = (
+            lambda: pcr.pcr_solve_shift(red, yred, True),
+            lambda: pcr.pcr_solve_shift_plain(red, yred, True),
+            (red_bytes + 4 * s * C) * item, 4 * s2 ** 2 * C * nlev, None)
+    return pairs, k
+
+
 def ks_pairs(dtype, N=N_BIG):
     """Kernel entry -> (kernel call, plain call, bytes, operations, library
     call or None), on the inputs of the first fixed RODASPR step of KS at
-    N (g00 dt = 0.0125); on a Woodbury plan with K4.pcr_solve (the set-up)
-    and, timed beside the corrected solve, K4.pcr_solve_shift without the
-    correction."""
+    N (g00 dt = 0.0125); K2-K4 as ``solver_pairs`` gives them."""
     model, _, _, (u, helpers, pstack, x), dt = path_inputs(KS, ks_case(0.05, 0.2, N), dtype)
     b, sysm = model.backend, model.system
     item = torch.finfo(dtype).bits // 8
     rows, g00 = rodaspr_rows()
     gdt = g00 * dt
     plan = chunked.make_plan(N, 1, 2, True)
-    s, C, Mc, W, nlev = plan.s, plan.C, plan.Mc, plan.W, pcr.n_levels(plan.C)
-    s2 = 2 * s
-    M = N // plan.g
-    nvar = sysm.nvar
+    W, nvar = plan.W, sysm.nvar
     n_in = (nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
     rng = np.random.default_rng(2)
     bias = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device="cuda")
     bands = b.J_bands(u, helpers, pstack, x, periodic=True)
-    sp_ = thomas.spike_factor(bands, 1.0, -gdt, plan)
-    red = pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic)
-    wood = pcr.woodbury(red, sp_.Lred, sp_.Ured) if plan.woodbury else ()
     rhs = b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias)
-    y, yred = thomas.thomas_sweep(sp_, rhs, plan)
-    xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
-    k = thomas.spike_correct(sp_, y, xm1, xp1, plan)
+    solver, k = solver_pairs(bands, gdt, plan, rhs)
     csr = banded_csr(bands, True, gdt)
     arrays = [u] + [torch.tensor(rng.standard_normal((nvar, N)) * 1e-3, dtype=dtype,
                                  device="cuda") for _ in range(6)]
     A, R = len(arrays), len(rows)
     coefs = torch.tensor(rows, dtype=dtype, device="cuda")
     stacked = torch.stack(arrays).view(A, -1)
-    blk = s * s * C
-    red_bytes = (2 * nlev + 1) * s2 * s2 * C
-    # the Woodbury correction reads Z's entries at the 2s shifted rows of
-    # every chunk and the capacitance inverse
-    wood_bytes = (s2 * s2 * C + s2 * s2) if plan.woodbury else 0
     pairs = {
         "K1.F": (lambda: b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias),
                  lambda: stencil.eval_F_plain(b, u, helpers, pstack, x, True, gdt, bias),
@@ -1260,28 +1364,7 @@ def ks_pairs(dtype, N=N_BIG):
                  lambda: b.J_bands_impl(u, helpers, pstack, x, periodic=True),
                  (n_in + W * nvar * nvar * N) * item,
                  expr_ops(sysm.J_band_exprs.values()) * N, None),
-        # rows: a block inverse and three block products per supernode row
-        "K2.spike_factor": (lambda: thomas.spike_factor(bands, 1.0, -gdt, plan),
-                            lambda: thomas.spike_factor_plain(bands, 1.0, -gdt, plan),
-                            (W * nvar * nvar * N + 5 * Mc * blk
-                             + 2 * s2 ** 2 * C) * item, 8 * s ** 3 * M, None),
-        "K3.thomas_sweep": (lambda: thomas.thomas_sweep(sp_, rhs, plan),
-                            lambda: thomas.thomas_sweep_plain(sp_, rhs, plan),
-                            (3 * Mc * blk + 2 * nvar * N + 2 * s * C) * item,
-                            6 * s * s * M, None),
-        "K4.pcr_factor": (lambda: pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic),
-                          lambda: pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, plan.cyclic),
-                          (2 * s2 ** 2 * C + red_bytes) * item, 12 * s2 ** 3 * C * nlev,
-                          None),
-        "K4.pcr_solve_shift": (lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
-                               lambda: pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood),
-                               (red_bytes + wood_bytes + 4 * s * C) * item,
-                               4 * s2 ** 2 * C * nlev + (4 * s * s2 * C if wood else 0),
-                               None),
-        "K3.spike_correct": (lambda: thomas.spike_correct(sp_, y, xm1, xp1, plan),
-                             lambda: thomas.spike_correct_plain(sp_, y, xm1, xp1, plan),
-                             (2 * nvar * N + 2 * Mc * blk + 2 * s * C) * item,
-                             4 * s * nvar * N, None),
+        **{name: pair for name, pair in solver.items() if name in KERNELS},
         "K5.combine": (lambda: combine.combine(rows, arrays),
                        lambda: combine.combine_plain(rows, arrays),
                        (A + R) * nvar * N * item, 2 * A * R * nvar * N,
@@ -1293,20 +1376,8 @@ def ks_pairs(dtype, N=N_BIG):
                       (W * nvar * nvar * N + 2 * nvar * N) * item,
                       (2 * W * nvar + 1) * nvar * N,
                       lambda: torch.mv(csr, k.view(-1))),
+        **{name: pair for name, pair in solver.items() if name not in KERNELS},
     }
-    if plan.woodbury:
-        # the set-up: 2s columns through every level and Dinv, the
-        # capacitance's Gauss-Jordan; reads the factor and two corner
-        # blocks, writes Z and cap_inv
-        pairs["K4.pcr_solve"] = (
-            lambda: pcr.woodbury(red, sp_.Lred, sp_.Ured),
-            lambda: pcr.woodbury_plain(red, sp_.Lred, sp_.Ured),
-            (red_bytes + 2 * s2 * s + s2 * s2 * C + s2 * s2) * item,
-            s2 * C * (4 * s2 * s2 * nlev + 2 * s2 * s2) + 2 * s2 ** 3, None)
-        pairs["K4.pcr_solve_shift without the correction"] = (
-            lambda: pcr.pcr_solve_shift(red, yred, True),
-            lambda: pcr.pcr_solve_shift_plain(red, yred, True),
-            (red_bytes + 4 * s * C) * item, 4 * s2 ** 2 * C * nlev, None)
     return plan, pairs
 
 
@@ -1317,8 +1388,9 @@ def profile_step(scheme, fields, pars, dt, steps=5):
     return profile_calls(lambda: scheme(0.0, fields, dt, pars), steps)
 
 
-def profile_calls(fn, steps):
-    """``profile_step`` of ``steps`` calls of ``fn`` (one step each)."""
+def profile_calls(fn, steps, names=TRACE_NAMES):
+    """``profile_step`` of ``steps`` calls of ``fn`` (one step each);
+    ``names`` maps device kernel names to entries."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1334,7 +1406,7 @@ def profile_calls(fn, steps):
         dur = ev.time_range.end - ev.time_range.start
         first = ev.time_range.start if first is None else min(first, ev.time_range.start)
         last = ev.time_range.end if last is None else max(last, ev.time_range.end)
-        key = next((k for sub, k in TRACE_NAMES.items() if sub in ev.name), "other")
+        key = next((k for sub, k in names.items() if sub in ev.name), "other")
         by_name[key] = by_name.get(key, 0.0) + dur
         busy += dur
     if not busy:
@@ -1345,7 +1417,7 @@ def profile_calls(fn, steps):
             "idle_share": 1.0 - busy / span}
 
 
-def launch_us(fn, key, launches=20, tries=3):
+def launch_us(fn, key, launches=20, tries=3, names=TRACE_NAMES):
     """(device µs per launch, launches recorded) of the kernel ``key`` (a
     ``TRACE_NAMES`` value) over ``launches`` calls of ``fn`` alone under
     torch.profiler; µs None where the profiler recorded another number of
@@ -1362,14 +1434,14 @@ def launch_us(fn, key, launches=20, tries=3):
             torch.cuda.synchronize()
         times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                 and next((k for sub, k in TRACE_NAMES.items() if sub in ev.name), None) == key]
+                 and next((k for sub, k in names.items() if sub in ev.name), None) == key]
         if len(times) == launches:
             return sum(times) / launches, launches
     return None, len(times)
 
 
-def log_launch_us(what, fn, key, launches=20):
-    us, seen = launch_us(fn, key, launches)
+def log_launch_us(what, fn, key, launches=20, names=TRACE_NAMES):
+    us, seen = launch_us(fn, key, launches, names=names)
     log(f"  {what}: " + (f"{us:.4f} device us per launch over {launches} launches"
                          if us is not None else
                          f"not measured (the profiler recorded {seen} of {launches} launches)"))
@@ -2322,6 +2394,292 @@ def phase3_megatheta():
     return times
 
 
+#: the s = 6 falling film (nvar 3, halo 2): examples/11_falling_film.py's
+#: Shkadov film (h, q; second-order upwind) with a capillary term and an
+#: insoluble surfactant G, carried at the surface speed 3q/2h, that pulls on
+#: the film through a Marangoni stress; its solves take K2-K4's wide
+#: instantiations at S = 6 (interface blocks S2 = 12) and never K6
+FILM = (["-dxq",
+         "9/7 * q**2 / h**2 * dxh - upwind(17/7 * q / h, q, 2)"
+         " + (h - q / h**2) / delta + h * dxxxh / (3 * delta) - Ma * h * dxG",
+         "-upwind(3/2 * q / h, G, 2) + dxxG / Pe"],
+        ["h", "q", "G"], ["delta", "Ma", "Pe"])
+FILM_FIELDS = ("h", "q", "G")
+#: the profiler's kernel names on the film's path: K3's and K4's wide
+#: instantiations keep their kernels' names
+FILM_TRACE_NAMES = {sub: f"{key}_wide" if f"{key}_wide" in KERNELS else key
+                    for sub, key in TRACE_NAMES.items()}
+
+
+def film_case(N, dt=0.5, tmax=0.5):
+    """Example 11's film tiled along x = 0.1 i (its grid, one period per
+    1000 nodes): h = 1 + 0.1 cos(2 pi 3 x / 100), q = h^3 / 3, G = 1 + 0.05
+    sin(2 pi 2 x / 100); delta = 0.1, Ma = 0.5, Pe = 100, periodic."""
+    x = 0.1 * np.arange(N)
+    h = 1 + 0.1 * np.cos(2 * np.pi * 3 * x / 100)
+    return ({"x": x, "h": h, "q": h ** 3 / 3, "G": 1 + 0.05 * np.sin(2 * np.pi * 2 * x / 100)},
+            dict(periodic=True, delta=0.1, Ma=0.5, Pe=100.0), dt, tmax, None)
+
+
+FILM_THETA = dict(scheme=schemes.Theta, theta=1.0)
+#: the film on the card: (name, case, kwargs, how (n: n calls of the
+#: scheme; "sim": Simulation), the grid of the port's CPU f64 run it is held
+#: to).  The adaptive run (Simulation's defaults, tol 1e-4) is held to the
+#: CPU run at N = 10^4 tiled 100 times: the state repeats every 1000 nodes,
+#: so both grids take the same attempts and the same state to rounding, and
+#: the CPU run at N = 10^6 would take minutes.  Output steps of 0.5 set
+#: every dt from an err between 0.16 and 10 tol: the smaller errs either
+#: grow dt by the controller's cap of 10 or are the clamped last attempt of
+#: an output step, which sets no dt (tests/test_torch_film.py).  The fixed
+#: steps take dt = 0.1: a float32 RODASPR step of 0.5 (I - g00 dt J with
+#: dt J of order 10^3 from the capillary term) sits 1.1e-4 of max|u| from
+#: the float64 one in the plain versions, over float32's limit of 1e-4,
+#: and two steps of 0.1 3.3e-5.  Each step moves u by some 0.5 of max|u|,
+#: so the state's limit resolves a wrong increment in both dtypes
+FILM_CASES = [
+    ("film N=10^6 Simulation defaults tol 1e-4 (3 x 0.5)", film_case(N_REF, 0.5, 1.5),
+     dict(tol=1e-4), "sim", N_REF_SMALL),
+    ("film N=10^6 rodaspr fixed (2 x 0.1)", film_case(N_REF, 0.1), FIXED, 2, N_REF),
+    ("film N=10^6 theta (2 x 0.1)", film_case(N_REF, 0.1), FILM_THETA, 2, N_REF),
+    ("film N=2^20 rodaspr fixed (2 x 0.1)", film_case(N_BIG, 0.1), FIXED, 2, N_BIG),
+    ("film N=2^20 theta (2 x 0.1)", film_case(N_BIG, 0.1), FILM_THETA, 2, N_BIG),
+]
+
+
+def film_run(case, kwargs, how, device, dtype, double=None):
+    """(u (3, N): h, q, G; attempts per output step) of a film case on
+    ``device``; ``double`` overrides the model's mode."""
+    fields_np, pars, dt, tmax, _ = case
+    double = dtype == torch.float64 if double is None else double
+    model = Model(*FILM, double=double, device=device)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    attempts = []
+    if how == "sim":
+        sim = Simulation(model, fields, pars_t, dt=dt, tmax=tmax, **kwargs)
+        for t, fields in sim:
+            attempts.append(sim._scheme._internal_iter)
+        if sim.status != "finished" or not np.isclose(t, tmax):
+            raise RuntimeError(f"film simulation ended at t={t} with status {sim.status}")
+    else:
+        scheme = kwargs["scheme"](model, **{k: v for k, v in kwargs.items() if k != "scheme"})
+        t = 0.0
+        for _ in range(how):
+            t, fields = scheme(t, fields, dt, pars_t)
+    return torch.stack([fields[k] for k in FILM_FIELDS]), attempts
+
+
+def film_cpu_runs(conn):
+    """The port's CPU f64 runs of ``FILM_CASES`` at their reference grids,
+    sent through ``conn`` as {name: (u, attempts, s)} or ("error",
+    traceback); run in a process of its own (``start_cpu_refs``)."""
+    try:
+        torch.set_num_threads(4)
+        out = {}
+        for name, case, kwargs, how, n_cpu in FILM_CASES:
+            start = time.perf_counter()
+            _, _, dt, tmax, _ = case
+            u, attempts = film_run(film_case(n_cpu, dt, tmax), kwargs, how, "cpu",
+                                   torch.float64)
+            out[name] = (u.numpy(), attempts, time.perf_counter() - start)
+        conn.send(out)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def film_launches(plan, kwargs, steps):
+    """The exact launches of ``steps`` film steps or attempts: per RODASPR
+    step J, one factor (K2, K4 and, on a Woodbury plan, its set-up) and
+    six stages of F, K5, the sweep, the solve with shifts and the
+    correction; per Theta step one of each and no K5; nothing else."""
+    stages = 1 if kwargs.get("scheme") is schemes.Theta else 6
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"K1.J": steps, "K2.spike_factor_wide": steps, "K4.pcr_factor_wide": steps,
+                 "K4.pcr_solve_wide": steps if plan.woodbury else 0,
+                 "K1.F": stages * steps, "K3.thomas_sweep_wide": stages * steps,
+                 "K4.pcr_solve_shift_wide": stages * steps,
+                 "K3.spike_correct_wide": stages * steps,
+                 "K5.combine": 0 if stages == 1 else stages * steps})
+    return want
+
+
+def phase1_film(errs):
+    """K2-K4's wide instantiations against their plain versions: at S =
+    5..8 on random bands (``kernel_checks.run_wide``: one grid on
+    block-cyclic, Woodbury and acyclic plans, and B = 4 members at S = 6
+    and 8), then on the film's path (its F and J, and its solver on J's
+    bands at the first RODASPR stage, g00 dt = 0.125, at N = 10^6 and 2^20
+    on the plans the path takes), and at S = 6 in float32 on the bands the
+    df64 mode's mixed solve rounds (its factor, N = 10^6)."""
+    log("phase 1: K2-K4 at block sizes S = 5..8 against their plain versions")
+    wide = kernel_checks.run_wide("cuda")
+    _, g00 = rodaspr_rows()
+    for dt_name, dtype in DTYPES.items():
+        res = wide[dt_name]
+        log(f"  wide blocks S = 5..8, small shapes {dt_name}: " + json.dumps(res))
+        for N in (N_REF, N_BIG):
+            model, _, _, args, dt = path_inputs(FILM, film_case(N), dtype)
+            kernel_checks.check_stencil(model, N, True, "cuda", results=res)
+            bands = model.backend.J_bands(*args, periodic=True)
+            kernel_checks.check_solver(bands, 1.0, -g00 * dt, True, results=res)
+        log(f"  the film's path (S = 6, N = 10^6 and 2^20) {dt_name}: " + json.dumps(res))
+        for name, err in res.items():
+            errs[dt_name][name] = max(errs[dt_name].get(name, 0.0), err)
+    model, _, _, args, dt = path_inputs(FILM, film_case(N_REF), torch.float64, "df64")
+    bands = model.backend.J_bands(*args, periodic=True)
+    gdt = g00 * dt
+    plan = chunked.make_plan(N_REF, 3, 2, True)
+    _launch.reset_counters()
+    fact = mixed.MixedFactorization(bands, gdt, True, plan, 1)
+    if _launch.counts()["K2.spike_factor_wide"] != 1:
+        raise RuntimeError("the mixed solve's factor did not launch K2 at S = 6")
+    rng = np.random.default_rng(5)
+    rhs, add = (torch.tensor(rng.standard_normal((3, N_REF)), dtype=torch.float32,
+                             device="cuda") for _ in range(2))
+    res = kernel_checks.check_solver_pieces(bands.float(), -gdt, plan, rhs, add)
+    log("  the df64 mixed solve's float32 factor (S = 6, N = 10^6): " + json.dumps(res))
+    for name, err in res.items():
+        errs["float32"][name] = max(errs["float32"].get(name, 0.0), err)
+    return errs
+
+
+def phase2_film(launches):
+    """The falling film (S = 6) through the port's entry points on the card
+    (``FILM_CASES``), both dtypes, each run with the launch counts set to 0
+    just before it and read just after: exact launches of K1, K5 and K2-K4's
+    wide entries (none of K2-K4's narrow ones, K6, K7, K8 or K9); finite
+    h, q, G against the port's CPU f64 run, on the state relative to
+    max|u| and, for the fixed steps in float64, on the increment from the
+    first state (``kernel_checks.increment_error``), with the same attempts
+    in every output step in float64."""
+    log("phase 2: the falling film (S = 6) on the card")
+    refs = cpu_refs("film")
+    for name, case, kwargs, how, n_cpu in FILM_CASES:
+        fields_np, pars, dt, tmax, _ = case
+        N = len(fields_np["x"])
+        plan = chunked.make_plan(N, 3, 2, True)
+        u_ref, att_ref, cpu_s = refs[name]
+        u_ref = torch.from_numpy(np.tile(u_ref, (1, N // n_cpu)))
+        u0 = torch.from_numpy(np.stack([fields_np[k] for k in FILM_FIELDS]))
+        log(f"  {name}: plan C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury}; the port's CPU f64 run at N={n_cpu} ({cpu_s:.1f} s), "
+            f"attempts per output step {att_ref}")
+        for dt_name, dtype in DTYPES.items():
+            torch.cuda.synchronize()
+            _launch.reset_counters()
+            start = time.perf_counter()
+            u, attempts = film_run(case, kwargs, how, "cuda", dtype)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            steps = sum(attempts) if how == "sim" else how
+            want = film_launches(plan, kwargs, steps)
+            off = {k: counts[k] for k in want if counts[k] != want[k]}
+            log(f"    {dt_name}: {secs:.3f} s wall (first call, build included); attempts "
+                f"per output step {attempts}; launches "
+                + json.dumps({k: v for k, v in counts.items() if v}))
+            if off:
+                raise RuntimeError(f"{name} {dt_name}: launches {off}, expected "
+                                   + json.dumps({k: v for k, v in want.items() if v}))
+            for k in KERNELS:
+                launches[k] += counts[k]
+            if not bool(torch.isfinite(u).all()) or u.shape != u_ref.shape:
+                raise RuntimeError(f"{name} {dt_name}: non-finite or misshapen")
+            got = u.double().cpu()
+            err = float((got - u_ref).abs().max() / u_ref.abs().max())
+            if how == "sim":
+                lim = 1e-9 if dtype == torch.float64 else 1e-2
+            else:
+                lim = 1e-10 if dtype == torch.float64 else 1e-4
+            text = f"max|u - u_cpu| / max|u| = {err:.3e}"
+            errs = [err]
+            if how != "sim" and dtype == torch.float64:
+                inc = kernel_checks.increment_error(u, u_ref, u0, lim, name)[1]
+                text += f", of the increment max|du| / max|u - u0| = {inc:.3e}"
+                errs.append(inc)
+            log(f"      against the CPU f64 run: {text} (limit {lim:.0e})")
+            if not all(e <= lim for e in errs):
+                raise RuntimeError(f"{name} {dt_name}: disagrees with the CPU run")
+            if dtype == torch.float64 and attempts != att_ref:
+                raise RuntimeError(f"{name} f64: attempts {attempts} differ from the "
+                                   f"CPU run's {att_ref}")
+    log("  launches over phase 2 with the film: " + json.dumps(launches))
+    return launches
+
+
+#: chunk counts of the film's sweep at N = 10^6 (divisors of its M = 5 10^5
+#: supernodes), behind ``chunked.WIDE_ROW_US`` / ``WIDE_PASS_US``
+FILM_CHUNKS = [250, 400, 500, 625, 800, 1000, 1250, 1600, 2000, 2500, 4000, 5000, 8000]
+
+
+def phase3_film():
+    """The film's step at N = 10^6 and 2^20 (RODASPR fixed and Theta, CUDA
+    events, cell-updates/s) with a profile of the RODASPR step, each wide
+    kernel entry at the path's inputs (N = 10^6, the first stage) against
+    its plain version and its bound, and the chunk-count sweep at N = 10^6
+    with the least-squares fit of ``chunked.plan_cost_us``'s wide
+    constants."""
+    log("phase 3: the falling film (S = 6, CUDA events)")
+    times = {}
+    _, g00 = rodaspr_rows()
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
+        for N in (N_REF, N_BIG):
+            grid = "N=2^20" if N == N_BIG else "N=10^6"
+            model, fields, pars_t, args, dt = path_inputs(FILM, film_case(N), dtype)
+            ros = schemes.RODASPR(model, time_stepping=False, tol=None)
+            theta = schemes.Theta(model, theta=1.0)
+            ms = [cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 3)
+                  for sch in (ros, theta, theta, ros)]
+            log(f"  film {grid} {dt_name}: rodaspr {ms[0]:.4f} / {ms[3]:.4f} ms/step "
+                f"({N / (min(ms[0], ms[3]) * 1e-3):.4e} cell-updates/s), theta {ms[1]:.4f} / "
+                f"{ms[2]:.4f} ms/step ({N / (min(ms[1], ms[2]) * 1e-3):.4e} cell-updates/s)")
+            log_profile(f"rodaspr fixed step film {grid}", dt_name,
+                        profile_calls(lambda: ros(0.0, fields, dt, pars_t), 3,
+                                      FILM_TRACE_NAMES))
+            if N != N_REF:
+                continue
+            b = model.backend
+            gdt = g00 * dt
+            plan = chunked.make_plan(N, 3, 2, True)
+            bands = b.J_bands(*args, periodic=True)
+            rhs = b.F(*args, periodic=True, scale=gdt)
+            pairs, _ = solver_pairs(bands, gdt, plan, rhs)
+            log(f"  kernels at film {grid}: plan C={plan.C} Mc={plan.Mc} "
+                f"woodbury={plan.woodbury}")
+            for name, (kern, plain, nbytes, ops, _) in pairs.items():
+                p1, k1, k2, p2 = (cuda_ms(f, 3) for f in (plain, kern, kern, plain))
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                if name in KERNELS:
+                    times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+                log(f"  {name} film {grid} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                    f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
+                    f"{ops} operations), library none (no PyTorch call solves a "
+                    "block-banded system)")
+            # the chunk-count sweep behind the wide plan cost
+            key, plan0 = (N, True, 1), ros._plan(N, True)
+            row = {}
+            for C in FILM_CHUNKS:
+                ros._plans[key] = chunked.plan_with(N, 3, 2, True, C)
+                row[C] = min(cuda_ms(lambda: ros(0.0, fields, dt, pars_t), 2)
+                             for _ in range(2))
+            ros._plans[key] = plan0
+            M = N // 2
+            A = np.array([[M // C, pcr.n_levels(C) * -(-C // chunked.wide_pass_chunks(6)), 1.0]
+                          for C in row])
+            coef, *_ = np.linalg.lstsq(A, 1e3 * np.array(list(row.values())), rcond=None)
+            best = min(row, key=row.get)
+            log(f"  film chunk sweep N=10^6 {dt_name} (ms per RODASPR step, the lower of two "
+                "CUDA-event means over 2 steps): "
+                + "; ".join(f"C={C} Mc={M // C}: {v:.4f}" for C, v in row.items())
+                + f" -> fastest C={best}; make_plan's C={plan0.C} at "
+                f"{row[plan0.C] / row[best] - 1:+.2%}; fit WIDE_ROW_US = {coef[0]:.2f}, "
+                f"WIDE_PASS_US = {coef[1]:.2f}, offset {coef[2]:.1f} us (chunked has "
+                f"{chunked.WIDE_ROW_US}, {chunked.WIDE_PASS_US})")
+    return times
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -2342,12 +2700,13 @@ def main():
 
 def run():
     smi = timed(phase0)
-    errs = timed(phase1)
+    errs = timed(phase1_film, timed(phase1))
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
     launches = timed(phase2_megatheta, launches)
+    launches = timed(phase2_film, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
-                 timed(phase3_megatheta)):
+                 timed(phase3_megatheta), timed(phase3_film)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

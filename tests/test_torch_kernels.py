@@ -37,6 +37,10 @@ MEMBER_AXIS_ONLY = {"K1.F_terms", "K6.adaptive_scan"}
 REFINE_ONLY = {"K7.matvec"}
 #: the kernel entries of the df64 mode's mixed solve: float64 only
 DF64_ONLY = {"K8.residual", "K6.step_mixed"}
+#: K2-K4's wide instantiations (block sizes 5..8): ``kernel_checks.run_wide``
+#: holds them against their plain versions (below)
+WIDE_ONLY = {"K2.spike_factor_wide", "K3.thomas_sweep_wide", "K3.spike_correct_wide",
+             "K4.pcr_factor_wide", "K4.pcr_solve_wide", "K4.pcr_solve_shift_wide"}
 
 
 @pytest.mark.cuda
@@ -45,7 +49,8 @@ DF64_ONLY = {"K8.residual", "K6.step_mixed"}
 def test_kernels_match_plain_versions(cuda_device, dtype):
     results = kernel_checks.run_all(cuda_device, dtypes=(dtype,))
     name = str(dtype).replace("torch.", "")
-    skip = MEMBER_AXIS_ONLY | (DF64_ONLY if dtype == torch.float32 else set())
+    skip = (MEMBER_AXIS_ONLY | WIDE_ONLY
+            | (DF64_ONLY if dtype == torch.float32 else set()))
     assert set(_launch.COUNTERS) - skip <= set(results[name])
     assert REFINE_ONLY <= set(results[name])
 
@@ -83,16 +88,18 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     solves, and five stage combinations plus the final one; a block-cyclic
     plan has no Woodbury set-up, one grid no fused stage right-hand side
     (an ensemble's), a step without ``refine=`` no matvec, a float64
-    model no mixed-solve residual (the df64 mode's K8), and a step of
-    ``Simulation``'s schemes never the opt-in two-pass theta step (K9)."""
+    model no mixed-solve residual (the df64 mode's K8), a step of
+    ``Simulation``'s schemes never the opt-in two-pass theta step (K9), and
+    a block size of 1 none of K2-K4's wide instantiations."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
                                                            pars)
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
-               if not k.startswith(("K6", "K9"))
+               if not k.startswith(("K6", "K9")) and k not in WIDE_ONLY
                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual"))
+    assert not any(counts[k] for k in WIDE_ONLY)
     assert counts["K9.interface"] == counts["K9.correct"] == 0
     assert counts["K4.pcr_solve"] == counts["K1.F_terms"] == counts["K7.matvec"] == 0
     assert counts["K8.residual"] == 0
@@ -409,3 +416,45 @@ def test_member_axis_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         thomas.spike_factor(torch.empty((2, 3, 1, 1, 64), **meta), 1.0, -0.1,
                             plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_wide_kernels_match_plain_versions(cuda_device, dtype):
+    """K2-K4 at block sizes S = 5..8 (their wide libraries) against their
+    plain versions: block-cyclic, Woodbury and acyclic plans, and B = 4
+    members at S = 6 and 8."""
+    results = kernel_checks.run_wide(cuda_device, dtypes=(dtype,))
+    name = str(dtype).replace("torch.", "")
+    assert WIDE_ONLY <= set(results[name])
+    assert WIDE_ONLY <= set(_launch.COUNTERS)
+
+
+@pytest.mark.cuda
+def test_wide_block_step_launches_the_wide_kernels(cuda_device):
+    """A model of block size 6 (three fields with a third derivative) steps
+    on the card through K2-K4's wide entries and never their s <= 4 ones or
+    K6."""
+    model = Model(["-dxq", "-dxxxh + q", "dxxG - G"], ["h", "q", "G"],
+                  device=cuda_device)
+    x = torch.arange(4096, dtype=torch.float64, device=cuda_device) * 0.01
+    fields = model.fields_template(x=x, h=1 + 0.1 * torch.cos(x), q=0 * x,
+                                   G=torch.sin(x))
+    _launch.reset_counters()
+    schemes.Theta(model, theta=1.0)(0.0, fields, 0.01, dict(periodic=True))
+    counts = _launch.counts()
+    assert {k: counts[k] for k in WIDE_ONLY - {"K4.pcr_solve_wide"}} == dict.fromkeys(
+        WIDE_ONLY - {"K4.pcr_solve_wide"}, 1)
+    narrow = {k.removesuffix("_wide") for k in WIDE_ONLY}
+    assert not any(counts[k] for k in narrow | {"K6.step", "K6.adaptive"})
+
+
+def test_wide_check_harness_on_cpu():
+    """The wide checks on CPU tensors: plain against plain, each solve by
+    its residual, and nothing launched."""
+    before = _launch.counts()
+    results = kernel_checks.run_wide("cpu", dtypes=(torch.float64,))
+    assert WIDE_ONLY <= set(results["float64"])
+    assert results["float64"]["residual"] < 1e-12
+    assert _launch.counts() == before

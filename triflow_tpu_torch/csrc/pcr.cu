@@ -42,11 +42,102 @@
 // avoids any grid-wide synchronisation.
 //
 // The bodies live in pcr.cuh, shared with K6 (megastep.cu).
+//
+// Wide interface blocks (S2 = 10..16, of K2's S = 5..8) are built into a
+// library of their own, from this file with TF_WIDE defined.  The solves
+// keep pcr.cuh's bodies (vectors of S2 entries per thread); the factor,
+// whose S2 x S2 products and inverses do not fit one thread's registers,
+// runs each chunk's level on a group of S2 lanes, lane r holding row r of
+// every block (wide.cuh: pcr_factor_block_wide below).
 #include "pcr.cuh"
+#include "wide.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
+
+#ifdef TF_WIDE
+#define TF_CASES TF_CASE(10) TF_CASE(12) TF_CASE(14) TF_CASE(16)
+#else
+#define TF_CASES TF_CASE(2) TF_CASE(4) TF_CASE(6) TF_CASE(8)
+#endif
+
+// pcr.cuh's pcr_factor_block for wide blocks: every phase walks the chunks
+// in passes of (warps x 32 / S2) groups, one group of S2 lanes per chunk,
+// the same products and sums in the same order.  A lane of no chunk in
+// the last pass computes on chunk C - 1 and stores nothing.
+// scratch: 7 x (S2, S2, C)
+template <typename T, int S2>
+__device__ __forceinline__ void pcr_factor_block_wide(const T* Lred, const T* Ured, T* alphas,
+                                                      T* betas, T* Dinv, T* scratch, int C,
+                                                      int cyclic) {
+  using Row = tf::Row<T, S2>;
+  constexpr int G = 32 / S2;
+  const long sz = (long)S2 * S2 * C;
+  T* Lb[2] = {scratch, scratch + 3 * sz};
+  T* Db[2] = {scratch + sz, scratch + 4 * sz};
+  T* Ub[2] = {scratch + 2 * sz, scratch + 5 * sz};
+  T* Dt = scratch + 6 * sz;
+  for (long e = threadIdx.x; e < sz; e += blockDim.x) {
+    Lb[0][e] = Lred[e];
+    Ub[0][e] = Ured[e];
+    Db[0][e] = (e / C) % S2 == e / ((long)S2 * C) ? T(1) : T(0);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = tf::group_of_lane<S2>(lane);
+  const tf::Group g{grp * S2, lane - grp * S2};
+  const int r = g.r, per_pass = (blockDim.x >> 5) * G;
+  const int first = (threadIdx.x >> 5) * G + grp;
+  int cur = 0, lev = 0;
+  for (int d = 1; d < C; d *= 2, ++lev) {
+    for (int c0 = 0; c0 < C; c0 += per_pass) {
+      const bool store = grp < G && c0 + first < C;
+      const int c = store ? c0 + first : C - 1;
+      const Row di = tf::inv(tf::load_row<T, S2>(Db[cur], 0, r, c, C), g);
+      if (store) tf::store_row(Dt, 0, r, c, C, di);
+    }
+    __syncthreads();
+    const int nxt = cur ^ 1;
+    for (int c0 = 0; c0 < C; c0 += per_pass) {
+      const bool store = grp < G && c0 + first < C;
+      const int c = store ? c0 + first : C - 1;
+      const int cm = (c - d + C) % C, cp = (c + d) % C;
+      // alpha's terms first, then beta's: fewer rows live at once
+      Row alpha = tf::neg(tf::mm(tf::load_row<T, S2>(Lb[cur], 0, r, c, C),
+                                 tf::load_row<T, S2>(Dt, 0, r, cm, C), g));
+      if (!cyclic && c < d) alpha = tf::zero_row<T, S2>();
+      const Row Lnew = tf::mm(alpha, tf::load_row<T, S2>(Lb[cur], 0, r, cm, C), g);
+      const Row Dpart = tf::add(tf::load_row<T, S2>(Db[cur], 0, r, c, C),
+                                tf::mm(alpha, tf::load_row<T, S2>(Ub[cur], 0, r, cm, C), g));
+      if (store) {
+        tf::store_row(alphas, lev, r, c, C, alpha);
+        tf::store_row(Lb[nxt], 0, r, c, C, Lnew);
+      }
+      Row beta = tf::neg(tf::mm(tf::load_row<T, S2>(Ub[cur], 0, r, c, C),
+                                tf::load_row<T, S2>(Dt, 0, r, cp, C), g));
+      if (!cyclic && c >= C - d) beta = tf::zero_row<T, S2>();
+      const Row Unew = tf::mm(beta, tf::load_row<T, S2>(Ub[cur], 0, r, cp, C), g);
+      const Row D = tf::add(Dpart, tf::mm(beta, tf::load_row<T, S2>(Lb[cur], 0, r, cp, C), g));
+      if (store) {
+        tf::store_row(betas, lev, r, c, C, beta);
+        tf::store_row(Ub[nxt], 0, r, c, C, Unew);
+        tf::store_row(Db[nxt], 0, r, c, C, D);
+      }
+    }
+    __syncthreads();
+    cur = nxt;
+  }
+  for (int c0 = 0; c0 < C; c0 += per_pass) {
+    const bool store = grp < G && c0 + first < C;
+    const int c = store ? c0 + first : C - 1;
+    Row D = tf::load_row<T, S2>(Db[cur], 0, r, c, C);
+    if (cyclic)
+      D = tf::add(D, tf::add(tf::load_row<T, S2>(Lb[cur], 0, r, c, C),
+                             tf::load_row<T, S2>(Ub[cur], 0, r, c, C)));
+    const Row di = tf::inv(D, g);
+    if (store) tf::store_row(Dinv, 0, r, c, C, di);
+  }
+}
 
 __device__ __forceinline__ int levels(int C) {
   int n = 0;
@@ -60,9 +151,14 @@ __global__ void __launch_bounds__(kThreads)
                       T* betas, T* Dinv, T* scratch, int C, int cyclic) {
   const long b = kMembers ? blockIdx.x : 0, blk = (long)S2 * S2 * C,
              ops = kMembers ? levels(C) * blk : 0;
-  tf::pcr_factor_block<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
-                              betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C,
-                              cyclic);
+  if constexpr (S2 > 8)
+    pcr_factor_block_wide<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
+                                 betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C,
+                                 cyclic);
+  else
+    tf::pcr_factor_block<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
+                                betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C,
+                                cyclic);
 }
 
 template <typename T, int S2, bool kMembers>
@@ -71,6 +167,9 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ Dinv, const T* __restrict__ b,
                      const T* __restrict__ Lred, const T* __restrict__ Ured, T* out, T* cap_inv,
                      T* scratch, int C, int R) {
+  // woodbury_block inverts the capacitance with one thread per entry of
+  // [cap | I]: every instantiated S2 needs 2 S2^2 <= kThreads (512 at 16)
+  static_assert(2 * S2 * S2 <= kThreads, "the Woodbury set-up needs 2 S2^2 threads");
   if constexpr (kMembers) {
     const long m = blockIdx.x, blk = (long)S2 * S2 * C, ops = levels(C) * blk;
     const long col = (long)S2 * C, cols = R * col;
@@ -130,10 +229,7 @@ int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratc
                                                                   betas, Dinv, scratch,   \
                                                                   C, cyclic);             \
     break;
-    TF_CASE(2)
-    TF_CASE(4)
-    TF_CASE(6)
-    TF_CASE(8)
+    TF_CASES
 #undef TF_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -159,10 +255,7 @@ int solve(const T* alphas, const T* betas, const T* Dinv, const T* b, const T* L
       pcr_solve_kernel<T, S2, false><<<1, kThreads, 0, stream>>>(                       \
           alphas, betas, Dinv, b, Lred, Ured, out, cap_inv, scratch, C, R);             \
     break;
-    TF_CASE(2)
-    TF_CASE(4)
-    TF_CASE(6)
-    TF_CASE(8)
+    TF_CASES
 #undef TF_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -191,10 +284,7 @@ int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, c
     else                                                                                \
       TF_LAUNCH(S2, false, false);                                                      \
     break;
-    TF_CASE(2)
-    TF_CASE(4)
-    TF_CASE(6)
-    TF_CASE(8)
+    TF_CASES
 #undef TF_CASE
 #undef TF_LAUNCH
     default:

@@ -46,7 +46,19 @@
 // first thing to fix when this kernel is made fast.
 //
 // The bodies live in factor.cuh, shared with K6 (megastep.cu).
+//
+// Wide blocks (S = 5..8: three or four variables with halo 2, five to eight
+// with halo 1) are built into a library of their own, from this file with
+// TF_WIDE defined.  It replaces ops/pallas_thomas.py chunked_factor_sweeps
+// and fused_factor_sweeps, the reference's factor of such blocks (from
+// assembled blocks, or from raw bands with alpha*I + beta*J folded in as
+// here).  The blocks no longer fit one thread's registers, so a group of S
+// lanes walks each chunk, lane r holding row r of every block (wide.cuh),
+// with the same sweeps in the same order; a warp walks 32 / S chunks side
+// by side.  Every product and inverse exchanges rows by warp shuffles, so
+// the sweep is bound by their latency along its Mc sequential rows.
 #include "factor.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -67,17 +79,147 @@ __global__ void spike_factor_kernel(const T* __restrict__ bands, T* fac, T* Dhin
                                alpha, beta_b ? beta_b[b] : beta, c);
 }
 
+// row r of the S x S block of alpha*I + beta*J at supernode I and block
+// offset dblock (factor.cuh's band_block, one row)
+template <typename T, int S>
+__device__ __forceinline__ tf::Row<T, S> band_row(const T* bands, long I, int dblock, int r,
+                                                  T alpha, T beta, int N, int nvar, int g,
+                                                  int h) {
+  tf::Row<T, S> out;
+  const int a = r / nvar, m = r % nvar;
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    const int b = q / nvar, n = q % nvar;
+    const int delta = (b - a) + dblock * g;
+    T val = T(0);
+    if (delta >= -h && delta <= h)
+      val = beta * bands[((long)((h + delta) * nvar + m) * nvar + n) * N + I * g + a];
+    if (dblock == 0 && r == q) val += alpha;
+    out.v[q] = val;
+  }
+  return out;
+}
+
+// factor.cuh's spike_factor_chunk for a group of S lanes (wide.cuh): lane
+// g.r walks row g.r of chunk c's blocks; `store` is false for a lane of no
+// chunk, which computes on a valid chunk and writes nothing
+template <typename T, int S>
+__device__ __forceinline__ void spike_factor_chunk_wide(
+    const T* bands, T* fac, T* Dhinv, T* DU, T* Wsp, T* Vsp, T* Lred, T* Ured, int N, int nvar,
+    int g, int h, int Mc, int C, int wrap, T alpha, T beta, int c, const tf::Group& grp,
+    bool store) {
+  using Row = tf::Row<T, S>;
+  const int r = grp.r;
+  Row dh = tf::zero_row<T, S>(), up = dh, wt = dh, Tl = dh, Tr = dh;
+  for (int j = 0; j < Mc; ++j) {
+    const long I = (long)c * Mc + j;
+    Row L = band_row<T, S>(bands, I, -1, r, alpha, beta, N, nvar, g, h);
+    Row U = band_row<T, S>(bands, I, 1, r, alpha, beta, N, nvar, g, h);
+    if (j == 0) {
+      Tl = (!wrap && c == 0) ? tf::zero_row<T, S>() : L;
+      L = tf::zero_row<T, S>();
+    }
+    if (j == Mc - 1) {
+      Tr = (!wrap && c == C - 1) ? tf::zero_row<T, S>() : U;
+      U = tf::zero_row<T, S>();
+    }
+    const Row f = tf::mm(L, dh, grp);
+    const Row D = band_row<T, S>(bands, I, 0, r, alpha, beta, N, nvar, g, h);
+    dh = tf::inv(tf::sub(D, tf::mm(f, up, grp)), grp);
+    wt = j == 0 ? Tl : tf::neg(tf::mm(f, wt, grp));
+    if (store) {
+      tf::store_row(fac, j, r, c, C, f);
+      tf::store_row(Dhinv, j, r, c, C, dh);
+      tf::store_row(Wsp, j, r, c, C, wt);  // wt_j, overwritten by W_j below
+      tf::store_row(DU, j, r, c, C, U);    // U_j, overwritten by Dh_j U_j below
+    }
+    up = U;
+  }
+  // each lane reads back only the rows it wrote itself
+  Row Wn = tf::zero_row<T, S>(), Vn = Wn, Wl = Wn, Vl = Wn;
+  for (int j = Mc - 1; j >= 0; --j) {
+    const Row dhj = tf::load_row<T, S>(Dhinv, j, r, c, C);
+    const Row du = tf::mm(dhj, tf::load_row<T, S>(DU, j, r, c, C), grp);
+    const Row W = tf::sub(tf::mm(dhj, tf::load_row<T, S>(Wsp, j, r, c, C), grp),
+                          tf::mm(du, Wn, grp));
+    Row V;
+    if (j == Mc - 1) {
+      V = tf::mm(dhj, Tr, grp);
+      Wl = W;
+      Vl = V;
+    } else {
+      V = tf::neg(tf::mm(du, Vn, grp));
+    }
+    if (store) {
+      tf::store_row(DU, j, r, c, C, du);
+      tf::store_row(Wsp, j, r, c, C, W);
+      tf::store_row(Vsp, j, r, c, C, V);
+    }
+    Wn = W;
+    Vn = V;
+  }
+  if (!store) return;
+  // rows r and S + r of the reduced couplings (factor.cuh's layout)
+  const bool keep_l = wrap || c != 0;
+  const bool keep_u = wrap || c != C - 1;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Row& Wr = half ? Wl : Wn;
+    const Row& Vr = half ? Vl : Vn;
+    const long row = (long)half * S + r;
+#pragma unroll
+    for (int q = 0; q < 2 * S; ++q) {
+      const T lv = q >= S ? Wr.v[q - S] : T(0);
+      const T uv = q < S ? Vr.v[q] : T(0);
+      Lred[(row * 2 * S + q) * C + c] = keep_l ? lv : T(0);
+      Ured[(row * 2 * S + q) * C + c] = keep_u ? uv : T(0);
+    }
+  }
+}
+
+// one group of S lanes per (member, chunk), 32 / S groups per warp
+template <typename T, int S, bool kMembers>
+__global__ void spike_factor_wide_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
+                                         T* Wsp, T* Vsp, T* Lred, T* Ured,
+                                         const T* __restrict__ beta_b, int N, int nvar, int g,
+                                         int h, int Mc, int C, int wrap, int B, T alpha,
+                                         T beta) {
+  constexpr int G = 32 / S;
+  const int lane = threadIdx.x & 31, grp = tf::group_of_lane<S>(lane);
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long q = warp * G + grp;
+  if (warp * G >= (long)B * C) return;  // the whole warp has no chunk
+  const bool store = grp < G && q < (long)B * C;
+  const long qc = store ? q : (long)B * C - 1;
+  const int b = kMembers ? (int)(qc / C) : 0, c = kMembers ? (int)(qc % C) : (int)qc;
+  const long band = (long)(2 * h + 1) * nvar * nvar * N;
+  const long rows = (long)Mc * S * S * C;
+  const long red = 4L * S * S * C;
+  spike_factor_chunk_wide<T, S>(bands + b * band, fac + b * rows, Dhinv + b * rows,
+                                DU + b * rows, Wsp + b * rows, Vsp + b * rows,
+                                Lred + b * red, Ured + b * red, N, nvar, g, h, Mc, C, wrap,
+                                alpha, beta_b ? beta_b[b] : beta, c,
+                                tf::Group{grp * S, lane - grp * S}, store);
+}
+
 template <typename T>
 int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured,
            const T* beta_b, int N, int nvar, int g, int h, int Mc, int C, int wrap, int B,
            double alpha, double beta, cudaStream_t stream) {
   const int threads = 128;
-  const long blocks = ((long)B * C + threads - 1) / threads;
   const T a = T(alpha), bt = T(beta);
   switch (nvar * g) {
+#ifdef TF_WIDE
 #define TF_LAUNCH(S, MEM)                                                               \
-  spike_factor_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(                       \
+  spike_factor_wide_kernel<T, S, MEM><<<((long)B * C + 32 / S * 4 - 1) / (32 / S * 4),  \
+                                        threads, 0, stream>>>(                          \
       bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, nvar, g, h, Mc, C, wrap, B, a, bt)
+#else
+#define TF_LAUNCH(S, MEM)                                                               \
+  spike_factor_kernel<T, S, MEM><<<((long)B * C + threads - 1) / threads, threads, 0,   \
+                                   stream>>>(                                           \
+      bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, nvar, g, h, Mc, C, wrap, B, a, bt)
+#endif
 #define TF_CASE(S)                                                                      \
   case S:                                                                               \
     if (B > 1)                                                                          \
@@ -85,10 +227,17 @@ int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured
     else                                                                                \
       TF_LAUNCH(S, false);                                                              \
     break;
+#ifdef TF_WIDE
+    TF_CASE(5)
+    TF_CASE(6)
+    TF_CASE(7)
+    TF_CASE(8)
+#else
     TF_CASE(1)
     TF_CASE(2)
     TF_CASE(3)
     TF_CASE(4)
+#endif
 #undef TF_CASE
 #undef TF_LAUNCH
     default:

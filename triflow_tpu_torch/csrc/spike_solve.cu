@@ -28,7 +28,18 @@
 // once.
 //
 // The bodies live in sweep.cuh, shared with K6 (megastep.cu).
+//
+// Wide blocks (S = 5..8) are built into a library of their own, from this
+// file with TF_WIDE defined: the same bodies, one thread per chunk or node.
+// They hold vectors of S entries and stream each block's entries into a
+// product, so unlike K2 and K4's factor they need no group of lanes.
 #include "sweep.cuh"
+
+#ifdef TF_WIDE
+#define TF_CASES TF_CASE(5) TF_CASE(6) TF_CASE(7) TF_CASE(8)
+#else
+#define TF_CASES TF_CASE(1) TF_CASE(2) TF_CASE(3) TF_CASE(4)
+#endif
 
 namespace {
 
@@ -83,10 +94,7 @@ int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred
     else                                                                                \
       TF_LAUNCH(S, false);                                                              \
     break;
-    TF_CASE(1)
-    TF_CASE(2)
-    TF_CASE(3)
-    TF_CASE(4)
+    TF_CASES
 #undef TF_CASE
 #undef TF_LAUNCH
     default:
@@ -112,10 +120,7 @@ int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, cons
     else                                                                             \
       TF_LAUNCH(S, false);                                                           \
     break;
-    TF_CASE(1)
-    TF_CASE(2)
-    TF_CASE(3)
-    TF_CASE(4)
+    TF_CASES
 #undef TF_CASE
 #undef TF_LAUNCH
     default:

@@ -103,10 +103,15 @@ class Library:
         check(self.lib, rc, what)
 
 
-def csrc_library(filename: str) -> Library:
-    """The library of one source file in ``csrc/``."""
-    return Library(Path(filename).stem,
-                   lambda: (CSRC / filename).read_text())
+def csrc_library(filename: str, define: str = None) -> Library:
+    """The library of one source file in ``csrc/``; with ``define``, a
+    library of its own (``<stem>_<define in lower case>``) built from the
+    same file with that macro defined to 1."""
+    if define is None:
+        return Library(Path(filename).stem,
+                       lambda: (CSRC / filename).read_text())
+    return Library(f"{Path(filename).stem}_{define.lower().removeprefix('tf_')}",
+                   lambda: f"#define {define} 1\n" + (CSRC / filename).read_text())
 
 
 def bind(lib: ctypes.CDLL, fname: str, n_ptr: int, n_int: int,

@@ -91,7 +91,9 @@ def small_inv(D):
         top = torch.cat([Ainv + mm(AinvB, mm(Sinv, CAinv)), -mm(AinvB, Sinv)], -2)
         bot = torch.cat([-mm(Sinv, CAinv), Sinv], -2)
         return torch.cat([top, bot], -3)
-    return torch.linalg.inv(D.movedim(-1, -3)).movedim(-3, -1)
+    # contiguous like the closed forms: the plain PCR factor of interface
+    # blocks above 8 is handed on to K4's wrappers
+    return torch.linalg.inv(D.movedim(-1, -3)).movedim(-3, -1).contiguous()
 
 
 def supernode_size(W: int, nvar: int):

@@ -36,11 +36,35 @@ LEVEL_US = 9.0
 SLAB_US = 3.5
 
 
-def plan_cost_us(M: int, C: int) -> float:
+#: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide
+#: libraries), in microseconds of one fixed RODASPR step, fitted to
+#: chip_smoke.py's chunk-count sweep of the s = 6 falling film at N = 10^6
+#: (float64; PERF.md): K2's and K3's sweeps walk the Mc rows of a chunk, and
+#: every level of K4's factor walks the chunks in passes of
+#: ``wide_pass_chunks(s)`` lane groups, its cost bound by their shuffles.
+#: Both grow as the per-lane work of the lane groups, s^2: the other wide
+#: block sizes scale the s = 6 fit (not measured)
+WIDE_ROW_US = 76.2
+WIDE_PASS_US = 89.9
+WIDE_FIT_S = 6
+
+
+def wide_pass_chunks(s: int) -> int:
+    """Chunks in one pass of K4's wide factor: 32 // (2s) groups of 2s lanes
+    in each warp of its one block."""
+    return pcr.BLOCK_THREADS // 32 * (32 // (2 * s))
+
+
+def plan_cost_us(M: int, C: int, s: int = 1) -> float:
     """Modelled time of the sequential parts of one factor and solve with
-    C chunks of M // C rows."""
-    slabs = -(-C // pcr.BLOCK_THREADS)
-    return ROW_US * (M // C) + pcr.n_levels(C) * (LEVEL_US + SLAB_US * slabs)
+    C chunks of M // C rows of block size s."""
+    levels = pcr.n_levels(C)
+    if s <= thomas.NARROW_S:
+        slabs = -(-C // pcr.BLOCK_THREADS)
+        return ROW_US * (M // C) + levels * (LEVEL_US + SLAB_US * slabs)
+    passes = -(-C // wide_pass_chunks(s))
+    return (s / WIDE_FIT_S) ** 2 * (WIDE_ROW_US * (M // C)
+                                    + WIDE_PASS_US * levels * passes)
 
 
 #: cost model of an ensemble's plan (B members of C chunks each), in
@@ -144,7 +168,9 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool,
               B: int = 1) -> Plan:
     """Chunk plan: the admissible chunk count C (``chunk_counts``, at most
     ``pcr.MAX_C``) of least ``plan_cost_us``, or for B > 1 members of
-    least ``batch_plan_cost_us``."""
+    least ``batch_plan_cost_us`` (fitted at s = 2).  K4's scratch grows as
+    s^2 C: 7 (2s)^2 C entries, 235 MB at s = 8 and C = ``pcr.MAX_C`` in
+    float64, which the card holds."""
     M = N // max(halo, 1)
     cands = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
     if not cands:
@@ -156,7 +182,8 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool,
     if B > 1:
         C = min(cands, key=lambda C: (batch_plan_cost_us(M, C, B), C))
     else:
-        C = min(cands, key=lambda C: (plan_cost_us(M, C), C))
+        s = nvar * max(halo, 1)
+        C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
     return plan_with(N, nvar, halo, periodic, C, B)
 
 

@@ -321,6 +321,13 @@ def check_all_mixed_residuals(device, results=None, seed=0):
     return results
 
 
+def solver_entry(name, s):
+    """The name a K2-K4 entry's check records at block size s: the wide
+    libraries' launches count apart (``thomas.pick``), and so do their
+    errors."""
+    return f"{name}_wide" if s > thomas.NARROW_S else name
+
+
 def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
                  plan=None):
     """K2, K4 (factor; the R-column solve; on a Woodbury plan the closure's
@@ -333,8 +340,12 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     tol = TOL[dtype]["solve"]
     if plan is None:
         plan = chunked.make_plan(N, nvar, W // 2, periodic)
-    what = (f"N={N} s={plan.s} C={plan.C} cyclic={plan.cyclic} "
+    what = (f"N={N} s={plan.s} C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
             f"woodbury={plan.woodbury}")
+
+    def n(name):
+        return solver_entry(name, plan.s)
+
     rng = np.random.default_rng(seed)
     rhs = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
     add = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
@@ -342,12 +353,12 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     sp_k = thomas.spike_factor(bands, alpha, beta, plan)
     sp_p = thomas.spike_factor_plain(bands, alpha, beta, plan)
     for got, want in zip(sp_k, sp_p):
-        _record(results, "K2.spike_factor", got, want, tol, what)
+        _record(results, n("K2.spike_factor"), got, want, tol, what)
 
     red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
     red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
     for got, want in zip(red_k, red_p):
-        _record(results, "K4.pcr_factor", got, want, tol, what)
+        _record(results, n("K4.pcr_factor"), got, want, tol, what)
     wood = ()
     if plan.woodbury:
         # the acyclic factor of the ring's reduced system ignores its
@@ -356,28 +367,28 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
         Lm[..., 0] = 0.0
         Um[..., -1] = 0.0
         for got, want in zip(red_k, pcr.pcr_factor_plain(Lm, Um, False)):
-            _record(results, "K4.pcr_factor", got, want, tol, f"masked {what}")
+            _record(results, n("K4.pcr_factor"), got, want, tol, f"masked {what}")
         wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
         for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
-            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
+            _record(results, n("K4.pcr_solve"), got, want, tol, f"woodbury {what}")
     cols = torch.tensor(rng.standard_normal((2 * plan.s, 2 * plan.s, plan.C)),
                         dtype=dtype, device=device)
-    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
+    _record(results, n("K4.pcr_solve"), pcr.pcr_solve(red_p, cols),
             pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
 
     y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
     y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
-    _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
-    _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
+    _record(results, n("K3.thomas_sweep"), y_k, y_p, tol, what)
+    _record(results, n("K3.thomas_sweep"), yred_k, yred_p, tol, what)
 
     sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
     sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
     for got, want in zip(sh_k, sh_p):
-        _record(results, "K4.pcr_solve_shift", got, want, tol, what)
+        _record(results, n("K4.pcr_solve_shift"), got, want, tol, what)
 
     x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
     x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
-    _record(results, "K3.spike_correct", x_k, x_p, tol, what)
+    _record(results, n("K3.spike_correct"), x_k, x_p, tol, what)
 
     x = chunked.factor(alpha, beta, bands, periodic, plan).solve(rhs)
     A = torch.zeros_like(bands).double()
@@ -827,35 +838,39 @@ def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
     lead = tuple(bands.shape[:-4])
     what = (f"B={plan.B} N={plan.N} s={plan.s} C={plan.C} Mc={plan.Mc} "
             f"cyclic={plan.cyclic} woodbury={plan.woodbury}")
+
+    def n(name):
+        return solver_entry(name, plan.s)
+
     rng = np.random.default_rng(seed)
     sp_k = thomas.spike_factor(bands, 1.0, beta, plan)
     sp_p = thomas.spike_factor_plain(bands, 1.0, beta, plan)
     for got, want in zip(sp_k, sp_p):
-        _record(results, "K2.spike_factor", got, want, tol, what)
+        _record(results, n("K2.spike_factor"), got, want, tol, what)
     red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
     red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
     for got, want in zip(red_k, red_p):
-        _record(results, "K4.pcr_factor", got, want, tol, what)
+        _record(results, n("K4.pcr_factor"), got, want, tol, what)
     wood = ()
     if plan.woodbury:
         wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
         for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
-            _record(results, "K4.pcr_solve", got, want, tol, f"woodbury {what}")
+            _record(results, n("K4.pcr_solve"), got, want, tol, f"woodbury {what}")
     cols = torch.tensor(rng.standard_normal((*lead, 2 * plan.s, 2 * plan.s,
                                              plan.C)), dtype=dtype, device=device)
-    _record(results, "K4.pcr_solve", pcr.pcr_solve(red_p, cols),
+    _record(results, n("K4.pcr_solve"), pcr.pcr_solve(red_p, cols),
             pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
     y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
     y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
-    _record(results, "K3.thomas_sweep", y_k, y_p, tol, what)
-    _record(results, "K3.thomas_sweep", yred_k, yred_p, tol, what)
+    _record(results, n("K3.thomas_sweep"), y_k, y_p, tol, what)
+    _record(results, n("K3.thomas_sweep"), yred_k, yred_p, tol, what)
     sh_k = pcr.pcr_solve_shift(red_p, yred_p, plan.wrap, *wood)
     sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
     for got, want in zip(sh_k, sh_p):
-        _record(results, "K4.pcr_solve_shift", got, want, tol, what)
+        _record(results, n("K4.pcr_solve_shift"), got, want, tol, what)
     x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
     x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
-    _record(results, "K3.spike_correct", x_k, x_p, tol, what)
+    _record(results, n("K3.spike_correct"), x_k, x_p, tol, what)
     return results
 
 
@@ -1023,5 +1038,46 @@ def run_batched(device, dtypes=(torch.float64, torch.float32), B=BATCH):
                           device=device)
             check_megastep_batched(model, N, periodic, dt, device, results,
                                    adaptive, B)
+        out[str(dtype).replace("torch.", "")] = results
+    return out
+
+
+# ------------------------------------------------------ wide block sizes
+
+#: (W, nvar, N, periodic, C) of the wide solver checks: block sizes s = 5
+#: (3, 5), 6 (5, 3), 7 (3, 7) and 8 ((5, 4) and (3, 8)), each on a ring
+#: closed block-cyclic (a power of two C >= 8), a ring closed by the
+#: Woodbury correction and an acyclic grid, with up to 256 rows per chunk
+#: and chunk counts that leave the last warp of K2's and K4's lane groups
+#: part full (one chunk, at s = 8)
+WIDE_SOLVER_CASES = [
+    (3, 5, 4096, True, 16), (3, 5, 3000, True, 12), (3, 5, 2000, False, 10),
+    (5, 3, 4096, True, 8), (5, 3, 6000, True, 12), (5, 3, 2000, False, 5),
+    (3, 7, 2048, True, 8), (3, 7, 1500, True, 6), (3, 7, 1000, False, 4),
+    (5, 4, 2048, True, 8), (5, 4, 3000, True, 6), (5, 4, 1200, False, 3),
+    (3, 8, 2048, True, 16), (3, 8, 1000, True, 5), (3, 8, 800, False, 4),
+    (3, 8, 64, False, 1),
+]
+#: (W, nvar, N, periodic) of the wide member-axis checks (B = BATCH): s = 6
+#: and 8, block-cyclic and Woodbury rings
+WIDE_BATCH_CASES = [(5, 3, 2048, True), (5, 3, 1200, True), (3, 8, 1024, True),
+                    (3, 8, 1000, True)]
+
+
+def run_wide(device, dtypes=(torch.float64, torch.float32), B=BATCH):
+    """K2-K4 at the wide block sizes, one grid (``WIDE_SOLVER_CASES``) and
+    B members (``WIDE_BATCH_CASES``), both dtypes; returns {dtype name:
+    {kernel entry: max abs error}}."""
+    out = {}
+    for dtype in dtypes:
+        results = {}
+        for i, (W, nvar, N, periodic, C) in enumerate(WIDE_SOLVER_CASES):
+            bands = random_bands(W, nvar, N, dtype, device, seed=i)
+            plan = chunked.plan_with(N, nvar, W // 2, periodic, C)
+            check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results,
+                         plan=plan)
+        for i, (W, nvar, N, periodic) in enumerate(WIDE_BATCH_CASES):
+            check_solver_batched(W, nvar, N, periodic, dtype, device, B, seed=i,
+                                 results=results)
         out[str(dtype).replace("torch.", "")] = results
     return out

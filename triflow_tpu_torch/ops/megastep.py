@@ -65,6 +65,11 @@ MIXED_LAUNCHES = Counter("K6.step_mixed")
 
 #: stages of the widest table (RODASPR); kMaxStages in csrc/megastep.cu
 MAX_STAGES = 6
+#: widest block size s = nvar * max(halo, 1) K6 is instantiated for, the
+#: reference's gate (its ``megastep.applicable``); K2-K4 go to
+#: ``thomas.MAX_S``, but csrc/megastep.cu, which shares their s <= 4
+#: bodies, has no wider instantiation
+MAX_S = 4
 #: threads of the one block (kThreads in csrc/megastep.cu)
 BLOCK_THREADS = 256
 #: largest grid K6 takes, by block size s = nvar * max(halo, 1): the
@@ -387,6 +392,17 @@ def _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk):
     return prepared
 
 
+def check_plan(plan, sysm, what):
+    """Raise ValueError unless K6 takes ``plan`` for the model system
+    ``sysm``: the model's variables and halo, and a block size of at most
+    ``MAX_S``."""
+    if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo):
+        raise ValueError(f"{what}: plan {plan} does not fit the model")
+    if plan.s > MAX_S:
+        raise ValueError(f"{what}: block size s = {plan.s} > {MAX_S}, which "
+                         "K6 has no instantiation for")
+
+
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
@@ -397,8 +413,9 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
     """Check the inputs, allocate the outputs and the scratch, launch one
     K6 entry; returns (u_out, info (B, INFO) float64 on the device)."""
     what = f"K6 {entry}"
-    check_cuda((u, helpers, pstack, x), backend.dtype, what)
     sysm = backend.system
+    check_plan(plan, sysm, what)
+    check_cuda((u, helpers, pstack, x), backend.dtype, what)
     N = plan.N
     B, lead = members(u, 2)
     check_shapes(what, u=(u, (*lead, sysm.nvar, N)),
@@ -408,8 +425,6 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
     check_cuda(per_member, backend.dtype, what)
     check_shapes(what, **{f"per-member[{k}]": (t, (B,))
                           for k, t in enumerate(per_member)})
-    if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo) or plan.s > thomas.MAX_S:
-        raise ValueError(f"{what}: plan {plan} does not fit the model")
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")
@@ -566,14 +581,13 @@ def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
                         beta, scale, nsteps, passes)
         return u2, torch.full((), np.inf, dtype=u.dtype)
     what = "K6 step_mixed"
-    check_cuda((u, helpers, pstack, x), torch.float64, what)
     sysm = backend.system
+    check_plan(plan, sysm, what)
+    check_cuda((u, helpers, pstack, x), torch.float64, what)
     N = plan.N
     check_shapes(what, u=(u, (sysm.nvar, N)),
                  helpers=(helpers, (len(sysm.help_funcs), N)),
                  pstack=(pstack, (len(sysm.pars), N)), x=(x, (N,)))
-    if (plan.nvar, plan.halo) != (sysm.nvar, sysm.halo) or plan.s > thomas.MAX_S:
-        raise ValueError(f"{what}: plan {plan} does not fit the model")
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")

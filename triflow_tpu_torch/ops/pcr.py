@@ -17,7 +17,13 @@ Z and inverts its capacitance in one launch, and every
 close the ring.
 
 Every kernel entry runs one thread block per member, so the chunk count is
-capped at ``MAX_C``.  Member axis: an ensemble's reduced systems
+capped at ``MAX_C``.  Interface blocks s2 = 2s of s <= ``thomas.NARROW_S``
+launch ``csrc/pcr.cu``'s library; s2 = 10..16 (s = 5..8) its wide library
+(``TF_WIDE``: the factor on groups of s2 lanes), whose launches count
+apart (``..._wide``).  The scratch of the wide factor is 7 s2^2 C entries:
+235 MB at s2 = 16, C = ``MAX_C`` in float64.
+
+Member axis: an ensemble's reduced systems
 ``Lred, Ured (B, 2s, 2s, C)`` factor into level operators
 ``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block each
 (``gridDim.x = B``); right-hand sides lead with B the same way.
@@ -37,6 +43,9 @@ from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 FACTOR_LAUNCHES = Counter("K4.pcr_factor")
 SOLVE_LAUNCHES = Counter("K4.pcr_solve_shift")
 COLS_LAUNCHES = Counter("K4.pcr_solve")
+FACTOR_WIDE_LAUNCHES = Counter("K4.pcr_factor_wide")
+SOLVE_WIDE_LAUNCHES = Counter("K4.pcr_solve_shift_wide")
+COLS_WIDE_LAUNCHES = Counter("K4.pcr_solve_wide")
 
 #: most chunks the one-block kernels take
 MAX_C = 16384
@@ -44,6 +53,7 @@ MAX_C = 16384
 BLOCK_THREADS = 512
 
 LIB = csrc_library("pcr.cu")
+WIDE_LIB = csrc_library("pcr.cu", "TF_WIDE")
 
 
 class PcrFactor(NamedTuple):
@@ -65,6 +75,11 @@ def _check_sizes(s2, C, what):
     if s2 % 2 or s2 > 2 * thomas.MAX_S:
         raise NotImplementedError(
             f"{what}: interface block size {s2} has no kernel instantiation")
+
+
+def _pick(s2, narrow, wide):
+    """(library, counter) of an interface block size s2."""
+    return (LIB, narrow) if s2 <= 2 * thomas.NARROW_S else (WIDE_LIB, wide)
 
 
 def pcr_factor_plain(Lred, Ured, cyclic: bool) -> PcrFactor:
@@ -96,12 +111,13 @@ def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     Dinv = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
     scratch = torch.empty((B, 7, s2, s2, C), dtype=Lred.dtype,
                           device=Lred.device)
-    fn = LIB.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
+    lib, launches = _pick(s2, FACTOR_LAUNCHES, FACTOR_WIDE_LAUNCHES)
+    fn = lib.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
     rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
             ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
             int(bool(cyclic)), B, stream_of(Lred))
-    LIB.check(rc, what)
-    FACTOR_LAUNCHES.add()
+    lib.check(rc, what)
+    launches.add()
     return PcrFactor(ops[0], ops[1], Dinv)
 
 
@@ -141,12 +157,13 @@ def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R, B):
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    fn = LIB.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 4)
+    lib, launches = _pick(s2, COLS_LAUNCHES, COLS_WIDE_LAUNCHES)
+    fn = lib.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 4)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
             ptr(b), ptr(Lred), ptr(Ured), out.data_ptr(), ptr(cap_inv),
             scratch.data_ptr(), C, s2, R, B, stream_of(red.Dinv))
-    LIB.check(rc, "K4 pcr_solve")
-    COLS_LAUNCHES.add()
+    lib.check(rc, "K4 pcr_solve")
+    launches.add()
 
 
 def pcr_solve(red: PcrFactor, b):
@@ -223,12 +240,13 @@ def pcr_solve_shift(red: PcrFactor, yred, wrap: bool, Z=None, cap_inv=None):
                      cap_inv=(cap_inv, (*lead, s2, s2)))
     out = torch.empty((2, *lead, s, C), dtype=yred.dtype, device=yred.device)
     scratch = torch.empty((B, 2, s2, C), dtype=yred.dtype, device=yred.device)
-    fn = LIB.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 4)
+    lib, launches = _pick(s2, SOLVE_LAUNCHES, SOLVE_WIDE_LAUNCHES)
+    fn = lib.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 4)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
             yred.data_ptr(), 0 if Z is None else Z.data_ptr(),
             0 if Z is None else cap_inv.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), scratch.data_ptr(), C, s2, int(bool(wrap)), B,
             stream_of(yred))
-    LIB.check(rc, what)
-    SOLVE_LAUNCHES.add()
+    lib.check(rc, what)
+    launches.add()
     return out[0], out[1]

@@ -2,11 +2,15 @@
 spike correction): wrappers and plain versions.
 
 K2 replaces the TPU's ``ops/folded.py:factor_sweeps_folded`` and
-``ops/pallas_thomas.py:_bwd_factor_call_cols``; K3 replaces
+``ops/pallas_thomas.py:_bwd_factor_call_cols`` (and, at block sizes 5..8,
+``chunked_factor_sweeps`` / ``fused_factor_sweeps``); K3 replaces
 ``ops/pallas_thomas.py:chunked_solve_flat`` and the spike correction of
 ``ops/folded.py:_solve_folded_flat``.  Sources: ``csrc/spike_factor.cu``
-and ``csrc/spike_solve.cu``.  The plain versions are the chunked factor
-and sweeps of ``ops/banded.py``.
+and ``csrc/spike_solve.cu``, each built twice: for block sizes s <=
+``NARROW_S`` (one thread per chunk) and, with ``TF_WIDE`` defined, for
+s = 5..``MAX_S`` (K2 walks a chunk with a group of s lanes), whose launches
+count apart (``..._wide``).  The plain versions are the chunked factor and
+sweeps of ``ops/banded.py``.
 
 Every wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``plan`` is an ``ops.chunked.Plan``.
@@ -32,19 +36,31 @@ from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 FACTOR_LAUNCHES = Counter("K2.spike_factor")
 SWEEP_LAUNCHES = Counter("K3.thomas_sweep")
 CORRECT_LAUNCHES = Counter("K3.spike_correct")
+FACTOR_WIDE_LAUNCHES = Counter("K2.spike_factor_wide")
+SWEEP_WIDE_LAUNCHES = Counter("K3.thomas_sweep_wide")
+CORRECT_WIDE_LAUNCHES = Counter("K3.spike_correct_wide")
 
-#: the block sizes s = nvar * max(halo, 1) the kernels are instantiated for
-MAX_S = 4
+#: the block sizes s = nvar * max(halo, 1) the kernels are instantiated
+#: for, as the reference's sweeps serve them: s <= NARROW_S in the
+#: libraries of spike_factor.cu and spike_solve.cu, NARROW_S < s <= MAX_S
+#: in their wide libraries
+MAX_S = 8
+NARROW_S = 4
 
 FACTOR_LIB = csrc_library("spike_factor.cu")
 SOLVE_LIB = csrc_library("spike_solve.cu")
+FACTOR_WIDE_LIB = csrc_library("spike_factor.cu", "TF_WIDE")
+SOLVE_WIDE_LIB = csrc_library("spike_solve.cu", "TF_WIDE")
 
 
-def _check_s(plan, what):
-    if plan.s > MAX_S:
+def pick(s, what, narrow, wide):
+    """``narrow`` or ``wide`` (each a library and its launch counter) by
+    the block size s; raises where no library instantiates s."""
+    if s > MAX_S:
         raise NotImplementedError(
-            f"{what}: block size s = {plan.s} > {MAX_S} has no kernel "
-            "instantiation yet")
+            f"{what}: block size s = {s} > {MAX_S} has no kernel "
+            "instantiation")
+    return narrow if s <= NARROW_S else wide
 
 
 def members(t, unbatched_ndim):
@@ -98,20 +114,21 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
     check_cuda((bands,), bands.dtype, what)
     check_shapes(what, bands=(bands, (*lead, plan.W, plan.nvar, plan.nvar,
                                       plan.N)))
-    _check_s(plan, what)
+    lib, launches = pick(plan.s, what, (FACTOR_LIB, FACTOR_LAUNCHES),
+                         (FACTOR_WIDE_LIB, FACTOR_WIDE_LAUNCHES))
     beta_ptr, beta_val = beta_args(beta, B, bands.dtype, bands.device, what)
     s, C = plan.s, plan.C
     rows = torch.empty((5, *_rows_shape(plan, lead)), dtype=bands.dtype,
                        device=bands.device)
     red = torch.empty((2, *lead, 2 * s, 2 * s, C), dtype=bands.dtype,
                       device=bands.device)
-    fn = FACTOR_LIB.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 8, 2)
+    fn = lib.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 8, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
             red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.N, plan.nvar,
             plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, float(alpha),
             beta_val, stream_of(bands))
-    FACTOR_LIB.check(rc, what)
-    FACTOR_LAUNCHES.add()
+    lib.check(rc, what)
+    launches.add()
     return banded.SpikeFactor(*rows, red[0], red[1])
 
 
@@ -134,16 +151,17 @@ def thomas_sweep(fact: banded.SpikeFactor, rhs, plan):
     check_shapes(what, rhs=(rhs, (*lead, plan.nvar, plan.N)),
                  fac=(fact.fac, rows), Dhinv=(fact.Dhinv, rows),
                  DU=(fact.DU, rows))
-    _check_s(plan, what)
+    lib, launches = pick(plan.s, what, (SOLVE_LIB, SWEEP_LAUNCHES),
+                         (SOLVE_WIDE_LIB, SWEEP_WIDE_LAUNCHES))
     y = torch.empty_like(rhs)
     yred = torch.empty((*lead, 2 * plan.s, plan.C), dtype=rhs.dtype,
                        device=rhs.device)
-    fn = SOLVE_LIB.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 6)
+    fn = lib.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 6)
     rc = fn(fact.fac.data_ptr(), fact.Dhinv.data_ptr(), fact.DU.data_ptr(),
             rhs.data_ptr(), y.data_ptr(), yred.data_ptr(), plan.N, plan.nvar,
             plan.g, plan.Mc, plan.C, B, stream_of(rhs))
-    SOLVE_LIB.check(rc, what)
-    SWEEP_LAUNCHES.add()
+    lib.check(rc, what)
+    launches.add()
     return y, yred
 
 
@@ -176,13 +194,14 @@ def spike_correct(fact: banded.SpikeFactor, y, xm1, xp1, plan, add_to=None):
         shapes["add_to"] = (add_to, (*lead, plan.nvar, plan.N))
     check_cuda([t for t, _ in shapes.values()], y.dtype, what)
     check_shapes(what, **shapes)
-    _check_s(plan, what)
+    lib, launches = pick(plan.s, what, (SOLVE_LIB, CORRECT_LAUNCHES),
+                         (SOLVE_WIDE_LIB, CORRECT_WIDE_LAUNCHES))
     out = torch.empty_like(y)
-    fn = SOLVE_LIB.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 7)
+    fn = lib.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 7)
     rc = fn(y.data_ptr(), fact.W.data_ptr(), fact.V.data_ptr(), xm1.data_ptr(),
             xp1.data_ptr(), 0 if add_to is None else add_to.data_ptr(),
             out.data_ptr(), plan.N, plan.nvar, plan.g, plan.Mc, plan.C,
             int(add_to is not None), B, stream_of(y))
-    SOLVE_LIB.check(rc, what)
-    CORRECT_LAUNCHES.add()
+    lib.check(rc, what)
+    launches.add()
     return out
