@@ -15,7 +15,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
    ``triflow_tpu_torch.ops.kernel_checks`` at small and odd shapes (K6 at
    the shapes of ``tests/test_torch_megastep.py``), then at the shapes of
    the main paths below, K7 (the banded matvec) among them on the bands
-   and vectors of the refine and solver cases (``matvec_path_checks``).
+   and vectors of the refine and solver cases (``matvec_path_checks``),
+   K3's staged sweep at block sizes 1..8 (one grid and members, Mc = 2,
+   odd and no multiple of the stage rows, the forward results kept and
+   streamed: ``kernel_checks.check_all_sweeps``), K5 bit for bit at KS
+   2^20's shape, unaligned and with a vector tail, and K2-K4 on the padded
+   paths' bands and plans (``padded_path_checks``).
 2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64,
    each case driven with the launch counts set to 0 just before it and read
    just after: the Theta path (Burgers at the reference's N = 10^6, 10
@@ -144,6 +149,19 @@ launches of K1, K5 and the wide entries; phase 3 (``phase3_film``) times
 its steps, profiles them, holds each wide entry against its plain version
 and bound, and sweeps the chunk count behind ``chunked.WIDE_ROW_US`` /
 ``WIDE_PASS_US``.
+
+Padded grids (plans that grow the system with identity rows) run in
+phases 2 and 3: ``phase2_padded`` steps KS at N = 999983 (periodic, N no
+multiple of g = 2: the ring closed at the system level, 2 nvar h column
+solves per factor), KS on an edge grid of 2 x 1000003 nodes (a prime
+supernode count, which planned one chunk before), the README model at N =
+199 (K6 keeps its serial plan) and at N = 4099 (K6 declines it, K1-K5 pad
+it), each with exact launches and against the port's CPU f64 run
+(``padded_cpu_runs``, in a process of its own); ``phase3_padded`` times
+the 999983 step beside 10^6 and the edge step beside 2 x 10^6 (with a
+profile of the ring's step), the README steps synchronised, and sweeps
+the chunk count of KS at N = 10^6 behind ``chunked.ROW_US`` /
+``LEVEL_US`` / ``SLAB_US``.
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
@@ -275,7 +293,8 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
-               "combine_kernel": "K5.combine", "step_mixed_kernel": "K6.step_mixed",
+               "combine_kernel": "K5.combine", "combine_vec_kernel": "K5.combine",
+               "step_mixed_kernel": "K6.step_mixed",
                "step_kernel": "K6.step", "mixed_residual": "K8.residual",
                "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan",
                "matvec_kernel": "K7.matvec",
@@ -367,27 +386,27 @@ SWEEP_EXPONENTS = range(10, 17)
 #: grid must take: (route, C, Woodbury))
 CASES = [
     ("burgers N=2^20 theta (4 steps)", BURGERS, burgers_case(N_BIG, 0.05, 4 * 0.05), THETA,
-     1e-4, 1e-10, THETA_KERNELS, ("chunked", 4096, False)),
+     1e-4, 1e-10, THETA_KERNELS, ("chunked", 2048, False)),
     ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF), THETA, 1e-4, 1e-10,
-     THETA_KERNELS + WOOD, ("chunked", 4000, True)),
+     THETA_KERNELS + WOOD, ("chunked", 2000, True)),
     ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"],
      ("megastep", 100, False)),
     ("ks N=2^20 rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH,
-     ("chunked", 4096, False)),
+     ("chunked", 1024, False)),
     ("ks N=10^6 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9,
-     MULTI_LAUNCH + WOOD, ("chunked", 2500, True)),
+     MULTI_LAUNCH + WOOD, ("chunked", 1000, True)),
     ("ks N=2^20 rodaspr adaptive tol 1e-3 (1 x 1.0)", KS, ks_case(1.0, 1.0),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 4096, False)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 1024, False)),
     ("ks N=10^6 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0, N_REF),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 2500, True)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 1000, True)),
     ("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 256, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD,
-     ("chunked", 500, True)),
+     ("chunked", 250, True)),
     ("burgers N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", BURGERS,
      burgers_case(N_REF_SMALL, 1.0, 2.0), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 250, True)),
@@ -398,17 +417,17 @@ CASES = [
      ("megastep", 100, False)),
     # refine= and Theta(solver=): K1-K5 and K7, never K6 (REFINE_CHECKS)
     ("ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
-     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 2500, True)),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 1000, True)),
     ("advdiff N=1024 rodaspr fixed (500 x 0.01)", README, advdiff_case(), FIXED,
      1e-4, 1e-9, ["K6.step"], ("megastep", 256, False)),
     ("advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)", README, advdiff_case(),
      REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 64, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3, refine=1), 1e-2, 1e-9,
-     MULTI_LAUNCH + WOOD + K7, ("chunked", 500, True)),
+     MULTI_LAUNCH + WOOD + K7, ("chunked", 250, True)),
     ("burgers N=10^6 theta solver= (10 steps)", BURGERS, burgers_case(N_REF),
      dict(THETA, solver=chunked_solver), 1e-4, 1e-10,
-     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 4000, True)),
+     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 2000, True)),
 ]
 #: cases driven by ``scheme(t, fields, dt, pars)`` a fixed number of times
 #: (``run_steps``), not by ``Simulation``: 500 steps of 0.01 do not land on
@@ -909,6 +928,11 @@ def phase1():
                                           plan=plan)
         if dtype == torch.float64:
             mixed_path_checks(res)
+        # K3's staged sweep at s = 1..8 (one grid and members, Mc = 2, odd,
+        # no multiple of the stage rows, kept and streamed), K5 bit for bit
+        kernel_checks.check_all_sweeps("cuda", dtype, res)
+        kernel_checks.check_combines_exact("cuda", dtype, res)
+        padded_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
     # the member axis: K1-K4 and K6 on B = 4 members (block-cyclic and
@@ -1110,11 +1134,12 @@ _CPU = {}
 
 
 def start_cpu_refs():
-    """Start the CPU f64 runs, in two processes of their own: phase 2's
-    cases (``cpu_reference_runs``) and the falling film's
-    (``film_cpu_runs``)."""
+    """Start the CPU f64 runs, in three processes of their own: phase 2's
+    cases (``cpu_reference_runs``), the falling film's (``film_cpu_runs``)
+    and the padded grids' (``padded_cpu_runs``)."""
     ctx = multiprocessing.get_context("spawn")
-    for key, target in (("main", cpu_reference_runs), ("film", film_cpu_runs)):
+    for key, target in (("main", cpu_reference_runs), ("film", film_cpu_runs),
+                        ("padded", padded_cpu_runs)):
         mine, theirs = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=target, args=(theirs,))
         proc.start()
@@ -1516,10 +1541,11 @@ def phase3():
                     f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                     f"{ops} operations)"
                     + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
-                if name == "K7.matvec":
+                if name == "K7.matvec" or N == N_BIG and name in ("K5.combine",
+                                                                   "K3.thomas_sweep"):
                     # back-to-back launches of a kernel this short time the
                     # wrapper's host work; the profiler gives the device's
-                    log_launch_us(f"K7.matvec alone {grid} {dt_name}", kern, "K7.matvec")
+                    log_launch_us(f"{name} alone {grid} {dt_name}", kern, name)
     return times
 
 
@@ -1553,6 +1579,36 @@ def fit_batch_cost(points):
         out[key] = resid[at:at + len(points[key])]
         at += len(points[key])
     return fit[0], fit[1], fit[2], out
+
+
+def minimax_batch_cost(points):
+    """(a, b, c, worst): the constants of ``chunked.batch_plan_cost_us``
+    (us per row walked, per level walked, per doubling) on a grid (a in
+    0.5..6, b in 0..200, c in 0..3000) whose worst float64 pick over the
+    shapes of {(dtype, B, N): [(C, us), ...]} is nearest the fastest
+    measured plan, and that worst gap (a share)."""
+    grid = np.stack(np.meshgrid(np.linspace(0.5, 6, 23), np.linspace(0, 200, 41),
+                                np.linspace(0, 3000, 61), indexing="ij"), -1).reshape(-1, 3)
+    worst = np.zeros(len(grid))
+    for (dt_name, B, N), pts in points.items():
+        if dt_name != "float64":
+            continue
+        Cs, us = zip(*pts)
+        feats = np.array([chunked.batch_features(N // 2, C, B) for C in Cs])
+        picks = np.argmin(grid @ feats.T, axis=1)
+        worst = np.maximum(worst, np.array(us)[picks] / min(us) - 1)
+    at = int(np.argmin(worst))
+    return (*grid[at], worst[at])
+
+
+def nnls_fit(features, ms):
+    """Non-negative least squares, relative weights, of the measured ms
+    (in us) over the rows of ``features``."""
+    from scipy.optimize import nnls
+
+    A = np.array(features, dtype=float)
+    y = 1e3 * np.array(ms)
+    return nnls(A / y[:, None], np.ones_like(y))[0]
 
 
 def chunk_sweep(ens, B, N, chunks, steps):
@@ -1747,15 +1803,20 @@ def phase3_ensembles(errs):
             f"{bb:.4f} us per level walked, {c:.4f} us per doubling of C; relative "
             f"residuals max {max(every):.4f} rms {np.sqrt(np.mean(np.square(every))):.4f}; "
             f"it picks " + ", ".join(picks))
+    a, bb, c, worst = minimax_batch_cost(chunk_points)
+    log(f"  batch cost grid (float64, every shape): {a:.3f} us per row walked, {bb:.3f} us "
+        f"per level walked, {c:.3f} us per doubling of C; its worst float64 pick "
+        f"{100 * worst:.2f} % above the fastest")
     log(f"  batch_plan_cost_us has {chunked.BATCH_ROW_US}, {chunked.BATCH_LEVEL_US} and "
         f"{chunked.BATCH_SPLIT_US}:")
     for (dt_name, B, N), pts in chunk_points.items():
         meas = dict(pts)
         plan_c = chunked.make_plan(N, 1, 2, True, B).C
         best = min(meas, key=meas.get)
-        log(f"    B={B} N={N} {dt_name}: make_plan's C={plan_c} ({meas[plan_c]:.1f} us, "
-            f"{100 * (meas[plan_c] / meas[best] - 1):.1f} % above the best), measured best "
-            f"C={best} ({meas[best]:.1f} us)")
+        log(f"    B={B} N={N} {dt_name}: make_plan's C={plan_c} ("
+            + (f"{meas[plan_c]:.1f} us, {100 * (meas[plan_c] / meas[best] - 1):.1f} % above "
+               "the best" if plan_c in meas else "not measured")
+            + f"), measured best C={best} ({meas[best]:.1f} us)")
     return times
 
 
@@ -2666,18 +2727,246 @@ def phase3_film():
                              for _ in range(2))
             ros._plans[key] = plan0
             M = N // 2
-            A = np.array([[M // C, pcr.n_levels(C) * -(-C // chunked.wide_pass_chunks(6)), 1.0]
-                          for C in row])
-            coef, *_ = np.linalg.lstsq(A, 1e3 * np.array(list(row.values())), rcond=None)
+            coef = nnls_fit([[M // C, pcr.n_levels(C) * -(-C // chunked.wide_pass_chunks(6)),
+                              1.0] for C in row], list(row.values()))
             best = min(row, key=row.get)
             log(f"  film chunk sweep N=10^6 {dt_name} (ms per RODASPR step, the lower of two "
                 "CUDA-event means over 2 steps): "
                 + "; ".join(f"C={C} Mc={M // C}: {v:.4f}" for C, v in row.items())
                 + f" -> fastest C={best}; make_plan's C={plan0.C} at "
-                f"{row[plan0.C] / row[best] - 1:+.2%}; fit WIDE_ROW_US = {coef[0]:.2f}, "
+                f"{row[plan0.C] / row[best] - 1:+.2%}; non-negative fit WIDE_ROW_US = "
+                f"{coef[0]:.2f}, "
                 f"WIDE_PASS_US = {coef[1]:.2f}, offset {coef[2]:.1f} us (chunked has "
                 f"{chunked.WIDE_ROW_US}, {chunked.WIDE_PASS_US})")
     return times
+
+
+# ---------------------------------------------------------- padded grids
+
+#: the padded grids' sizes: a prime supernode count at g = 2
+#: and a periodic N that is no multiple of g = 2
+N_PRIME = 1000003
+N_ODD = 999983
+
+
+def ks_edge_case(N, dt=0.05, tmax=0.1):
+    """KS on an edge grid (no ring, no hook): ``ks_case``'s state."""
+    fields, _, _, _, _ = ks_case(dt, tmax, N)
+    return fields, dict(periodic=False), dt, tmax, None
+
+
+def readme_case_at(N):
+    """The README model's case on N nodes."""
+    fields, pars, dt, tmax, hook = readme_case()
+    x = np.linspace(0, 1, N)
+    return {"x": x, "U": np.cos(2 * np.pi * x * 5)}, pars, dt, tmax, hook
+
+
+#: (name, equations, case, scheme kwargs, steps, f32 tolerance, f64
+#: tolerance): driven by ``run_steps``, each held to the port's CPU f64 run
+#: (``padded_cpu_runs``) and to its exact launches (``padded_launches``).
+#: The README model at N = 199 takes whichever route K6's gate picks (its
+#: serial plan, cheaper than the multi-launch path); at N = 4099 (prime) K6
+#: declines it and K1-K5 pad it
+PADDED_CASES = [
+    ("ks N=999983 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2, N_ODD), FIXED, 4,
+     1e-4, 1e-9),
+    ("ks edge N=2*1000003 rodaspr fixed (2 x 0.05)", KS, ks_edge_case(2 * N_PRIME), FIXED, 2,
+     1e-4, 1e-9),
+    ("readme N=199 rodaspr fixed (10 x 5.0)", README, readme_case_at(199), FIXED, 10, 1e-3,
+     1e-9),
+    ("readme N=4099 rodaspr fixed (10 x 5.0)", README, readme_case_at(4099), FIXED, 10,
+     1e-3, 1e-9),
+    ("readme N=4099 theta (10 x 5.0)", README, readme_case_at(4099),
+     dict(scheme=schemes.Theta, theta=1.0), 10, 1e-3, 1e-10),
+]
+
+
+def padded_cpu_runs(conn):
+    """The port's CPU f64 runs of ``PADDED_CASES``, sent through ``conn``
+    as {name: (u, s)} or ("error", traceback); run in a process of its own
+    (``start_cpu_refs``)."""
+    try:
+        torch.set_num_threads(2)
+        out = {}
+        for name, eqs, case, kwargs, steps, *_ in PADDED_CASES:
+            start = time.perf_counter()
+            _, u, _ = run_steps(eqs, case, "cpu", torch.float64, kwargs, steps)
+            out[name] = (u.numpy(), time.perf_counter() - start)
+        conn.send(out)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def padded_launches(plan, kwargs, steps):
+    """The exact launches of ``steps`` fixed steps on a padded plan: per
+    step J, one factor (K2, K4) and, on a ring, its 2 nvar h columns'
+    solves; per stage (six RODASPR, one Theta) F, K5 (RODASPR) and one
+    solve (K3's sweep, K4's solve with shifts, K3's correction); never the
+    interface-level Woodbury set-up, K6 or anything else.  On K6's route
+    (``plan`` None) one K6.step per step."""
+    want = dict.fromkeys(KERNELS, 0)
+    if plan is None:
+        want["K6.step"] = steps
+        return want
+    stages = 1 if kwargs.get("scheme") is schemes.Theta else 6
+    solves = stages + (2 * plan.nvar * plan.halo if plan.ring else 0)
+    want.update({"K1.J": steps, "K2.spike_factor": steps, "K4.pcr_factor": steps,
+                 "K1.F": stages * steps, "K5.combine": 0 if stages == 1 else stages * steps,
+                 "K3.thomas_sweep": solves * steps, "K3.spike_correct": solves * steps,
+                 "K4.pcr_solve_shift": solves * steps})
+    return want
+
+
+def padded_path_checks(dtype, res):
+    """K2-K4 against their plain versions on the padded paths' first-step
+    bands and plans (the padded system's pieces, then the whole solve by
+    its residual): KS at N = 999983 (ring) and on the edge grid of 2 x
+    1000003 nodes, the README model at N = 199 (its chunked plan pads)."""
+    for eqs, case, g00 in ((KS, ks_case(0.05, 0.2, N_ODD), 0.25),
+                           (KS, ks_edge_case(2 * N_PRIME), 0.25),
+                           (README, readme_case_at(199), 1.0)):
+        model, _, pars, args, dt = path_inputs(eqs, case, dtype)
+        periodic = bool(pars["periodic"])
+        bands = model.backend.J_bands(*args, periodic=periodic)
+        kernel_checks.check_solver(bands, 1.0, -g00 * dt, periodic, results=res)
+
+
+def phase2_padded(launches):
+    """The padded grids through the schemes on the card: each case's plan
+    must pad (or, at the README model's N = 199, be K6's serial plan), its
+    launches must be exact, and its state must agree with the CPU f64 run."""
+    log("phase 2: padded grids")
+    runs = {}
+    for name, eqs, case, kwargs, steps, tol32, tol64 in PADDED_CASES:
+        plan = case_plan(eqs, case, "chunked")
+        mega = case_plan(eqs, case, "megastep")
+        if mega is None and not plan.padded or mega is not None and mega.C != 1:
+            raise RuntimeError(f"{name}: plan {plan} pads nothing, or K6's plan {mega} "
+                               "is not its serial one")
+        log(f"  {name}: " + (f"K6, plan C={mega.C} Mc={mega.Mc}" if mega else
+                             f"plan C={plan.C} Mc={plan.Mc} Np={plan.Np} ring={plan.ring}"))
+        want = padded_launches(None if mega else plan, kwargs, steps)
+        for dt_name, dtype in DTYPES.items():
+            torch.cuda.synchronize()
+            _launch.reset_counters()
+            start = time.perf_counter()
+            _, u, _ = run_steps(eqs, case, "cuda", dtype, kwargs, steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            log(f"  {name} {dt_name}: launches "
+                + json.dumps({k: v for k, v in counts.items() if v}))
+            off = {k: counts[k] for k in KERNELS if counts[k] != want[k]}
+            if off:
+                raise RuntimeError(f"{name} {dt_name}: launches {off}, expected "
+                                   + json.dumps({k: v for k, v in want.items() if v}))
+            for k in KERNELS:
+                launches[k] += counts[k]
+            runs[(name, dt_name)] = (u, secs)
+    refs = cpu_refs("padded")
+    for name, _, _, _, _, tol32, tol64 in PADDED_CASES:
+        u_ref, cpu_s = refs[name]
+        u_ref = torch.from_numpy(u_ref)
+        scale = float(u_ref.abs().max())
+        for dt_name in DTYPES:
+            u, secs = runs[(name, dt_name)]
+            if not bool(torch.isfinite(u).all()) or u.shape != u_ref.shape:
+                raise RuntimeError(f"{name} {dt_name}: non-finite or misshapen")
+            err = float((u.double().cpu() - u_ref).abs().max()) / scale
+            tol = tol32 if dt_name == "float32" else tol64
+            log(f"    {name} {dt_name}: {secs:.3f} s wall (first call); max|u - u_cpu_f64| "
+                f"/ max|u| = {err:.3e} (tolerance {tol:.0e}; CPU {cpu_s:.1f} s)")
+            if not err <= tol:
+                raise RuntimeError(f"{name} {dt_name}: disagrees with the CPU run")
+    return launches
+
+
+#: chunk counts of the KS N = 10^6 sweep (divisors of its M = 500000
+#: supernodes), behind ``chunked.ROW_US`` / ``LEVEL_US`` / ``SLAB_US``
+KS_CHUNKS = [500, 625, 1000, 1250, 2000, 2500, 3125, 4000, 5000, 6250, 10000, 15625]
+#: and of Burgers at N = 10^6 (divisors of 10^6)
+BURGERS_CHUNKS = [500, 1000, 1250, 2000, 2500, 4000, 5000, 8000]
+
+
+def phase3_padded():
+    """What padding costs: fixed RODASPR steps of KS at N = 999983 (ring)
+    beside 10^6, on the edge grid of 2 x 1000003 nodes beside 2 x 10^6,
+    in turns (CUDA events), with a profile of the 999983 step; the README
+    steps synchronised (N = 200 and 199 through K6, 199 and 4099 through
+    K1-K5, padded); and the chunk-count sweeps of KS at N = 10^6 (with the
+    least-squares fit of ``chunked.plan_cost_us``'s constants), KS at N =
+    2^20 and Burgers Theta at N = 10^6."""
+    log("phase 3: padded grids and the KS 10^6 chunk sweep (CUDA events)")
+    for dt_name, dtype in DTYPES.items():
+        for pair in (((ks_case(0.05, 0.2, N_REF), "ks N=10^6"),
+                      (ks_case(0.05, 0.2, N_ODD), "ks N=999983")),
+                     ((ks_edge_case(2 * 10 ** 6), "ks edge N=2*10^6"),
+                      (ks_edge_case(2 * N_PRIME), "ks edge N=2*1000003"))):
+            steps = []
+            for case, label in pair:
+                model, fields, pars_t, _, dt = path_inputs(KS, case, dtype)
+                ros = schemes.RODASPR(model, time_stepping=False, tol=None)
+                steps.append((label, functools.partial(ros, 0.0, fields, dt, pars_t),
+                              ros._plan(len(case[0]["x"]), bool(pars_t["periodic"]))))
+            (la, fa, pa), (lb, fb, pb) = steps
+            ms = [cuda_ms(f, 5) for f in (fa, fb, fb, fa)]
+            log(f"  rodaspr fixed step {dt_name}: {la} (C={pa.C} Mc={pa.Mc}) "
+                f"{ms[0]:.4f} / {ms[3]:.4f} ms, {lb} (C={pb.C} Mc={pb.Mc} Np={pb.Np} "
+                f"ring={pb.ring}) {ms[1]:.4f} / {ms[2]:.4f} ms: padded / not "
+                f"{min(ms[1], ms[2]) / min(ms[0], ms[3]):.4f}")
+            if pb.ring:
+                log_profile(f"rodaspr fixed step {lb}", dt_name, profile_calls(fb, 3))
+        steps = []
+        for N, withheld in ((200, False), (199, False), (199, True), (4099, False)):
+            model, fields, pars_t, _, dt = path_inputs(README, readme_case_at(N), dtype)
+            ros = schemes.RODASPR(model, time_stepping=False, tol=None)
+            if withheld:
+                multi_launch(ros, N, False)
+            steps.append(latency_ms(lambda: ros(0.0, fields, dt, pars_t, hook=dirichlet)))
+        log(f"  readme rodaspr step {dt_name}, synchronised (median, p10, p90 ms): " + ", ".join(
+            f"{label} " + " / ".join(f"{v:.4f}" for v in lat) for label, lat in zip(
+                ("N=200 (K6)", "N=199 (K6, serial plan)", "N=199 (K1-K5, padded)",
+                 "N=4099 (K1-K5, padded)"), steps)))
+        # the chunk-count sweep behind chunked.plan_cost_us (s <= 4), and two
+        # more grids whose plans the fit moved (KS 2^20 RODASPR, Burgers
+        # 10^6 Theta: which plans it picks there)
+        for label, eqs, case, sch, chunks, fit in (
+                ("ks N=10^6 rodaspr", KS, ks_case(0.05, 0.2, N_REF), FIXED, KS_CHUNKS, True),
+                ("ks N=2^20 rodaspr", KS, ks_case(0.05, 0.2, N_BIG), FIXED,
+                 [1 << e for e in range(8, 15)], False),
+                ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF),
+                 dict(scheme=schemes.Theta, theta=1.0), BURGERS_CHUNKS, False)):
+            model, fields, pars_t, _, dt = path_inputs(eqs, case, dtype)
+            step = sch["scheme"](model, **{k: v for k, v in sch.items() if k != "scheme"})
+            N = len(case[0]["x"])
+            sysm = model.system
+            key, plan0 = (N, True, 1), step._plan(N, True)
+            row = {}
+            for C in chunks:
+                step._plans[key] = chunked.plan_with(N, sysm.nvar, sysm.halo, True, C)
+                row[C] = min(cuda_ms(lambda: step(0.0, fields, dt, pars_t), 3)
+                             for _ in range(2))
+            step._plans[key] = plan0
+            M = N // max(sysm.halo, 1)
+            best = min(row, key=row.get)
+            msg = (f"  chunk sweep {label} {dt_name} (ms per step, the lower of two "
+                   "CUDA-event means over 3 steps): "
+                   + "; ".join(f"C={C} Mc={M // C}: {v:.4f}" for C, v in row.items())
+                   + f" -> fastest C={best}; make_plan's C={plan0.C} at "
+                   f"{row[plan0.C] / row[best] - 1:+.2%}")
+            if fit:
+                coef = nnls_fit([[M // C, pcr.n_levels(C),
+                                  pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS), 1.0]
+                                 for C in row], list(row.values()))
+                msg += (f"; non-negative fit ROW_US = {coef[0]:.3f}, LEVEL_US = "
+                        f"{coef[1]:.3f}, SLAB_US = {coef[2]:.3f}, offset {coef[3]:.1f} us "
+                        f"(chunked has {chunked.ROW_US}, {chunked.LEVEL_US}, "
+                        f"{chunked.SLAB_US})")
+            log(msg)
+    return {dt_name: {} for dt_name in DTYPES}
 
 
 def timed(fn, *args):
@@ -2704,9 +2993,10 @@ def run():
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
     launches = timed(phase2_megatheta, launches)
     launches = timed(phase2_film, launches)
+    launches = timed(phase2_padded, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
-                 timed(phase3_megatheta), timed(phase3_film)):
+                 timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

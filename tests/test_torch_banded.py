@@ -115,15 +115,15 @@ def test_identity_and_axpy_bands_match_jax(W, nvar):
 
 def test_plan_choice():
     big = chunked.make_plan(1 << 20, 1, 1, True)
-    assert (big.C, big.Mc, big.cyclic) == (4096, 256, True)
+    assert (big.C, big.Mc, big.cyclic) == (2048, 512, True)
     readme = chunked.make_plan(200, 1, 1, False)
-    assert (readme.C, readme.Mc, readme.cyclic) == (25, 8, False)
+    assert (readme.C, readme.Mc, readme.cyclic) == (8, 25, False)
     ks = chunked.make_plan(2048, 1, 2, True)
     assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 64, 16)
     # the plan is the cheapest admissible one under the cost model
     M = big.M
     assert all(chunked.plan_cost_us(M, big.C) <= chunked.plan_cost_us(M, C)
-               for C in (1024, 2048, 8192, 16384))
+               for C in (1024, 4096, 8192, 16384))
     # no halo: no coupling, nothing cyclic even on a periodic grid
     assert not chunked.make_plan(64, 1, 0, True).cyclic
 
@@ -131,21 +131,32 @@ def test_plan_choice():
 def test_periodic_grid_without_power_of_two_chunks_raises():
     """A periodic grid takes any chunk count >= 2: one with no power of two
     >= 8 among its divisors closes its ring through the Woodbury
-    correction; only a prime supernode count has no plan."""
+    correction.  A prime supernode count, which raised before padding was
+    ported, and an N that is no multiple of the supernode size now take a
+    padded plan whose ring closes at the system level (``Plan.ring``), and
+    solve as the dense system does."""
     plan = chunked.make_plan(100, 1, 1, True)
     assert plan.wrap and plan.woodbury and not plan.cyclic
     assert plan.C * plan.Mc == 100 and plan.C >= 2 and plan.Mc >= 2
-    with pytest.raises(ValueError, match="A2c"):
-        chunked.make_plan(101, 1, 1, True)
-    with pytest.raises(ValueError, match="multiple of the supernode"):
-        chunked.make_plan(101, 1, 2, False)
+    for N, halo, periodic in ((101, 1, True), (101, 2, False)):
+        plan = chunked.make_plan(N, 1, halo, periodic)
+        assert plan.padded and plan.Np == plan.C * plan.Mc * plan.g > N
+        assert plan.ring == periodic and not plan.wrap and plan.C >= 2
+        bands, rhs, _ = reference(2 * halo + 1, 1, N, periodic)
+        x = chunked.factor(ALPHA, BETA, torch.tensor(bands), periodic,
+                           plan).solve(torch.tensor(rhs))
+        A = (ALPHA * np.eye(N)
+             + BETA * bands_to_csc(bands, periodic).toarray())
+        x_dense = torch.linalg.solve(torch.tensor(A), torch.tensor(rhs[0]))
+        scale = float(x_dense.abs().max())
+        assert float((x[0] - x_dense).abs().max()) <= 1e-12 * scale
 
 
 def test_reference_grids_take_the_least_cost_divisor():
     """The reference benchmark's periodic grids (N = 10^6 and 10^4) plan
     over every divisor; a power-of-two grid keeps its block-cyclic plan."""
-    for N, halo, C in ((10 ** 6, 1, 4000), (10 ** 6, 2, 2500),
-                       (10 ** 4, 2, 500)):
+    for N, halo, C in ((10 ** 6, 1, 2000), (10 ** 6, 2, 1000),
+                       (10 ** 4, 2, 250)):
         plan = chunked.make_plan(N, 1, halo, True)
         M = plan.M
         every = [c for c in chunked._divisors(M) if M // c >= 2 and c >= 2]
@@ -153,7 +164,7 @@ def test_reference_grids_take_the_least_cost_divisor():
         assert (plan.C, plan.Mc) == (best, M // best) == (C, M // C)
         assert plan.wrap and plan.woodbury and C & (C - 1)
     big = chunked.make_plan(1 << 20, 1, 1, True)
-    assert (big.C, big.cyclic, big.wrap, big.woodbury) == (4096, True, True,
+    assert (big.C, big.cyclic, big.wrap, big.woodbury) == (2048, True, True,
                                                             False)
 
 

@@ -458,3 +458,145 @@ def test_wide_check_harness_on_cpu():
     assert WIDE_ONLY <= set(results["float64"])
     assert results["float64"]["residual"] < 1e-12
     assert _launch.counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_sweep_and_combine_match_plain_versions(cuda_device, dtype):
+    """K3's staged sweep at every block size 1..8, one grid and members,
+    Mc = 2, odd Mc and Mc no multiple of the stage rows, C no multiple of
+    the chunks per block, the forward results kept and streamed; K5 bit
+    for bit at KS 2^20's shape, on unaligned arrays and a vector tail."""
+    results = kernel_checks.check_all_sweeps(cuda_device, dtype)
+    kernel_checks.check_combines_exact(cuda_device, dtype, results)
+    assert set(results) == {"K3.thomas_sweep", "K3.thomas_sweep_wide",
+                            "K5.combine"}
+
+
+#: a prime grid above K6's gate: a padded plan, whose ring closes at the
+#: system level on a periodic grid
+N_PRIME = 16411
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [True, False], ids=["ring", "edge"])
+def test_padded_rodaspr_step_launches(cuda_device, periodic):
+    """A fixed RODASPR step on a padded plan: one J, factor and PCR factor,
+    six F and K5; six stage solves, and on a ring two more (the 2 nvar h
+    columns of its closure, solved once per factor); no interface-level
+    Woodbury set-up."""
+    model, fields, pars = _burgers_on(cuda_device, N=N_PRIME)
+    pars = dict(pars, periodic=periodic)
+    plan = chunked.make_plan(N_PRIME, 1, 1, periodic)
+    assert plan.padded and plan.ring == periodic
+    assert megastep.plan_for(N_PRIME, 1, 1, periodic) is None
+    _launch.reset_counters()
+    schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
+                                                           pars)
+    counts = _launch.counts()
+    solves = 6 + (2 if periodic else 0)
+    assert counts["K1.J"] == counts["K2.spike_factor"] == 1
+    assert counts["K4.pcr_factor"] == 1 and counts["K4.pcr_solve"] == 0
+    assert counts["K1.F"] == counts["K5.combine"] == 6
+    assert counts["K3.thomas_sweep"] == counts["K3.spike_correct"] == solves
+    assert counts["K4.pcr_solve_shift"] == solves
+
+
+def test_sweep_plan():
+    """K3's planner: chunks per block a power of two up to 16, halved while
+    the grid has fewer than two blocks per SM; the stages within the share
+    of an SM's shared memory of the blocks it holds; the forward results
+    kept only where they fit."""
+    s_item = [(1, 8), (2, 8), (2, 4), (4, 8), (6, 8), (6, 4), (8, 8)]
+    for (s, item) in s_item:
+        for Mc, C, B in ((2, 3, 1), (128, 4096, 1), (200, 2500, 1),
+                         (500, 1000, 1), (2000, 25, 1024), (3001, 3, 1)):
+            sp = thomas.sweep_plan(s, item, Mc, C, B)
+            assert sp.CB & (sp.CB - 1) == 0 and 1 <= sp.CB <= 16
+            assert sp.smem == thomas.sweep_smem(s, item, Mc, sp.CB, sp.R,
+                                                sp.persist)
+            assert sp.smem <= thomas.SWEEP_SMEM and sp.R >= 1
+            if sp.persist:
+                assert item * Mc * s * sp.CB <= thomas.SWEEP_KEEP
+    # KS 2^20: 4096 chunks in blocks of 8, the forward results kept
+    assert thomas.sweep_plan(2, 8, 128, 4096) == thomas.SweepPlan(
+        8, 8, True, thomas.sweep_smem(2, 8, 128, 8, 8, True))
+    # config 5's 25600 chunks in 1600 blocks of 16, 13 on each SM: short
+    # stages, and the 2000 rows stream through y
+    assert thomas.sweep_plan(2, 8, 2000, 25, 1024) == thomas.SweepPlan(
+        16, 2, False, thomas.sweep_smem(2, 8, 2000, 16, 2, False))
+    # the film's 1000 chunks in blocks of 4: more SMs take part, two blocks
+    # on each, with stages of 8 rows; float32 keeps the forward results
+    film = thomas.sweep_plan(6, 8, 500, 1000)
+    assert (film.CB, film.R, film.persist) == (4, 8, False)
+    assert thomas.sweep_plan(6, 4, 500, 1000).persist
+
+
+def test_combine_argument_cache():
+    """K5's argument block: built once per (rows, arrays, dtype), the
+    coefficients rounded to the type and each one's role (0 skip, 1 unit,
+    2 scale), in ``Coefs<T>``'s layout (csrc/combine.cu)."""
+    import numpy as np
+
+    from triflow_tpu_torch.ops import combine
+
+    rows = [[1.0, 0.0, 0.1], [-0.0, 2.5, 1.0]]
+    for dtype, np_type, size in ((torch.float64, np.float64, 144),
+                                 (torch.float32, np.float32, 80)):
+        block, R = combine._coef_block(rows, 3, dtype)
+        assert R == 2 and len(block.raw) == size
+        assert combine._coef_block([tuple(r) for r in rows], 3, dtype)[0] is block
+        raw = block.raw
+        coef = np.frombuffer(raw, dtype=np_type, count=2 * combine.MAX_ARRAYS)
+        coef = coef.reshape(2, combine.MAX_ARRAYS)
+        assert coef[0, 2] == np_type(0.1) and coef[1, 1] == 2.5
+        assert not coef[:, 3:].any()
+        role = np.frombuffer(raw, dtype=np.uint8, count=16,
+                             offset=coef.nbytes).reshape(2, -1)
+        assert role[0, :3].tolist() == [1, 0, 2]
+        assert role[1, :3].tolist() == [0, 2, 1]
+    assert combine._coef_block(rows, 3, torch.float64)[0] is not \
+        combine._coef_block(rows, 3, torch.float32)[0]
+    with pytest.raises(ValueError, match="every row needs 4"):
+        combine._coef_block(rows, 4, torch.float64)
+    with pytest.raises(NotImplementedError, match="at most"):
+        combine._coef_block([[1.0] * 9], 9, torch.float64)
+
+
+def test_check_cuda_reads_the_device_once_and_refuses_each_fault(monkeypatch):
+    """The wrappers' shared check on stand-ins for CUDA tensors: a tensor
+    off the current device, on the CPU, of another dtype, not contiguous or
+    of another shape raises; the current device is read once per call."""
+
+    class Fake:
+        def __init__(self, dev, dtype=torch.float64, contiguous=True,
+                     shape=(1, 4)):
+            self.dev, self.dtype, self.contiguous = dev, dtype, contiguous
+            self.shape = torch.Size(shape)
+            self.device = (torch.device("cuda", dev) if dev >= 0
+                           else torch.device("cpu"))
+
+        def get_device(self):
+            return self.dev
+
+        def is_contiguous(self):
+            return self.contiguous
+
+    reads = []
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: reads.append(0) or 0)
+    shape = torch.Size((1, 4))
+    _launch.check_cuda([Fake(0)] * 7, torch.float64, "K", shape)
+    assert len(reads) == 1
+    for bad, err, match in (
+            ([Fake(0), Fake(-1)], ValueError, "CUDA tensors"),
+            ([Fake(1)], ValueError, "current device"),
+            ([Fake(0), Fake(1)], ValueError, "current device"),
+            ([Fake(0), Fake(0, torch.float32)], TypeError, "expected"),
+            ([Fake(0), Fake(0, contiguous=False)], ValueError, "contiguous"),
+            ([Fake(0), Fake(0, shape=(1, 5))], ValueError, "shape")):
+        with pytest.raises(err, match=match):
+            _launch.check_cuda(bad, torch.float64, "K", shape)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        _launch.check_cuda([Fake(0)], torch.float16, "K")

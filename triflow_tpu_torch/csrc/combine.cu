@@ -6,22 +6,34 @@
 // Replaces, on the TPU: ops/folded.py combine_folded, which fetched each
 // input block into VMEM once and wrote every output once.
 //
-// One grid-stride loop over the n = nvar * N elements; each thread reads
-// the A inputs of its element once and writes the R outputs once.  The
-// input and output pointers and the R x A coefficients travel by value in
-// one small struct (kernel parameter space), the coefficients as T, so the
-// float instantiation never computes in double.  Each coefficient's role is
-// decided on the host from its double value, as the reference decides it:
-// 0 skips the column, 1 adds the input unmultiplied, anything else
-// multiplies.  Products and sums are rounded one at a time (__fmul_rn,
-// __fadd_rn and their double twins are never contracted into an FMA), in
-// the reference's column order, so the kernel computes exactly what the
-// plain PyTorch loop computes.
-//
 // Bound: device-memory bandwidth.  (A + R) * n * sizeof(T) bytes at the
 // card's 3.35 TB/s; the arithmetic is at most 2 * A * R operations per
 // element.  At N = 2^20, nvar = 1, A = 7, R = 2 that is 37.7 MB in f32
 // (11.3 us) and 75.5 MB in f64 (22.5 us).
+//
+// Design for this card.  The device body runs at its bound already at
+// large n; what a Rosenbrock step pays for is the launch path, so it is
+// kept short:
+//   - the coefficients, rounded to T, and each one's role travel in an
+//     argument block (``Coefs``) that the wrapper builds once per
+//     (rows, dtype) and caches on the host; a launch passes that block's
+//     address, the A + R array pointers, n and the grid size, which the
+//     wrapper sizes from an SM count it reads once per process;
+//   - the entry queries nothing of the device;
+//   - in float32 each thread moves 16 bytes per array per step (float4)
+//     where every pointer is 16-byte aligned, with a scalar tail, in a grid
+//     of 4 blocks per SM; otherwise one element per step in a grid-stride
+//     loop of up to 16 blocks per SM.  Measured on the H100 at KS 2^20's
+//     shape (A = 7, R = 2; PERF.md): float4 at 4 blocks per SM 11.9 us of
+//     device time (bound 11.3), one float 12.4 to 13.2; in float64 one
+//     double 26.4 to 27.1 us (bound 22.5), double2 30.4 at best, so
+//     float64 moves one element per step.
+// Each role is decided on the host from the coefficient's double value, as
+// the reference decides it: 0 skips the column, 1 adds the input
+// unmultiplied, anything else multiplies.  Products and sums are rounded
+// one at a time (__fmul_rn, __fadd_rn and their double twins are never
+// contracted into an FMA), in the reference's column order, so the kernel
+// computes exactly what the plain PyTorch loop computes.
 #include "common.cuh"
 
 namespace {
@@ -33,61 +45,114 @@ using tf::kScale;
 using tf::kSkip;
 using tf::kUnit;
 
+// The cached argument block: R x A coefficients rounded to T and their
+// roles (the wrapper's ``_coef_block`` writes exactly this layout).
 template <typename T>
-struct Args {
-  const T* in[kMaxA];
-  T* out[kMaxR];
+struct Coefs {
   T coef[kMaxR][kMaxA];
   unsigned char role[kMaxR][kMaxA];
 };
 
+template <typename T>
+struct Args {
+  const T* in[kMaxA];
+  T* out[kMaxR];
+  Coefs<T> c;
+};
+
+constexpr int kVecBlocksPerSm = 4;
+constexpr int kBlocksPerSm = 16;
+
 template <typename T, int A, int R>
-__global__ void combine_kernel(const Args<T> args, long n) {
+__device__ __forceinline__ void combine_one(const Args<T>& args, long i) {
+  T v[A];
+#pragma unroll
+  for (int j = 0; j < A; ++j) v[j] = __ldg(args.in[j] + i);
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    args.out[k][i] = tf::lin_comb(A, args.c.coef[k], args.c.role[k], [&](int j) { return v[j]; });
+}
+
+// One float4 of every array per step; the n % 4 tail by the first threads
+// of the grid.
+template <int A, int R>
+__global__ void combine_vec_kernel(const Args<float> args, long n) {
+  using T = float;
+  using V = float4;
+  constexpr int kW = 4;
+  const long nv = n / kW;
+  const long first = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long stride = (long)gridDim.x * blockDim.x;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    T v[A];
+  for (long q = first; q < nv; q += stride) {
+    T v[A][kW];
 #pragma unroll
-    for (int j = 0; j < A; ++j) v[j] = args.in[j][i];
+    for (int j = 0; j < A; ++j) {
+      const V x = __ldg(reinterpret_cast<const V*>(args.in[j]) + q);
+      const T* xs = reinterpret_cast<const T*>(&x);
 #pragma unroll
-    for (int k = 0; k < R; ++k)
-      args.out[k][i] = tf::lin_comb(A, args.coef[k], args.role[k], [&](int j) { return v[j]; });
+      for (int e = 0; e < kW; ++e) v[j][e] = xs[e];
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      V y;
+      T* ys = reinterpret_cast<T*>(&y);
+#pragma unroll
+      for (int e = 0; e < kW; ++e)
+        ys[e] = tf::lin_comb(A, args.c.coef[k], args.c.role[k], [&](int j) { return v[j][e]; });
+      reinterpret_cast<V*>(args.out[k])[q] = y;
+    }
   }
+  const long tail = nv * kW + first;
+  if (tail < n) combine_one<T, A, R>(args, tail);
 }
 
 template <typename T, int A, int R>
-void launch(const Args<T>& args, long n, int blocks, cudaStream_t stream) {
+__global__ void combine_kernel(const Args<T> args, long n) {
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    combine_one<T, A, R>(args, i);
+}
+
+// float4 where every pointer allows it (float32), else one element per
+// step; the grid from the SM count.
+template <typename T, int A, int R>
+void launch(const Args<T>& args, long n, bool aligned, int sms, cudaStream_t stream) {
+  const long per_thread = aligned ? 4 : 1;
+  const long cap = (long)sms * (aligned ? kVecBlocksPerSm : kBlocksPerSm);
+  const long want = (n / per_thread + 255) / 256;
+  const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
+  if constexpr (sizeof(T) == 4) {
+    if (aligned) {
+      combine_vec_kernel<A, R><<<blocks, 256, 0, stream>>>(args, n);
+      return;
+    }
+  }
   combine_kernel<T, A, R><<<blocks, 256, 0, stream>>>(args, n);
 }
 
 template <typename T>
-int combine(const void* in_ptrs, const void* out_ptrs, const void* coefs, int A, int R, int n,
-            void* stream) {
-  if (A < 1 || A > kMaxA || R < 1 || R > kMaxR || n < 0)
+int combine(const void* coefs, const void* const* ins, void* const* outs, int A, int R, int n,
+            int sms, void* stream) {
+  if (A < 1 || A > kMaxA || R < 1 || R > kMaxR || n < 0 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  Args<T> args = {};
-  const unsigned long long* ins = static_cast<const unsigned long long*>(in_ptrs);
-  const unsigned long long* outs = static_cast<const unsigned long long*>(out_ptrs);
-  const double* c = static_cast<const double*>(coefs);
-  for (int j = 0; j < A; ++j) args.in[j] = reinterpret_cast<const T*>(ins[j]);
-  for (int k = 0; k < R; ++k) {
-    args.out[k] = reinterpret_cast<T*>(outs[k]);
-    for (int j = 0; j < A; ++j) {
-      const double cj = c[k * A + j];
-      args.coef[k][j] = T(cj);
-      args.role[k][j] = cj == 0.0 ? kSkip : (cj == 1.0 ? kUnit : kScale);
-    }
+  Args<T> args;
+  args.c = *static_cast<const Coefs<T>*>(coefs);
+  unsigned long long bits = 0;
+  for (int j = 0; j < A; ++j) {
+    args.in[j] = static_cast<const T*>(ins[j]);
+    bits |= reinterpret_cast<unsigned long long>(ins[j]);
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long want = ((long)n + 255) / 256;
-  const int blocks = (int)(want < 16L * sms ? want : 16L * sms);
+  for (int k = 0; k < R; ++k) {
+    args.out[k] = static_cast<T*>(outs[k]);
+    bits |= reinterpret_cast<unsigned long long>(outs[k]);
+  }
+  const bool aligned = sizeof(T) == 4 && (bits & 15) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R * 16 + A) {
 #define TF_CASE(RR, AA) \
   case RR * 16 + AA:    \
-    launch<T, AA, RR>(args, n, blocks, s); \
+    launch<T, AA, RR>(args, n, aligned, sms, s); \
     break;
 #define TF_ROW(RR) \
   TF_CASE(RR, 1) TF_CASE(RR, 2) TF_CASE(RR, 3) TF_CASE(RR, 4) \
@@ -104,14 +169,18 @@ int combine(const void* in_ptrs, const void* out_ptrs, const void* coefs, int A,
 
 }  // namespace
 
-// in_ptrs: A device addresses, out_ptrs: R device addresses, coefs: R x A
-// doubles (row-major); all three arrays live in host memory and are read
-// before the launch returns.
-#define TF_ENTRIES(SUFFIX, T)                                                          \
-  extern "C" int tf_combine_##SUFFIX(const void* in_ptrs, const void* out_ptrs,       \
-                                     const void* coefs, int A, int R, int n,          \
-                                     void* stream) {                                  \
-    return combine<T>(in_ptrs, out_ptrs, coefs, A, R, n, stream);                     \
+// coefs: the host address of a cached ``Coefs<T>`` block, read before the
+// launch returns; i0..i7: the A input arrays (the rest null), o0, o1: the
+// R outputs; sms: the card's SM count, which sizes the grid.
+#define TF_ENTRIES(SUFFIX, T)                                                               \
+  extern "C" int tf_combine_##SUFFIX(const void* coefs, const void* i0, const void* i1,    \
+                                     const void* i2, const void* i3, const void* i4,       \
+                                     const void* i5, const void* i6, const void* i7,       \
+                                     void* o0, void* o1, int A, int R, int n,              \
+                                     int sms, void* stream) {                              \
+    const void* const ins[kMaxA] = {i0, i1, i2, i3, i4, i5, i6, i7};                       \
+    void* const outs[kMaxR] = {o0, o1};                                                    \
+    return combine<T>(coefs, ins, outs, A, R, n, sms, stream);                             \
   }
 
 TF_ENTRIES(f32, float)

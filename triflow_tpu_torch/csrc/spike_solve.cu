@@ -5,8 +5,9 @@
 // of ops/folded.py _solve_folded_flat, which the reference left to an XLA
 // expression with the state add (`add_to`) fused in.
 //
-// thomas_sweep: one thread per chunk.  With the factors of K2 it solves the
-// chunk-local system with the outer couplings removed,
+// thomas_sweep: a block per group of CB chunks of one member.  With the
+// factors of K2 it solves the chunk-local system with the outer couplings
+// removed,
 //   bt_j = b_j - fac_j bt_{j-1},   y_j = Dh_j bt_j - DU_j y_{j+1},
 // writes y in the node layout (nvar, N) of the right-hand side, and the
 // interface right-hand side yred (2S, C) = (y_0, y_{Mc-1}) of every chunk.
@@ -16,21 +17,41 @@
 //   x = y - W xm1 - V xp1   (+ add_to, the theta step's u + A^-1 dt F).
 //
 // Member axis: both entries take B grids (an ensemble) in one launch, one
-// thread per (member, chunk) or (member, node); member b's arrays sit at b
-// times one grid's size (rhs, y, add_to and out (B, nvar, N), factor rows
-// (B, Mc, S, S, C), yred (B, 2S, C), xm1 and xp1 (B, S, C)).  One grid
-// (B = 1) launches the instantiations without member offsets (kMembers).
+// block per (member, chunk group) or one thread per (member, node); member
+// b's arrays sit at b times one grid's size (rhs, y, add_to and out (B,
+// nvar, N), factor rows (B, Mc, S, S, C), yred (B, 2S, C), xm1 and xp1 (B,
+// S, C)).  One grid (B = 1) launches the correction's instantiations
+// without member offsets (kMembers).
 //
-// Bound: the sweep is latency-bound along the Mc sequential rows of a
-// chunk, like K2; its node-layout reads and writes are strided by Mc * g
-// between neighbour threads.  The correction is elementwise and
+// Bound: the sweep's recurrence is sequential along the Mc rows of a
+// chunk, but none of its loads depends on it: the factor rows and the
+// right-hand side of rows j+1.. are known before row j is solved.  So the
+// sweep is built for Hopper as a pipeline (thomas_sweep_kernel): every
+// thread of the block copies tiles of R rows into a ring of kStages
+// shared-memory stages with cp.async, kStages - 1 tiles ahead of the walk;
+// each stage holds, for the block's chunks, the rows' fac (forward) or
+// Dhinv and DU (backward) blocks, contiguous across chunks for each entry,
+// and the chunks' right-hand side segments, each contiguous in the node
+// layout (Mc * g nodes per field and chunk) and so copied coalesced and
+// transposed into a chunk-minor tile.  One lane per chunk (the walkers,
+// the block's first CB threads) runs the recurrence from shared memory.
+// The forward results stay in shared memory for the backward pass where
+// the chunks' rows fit (``persist``: Mc * S * CB values); otherwise they
+// stream through y, written by the forward pass and copied back into the
+// ring by the backward one.  y leaves through a shared tile, in coalesced
+// node-layout rows.  The host plans CB, R and persist
+// (``ops/thomas.py:sweep_plan``): fewer chunks per block where the grid has
+// few, so that more SMs take part, and the stages within the shared memory
+// a block may use.  The bytes bound it: the factor rows and the right-hand
+// side read once, y written once.  The correction is elementwise and
 // bandwidth-bound: it reads y, the two spikes and add_to once and writes x
 // once.
 //
-// The bodies live in sweep.cuh, shared with K6 (megastep.cu).
+// The correction's body lives in sweep.cuh, shared with K6 (megastep.cu),
+// which also keeps the one-thread sweep of a chunk (thomas_sweep_chunk).
 //
 // Wide blocks (S = 5..8) are built into a library of their own, from this
-// file with TF_WIDE defined: the same bodies, one thread per chunk or node.
+// file with TF_WIDE defined: the same bodies, one lane per chunk or node.
 // They hold vectors of S entries and stream each block's entries into a
 // product, so unlike K2 and K4's factor they need no group of lanes.
 #include "sweep.cuh"
@@ -43,23 +64,213 @@
 
 namespace {
 
-template <typename T, int S, bool kMembers>
-__global__ void thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
-                                    const T* __restrict__ DU, const T* __restrict__ rhs, T* y,
-                                    T* yred, int N, int nvar, int g, int Mc, int C, int B) {
-  if constexpr (kMembers) {
-    const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (q >= (long)B * C) return;
-    const int b = (int)(q / C), c = (int)(q % C);
-    const long rows = (long)Mc * S * S * C, n = (long)nvar * N;
-    tf::thomas_sweep_chunk<T, S>(fac + b * rows, Dhinv + b * rows, DU + b * rows, rhs + b * n,
-                                 y + b * n, yred + b * 2L * S * C, N, nvar, g, Mc, C, c);
-  } else {
-    // one grid: the member-free text, whose code runs faster than the
-    // member version with b folded to 0 (PERF.md)
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    tf::thomas_sweep_chunk<T, S>(fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, c);
+constexpr int kSweepThreads = 128;
+constexpr int kStages = 4;
+constexpr int kMaxCB = 32;
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// A block's chunks and what each of its threads copies.  The block walks
+// CB consecutive chunks of the B * C chunks of all members (flat index q:
+// member q / C, chunk q % C), nch of them real; base[l] and seg0[l] (shared
+// memory) are lane l's offsets into the factor rows and the node layout.
+// A thread copies the block tiles' entries of one lane, bl, every
+// kSweepThreads / CB entries from be, and the vector tiles' node vk of a
+// chunk segment of R * g nodes, for every (variable, lane) pair vp, vp +
+// vstep, ...  (CB is a power of two, 2^lcb, at most 32.)
+struct Tiles {
+  int nch, CB, lcb, R, Mc, C, N, nvar, g;
+  int bl, be, vk, vp, vstep;
+  const long* base;
+  const long* seg0;
+};
+
+// Rows [j0, j0 + nr) of the S x S blocks ``src`` (layout (B, Mc, S, S,
+// C)) into the chunk-minor tile dst[(jj * S * S + e) * CB + l].
+template <typename T, int S>
+__device__ __forceinline__ void load_blocks(T* dst, const T* src, const Tiles& G, int j0,
+                                            int nr) {
+  if (G.bl >= G.nch) return;
+  const T* from = src + G.base[G.bl] + (long)j0 * S * S * G.C;
+  for (int e = G.be; e < nr * S * S; e += kSweepThreads >> G.lcb)
+    cp_async(dst + e * G.CB + G.bl, from + (long)e * G.C);
+}
+
+// Rows [j0, j0 + nr) of the chunks' node-layout vectors ``src`` ((B,
+// nvar, N)) into the tile dst[(jj * S + r) * CB + l]: consecutive threads
+// take consecutive nodes of one chunk's segment.
+template <typename T, int S>
+__device__ __forceinline__ void load_vec(T* dst, const T* src, const Tiles& G, int j0, int nr) {
+  if (G.vp >= G.vstep || G.vk >= nr * G.g) return;
+  const int jj = G.vk / G.g, a = G.vk % G.g;
+  for (int p = G.vp; p < (G.nvar << G.lcb); p += G.vstep) {
+    const int l = p & (G.CB - 1), m = p >> G.lcb;
+    if (l < G.nch)
+      cp_async(dst + (jj * S + a * G.nvar + m) * G.CB + l,
+               src + G.seg0[l] + (long)m * G.N + (long)j0 * G.g + G.vk);
+  }
+}
+
+// The tile src[(jj * S + r) * CB + l] back to the node layout, coalesced.
+template <typename T, int S>
+__device__ __forceinline__ void store_vec(T* dst, const T* src, const Tiles& G, int j0,
+                                          int nr) {
+  if (G.vp >= G.vstep || G.vk >= nr * G.g) return;
+  const int jj = G.vk / G.g, a = G.vk % G.g;
+  for (int p = G.vp; p < (G.nvar << G.lcb); p += G.vstep) {
+    const int l = p & (G.CB - 1), m = p >> G.lcb;
+    if (l < G.nch)
+      dst[G.seg0[l] + (long)m * G.N + (long)j0 * G.g + G.vk] =
+          src[(jj * S + a * G.nvar + m) * G.CB + l];
+  }
+}
+
+// y = a x for the chunk-minor block a[(i * S + q) * CB] in shared memory.
+template <typename T, int S>
+__device__ __forceinline__ void mv_tile(const T* a, int CB, const T (&x)[S], T (&y)[S]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    T acc = a[(i * S) * CB] * x[0];
+#pragma unroll
+    for (int q = 1; q < S; ++q) acc += a[(i * S + q) * CB] * x[q];
+    y[i] = acc;
+  }
+}
+
+// Shared memory: kStages stages of (mat0, mat1: R S S CB each; vec: R S
+// CB), the out tile (R S CB), and with persist the forward results (Mc S
+// CB).  Every thread copies; the block's first CB threads walk.
+template <typename T, int S>
+__global__ void __launch_bounds__(kSweepThreads)
+    thomas_sweep_kernel(const T* __restrict__ fac, const T* __restrict__ Dhinv,
+                        const T* __restrict__ DU, const T* __restrict__ rhs, T* y, T* yred,
+                        int N, int nvar, int g, int Mc, int C, int B, int CB, int R,
+                        int persist) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long base[kMaxCB], seg0[kMaxCB];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const long q0 = (long)blockIdx.x * CB;
+  const int nch = (int)min((long)CB, (long)B * C - q0);
+  const int l = threadIdx.x;
+  long red = 0;  // lane l's column of yred
+  if (l < nch) {
+    const long b = (q0 + l) / C;
+    const int c = (int)((q0 + l) % C);
+    base[l] = b * Mc * S * S * C + c;
+    seg0[l] = b * nvar * N + (long)c * Mc * g;
+    red = b * 2L * S * C + c;
+  }
+  const int lcb = 31 - __clz(CB), seg = R * g;
+  const Tiles G{nch, CB, lcb, R, Mc, C, N, nvar, g,
+                l & (CB - 1), l >> lcb, l % seg, l / seg, kSweepThreads / seg, base, seg0};
+  __syncthreads();
+
+  const int mat = R * S * S * CB, vec = R * S * CB, stage = 2 * mat + vec;
+  T* out = smem + kStages * stage;
+  T* kept = out + vec;  // the forward results, with persist
+  const int tiles = (Mc + R - 1) / R;
+  const bool walker = l < CB;
+
+  // forward: tile t in stage t % kStages, fac in mat0, rhs in vec
+  auto issue_fwd = [&](int t) {
+    if (t < tiles) {
+      T* st = smem + (t % kStages) * stage;
+      const int j0 = t * R, nr = min(R, Mc - j0);
+      load_blocks<T, S>(st, fac, G, j0, nr);
+      load_vec<T, S>(st + 2 * mat, rhs, G, j0, nr);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kStages; ++t) issue_fwd(t);
+  T bt[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) bt[r] = T(0);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const T* st = smem + (t % kStages) * stage;
+    const int j0 = t * R, nr = min(R, Mc - j0);
+    if (walker) {
+      for (int jj = 0; jj < nr; ++jj) {
+        T m[S];
+        mv_tile<T, S>(st + jj * S * S * CB + l, CB, bt, m);
+        const T* bv = st + 2 * mat + jj * S * CB + l;
+        T* o = persist ? kept + (long)(j0 + jj) * S * CB + l : out + jj * S * CB + l;
+#pragma unroll
+        for (int r = 0; r < S; ++r) {
+          bt[r] = bv[r * CB] - m[r];
+          o[r * CB] = bt[r];
+        }
+      }
+    }
+    __syncthreads();
+    if (!persist) store_vec<T, S>(y, out, G, j0, nr);
+    issue_fwd(t + kStages);
+  }
+  cp_async_wait<0>();
+  __threadfence_block();
+  __syncthreads();
+
+  // backward: tile tiles-1-k in stage k % kStages, Dhinv in mat0, DU in
+  // mat1, and (without persist) the forward results from y in vec
+  auto issue_bwd = [&](int k) {
+    const int t = tiles - 1 - k;
+    if (t >= 0) {
+      T* st = smem + (k % kStages) * stage;
+      const int j0 = t * R, nr = min(R, Mc - j0);
+      load_blocks<T, S>(st, Dhinv, G, j0, nr);
+      load_blocks<T, S>(st + mat, DU, G, j0, nr);
+      if (!persist) load_vec<T, S>(st + 2 * mat, y, G, j0, nr);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < kStages; ++k) issue_bwd(k);
+  T yn[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) yn[r] = T(0);
+  for (int k = 0; k < tiles; ++k) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const T* st = smem + (k % kStages) * stage;
+    const int j0 = (tiles - 1 - k) * R, nr = min(R, Mc - j0);
+    if (walker) {
+      for (int jj = nr - 1; jj >= 0; --jj) {
+        const T* bsrc = persist ? kept + (long)(j0 + jj) * S * CB + l
+                                : st + 2 * mat + jj * S * CB + l;
+        T bj[S], p[S], m[S];
+#pragma unroll
+        for (int r = 0; r < S; ++r) bj[r] = bsrc[r * CB];
+        mv_tile<T, S>(st + jj * S * S * CB + l, CB, bj, p);
+        mv_tile<T, S>(st + mat + jj * S * S * CB + l, CB, yn, m);
+#pragma unroll
+        for (int r = 0; r < S; ++r) {
+          yn[r] = p[r] - m[r];
+          out[(jj * S + r) * CB + l] = yn[r];
+        }
+        if (j0 + jj == Mc - 1 && l < nch) {
+#pragma unroll
+          for (int r = 0; r < S; ++r) yred[red + (long)(S + r) * C] = yn[r];
+        }
+      }
+    }
+    __syncthreads();
+    store_vec<T, S>(y, out, G, j0, nr);
+    issue_bwd(k + kStages);
+  }
+  cp_async_wait<0>();
+  if (l < nch) {
+#pragma unroll
+    for (int r = 0; r < S; ++r) yred[red + (long)r * C] = yn[r];
   }
 }
 
@@ -78,29 +289,46 @@ __global__ void spike_correct_kernel(const T* __restrict__ y, const T* __restric
                                N, nvar, g, Mc, C, i);
 }
 
+// Shared memory of a sweep plan, in bytes (ops/thomas.py:sweep_plan
+// computes the same).
+long sweep_smem(int S, int item, int Mc, int CB, int R, int persist) {
+  return (long)item * CB *
+         ((long)kStages * R * (2 * S * S + S) + (long)R * S + (persist ? (long)Mc * S : 0));
+}
+
+template <typename T, int S>
+int launch_sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred, int N,
+                 int nvar, int g, int Mc, int C, int B, int CB, int R, int persist,
+                 cudaStream_t stream) {
+  const long bytes = sweep_smem(S, sizeof(T), Mc, CB, R, persist);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        thomas_sweep_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long blocks = ((long)B * C + CB - 1) / CB;
+  thomas_sweep_kernel<T, S><<<blocks, kSweepThreads, bytes, stream>>>(
+      fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, B, CB, R, persist);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred, int N,
-          int nvar, int g, int Mc, int C, int B, cudaStream_t stream) {
-  const int threads = 128;
-  const long blocks = ((long)B * C + threads - 1) / threads;
+          int nvar, int g, int Mc, int C, int B, int CB, int R, int persist,
+          cudaStream_t stream) {
+  if (CB < 1 || CB > kMaxCB || (CB & (CB - 1)) || R < 1 || R * g > kSweepThreads || Mc < 1 ||
+      C < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (nvar * g) {
-#define TF_LAUNCH(S, MEM)                                                               \
-  thomas_sweep_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(fac, Dhinv, DU, rhs, y, \
-                                                                 yred, N, nvar, g, Mc, C, B)
 #define TF_CASE(S)                                                                      \
   case S:                                                                               \
-    if (B > 1)                                                                          \
-      TF_LAUNCH(S, true);                                                               \
-    else                                                                                \
-      TF_LAUNCH(S, false);                                                              \
-    break;
+    return launch_sweep<T, S>(fac, Dhinv, DU, rhs, y, yred, N, nvar, g, Mc, C, B, CB, R, \
+                              persist, stream);
     TF_CASES
 #undef TF_CASE
-#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -135,11 +363,12 @@ int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, cons
   extern "C" int tf_thomas_sweep_##SUFFIX(const void* fac, const void* Dhinv,            \
                                           const void* DU, const void* rhs, void* y,      \
                                           void* yred, int N, int nvar, int g, int Mc,    \
-                                          int C, int B, void* stream) {                  \
+                                          int C, int B, int CB, int R, int persist,      \
+                                          void* stream) {                                \
     return sweep<T>(static_cast<const T*>(fac), static_cast<const T*>(Dhinv),            \
                     static_cast<const T*>(DU), static_cast<const T*>(rhs),               \
-                    static_cast<T*>(y), static_cast<T*>(yred), N, nvar, g, Mc, C, B,     \
-                    static_cast<cudaStream_t>(stream));                                  \
+                    static_cast<T*>(y), static_cast<T*>(yred), N, nvar, g, Mc, C, B, CB, \
+                    R, persist, static_cast<cudaStream_t>(stream));                      \
   }                                                                                      \
   extern "C" int tf_spike_correct_##SUFFIX(const void* y, const void* W, const void* V,  \
                                            const void* xm1, const void* xp1,             \

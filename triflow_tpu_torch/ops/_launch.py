@@ -3,6 +3,8 @@ stream to launch on."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 #: every launch counter, by kernel entry name
@@ -31,23 +33,39 @@ def counts() -> dict:
     return {name: c.count for name, c in COUNTERS.items()}
 
 
-def check_cuda(tensors, dtype, what: str):
+def check_cuda(tensors, dtype, what: str, shape=None):
     """Raise unless every tensor is a contiguous tensor of ``dtype``
     (float32 or float64) on the current CUDA device, where the kernel
-    launches."""
-    if dtype not in (torch.float32, torch.float64):
+    launches (and, with ``shape``, of that shape).  Reads the current
+    device once; builds a message only for a tensor that fails."""
+    if dtype is not torch.float32 and dtype is not torch.float64:
         raise TypeError(f"{what}: dtype {dtype} is not float32 or float64")
+    dev = None
     for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: tensor on {t.device}, the kernel "
-                             "takes CUDA tensors")
-        if t.device.index != torch.cuda.current_device():
-            raise ValueError(f"{what}: tensor on {t.device}, but the current "
-                             f"device is cuda:{torch.cuda.current_device()}")
-        if t.dtype != dtype:
-            raise TypeError(f"{what}: tensor of {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: tensor is not contiguous")
+        d = t.get_device()
+        if d != dev:
+            if dev is not None or d < 0 or d != torch.cuda.current_device():
+                _refuse(t, dtype, what)
+            dev = d
+        if (t.dtype is not dtype or not t.is_contiguous()
+                or shape is not None and t.shape != shape):
+            _refuse(t, dtype, what, shape)
+
+
+def _refuse(t, dtype, what, shape=None):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {t.device}, the kernel "
+                         "takes CUDA tensors")
+    dev = torch.cuda.current_device()
+    if t.get_device() != dev:
+        raise ValueError(f"{what}: tensor on {t.device}, but the current "
+                         f"device is cuda:{dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: tensor of {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor is not contiguous")
+    raise ValueError(f"{what}: a tensor has shape {tuple(t.shape)}, expected "
+                     f"{tuple(shape)}")
 
 
 def check_shapes(what: str, **named):
@@ -65,4 +83,15 @@ def suffix(dtype) -> str:
 
 def stream_of(t: torch.Tensor) -> int:
     """Handle of the current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of ``t``'s device, read once per process
+    and device."""
+    return _sms(t.get_device())

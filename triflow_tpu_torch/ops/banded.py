@@ -18,6 +18,12 @@ Block stacks keep the reference's ``(..., s, s, M)`` convention (block
 index last); the chunked arrays are ``(Mc, s, s, C)``, the layout the CUDA
 kernels store.  Loops over rows are Python loops, vectorised over chunks.
 
+A padded grid (``ops/chunked.py``) has no ring inside its chunks: its
+periodic wrap couplings leave the bands (``extract_wrap``) and close the
+ring at the system level, by a rank-2P Woodbury correction with P = nvar *
+h (``ring_columns``, ``ring_setup``, ``ring_correct``: the reference's
+``_extract_wrap`` and ``_attach_woodbury``).
+
 Every function also takes a leading member axis (an ensemble's B grids,
 each its own system): bands ``(B, W, nvar, nvar, N)``, blocks
 ``(B, s, s, M)``, chunk rows ``(Mc, B, s, s, C)`` and reduced systems
@@ -325,3 +331,75 @@ def woodbury_correct(Z, cap_inv, y):
     ``WrappedPcr.solve``)."""
     coef = torch.einsum("...ij,...j->...i", cap_inv, _vt(y))
     return y - torch.einsum("...j,...jrc->...rc", coef, Z)
+
+
+def extract_wrap(A):
+    """Move the periodic wrap couplings of ``A (..., W, nvar, nvar, N)``
+    out of the bands, in place, and return them as the corner blocks
+    (T, Bc), each (..., P, P) with P = nvar * h: T couples the first h
+    nodes (rows, entry i * nvar + m) to the last h (columns, entry j * nvar
+    + n of node N - h + j), Bc the last h to the first h (the reference's
+    ``_extract_wrap``)."""
+    *lead, W, nvar, _, N = A.shape
+    h = W // 2
+    P = nvar * h
+    T = A.new_zeros((*lead, P, P))
+    Bc = A.new_zeros((*lead, P, P))
+    for i in range(h):
+        for k in range(h - i):  # node i + k - h < 0 wraps to N + i + k - h
+            T[..., i * nvar:(i + 1) * nvar, (i + k) * nvar:(i + k + 1) * nvar] = \
+                A[..., k, :, :, i]
+            A[..., k, :, :, i] = 0.0
+    for di in range(h):
+        i = N - 1 - di
+        for k in range(W - 1, W - 1 - (h - di), -1):  # node i + k - h >= N
+            j, r = i + k - h - N, h - 1 - di
+            Bc[..., r * nvar:(r + 1) * nvar, j * nvar:(j + 1) * nvar] = \
+                A[..., k, :, :, i]
+            A[..., k, :, :, i] = 0.0
+    return T, Bc
+
+
+def _corner_cols(X, nvar):
+    """(..., P, P) corner block -> its P columns as (..., P, nvar, h)
+    node-layout slabs: column c, variable m, node i holds X[i*nvar + m, c]."""
+    *lead, P, _ = X.shape
+    h = P // nvar
+    return X.transpose(-1, -2).reshape(*lead, P, h, nvar).transpose(-1, -2)
+
+
+def ring_columns(T, Bc, nvar, N):
+    """The 2P columns ``Uw = [E_top T | E_end Bc]`` of the ring's
+    correction in the node layout, (..., 2P, nvar, N)."""
+    *lead, P, _ = T.shape
+    h = P // nvar
+    cols = T.new_zeros((*lead, 2 * P, nvar, N))
+    cols[..., :P, :, :h] = _corner_cols(T, nvar)
+    cols[..., P:, :, N - h:] = _corner_cols(Bc, nvar)
+    return cols
+
+
+def _vt_nodes(y, h):
+    """``Vw^T y = [y at the last h nodes ; y at the first h]`` of node-layout
+    y (..., nvar, N), each entry node-major (j * nvar + m)."""
+    end = y[..., y.shape[-1] - h:].transpose(-1, -2)
+    top = y[..., :h].transpose(-1, -2)
+    return torch.cat([end.reshape(*end.shape[:-2], -1),
+                      top.reshape(*top.shape[:-2], -1)], dim=-1)
+
+
+def ring_setup(Z, h):
+    """``(Z, cap_inv)`` of the ring's correction from ``Z = A_tri^-1 Uw``
+    (..., 2P, nvar, N): ``cap_inv = (I + Vw^T Z)^-1`` (..., 2P, 2P)."""
+    VtZ = _vt_nodes(Z, h)  # (..., 2P columns, 2P rows)
+    P2 = VtZ.shape[-1]
+    cap = torch.eye(P2, dtype=Z.dtype, device=Z.device) + VtZ.transpose(-1, -2)
+    return Z, small_inv(cap[..., None])[..., 0].contiguous()
+
+
+def ring_correct(Z, cap_inv, y, h):
+    """``y - Z (cap_inv Vw^T y)``: the solution y (..., nvar, N) of the
+    system without its wrap corrected to the ring's (the reference's
+    ``BandedFactorization.solve``)."""
+    coef = torch.einsum("...ij,...j->...i", cap_inv, _vt_nodes(y, h))
+    return y - torch.einsum("...cni,...c->...ni", Z, coef)

@@ -14,6 +14,24 @@ A periodic grid closes its ring inside the reduced interface system:
 block-cyclic PCR where the chunk count C is a power of two >= 8 (the
 reference's ``cyclic_ok``), otherwise acyclic PCR and a rank-2s Woodbury
 correction (the reference's ``WrappedPcr``), so any C >= 2 serves.
+
+Grids with no good chunk plan of their own are padded, as the reference
+pads them (``ops/banded.py``: ``_assemble_blocks`` pads N to a multiple of
+the supernode size g, ``_chunked_factor`` / ``_chunked_solve`` pad M to
+C * Mc): ``make_plan`` also takes chunk counts C that do not divide the M =
+ceil(N / g) supernodes, with Mc = ceil(M / C) rows each, and the system
+grows to ``Plan.Np`` = C * Mc * g nodes of identity rows.  The padding is a
+copy: ``factor`` forms ``alpha*I + beta*J`` in banded form on Np nodes
+(identity on the padded ones) and factors it with K2-K4 as they are; each
+solve pads the right-hand side with zeros and crops the solution back to
+N.  A periodic grid whose N is no multiple of g, or whose M has no
+admissible chunk count of its own (a prime M), takes the reference's
+system-level closure instead of the interface-level one
+(``Plan.ring``: ``banded.extract_wrap``, the acyclic padded factor, and
+``banded.ring_setup`` / ``ring_correct``, its ``_attach_woodbury``): the
+wrap couplings leave the bands, 2 nvar h columns are solved once per
+factor, and each solve is corrected with their 2 nvar h x 2 nvar h
+capacitance.
 """
 
 from __future__ import annotations
@@ -21,31 +39,36 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
-from . import pcr, thomas
+from . import banded, pcr, thomas
 
 #: smallest power-of-two chunk count whose ring closes block-cyclic
 MIN_CYCLIC_C = 8
 
-#: cost model of a plan, in microseconds, fitted to the chunk-count sweep
-#: of Burgers at N = 2^20 on one H100 (PERF.md): K2 and K3's sweep walk
-#: the Mc rows of a chunk one after the other, and every level of K4's PCR
-#: costs a fixed latency plus one slab per pcr.BLOCK_THREADS chunks
-ROW_US = 1.5
-LEVEL_US = 9.0
-SLAB_US = 3.5
+#: cost model of a plan at block sizes s <= 4, in microseconds of one fixed
+#: RODASPR step, fitted (non-negative least squares, relative weights) to
+#: chip_smoke.py's chunk-count sweep of KS at N = 10^6 in float64 on one
+#: H100 (PERF.md): K2 and K3's sweeps walk the Mc rows of a chunk, and K4's
+#: PCR walks its levels in slabs of pcr.BLOCK_THREADS chunks; the fit puts
+#: no cost on a level beyond its slabs.  It picks the fastest measured plan
+#: in both types there
+ROW_US = 3.925
+LEVEL_US = 0.0
+SLAB_US = 56.61
 
 
 #: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide
 #: libraries), in microseconds of one fixed RODASPR step, fitted to
 #: chip_smoke.py's chunk-count sweep of the s = 6 falling film at N = 10^6
-#: (float64; PERF.md): K2's and K3's sweeps walk the Mc rows of a chunk, and
-#: every level of K4's factor walks the chunks in passes of
+#: (float64, non-negative least squares; PERF.md): K2's and K3's sweeps walk
+#: the Mc rows of a chunk, and every level of K4's factor walks the chunks in
+#: passes of
 #: ``wide_pass_chunks(s)`` lane groups, its cost bound by their shuffles.
 #: Both grow as the per-lane work of the lane groups, s^2: the other wide
 #: block sizes scale the s = 6 fit (not measured)
-WIDE_ROW_US = 76.2
-WIDE_PASS_US = 89.9
+WIDE_ROW_US = 15.52
+WIDE_PASS_US = 97.68
 WIDE_FIT_S = 6
 
 
@@ -56,33 +79,53 @@ def wide_pass_chunks(s: int) -> int:
 
 
 def plan_cost_us(M: int, C: int, s: int = 1) -> float:
-    """Modelled time of the sequential parts of one factor and solve with
-    C chunks of M // C rows of block size s."""
+    """Modelled time of the parts of one fixed RODASPR step that the chunk
+    count changes, with C chunks of ceil(M / C) rows of block size s."""
     levels = pcr.n_levels(C)
+    rows = -(-M // C)
     if s <= thomas.NARROW_S:
         slabs = -(-C // pcr.BLOCK_THREADS)
-        return ROW_US * (M // C) + levels * (LEVEL_US + SLAB_US * slabs)
+        return ROW_US * rows + levels * (LEVEL_US + SLAB_US * slabs)
     passes = -(-C // wide_pass_chunks(s))
-    return (s / WIDE_FIT_S) ** 2 * (WIDE_ROW_US * (M // C)
+    return (s / WIDE_FIT_S) ** 2 * (WIDE_ROW_US * rows
                                     + WIDE_PASS_US * levels * passes)
 
 
+#: modelled cost of padding, in microseconds of one fixed RODASPR step (the
+#: unit of ``plan_cost_us``): the launches of the copies (the padded bands
+#: per factor, the padded right-hand side and the cropped solution per
+#: stage solve) and their bytes at the card's memory rate (3.35e6 bytes
+#: per microsecond, float64); not fitted.  A padded periodic grid also
+#: solves 2 nvar h columns per factor for its ring (``Plan.ring``), which
+#: ``make_plan`` counts as that many more of a step's six stage solves
+PAD_LAUNCH_US = 30.0
+BYTES_PER_US = 3.35e6
+
+
+def pad_cost_us(N: int, nvar: int, W: int, B: int = 1) -> float:
+    """``PAD_LAUNCH_US`` plus the bytes of a padded plan's copies in one
+    RODASPR step: the bands (W nvar^2 per node) once, the right-hand side
+    and the solution (nvar each) for six stages, each read and written once
+    in float64."""
+    return PAD_LAUNCH_US + 16 * B * N * (W * nvar * nvar + 12 * nvar) \
+        / BYTES_PER_US
+
+
 #: cost model of an ensemble's plan (B members of C chunks each), in
-#: microseconds of one fixed RODASPR step, fitted to chip_smoke.py's
-#: chunk-count sweep at config 5 (B = 1024 x KS N = 10^5, float64 and
-#: float32 pooled, relative weights; PERF.md): every thread of K2 and K3
-#: walks its chunk's Mc rows; K4 walks log2 C levels of ceil(C / 512)
-#: slabs for ceil(B / SMS) waves of member blocks; and each doubling of C
-#: costs a share of the ensemble's traffic, BATCH_SPLIT_US at config 5's
+#: microseconds of one fixed RODASPR step: every walker of K2 and K3 walks
+#: its chunk's Mc rows; K4 walks log2 C levels of ceil(C / 512) slabs for
+#: ceil(B / SMS) waves of member blocks; and each doubling of C costs a
+#: share of the ensemble's traffic, BATCH_SPLIT_US at config 5's
 #: BATCH_REF_ROWS supernodes, in proportion to B * M elsewhere (the step is
 #: bound by device memory, and more, shorter chunks read it less well).
-#: The same sweep at B = 64 x KS N = 2^13 and B = 4 x KS N = 10^5 checks
-#: it: there it picks the fastest float64 plan (C = 256, 500); a fit
-#: pooled over the three shapes describes them worse and picks slower
-#: plans everywhere (PERF.md)
-BATCH_ROW_US = 3.391
-BATCH_LEVEL_US = 21.918
-BATCH_SPLIT_US = 4177.857
+#: Chosen against chip_smoke.py's float64 chunk-count sweeps at config 5 (B
+#: = 1024 x KS N = 10^5), B = 64 x KS N = 2^13 and B = 4 x KS N = 10^5 on
+#: one H100 (PERF.md): the constants on a grid whose worst float64 pick is
+#: nearest the fastest measured plan (config 5's step is within 6 % over C
+#: = 10..500, and no least-squares fit of this form picks within 3 % there)
+BATCH_ROW_US = 0.75
+BATCH_LEVEL_US = 15.0
+BATCH_SPLIT_US = 250.0
 BATCH_REF_ROWS = 1024 * 50000
 SMS = 132
 
@@ -90,20 +133,20 @@ SMS = 132
 def batch_features(M: int, C: int, B: int):
     """(rows walked, levels walked, doublings) of ``batch_plan_cost_us``."""
     slabs = -(-C // pcr.BLOCK_THREADS)
-    return (M // C, pcr.n_levels(C) * slabs * -(-B // SMS),
+    return (-(-M // C), pcr.n_levels(C) * slabs * -(-B // SMS),
             np.log2(C) * B * M / BATCH_REF_ROWS)
 
 
 def batch_plan_cost_us(M: int, C: int, B: int) -> float:
-    """Modelled time of one step of B members with C chunks of M // C rows
-    each (without the part no chunk count changes)."""
+    """Modelled time of one step of B members with C chunks of ceil(M / C)
+    rows each (without the part no chunk count changes)."""
     rows, levels, doublings = batch_features(M, C, B)
     return (BATCH_ROW_US * rows + BATCH_LEVEL_US * levels
             + BATCH_SPLIT_US * doublings)
 
 
 class Plan(NamedTuple):
-    N: int        # nodes
+    N: int        # nodes of the grid
     nvar: int
     halo: int
     g: int        # nodes per supernode, max(halo, 1)
@@ -114,6 +157,9 @@ class Plan(NamedTuple):
     wrap: bool    # periodic ring: K2 keeps the wrap couplings and the
                   # shifts close the ring; with not cyclic, Woodbury
     B: int = 1    # members (an ensemble's grids), each of C chunks
+    ring: bool = False  # periodic ring closed at the system level (a
+                        # padded grid): the wrap leaves the bands, the
+                        # chunks are factored acyclic
 
     @property
     def s(self):
@@ -125,7 +171,18 @@ class Plan(NamedTuple):
 
     @property
     def M(self):
-        return self.N // self.g
+        """Supernodes the kernels walk, C * Mc (the grid's N // g where
+        the plan is not padded)."""
+        return self.C * self.Mc
+
+    @property
+    def Np(self):
+        """Nodes the kernels walk: N, or N padded with identity rows."""
+        return self.C * self.Mc * self.g
+
+    @property
+    def padded(self):
+        return self.Np != self.N
 
 
 def _divisors(M):
@@ -140,87 +197,156 @@ def _divisors(M):
 
 def plan_with(N: int, nvar: int, halo: int, periodic: bool, C: int,
               B: int = 1) -> Plan:
-    """The plan of C chunks (per member, of B): a periodic grid (with a
-    halo) wraps, and its ring closes block-cyclic where C is a power of two
-    >= 8, through the Woodbury correction otherwise."""
+    """The plan of C chunks (per member, of B) of ceil(ceil(N / g) / C)
+    rows: a periodic grid (with a halo) wraps, and its ring closes
+    block-cyclic where C is a power of two >= 8, through the Woodbury
+    correction otherwise; where the plan pads the grid (or C = 1), at the
+    system level (``Plan.ring``)."""
     g = max(halo, 1)
-    wrap = bool(periodic) and halo > 0
+    Mc = -(-(-(-N // g)) // C)
+    ring = bool(periodic) and halo > 0 and (C * Mc * g != N or C < 2)
+    wrap = bool(periodic) and halo > 0 and not ring
     cyclic = wrap and C >= MIN_CYCLIC_C and C & (C - 1) == 0
-    return Plan(N, nvar, halo, g, 2 * halo + 1, C, N // g // C, cyclic, wrap,
-                B)
+    return Plan(N, nvar, halo, g, 2 * halo + 1, C, Mc, cyclic, wrap, B, ring)
 
 
 def chunk_counts(N: int, halo: int, periodic: bool):
-    """The admissible chunk counts of a grid: divisors C of its M
+    """The chunk counts of a grid that pad nothing: divisors C of its M
     supernodes with at least 2 rows per chunk, and C >= 2 on a ring (the
-    Woodbury closure couples chunk 0 to chunk C-1).  Raises where N is no
+    Woodbury closure couples chunk 0 to chunk C-1); none where N is no
     multiple of the supernode size."""
     g = max(halo, 1)
     if N % g:
-        raise ValueError(f"N = {N} is not a multiple of the supernode size "
-                         f"g = {g} (identity padding is queued: ROADMAP A2c)")
+        return []
     M = N // g
     wrap = bool(periodic) and halo > 0
     return [C for C in _divisors(M) if M // C >= 2 and (C >= 2 or not wrap)]
 
 
+def padded_counts(N: int, halo: int):
+    """Every chunk count C <= ``pcr.MAX_C`` that leaves at least 2 rows in
+    each of C chunks of ceil(M / C) rows, M = ceil(N / g), whether or not
+    it pads the grid; for each row count Mc only the least C."""
+    M = -(-N // max(halo, 1))
+    out, seen = [], set()
+    for C in range(1, min(pcr.MAX_C, M // 2) + 1):
+        Mc = -(-M // C)
+        if Mc not in seen:
+            seen.add(Mc)
+            out.append(C)
+    return out
+
+
 def make_plan(N: int, nvar: int, halo: int, periodic: bool,
               B: int = 1) -> Plan:
-    """Chunk plan: the admissible chunk count C (``chunk_counts``, at most
-    ``pcr.MAX_C``) of least ``plan_cost_us``, or for B > 1 members of
-    least ``batch_plan_cost_us`` (fitted at s = 2).  K4's scratch grows as
-    s^2 C: 7 (2s)^2 C entries, 235 MB at s = 8 and C = ``pcr.MAX_C`` in
-    float64, which the card holds."""
-    M = N // max(halo, 1)
-    cands = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
-    if not cands:
-        raise ValueError(
-            f"no chunk plan for a {'periodic ' if periodic else ''}grid of "
-            f"{M} supernodes: no divisor leaves 2 rows per chunk"
-            + (" in 2 chunks or more" if periodic else "")
-            + " (identity padding is queued: ROADMAP A2c)")
+    """Chunk plan: the chunk count C (at most ``pcr.MAX_C``) of least
+    modelled cost, ``plan_cost_us`` or for B > 1 members
+    ``batch_plan_cost_us`` (fitted at s = 2), over the counts that pad
+    nothing (``chunk_counts``) and those that pad (``padded_counts``),
+    which pay ``pad_cost_us`` more, and on a ring 2 nvar h more solves per
+    factor (beside a RODASPR step's six).  K4's scratch grows as s^2 C: 7 (2s)^2 C entries, 235 MB at s
+    = 8 and C = ``pcr.MAX_C`` in float64, which the card holds."""
+    g = max(halo, 1)
+    s = nvar * g
+    M = -(-N // g)
     if B > 1:
-        C = min(cands, key=lambda C: (batch_plan_cost_us(M, C, B), C))
+        def cost(C):
+            return batch_plan_cost_us(M, C, B)
     else:
-        s = nvar * max(halo, 1)
-        C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
-    return plan_with(N, nvar, halo, periodic, C, B)
+        def cost(C):
+            return plan_cost_us(M, C, s)
+    exact = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
+    # a ring's 2 nvar h column solves per factor beside a RODASPR step's six
+    ring = 1 + (2 * nvar * halo / 6 if periodic and halo > 0 else 0)
+    pad = pad_cost_us(N, nvar, 2 * halo + 1, B)
+    keyed = [((cost(C), C), C) for C in exact]
+    keyed += [((cost(C) * ring + pad, C), C) for C in padded_counts(N, halo)
+              if g * C * -(-M // C) != N or C not in exact]
+    if not keyed:
+        raise ValueError(f"no chunk plan for a grid of N = {N} nodes: "
+                         f"fewer than 2 supernodes of g = {g}")
+    return plan_with(N, nvar, halo, periodic, min(keyed)[1], B)
 
 
 class ChunkedFactorization:
-    """Factorization of ``alpha*I + beta*J`` for the chunked solve."""
+    """Factorization of ``alpha*I + beta*J`` for the chunked solve; on a
+    padded plan, of the padded system, and on a ring plan with its
+    system-level closure ``ring = (Z, cap_inv)``."""
 
-    def __init__(self, spikes, red, plan: Plan, Z=None, cap_inv=None):
+    def __init__(self, spikes, red, plan: Plan, Z=None, cap_inv=None,
+                 ring=None):
         self.spikes = spikes
         self.red = red
         self.plan = plan
         self.Z = Z              # Woodbury plans: the closure's columns
         self.cap_inv = cap_inv  # and its capacitance inverse
+        self.ring = ring
+
+    def _tri_solve(self, rhs, add_to=None):
+        """``add_to + A_tri^-1 rhs`` of the chunked system (the padded one,
+        the ring's wrap left out), on the grid's N nodes."""
+        plan = self.plan
+        if plan.padded:
+            rhs = torch.nn.functional.pad(rhs, (0, plan.Np - plan.N))
+        y, yred = thomas.thomas_sweep(self.spikes, rhs, plan)
+        xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.wrap, self.Z,
+                                       self.cap_inv)
+        if not plan.padded:
+            return thomas.spike_correct(self.spikes, y, xm1, xp1, plan,
+                                        add_to=add_to)
+        x = thomas.spike_correct(self.spikes, y, xm1, xp1, plan)
+        x = x[..., :plan.N]
+        return x.contiguous() if add_to is None else add_to + x
 
     def solve(self, rhs, add_to=None):
         """``add_to + A^-1 rhs`` (or ``A^-1 rhs``), rhs of shape
         ((B,) nvar, N)."""
-        plan = self.plan
-        y, yred = thomas.thomas_sweep(self.spikes, rhs, plan)
-        xm1, xp1 = pcr.pcr_solve_shift(self.red, yred, plan.wrap, self.Z,
-                                       self.cap_inv)
-        return thomas.spike_correct(self.spikes, y, xm1, xp1, plan,
-                                    add_to=add_to)
+        if self.ring is None:
+            return self._tri_solve(rhs, add_to)
+        x = banded.ring_correct(*self.ring, self._tri_solve(rhs),
+                                self.plan.halo)
+        return x if add_to is None else add_to + x
 
 
 def factor(alpha, beta, bands, periodic: bool, plan: Plan = None):
     """Factor ``alpha*I + beta*J`` from J's bands ((B,) W, nvar, nvar, N);
     ``beta`` is a number or a per-member (B,) tensor; ``plan`` defaults to
-    ``make_plan`` of their shape."""
+    ``make_plan`` of their shape.  A padded or ring plan factors the copy
+    of ``alpha*I + beta*J`` on ``plan.Np`` nodes (``padded_system``) with
+    K2's shift (0, 1)."""
     if plan is None:
         W, nvar, _, N = bands.shape[-4:]
         B = bands.shape[0] if bands.ndim == 5 else 1
         plan = make_plan(N, nvar, W // 2, periodic, B)
+    corners = None
+    if plan.padded or plan.ring:
+        bands, corners = padded_system(alpha, beta, bands, plan)
+        alpha, beta = 0.0, 1.0
     spikes = thomas.spike_factor(bands, alpha, beta, plan)
     red = pcr.pcr_factor(spikes.Lred, spikes.Ured, plan.cyclic)
     wood = (pcr.woodbury(red, spikes.Lred, spikes.Ured) if plan.woodbury
             else ())
-    return ChunkedFactorization(spikes, red, plan, *wood)
+    fact = ChunkedFactorization(spikes, red, plan, *wood)
+    if corners is not None:
+        cols = banded.ring_columns(*corners, plan.nvar, plan.N)
+        Z = torch.stack([fact._tri_solve(cols[..., c, :, :])
+                         for c in range(cols.shape[-3])], dim=-3)
+        fact.ring = banded.ring_setup(Z, plan.halo)
+    return fact
+
+
+def padded_system(alpha, beta, bands, plan: Plan):
+    """(``alpha*I + beta*J`` in banded form on ``plan.Np`` nodes, the
+    ring's wrap corners or None): identity rows on the padded nodes, and
+    on a ring plan the wrap couplings moved out of the bands into the
+    corner blocks (``banded.extract_wrap``)."""
+    A = banded.axpy_bands(alpha, beta, bands)
+    corners = banded.extract_wrap(A) if plan.ring else None
+    if plan.padded:
+        h, idx = plan.halo, torch.arange(plan.nvar, device=A.device)
+        A = torch.nn.functional.pad(A, (0, plan.Np - plan.N))
+        A[..., h, idx, idx, plan.N:] = 1.0
+    return A.contiguous(), corners
 
 
 def solve(fact: ChunkedFactorization, rhs, add_to=None):

@@ -8,16 +8,23 @@ Replaces the TPU's ``ops/folded.py:combine_folded``; source
 own fallback loop: a column whose coefficient is 0 is skipped, one whose
 coefficient is 1 is added unmultiplied, and the terms are summed in column
 order.
+
+The launch path is short, since a step launches K5 once per stage with the
+same few rows every step: the kernel's argument block (the coefficients
+rounded to the arrays' type and each one's role) is built once per (rows,
+dtype) and cached (``_coef_block``), and a launch passes only that block,
+the array pointers, n and the SM count read once per process.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._build import csrc_library
-from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from ._launch import Counter, check_cuda, sm_count, stream_of
 
 LAUNCHES = Counter("K5.combine")
 
@@ -25,8 +32,14 @@ LAUNCHES = Counter("K5.combine")
 #: csrc/combine.cu): u and the six RODASPR stages, two output rows
 MAX_ARRAYS = 8
 MAX_ROWS = 2
-
 LIB = csrc_library("combine.cu")
+_ENTRIES = {torch.float32: "tf_combine_f32", torch.float64: "tf_combine_f64"}
+
+#: (rows as a tuple of tuples, arrays, dtype) -> the cached argument block;
+#: emptied when it reaches _MAX_BLOCKS (a step's rows are a few constants)
+_BLOCKS = {}
+_MAX_BLOCKS = 256
+_ROLE = {0.0: 0, 1.0: 1}  # kSkip, kUnit; anything else kScale (2)
 
 
 def _coerce_rows(rows, n_arrays):
@@ -35,6 +48,38 @@ def _coerce_rows(rows, n_arrays):
         raise ValueError(f"K5 combine: every row needs {n_arrays} "
                          "coefficients, one per array")
     return rows
+
+
+def _coef_block(rows, n_arrays, dtype):
+    """(ctypes buffer, rows count) of ``Coefs<T>`` in csrc/combine.cu: the
+    rows' coefficients rounded to ``dtype`` in a (MAX_ROWS, MAX_ARRAYS)
+    array, then each one's role as a byte, padded to the type's size;
+    built once per (rows, dtype)."""
+    key = (tuple(map(tuple, rows)), n_arrays, dtype)
+    hit = _BLOCKS.get(key)
+    if hit is not None:
+        return hit
+    rows = _coerce_rows(rows, n_arrays)
+    R = len(rows)
+    if not (1 <= n_arrays <= MAX_ARRAYS and 1 <= R <= MAX_ROWS):
+        raise NotImplementedError(
+            f"K5 combine: {n_arrays} arrays and {R} rows; the kernel takes at "
+            f"most {MAX_ARRAYS} and {MAX_ROWS}")
+    np_type = np.float64 if dtype == torch.float64 else np.float32
+    coef = np.zeros((MAX_ROWS, MAX_ARRAYS), dtype=np_type)
+    role = np.zeros((MAX_ROWS, MAX_ARRAYS), dtype=np.uint8)
+    for k, row in enumerate(rows):
+        for j, c in enumerate(row):
+            coef[k, j] = c
+            role[k, j] = _ROLE.get(c, 2)
+    raw = coef.tobytes() + role.tobytes()
+    item = coef.itemsize
+    raw += bytes(-len(raw) % item)
+    block = ctypes.create_string_buffer(raw, len(raw))
+    if len(_BLOCKS) >= _MAX_BLOCKS:
+        _BLOCKS.clear()
+    _BLOCKS[key] = hit = (block, R)
+    return hit
 
 
 def combine_plain(rows, arrays):
@@ -57,24 +102,18 @@ def combine(rows, arrays):
     a0 = arrays[0]
     if a0.device.type == "cpu":
         return combine_plain(rows, arrays)
-    rows = _coerce_rows(rows, len(arrays))
-    A, R = len(arrays), len(rows)
-    if not (1 <= A <= MAX_ARRAYS and 1 <= R <= MAX_ROWS):
-        raise NotImplementedError(
-            f"K5 combine: {A} arrays and {R} rows; the kernel takes at most "
-            f"{MAX_ARRAYS} and {MAX_ROWS}")
-    check_cuda(arrays, a0.dtype, "K5 combine")
-    check_shapes("K5 combine",
-                 **{f"arrays[{j}]": (a, a0.shape) for j, a in enumerate(arrays)})
-    if a0.numel() >= 2 ** 31:
+    A = len(arrays)
+    check_cuda(arrays, a0.dtype, "K5 combine", a0.shape)
+    block, R = _coef_block(rows, A, a0.dtype)
+    n = a0.numel()
+    if n >= 2 ** 31:
         raise ValueError("K5 combine: arrays of 2^31 elements or more")
-    outs = [torch.empty_like(a0) for _ in rows]
-    in_ptrs = (ctypes.c_uint64 * A)(*(a.data_ptr() for a in arrays))
-    out_ptrs = (ctypes.c_uint64 * R)(*(o.data_ptr() for o in outs))
-    coefs = (ctypes.c_double * (A * R))(*(c for row in rows for c in row))
-    fn = LIB.fn(f"tf_combine_{suffix(a0.dtype)}", 3, 3)
-    rc = fn(ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-            ctypes.addressof(coefs), A, R, a0.numel(), stream_of(a0))
+    outs = [torch.empty_like(a0) for _ in range(R)]
+    ptrs = [a.data_ptr() for a in arrays] + [None] * (MAX_ARRAYS - A)
+    fn = LIB.fn(_ENTRIES[a0.dtype], 11, 4)
+    rc = fn(block, *ptrs, outs[0].data_ptr(),
+            outs[1].data_ptr() if R > 1 else None, A, R, n,
+            sm_count(a0), stream_of(a0))
     LIB.check(rc, "K5 combine")
     LAUNCHES.add()
     return outs

@@ -218,6 +218,85 @@ def check_all_combines(device, dtype, results=None, seed=0):
     return results
 
 
+def check_combine_exact(rows, arrays, results=None, what=""):
+    """K5 equal to its plain version bit for bit (``torch.equal``)."""
+    results = {} if results is None else results
+    got = combine.combine(rows, arrays)
+    want = combine.combine_plain(rows, arrays)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise CheckFailed(f"K5.combine {what}: not bit for bit equal to its "
+                              f"plain version (max gap {_err(g, w)[0]:.3e})")
+        _record(results, "K5.combine", g, w, 0.0, what)
+    return results
+
+
+def check_combines_exact(device, dtype, results=None, seed=0):
+    """K5 bit for bit at the RODASPR rows on KS 2^20's shape (A = 7, R =
+    2; the 16-byte vector path), on arrays whose start is not 16-byte
+    aligned (the scalar path) and at a length with a vector tail."""
+    results = {} if results is None else results
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((2, 7)).tolist()
+    rows[0][0], rows[1][0], rows[1][3] = 1.0, 1.0, 0.0
+    for n, offset in ((1 << 20, 0), (4099, 1), (4099, 0), (10 ** 6 + 3, 2)):
+        arrays = [torch.tensor(rng.standard_normal(n + offset), dtype=dtype,
+                               device=device)[offset:] for _ in range(7)]
+        check_combine_exact(rows, arrays, results, f"n={n} offset={offset}")
+    return results
+
+
+#: (W, nvar) of each block size s = nvar * max(W // 2, 1), 1..8
+SWEEP_BLOCKS = {1: (3, 1), 2: (5, 1), 3: (3, 3), 4: (9, 1), 5: (3, 5),
+                6: (5, 3), 7: (3, 7), 8: (5, 4)}
+#: (C, Mc, B) of the sweep checks: Mc = 2, odd, no multiple of the stage
+#: rows, and (None) long enough that the forward results stream through y
+#: in both types (``sweep_plan``: Mc s > 3072 at 4 chunks per block); C no
+#: multiple of the chunks per block; with and without members
+SWEEP_SHAPES = [(3, 2, 1), (37, 13, 1), (5, 37, 3), (40, 9, 1), (3, None, 1),
+                (2, 301, 2)]
+
+
+def check_sweep(W, nvar, C, Mc, B, dtype, device, seed=0, results=None):
+    """K3's sweep against its plain version on K2's factor of random bands
+    (B members, or one grid for B = 1) and a random right-hand side."""
+    results = {} if results is None else results
+    g = max(W // 2, 1)
+    N = C * Mc * g
+    plan = chunked.plan_with(N, nvar, W // 2, False, C, B)
+    sp_ = thomas.sweep_plan(plan.s, torch.finfo(dtype).bits // 8, Mc, C, B)
+    what = (f"s={plan.s} C={C} Mc={Mc} B={B} CB={sp_.CB} R={sp_.R} "
+            f"persist={sp_.persist}")
+    if B > 1:
+        bands = torch.stack([random_bands(W, nvar, N, dtype, device, seed + b)
+                             for b in range(B)])
+    else:
+        bands = random_bands(W, nvar, N, dtype, device, seed)
+    fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
+    rng = np.random.default_rng(seed)
+    lead = (B,) if B > 1 else ()
+    rhs = torch.tensor(rng.standard_normal((*lead, nvar, N)), dtype=dtype,
+                       device=device)
+    y_k, yred_k = thomas.thomas_sweep(fact, rhs, plan)
+    y_p, yred_p = thomas.thomas_sweep_plain(fact, rhs, plan)
+    name = solver_entry("K3.thomas_sweep", plan.s)
+    tol = TOL[dtype]["solve"]
+    _record(results, name, y_k, y_p, tol, what)
+    _record(results, name, yred_k, yred_p, tol, f"yred {what}")
+    return results
+
+
+def check_all_sweeps(device, dtype, results=None, blocks=SWEEP_BLOCKS):
+    """``check_sweep`` at every block size of ``blocks`` and shape of
+    ``SWEEP_SHAPES``."""
+    results = {} if results is None else results
+    for s, (W, nvar) in blocks.items():
+        for i, (C, Mc, B) in enumerate(SWEEP_SHAPES):
+            check_sweep(W, nvar, C, Mc or 3073 // s + 1, B, dtype, device,
+                        seed=10 * s + i, results=results)
+    return results
+
+
 def random_bands(W, nvar, N, dtype, device, seed=0, beta=-0.3):
     """Bands of a J whose ``I + beta*J`` is diagonally dominant."""
     rng = np.random.default_rng(seed)
@@ -333,7 +412,9 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     """K2, K4 (factor; the R-column solve; on a Woodbury plan the closure's
     set-up; solve with shifts) and K3 (sweep, correction) against their
     plain versions on the same inputs, then the kernels' whole solve by its
-    residual.  ``bands`` are J's bands on the card."""
+    residual.  ``bands`` are J's bands on the card.  On a padded plan the
+    pieces work on the padded system (``chunked.padded_system``: the
+    kernels' inputs on that plan), the solve on the grid's own."""
     results = {} if results is None else results
     W, nvar, _, N = bands.shape
     dtype, device = bands.dtype, bands.device
@@ -341,17 +422,23 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     if plan is None:
         plan = chunked.make_plan(N, nvar, W // 2, periodic)
     what = (f"N={N} s={plan.s} C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
-            f"woodbury={plan.woodbury}")
+            f"woodbury={plan.woodbury} Np={plan.Np} ring={plan.ring}")
 
     def n(name):
         return solver_entry(name, plan.s)
 
     rng = np.random.default_rng(seed)
+    Np = plan.Np
     rhs = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
-    add = torch.tensor(rng.standard_normal((nvar, N)), dtype=dtype, device=device)
+    add = torch.tensor(rng.standard_normal((nvar, Np)), dtype=dtype, device=device)
+    rhs_p = torch.nn.functional.pad(rhs, (0, Np - N))
+    A_p, a_p, b_p = bands, alpha, beta
+    if plan.padded or plan.ring:
+        A_p, _ = chunked.padded_system(alpha, beta, bands, plan)
+        a_p, b_p = 0.0, 1.0
 
-    sp_k = thomas.spike_factor(bands, alpha, beta, plan)
-    sp_p = thomas.spike_factor_plain(bands, alpha, beta, plan)
+    sp_k = thomas.spike_factor(A_p, a_p, b_p, plan)
+    sp_p = thomas.spike_factor_plain(A_p, a_p, b_p, plan)
     for got, want in zip(sp_k, sp_p):
         _record(results, n("K2.spike_factor"), got, want, tol, what)
 
@@ -376,8 +463,8 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     _record(results, n("K4.pcr_solve"), pcr.pcr_solve(red_p, cols),
             pcr.pcr_solve_plain(red_p, cols), tol, f"R={2 * plan.s} {what}")
 
-    y_k, yred_k = thomas.thomas_sweep(sp_p, rhs, plan)
-    y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs, plan)
+    y_k, yred_k = thomas.thomas_sweep(sp_p, rhs_p, plan)
+    y_p, yred_p = thomas.thomas_sweep_plain(sp_p, rhs_p, plan)
     _record(results, n("K3.thomas_sweep"), y_k, y_p, tol, what)
     _record(results, n("K3.thomas_sweep"), yred_k, yred_p, tol, what)
 

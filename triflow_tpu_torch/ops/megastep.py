@@ -95,18 +95,32 @@ ROW_US = {1: 2.20, 2: 3.41, 4: 6.57}
 LEVEL_US = {1: 3.33, 2: 10.42, 4: 70.47}
 
 
+#: K6 declines a grid whose plan costs more than PAD_MARGIN times the
+#: least-cost padded plan and more than MULTI_LAUNCH_US (``make_plan``):
+#: the multi-launch path is host-bound on small grids, a RODASPR step of
+#: the README model at N = 199 taking 2.14 ms synchronised on an H100
+#: (float64, chip_smoke.py phase 3; PERF.md), so K6 keeps a serial plan
+#: cheaper than that
+PAD_MARGIN = 2.0
+MULTI_LAUNCH_US = 2000.0
+
+
 def plan_cost_us(M: int, C: int, s: int) -> float:
     """Modelled time of the sequential parts of one K6 step with C chunks of
-    M // C rows of block size s."""
+    ceil(M / C) rows of block size s."""
     passes = -(-C // BLOCK_THREADS)
-    return passes * (ROW_US[s] * (M // C) + LEVEL_US[s] * pcr.n_levels(C))
+    return passes * (ROW_US[s] * -(-M // C) + LEVEL_US[s] * pcr.n_levels(C))
 
 
 def make_plan(N: int, nvar: int, halo: int, periodic: bool):
     """K6's chunk plan of a grid: the admissible chunk count
     (``chunked.chunk_counts``: any divisor with at least 2 rows per chunk,
     C >= 2 on a ring) of least ``plan_cost_us``, whatever N is; None when
-    the grid has none or its block size has no fitted cost."""
+    the grid has none, when its block size has no fitted cost, or when a
+    chunk count that pads the grid (``chunked.padded_counts``) costs less
+    than the plan's cost over ``PAD_MARGIN`` and the plan costs more than
+    ``MULTI_LAUNCH_US``: K6 pads nothing, and such a grid (a prime
+    supernode count: one serial chunk) takes K1-K5, which pad it."""
     g = max(halo, 1)
     s = nvar * g
     if N % g or s not in ROW_US:
@@ -116,6 +130,10 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool):
     if not cands:
         return None
     C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
+    padded = min(plan_cost_us(M, c, s) for c in chunked.padded_counts(N, halo))
+    cost = plan_cost_us(M, C, s)
+    if padded * PAD_MARGIN < cost and cost > MULTI_LAUNCH_US:
+        return None
     return chunked.plan_with(N, nvar, halo, periodic, C)
 
 

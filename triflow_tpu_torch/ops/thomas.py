@@ -7,7 +7,7 @@ K2 replaces the TPU's ``ops/folded.py:factor_sweeps_folded`` and
 ``ops/pallas_thomas.py:chunked_solve_flat`` and the spike correction of
 ``ops/folded.py:_solve_folded_flat``.  Sources: ``csrc/spike_factor.cu``
 and ``csrc/spike_solve.cu``, each built twice: for block sizes s <=
-``NARROW_S`` (one thread per chunk) and, with ``TF_WIDE`` defined, for
+``NARROW_S`` and, with ``TF_WIDE`` defined, for
 s = 5..``MAX_S`` (K2 walks a chunk with a group of s lanes), whose launches
 count apart (``..._wide``).  The plain versions are the chunked factor and
 sweeps of ``ops/banded.py``.
@@ -18,20 +18,25 @@ kernel for CUDA tensors; ``plan`` is an ``ops.chunked.Plan``.
 Member axis: bands ``(B, W, nvar, nvar, N)`` (an ensemble's B grids) give
 a factor whose arrays lead with B, each member's slab laid out as one
 grid's (rows ``(B, Mc, s, s, C)``, reduced couplings ``(B, 2s, 2s, C)``),
-and right-hand sides ``(B, nvar, N)``.  The kernels run one thread per
-(member, chunk) or (member, node); members never couple, and each member's
-ring closes on itself.  The factor shift ``beta`` is a number or a
+and right-hand sides ``(B, nvar, N)``.  The kernels run one thread (K2) or
+one block of walkers (K3's sweep, ``sweep_plan``) per (member, chunk) or
+chunk group, or one thread per (member, node); members never couple, and
+each member's ring closes on itself.  The factor shift ``beta`` is a number or a
 per-member (B,) tensor on the bands' device (the kernel reads it there,
 so shared and per-member step sizes take one code).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import banded
 from ._build import csrc_library
-from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from ._launch import (Counter, check_cuda, check_shapes, sm_count, stream_of,
+                      suffix)
 
 FACTOR_LAUNCHES = Counter("K2.spike_factor")
 SWEEP_LAUNCHES = Counter("K3.thomas_sweep")
@@ -113,7 +118,7 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
     what = "K2 spike_factor"
     check_cuda((bands,), bands.dtype, what)
     check_shapes(what, bands=(bands, (*lead, plan.W, plan.nvar, plan.nvar,
-                                      plan.N)))
+                                      plan.Np)))
     lib, launches = pick(plan.s, what, (FACTOR_LIB, FACTOR_LAUNCHES),
                          (FACTOR_WIDE_LIB, FACTOR_WIDE_LAUNCHES))
     beta_ptr, beta_val = beta_args(beta, B, bands.dtype, bands.device, what)
@@ -124,12 +129,72 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
                       device=bands.device)
     fn = lib.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 8, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
-            red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.N, plan.nvar,
+            red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.Np, plan.nvar,
             plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, float(alpha),
             beta_val, stream_of(bands))
     lib.check(rc, what)
     launches.add()
     return banded.SpikeFactor(*rows, red[0], red[1])
+
+
+#: stages of the shared-memory ring of K3's staged sweep (kStages in
+#: csrc/spike_solve.cu)
+SWEEP_STAGES = 4
+#: most chunks one block walks (half a warp of walkers), and the fewest it
+#: is cut down to for more blocks
+SWEEP_MAX_CB = 16
+SWEEP_MIN_CB = 4
+#: shared memory a block's plan may take at most, and at most what the
+#: forward results kept for the backward pass may; an SM's shared memory
+#: (228 KB, of which each resident block also takes 1 KB and the kernel's
+#: own 512 bytes) shared by the blocks a grid puts on it, up to 16 (2048
+#: threads)
+SWEEP_SMEM = 100 * 1024
+SWEEP_KEEP = 48 * 1024
+SM_SMEM = 228 * 1024
+SM_BLOCKS = 16
+
+
+class SweepPlan(NamedTuple):
+    CB: int        # chunks per block (walker lanes)
+    R: int         # rows per stage
+    persist: bool  # forward results kept in shared memory
+    smem: int      # bytes of shared memory per block
+
+
+def sweep_smem(s, item, Mc, CB, R, persist):
+    """Bytes of shared memory of a sweep plan (``sweep_smem`` in
+    csrc/spike_solve.cu): SWEEP_STAGES stages of two s x s row tiles and a
+    vector tile, the out tile, and with ``persist`` the forward results."""
+    return item * CB * (SWEEP_STAGES * R * (2 * s * s + s) + R * s
+                        + (Mc * s if persist else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_plan(s, item, Mc, C, B=1, sms=132):
+    """K3's sweep plan.  CB chunks per block (of the B * C chunks of all
+    members, taken in turn): from SWEEP_MAX_CB (at most B * C rounded up to
+    a power of two), halved down to SWEEP_MIN_CB while the grid has fewer
+    than two blocks per SM.  The blocks each SM then holds (at most
+    SM_BLOCKS) share its shared memory: R rows per stage from 8, halved,
+    then CB, until a block's stages fit its share (and SWEEP_SMEM); the
+    forward results kept in shared memory where they take at most
+    SWEEP_KEEP and the whole still fits.  (Chip runs at KS 2^20, the film
+    and config 5: occupancy decides, PERF.md.)"""
+    chunks = B * C
+    CB = min(SWEEP_MAX_CB, 1 << (chunks - 1).bit_length())
+    while CB > SWEEP_MIN_CB and -(-chunks // CB) < 2 * sms:
+        CB //= 2
+    per_sm = min(SM_BLOCKS, -(-(-(-chunks // CB)) // sms))
+    budget = min(SWEEP_SMEM, SM_SMEM // per_sm - 1536)
+    R = 8
+    while sweep_smem(s, item, Mc, CB, R, False) > budget and R > 1:
+        R //= 2
+    while sweep_smem(s, item, Mc, CB, R, False) > budget and CB > 1:
+        CB //= 2
+    persist = (item * Mc * s * CB <= SWEEP_KEEP
+               and sweep_smem(s, item, Mc, CB, R, True) <= budget)
+    return SweepPlan(CB, R, persist, sweep_smem(s, item, Mc, CB, R, persist))
 
 
 def thomas_sweep_plain(fact: banded.SpikeFactor, rhs, plan):
@@ -148,7 +213,7 @@ def thomas_sweep(fact: banded.SpikeFactor, rhs, plan):
     what = "K3 thomas_sweep"
     check_cuda((rhs, fact.fac, fact.Dhinv, fact.DU), rhs.dtype, what)
     rows = _rows_shape(plan, lead)
-    check_shapes(what, rhs=(rhs, (*lead, plan.nvar, plan.N)),
+    check_shapes(what, rhs=(rhs, (*lead, plan.nvar, plan.Np)),
                  fac=(fact.fac, rows), Dhinv=(fact.Dhinv, rows),
                  DU=(fact.DU, rows))
     lib, launches = pick(plan.s, what, (SOLVE_LIB, SWEEP_LAUNCHES),
@@ -156,10 +221,13 @@ def thomas_sweep(fact: banded.SpikeFactor, rhs, plan):
     y = torch.empty_like(rhs)
     yred = torch.empty((*lead, 2 * plan.s, plan.C), dtype=rhs.dtype,
                        device=rhs.device)
-    fn = lib.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 6)
+    sp = sweep_plan(plan.s, rhs.element_size(), plan.Mc, plan.C, B,
+                    sm_count(rhs))
+    fn = lib.fn(f"tf_thomas_sweep_{suffix(rhs.dtype)}", 6, 9)
     rc = fn(fact.fac.data_ptr(), fact.Dhinv.data_ptr(), fact.DU.data_ptr(),
-            rhs.data_ptr(), y.data_ptr(), yred.data_ptr(), plan.N, plan.nvar,
-            plan.g, plan.Mc, plan.C, B, stream_of(rhs))
+            rhs.data_ptr(), y.data_ptr(), yred.data_ptr(), plan.Np, plan.nvar,
+            plan.g, plan.Mc, plan.C, B, sp.CB, sp.R, int(sp.persist),
+            stream_of(rhs))
     lib.check(rc, what)
     launches.add()
     return y, yred
@@ -186,12 +254,12 @@ def spike_correct(fact: banded.SpikeFactor, y, xm1, xp1, plan, add_to=None):
     B, lead = members(y, 2)
     what = "K3 spike_correct"
     rows = _rows_shape(plan, lead)
-    shapes = dict(y=(y, (*lead, plan.nvar, plan.N)),
+    shapes = dict(y=(y, (*lead, plan.nvar, plan.Np)),
                   xm1=(xm1, (*lead, plan.s, plan.C)),
                   xp1=(xp1, (*lead, plan.s, plan.C)), W=(fact.W, rows),
                   V=(fact.V, rows))
     if add_to is not None:
-        shapes["add_to"] = (add_to, (*lead, plan.nvar, plan.N))
+        shapes["add_to"] = (add_to, (*lead, plan.nvar, plan.Np))
     check_cuda([t for t, _ in shapes.values()], y.dtype, what)
     check_shapes(what, **shapes)
     lib, launches = pick(plan.s, what, (SOLVE_LIB, CORRECT_LAUNCHES),
@@ -200,7 +268,7 @@ def spike_correct(fact: banded.SpikeFactor, y, xm1, xp1, plan, add_to=None):
     fn = lib.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 7)
     rc = fn(y.data_ptr(), fact.W.data_ptr(), fact.V.data_ptr(), xm1.data_ptr(),
             xp1.data_ptr(), 0 if add_to is None else add_to.data_ptr(),
-            out.data_ptr(), plan.N, plan.nvar, plan.g, plan.Mc, plan.C,
+            out.data_ptr(), plan.Np, plan.nvar, plan.g, plan.Mc, plan.C,
             int(add_to is not None), B, stream_of(y))
     lib.check(rc, what)
     launches.add()
