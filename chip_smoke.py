@@ -19,8 +19,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    K3's staged sweep at block sizes 1..8 (one grid and members, Mc = 2,
    odd and no multiple of the stage rows, the forward results kept and
    streamed: ``kernel_checks.check_all_sweeps``), K5 bit for bit at KS
-   2^20's shape, unaligned and with a vector tail, and K2-K4 on the padded
-   paths' bands and plans (``padded_path_checks``).
+   2^20's shape, unaligned and with a vector tail, K2's staged walk at
+   block sizes 1..4 (``kernel_checks.check_all_factors``) and K4's cluster
+   solve with shifts at interface blocks 2..16
+   (``kernel_checks.check_all_shifts``), and K2-K4 on the padded paths'
+   bands and plans (``padded_path_checks``).
 2. the main paths through ``Simulation`` on ``device="cuda"``, f32 and f64,
    each case driven with the launch counts set to 0 just before it and read
    just after: the Theta path (Burgers at the reference's N = 10^6, 10
@@ -932,6 +935,12 @@ def phase1():
         # no multiple of the stage rows, kept and streamed), K5 bit for bit
         kernel_checks.check_all_sweeps("cuda", dtype, res)
         kernel_checks.check_combines_exact("cuda", dtype, res)
+        # K2's staged walk at s = 1..4 (block-cyclic, Woodbury, acyclic and
+        # padded plans, members, the forward results kept and streamed) and
+        # K4's cluster solve at s2 = 2..16 (clusters of one CTA and of
+        # several, with and without the Woodbury correction, members)
+        kernel_checks.check_all_factors("cuda", dtype, res)
+        kernel_checks.check_all_shifts("cuda", dtype, res)
         padded_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
@@ -2435,20 +2444,23 @@ def phase3_megatheta():
                 + f" -> fastest C={best}; plan_for's C={plan0.C} at "
                 f"{row[plan0.C] / row[best] - 1:+.2%}")
     for s_blk, points in sorted(fit.items()):
-        # t = ROW_US Mc + SLAB_US levels slabs + an offset per dtype, least
-        # squares over both dtypes: the constants of megatheta.plan_cost_us
+        # t = ROW_US Mc + SLAB_US levels slabs + an offset per dtype,
+        # non-negative least squares over both dtypes: the constants of
+        # megatheta.plan_cost_us
         dts = sorted({dt_name for dt_name, *_ in points})
-        A = np.array([[M // C, pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
-                      + [float(dt_name == d) for d in dts] for dt_name, M, C, _ in points])
-        y = np.array([1e3 * t for *_, t in points])
-        coef, *_ = np.linalg.lstsq(A, y, rcond=None)
+
+        def feats(M, C):
+            return [M // C, pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
+
+        coef = nnls_fit([feats(M, C) + [float(dt_name == d) for d in dts]
+                         for dt_name, M, C, _ in points], [t for *_, t in points])
         picks = []
         for d in dts:
             rows = [(C, M, t) for dt_name, M, C, t in points if dt_name == d]
-            pick = min(rows, key=lambda r: (coef[0] * (r[1] // r[0]) + coef[1] * pcr.n_levels(
-                r[0]) * -(-r[0] // pcr.BLOCK_THREADS), r[0]))
+            pick = min(rows, key=lambda r: (float(np.dot(coef[:2], feats(r[1], r[0]))), r[0]))
             best = min(rows, key=lambda r: r[2])
-            picks.append(f"{d}: the fit picks C={pick[0]}, fastest C={best[0]}")
+            picks.append(f"{d}: the fit picks C={pick[0]} "
+                         f"({pick[2] / best[2] - 1:+.2%}), fastest C={best[0]}")
         log(f"  K9 cost fit s={s_blk}: ROW_US = {coef[0]:.3f}, SLAB_US = {coef[1]:.3f} "
             f"(megatheta's {megatheta.ROW_US[s_blk]}, {megatheta.SLAB_US[s_blk]}); "
             + "; ".join(picks))
@@ -2888,7 +2900,7 @@ def phase2_padded(launches):
 #: supernodes), behind ``chunked.ROW_US`` / ``LEVEL_US`` / ``SLAB_US``
 KS_CHUNKS = [500, 625, 1000, 1250, 2000, 2500, 3125, 4000, 5000, 6250, 10000, 15625]
 #: and of Burgers at N = 10^6 (divisors of 10^6)
-BURGERS_CHUNKS = [500, 1000, 1250, 2000, 2500, 4000, 5000, 8000]
+BURGERS_CHUNKS = [500, 1000, 1250, 2000, 2500, 4000, 5000, 8000, 10000, 12500, 15625]
 
 
 def phase3_padded():
@@ -2898,8 +2910,10 @@ def phase3_padded():
     steps synchronised (N = 200 and 199 through K6, 199 and 4099 through
     K1-K5, padded); and the chunk-count sweeps of KS at N = 10^6 (with the
     least-squares fit of ``chunked.plan_cost_us``'s constants), KS at N =
-    2^20 and Burgers Theta at N = 10^6."""
+    2^20 and Burgers Theta at N = 10^6, and the fit of both dtypes' KS 10^6
+    sweeps behind the constants."""
     log("phase 3: padded grids and the KS 10^6 chunk sweep (CUDA events)")
+    fits = {}
     for dt_name, dtype in DTYPES.items():
         for pair in (((ks_case(0.05, 0.2, N_REF), "ks N=10^6"),
                       (ks_case(0.05, 0.2, N_ODD), "ks N=999983")),
@@ -2965,7 +2979,20 @@ def phase3_padded():
                         f"{coef[1]:.3f}, SLAB_US = {coef[2]:.3f}, offset {coef[3]:.1f} us "
                         f"(chunked has {chunked.ROW_US}, {chunked.LEVEL_US}, "
                         f"{chunked.SLAB_US})")
+                fits[dt_name] = (M, row)
             log(msg)
+    # both dtypes' KS 10^6 sweeps in one fit, one offset each: the
+    # constants of chunked.plan_cost_us
+    feats = [[M // C, pcr.n_levels(C), pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
+             + [float(d == e) for e in fits] for d, (M, row) in fits.items() for C in row]
+    coef = nnls_fit(feats, [t for _, row in fits.values() for t in row.values()])
+    picks = []
+    for d, (M, row) in fits.items():
+        pick = min(row, key=lambda C: (float(np.dot(coef[:3], [
+            M // C, pcr.n_levels(C), pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)])), C))
+        picks.append(f"{d} C={pick} ({row[pick] / min(row.values()) - 1:+.2%})")
+    log(f"  pooled non-negative fit of the ks N=10^6 sweeps: ROW_US = {coef[0]:.3f}, LEVEL_US = "
+        f"{coef[1]:.3f}, SLAB_US = {coef[2]:.3f}; it picks " + ", ".join(picks))
     return {dt_name: {} for dt_name in DTYPES}
 
 

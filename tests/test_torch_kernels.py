@@ -533,6 +533,153 @@ def test_sweep_plan():
     assert thomas.sweep_plan(6, 4, 500, 1000).persist
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_staged_factor_matches_plain_version(cuda_device, dtype):
+    """K2's staged walk at block sizes 1..4 against its plain version:
+    block-cyclic, Woodbury, acyclic and padded plans, one grid and B = 4
+    members with their own shifts, Mc = 1, 2, odd and long enough that the
+    forward results stream through the rows (``kernel_checks.FACTOR_CASES``),
+    within 1e-10 (f64) and 1e-4 (f32) of the largest entry."""
+    results = kernel_checks.check_all_factors(cuda_device, dtype)
+    assert set(results) == {"K2.spike_factor"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cluster_solve_shift_matches_plain_version(cuda_device, dtype):
+    """K4's solve with shifts over a thread-block cluster against its plain
+    version at every interface block size 2..16, with and without the
+    Woodbury correction, on clusters of one CTA and of several, one grid
+    and members (``kernel_checks.SHIFT_CASES``)."""
+    results = kernel_checks.check_all_shifts(cuda_device, dtype)
+    assert set(results) == {"K4.pcr_solve_shift", "K4.pcr_solve_shift_wide"}
+    sizes = {pcr.solve_plan(C, 2 * s, B).K for s, C, B, _ in kernel_checks.SHIFT_CASES}
+    assert 1 in sizes and max(sizes) == pcr.MAX_CLUSTER
+
+
+def test_new_checks_harness_on_cpu():
+    """The K2 and cluster-solve checks on CPU tensors (a few cases): plain
+    against plain, nothing launched."""
+    before = _launch.counts()
+    results = kernel_checks.check_all_factors(
+        "cpu", torch.float64, cases=kernel_checks.FACTOR_CASES[3:5])
+    kernel_checks.check_all_shifts("cpu", torch.float64, results,
+                                   cases=[(2, 300, 1, True), (8, 64, 1, True)])
+    assert results == {"K2.spike_factor": 0.0, "K4.pcr_solve_shift": 0.0,
+                       "K4.pcr_solve_shift_wide": 0.0}
+    assert _launch.counts() == before
+
+
+#: H100's shared memory per SM (228 KB) and the most a block may take
+SM_SMEM = 228 * 1024
+BLOCK_SMEM = 227 * 1024
+
+
+def test_factor_plan():
+    """K2's planner: one-warp blocks of CB chunks, a power of two up to 32:
+    the fewest that need no more blocks than the card's schedulers (4 per
+    SM), then fewer while four blocks would not share an SM's 228 KB; the
+    forward results kept only where they fit."""
+    sms = 132
+    for nvar, halo in ((1, 1), (1, 2), (2, 1), (3, 1), (2, 2), (4, 1), (1, 4)):
+        s = nvar * max(halo, 1)
+        for item in (4, 8):
+            for Mc, C, B in ((1, 40, 1), (2, 3, 1), (128, 4096, 1), (512, 1024, 1),
+                             (500, 2000, 1), (500, 100, 1024), (3000, 3, 1),
+                             (100, 128, 64)):
+                fp = thomas.factor_plan(nvar, halo, item, Mc, C, B, sms)
+                assert fp.CB & (fp.CB - 1) == 0 and 1 <= fp.CB <= thomas.FACTOR_MAX_CB
+                assert fp.smem == thomas.factor_smem(nvar, halo, item, Mc, fp.CB, fp.R,
+                                                     fp.persist)
+                assert fp.smem <= thomas.FACTOR_SMEM and 4 * (fp.smem + 1024) <= SM_SMEM
+                assert 1 <= fp.R <= 8 and fp.R * max(halo, 1) <= 32
+                if fp.persist:
+                    assert item * 3 * Mc * s * s * fp.CB <= thomas.FACTOR_KEEP
+                # one block per scheduler where the chunks fill them, and
+                # no more than that unless shared memory caps the block
+                blocks = -(-B * C // fp.CB)
+                assert fp.CB == 1 or -(-B * C // (fp.CB // 2)) > 4 * sms
+                assert blocks <= 4 * sms or fp.CB == thomas.FACTOR_MAX_CB or (
+                    4 * (thomas.factor_smem(nvar, halo, item, Mc, 2 * fp.CB, fp.R, False)
+                         + 1024) > SM_SMEM)
+    # KS 2^20 at C = 1024: 512 blocks of two walkers, the 512 rows streamed
+    # (kept in shared memory in float32)
+    assert thomas.factor_plan(1, 2, 8, 512, 1024) == thomas.FactorPlan(
+        2, 8, False, thomas.factor_smem(1, 2, 8, 512, 2, 8, False))
+    assert thomas.factor_plan(1, 2, 4, 512, 1024).persist
+    # 4096 chunks in blocks of 8; config 5's 102400 in blocks of 16
+    # (float64) and 32 (float32), four on each SM
+    assert thomas.factor_plan(1, 2, 8, 128, 4096).CB == 8
+    assert thomas.factor_plan(1, 2, 8, 500, 100, 1024)[:2] == (16, 8)
+    assert thomas.factor_plan(1, 2, 4, 500, 100, 1024)[:2] == (32, 8)
+    # Burgers 10^6 (s = 1, C = 2000): the forward results kept
+    assert thomas.factor_plan(1, 1, 8, 500, 2000).persist
+
+
+def test_solve_plan():
+    """K4's cluster plan: one CTA per member where many members fill the
+    card (config 5), up to 16 on one grid, every CTA with chunks, the
+    shared memory within a block's 227 KB, and a refusal where the state
+    does not fit 16 CTAs."""
+    for s2 in (2, 4, 6, 8, 10, 12, 14, 16):
+        for item in (4, 8):
+            cap = pcr.max_chunks(s2, item)
+            for C in (1, 2, 3, 64, 100, 128, 250, 1000, 1024, 2000, 4096, 16384):
+                for B in (1, 4, 64, 1024):
+                    if C > cap:
+                        with pytest.raises(ValueError, match="do not fit"):
+                            pcr.solve_plan(C, s2, B, item)
+                        continue
+                    sp = pcr.solve_plan(C, s2, B, item)
+                    assert 1 <= sp.K <= pcr.MAX_CLUSTER
+                    assert sp.K * sp.Cc >= C > (sp.K - 1) * sp.Cc
+                    assert sp.Cc & (sp.Cc - 1) == 0
+                    assert 1 <= sp.Ct <= sp.Cc
+                    assert s2 * sp.Ct <= sp.threads <= pcr.SOLVE_THREADS
+                    assert sp.threads % 32 == 0
+                    assert sp.smem == pcr.solve_smem(s2, item, sp.Cc, sp.Ct, sp.D)
+                    assert sp.smem + 2 * s2 * item <= BLOCK_SMEM
+                    # a ring of at least the slabs needed, at most all of them
+                    slabs = (pcr.n_levels(C) + 1) * -(-sp.Cc // sp.Ct)
+                    assert 1 <= sp.D <= slabs
+                    if B * sp.K > 132 and 2 * (pcr.solve_smem(
+                            s2, item, sp.Cc, min(sp.Cc, 8), 3) + 2048) <= SM_SMEM:
+                        assert 2 * (sp.smem + 2048) <= SM_SMEM  # two CTAs an SM
+    # config 5: B = 1024 members of C = 100 chunks, clusters of one
+    assert pcr.solve_plan(100, 4, 1024).K == 1
+    # KS 2^20 (C = 1024) and 10^6 (C = 1000): 16 CTAs of 64 chunks (a
+    # power of two: the last of the 1000 holds 40), every level's
+    # operators in flight from the start
+    assert pcr.solve_plan(1024, 4)[:4] == (16, 64, 64, 11)
+    assert pcr.solve_plan(1000, 4)[:2] == (16, 64)
+    # the largest chunk counts: all of MAX_C at s2 <= 10, fewer at 12..16
+    # in float64
+    assert pcr.max_chunks(4) == pcr.max_chunks(10) == pcr.MAX_C
+    assert pcr.max_chunks(16) < pcr.max_chunks(12) < pcr.MAX_C
+    assert pcr.max_chunks(16, 4) == pcr.MAX_C
+    with pytest.raises(ValueError, match="do not fit"):
+        pcr.solve_plan(pcr.max_chunks(16) + 1, 16)
+
+
+def test_make_plan_never_picks_a_refused_chunk_count(monkeypatch):
+    """With a cost that prefers ever more chunks, ``make_plan`` stops at the
+    most chunks K4's cluster solve takes in float64 (and so in float32)."""
+    monkeypatch.setattr(chunked, "plan_cost_us", lambda M, C, s=1: -C)
+    for nvar, halo in ((8, 1), (4, 2), (6, 1), (1, 2)):
+        s = nvar * max(halo, 1)
+        for N in (1 << 17, 10 ** 5 + 1):
+            plan = chunked.make_plan(N, nvar, halo, True)
+            assert plan.C <= pcr.max_chunks(2 * s)
+            for item in (4, 8):
+                pcr.solve_plan(plan.C, 2 * s, 1, item)
+        # the cap binds: the grid has admissible counts above it
+        assert max(chunked.chunk_counts(1 << 17, halo, True)) > pcr.max_chunks(2 * s) \
+            or s < 6
+
+
 def test_combine_argument_cache():
     """K5's argument block: built once per (rows, arrays, dtype), the
     coefficients rounded to the type and each one's role (0 skip, 1 unit,

@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Time K3's chunk sweep and K5's combination against a parent commit's, in
-one process on one NVIDIA GPU.
+"""Time K2's factor, K4's solve with shifts, K3's chunk sweep and K5's
+combination against a parent commit's, in one process on one NVIDIA GPU.
 
     python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS]
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``9a91eee`` (``git archive``),
-the commit before K3's staged sweep and K5's cached launch path.  Both
-packages load in this process, the parent's under another name, each
-building its kernels from its own ``csrc/`` into its own ``build/``.
+repository, it is unpacked there from commit ``d5ab08f`` (``git archive``),
+the commit before K2's staged walk and K4's cluster solve (K3's staged
+sweep and K5's launch path are the same in both, so their pairs show the
+noise of the measurement).  Both packages load in this process, the
+parent's under another name, each building its kernels from its own
+``csrc/`` into its own ``build/``.
 
-On the same inputs (K2's factor of random diagonally dominant bands, one
-random right-hand side) it times K3's sweep (``thomas.thomas_sweep``, the
-whole wrapper) at KS N = 2^20 (s = 2, one grid; ``make_plan``'s plan and
-the parent's C = 4096), at the falling film's N = 10^6 (s = 6, three
-fields) and at config 5 (B = 1024 members of KS N = 10^5), and K5
-(``combine.combine``: A = 7 arrays, R = 2 rows, KS 2^20's shape) beside
+On the same inputs (random diagonally dominant bands; the plain reduced
+factor of K2's and, on a Woodbury plan, its closure; one random
+right-hand side) it times, on each grid of ``GRIDS`` and under its chunk
+plan: K2 (``thomas.spike_factor``, the whole wrapper), K4's solve with
+shifts (``pcr.pcr_solve_shift``) and K3's sweep (``thomas.thomas_sweep``);
+the grids are KS N = 2^20 (s = 2, one grid, block-cyclic: ``make_plan``'s
+plan and C = 1024 and 4096), KS N = 10^6 (Woodbury), the falling film's N
+= 10^6 (s = 6, three fields: K2's wide library is the parent's, K4's solve
+the cluster kernel) and config 5 (B = 1024 members of KS N = 10^5); and
+K5 (``combine.combine``: A = 7 arrays, R = 2 rows, KS 2^20's shape) beside
 one ``torch.mm`` of the same coefficients over stacked operands; float64
 and float32; CUDA-event ms per call over back-to-back calls, in the order
-parent, this, this, parent, PAIRS times (default 2).
-It checks that both sweeps give the same y, and reads K5's device µs per
-launch from ``torch.profiler`` (20 launches alone).  Prints the card's
-name and power limit, one line per measurement, then one JSON line with
-every mean.
+parent, this, this, parent, PAIRS times (default 2).  It checks that both
+give the same outputs (K2's five row arrays and reduced couplings, K4's
+shifts, K3's y: bit for bit, or within the solver pieces' limits, 1e-10
+of the largest entry in float64 and 1e-4 in float32, printed beside), and
+reads each kernel's device µs per launch from ``torch.profiler`` (20
+launches alone).  Prints the card's name and power limit, one line per
+measurement, then one JSON line with every mean.
 """
 
 import importlib.util
@@ -40,9 +48,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
-                                   thomas)
+                                   pcr, thomas)
 
-PARENT_COMMIT = "9a91eee"
+PARENT_COMMIT = "d5ab08f"
 
 
 def load_parent(path: Path):
@@ -63,8 +71,8 @@ def load_parent(path: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("parent_port.ops.thomas"), \
-        importlib.import_module("parent_port.ops.combine")
+    return tuple(importlib.import_module(f"parent_port.ops.{name}")
+                 for name in ("thomas", "pcr", "combine"))
 
 
 def cuda_ms(fn, iters):
@@ -79,30 +87,43 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, name, launches=20):
+def device_us(fn, name, launches=20, tries=5):
     """Device µs per launch of kernels whose name holds ``name`` over
-    ``launches`` calls of fn alone; None where the profiler kept another
-    number of them."""
+    ``launches`` calls of fn alone; a window in which the profiler kept
+    another number of them is measured again, and after ``tries`` windows
+    the result is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
-    return sum(times) / launches if len(times) == launches else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
+        if len(times) == launches:
+            return sum(times) / launches
+    return None
 
 
-#: (name, W, nvar, N, B, chunk count or None for make_plan's, calls timed):
-#: KS 2^20 also at the parent's plan (C = 4096; make_plan's moved with the
-#: refit of its cost to the staged sweep)
-SWEEPS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
-          ("ks 2^20 C=4096", 5, 1, 1 << 20, 1, 4096, 20),
-          ("film 10^6", 5, 3, 10 ** 6, 1, None, 5),
-          ("config 5", 5, 1, 10 ** 5, 1024, None, 3)]
+#: (name, W, nvar, N, B, chunk count or None for make_plan's, calls timed)
+GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
+         ("ks 2^20 C=1024", 5, 1, 1 << 20, 1, 1024, 20),
+         ("ks 2^20 C=4096", 5, 1, 1 << 20, 1, 4096, 20),
+         ("ks 10^6", 5, 1, 10 ** 6, 1, None, 20),
+         ("film 10^6", 5, 3, 10 ** 6, 1, None, 5),
+         ("config 5", 5, 1, 10 ** 5, 1024, None, 3)]
+
+
+def gap(new, old):
+    """"equal" where every tensor of ``new`` is bit for bit ``old``'s, else
+    the largest difference relative to the largest entry."""
+    if all(torch.equal(a, b) for a, b in zip(new, old)):
+        return "equal"
+    return "relative gap %.2e" % max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                                     for a, b in zip(new, old))
 
 
 def main():
@@ -113,7 +134,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
-    old_thomas, old_combine = load_parent(parent_dir)
+    old_thomas, old_pcr, old_combine = load_parent(parent_dir)
     means = {}
 
     def turns(what, old, new, iters):
@@ -129,30 +150,71 @@ def main():
               + f" ms; this / parent {means[f'{what} this'] / means[f'{what} parent']:.3f}",
               flush=True)
 
+    def on_device(what, old, new, name):
+        for side, fn in (("parent", old), ("this", new)):
+            us = device_us(fn, name)
+            means[f"{what} {side} device us"] = us
+            print(f"  {what} {side}: "
+                  + (f"{us:.3f} device us per launch" if us is not None
+                     else "device us not measured (the profiler dropped launches)"),
+                  flush=True)
+
     for dtype in (torch.float64, torch.float32):
         dt = str(dtype).replace("torch.", "")
-        for name, W, nvar, N, B, C, iters in SWEEPS:
+        item = torch.finfo(dtype).bits // 8
+        for name, W, nvar, N, B, C, iters in GRIDS:
             plan = (chunked.make_plan(N, nvar, W // 2, True, B) if C is None
                     else chunked.plan_with(N, nvar, W // 2, True, C, B))
             bands = kernel_checks.random_bands(W, nvar, N, dtype, "cuda")
             if B > 1:
                 bands = bands.expand(B, *bands.shape).contiguous()
-            fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
+            where = (f"{name} {dt}: s={plan.s} C={plan.C} Mc={plan.Mc} B={B} "
+                     f"woodbury={plan.woodbury}")
+            # K2
+            f_new = thomas.spike_factor(bands, 1.0, -0.3, plan)
+            f_old = old_thomas.spike_factor(bands, 1.0, -0.3, plan)
+            fp = (thomas.factor_plan(plan.nvar, plan.halo, item, plan.Mc, plan.C, B)
+                  if plan.s <= thomas.NARROW_S else "lane groups")
+            print(f"K2 factor {where}, {fp}; {gap(f_new, f_old)}", flush=True)
+            del f_old
+            turns(f"K2 factor {name} {dt}",
+                  lambda: old_thomas.spike_factor(bands, 1.0, -0.3, plan),
+                  lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), iters)
+            on_device(f"K2 factor {name} {dt}",
+                      lambda: old_thomas.spike_factor(bands, 1.0, -0.3, plan),
+                      lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), "spike_factor")
             del bands
+            fact = f_new
+            # K4's solve with shifts, on the factor's reduced system
+            red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+            wood = pcr.woodbury(red, fact.Lred, fact.Ured) if plan.woodbury else ()
             gen = torch.Generator(device="cuda").manual_seed(0)
-            rhs = torch.randn(((B,) if B > 1 else ()) + (nvar, N), dtype=dtype,
-                              device="cuda", generator=gen)
-            y_old = old_thomas.thomas_sweep(fact, rhs, plan)[0]
-            y_new = thomas.thomas_sweep(fact, rhs, plan)[0]
-            gap = float((y_new - y_old).abs().max() / y_old.abs().max())
-            del y_old, y_new
-            sp = thomas.sweep_plan(plan.s, rhs.element_size(), plan.Mc, plan.C, B)
-            print(f"K3 sweep {name} {dt}: s={plan.s} C={plan.C} Mc={plan.Mc} B={B}, "
-                  f"{sp}; relative gap {gap:.2e}", flush=True)
+            lead = (B,) if B > 1 else ()
+            yred = torch.randn(lead + (2 * plan.s, plan.C), dtype=dtype, device="cuda",
+                               generator=gen)
+            s_new = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+            s_old = old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+            sp = pcr.solve_plan(plan.C, 2 * plan.s, B, item)
+            print(f"K4 solve_shift {where}, {sp}; {gap(s_new, s_old)}", flush=True)
+            turns(f"K4 solve_shift {name} {dt}",
+                  lambda: old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                  lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood), 5 * iters)
+            on_device(f"K4 solve_shift {name} {dt}",
+                      lambda: old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                      lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                      "pcr_solve_shift")
+            del red, wood, yred, s_new, s_old
+            # K3's sweep (the same kernel in both: the noise of the pairs)
+            rhs = torch.randn(lead + (nvar, N), dtype=dtype, device="cuda", generator=gen)
+            y_new = thomas.thomas_sweep(fact, rhs, plan)
+            y_old = old_thomas.thomas_sweep(fact, rhs, plan)
+            print(f"K3 sweep {where}; {gap(y_new, y_old)}", flush=True)
+            del y_new, y_old
             turns(f"K3 sweep {name} {dt}",
                   lambda: old_thomas.thomas_sweep(fact, rhs, plan),
                   lambda: thomas.thomas_sweep(fact, rhs, plan), iters)
             del fact, rhs
+            torch.cuda.empty_cache()
         n = 1 << 20
         gen = torch.Generator(device="cuda").manual_seed(1)
         rows = torch.randn(2, 7, generator=gen, device="cuda").tolist()
@@ -169,14 +231,8 @@ def main():
               lambda: combine.combine(rows, arrays), 50)
         turns(f"torch.mm {dt}", lambda: torch.mm(coefs, stacked),
               lambda: torch.mm(coefs, stacked), 50)
-        for side, fn in (("parent", lambda: old_combine.combine(rows, arrays)),
-                         ("this", lambda: combine.combine(rows, arrays))):
-            us = device_us(fn, "combine")
-            means[f"K5 combine {dt} {side} device us"] = us
-            print(f"  K5 combine {dt} {side}: "
-                  + (f"{us:.3f} device us per launch" if us is not None
-                     else "device us not measured (the profiler dropped launches)"),
-                  flush=True)
+        on_device(f"K5 combine {dt}", lambda: old_combine.combine(rows, arrays),
+                  lambda: combine.combine(rows, arrays), "combine")
     print(json.dumps({"card": smi, "means_ms": means}))
 
 

@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
-"""The launch plans of K3's staged sweep and of K5, swept on one NVIDIA GPU.
+"""The launch plans of K2's staged walk, K4's cluster solve with shifts, K3's
+staged sweep and K5, swept on one NVIDIA GPU.
 
-    python3 tools/sweep_plans.py
+    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5]
 
-K3 (``thomas.thomas_sweep``'s C entry, called with each plan): chunks per
-block CB in 4, 8, 16, 32, rows per stage R in 2, 4, 8, the forward results
-kept in shared memory or streamed through y (where the shared memory fits
-200 KB), at KS N = 2^20 (C = 4096 and 1024), the falling film's N = 10^6
-(s = 6, C = 500) and config 5 (B = 1024 x KS N = 10^5, C = 100); CUDA-event
-ms per launch, each plan's y against ``thomas.sweep_plan``'s, and the plan
-``sweep_plan`` picks.  K5 (``combine.combine``'s C entry at KS 2^20's shape,
-A = 7, R = 2): device µs per launch (``torch.profiler``) on 16-byte aligned
+(all four without arguments).  K2 (``thomas.spike_factor``'s C entry,
+called with each plan): chunks per block CB in 1..32, rows per stage R in
+2, 4, 8, the forward results kept in shared memory or streamed through the
+factor's rows (where the shared memory fits 200 KB), at KS N = 2^20 (C =
+1024 and 4096), KS N = 10^6 (C = 1000) and config 5 (B = 1024 x KS N =
+10^5, C = 100); each plan's factor against ``thomas.factor_plan``'s.  K4
+(``pcr.pcr_solve_shift``'s C entry): CTAs per cluster K in 1, 2, 4, 8, 16
+and tiles of Ct chunks, at the same grids (KS 10^6 with its Woodbury
+correction), each with its planned ring of D operator slabs and with 3 and 2;
+each plan's shifts against ``pcr.solve_plan``'s.  K3
+(``thomas.thomas_sweep``'s C entry): chunks per block CB in 4, 8, 16, 32,
+rows per stage R in 2, 4, 8, the forward results kept in shared memory or
+streamed through y (where the shared memory fits 200 KB), at KS N = 2^20
+(C = 4096 and 1024), the falling film's N = 10^6 (s = 6, C = 500) and
+config 5 (B = 1024 x KS N = 10^5, C = 100); each plan's y against
+``thomas.sweep_plan``'s.  CUDA-event ms per launch, and the plan the
+planner picks.  K5 (``combine.combine``'s C entry at KS 2^20's shape, A =
+7, R = 2): device µs per launch (``torch.profiler``) on 16-byte aligned
 arrays and on arrays one element off (float32's float4 path and the scalar
 path), for grids capped at 1..32 blocks per SM through the SM count the
 entry is given.  Float64 and float32.  Prints the card's name and power
@@ -26,7 +37,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
-                                   thomas)
+                                   pcr, thomas)
 from triflow_tpu_torch.ops._launch import sm_count, stream_of, suffix  # noqa: E402
 
 #: (name, W, nvar, N, B, C)
@@ -61,6 +72,88 @@ def device_us(fn, name, launches=20, tries=3):
         if len(times) == launches:
             return sum(times) / launches
     return float("nan")
+
+
+#: (name, W, nvar, N, B, C) of the K2 and K4 sweeps
+GRIDS_24 = [("ks 2^20", 5, 1, 1 << 20, 1, 1024), ("ks 2^20", 5, 1, 1 << 20, 1, 4096),
+            ("ks 10^6", 5, 1, 10 ** 6, 1, 1000), ("config 5", 5, 1, 10 ** 5, 1024, 100)]
+
+
+def _bands(W, nvar, N, B, dtype):
+    bands = kernel_checks.random_bands(W, nvar, N, dtype, "cuda")
+    return bands.expand(B, *bands.shape).contiguous() if B > 1 else bands
+
+
+def sweep_k2(dtype):
+    for name, W, nvar, N, B, C in GRIDS_24:
+        plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
+        bands = _bands(W, nvar, N, B, dtype)
+        ref = thomas.spike_factor(bands, 1.0, -0.3, plan)
+        out = [torch.empty_like(t) for t in ref]
+        item = bands.element_size()
+        pick = thomas.factor_plan(nvar, W // 2, item, plan.Mc, C, B, sm_count(bands))
+        fn = thomas.FACTOR_LIB.fn(f"tf_spike_factor_{suffix(dtype)}", 9, 11, 2)
+        print(f"K2 {name} C={C} Mc={plan.Mc} B={B} {dtype}: factor_plan picks {pick}",
+              flush=True)
+        for CB in (1, 2, 4, 8, 16, 32):
+            for R in (2, 4, 8):
+                for keep in (False, True):
+                    smem = thomas.factor_smem(nvar, W // 2, item, plan.Mc, CB, R, keep)
+                    if smem > 200 * 1024:
+                        continue
+
+                    def go(CB=CB, R=R, keep=keep):
+                        rc = fn(bands.data_ptr(), *(t.data_ptr() for t in out), 0, N, nvar,
+                                plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, CB, R,
+                                int(keep), 1.0, -0.3, stream_of(bands))
+                        thomas.FACTOR_LIB.check(rc, "K2 factor")
+
+                    ms = cuda_ms(go, 5)
+                    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                    print(f"  CB={CB} R={R} keep={keep} smem={smem}: {ms:.4f} ms"
+                          + ("" if same else " (differs from factor_plan's)"), flush=True)
+        del bands, ref, out
+
+
+def sweep_k4(dtype):
+    for name, W, nvar, N, B, C in GRIDS_24:
+        plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
+        fact = thomas.spike_factor(_bands(W, nvar, N, B, dtype), 1.0, -0.3, plan)
+        red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+        wood = pcr.woodbury(red, fact.Lred, fact.Ured) if plan.woodbury else ()
+        del fact
+        s2, item = 2 * plan.s, red.Dinv.element_size()
+        yred = torch.randn(((B,) if B > 1 else ()) + (s2, C), dtype=dtype, device="cuda")
+        ref = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+        out = [torch.empty_like(t) for t in ref]
+        pick = pcr.solve_plan(C, s2, B, item, sm_count(yred))
+        fn = pcr.LIB.fn(f"tf_pcr_solve_shift_{suffix(dtype)}", 8, 9)
+        print(f"K4 {name} C={C} B={B} woodbury={plan.woodbury} {dtype}: solve_plan picks "
+              f"{pick}", flush=True)
+        for K in (1, 2, 4, 8, 16):
+            try:
+                base = pcr.solve_plan(C, s2, B, item, sm_count(yred), K)
+            except ValueError:
+                continue
+            for Ct, D in sorted({(base.Ct, base.D), (base.Ct, 3), (base.Ct, 2),
+                                 (max(1, base.Ct // 2), base.D)}):
+                sp = base._replace(Ct=Ct, D=D, threads=-(-s2 * Ct // 32) * 32,
+                                   smem=pcr.solve_smem(s2, item, base.Cc, Ct, D))
+
+                def go(sp=sp):
+                    rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
+                            yred.data_ptr(), wood[0].data_ptr() if wood else 0,
+                            wood[1].data_ptr() if wood else 0, out[0].data_ptr(),
+                            out[1].data_ptr(), C, s2, int(plan.wrap), B, sp.K, sp.Cc, sp.Ct,
+                            sp.D, sp.threads, stream_of(yred))
+                    pcr.LIB.check(rc, "K4 solve_shift")
+
+                ms = cuda_ms(go, 20)
+                same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                print(f"  K={sp.K} Cc={sp.Cc} Ct={sp.Ct} D={sp.D} threads={sp.threads} "
+                      f"smem={sp.smem}: {ms:.4f} ms"
+                      + ("" if same else " (differs from solve_plan's)"), flush=True)
+        del red, wood, yred, ref, out
 
 
 def sweep_k3(dtype):
@@ -134,9 +227,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
+    which = sys.argv[1:] or ["k2", "k4", "k3", "k5"]
+    sweeps = {"k2": sweep_k2, "k4": sweep_k4, "k3": sweep_k3, "k5": sweep_k5}
     for dtype in (torch.float64, torch.float32):
-        sweep_k5(dtype)
-        sweep_k3(dtype)
+        for key in which:
+            sweeps[key](dtype)
 
 
 if __name__ == "__main__":

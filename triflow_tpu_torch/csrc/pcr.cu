@@ -29,32 +29,80 @@
 // sync (the TPU kernel ran its right-hand sides' levels one after the
 // other), and the S2 x S2 capacitance is inverted in shared memory.
 //
-// Every entry runs one thread block per member (gridDim.x = B, the
-// members of an ensemble; 1 for one grid): the level loop is sequential,
-// and __syncthreads() between the phases of a level makes each phase's
-// global scratch writes visible to the whole block.  Member b's arrays sit
-// at b times one member's size (Lred, Ured, Dinv, Z (B, S2, S2, C), the
-// level operators (B, nlev, S2, S2, C), right-hand sides (B, R, S2, C) and
-// yred (B, S2, C), cap_inv (B, S2, S2), xm1 and xp1 (B, S, C), and every
-// scratch), so members run on separate SMs and never couple.  The reduced system is small
-// (C <= 16384 rows of S2 x S2), so the kernel is bound by the latency of
-// its 2 log2 C dependent phases, not by bandwidth or arithmetic; one block
-// avoids any grid-wide synchronisation.
+// The factor and the R-column solve run one thread block per member
+// (gridDim.x = B, the members of an ensemble; 1 for one grid): the level
+// loop is sequential, and __syncthreads() between the phases of a level
+// makes each phase's global scratch writes visible to the whole block.
+// Member b's arrays sit at b times one member's size (Lred, Ured, Dinv, Z
+// (B, S2, S2, C), the level operators (B, nlev, S2, S2, C), right-hand
+// sides (B, R, S2, C) and yred (B, S2, C), cap_inv (B, S2, S2), xm1 and
+// xp1 (B, S, C), and every scratch), so members never couple.  The reduced
+// system is small (C <= 16384 rows of S2 x S2), so each entry is bound by
+// the latency of its 2 log2 C dependent phases, not by bandwidth or
+// arithmetic.
 //
-// The bodies live in pcr.cuh, shared with K6 (megastep.cu).
+// The per-stage solve with shifts (pcr_solve_shift_cluster_kernel) runs six
+// times per RODASPR step, so one SM reading every level operator and
+// round-tripping the vector state through global scratch at every level
+// was its cost.  It runs on a thread-block cluster of up to 16 CTAs per
+// member instead: each CTA keeps its slice of the chunks' S2-vectors (both
+// level buffers) in shared memory, reads the neighbours c -+ d of a level
+// from the CTAs that own them through distributed shared memory, and
+// cluster.sync() separates the levels.  The level operators do not depend
+// on the right-hand side, so each CTA streams its slice of them through a
+// cp.async ring a few levels ahead; after the levels it applies Dinv, on a
+// Woodbury plan the correction (each CTA forms coef = cap_inv V^T z from
+// the ring-end chunks' entries), and writes the neighbour shifts.  The host
+// plans the CTAs per cluster, chunks per CTA and tile
+// (ops/pcr.py:solve_plan): one CTA per member where many members fill the
+// card, otherwise as many as keep about 64 chunks each, and at least as
+// many as fit the state into 16 CTAs' shared memory.
+//
+// The bodies of the one-block entries live in pcr.cuh, shared with K6
+// (megastep.cu), which also keeps the one-block solve with shifts
+// (pcr_solve_shift_block).
 //
 // Wide interface blocks (S2 = 10..16, of K2's S = 5..8) are built into a
-// library of their own, from this file with TF_WIDE defined.  The solves
-// keep pcr.cuh's bodies (vectors of S2 entries per thread); the factor,
-// whose S2 x S2 products and inverses do not fit one thread's registers,
-// runs each chunk's level on a group of S2 lanes, lane r holding row r of
-// every block (wide.cuh: pcr_factor_block_wide below).
+// library of their own, from this file with TF_WIDE defined.  The R-column
+// solve keeps pcr.cuh's body (vectors of S2 entries per thread) and the
+// solve with shifts is the same cluster kernel (one row of a chunk per
+// thread, its products streamed); the factor, whose S2 x S2 products and
+// inverses do not fit one thread's registers, runs each chunk's level on a
+// group of S2 lanes, lane r holding row r of every block (wide.cuh:
+// pcr_factor_block_wide below).
+#include <cooperative_groups.h>
+
+#include "cp_async.cuh"
 #include "pcr.cuh"
 #include "wide.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+// the cluster solve: most threads of a CTA, most CTAs in a cluster (above 8
+// a non-portable size, which H100 takes), and the most copy groups a thread
+// lets run ahead of the slab it waits for
+constexpr int kSolveThreads = 512;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxAhead = 7;
+constexpr int kMaxDevices = 16;
+
+// wait until at most min(n, kMaxAhead) of this thread's copy groups are in
+// flight (a larger n waits for more than it must)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n < kMaxAhead ? n : kMaxAhead) {
+    case 0: tf::cp_async_wait<0>(); break;
+    case 1: tf::cp_async_wait<1>(); break;
+    case 2: tf::cp_async_wait<2>(); break;
+    case 3: tf::cp_async_wait<3>(); break;
+    case 4: tf::cp_async_wait<4>(); break;
+    case 5: tf::cp_async_wait<5>(); break;
+    case 6: tf::cp_async_wait<6>(); break;
+    default: tf::cp_async_wait<kMaxAhead>(); break;
+  }
+}
 
 #ifdef TF_WIDE
 #define TF_CASES TF_CASE(10) TF_CASE(12) TF_CASE(14) TF_CASE(16)
@@ -198,19 +246,195 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int S2, bool kWood, bool kMembers>
-__global__ void __launch_bounds__(kThreads)
-    pcr_solve_shift_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
-                           const T* __restrict__ Dinv, const T* __restrict__ yred,
-                           const T* __restrict__ Z, const T* __restrict__ cap_inv, T* xm1,
-                           T* xp1, T* scratch, int C, int wrap) {
-  const long m = kMembers ? blockIdx.x : 0, blk = (long)S2 * S2 * C,
-             ops = kMembers ? levels(C) * blk : 0;
-  const long col = (long)S2 * C, half = col / 2;
-  tf::pcr_solve_shift_block<T, S2, kWood>(
-      alphas + m * ops, betas + m * ops, Dinv + m * blk, yred + m * col,
-      kWood ? Z + m * blk : Z, kWood ? cap_inv + m * S2 * S2 : cap_inv, xm1 + m * half,
-      xp1 + m * half, scratch + m * 2 * col, C, wrap);
+// The cluster barrier in two halves: arrive (release) when a CTA's share
+// of a phase is written, wait (acquire) before reading other CTAs' shares,
+// so that the work between them (the next level's operators, addresses)
+// hides the barrier's latency.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The per-stage solve with shifts over a thread-block cluster of K CTAs per
+// member (clusters run along x: member blockIdx.x / K, CTA rank
+// blockIdx.x % K).  CTA k owns chunks [k Cc, k Cc + Cc) and holds their
+// S2-vectors, both level buffers, in its shared memory (state (2, S2,
+// Cc)); a level reads the neighbours c -+ d from whichever CTA owns them,
+// through distributed shared memory (level 0 from yred itself), and one
+// cluster barrier separates the levels (Cc a power of two: a chunk's owner
+// and place are a shift and a mask).  Thread (r, cl) of a tile of Ct
+// chunks (r = tid / Ct < S2) computes row r of chunk cl, the same products
+// and sums in the same order as pcr.cuh's pcr_solve_shift_block.  The
+// level operators (and Dinv after them) stream through a ring of D slabs,
+// each one level's row r of both operators for the thread's chunks of a
+// tile, which the thread copies itself with cp.async D - 1 slabs ahead
+// (all of them, where they fit): they do not depend on the right-hand
+// side, and no thread waits on another's copies.
+template <typename T, int S2, bool kWood>
+__global__ void __launch_bounds__(kSolveThreads)
+    pcr_solve_shift_cluster_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
+                                   const T* __restrict__ Dinv, const T* __restrict__ yred,
+                                   const T* __restrict__ Z, const T* __restrict__ cap_inv,
+                                   T* xm1, T* xp1, int C, int wrap, int nlev, int Cc, int Ct,
+                                   int D) {
+  constexpr int S = S2 / 2, SS2 = S2 * S2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const long m = blockIdx.x / K;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* state = reinterpret_cast<T*>(smem_raw);  // (2, S2, Cc)
+  T* ring = state + 2 * S2 * Cc;              // (D, 2 SS2, Ct)
+  const long blk = (long)SS2 * C, col = (long)S2 * C;
+  alphas += m * nlev * blk;
+  betas += m * nlev * blk;
+  Dinv += m * blk;
+  yred += m * col;
+  if constexpr (kWood) {
+    Z += m * blk;
+    cap_inv += m * SS2;
+  }
+  xm1 += m * S * C;
+  xp1 += m * S * C;
+  const int c0 = k * Cc, nc = min(Cc, C - c0), tiles = (nc + Ct - 1) / Ct;
+  const int tid = threadIdx.x, cl = tid % Ct, r = tid / Ct, lg = __ffs(Cc) - 1;
+  const bool lane = r < S2;
+  const int slabs = (nlev + 1) * tiles;
+  // slab i = lev tiles + t: row r of level lev's operators (Dinv at nlev)
+  // for chunk cl of tile t, entries (r, q) at st[(r S2 + q) Ct + cl] (alpha,
+  // Dinv) and st[(SS2 + r S2 + q) Ct + cl] (beta); issued in order, the
+  // next one (ilev, it) counted along
+  int inext = 0, ilev = 0, it = 0;
+  auto issue = [&]() {
+    if (inext < slabs && lane && cl < min(Ct, nc - it * Ct)) {
+      T* st = ring + (inext % D) * 2 * SS2 * Ct + r * S2 * Ct + cl;
+      const long at = (long)r * S2 * C + c0 + it * Ct + cl;
+      if (ilev < nlev) {
+        const T* al = alphas + ilev * blk + at;
+        const T* be = betas + ilev * blk + at;
+#pragma unroll
+        for (int q = 0; q < S2; ++q) {
+          tf::cp_async(st + q * Ct, al + (long)q * C);
+          tf::cp_async(st + (SS2 + q) * Ct, be + (long)q * C);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < S2; ++q) tf::cp_async(st + q * Ct, Dinv + at + (long)q * C);
+      }
+    }
+    tf::cp_async_commit();
+    ++inext;
+    if (++it == tiles) {
+      it = 0;
+      ++ilev;
+    }
+  };
+  for (int i = 0; i < D; ++i) issue();
+  // the owner of chunk cc's entries in a buffer of the cluster (Cc is a
+  // power of two)
+  auto at = [&](const T* buf, int cc) -> const T* {
+    const int owner = cc >> lg;
+    return (owner == k ? buf : cluster.map_shared_rank(buf, owner)) + (cc & (Cc - 1));
+  };
+  int cur = 0;
+  for (int lev = 0; lev <= nlev; ++lev) {
+    T* src = state + cur * S2 * Cc;
+    T* dst = state + (cur ^ 1) * S2 * Cc;
+    for (int t = 0; t < tiles; ++t) {
+      const int i = lev * tiles + t, lc = t * Ct + cl, c = c0 + lc;
+      cp_async_wait_upto(D - 1);
+      const T* a = ring + (i % D) * 2 * SS2 * Ct + r * S2 * Ct + cl;
+      const bool mine = lane && lc < nc;
+      if (nlev == 0) {
+        // C = 1: no level, Dinv applies to yred itself
+        if (mine) src[r * Cc + lc] = yred[(long)r * C + c];
+        __syncthreads();
+      }
+      if (lev == 0 && nlev > 0) {
+        // level 0 reads the right-hand side itself, neighbours from yred
+        if (mine) {
+          const T* bm = yred + (c == 0 ? C - 1 : c - 1);
+          const T* bp = yred + (c == C - 1 ? 0 : c + 1);
+          T ta = a[0] * bm[0];
+#pragma unroll
+          for (int q = 1; q < S2; ++q) ta += a[q * Ct] * bm[(long)q * C];
+          T tb = a[SS2 * Ct] * bp[0];
+#pragma unroll
+          for (int q = 1; q < S2; ++q) tb += a[(SS2 + q) * Ct] * bp[(long)q * C];
+          dst[r * Cc + lc] = yred[(long)r * C + c] + ta + tb;
+        }
+      } else if (lev < nlev) {
+        const int d = 1 << lev, cm = c - d, cp = c + d;
+        const T* bm = mine ? at(src, cm < 0 ? cm + C : cm) : src;
+        const T* bp = mine ? at(src, cp >= C ? cp - C : cp) : src;
+        if (t == 0) cluster_wait();  // level lev - 1 is in every CTA
+        if (mine) {
+          T ta = a[0] * bm[0];
+#pragma unroll
+          for (int q = 1; q < S2; ++q) ta += a[q * Ct] * bm[q * Cc];
+          T tb = a[SS2 * Ct] * bp[0];
+#pragma unroll
+          for (int q = 1; q < S2; ++q) tb += a[(SS2 + q) * Ct] * bp[q * Cc];
+          dst[r * Cc + lc] = src[r * Cc + lc] + ta + tb;
+        }
+      } else {
+        if (t == 0 && nlev > 0) cluster_wait();
+        if (mine) {
+          T z = a[0] * src[lc];
+#pragma unroll
+          for (int q = 1; q < S2; ++q) z += a[q * Ct] * src[q * Cc + lc];
+          dst[r * Cc + lc] = z;
+        }
+      }
+      issue();
+    }
+    // this CTA's share of the level is written
+    cluster_arrive();
+    cur ^= 1;
+  }
+  tf::cp_async_wait<0>();
+  cluster_wait();  // the solution z is in every CTA
+  const T* z = state + cur * S2 * Cc;
+  __shared__ T s_vt[S2], s_coef[S2];
+  if constexpr (kWood) {
+    // coef = cap_inv V^T z, V^T reading the ring's two end chunks
+    if (tid < S2) s_vt[tid] = tid < S ? at(z, C - 1)[(S + tid) * Cc] : at(z, 0)[(tid - S) * Cc];
+    __syncthreads();
+    if (tid < S2) {
+      T acc = cap_inv[tid * S2] * s_vt[0];
+#pragma unroll
+      for (int i = 1; i < S2; ++i) acc += cap_inv[tid * S2 + i] * s_vt[i];
+      s_coef[tid] = acc;
+    }
+    __syncthreads();
+  }
+  // entry `row` of chunk cc's solution: z, less the Woodbury correction
+  // sum_j coef_j Z_j on a Woodbury plan
+  auto y = [&](int row, int cc) -> T {
+    const T zv = at(z, cc)[row * Cc];
+    if constexpr (kWood) {
+      T corr = s_coef[0] * Z[(long)row * C + cc];
+#pragma unroll
+      for (int j = 1; j < S2; ++j) corr += s_coef[j] * Z[((long)j * S2 + row) * C + cc];
+      return zv - corr;
+    }
+    return zv;
+  };
+  // xm1[:, c] = bottom of chunk c-1, xp1[:, c] = top of chunk c+1: around
+  // the ring with wrap (always on a Woodbury plan), zero past the ends
+  // without
+  if (r < S) {
+    for (int lc = cl; lc < nc; lc += Ct) {
+      const int c = c0 + lc, cm = c == 0 ? C - 1 : c - 1, cp = c == C - 1 ? 0 : c + 1;
+      const bool has_m = kWood || wrap || c != 0, has_p = kWood || wrap || c != C - 1;
+      xm1[(long)r * C + c] = has_m ? y(S + r, cm) : T(0);
+      xp1[(long)r * C + c] = has_p ? y(r, cp) : T(0);
+    }
+  }
+  // no CTA leaves while another may still read its shared memory
+  cluster_arrive();
+  cluster_wait();
 }
 
 template <typename T>
@@ -263,34 +487,134 @@ int solve(const T* alphas, const T* betas, const T* Dinv, const T* b, const T* L
   return static_cast<int>(cudaGetLastError());
 }
 
-// Z and cap_inv null: no Woodbury correction
+// Shared memory of a cluster solve plan, in bytes (ops/pcr.py:solve_smem
+// computes the same): the state's two level buffers and the operator ring
+// of D slabs.
+long solve_smem(int S2, int item, int Cc, int Ct, int D) {
+  return (long)item * (2L * S2 * Cc + (long)D * 2 * S2 * S2 * Ct);
+}
+
+// Set what a launch of the cluster solve kernel<T, S2, kWood> with dynamic
+// shared memory `bytes` and clusters of K CTAs needs.  Each setting is a
+// driver call, so it is made once per kernel and device, and the shared
+// memory opted in only ever grows (a smaller setting would refuse a larger
+// plan launched before): `set` is the kernel's record, per device, of the
+// largest size opted in (set[0]) and of the non-portable cluster size
+// allowed (set[1]), for launches and occupancy queries alike.
+template <typename T, int S2, bool kWood>
+cudaError_t prepare(long bytes, int K) {
+  static long set[2][kMaxDevices] = {};
+  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kMaxDevices) return err ? err : cudaErrorInvalidDevice;
+  // above 48 KB with the kernel's static shared memory: opt in
+  if (bytes > 40 * 1024 && bytes > set[0][dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) set[0][dev] = bytes;
+  }
+  if (err == cudaSuccess && K > 8 && !set[1][dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) set[1][dev] = 1;
+  }
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int B, int K, int threads,
+                                  long bytes, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * K);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, int S2, bool kWood>
+int launch_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, const T* Z,
+                 const T* cap_inv, T* xm1, T* xp1, int C, int wrap, int B, int K, int Cc,
+                 int Ct, int D, int threads, cudaStream_t stream) {
+  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+  const long bytes = solve_smem(S2, sizeof(T), Cc, Ct, D);
+  cudaError_t err = prepare<T, S2, kWood>(bytes, K);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, B, K, threads, bytes, stream);
+  int nlev = 0;
+  for (int d = 1; d < C; d *= 2) ++nlev;
+  err = cudaLaunchKernelEx(&cfg, fn, alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, C, wrap,
+                           nlev, Cc, Ct, D);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Z and cap_inv null: no Woodbury correction.  K CTAs per member of Cc
+// chunks each, a power of two (the last may hold fewer, none holds none),
+// tiles of Ct
+// chunks, a ring of D slabs, `threads` >= S2 Ct threads
+// (ops/pcr.py:solve_plan).
 template <typename T>
 int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, const T* Z,
-                const T* cap_inv, T* xm1, T* xp1, T* scratch, int C, int S2, int wrap, int B,
-                cudaStream_t stream) {
-  if (B < 1 || (Z && (!cap_inv || !wrap))) return static_cast<int>(cudaErrorInvalidValue);
+                const T* cap_inv, T* xm1, T* xp1, int C, int S2, int wrap, int B, int K, int Cc,
+                int Ct, int D, int threads, cudaStream_t stream) {
+  if (B < 1 || C < 1 || (Z && (!cap_inv || !wrap)) || K < 1 || K > kMaxCluster || Cc < 1 ||
+      (long)K * Cc < C || (long)(K - 1) * Cc >= C || (Cc & (Cc - 1)) || Ct < 1 || Ct > Cc ||
+      D < 1 ||
+      threads < S2 * Ct || threads > kSolveThreads || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
-#define TF_LAUNCH(S2, WOOD, MEM)                                                        \
-  pcr_solve_shift_kernel<T, S2, WOOD, MEM><<<B, kThreads, 0, stream>>>(                 \
-      alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, scratch, C, wrap)
-#define TF_CASE(S2)                                                                     \
-  case S2:                                                                              \
-    if (Z && B > 1)                                                                     \
-      TF_LAUNCH(S2, true, true);                                                        \
-    else if (Z)                                                                         \
-      TF_LAUNCH(S2, true, false);                                                       \
-    else if (B > 1)                                                                     \
-      TF_LAUNCH(S2, false, true);                                                       \
-    else                                                                                \
-      TF_LAUNCH(S2, false, false);                                                      \
-    break;
+#define TF_LAUNCH(S2, WOOD)                                                              \
+  return launch_shift<T, S2, WOOD>(alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, C,   \
+                                   wrap, B, K, Cc, Ct, D, threads, stream)
+#define TF_CASE(S2)                                                                      \
+  case S2:                                                                               \
+    if (Z)                                                                               \
+      TF_LAUNCH(S2, true);                                                               \
+    else                                                                                 \
+      TF_LAUNCH(S2, false);
     TF_CASES
 #undef TF_CASE
 #undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of the plan's shape the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run), or minus a CUDA
+// error.
+template <typename T, int S2, bool kWood>
+int clusters_of(int K, int Cc, int Ct, int D, int threads) {
+  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+  const long bytes = solve_smem(S2, sizeof(T), Cc, Ct, D);
+  cudaError_t err = prepare<T, S2, kWood>(bytes, K);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, K, threads, bytes, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T>
+int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
+  if (K < 1 || K > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
+  switch (S2) {
+#define TF_CASE(S2)                                                                      \
+  case S2:                                                                               \
+    return wood ? clusters_of<T, S2, true>(K, Cc, Ct, D, threads)                         \
+                : clusters_of<T, S2, false>(K, Cc, Ct, D, threads);
+    TF_CASES
+#undef TF_CASE
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -319,14 +643,18 @@ int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, c
   extern "C" int tf_pcr_solve_shift_##SUFFIX(const void* alphas, const void* betas,       \
                                              const void* Dinv, const void* yred,          \
                                              const void* Z, const void* cap_inv,          \
-                                             void* xm1, void* xp1, void* scratch, int C,  \
-                                             int S2, int wrap, int B, void* stream) {     \
+                                             void* xm1, void* xp1, int C, int S2,         \
+                                             int wrap, int B, int K, int Cc, int Ct,      \
+                                             int D, int threads, void* stream) {          \
     return solve_shift<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),    \
                           static_cast<const T*>(Dinv), static_cast<const T*>(yred),       \
                           static_cast<const T*>(Z), static_cast<const T*>(cap_inv),       \
-                          static_cast<T*>(xm1), static_cast<T*>(xp1),                     \
-                          static_cast<T*>(scratch), C, S2, wrap, B,                       \
-                          static_cast<cudaStream_t>(stream));                             \
+                          static_cast<T*>(xm1), static_cast<T*>(xp1), C, S2, wrap, B, K,  \
+                          Cc, Ct, D, threads, static_cast<cudaStream_t>(stream));         \
+  }                                                                                       \
+  extern "C" int tf_pcr_shift_clusters_##SUFFIX(int S2, int wood, int K, int Cc, int Ct,  \
+                                                int D, int threads) {                     \
+    return max_clusters<T>(S2, wood, K, Cc, Ct, D, threads);                             \
   }
 
 TF_ENTRIES(f32, float)

@@ -54,6 +54,7 @@
 // file with TF_WIDE defined: the same bodies, one lane per chunk or node.
 // They hold vectors of S entries and stream each block's entries into a
 // product, so unlike K2 and K4's factor they need no group of lanes.
+#include "cp_async.cuh"
 #include "sweep.cuh"
 
 #ifdef TF_WIDE
@@ -68,17 +69,9 @@ constexpr int kSweepThreads = 128;
 constexpr int kStages = 4;
 constexpr int kMaxCB = 32;
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+using tf::cp_async;
+using tf::cp_async_commit;
+using tf::cp_async_wait;
 
 // A block's chunks and what each of its threads copies.  The block walks
 // CB consecutive chunks of the B * C chunks of all members (flat index q:

@@ -47,15 +47,17 @@ from . import banded, pcr, thomas
 MIN_CYCLIC_C = 8
 
 #: cost model of a plan at block sizes s <= 4, in microseconds of one fixed
-#: RODASPR step, fitted (non-negative least squares, relative weights) to
-#: chip_smoke.py's chunk-count sweep of KS at N = 10^6 in float64 on one
-#: H100 (PERF.md): K2 and K3's sweeps walk the Mc rows of a chunk, and K4's
-#: PCR walks its levels in slabs of pcr.BLOCK_THREADS chunks; the fit puts
-#: no cost on a level beyond its slabs.  It picks the fastest measured plan
-#: in both types there
-ROW_US = 3.925
+#: RODASPR step, fitted (non-negative least squares, relative weights, one
+#: offset per dtype) to chip_smoke.py's chunk-count sweeps of KS at N =
+#: 10^6 in float64 and float32 on one H100 (PERF.md): K2 and K3's sweeps
+#: walk the Mc rows of a chunk, K4's cluster solves sync once per level
+#: (LEVEL_US, six solves a step), and K4's one-block factor and Woodbury
+#: set-up walk each level in slabs of pcr.BLOCK_THREADS chunks; the fit
+#: puts no cost on a level beyond its slabs.  It picks the fastest measured
+#: plan there in float64, at KS 2^20 and at Burgers 10^6 in both types
+ROW_US = 1.715
 LEVEL_US = 0.0
-SLAB_US = 56.61
+SLAB_US = 18.673
 
 
 #: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide
@@ -223,13 +225,13 @@ def chunk_counts(N: int, halo: int, periodic: bool):
     return [C for C in _divisors(M) if M // C >= 2 and (C >= 2 or not wrap)]
 
 
-def padded_counts(N: int, halo: int):
-    """Every chunk count C <= ``pcr.MAX_C`` that leaves at least 2 rows in
-    each of C chunks of ceil(M / C) rows, M = ceil(N / g), whether or not
-    it pads the grid; for each row count Mc only the least C."""
+def padded_counts(N: int, halo: int, max_c: int = pcr.MAX_C):
+    """Every chunk count C <= ``max_c`` that leaves at least 2 rows in each
+    of C chunks of ceil(M / C) rows, M = ceil(N / g), whether or not it
+    pads the grid; for each row count Mc only the least C."""
     M = -(-N // max(halo, 1))
     out, seen = [], set()
-    for C in range(1, min(pcr.MAX_C, M // 2) + 1):
+    for C in range(1, min(max_c, M // 2) + 1):
         Mc = -(-M // C)
         if Mc not in seen:
             seen.add(Mc)
@@ -239,28 +241,32 @@ def padded_counts(N: int, halo: int):
 
 def make_plan(N: int, nvar: int, halo: int, periodic: bool,
               B: int = 1) -> Plan:
-    """Chunk plan: the chunk count C (at most ``pcr.MAX_C``) of least
-    modelled cost, ``plan_cost_us`` or for B > 1 members
-    ``batch_plan_cost_us`` (fitted at s = 2), over the counts that pad
-    nothing (``chunk_counts``) and those that pad (``padded_counts``),
-    which pay ``pad_cost_us`` more, and on a ring 2 nvar h more solves per
-    factor (beside a RODASPR step's six).  K4's scratch grows as s^2 C: 7 (2s)^2 C entries, 235 MB at s
-    = 8 and C = ``pcr.MAX_C`` in float64, which the card holds."""
+    """Chunk plan: the chunk count C of least modelled cost,
+    ``plan_cost_us`` or for B > 1 members ``batch_plan_cost_us`` (fitted at
+    s = 2), over the counts that pad nothing (``chunk_counts``) and those
+    that pad (``padded_counts``), which pay ``pad_cost_us`` more, and on a
+    ring 2 nvar h more solves per factor (beside a RODASPR step's six).  C
+    is at most ``pcr.max_chunks(2s)``: the most chunks whose float64
+    interface vectors K4's solve with shifts holds in one cluster's shared
+    memory (``pcr.MAX_C`` up to s = 5; 4096 at s = 8), so no plan is one
+    that K4 refuses in either dtype.  K4's factor scratch grows as s^2 C: 7
+    (2s)^2 C entries, 59 MB at s = 8 and C = 4096 in float64."""
     g = max(halo, 1)
     s = nvar * g
     M = -(-N // g)
+    max_c = pcr.max_chunks(2 * s)
     if B > 1:
         def cost(C):
             return batch_plan_cost_us(M, C, B)
     else:
         def cost(C):
             return plan_cost_us(M, C, s)
-    exact = [C for C in chunk_counts(N, halo, periodic) if C <= pcr.MAX_C]
+    exact = [C for C in chunk_counts(N, halo, periodic) if C <= max_c]
     # a ring's 2 nvar h column solves per factor beside a RODASPR step's six
     ring = 1 + (2 * nvar * halo / 6 if periodic and halo > 0 else 0)
     pad = pad_cost_us(N, nvar, 2 * halo + 1, B)
     keyed = [((cost(C), C), C) for C in exact]
-    keyed += [((cost(C) * ring + pad, C), C) for C in padded_counts(N, halo)
+    keyed += [((cost(C) * ring + pad, C), C) for C in padded_counts(N, halo, max_c)
               if g * C * -(-M // C) != N or C not in exact]
     if not keyed:
         raise ValueError(f"no chunk plan for a grid of N = {N} nodes: "

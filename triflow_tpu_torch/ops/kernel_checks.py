@@ -297,6 +297,120 @@ def check_all_sweeps(device, dtype, results=None, blocks=SWEEP_BLOCKS):
     return results
 
 
+#: (W, nvar, N, periodic, C, B) of the staged K2 checks, at every narrow
+#: block size s = 1..4: rings closed block-cyclic (a power of two C >= 8)
+#: and by the Woodbury correction, acyclic grids, padded plans (a ring
+#: closed at the system level and an edge grid), members with their own
+#: shifts, Mc = 1, 2 and odd, C no multiple of the chunks per block,
+#: chunks long enough (the last of each s) that the forward results stream
+#: through the factor's rows in both types (``thomas.factor_plan``: 3 Mc
+#: s^2 CB values over 48 KB), and B = 4 x KS N = 10^5's plan, whose shared
+#: memory sits just under 48 KB (with the kernel's static arrays, over)
+FACTOR_CASES = [
+    (3, 1, 4096, True, 16, 1), (3, 1, 3000, True, 12, 1), (3, 1, 2000, False, 10, 1),
+    (3, 1, 1001, True, 10, 1), (3, 1, 999, False, 7, 4), (3, 1, 600, True, 6, 4),
+    (3, 1, 40, True, 40, 1), (3, 1, 15003, False, 3, 1),
+    (5, 1, 4096, True, 64, 1), (5, 1, 1000, True, 20, 1), (5, 1, 1200, False, 5, 4),
+    (5, 1, 1003, True, 10, 1), (5, 1, 2048, True, 8, 4), (5, 1, 74, True, 37, 1),
+    (5, 1, 9006, False, 3, 1),
+    (3, 3, 1024, True, 8, 1), (3, 3, 900, True, 9, 1), (3, 3, 500, False, 5, 4),
+    (3, 3, 301, True, 7, 1), (3, 3, 2400, True, 3, 2),
+    (5, 2, 2048, True, 16, 1), (5, 2, 1200, True, 12, 4), (5, 2, 1000, False, 4, 1),
+    (5, 2, 803, True, 9, 1), (3, 4, 512, True, 8, 4), (3, 4, 600, False, 6, 1),
+    (5, 2, 2400, True, 3, 1), (5, 1, 100000, True, 500, 4),
+]
+
+
+def check_factor(W, nvar, N, periodic, C, B, dtype, device, seed=0, results=None):
+    """K2 against its plain version on the plan of C chunks (per member, of
+    B) of random bands: each member with its own factor shift, and on a
+    padded or ring plan the padded system (``chunked.padded_system``), as
+    ``chunked.factor`` gives them to K2."""
+    results = {} if results is None else results
+    halo = W // 2
+    plan = chunked.plan_with(N, nvar, halo, periodic, C, B)
+    item = torch.finfo(dtype).bits // 8
+    what = (f"s={plan.s} N={N} C={C} Mc={plan.Mc} B={B} cyclic={plan.cyclic} "
+            f"woodbury={plan.woodbury} Np={plan.Np} ring={plan.ring}")
+    if plan.s <= thomas.NARROW_S:
+        what += f" {thomas.factor_plan(nvar, halo, item, plan.Mc, C, B)}"
+    if B > 1:
+        bands = torch.stack([random_bands(W, nvar, N, dtype, device, seed + b, beta=-0.2)
+                             for b in range(B)])
+        beta = torch.tensor(np.linspace(-0.3, -0.2, B), dtype=dtype, device=device)
+    else:
+        bands, beta = random_bands(W, nvar, N, dtype, device, seed), -0.3
+    alpha = 1.0
+    if plan.padded or plan.ring:
+        bands, _ = chunked.padded_system(alpha, beta, bands, plan)
+        alpha, beta = 0.0, 1.0
+    got = thomas.spike_factor(bands, alpha, beta, plan)
+    want = thomas.spike_factor_plain(bands, alpha, beta, plan)
+    name = solver_entry("K2.spike_factor", plan.s)
+    for part, g, w in zip(got._fields, got, want):
+        _record(results, name, g, w, TOL[dtype]["solve"], f"{part} {what}")
+    return results
+
+
+def check_all_factors(device, dtype, results=None, cases=FACTOR_CASES):
+    """``check_factor`` at every case of ``cases``."""
+    results = {} if results is None else results
+    for i, case in enumerate(cases):
+        check_factor(*case, dtype, device, seed=i, results=results)
+    return results
+
+
+#: (s, C, B, periodic) of the cluster solve checks, at every interface
+#: block size s2 = 2s = 2..16 (bands of ``SWEEP_BLOCKS[s]``): chunk counts
+#: whose ``pcr.solve_plan`` takes one CTA (C <= 64 at one grid, or many
+#: members) and clusters of several CTAs (C = 300: 5, C = 1024: 16, C =
+#: 1000: 16 CTAs of 63 chunks, the last of 55); rings closed block-cyclic
+#: (C = 1024, 64) and by the Woodbury correction, acyclic grids; C = 2 and
+#: 3 (one level); members
+SHIFT_CASES = [(s, C, B, periodic) for s in range(1, 9) for C, B, periodic in (
+    (64, 1, True), (300, 1, True), (1024, 1, True), (1000, 1, False), (3, 1, True),
+    (2, 1, False), (130, 4, True), (100, 200, True))]
+
+
+def check_shift(s, C, B, periodic, dtype, device, seed=0, results=None):
+    """K4's solve with shifts against its plain version, on the plain
+    reduced factor of random bands at block size s (``SWEEP_BLOCKS``, 2
+    rows per chunk; B members), a random right-hand side and, on a Woodbury
+    plan, the plain closure."""
+    results = {} if results is None else results
+    W, nvar = SWEEP_BLOCKS[s]
+    g = max(W // 2, 1)
+    N = 2 * C * g
+    plan = chunked.plan_with(N, nvar, W // 2, periodic, C, B)
+    lead = (B,) if B > 1 else ()
+    bands = torch.stack([random_bands(W, nvar, N, dtype, device, seed + b)
+                         for b in range(B)]) if B > 1 else \
+        random_bands(W, nvar, N, dtype, device, seed)
+    sp_ = thomas.spike_factor_plain(bands, 1.0, -0.3, plan)
+    red = pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, plan.cyclic)
+    wood = pcr.woodbury_plain(red, sp_.Lred, sp_.Ured) if plan.woodbury else ()
+    rng = np.random.default_rng(seed)
+    yred = torch.tensor(rng.standard_normal((*lead, 2 * s, C)), dtype=dtype,
+                        device=device)
+    sp = pcr.solve_plan(C, 2 * s, B, torch.finfo(dtype).bits // 8)
+    what = (f"s2={2 * s} C={C} B={B} cyclic={plan.cyclic} woodbury={plan.woodbury} "
+            f"{sp}")
+    got = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+    want = pcr.pcr_solve_shift_plain(red, yred, plan.wrap, *wood)
+    name = solver_entry("K4.pcr_solve_shift", s)
+    for part, g_, w in zip(("xm1", "xp1"), got, want):
+        _record(results, name, g_, w, TOL[dtype]["solve"], f"{part} {what}")
+    return results
+
+
+def check_all_shifts(device, dtype, results=None, cases=SHIFT_CASES):
+    """``check_shift`` at every case of ``cases``."""
+    results = {} if results is None else results
+    for i, case in enumerate(cases):
+        check_shift(*case, dtype, device, seed=i, results=results)
+    return results
+
+
 def random_bands(W, nvar, N, dtype, device, seed=0, beta=-0.3):
     """Bands of a J whose ``I + beta*J`` is diagonally dominant."""
     rng = np.random.default_rng(seed)

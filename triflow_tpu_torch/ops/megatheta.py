@@ -53,13 +53,15 @@ MAX_MC = 1024
 
 #: cost model of a plan by block size s, in microseconds of one step: lane
 #: 0 of each of K9's warps eliminates its chunk's Mc rows one after the
-#: other (ROW_US per row), and K4's one block walks log2 C levels of
-#: ceil(C / pcr.BLOCK_THREADS) slabs (SLAB_US each); fitted by least squares
-#: (float64 and float32 pooled) to chip_smoke.py's chunk-count sweeps of
-#: Burgers at N = 10^6 (s = 1) and KS at N = 2^20 (s = 2) on one H100
-#: (PERF.md), where it picks the fastest plan in both dtypes
-ROW_US = {1: 0.321, 2: 0.596}
-SLAB_US = {1: 4.179, 2: 15.627}
+#: other (ROW_US per row), and K4 walks log2 C levels of
+#: ceil(C / pcr.BLOCK_THREADS) slabs (SLAB_US each: a level's share of its
+#: one-block factor and its cluster solve); fitted by
+#: non-negative least squares (float64 and float32 pooled) to
+#: chip_smoke.py's chunk-count sweeps of Burgers at N = 10^6 (s = 1) and KS
+#: at N = 2^20 (s = 2) on one H100 (PERF.md), where it picks the fastest
+#: plan in both dtypes
+ROW_US = {1: 0.298, 2: 0.309}
+SLAB_US = {1: 3.314, 2: 7.241}
 
 
 def plan_cost_us(M: int, C: int, s: int) -> float:

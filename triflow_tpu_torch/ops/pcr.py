@@ -16,21 +16,28 @@ Z and inverts its capacitance in one launch, and every
 ``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
 close the ring.
 
-Every kernel entry runs one thread block per member, so the chunk count is
-capped at ``MAX_C``.  Interface blocks s2 = 2s of s <= ``thomas.NARROW_S``
+The factor and the R-column solve run one thread block per member, so the
+chunk count is capped at ``MAX_C``.  The per-stage solve with shifts runs
+on a thread-block cluster of up to ``MAX_CLUSTER`` CTAs per member, each
+holding its slice of the chunks' vectors in shared memory
+(``solve_plan``); it refuses a (C, s2, dtype) whose vectors do not fit
+``MAX_CLUSTER`` CTAs, and ``max_chunks`` gives the largest C it takes.
+Interface blocks s2 = 2s of s <= ``thomas.NARROW_S``
 launch ``csrc/pcr.cu``'s library; s2 = 10..16 (s = 5..8) its wide library
 (``TF_WIDE``: the factor on groups of s2 lanes), whose launches count
 apart (``..._wide``).  The scratch of the wide factor is 7 s2^2 C entries:
-235 MB at s2 = 16, C = ``MAX_C`` in float64.
+59 MB at s2 = 16 and its largest C, 4096, in float64.
 
 Member axis: an ensemble's reduced systems
 ``Lred, Ured (B, 2s, 2s, C)`` factor into level operators
-``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block each
-(``gridDim.x = B``); right-hand sides lead with B the same way.
+``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block (or one
+cluster) each; right-hand sides lead with B the same way.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,7 +45,8 @@ import torch
 from . import banded, thomas
 from .thomas import members
 from ._build import csrc_library
-from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from ._launch import (Counter, check_cuda, check_shapes, sm_count, stream_of,
+                      suffix)
 
 FACTOR_LAUNCHES = Counter("K4.pcr_factor")
 SOLVE_LAUNCHES = Counter("K4.pcr_solve_shift")
@@ -51,6 +59,20 @@ COLS_WIDE_LAUNCHES = Counter("K4.pcr_solve_wide")
 MAX_C = 16384
 #: threads of the one block (kThreads in csrc/pcr.cu)
 BLOCK_THREADS = 512
+
+#: the cluster solve with shifts (csrc/pcr.cu): most CTAs per cluster
+#: (kMaxCluster), threads per CTA (kSolveThreads), the shared memory a CTA's
+#: plan may take, and the least it must hold: the state beside a ring of
+#: SOLVE_MIN_STAGES slabs of SOLVE_MIN_CT chunks (a C that needs more than
+#: MAX_CLUSTER such CTAs is refused); the chunks per CTA a single grid's
+#: cluster aims at (chip runs at KS 2^20 and 10^6: 16 CTAs of 64 chunks
+#: beat 8 of 128 and fewer, PERF.md)
+MAX_CLUSTER = 16
+SOLVE_THREADS = 512
+SOLVE_SMEM = 220 * 1024
+SOLVE_MIN_STAGES = 3
+SOLVE_MIN_CT = 8
+SOLVE_CHUNKS = 64
 
 LIB = csrc_library("pcr.cu")
 WIDE_LIB = csrc_library("pcr.cu", "TF_WIDE")
@@ -67,6 +89,102 @@ class PcrFactor(NamedTuple):
 
 def n_levels(C: int) -> int:
     return (C - 1).bit_length()
+
+
+class SolvePlan(NamedTuple):
+    K: int        # CTAs per cluster (per member)
+    Cc: int       # chunks per CTA (the last CTA may hold fewer)
+    Ct: int       # chunks per tile of the operator ring
+    D: int        # slabs in the operator ring
+    threads: int  # threads per CTA, s2 Ct rounded up to a warp
+    smem: int     # bytes of dynamic shared memory per CTA
+
+
+def solve_smem(s2, item, Cc, Ct, D):
+    """Bytes of shared memory of a cluster solve plan (``solve_smem`` in
+    csrc/pcr.cu): the two level buffers of Cc chunks' s2-vectors and D
+    slabs of two s2 x s2 operators for Ct chunks."""
+    return item * (2 * s2 * Cc + D * 2 * s2 * s2 * Ct)
+
+
+def _slice(C, K):
+    """Chunks per CTA of K CTAs: ceil(C / K) rounded up to a power of two
+    (the kernel finds a chunk's CTA by a shift)."""
+    return 1 << (-(-C // K) - 1).bit_length()
+
+
+def _fits(C, s2, item, K):
+    Cc = _slice(C, K)
+    return solve_smem(s2, item, Cc, min(Cc, SOLVE_MIN_CT), SOLVE_MIN_STAGES) <= SOLVE_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def max_chunks(s2, item=8):
+    """The largest chunk count whose solve with shifts fits MAX_CLUSTER
+    CTAs at interface block size s2 and element size ``item`` (at most
+    MAX_C)."""
+    lo, hi = 1, MAX_C
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _fits(mid, s2, item, MAX_CLUSTER) else (lo, mid - 1)
+    return lo
+
+
+@functools.lru_cache(maxsize=None)
+def solve_plan(C, s2, B=1, item=8, sms=132, max_cluster=MAX_CLUSTER):
+    """The cluster plan of the solve with shifts: K CTAs per member, each
+    of Cc chunks, ceil(C / K) rounded up to a power of two.  K is at least the fewest CTAs whose shared
+    memory holds the state beside a ring of SOLVE_MIN_CT chunks (a C that
+    needs more than ``max_cluster`` raises ValueError), and otherwise one
+    CTA per member where the B members fill the SMs, else up to
+    ``max_cluster`` CTAs of about SOLVE_CHUNKS chunks each.  Tiles of Ct
+    chunks, s2 Ct <= SOLVE_THREADS, halved until SOLVE_MIN_STAGES slabs fit
+    beside the state; then a ring of as many slabs as fit, up to every
+    slab of the solve (its levels and Dinv for each tile: the operators
+    are in flight from the start), in the CTA's shared memory, or where
+    the clusters need more than one wave of the card and the state allows,
+    in half an SM's."""
+    kmin = next((K for K in range(1, max_cluster + 1)
+                 if _fits(C, s2, item, K)), None)
+    if kmin is None:
+        raise ValueError(
+            f"K4 pcr_solve_shift: C = {C} chunks of interface block {s2} "
+            f"({item}-byte entries) do not fit {max_cluster} CTAs' shared "
+            f"memory (at most {max_chunks(s2, item)} at {MAX_CLUSTER})")
+    K = max(kmin, min(max_cluster, -(-C // SOLVE_CHUNKS), max(1, sms // B)))
+    Cc = _slice(C, K)
+    K = -(-C // Cc)
+    budget = SOLVE_SMEM
+    if B * K > sms and solve_smem(s2, item, Cc, min(Cc, SOLVE_MIN_CT),
+                                  SOLVE_MIN_STAGES) <= thomas.SM_SMEM // 2 - 2048:
+        budget = thomas.SM_SMEM // 2 - 2048
+    Ct = min(Cc, SOLVE_THREADS // s2)
+    while Ct > 1 and solve_smem(s2, item, Cc, Ct, SOLVE_MIN_STAGES) > budget:
+        Ct //= 2
+    slabs = (n_levels(C) + 1) * -(-Cc // Ct)
+    D = max(1, min(slabs, (budget // item - 2 * s2 * Cc) // (2 * s2 * s2 * Ct)))
+    return SolvePlan(K, Cc, Ct, D, -(-s2 * Ct // 32) * 32, solve_smem(s2, item, Cc, Ct, D))
+
+
+@functools.lru_cache(maxsize=None)
+def _scheduled_plan(lib, sfx, C, s2, B, item, sms, wood):
+    """``solve_plan`` with clusters the card schedules: the planned cluster
+    size, or the largest smaller one that ``cudaOccupancyMaxActiveClusters``
+    admits (asked once per shape)."""
+    query = getattr(lib.load(), f"tf_pcr_shift_clusters_{sfx}")
+    query.argtypes = [ctypes.c_int] * 7
+    query.restype = ctypes.c_int
+    cap = MAX_CLUSTER
+    while True:
+        sp = solve_plan(C, s2, B, item, sms, cap)
+        n = query(s2, int(wood), sp.K, sp.Cc, sp.Ct, sp.D, sp.threads)
+        if n < 0:
+            lib.check(-n, "K4 pcr_solve_shift")
+        if n > 0:
+            return sp
+        if sp.K == 1:
+            raise RuntimeError(f"K4 pcr_solve_shift: no cluster of {sp} fits the card")
+        cap = sp.K - 1
 
 
 def _check_sizes(s2, C, what):
@@ -238,15 +356,17 @@ def pcr_solve_shift(red: PcrFactor, yred, wrap: bool, Z=None, cap_inv=None):
             raise ValueError(f"{what}: the Woodbury closure needs wrap")
         check_shapes(what, Z=(Z, (*lead, s2, s2, C)),
                      cap_inv=(cap_inv, (*lead, s2, s2)))
-    out = torch.empty((2, *lead, s, C), dtype=yred.dtype, device=yred.device)
-    scratch = torch.empty((B, 2, s2, C), dtype=yred.dtype, device=yred.device)
     lib, launches = _pick(s2, SOLVE_LAUNCHES, SOLVE_WIDE_LAUNCHES)
-    fn = lib.fn(f"tf_pcr_solve_shift_{suffix(yred.dtype)}", 9, 4)
+    sfx = suffix(yred.dtype)
+    sp = _scheduled_plan(lib, sfx, C, s2, B, yred.element_size(),
+                         sm_count(yred), Z is not None)
+    out = torch.empty((2, *lead, s, C), dtype=yred.dtype, device=yred.device)
+    fn = lib.fn(f"tf_pcr_solve_shift_{sfx}", 8, 9)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
             yred.data_ptr(), 0 if Z is None else Z.data_ptr(),
             0 if Z is None else cap_inv.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), scratch.data_ptr(), C, s2, int(bool(wrap)), B,
-            stream_of(yred))
+            out[1].data_ptr(), C, s2, int(bool(wrap)), B, sp.K, sp.Cc, sp.Ct, sp.D,
+            sp.threads, stream_of(yred))
     lib.check(rc, what)
     launches.add()
     return out[0], out[1]

@@ -18,10 +18,12 @@ kernel for CUDA tensors; ``plan`` is an ``ops.chunked.Plan``.
 Member axis: bands ``(B, W, nvar, nvar, N)`` (an ensemble's B grids) give
 a factor whose arrays lead with B, each member's slab laid out as one
 grid's (rows ``(B, Mc, s, s, C)``, reduced couplings ``(B, 2s, 2s, C)``),
-and right-hand sides ``(B, nvar, N)``.  The kernels run one thread (K2) or
-one block of walkers (K3's sweep, ``sweep_plan``) per (member, chunk) or
-chunk group, or one thread per (member, node); members never couple, and
-each member's ring closes on itself.  The factor shift ``beta`` is a number or a
+and right-hand sides ``(B, nvar, N)``.  K2 (s <= ``NARROW_S``) and K3's
+sweep run one block of walkers per group of (member, chunk) pairs, fed by
+``cp.async`` copies into a shared-memory ring on a plan of the host's
+(``factor_plan``, ``sweep_plan``); K2's wide library one lane group per
+chunk, K3's correction one thread per (member, node); members never couple,
+and each member's ring closes on itself.  The factor shift ``beta`` is a number or a
 per-member (B,) tensor on the bands' device (the kernel reads it there,
 so shared and per-member step sizes take one code).
 """
@@ -127,14 +129,86 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
                        device=bands.device)
     red = torch.empty((2, *lead, 2 * s, 2 * s, C), dtype=bands.dtype,
                       device=bands.device)
-    fn = lib.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 8, 2)
+    # the wide library walks with lane groups and takes no plan
+    fp = (factor_plan(plan.nvar, plan.halo, bands.element_size(), plan.Mc, C,
+                      B, sm_count(bands)) if s <= NARROW_S
+          else FactorPlan(1, 1, False, 0))
+    fn = lib.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 11, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
             red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.Np, plan.nvar,
-            plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, float(alpha),
-            beta_val, stream_of(bands))
+            plan.g, plan.halo, plan.Mc, C, int(plan.wrap), B, fp.CB, fp.R,
+            int(fp.persist), float(alpha), beta_val, stream_of(bands))
     lib.check(rc, what)
     launches.add()
     return banded.SpikeFactor(*rows, red[0], red[1])
+
+
+#: stages of the shared-memory ring of K2's staged walk (kFactorStages in
+#: csrc/spike_factor.cu), whose blocks are one warp
+FACTOR_STAGES = 4
+#: most chunks one block of K2 walks (every lane of its warp)
+FACTOR_MAX_CB = 32
+#: shared memory a block of K2 may take at most, and at most what its
+#: forward results kept for the backward pass may
+FACTOR_SMEM = 100 * 1024
+FACTOR_KEEP = 48 * 1024
+#: an SM's schedulers: K2 plans one walking warp (one block) for each
+SM_SCHEDULERS = 4
+
+
+class FactorPlan(NamedTuple):
+    CB: int        # chunks per block (walker lanes)
+    R: int         # supernode rows per stage
+    persist: bool  # forward results kept in shared memory
+    smem: int      # bytes of shared memory per block
+
+
+def factor_smem(nvar, halo, item, Mc, CB, R, persist):
+    """Bytes of shared memory of a K2 plan (``factor_smem`` in
+    csrc/spike_factor.cu): FACTOR_STAGES stages of the band tile (W nvar^2
+    planes of R g nodes; without ``persist`` at least the backward pass's
+    three row tiles of R s^2), with ``persist`` the forward results (3 Mc
+    s^2), and each chunk's outer coupling Tr and previous U (s^2 each),
+    for each of CB chunks."""
+    g = max(halo, 1)
+    s, planes = nvar * g, (2 * halo + 1) * nvar * nvar
+    band, rows = planes * R * g, 3 * R * s * s
+    stage = band if persist else max(band, rows)
+    return item * CB * (FACTOR_STAGES * stage + (3 * Mc * s * s if persist else 0)
+                        + 2 * s * s)
+
+
+@functools.lru_cache(maxsize=None)
+def factor_plan(nvar, halo, item, Mc, C, B=1, sms=132):
+    """K2's plan at block size s = nvar max(halo, 1) <= NARROW_S.  A walk
+    is bound by the issue and latency of its own instructions, which one
+    warp issues for all of its walkers, so the plan gives each scheduler of
+    the card one walking warp (one block), SM_SCHEDULERS per SM, with as
+    many walkers as that takes: CB chunks per block (of the B * C chunks of
+    all members, taken in turn), the least power of two up to
+    FACTOR_MAX_CB that needs no more blocks than schedulers.  The blocks
+    then share an SM's shared memory by four: CB halved, then the R = 8 rows
+    per stage, until a block's stages fit its share (and FACTOR_SMEM); the
+    forward results kept in shared memory where they take at most
+    FACTOR_KEEP and the whole still fits.  (Chip runs at KS 2^20, 10^6 and
+    config 5, PERF.md.)"""
+    s = nvar * max(halo, 1)
+    chunks = B * C
+    CB = min(FACTOR_MAX_CB,
+             1 << (-(-chunks // (SM_SCHEDULERS * sms)) - 1).bit_length())
+    budget = min(FACTOR_SMEM, SM_SMEM // SM_SCHEDULERS - 1024)
+
+    def smem(CB, R, persist):
+        return factor_smem(nvar, halo, item, Mc, CB, R, persist)
+
+    R = 8
+    while smem(CB, R, False) > budget and CB > 1:
+        CB //= 2
+    while smem(CB, R, False) > budget and R > 1:
+        R //= 2
+    persist = (item * 3 * Mc * s * s * CB <= FACTOR_KEEP
+               and smem(CB, R, True) <= budget)
+    return FactorPlan(CB, R, persist, smem(CB, R, persist))
 
 
 #: stages of the shared-memory ring of K3's staged sweep (kStages in
