@@ -142,16 +142,17 @@ TF_WIDE) run in each phase too: phase 0 builds them and the falling film's
 K1 and prints every wide instantiation's registers and spills; phase 1
 (``phase1_film``) holds K2-K4 at S = 5..8 against their plain versions in
 both dtypes (``kernel_checks.run_wide``: random bands on block-cyclic,
-Woodbury and acyclic plans, and B = 4 members at S = 6 and 8), on the
-film's own path at N = 10^6 and 2^20, and in float32 on the bands the df64
-mixed solve rounds; phase 2 (``phase2_film``) runs the three-field falling
-film (S = 6, ``FILM``) through ``Simulation``'s defaults at N = 10^6
-(tol 1e-4, 3 output steps of 0.5, against the CPU run at N = 10^4 tiled)
-and through fixed RODASPR and Theta steps at N = 10^6 and 2^20, with exact
-launches of K1, K5 and the wide entries; phase 3 (``phase3_film``) times
-its steps, profiles them, holds each wide entry against its plain version
-and bound, and sweeps the chunk count behind ``chunked.WIDE_ROW_US`` /
-``WIDE_PASS_US``.
+Woodbury and acyclic plans, C = 1 to 8192 chunks, and B = 4 members at S =
+6 and 8), on the film's own path at N = 10^6 and 2^20, and in float32 on
+the bands the df64 mixed solve rounds; phase 2 (``phase2_film``) runs the
+three-field falling film (S = 6, ``FILM``) through ``Simulation``'s
+defaults at N = 10^6 (tol 1e-4, 3 output steps of 0.5, against the CPU run
+at N = 10^4 tiled) and through fixed RODASPR and Theta steps at N = 10^6
+and 2^20, with exact launches of K1, K5 and the wide entries; phase 3
+(``phase3_film``) times its steps, profiles them, holds each wide entry
+against its plain version and bound, and sweeps the chunk count at N =
+10^6 (Woodbury and padded plans) and 2^20 (block-cyclic) behind
+``chunked.WIDE_ROW_US`` / ``WIDE_LEVEL_US`` / ``WIDE_WOOD_US``.
 
 Padded grids (plans that grow the system with identity rows) run in
 phases 2 and 3: ``phase2_padded`` steps KS at N = 999983 (periodic, N no
@@ -719,9 +720,9 @@ def phase0():
     # float64 models' libraries of K6's mixed entry (the df64 cases)
     models = [Model(*eqs, double=d).backend for eqs in (BURGERS, README, KS, TWO_VAR)
               for d in (True, False)]
-    jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB,
-                                 combine.LIB, matvec.LIB, mixed.LIB, thomas.FACTOR_WIDE_LIB,
-                                 thomas.SOLVE_WIDE_LIB, pcr.WIDE_LIB)]
+    jobs = [job for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
+                            matvec.LIB, mixed.LIB, thomas.FACTOR_WIDE_LIB,
+                            thomas.SOLVE_WIDE_LIB, pcr.WIDE_LIB) for job in lib.builds()]
     # the falling film's K1 (S = 6), both dtypes
     jobs += [Model(*FILM, double=d).backend.stencil.load for d in (True, False)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
@@ -764,11 +765,13 @@ def phase0():
             if path in k9_logs:
                 log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
-            # the wide instantiations: kernel<type, S, flags...>
-            wide = re.search(r"([a-z][a-z_]*_kernel)I([df])Li(\d+)E((?:Lb[01]E)*)", fn or "")
-            if "_wide-" in path.name and wide:
-                name, typ, size, flags = wide.groups()
-                log(f"    wide {name}<{'double' if typ == 'd' else 'float'}, {size}"
+            # the wide instantiations: kernel<type, sizes..., flags...>
+            wide = re.search(r"([a-z][a-z_]*_kernel)I([df])((?:Li\d+E)+)((?:Lb[01]E)*)",
+                             fn or "")
+            if "_wide" in path.name and wide:
+                name, typ, sizes, flags = wide.groups()
+                log(f"    wide {name}<{'double' if typ == 'd' else 'float'}"
+                    + "".join(f", {v}" for v in re.findall(r"Li(\d+)E", sizes))
                     + "".join(f", {f}" for f in re.findall(r"Lb([01])E", flags))
                     + f">: {regs} registers, {stack} bytes stack, {spill} bytes spill stores")
     return smi
@@ -2681,20 +2684,92 @@ def phase2_film(launches):
     return launches
 
 
-#: chunk counts of the film's sweep at N = 10^6 (divisors of its M = 5 10^5
-#: supernodes), behind ``chunked.WIDE_ROW_US`` / ``WIDE_PASS_US``
-FILM_CHUNKS = [250, 400, 500, 625, 800, 1000, 1250, 1600, 2000, 2500, 4000, 5000, 8000]
+#: chunk counts of the film's sweeps behind ``chunked.plan_cost_us``'s wide
+#: constants: at N = 10^6 divisors of its M = 5 10^5 supernodes (Woodbury
+#: rings) and the power-of-two counts
+#: that pad it (``chunked.padded_counts``: a ring closed at the system
+#: level); at N = 2^20 powers of two (block-cyclic)
+FILM_CHUNKS = {N_REF: [250, 400, 500, 625, 800, 1000, 1250, 1600, 2000, 2500, 4000, 5000,
+                       8000, 512, 1024, 2048, 4096, 8192],
+               N_BIG: [512, 1024, 2048, 4096, 8192]}
+
+
+def film_sweep(dt_name, dtype, points):
+    """The film's fixed RODASPR step under each chunk plan of ``FILM_CHUNKS``
+    (the lower of two CUDA-event means over 2 steps), at N = 10^6 and 2^20;
+    adds (N, C, plan, ms) to ``points``."""
+    for N, chunks in FILM_CHUNKS.items():
+        model, fields, pars_t, _, dt = path_inputs(FILM, film_case(N), dtype)
+        ros = schemes.RODASPR(model, time_stepping=False, tol=None)
+        key, plan0 = (N, True, 1), ros._plan(N, True)
+        row = {}
+        for C in chunks:
+            plan = chunked.plan_with(N, 3, 2, True, C)
+            ros._plans[key] = plan
+            row[C] = min(cuda_ms(lambda: ros(0.0, fields, dt, pars_t), 2) for _ in range(2))
+            points.append((N, dt_name, C, plan, row[C]))
+        ros._plans[key] = plan0
+        best = min(row, key=row.get)
+        grid = "N=2^20" if N == N_BIG else "N=10^6"
+        log(f"  film chunk sweep {grid} {dt_name} (ms per RODASPR step, the lower of two "
+            "CUDA-event means over 2 steps): "
+            + "; ".join(f"C={C} Mc={chunked.plan_with(N, 3, 2, True, C).Mc}"
+                        f"{' padded' if chunked.plan_with(N, 3, 2, True, C).padded else ''}: "
+                        f"{v:.4f}" for C, v in row.items())
+            + f" -> fastest C={best}; make_plan's C={plan0.C} "
+            + (f"at {row[plan0.C] / row[best] - 1:+.2%}" if plan0.C in row
+               else "(not swept)"))
+
+
+def film_fit(points):
+    """The non-negative fit of the wide constants of ``chunked.plan_cost_us``
+    and ``woodbury_cost_us`` to the film's sweeps, both grids and dtypes
+    pooled with relative weights and one offset per grid and dtype, over
+    the plans that pad nothing (a padded plan also pays its ring's column
+    solves); then each sweep's fastest plan against make_plan's pick and
+    against the fitted model's."""
+    exact = [pt for pt in points if not pt[3].padded]
+    groups = sorted({(N, dt) for N, dt, *_ in exact})
+    feats = []
+    for N, dt, C, plan, _ in exact:
+        f = list(chunked.wide_features(plan.M, C, 6))
+        if not plan.woodbury:
+            f[2] = 0
+        feats.append(f + [float((N, dt) == grp) for grp in groups])
+    coef = nnls_fit(feats, [ms for *_, ms in exact])
+    log(f"  film pooled non-negative fit ({len(exact)} plans, both grids and dtypes): "
+        f"WIDE_ROW_US = {coef[0]:.3f}, WIDE_LEVEL_US = {coef[1]:.3f}, WIDE_WOOD_US = "
+        f"{coef[2]:.3f}, offsets "
+        + ", ".join(f"{N} {dt} {c:.1f} us" for (N, dt), c in zip(groups, coef[3:]))
+        + f" (chunked has {chunked.WIDE_ROW_US}, {chunked.WIDE_LEVEL_US}, "
+        f"{chunked.WIDE_WOOD_US})")
+    for N, dt in sorted({(N, dt) for N, dt, *_ in points}):
+        row = {C: ms for N_, dt_, C, _, ms in points if (N_, dt_) == (N, dt)}
+        best = min(row, key=row.get)
+        pick = chunked.make_plan(N, 3, 2, True).C
+        model = {}
+        for C in row:
+            plan = chunked.plan_with(N, 3, 2, True, C)
+            if not plan.padded:
+                f = chunked.wide_features(plan.M, C, 6)
+                model[C] = (coef[0] * f[0] + coef[1] * f[1]
+                            + (coef[2] * f[2] if plan.woodbury else 0))
+        fitted = min(model, key=model.get)
+        log(f"  film N={N} {dt}: fastest C={best} ({row[best]:.4f} ms); make_plan's C={pick}"
+            + (f" {row[pick]:.4f} ms ({row[pick] / row[best] - 1:+.2%})" if pick in row
+               else " (not swept)")
+            + f"; the fit's C={fitted} ({row[fitted] / row[best] - 1:+.2%})")
 
 
 def phase3_film():
     """The film's step at N = 10^6 and 2^20 (RODASPR fixed and Theta, CUDA
     events, cell-updates/s) with a profile of the RODASPR step, each wide
     kernel entry at the path's inputs (N = 10^6, the first stage) against
-    its plain version and its bound, and the chunk-count sweep at N = 10^6
-    with the least-squares fit of ``chunked.plan_cost_us``'s wide
+    its plain version and its bound, and the chunk-count sweeps at N = 10^6
+    and 2^20 with the least-squares fit of ``chunked.plan_cost_us``'s wide
     constants."""
     log("phase 3: the falling film (S = 6, CUDA events)")
-    times = {}
+    times, points = {}, []
     _, g00 = rodaspr_rows()
     for dt_name, dtype in DTYPES.items():
         times[dt_name] = {}
@@ -2730,26 +2805,9 @@ def phase3_film():
                     f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                     f"{ops} operations), library none (no PyTorch call solves a "
                     "block-banded system)")
-            # the chunk-count sweep behind the wide plan cost
-            key, plan0 = (N, True, 1), ros._plan(N, True)
-            row = {}
-            for C in FILM_CHUNKS:
-                ros._plans[key] = chunked.plan_with(N, 3, 2, True, C)
-                row[C] = min(cuda_ms(lambda: ros(0.0, fields, dt, pars_t), 2)
-                             for _ in range(2))
-            ros._plans[key] = plan0
-            M = N // 2
-            coef = nnls_fit([[M // C, pcr.n_levels(C) * -(-C // chunked.wide_pass_chunks(6)),
-                              1.0] for C in row], list(row.values()))
-            best = min(row, key=row.get)
-            log(f"  film chunk sweep N=10^6 {dt_name} (ms per RODASPR step, the lower of two "
-                "CUDA-event means over 2 steps): "
-                + "; ".join(f"C={C} Mc={M // C}: {v:.4f}" for C, v in row.items())
-                + f" -> fastest C={best}; make_plan's C={plan0.C} at "
-                f"{row[plan0.C] / row[best] - 1:+.2%}; non-negative fit WIDE_ROW_US = "
-                f"{coef[0]:.2f}, "
-                f"WIDE_PASS_US = {coef[1]:.2f}, offset {coef[2]:.1f} us (chunked has "
-                f"{chunked.WIDE_ROW_US}, {chunked.WIDE_PASS_US})")
+            del pairs, bands, rhs
+        film_sweep(dt_name, dtype, points)
+    film_fit(points)
     return times
 
 

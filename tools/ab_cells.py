@@ -15,7 +15,7 @@ fixed RODASPR step of KS at N = 10^6 (dt 0.05, Woodbury), at N = 2^20
 (block-cyclic) and at N = 999983 (a padded ring), of one Theta step of
 Burgers at N = 10^6, of one fixed RODASPR step of config 5 (B = 1024 KS
 members at N = 10^5, ``Ensemble.steps(3, 0.05)``), of one fixed RODASPR
-step of the s = 6 falling film at N = 10^6 (dt 0.5) and of one step of
+step of the s = 6 falling film at N = 10^6 and 2^20 (dt 0.5) and of one step of
 the opt-in two-pass theta step (K9) on Burgers at N = 10^6; and the
 host-clock ms per attempt of one adaptive RODASPR output step (tol 1e-3,
 t = 0 to 1) of KS at N = 10^6 and 2^20, with its attempts; and each
@@ -42,10 +42,11 @@ def run(root):
     from triflow_tpu_torch import Model, schemes
     from triflow_tpu_torch.ops import combine, pcr, thomas
 
-    # build every library the run needs at once (one nvcc each)
-    jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
-                                 thomas.FACTOR_WIDE_LIB, thomas.SOLVE_WIDE_LIB,
-                                 pcr.WIDE_LIB)]
+    # build every library the run needs at once (one nvcc each; a checkout
+    # before libraries built by dtype: their load)
+    jobs = [job for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
+                            thomas.FACTOR_WIDE_LIB, thomas.SOLVE_WIDE_LIB, pcr.WIDE_LIB)
+            for job in getattr(lib, "builds", lambda lib=lib: [lib.load])()]
     for eqs in (cs.KS, cs.BURGERS, cs.FILM):
         for double in (True, False):
             b = Model(*eqs, double=double).backend
@@ -63,7 +64,8 @@ def run(root):
                 ("ks N=2^20 rodaspr fixed", cs.KS, cs.ks_case(0.05, 0.2, cs.N_BIG)),
                 ("ks N=999983 rodaspr fixed", cs.KS, cs.ks_case(0.05, 0.2, cs.N_ODD)),
                 ("burgers N=10^6 theta", cs.BURGERS, cs.burgers_case(cs.N_REF)),
-                ("film N=10^6 rodaspr fixed", cs.FILM, cs.film_case(cs.N_REF))):
+                ("film N=10^6 rodaspr fixed", cs.FILM, cs.film_case(cs.N_REF)),
+                ("film N=2^20 rodaspr fixed", cs.FILM, cs.film_case(cs.N_BIG))):
             model, fields, pars, _, dt = cs.path_inputs(eqs, case, dtype)
             step = (schemes.Theta(model, theta=1.0) if "theta" in label
                     else schemes.RODASPR(model, time_stepping=False, tol=None))

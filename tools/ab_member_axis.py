@@ -143,8 +143,10 @@ def run(root):
     except ImportError:  # a checkout from before K8
         mixed = None
     backends = [Model(*eqs).backend for eqs in (KS, BURGERS, README)]
-    jobs = [lib.load for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
-                                 matvec.LIB) + ((mixed.LIB,) if mixed else ())]
+    # one job per nvcc run (a checkout before libraries built by dtype: load)
+    jobs = [job for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
+                            matvec.LIB) + ((mixed.LIB,) if mixed else ())
+            for job in getattr(lib, "builds", lambda lib=lib: [lib.load])()]
     jobs += [b.stencil.load for b in backends] + [b.megastep.load for b in backends[::2]]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:

@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""Time K2's factor, K4's solve with shifts, K3's chunk sweep and K5's
-combination against a parent commit's, in one process on one NVIDIA GPU.
+"""Time K2's factor, K4's factor and solve with shifts, K3's chunk sweep
+and K5's combination against a parent commit's, in one process on one
+NVIDIA GPU.
 
-    python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS]
+    python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS] [GRID ...]
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``d5ab08f`` (``git archive``),
-the commit before K2's staged walk and K4's cluster solve (K3's staged
-sweep and K5's launch path are the same in both, so their pairs show the
-noise of the measurement).  Both packages load in this process, the
-parent's under another name, each building its kernels from its own
-``csrc/`` into its own ``build/``.
+repository, it is unpacked there from commit ``897d296`` (``git archive``),
+the commit before K2's staged lane-group walk and K4's wide factor across
+the card (the narrow K2 and K4, K3 and K5 are the same in both, so their
+pairs show the noise of the measurement).  GRID words keep only the grids
+whose name holds one of them (``film``: the falling film's).  Both
+packages load in this process, the parent's under another name, each
+building its kernels from its own ``csrc/`` into its own ``build/``.
 
 On the same inputs (random diagonally dominant bands; the plain reduced
 factor of K2's and, on a Woodbury plan, its closure; one random
 right-hand side) it times, on each grid of ``GRIDS`` and under its chunk
-plan: K2 (``thomas.spike_factor``, the whole wrapper), K4's solve with
-shifts (``pcr.pcr_solve_shift``) and K3's sweep (``thomas.thomas_sweep``);
-the grids are KS N = 2^20 (s = 2, one grid, block-cyclic: ``make_plan``'s
-plan and C = 1024 and 4096), KS N = 10^6 (Woodbury), the falling film's N
-= 10^6 (s = 6, three fields: K2's wide library is the parent's, K4's solve
-the cluster kernel) and config 5 (B = 1024 members of KS N = 10^5); and
-K5 (``combine.combine``: A = 7 arrays, R = 2 rows, KS 2^20's shape) beside
-one ``torch.mm`` of the same coefficients over stacked operands; float64
-and float32; CUDA-event ms per call over back-to-back calls, in the order
-parent, this, this, parent, PAIRS times (default 2).  It checks that both
-give the same outputs (K2's five row arrays and reduced couplings, K4's
-shifts, K3's y: bit for bit, or within the solver pieces' limits, 1e-10
-of the largest entry in float64 and 1e-4 in float32, printed beside), and
+plan: K2 (``thomas.spike_factor``, the whole wrapper), K4's factor
+(``pcr.pcr_factor``), its solve with shifts (``pcr.pcr_solve_shift``) and
+K3's sweep (``thomas.thomas_sweep``); the grids are KS N = 2^20 (s = 2,
+one grid, block-cyclic: ``make_plan``'s plan and C = 1024 and 4096), KS N
+= 10^6 (Woodbury), the falling film (s = 6, three fields: K2's and K4's
+wide factors) at N = 10^6 under ``make_plan``'s plan and at C = 500, 1000,
+2000 and 4000 (Woodbury), at N = 2^20 at C = 512, 2048 and 4096, and at
+8192 chunks of 2^15 nodes (block-cyclic), and config 5 (B = 1024 members
+of KS N = 10^5); and K5 (``combine.combine``: A = 7 arrays, R = 2 rows, KS
+2^20's shape) beside one ``torch.mm`` of the same coefficients over
+stacked operands; float64 and float32; CUDA-event ms per call over
+back-to-back calls, in the order parent, this, this, parent, PAIRS times
+(default 2).  It checks that both give the same outputs (K2's five row
+arrays and reduced couplings, K4's level operators and Dinv, its shifts,
+K3's y: bit for bit, or within the solver pieces' limits, 1e-10 of the
+largest entry in float64 and 1e-4 in float32, printed beside), and
 reads each kernel's device µs per launch from ``torch.profiler`` (20
 launches alone).  Prints the card's name and power limit, one line per
 measurement, then one JSON line with every mean.
@@ -50,7 +55,7 @@ sys.path.insert(0, str(ROOT))
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
                                    pcr, thomas)
 
-PARENT_COMMIT = "d5ab08f"
+PARENT_COMMIT = "897d296"
 
 
 def load_parent(path: Path):
@@ -114,6 +119,14 @@ GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
          ("ks 2^20 C=4096", 5, 1, 1 << 20, 1, 4096, 20),
          ("ks 10^6", 5, 1, 10 ** 6, 1, None, 20),
          ("film 10^6", 5, 3, 10 ** 6, 1, None, 5),
+         ("film 10^6 C=500", 5, 3, 10 ** 6, 1, 500, 5),
+         ("film 10^6 C=1000", 5, 3, 10 ** 6, 1, 1000, 5),
+         ("film 10^6 C=2000", 5, 3, 10 ** 6, 1, 2000, 5),
+         ("film 10^6 C=4000", 5, 3, 10 ** 6, 1, 4000, 5),
+         ("film 2^20 C=512", 5, 3, 1 << 20, 1, 512, 5),
+         ("film 2^20 C=2048", 5, 3, 1 << 20, 1, 2048, 5),
+         ("film 2^20 C=4096", 5, 3, 1 << 20, 1, 4096, 5),
+         ("film 2^15 C=8192", 5, 3, 1 << 15, 1, 8192, 5),
          ("config 5", 5, 1, 10 ** 5, 1024, None, 3)]
 
 
@@ -130,6 +143,8 @@ def main():
     args = sys.argv[1:]
     parent_dir = Path(args[0]) if args else ROOT / "build" / "ab_parent"
     pairs = int(args[1]) if len(args) > 1 else 2
+    words = args[2:]
+    grids = [g for g in GRIDS if not words or any(w in g[0] for w in words)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -161,8 +176,9 @@ def main():
 
     for dtype in (torch.float64, torch.float32):
         dt = str(dtype).replace("torch.", "")
+        suffix = "f64" if dtype == torch.float64 else "f32"
         item = torch.finfo(dtype).bits // 8
-        for name, W, nvar, N, B, C, iters in GRIDS:
+        for name, W, nvar, N, B, C, iters in grids:
             plan = (chunked.make_plan(N, nvar, W // 2, True, B) if C is None
                     else chunked.plan_with(N, nvar, W // 2, True, C, B))
             bands = kernel_checks.random_bands(W, nvar, N, dtype, "cuda")
@@ -173,8 +189,7 @@ def main():
             # K2
             f_new = thomas.spike_factor(bands, 1.0, -0.3, plan)
             f_old = old_thomas.spike_factor(bands, 1.0, -0.3, plan)
-            fp = (thomas.factor_plan(plan.nvar, plan.halo, item, plan.Mc, plan.C, B)
-                  if plan.s <= thomas.NARROW_S else "lane groups")
+            fp = thomas.factor_plan(plan.nvar, plan.halo, item, plan.Mc, plan.C, B)
             print(f"K2 factor {where}, {fp}; {gap(f_new, f_old)}", flush=True)
             del f_old
             turns(f"K2 factor {name} {dt}",
@@ -185,8 +200,23 @@ def main():
                       lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), "spike_factor")
             del bands
             fact = f_new
-            # K4's solve with shifts, on the factor's reduced system
+            # K4's factor of the reduced system
             red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+            r_old = old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+            kp = "one block per member"
+            if plan.s > thomas.NARROW_S:
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                kp = pcr.factor_plan_wide(plan.C, 2 * plan.s, B, sms, pcr._factor_wide_blocks(
+                    pcr.WIDE_LIB, suffix, 2 * plan.s))
+            print(f"K4 factor {where}, {kp}; {gap(red, r_old)}", flush=True)
+            del r_old
+            turns(f"K4 factor {name} {dt}",
+                  lambda: old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
+                  lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic), iters)
+            on_device(f"K4 factor {name} {dt}",
+                      lambda: old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
+                      lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic), "pcr_factor")
+            # K4's solve with shifts
             wood = pcr.woodbury(red, fact.Lred, fact.Ured) if plan.woodbury else ()
             gen = torch.Generator(device="cuda").manual_seed(0)
             lead = (B,) if B > 1 else ()
@@ -215,6 +245,8 @@ def main():
                   lambda: thomas.thomas_sweep(fact, rhs, plan), iters)
             del fact, rhs
             torch.cuda.empty_cache()
+        if words:
+            continue
         n = 1 << 20
         gen = torch.Generator(device="cuda").manual_seed(1)
         rows = torch.randn(2, 7, generator=gen, device="cuda").tolist()

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The launch plans of K2's staged walk, K4's cluster solve with shifts, K3's
-staged sweep and K5, swept on one NVIDIA GPU.
+staged sweep and K5, and of K2's and K4's wide factors, swept on one
+NVIDIA GPU.
 
-    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5]
+    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5] [k2w] [k4w]
 
-(all four without arguments).  K2 (``thomas.spike_factor``'s C entry,
+(the first four without arguments).  K2 (``thomas.spike_factor``'s C entry,
 called with each plan): chunks per block CB in 1..32, rows per stage R in
 2, 4, 8, the forward results kept in shared memory or streamed through the
 factor's rows (where the shared memory fits 200 KB), at KS N = 2^20 (C =
@@ -24,8 +25,12 @@ planner picks.  K5 (``combine.combine``'s C entry at KS 2^20's shape, A =
 7, R = 2): device µs per launch (``torch.profiler``) on 16-byte aligned
 arrays and on arrays one element off (float32's float4 path and the scalar
 path), for grids capped at 1..32 blocks per SM through the SM count the
-entry is given.  Float64 and float32.  Prints the card's name and power
-limit first.
+entry is given.  K2's wide walk (``k2w``, the film's s = 6 at N = 10^6, C
+= 500, and at 2^20 and 2^15 up to C = 8192): rows per stage R in 1, 2, 4,
+8, the forward results kept or streamed, against ``thomas.factor_plan``'s;
+K4's wide factor (``k4w``, the same chunk counts): grids of one, two and
+four CTAs an SM, against ``pcr.factor_plan_wide``'s; device µs beside each.
+Float64 and float32.  Prints the card's name and power limit first.
 """
 
 import subprocess
@@ -156,6 +161,79 @@ def sweep_k4(dtype):
         del red, wood, yred, ref, out
 
 
+#: (name, N, C) of the film's wide sweeps (s = 6, S2 = 12)
+GRIDS_WIDE = [("film 10^6", 10 ** 6, 500), ("film 2^20", 1 << 20, 512),
+              ("film 2^20", 1 << 20, 2048), ("film 2^20", 1 << 20, 4096),
+              ("film 2^15", 1 << 15, 8192)]
+
+
+def sweep_k2w(dtype):
+    """K2's wide walk at the film's grids: rows per stage R, the forward
+    results kept or streamed, against ``thomas.factor_plan``'s."""
+    for name, N, C in GRIDS_WIDE:
+        plan = chunked.plan_with(N, 3, 2, True, C)
+        bands = _bands(5, 3, N, 1, dtype)
+        ref = thomas.spike_factor(bands, 1.0, -0.3, plan)
+        out = [torch.empty_like(t) for t in ref]
+        item = bands.element_size()
+        pick = thomas.factor_plan(3, 2, item, plan.Mc, C, 1, sm_count(bands))
+        fn = thomas.FACTOR_WIDE_LIB.fn(f"tf_spike_factor_{suffix(dtype)}", 9, 11, 2)
+        print(f"K2 wide {name} C={C} Mc={plan.Mc} {dtype}: factor_plan picks {pick}",
+              flush=True)
+        for R in (1, 2, 4, 8):
+            for keep in (False, True):
+                smem = thomas.factor_smem(3, 2, item, plan.Mc, pick.CB, R, keep)
+                if smem > 220 * 1024:
+                    continue
+
+                def go(R=R, keep=keep):
+                    rc = fn(bands.data_ptr(), *(t.data_ptr() for t in out), 0, N, 3, 2, 2,
+                            plan.Mc, C, int(plan.wrap), 1, pick.CB, R, int(keep), 1.0, -0.3,
+                            stream_of(bands))
+                    thomas.FACTOR_WIDE_LIB.check(rc, "K2 wide factor")
+
+                ms = cuda_ms(go, 3)
+                same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                print(f"  R={R} keep={keep} smem={smem}: {ms:.4f} ms "
+                      f"({device_us(go, 'spike_factor', 5):.1f} device us)"
+                      + ("" if same else " (differs from factor_plan's)"), flush=True)
+        del bands, ref, out
+
+
+def sweep_k4w(dtype):
+    """K4's wide factor at the film's chunk counts: cooperative grids of one,
+    two and four CTAs an SM (as many as the pairs need and the card holds),
+    against ``pcr.factor_plan_wide``'s factor."""
+    for name, N, C in GRIDS_WIDE:
+        Mc = 4
+        plan = chunked.plan_with(2 * C * Mc, 3, 2, True, C)
+        fact = thomas.spike_factor(_bands(5, 3, 2 * C * Mc, 1, dtype), 1.0, -0.3, plan)
+        ref = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+        out = [torch.empty_like(t) for t in ref]
+        sfx = suffix(dtype)
+        sms = sm_count(ref.Dinv)
+        held = pcr._factor_wide_blocks(pcr.WIDE_LIB, sfx, 12)
+        pick = pcr.factor_plan_wide(C, 12, 1, sms, held)
+        scratch = torch.empty((7, C, 12, 12), dtype=dtype, device="cuda")
+        fn = pcr.WIDE_LIB.fn(f"tf_pcr_factor_wide_{sfx}", 6, 5)
+        print(f"K4 wide factor {name} C={C} cyclic={plan.cyclic} {dtype}: the card holds "
+              f"{held} CTAs an SM; factor_plan_wide picks {pick}", flush=True)
+        gpc = pcr.factor_groups(12, pcr.FACTOR_WIDE_THREADS)
+        for ctas in sorted({min(-(-C // gpc), sms * per) for per in (1, 2, 4) if per <= held}):
+            def go(ctas=ctas):
+                rc = fn(fact.Lred.data_ptr(), fact.Ured.data_ptr(), out[0].data_ptr(),
+                        out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(), C, 12,
+                        int(plan.cyclic), 1, ctas, stream_of(scratch))
+                pcr.WIDE_LIB.check(rc, "K4 wide factor")
+
+            ms = cuda_ms(go, 10)
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"  grid of {ctas} CTAs: {ms:.4f} ms "
+                  f"({device_us(go, 'pcr_factor', 10):.1f} device us)"
+                  + ("" if same else " (differs from the plan's)"), flush=True)
+        del fact, ref, out, scratch
+
+
 def sweep_k3(dtype):
     for name, W, nvar, N, B, C in GRIDS:
         plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
@@ -228,7 +306,8 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
     which = sys.argv[1:] or ["k2", "k4", "k3", "k5"]
-    sweeps = {"k2": sweep_k2, "k4": sweep_k4, "k3": sweep_k3, "k5": sweep_k5}
+    sweeps = {"k2": sweep_k2, "k4": sweep_k4, "k3": sweep_k3, "k5": sweep_k5,
+              "k2w": sweep_k2w, "k4w": sweep_k4w}
     for dtype in (torch.float64, torch.float32):
         for key in which:
             sweeps[key](dtype)

@@ -29,10 +29,11 @@
 // sync (the TPU kernel ran its right-hand sides' levels one after the
 // other), and the S2 x S2 capacitance is inverted in shared memory.
 //
-// The factor and the R-column solve run one thread block per member
-// (gridDim.x = B, the members of an ensemble; 1 for one grid): the level
-// loop is sequential, and __syncthreads() between the phases of a level
-// makes each phase's global scratch writes visible to the whole block.
+// The narrow factor (S2 <= 8) and the R-column solve run one thread block
+// per member (gridDim.x = B, the members of an ensemble; 1 for one grid):
+// the level loop is sequential, and __syncthreads() between the phases of a
+// level makes each phase's global scratch writes visible to the whole
+// block.
 // Member b's arrays sit at b times one member's size (Lred, Ured, Dinv, Z
 // (B, S2, S2, C), the level operators (B, nlev, S2, S2, C), right-hand
 // sides (B, R, S2, C) and yred (B, S2, C), cap_inv (B, S2, S2), xm1 and
@@ -66,10 +67,13 @@
 // library of their own, from this file with TF_WIDE defined.  The R-column
 // solve keeps pcr.cuh's body (vectors of S2 entries per thread) and the
 // solve with shifts is the same cluster kernel (one row of a chunk per
-// thread, its products streamed); the factor, whose S2 x S2 products and
+// thread, its products streamed).  The factor, whose S2 x S2 products and
 // inverses do not fit one thread's registers, runs each chunk's level on a
-// group of S2 lanes, lane r holding row r of every block (wide.cuh:
-// pcr_factor_block_wide below).
+// group of S2 lanes, lane r holding row r of every block (wide.cuh), and
+// spreads each phase of a level over the whole card
+// (pcr_factor_wide_kernel below): its 2 log2 C + 1 dependent phases are
+// what bound it, each one pass of lane groups (a 12 x 12 Gauss-Jordan by
+// shuffles, or six shuffle products) and a grid-wide barrier.
 #include <cooperative_groups.h>
 
 #include "cp_async.cuh"
@@ -110,82 +114,176 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 #define TF_CASES TF_CASE(2) TF_CASE(4) TF_CASE(6) TF_CASE(8)
 #endif
 
-// pcr.cuh's pcr_factor_block for wide blocks: every phase walks the chunks
-// in passes of (warps x 32 / S2) groups, one group of S2 lanes per chunk,
-// the same products and sums in the same order.  A lane of no chunk in
-// the last pass computes on chunk C - 1 and stores nothing.
-// scratch: 7 x (S2, S2, C)
+#ifdef TF_WIDE
+// The wide factor (S2 = 10..16) across many SMs.  A level's chunks are
+// independent once the previous level is done: the only order is inverse
+// (Dt_c = D_c^-1 of every chunk) -> update (alpha, beta, L', D', U') -> next
+// level.  So each phase is spread over the pairs (member, chunk) of the
+// whole grid, one group of S2 lanes per pair (wide.cuh), and a grid-wide
+// barrier separates the phases.  The level state (L, D, U in two buffers and
+// Dt) lives in global scratch, each pair's S2 x S2 block contiguous
+// (chunk-major: lane r reads its row as S2 / 2 or S2 / 4 vector loads), and
+// is small enough to stay in L2 (7 S2^2 B C values: 4 MB at S2 = 12, C =
+// 500, float64); it is read with ld.global.cg, past the reading SM's L1,
+// which may hold a line another SM rewrote since.  The inputs Lred / Ured
+// and the outputs (alphas, betas, Dinv) keep the chunk-minor layout
+// (S2, S2, C) of the other entries.  The products and sums are
+// pcr_factor_block's, in the same order.
+//
+// The grid is cooperative: its CTAs (at most what the card holds at once,
+// ops/pcr.py:factor_plan_wide) cover every pair of every member, and
+// grid.sync() separates the phases.  (One thread-block cluster of up to 16
+// CTAs per member, the cluster barrier between the phases and 512-thread
+// CTAs multiplying by shuffles, ran 2.9 times slower at the film's C = 500
+// and 5 times at C >= 2048: 16 SMs against the card's 132; PERF.md.)  A
+// warp's groups take consecutive pairs, the
+// warps of the grid consecutive runs of them, in passes until every pair
+// is done.  Each product takes its right operand through the group's
+// block in shared memory (tf::mm_shared).
+
+// Loads through L2 (ld.global.cg) as volatile asm: none is merged with
+// another or moved across the barriers between the phases.
+__device__ __forceinline__ void ld_cg(const double* p, double& x, double& y) {
+  asm volatile("ld.global.cg.v2.f64 {%0, %1}, [%2];\n" : "=d"(x), "=d"(y) : "l"(p));
+}
+__device__ __forceinline__ void ld_cg(const float* p, float& x, float& y) {
+  asm volatile("ld.global.cg.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "l"(p));
+}
+__device__ __forceinline__ void ld_cg(const float* p, float& x, float& y, float& z, float& w) {
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x), "=f"(y), "=f"(z), "=f"(w)
+               : "l"(p));
+}
+
+// row r of the block of pair q, chunk-major (q, S2, S2), through L2: S2 / 4
+// 16-byte loads where a row's bytes allow (float, S2 = 12, 16), else S2 / 2
+// pairs (every row starts 8-byte aligned, 16-byte in double)
 template <typename T, int S2>
-__device__ __forceinline__ void pcr_factor_block_wide(const T* Lred, const T* Ured, T* alphas,
-                                                      T* betas, T* Dinv, T* scratch, int C,
-                                                      int cyclic) {
+__device__ __forceinline__ tf::Row<T, S2> ld_row(const T* p, long q, int r) {
+  const T* a = p + (q * S2 + r) * S2;
+  tf::Row<T, S2> out;
+  if constexpr (sizeof(T) == 4 && S2 % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < S2 / 4; ++i)
+      ld_cg(a + 4 * i, out.v[4 * i], out.v[4 * i + 1], out.v[4 * i + 2], out.v[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < S2 / 2; ++i) ld_cg(a + 2 * i, out.v[2 * i], out.v[2 * i + 1]);
+  }
+  return out;
+}
+
+template <typename T, int S2>
+__device__ __forceinline__ void st_row(T* p, long q, int r, const tf::Row<T, S2>& x) {
+  T* a = p + (q * S2 + r) * S2;
+  if constexpr (sizeof(T) == 4 && S2 % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < S2 / 4; ++i)
+      reinterpret_cast<float4*>(a)[i] =
+          make_float4(x.v[4 * i], x.v[4 * i + 1], x.v[4 * i + 2], x.v[4 * i + 3]);
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < S2 / 2; ++i)
+      reinterpret_cast<float2*>(a)[i] = make_float2(x.v[2 * i], x.v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < S2 / 2; ++i)
+      reinterpret_cast<double2*>(a)[i] = make_double2(x.v[2 * i], x.v[2 * i + 1]);
+  }
+}
+
+constexpr int kWideFactorThreads = 128;
+
+// scratch: 7 x (B C, S2, S2)
+template <typename T, int S2>
+__global__ void __launch_bounds__(kWideFactorThreads)
+    pcr_factor_wide_kernel(const T* __restrict__ Lred, const T* __restrict__ Ured,
+                           T* __restrict__ alphas, T* __restrict__ betas, T* __restrict__ Dinv,
+                           T* __restrict__ scratch, int C, int B, int cyclic, int nlev) {
   using Row = tf::Row<T, S2>;
-  constexpr int G = 32 / S2;
-  const long sz = (long)S2 * S2 * C;
+  constexpr int G = 32 / S2, SS = S2 * S2;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the grid's pairs [0, p1), its warps and this warp's place among them
+  const long p1 = (long)B * C;
+  const int nwarps = gridDim.x * warps, wg = blockIdx.x * warps + warp;
+  cg::grid_group grid = cg::this_grid();
+  const long nbc = (long)B * C, sz = nbc * SS, blk = (long)SS * C, ops = (long)nlev * blk;
   T* Lb[2] = {scratch, scratch + 3 * sz};
   T* Db[2] = {scratch + sz, scratch + 4 * sz};
   T* Ub[2] = {scratch + 2 * sz, scratch + 5 * sz};
   T* Dt = scratch + 6 * sz;
-  for (long e = threadIdx.x; e < sz; e += blockDim.x) {
-    Lb[0][e] = Lred[e];
-    Ub[0][e] = Ured[e];
-    Db[0][e] = (e / C) % S2 == e / ((long)S2 * C) ? T(1) : T(0);
+  // the inputs into the chunk-major state, read along the chunks; D = I
+  {
+    const long t0 = (long)wg * 32 + lane, tstride = (long)nwarps * 32;
+    for (long e = t0; e < p1 * SS; e += tstride) {
+      const long b = e / blk, w = (e - b * blk) / C, c = e - b * blk - w * C;
+      const long at = ((b * C + c) * SS) + w;
+      Lb[0][at] = Lred[e];
+      Ub[0][at] = Ured[e];
+      Db[0][at] = w / S2 == w % S2 ? T(1) : T(0);
+    }
   }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, grp = tf::group_of_lane<S2>(lane);
+  grid.sync();
+  const int grp = tf::group_of_lane<S2>(lane);
   const tf::Group g{grp * S2, lane - grp * S2};
-  const int r = g.r, per_pass = (blockDim.x >> 5) * G;
-  const int first = (threadIdx.x >> 5) * G + grp;
+  const int r = g.r;
+  // each group's block for its products (and one for the lanes past them)
+  constexpr int GB = tf::group_block<T, S2>();
+  __shared__ __align__(16) T mmbuf[kWideFactorThreads / 32 * (G + 1) * GB];
+  T* const mb = mmbuf + (warp * (G + 1) + grp) * GB;
+  auto mm = [&](const Row& a, const Row& b) { return tf::mm_shared<T, S2>(a, b, g, mb); };
+  // one pass of the warp's groups over its pairs: fn(q, b, c, store)
+  auto passes = [&](auto&& fn) {
+    for (long base = (long)wg * G; base < p1; base += (long)nwarps * G) {
+      const bool store = grp < G && base + grp < p1;
+      const long q = store ? base + grp : p1 - 1;
+      const long b = q / C;
+      fn(q, b, (int)(q - b * C), store);
+    }
+  };
   int cur = 0, lev = 0;
   for (int d = 1; d < C; d *= 2, ++lev) {
-    for (int c0 = 0; c0 < C; c0 += per_pass) {
-      const bool store = grp < G && c0 + first < C;
-      const int c = store ? c0 + first : C - 1;
-      const Row di = tf::inv(tf::load_row<T, S2>(Db[cur], 0, r, c, C), g);
-      if (store) tf::store_row(Dt, 0, r, c, C, di);
-    }
-    __syncthreads();
+    passes([&](long q, long, int, bool store) {
+      const Row di = tf::inv(ld_row<T, S2>(Db[cur], q, r), g);
+      if (store) st_row<T, S2>(Dt, q, r, di);
+    });
+    grid.sync();
     const int nxt = cur ^ 1;
-    for (int c0 = 0; c0 < C; c0 += per_pass) {
-      const bool store = grp < G && c0 + first < C;
-      const int c = store ? c0 + first : C - 1;
-      const int cm = (c - d + C) % C, cp = (c + d) % C;
+    passes([&](long q, long b, int c, bool store) {
+      const long qb = q - c;
+      const long qm = qb + (c < d ? c - d + C : c - d), qp = qb + (c + d >= C ? c + d - C : c + d);
       // alpha's terms first, then beta's: fewer rows live at once
-      Row alpha = tf::neg(tf::mm(tf::load_row<T, S2>(Lb[cur], 0, r, c, C),
-                                 tf::load_row<T, S2>(Dt, 0, r, cm, C), g));
+      Row alpha = tf::neg(mm(ld_row<T, S2>(Lb[cur], q, r), ld_row<T, S2>(Dt, qm, r)));
       if (!cyclic && c < d) alpha = tf::zero_row<T, S2>();
-      const Row Lnew = tf::mm(alpha, tf::load_row<T, S2>(Lb[cur], 0, r, cm, C), g);
-      const Row Dpart = tf::add(tf::load_row<T, S2>(Db[cur], 0, r, c, C),
-                                tf::mm(alpha, tf::load_row<T, S2>(Ub[cur], 0, r, cm, C), g));
+      const Row Lnew = mm(alpha, ld_row<T, S2>(Lb[cur], qm, r));
+      const Row Dpart = tf::add(ld_row<T, S2>(Db[cur], q, r),
+                                mm(alpha, ld_row<T, S2>(Ub[cur], qm, r)));
       if (store) {
-        tf::store_row(alphas, lev, r, c, C, alpha);
-        tf::store_row(Lb[nxt], 0, r, c, C, Lnew);
+        tf::store_row(alphas + b * ops, lev, r, c, C, alpha);
+        st_row<T, S2>(Lb[nxt], q, r, Lnew);
       }
-      Row beta = tf::neg(tf::mm(tf::load_row<T, S2>(Ub[cur], 0, r, c, C),
-                                tf::load_row<T, S2>(Dt, 0, r, cp, C), g));
+      Row beta = tf::neg(mm(ld_row<T, S2>(Ub[cur], q, r), ld_row<T, S2>(Dt, qp, r)));
       if (!cyclic && c >= C - d) beta = tf::zero_row<T, S2>();
-      const Row Unew = tf::mm(beta, tf::load_row<T, S2>(Ub[cur], 0, r, cp, C), g);
-      const Row D = tf::add(Dpart, tf::mm(beta, tf::load_row<T, S2>(Lb[cur], 0, r, cp, C), g));
+      const Row Unew = mm(beta, ld_row<T, S2>(Ub[cur], qp, r));
+      const Row D = tf::add(Dpart, mm(beta, ld_row<T, S2>(Lb[cur], qp, r)));
       if (store) {
-        tf::store_row(betas, lev, r, c, C, beta);
-        tf::store_row(Ub[nxt], 0, r, c, C, Unew);
-        tf::store_row(Db[nxt], 0, r, c, C, D);
+        tf::store_row(betas + b * ops, lev, r, c, C, beta);
+        st_row<T, S2>(Ub[nxt], q, r, Unew);
+        st_row<T, S2>(Db[nxt], q, r, D);
       }
-    }
-    __syncthreads();
+    });
+    grid.sync();
     cur = nxt;
   }
-  for (int c0 = 0; c0 < C; c0 += per_pass) {
-    const bool store = grp < G && c0 + first < C;
-    const int c = store ? c0 + first : C - 1;
-    Row D = tf::load_row<T, S2>(Db[cur], 0, r, c, C);
+  passes([&](long q, long b, int c, bool store) {
+    Row D = ld_row<T, S2>(Db[cur], q, r);
     if (cyclic)
-      D = tf::add(D, tf::add(tf::load_row<T, S2>(Lb[cur], 0, r, c, C),
-                             tf::load_row<T, S2>(Ub[cur], 0, r, c, C)));
+      D = tf::add(D, tf::add(ld_row<T, S2>(Lb[cur], q, r), ld_row<T, S2>(Ub[cur], q, r)));
     const Row di = tf::inv(D, g);
-    if (store) tf::store_row(Dinv, 0, r, c, C, di);
-  }
+    if (store) tf::store_row(Dinv + b * blk, 0, r, c, C, di);
+  });
 }
+#endif
 
 __device__ __forceinline__ int levels(int C) {
   int n = 0;
@@ -199,14 +297,8 @@ __global__ void __launch_bounds__(kThreads)
                       T* betas, T* Dinv, T* scratch, int C, int cyclic) {
   const long b = kMembers ? blockIdx.x : 0, blk = (long)S2 * S2 * C,
              ops = kMembers ? levels(C) * blk : 0;
-  if constexpr (S2 > 8)
-    pcr_factor_block_wide<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
-                                 betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C,
-                                 cyclic);
-  else
-    tf::pcr_factor_block<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
-                                betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C,
-                                cyclic);
+  tf::pcr_factor_block<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
+                              betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C, cyclic);
 }
 
 template <typename T, int S2, bool kMembers>
@@ -437,6 +529,65 @@ __global__ void __launch_bounds__(kSolveThreads)
   cluster_wait();
 }
 
+#ifdef TF_WIDE
+// The wide factor over a cooperative grid of `ctas` CTAs (at most what the
+// card holds at once, factor_wide_blocks)
+template <typename T, int S2>
+int launch_factor_wide(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch,
+                       int C, int cyclic, int B, int ctas, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(kWideFactorThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int nlev = 0;
+  for (int d = 1; d < C; d *= 2) ++nlev;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, pcr_factor_wide_kernel<T, S2>, Lred, Ured, alphas,
+                                       betas, Dinv, scratch, C, B, cyclic, nlev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int factor_wide(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch, int C,
+                int S2, int cyclic, int B, int ctas, cudaStream_t stream) {
+  if (B < 1 || C < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (S2) {
+#define TF_CASE(S2)                                                                        \
+  case S2:                                                                                 \
+    return launch_factor_wide<T, S2>(Lred, Ured, alphas, betas, Dinv, scratch, C, cyclic,  \
+                                     B, ctas, stream);
+    TF_CASES
+#undef TF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// CTAs of the cooperative wide factor one SM holds at once (0: none), or
+// minus a CUDA error
+template <typename T>
+int factor_wide_blocks(int S2) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (S2) {
+#define TF_CASE(S2)                                                                             \
+  case S2:                                                                                      \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                        \
+        &n, pcr_factor_wide_kernel<T, S2>, kWideFactorThreads, 0);                       \
+    break;
+    TF_CASES
+#undef TF_CASE
+    default:
+      break;
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+#else
 template <typename T>
 int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch, int C,
            int S2, int cyclic, int B, cudaStream_t stream) {
@@ -460,6 +611,7 @@ int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratc
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif
 
 // b (B, R, S2, C) -> out; or, b null, the Woodbury set-up (R = S2): out = Z,
 // and cap_inv
@@ -619,7 +771,20 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
 
 }  // namespace
 
-#define TF_ENTRIES(SUFFIX, T)                                                              \
+#ifdef TF_WIDE
+#define TF_FACTOR_ENTRIES(SUFFIX, T)                                                        \
+  extern "C" int tf_pcr_factor_wide_##SUFFIX(const void* Lred, const void* Ured,            \
+                                             void* alphas, void* betas, void* Dinv,         \
+                                             void* scratch, int C, int S2, int cyclic,      \
+                                             int B, int ctas, void* stream) {               \
+    return factor_wide<T>(static_cast<const T*>(Lred), static_cast<const T*>(Ured),         \
+                          static_cast<T*>(alphas), static_cast<T*>(betas),                  \
+                          static_cast<T*>(Dinv), static_cast<T*>(scratch), C, S2, cyclic,   \
+                          B, ctas, static_cast<cudaStream_t>(stream));                      \
+  }                                                                                         \
+  extern "C" int tf_pcr_factor_wide_blocks_##SUFFIX(int S2) { return factor_wide_blocks<T>(S2); }
+#else
+#define TF_FACTOR_ENTRIES(SUFFIX, T)                                                      \
   extern "C" int tf_pcr_factor_##SUFFIX(const void* Lred, const void* Ured, void* alphas, \
                                         void* betas, void* Dinv, void* scratch, int C,    \
                                         int S2, int cyclic, int B, void* stream) {        \
@@ -627,7 +792,11 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
                      static_cast<T*>(alphas), static_cast<T*>(betas),                     \
                      static_cast<T*>(Dinv), static_cast<T*>(scratch), C, S2, cyclic, B,   \
                      static_cast<cudaStream_t>(stream));                                  \
-  }                                                                                       \
+  }
+#endif
+
+#define TF_ENTRIES(SUFFIX, T)                                                              \
+  TF_FACTOR_ENTRIES(SUFFIX, T)                                                            \
   extern "C" int tf_pcr_solve_##SUFFIX(const void* alphas, const void* betas,             \
                                        const void* Dinv, const void* b, const void* Lred, \
                                        const void* Ured, void* out, void* cap_inv,        \
@@ -657,5 +826,10 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
     return max_clusters<T>(S2, wood, K, Cc, Ct, D, threads);                             \
   }
 
+// a library built by dtype (ops/_build.py: Library) keeps one type's entries
+#ifndef TF_ONLY_F64
 TF_ENTRIES(f32, float)
+#endif
+#ifndef TF_ONLY_F32
 TF_ENTRIES(f64, double)
+#endif

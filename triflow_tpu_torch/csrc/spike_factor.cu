@@ -77,8 +77,13 @@
 // here).  The blocks no longer fit one thread's registers, so a group of S
 // lanes walks each chunk, lane r holding row r of every block (wide.cuh),
 // with the same sweeps in the same order; a warp walks 32 / S chunks side
-// by side.  Every product and inverse exchanges rows by warp shuffles, so
-// the sweep is bound by their latency along its Mc sequential rows.
+// by side.  The walk is staged as the narrow one is
+// (spike_factor_wide_kernel: one-warp blocks, the band tiles and the
+// backward rows in a cp.async ring, compile-time offsets per (nvar, halo)),
+// so no global load waits on the recurrence.  What bounds it is then the
+// warp's own instruction stream along its Mc sequential rows: every
+// product and inverse exchanges rows by warp shuffles (some 440 a lane per
+// row at S = 6), and the chain of a row's inverse is its latency.
 #include "cp_async.cuh"
 #include "factor.cuh"
 #include "wide.cuh"
@@ -359,97 +364,261 @@ __global__ void __launch_bounds__(kFactorThreads)
 }
 
 // Shared memory of a factor plan, in bytes (ops/thomas.py:factor_smem
-// computes the same).
+// computes the same); the lane-group walk (S > 4) keeps Tr and U_{j-1} in
+// registers.
 long factor_smem(int S, int P, int g, int item, int Mc, int CB, int R, int persist) {
   const long band = (long)P * R * g, rows = 3L * R * S * S;
   const long stage = persist ? band : (band > rows ? band : rows);
   return (long)item * CB *
-         (kFactorStages * stage + (persist ? 3L * Mc * S * S : 0) + 2L * S * S);
+         (kFactorStages * stage + (persist ? 3L * Mc * S * S : 0) + (S > 4 ? 0 : 2L * S * S));
 }
 
-// row r of the S x S block of alpha*I + beta*J at supernode I and block
-// offset dblock (factor.cuh's band_block, one row)
-template <typename T, int S>
-__device__ __forceinline__ tf::Row<T, S> band_row(const T* bands, long I, int dblock, int r,
-                                                  T alpha, T beta, int N, int nvar, int g,
-                                                  int h) {
+#ifdef TF_WIDE
+// Row r of the S x S block of alpha*I + beta*J at block offset kD (-1, 0, 1)
+// from a node-major band tile (st[(node * P + plane) * CB + l]), for a lane
+// of a group (wide.cuh) that holds row r = a * NV + m, variable m at local
+// node a.  Entry (r, q), q = bq * NV + n, is plane ((H + delta) NV + m) NV
+// + n at node a, delta = bq - a + kD g, and zero outside the band: p points
+// at plane (H - a) NV^2 + m NV of node a, so each entry sits at a
+// compile-time offset from p and only the band test reads a.  The diagonal
+// adds alpha (the reference's band block, the same products and sums).
+template <typename T, int NV, int H, int kD>
+__device__ __forceinline__ tf::Row<T, NV * (H > 1 ? H : 1)> tile_row(const T* p, int a, int r,
+                                                                    T alpha, T beta) {
+  constexpr int G = H > 1 ? H : 1, S = NV * G, CB = 32 / S;
   tf::Row<T, S> out;
-  const int a = r / nvar, m = r % nvar;
 #pragma unroll
   for (int q = 0; q < S; ++q) {
-    const int b = q / nvar, n = q % nvar;
-    const int delta = (b - a) + dblock * g;
+    const int bq = q / NV, n = q % NV;
+    const int delta = bq - a + kD * G;
     T val = T(0);
-    if (delta >= -h && delta <= h)
-      val = beta * bands[((long)((h + delta) * nvar + m) * nvar + n) * N + I * g + a];
-    if (dblock == 0 && r == q) val += alpha;
+    if (delta >= -H && delta <= H) val = beta * p[((bq + kD * G) * NV * NV + n) * CB];
+    if (kD == 0 && r == q) val += alpha;
     out.v[q] = val;
   }
   return out;
 }
 
-// factor.cuh's spike_factor_chunk for a group of S lanes (wide.cuh): lane
-// g.r walks row g.r of chunk c's blocks; `store` is false for a lane of no
-// chunk, which computes on a valid chunk and writes nothing
+// Row r of an S x S block of a chunk-minor row tile p[(r S + k) CB]
 template <typename T, int S>
-__device__ __forceinline__ void spike_factor_chunk_wide(
-    const T* bands, T* fac, T* Dhinv, T* DU, T* Wsp, T* Vsp, T* Lred, T* Ured, int N, int nvar,
-    int g, int h, int Mc, int C, int wrap, T alpha, T beta, int c, const tf::Group& grp,
-    bool store) {
-  using Row = tf::Row<T, S>;
-  const int r = grp.r;
-  Row dh = tf::zero_row<T, S>(), up = dh, wt = dh, Tl = dh, Tr = dh;
-  for (int j = 0; j < Mc; ++j) {
-    const long I = (long)c * Mc + j;
-    Row L = band_row<T, S>(bands, I, -1, r, alpha, beta, N, nvar, g, h);
-    Row U = band_row<T, S>(bands, I, 1, r, alpha, beta, N, nvar, g, h);
-    if (j == 0) {
-      Tl = (!wrap && c == 0) ? tf::zero_row<T, S>() : L;
-      L = tf::zero_row<T, S>();
-    }
-    if (j == Mc - 1) {
-      Tr = (!wrap && c == C - 1) ? tf::zero_row<T, S>() : U;
-      U = tf::zero_row<T, S>();
-    }
-    const Row f = tf::mm(L, dh, grp);
-    const Row D = band_row<T, S>(bands, I, 0, r, alpha, beta, N, nvar, g, h);
-    dh = tf::inv(tf::sub(D, tf::mm(f, up, grp)), grp);
-    wt = j == 0 ? Tl : tf::neg(tf::mm(f, wt, grp));
-    if (store) {
-      tf::store_row(fac, j, r, c, C, f);
-      tf::store_row(Dhinv, j, r, c, C, dh);
-      tf::store_row(Wsp, j, r, c, C, wt);  // wt_j, overwritten by W_j below
-      tf::store_row(DU, j, r, c, C, U);    // U_j, overwritten by Dh_j U_j below
-    }
-    up = U;
+__device__ __forceinline__ tf::Row<T, S> tile_rrow(const T* p) {
+  constexpr int CB = 32 / S;
+  tf::Row<T, S> a;
+#pragma unroll
+  for (int k = 0; k < S; ++k) a.v[k] = p[k * CB];
+  return a;
+}
+
+template <typename T, int S>
+__device__ __forceinline__ void store_tile_rrow(T* p, const tf::Row<T, S>& a) {
+  constexpr int CB = 32 / S;
+#pragma unroll
+  for (int k = 0; k < S; ++k) p[k * CB] = a.v[k];
+}
+
+// Row r of an S x S block into a chunk's row of the chunk-minor rows (Mc,
+// S, S, C): p points at entry (r, 0) of the row, entries C apart
+template <typename T, int S>
+__device__ __forceinline__ void store_rrow(T* p, long C, const tf::Row<T, S>& a) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) p[k * C] = a.v[k];
+}
+
+// The staged walk at S = 5..8: spike_factor_staged_kernel's pipeline with
+// a group of S lanes per chunk.  A block is one warp and serves CB = 32 / S
+// neighbouring chunks of the B * C (member, chunk) pairs, one per group
+// (the lanes past CB S, and the groups of a tail block past its chunks,
+// walk chunk 0 of the block and store nothing: every lane takes part in
+// the shuffles).  Its lanes copy tiles of R supernode rows of the W NV^2
+// band planes with cp.async into a ring of kFactorStages stages, node-major
+// (st[(node * P + plane) * CB + l]), so that a lane's entries sit at
+// compile-time offsets (tile_row); the forward results Dh, U, wt are kept
+// in shared memory (persist: 3 Mc S^2 CB values) or stored to the rows and
+// streamed back through the ring in reverse tile order.  Lane r's Tr and
+// U_{j-1} stay in its registers.  The products and inverses are wide.cuh's
+// and the sweeps run in factor.cuh's order (spike_factor_chunk).
+template <typename T, int NV, int H>
+__global__ void __launch_bounds__(kFactorThreads)
+    spike_factor_wide_kernel(const T* __restrict__ bands, T* __restrict__ fac,
+                             T* __restrict__ Dhinv, T* __restrict__ DU, T* __restrict__ Wsp,
+                             T* __restrict__ Vsp, T* __restrict__ Lred, T* __restrict__ Ured,
+                             const T* __restrict__ beta_b, int N, int Mc, int C, int wrap, int B,
+                             T alpha, T beta, int R, int persist) {
+  using Row = tf::Row<T, NV * (H > 1 ? H : 1)>;
+  constexpr int G = H > 1 ? H : 1, S = NV * G, SS = S * S, P = (2 * H + 1) * NV * NV;
+  constexpr int CB = 32 / S, GB = tf::group_block<T, S>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long seg0[CB], row0[CB];
+  // each group's block for its products (and one for the lanes past them)
+  __shared__ __align__(16) T mmbuf[(CB + 1) * GB];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const long q0 = (long)blockIdx.x * CB;
+  const int nch = (int)min((long)CB, (long)B * C - q0);
+  const int lane = threadIdx.x, grp = tf::group_of_lane<S>(lane);
+  const tf::Group g{grp * S, lane - grp * S};
+  T* const mb = mmbuf + grp * GB;
+  auto mm = [&](const Row& x, const Row& y) { return tf::mm_shared<T, S>(x, y, g, mb); };
+  const int r = g.r, a = r / NV, m = r % NV;
+  const bool store = grp < nch;
+  const int l = store ? grp : 0;  // the chunk whose tiles this lane walks
+  const long band = (long)P * N, rows = (long)Mc * SS * C, red = 4L * SS * C;
+  if (lane < nch) {
+    const long b = (q0 + lane) / C, c = (q0 + lane) % C;
+    seg0[lane] = b * band + c * Mc * G;
+    row0[lane] = b * rows + c;
   }
-  // each lane reads back only the rows it wrote itself
+  const long mem = (q0 + l) / C;
+  const int c = (int)((q0 + l) % C);
+  const T bt = beta_b ? beta_b[mem] : beta;
+  __syncthreads();
+  const long mrow = row0[l] + (long)r * S * C, mred = mem * red;
+
+  const int Rg = R * G;
+  const int band_tile = Rg * P * CB, row_tile = R * SS * CB;
+  const int stage = persist ? band_tile : max(band_tile, 3 * row_tile);
+  T* kept = smem + kFactorStages * stage;  // with persist: Dh, U, wt of every row
+  const long kept_sz = (long)Mc * SS * CB, SSC = (long)SS * C;
+  const int tiles = (Mc + R - 1) / R;
+  // band copies: node vk of the tile, of every chunk the planes from vp by
+  // vstep; row copies: chunk bl, entries from be by 32 / CB
+  const int vk = lane % Rg, vp = lane / Rg, vstep = kFactorThreads / Rg;
+  const int bl = lane % CB, be = lane / CB, estep = kFactorThreads / CB;
+
+  // each copying lane's node of every chunk's segment
+  const T* lane_seg[CB];
+#pragma unroll
+  for (int ll = 0; ll < CB; ++ll) lane_seg[ll] = bands + seg0[ll < nch ? ll : 0] + vk;
+  auto issue_fwd = [&](int t) {
+    if (t < tiles) {
+      T* st = smem + (t % kFactorStages) * stage + vk * P * CB;
+      const int j0 = t * R, nr = min(R, Mc - j0);
+      if (vp < vstep && vk < nr * G) {
+#pragma unroll
+        for (int ll = 0; ll < CB; ++ll) {
+          if (ll < nch) {
+            const T* src = lane_seg[ll] + (long)j0 * G;
+#pragma unroll 5
+            for (int pl = vp; pl < P; pl += vstep)
+              tf::cp_async(st + pl * CB + ll, src + (long)pl * N);
+          }
+        }
+      }
+    }
+    tf::cp_async_commit();
+  };
+  for (int t = 0; t < kFactorStages; ++t) issue_fwd(t);
+
+  const bool keep_l = wrap || c != 0, keep_u = wrap || c != C - 1;
+  Row dh = tf::zero_row<T, S>(), up = dh, wt = dh, Tr = dh;
+  // lane r's place in a band tile row (tile_row) and in a row tile
+  const int lane_band = (a * P + (H - a) * NV * NV + m * NV) * CB + l;
+  const int lane_rows = r * S * CB + l;
+  for (int t = 0; t < tiles; ++t) {
+    tf::cp_async_wait<kFactorStages - 1>();
+    __syncthreads();
+    const T* st = smem + (t % kFactorStages) * stage;
+    const int j0 = t * R, nr = min(R, Mc - j0);
+    for (int jj = 0; jj < nr; ++jj) {
+      const int j = j0 + jj;
+      const T* rowp = st + jj * G * P * CB + lane_band;
+      Row L = tile_row<T, NV, H, -1>(rowp, a, r, alpha, bt);
+      Row U = tile_row<T, NV, H, 1>(rowp, a, r, alpha, bt);
+      Row Tl = L;
+      if (j == 0) {
+        // Tl = L_0, the coupling to the previous chunk, which leaves the
+        // chunk's own system
+        if (!keep_l) Tl = tf::zero_row<T, S>();
+        L = tf::zero_row<T, S>();
+      }
+      if (j == Mc - 1) {
+        // Tr = U_{Mc-1}: the coupling to the next chunk
+        Tr = keep_u ? U : tf::zero_row<T, S>();
+        U = tf::zero_row<T, S>();
+      }
+      const Row f = mm(L, dh);
+      const Row D = tile_row<T, NV, H, 0>(rowp, a, r, alpha, bt);
+      dh = tf::inv(tf::sub(D, mm(f, up)), g);
+      wt = j == 0 ? Tl : tf::neg(mm(f, wt));
+      if (store) {
+        const long at = mrow + j * SSC;
+        store_rrow<T, S>(fac + at, C, f);
+        store_rrow<T, S>(Dhinv + at, C, dh);
+        if (persist) {
+          T* kj = kept + (long)j * SS * CB + lane_rows;
+          store_tile_rrow<T, S>(kj, dh);
+          store_tile_rrow<T, S>(kj + kept_sz, U);
+          store_tile_rrow<T, S>(kj + 2 * kept_sz, wt);
+        } else {
+          store_rrow<T, S>(Wsp + at, C, wt);  // wt_j, overwritten by W_j below
+          store_rrow<T, S>(DU + at, C, U);    // U_j, overwritten by Dh_j U_j below
+        }
+      }
+      up = U;
+    }
+    __syncthreads();
+    issue_fwd(t + kFactorStages);
+  }
+  tf::cp_async_wait<0>();
+  __threadfence_block();
+  __syncthreads();
+
+  // backward: tile tiles-1-k in stage k % kFactorStages (Dh, U, wt row
+  // tiles), unless the forward results are kept
+  auto issue_bwd = [&](int k) {
+    const int t = tiles - 1 - k;
+    if (!persist && t >= 0 && be < estep && bl < nch) {
+      T* st = smem + (k % kFactorStages) * stage;
+      const int j0 = t * R, nr = min(R, Mc - j0);
+      const T* src[3] = {Dhinv, DU, Wsp};
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        const T* from = src[w] + row0[bl] + j0 * SSC;
+        for (int e = be; e < nr * SS; e += estep)
+          tf::cp_async(st + w * row_tile + e * CB + bl, from + (long)e * C);
+      }
+    }
+    tf::cp_async_commit();
+  };
+  for (int k = 0; k < kFactorStages; ++k) issue_bwd(k);
   Row Wn = tf::zero_row<T, S>(), Vn = Wn, Wl = Wn, Vl = Wn;
-  for (int j = Mc - 1; j >= 0; --j) {
-    const Row dhj = tf::load_row<T, S>(Dhinv, j, r, c, C);
-    const Row du = tf::mm(dhj, tf::load_row<T, S>(DU, j, r, c, C), grp);
-    const Row W = tf::sub(tf::mm(dhj, tf::load_row<T, S>(Wsp, j, r, c, C), grp),
-                          tf::mm(du, Wn, grp));
-    Row V;
-    if (j == Mc - 1) {
-      V = tf::mm(dhj, Tr, grp);
-      Wl = W;
-      Vl = V;
-    } else {
-      V = tf::neg(tf::mm(du, Vn, grp));
+  for (int k = 0; k < tiles; ++k) {
+    tf::cp_async_wait<kFactorStages - 1>();
+    __syncthreads();
+    const T* st = smem + (k % kFactorStages) * stage;
+    const int j0 = (tiles - 1 - k) * R, nr = min(R, Mc - j0);
+    for (int jj = nr - 1; jj >= 0; --jj) {
+      const int j = j0 + jj;
+      const T* at = persist ? kept + (long)j * SS * CB + lane_rows
+                            : st + jj * SS * CB + lane_rows;
+      const long w = persist ? kept_sz : row_tile;
+      const Row dhj = tile_rrow<T, S>(at);
+      const Row du = mm(dhj, tile_rrow<T, S>(at + w));
+      const Row W = tf::sub(mm(dhj, tile_rrow<T, S>(at + 2 * w)), mm(du, Wn));
+      Row V;
+      if (j == Mc - 1) {
+        V = mm(dhj, Tr);
+        Wl = W;
+        Vl = V;
+      } else {
+        V = tf::neg(mm(du, Vn));
+      }
+      if (store) {
+        const long to = mrow + j * SSC;
+        store_rrow<T, S>(DU + to, C, du);
+        store_rrow<T, S>(Wsp + to, C, W);
+        store_rrow<T, S>(Vsp + to, C, V);
+      }
+      Wn = W;
+      Vn = V;
     }
-    if (store) {
-      tf::store_row(DU, j, r, c, C, du);
-      tf::store_row(Wsp, j, r, c, C, W);
-      tf::store_row(Vsp, j, r, c, C, V);
-    }
-    Wn = W;
-    Vn = V;
+    __syncthreads();
+    issue_bwd(k + kFactorStages);
   }
+  tf::cp_async_wait<0>();
   if (!store) return;
   // rows r and S + r of the reduced couplings (factor.cuh's layout)
-  const bool keep_l = wrap || c != 0;
-  const bool keep_u = wrap || c != C - 1;
+  T* Lm = Lred + mred;
+  T* Um = Ured + mred;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const Row& Wr = half ? Wl : Wn;
@@ -459,66 +628,76 @@ __device__ __forceinline__ void spike_factor_chunk_wide(
     for (int q = 0; q < 2 * S; ++q) {
       const T lv = q >= S ? Wr.v[q - S] : T(0);
       const T uv = q < S ? Vr.v[q] : T(0);
-      Lred[(row * 2 * S + q) * C + c] = keep_l ? lv : T(0);
-      Ured[(row * 2 * S + q) * C + c] = keep_u ? uv : T(0);
+      Lm[(row * 2 * S + q) * C + c] = keep_l ? lv : T(0);
+      Um[(row * 2 * S + q) * C + c] = keep_u ? uv : T(0);
     }
   }
 }
 
-// one group of S lanes per (member, chunk), 32 / S groups per warp
-template <typename T, int S, bool kMembers>
-__global__ void spike_factor_wide_kernel(const T* __restrict__ bands, T* fac, T* Dhinv, T* DU,
-                                         T* Wsp, T* Vsp, T* Lred, T* Ured,
-                                         const T* __restrict__ beta_b, int N, int nvar, int g,
-                                         int h, int Mc, int C, int wrap, int B, T alpha,
-                                         T beta) {
-  constexpr int G = 32 / S;
-  const int lane = threadIdx.x & 31, grp = tf::group_of_lane<S>(lane);
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long q = warp * G + grp;
-  if (warp * G >= (long)B * C) return;  // the whole warp has no chunk
-  const bool store = grp < G && q < (long)B * C;
-  const long qc = store ? q : (long)B * C - 1;
-  const int b = kMembers ? (int)(qc / C) : 0, c = kMembers ? (int)(qc % C) : (int)qc;
-  const long band = (long)(2 * h + 1) * nvar * nvar * N;
-  const long rows = (long)Mc * S * S * C;
-  const long red = 4L * S * S * C;
-  spike_factor_chunk_wide<T, S>(bands + b * band, fac + b * rows, Dhinv + b * rows,
-                                DU + b * rows, Wsp + b * rows, Vsp + b * rows,
-                                Lred + b * red, Ured + b * red, N, nvar, g, h, Mc, C, wrap,
-                                alpha, beta_b ? beta_b[b] : beta, c,
-                                tf::Group{grp * S, lane - grp * S}, store);
+// R supernode rows per stage (R g nodes at most kFactorThreads), persist:
+// the forward results kept in shared memory, CB = 32 / S chunks per block
+// (ops/thomas.py:factor_plan); one instantiation per (nvar, halo) of a
+// block size s = 5..8
+template <typename T, int NV, int H>
+int launch_wide(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured,
+                const T* beta_b, int N, int Mc, int C, int wrap, int B, T alpha, T beta, int R,
+                int persist, cudaStream_t stream) {
+  constexpr int G = H > 1 ? H : 1, S = NV * G, CB = 32 / S;
+  const long bytes = factor_smem(S, (2 * H + 1) * NV * NV, G, sizeof(T), Mc, CB, R, persist);
+  // above 48 KB with the kernel's static shared memory: opt in, once per
+  // device and size (a driver call)
+  static long set[16] = {};
+  if (bytes > 40 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev >= 16) err = cudaErrorInvalidDevice;
+    if (err == cudaSuccess && bytes > set[dev]) {
+      err = cudaFuncSetAttribute(spike_factor_wide_kernel<T, NV, H>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err == cudaSuccess) set[dev] = bytes;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long blocks = ((long)B * C + CB - 1) / CB;
+  spike_factor_wide_kernel<T, NV, H><<<blocks, kFactorThreads, bytes, stream>>>(
+      bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, Mc, C, wrap, B, alpha, beta, R,
+      persist);
+  return static_cast<int>(cudaGetLastError());
 }
 
-#ifdef TF_WIDE
 template <typename T>
 int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured,
            const T* beta_b, int N, int nvar, int g, int h, int Mc, int C, int wrap, int B,
-           double alpha, double beta, int, int, int, cudaStream_t stream) {
-  const int threads = 128;
-  const T a = T(alpha), bt = T(beta);
-  switch (nvar * g) {
-#define TF_LAUNCH(S, MEM)                                                               \
-  spike_factor_wide_kernel<T, S, MEM><<<((long)B * C + 32 / S * 4 - 1) / (32 / S * 4),  \
-                                        threads, 0, stream>>>(                          \
-      bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, nvar, g, h, Mc, C, wrap, B, a, bt)
-#define TF_CASE(S)                                                                      \
-  case S:                                                                               \
-    if (B > 1)                                                                          \
-      TF_LAUNCH(S, true);                                                               \
-    else                                                                                \
-      TF_LAUNCH(S, false);                                                              \
-    break;
-    TF_CASE(5)
-    TF_CASE(6)
-    TF_CASE(7)
-    TF_CASE(8)
+           double alpha, double beta, int CB, int R, int persist, cudaStream_t stream) {
+  const int S = nvar * g;
+  if (S < 5 || S > 8 || CB != 32 / S || R < 1 || R * g > kFactorThreads || Mc < 1 || C < 1 ||
+      B < 1 || g != (h > 1 ? h : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (nvar * 16 + h) {
+#define TF_CASE(NV, H)                                                                    \
+  case NV * 16 + H:                                                                       \
+    return launch_wide<T, NV, H>(bands, fac, Dhinv, DU, W, V, Lred, Ured, beta_b, N, Mc,  \
+                                 C, wrap, B, T(alpha), T(beta), R, persist, stream);
+    TF_CASE(5, 0)
+    TF_CASE(5, 1)
+    TF_CASE(1, 5)
+    TF_CASE(6, 0)
+    TF_CASE(6, 1)
+    TF_CASE(3, 2)
+    TF_CASE(2, 3)
+    TF_CASE(1, 6)
+    TF_CASE(7, 0)
+    TF_CASE(7, 1)
+    TF_CASE(1, 7)
+    TF_CASE(8, 0)
+    TF_CASE(8, 1)
+    TF_CASE(4, 2)
+    TF_CASE(2, 4)
+    TF_CASE(1, 8)
 #undef TF_CASE
-#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 #else
 template <typename T, int NV, int H>
@@ -599,5 +778,10 @@ int launch(const T* bands, T* fac, T* Dhinv, T* DU, T* W, T* V, T* Lred, T* Ured
                      alpha, beta, CB, R, persist, static_cast<cudaStream_t>(stream));   \
   }
 
+// a library built by dtype (ops/_build.py: Library) keeps one type's entries
+#ifndef TF_ONLY_F64
 TF_ENTRY(tf_spike_factor_f32, float)
+#endif
+#ifndef TF_ONLY_F32
 TF_ENTRY(tf_spike_factor_f64, double)
+#endif

@@ -14,6 +14,7 @@ memory of every kernel) is kept beside the library as ``<name>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,39 +80,69 @@ def load(name: str, source: str) -> ctypes.CDLL:
     return lib
 
 
+#: the C entries' element-type suffixes, one library part each where a
+#: library is built by dtype
+SUFFIXES = ("f32", "f64")
+
+
 class Library:
     """A CUDA library built at the first call of one of its entries;
-    ``source()`` returns its text."""
+    ``source()`` returns its text.  With ``by_dtype`` it is built as one
+    library per element type (``<name>_f32``, ``<name>_f64``: the source
+    with ``TF_ONLY_F32`` or ``TF_ONLY_F64`` defined, which keeps that
+    type's entries only), two nvcc runs that ``builds`` lets a caller start
+    together; an entry loads the part of its name's suffix."""
 
-    def __init__(self, name: str, source):
+    def __init__(self, name: str, source, by_dtype: bool = False):
         self.name = name
         self.source = source
+        self.by_dtype = by_dtype
         self.lib = None
+        self._parts = {}
         self._fns = {}
 
-    def load(self) -> ctypes.CDLL:
-        if self.lib is None:
-            self.lib = load(self.name, self.source())
+    def load(self, sfx: str = None) -> ctypes.CDLL:
+        """The library, or where it is built by dtype the part of entry
+        suffix ``sfx`` (every part, without)."""
+        if not self.by_dtype:
+            if self.lib is None:
+                self.lib = load(self.name, self.source())
+            return self.lib
+        for part in (sfx,) if sfx else SUFFIXES:
+            if part not in self._parts:
+                self._parts[part] = load(f"{self.name}_{part}",
+                                         f"#define TF_ONLY_{part.upper()} 1\n"
+                                         + self.source())
+            self.lib = self._parts[part]
         return self.lib
+
+    def builds(self):
+        """One callable per nvcc run of the library, to start together."""
+        if not self.by_dtype:
+            return [self.load]
+        return [functools.partial(self.load, sfx) for sfx in SUFFIXES]
 
     def fn(self, name: str, n_ptr: int, n_int: int, n_double: int = 0):
         if name not in self._fns:
-            self._fns[name] = bind(self.load(), name, n_ptr, n_int, n_double)
+            sfx = name.rsplit("_", 1)[-1] if self.by_dtype else None
+            self._fns[name] = bind(self.load(sfx), name, n_ptr, n_int, n_double)
         return self._fns[name]
 
     def check(self, rc: int, what: str):
         check(self.lib, rc, what)
 
 
-def csrc_library(filename: str, define: str = None) -> Library:
+def csrc_library(filename: str, define: str = None,
+                 by_dtype: bool = False) -> Library:
     """The library of one source file in ``csrc/``; with ``define``, a
     library of its own (``<stem>_<define in lower case>``) built from the
-    same file with that macro defined to 1."""
+    same file with that macro defined to 1; ``by_dtype``: see ``Library``."""
     if define is None:
         return Library(Path(filename).stem,
-                       lambda: (CSRC / filename).read_text())
+                       lambda: (CSRC / filename).read_text(), by_dtype)
     return Library(f"{Path(filename).stem}_{define.lower().removeprefix('tf_')}",
-                   lambda: f"#define {define} 1\n" + (CSRC / filename).read_text())
+                   lambda: f"#define {define} 1\n" + (CSRC / filename).read_text(),
+                   by_dtype)
 
 
 def bind(lib: ctypes.CDLL, fname: str, n_ptr: int, n_int: int,

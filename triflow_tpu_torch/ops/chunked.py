@@ -62,35 +62,50 @@ SLAB_US = 18.673
 
 #: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide
 #: libraries), in microseconds of one fixed RODASPR step, fitted to
-#: chip_smoke.py's chunk-count sweep of the s = 6 falling film at N = 10^6
-#: (float64, non-negative least squares; PERF.md): K2's and K3's sweeps walk
-#: the Mc rows of a chunk, and every level of K4's factor walks the chunks in
-#: passes of
-#: ``wide_pass_chunks(s)`` lane groups, its cost bound by their shuffles.
-#: Both grow as the per-lane work of the lane groups, s^2: the other wide
-#: block sizes scale the s = 6 fit (not measured)
-WIDE_ROW_US = 15.52
-WIDE_PASS_US = 97.68
+#: chip_smoke.py's chunk-count sweeps of the s = 6 falling film at N = 10^6
+#: and 2^20 (non-negative least squares of both dtypes, relative weights,
+#: one offset per grid and dtype; PERF.md): K2's and K3's sweeps walk the Mc
+#: rows of a chunk (WIDE_ROW_US); K4's factor spreads each level's two
+#: phases over the card, ``pcr.factor_plan_wide``'s passes of lane groups
+#: per phase (WIDE_LEVEL_US per level and pass); and on a Woodbury plan its
+#: one-block set-up walks each level in slabs of pcr.BLOCK_THREADS chunks
+#: (WIDE_WOOD_US, ``woodbury_cost_us``).  All grow as the per-lane work of
+#: the lane groups, s^2: the other wide block sizes scale the s = 6 fit
+#: (not measured)
+WIDE_ROW_US = 5.108
+WIDE_LEVEL_US = 72.935
+WIDE_WOOD_US = 111.876
 WIDE_FIT_S = 6
 
 
-def wide_pass_chunks(s: int) -> int:
-    """Chunks in one pass of K4's wide factor: 32 // (2s) groups of 2s lanes
-    in each warp of its one block."""
-    return pcr.BLOCK_THREADS // 32 * (32 // (2 * s))
+def wide_features(M: int, C: int, s: int):
+    """(rows walked, levels times passes of K4's wide factor, levels times
+    slabs of the Woodbury set-up) of a plan of C chunks of ceil(M / C)
+    rows at a wide block size s, unscaled."""
+    levels = pcr.n_levels(C)
+    return (-(-M // C), levels * pcr.factor_plan_wide(C, 2 * s).passes,
+            levels * -(-C // pcr.BLOCK_THREADS))
 
 
 def plan_cost_us(M: int, C: int, s: int = 1) -> float:
     """Modelled time of the parts of one fixed RODASPR step that the chunk
-    count changes, with C chunks of ceil(M / C) rows of block size s."""
+    count changes, with C chunks of ceil(M / C) rows of block size s
+    (without a wide Woodbury plan's set-up: ``woodbury_cost_us``)."""
     levels = pcr.n_levels(C)
     rows = -(-M // C)
     if s <= thomas.NARROW_S:
         slabs = -(-C // pcr.BLOCK_THREADS)
         return ROW_US * rows + levels * (LEVEL_US + SLAB_US * slabs)
-    passes = -(-C // wide_pass_chunks(s))
-    return (s / WIDE_FIT_S) ** 2 * (WIDE_ROW_US * rows
-                                    + WIDE_PASS_US * levels * passes)
+    rows, passes, _ = wide_features(M, C, s)
+    return (s / WIDE_FIT_S) ** 2 * (WIDE_ROW_US * rows + WIDE_LEVEL_US * passes)
+
+
+def woodbury_cost_us(C: int, s: int) -> float:
+    """Modelled time of K4's one-block Woodbury set-up in one RODASPR step
+    at a wide block size s (at s <= 4 ``plan_cost_us``'s slabs count it)."""
+    if s <= thomas.NARROW_S:
+        return 0.0
+    return (s / WIDE_FIT_S) ** 2 * WIDE_WOOD_US * wide_features(1, C, s)[2]
 
 
 #: modelled cost of padding, in microseconds of one fixed RODASPR step (the
@@ -242,8 +257,9 @@ def padded_counts(N: int, halo: int, max_c: int = pcr.MAX_C):
 def make_plan(N: int, nvar: int, halo: int, periodic: bool,
               B: int = 1) -> Plan:
     """Chunk plan: the chunk count C of least modelled cost,
-    ``plan_cost_us`` or for B > 1 members ``batch_plan_cost_us`` (fitted at
-    s = 2), over the counts that pad nothing (``chunk_counts``) and those
+    ``plan_cost_us`` (with a wide Woodbury plan's ``woodbury_cost_us``) or
+    for B > 1 members ``batch_plan_cost_us`` (fitted at s = 2), over the
+    counts that pad nothing (``chunk_counts``) and those
     that pad (``padded_counts``), which pay ``pad_cost_us`` more, and on a
     ring 2 nvar h more solves per factor (beside a RODASPR step's six).  C
     is at most ``pcr.max_chunks(2s)``: the most chunks whose float64
@@ -265,7 +281,13 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool,
     # a ring's 2 nvar h column solves per factor beside a RODASPR step's six
     ring = 1 + (2 * nvar * halo / 6 if periodic and halo > 0 else 0)
     pad = pad_cost_us(N, nvar, 2 * halo + 1, B)
-    keyed = [((cost(C), C), C) for C in exact]
+
+    def wood(C):
+        # a ring on an exact count that is no power of two >= 8: Woodbury
+        cyclic = C >= MIN_CYCLIC_C and C & (C - 1) == 0
+        return woodbury_cost_us(C, s) if periodic and halo > 0 and not cyclic else 0.0
+
+    keyed = [((cost(C) + (wood(C) if B == 1 else 0.0), C), C) for C in exact]
     keyed += [((cost(C) * ring + pad, C), C) for C in padded_counts(N, halo, max_c)
               if g * C * -(-M // C) != N or C not in exact]
     if not keyed:

@@ -587,7 +587,9 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     for got, want in zip(sh_k, sh_p):
         _record(results, n("K4.pcr_solve_shift"), got, want, tol, what)
 
-    x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
+    # the kernel takes contiguous arrays, as K3's sweep writes y (the plain
+    # sweep's y is a view where C = 1)
+    x_k = thomas.spike_correct(sp_p, y_p.contiguous(), *sh_p, plan, add_to=add)
     x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
     _record(results, n("K3.spike_correct"), x_k, x_p, tol, what)
 
@@ -1069,17 +1071,20 @@ def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
     sh_p = pcr.pcr_solve_shift_plain(red_p, yred_p, plan.wrap, *wood)
     for got, want in zip(sh_k, sh_p):
         _record(results, n("K4.pcr_solve_shift"), got, want, tol, what)
-    x_k = thomas.spike_correct(sp_p, y_p, *sh_p, plan, add_to=add)
+    # the kernel takes contiguous arrays, as K3's sweep writes y (the plain
+    # sweep's y is a view where C = 1)
+    x_k = thomas.spike_correct(sp_p, y_p.contiguous(), *sh_p, plan, add_to=add)
     x_p = thomas.spike_correct_plain(sp_p, y_p, *sh_p, plan, add_to=add)
     _record(results, n("K3.spike_correct"), x_k, x_p, tol, what)
     return results
 
 
 def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
-                         seed=0, results=None):
+                         seed=0, results=None, C=None):
     """K2-K4 on B members of random bands, each with its own factor shift,
     against their plain versions (``check_solver_pieces``), and each
-    member's solve by its residual."""
+    member's solve by its residual; on ``chunked.make_plan``'s plan, or
+    with C on C chunks per member."""
     results = {} if results is None else results
     tol = TOL[dtype]["solve"]
     bands = torch.stack([random_bands(W, nvar, N, dtype, device,
@@ -1087,7 +1092,8 @@ def check_solver_batched(W, nvar, N, periodic, dtype, device, B=BATCH,
                          for b in range(B)])
     betas = torch.tensor(np.linspace(-0.3, -0.2, B), dtype=dtype,
                          device=device)
-    plan = chunked.make_plan(N, nvar, W // 2, periodic, B)
+    plan = (chunked.make_plan(N, nvar, W // 2, periodic, B) if C is None
+            else chunked.plan_with(N, nvar, W // 2, periodic, C, B))
     what = (f"B={B} N={N} s={plan.s} C={plan.C} cyclic={plan.cyclic} "
             f"woodbury={plan.woodbury}")
     rng = np.random.default_rng(seed)
@@ -1250,7 +1256,13 @@ def run_batched(device, dtypes=(torch.float64, torch.float32), B=BATCH):
 #: closed block-cyclic (a power of two C >= 8), a ring closed by the
 #: Woodbury correction and an acyclic grid, with up to 256 rows per chunk
 #: and chunk counts that leave the last warp of K2's and K4's lane groups
-#: part full (one chunk, at s = 8)
+#: part full (one chunk, at s = 8).  At s = 6 and 8, chunk counts whose K4
+#: factor spans many CTAs (``pcr.factor_plan_wide``): the film's C = 500 on
+#: a Woodbury ring, 512 block-cyclic, 600 at s2 = 16, and C = 1 (a ring
+#: closed at the system level), 2 and 3 (one and two levels); K2's plans
+#: there (``thomas.factor_plan``: CB = 32 // s chunks per block) leave B C
+#: no multiple of CB (512, 12) and Mc no multiple of the stage rows R (3,
+#: 4, 5)
 WIDE_SOLVER_CASES = [
     (3, 5, 4096, True, 16), (3, 5, 3000, True, 12), (3, 5, 2000, False, 10),
     (5, 3, 4096, True, 8), (5, 3, 6000, True, 12), (5, 3, 2000, False, 5),
@@ -1258,27 +1270,39 @@ WIDE_SOLVER_CASES = [
     (5, 4, 2048, True, 8), (5, 4, 3000, True, 6), (5, 4, 1200, False, 3),
     (3, 8, 2048, True, 16), (3, 8, 1000, True, 5), (3, 8, 800, False, 4),
     (3, 8, 64, False, 1),
+    (5, 3, 4000, True, 500), (5, 3, 3072, True, 512), (5, 3, 60, True, 1),
+    (5, 3, 48, True, 2), (5, 3, 90, False, 3), (3, 8, 3000, True, 600),
 ]
-#: (W, nvar, N, periodic) of the wide member-axis checks (B = BATCH): s = 6
-#: and 8, block-cyclic and Woodbury rings
-WIDE_BATCH_CASES = [(5, 3, 2048, True), (5, 3, 1200, True), (3, 8, 1024, True),
-                    (3, 8, 1000, True)]
+#: the same on the card only, where K4's wide factor takes several passes
+#: of its grid: 4096 block-cyclic and float64's most chunks at s2 = 12
+#: (8192) and 16 (4096), Mc = 2 (on the CPU the plain versions, held to
+#: themselves, take a minute)
+WIDE_LARGE_CASES = [(5, 3, 16384, True, 4096), (5, 3, 32768, True, 8192),
+                    (3, 8, 8192, True, 4096)]
+#: (W, nvar, N, periodic, C) of the wide member-axis checks (B = BATCH): s =
+#: 6 and 8, block-cyclic and Woodbury rings on ``chunked.make_plan``'s
+#: plans (C None), and B C = 2048 pairs at s = 6 (C = 512)
+WIDE_BATCH_CASES = [(5, 3, 2048, True, None), (5, 3, 1200, True, None),
+                    (3, 8, 1024, True, None), (3, 8, 1000, True, None),
+                    (5, 3, 3072, True, 512)]
 
 
 def run_wide(device, dtypes=(torch.float64, torch.float32), B=BATCH):
-    """K2-K4 at the wide block sizes, one grid (``WIDE_SOLVER_CASES``) and
-    B members (``WIDE_BATCH_CASES``), both dtypes; returns {dtype name:
-    {kernel entry: max abs error}}."""
+    """K2-K4 at the wide block sizes, one grid (``WIDE_SOLVER_CASES``, and
+    on the card ``WIDE_LARGE_CASES``) and B members (``WIDE_BATCH_CASES``),
+    both dtypes; returns {dtype name: {kernel entry: max abs error}}."""
+    cases = WIDE_SOLVER_CASES + (WIDE_LARGE_CASES if torch.device(device).type == "cuda"
+                                 else [])
     out = {}
     for dtype in dtypes:
         results = {}
-        for i, (W, nvar, N, periodic, C) in enumerate(WIDE_SOLVER_CASES):
+        for i, (W, nvar, N, periodic, C) in enumerate(cases):
             bands = random_bands(W, nvar, N, dtype, device, seed=i)
             plan = chunked.plan_with(N, nvar, W // 2, periodic, C)
             check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results,
                          plan=plan)
-        for i, (W, nvar, N, periodic) in enumerate(WIDE_BATCH_CASES):
+        for i, (W, nvar, N, periodic, C) in enumerate(WIDE_BATCH_CASES):
             check_solver_batched(W, nvar, N, periodic, dtype, device, B, seed=i,
-                                 results=results)
+                                 results=results, C=C)
         out[str(dtype).replace("torch.", "")] = results
     return out

@@ -16,22 +16,25 @@ Z and inverts its capacitance in one launch, and every
 ``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
 close the ring.
 
-The factor and the R-column solve run one thread block per member, so the
-chunk count is capped at ``MAX_C``.  The per-stage solve with shifts runs
-on a thread-block cluster of up to ``MAX_CLUSTER`` CTAs per member, each
-holding its slice of the chunks' vectors in shared memory
+The narrow factor and the R-column solve run one thread block per member,
+so the chunk count is capped at ``MAX_C``.  The per-stage solve with shifts
+runs on a thread-block cluster of up to ``MAX_CLUSTER`` CTAs per member,
+each holding its slice of the chunks' vectors in shared memory
 (``solve_plan``); it refuses a (C, s2, dtype) whose vectors do not fit
 ``MAX_CLUSTER`` CTAs, and ``max_chunks`` gives the largest C it takes.
 Interface blocks s2 = 2s of s <= ``thomas.NARROW_S``
 launch ``csrc/pcr.cu``'s library; s2 = 10..16 (s = 5..8) its wide library
-(``TF_WIDE``: the factor on groups of s2 lanes), whose launches count
-apart (``..._wide``).  The scratch of the wide factor is 7 s2^2 C entries:
-59 MB at s2 = 16 and its largest C, 4096, in float64.
+(``TF_WIDE``), whose launches count apart (``..._wide``).  Its factor runs
+each (member, chunk) pair's level on a group of s2 lanes and spreads every
+phase of a level over a cooperative grid of CTAs across the card
+(``factor_plan_wide``), its level state in 7 s2^2 B C entries of global
+scratch (59 MB at s2 = 16 and its largest C, 4096, in float64).
 
 Member axis: an ensemble's reduced systems
 ``Lred, Ured (B, 2s, 2s, C)`` factor into level operators
 ``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block (or one
-cluster) each; right-hand sides lead with B the same way.
+cluster) each, the wide factor's grid over all B C pairs at once;
+right-hand sides lead with B the same way.
 """
 
 from __future__ import annotations
@@ -74,8 +77,10 @@ SOLVE_MIN_STAGES = 3
 SOLVE_MIN_CT = 8
 SOLVE_CHUNKS = 64
 
-LIB = csrc_library("pcr.cu")
-WIDE_LIB = csrc_library("pcr.cu", "TF_WIDE")
+# the longest nvcc runs of the kernels, each split by dtype to build in
+# parallel
+LIB = csrc_library("pcr.cu", by_dtype=True)
+WIDE_LIB = csrc_library("pcr.cu", "TF_WIDE", by_dtype=True)
 
 
 class PcrFactor(NamedTuple):
@@ -171,7 +176,7 @@ def _scheduled_plan(lib, sfx, C, s2, B, item, sms, wood):
     """``solve_plan`` with clusters the card schedules: the planned cluster
     size, or the largest smaller one that ``cudaOccupancyMaxActiveClusters``
     admits (asked once per shape)."""
-    query = getattr(lib.load(), f"tf_pcr_shift_clusters_{sfx}")
+    query = getattr(lib.load(sfx), f"tf_pcr_shift_clusters_{sfx}")
     query.argtypes = [ctypes.c_int] * 7
     query.restype = ctypes.c_int
     cap = MAX_CLUSTER
@@ -210,6 +215,71 @@ def pcr_factor_plain(Lred, Ured, cyclic: bool) -> PcrFactor:
                      torch.stack(betas, dim=-4) if betas else empty, Dinv)
 
 
+#: the wide factor (s2 = 10..16, csrc/pcr.cu): threads of a CTA of its
+#: cooperative grid (kWideFactorThreads), and the most of its CTAs an SM is
+#: given (chip runs at the film's C = 500..8192: one or two CTAs an SM beat
+#: four by 5-10 % where the pairs fill the card, PERF.md)
+FACTOR_WIDE_THREADS = 128
+FACTOR_WIDE_PER_SM = 2
+
+
+class FactorPlanWide(NamedTuple):
+    ctas: int    # CTAs of the cooperative grid
+    passes: int  # passes of the lane groups over the pairs in each phase
+
+
+def factor_groups(s2, threads):
+    """Lane groups of s2 lanes in a CTA of ``threads``: 32 // s2 per warp."""
+    return threads // 32 * (32 // s2)
+
+
+@functools.lru_cache(maxsize=None)
+def factor_plan_wide(C, s2, B=1, sms=132, per_sm=FACTOR_WIDE_PER_SM):
+    """The plan of K4's wide factor: one group of s2 lanes per (member,
+    chunk) pair in each phase, the B * C pairs in as few passes as the card
+    allows: one CTA of FACTOR_WIDE_THREADS per ``factor_groups`` pairs, at
+    most ``per_sm`` (and FACTOR_WIDE_PER_SM) CTAs on each of ``sms`` SMs;
+    every CTA of the grid must be resident at once, ``per_sm`` being what
+    the card holds.  Its shared memory is the groups' product blocks only
+    (``wide.cuh: group_block``; at most 24 KB a CTA): the level state lives
+    in L2."""
+    pairs = B * C
+    gpc = factor_groups(s2, FACTOR_WIDE_THREADS)
+    ctas = max(1, min(-(-pairs // gpc), sms * min(per_sm, FACTOR_WIDE_PER_SM)))
+    return FactorPlanWide(ctas, -(-pairs // (ctas * gpc)))
+
+
+@functools.lru_cache(maxsize=None)
+def _factor_wide_blocks(lib, sfx, s2):
+    """CTAs of the cooperative wide factor one SM holds (asked once)."""
+    query = getattr(lib.load(sfx), f"tf_pcr_factor_wide_blocks_{sfx}")
+    query.argtypes = [ctypes.c_int]
+    query.restype = ctypes.c_int
+    n = query(s2)
+    if n < 0:
+        lib.check(-n, "K4 pcr_factor")
+    if n == 0:
+        raise RuntimeError(f"K4 pcr_factor: no CTA of the wide factor (s2 = {s2}) "
+                           "fits an SM")
+    return n
+
+
+def _factor_wide(Lred, Ured, cyclic, ops, Dinv, B):
+    """One launch of the wide factor (s2 = 10..16) across the card."""
+    s2, _, C = Lred.shape[-3:]
+    sfx = suffix(Lred.dtype)
+    fp = factor_plan_wide(C, s2, B, sm_count(Lred),
+                          _factor_wide_blocks(WIDE_LIB, sfx, s2))
+    scratch = torch.empty((7, B * C, s2, s2), dtype=Lred.dtype,
+                          device=Lred.device)
+    fn = WIDE_LIB.fn(f"tf_pcr_factor_wide_{sfx}", 6, 5)
+    rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
+            ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
+            int(bool(cyclic)), B, fp.ctas, stream_of(Lred))
+    WIDE_LIB.check(rc, "K4 pcr_factor")
+    FACTOR_WIDE_LAUNCHES.add()
+
+
 def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     """Factor the reduced system with identity diagonal blocks."""
     if Lred.device.type == "cpu":
@@ -227,15 +297,17 @@ def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     ops = torch.empty((2, *lead, nlev, s2, s2, C), dtype=Lred.dtype,
                       device=Lred.device)
     Dinv = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
+    if s2 > 2 * thomas.NARROW_S:
+        _factor_wide(Lred, Ured, cyclic, ops, Dinv, B)
+        return PcrFactor(ops[0], ops[1], Dinv)
     scratch = torch.empty((B, 7, s2, s2, C), dtype=Lred.dtype,
                           device=Lred.device)
-    lib, launches = _pick(s2, FACTOR_LAUNCHES, FACTOR_WIDE_LAUNCHES)
-    fn = lib.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
+    fn = LIB.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
     rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
             ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
             int(bool(cyclic)), B, stream_of(Lred))
-    lib.check(rc, what)
-    launches.add()
+    LIB.check(rc, what)
+    FACTOR_LAUNCHES.add()
     return PcrFactor(ops[0], ops[1], Dinv)
 
 

@@ -18,12 +18,12 @@ kernel for CUDA tensors; ``plan`` is an ``ops.chunked.Plan``.
 Member axis: bands ``(B, W, nvar, nvar, N)`` (an ensemble's B grids) give
 a factor whose arrays lead with B, each member's slab laid out as one
 grid's (rows ``(B, Mc, s, s, C)``, reduced couplings ``(B, 2s, 2s, C)``),
-and right-hand sides ``(B, nvar, N)``.  K2 (s <= ``NARROW_S``) and K3's
-sweep run one block of walkers per group of (member, chunk) pairs, fed by
-``cp.async`` copies into a shared-memory ring on a plan of the host's
-(``factor_plan``, ``sweep_plan``); K2's wide library one lane group per
-chunk, K3's correction one thread per (member, node); members never couple,
-and each member's ring closes on itself.  The factor shift ``beta`` is a number or a
+and right-hand sides ``(B, nvar, N)``.  K2 and K3's sweep run one block of
+walkers per group of (member, chunk) pairs, fed by ``cp.async`` copies
+into a shared-memory ring on a plan of the host's (``factor_plan``,
+``sweep_plan``); K2's walker is a thread, or in its wide library a group
+of s lanes; K3's correction one thread per (member, node); members never
+couple, and each member's ring closes on itself.  The factor shift ``beta`` is a number or a
 per-member (B,) tensor on the bands' device (the kernel reads it there,
 so shared and per-member step sizes take one code).
 """
@@ -56,7 +56,8 @@ NARROW_S = 4
 
 FACTOR_LIB = csrc_library("spike_factor.cu")
 SOLVE_LIB = csrc_library("spike_solve.cu")
-FACTOR_WIDE_LIB = csrc_library("spike_factor.cu", "TF_WIDE")
+FACTOR_WIDE_LIB = csrc_library("spike_factor.cu", "TF_WIDE",
+                               by_dtype=True)
 SOLVE_WIDE_LIB = csrc_library("spike_solve.cu", "TF_WIDE")
 
 
@@ -129,10 +130,8 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
                        device=bands.device)
     red = torch.empty((2, *lead, 2 * s, 2 * s, C), dtype=bands.dtype,
                       device=bands.device)
-    # the wide library walks with lane groups and takes no plan
-    fp = (factor_plan(plan.nvar, plan.halo, bands.element_size(), plan.Mc, C,
-                      B, sm_count(bands)) if s <= NARROW_S
-          else FactorPlan(1, 1, False, 0))
+    fp = factor_plan(plan.nvar, plan.halo, bands.element_size(), plan.Mc, C,
+                     B, sm_count(bands))
     fn = lib.fn(f"tf_spike_factor_{suffix(bands.dtype)}", 9, 11, 2)
     rc = fn(bands.data_ptr(), *(r.data_ptr() for r in rows),
             red[0].data_ptr(), red[1].data_ptr(), beta_ptr, plan.Np, plan.nvar,
@@ -144,8 +143,9 @@ def spike_factor(bands, alpha, beta, plan) -> banded.SpikeFactor:
 
 
 #: stages of the shared-memory ring of K2's staged walk (kFactorStages in
-#: csrc/spike_factor.cu), whose blocks are one warp
+#: csrc/spike_factor.cu), whose blocks are one warp of FACTOR_THREADS
 FACTOR_STAGES = 4
+FACTOR_THREADS = 32
 #: most chunks one block of K2 walks (every lane of its warp)
 FACTOR_MAX_CB = 32
 #: shared memory a block of K2 may take at most, and at most what its
@@ -168,19 +168,20 @@ def factor_smem(nvar, halo, item, Mc, CB, R, persist):
     csrc/spike_factor.cu): FACTOR_STAGES stages of the band tile (W nvar^2
     planes of R g nodes; without ``persist`` at least the backward pass's
     three row tiles of R s^2), with ``persist`` the forward results (3 Mc
-    s^2), and each chunk's outer coupling Tr and previous U (s^2 each),
+    s^2), and at s <= NARROW_S each chunk's outer coupling Tr and previous
+    U (s^2 each; the lane groups of the wide walk keep them in registers),
     for each of CB chunks."""
     g = max(halo, 1)
     s, planes = nvar * g, (2 * halo + 1) * nvar * nvar
     band, rows = planes * R * g, 3 * R * s * s
     stage = band if persist else max(band, rows)
     return item * CB * (FACTOR_STAGES * stage + (3 * Mc * s * s if persist else 0)
-                        + 2 * s * s)
+                        + (2 * s * s if s <= NARROW_S else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def factor_plan(nvar, halo, item, Mc, C, B=1, sms=132):
-    """K2's plan at block size s = nvar max(halo, 1) <= NARROW_S.  A walk
+    """K2's plan of block size s = nvar max(halo, 1).  At s <= NARROW_S a walk
     is bound by the issue and latency of its own instructions, which one
     warp issues for all of its walkers, so the plan gives each scheduler of
     the card one walking warp (one block), SM_SCHEDULERS per SM, with as
@@ -191,9 +192,20 @@ def factor_plan(nvar, halo, item, Mc, C, B=1, sms=132):
     per stage, until a block's stages fit its share (and FACTOR_SMEM); the
     forward results kept in shared memory where they take at most
     FACTOR_KEEP and the whole still fits.  (Chip runs at KS 2^20, 10^6 and
-    config 5, PERF.md.)"""
+    config 5, PERF.md.)
+
+    At s > NARROW_S a block is still one warp, of 32 // s lane groups
+    walking a chunk each: CB = 32 // s, and R = 8 rows per stage (fewer
+    where the chunks are shorter, or the stages would pass
+    FACTOR_WIDE_SMEM), the forward results kept where they take at most
+    FACTOR_KEEP and the whole still fits.  The walk of one block nearly
+    fills its SM's issue, so the plan does not shrink the stages to put
+    more blocks on an SM: at the film's C = 2048 and 4096 that cost 7 and
+    48 % in float64 (chip runs, PERF.md)."""
     s = nvar * max(halo, 1)
     chunks = B * C
+    if s > NARROW_S:
+        return _wide_factor_plan(nvar, halo, item, Mc)
     CB = min(FACTOR_MAX_CB,
              1 << (-(-chunks // (SM_SCHEDULERS * sms)) - 1).bit_length())
     budget = min(FACTOR_SMEM, SM_SMEM // SM_SCHEDULERS - 1024)
@@ -209,6 +221,26 @@ def factor_plan(nvar, halo, item, Mc, C, B=1, sms=132):
     persist = (item * 3 * Mc * s * s * CB <= FACTOR_KEEP
                and smem(CB, R, True) <= budget)
     return FactorPlan(CB, R, persist, smem(CB, R, persist))
+
+
+#: the wide walk (s > NARROW_S): the shared memory a block's stages may
+#: take at most
+FACTOR_WIDE_SMEM = 200 * 1024
+
+
+def _wide_factor_plan(nvar, halo, item, Mc):
+    g = max(halo, 1)
+    CB = 32 // (nvar * g)
+
+    def smem(R, persist):
+        return factor_smem(nvar, halo, item, Mc, CB, R, persist)
+
+    R = min(8, FACTOR_THREADS // g, 1 << (Mc - 1).bit_length())
+    while smem(R, False) > FACTOR_WIDE_SMEM and R > 1:
+        R //= 2
+    persist = (item * 3 * Mc * (nvar * g) ** 2 * CB <= FACTOR_KEEP
+               and smem(R, True) <= FACTOR_WIDE_SMEM)
+    return FactorPlan(CB, R, persist, smem(R, persist))
 
 
 #: stages of the shared-memory ring of K3's staged sweep (kStages in
