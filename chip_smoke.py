@@ -167,6 +167,21 @@ profile of the ring's step), the README steps synchronised, and sweeps
 the chunk count of KS at N = 10^6 behind ``chunked.ROW_US`` /
 ``LEVEL_US`` / ``SLAB_US``.
 
+K3's tiled correction and K4's narrow factor across the card run in
+each phase too: phase 0 prints the registers and spills of every
+narrow instantiation of ``spike_correct_kernel`` and K4's factors; phase 1
+holds the correction at s = 1..8 (``kernel_checks.CORRECT_SHAPES``: one
+chunk to part-full chunk groups, members, B = 1024) and at config 5's
+shape, and the narrow factor by the route its shape picks
+(``kernel_checks.GRID_FACTOR_CASES``: block-cyclic, Woodbury, acyclic,
+the ring's 1534 chunks, members) against their plain versions; phase 2
+counts K4's one block per member (plans of up to
+``pcr.FACTOR_MEMBERS_MAX_C`` chunks: config 5, the refine ensemble, the
+advdiff refine case) apart (``K4.pcr_factor_members``); ``phase3_redesign`` times both at the cells'
+plans before and after the narrow refit (``REDESIGN_SHAPES``: host ms,
+device µs on inputs cold in L2, the bytes bound), K4's factor by its
+route beside the other narrow one.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -237,6 +252,11 @@ KERNELS = {
                          "(spike correction of triflow_tpu/ops/folded.py:1478)"),
     "K4.pcr_factor": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
                       "triflow_tpu/ops/pallas_pcr.py:246 pcr_factor_fused_sub"),
+    # the one block per member, kept up to pcr.FACTOR_MEMBERS_MAX_C chunks
+    # (pcr.factor_route: config 5, the refine ensemble, small plans)
+    "K4.pcr_factor_members": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                              "triflow_tpu/ops/pallas_pcr.py:246 pcr_factor_fused_sub "
+                              "(vmapped over members)"),
     "K4.pcr_solve_shift": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
                            "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
     "K4.pcr_solve": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
@@ -286,7 +306,8 @@ DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
 #: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9")) and k not in WIDE
-                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual")]
+                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual",
+                              "K4.pcr_factor_members")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 K7 = ["K7.matvec"]
@@ -295,6 +316,7 @@ K7 = ["K7.matvec"]
 TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J": "K1.J",
                "spike_factor_wide": "K2.spike_factor_wide", "spike_factor": "K2.spike_factor",
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
+               "pcr_factor_kernel": "K4.pcr_factor_members",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_kernel": "K4.pcr_solve",
                "combine_kernel": "K5.combine", "combine_vec_kernel": "K5.combine",
@@ -392,25 +414,25 @@ CASES = [
     ("burgers N=2^20 theta (4 steps)", BURGERS, burgers_case(N_BIG, 0.05, 4 * 0.05), THETA,
      1e-4, 1e-10, THETA_KERNELS, ("chunked", 2048, False)),
     ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF), THETA, 1e-4, 1e-10,
-     THETA_KERNELS + WOOD, ("chunked", 2000, True)),
+     THETA_KERNELS + WOOD, ("chunked", 2500, True)),
     ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"],
      ("megastep", 100, False)),
     ("ks N=2^20 rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH,
-     ("chunked", 1024, False)),
+     ("chunked", 2048, False)),
     ("ks N=10^6 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9,
-     MULTI_LAUNCH + WOOD, ("chunked", 1000, True)),
+     MULTI_LAUNCH + WOOD, ("chunked", 2000, True)),
     ("ks N=2^20 rodaspr adaptive tol 1e-3 (1 x 1.0)", KS, ks_case(1.0, 1.0),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 1024, False)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 2048, False)),
     ("ks N=10^6 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0, N_REF),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 1000, True)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 2000, True)),
     ("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 256, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD,
-     ("chunked", 250, True)),
+     ("chunked", 500, True)),
     ("burgers N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", BURGERS,
      burgers_case(N_REF_SMALL, 1.0, 2.0), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 250, True)),
@@ -421,17 +443,17 @@ CASES = [
      ("megastep", 100, False)),
     # refine= and Theta(solver=): K1-K5 and K7, never K6 (REFINE_CHECKS)
     ("ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
-     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 1000, True)),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 2000, True)),
     ("advdiff N=1024 rodaspr fixed (500 x 0.01)", README, advdiff_case(), FIXED,
      1e-4, 1e-9, ["K6.step"], ("megastep", 256, False)),
     ("advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)", README, advdiff_case(),
-     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 64, False)),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 128, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3, refine=1), 1e-2, 1e-9,
-     MULTI_LAUNCH + WOOD + K7, ("chunked", 250, True)),
+     MULTI_LAUNCH + WOOD + K7, ("chunked", 500, True)),
     ("burgers N=10^6 theta solver= (10 steps)", BURGERS, burgers_case(N_REF),
      dict(THETA, solver=chunked_solver), 1e-4, 1e-10,
-     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 2000, True)),
+     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 2500, True)),
 ]
 #: cases driven by ``scheme(t, fields, dt, pars)`` a fixed number of times
 #: (``run_steps``), not by ``Simulation``: 500 steps of 0.01 do not land on
@@ -521,7 +543,8 @@ def make_ensemble(B, N, seed, waves, dtype, device, kwargs):
 ENSEMBLE_CASES = [
     ("config 5: B=1024 x ks N=10^5 rodaspr fixed (steps(3, 0.05))", B_ENS, N_ENS, 1, 10,
      FIXED, [(3, 0.05)], "host",
-     lambda plan: {"K1.J": 3, "K2.spike_factor": 3, "K4.pcr_factor": 3,
+     lambda plan: {"K1.J": 3, "K2.spike_factor": 3,
+                   kernel_checks.factor_entry(plan.s, plan.C): 3,
                    "K4.pcr_solve": 3 if plan.woodbury else 0, "K1.F_terms": 18,
                    "K3.thomas_sweep": 18, "K4.pcr_solve_shift": 18,
                    "K3.spike_correct": 18, "K5.combine": 3}, False),
@@ -539,7 +562,8 @@ ENSEMBLE_CASES = [
     # one more solve per stage
     ("B=4 x ks N=10^5 rodaspr fixed refine=1 (steps(2, 0.05))", B_REFINE, N_ENS, 1, 10,
      REFINED, [(2, 0.05)], "host",
-     lambda plan: {"K1.J": 2, "K2.spike_factor": 2, "K4.pcr_factor": 2,
+     lambda plan: {"K1.J": 2, "K2.spike_factor": 2,
+                   kernel_checks.factor_entry(plan.s, plan.C): 2,
                    "K4.pcr_solve": 2 if plan.woodbury else 0, "K1.F_terms": 12,
                    "K3.thomas_sweep": 24, "K4.pcr_solve_shift": 24,
                    "K3.spike_correct": 24, "K5.combine": 14, "K7.matvec": 12}, False),
@@ -765,12 +789,15 @@ def phase0():
             if path in k9_logs:
                 log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
-            # the wide instantiations: kernel<type, sizes..., flags...>
+            # the wide instantiations, and the narrow ones of K3's tiled
+            # correction and K4's factors: kernel<type, sizes..., flags...>
             wide = re.search(r"([a-z][a-z_]*_kernel)I([df])((?:Li\d+E)+)((?:Lb[01]E)*)",
                              fn or "")
-            if "_wide" in path.name and wide:
+            if wide and ("_wide" in path.name or re.match(r"spike_correct|pcr_factor",
+                                                          wide.group(1))):
                 name, typ, sizes, flags = wide.groups()
-                log(f"    wide {name}<{'double' if typ == 'd' else 'float'}"
+                log(f"    {'wide' if '_wide' in path.name else 'narrow'} "
+                    f"{name}<{'double' if typ == 'd' else 'float'}"
                     + "".join(f", {v}" for v in re.findall(r"Li(\d+)E", sizes))
                     + "".join(f", {f}" for f in re.findall(r"Lb([01])E", flags))
                     + f">: {regs} registers, {stack} bytes stack, {spill} bytes spill stores")
@@ -944,6 +971,14 @@ def phase1():
         # several, with and without the Woodbury correction, members)
         kernel_checks.check_all_factors("cuda", dtype, res)
         kernel_checks.check_all_shifts("cuda", dtype, res)
+        # K3's tiled correction at s = 1..8 (one chunk to part-full chunk
+        # groups, Mc no multiple of the block's rows, members, B = 1024) and
+        # at config 5's shape; K4's narrow factor by the route its shape
+        # picks (block-cyclic, Woodbury, acyclic, the ring's C = 1534,
+        # members)
+        kernel_checks.check_all_corrections("cuda", dtype, res)
+        kernel_checks.check_correct(2, 100, N_ENS // 200, B_ENS, dtype, "cuda", results=res)
+        kernel_checks.check_all_grid_factors("cuda", dtype, res)
         padded_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
@@ -986,6 +1021,9 @@ def phase2():
             runs[(name, dt_name)] = (steps, u, attempts, secs)
             log(f"  {name} {dt_name}: launches "
                 + json.dumps({k: v for k, v in counts.items() if v}))
+            # K4's factor by the route the plan's chunk count picks
+            needs = [kernel_checks.factor_entry(plan.s, plan.C) if k == "K4.pcr_factor" else k
+                     for k in needs]
             missing = [k for k in needs if counts[k] <= 0]
             small = any(k.startswith("K6") for k in needs)
             others = [k for k in KERNELS if k not in needs and counts[k]
@@ -2313,7 +2351,8 @@ def phase2_megatheta(launches):
             secs = time.perf_counter() - start
             counts = _launch.counts()
             exact = dict.fromkeys(counts, 0)
-            exact.update(dict.fromkeys(K9 + ["K4.pcr_factor", "K4.pcr_solve_shift"], steps))
+            exact.update(dict.fromkeys(K9 + [kernel_checks.factor_entry(plan.s, plan.C),
+                                             "K4.pcr_solve_shift"], steps))
             exact["K4.pcr_solve"] = steps if wood else 0
             off = {k: counts[k] for k in counts if counts[k] != exact[k]}
             log(f"  {name} {dt_name}: plan C={plan.C} Mc={plan.Mc} cyclic={plan.cyclic} "
@@ -2883,7 +2922,8 @@ def padded_launches(plan, kwargs, steps):
         return want
     stages = 1 if kwargs.get("scheme") is schemes.Theta else 6
     solves = stages + (2 * plan.nvar * plan.halo if plan.ring else 0)
-    want.update({"K1.J": steps, "K2.spike_factor": steps, "K4.pcr_factor": steps,
+    want.update({"K1.J": steps, "K2.spike_factor": steps,
+                 kernel_checks.factor_entry(plan.s, plan.C): steps,
                  "K1.F": stages * steps, "K5.combine": 0 if stages == 1 else stages * steps,
                  "K3.thomas_sweep": solves * steps, "K3.spike_correct": solves * steps,
                  "K4.pcr_solve_shift": solves * steps})
@@ -3054,6 +3094,112 @@ def phase3_padded():
     return {dt_name: {} for dt_name in DTYPES}
 
 
+#: (label, W, nvar, nodes, members, chunks) of phase 3's device times of
+#: K3's correction and K4's narrow factor: the cells' plans under the
+#: narrow cost before its refit to these two kernels (KS 2^20 and 10^6, the
+#: padded ring N = 999983 on its 1534 chunks of 1000168 nodes) and after it
+#: (2048, 2000, 2041 chunks of 1000090 nodes), config 5, the film at 10^6
+REDESIGN_SHAPES = [("ks N=2^20", 5, 1, N_BIG, 1, 1024), ("ks N=10^6", 5, 1, N_REF, 1, 1000),
+                   ("ks ring N=999983", 5, 1, 1000168, 1, 1534),
+                   ("ks N=2^20", 5, 1, N_BIG, 1, 2048), ("ks N=10^6", 5, 1, N_REF, 1, 2000),
+                   ("ks ring N=999983", 5, 1, 1000090, 1, 2041),
+                   ("config 5", 5, 1, N_ENS, B_ENS, 100), ("film N=10^6", 5, 3, N_REF, 1, 1000)]
+
+
+#: bytes the inputs of a cold-L2 timing rotate over (``cold_sets``): twice
+#: the H100's 50 MB L2
+COLD_BYTES = 100 * 2 ** 20
+
+
+def cold_sets(nbytes, make):
+    """Copies ``make(i)`` of a call's inputs, as many as span COLD_BYTES
+    with ``nbytes`` each (one where a set alone does): timed in turn
+    (``itertools.cycle``), each call reads inputs that COLD_BYTES of other
+    traffic has passed through L2 since their last read, so that its time
+    stands against the bytes bound (each input read from memory once), not
+    against L2's rate."""
+    return [make(i) for i in range(1 if nbytes >= COLD_BYTES else 1 + -(-COLD_BYTES // nbytes))]
+
+
+def phase3_redesign():
+    """K3's tiled correction and K4's factor at ``REDESIGN_SHAPES``, on K2's
+    factor of random bands (B members of one grid's bands), a random y,
+    neighbour unknowns and ``add_to``: the host call's ms (CUDA events) and
+    device µs per launch (``torch.profiler``) beside the bytes bound, the
+    correction's inputs cold in L2 (``cold_sets``); K4's narrow factor by
+    its route (``pcr.factor_route``) and the other narrow route beside it.
+    Returns config 5's entry of the one block per member for the kernels
+    line."""
+    log("phase 3: K3's tiled correction and K4's factor at the cells' plans")
+    times = {}
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
+        item = torch.finfo(dtype).bits // 8
+        for label, W, nvar, N, B, C in REDESIGN_SHAPES:
+            plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
+            lead = (B,) if B > 1 else ()
+            bands = kernel_checks.random_bands(W, nvar, N, dtype, "cuda")
+            if B > 1:
+                bands = bands.expand(B, *bands.shape).contiguous()
+            fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
+            del bands
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            y, add = (torch.randn((*lead, nvar, N), dtype=dtype, device="cuda", generator=gen)
+                      for _ in range(2))
+            xm1, xp1 = (torch.randn((*lead, plan.s, C), dtype=dtype, device="cuda",
+                                    generator=gen) for _ in range(2))
+            s, s2, nlev = plan.s, 2 * plan.s, pcr.n_levels(C)
+            name = kernel_checks.solver_entry("K3.spike_correct", s)
+            # y, add_to and x (nvar N each), W and V (s^2 per supernode each),
+            # xm1 and xp1
+            nbytes = B * (3 * nvar * N + 2 * plan.Mc * s * s * C + 2 * s * C) * item
+            sets = cold_sets(nbytes, lambda i: (fact, y, xm1, xp1, add) if i == 0 else (
+                fact._replace(W=fact.W.clone(), V=fact.V.clone()), y.clone(), xm1.clone(),
+                xp1.clone(), add.clone()))
+            turn = itertools.cycle(sets)
+
+            def kern():
+                f_, y_, m_, p_, a_ = next(turn)
+                return thomas.spike_correct(f_, y_, m_, p_, plan, add_to=a_)
+
+            ms = min(cuda_ms(kern, 10 * len(sets)) for _ in range(2))
+            us, _ = launch_us(kern, name, names=FILM_TRACE_NAMES if s > 4 else TRACE_NAMES)
+            del sets, turn
+            b_ms, _ = bound(nbytes, 4 * s * nvar * N * B, dtype)
+            cp = thomas.correct_plan(s, item, plan.Mc, C, B)
+            log(f"  {name} {label} {dt_name} (C={C} Mc={plan.Mc} B={B}, {cp}), cold L2: "
+                f"{ms:.4f} ms host call, "
+                + (f"{us:.2f} device us" if us is not None else "device us not measured")
+                + f", bound {b_ms * 1e3:.2f} us ({nbytes} bytes)"
+                + (f": {b_ms * 1e3 / us:.1%} of it" if us else ""))
+            # K4's factor: its route, and the other narrow one beside it
+            red_bytes = B * (2 * s2 * s2 * C + (2 * nlev + 1) * s2 * s2 * C) * item
+            b_ms, _ = bound(red_bytes, B * 12 * s2 ** 3 * C * nlev, dtype)
+            route = pcr.factor_route(s2, C)
+            routes = [route] + ([r for r in ("grid", "members") if r != route]
+                                if route != "wide" else [])
+            for r in routes:
+                fn = lambda r=r: pcr._factor(fact.Lred, fact.Ured, plan.cyclic, r)
+                entry = {"wide": "K4.pcr_factor_wide", "members": "K4.pcr_factor_members",
+                         "grid": "K4.pcr_factor"}[r]
+                f_ms = min(cuda_ms(fn, 10) for _ in range(2))
+                f_us, _ = launch_us(fn, entry,
+                                    names=FILM_TRACE_NAMES if r == "wide" else TRACE_NAMES)
+                log(f"  {entry} {label} {dt_name} (route {r}"
+                    + f"{' (the plan)' if r == route else ''}): "
+                    f"{f_ms:.4f} ms host call, "
+                    + (f"{f_us:.2f} device us" if f_us is not None
+                       else "device us not measured")
+                    + f", bound {b_ms * 1e3:.3f} us ({red_bytes} bytes)")
+                if r == "members" and label == "config 5":
+                    plain = lambda: pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
+                    p_ms = min(cuda_ms(plain, 2) for _ in range(2))
+                    times[dt_name]["K4.pcr_factor_members"] = (f_ms, p_ms, b_ms, "bytes", None)
+            del fact, y, add, xm1, xp1
+            torch.cuda.empty_cache()
+    return times
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -3081,7 +3227,8 @@ def run():
     launches = timed(phase2_padded, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
-                 timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded)):
+                 timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded),
+                 timed(phase3_redesign)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

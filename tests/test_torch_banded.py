@@ -117,9 +117,9 @@ def test_plan_choice():
     big = chunked.make_plan(1 << 20, 1, 1, True)
     assert (big.C, big.Mc, big.cyclic) == (2048, 512, True)
     readme = chunked.make_plan(200, 1, 1, False)
-    assert (readme.C, readme.Mc, readme.cyclic) == (8, 25, False)
+    assert (readme.C, readme.Mc, readme.cyclic) == (25, 8, False)
     ks = chunked.make_plan(2048, 1, 2, True)
-    assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 64, 16)
+    assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 128, 8)
     # the plan is the cheapest admissible one under the cost model
     M = big.M
     assert all(chunked.plan_cost_us(M, big.C) <= chunked.plan_cost_us(M, C)
@@ -155,8 +155,8 @@ def test_periodic_grid_without_power_of_two_chunks_raises():
 def test_reference_grids_take_the_least_cost_divisor():
     """The reference benchmark's periodic grids (N = 10^6 and 10^4) plan
     over every divisor; a power-of-two grid keeps its block-cyclic plan."""
-    for N, halo, C in ((10 ** 6, 1, 2000), (10 ** 6, 2, 1000),
-                       (10 ** 4, 2, 250)):
+    for N, halo, C in ((10 ** 6, 1, 2500), (10 ** 6, 2, 2000),
+                       (10 ** 4, 2, 500)):
         plan = chunked.make_plan(N, 1, halo, True)
         M = plan.M
         every = [c for c in chunked._divisors(M) if M // c >= 2 and c >= 2]

@@ -89,8 +89,10 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     plan has no Woodbury set-up, one grid no fused stage right-hand side
     (an ensemble's), a step without ``refine=`` no matvec, a float64
     model no mixed-solve residual (the df64 mode's K8), a step of
-    ``Simulation``'s schemes never the opt-in two-pass theta step (K9), and
-    a block size of 1 none of K2-K4's wide instantiations."""
+    ``Simulation``'s schemes never the opt-in two-pass theta step (K9), a
+    block size of 1 none of K2-K4's wide instantiations, and a plan of more
+    than ``pcr.FACTOR_MEMBERS_MAX_C`` chunks not K4's one block per
+    member."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
@@ -98,6 +100,7 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
                if not k.startswith(("K6", "K9")) and k not in WIDE_ONLY
+               and k != "K4.pcr_factor_members"
                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual"))
     assert not any(counts[k] for k in WIDE_ONLY)
     assert counts["K9.interface"] == counts["K9.correct"] == 0
@@ -558,6 +561,36 @@ def test_cluster_solve_shift_matches_plain_version(cuda_device, dtype):
     assert set(results) == {"K4.pcr_solve_shift", "K4.pcr_solve_shift_wide"}
     sizes = {pcr.solve_plan(C, 2 * s, B).K for s, C, B, _ in kernel_checks.SHIFT_CASES}
     assert 1 in sizes and max(sizes) == pcr.MAX_CLUSTER
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_tiled_correction_matches_plain_version(cuda_device, dtype):
+    """K3's tiled correction against its plain version at block sizes 1..8
+    (narrow and wide libraries), one chunk to a part-full last group of
+    chunks, Mc no multiple of the block's rows, chunk groups across
+    members and B = 1024 members (``kernel_checks.CORRECT_SHAPES``), each
+    without and with ``add_to``, within 1e-10 (f64) and 1e-4 (f32) of the
+    largest entry."""
+    results = kernel_checks.check_all_corrections(cuda_device, dtype)
+    assert set(results) == {"K3.spike_correct", "K3.spike_correct_wide"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_grid_factor_matches_plain_version(cuda_device, dtype):
+    """K4's narrow factor across the card against its plain version at
+    interface blocks 2..8, block-cyclic, Woodbury (factored acyclic) and
+    acyclic, one chunk to the ring's 1534, one grid and members
+    (``kernel_checks.GRID_FACTOR_CASES``), each by the route and body its
+    shape picks: one block per member up to ``pcr.FACTOR_MEMBERS_MAX_C``
+    chunks, the grid above."""
+    results = kernel_checks.check_all_grid_factors(cuda_device, dtype)
+    assert set(results) == {kernel_checks.factor_entry(s, C)
+                            for s, C, _, _ in kernel_checks.GRID_FACTOR_CASES}
+    assert set(results) == {"K4.pcr_factor", "K4.pcr_factor_members"}
 
 
 def test_new_checks_harness_on_cpu():

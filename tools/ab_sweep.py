@@ -7,11 +7,11 @@ NVIDIA GPU.
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``897d296`` (``git archive``),
-the commit before K2's staged lane-group walk and K4's wide factor across
-the card (the narrow K2 and K4, K3 and K5 are the same in both, so their
-pairs show the noise of the measurement).  GRID words keep only the grids
-whose name holds one of them (``film``: the falling film's).  Both
+repository, it is unpacked there from commit ``a79eea9`` (``git archive``),
+the commit before K3's tiled correction and K4's narrow factor across the
+card (K2, K4's solve with shifts and wide factor, K3's sweep and K5 are
+the same in both, so their pairs show the noise of the measurement).
+GRID words keep only the grids whose name holds one of them (``film``: the falling film's).  Both
 packages load in this process, the parent's under another name, each
 building its kernels from its own ``csrc/`` into its own ``build/``.
 
@@ -19,10 +19,17 @@ On the same inputs (random diagonally dominant bands; the plain reduced
 factor of K2's and, on a Woodbury plan, its closure; one random
 right-hand side) it times, on each grid of ``GRIDS`` and under its chunk
 plan: K2 (``thomas.spike_factor``, the whole wrapper), K4's factor
-(``pcr.pcr_factor``), its solve with shifts (``pcr.pcr_solve_shift``) and
-K3's sweep (``thomas.thomas_sweep``); the grids are KS N = 2^20 (s = 2,
-one grid, block-cyclic: ``make_plan``'s plan and C = 1024 and 4096), KS N
-= 10^6 (Woodbury), the falling film (s = 6, three fields: K2's and K4's
+(``pcr.pcr_factor``), its solve with shifts (``pcr.pcr_solve_shift``),
+K3's sweep (``thomas.thomas_sweep``) and K3's correction
+(``thomas.spike_correct`` of the sweep's y with ``add_to``, timed on copies
+of its inputs taken in turn, ``COLD_BYTES`` of them, so that each call
+reads its inputs from memory and not from L2); the grids are
+KS N = 2^20 (s = 2, one grid, block-cyclic: ``make_plan``'s plan and C =
+1024 and 4096), KS N = 10^6 (Woodbury), the padded ring of KS N = 999983
+(its 1534 chunks of 1000168 nodes under the narrow cost before its refit
+to the tiled correction and the factor across the card, 2041 of 1000090
+after), Burgers N = 10^6 (s = 1), the falling
+film (s = 6, three fields: K2's and K4's
 wide factors) at N = 10^6 under ``make_plan``'s plan and at C = 500, 1000,
 2000 and 4000 (Woodbury), at N = 2^20 at C = 512, 2048 and 4096, and at
 8192 chunks of 2^15 nodes (block-cyclic), and config 5 (B = 1024 members
@@ -32,7 +39,7 @@ stacked operands; float64 and float32; CUDA-event ms per call over
 back-to-back calls, in the order parent, this, this, parent, PAIRS times
 (default 2).  It checks that both give the same outputs (K2's five row
 arrays and reduced couplings, K4's level operators and Dinv, its shifts,
-K3's y: bit for bit, or within the solver pieces' limits, 1e-10 of the
+K3's y and corrected x: bit for bit, or within the solver pieces' limits, 1e-10 of the
 largest entry in float64 and 1e-4 in float32, printed beside), and
 reads each kernel's device µs per launch from ``torch.profiler`` (20
 launches alone).  Prints the card's name and power limit, one line per
@@ -40,6 +47,7 @@ measurement, then one JSON line with every mean.
 """
 
 import importlib.util
+import itertools
 import json
 import subprocess
 import sys
@@ -55,7 +63,10 @@ sys.path.insert(0, str(ROOT))
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
                                    pcr, thomas)
 
-PARENT_COMMIT = "897d296"
+PARENT_COMMIT = "a79eea9"
+#: bytes the inputs of K3's correction rotate over when timed: twice the
+#: H100's 50 MB L2, so that each call reads its inputs from memory
+COLD_BYTES = 100 * 2 ** 20
 
 
 def load_parent(path: Path):
@@ -118,6 +129,9 @@ GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
          ("ks 2^20 C=1024", 5, 1, 1 << 20, 1, 1024, 20),
          ("ks 2^20 C=4096", 5, 1, 1 << 20, 1, 4096, 20),
          ("ks 10^6", 5, 1, 10 ** 6, 1, None, 20),
+         ("ks ring 999983 C=1534", 5, 1, 1000168, 1, 1534, 20),
+         ("ks ring 999983 C=2041", 5, 1, 1000090, 1, 2041, 20),
+         ("burgers 10^6", 3, 1, 10 ** 6, 1, None, 20),
          ("film 10^6", 5, 3, 10 ** 6, 1, None, 5),
          ("film 10^6 C=500", 5, 3, 10 ** 6, 1, 500, 5),
          ("film 10^6 C=1000", 5, 3, 10 ** 6, 1, 1000, 5),
@@ -203,11 +217,16 @@ def main():
             # K4's factor of the reduced system
             red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
             r_old = old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
-            kp = "one block per member"
-            if plan.s > thomas.NARROW_S:
-                sms = torch.cuda.get_device_properties(0).multi_processor_count
-                kp = pcr.factor_plan_wide(plan.C, 2 * plan.s, B, sms, pcr._factor_wide_blocks(
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            route = pcr.factor_route(2 * plan.s, plan.C)
+            if route == "wide":
+                kp = pcr.factor_plan_wide(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
                     pcr.WIDE_LIB, suffix, 2 * plan.s))
+            elif route == "grid":
+                kp = pcr.factor_plan_grid(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
+                    pcr.LIB, suffix, 2 * plan.s))
+            else:
+                kp = "one block per member"
             print(f"K4 factor {where}, {kp}; {gap(red, r_old)}", flush=True)
             del r_old
             turns(f"K4 factor {name} {dt}",
@@ -243,7 +262,36 @@ def main():
             turns(f"K3 sweep {name} {dt}",
                   lambda: old_thomas.thomas_sweep(fact, rhs, plan),
                   lambda: thomas.thomas_sweep(fact, rhs, plan), iters)
-            del fact, rhs
+            # K3's correction, on the sweep's y and random neighbour unknowns
+            y, _ = thomas.thomas_sweep(fact, rhs, plan)
+            xm1, xp1 = (torch.randn(lead + (plan.s, plan.C), dtype=dtype, device="cuda",
+                                    generator=gen) for _ in range(2))
+            x_new = thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
+            x_old = old_thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
+            cp = thomas.correct_plan(plan.s, item, plan.Mc, plan.C, B)
+            print(f"K3 correct {where}, {cp}; {gap((x_new,), (x_old,))}", flush=True)
+            del x_new, x_old
+            # timed on inputs cold in L2: copies that span COLD_BYTES, in turn
+            nbytes = B * (3 * plan.nvar * plan.Np + 2 * plan.Mc * plan.s ** 2 * plan.C
+                          + 2 * plan.s * plan.C) * item
+            copies = 1 if nbytes >= COLD_BYTES else 1 + -(-COLD_BYTES // nbytes)
+            sets = [(fact, y, xm1, xp1, rhs)] + [
+                (fact._replace(W=fact.W.clone(), V=fact.V.clone()), y.clone(), xm1.clone(),
+                 xp1.clone(), rhs.clone()) for _ in range(copies - 1)]
+
+            def cold(mod):
+                turn = itertools.cycle(sets)
+
+                def go():
+                    f_, y_, m_, p_, a_ = next(turn)
+                    return mod.spike_correct(f_, y_, m_, p_, plan, add_to=a_)
+                return go
+
+            turns(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
+                  5 * iters * copies)
+            on_device(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
+                      "spike_correct")
+            del fact, rhs, y, xm1, xp1, sets
             torch.cuda.empty_cache()
         if words:
             continue

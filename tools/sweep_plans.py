@@ -3,7 +3,7 @@
 staged sweep and K5, and of K2's and K4's wide factors, swept on one
 NVIDIA GPU.
 
-    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5] [k2w] [k4w]
+    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5] [k2w] [k4w] [k3c] [k4n]
 
 (the first four without arguments).  K2 (``thomas.spike_factor``'s C entry,
 called with each plan): chunks per block CB in 1..32, rows per stage R in
@@ -30,6 +30,11 @@ entry is given.  K2's wide walk (``k2w``, the film's s = 6 at N = 10^6, C
 8, the forward results kept or streamed, against ``thomas.factor_plan``'s;
 K4's wide factor (``k4w``, the same chunk counts): grids of one, two and
 four CTAs an SM, against ``pcr.factor_plan_wide``'s; device µs beside each.
+K3's tiled correction (``k3c``): chunks per block and rows per block at
+the cells' plans (KS 2^20, 10^6, the ring 999983, Burgers, config 5, the
+film); K4's narrow factor (``k4n``, the same narrow plans and config 5's C
+= 100 at B = 4, 16, 64, 132 and 256 members): one block per member, and
+the grid on grids of 1..8 CTAs an SM; device µs.
 Float64 and float32.  Prints the card's name and power limit first.
 """
 
@@ -212,7 +217,7 @@ def sweep_k4w(dtype):
         out = [torch.empty_like(t) for t in ref]
         sfx = suffix(dtype)
         sms = sm_count(ref.Dinv)
-        held = pcr._factor_wide_blocks(pcr.WIDE_LIB, sfx, 12)
+        held = pcr._grid_blocks(pcr.WIDE_LIB, sfx, 12)
         pick = pcr.factor_plan_wide(C, 12, 1, sms, held)
         scratch = torch.empty((7, C, 12, 12), dtype=dtype, device="cuda")
         fn = pcr.WIDE_LIB.fn(f"tf_pcr_factor_wide_{sfx}", 6, 5)
@@ -232,6 +237,124 @@ def sweep_k4w(dtype):
                   f"({device_us(go, 'pcr_factor', 10):.1f} device us)"
                   + ("" if same else " (differs from the plan's)"), flush=True)
         del fact, ref, out, scratch
+
+
+#: (name, W, nvar, N, B, C) of the correction and narrow factor sweeps:
+#: the cells' plans (KS 2^20 and 10^6, the ring N = 999983 on its padded
+#: 1534 chunks, Burgers 2^20 and 10^6, config 5, the film 10^6)
+GRIDS_K3C = [("ks 2^20", 5, 1, 1 << 20, 1, 1024), ("ks 10^6", 5, 1, 10 ** 6, 1, 1000),
+             ("ks ring 999983", 5, 1, 1000168, 1, 1534),
+             ("burgers 2^20", 3, 1, 1 << 20, 1, 2048), ("burgers 10^6", 3, 1, 10 ** 6, 1, 2000),
+             ("config 5", 5, 1, 10 ** 5, 1024, 100), ("film 10^6", 5, 3, 10 ** 6, 1, 1000)]
+
+
+def sweep_k3c(dtype):
+    """K3's tiled correction: chunks per block CB in 8, 16, 32 by rows per
+    block R in 4..64, at ``GRIDS_K3C``'s plans
+    (film included), device µs per launch, each output against
+    ``thomas.correct_plan``'s."""
+    for name, W, nvar, N, B, C in GRIDS_K3C:
+        plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
+        lead = (B,) if B > 1 else ()
+        rows = (*lead, plan.Mc, plan.s, plan.s, C)
+        fact = kernel_checks.banded.SpikeFactor(
+            None, None, None, torch.randn(rows, dtype=dtype, device="cuda"),
+            torch.randn(rows, dtype=dtype, device="cuda"), None, None)
+        y = torch.randn((*lead, nvar, plan.Np), dtype=dtype, device="cuda")
+        xm1, xp1 = (torch.randn((*lead, plan.s, C), dtype=dtype, device="cuda")
+                    for _ in range(2))
+        ref = thomas.spike_correct(fact, y, xm1, xp1, plan)
+        item = y.element_size()
+        pick = thomas.correct_plan(plan.s, item, plan.Mc, C, B)
+        lib = thomas.SOLVE_LIB if plan.s <= thomas.NARROW_S else thomas.SOLVE_WIDE_LIB
+        fn = lib.fn(f"tf_spike_correct_{suffix(dtype)}", 7, 9)
+        out = torch.empty_like(y)
+        print(f"K3 correction {name} C={C} Mc={plan.Mc} B={B} {dtype}: correct_plan picks "
+              f"{pick}", flush=True)
+        for CB in (8, 16, 32):
+            for R in (4, 8, 16, 32, 64):
+                def go(CB=CB, R=R):
+                    rc = fn(y.data_ptr(), fact.W.data_ptr(), fact.V.data_ptr(),
+                            xm1.data_ptr(), xp1.data_ptr(), 0, out.data_ptr(), plan.Np,
+                            plan.nvar, plan.g, plan.Mc, C, 0, B, CB, R, stream_of(y))
+                    lib.check(rc, "K3 correction")
+
+                us = device_us(go, "spike_correct")
+                same = torch.equal(out, ref)
+                print(f"  CB={CB} R={R}: {us:.2f} device us"
+                      + ("" if same else " (differs from correct_plan's)"), flush=True)
+        del fact, y, xm1, xp1, ref, out
+        torch.cuda.empty_cache()
+
+
+#: (name, W, nvar, N, B, C) of the narrow factor's sweep: the narrow plans
+#: of ``GRIDS_K3C``; for the crossover of the grid and the one block per
+#: member (``pcr.factor_route``), config 5's C = 100 at fewer members, one
+#: grid of KS (s2 = 4) and Burgers (s2 = 2) at C = 64..512, and KS's C =
+#: 1000 at 16 and 132 members
+GRIDS_K4N = [g for g in GRIDS_K3C if g[2] * max(g[1] // 2, 1) <= thomas.NARROW_S] + [
+    (f"config 5 B={B}", 5, 1, 10 ** 5, B, 100) for B in (4, 16, 64, 132, 256)] + [
+    (f"{name} C={C}", W, 1, None, 1, C) for name, W in (("ks", 5), ("burgers", 3))
+    for C in (64, 128, 256, 512)] + [
+    (f"ks C=1000 B={B}", 5, 1, None, B, 1000) for B in (16, 132)]
+
+
+def sweep_k4n(dtype):
+    """K4's narrow factor at ``GRIDS_K4N``: the one block per member, and
+    the grid (its body fixed by s2) on grids of 1, 2, 4 and 8 CTAs an SM
+    (as many as the pairs need and the card holds); device µs per launch,
+    each output against the plain factor's (bit for bit, or the largest
+    gap)."""
+    for name, W, nvar, N, B, C in GRIDS_K4N:
+        Mc = 2
+        plan = chunked.plan_with(2 * C * Mc * (W // 2), nvar, W // 2, True, C, B)
+        bands = kernel_checks.random_bands(W, nvar, plan.N, dtype, "cuda")
+        if B > 1:
+            bands = bands.expand(B, *bands.shape).contiguous()
+        fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
+        del bands
+        s2, sfx = 2 * plan.s, suffix(dtype)
+        want = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
+        sms = sm_count(fact.Lred)
+        print(f"K4 narrow factor {name} C={C} B={B} s2={s2} cyclic={plan.cyclic} {dtype}: "
+              f"route {pcr.factor_route(s2, C)}", flush=True)
+
+        def report(label, go):
+            got = go()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                      for a, b in zip(got, want))
+            print(f"  {label}: {device_us(go, 'pcr_factor', 10):.1f} device us; "
+                  + ("bit-equal to the plain factor" if same else f"gap {gap:.2e}"),
+                  flush=True)
+
+        report("one block per member", lambda: pcr._factor(fact.Lred, fact.Ured, plan.cyclic,
+                                                          "members"))
+        lead = (B,) if B > 1 else ()
+        nlev = pcr.n_levels(C)
+        held = pcr._grid_blocks(pcr.LIB, sfx, s2)
+        pick = pcr.factor_plan_grid(C, s2, B, sms, held)
+        per_cta = pcr.grid_pairs_per_cta(s2)
+        fn = pcr.LIB.fn(f"tf_pcr_factor_grid_{sfx}", 6, 5)
+        for per in (1, 2, 4, 8):
+            if per > held:
+                continue
+            ctas = min(-(-B * C // per_cta), sms * per)
+
+            def go(ctas=ctas):
+                ops = torch.empty((2, *lead, nlev, s2, s2, C), dtype=dtype, device="cuda")
+                Dinv = torch.empty((*lead, s2, s2, C), dtype=dtype, device="cuda")
+                scratch = torch.empty((7, B * C, s2, s2), dtype=dtype, device="cuda")
+                rc = fn(fact.Lred.data_ptr(), fact.Ured.data_ptr(), ops[0].data_ptr(),
+                        ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
+                        int(plan.cyclic), B, ctas, stream_of(Dinv))
+                pcr.LIB.check(rc, "K4 narrow factor")
+                return pcr.PcrFactor(ops[0], ops[1], Dinv)
+
+            report(f"grid ({'a thread' if s2 == 2 else 'lane groups'} per pair), {ctas} CTAs "
+                   f"({per} an SM; the card holds {held}; plan {pick})", go)
+        del fact, want
+        torch.cuda.empty_cache()
 
 
 def sweep_k3(dtype):
@@ -307,7 +430,7 @@ def main():
     print(f"card {smi}", flush=True)
     which = sys.argv[1:] or ["k2", "k4", "k3", "k5"]
     sweeps = {"k2": sweep_k2, "k4": sweep_k4, "k3": sweep_k3, "k5": sweep_k5,
-              "k2w": sweep_k2w, "k4w": sweep_k4w}
+              "k2w": sweep_k2w, "k4w": sweep_k4w, "k3c": sweep_k3c, "k4n": sweep_k4n}
     for dtype in (torch.float64, torch.float32):
         for key in which:
             sweeps[key](dtype)

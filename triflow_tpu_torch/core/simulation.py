@@ -164,7 +164,7 @@ class Simulation:
         if device_chunk and device_chunk > 1:
             raise NotImplementedError(
                 "device_chunk > 1 (several output steps per device call) is "
-                "not ported yet (ROADMAP A6)")
+                "not ported yet (ROADMAP A1c)")
         log = logger.info if verbose else logger.debug
         t, fields = self.t, self.fields
         ran = False

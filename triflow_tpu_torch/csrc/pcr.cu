@@ -29,11 +29,15 @@
 // sync (the TPU kernel ran its right-hand sides' levels one after the
 // other), and the S2 x S2 capacitance is inverted in shared memory.
 //
-// The narrow factor (S2 <= 8) and the R-column solve run one thread block
-// per member (gridDim.x = B, the members of an ensemble; 1 for one grid):
-// the level loop is sequential, and __syncthreads() between the phases of a
-// level makes each phase's global scratch writes visible to the whole
-// block.
+// The R-column solve runs one thread block per member (gridDim.x = B, the
+// members of an ensemble; 1 for one grid): the level loop is sequential,
+// and __syncthreads() between the phases of a level makes each phase's
+// global scratch writes visible to the whole block.  So does the narrow
+// factor's one-block kernel (pcr_factor_kernel), kept for plans of few
+// chunks (ops/pcr.py:factor_route: up to 128 a member), whose levels it
+// walks faster than a grid-wide barrier a level allows; otherwise the
+// narrow factor spreads each level over a cooperative grid across the card
+// (pcr_factor_grid_kernel / pcr_factor_thread_kernel below).
 // Member b's arrays sit at b times one member's size (Lred, Ured, Dinv, Z
 // (B, S2, S2, C), the level operators (B, nlev, S2, S2, C), right-hand
 // sides (B, R, S2, C) and yred (B, S2, C), cap_inv (B, S2, S2), xm1 and
@@ -71,9 +75,10 @@
 // inverses do not fit one thread's registers, runs each chunk's level on a
 // group of S2 lanes, lane r holding row r of every block (wide.cuh), and
 // spreads each phase of a level over the whole card
-// (pcr_factor_wide_kernel below): its 2 log2 C + 1 dependent phases are
+// (pcr_factor_grid_kernel below): its 2 log2 C + 1 dependent phases are
 // what bound it, each one pass of lane groups (a 12 x 12 Gauss-Jordan by
-// shuffles, or six shuffle products) and a grid-wide barrier.
+// shuffles, or six shuffle products) and a grid-wide barrier.  The narrow
+// factor takes the same grid with one phase a level (log2 C + 1).
 #include <cooperative_groups.h>
 
 #include "cp_async.cuh"
@@ -114,32 +119,48 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 #define TF_CASES TF_CASE(2) TF_CASE(4) TF_CASE(6) TF_CASE(8)
 #endif
 
-#ifdef TF_WIDE
-// The wide factor (S2 = 10..16) across many SMs.  A level's chunks are
-// independent once the previous level is done: the only order is inverse
-// (Dt_c = D_c^-1 of every chunk) -> update (alpha, beta, L', D', U') -> next
-// level.  So each phase is spread over the pairs (member, chunk) of the
-// whole grid, one group of S2 lanes per pair (wide.cuh), and a grid-wide
-// barrier separates the phases.  The level state (L, D, U in two buffers and
-// Dt) lives in global scratch, each pair's S2 x S2 block contiguous
-// (chunk-major: lane r reads its row as S2 / 2 or S2 / 4 vector loads), and
-// is small enough to stay in L2 (7 S2^2 B C values: 4 MB at S2 = 12, C =
-// 500, float64); it is read with ld.global.cg, past the reading SM's L1,
-// which may hold a line another SM rewrote since.  The inputs Lred / Ured
-// and the outputs (alphas, betas, Dinv) keep the chunk-minor layout
-// (S2, S2, C) of the other entries.  The products and sums are
-// pcr_factor_block's, in the same order.
+// The factor across many SMs (the wide S2 = 10..16, and the narrow S2 =
+// 2..8, where one block per member would run every level of one grid on
+// one SM of 132).  A level's chunks are independent once the previous
+// level is done: the only order is inverse (Dt_c = D_c^-1 of every chunk)
+// -> update (alpha, beta, L', D', U') -> next level.  So each phase is
+// spread over the pairs (member, chunk) of the whole grid, and a grid-wide
+// barrier separates the phases.  The level state (L, D, U in two buffers
+// and, unfused, Dt) lives in global scratch and is small enough to stay in
+// L2 for one grid (7 S2^2 B C values: 4 MB at S2 = 12, C = 500, float64);
+// it is read with ld.global.cg, past the reading SM's L1, which may hold a
+// line another SM rewrote since.  The inputs Lred / Ured and the outputs
+// (alphas, betas, Dinv) keep the chunk-minor layout (S2, S2, C) of the
+// other entries.  The products, sums and inverses are pcr_factor_block's,
+// in the same order.
+//
+// Two bodies, fixed by S2 at compile time (grid_factor_kernel):
+// - lane groups (pcr_factor_grid_kernel, S2 = 4..16): one group of S2
+//   lanes per pair (wide.cuh), lane r holding row r of each block, each
+//   pair's block contiguous in the scratch (chunk-major: lane r reads its
+//   row as S2 / 2 or S2 / 4 vector loads); each product takes its right
+//   operand through the group's block in shared memory (tf::mm_shared),
+//   the inverse is one shuffle round a column.  A warp's groups take
+//   consecutive pairs.
+// - a thread per pair (pcr_factor_thread_kernel, S2 = 2, where lane
+//   groups of two would leave most of a warp's shuffles idle): the whole
+//   blocks in registers (common.cuh), the scratch chunk-minor over the B C
+//   pairs so that a warp's loads of one entry are consecutive.
+// With kFused (the narrow S2 but 6) each pair inverts its two neighbours'
+// D itself instead of reading Dt, so a level is one phase and one barrier
+// (two inverses a pair instead of one: cheap at S2 <= 8).  The wide
+// factor keeps two phases a level, and so does S2 = 6, where the fused
+// body spilled (4 bytes of spill stores in float64, 24 in float32;
+// ptxas -v) and the unfused one does not.
 //
 // The grid is cooperative: its CTAs (at most what the card holds at once,
-// ops/pcr.py:factor_plan_wide) cover every pair of every member, and
-// grid.sync() separates the phases.  (One thread-block cluster of up to 16
-// CTAs per member, the cluster barrier between the phases and 512-thread
-// CTAs multiplying by shuffles, ran 2.9 times slower at the film's C = 500
-// and 5 times at C >= 2048: 16 SMs against the card's 132; PERF.md.)  A
-// warp's groups take consecutive pairs, the
-// warps of the grid consecutive runs of them, in passes until every pair
-// is done.  Each product takes its right operand through the group's
-// block in shared memory (tf::mm_shared).
+// ops/pcr.py:factor_plan_grid / factor_plan_wide) cover every pair of
+// every member, the warps (threads) of the grid consecutive runs of pairs,
+// in passes until every pair is done, and grid.sync() separates the
+// phases.  (One thread-block cluster of up to 16 CTAs per member, the
+// cluster barrier between the phases and 512-thread CTAs multiplying by
+// shuffles, ran 2.9 times slower at the film's C = 500 and 5 times at C >=
+// 2048: 16 SMs against the card's 132; PERF.md.)
 
 // Loads through L2 (ld.global.cg) as volatile asm: none is merged with
 // another or moved across the barriers between the phases.
@@ -154,10 +175,20 @@ __device__ __forceinline__ void ld_cg(const float* p, float& x, float& y, float&
                : "=f"(x), "=f"(y), "=f"(z), "=f"(w)
                : "l"(p));
 }
+__device__ __forceinline__ double ld_cg(const double* p) {
+  double x;
+  asm volatile("ld.global.cg.f64 %0, [%1];\n" : "=d"(x) : "l"(p));
+  return x;
+}
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float x;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(x) : "l"(p));
+  return x;
+}
 
 // row r of the block of pair q, chunk-major (q, S2, S2), through L2: S2 / 4
-// 16-byte loads where a row's bytes allow (float, S2 = 12, 16), else S2 / 2
-// pairs (every row starts 8-byte aligned, 16-byte in double)
+// 16-byte loads where a row's bytes allow (float, S2 = 4, 8, 12, 16), else
+// S2 / 2 pairs (every row starts 8-byte aligned, 16-byte in double)
 template <typename T, int S2>
 __device__ __forceinline__ tf::Row<T, S2> ld_row(const T* p, long q, int r) {
   const T* a = p + (q * S2 + r) * S2;
@@ -192,12 +223,12 @@ __device__ __forceinline__ void st_row(T* p, long q, int r, const tf::Row<T, S2>
   }
 }
 
-constexpr int kWideFactorThreads = 128;
+constexpr int kGridFactorThreads = 128;
 
-// scratch: 7 x (B C, S2, S2)
-template <typename T, int S2>
-__global__ void __launch_bounds__(kWideFactorThreads)
-    pcr_factor_wide_kernel(const T* __restrict__ Lred, const T* __restrict__ Ured,
+// The lane-group body.  scratch: 7 x (B C, S2, S2)
+template <typename T, int S2, bool kFused>
+__global__ void __launch_bounds__(kGridFactorThreads)
+    pcr_factor_grid_kernel(const T* __restrict__ Lred, const T* __restrict__ Ured,
                            T* __restrict__ alphas, T* __restrict__ betas, T* __restrict__ Dinv,
                            T* __restrict__ scratch, int C, int B, int cyclic, int nlev) {
   using Row = tf::Row<T, S2>;
@@ -229,7 +260,7 @@ __global__ void __launch_bounds__(kWideFactorThreads)
   const int r = g.r;
   // each group's block for its products (and one for the lanes past them)
   constexpr int GB = tf::group_block<T, S2>();
-  __shared__ __align__(16) T mmbuf[kWideFactorThreads / 32 * (G + 1) * GB];
+  __shared__ __align__(16) T mmbuf[kGridFactorThreads / 32 * (G + 1) * GB];
   T* const mb = mmbuf + (warp * (G + 1) + grp) * GB;
   auto mm = [&](const Row& a, const Row& b) { return tf::mm_shared<T, S2>(a, b, g, mb); };
   // one pass of the warp's groups over its pairs: fn(q, b, c, store)
@@ -243,17 +274,24 @@ __global__ void __launch_bounds__(kWideFactorThreads)
   };
   int cur = 0, lev = 0;
   for (int d = 1; d < C; d *= 2, ++lev) {
-    passes([&](long q, long, int, bool store) {
-      const Row di = tf::inv(ld_row<T, S2>(Db[cur], q, r), g);
-      if (store) st_row<T, S2>(Dt, q, r, di);
-    });
-    grid.sync();
+    if constexpr (!kFused) {
+      passes([&](long q, long, int, bool store) {
+        const Row di = tf::inv(ld_row<T, S2>(Db[cur], q, r), g);
+        if (store) st_row<T, S2>(Dt, q, r, di);
+      });
+      grid.sync();
+    }
     const int nxt = cur ^ 1;
     passes([&](long q, long b, int c, bool store) {
       const long qb = q - c;
       const long qm = qb + (c < d ? c - d + C : c - d), qp = qb + (c + d >= C ? c + d - C : c + d);
+      // the neighbours' inverses: Dt's, or (fused) inverted here
+      auto dinv = [&](long qn) {
+        if constexpr (kFused) return tf::inv(ld_row<T, S2>(Db[cur], qn, r), g);
+        return ld_row<T, S2>(Dt, qn, r);
+      };
       // alpha's terms first, then beta's: fewer rows live at once
-      Row alpha = tf::neg(mm(ld_row<T, S2>(Lb[cur], q, r), ld_row<T, S2>(Dt, qm, r)));
+      Row alpha = tf::neg(mm(ld_row<T, S2>(Lb[cur], q, r), dinv(qm)));
       if (!cyclic && c < d) alpha = tf::zero_row<T, S2>();
       const Row Lnew = mm(alpha, ld_row<T, S2>(Lb[cur], qm, r));
       const Row Dpart = tf::add(ld_row<T, S2>(Db[cur], q, r),
@@ -262,7 +300,7 @@ __global__ void __launch_bounds__(kWideFactorThreads)
         tf::store_row(alphas + b * ops, lev, r, c, C, alpha);
         st_row<T, S2>(Lb[nxt], q, r, Lnew);
       }
-      Row beta = tf::neg(mm(ld_row<T, S2>(Ub[cur], q, r), ld_row<T, S2>(Dt, qp, r)));
+      Row beta = tf::neg(mm(ld_row<T, S2>(Ub[cur], q, r), dinv(qp)));
       if (!cyclic && c >= C - d) beta = tf::zero_row<T, S2>();
       const Row Unew = mm(beta, ld_row<T, S2>(Ub[cur], qp, r));
       const Row D = tf::add(Dpart, mm(beta, ld_row<T, S2>(Lb[cur], qp, r)));
@@ -282,6 +320,79 @@ __global__ void __launch_bounds__(kWideFactorThreads)
     const Row di = tf::inv(D, g);
     if (store) tf::store_row(Dinv + b * blk, 0, r, c, C, di);
   });
+}
+
+#ifndef TF_WIDE
+// block of pair q of a chunk-minor array over the P = B C pairs, entry
+// (i, k) at (i S2 + k) P + q, through L2
+template <typename T, int S2>
+__device__ __forceinline__ tf::Blk<T, S2> ld_blk_cg(const T* p, long q, long P) {
+  tf::Blk<T, S2> a;
+#pragma unroll
+  for (int i = 0; i < S2; ++i)
+#pragma unroll
+    for (int k = 0; k < S2; ++k) a.v[i][k] = ld_cg(p + (i * S2 + k) * P + q);
+  return a;
+}
+
+// The thread-per-pair body (S2 = 2, fused levels).  scratch: 6 x (S2, S2, B C)
+template <typename T, int S2>
+__global__ void __launch_bounds__(kGridFactorThreads)
+    pcr_factor_thread_kernel(const T* __restrict__ Lred, const T* __restrict__ Ured,
+                             T* __restrict__ alphas, T* __restrict__ betas,
+                             T* __restrict__ Dinv, T* __restrict__ scratch, int C, int B,
+                             int cyclic, int nlev) {
+  constexpr int SS = S2 * S2;
+  cg::grid_group grid = cg::this_grid();
+  const long P = (long)B * C, sz = P * SS, blk = (long)SS * C, ops = (long)nlev * blk;
+  const long t0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long tstride = (long)gridDim.x * blockDim.x;
+  T* Lb[2] = {scratch, scratch + 3 * sz};
+  T* Db[2] = {scratch + sz, scratch + 4 * sz};
+  T* Ub[2] = {scratch + 2 * sz, scratch + 5 * sz};
+  for (long q = t0; q < P; q += tstride) {
+    const long b = q / C, c = q - b * C;
+#pragma unroll
+    for (int e = 0; e < SS; ++e) {
+      Lb[0][e * P + q] = Lred[b * blk + e * C + c];
+      Ub[0][e * P + q] = Ured[b * blk + e * C + c];
+      Db[0][e * P + q] = e / S2 == e % S2 ? T(1) : T(0);
+    }
+  }
+  grid.sync();
+  int cur = 0, lev = 0;
+  for (int d = 1; d < C; d *= 2, ++lev) {
+    const int nxt = cur ^ 1;
+    for (long q = t0; q < P; q += tstride) {
+      const long b = q / C;
+      const int c = (int)(q - b * C);
+      const long qb = q - c;
+      const long qm = qb + (c < d ? c - d + C : c - d), qp = qb + (c + d >= C ? c + d - C : c + d);
+      tf::Blk<T, S2> alpha =
+          tf::neg(tf::mm(ld_blk_cg<T, S2>(Lb[cur], q, P), tf::inv(ld_blk_cg<T, S2>(Db[cur], qm, P))));
+      tf::Blk<T, S2> beta =
+          tf::neg(tf::mm(ld_blk_cg<T, S2>(Ub[cur], q, P), tf::inv(ld_blk_cg<T, S2>(Db[cur], qp, P))));
+      if (!cyclic && c < d) tf::zero(alpha);
+      if (!cyclic && c >= C - d) tf::zero(beta);
+      const tf::Blk<T, S2> D =
+          tf::add(tf::add(ld_blk_cg<T, S2>(Db[cur], q, P), tf::mm(alpha, ld_blk_cg<T, S2>(Ub[cur], qm, P))),
+                  tf::mm(beta, ld_blk_cg<T, S2>(Lb[cur], qp, P)));
+      tf::store_blk(Db[nxt], 0, (int)q, (int)P, D);
+      tf::store_blk(Lb[nxt], 0, (int)q, (int)P, tf::mm(alpha, ld_blk_cg<T, S2>(Lb[cur], qm, P)));
+      tf::store_blk(Ub[nxt], 0, (int)q, (int)P, tf::mm(beta, ld_blk_cg<T, S2>(Ub[cur], qp, P)));
+      tf::store_blk(alphas + b * ops, lev, c, C, alpha);
+      tf::store_blk(betas + b * ops, lev, c, C, beta);
+    }
+    grid.sync();
+    cur = nxt;
+  }
+  for (long q = t0; q < P; q += tstride) {
+    const long b = q / C;
+    const int c = (int)(q - b * C);
+    tf::Blk<T, S2> D = ld_blk_cg<T, S2>(Db[cur], q, P);
+    if (cyclic) D = tf::add(D, tf::add(ld_blk_cg<T, S2>(Lb[cur], q, P), ld_blk_cg<T, S2>(Ub[cur], q, P)));
+    tf::store_blk(Dinv + b * blk, 0, c, C, tf::inv(D));
+  }
 }
 #endif
 
@@ -529,37 +640,50 @@ __global__ void __launch_bounds__(kSolveThreads)
   cluster_wait();
 }
 
-#ifdef TF_WIDE
-// The wide factor over a cooperative grid of `ctas` CTAs (at most what the
-// card holds at once, factor_wide_blocks)
+// The grid factor's kernel at S2: the thread-per-pair body at S2 = 2, the
+// lane groups otherwise (fused at the narrow S2 but 6)
 template <typename T, int S2>
-int launch_factor_wide(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch,
+auto grid_factor_kernel() {
+#ifdef TF_WIDE
+  return pcr_factor_grid_kernel<T, S2, false>;
+#else
+  if constexpr (S2 == 2)
+    return pcr_factor_thread_kernel<T, S2>;
+  else
+    return pcr_factor_grid_kernel<T, S2, S2 != 6>;
+#endif
+}
+
+// One launch of the grid factor over a cooperative grid of `ctas` CTAs (at
+// most what the card holds at once, factor_grid_blocks)
+template <typename T, int S2>
+int launch_factor_grid(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch,
                        int C, int cyclic, int B, int ctas, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)ctas);
-  cfg.blockDim = dim3(kWideFactorThreads);
+  cfg.blockDim = dim3(kGridFactorThreads);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int nlev = 0;
   for (int d = 1; d < C; d *= 2) ++nlev;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, pcr_factor_wide_kernel<T, S2>, Lred, Ured, alphas,
-                                       betas, Dinv, scratch, C, B, cyclic, nlev);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, grid_factor_kernel<T, S2>(), Lred, Ured,
+                                       alphas, betas, Dinv, scratch, C, B, cyclic, nlev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int factor_wide(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch, int C,
+int factor_grid(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch, int C,
                 int S2, int cyclic, int B, int ctas, cudaStream_t stream) {
   if (B < 1 || C < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
 #define TF_CASE(S2)                                                                        \
   case S2:                                                                                 \
-    return launch_factor_wide<T, S2>(Lred, Ured, alphas, betas, Dinv, scratch, C, cyclic,  \
+    return launch_factor_grid<T, S2>(Lred, Ured, alphas, betas, Dinv, scratch, C, cyclic,  \
                                      B, ctas, stream);
     TF_CASES
 #undef TF_CASE
@@ -568,17 +692,17 @@ int factor_wide(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* s
   }
 }
 
-// CTAs of the cooperative wide factor one SM holds at once (0: none), or
+// CTAs of the cooperative grid factor one SM holds at once (0: none), or
 // minus a CUDA error
 template <typename T>
-int factor_wide_blocks(int S2) {
+int factor_grid_blocks(int S2) {
   int n = 0;
   cudaError_t err = cudaErrorInvalidValue;
   switch (S2) {
 #define TF_CASE(S2)                                                                             \
   case S2:                                                                                      \
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                        \
-        &n, pcr_factor_wide_kernel<T, S2>, kWideFactorThreads, 0);                       \
+        &n, grid_factor_kernel<T, S2>(), kGridFactorThreads, 0);                                \
     break;
     TF_CASES
 #undef TF_CASE
@@ -587,7 +711,10 @@ int factor_wide_blocks(int S2) {
   }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
-#else
+
+#ifndef TF_WIDE
+// The one-block-per-member factor (pcr_factor_kernel), kept for plans of
+// few chunks (ops/pcr.py:factor_route)
 template <typename T>
 int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratch, int C,
            int S2, int cyclic, int B, cudaStream_t stream) {
@@ -771,20 +898,26 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
 
 }  // namespace
 
+// the grid factor: tf_pcr_factor_wide_* in the wide library,
+// tf_pcr_factor_grid_* (and the one-block tf_pcr_factor_*) in the narrow one
+#define TF_GRID_ENTRIES(NAME, SUFFIX, T)                                                     \
+  extern "C" int tf_pcr_factor_##NAME##_##SUFFIX(const void* Lred, const void* Ured,         \
+                                                 void* alphas, void* betas, void* Dinv,      \
+                                                 void* scratch, int C, int S2, int cyclic,   \
+                                                 int B, int ctas, void* stream) {            \
+    return factor_grid<T>(static_cast<const T*>(Lred), static_cast<const T*>(Ured),          \
+                          static_cast<T*>(alphas), static_cast<T*>(betas),                   \
+                          static_cast<T*>(Dinv), static_cast<T*>(scratch), C, S2, cyclic,    \
+                          B, ctas, static_cast<cudaStream_t>(stream));                       \
+  }                                                                                          \
+  extern "C" int tf_pcr_factor_##NAME##_blocks_##SUFFIX(int S2) {                            \
+    return factor_grid_blocks<T>(S2);                                                        \
+  }
 #ifdef TF_WIDE
-#define TF_FACTOR_ENTRIES(SUFFIX, T)                                                        \
-  extern "C" int tf_pcr_factor_wide_##SUFFIX(const void* Lred, const void* Ured,            \
-                                             void* alphas, void* betas, void* Dinv,         \
-                                             void* scratch, int C, int S2, int cyclic,      \
-                                             int B, int ctas, void* stream) {               \
-    return factor_wide<T>(static_cast<const T*>(Lred), static_cast<const T*>(Ured),         \
-                          static_cast<T*>(alphas), static_cast<T*>(betas),                  \
-                          static_cast<T*>(Dinv), static_cast<T*>(scratch), C, S2, cyclic,   \
-                          B, ctas, static_cast<cudaStream_t>(stream));                      \
-  }                                                                                         \
-  extern "C" int tf_pcr_factor_wide_blocks_##SUFFIX(int S2) { return factor_wide_blocks<T>(S2); }
+#define TF_FACTOR_ENTRIES(SUFFIX, T) TF_GRID_ENTRIES(wide, SUFFIX, T)
 #else
 #define TF_FACTOR_ENTRIES(SUFFIX, T)                                                      \
+  TF_GRID_ENTRIES(grid, SUFFIX, T)                                                        \
   extern "C" int tf_pcr_factor_##SUFFIX(const void* Lred, const void* Ured, void* alphas, \
                                         void* betas, void* Dinv, void* scratch, int C,    \
                                         int S2, int cyclic, int B, void* stream) {        \

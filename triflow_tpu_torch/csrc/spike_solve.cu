@@ -12,12 +12,13 @@
 // writes y in the node layout (nvar, N) of the right-hand side, and the
 // interface right-hand side yred (2S, C) = (y_0, y_{Mc-1}) of every chunk.
 //
-// spike_correct: one thread per node.  With the interface unknowns of the
-// neighbours from K4 (xm1 = x_{c-1}^bot, xp1 = x_{c+1}^top, each (S, C)),
+// spike_correct: with the interface unknowns of the neighbours from K4
+// (xm1 = x_{c-1}^bot, xp1 = x_{c+1}^top, each (S, C)),
 //   x = y - W xm1 - V xp1   (+ add_to, the theta step's u + A^-1 dt F).
 //
 // Member axis: both entries take B grids (an ensemble) in one launch, one
-// block per (member, chunk group) or one thread per (member, node); member
+// block per group of chunks (and for the correction, of rows) of the B C
+// chunks of all members, taken in turn; member
 // b's arrays sit at b times one grid's size (rhs, y, add_to and out (B,
 // nvar, N), factor rows (B, Mc, S, S, C), yred (B, 2S, C), xm1 and xp1 (B,
 // S, C)).  One grid (B = 1) launches the correction's instantiations
@@ -43,24 +44,42 @@
 // (``ops/thomas.py:sweep_plan``): fewer chunks per block where the grid has
 // few, so that more SMs take part, and the stages within the shared memory
 // a block may use.  The bytes bound it: the factor rows and the right-hand
-// side read once, y written once.  The correction is elementwise and
-// bandwidth-bound: it reads y, the two spikes and add_to once and writes x
-// once.
+// side read once, y written once.
 //
-// The correction's body lives in sweep.cuh, shared with K6 (megastep.cu),
-// which also keeps the one-thread sweep of a chunk (thomas_sweep_chunk).
+// The correction is bandwidth-bound: it reads y, the two spikes W and V
+// (S^2 values per supernode each: 4 of the 6 values a node moves at S = 2,
+// 36 of 42 per grid point at the film's S = 6), xm1, xp1 and add_to once
+// and writes x once.  One thread per node read its spikes at ((j S + r) S
+// + q) C + c, so a warp's loads of W and V strode by S C or S^2 C entries
+// and each value took a 32-byte sector of its own.  So the correction is
+// tiled (spike_correct_kernel): a block takes CB consecutive chunks by R
+// rows, reads W, V, xm1 and xp1 along the chunks, their contiguous axis,
+// then y and add_to and writes x along each chunk's node segment, the node
+// layout's contiguous axis, through a shared-memory tile of the sums.
+// The host plans CB and R (``ops/thomas.py:correct_plan``).
+//
+// K6 (megastep.cu) keeps the one-thread bodies of sweep.cuh: the sweep of
+// a chunk (thomas_sweep_chunk) and the correction of a node
+// (spike_correct_node), whose sums the tiled correction keeps in order.
 //
 // Wide blocks (S = 5..8) are built into a library of their own, from this
-// file with TF_WIDE defined: the same bodies, one lane per chunk or node.
-// They hold vectors of S entries and stream each block's entries into a
-// product, so unlike K2 and K4's factor they need no group of lanes.
+// file with TF_WIDE defined: the same bodies, one lane per chunk or per
+// (row, chunk) pair.  They hold vectors of S entries and stream each
+// block's entries into a product, so unlike K2 and K4's factor they need no
+// group of lanes.
+#include "common.cuh"
 #include "cp_async.cuh"
-#include "sweep.cuh"
 
 #ifdef TF_WIDE
 #define TF_CASES TF_CASE(5) TF_CASE(6) TF_CASE(7) TF_CASE(8)
+// the correction's (S, g) pairs: S = nvar g, g = max(halo, 1)
+#define TF_CORRECT_CASES                                                              \
+  TF_CC(5, 1) TF_CC(5, 5) TF_CC(6, 1) TF_CC(6, 2) TF_CC(6, 3) TF_CC(6, 6) TF_CC(7, 1) \
+  TF_CC(7, 7) TF_CC(8, 1) TF_CC(8, 2) TF_CC(8, 4) TF_CC(8, 8)
 #else
 #define TF_CASES TF_CASE(1) TF_CASE(2) TF_CASE(3) TF_CASE(4)
+#define TF_CORRECT_CASES \
+  TF_CC(1, 1) TF_CC(2, 1) TF_CC(2, 2) TF_CC(3, 1) TF_CC(3, 3) TF_CC(4, 1) TF_CC(4, 2) TF_CC(4, 4)
 #endif
 
 namespace {
@@ -68,6 +87,9 @@ namespace {
 constexpr int kSweepThreads = 128;
 constexpr int kStages = 4;
 constexpr int kMaxCB = 32;
+// the correction: threads of a block, most chunks a block takes
+constexpr int kCorrectThreads = 256;
+constexpr int kMaxCorrectCB = 32;
 
 using tf::cp_async;
 using tf::cp_async_commit;
@@ -267,19 +289,82 @@ __global__ void __launch_bounds__(kSweepThreads)
   }
 }
 
-template <typename T, int S, bool kMembers>
-__global__ void spike_correct_kernel(const T* __restrict__ y, const T* __restrict__ Wsp,
-                                     const T* __restrict__ Vsp, const T* __restrict__ xm1,
-                                     const T* __restrict__ xp1, const T* __restrict__ add_to,
-                                     T* out, int N, int nvar, int g, int Mc, int C,
-                                     int has_add, int B) {
-  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (long)B * N) return;
-  const long b = kMembers ? q / N : 0, i = kMembers ? q % N : q;
-  const long rows = (long)Mc * S * S * C, n = (long)nvar * N, sc = (long)S * C;
-  tf::spike_correct_node<T, S>(y + b * n, Wsp + b * rows, Vsp + b * rows, xm1 + b * sc,
-                               xp1 + b * sc, has_add ? add_to + b * n : nullptr, out + b * n,
-                               N, nvar, g, Mc, C, i);
+// The correction of a tile: CB consecutive chunks (flat index q of the B C
+// chunks of all members, as the sweep takes them; CB = 2^lcb) by R
+// supernode rows from row tile * R, blockIdx.x = group * tiles + tile.
+// Phase 1: the threads take the tile's (row, chunk) pairs in turn, the
+// chunk fastest, and sum the S rows of W xm1 + V xp1 at each pair's row; a warp's loads of
+// one entry of W or V are the CB consecutive chunks' values, contiguous in
+// the chunk-minor layout (B, Mc, S, S, C), and so are those of xm1 and
+// xp1 (B, S, C).  The sums go to a shared tile cs[l (R S + 1) + jj S + r]
+// (one pad entry per chunk: the phase-2 reads of consecutive nodes do not
+// share a bank).  Phase 2: consecutive threads take consecutive nodes of
+// one chunk's segment of R g nodes of one field (contiguous in the node
+// layout (B, nvar, N)), padded to P = 2^lp >= R g lanes, and write out =
+// add_to + (y - corr).  The segment offsets of the block's chunks come
+// once per block (lane l's in wb, xb, nb); every other index is a shift,
+// a mask or a division by the compile-time g.  The sums and the update
+// are tf::spike_correct_node's, in its order.
+template <typename T, int S, int G, bool kMembers>
+__global__ void __launch_bounds__(kCorrectThreads, 4)
+    spike_correct_kernel(const T* __restrict__ y, const T* __restrict__ Wsp,
+                         const T* __restrict__ Vsp, const T* __restrict__ xm1,
+                         const T* __restrict__ xp1, const T* __restrict__ add_to,
+                         T* __restrict__ out, int N, int Mc, int C, int B, int lcb, int R,
+                         int tiles) {
+  constexpr int NV = S / G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long wb[kMaxCorrectCB], xb[kMaxCorrectCB], nb[kMaxCorrectCB];
+  T* cs = reinterpret_cast<T*>(smem_raw);
+  const int CB = 1 << lcb, tid = threadIdx.x;
+  const int grp = blockIdx.x / tiles, tile = blockIdx.x - grp * tiles;
+  const long q0 = (long)grp << lcb;
+  const int nch = (int)min((long)CB, (long)B * C - q0);
+  const int j0 = tile * R, nr = min(R, Mc - j0);
+  if (tid < nch) {
+    const long q = q0 + tid;
+    const long b = kMembers ? q / C : 0, c = q - b * C;
+    wb[tid] = (b * Mc + j0) * S * S * C + c;
+    xb[tid] = b * S * C + c;
+    nb[tid] = b * NV * N + (c * Mc + j0) * G;
+  }
+  __syncthreads();
+  const int ld = R * S + 1;
+  for (int p = tid; p < (nr << lcb); p += kCorrectThreads) {
+    const int l = p & (CB - 1), jj = p >> lcb;
+    if (l >= nch) continue;
+    const long at0 = wb[l] + (long)jj * S * S * C;
+    const T* w = Wsp + at0;
+    const T* v = Vsp + at0;
+    T xm[S], xp[S];
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      xm[q] = xm1[xb[l] + (long)q * C];
+      xp[q] = xp1[xb[l] + (long)q * C];
+    }
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      T corr = T(0);
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const long at = (long)(r * S + q) * C;
+        corr += w[at] * xm[q] + v[at] * xp[q];
+      }
+      cs[l * ld + jj * S + r] = corr;
+    }
+  }
+  __syncthreads();
+  const int rg = nr * G, lp = 32 - __clz(R * G - 1);
+  for (int e = tid; e < ((NV << lcb) << lp); e += kCorrectThreads) {
+    const int k = e & ((1 << lp) - 1), pm = e >> lp;
+    const int l = pm & (CB - 1), m = pm >> lcb;
+    if (k >= rg || l >= nch) continue;
+    const int jj = k / G, a = k - jj * G;
+    const T corr = cs[l * ld + jj * S + a * NV + m];
+    const long at = nb[l] + (long)m * N + k;
+    const T x = y[at] - corr;
+    out[at] = add_to ? add_to[at] + x : x;
+  }
 }
 
 // Shared memory of a sweep plan, in bytes (ops/thomas.py:sweep_plan
@@ -324,30 +409,51 @@ int sweep(const T* fac, const T* Dhinv, const T* DU, const T* rhs, T* y, T* yred
   }
 }
 
+// Shared memory of a correction plan (CB chunks by R rows,
+// ops/thomas.py:correct_plan), in bytes: the sums of CB chunks' R rows, one
+// pad entry each.
+long correct_smem(int S, int item, int CB, int R) { return (long)item * CB * (R * S + 1); }
+
+// One launch of the correction on the plan (CB = 2^lcb chunks, R rows per
+// block) at block size S = NV G
+template <typename T, int S, int G>
+int launch_correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1,
+                   const T* add_to, T* out, int N, int Mc, int C, int B, int lcb, int R,
+                   cudaStream_t stream) {
+  const long bytes = correct_smem(S, sizeof(T), 1 << lcb, R);
+  const int tiles = (Mc + R - 1) / R;
+  const long blocks = (((long)B * C + (1 << lcb) - 1) >> lcb) * tiles;
+  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = B > 1 ? spike_correct_kernel<T, S, G, true> : spike_correct_kernel<T, S, G, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<(unsigned)blocks, kCorrectThreads, bytes, stream>>>(y, W, V, xm1, xp1, add_to, out, N,
+                                                           Mc, C, B, lcb, R, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, const T* add_to,
-            T* out, int N, int nvar, int g, int Mc, int C, int has_add, int B,
+            T* out, int N, int nvar, int g, int Mc, int C, int has_add, int B, int CB, int R,
             cudaStream_t stream) {
-  const int threads = 256;
-  const long blocks = ((long)B * N + threads - 1) / threads;
-  switch (nvar * g) {
-#define TF_LAUNCH(S, MEM)                                                            \
-  spike_correct_kernel<T, S, MEM><<<blocks, threads, 0, stream>>>(                   \
-      y, W, V, xm1, xp1, add_to, out, N, nvar, g, Mc, C, has_add, B)
-#define TF_CASE(S)                                                                   \
-  case S:                                                                            \
-    if (B > 1)                                                                       \
-      TF_LAUNCH(S, true);                                                            \
-    else                                                                             \
-      TF_LAUNCH(S, false);                                                           \
-    break;
-    TF_CASES
-#undef TF_CASE
-#undef TF_LAUNCH
+  if (CB < 1 || CB > kMaxCorrectCB || (CB & (CB - 1)) || R < 1 || Mc < 1 || C < 1 || B < 1 ||
+      nvar < 1 || g < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int lcb = 31 - __builtin_clz(CB);
+  if (!has_add) add_to = nullptr;
+  switch (nvar * g * 16 + g) {
+#define TF_CC(S, G)                                                                   \
+  case S * 16 + G:                                                                    \
+    return launch_correct<T, S, G>(y, W, V, xm1, xp1, add_to, out, N, Mc, C, B, lcb, \
+                                   R, stream);
+    TF_CORRECT_CASES
+#undef TF_CC
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -367,11 +473,11 @@ int correct(const T* y, const T* W, const T* V, const T* xm1, const T* xp1, cons
                                            const void* xm1, const void* xp1,             \
                                            const void* add_to, void* out, int N,         \
                                            int nvar, int g, int Mc, int C, int has_add,  \
-                                           int B, void* stream) {                        \
+                                           int B, int CB, int R, void* stream) {         \
     return correct<T>(static_cast<const T*>(y), static_cast<const T*>(W),                \
                       static_cast<const T*>(V), static_cast<const T*>(xm1),              \
                       static_cast<const T*>(xp1), static_cast<const T*>(add_to),         \
-                      static_cast<T*>(out), N, nvar, g, Mc, C, has_add, B,               \
+                      static_cast<T*>(out), N, nvar, g, Mc, C, has_add, B, CB, R,        \
                       static_cast<cudaStream_t>(stream));                                \
   }
 

@@ -1,7 +1,8 @@
-// The bodies of K3 (spike_solve.cu), shared with K6 (megastep.cu): the
+// K6's (megastep.cu) bodies of K3's two entries (spike_solve.cu, which
+// describes the algebra and runs staged and tiled kernels of its own): the
 // chunk-local Thomas sweep of one chunk and the spike correction of one
-// node; spike_solve.cu describes the algebra.  No __restrict__ on the
-// pointers: K6 reads buffers it wrote earlier in the same launch.
+// node.  No __restrict__ on the pointers: K6 reads buffers it wrote earlier
+// in the same launch.
 #pragma once
 
 #include "common.cuh"

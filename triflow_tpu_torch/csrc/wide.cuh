@@ -1,5 +1,6 @@
 // Block algebra of the wide block sizes (S = 5..8, and the interface blocks
-// S2 = 10..16 of K4), for K2's and K4's factors.
+// S2 = 10..16 of K4), for K2's and K4's factors; K4's narrow factor (S2 =
+// 4..8) takes the same lane groups, 32 / S2 to a warp.
 //
 // A block of that size does not fit one thread's registers (a double 8 x 8
 // block is 128 registers, a 16 x 16 one 512), so a *group* of S lanes of

@@ -50,14 +50,15 @@ MIN_CYCLIC_C = 8
 #: RODASPR step, fitted (non-negative least squares, relative weights, one
 #: offset per dtype) to chip_smoke.py's chunk-count sweeps of KS at N =
 #: 10^6 in float64 and float32 on one H100 (PERF.md): K2 and K3's sweeps
-#: walk the Mc rows of a chunk, K4's cluster solves sync once per level
-#: (LEVEL_US, six solves a step), and K4's one-block factor and Woodbury
-#: set-up walk each level in slabs of pcr.BLOCK_THREADS chunks; the fit
-#: puts no cost on a level beyond its slabs.  It picks the fastest measured
-#: plan there in float64, at KS 2^20 and at Burgers 10^6 in both types
-ROW_US = 1.715
+#: walk the Mc rows of a chunk, K4's factor (across the card) and cluster
+#: solves sync once per level (LEVEL_US), and K4's one-block Woodbury
+#: set-up walks each level in slabs of pcr.BLOCK_THREADS chunks; the fit
+#: puts no cost on a level beyond its slabs.  Fitted to the factor across
+#: the card and the tiled correction, it picks C = 2000 at KS 10^6, the
+#: fastest measured plan there in float64 and within 0.2 % of it in float32
+ROW_US = 1.662
 LEVEL_US = 0.0
-SLAB_US = 18.673
+SLAB_US = 9.997
 
 
 #: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide

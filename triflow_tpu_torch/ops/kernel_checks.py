@@ -66,7 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import (chunked, combine, matvec, megastep, megatheta, mixed, pcr,
+from . import (banded, chunked, combine, matvec, megastep, megatheta, mixed, pcr,
                stencil, thomas)
 
 TOL = {torch.float64: {"FJ": 1e-12, "solve": 1e-10, "combine": 1e-15,
@@ -411,6 +411,98 @@ def check_all_shifts(device, dtype, results=None, cases=SHIFT_CASES):
     return results
 
 
+#: (C, Mc, B) of K3's tiled correction checks (``thomas.correct_plan``:
+#: blocks of CB = 32 chunks, or B C rounded up to a power of two, by R =
+#: 256 // CB rows), at every block size s = 1..8 (``SWEEP_BLOCKS``): one
+#: chunk in one and in two row tiles (R = 256), two and three chunks, a
+#: part-full last group (C = 37), Mc no multiple of R (13, 9, 37, 300),
+#: chunk groups that straddle members (B = 3 x 40) and B = 1024 members
+CORRECT_SHAPES = [(1, 13, 1), (1, 300, 1), (2, 9, 1), (3, 37, 1), (37, 13, 1),
+                  (40, 9, 3), (5, 3, 1024)]
+
+
+def check_correct(s, C, Mc, B, dtype, device, seed=0, results=None):
+    """K3's correction against its plain version at block size s (nvar and
+    halo of ``SWEEP_BLOCKS``), C chunks of Mc rows, B members (one grid for
+    B = 1), on random spikes, right-hand side y and neighbour unknowns (the
+    correction is the same algebra on any plan), without and with
+    ``add_to``."""
+    results = {} if results is None else results
+    W, nvar = SWEEP_BLOCKS[s]
+    N = C * Mc * max(W // 2, 1)
+    plan = chunked.plan_with(N, nvar, W // 2, False, C, B)
+    rng = np.random.default_rng(seed)
+    lead = (B,) if B > 1 else ()
+
+    def rand(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype, device=device)
+
+    rows = (*lead, Mc, s, s, C)
+    fact = banded.SpikeFactor(None, None, None, rand(*rows), rand(*rows), None, None)
+    y, add = rand(*lead, nvar, N), rand(*lead, nvar, N)
+    xm1, xp1 = rand(*lead, s, C), rand(*lead, s, C)
+    cp = thomas.correct_plan(s, torch.finfo(dtype).bits // 8, Mc, C, B)
+    what = f"s={s} nvar={nvar} C={C} Mc={Mc} B={B} {cp}"
+    name = solver_entry("K3.spike_correct", s)
+    for add_to in (None, add):
+        got = thomas.spike_correct(fact, y, xm1, xp1, plan, add_to)
+        want = thomas.spike_correct_plain(fact, y, xm1, xp1, plan, add_to)
+        _record(results, name, got, want, TOL[dtype]["solve"],
+                f"{what} add_to={add_to is not None}")
+    return results
+
+
+def check_all_corrections(device, dtype, results=None, blocks=SWEEP_BLOCKS,
+                          shapes=CORRECT_SHAPES):
+    """``check_correct`` at every block size of ``blocks`` and shape of
+    ``shapes``."""
+    results = {} if results is None else results
+    for s in blocks:
+        for i, (C, Mc, B) in enumerate(shapes):
+            check_correct(s, C, Mc, B, dtype, device, seed=10 * s + i, results=results)
+    return results
+
+
+#: (s, C, B, periodic) of the narrow factor checks at s2 = 2s = 2..8, each
+#: by the route ``pcr.factor_route`` picks: one block per member at one
+#: chunk (no level), two and three (one and two levels, acyclic), C = 64
+#: and 128 block-cyclic (``pcr.FACTOR_MEMBERS_MAX_C``); the grid at C =
+#: 1024 block-cyclic, 1000 and KS 10^6's ring on 1534 chunks (Woodbury
+#: plans, factored acyclic), 1000 acyclic, and B = 4 x 130 members
+GRID_FACTOR_CASES = [(s, C, B, periodic) for s in range(1, 5) for C, B, periodic in (
+    (1, 1, False), (2, 1, False), (3, 1, True), (64, 1, True), (128, 1, True),
+    (1024, 1, True), (1000, 1, True), (1534, 1, True), (1000, 1, False), (130, 4, True))]
+
+
+def check_grid_factor(s, C, B, periodic, dtype, device, seed=0, results=None):
+    """K4's narrow factor (``pcr.pcr_factor``, by the route and body its
+    shape picks) against its plain version on the reduced system of K2's
+    plain factor of random bands (``SWEEP_BLOCKS[s]``, 2 rows per chunk; B
+    members with their own bands)."""
+    results = {} if results is None else results
+    W, nvar = SWEEP_BLOCKS[s]
+    N = 2 * C * max(W // 2, 1)
+    plan = chunked.plan_with(N, nvar, W // 2, periodic, C, B)
+    bands = torch.stack([random_bands(W, nvar, N, dtype, device, seed + b)
+                         for b in range(B)]) if B > 1 else \
+        random_bands(W, nvar, N, dtype, device, seed)
+    sp_ = thomas.spike_factor_plain(bands, 1.0, -0.3, plan)
+    want = pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, plan.cyclic)
+    got = pcr.pcr_factor(sp_.Lred, sp_.Ured, plan.cyclic)
+    what = f"s2={2 * s} C={C} B={B} cyclic={plan.cyclic} route={pcr.factor_route(2 * s, C)}"
+    for part, g_, w in zip(got._fields, got, want):
+        _record(results, factor_entry(s, C), g_, w, TOL[dtype]["solve"], f"{part} {what}")
+    return results
+
+
+def check_all_grid_factors(device, dtype, results=None, cases=GRID_FACTOR_CASES):
+    """``check_grid_factor`` at every case of ``cases``."""
+    results = {} if results is None else results
+    for i, case in enumerate(cases):
+        check_grid_factor(*case, dtype, device, seed=i, results=results)
+    return results
+
+
 def random_bands(W, nvar, N, dtype, device, seed=0, beta=-0.3):
     """Bands of a J whose ``I + beta*J`` is diagonally dominant."""
     rng = np.random.default_rng(seed)
@@ -521,6 +613,15 @@ def solver_entry(name, s):
     return f"{name}_wide" if s > thomas.NARROW_S else name
 
 
+def factor_entry(s, C):
+    """The name K4's factor records at block size s on C chunks: its wide
+    entry, the one block per member (``pcr.factor_route``) or the narrow
+    grid's."""
+    if pcr.factor_route(2 * s, C) == "members":
+        return "K4.pcr_factor_members"
+    return solver_entry("K4.pcr_factor", s)
+
+
 def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
                  plan=None):
     """K2, K4 (factor; the R-column solve; on a Woodbury plan the closure's
@@ -559,7 +660,7 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
     red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
     red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
     for got, want in zip(red_k, red_p):
-        _record(results, n("K4.pcr_factor"), got, want, tol, what)
+        _record(results, factor_entry(plan.s, plan.C), got, want, tol, what)
     wood = ()
     if plan.woodbury:
         # the acyclic factor of the ring's reduced system ignores its
@@ -568,7 +669,7 @@ def check_solver(bands, alpha, beta, periodic, seed=0, results=None,
         Lm[..., 0] = 0.0
         Um[..., -1] = 0.0
         for got, want in zip(red_k, pcr.pcr_factor_plain(Lm, Um, False)):
-            _record(results, n("K4.pcr_factor"), got, want, tol, f"masked {what}")
+            _record(results, factor_entry(plan.s, plan.C), got, want, tol, f"masked {what}")
         wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
         for got, want in zip(pcr.woodbury(red_p, sp_p.Lred, sp_p.Ured), wood):
             _record(results, n("K4.pcr_solve"), got, want, tol, f"woodbury {what}")
@@ -963,6 +1064,9 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
         check_all_megathetas(device, dtype, results)
+        # K4's narrow factor for an ensemble of 132 members at config 5's
+        # C = 100 (one block per member, ``pcr.factor_route``)
+        check_grid_factor(2, 100, 132, True, dtype, device, results=results)
         if dtype == torch.float64:
             check_all_mixed(device, results)
         out[str(dtype).replace("torch.", "")] = results
@@ -1053,7 +1157,7 @@ def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
     red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
     red_p = pcr.pcr_factor_plain(sp_p.Lred, sp_p.Ured, plan.cyclic)
     for got, want in zip(red_k, red_p):
-        _record(results, n("K4.pcr_factor"), got, want, tol, what)
+        _record(results, factor_entry(plan.s, plan.C), got, want, tol, what)
     wood = ()
     if plan.woodbury:
         wood = pcr.woodbury_plain(red_p, sp_p.Lred, sp_p.Ured)
@@ -1240,6 +1344,9 @@ def run_batched(device, dtypes=(torch.float64, torch.float32), B=BATCH):
         for i, (W, nvar, N, periodic) in enumerate(BATCH_SOLVER_CASES):
             check_solver_batched(W, nvar, N, periodic, dtype, device, B, seed=i,
                                  results=results)
+        # the solver cases' few chunks take K4's one block per member; the
+        # grid factor across the card on B members of 130 chunks
+        check_grid_factor(2, 130, B, True, dtype, device, results=results)
         for name, N, periodic, dt, adaptive in BATCH_MEGA_CASES:
             model = Model(*MEGA_MODELS[name], double=dtype == torch.float64,
                           device=device)

@@ -16,24 +16,31 @@ Z and inverts its capacitance in one launch, and every
 ``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
 close the ring.
 
-The narrow factor and the R-column solve run one thread block per member,
-so the chunk count is capped at ``MAX_C``.  The per-stage solve with shifts
-runs on a thread-block cluster of up to ``MAX_CLUSTER`` CTAs per member,
-each holding its slice of the chunks' vectors in shared memory
+The R-column solve runs one thread block per member, so the chunk count
+is capped at ``MAX_C``.  The factor spreads each level over a cooperative
+grid of CTAs across the card (``factor_plan_grid``: at s2 <= 8 a thread
+per (member, chunk) pair at s2 = 2, else a group of s2 lanes, the kernel
+fixing which by s2; one phase a level but at s2 = 6), except at up to
+``FACTOR_MEMBERS_MAX_C`` chunks, where one block per member walks the
+levels faster than the grid's barriers allow (``factor_route``; counted as
+``K4.pcr_factor_members``).  The per-stage
+solve with shifts runs on a thread-block cluster of up to ``MAX_CLUSTER``
+CTAs per member, each holding its slice of the chunks' vectors in shared
+memory
 (``solve_plan``); it refuses a (C, s2, dtype) whose vectors do not fit
 ``MAX_CLUSTER`` CTAs, and ``max_chunks`` gives the largest C it takes.
 Interface blocks s2 = 2s of s <= ``thomas.NARROW_S``
 launch ``csrc/pcr.cu``'s library; s2 = 10..16 (s = 5..8) its wide library
 (``TF_WIDE``), whose launches count apart (``..._wide``).  Its factor runs
-each (member, chunk) pair's level on a group of s2 lanes and spreads every
-phase of a level over a cooperative grid of CTAs across the card
-(``factor_plan_wide``), its level state in 7 s2^2 B C entries of global
-scratch (59 MB at s2 = 16 and its largest C, 4096, in float64).
+each (member, chunk) pair's level on a group of s2 lanes, two phases a
+level (``factor_plan_wide``).  Every grid factor keeps its level state in
+7 s2^2 B C entries of global scratch (59 MB at s2 = 16 and its largest C,
+4096, in float64).
 
 Member axis: an ensemble's reduced systems
 ``Lred, Ured (B, 2s, 2s, C)`` factor into level operators
 ``(B, nlev, 2s, 2s, C)`` and ``Dinv (B, 2s, 2s, C)``, one block (or one
-cluster) each, the wide factor's grid over all B C pairs at once;
+cluster) each, the grid factors over all B C pairs at once;
 right-hand sides lead with B the same way.
 """
 
@@ -52,6 +59,7 @@ from ._launch import (Counter, check_cuda, check_shapes, sm_count, stream_of,
                       suffix)
 
 FACTOR_LAUNCHES = Counter("K4.pcr_factor")
+FACTOR_MEMBERS_LAUNCHES = Counter("K4.pcr_factor_members")
 SOLVE_LAUNCHES = Counter("K4.pcr_solve_shift")
 COLS_LAUNCHES = Counter("K4.pcr_solve")
 FACTOR_WIDE_LAUNCHES = Counter("K4.pcr_factor_wide")
@@ -215,17 +223,34 @@ def pcr_factor_plain(Lred, Ured, cyclic: bool) -> PcrFactor:
                      torch.stack(betas, dim=-4) if betas else empty, Dinv)
 
 
-#: the wide factor (s2 = 10..16, csrc/pcr.cu): threads of a CTA of its
-#: cooperative grid (kWideFactorThreads), and the most of its CTAs an SM is
-#: given (chip runs at the film's C = 500..8192: one or two CTAs an SM beat
-#: four by 5-10 % where the pairs fill the card, PERF.md)
+#: the grid factor (csrc/pcr.cu, the wide s2 = 10..16 and the narrow s2 =
+#: 2..8): threads of a CTA of its cooperative grid (kGridFactorThreads),
+#: and the most of the wide factor's CTAs an SM is given (chip runs at the
+#: film's C = 500..8192: one or two CTAs an SM beat four by 5-10 % where
+#: the pairs fill the card, PERF.md)
 FACTOR_WIDE_THREADS = 128
 FACTOR_WIDE_PER_SM = 2
+#: the most chunks at which the narrow factor keeps one block per member
+#: (``factor_route``): its level walk grows with C (a thread per chunk, the
+#: whole blocks spilling at s2 = 4), the grid's stays about one grid-wide
+#: barrier a level.  Chip runs (``tools/sweep_plans.py k4n``, device µs,
+#: float64 / float32, PERF.md): one block against the grid at s2 = 4 and
+#: one grid, C = 128 35.7 / 17.9 against 38.6 / 30.9, C = 256 79.0 / 32.1
+#: against 43.3 / 33.3; at C = 100 one block won at every B from 4 to 1024
+#: (32.9 against 39.7 at B = 4, 409.0 against 610.9 at 1024, float64), at
+#: C = 1000 the grid at B = 16 (133.1 against 393.4); at s2 = 2 one block
+#: won up to C = 512 (23.9 against 25.8)
+FACTOR_MEMBERS_MAX_C = 128
 
 
 class FactorPlanWide(NamedTuple):
     ctas: int    # CTAs of the cooperative grid
     passes: int  # passes of the lane groups over the pairs in each phase
+
+
+class FactorPlanGrid(NamedTuple):
+    ctas: int    # CTAs of the cooperative grid
+    passes: int  # passes of its warps (threads) over the pairs in each phase
 
 
 def factor_groups(s2, threads):
@@ -250,41 +275,92 @@ def factor_plan_wide(C, s2, B=1, sms=132, per_sm=FACTOR_WIDE_PER_SM):
 
 
 @functools.lru_cache(maxsize=None)
-def _factor_wide_blocks(lib, sfx, s2):
-    """CTAs of the cooperative wide factor one SM holds (asked once)."""
-    query = getattr(lib.load(sfx), f"tf_pcr_factor_wide_blocks_{sfx}")
+def factor_plan_grid(C, s2, B, sms, per_sm):
+    """The plan of K4's narrow factor across the card (s2 <= 8): one CTA per
+    ``grid_pairs_per_cta`` of the B * C pairs, at most ``per_sm`` (what the
+    card holds at once) CTAs on each of ``sms`` SMs, in as few passes as
+    that allows.  Each level is one phase (a pair inverts its neighbours'
+    blocks itself), but at s2 = 6, two (csrc/pcr.cu)."""
+    pairs = B * C
+    per_cta = grid_pairs_per_cta(s2)
+    ctas = max(1, min(-(-pairs // per_cta), sms * per_sm))
+    return FactorPlanGrid(ctas, -(-pairs // (ctas * per_cta)))
+
+
+def grid_pairs_per_cta(s2):
+    """Pairs a CTA of the narrow grid factor takes in one pass: a thread
+    each at s2 = 2, else a group of s2 lanes each (``factor_groups``), as
+    csrc/pcr.cu's grid_factor_kernel picks its body by s2 (chip runs in
+    float64, PERF.md: at Burgers' C = 2000 and 2048, s2 = 2, a thread 32.0
+    against lane groups' 35.3 µs; at KS's C = 1024 and 1534, s2 = 4, lane
+    groups 54.1 and 59.1 against a thread's 60.0 and 71.7 µs)."""
+    return FACTOR_WIDE_THREADS if s2 == 2 else factor_groups(s2, FACTOR_WIDE_THREADS)
+
+
+def factor_route(s2, C):
+    """Which kernel factors reduced systems of interface block size s2 on C
+    chunks (of one grid or of each member): "wide" (s2 > 2
+    ``thomas.NARROW_S``: the lane-group grid of the wide library),
+    "members" (one block per member, at C <= FACTOR_MEMBERS_MAX_C) or
+    "grid" (the narrow factor across the card, ``factor_plan_grid``).
+    Chosen by shape, never on failure."""
+    if s2 > 2 * thomas.NARROW_S:
+        return "wide"
+    return "members" if C <= FACTOR_MEMBERS_MAX_C else "grid"
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_blocks(lib, sfx, s2):
+    """CTAs of a cooperative grid factor one SM holds (asked once)."""
+    entry = "wide" if lib is WIDE_LIB else "grid"
+    query = getattr(lib.load(sfx), f"tf_pcr_factor_{entry}_blocks_{sfx}")
     query.argtypes = [ctypes.c_int]
     query.restype = ctypes.c_int
     n = query(s2)
     if n < 0:
         lib.check(-n, "K4 pcr_factor")
     if n == 0:
-        raise RuntimeError(f"K4 pcr_factor: no CTA of the wide factor (s2 = {s2}) "
+        raise RuntimeError(f"K4 pcr_factor: no CTA of the grid factor (s2 = {s2}) "
                            "fits an SM")
     return n
 
 
-def _factor_wide(Lred, Ured, cyclic, ops, Dinv, B):
-    """One launch of the wide factor (s2 = 10..16) across the card."""
+def _factor(Lred, Ured, cyclic, route):
+    """One launch of K4's factor by ``route`` (``factor_route``), on inputs
+    the wrapper checked."""
+    B, lead = members(Lred, 3)
     s2, _, C = Lred.shape[-3:]
     sfx = suffix(Lred.dtype)
-    fp = factor_plan_wide(C, s2, B, sm_count(Lred),
-                          _factor_wide_blocks(WIDE_LIB, sfx, s2))
-    scratch = torch.empty((7, B * C, s2, s2), dtype=Lred.dtype,
-                          device=Lred.device)
-    fn = WIDE_LIB.fn(f"tf_pcr_factor_wide_{sfx}", 6, 5)
-    rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
-            ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
-            int(bool(cyclic)), B, fp.ctas, stream_of(Lred))
-    WIDE_LIB.check(rc, "K4 pcr_factor")
-    FACTOR_WIDE_LAUNCHES.add()
+    nlev = n_levels(C)
+    ops = torch.empty((2, *lead, nlev, s2, s2, C), dtype=Lred.dtype,
+                      device=Lred.device)
+    Dinv = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
+    scratch = torch.empty((7, B * C, s2, s2), dtype=Lred.dtype, device=Lred.device)
+    args = (Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(), ops[1].data_ptr(),
+            Dinv.data_ptr(), scratch.data_ptr())
+    if route == "members":
+        fn = LIB.fn(f"tf_pcr_factor_{sfx}", 6, 4)
+        rc = fn(*args, C, s2, int(bool(cyclic)), B, stream_of(Lred))
+        LIB.check(rc, "K4 pcr_factor")
+        FACTOR_MEMBERS_LAUNCHES.add()
+        return PcrFactor(ops[0], ops[1], Dinv)
+    if route == "wide":
+        lib, launches, plan = WIDE_LIB, FACTOR_WIDE_LAUNCHES, factor_plan_wide
+    else:
+        lib, launches, plan = LIB, FACTOR_LAUNCHES, factor_plan_grid
+    fp = plan(C, s2, B, sm_count(Lred), _grid_blocks(lib, sfx, s2))
+    fn = lib.fn(f"tf_pcr_factor_{route}_{sfx}", 6, 5)
+    rc = fn(*args, C, s2, int(bool(cyclic)), B, fp.ctas, stream_of(Lred))
+    lib.check(rc, "K4 pcr_factor")
+    launches.add()
+    return PcrFactor(ops[0], ops[1], Dinv)
 
 
 def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     """Factor the reduced system with identity diagonal blocks."""
     if Lred.device.type == "cpu":
         return pcr_factor_plain(Lred, Ured, cyclic)
-    B, lead = members(Lred, 3)
+    _, lead = members(Lred, 3)
     s2, _, C = Lred.shape[-3:]
     what = "K4 pcr_factor"
     check_cuda((Lred, Ured), Lred.dtype, what)
@@ -293,22 +369,7 @@ def pcr_factor(Lred, Ured, cyclic: bool) -> PcrFactor:
     _check_sizes(s2, C, what)
     if cyclic and C & (C - 1):
         raise ValueError(f"{what}: cyclic PCR requires a power-of-two C")
-    nlev = n_levels(C)
-    ops = torch.empty((2, *lead, nlev, s2, s2, C), dtype=Lred.dtype,
-                      device=Lred.device)
-    Dinv = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
-    if s2 > 2 * thomas.NARROW_S:
-        _factor_wide(Lred, Ured, cyclic, ops, Dinv, B)
-        return PcrFactor(ops[0], ops[1], Dinv)
-    scratch = torch.empty((B, 7, s2, s2, C), dtype=Lred.dtype,
-                          device=Lred.device)
-    fn = LIB.fn(f"tf_pcr_factor_{suffix(Lred.dtype)}", 6, 4)
-    rc = fn(Lred.data_ptr(), Ured.data_ptr(), ops[0].data_ptr(),
-            ops[1].data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), C, s2,
-            int(bool(cyclic)), B, stream_of(Lred))
-    LIB.check(rc, what)
-    FACTOR_LAUNCHES.add()
-    return PcrFactor(ops[0], ops[1], Dinv)
+    return _factor(Lred, Ured, cyclic, factor_route(s2, C))
 
 
 def _columns(red: PcrFactor, lead):

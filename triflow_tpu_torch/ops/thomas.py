@@ -22,8 +22,9 @@ and right-hand sides ``(B, nvar, N)``.  K2 and K3's sweep run one block of
 walkers per group of (member, chunk) pairs, fed by ``cp.async`` copies
 into a shared-memory ring on a plan of the host's (``factor_plan``,
 ``sweep_plan``); K2's walker is a thread, or in its wide library a group
-of s lanes; K3's correction one thread per (member, node); members never
-couple, and each member's ring closes on itself.  The factor shift ``beta`` is a number or a
+of s lanes; K3's correction one block per group of (member, chunk) pairs
+and of rows (``correct_plan``); members never couple, and each member's
+ring closes on itself.  The factor shift ``beta`` is a number or a
 per-member (B,) tensor on the bands' device (the kernel reads it there,
 so shared and per-member step sizes take one code).
 """
@@ -339,6 +340,46 @@ def thomas_sweep(fact: banded.SpikeFactor, rhs, plan):
     return y, yred
 
 
+#: the most chunks a block of K3's tiled correction takes (kMaxCorrectCB
+#: in csrc/spike_solve.cu)
+CORRECT_MAX_CB = 32
+
+
+class CorrectPlan(NamedTuple):
+    CB: int  # chunks per block, a power of two
+    R: int   # supernode rows per block
+
+
+def correct_rows(s, item):
+    """Rows per block of K3's correction at CORRECT_MAX_CB chunks: 32 at s =
+    1, at s = 2 16 in float32 and 8 in float64, else 8.  (Chip runs at KS
+    2^20, 10^6 and the ring, Burgers, config 5 and the film,
+    ``tools/sweep_plans.py k3c``, device µs: s = 1 32 rows 7.2 against 10.3
+    for 8 in float64; s = 2 16 rows 6.5 against 7.3 for 8 in float32 and 8
+    rows 17.9 against 19.3 for 16 in float64 at KS 2^20; at s = 6 8 and 16
+    rows within 2 %; PERF.md.)"""
+    if s == 1:
+        return 32
+    return 64 // item if s == 2 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def correct_plan(s, item, Mc, C, B=1):
+    """K3's correction plan: blocks of CB consecutive chunks (of the B * C
+    chunks of all members, taken in turn, as ``sweep_plan`` takes them) by
+    R supernode rows.  CB is CORRECT_MAX_CB, or the B * C chunks rounded up
+    to a power of two where they are fewer: a warp's loads of one entry of
+    W or V are then CB consecutive values (32 float64 values are two
+    128-byte lines).  R is ``correct_rows(s, item)``, times CORRECT_MAX_CB // CB
+    where the block takes fewer chunks, and at most the chunk's Mc rows
+    rounded up to a power of two; each chunk's R g nodes per field are one
+    contiguous run of the node layout."""
+    chunks = B * C
+    CB = min(CORRECT_MAX_CB, 1 << (chunks - 1).bit_length())
+    return CorrectPlan(CB, min(correct_rows(s, item) * (CORRECT_MAX_CB // CB),
+                               1 << (Mc - 1).bit_length()))
+
+
 def spike_correct_plain(fact: banded.SpikeFactor, y, xm1, xp1, plan,
                         add_to=None):
     _, lead = members(y, 2)
@@ -371,11 +412,12 @@ def spike_correct(fact: banded.SpikeFactor, y, xm1, xp1, plan, add_to=None):
     lib, launches = pick(plan.s, what, (SOLVE_LIB, CORRECT_LAUNCHES),
                          (SOLVE_WIDE_LIB, CORRECT_WIDE_LAUNCHES))
     out = torch.empty_like(y)
-    fn = lib.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 7)
+    cp = correct_plan(plan.s, y.element_size(), plan.Mc, plan.C, B)
+    fn = lib.fn(f"tf_spike_correct_{suffix(y.dtype)}", 7, 9)
     rc = fn(y.data_ptr(), fact.W.data_ptr(), fact.V.data_ptr(), xm1.data_ptr(),
             xp1.data_ptr(), 0 if add_to is None else add_to.data_ptr(),
             out.data_ptr(), plan.Np, plan.nvar, plan.g, plan.Mc, plan.C,
-            int(add_to is not None), B, stream_of(y))
+            int(add_to is not None), B, cp.CB, cp.R, stream_of(y))
     lib.check(rc, what)
     launches.add()
     return out
