@@ -164,8 +164,8 @@ it), each with exact launches and against the port's CPU f64 run
 (``padded_cpu_runs``, in a process of its own); ``phase3_padded`` times
 the 999983 step beside 10^6 and the edge step beside 2 x 10^6 (with a
 profile of the ring's step), the README steps synchronised, and sweeps
-the chunk count of KS at N = 10^6 behind ``chunked.ROW_US`` /
-``LEVEL_US`` / ``SLAB_US``.
+the chunk count of KS at N = 10^6 and 10^4 behind ``chunked.ROW_US`` /
+``LEVEL_US`` / ``SLAB_US`` (``narrow_sweeps``).
 
 K3's tiled correction and K4's narrow factor across the card run in
 each phase too: phase 0 prints the registers and spills of every
@@ -176,11 +176,26 @@ shape, and the narrow factor by the route its shape picks
 (``kernel_checks.GRID_FACTOR_CASES``: block-cyclic, Woodbury, acyclic,
 the ring's 1534 chunks, members) against their plain versions; phase 2
 counts K4's one block per member (plans of up to
-``pcr.FACTOR_MEMBERS_MAX_C`` chunks: config 5, the refine ensemble, the
-advdiff refine case) apart (``K4.pcr_factor_members``); ``phase3_redesign`` times both at the cells'
-plans before and after the narrow refit (``REDESIGN_SHAPES``: host ms,
-device µs on inputs cold in L2, the bytes bound), K4's factor by its
-route beside the other narrow one.
+``pcr.FACTOR_MEMBERS_MAX_C`` chunks: config 5) apart
+(``K4.pcr_factor_members``).
+
+K4's Woodbury set-up and R-column solve across the card (a cluster per
+member and column, the capacitance by one block per member) and K1's
+tiled F run in each phase too: phase 0 prints the registers of the
+column clusters, the capacitance kernel and K1's F and F_terms of every
+model; phase 1 holds the set-up and the R-column solve at s = 1..8
+(``kernel_checks.SETUP_CASES``: C = 2 to the cells' 2500, members up to
+1024) against their plain versions and bit for bit against the one-block
+body, and K1's F and F_terms at odd N (``kernel_checks.TILED_F_SHAPES``:
+fewer nodes than the halo spans to 4099, B = 1, 4 and 1024) against
+their plain versions, F bit for bit against the per-node body; phase 2
+counts the R-column solve's one block per member (config 5:
+``pcr.cols_route``) apart (``K4.pcr_solve_members``); ``phase3_redesign``
+times the set-up by its route beside the other narrow one, K3's
+correction and K4's factor by route at the cells' plans before and after
+the refit (``REDESIGN_SHAPES``, ``REFIT_SHAPES``: host ms, device µs on
+inputs cold in L2, the bytes bound), and K1's tiled F beside the F entry
+of before (``STENCIL_SHAPES``).
 
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
@@ -261,6 +276,11 @@ KERNELS = {
                            "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
     "K4.pcr_solve": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
                      "triflow_tpu/ops/pallas_pcr.py:408 pcr_solve_fused_sub"),
+    # the one block per member, kept where members fill the card on plans
+    # of few chunks (pcr.cols_route: config 5)
+    "K4.pcr_solve_members": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
+                             "triflow_tpu/ops/pallas_pcr.py:408 pcr_solve_fused_sub "
+                             "(vmapped over members)"),
     "K5.combine": ("cuda", "triflow_tpu_torch/csrc/combine.cu",
                    "triflow_tpu/ops/folded.py:543 combine_folded"),
     "K6.step": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
@@ -307,7 +327,7 @@ DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9")) and k not in WIDE
                 and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual",
-                              "K4.pcr_factor_members")]
+                              "K4.pcr_factor_members", "K4.pcr_solve_members")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 K7 = ["K7.matvec"]
@@ -318,7 +338,8 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "thomas_sweep": "K3.thomas_sweep", "spike_correct": "K3.spike_correct",
                "pcr_factor_kernel": "K4.pcr_factor_members",
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
-               "pcr_solve_kernel": "K4.pcr_solve",
+               "pcr_solve_cols_cluster": "K4.pcr_solve", "woodbury_cap": "K4.pcr_solve",
+               "pcr_solve_kernel": "K4.pcr_solve_members",
                "combine_kernel": "K5.combine", "combine_vec_kernel": "K5.combine",
                "step_mixed_kernel": "K6.step_mixed",
                "step_kernel": "K6.step", "mixed_residual": "K8.residual",
@@ -412,21 +433,21 @@ SWEEP_EXPONENTS = range(10, 17)
 #: grid must take: (route, C, Woodbury))
 CASES = [
     ("burgers N=2^20 theta (4 steps)", BURGERS, burgers_case(N_BIG, 0.05, 4 * 0.05), THETA,
-     1e-4, 1e-10, THETA_KERNELS, ("chunked", 2048, False)),
+     1e-4, 1e-10, THETA_KERNELS, ("chunked", 4096, False)),
     ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF), THETA, 1e-4, 1e-10,
-     THETA_KERNELS + WOOD, ("chunked", 2500, True)),
+     THETA_KERNELS + WOOD, ("chunked", 5000, True)),
     ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"],
      ("megastep", 100, False)),
     ("ks N=2^20 rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH,
-     ("chunked", 2048, False)),
+     ("chunked", 4096, False)),
     ("ks N=10^6 rodaspr fixed (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9,
-     MULTI_LAUNCH + WOOD, ("chunked", 2000, True)),
+     MULTI_LAUNCH + WOOD, ("chunked", 4000, True)),
     ("ks N=2^20 rodaspr adaptive tol 1e-3 (1 x 1.0)", KS, ks_case(1.0, 1.0),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 2048, False)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH, ("chunked", 4096, False)),
     ("ks N=10^6 rodaspr adaptive tol 1e-3 (2 x 1.0)", KS, ks_case(1.0, 2.0, N_REF),
-     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 2000, True)),
+     dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD, ("chunked", 4000, True)),
     ("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 256, False)),
@@ -443,17 +464,17 @@ CASES = [
      ("megastep", 100, False)),
     # refine= and Theta(solver=): K1-K5 and K7, never K6 (REFINE_CHECKS)
     ("ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
-     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 2000, True)),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 4000, True)),
     ("advdiff N=1024 rodaspr fixed (500 x 0.01)", README, advdiff_case(), FIXED,
      1e-4, 1e-9, ["K6.step"], ("megastep", 256, False)),
     ("advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)", README, advdiff_case(),
-     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 128, False)),
+     REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 512, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook", KS,
      ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3, refine=1), 1e-2, 1e-9,
      MULTI_LAUNCH + WOOD + K7, ("chunked", 500, True)),
     ("burgers N=10^6 theta solver= (10 steps)", BURGERS, burgers_case(N_REF),
      dict(THETA, solver=chunked_solver), 1e-4, 1e-10,
-     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 2500, True)),
+     THETA_KERNELS + WOOD + ["K5.combine"] + K7, ("chunked", 5000, True)),
 ]
 #: cases driven by ``scheme(t, fields, dt, pars)`` a fixed number of times
 #: (``run_steps``), not by ``Simulation``: 500 steps of 0.01 do not land on
@@ -545,7 +566,8 @@ ENSEMBLE_CASES = [
      FIXED, [(3, 0.05)], "host",
      lambda plan: {"K1.J": 3, "K2.spike_factor": 3,
                    kernel_checks.factor_entry(plan.s, plan.C): 3,
-                   "K4.pcr_solve": 3 if plan.woodbury else 0, "K1.F_terms": 18,
+                   kernel_checks.setup_entry(plan.s, plan.C, plan.B):
+                   3 if plan.woodbury else 0, "K1.F_terms": 18,
                    "K3.thomas_sweep": 18, "K4.pcr_solve_shift": 18,
                    "K3.spike_correct": 18, "K5.combine": 3}, False),
     ("sweep: B=64 x ks N=200 rodaspr fixed (steps(100, 0.05))", B_SWEEP, N_SWEEP, 2, 5,
@@ -564,7 +586,8 @@ ENSEMBLE_CASES = [
      REFINED, [(2, 0.05)], "host",
      lambda plan: {"K1.J": 2, "K2.spike_factor": 2,
                    kernel_checks.factor_entry(plan.s, plan.C): 2,
-                   "K4.pcr_solve": 2 if plan.woodbury else 0, "K1.F_terms": 12,
+                   kernel_checks.setup_entry(plan.s, plan.C, plan.B):
+                   2 if plan.woodbury else 0, "K1.F_terms": 12,
                    "K3.thomas_sweep": 24, "K4.pcr_solve_shift": 24,
                    "K3.spike_correct": 24, "K5.combine": 14, "K7.matvec": 12}, False),
 ]
@@ -786,6 +809,10 @@ def phase0():
             if path in mega_logs:
                 log(f"    K6 {mega_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
+            # K1's tiled F and F_terms, each model and dtype
+            if fn and path.name.startswith("stencil") and "stencil_F" in fn:
+                log(f"    K1 {path.stem} {fn}: {regs} registers, {stack} bytes stack, "
+                    f"{spill} bytes spill stores")
             if path in k9_logs:
                 log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
@@ -793,8 +820,8 @@ def phase0():
             # correction and K4's factors: kernel<type, sizes..., flags...>
             wide = re.search(r"([a-z][a-z_]*_kernel)I([df])((?:Li\d+E)+)((?:Lb[01]E)*)",
                              fn or "")
-            if wide and ("_wide" in path.name or re.match(r"spike_correct|pcr_factor",
-                                                          wide.group(1))):
+            if wide and ("_wide" in path.name or re.match(
+                    r"spike_correct|pcr_factor|pcr_solve_cols|woodbury_cap", wide.group(1))):
                 name, typ, sizes, flags = wide.groups()
                 log(f"    {'wide' if '_wide' in path.name else 'narrow'} "
                     f"{name}<{'double' if typ == 'd' else 'float'}"
@@ -979,6 +1006,13 @@ def phase1():
         kernel_checks.check_all_corrections("cuda", dtype, res)
         kernel_checks.check_correct(2, 100, N_ENS // 200, B_ENS, dtype, "cuda", results=res)
         kernel_checks.check_all_grid_factors("cuda", dtype, res)
+        # K4's Woodbury set-up and R-column solve across the card at s =
+        # 1..8 (C = 2 to the cells' 2500, members up to config 5's 1024), bit
+        # for bit the one-block body; K1's tiled F and F_terms at odd N
+        # (fewer nodes than the halo spans to 4099; B = 1, 4 and 1024), F
+        # bit for bit the per-node body
+        kernel_checks.check_all_setups("cuda", dtype, res)
+        kernel_checks.check_all_tiled_F("cuda", dtype, res)
         padded_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
@@ -1492,12 +1526,13 @@ def profile_calls(fn, steps, names=TRACE_NAMES):
             "idle_share": 1.0 - busy / span}
 
 
-def launch_us(fn, key, launches=20, tries=3, names=TRACE_NAMES):
-    """(device µs per launch, launches recorded) of the kernel ``key`` (a
-    ``TRACE_NAMES`` value) over ``launches`` calls of ``fn`` alone under
-    torch.profiler; µs None where the profiler recorded another number of
-    its launches in each of ``tries`` windows (it can drop a window's
-    events, and an average over the launches left would read low)."""
+def launch_us(fn, key, launches=20, tries=3, names=TRACE_NAMES, kernels=1):
+    """(device µs per call, launches recorded) of the kernels of entry
+    ``key`` (a ``TRACE_NAMES`` value; ``kernels`` of them a call) over
+    ``launches`` calls of ``fn`` alone under torch.profiler; µs None where
+    the profiler recorded another number of its launches in each of
+    ``tries`` windows (it can drop a window's events, and an average over
+    the launches left would read low)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1510,7 +1545,7 @@ def launch_us(fn, key, launches=20, tries=3, names=TRACE_NAMES):
         times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA
                  and next((k for sub, k in names.items() if sub in ev.name), None) == key]
-        if len(times) == launches:
+        if len(times) == launches * kernels:
             return sum(times) / launches, launches
     return None, len(times)
 
@@ -2997,6 +3032,8 @@ def phase2_padded(launches):
 #: chunk counts of the KS N = 10^6 sweep (divisors of its M = 500000
 #: supernodes), behind ``chunked.ROW_US`` / ``LEVEL_US`` / ``SLAB_US``
 KS_CHUNKS = [500, 625, 1000, 1250, 2000, 2500, 3125, 4000, 5000, 6250, 10000, 15625]
+#: of KS at N = 10^4 (divisors of its 5000 supernodes)
+KS_SMALL_CHUNKS = [25, 40, 50, 100, 125, 200, 250, 500, 625, 1000, 1250]
 #: and of Burgers at N = 10^6 (divisors of 10^6)
 BURGERS_CHUNKS = [500, 1000, 1250, 2000, 2500, 4000, 5000, 8000, 10000, 12500, 15625]
 
@@ -3011,7 +3048,6 @@ def phase3_padded():
     2^20 and Burgers Theta at N = 10^6, and the fit of both dtypes' KS 10^6
     sweeps behind the constants."""
     log("phase 3: padded grids and the KS 10^6 chunk sweep (CUDA events)")
-    fits = {}
     for dt_name, dtype in DTYPES.items():
         for pair in (((ks_case(0.05, 0.2, N_REF), "ks N=10^6"),
                       (ks_case(0.05, 0.2, N_ODD), "ks N=999983")),
@@ -3042,11 +3078,25 @@ def phase3_padded():
             f"{label} " + " / ".join(f"{v:.4f}" for v in lat) for label, lat in zip(
                 ("N=200 (K6)", "N=199 (K6, serial plan)", "N=199 (K1-K5, padded)",
                  "N=4099 (K1-K5, padded)"), steps)))
+    narrow_sweeps()
+    return {dt_name: {} for dt_name in DTYPES}
+
+
+def narrow_sweeps():
+    """The chunk-count sweeps behind ``chunked.plan_cost_us`` at s <= 4: KS
+    at N = 10^6 (fixed RODASPR, with each dtype's non-negative fit of the
+    constants), KS at N = 2^20 and Burgers Theta at N = 10^6 (which plans
+    the model picks there), then the pooled fit of both dtypes' KS 10^6
+    sweeps behind the constants."""
+    fits = {}
+    for dt_name, dtype in DTYPES.items():
         # the chunk-count sweep behind chunked.plan_cost_us (s <= 4), and two
         # more grids whose plans the fit moved (KS 2^20 RODASPR, Burgers
         # 10^6 Theta: which plans it picks there)
         for label, eqs, case, sch, chunks, fit in (
                 ("ks N=10^6 rodaspr", KS, ks_case(0.05, 0.2, N_REF), FIXED, KS_CHUNKS, True),
+                ("ks N=10^4 rodaspr", KS, ks_case(0.05, 0.2, N_REF_SMALL), FIXED,
+                 KS_SMALL_CHUNKS, True),
                 ("ks N=2^20 rodaspr", KS, ks_case(0.05, 0.2, N_BIG), FIXED,
                  [1 << e for e in range(8, 15)], False),
                 ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF),
@@ -3077,33 +3127,41 @@ def phase3_padded():
                         f"{coef[1]:.3f}, SLAB_US = {coef[2]:.3f}, offset {coef[3]:.1f} us "
                         f"(chunked has {chunked.ROW_US}, {chunked.LEVEL_US}, "
                         f"{chunked.SLAB_US})")
-                fits[dt_name] = (M, row)
+                fits[(label, dt_name)] = (M, row)
             log(msg)
-    # both dtypes' KS 10^6 sweeps in one fit, one offset each: the
+    # both grids' and dtypes' KS sweeps in one fit, one offset each: the
     # constants of chunked.plan_cost_us
     feats = [[M // C, pcr.n_levels(C), pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
              + [float(d == e) for e in fits] for d, (M, row) in fits.items() for C in row]
     coef = nnls_fit(feats, [t for _, row in fits.values() for t in row.values()])
     picks = []
-    for d, (M, row) in fits.items():
+    for (label, d), (M, row) in fits.items():
         pick = min(row, key=lambda C: (float(np.dot(coef[:3], [
             M // C, pcr.n_levels(C), pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)])), C))
-        picks.append(f"{d} C={pick} ({row[pick] / min(row.values()) - 1:+.2%})")
-    log(f"  pooled non-negative fit of the ks N=10^6 sweeps: ROW_US = {coef[0]:.3f}, LEVEL_US = "
-        f"{coef[1]:.3f}, SLAB_US = {coef[2]:.3f}; it picks " + ", ".join(picks))
-    return {dt_name: {} for dt_name in DTYPES}
+        picks.append(f"{label} {d} C={pick} ({row[pick] / min(row.values()) - 1:+.2%})")
+    log(f"  pooled non-negative fit of the ks N=10^6 and 10^4 sweeps: ROW_US = {coef[0]:.3f}, "
+        f"LEVEL_US = {coef[1]:.3f}, SLAB_US = {coef[2]:.3f}; it picks " + ", ".join(picks))
 
 
 #: (label, W, nvar, nodes, members, chunks) of phase 3's device times of
-#: K3's correction and K4's narrow factor: the cells' plans under the
-#: narrow cost before its refit to these two kernels (KS 2^20 and 10^6, the
-#: padded ring N = 999983 on its 1534 chunks of 1000168 nodes) and after it
-#: (2048, 2000, 2041 chunks of 1000090 nodes), config 5, the film at 10^6
-REDESIGN_SHAPES = [("ks N=2^20", 5, 1, N_BIG, 1, 1024), ("ks N=10^6", 5, 1, N_REF, 1, 1000),
-                   ("ks ring N=999983", 5, 1, 1000168, 1, 1534),
-                   ("ks N=2^20", 5, 1, N_BIG, 1, 2048), ("ks N=10^6", 5, 1, N_REF, 1, 2000),
+#: the solver kernels redesigned lately at the cells' plans: K4's Woodbury
+#: set-up (by its route, and the one-block body of before beside it), K3's
+#: tiled correction and K4's narrow factor; the plans before the refit to
+#: the set-up across the card (KS 10^6 C = 2000, the padded ring N = 999983
+#: on 2041 chunks of 1000090 nodes, Burgers 10^6 2500, the film 10^6 1000,
+#: KS 2^20 2048), config 5, and after it (REFIT_SHAPES: 4000, 4065 chunks
+#: of 999990 nodes, 5000, 2000, 4096)
+REDESIGN_SHAPES = [("ks N=2^20", 5, 1, N_BIG, 1, 2048), ("ks N=10^6", 5, 1, N_REF, 1, 2000),
                    ("ks ring N=999983", 5, 1, 1000090, 1, 2041),
+                   ("burgers N=10^6", 3, 1, N_REF, 1, 2500),
                    ("config 5", 5, 1, N_ENS, B_ENS, 100), ("film N=10^6", 5, 3, N_REF, 1, 1000)]
+REFIT_SHAPES = [("ks N=2^20", 5, 1, N_BIG, 1, 4096), ("ks N=10^6", 5, 1, N_REF, 1, 4000),
+                ("ks ring N=999983", 5, 1, 999990, 1, 4065),
+                ("burgers N=10^6", 3, 1, N_REF, 1, 5000), ("film N=10^6", 5, 3, N_REF, 1, 2000)]
+#: (label, model, N) of phase 3's device times of K1's tiled F against the
+#: F entry of before (a RODASPR stage's call: a scale and a bias)
+STENCIL_SHAPES = [("ks N=2^20", KS, N_BIG), ("ks N=10^6", KS, N_REF),
+                  ("burgers N=10^6", BURGERS, N_REF)]
 
 
 #: bytes the inputs of a cold-L2 timing rotate over (``cold_sets``): twice
@@ -3121,21 +3179,112 @@ def cold_sets(nbytes, make):
     return [make(i) for i in range(1 if nbytes >= COLD_BYTES else 1 + -(-COLD_BYTES // nbytes))]
 
 
+def cold_call(sets, call):
+    """A call of ``call(*inputs)`` on each of ``sets`` in turn."""
+    turn = itertools.cycle(sets)
+    return lambda: call(*next(turn))
+
+
+def log_device(what, ms, us, b_ms, nbytes, extra=""):
+    log(f"  {what}: {ms:.4f} ms host call, "
+        + (f"{us:.2f} device us" if us is not None else "device us not measured")
+        + f", bound {b_ms * 1e3:.3f} us ({nbytes} bytes)"
+        + (f": {b_ms * 1e3 / us:.1%} of it" if us else "") + extra)
+
+
+def redesign_setup(label, plan, fact, dtype, dt_name, names):
+    """K4's Woodbury set-up at ``plan`` (Woodbury) on the factor of K2's
+    ``fact``: by its route (``pcr.cols_route``) and the other narrow one
+    beside it (the one block per member of before, or the clusters), on
+    inputs cold in L2; (ms, plain ms, bound ms) of config 5's members
+    route for the kernels line, else None."""
+    B, C, s2 = plan.B, plan.C, 2 * plan.s
+    lead = (B,) if B > 1 else ()
+    red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+    item = torch.finfo(dtype).bits // 8
+    nlev = pcr.n_levels(C)
+    # the factor's operators and Dinv, the two corner blocks; Z and cap_inv
+    nbytes = B * ((2 * nlev + 1) * s2 * s2 * C + 2 * s2 * s2 + s2 * s2 * C + s2 * s2) * item
+    ops = B * (s2 * C * (4 * s2 * s2 * nlev + 2 * s2 * s2) + 2 * s2 ** 3)
+    b_ms, _ = bound(nbytes, ops, dtype)
+    sets = cold_sets(nbytes, lambda i: (red, fact.Lred, fact.Ured) if i == 0 else (
+        pcr.PcrFactor(*(a.clone() for a in red)), fact.Lred.clone(), fact.Ured.clone()))
+    route = pcr.cols_route(s2, C, B)
+    routes = [route] + ([r for r in ("clusters", "members") if r != route]
+                        if s2 <= 2 * thomas.NARROW_S else [])
+    out = None
+    for r in routes:
+        def call(red_, L, U, r=r):
+            Z = torch.empty((*lead, s2, s2, C), dtype=dtype, device="cuda")
+            cap = torch.empty((*lead, s2, s2), dtype=dtype, device="cuda")
+            pcr._launch_cols(red_, None, L, U, Z, cap, s2, B, r)
+            return Z, cap
+
+        entry = ("K4.pcr_solve_members" if r == "members"
+                 else kernel_checks.solver_entry("K4.pcr_solve", plan.s))
+        fn = cold_call(sets, call)
+        ms = min(cuda_ms(fn, 5 * len(sets)) for _ in range(2))
+        us, _ = launch_us(fn, entry, names=names, kernels=2 if r == "clusters" else 1)
+        log_device(f"{entry} (Woodbury set-up) {label} {dt_name} (C={C} B={B}, route {r}"
+                   + (" (the plan)" if r == route else "") + "), cold L2", ms, us, b_ms,
+                   nbytes)
+        if r == "members" and label == "config 5":
+            p_ms = min(cuda_ms(lambda: pcr.woodbury_plain(red, fact.Lred, fact.Ured), 2)
+                       for _ in range(2))
+            out = (ms, p_ms, b_ms, "bytes", None)
+    return out
+
+
+def redesign_stencil(dtype, dt_name):
+    """K1's tiled F entry against the F entry of before (one thread per
+    node, ``stencil.eval_F_nodes``) at STENCIL_SHAPES, a RODASPR stage's
+    call (a scale and a bias): the host call's ms back to back and the
+    device µs on inputs cold in L2, beside the bytes bound."""
+    rng = np.random.default_rng(6)
+    for label, eqs, N in STENCIL_SHAPES:
+        model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+        b, sysm = model.backend, model.system
+        item = torch.finfo(dtype).bits // 8
+
+        def t(*shape):
+            return torch.tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
+
+        x = torch.linspace(0.0, 0.5 * N, N, dtype=dtype, device="cuda")
+        args = (t(sysm.nvar, N), t(len(sysm.help_funcs), N),
+                0.5 + t(len(sysm.pars), N).abs(), x, t(sysm.nvar, N))
+        n_in = (2 * sysm.nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
+        nbytes = (n_in + sysm.nvar * N) * item
+        b_ms, _ = bound(nbytes, (expr_ops(sysm.F_exprs) + 2 * sysm.nvar) * N, dtype)
+        sets = cold_sets(nbytes, lambda i: args if i == 0 else tuple(a.clone() for a in args))
+        for what, fn in (("K1.F (tiled)", stencil.eval_F),
+                         ("K1.F of before (a thread a node)", stencil.eval_F_nodes)):
+            def call(u, h, p_, x_, bias, fn=fn):
+                return fn(b, u, h, p_, x_, True, 0.05, bias)
+
+            hot = functools.partial(call, *args)
+            ms = min(cuda_ms(hot, 200) for _ in range(2))
+            us, _ = launch_us(cold_call(sets, call), "K1.F")
+            log_device(f"{what} {label} {dt_name} (host call back to back, device cold L2)",
+                       ms, us, b_ms, nbytes)
+
+
 def phase3_redesign():
-    """K3's tiled correction and K4's factor at ``REDESIGN_SHAPES``, on K2's
-    factor of random bands (B members of one grid's bands), a random y,
-    neighbour unknowns and ``add_to``: the host call's ms (CUDA events) and
-    device µs per launch (``torch.profiler``) beside the bytes bound, the
-    correction's inputs cold in L2 (``cold_sets``); K4's narrow factor by
-    its route (``pcr.factor_route``) and the other narrow route beside it.
-    Returns config 5's entry of the one block per member for the kernels
+    """The redesigned kernels at ``REDESIGN_SHAPES`` and ``REFIT_SHAPES``,
+    on K2's factor of random bands (B members of one grid's bands), a
+    random y, neighbour unknowns and ``add_to``: the host call's ms (CUDA
+    events) and device µs per call (``torch.profiler``) beside the bytes
+    bound, the inputs cold in L2 (``cold_sets``): K4's Woodbury set-up by
+    its route and the other narrow one, K3's tiled correction, K4's narrow
+    factor by its route (``pcr.factor_route``) and the other narrow one;
+    then K1's tiled F against the F entry of before (``redesign_stencil``).
+    Returns config 5's entries of the one block per member for the kernels
     line."""
-    log("phase 3: K3's tiled correction and K4's factor at the cells' plans")
+    log("phase 3: the redesigned kernels at the cells' plans")
     times = {}
     for dt_name, dtype in DTYPES.items():
         times[dt_name] = {}
         item = torch.finfo(dtype).bits // 8
-        for label, W, nvar, N, B, C in REDESIGN_SHAPES:
+        for label, W, nvar, N, B, C in REDESIGN_SHAPES + REFIT_SHAPES:
             plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
             lead = (B,) if B > 1 else ()
             bands = kernel_checks.random_bands(W, nvar, N, dtype, "cuda")
@@ -3143,12 +3292,17 @@ def phase3_redesign():
                 bands = bands.expand(B, *bands.shape).contiguous()
             fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
             del bands
+            s, s2, nlev = plan.s, 2 * plan.s, pcr.n_levels(C)
+            names = FILM_TRACE_NAMES if s > 4 else TRACE_NAMES
+            if plan.woodbury:
+                members = redesign_setup(label, plan, fact, dtype, dt_name, names)
+                if members is not None:
+                    times[dt_name]["K4.pcr_solve_members"] = members
             gen = torch.Generator(device="cuda").manual_seed(3)
             y, add = (torch.randn((*lead, nvar, N), dtype=dtype, device="cuda", generator=gen)
                       for _ in range(2))
             xm1, xp1 = (torch.randn((*lead, plan.s, C), dtype=dtype, device="cuda",
                                     generator=gen) for _ in range(2))
-            s, s2, nlev = plan.s, 2 * plan.s, pcr.n_levels(C)
             name = kernel_checks.solver_entry("K3.spike_correct", s)
             # y, add_to and x (nvar N each), W and V (s^2 per supernode each),
             # xm1 and xp1
@@ -3156,22 +3310,15 @@ def phase3_redesign():
             sets = cold_sets(nbytes, lambda i: (fact, y, xm1, xp1, add) if i == 0 else (
                 fact._replace(W=fact.W.clone(), V=fact.V.clone()), y.clone(), xm1.clone(),
                 xp1.clone(), add.clone()))
-            turn = itertools.cycle(sets)
-
-            def kern():
-                f_, y_, m_, p_, a_ = next(turn)
-                return thomas.spike_correct(f_, y_, m_, p_, plan, add_to=a_)
-
+            kern = cold_call(sets, lambda f_, y_, m_, p_, a_: thomas.spike_correct(
+                f_, y_, m_, p_, plan, add_to=a_))
             ms = min(cuda_ms(kern, 10 * len(sets)) for _ in range(2))
-            us, _ = launch_us(kern, name, names=FILM_TRACE_NAMES if s > 4 else TRACE_NAMES)
-            del sets, turn
+            us, _ = launch_us(kern, name, names=names)
+            del sets, kern
             b_ms, _ = bound(nbytes, 4 * s * nvar * N * B, dtype)
             cp = thomas.correct_plan(s, item, plan.Mc, C, B)
-            log(f"  {name} {label} {dt_name} (C={C} Mc={plan.Mc} B={B}, {cp}), cold L2: "
-                f"{ms:.4f} ms host call, "
-                + (f"{us:.2f} device us" if us is not None else "device us not measured")
-                + f", bound {b_ms * 1e3:.2f} us ({nbytes} bytes)"
-                + (f": {b_ms * 1e3 / us:.1%} of it" if us else ""))
+            log_device(f"{name} {label} {dt_name} (C={C} Mc={plan.Mc} B={B}, {cp}), cold L2",
+                       ms, us, b_ms, nbytes)
             # K4's factor: its route, and the other narrow one beside it
             red_bytes = B * (2 * s2 * s2 * C + (2 * nlev + 1) * s2 * s2 * C) * item
             b_ms, _ = bound(red_bytes, B * 12 * s2 ** 3 * C * nlev, dtype)
@@ -3183,20 +3330,17 @@ def phase3_redesign():
                 entry = {"wide": "K4.pcr_factor_wide", "members": "K4.pcr_factor_members",
                          "grid": "K4.pcr_factor"}[r]
                 f_ms = min(cuda_ms(fn, 10) for _ in range(2))
-                f_us, _ = launch_us(fn, entry,
-                                    names=FILM_TRACE_NAMES if r == "wide" else TRACE_NAMES)
-                log(f"  {entry} {label} {dt_name} (route {r}"
-                    + f"{' (the plan)' if r == route else ''}): "
-                    f"{f_ms:.4f} ms host call, "
-                    + (f"{f_us:.2f} device us" if f_us is not None
-                       else "device us not measured")
-                    + f", bound {b_ms * 1e3:.3f} us ({red_bytes} bytes)")
+                f_us, _ = launch_us(fn, entry, names=names)
+                log_device(f"{entry} {label} {dt_name} (route {r}"
+                           + f"{' (the plan)' if r == route else ''})", f_ms, f_us, b_ms,
+                           red_bytes)
                 if r == "members" and label == "config 5":
                     plain = lambda: pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
                     p_ms = min(cuda_ms(plain, 2) for _ in range(2))
                     times[dt_name]["K4.pcr_factor_members"] = (f_ms, p_ms, b_ms, "bytes", None)
             del fact, y, add, xm1, xp1
             torch.cuda.empty_cache()
+        redesign_stencil(dtype, dt_name)
     return times
 
 

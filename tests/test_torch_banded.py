@@ -8,7 +8,8 @@ state add (``add_to``).  Periodic grids on chunk counts that are no power
 of two >= 8 close their ring with the Woodbury correction: those solves
 are held to a dense ``torch.linalg.solve`` and the JAX package's
 ``solve_banded(..., periodic=True)`` to 1e-12, at s = 1, 2 and 4 and
-C = 2, 4 and counts that are no power of two."""
+C = 2, 4 and counts that are no power of two, and the JAX package's alone
+at the cells' thousands of chunks."""
 
 import functools
 
@@ -115,15 +116,15 @@ def test_identity_and_axpy_bands_match_jax(W, nvar):
 
 def test_plan_choice():
     big = chunked.make_plan(1 << 20, 1, 1, True)
-    assert (big.C, big.Mc, big.cyclic) == (2048, 512, True)
+    assert (big.C, big.Mc, big.cyclic) == (4096, 256, True)
     readme = chunked.make_plan(200, 1, 1, False)
-    assert (readme.C, readme.Mc, readme.cyclic) == (25, 8, False)
+    assert (readme.C, readme.Mc, readme.cyclic) == (100, 2, False)
     ks = chunked.make_plan(2048, 1, 2, True)
-    assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 128, 8)
+    assert (ks.g, ks.s, ks.C, ks.Mc) == (2, 2, 512, 2)
     # the plan is the cheapest admissible one under the cost model
     M = big.M
     assert all(chunked.plan_cost_us(M, big.C) <= chunked.plan_cost_us(M, C)
-               for C in (1024, 4096, 8192, 16384))
+               for C in (1024, 2048, 8192, 16384))
     # no halo: no coupling, nothing cyclic even on a periodic grid
     assert not chunked.make_plan(64, 1, 0, True).cyclic
 
@@ -155,7 +156,7 @@ def test_periodic_grid_without_power_of_two_chunks_raises():
 def test_reference_grids_take_the_least_cost_divisor():
     """The reference benchmark's periodic grids (N = 10^6 and 10^4) plan
     over every divisor; a power-of-two grid keeps its block-cyclic plan."""
-    for N, halo, C in ((10 ** 6, 1, 2500), (10 ** 6, 2, 2000),
+    for N, halo, C in ((10 ** 6, 1, 5000), (10 ** 6, 2, 4000),
                        (10 ** 4, 2, 500)):
         plan = chunked.make_plan(N, 1, halo, True)
         M = plan.M
@@ -164,7 +165,7 @@ def test_reference_grids_take_the_least_cost_divisor():
         assert (plan.C, plan.Mc) == (best, M // best) == (C, M // C)
         assert plan.wrap and plan.woodbury and C & (C - 1)
     big = chunked.make_plan(1 << 20, 1, 1, True)
-    assert (big.C, big.cyclic, big.wrap, big.woodbury) == (2048, True, True,
+    assert (big.C, big.cyclic, big.wrap, big.woodbury) == (4096, True, True,
                                                             False)
 
 
@@ -192,6 +193,31 @@ def test_woodbury_solve_vs_dense_and_jax(W, nvar, N, C):
     x_jax = np.asarray(banded_jax.solve_banded(
         banded_jax.axpy_bands(ALPHA, BETA, bands), rhs, periodic=True))
     assert np.abs(x.numpy() - x_jax).max() <= 1e-12 * scale
+
+
+#: (W, nvar, N, C) of Woodbury solves at the chunk counts the cells' plans
+#: take since the plan cost was refitted to K4's Woodbury set-up across the
+#: card (KS 10^6: 4000, Burgers 10^6: 5000), two supernodes a chunk, at s =
+#: 1, 2 and 4
+CELL_WOODBURY_CASES = [(3, 1, 10000, 5000), (3, 1, 8000, 4000), (5, 1, 16000, 4000),
+                       (5, 2, 16000, 4000)]
+
+
+@pytest.mark.parametrize("W,nvar,N,C", CELL_WOODBURY_CASES)
+def test_woodbury_solve_at_the_cells_chunk_counts_vs_jax(W, nvar, N, C):
+    """The ring closed by the Woodbury correction on thousands of chunks,
+    against the JAX package's ``solve_banded(periodic=True)`` to 1e-12 of
+    the largest entry."""
+    bands = random_bands(W, nvar, N, seed=W * 100 + nvar * 10 + C)
+    rhs = np.random.default_rng(8).standard_normal((nvar, N))
+    plan = _plan(N, nvar, W // 2, True, C)
+    assert plan.woodbury and plan.C == C and plan.Mc == 2
+    assert plan.s == nvar * max(W // 2, 1)
+    x = chunked.factor(ALPHA, BETA, torch.tensor(bands), True, plan).solve(
+        torch.tensor(rhs)).numpy()
+    x_jax = np.asarray(banded_jax.solve_banded(
+        banded_jax.axpy_bands(ALPHA, BETA, bands), rhs, periodic=True))
+    assert np.abs(x - x_jax).max() <= 1e-12 * np.abs(x_jax).max()
 
 
 def test_acyclic_pcr_factor_ignores_the_corner_blocks():

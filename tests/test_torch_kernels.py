@@ -92,7 +92,7 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     ``Simulation``'s schemes never the opt-in two-pass theta step (K9), a
     block size of 1 none of K2-K4's wide instantiations, and a plan of more
     than ``pcr.FACTOR_MEMBERS_MAX_C`` chunks not K4's one block per
-    member."""
+    member (its factor's or its R-column solve's)."""
     model, fields, pars = _burgers_on(cuda_device)
     _launch.reset_counters()
     schemes.RODASPR(model, time_stepping=False, tol=None)(0.0, fields, 0.05,
@@ -100,7 +100,7 @@ def test_rodaspr_step_launches_every_kernel(cuda_device):
     counts = _launch.counts()
     assert all(c > 0 for k, c in counts.items()
                if not k.startswith(("K6", "K9")) and k not in WIDE_ONLY
-               and k != "K4.pcr_factor_members"
+               and k not in ("K4.pcr_factor_members", "K4.pcr_solve_members")
                and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual"))
     assert not any(counts[k] for k in WIDE_ONLY)
     assert counts["K9.interface"] == counts["K9.correct"] == 0
@@ -591,6 +591,35 @@ def test_grid_factor_matches_plain_version(cuda_device, dtype):
     assert set(results) == {kernel_checks.factor_entry(s, C)
                             for s, C, _, _ in kernel_checks.GRID_FACTOR_CASES}
     assert set(results) == {"K4.pcr_factor", "K4.pcr_factor_members"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_tiled_F_matches_plain_version(cuda_device, dtype):
+    """K1's tiled F and F_terms against their plain versions at N not a
+    multiple of the tile, N within a few tiles of the halo (down to fewer
+    nodes than the halo spans), periodic and edge, B = 1, 4 and 1024
+    (``kernel_checks.TILED_F_SHAPES``), halos 1 and 2; F bit for bit K6's
+    per-node body launched alone, and F_terms of one unit term bit for bit
+    F."""
+    results = kernel_checks.check_all_tiled_F(cuda_device, dtype)
+    assert set(results) == {"K1.F", "K1.F_terms"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_woodbury_setup_matches_plain_version(cuda_device, dtype):
+    """K4's Woodbury set-up and R-column solve across the card against their
+    plain versions at block sizes 1..8 (narrow and wide), C = 2 to the
+    cells' 2500, one grid and members up to config 5's B = 1024
+    (``kernel_checks.SETUP_CASES``), each by the route its shape picks and
+    bit for bit the one-block body (K6's)."""
+    results = kernel_checks.check_all_setups(cuda_device, dtype)
+    assert set(results) == {kernel_checks.setup_entry(s, C, B)
+                            for s, C, B in kernel_checks.SETUP_CASES}
+    assert set(results) == {"K4.pcr_solve", "K4.pcr_solve_wide", "K4.pcr_solve_members"}
 
 
 def test_new_checks_harness_on_cpu():

@@ -112,22 +112,24 @@ def test_correction_and_factor_checks_harness_on_cpu():
     assert _launch.counts() == before
 
 
-#: (N, nvar, halo, members, chunk count) of the cells under the refitted
-#: narrow cost: KS (s = 2) and Burgers (s = 1) at 10^6 (Woodbury) and 2^20
-#: (block-cyclic), the padded ring N = 999983, KS 10^4; config 5 (B =
-#: 1024, its own batch cost); the film's grids (s = 6, the wide cost)
-CELL_PICKS = [(10 ** 6, 1, 2, 1, 2000), (1 << 20, 1, 2, 1, 2048), (10 ** 6, 1, 1, 1, 2500),
-              (1 << 20, 1, 1, 1, 2048), (999983, 1, 2, 1, 2041), (10 ** 4, 1, 2, 1, 500),
-              (10 ** 5, 1, 2, 1024, 100), (10 ** 6, 3, 2, 1, 1000), (1 << 20, 3, 2, 1, 2048)]
+#: (N, nvar, halo, members, chunk count) of the cells under the narrow and
+#: wide costs refitted to the Woodbury set-up across the card: KS (s = 2)
+#: and Burgers (s = 1) at 10^6 (Woodbury) and 2^20 (block-cyclic), the
+#: padded ring N = 999983, KS 10^4; config 5 (B = 1024, its own batch
+#: cost); the film's grids (s = 6, the wide cost)
+CELL_PICKS = [(10 ** 6, 1, 2, 1, 4000), (1 << 20, 1, 2, 1, 4096), (10 ** 6, 1, 1, 1, 5000),
+              (1 << 20, 1, 1, 1, 4096), (999983, 1, 2, 1, 4065), (10 ** 4, 1, 2, 1, 500),
+              (10 ** 5, 1, 2, 1024, 100), (10 ** 6, 3, 2, 1, 2000), (1 << 20, 3, 2, 1, 2048)]
 
 
 @pytest.mark.parametrize("N,nvar,halo,B,want", CELL_PICKS)
 def test_refitted_costs_give_the_cells_picks(N, nvar, halo, B, want):
-    """``make_plan`` under the narrow constants refitted to the factor
+    """``make_plan`` under the constants refitted to the Woodbury set-up
     across the card (``chunked.ROW_US`` / ``LEVEL_US`` / ``SLAB_US``, a
-    non-negative fit of both dtypes' KS 10^6 chunk sweeps) picks each
-    cell's chunk count, the least modelled cost over the exact counts; the
-    wide cost (the film) and config 5's batch cost keep their picks."""
+    non-negative fit of both dtypes' KS 10^6 and 10^4 chunk sweeps;
+    ``WIDE_ROW_US`` / ``WIDE_LEVEL_US`` / ``WIDE_WOOD_US``, of the film's)
+    picks each cell's chunk count, the least modelled cost over the exact
+    counts; config 5's batch cost keeps its pick."""
     plan = chunked.make_plan(N, nvar, halo, True, B)
     assert plan.C == want
     s, M = plan.s, -(-N // plan.g)

@@ -1,49 +1,53 @@
 #!/usr/bin/env python3
-"""Time K2's factor, K4's factor and solve with shifts, K3's chunk sweep
-and K5's combination against a parent commit's, in one process on one
-NVIDIA GPU.
+"""Time the solver kernels and K1's F against a parent commit's, in one
+process on one NVIDIA GPU.
 
-    python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS] [GRID ...]
+    python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS] [GRID ...] [+KERNELS ...]
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``a79eea9`` (``git archive``),
-the commit before K3's tiled correction and K4's narrow factor across the
-card (K2, K4's solve with shifts and wide factor, K3's sweep and K5 are
-the same in both, so their pairs show the noise of the measurement).
-GRID words keep only the grids whose name holds one of them (``film``: the falling film's).  Both
-packages load in this process, the parent's under another name, each
-building its kernels from its own ``csrc/`` into its own ``build/``.
+repository, it is unpacked there from commit ``5e69748`` (``git
+archive``), the commit before K4's Woodbury set-up across the card and
+K1's tiled F.  GRID words keep only the grids whose name holds one of them
+(``film``: the falling film's); ``+word`` arguments keep only those
+kernel groups (``KERNEL_GROUPS``: ``k2``, ``k4f``, ``setup``, ``shift``,
+``k3``, ``corr``, ``k5``, ``stencil``; all without).  Both packages load
+in this process, the parent's under another name, each building its
+kernels from its own ``csrc/`` into its own ``build/``, all libraries at
+once first.
 
 On the same inputs (random diagonally dominant bands; the plain reduced
 factor of K2's and, on a Woodbury plan, its closure; one random
 right-hand side) it times, on each grid of ``GRIDS`` and under its chunk
 plan: K2 (``thomas.spike_factor``, the whole wrapper), K4's factor
-(``pcr.pcr_factor``), its solve with shifts (``pcr.pcr_solve_shift``),
-K3's sweep (``thomas.thomas_sweep``) and K3's correction
-(``thomas.spike_correct`` of the sweep's y with ``add_to``, timed on copies
-of its inputs taken in turn, ``COLD_BYTES`` of them, so that each call
-reads its inputs from memory and not from L2); the grids are
-KS N = 2^20 (s = 2, one grid, block-cyclic: ``make_plan``'s plan and C =
-1024 and 4096), KS N = 10^6 (Woodbury), the padded ring of KS N = 999983
-(its 1534 chunks of 1000168 nodes under the narrow cost before its refit
-to the tiled correction and the factor across the card, 2041 of 1000090
-after), Burgers N = 10^6 (s = 1), the falling
-film (s = 6, three fields: K2's and K4's
-wide factors) at N = 10^6 under ``make_plan``'s plan and at C = 500, 1000,
-2000 and 4000 (Woodbury), at N = 2^20 at C = 512, 2048 and 4096, and at
-8192 chunks of 2^15 nodes (block-cyclic), and config 5 (B = 1024 members
-of KS N = 10^5); and K5 (``combine.combine``: A = 7 arrays, R = 2 rows, KS
-2^20's shape) beside one ``torch.mm`` of the same coefficients over
-stacked operands; float64 and float32; CUDA-event ms per call over
-back-to-back calls, in the order parent, this, this, parent, PAIRS times
-(default 2).  It checks that both give the same outputs (K2's five row
-arrays and reduced couplings, K4's level operators and Dinv, its shifts,
-K3's y and corrected x: bit for bit, or within the solver pieces' limits, 1e-10 of the
-largest entry in float64 and 1e-4 in float32, printed beside), and
-reads each kernel's device µs per launch from ``torch.profiler`` (20
-launches alone).  Prints the card's name and power limit, one line per
-measurement, then one JSON line with every mean.
+(``pcr.pcr_factor``), its Woodbury set-up (``pcr.woodbury``, on inputs
+cold in L2, by its route and at a narrow size the other route's device
+µs beside it; and the R-column solve's outputs), its solve with shifts
+(``pcr.pcr_solve_shift``), K3's sweep (``thomas.thomas_sweep``) and K3's
+correction (``thomas.spike_correct`` of the sweep's y with ``add_to``,
+timed on copies of its inputs taken in turn, ``COLD_BYTES`` of them, so
+that each call reads its inputs from memory and not from L2); the grids
+are KS N = 2^20 (s = 2, one grid, block-cyclic: ``make_plan``'s plan and
+C = 1024 and 4096), KS N = 10^6 (Woodbury), the padded ring of KS N =
+999983 (1534 and 2041 chunks), Burgers N = 10^6 (s = 1), the falling
+film (s = 6, three fields: K2's and K4's wide factors) at N = 10^6 under
+``make_plan``'s plan and at C = 500, 1000, 2000 and 4000 (Woodbury), at N
+= 2^20 at C = 512, 2048 and 4096, and at 8192 chunks of 2^15 nodes
+(block-cyclic), config 5 (B = 1024 members of KS N = 10^5) and B = 16 and
+132 members at C = 100; K5 (``combine.combine``: A = 7 arrays, R = 2
+rows, KS 2^20's shape) beside one ``torch.mm`` of the same coefficients
+over stacked operands; and K1's F (a scale and a bias, a RODASPR stage's
+call) on ``STENCIL_GRIDS`` with its outputs and J's against the parent's,
+the host call back to back, the device µs on inputs cold in L2 and a
+cProfile of 1000 calls at KS 2^20, and F_terms at config 5's shape.
+Float64 and float32; CUDA-event ms per call over back-to-back calls, in
+the order parent, this, this, parent, PAIRS times (default 2).  It
+checks that both give the same outputs (bit for bit, or within the
+solver pieces' limits, 1e-10 of the largest entry in float64 and 1e-4 in
+float32, printed beside), and reads each kernel's device µs per launch
+from ``torch.profiler`` (20 launches alone).  Prints the card's name and
+power limit, one line per measurement, then one JSON line with every
+mean.
 """
 
 import importlib.util
@@ -60,10 +64,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from triflow_tpu_torch import Model  # noqa: E402
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
                                    pcr, thomas)
 
-PARENT_COMMIT = "a79eea9"
+PARENT_COMMIT = "5e69748"
 #: bytes the inputs of K3's correction rotate over when timed: twice the
 #: H100's 50 MB L2, so that each call reads its inputs from memory
 COLD_BYTES = 100 * 2 ** 20
@@ -87,8 +92,8 @@ def load_parent(path: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
-    return tuple(importlib.import_module(f"parent_port.ops.{name}")
-                 for name in ("thomas", "pcr", "combine"))
+    return tuple(importlib.import_module(f"parent_port{name}")
+                 for name in (".ops.thomas", ".ops.pcr", ".ops.combine", ""))
 
 
 def cuda_ms(fn, iters):
@@ -104,12 +109,14 @@ def cuda_ms(fn, iters):
 
 
 def device_us(fn, name, launches=20, tries=5):
-    """Device µs per launch of kernels whose name holds ``name`` over
-    ``launches`` calls of fn alone; a window in which the profiler kept
-    another number of them is measured again, and after ``tries`` windows
-    the result is None."""
+    """Device µs per call of fn, summed over the kernels whose name holds
+    ``name`` (a string, or a tuple of strings whose kernels each launch
+    once a call), over ``launches`` calls of fn alone; a window in which the
+    profiler kept another number of them is measured again, and after
+    ``tries`` windows the result is None."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else name
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -117,10 +124,11 @@ def device_us(fn, name, launches=20, tries=5):
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
-        times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
-        if len(times) == launches:
-            return sum(times) / launches
+        times = {n: [ev.time_range.end - ev.time_range.start for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA and n in ev.name]
+                 for n in names}
+        if all(len(ts) == launches for ts in times.values()):
+            return sum(sum(ts) for ts in times.values()) / launches
     return None
 
 
@@ -141,7 +149,57 @@ GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
          ("film 2^20 C=2048", 5, 3, 1 << 20, 1, 2048, 5),
          ("film 2^20 C=4096", 5, 3, 1 << 20, 1, 4096, 5),
          ("film 2^15 C=8192", 5, 3, 1 << 15, 1, 8192, 5),
-         ("config 5", 5, 1, 10 ** 5, 1024, None, 3)]
+         ("config 5", 5, 1, 10 ** 5, 1024, None, 3),
+         ("ks 10^5 B=16 C=100", 5, 1, 10 ** 5, 16, 100, 5),
+         ("ks 10^5 B=132 C=100", 5, 1, 10 ** 5, 132, 100, 5)]
+
+
+def prebuild(sides, kernels):
+    """Build both checkouts' libraries that the run needs at once, one nvcc
+    each (the K1 libraries of STENCIL_GRIDS' models where ``stencil`` is
+    timed)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = []
+    for th, pc, co, model in sides:
+        for lib in (th.FACTOR_LIB, th.SOLVE_LIB, pc.LIB, co.LIB, th.FACTOR_WIDE_LIB,
+                    th.SOLVE_WIDE_LIB, pc.WIDE_LIB):
+            jobs += lib.builds()
+        if "stencil" in kernels:
+            for eqs in {id(g[1]): g[1] for g in STENCIL_GRIDS}.values():
+                for double in (True, False):
+                    jobs.append(model(*eqs, double=double, device="cuda").backend.stencil.load)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for fut in [pool.submit(job) for job in jobs]:
+            fut.result()
+
+
+def cold_copies(nbytes, first, clone):
+    """``first`` and copies ``clone(*first)`` of a call's inputs, as many as
+    span COLD_BYTES with ``nbytes`` each (``first`` alone where it does):
+    timed in turn, each call reads inputs that COLD_BYTES of other traffic
+    has passed through L2 since their last read."""
+    n = 1 if nbytes >= COLD_BYTES else 1 + -(-COLD_BYTES // nbytes)
+    return [first] + [clone(*first) for _ in range(n - 1)]
+
+
+#: the kernel groups (``+word`` arguments): K2, K4's factor, its Woodbury
+#: set-up and R-column solve, its solve with shifts, K3's sweep and
+#: correction, K5, K1's F, F_terms and J
+KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil")
+KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
+BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
+FILM = (["-dxq",
+         "9/7 * q**2 / h**2 * dxh - upwind(17/7 * q / h, q, 2)"
+         " + (h - q / h**2) / delta + h * dxxxh / (3 * delta) - Ma * h * dxG",
+         "-upwind(3/2 * q / h, G, 2) + dxxG / Pe"],
+        ["h", "q", "G"], ["delta", "Ma", "Pe"])
+#: (label, equations, N, members) of K1's timings: one grid on the F
+#: entry, members on F_terms
+STENCIL_GRIDS = [("ks 2^20", KS, 1 << 20, 1), ("ks 10^6", KS, 10 ** 6, 1),
+                 ("burgers 10^6", BURGERS, 10 ** 6, 1), ("film 10^6", FILM, 10 ** 6, 1),
+                 ("ks 999983", KS, 999983, 1), ("ks 1000", KS, 1000, 1),
+                 ("config 5", KS, 10 ** 5, 1024)]
 
 
 def gap(new, old):
@@ -157,13 +215,16 @@ def main():
     args = sys.argv[1:]
     parent_dir = Path(args[0]) if args else ROOT / "build" / "ab_parent"
     pairs = int(args[1]) if len(args) > 1 else 2
-    words = args[2:]
+    kernels = {w[1:] for w in args[2:] if w.startswith("+")} or set(KERNEL_GROUPS)
+    words = [w for w in args[2:] if not w.startswith("+")]
     grids = [g for g in GRIDS if not words or any(w in g[0] for w in words)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
-    old_thomas, old_pcr, old_combine = load_parent(parent_dir)
+    old_thomas, old_pcr, old_combine, old_port = load_parent(parent_dir)
+    prebuild([(thomas, pcr, combine, Model), (old_thomas, old_pcr, old_combine, old_port.Model)],
+             kernels)
     means = {}
 
     def turns(what, old, new, iters):
@@ -179,14 +240,156 @@ def main():
               + f" ms; this / parent {means[f'{what} this'] / means[f'{what} parent']:.3f}",
               flush=True)
 
-    def on_device(what, old, new, name):
-        for side, fn in (("parent", old), ("this", new)):
-            us = device_us(fn, name)
+    def on_device(what, old, new, name, old_name=None):
+        for side, fn, nm in (("parent", old, old_name or name), ("this", new, name)):
+            us = device_us(fn, nm)
             means[f"{what} {side} device us"] = us
             print(f"  {what} {side}: "
                   + (f"{us:.3f} device us per launch" if us is not None
                      else "device us not measured (the profiler dropped launches)"),
                   flush=True)
+
+    def setup_turns(name, dt, where, plan, B, red, fact, iters):
+        """K4's Woodbury set-up (``pcr.woodbury``) against the parent's
+        one-block set-up, on inputs cold in L2, and at a narrow block size
+        by each of its routes; the R-column solve of random right-hand
+        sides beside it."""
+        s2, C = 2 * plan.s, plan.C
+        lead = (B,) if B > 1 else ()
+        new_out = pcr.woodbury(red, fact.Lred, fact.Ured)
+        old_out = old_pcr.woodbury(red, fact.Lred, fact.Ured)
+        route = pcr.cols_route(s2, C, B)
+        print(f"K4 woodbury set-up {where}, route {route}, "
+              f"{pcr.solve_plan(C, s2, B * s2, red.Dinv.element_size())}; "
+              f"{gap(new_out, old_out)}", flush=True)
+        del new_out, old_out
+        # the factor's operators, Dinv and the corner blocks, cold in L2
+        nbytes = sum(a.numel() * a.element_size() for a in (*red, fact.Lred, fact.Ured))
+        sets = cold_copies(nbytes, (red, fact.Lred, fact.Ured), lambda r, L, U: (
+            pcr.PcrFactor(*(a.clone() for a in r)), L.clone(), U.clone()))
+
+        def cold(call):
+            turn = itertools.cycle(sets)
+            return lambda: call(*next(turn))
+
+        def by(route):
+            def call(r, L, U):
+                Z = torch.empty((*lead, s2, s2, C), dtype=L.dtype, device=L.device)
+                cap = torch.empty((*lead, s2, s2), dtype=L.dtype, device=L.device)
+                pcr._launch_cols(r, None, L, U, Z, cap, s2, B, route)
+                return Z, cap
+            return call
+
+        what = f"K4 woodbury set-up {name} {dt}"
+        turns(what, cold(old_pcr.woodbury), cold(pcr.woodbury), iters * len(sets))
+        names = {"clusters": ("pcr_solve_cols_cluster_kernel", "woodbury_cap_kernel"),
+                 "members": "pcr_solve_kernel"}
+        on_device(what, cold(old_pcr.woodbury), cold(pcr.woodbury), names[route],
+                  "pcr_solve_kernel")
+        if s2 <= 2 * thomas.NARROW_S:
+            other = "members" if route == "clusters" else "clusters"
+            got = by(other)(red, fact.Lred, fact.Ured)
+            ref = pcr.woodbury(red, fact.Lred, fact.Ured)
+            print(f"  {what} route {other}: {gap(got, ref)} against route {route}",
+                  flush=True)
+            us = device_us(cold(by(other)), names[other])
+            means[f"{what} {other} device us"] = us
+            print(f"  {what} route {other}: "
+                  + (f"{us:.3f} device us per call" if us is not None else
+                     "device us not measured"), flush=True)
+        del sets
+        # the R-column solve of s2 random columns (kernel_checks' shape)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        cols = torch.randn(lead + (s2, s2, C), dtype=red.Dinv.dtype, device="cuda",
+                           generator=gen)
+        print(f"K4 pcr_solve {where}: "
+              f"{gap((pcr.pcr_solve(red, cols),), (old_pcr.pcr_solve(red, cols),))}",
+              flush=True)
+
+    def stencil_turns(dt, dtype):
+        """K1's F entry (scale and bias, a RODASPR stage's call) against the
+        parent's on STENCIL_GRIDS, F_terms at config 5's shape, and J's
+        output against the parent's: outputs bit for bit, the host call's
+        ms (CUDA events over back-to-back calls), device µs on inputs cold
+        in L2, and where the host's time goes (cProfile of 1000 calls of
+        the F entry at KS 2^20)."""
+        import cProfile
+        import pstats
+
+        double = dtype == torch.float64
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for label, eqs, N, B in STENCIL_GRIDS:
+            new_b = Model(*eqs, double=double, device="cuda").backend
+            old_b = old_port.Model(*eqs, double=double, device="cuda").backend
+            sysm = new_b.system
+            lead = (B,) if B > 1 else ()
+
+            def rand(*shape):
+                return torch.randn(shape, dtype=dtype, device="cuda", generator=gen)
+
+            x = torch.linspace(0.0, 0.5 * N, N, dtype=dtype, device="cuda")
+            u, bias = rand(*lead, sysm.nvar, N), rand(*lead, sysm.nvar, N)
+            helpers = rand(*lead, len(sysm.help_funcs), N)
+            pstack = 0.5 + torch.rand((*lead, len(sysm.pars), N), dtype=dtype,
+                                      device="cuda", generator=gen)
+            what = f"{label} {dt}"
+            if B == 1:
+                for periodic in (True, False):
+                    got = new_b.F(u, helpers, pstack, x, periodic=periodic, scale=0.05,
+                                  bias=bias)
+                    want = old_b.F(u, helpers, pstack, x, periodic=periodic, scale=0.05,
+                                   bias=bias)
+                    print(f"K1.F {what} periodic={periodic}: {gap((got,), (want,))}; J "
+                          + gap((new_b.J_bands(u, helpers, pstack, x, periodic=periodic),),
+                                (old_b.J_bands(u, helpers, pstack, x, periodic=periodic),)),
+                          flush=True)
+                nbytes = (3 * sysm.nvar + helpers.shape[-2] + pstack.shape[-2] + 1) * N \
+                    * u.element_size()
+                sets = cold_copies(nbytes, (u, helpers, pstack, x, bias),
+                                   lambda *a: tuple(v.clone() for v in a))
+
+                def cold(b):
+                    turn = itertools.cycle(sets)
+
+                    def go():
+                        u_, h_, p_, x_, c_ = next(turn)
+                        return b.F(u_, h_, p_, x_, periodic=True, scale=0.05, bias=c_)
+                    return go
+
+                turns(f"K1.F {what}", lambda: old_b.F(u, helpers, pstack, x, periodic=True,
+                                                      scale=0.05, bias=bias),
+                      lambda: new_b.F(u, helpers, pstack, x, periodic=True, scale=0.05,
+                                      bias=bias), 1000)
+                on_device(f"K1.F {what} cold", cold(old_b), cold(new_b), "stencil_F_kernel")
+                if label == "ks 2^20":
+                    for side, b in (("parent", old_b), ("this", new_b)):
+                        prof = cProfile.Profile()
+                        prof.enable()
+                        for _ in range(1000):
+                            b.F(u, helpers, pstack, x, periodic=True, scale=0.05, bias=bias)
+                        prof.disable()
+                        torch.cuda.synchronize()
+                        print(f"  cProfile K1.F {what} {side}, 1000 calls:", flush=True)
+                        pstats.Stats(prof, stream=sys.stdout).sort_stats(
+                            "tottime").print_stats(12)
+                del sets
+            else:
+                terms = [(c, d, rand(B, sysm.nvar, N)) for c, d in (
+                    (1.0, 0.0), (0.37, 1.0), (-0.21, 0.5), (0.0, -0.7), (1.3, 0.0), (0.8, 0.2))]
+                got = new_b.F_terms(terms, helpers, pstack, x, periodic=True, scale=0.05)
+                want = old_b.F_terms(terms, helpers, pstack, x, periodic=True, scale=0.05)
+                print(f"K1.F_terms {what} (A = 6): {gap((got,), (want,))}", flush=True)
+                turns(f"K1.F_terms {what}",
+                      lambda: old_b.F_terms(terms, helpers, pstack, x, periodic=True,
+                                            scale=0.05),
+                      lambda: new_b.F_terms(terms, helpers, pstack, x, periodic=True,
+                                            scale=0.05), 5)
+                on_device(f"K1.F_terms {what}",
+                          lambda: old_b.F_terms(terms, helpers, pstack, x, periodic=True,
+                                                scale=0.05),
+                          lambda: new_b.F_terms(terms, helpers, pstack, x, periodic=True,
+                                                scale=0.05), "stencil_F_terms")
+            torch.cuda.empty_cache()
 
     for dtype in (torch.float64, torch.float32):
         dt = str(dtype).replace("torch.", "")
@@ -200,100 +403,109 @@ def main():
                 bands = bands.expand(B, *bands.shape).contiguous()
             where = (f"{name} {dt}: s={plan.s} C={plan.C} Mc={plan.Mc} B={B} "
                      f"woodbury={plan.woodbury}")
-            # K2
-            f_new = thomas.spike_factor(bands, 1.0, -0.3, plan)
-            f_old = old_thomas.spike_factor(bands, 1.0, -0.3, plan)
-            fp = thomas.factor_plan(plan.nvar, plan.halo, item, plan.Mc, plan.C, B)
-            print(f"K2 factor {where}, {fp}; {gap(f_new, f_old)}", flush=True)
-            del f_old
-            turns(f"K2 factor {name} {dt}",
-                  lambda: old_thomas.spike_factor(bands, 1.0, -0.3, plan),
-                  lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), iters)
-            on_device(f"K2 factor {name} {dt}",
+            fact = thomas.spike_factor(bands, 1.0, -0.3, plan)
+            if "k2" in kernels:
+                f_old = old_thomas.spike_factor(bands, 1.0, -0.3, plan)
+                fp = thomas.factor_plan(plan.nvar, plan.halo, item, plan.Mc, plan.C, B)
+                print(f"K2 factor {where}, {fp}; {gap(fact, f_old)}", flush=True)
+                del f_old
+                turns(f"K2 factor {name} {dt}",
                       lambda: old_thomas.spike_factor(bands, 1.0, -0.3, plan),
-                      lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), "spike_factor")
+                      lambda: thomas.spike_factor(bands, 1.0, -0.3, plan), iters)
+                on_device(f"K2 factor {name} {dt}",
+                          lambda: old_thomas.spike_factor(bands, 1.0, -0.3, plan),
+                          lambda: thomas.spike_factor(bands, 1.0, -0.3, plan),
+                          "spike_factor")
             del bands
-            fact = f_new
             # K4's factor of the reduced system
             red = pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
-            r_old = old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            route = pcr.factor_route(2 * plan.s, plan.C)
-            if route == "wide":
-                kp = pcr.factor_plan_wide(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
-                    pcr.WIDE_LIB, suffix, 2 * plan.s))
-            elif route == "grid":
-                kp = pcr.factor_plan_grid(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
-                    pcr.LIB, suffix, 2 * plan.s))
-            else:
-                kp = "one block per member"
-            print(f"K4 factor {where}, {kp}; {gap(red, r_old)}", flush=True)
-            del r_old
-            turns(f"K4 factor {name} {dt}",
-                  lambda: old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
-                  lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic), iters)
-            on_device(f"K4 factor {name} {dt}",
+            if "k4f" in kernels:
+                r_old = old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic)
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                route = pcr.factor_route(2 * plan.s, plan.C)
+                if route == "wide":
+                    kp = pcr.factor_plan_wide(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
+                        pcr.WIDE_LIB, suffix, 2 * plan.s))
+                elif route == "grid":
+                    kp = pcr.factor_plan_grid(plan.C, 2 * plan.s, B, sms, pcr._grid_blocks(
+                        pcr.LIB, suffix, 2 * plan.s))
+                else:
+                    kp = "one block per member"
+                print(f"K4 factor {where}, {kp}; {gap(red, r_old)}", flush=True)
+                del r_old
+                turns(f"K4 factor {name} {dt}",
                       lambda: old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
-                      lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic), "pcr_factor")
-            # K4's solve with shifts
+                      lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic), iters)
+                on_device(f"K4 factor {name} {dt}",
+                          lambda: old_pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
+                          lambda: pcr.pcr_factor(fact.Lred, fact.Ured, plan.cyclic),
+                          "pcr_factor")
+            if "setup" in kernels and plan.woodbury:
+                setup_turns(name, dt, where, plan, B, red, fact, iters)
             wood = pcr.woodbury(red, fact.Lred, fact.Ured) if plan.woodbury else ()
             gen = torch.Generator(device="cuda").manual_seed(0)
             lead = (B,) if B > 1 else ()
-            yred = torch.randn(lead + (2 * plan.s, plan.C), dtype=dtype, device="cuda",
-                               generator=gen)
-            s_new = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
-            s_old = old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
-            sp = pcr.solve_plan(plan.C, 2 * plan.s, B, item)
-            print(f"K4 solve_shift {where}, {sp}; {gap(s_new, s_old)}", flush=True)
-            turns(f"K4 solve_shift {name} {dt}",
-                  lambda: old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
-                  lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood), 5 * iters)
-            on_device(f"K4 solve_shift {name} {dt}",
+            if "shift" in kernels:
+                # K4's solve with shifts
+                yred = torch.randn(lead + (2 * plan.s, plan.C), dtype=dtype, device="cuda",
+                                   generator=gen)
+                s_new = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+                s_old = old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+                sp = pcr.solve_plan(plan.C, 2 * plan.s, B, item)
+                print(f"K4 solve_shift {where}, {sp}; {gap(s_new, s_old)}", flush=True)
+                turns(f"K4 solve_shift {name} {dt}",
                       lambda: old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
-                      lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
-                      "pcr_solve_shift")
-            del red, wood, yred, s_new, s_old
-            # K3's sweep (the same kernel in both: the noise of the pairs)
+                      lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood), 5 * iters)
+                on_device(f"K4 solve_shift {name} {dt}",
+                          lambda: old_pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                          lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood),
+                          "pcr_solve_shift_cluster_kernel")
+                del yred, s_new, s_old
+            del red, wood
             rhs = torch.randn(lead + (nvar, N), dtype=dtype, device="cuda", generator=gen)
-            y_new = thomas.thomas_sweep(fact, rhs, plan)
-            y_old = old_thomas.thomas_sweep(fact, rhs, plan)
-            print(f"K3 sweep {where}; {gap(y_new, y_old)}", flush=True)
-            del y_new, y_old
-            turns(f"K3 sweep {name} {dt}",
-                  lambda: old_thomas.thomas_sweep(fact, rhs, plan),
-                  lambda: thomas.thomas_sweep(fact, rhs, plan), iters)
-            # K3's correction, on the sweep's y and random neighbour unknowns
-            y, _ = thomas.thomas_sweep(fact, rhs, plan)
-            xm1, xp1 = (torch.randn(lead + (plan.s, plan.C), dtype=dtype, device="cuda",
-                                    generator=gen) for _ in range(2))
-            x_new = thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
-            x_old = old_thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
-            cp = thomas.correct_plan(plan.s, item, plan.Mc, plan.C, B)
-            print(f"K3 correct {where}, {cp}; {gap((x_new,), (x_old,))}", flush=True)
-            del x_new, x_old
-            # timed on inputs cold in L2: copies that span COLD_BYTES, in turn
-            nbytes = B * (3 * plan.nvar * plan.Np + 2 * plan.Mc * plan.s ** 2 * plan.C
-                          + 2 * plan.s * plan.C) * item
-            copies = 1 if nbytes >= COLD_BYTES else 1 + -(-COLD_BYTES // nbytes)
-            sets = [(fact, y, xm1, xp1, rhs)] + [
-                (fact._replace(W=fact.W.clone(), V=fact.V.clone()), y.clone(), xm1.clone(),
-                 xp1.clone(), rhs.clone()) for _ in range(copies - 1)]
+            if "k3" in kernels:
+                # K3's sweep (the same kernel in both: the noise of the pairs)
+                y_new = thomas.thomas_sweep(fact, rhs, plan)
+                y_old = old_thomas.thomas_sweep(fact, rhs, plan)
+                print(f"K3 sweep {where}; {gap(y_new, y_old)}", flush=True)
+                del y_new, y_old
+                turns(f"K3 sweep {name} {dt}",
+                      lambda: old_thomas.thomas_sweep(fact, rhs, plan),
+                      lambda: thomas.thomas_sweep(fact, rhs, plan), iters)
+            if "corr" in kernels:
+                # K3's correction, on the sweep's y and random neighbour unknowns
+                y, _ = thomas.thomas_sweep(fact, rhs, plan)
+                xm1, xp1 = (torch.randn(lead + (plan.s, plan.C), dtype=dtype, device="cuda",
+                                        generator=gen) for _ in range(2))
+                x_new = thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
+                x_old = old_thomas.spike_correct(fact, y, xm1, xp1, plan, add_to=rhs)
+                cp = thomas.correct_plan(plan.s, item, plan.Mc, plan.C, B)
+                print(f"K3 correct {where}, {cp}; {gap((x_new,), (x_old,))}", flush=True)
+                del x_new, x_old
+                # timed on inputs cold in L2: copies that span COLD_BYTES, in turn
+                nbytes = B * (3 * plan.nvar * plan.Np + 2 * plan.Mc * plan.s ** 2 * plan.C
+                              + 2 * plan.s * plan.C) * item
+                sets = cold_copies(nbytes, (fact, y, xm1, xp1, rhs), lambda f, *v: (
+                    f._replace(W=f.W.clone(), V=f.V.clone()), *(a.clone() for a in v)))
 
-            def cold(mod):
-                turn = itertools.cycle(sets)
+                def cold(mod):
+                    turn = itertools.cycle(sets)
 
-                def go():
-                    f_, y_, m_, p_, a_ = next(turn)
-                    return mod.spike_correct(f_, y_, m_, p_, plan, add_to=a_)
-                return go
+                    def go():
+                        f_, y_, m_, p_, a_ = next(turn)
+                        return mod.spike_correct(f_, y_, m_, p_, plan, add_to=a_)
+                    return go
 
-            turns(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
-                  5 * iters * copies)
-            on_device(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
-                      "spike_correct")
-            del fact, rhs, y, xm1, xp1, sets
+                turns(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
+                      5 * iters * len(sets))
+                on_device(f"K3 correct {name} {dt}", cold(old_thomas), cold(thomas),
+                          "spike_correct")
+                del y, xm1, xp1, sets
+            del fact, rhs
             torch.cuda.empty_cache()
-        if words:
+        if "stencil" in kernels:
+            stencil_turns(dt, dtype)
+        if "k5" not in kernels:
             continue
         n = 1 << 20
         gen = torch.Generator(device="cuda").manual_seed(1)

@@ -3,7 +3,7 @@
 staged sweep and K5, and of K2's and K4's wide factors, swept on one
 NVIDIA GPU.
 
-    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5] [k2w] [k4w] [k3c] [k4n]
+    python3 tools/sweep_plans.py [k2] [k4] [k3] [k5] [k2w] [k4w] [k3c] [k4n] [steps]
 
 (the first four without arguments).  K2 (``thomas.spike_factor``'s C entry,
 called with each plan): chunks per block CB in 1..32, rows per stage R in
@@ -34,7 +34,12 @@ K3's tiled correction (``k3c``): chunks per block and rows per block at
 the cells' plans (KS 2^20, 10^6, the ring 999983, Burgers, config 5, the
 film); K4's narrow factor (``k4n``, the same narrow plans and config 5's C
 = 100 at B = 4, 16, 64, 132 and 256 members): one block per member, and
-the grid on grids of 1..8 CTAs an SM; device µs.
+the grid on grids of 1..8 CTAs an SM; device µs.  ``steps``: the
+whole-step chunk-count sweeps behind ``chunked``'s cost constants, run
+through ``chip_smoke.py`` (``narrow_sweeps``: KS at N = 10^6 with the
+non-negative fit of ROW_US / LEVEL_US / SLAB_US, KS 2^20, Burgers 10^6;
+``film_sweep`` and ``film_fit``: the film at N = 10^6 and 2^20 with the
+fit of the wide constants).
 Float64 and float32.  Prints the card's name and power limit first.
 """
 
@@ -429,6 +434,16 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
     which = sys.argv[1:] or ["k2", "k4", "k3", "k5"]
+    if "steps" in which:
+        # the whole-step chunk sweeps behind the plans' cost constants
+        import chip_smoke as cs
+
+        cs.narrow_sweeps()
+        points = []
+        for dt_name, dtype in cs.DTYPES.items():
+            cs.film_sweep(dt_name, dtype, points)
+        cs.film_fit(points)
+        which = [w for w in which if w != "steps"]
     sweeps = {"k2": sweep_k2, "k4": sweep_k4, "k3": sweep_k3, "k5": sweep_k5,
               "k2w": sweep_k2w, "k4w": sweep_k4w, "k3c": sweep_k3c, "k4n": sweep_k4n}
     for dtype in (torch.float64, torch.float32):

@@ -24,20 +24,31 @@
 // alpha / beta of those rows are zero) and closed by a rank-S2 Woodbury
 // correction A^-1 b = y - Z (I + V^T Z)^-1 V^T y, y = A0^-1 b, where the
 // columns U carry the corner blocks and V^T reads the two ring-end
-// unknowns (pcr.cuh: woodbury_block).  The solve entry sets it up in one
-// launch per factor: the S2 columns of Z share every level's phase and
-// sync (the TPU kernel ran its right-hand sides' levels one after the
-// other), and the S2 x S2 capacitance is inverted in shared memory.
+// unknowns (pcr.cuh: woodbury_block).  The solve entry sets it up once
+// per factor: the S2 columns of Z are solved like any R right-hand sides
+// (below), then one block per member forms the S2 x S2 capacitance from
+// the columns' ring-end chunks and inverts it in shared memory
+// (woodbury_cap_kernel: woodbury_block's Gauss-Jordan, in its order).
 //
-// The R-column solve runs one thread block per member (gridDim.x = B, the
-// members of an ensemble; 1 for one grid): the level loop is sequential,
-// and __syncthreads() between the phases of a level makes each phase's
-// global scratch writes visible to the whole block.  So does the narrow
-// factor's one-block kernel (pcr_factor_kernel), kept for plans of few
-// chunks (ops/pcr.py:factor_route: up to 128 a member), whose levels it
-// walks faster than a grid-wide barrier a level allows; otherwise the
-// narrow factor spreads each level over a cooperative grid across the card
-// (pcr_factor_grid_kernel / pcr_factor_thread_kernel below).
+// The R-column solve (the set-up's columns, or given right-hand sides)
+// runs one thread-block cluster per (member, column): the cluster solve
+// below, which writes the whole solution column where the per-stage solve
+// writes neighbour shifts, so the R columns of every member take their
+// levels at once across the card.  One block of 512 threads walking the
+// levels of all S2 columns of one grid, each level round-tripping the
+// vectors through global scratch, took 358 us at KS 10^6's C = 2000 on
+// one SM (PERF.md).  Where many members fill the card on plans of few
+// chunks (config 5: B = 1024, C = 100), that one block per member
+// (pcr_solve_kernel, pcr.cuh's body, as K6 runs it) is faster and stays
+// (ops/pcr.py:cols_route).  The narrow factor's one-block kernel
+// (pcr_factor_kernel) is kept for plans of few chunks
+// (ops/pcr.py:factor_route: up to 128 a member), whose levels it walks
+// faster than a grid-wide barrier a level allows; otherwise the narrow
+// factor spreads each level over a cooperative grid across the card
+// (pcr_factor_grid_kernel / pcr_factor_thread_kernel below).  A one-block
+// kernel's level loop is sequential, and __syncthreads() between the
+// phases of a level makes each phase's global scratch writes visible to
+// the whole block.
 // Member b's arrays sit at b times one member's size (Lred, Ured, Dinv, Z
 // (B, S2, S2, C), the level operators (B, nlev, S2, S2, C), right-hand
 // sides (B, R, S2, C) and yred (B, S2, C), cap_inv (B, S2, S2), xm1 and
@@ -50,28 +61,30 @@
 // times per RODASPR step, so one SM reading every level operator and
 // round-tripping the vector state through global scratch at every level
 // was its cost.  It runs on a thread-block cluster of up to 16 CTAs per
-// member instead: each CTA keeps its slice of the chunks' S2-vectors (both
+// member instead, and so does each column of the R-column solve
+// (pcr_solve_cols_cluster_kernel, the same body): each CTA keeps its slice
+// of the chunks' S2-vectors (both
 // level buffers) in shared memory, reads the neighbours c -+ d of a level
 // from the CTAs that own them through distributed shared memory, and
 // cluster.sync() separates the levels.  The level operators do not depend
 // on the right-hand side, so each CTA streams its slice of them through a
 // cp.async ring a few levels ahead; after the levels it applies Dinv, on a
 // Woodbury plan the correction (each CTA forms coef = cap_inv V^T z from
-// the ring-end chunks' entries), and writes the neighbour shifts.  The host
-// plans the CTAs per cluster, chunks per CTA and tile
-// (ops/pcr.py:solve_plan): one CTA per member where many members fill the
-// card, otherwise as many as keep about 64 chunks each, and at least as
-// many as fit the state into 16 CTAs' shared memory.
+// the ring-end chunks' entries), and writes the neighbour shifts (or, a
+// column, its solution).  The host plans the CTAs per cluster, chunks per
+// CTA and tile (ops/pcr.py:solve_plan, of the B or B R clusters): one CTA
+// per cluster where many clusters fill the card, otherwise as many as
+// keep about 64 chunks each, and at least as many as fit the state into
+// 16 CTAs' shared memory.
 //
 // The bodies of the one-block entries live in pcr.cuh, shared with K6
 // (megastep.cu), which also keeps the one-block solve with shifts
-// (pcr_solve_shift_block).
+// (pcr_solve_shift_block) and the one-block Woodbury set-up.
 //
 // Wide interface blocks (S2 = 10..16, of K2's S = 5..8) are built into a
 // library of their own, from this file with TF_WIDE defined.  The R-column
-// solve keeps pcr.cuh's body (vectors of S2 entries per thread) and the
-// solve with shifts is the same cluster kernel (one row of a chunk per
-// thread, its products streamed).  The factor, whose S2 x S2 products and
+// solve and the solve with shifts are the same cluster kernels (one row of
+// a chunk per thread, its products streamed).  The factor, whose S2 x S2 products and
 // inverses do not fit one thread's registers, runs each chunk's level on a
 // group of S2 lanes, lane r holding row r of every block (wide.cuh), and
 // spreads each phase of a level over the whole card
@@ -460,46 +473,85 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// The per-stage solve with shifts over a thread-block cluster of K CTAs per
-// member (clusters run along x: member blockIdx.x / K, CTA rank
-// blockIdx.x % K).  CTA k owns chunks [k Cc, k Cc + Cc) and holds their
-// S2-vectors, both level buffers, in its shared memory (state (2, S2,
-// Cc)); a level reads the neighbours c -+ d from whichever CTA owns them,
-// through distributed shared memory (level 0 from yred itself), and one
-// cluster barrier separates the levels (Cc a power of two: a chunk's owner
-// and place are a shift and a mask).  Thread (r, cl) of a tile of Ct
-// chunks (r = tid / Ct < S2) computes row r of chunk cl, the same products
-// and sums in the same order as pcr.cuh's pcr_solve_shift_block.  The
-// level operators (and Dinv after them) stream through a ring of D slabs,
-// each one level's row r of both operators for the thread's chunks of a
-// tile, which the thread copies itself with cp.async D - 1 slabs ahead
-// (all of them, where they fit): they do not depend on the right-hand
-// side, and no thread waits on another's copies.
-template <typename T, int S2, bool kWood>
-__global__ void __launch_bounds__(kSolveThreads)
-    pcr_solve_shift_cluster_kernel(const T* __restrict__ alphas, const T* __restrict__ betas,
-                                   const T* __restrict__ Dinv, const T* __restrict__ yred,
-                                   const T* __restrict__ Z, const T* __restrict__ cap_inv,
-                                   T* xm1, T* xp1, int C, int wrap, int nlev, int Cc, int Ct,
-                                   int D) {
+// What a cluster solve (cluster_solve) solves and writes: the
+// per-stage right-hand side yred with its neighbour shifts (kShifts; with
+// the Woodbury correction first, kShiftsWood), or whole solution columns
+// (kColumns) of given right-hand sides b, or (b null) of the Woodbury
+// closure's columns read off Lred / Ured
+enum ClusterMode { kShifts = 0, kShiftsWood = 1, kColumns = 2 };
+
+// The PCR solve over a thread-block cluster of K CTAs per right-hand side
+// (clusters run along x: cluster blockIdx.x / K, CTA rank blockIdx.x % K).
+// With shifts the cluster's right-hand side is member m's yred; solving
+// columns, cluster m takes column j = m % R of member m / R, whose level
+// operators it reads (so the R columns of a member, and the members, run
+// at once over the card).  CTA k owns chunks [k Cc, k Cc + Cc) and holds
+// their S2-vectors, both level buffers, in its shared memory (state (2,
+// S2, Cc)); a level reads the neighbours c -+ d from whichever CTA owns
+// them, through distributed shared memory (level 0 from the right-hand
+// side itself), and one cluster barrier separates the levels (Cc a power
+// of two: a chunk's owner and place are a shift and a mask).  Thread (r,
+// cl) of a tile of Ct chunks (r = tid / Ct < S2) computes row r of chunk
+// cl, the same products and sums in the same order as pcr.cuh's
+// pcr_solve_shift_block and pcr_solve_cols_block.  The level operators
+// (and Dinv after them) stream through a ring of D slabs, each one
+// level's row r of both operators for the thread's chunks of a tile,
+// which the thread copies itself with cp.async D - 1 slabs ahead (all of
+// them, where they fit): they do not depend on the right-hand side, and no
+// thread waits on another's copies.
+template <typename T, int S2, int kMode>
+__device__ __forceinline__ void cluster_solve(const T* __restrict__ alphas,
+                                              const T* __restrict__ betas,
+                                              const T* __restrict__ Dinv,
+                                              const T* __restrict__ yred,
+                                              const T* __restrict__ Z,
+                                              const T* __restrict__ cap_inv,
+                                              const T* __restrict__ Lred,
+                                              const T* __restrict__ Ured, T* xm1, T* xp1,
+                                              T* out, int C, int wrap, int nlev, int Cc,
+                                              int Ct, int D, int R) {
   constexpr int S = S2 / 2, SS2 = S2 * S2;
+  constexpr bool kWood = kMode == kShiftsWood, kCols = kMode == kColumns;
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
-  const long m = blockIdx.x / K;
+  // the cluster's right-hand side m, its member mb and (columns) column j
+  const long m = blockIdx.x / K, mb = kCols ? m / R : m;
+  const int j = kCols ? (int)(m - mb * R) : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* state = reinterpret_cast<T*>(smem_raw);  // (2, S2, Cc)
   T* ring = state + 2 * S2 * Cc;              // (D, 2 SS2, Ct)
   const long blk = (long)SS2 * C, col = (long)S2 * C;
-  alphas += m * nlev * blk;
-  betas += m * nlev * blk;
-  Dinv += m * blk;
-  yred += m * col;
+  alphas += mb * nlev * blk;
+  betas += mb * nlev * blk;
+  Dinv += mb * blk;
+  if (!kCols || yred) {
+    yred += m * col;
+  } else {
+    Lred += mb * blk;
+    Ured += mb * blk;
+  }
   if constexpr (kWood) {
     Z += m * blk;
     cap_inv += m * SS2;
   }
-  xm1 += m * S * C;
-  xp1 += m * S * C;
+  if constexpr (kCols) {
+    out += m * col;
+  } else {
+    xm1 += m * S * C;
+    xp1 += m * S * C;
+  }
+  // entry q of the right-hand side at chunk cc: yred (or b), or (columns,
+  // b null) column j of the closure, e_0 (x) Lred[:, S+j, 0] (j < S) or
+  // e_{C-1} (x) Ured[:, j-S, C-1]
+  auto rhs = [&](int q, int cc) -> T {
+    if constexpr (kCols) {
+      if (!yred) {
+        if (j < S) return cc == 0 ? Lred[((long)q * S2 + S + j) * C] : T(0);
+        return cc == C - 1 ? Ured[((long)q * S2 + j - S) * C + C - 1] : T(0);
+      }
+    }
+    return yred[(long)q * C + cc];
+  };
   const int c0 = k * Cc, nc = min(Cc, C - c0), tiles = (nc + Ct - 1) / Ct;
   const int tid = threadIdx.x, cl = tid % Ct, r = tid / Ct, lg = __ffs(Cc) - 1;
   const bool lane = r < S2;
@@ -540,6 +592,17 @@ __global__ void __launch_bounds__(kSolveThreads)
     const int owner = cc >> lg;
     return (owner == k ? buf : cluster.map_shared_rank(buf, owner)) + (cc & (Cc - 1));
   };
+  if constexpr (kCols) {
+    // columns: the right-hand side into the first level buffer, so that
+    // level 0 reads it as every later level reads its input (the products
+    // of its loads, read under the branches of rhs, were rounded apart
+    // from their sums where the one-block body fuses them)
+    if (nlev > 0) {
+      if (lane)
+        for (int lc = cl; lc < nc; lc += Ct) state[r * Cc + lc] = rhs(r, c0 + lc);
+      cluster_arrive();
+    }
+  }
   int cur = 0;
   for (int lev = 0; lev <= nlev; ++lev) {
     T* src = state + cur * S2 * Cc;
@@ -550,22 +613,21 @@ __global__ void __launch_bounds__(kSolveThreads)
       const T* a = ring + (i % D) * 2 * SS2 * Ct + r * S2 * Ct + cl;
       const bool mine = lane && lc < nc;
       if (nlev == 0) {
-        // C = 1: no level, Dinv applies to yred itself
-        if (mine) src[r * Cc + lc] = yred[(long)r * C + c];
+        // C = 1: no level, Dinv applies to the right-hand side itself
+        if (mine) src[r * Cc + lc] = rhs(r, c);
         __syncthreads();
       }
-      if (lev == 0 && nlev > 0) {
-        // level 0 reads the right-hand side itself, neighbours from yred
+      if (!kCols && lev == 0 && nlev > 0) {
+        // level 0 reads the right-hand side itself, neighbours too
         if (mine) {
-          const T* bm = yred + (c == 0 ? C - 1 : c - 1);
-          const T* bp = yred + (c == C - 1 ? 0 : c + 1);
-          T ta = a[0] * bm[0];
+          const int cm = c == 0 ? C - 1 : c - 1, cp = c == C - 1 ? 0 : c + 1;
+          T ta = a[0] * rhs(0, cm);
 #pragma unroll
-          for (int q = 1; q < S2; ++q) ta += a[q * Ct] * bm[(long)q * C];
-          T tb = a[SS2 * Ct] * bp[0];
+          for (int q = 1; q < S2; ++q) ta += a[q * Ct] * rhs(q, cm);
+          T tb = a[SS2 * Ct] * rhs(0, cp);
 #pragma unroll
-          for (int q = 1; q < S2; ++q) tb += a[(SS2 + q) * Ct] * bp[(long)q * C];
-          dst[r * Cc + lc] = yred[(long)r * C + c] + ta + tb;
+          for (int q = 1; q < S2; ++q) tb += a[(SS2 + q) * Ct] * rhs(q, cp);
+          dst[r * Cc + lc] = rhs(r, c) + ta + tb;
         }
       } else if (lev < nlev) {
         const int d = 1 << lev, cm = c - d, cp = c + d;
@@ -587,7 +649,11 @@ __global__ void __launch_bounds__(kSolveThreads)
           T z = a[0] * src[lc];
 #pragma unroll
           for (int q = 1; q < S2; ++q) z += a[q * Ct] * src[q * Cc + lc];
-          dst[r * Cc + lc] = z;
+          // a column is written where it is solved; shifts read neighbours
+          if constexpr (kCols)
+            out[(long)r * C + c] = z;
+          else
+            dst[r * Cc + lc] = z;
         }
       }
       issue();
@@ -598,46 +664,92 @@ __global__ void __launch_bounds__(kSolveThreads)
   }
   tf::cp_async_wait<0>();
   cluster_wait();  // the solution z is in every CTA
-  const T* z = state + cur * S2 * Cc;
-  __shared__ T s_vt[S2], s_coef[S2];
-  if constexpr (kWood) {
-    // coef = cap_inv V^T z, V^T reading the ring's two end chunks
-    if (tid < S2) s_vt[tid] = tid < S ? at(z, C - 1)[(S + tid) * Cc] : at(z, 0)[(tid - S) * Cc];
-    __syncthreads();
-    if (tid < S2) {
-      T acc = cap_inv[tid * S2] * s_vt[0];
-#pragma unroll
-      for (int i = 1; i < S2; ++i) acc += cap_inv[tid * S2 + i] * s_vt[i];
-      s_coef[tid] = acc;
-    }
-    __syncthreads();
-  }
-  // entry `row` of chunk cc's solution: z, less the Woodbury correction
-  // sum_j coef_j Z_j on a Woodbury plan
-  auto y = [&](int row, int cc) -> T {
-    const T zv = at(z, cc)[row * Cc];
+  if constexpr (!kCols) {
+    const T* z = state + cur * S2 * Cc;
+    __shared__ T s_vt[S2], s_coef[S2];
     if constexpr (kWood) {
-      T corr = s_coef[0] * Z[(long)row * C + cc];
+      // coef = cap_inv V^T z, V^T reading the ring's two end chunks
+      if (tid < S2) s_vt[tid] = tid < S ? at(z, C - 1)[(S + tid) * Cc] : at(z, 0)[(tid - S) * Cc];
+      __syncthreads();
+      if (tid < S2) {
+        T acc = cap_inv[tid * S2] * s_vt[0];
 #pragma unroll
-      for (int j = 1; j < S2; ++j) corr += s_coef[j] * Z[((long)j * S2 + row) * C + cc];
-      return zv - corr;
+        for (int i = 1; i < S2; ++i) acc += cap_inv[tid * S2 + i] * s_vt[i];
+        s_coef[tid] = acc;
+      }
+      __syncthreads();
     }
-    return zv;
-  };
-  // xm1[:, c] = bottom of chunk c-1, xp1[:, c] = top of chunk c+1: around
-  // the ring with wrap (always on a Woodbury plan), zero past the ends
-  // without
-  if (r < S) {
-    for (int lc = cl; lc < nc; lc += Ct) {
-      const int c = c0 + lc, cm = c == 0 ? C - 1 : c - 1, cp = c == C - 1 ? 0 : c + 1;
-      const bool has_m = kWood || wrap || c != 0, has_p = kWood || wrap || c != C - 1;
-      xm1[(long)r * C + c] = has_m ? y(S + r, cm) : T(0);
-      xp1[(long)r * C + c] = has_p ? y(r, cp) : T(0);
+    // entry `row` of chunk cc's solution: z, less the Woodbury correction
+    // sum_j coef_j Z_j on a Woodbury plan
+    auto y = [&](int row, int cc) -> T {
+      const T zv = at(z, cc)[row * Cc];
+      if constexpr (kWood) {
+        T corr = s_coef[0] * Z[(long)row * C + cc];
+#pragma unroll
+        for (int jj = 1; jj < S2; ++jj) corr += s_coef[jj] * Z[((long)jj * S2 + row) * C + cc];
+        return zv - corr;
+      }
+      return zv;
+    };
+    // xm1[:, c] = bottom of chunk c-1, xp1[:, c] = top of chunk c+1: around
+    // the ring with wrap (always on a Woodbury plan), zero past the ends
+    // without
+    if (r < S) {
+      for (int lc = cl; lc < nc; lc += Ct) {
+        const int c = c0 + lc, cm = c == 0 ? C - 1 : c - 1, cp = c == C - 1 ? 0 : c + 1;
+        const bool has_m = kWood || wrap || c != 0, has_p = kWood || wrap || c != C - 1;
+        xm1[(long)r * C + c] = has_m ? y(S + r, cm) : T(0);
+        xp1[(long)r * C + c] = has_p ? y(r, cp) : T(0);
+      }
     }
+    // no CTA leaves while another may still read its shared memory
+    cluster_arrive();
+    cluster_wait();
   }
-  // no CTA leaves while another may still read its shared memory
-  cluster_arrive();
-  cluster_wait();
+}
+
+// The kernels of the cluster solve: with shifts (the per-stage solve) and
+// of whole columns (the R-column solve and the Woodbury set-up), apart so
+// that a trace tells them apart
+#define TF_CLUSTER_PARAMS                                                              \
+  const T *__restrict__ alphas, const T *__restrict__ betas, const T *__restrict__ Dinv, \
+      const T *__restrict__ yred, const T *__restrict__ Z, const T *__restrict__ cap_inv, \
+      const T *__restrict__ Lred, const T *__restrict__ Ured, T *xm1, T *xp1, T *out,     \
+      int C, int wrap, int nlev, int Cc, int Ct, int D, int R
+#define TF_CLUSTER_ARGS \
+  alphas, betas, Dinv, yred, Z, cap_inv, Lred, Ured, xm1, xp1, out, C, wrap, nlev, Cc, Ct, D, R
+
+template <typename T, int S2, bool kWood>
+__global__ void __launch_bounds__(kSolveThreads)
+    pcr_solve_shift_cluster_kernel(TF_CLUSTER_PARAMS) {
+  cluster_solve<T, S2, kWood ? kShiftsWood : kShifts>(TF_CLUSTER_ARGS);
+}
+
+template <typename T, int S2>
+__global__ void __launch_bounds__(kSolveThreads) pcr_solve_cols_cluster_kernel(TF_CLUSTER_PARAMS) {
+  cluster_solve<T, S2, kColumns>(TF_CLUSTER_ARGS);
+}
+#undef TF_CLUSTER_PARAMS
+#undef TF_CLUSTER_ARGS
+
+// The kernel of the cluster solve of mode kMode
+template <typename T, int S2, int kMode>
+auto cluster_kernel() {
+  if constexpr (kMode == kColumns)
+    return pcr_solve_cols_cluster_kernel<T, S2>;
+  else
+    return pcr_solve_shift_cluster_kernel<T, S2, kMode == kShiftsWood>;
+}
+
+// The capacitance of the Woodbury closure of each member (pcr.cuh:
+// woodbury_cap_block, the Gauss-Jordan of the one-block set-up), one block
+// of 2 S2^2 threads (rounded up to a warp) per member, after the cluster
+// solve of its columns Z
+template <typename T, int S2>
+__global__ void __launch_bounds__(kThreads)
+    woodbury_cap_kernel(const T* __restrict__ Z, T* __restrict__ cap_inv, int C) {
+  const long m = blockIdx.x;
+  tf::woodbury_cap_block<T, S2>(Z + m * S2 * S2 * C, cap_inv + m * S2 * S2, C);
 }
 
 // The grid factor's kernel at S2: the thread-per-pair body at S2 = 2, the
@@ -740,12 +852,12 @@ int factor(const T* Lred, const T* Ured, T* alphas, T* betas, T* Dinv, T* scratc
 }
 #endif
 
-// b (B, R, S2, C) -> out; or, b null, the Woodbury set-up (R = S2): out = Z,
-// and cap_inv
+// The one-block-per-member R-column solve (pcr_solve_kernel): b (B, R, S2,
+// C) -> out; or, b null, the Woodbury set-up (R = S2): out = Z, and cap_inv
 template <typename T>
-int solve(const T* alphas, const T* betas, const T* Dinv, const T* b, const T* Lred,
-          const T* Ured, T* out, T* cap_inv, T* scratch, int C, int S2, int R, int B,
-          cudaStream_t stream) {
+int solve_members(const T* alphas, const T* betas, const T* Dinv, const T* b, const T* Lred,
+                  const T* Ured, T* out, T* cap_inv, T* scratch, int C, int S2, int R, int B,
+                  cudaStream_t stream) {
   if (R < 1 || B < 1 || (!b && (R != S2 || !Lred || !Ured || !cap_inv || C < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
@@ -773,17 +885,17 @@ long solve_smem(int S2, int item, int Cc, int Ct, int D) {
   return (long)item * (2L * S2 * Cc + (long)D * 2 * S2 * S2 * Ct);
 }
 
-// Set what a launch of the cluster solve kernel<T, S2, kWood> with dynamic
+// Set what a launch of the cluster solve kernel<T, S2, kMode> with dynamic
 // shared memory `bytes` and clusters of K CTAs needs.  Each setting is a
 // driver call, so it is made once per kernel and device, and the shared
 // memory opted in only ever grows (a smaller setting would refuse a larger
 // plan launched before): `set` is the kernel's record, per device, of the
 // largest size opted in (set[0]) and of the non-portable cluster size
 // allowed (set[1]), for launches and occupancy queries alike.
-template <typename T, int S2, bool kWood>
+template <typename T, int S2, int kMode>
 cudaError_t prepare(long bytes, int K) {
   static long set[2][kMaxDevices] = {};
-  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+  auto fn = cluster_kernel<T, S2, kMode>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= kMaxDevices) return err ? err : cudaErrorInvalidDevice;
@@ -799,10 +911,10 @@ cudaError_t prepare(long bytes, int K) {
   return err;
 }
 
-cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int B, int K, int threads,
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int n, int K, int threads,
                                   long bytes, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)B * K);
+  cfg.gridDim = dim3((unsigned)n * K);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)bytes;
   cfg.stream = stream;
@@ -815,64 +927,94 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int B, int K, int t
   return cfg;
 }
 
-template <typename T, int S2, bool kWood>
-int launch_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, const T* Z,
-                 const T* cap_inv, T* xm1, T* xp1, int C, int wrap, int B, int K, int Cc,
-                 int Ct, int D, int threads, cudaStream_t stream) {
-  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+// The pointers and sizes of one cluster solve (cluster_solve's)
+template <typename T>
+struct ClusterArgs {
+  const T *alphas, *betas, *Dinv, *yred, *Z, *cap_inv, *Lred, *Ured;
+  T *xm1, *xp1, *out;
+  int C, wrap, R;
+};
+
+// One launch of n clusters of K CTAs of Cc chunks each, a power of two
+// (the last may hold fewer, none holds none), tiles of Ct chunks, a ring
+// of D slabs, `threads` >= S2 Ct threads (ops/pcr.py:solve_plan)
+template <typename T, int S2, int kMode>
+int launch_cluster(const ClusterArgs<T>& a, int n, int K, int Cc, int Ct, int D, int threads,
+                   cudaStream_t stream) {
+  auto fn = cluster_kernel<T, S2, kMode>();
   const long bytes = solve_smem(S2, sizeof(T), Cc, Ct, D);
-  cudaError_t err = prepare<T, S2, kWood>(bytes, K);
+  cudaError_t err = prepare<T, S2, kMode>(bytes, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, B, K, threads, bytes, stream);
+  const cudaLaunchConfig_t cfg = cluster_config(attr, n, K, threads, bytes, stream);
   int nlev = 0;
-  for (int d = 1; d < C; d *= 2) ++nlev;
-  err = cudaLaunchKernelEx(&cfg, fn, alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, C, wrap,
-                           nlev, Cc, Ct, D);
+  for (int d = 1; d < a.C; d *= 2) ++nlev;
+  err = cudaLaunchKernelEx(&cfg, fn, a.alphas, a.betas, a.Dinv, a.yred, a.Z, a.cap_inv, a.Lred,
+                           a.Ured, a.xm1, a.xp1, a.out, a.C, a.wrap, nlev, Cc, Ct, D, a.R);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Z and cap_inv null: no Woodbury correction.  K CTAs per member of Cc
-// chunks each, a power of two (the last may hold fewer, none holds none),
-// tiles of Ct
-// chunks, a ring of D slabs, `threads` >= S2 Ct threads
-// (ops/pcr.py:solve_plan).
+bool bad_plan(int n, int C, int S2, int K, int Cc, int Ct, int D, int threads) {
+  return n < 1 || C < 1 || K < 1 || K > kMaxCluster || Cc < 1 || (long)K * Cc < C ||
+         (long)(K - 1) * Cc >= C || (Cc & (Cc - 1)) || Ct < 1 || Ct > Cc || D < 1 ||
+         threads < S2 * Ct || threads > kSolveThreads || threads % 32;
+}
+
+// The solve with shifts of B members' yred; Z and cap_inv null: no
+// Woodbury correction
 template <typename T>
-int solve_shift(const T* alphas, const T* betas, const T* Dinv, const T* yred, const T* Z,
-                const T* cap_inv, T* xm1, T* xp1, int C, int S2, int wrap, int B, int K, int Cc,
-                int Ct, int D, int threads, cudaStream_t stream) {
-  if (B < 1 || C < 1 || (Z && (!cap_inv || !wrap)) || K < 1 || K > kMaxCluster || Cc < 1 ||
-      (long)K * Cc < C || (long)(K - 1) * Cc >= C || (Cc & (Cc - 1)) || Ct < 1 || Ct > Cc ||
-      D < 1 ||
-      threads < S2 * Ct || threads > kSolveThreads || threads % 32)
+int solve_shift(const ClusterArgs<T>& a, int S2, int B, int K, int Cc, int Ct, int D,
+                int threads, cudaStream_t stream) {
+  if (bad_plan(B, a.C, S2, K, Cc, Ct, D, threads) || (a.Z && (!a.cap_inv || !a.wrap)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
-#define TF_LAUNCH(S2, WOOD)                                                              \
-  return launch_shift<T, S2, WOOD>(alphas, betas, Dinv, yred, Z, cap_inv, xm1, xp1, C,   \
-                                   wrap, B, K, Cc, Ct, D, threads, stream)
-#define TF_CASE(S2)                                                                      \
-  case S2:                                                                               \
-    if (Z)                                                                               \
-      TF_LAUNCH(S2, true);                                                               \
-    else                                                                                 \
-      TF_LAUNCH(S2, false);
+#define TF_CASE(S2)                                                                     \
+  case S2:                                                                              \
+    return a.Z ? launch_cluster<T, S2, kShiftsWood>(a, B, K, Cc, Ct, D, threads, stream) \
+               : launch_cluster<T, S2, kShifts>(a, B, K, Cc, Ct, D, threads, stream);
     TF_CASES
 #undef TF_CASE
-#undef TF_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The R-column solve of B members, one cluster per (member, column): b (B,
+// R, S2, C) -> out; or, b null, the Woodbury set-up (R = S2): out = Z, then
+// cap_inv (woodbury_cap_kernel, one block per member)
+template <typename T>
+int solve_cols(const ClusterArgs<T>& a, int S2, int B, int K, int Cc, int Ct, int D,
+               int threads, cudaStream_t stream) {
+  if (bad_plan(B * a.R, a.C, S2, K, Cc, Ct, D, threads) || a.R < 1 ||
+      (!a.yred && (a.R != S2 || !a.Lred || !a.Ured || !a.cap_inv || a.C < 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cap_threads = (2 * S2 * S2 + 31) / 32 * 32;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  switch (S2) {
+#define TF_CASE(S2)                                                                     \
+  case S2:                                                                              \
+    err = launch_cluster<T, S2, kColumns>(a, B * a.R, K, Cc, Ct, D, threads, stream);    \
+    if (err || a.yred) return err;                                                      \
+    woodbury_cap_kernel<T, S2><<<B, cap_threads, 0, stream>>>(a.out, const_cast<T*>(a.cap_inv), \
+                                                                a.C);                   \
+    break;
+    TF_CASES
+#undef TF_CASE
+    default:
+      return err;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // How many clusters of the plan's shape the card holds at once
 // (cudaOccupancyMaxActiveClusters; 0: it cannot run), or minus a CUDA
 // error.
-template <typename T, int S2, bool kWood>
+template <typename T, int S2, int kMode>
 int clusters_of(int K, int Cc, int Ct, int D, int threads) {
-  auto fn = pcr_solve_shift_cluster_kernel<T, S2, kWood>;
+  auto fn = cluster_kernel<T, S2, kMode>();
   const long bytes = solve_smem(S2, sizeof(T), Cc, Ct, D);
-  cudaError_t err = prepare<T, S2, kWood>(bytes, K);
+  cudaError_t err = prepare<T, S2, kMode>(bytes, K);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(attr, 1, K, threads, bytes, nullptr);
@@ -882,13 +1024,15 @@ int clusters_of(int K, int Cc, int Ct, int D, int threads) {
 }
 
 template <typename T>
-int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
-  if (K < 1 || K > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
+int max_clusters(int S2, int mode, int K, int Cc, int Ct, int D, int threads) {
+  if (K < 1 || K > kMaxCluster || mode < kShifts || mode > kColumns)
+    return -static_cast<int>(cudaErrorInvalidValue);
   switch (S2) {
 #define TF_CASE(S2)                                                                      \
   case S2:                                                                               \
-    return wood ? clusters_of<T, S2, true>(K, Cc, Ct, D, threads)                         \
-                : clusters_of<T, S2, false>(K, Cc, Ct, D, threads);
+    return mode == kShifts       ? clusters_of<T, S2, kShifts>(K, Cc, Ct, D, threads)     \
+           : mode == kShiftsWood ? clusters_of<T, S2, kShiftsWood>(K, Cc, Ct, D, threads) \
+                                 : clusters_of<T, S2, kColumns>(K, Cc, Ct, D, threads);
     TF_CASES
 #undef TF_CASE
     default:
@@ -930,17 +1074,30 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
 
 #define TF_ENTRIES(SUFFIX, T)                                                              \
   TF_FACTOR_ENTRIES(SUFFIX, T)                                                            \
+  extern "C" int tf_pcr_solve_members_##SUFFIX(                                           \
+      const void* alphas, const void* betas, const void* Dinv, const void* b,             \
+      const void* Lred, const void* Ured, void* out, void* cap_inv, void* scratch, int C, \
+      int S2, int R, int B, void* stream) {                                               \
+    return solve_members<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),  \
+                            static_cast<const T*>(Dinv), static_cast<const T*>(b),        \
+                            static_cast<const T*>(Lred), static_cast<const T*>(Ured),     \
+                            static_cast<T*>(out), static_cast<T*>(cap_inv),               \
+                            static_cast<T*>(scratch), C, S2, R, B,                        \
+                            static_cast<cudaStream_t>(stream));                           \
+  }                                                                                       \
   extern "C" int tf_pcr_solve_##SUFFIX(const void* alphas, const void* betas,             \
                                        const void* Dinv, const void* b, const void* Lred, \
-                                       const void* Ured, void* out, void* cap_inv,        \
-                                       void* scratch, int C, int S2, int R, int B,        \
-                                       void* stream) {                                    \
-    return solve<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),          \
-                    static_cast<const T*>(Dinv), static_cast<const T*>(b),                \
-                    static_cast<const T*>(Lred), static_cast<const T*>(Ured),             \
-                    static_cast<T*>(out), static_cast<T*>(cap_inv),                       \
-                    static_cast<T*>(scratch), C, S2, R, B,                                \
-                    static_cast<cudaStream_t>(stream));                                   \
+                                       const void* Ured, void* out, void* cap_inv, int C, \
+                                       int S2, int R, int B, int K, int Cc, int Ct, int D, \
+                                       int threads, void* stream) {                       \
+    const ClusterArgs<T> a = {static_cast<const T*>(alphas), static_cast<const T*>(betas), \
+                              static_cast<const T*>(Dinv),   static_cast<const T*>(b),     \
+                              nullptr,                       static_cast<const T*>(cap_inv), \
+                              static_cast<const T*>(Lred),   static_cast<const T*>(Ured),  \
+                              nullptr,                       nullptr,                      \
+                              static_cast<T*>(out),          C,                            \
+                              1,                             R};                           \
+    return solve_cols<T>(a, S2, B, K, Cc, Ct, D, threads, static_cast<cudaStream_t>(stream)); \
   }                                                                                       \
   extern "C" int tf_pcr_solve_shift_##SUFFIX(const void* alphas, const void* betas,       \
                                              const void* Dinv, const void* yred,          \
@@ -948,15 +1105,18 @@ int max_clusters(int S2, int wood, int K, int Cc, int Ct, int D, int threads) {
                                              void* xm1, void* xp1, int C, int S2,         \
                                              int wrap, int B, int K, int Cc, int Ct,      \
                                              int D, int threads, void* stream) {          \
-    return solve_shift<T>(static_cast<const T*>(alphas), static_cast<const T*>(betas),    \
-                          static_cast<const T*>(Dinv), static_cast<const T*>(yred),       \
-                          static_cast<const T*>(Z), static_cast<const T*>(cap_inv),       \
-                          static_cast<T*>(xm1), static_cast<T*>(xp1), C, S2, wrap, B, K,  \
-                          Cc, Ct, D, threads, static_cast<cudaStream_t>(stream));         \
+    const ClusterArgs<T> a = {static_cast<const T*>(alphas), static_cast<const T*>(betas), \
+                              static_cast<const T*>(Dinv),   static_cast<const T*>(yred),  \
+                              static_cast<const T*>(Z),      static_cast<const T*>(cap_inv), \
+                              nullptr,                       nullptr,                      \
+                              static_cast<T*>(xm1),          static_cast<T*>(xp1),         \
+                              nullptr,                       C,                            \
+                              wrap,                          1};                           \
+    return solve_shift<T>(a, S2, B, K, Cc, Ct, D, threads, static_cast<cudaStream_t>(stream)); \
   }                                                                                       \
-  extern "C" int tf_pcr_shift_clusters_##SUFFIX(int S2, int wood, int K, int Cc, int Ct,  \
+  extern "C" int tf_pcr_shift_clusters_##SUFFIX(int S2, int mode, int K, int Cc, int Ct,  \
                                                 int D, int threads) {                     \
-    return max_clusters<T>(S2, wood, K, Cc, Ct, D, threads);                             \
+    return max_clusters<T>(S2, mode, K, Cc, Ct, D, threads);                             \
   }
 
 // a library built by dtype (ops/_build.py: Library) keeps one type's entries

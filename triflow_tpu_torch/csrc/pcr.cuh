@@ -1,8 +1,10 @@
-// The bodies of K4 (pcr.cu), shared with K6 (megastep.cu): the PCR factor,
-// the solve of R right-hand sides (and with it the Woodbury set-up of a
-// ring factored acyclic), and the reduced solve with neighbour shifts, each
-// run by ONE thread block whose threads stride over the C chunks; pcr.cu
-// describes the algebra.
+// The one-block bodies of K4 (pcr.cu), shared with K6 (megastep.cu): the
+// PCR factor, the solve of R right-hand sides (and with it the Woodbury
+// set-up of a ring factored acyclic), and the reduced solve with neighbour
+// shifts, each run by ONE thread block whose threads stride over the C
+// chunks; pcr.cu describes the algebra and runs them where they win (the
+// factor on few chunks, the R-column solve where members fill the card),
+// and K4's own capacitance kernel takes woodbury_cap_block.
 // Every caller's threads must all enter (the bodies hold __syncthreads()).
 // No __restrict__ on the pointers: K6 reads buffers it wrote earlier in the
 // same launch.
@@ -138,29 +140,17 @@ __device__ __forceinline__ void pcr_solve_cols_block(const T* alphas, const T* b
     }
 }
 
-// The Woodbury closure of a ring factored acyclic: Z (S2 columns j, S2, C)
-// solves the columns u_j = e_0 (x) Lred[:, S+j, 0] (j < S) and
-// u_j = e_{C-1} (x) Ured[:, j-S, C-1] (j >= S), and cap_inv (S2 x S2) is
-// the inverse of cap = I + V^T Z, v_i reading y[S+i] at chunk C-1 (i < S)
-// and y[i-S] at chunk 0 (i >= S).  cap is inverted by Gauss-Jordan without
-// pivoting (it is I plus a small correction for solver-grade dt), in
-// shared memory, one thread per entry of the augmented matrix: blockDim
-// must be >= 2 S2^2.  cap_inv may point to shared or global memory.  The
-// caller syncs before reading it.
-// scratch: 2 x (S2, S2, C)
+// The capacitance of the Woodbury closure: cap_inv (S2 x S2) is the
+// inverse of cap = I + V^T Z, v_i reading y[S+i] at chunk C-1 (i < S) and
+// y[i-S] at chunk 0 (i >= S), Z (S2 columns j, S2, C).  cap is inverted by
+// Gauss-Jordan without pivoting (it is I plus a small correction for
+// solver-grade dt), in shared memory, one thread per entry of the augmented
+// matrix: blockDim must be >= 2 S2^2.  Z must be visible to the whole
+// block; cap_inv may point to shared or global memory.  The caller syncs
+// before reading it.
 template <typename T, int S2>
-__device__ __forceinline__ void woodbury_block(const T* alphas, const T* betas, const T* Dinv,
-                                               const T* Lred, const T* Ured, T* Z, T* cap_inv,
-                                               T* scratch, int C) {
+__device__ __forceinline__ void woodbury_cap_block(const T* Z, T* cap_inv, int C) {
   constexpr int S = S2 / 2;
-  pcr_solve_cols_block<T, S2>(
-      alphas, betas, Dinv,
-      [&](int j, int row, int c) -> T {
-        if (j < S) return c == 0 ? Lred[((long)row * S2 + S + j) * C] : T(0);
-        return c == C - 1 ? Ured[((long)row * S2 + j - S) * C + C - 1] : T(0);
-      },
-      Z, scratch, C, S2);
-  __syncthreads();
   __shared__ T a[S2][2 * S2];
   const int tid = threadIdx.x;
   if (tid < S2 * S2) {
@@ -183,6 +173,29 @@ __device__ __forceinline__ void woodbury_block(const T* alphas, const T* betas, 
   }
   __syncthreads();
   if (tid < S2 * S2) cap_inv[tid] = a[tid / S2][S2 + tid % S2];
+}
+
+// The Woodbury closure of a ring factored acyclic in one block: Z (S2
+// columns j, S2, C) solves the columns u_j = e_0 (x) Lred[:, S+j, 0] (j < S)
+// and u_j = e_{C-1} (x) Ured[:, j-S, C-1] (j >= S), and cap_inv is the
+// inverse of its capacitance (woodbury_cap_block): blockDim must be >= 2
+// S2^2.  K6's body; K4 solves the columns over thread-block clusters
+// (pcr.cu).  The caller syncs before reading cap_inv.
+// scratch: 2 x (S2, S2, C)
+template <typename T, int S2>
+__device__ __forceinline__ void woodbury_block(const T* alphas, const T* betas, const T* Dinv,
+                                               const T* Lred, const T* Ured, T* Z, T* cap_inv,
+                                               T* scratch, int C) {
+  constexpr int S = S2 / 2;
+  pcr_solve_cols_block<T, S2>(
+      alphas, betas, Dinv,
+      [&](int j, int row, int c) -> T {
+        if (j < S) return c == 0 ? Lred[((long)row * S2 + S + j) * C] : T(0);
+        return c == C - 1 ? Ured[((long)row * S2 + j - S) * C + C - 1] : T(0);
+      },
+      Z, scratch, C, S2);
+  __syncthreads();
+  woodbury_cap_block<T, S2>(Z, cap_inv, C);
 }
 
 // The reduced solve of yred (S2, C) with the neighbour shifts: xm1[:, c]

@@ -8,42 +8,48 @@
 // g00 dt F(u_i) + csum) and, for J, ops/folded.py eval_J_folded and ops/pallas_stencil.py
 // eval_F / eval_J_bands, which compute the same functions in other layouts.
 //
-// One thread per node i, in the reference's node layout: u (nvar, N),
-// helpers (nhelp, N), parameters (npar, N), x (N,).  The thread gathers the
-// argument vector of the expressions (x, every variable at every stencil
-// offset, the parameters, dx) with the boundary closure applied to the
-// index (periodic: modular; edge: clamped, as compiler.shift does), then
+// In the reference's node layout: u (nvar, N), helpers (nhelp, N),
+// parameters (npar, N), x (N,).  Each node's argument vector of the
+// expressions holds x, every variable and helper at every stencil offset,
+// the parameters and dx, with the boundary closure applied to the index
+// (periodic: modular; edge: clamped, as compiler.shift does).  J takes one
+// thread per node, which gathers its arguments from device memory
+// (stencil.cuh); F and F_terms take a block per tile of nodes, which loads
+// the tile and its halo once into shared memory, the closure applied to
+// the halo's indices only, and every thread gathers from there:
 //   F entry: out[m, i] = scale * F_m (+ bias[m, i] when a bias is given;
 //            a null bias pointer means none, as add_to in K3)
 //   F_terms entry (the reference's u_terms mode, run by its ensemble
 //            plans): out[m, i] = scale * F_m(sum_k a_k u_k)
 //            + sum_k c_k u_k[m, i] over A <= 8 stage vectors u_k, the ROW
 //            stage right-hand side in one pass: the stage input is
-//            combined at every stencil point and never written
-//            (stencil.cuh has the order of the sums)
+//            combined once per node of the tile and never written
+//            (terms_sum has the order of the sums)
 //   J entry: bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), shape
 //            (W, nvar, nvar, N), with the edge fold of compiler.fold_edges
 //            applied on the boundary nodes when not periodic.
 // dx = (x[N-1] - x[0]) / (N - 1) is computed in the kernel, so the caller
-// never reads the grid back to the host.
+// never reads the grid back to the host.  F and F_terms evaluate the same
+// expression on the same operands as a gather from device memory would.
 //
-// Member axis: every entry takes B grids (an ensemble) in one launch, one
-// thread per (member, node).  u, helpers, parameters, bias, out and the
+// Member axis: every entry takes B grids (an ensemble) in one launch: J
+// one thread per (member, node), F and F_terms the member along the
+// grid's y (B <= 65535).  u, helpers, parameters, bias, out and the
 // stage vectors lead with B (member b at b times one grid's size), x is
 // shared; the F scale is a number, or (scale_b not null) member b's entry
 // of a device array, so shared and per-member step sizes take one code.
-// One grid (B = 1) launches F and J without member offsets (kMembers).
+// One grid (B = 1) launches J without member offsets (kMembers).
 //
-// Bound: a stencil of a few flops per loaded value, so both entries are
-// bound by device-memory bandwidth: each reads the (nvar + nhelp) rows W
-// times (neighbours hit in L1/L2) and writes nvar (F) or W * nvar^2 (J)
-// rows once, all coalesced.  The bias costs one more coalesced read of
-// nvar rows, which saves the separate pass of the stage algebra that would
-// re-read F and the bias and write the sum.  F_terms reads the A stage
-// vectors (W times each, neighbours in L1/L2) and writes the right-hand
-// side once: the stage input and its bias sum never reach device memory,
-// which saves the combination pass (A reads, two writes) and the biased
-// F's two extra reads.
+// Bound: a stencil of a few flops per loaded value, so every entry is
+// bound by device-memory bandwidth: F reads the (nvar + nhelp) rows once
+// (and 2h halo nodes a tile more), J W times (neighbours hit in L1/L2),
+// and they write nvar (F) or W * nvar^2 (J) rows once, all coalesced.
+// The bias costs one more coalesced read of nvar rows, which saves the
+// separate pass of the stage algebra that would re-read F and the bias
+// and write the sum.  F_terms reads the A stage vectors once and writes
+// the right-hand side once: the stage input and its bias sum never reach
+// device memory, which saves the combination pass (A reads, two writes)
+// and the biased F's two extra reads.
 #include "common.cuh"
 
 // ---- GENERATED: model constants and expression bodies ----
@@ -64,12 +70,126 @@ struct Terms {
   int A;
 };
 
+// The F entries (F and F_terms): one block per (tile of kTile nodes,
+// member), member blockIdx.y, a node a thread.  The block loads its tile and
+// the h halo nodes on each side of every variable and helper into shared
+// memory, once and coalesced, the boundary closure applied to the halo's
+// indices only (close_index), and each thread its node's x and parameters
+// into registers before the block's barrier, so that their loads are in
+// flight with the tile's; then every thread gathers its node's arguments
+// from the tiles (gather_tile: stencil.cuh's gather order, the same
+// operands) and evaluates F.  A thread per node gathering from device
+// memory paid a 64-bit division per stencil point on a ring (and one per
+// node for its member), more than the copy.  (Two nodes a thread with the
+// bias read ahead, its sum rounded apart, took 6-12 % less at KS 2^20 but
+// 18 % more on the film, whose per-node body fuses that sum: off its bits;
+// PERF.md.)
+constexpr int kTile = 256;
+constexpr int kSpan = kTile + 2 * TF_H;
+constexpr int kHelpRows = TF_NHELP > 0 ? TF_NHELP : 1;
+constexpr int kParRows = TF_NPAR > 0 ? TF_NPAR : 1;
+
+// Node j of a tile's span under the boundary closure: j itself inside the
+// grid; periodic, j -+ N (a compare and an add where h < N; the loops
+// serve grids of fewer nodes than the halo); edge, clamped.  The node
+// stencil.cuh's gather takes (j % N, or the clamp), without a division.
+__device__ __forceinline__ long close_index(long j, long N, int periodic) {
+  if (j >= 0 && j < N) return j;
+  if (!periodic) return j < 0 ? 0 : N - 1;
+  while (j < 0) j += N;
+  while (j >= N) j -= N;
+  return j;
+}
+
+// The argument vector of the node at tile position lt in stencil.cuh's
+// gather order: x and the parameters at the node (xi, pi) and dx, read
+// before the block's barrier, the variables and helpers from the tiles
+template <typename T>
+__device__ __forceinline__ void gather_tile(T* a, int lt, const T (*tu)[kSpan],
+                                            const T (*th)[kSpan], T xi, const T* pi, T dx) {
+  int idx = 0;
+  a[idx++] = xi;
+#pragma unroll
+  for (int off = -TF_H; off <= TF_H; ++off) {
+#pragma unroll
+    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = tu[v][lt + TF_H + off];
+#pragma unroll
+    for (int v = 0; v < TF_NHELP; ++v) a[idx++] = th[v][lt + TF_H + off];
+  }
+#pragma unroll
+  for (int q = 0; q < TF_NPAR; ++q) a[idx++] = pi[q];
+  a[idx] = dx;
+}
+
+// A block's loads: its span (its nodes in the grid and h halo nodes on each
+// side) of the variables (load(v, j): variable v at node j) and helpers
+// into the tiles, and the thread's node's x and parameters into xi / pi;
+// dx = (x[N-1] - x[0]) / (N - 1) once, by thread 0, into s_dx (the same
+// division every thread of the per-node body makes)
+template <typename T, typename Load>
+__device__ __forceinline__ void load_tiles(T (*tu)[kSpan], T (*th)[kSpan], T* s_dx, long i0,
+                                           long N, int periodic, Load load, const T* hlp,
+                                           const T* par, const T* x, T& xi, T* pi) {
+  const long i = i0 + threadIdx.x;
+  if (i < N) {
+    xi = x[i];
+#pragma unroll
+    for (int q = 0; q < TF_NPAR; ++q) pi[q] = par[q * N + i];
+  }
+  if (threadIdx.x == 0) *s_dx = (x[N - 1] - x[0]) / T(N - 1);
+  const int span = (int)(N - i0 < kTile ? N - i0 : kTile) + 2 * TF_H;
+  for (int t = threadIdx.x; t < span; t += kTile) {
+    const long j = close_index(i0 - TF_H + t, N, periodic);
+#pragma unroll
+    for (int v = 0; v < TF_NVAR; ++v) tu[v][t] = load(v, j);
+#pragma unroll
+    for (int v = 0; v < TF_NHELP; ++v) th[v][t] = hlp[v * N + j];
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTile)
+    stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                     const T* __restrict__ par, const T* __restrict__ x,
+                     const T* __restrict__ bias, T* __restrict__ out,
+                     const T* __restrict__ scale_b, long N, int periodic, T scale) {
+  __shared__ T tu[TF_NVAR][kSpan];
+  __shared__ T th[kHelpRows][kSpan];
+  __shared__ T s_dx;
+  const long b = blockIdx.y, i0 = (long)blockIdx.x * kTile, n = TF_NVAR * N;
+  u += b * n;
+  T xi = T(0), pi[kParRows];
+  load_tiles(tu, th, &s_dx, i0, N, periodic, [&](int v, long j) { return u[v * N + j]; },
+             hlp + b * TF_NHELP * N, par + b * TF_NPAR * N, x, xi, pi);
+  const long i = i0 + threadIdx.x;
+  if (i >= N) return;
+  T a[TF_NARGS];
+  T f[TF_NVAR];
+  gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
+  tf_F(a, f);
+  const T sc = scale_b ? scale_b[b] : scale;
+  // the bias added as the per-node body adds it, read under the same test
+#pragma unroll
+  for (int m = 0; m < TF_NVAR; ++m) {
+    const long at = b * n + m * N + i;
+    const T v = sc * f[m];
+    out[at] = bias ? v + bias[at] : v;
+  }
+}
+
+// The F entry of before the tiles: one thread per (member, node) running
+// K6's per-node body (stencil.cuh: stencil_F_node), which gathers from
+// device memory; launched alone, on no path: the kernel checks hold the
+// tiled entry to it bit for bit (ops/kernel_checks.py: check_tiled_F), and
+// chip_smoke.py times the two side by side.  One grid without member
+// offsets (kMembers).
 template <typename T, bool kMembers>
-__global__ void stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
-                                 const T* __restrict__ par, const T* __restrict__ x,
-                                 const T* __restrict__ bias, T* __restrict__ out,
-                                 const T* __restrict__ scale_b, long N, int B, int periodic,
-                                 T scale) {
+__global__ void stencil_F_nodes_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                                       const T* __restrict__ par, const T* __restrict__ x,
+                                       const T* __restrict__ bias, T* __restrict__ out,
+                                       const T* __restrict__ scale_b, long N, int B,
+                                       int periodic, T scale) {
   const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= B * N) return;
   const long b = kMembers ? q / N : 0, i = kMembers ? q % N : q, n = TF_NVAR * N;
@@ -99,42 +219,34 @@ __device__ __forceinline__ T terms_sum(const Terms<T>& terms, const T* c,
   return acc_set ? acc : T(0);
 }
 
-// One block per (tile of kTile nodes, member): the block first combines the
-// stage vectors once per node of its tile and halo (the boundary closure
-// applied to the index), in shared memory, then every thread evaluates F
-// at its node from the tile and adds the bias terms.  Combining at each of
-// the W stencil points instead read the A vectors W times per node: 1.5x
-// the time of the separate combination and biased F at config 5 (PERF.md).
-constexpr int kTile = 256;
-
+// F_terms, tiled as the F entry: the block first combines the stage
+// vectors once per node of its span, into the variables' tile, beside the
+// helpers' tile; then every thread evaluates F at its node from the tiles
+// and adds the bias terms.  Combining at each of the W stencil points
+// instead read the A vectors W times per node: 1.5x the time of the
+// separate combination and biased F at config 5 (PERF.md).
 template <typename T>
 __global__ void __launch_bounds__(kTile)
     stencil_F_terms_kernel(const Terms<T> terms, const T* __restrict__ hlp,
                            const T* __restrict__ par, const T* __restrict__ x,
                            T* __restrict__ out, const T* __restrict__ scale_b, long N,
                            int periodic, T scale) {
-  __shared__ T tile[TF_NVAR][kTile + 2 * TF_H];
+  __shared__ T tu[TF_NVAR][kSpan];
+  __shared__ T th[kHelpRows][kSpan];
+  __shared__ T s_dx;
   const long b = blockIdx.y, i0 = (long)blockIdx.x * kTile, n = TF_NVAR * N;
-  for (int t = threadIdx.x; t < kTile + 2 * TF_H; t += kTile) {
-    long j = i0 - TF_H + t;
-    if (periodic) {
-      j %= N;
-      if (j < 0) j += N;
-    } else {
-      j = j < 0 ? 0 : (j > N - 1 ? N - 1 : j);
-    }
-#pragma unroll
-    for (int v = 0; v < TF_NVAR; ++v)
-      tile[v][t] = terms_sum(terms, terms.ca, terms.ra, b * n + v * N + j, T(0), false);
-  }
-  __syncthreads();
+  T xi = T(0), pi[kParRows];
+  // the stage input combined once per node of the span
+  auto combined = [&](int v, long j) {
+    return terms_sum(terms, terms.ca, terms.ra, b * n + v * N + j, T(0), false);
+  };
+  load_tiles(tu, th, &s_dx, i0, N, periodic, combined, hlp + b * TF_NHELP * N,
+             par + b * TF_NPAR * N, x, xi, pi);
   const long i = i0 + threadIdx.x;
   if (i >= N) return;
   T a[TF_NARGS];
   T f[TF_NVAR];
-  tf::gather(a, i, N, periodic,
-             [&](int v, long, int off) { return tile[v][threadIdx.x + TF_H + off]; },
-             hlp + b * TF_NHELP * N, par + b * TF_NPAR * N, x);
+  gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
   tf_F(a, f);
   const T sc = scale_b ? scale_b[b] : scale;
 #pragma unroll
@@ -161,12 +273,22 @@ template <typename T>
 int launch_F(const T* u, const T* hlp, const T* par, const T* x, const T* bias, T* out,
              const T* scale_b, long N, int B, int periodic, double scale,
              cudaStream_t stream) {
+  if (B < 1 || B > 65535 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  stencil_F_kernel<T><<<dim3(blocks_of(N, kTile), B), kTile, 0, stream>>>(
+      u, hlp, par, x, bias, out, scale_b, N, periodic, T(scale));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_F_nodes(const T* u, const T* hlp, const T* par, const T* x, const T* bias, T* out,
+                   const T* scale_b, long N, int B, int periodic, double scale,
+                   cudaStream_t stream) {
   const int threads = 256;
   if (B > 1)
-    stencil_F_kernel<T, true><<<blocks_of(B * N, threads), threads, 0, stream>>>(
+    stencil_F_nodes_kernel<T, true><<<blocks_of(B * N, threads), threads, 0, stream>>>(
         u, hlp, par, x, bias, out, scale_b, N, B, periodic, T(scale));
   else
-    stencil_F_kernel<T, false><<<blocks_of(N, threads), threads, 0, stream>>>(
+    stencil_F_nodes_kernel<T, false><<<blocks_of(N, threads), threads, 0, stream>>>(
         u, hlp, par, x, bias, out, scale_b, N, B, periodic, T(scale));
   return static_cast<int>(cudaGetLastError());
 }
@@ -223,6 +345,16 @@ int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long 
                        static_cast<const T*>(bias), static_cast<T*>(out),                  \
                        static_cast<const T*>(scale_b), N, B, periodic, scale,              \
                        static_cast<cudaStream_t>(stream));                                 \
+  }                                                                                        \
+  extern "C" int tf_stencil_F_nodes_##SUFFIX(const void* u, const void* hlp, const void* par, \
+                                             const void* x, const void* bias, void* out,   \
+                                             const void* scale_b, int N, int B,            \
+                                             int periodic, double scale, void* stream) {   \
+    return launch_F_nodes<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),         \
+                             static_cast<const T*>(par), static_cast<const T*>(x),         \
+                             static_cast<const T*>(bias), static_cast<T*>(out),            \
+                             static_cast<const T*>(scale_b), N, B, periodic, scale,        \
+                             static_cast<cudaStream_t>(stream));                           \
   }                                                                                        \
   extern "C" int tf_stencil_F_terms_##SUFFIX(const void* in_ptrs, const void* coefs,       \
                                              const void* hlp, const void* par,             \

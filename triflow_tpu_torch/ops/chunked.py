@@ -48,41 +48,43 @@ MIN_CYCLIC_C = 8
 
 #: cost model of a plan at block sizes s <= 4, in microseconds of one fixed
 #: RODASPR step, fitted (non-negative least squares, relative weights, one
-#: offset per dtype) to chip_smoke.py's chunk-count sweeps of KS at N =
-#: 10^6 in float64 and float32 on one H100 (PERF.md): K2 and K3's sweeps
-#: walk the Mc rows of a chunk, K4's factor (across the card) and cluster
-#: solves sync once per level (LEVEL_US), and K4's one-block Woodbury
-#: set-up walks each level in slabs of pcr.BLOCK_THREADS chunks; the fit
-#: puts no cost on a level beyond its slabs.  Fitted to the factor across
-#: the card and the tiled correction, it picks C = 2000 at KS 10^6, the
-#: fastest measured plan there in float64 and within 0.2 % of it in float32
-ROW_US = 1.662
+#: offset per grid and dtype) to the minima over six of chip_smoke.py's
+#: chunk-count sweeps of KS at N = 10^6 and two at N = 10^4, float64 and
+#: float32, on one H100 (PERF.md): K2 and K3's sweeps walk the Mc rows of a
+#: chunk (ROW_US), and K4's pieces (the factor across the card, the cluster
+#: solves with shifts and, on a Woodbury plan, the set-up's column
+#: clusters) take each level in work that grows with the chunks a CTA
+#: holds, counted in slabs of pcr.BLOCK_THREADS chunks (SLAB_US); the fit
+#: puts no cost on a level beyond its slabs (LEVEL_US).  It picks C = 4000
+#: at KS 10^6, the fastest of those minima in both dtypes
+ROW_US = 1.743
 LEVEL_US = 0.0
-SLAB_US = 9.997
+SLAB_US = 2.456
 
 
 #: cost model of a plan at the wide block sizes s = 5..8 (K2-K4's wide
-#: libraries), in microseconds of one fixed RODASPR step, fitted to
-#: chip_smoke.py's chunk-count sweeps of the s = 6 falling film at N = 10^6
-#: and 2^20 (non-negative least squares of both dtypes, relative weights,
-#: one offset per grid and dtype; PERF.md): K2's and K3's sweeps walk the Mc
-#: rows of a chunk (WIDE_ROW_US); K4's factor spreads each level's two
-#: phases over the card, ``pcr.factor_plan_wide``'s passes of lane groups
-#: per phase (WIDE_LEVEL_US per level and pass); and on a Woodbury plan its
-#: one-block set-up walks each level in slabs of pcr.BLOCK_THREADS chunks
-#: (WIDE_WOOD_US, ``woodbury_cost_us``).  All grow as the per-lane work of
-#: the lane groups, s^2: the other wide block sizes scale the s = 6 fit
-#: (not measured)
-WIDE_ROW_US = 5.108
-WIDE_LEVEL_US = 72.935
-WIDE_WOOD_US = 111.876
+#: libraries), in microseconds of one fixed RODASPR step, fitted to the
+#: minima over four of chip_smoke.py's chunk-count sweeps of the s = 6
+#: falling film at N = 10^6 and 2^20 (non-negative least squares of both
+#: dtypes, relative weights, one offset per grid and dtype; PERF.md): K2's
+#: and K3's sweeps walk the Mc rows of a chunk (WIDE_ROW_US); K4's factor
+#: spreads each level's two phases over the card, ``pcr.factor_plan_wide``'s
+#: passes of lane groups per phase (WIDE_LEVEL_US per level and pass); and
+#: on a Woodbury plan the set-up's column clusters take each level in work
+#: that grows with the chunks a CTA holds, in slabs of pcr.BLOCK_THREADS
+#: chunks (WIDE_WOOD_US, ``woodbury_cost_us``).  All grow as the per-lane
+#: work of the lane groups, s^2: the other wide block sizes scale the s = 6
+#: fit (not measured)
+WIDE_ROW_US = 4.773
+WIDE_LEVEL_US = 71.997
+WIDE_WOOD_US = 11.589
 WIDE_FIT_S = 6
 
 
 def wide_features(M: int, C: int, s: int):
     """(rows walked, levels times passes of K4's wide factor, levels times
-    slabs of the Woodbury set-up) of a plan of C chunks of ceil(M / C)
-    rows at a wide block size s, unscaled."""
+    slabs of pcr.BLOCK_THREADS chunks, the Woodbury set-up's) of a plan of C
+    chunks of ceil(M / C) rows at a wide block size s, unscaled."""
     levels = pcr.n_levels(C)
     return (-(-M // C), levels * pcr.factor_plan_wide(C, 2 * s).passes,
             levels * -(-C // pcr.BLOCK_THREADS))
@@ -102,8 +104,8 @@ def plan_cost_us(M: int, C: int, s: int = 1) -> float:
 
 
 def woodbury_cost_us(C: int, s: int) -> float:
-    """Modelled time of K4's one-block Woodbury set-up in one RODASPR step
-    at a wide block size s (at s <= 4 ``plan_cost_us``'s slabs count it)."""
+    """Modelled time of K4's Woodbury set-up in one RODASPR step at a wide
+    block size s (at s <= 4 ``plan_cost_us``'s slabs count it)."""
     if s <= thomas.NARROW_S:
         return 0.0
     return (s / WIDE_FIT_S) ** 2 * WIDE_WOOD_US * wide_features(1, C, s)[2]

@@ -27,6 +27,11 @@ the attempts on KS, and moves it by 0.23 and more on the README grid; in
 float32 on KS the two ranges meet, and it is the equal attempts that
 catch a wrong err there.
 
+K4's Woodbury set-up and R-column solve across the card, and K1's tiled F,
+are also held bit for bit to the bodies they replace, launched alone: the
+one-block body (K6's) and the per-node F body (``check_setup``,
+``check_tiled_F``).
+
 K7 (the banded matvec) is held to the F/J tolerance of the size of its
 terms, ``max |scale| |A| |v|``, not of its result: the product of J's
 bands with a smooth state cancels to far below its terms.
@@ -500,6 +505,154 @@ def check_all_grid_factors(device, dtype, results=None, cases=GRID_FACTOR_CASES)
     results = {} if results is None else results
     for i, case in enumerate(cases):
         check_grid_factor(*case, dtype, device, seed=i, results=results)
+    return results
+
+
+#: (N, B) of K1's tiled F checks (tiles of 256 nodes): fewer nodes than the
+#: halo spans on each side (N = 2, 3: the closure wraps more than once), a
+#: part-full tile (5, 255), a tile and a node (257), a node short of two
+#: tiles (511), many tiles and a part-full last (4099); B = 4 and 1024
+#: members
+TILED_F_SHAPES = [(2, 1), (3, 1), (5, 1), (255, 1), (257, 1), (511, 1), (4099, 1),
+                  (257, 4), (1000, 4), (300, 1024)]
+
+
+def check_tiled_F(model, N, B, periodic, device, seed=0, results=None):
+    """K1's tiled F entry (a scale and a bias, per-member scales on
+    members) and F_terms (RODASPR's last stage) against their plain
+    versions at N nodes and B members; on the card, F also bit for bit
+    against K6's per-node body launched alone (``stencil.cu``:
+    ``tf_stencil_F_nodes_*``) and F_terms of the one term (1, 0, u)
+    against F without a bias."""
+    results = {} if results is None else results
+    b = model.backend
+    dtype = b.dtype
+    rng = np.random.default_rng(seed)
+    sysm = b.system
+    lead = (B,) if B > 1 else ()
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    u = t(rng.standard_normal((*lead, sysm.nvar, N)))
+    helpers = t(rng.standard_normal((*lead, len(sysm.help_funcs), N)))
+    pstack = t(0.5 + rng.random((*lead, len(sysm.pars), 1)) * np.ones((1, N)))
+    x = t(np.linspace(0.0, 0.001 * N, N))
+    bias = t(rng.standard_normal((*lead, sysm.nvar, N)))
+    scale = t(0.05 * (1.0 + np.arange(B))) if B > 1 else 0.05
+    tol = TOL[dtype]["FJ"]
+    what = f"N={N} B={B} periodic={periodic}"
+    got = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale, bias=bias)
+    _record(results, "K1.F", got, stencil.eval_F_plain(
+        b, u, helpers, pstack, x, periodic, scale, bias), tol, f"{what} with bias")
+    plain_F = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale)
+    _record(results, "K1.F", plain_F, stencil.eval_F_plain(
+        b, u, helpers, pstack, x, periodic, scale), tol, what)
+    stages = [t(1e-2 * rng.standard_normal((*lead, sysm.nvar, N))) for _ in range(5)]
+    coefs = [(1.0, 0.0), (0.75, 0.3), (0.0, -1.2), (1.0, 1.0), (2.5, 0.0), (-0.4, 0.7)]
+    terms = [(a, c, arr) for (a, c), arr in zip(coefs, [u] + stages)]
+    _record(results, "K1.F_terms",
+            b.F_terms(terms, helpers, pstack, x, periodic=periodic, scale=scale),
+            stencil.eval_F_terms_plain(b, terms, helpers, pstack, x, periodic, scale),
+            tol, what)
+    if torch.device(device).type == "cuda":
+        for bias_ in (None, bias):
+            want = stencil.eval_F_nodes(b, u, helpers, pstack, x, periodic, scale, bias_)
+            got = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale, bias=bias_)
+            if not torch.equal(got, want):
+                raise CheckFailed(f"K1.F {what} bias={bias_ is not None}: not bit for bit "
+                                  "K6's per-node body")
+        one = b.F_terms([(1.0, 0.0, u)], helpers, pstack, x, periodic=periodic, scale=scale)
+        if not torch.equal(one, plain_F):
+            raise CheckFailed(f"K1.F_terms {what}: one unit term is not bit for bit F")
+    return results
+
+
+def check_all_tiled_F(device, dtype, results=None, shapes=TILED_F_SHAPES):
+    """``check_tiled_F`` on every model of ``STENCIL_MODELS`` (halos 1 and
+    2) at every shape, periodic and edge."""
+    from ..core.model import Model
+
+    results = {} if results is None else results
+    for name, (eqs, dep, pars) in STENCIL_MODELS.items():
+        model = Model(eqs, dep, pars, double=dtype == torch.float64, device=device)
+        for i, (N, B) in enumerate(shapes):
+            for periodic in (True, False):
+                check_tiled_F(model, N, B, periodic, device, seed=i, results=results)
+    return results
+
+
+#: (s, C, B) of the Woodbury set-up checks: every block size s = 1..8 (the
+#: narrow and the wide library) at C = 2 and 3 (one and two levels), a
+#: prime (7), a part-full last CTA (130) and 1000 chunks, B = 4 members of
+#: 100; then the cells' plans (KS 10^6's C = 2000, the ring's 2041,
+#: Burgers' 2500, the film's 1000) and config 5's C = 100 at B = 132 and
+#: 1024
+SETUP_CASES = [(s, C, B) for s in range(1, 9) for C, B in (
+    (2, 1), (3, 1), (7, 1), (130, 1), (1000, 1), (100, 4))] + [
+    (2, 2000, 1), (2, 2041, 1), (1, 2500, 1), (6, 1000, 1), (2, 100, 132), (2, 100, 1024)]
+
+
+def setup_entry(s, C, B):
+    """The name K4's R-column solve and Woodbury set-up record at block
+    size s on C chunks of B members: the route ``pcr.cols_route`` picks."""
+    if pcr.cols_route(2 * s, C, B) == "members":
+        return "K4.pcr_solve_members"
+    return solver_entry("K4.pcr_solve", s)
+
+
+def check_setup(s, C, B, dtype, device, seed=0, results=None):
+    """K4's Woodbury set-up (Z and cap_inv) and R-column solve (R = 1, 3
+    and 2s random columns) by the route their shape picks, against their
+    plain versions on the plain acyclic factor of K2's plain reduced
+    system of random bands (``SWEEP_BLOCKS[s]``, 2 rows per chunk, a
+    ring; B members with their own bands); on the card also bit for bit
+    against the one-block-per-member body (pcr.cuh, K6's; the route
+    "members") on both routes' shapes."""
+    results = {} if results is None else results
+    W, nvar = SWEEP_BLOCKS[s]
+    N = 2 * C * max(W // 2, 1)
+    plan = chunked.plan_with(N, nvar, W // 2, True, C, B)
+    lead = (B,) if B > 1 else ()
+    bands = torch.stack([random_bands(W, nvar, N, dtype, device, seed + b)
+                         for b in range(B)]) if B > 1 else \
+        random_bands(W, nvar, N, dtype, device, seed)
+    sp_ = thomas.spike_factor_plain(bands, 1.0, -0.3, plan)
+    del bands
+    red = pcr.pcr_factor_plain(sp_.Lred, sp_.Ured, False)
+    s2, route = 2 * s, pcr.cols_route(2 * s, C, B)
+    name, tol = setup_entry(s, C, B), TOL[dtype]["solve"]
+    what = f"s2={s2} C={C} B={B} route={route}"
+    got = pcr.woodbury(red, sp_.Lred, sp_.Ured)
+    want = pcr.woodbury_plain(red, sp_.Lred, sp_.Ured)
+    for part, g_, w in zip(("Z", "cap_inv"), got, want):
+        _record(results, name, g_, w, tol, f"woodbury {part} {what}")
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        old = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+        pcr._launch_cols(red, None, sp_.Lred, sp_.Ured, *old, s2, B, "members")
+        if not all(torch.equal(a, b) for a, b in zip(got, old)):
+            raise CheckFailed(f"K4 woodbury {what}: not bit for bit the one-block body")
+    rng = np.random.default_rng(seed)
+    for R in (1, 3, s2):
+        cols = torch.tensor(rng.standard_normal((*lead, R, s2, C)), dtype=dtype,
+                            device=device)
+        out = pcr.pcr_solve(red, cols)
+        _record(results, name, out, pcr.pcr_solve_plain(red, cols), tol, f"R={R} {what}")
+        if cuda:
+            old = torch.empty_like(out)
+            pcr._launch_cols(red, cols, None, None, old, None, R, B, "members")
+            if not torch.equal(out, old):
+                raise CheckFailed(f"K4 pcr_solve R={R} {what}: not bit for bit the "
+                                  "one-block body")
+    return results
+
+
+def check_all_setups(device, dtype, results=None, cases=SETUP_CASES):
+    """``check_setup`` at every case of ``cases``."""
+    results = {} if results is None else results
+    for i, case in enumerate(cases):
+        check_setup(*case, dtype, device, seed=i, results=results)
     return results
 
 
@@ -1064,9 +1217,11 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
         check_all_megathetas(device, dtype, results)
-        # K4's narrow factor for an ensemble of 132 members at config 5's
-        # C = 100 (one block per member, ``pcr.factor_route``)
+        # K4's narrow factor and Woodbury set-up for an ensemble of 132
+        # members at config 5's C = 100 (one block per member,
+        # ``pcr.factor_route`` and ``cols_route``)
         check_grid_factor(2, 100, 132, True, dtype, device, results=results)
+        check_setup(2, 100, 132, dtype, device, results=results)
         if dtype == torch.float64:
             check_all_mixed(device, results)
         out[str(dtype).replace("torch.", "")] = results

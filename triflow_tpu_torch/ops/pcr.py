@@ -12,12 +12,18 @@ the couplings ``Lred`` / ``Ured`` (2s, 2s, C) that K2 writes.
 A periodic ring on a chunk count that is no power of two >= 8 is factored
 acyclic (which ignores the corner blocks ``Lred[..., 0]`` and
 ``Ured[..., C-1]``); ``woodbury`` then solves for the closure's 2s columns
-Z and inverts its capacitance in one launch, and every
+Z and inverts its capacitance, once per factor, and every
 ``pcr_solve_shift`` with Z corrects the acyclic solution before the shifts
 close the ring.
 
-The R-column solve runs one thread block per member, so the chunk count
-is capped at ``MAX_C``.  The factor spreads each level over a cooperative
+The R-column solve (``pcr_solve``, and the closure's columns in
+``woodbury``) runs a thread-block cluster per (member, column): the
+kernel of the solve with shifts, writing whole columns, ``solve_plan`` of
+B R right-hand sides; the closure's capacitance then takes one block per
+member.  Where members fill the card on plans of few chunks
+(``cols_route``: config 5) one block per member walks all the columns
+instead (counted as ``K4.pcr_solve_members``).  The chunk count is capped
+at ``MAX_C``.  The factor spreads each level over a cooperative
 grid of CTAs across the card (``factor_plan_grid``: at s2 <= 8 a thread
 per (member, chunk) pair at s2 = 2, else a group of s2 lanes, the kernel
 fixing which by s2; one phase a level but at s2 = 6), except at up to
@@ -62,6 +68,7 @@ FACTOR_LAUNCHES = Counter("K4.pcr_factor")
 FACTOR_MEMBERS_LAUNCHES = Counter("K4.pcr_factor_members")
 SOLVE_LAUNCHES = Counter("K4.pcr_solve_shift")
 COLS_LAUNCHES = Counter("K4.pcr_solve")
+COLS_MEMBERS_LAUNCHES = Counter("K4.pcr_solve_members")
 FACTOR_WIDE_LAUNCHES = Counter("K4.pcr_factor_wide")
 SOLVE_WIDE_LAUNCHES = Counter("K4.pcr_solve_shift_wide")
 COLS_WIDE_LAUNCHES = Counter("K4.pcr_solve_wide")
@@ -179,24 +186,31 @@ def solve_plan(C, s2, B=1, item=8, sms=132, max_cluster=MAX_CLUSTER):
     return SolvePlan(K, Cc, Ct, D, -(-s2 * Ct // 32) * 32, solve_smem(s2, item, Cc, Ct, D))
 
 
+#: what a cluster solve solves and writes (``ClusterMode`` in csrc/pcr.cu):
+#: the neighbour shifts of yred, with the Woodbury correction first, or
+#: whole solution columns (of given right-hand sides or of the closure)
+SHIFTS, SHIFTS_WOOD, COLUMNS = 0, 1, 2
+
+
 @functools.lru_cache(maxsize=None)
-def _scheduled_plan(lib, sfx, C, s2, B, item, sms, wood):
-    """``solve_plan`` with clusters the card schedules: the planned cluster
-    size, or the largest smaller one that ``cudaOccupancyMaxActiveClusters``
-    admits (asked once per shape)."""
+def _scheduled_plan(lib, sfx, C, s2, n, item, sms, mode):
+    """``solve_plan`` of n clusters (one per right-hand side) that the card
+    schedules: the planned cluster size, or the largest smaller one that
+    ``cudaOccupancyMaxActiveClusters`` admits for the kernel of ``mode``
+    (asked once per shape)."""
     query = getattr(lib.load(sfx), f"tf_pcr_shift_clusters_{sfx}")
     query.argtypes = [ctypes.c_int] * 7
     query.restype = ctypes.c_int
     cap = MAX_CLUSTER
     while True:
-        sp = solve_plan(C, s2, B, item, sms, cap)
-        n = query(s2, int(wood), sp.K, sp.Cc, sp.Ct, sp.D, sp.threads)
-        if n < 0:
-            lib.check(-n, "K4 pcr_solve_shift")
-        if n > 0:
+        sp = solve_plan(C, s2, n, item, sms, cap)
+        got = query(s2, mode, sp.K, sp.Cc, sp.Ct, sp.D, sp.threads)
+        if got < 0:
+            lib.check(-got, "K4 cluster solve")
+        if got > 0:
             return sp
         if sp.K == 1:
-            raise RuntimeError(f"K4 pcr_solve_shift: no cluster of {sp} fits the card")
+            raise RuntimeError(f"K4 cluster solve: no cluster of {sp} fits the card")
         cap = sp.K - 1
 
 
@@ -241,6 +255,15 @@ FACTOR_WIDE_PER_SM = 2
 #: C = 1000 the grid at B = 16 (133.1 against 393.4); at s2 = 2 one block
 #: won up to C = 512 (23.9 against 25.8)
 FACTOR_MEMBERS_MAX_C = 128
+#: the fewest members at which the narrow R-column solve keeps one block
+#: per member (``cols_route``, on plans of at most FACTOR_MEMBERS_MAX_C
+#: chunks): as many as the card's SMs.  Chip runs of the Woodbury set-up
+#: (``tools/ab_sweep.py``, device µs, float64 / float32, PERF.md): at C =
+#: 100, one block per member against the clusters at B = 1024 232.1 / 145.4
+#: against 293.1 / 272.9, at B = 132 48.0 / 32.5 against 42.9 / 39.4, at B
+#: = 16 45.4 / 30.4 against 16.0 / 15.4; one grid of 2000 chunks 452.0
+#: against 27.9
+MEMBERS_COLS_MIN_B = 132
 
 
 class FactorPlanWide(NamedTuple):
@@ -398,35 +421,60 @@ def _check_factor(red: PcrFactor, s2, C, dtype, what, lead, *more):
     _check_sizes(s2, C, what)
 
 
-def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R, B):
-    """One launch of the R-column solve: of b, or (b None) of the Woodbury
-    columns read off Lred / Ured, which also writes cap_inv."""
+def cols_route(s2, C, B):
+    """Which kernel solves R columns of B members' reduced systems of
+    interface block size s2 on C chunks: "members" (one block per member,
+    pcr.cuh's body, narrow only, where MEMBERS_COLS_MIN_B members fill the
+    card and their plans have at most FACTOR_MEMBERS_MAX_C chunks) or
+    "clusters" (a thread-block cluster per member and column).  Chosen by
+    shape, never on failure."""
+    if s2 <= 2 * thomas.NARROW_S and B >= MEMBERS_COLS_MIN_B \
+            and C <= FACTOR_MEMBERS_MAX_C:
+        return "members"
+    return "clusters"
+
+
+def _launch_cols(red: PcrFactor, b, Lred, Ured, out, cap_inv, R, B, route):
+    """One launch of the R-column solve by ``route`` (``cols_route``): of b,
+    or (b None) of the Woodbury columns read off Lred / Ured, which also
+    writes cap_inv (a second, one-block-per-member kernel after the
+    clusters)."""
     s2, _, C = red.Dinv.shape[-3:]
-    dtype, device = red.Dinv.dtype, red.Dinv.device
-    scratch = torch.empty((B, 2, R, s2, C), dtype=dtype, device=device)
+    dtype = red.Dinv.dtype
+    sfx = suffix(dtype)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    ptrs = (red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
+            ptr(b), ptr(Lred), ptr(Ured), out.data_ptr(), ptr(cap_inv))
+    if route == "members":
+        scratch = torch.empty((B, 2, R, s2, C), dtype=dtype, device=out.device)
+        lib, _ = _pick(s2, None, None)
+        fn = lib.fn(f"tf_pcr_solve_members_{sfx}", 9, 4)
+        rc = fn(*ptrs, scratch.data_ptr(), C, s2, R, B, stream_of(out))
+        lib.check(rc, "K4 pcr_solve")
+        COLS_MEMBERS_LAUNCHES.add()
+        return
     lib, launches = _pick(s2, COLS_LAUNCHES, COLS_WIDE_LAUNCHES)
-    fn = lib.fn(f"tf_pcr_solve_{suffix(dtype)}", 9, 4)
-    rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),
-            ptr(b), ptr(Lred), ptr(Ured), out.data_ptr(), ptr(cap_inv),
-            scratch.data_ptr(), C, s2, R, B, stream_of(red.Dinv))
+    sp = _scheduled_plan(lib, sfx, C, s2, B * R, out.element_size(), sm_count(out),
+                         COLUMNS)
+    fn = lib.fn(f"tf_pcr_solve_{sfx}", 8, 9)
+    rc = fn(*ptrs, C, s2, R, B, sp.K, sp.Cc, sp.Ct, sp.D, sp.threads, stream_of(out))
     lib.check(rc, "K4 pcr_solve")
     launches.add()
 
 
 def pcr_solve(red: PcrFactor, b):
     """Solve the reduced system for R right-hand sides ``b ((B,) R, s2,
-    C)`` in one launch; returns b's shape."""
+    C)`` in one launch by ``cols_route``; returns b's shape."""
     if b.device.type == "cpu":
         return pcr_solve_plain(red, b)
     B, lead = members(b, 3)
     R, s2, C = b.shape[-3:]
     _check_factor(red, s2, C, b.dtype, "K4 pcr_solve", lead, b)
     out = torch.empty_like(b)
-    _launch_cols(red, b, None, None, out, None, R, B)
+    _launch_cols(red, b, None, None, out, None, R, B, cols_route(s2, C, B))
     return out
 
 
@@ -437,7 +485,8 @@ def woodbury_plain(red: PcrFactor, Lred, Ured):
 def woodbury(red: PcrFactor, Lred, Ured):
     """The Woodbury closure of a ring factored acyclic: ``Z ((B,) 2s, 2s,
     C)``, the acyclic solve of its 2s columns, and ``cap_inv ((B,) 2s,
-    2s)``, in one K4 launch (``banded.woodbury_setup`` has the algebra)."""
+    2s)``, in one K4 call by ``cols_route`` (``banded.woodbury_setup`` has
+    the algebra)."""
     if Lred.device.type == "cpu":
         return woodbury_plain(red, Lred, Ured)
     B, lead = members(Lred, 3)
@@ -451,7 +500,7 @@ def woodbury(red: PcrFactor, Lred, Ured):
     Z = torch.empty((*lead, s2, s2, C), dtype=Lred.dtype, device=Lred.device)
     cap_inv = torch.empty((*lead, s2, s2), dtype=Lred.dtype,
                           device=Lred.device)
-    _launch_cols(red, None, Lred, Ured, Z, cap_inv, s2, B)
+    _launch_cols(red, None, Lred, Ured, Z, cap_inv, s2, B, cols_route(s2, C, B))
     return Z, cap_inv
 
 
@@ -492,7 +541,7 @@ def pcr_solve_shift(red: PcrFactor, yred, wrap: bool, Z=None, cap_inv=None):
     lib, launches = _pick(s2, SOLVE_LAUNCHES, SOLVE_WIDE_LAUNCHES)
     sfx = suffix(yred.dtype)
     sp = _scheduled_plan(lib, sfx, C, s2, B, yred.element_size(),
-                         sm_count(yred), Z is not None)
+                         sm_count(yred), SHIFTS if Z is None else SHIFTS_WOOD)
     out = torch.empty((2, *lead, s, C), dtype=yred.dtype, device=yred.device)
     fn = lib.fn(f"tf_pcr_solve_shift_{sfx}", 8, 9)
     rc = fn(red.alphas.data_ptr(), red.betas.data_ptr(), red.Dinv.data_ptr(),

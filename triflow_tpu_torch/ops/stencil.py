@@ -44,6 +44,9 @@ J_LAUNCHES = Counter("K1.J")
 #: most stage vectors of one F_terms launch (kMaxTerms in csrc/stencil.cu):
 #: u and RODASPR's five earlier stages, with room for one more
 MAX_TERMS = 8
+#: most members of one F or F_terms launch (the member runs along the
+#: grid's y)
+MAX_MEMBERS = 65535
 
 
 class KernelPrinter(C99CodePrinter):
@@ -197,28 +200,77 @@ def eval_F_plain(backend, u, helpers, pstack, x, periodic, scale=1.0,
     return out if bias is None else out + bias
 
 
+#: (backend, shapes of u, helpers, pstack, x and bias) -> (C entry, N, B):
+#: the F entry's shape checks, made once per shape that reaches it; emptied
+#: when it reaches _MAX_SHAPES
+_F_SHAPES = {}
+_MAX_SHAPES = 256
+
+
+def _F_entry(backend, u, helpers, pstack, x, bias):
+    """(bound C entry, N, B) of the F entry at these inputs' shapes, which
+    it checks (and raises on)."""
+    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
+    if bias is not None:
+        check_shapes("K1 stencil F", bias=(bias, (*lead, backend.system.nvar, N)))
+    if B > MAX_MEMBERS:
+        raise ValueError(f"K1 stencil F: {B} members; the kernel takes at most "
+                         f"{MAX_MEMBERS}")
+    fn = backend.stencil.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1)
+    if len(_F_SHAPES) >= _MAX_SHAPES:
+        _F_SHAPES.clear()
+    return fn, N, B
+
+
 def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
     """``scale * F(u) (+ bias)``, shape ((B,) nvar, N); ``bias`` is None
     or of u's shape, ``scale`` a number or a per-member (B,) tensor.  CPU
-    tensors take the plain version; CUDA tensors launch K1's F entry."""
-    if u.device.type == "cpu":
+    tensors take the plain version; CUDA tensors launch K1's F entry.
+
+    The launch path is short, since a step calls it once per stage: every
+    call checks the tensors' device, dtype and contiguity, and the shapes
+    are checked (and the entry bound) once per shape (``_F_SHAPES``)."""
+    if not u.is_cuda and u.device.type == "cpu":
         return eval_F_plain(backend, u, helpers, pstack, x, periodic, scale,
                             bias)
-    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
-    nvar = backend.system.nvar
-    if bias is not None:
-        check_cuda((bias,), backend.dtype, "K1 stencil F bias")
-        check_shapes("K1 stencil F", bias=(bias, (*lead, nvar, N)))
+    check_cuda((u, helpers, pstack, x) if bias is None else
+               (u, helpers, pstack, x, bias), backend.dtype, "K1 stencil F")
+    key = (backend, u.shape, helpers.shape, pstack.shape, x.shape,
+           None if bias is None else bias.shape)
+    hit = _F_SHAPES.get(key)
+    if hit is None:
+        hit = _F_SHAPES[key] = _F_entry(backend, u, helpers, pstack, x, bias)
+    fn, N, B = hit
     scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device,
                                      "K1 stencil F scale")
-    out = torch.empty((*lead, nvar, N), dtype=u.dtype, device=u.device)
-    lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1)
+    out = torch.empty_like(u)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            0 if bias is None else bias.data_ptr(), out.data_ptr(), scale_ptr,
-            N, B, int(bool(periodic)), scale_val, stream_of(u))
-    lib.check(rc, "K1 stencil F")
+            None if bias is None else bias.data_ptr(), out.data_ptr(), scale_ptr,
+            N, B, 1 if periodic else 0, scale_val, stream_of(u))
+    if rc:
+        backend.stencil.check(rc, "K1 stencil F")
     F_LAUNCHES.add()
+    return out
+
+
+def eval_F_nodes(backend, u, helpers, pstack, x, periodic, scale=1.0,
+                 bias=None):
+    """``eval_F`` of CUDA tensors through the F entry of before the tiles
+    (``tf_stencil_F_nodes_*``: one thread per node running K6's per-node
+    body, which gathers from device memory): on no path and uncounted; the
+    kernel checks hold the tiled entry to it bit for bit, and
+    ``chip_smoke.py`` times the two side by side."""
+    what = "K1 stencil F (per-node body)"
+    check_cuda((u, helpers, pstack, x) if bias is None else
+               (u, helpers, pstack, x, bias), backend.dtype, what)
+    _, N, B = _F_entry(backend, u, helpers, pstack, x, bias)
+    scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device, f"{what} scale")
+    out = torch.empty_like(u)
+    fn = backend.stencil.fn(f"tf_stencil_F_nodes_{suffix(u.dtype)}", 7, 3, 1)
+    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), scale_ptr,
+            N, B, 1 if periodic else 0, scale_val, stream_of(u))
+    backend.stencil.check(rc, what)
     return out
 
 
