@@ -6,9 +6,10 @@
 Phases (any failure raises, and the script exits non-zero with no result):
 
 0. the card's name and power limit; build every kernel from ``csrc/``, one
-   nvcc per source, all at once (K1 and K6 once per model and dtype); registers and
-   spills of each library, of the s = 2 solver instantiations the KS path
-   runs, and of K6 at s = 1, 2 and 4 in both dtypes.
+   nvcc per source, all at once (K1 and K6 once per model and dtype);
+   registers and spills of each library, of the s = 2 solver
+   instantiations the KS path runs, and of K6 at s = 1, 2 and 4 in both
+   dtypes (with its static shared memory).
 1. each kernel against its plain PyTorch version on CUDA tensors, f64 and
    f32: first the readings behind the limit on K6's adapted dt (eight
    seeds, and the gap of an err twice too large), then the checks of
@@ -31,8 +32,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    Dirichlet hook, to t = 50, through K6), then the Rosenbrock path:
    Kuramoto-Sivashinsky at N = 10^6 with ``RODASPR`` at a fixed dt (4
    steps of 0.05) and adaptive (tol 1e-3, 2 output steps of 1.0), at
-   N = 2^20 the same with 2 steps and 1 output step, KS at N = 2^13 (K6) and
-   10^4 (K1-K5) adaptive the same way with no hook, Burgers at N = 10^4
+   N = 2^20 the same with 2 steps and 1 output step, KS at N = 2^13 and
+   10^4 (K6) adaptive the same way with no hook, Burgers at N = 10^4
    adaptive through K6, the README model through ``Simulation``'s defaults
    (RODASPR, adaptive, K6 steps) and through example 01's call (Theta with
    step doubling).  Each case's chunk plan is the one named in ``CASES``:
@@ -64,11 +65,27 @@ Phases (any failure raises, and the script exits non-zero with no result):
    grids: the KS N = 10^4 and Burgers N = 10^4 (K6, Woodbury) adaptive
    output steps, the README step at N = 200 per
    synchronised step (K6 and the multi-launch path) and K6's step under
-   ``torch.profiler``, ``device_fixed_scan`` at 100 steps, the KS N = 2^13 adaptive output step, K6's chunk-count
-   sweeps with a cost fit per block size (behind its plan), and the
-   crossover sweeps N = 2^10 .. 2^16 of fixed RODASPR and Theta steps,
-   K6 against the multi-launch path, for Burgers (s = 1), KS (s = 2) and
-   the two-variable model (s = 4), behind K6's gate per block size.
+   ``torch.profiler``, ``device_fixed_scan`` at 100 steps, the KS N = 2^13
+   adaptive output step, K6's layout sweeps (every chunk count on every
+   cluster size that holds it, ``CLUSTER_SWEEPS``) with the fit of
+   ``megastep.cluster_cost_us`` behind its plans and each grid's pick
+   against the fastest layout, and the crossover sweeps N = 2^10 .. 2^16
+   of fixed RODASPR and Theta steps, K6 against the multi-launch path,
+   for Burgers (s = 1), KS (s = 2) and the two-variable model (s = 4),
+   behind K6's gate per block size.
+
+K6's cluster body (each member's step on a thread-block cluster of K =
+1..16 CTAs, its working set in shared memory) runs in each phase
+too: phase 0 prints each K6 instantiation's registers, spills and static
+shared memory (against ``megastep.STATIC_SMEM``); phase 1 holds every
+entry against its plain version at forced K = 1, 2, 4, 8, 16
+(``kernel_checks.check_clusters``: C not divisible by K, block-cyclic
+and Woodbury rings, edge grids, s = 1, 2, 4, B = 4, the mixed entry; the
+step and mixed entries bit for bit across sizes); phase 2 counts the
+cases the gates moved (KS N = 10^4 adaptive: K6); ``phase3_redesign``
+times rows 19-22 at the plans of before and after the refit
+(``redesign_k6``: host ms, device µs, the barriers and rows a step
+takes).
 
 The ensemble path (``parallel.Ensemble``) runs in each phase:
 phase 1 holds the member axis of K1-K4 and K6 (B = 4, block-cyclic and
@@ -388,6 +405,13 @@ def readme_case():
             dict(periodic=False, k=1e-3, c=3e-3), 5.0, 50.0, dirichlet)
 
 
+def readme_case_at(N):
+    """The README model's case on N nodes."""
+    fields, pars, dt, tmax, hook = readme_case()
+    x = np.linspace(0, 1, N)
+    return {"x": x, "U": np.cos(2 * np.pi * x * 5)}, pars, dt, tmax, hook
+
+
 THETA = dict(scheme=schemes.Theta, theta=1.0, time_stepping=False)
 FIXED = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None)
 REFINED = dict(FIXED, refine=1)
@@ -406,18 +430,25 @@ def chunked_solver(A, B, periodic):
     solve of A (K2, K4, K3)."""
     return chunked.factor(0.0, 1.0, A, periodic).solve(B)
 
-#: K6's chunk-count sweeps, one cost fit each (megastep.plan_cost_us has
-#: the RODASPR fits by block size s): (name, grids as (equations, case),
-#: table)
-CHUNK_SWEEPS = [
-    ("rodaspr s=1", [(README, readme_case()), (BURGERS, burgers_case(N_SMALL))],
-     kernel_checks.rodaspr_table(False)),
-    ("rodaspr s=2", [(KS, ks_case(0.05, 0.2, N)) for N in (512, 2048, N_SMALL, 1 << 15)],
-     kernel_checks.rodaspr_table(False)),
-    ("rodaspr s=4", [(TWO_VAR, two_var_case(0.02, 0.2, N)) for N in (1024, N_SMALL)],
-     kernel_checks.rodaspr_table(False)),
-    ("theta s=2", [(KS, ks_case(0.05, 0.2, N_SMALL))], megastep.theta_table(1.0)),
+#: K6's layout sweeps behind megastep.cluster_cost_us: (label, equations,
+#: case, periodic) of grids at s = 1, 2 and 4, each timed (fixed RODASPR
+#: steps, 20 per launch) at every chunk count of its own with 2 to
+#: CLUSTER_SWEEP_MAX_MC rows a chunk and at most CLUSTER_SWEEP_MAX_C
+#: chunks, on every cluster size that holds it
+CLUSTER_SWEEPS = [
+    ("readme N=200", README, readme_case(), False),
+    ("readme N=1000", README, readme_case_at(1000), False),
+    ("burgers N=10^4", BURGERS, burgers_case(N_REF_SMALL), True),
+    ("burgers N=2^14", BURGERS, burgers_case(1 << 14), True),
+    ("ks N=512", KS, ks_case(0.05, 0.2, 512), True),
+    ("ks N=2^11", KS, ks_case(0.05, 0.2, 1 << 11), True),
+    ("ks N=2^13", KS, ks_case(0.05, 0.2, N_SMALL), True),
+    ("ks N=2^15", KS, ks_case(0.05, 0.2, 1 << 15), True),
+    ("two-var N=600", TWO_VAR, two_var_case(0.02, 0.2, 600), True),
+    ("two-var N=2^12", TWO_VAR, two_var_case(0.02, 0.2, 1 << 12), True),
 ]
+CLUSTER_SWEEP_MAX_C = 4096
+CLUSTER_SWEEP_MAX_MC = 256
 #: the crossover sweep, K6 against the multi-launch path: (name,
 #: equations, case of N, block size s) by scheme, at N = 2^e
 SWEEP_MODELS = [("burgers", BURGERS, burgers_case, 1),
@@ -437,7 +468,7 @@ CASES = [
     ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF), THETA, 1e-4, 1e-10,
      THETA_KERNELS + WOOD, ("chunked", 5000, True)),
     ("readme N=200 theta", README, readme_case(), THETA, 1e-3, 1e-10, ["K6.step"],
-     ("megastep", 100, False)),
+     ("megastep", 25, False)),
     ("ks N=2^20 rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1),
      dict(scheme=schemes.RODASPR, time_stepping=False, tol=None), 1e-4, 1e-9, MULTI_LAUNCH,
      ("chunked", 4096, False)),
@@ -452,21 +483,21 @@ CASES = [
      ks_case(1.0, 2.0, N_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
      ("megastep", 256, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", KS,
-     ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3), 1e-2, 1e-9, MULTI_LAUNCH + WOOD,
-     ("chunked", 500, True)),
+     ks_case(1.0, 2.0, N_REF_SMALL), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
+     ("megastep", 250, True)),
     ("burgers N=10^4 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook", BURGERS,
      burgers_case(N_REF_SMALL, 1.0, 2.0), dict(tol=1e-3), 1e-2, 1e-9, ["K6.adaptive"],
-     ("megastep", 250, True)),
+     ("megastep", 500, True)),
     ("readme N=200 Simulation defaults (rodaspr)", README, readme_case(), {}, 1e-2,
-     1e-9, ["K6.step"], ("megastep", 100, False)),
+     1e-9, ["K6.step"], ("megastep", 25, False)),
     ("readme N=200 example 01 (theta, step doubling)", README, readme_case(),
      dict(scheme=schemes.Theta, theta=1.0), 1e-2, 1e-9, ["K6.step"],
-     ("megastep", 100, False)),
+     ("megastep", 25, False)),
     # refine= and Theta(solver=): K1-K5 and K7, never K6 (REFINE_CHECKS)
     ("ks N=10^6 rodaspr fixed refine=1 (4 x 0.05)", KS, ks_case(0.05, 0.2, N_REF),
      REFINED, 1e-4, 1e-9, MULTI_LAUNCH + WOOD + K7, ("chunked", 4000, True)),
     ("advdiff N=1024 rodaspr fixed (500 x 0.01)", README, advdiff_case(), FIXED,
-     1e-4, 1e-9, ["K6.step"], ("megastep", 256, False)),
+     1e-4, 1e-9, ["K6.step"], ("megastep", 64, False)),
     ("advdiff N=1024 rodaspr fixed refine=1 (500 x 0.01)", README, advdiff_case(),
      REFINED, 1e-4, 1e-9, MULTI_LAUNCH + K7, ("chunked", 512, False)),
     ("ks N=10^4 rodaspr adaptive tol 1e-3 refine=1 (2 x 1.0), no hook", KS,
@@ -757,6 +788,19 @@ def ptxas_report(path):
     return out
 
 
+def ptxas_smem(path):
+    """{function: static shared-memory bytes} of an nvcc ``-Xptxas -v``
+    log (the kernels' dynamic shares come from their launch plans)."""
+    out, fn = {}, None
+    for line in path.read_text().splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif "Used" in line and "registers" in line:
+            got = re.findall(r"(\d+) bytes smem", line)
+            out[fn] = int(got[0]) if got else 0
+    return out
+
+
 def phase0():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -797,6 +841,7 @@ def phase0():
                                "s=2 ks f32"))}
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         report = ptxas_report(path)
+        smem = ptxas_smem(path)
         spills = [f"{fn} ({sp} bytes spill stores)" for fn, _, _, sp in report if sp]
         log(f"  ptxas {path.stem}: {len(report)} kernels, at most "
             f"{max((r for _, r, _, _ in report), default=0)} registers; spills: "
@@ -808,7 +853,12 @@ def phase0():
                 log(f"    registers {fn}: {regs}")
             if path in mega_logs:
                 log(f"    K6 {mega_logs[path]} {fn}: {regs} registers, {stack} bytes "
-                    f"stack, {spill} bytes spill stores")
+                    f"stack, {spill} bytes spill stores, {smem.get(fn, 0)} bytes static "
+                    f"shared memory (at most {megastep.STATIC_SMEM} planned beside a "
+                    "cluster plan's dynamic shares)")
+                if smem.get(fn, 0) > megastep.STATIC_SMEM:
+                    raise RuntimeError(f"K6 {fn}: {smem[fn]} bytes of static shared "
+                                       f"memory, over megastep.STATIC_SMEM")
             # K1's tiled F and F_terms, each model and dtype
             if fn and path.name.startswith("stencil") and "stencil_F" in fn:
                 log(f"    K1 {path.stem} {fn}: {regs} registers, {stack} bytes stack, "
@@ -1013,6 +1063,14 @@ def phase1():
         # bit for bit the per-node body
         kernel_checks.check_all_setups("cuda", dtype, res)
         kernel_checks.check_all_tiled_F("cuda", dtype, res)
+        # K6's cluster body at every cluster size (K = 1, 2, 4, 8, 16 forced):
+        # edge grids, block-cyclic and Woodbury rings, C not divisible by K,
+        # s = 1, 2, 4, B = 4 members and the mixed entry, each entry against
+        # its plain version and every size bit for bit the others
+        skipped = []
+        kernel_checks.check_clusters("cuda", dtype, res, skipped=skipped)
+        log(f"  K6 cluster sizes {dt_name}: every size bit for bit equal; sizes that "
+            f"hold no member of the case: {skipped}")
         padded_path_checks(dtype, res)
         log(f"  main-path shapes {dt_name}: " + json.dumps(res))
         errs[dt_name] = res
@@ -1841,6 +1899,8 @@ def phase3_ensembles(errs):
                   ad.helpers, ad.pstack, ad.x, 0.0, 0.1, 1e-6, 1e-3, 0.9, None, None, 4)
         out = megastep.adaptive_scan(*s_args, attempts=True)
         attempts = out[4]
+        cl = megastep.cluster_plan(kplan, len(table.stages), dtype, B_SWEEP)
+        kind = megastep.SHARED_KIND
         p1, k1, k2, p2 = (cuda_ms(lambda: fn(*s_args), 1) for fn in (
             megastep.adaptive_scan_plain, megastep.adaptive_scan, megastep.adaptive_scan,
             megastep.adaptive_scan_plain))
@@ -1850,8 +1910,8 @@ def phase3_ensembles(errs):
         log(f"  K6.adaptive_scan sweep steps(4, 0.1) shared dt ({attempts} attempts) "
             f"{dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}), plan C={kplan.C} Mc={kplan.Mc}, "
-            f"{min(B_SWEEP, megastep.capacity(ad.model.backend, dtype, megastep.SHARED_KIND))}"
-            " blocks")
+            f"{min(B_SWEEP, megastep.capacity(ad.model.backend, dtype, kind, cl))}"
+            f" clusters of K={cl.K}")
         pm = make_ensemble(B_SWEEP, N_SWEEP, 2, 5, dtype, "cuda", PER_MEMBER)
         ms = [cuda_ms(lambda: pm.steps(4, 0.1), 1) for _ in range(2)]
         log(f"  sweep steps(4, 0.1) per-member dt {dt_name}: " + " / ".join(
@@ -1961,21 +2021,135 @@ def k6_work(model, plan, table, dtype, attempts=1):
     return (n_in + n) * item + 32, attempts * per_step
 
 
-def fit_cost(points):
-    """Least-squares fit of us = a * (rows walked per thread) + b * (PCR
-    levels x passes) + c_M over (M, C, us) points, one intercept c_M per
-    grid (its per-node work); returns (a, b, relative residual of each
-    point)."""
-    grids = sorted({M for M, _, _ in points})
-    rows, ys = [], []
-    for M, C, us in points:
-        passes = -(-C // megastep.BLOCK_THREADS)
-        rows.append([passes * (M // C), passes * pcr.n_levels(C)]
-                    + [float(M == m) for m in grids])
-        ys.append(us)
-    A, y = np.array(rows), np.array(ys)
-    fit = np.linalg.lstsq(A, y, rcond=None)[0]
-    return fit[0], fit[1], list(np.abs(A @ fit - y) / y)
+#: the constants of megastep.cluster_cost_us by block size, in the
+#: order of ``cluster_features``' columns
+COST_KEYS = ("ROW_US", "L2_ROW_US", "LEVEL_US", "L2_LEVEL_US", "NODE_US", "L2_NODE_US")
+
+
+def cluster_features(s_blk, g, M, C, K, rows_l2, levels_l2, nodes_l2, n_stages=6):
+    """The terms of megastep.cluster_cost_us, one column per constant:
+    COST_KEYS by block size s = 1, 2, 4, then SYNC_US."""
+    Cc = -(-C // K)
+    Mc = -(-M // C)
+    nlev = pcr.n_levels(C)
+    walks = n_stages + 1
+    n = len(COST_KEYS)
+    col = n * {1: 0, 2: 1, 4: 2}[s_blk]
+    f = [0.0] * (3 * n + 1)
+    f[col + (1 if rows_l2 else 0)] = walks * Mc * -(-Cc // megastep.THREADS)
+    f[col + (3 if levels_l2 else 2)] = walks * nlev
+    f[col + (5 if nodes_l2 else 4)] = walks * -(-(Cc * Mc * g) // megastep.THREADS)
+    f[3 * n] = walks * (nlev + 3) * (K > 1)
+    return f
+
+
+def fit_cluster_cost(points):
+    """Non-negative fit of megastep.cluster_cost_us's constants to the
+    layout sweeps' points [(label, s, g, M, C, K, rows in L2, levels in
+    L2, node vectors in L2, us)]: ({s: constants of COST_KEYS}, SYNC_US,
+    relative residual of each point)."""
+    feats = [cluster_features(*p[1:9]) for p in points]
+    us = [p[-1] for p in points]
+    coef = nnls_fit(feats, [u / 1e3 for u in us])
+    model = np.array(feats) @ coef
+    resid = list(np.abs(model - np.array(us)) / np.array(us))
+    n = len(COST_KEYS)
+    return ({sb: tuple(coef[n * i:n * i + n]) for i, sb in enumerate((1, 2, 4))},
+            coef[3 * n], resid)
+
+
+def cluster_sweep(dtype, dt_name):
+    """The layout sweeps (CLUSTER_SWEEPS) in one dtype: us per fixed
+    RODASPR step (CUDA events, 20 steps a launch) of every chunk count and
+    cluster size; returns the points and, per grid, the plan's pick."""
+    T = np.float64 if dtype == torch.float64 else np.float32
+    tb = kernel_checks.rodaspr_table(False)
+    points, picks = [], {}
+    for label, eqs, case, periodic in CLUSTER_SWEEPS:
+        model, _, _, cargs, cdt = path_inputs(eqs, case, dtype)
+        sysm = model.system
+        N = cargs[-1].shape[-1]
+        g = max(sysm.halo, 1)
+        s_blk, M = sysm.nvar * g, N // g
+        beta, scale = step_scalars(tb, cdt, T)
+        row = []
+        for C in chunked.chunk_counts(N, sysm.halo, periodic):
+            if C > CLUSTER_SWEEP_MAX_C or M // C > CLUSTER_SWEEP_MAX_MC:
+                continue
+            cp_ = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C)
+            for K in megastep.CLUSTER_SIZES:
+                try:
+                    cl = megastep.cluster_plan(cp_, 6, dtype, K=K)
+                except ValueError:
+                    continue
+                us = 1e3 / 20 * min(cuda_ms(lambda: megastep.step(
+                    model.backend, cp_, tb, periodic, *cargs, beta, scale, 20, cluster=cl), 2)
+                    for _ in range(2))
+                in_l2 = {b for b in megastep.BUFFERS if cl.home(b) == "L2"}
+                points.append((label, s_blk, g, M, C, K, bool(in_l2 & megastep.ROW_BUFFERS),
+                               bool(in_l2 & megastep.LEVEL_BUFFERS),
+                               bool(in_l2 & megastep.NODE_BUFFERS), us))
+                row.append(f"C={C} K={K}{' L2 ' + '/'.join(sorted(in_l2)) if in_l2 else ''}"
+                           f": {us:.2f}")
+        plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)
+        picks[label] = (plan.C, megastep.cluster_plan(plan, 6, dtype).K)
+        log(f"  K6 layout sweep {label} {dt_name} (us per rodaspr step, 20 steps a launch, "
+            "CUDA events): " + ", ".join(row))
+    return points, picks
+
+
+def report_cluster_fit(points, picks, dt_name):
+    """The fit of the layout sweeps and, per grid, the model's pick
+    against the fastest measured layout."""
+    per_s, sync, resid = fit_cluster_cost(points)
+    log(f"  K6 cluster cost fit {dt_name}: "
+        + "; ".join(f"s={sb}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(COST_KEYS, c))
+                    for sb, c in per_s.items())
+        + f"; SYNC_US {sync:.4f}; relative residuals max "
+        f"{max(resid):.3f} rms {np.sqrt(np.mean(np.square(resid))):.3f}; megastep has "
+        + ", ".join(f"{k} {getattr(megastep, k)}" for k in COST_KEYS)
+        + f", SYNC_US {megastep.SYNC_US}")
+    for label, (C, K) in picks.items():
+        meas = {(p[4], p[5]): p[-1] for p in points if p[0] == label}
+        best = min(meas, key=meas.get)
+        got = meas.get((C, K))
+        log(f"    {label} {dt_name}: the plan's C={C} K={K} "
+            + (f"{got:.2f} us ({got / meas[best]:.3f} of the fastest)" if got is not None
+               else "not measured")
+            + f", the fastest C={best[0]} K={best[1]} {meas[best]:.2f} us")
+
+
+def crossover_sweep(dtype, dt_name, sweep):
+    """The crossover behind megastep.MAX_N: fixed steps of K6 (the plan
+    forced past the gate, where a cluster holds it) against the
+    multi-launch path, for each block size and scheme at N = 2^10 ..
+    2^16; adds each pairing's win to ``sweep[(s, scheme)][N]``."""
+    for label, eqs, make_case, s_blk in SWEEP_MODELS:
+        for sch_name, make in SWEEP_SCHEMES.items():
+            model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+            sysm = model.system
+            for e in SWEEP_EXPONENTS:
+                N = 1 << e
+                fields_np, pars, dt, _, _ = make_case(N)
+                fields, pars_t = state_from_numpy(fields_np, pars, model)
+                k6 = make(model)
+                plan = megastep.make_plan(N, sysm.nvar, sysm.halo, True)
+                if not megastep.fits(plan):
+                    # no cluster holds the grid: K1-K5 serve it
+                    sweep.setdefault((s_blk, sch_name), {}).setdefault(N, []).append(False)
+                    log(f"  {label} (s={s_blk}) N=2^{e} {sch_name} {dt_name}: no cluster "
+                        f"holds the plan C={plan.C} (megastep.fits)")
+                    continue
+                k6._mega_plans[(N, True)] = plan
+                multi = multi_launch(make(model), N, True)
+                m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+                                  for sch in (multi, k6, k6, multi))
+                sweep.setdefault((s_blk, sch_name), {}).setdefault(N, []).append(
+                    min(k1, k2) < min(m1, m2))
+                log(f"  {label} (s={s_blk}) N=2^{e} {sch_name} fixed step {dt_name}: "
+                    f"K6 {k1:.4f}/{k2:.4f} ms, multi-launch {m1:.4f}/{m2:.4f} ms "
+                    f"(CUDA events over 10 steps; C={plan.C}, K="
+                    f"{megastep.cluster_plan(plan, 6, dtype).K})")
 
 
 def phase3_small():
@@ -2049,9 +2223,8 @@ def phase3_small():
         ms = cuda_ms(lambda: scan(0.0, *kargs, 0.05, 100), 3)
         log(f"  ks N=2^13 rodaspr device_fixed_scan {dt_name}: {ms * 10:.4f} us per step "
             "at nsteps = 100 (CUDA events)")
-        # the reference's N = 10^4 grids, Woodbury plans: KS (K1-K5, above
-        # K6's s = 2 gate) and Burgers (K6)
-        for label, eqs, case in (("ks N=10^4", KS, ks_case(1.0, 2.0, N_REF_SMALL)),
+        # the reference's N = 10^4 grids, Woodbury plans, both through K6
+        for label, eqs, case in (("ks N=10^4 (K6)", KS, ks_case(1.0, 2.0, N_REF_SMALL)),
                                  ("burgers N=10^4 (K6)", BURGERS,
                                   burgers_case(N_REF_SMALL, 1.0, 2.0))):
             wm, wfields, wpars, wargs, _ = path_inputs(eqs, case, dtype)
@@ -2087,65 +2260,11 @@ def phase3_small():
         log(f"  K6.adaptive ks N=2^13 first output step ({attempts} attempts) {dt_name}: "
             f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}: {nbytes} bytes, {ops} operations), plan C={kplan.C} Mc={kplan.Mc}")
-        # the chunk-count sweeps behind megastep.plan_cost_us, one fit each
-        for fit_name, grids, tb in CHUNK_SWEEPS:
-            points, grids_of = [], {}
-            for eqs, case in grids:
-                model, _, _, cargs, cdt = path_inputs(eqs, case, dtype)
-                sysm = model.system
-                N, periodic = cargs[-1].shape[-1], case[1]["periodic"]
-                g = max(sysm.halo, 1)
-                M = N // g
-                beta, scale = step_scalars(tb, cdt, T)
-                cands = [C for C in chunked._divisors(M) if M // C >= 2
-                         and (not periodic or (C >= 8 and C & (C - 1) == 0))]
-                row = []
-                for C in cands:
-                    cp = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C)
-                    # 20 steps in one launch: the device time of a step, not the host's
-                    us = 1e3 / 20 * cuda_ms(lambda: megastep.step(
-                        model.backend, cp, tb, periodic, *cargs, beta, scale, 20), 3)
-                    points.append((M, C, us))
-                    row.append(f"C={C}: {us:.2f}")
-                grids_of[M] = (N, sysm.nvar, sysm.halo, periodic)
-                log(f"  K6 {fit_name} step by chunk count {dt_name} N={N} (us per step, "
-                    "20 steps per launch, CUDA events): " + ", ".join(row))
-            a, b, resid = fit_cost(points)
-            log(f"  K6 cost fit {fit_name} {dt_name}: {a:.4f} us per row walked, "
-                f"{b:.4f} us per PCR level pass (one intercept per grid), relative "
-                f"residuals max {max(resid):.4f} rms {np.sqrt(np.mean(np.square(resid))):.4f}; "
-                f"plan_cost_us has {megastep.ROW_US} and {megastep.LEVEL_US}")
-            for M, (N, nvar, halo, periodic) in sorted(grids_of.items()):
-                meas = {C: us for m, C, us in points if m == M}
-                passes = {C: -(-C // megastep.BLOCK_THREADS) for C in meas}
-                fit_c = min(meas, key=lambda C: passes[C] * (a * (M // C)
-                                                             + b * pcr.n_levels(C)))
-                best = min(meas, key=meas.get)
-                plan_c = megastep.make_plan(N, nvar, halo, periodic).C
-                log(f"    M={M}: the fit's plan C={fit_c} ({meas[fit_c]:.2f} us), "
-                    f"megastep.make_plan's C={plan_c} ({meas[plan_c]:.2f} us), measured "
-                    f"best C={best} ({meas[best]:.2f} us)")
-        # the crossover: fixed steps, K6 against the multi-launch path, for
-        # each block size and scheme
-        for label, eqs, make_case, s_blk in SWEEP_MODELS:
-            for sch_name, make in SWEEP_SCHEMES.items():
-                model = Model(*eqs, double=dtype == torch.float64, device="cuda")
-                sysm = model.system
-                for e in SWEEP_EXPONENTS:
-                    N = 1 << e
-                    fields_np, pars, dt, _, _ = make_case(N)
-                    fields, pars_t = state_from_numpy(fields_np, pars, model)
-                    k6 = make(model)
-                    k6._mega_plans[(N, True)] = megastep.make_plan(N, sysm.nvar, sysm.halo,
-                                                                   True)
-                    multi = multi_launch(make(model), N, True)
-                    m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
-                                      for sch in (multi, k6, k6, multi))
-                    sweep.setdefault((s_blk, sch_name), {}).setdefault(N, []).append(
-                        min(k1, k2) < min(m1, m2))
-                    log(f"  {label} (s={s_blk}) N=2^{e} {sch_name} fixed step {dt_name}: "
-                        f"K6 {k1:.4f}/{k2:.4f} ms, multi-launch {m1:.4f}/{m2:.4f} ms "
-                        "(CUDA events over 10 steps)")
+        # the layout sweeps behind megastep.cluster_cost_us, their fit and
+        # the plans' picks against the fastest layout
+        points, picks = cluster_sweep(dtype, dt_name)
+        report_cluster_fit(points, picks, dt_name)
+        crossover_sweep(dtype, dt_name, sweep)
     for (s_blk, sch_name), by_n in sorted(sweep.items()):
         wins = [N for N in sorted(by_n) if all(all(by_n[M]) for M in by_n if M <= N)]
         log(f"  crossover s={s_blk} {sch_name}: K6 faster at every N up to "
@@ -2194,6 +2313,41 @@ def mixed_bound(nbytes, ops64, ops32):
     t_bytes = nbytes / BYTES_PER_S * 1e3
     t_ops = (ops64 / OPS_PER_S[torch.float64] + ops32 / OPS_PER_S[torch.float32]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mixed_crossover():
+    """The crossover behind megastep.MIXED_MAX_N: fixed df64 steps with
+    one residual pass through K6's mixed entry (the plan forced past the
+    gate, where a cluster holds it) against the multi-launch mixed path,
+    per block size and scheme over MIXED_SWEEP_NS."""
+    sweep = {}
+    for label, eqs, make_case, s_blk in SWEEP_MODELS:
+        model = Model(*eqs, double="df64", device="cuda")
+        sysm = model.system
+        for sch_name, make in MIXED_SWEEP_SCHEMES.items():
+            row = []
+            for N in MIXED_SWEEP_NS:
+                fields_np, pars, dt, _, _ = make_case(N)
+                fields, pars_t = state_from_numpy(fields_np, pars, model)
+                k6, multi = make(model), make(model)
+                plan = megastep.make_plan(N, sysm.nvar, sysm.halo, True)
+                if not megastep.fits(plan, mixed=True):
+                    sweep.setdefault((s_blk, sch_name), {})[N] = False
+                    row.append(f"N={N}: no cluster holds C={plan.C}")
+                    continue
+                k6._mega_plans[(N, True, "mixed")] = plan
+                multi._mega_plans[(N, True, "mixed")] = None
+                m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
+                                  for sch in (multi, k6, k6, multi))
+                sweep.setdefault((s_blk, sch_name), {})[N] = min(k1, k2) < min(m1, m2)
+                row.append(f"N={N}: {k1:.4f}/{k2:.4f} vs {m1:.4f}/{m2:.4f}")
+            log(f"  df64 mixed=1 {label} (s={s_blk}) {sch_name} fixed step, K6 mixed entry vs "
+                "multi-launch (ms, CUDA events over 10 steps): " + "; ".join(row))
+    for (s_blk, sch_name), by_n in sorted(sweep.items()):
+        wins = [N for N in sorted(by_n) if all(by_n[M] for M in by_n if M <= N)]
+        log(f"  mixed crossover s={s_blk} {sch_name}: K6's mixed entry faster at every N up "
+            f"to {max(wins, default=0)} (the gate megastep.MIXED_MAX_N[{s_blk}] is "
+            f"{megastep.MIXED_MAX_N.get(s_blk)})")
 
 
 def phase3_df64():
@@ -2284,31 +2438,7 @@ def phase3_df64():
              for sch in (plain_t, solver_t, solver_t, plain_t)]
         log(f"  theta step burgers N=10^6 {dt_name}, plain / solver= / solver= / plain: "
             + " / ".join(f"{m:.4f}" for m in r) + " ms/step (CUDA events over 10 steps)")
-    # the mixed entry against the multi-launch mixed path, per block size
-    sweep = {}
-    for label, eqs, make_case, s_blk in SWEEP_MODELS:
-        model = Model(*eqs, double="df64", device="cuda")
-        sysm = model.system
-        for sch_name, make in MIXED_SWEEP_SCHEMES.items():
-            row = []
-            for N in MIXED_SWEEP_NS:
-                fields_np, pars, dt, _, _ = make_case(N)
-                fields, pars_t = state_from_numpy(fields_np, pars, model)
-                k6, multi = make(model), make(model)
-                k6._mega_plans[(N, True, "mixed")] = megastep.make_plan(N, sysm.nvar,
-                                                                        sysm.halo, True)
-                multi._mega_plans[(N, True, "mixed")] = None
-                m1, k1, k2, m2 = (cuda_ms(lambda: sch(0.0, fields, dt, pars_t), 10)
-                                  for sch in (multi, k6, k6, multi))
-                sweep.setdefault((s_blk, sch_name), {})[N] = min(k1, k2) < min(m1, m2)
-                row.append(f"N={N}: {k1:.4f}/{k2:.4f} vs {m1:.4f}/{m2:.4f}")
-            log(f"  df64 mixed=1 {label} (s={s_blk}) {sch_name} fixed step, K6 mixed entry vs "
-                "multi-launch (ms, CUDA events over 10 steps): " + "; ".join(row))
-    for (s_blk, sch_name), by_n in sorted(sweep.items()):
-        wins = [N for N in sorted(by_n) if all(by_n[M] for M in by_n if M <= N)]
-        log(f"  mixed crossover s={s_blk} {sch_name}: K6's mixed entry faster at every N up "
-            f"to {max(wins, default=0)} (the gate megastep.MIXED_MAX_N[{s_blk}] is "
-            f"{megastep.MIXED_MAX_N.get(s_blk)})")
+    mixed_crossover()
     return {"float64": times}
 
 @contextlib.contextmanager
@@ -2899,13 +3029,6 @@ def ks_edge_case(N, dt=0.05, tmax=0.1):
     return fields, dict(periodic=False), dt, tmax, None
 
 
-def readme_case_at(N):
-    """The README model's case on N nodes."""
-    fields, pars, dt, tmax, hook = readme_case()
-    x = np.linspace(0, 1, N)
-    return {"x": x, "U": np.cos(2 * np.pi * x * 5)}, pars, dt, tmax, hook
-
-
 #: (name, equations, case, scheme kwargs, steps, f32 tolerance, f64
 #: tolerance): driven by ``run_steps``, each held to the port's CPU f64 run
 #: (``padded_cpu_runs``) and to its exact launches (``padded_launches``).
@@ -3102,8 +3225,10 @@ def narrow_sweeps():
                 ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF),
                  dict(scheme=schemes.Theta, theta=1.0), BURGERS_CHUNKS, False)):
             model, fields, pars_t, _, dt = path_inputs(eqs, case, dtype)
-            step = sch["scheme"](model, **{k: v for k, v in sch.items() if k != "scheme"})
             N = len(case[0]["x"])
+            # the multi-launch path's plans: K6's withheld (KS 10^4 is K6's)
+            step = multi_launch(sch["scheme"](model, **{k: v for k, v in sch.items()
+                                                         if k != "scheme"}), N, True)
             sysm = model.system
             key, plan0 = (N, True, 1), step._plan(N, True)
             row = {}
@@ -3268,6 +3393,73 @@ def redesign_stencil(dtype, dt_name):
                        ms, us, b_ms, nbytes)
 
 
+#: K6's rows of the kernels table (19-22) at the chunk plans of before
+#: this layout's refit (the L2-scratch body's make_plan: README N = 200 C = 100, KS N =
+#: 2^13 C = 256, the sweep's KS N = 200 C = 25) and at the plans of now
+K6_BEFORE_C = {"readme": 100, "ks": 256, "sweep": 25}
+
+
+def redesign_k6(dtype, dt_name):
+    """K6's entries at rows 19-22's inputs, each at the chunk plan of
+    before the refit and at this plan: the host call's ms (CUDA events) and
+    device µs (the profiler), the phases a step takes on its cluster (the
+    bound of the design: cluster and block barriers, rows walked in
+    order), the cluster plan; and the sweep's steps(100) (B = 64 KS
+    members at N = 200, one launch)."""
+    T = np.float64 if dtype == torch.float64 else np.float32
+    ros = kernel_checks.rodaspr_table(False)
+    ros_err = kernel_checks.rodaspr_table()
+
+    def both(label, key, model, N, periodic, before_c, call, n_stages=6, B=1, mixed=False):
+        sysm = model.system
+        own = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)._replace(B=B)
+        for which, plan in (("before", chunked.plan_with(N, sysm.nvar, sysm.halo, periodic,
+                                                          before_c, B)), ("now", own)):
+            cl = megastep.cluster_plan(plan, n_stages, torch.float64 if mixed else dtype, B,
+                                       mixed)
+            fn = lambda: call(plan)  # noqa: E731
+            ms = min(cuda_ms(fn, 5) for _ in range(2))
+            us, _ = launch_us(fn, key, launches=10, tries=5)
+            remote, local, rows = megastep.step_phases(plan, n_stages, cl)
+            log(f"  {key} {label} {dt_name} at the plan of {which} (C={plan.C} Mc={plan.Mc}; "
+                f"K={cl.K}, {cl.bytes} shared bytes a CTA, L2 "
+                f"{[b for b in megastep.BUFFERS if cl.home(b) == 'L2']}): {ms:.4f} ms host "
+                "call, " + (f"{us:.2f} device us" if us is not None else "device us not "
+                            "measured")
+                + f"; a step {remote} cluster barriers, {local} block barriers, {rows} rows "
+                "walked in order")
+
+    rm = Model(*README, double=dtype == torch.float64, device="cuda")
+    rf, rp = state_from_numpy(readme_case()[0], readme_case()[1], rm)
+    u, helpers, x = rm.backend.split_fields(rf)
+    rargs = (u, helpers, rm.backend.pack_pars(rp, x), x)
+    gdt = float(T(ros.g00) * T(readme_case()[2]))
+    both("readme N=200 rodaspr step", "K6.step", rm, 200, False, K6_BEFORE_C["readme"],
+         lambda plan: megastep.step(rm.backend, plan, ros, False, *rargs, -gdt, gdt))
+    km, _, _, kargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
+    both("ks N=2^13 first adaptive output step", "K6.adaptive", km, N_SMALL, True,
+         K6_BEFORE_C["ks"], lambda plan: megastep.row_adaptive_step(
+             adaptive_controller, km.backend, plan, ros_err, True, *kargs, 0.0, 1.0, 1e-6,
+             1e-3, 0.9, None, None))
+    sm = Model(*KS, double=dtype == torch.float64, device="cuda")
+    sargs = kernel_checks.mega_members(sm, N_SWEEP, True, "cuda", B_SWEEP)
+    sgdt = float(T(ros.g00) * T(0.05))
+    both(f"sweep B={B_SWEEP} N={N_SWEEP} steps(100)", "K6.step", sm, N_SWEEP, True,
+         K6_BEFORE_C["sweep"], lambda plan: megastep.step(sm.backend, plan, ros, True, *sargs,
+                                                           -sgdt, sgdt, 100), B=B_SWEEP)
+    both(f"sweep B={B_SWEEP} N={N_SWEEP} adaptive steps(4, 0.1) shared dt",
+         "K6.adaptive_scan", sm, N_SWEEP, True, K6_BEFORE_C["sweep"],
+         lambda plan: megastep.adaptive_scan(adaptive_controller, sm.backend, plan, ros_err,
+                                             True, *sargs, 0.0, 0.1, 1e-6, 1e-3, 0.9, None,
+                                             None, 4), B=B_SWEEP)
+    if dtype == torch.float64:
+        mm, _, _, margs, _ = path_inputs(KS, ks_case(DF64_DT, 1.0, N_SMALL), dtype, "df64")
+        mgdt = ros.g00 * DF64_DT
+        both("ks N=2^13 mixed step (one residual pass)", "K6.step_mixed", mm, N_SMALL, True,
+             K6_BEFORE_C["ks"], lambda plan: megastep.step_mixed(
+                 mm.backend, plan, ros, True, *margs, -mgdt, mgdt, 1), mixed=True)
+
+
 def phase3_redesign():
     """The redesigned kernels at ``REDESIGN_SHAPES`` and ``REFIT_SHAPES``,
     on K2's factor of random bands (B members of one grid's bands), a
@@ -3283,6 +3475,7 @@ def phase3_redesign():
     times = {}
     for dt_name, dtype in DTYPES.items():
         times[dt_name] = {}
+        redesign_k6(dtype, dt_name)
         item = torch.finfo(dtype).bits // 8
         for label, W, nvar, N, B, C in REDESIGN_SHAPES + REFIT_SHAPES:
             plan = chunked.plan_with(N, nvar, W // 2, True, C, B)

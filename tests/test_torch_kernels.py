@@ -158,8 +158,8 @@ def test_matvec_check_harness_on_cpu():
 
 
 #: a periodic grid above K6's gate whose ring closes through the Woodbury
-#: correction (M = 30000 supernodes: no power of two >= 8 divides it)
-N_WOODBURY = 30000
+#: correction (its chunked plan: C = 1500, no power of two)
+N_WOODBURY = 75000
 
 
 def test_woodbury_grid_plan():
@@ -343,7 +343,7 @@ def test_megatheta_entry_launches_k9_twice_per_step(cuda_device, monkeypatch, N,
     """Theta's ``device_fixed_step_folded`` with ``TRIFLOW_MEGATHETA=1``: one
     step is K9.interface, K4's factor (the Woodbury set-up on a Woodbury
     plan) and solve with shifts, K9.correct, and nothing else; without the
-    variable it is the K1-K4 step, and it agrees with the K9 step."""
+    variable it is ``fixed_step``'s route, and it agrees with the K9 step."""
     model, fields, pars = _burgers_on(cuda_device, N=N)
     scheme = schemes.Theta(model)
     args = scheme._split(fields, pars)
@@ -479,7 +479,7 @@ def test_sweep_and_combine_match_plain_versions(cuda_device, dtype):
 
 #: a prime grid above K6's gate: a padded plan, whose ring closes at the
 #: system level on a periodic grid
-N_PRIME = 16411
+N_PRIME = 65537
 
 
 @pytest.mark.cuda
@@ -534,6 +534,32 @@ def test_sweep_plan():
     film = thomas.sweep_plan(6, 8, 500, 1000)
     assert (film.CB, film.R, film.persist) == (4, 8, False)
     assert thomas.sweep_plan(6, 4, 500, 1000).persist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cluster_body_matches_plain_version(cuda_device, dtype):
+    """K6 on every cluster size K = 1..16 that holds each of
+    ``kernel_checks.CLUSTER_CASES`` (edge grids, block-cyclic and Woodbury
+    rings, C not divisible by K, s = 1, 2, 4, B = 4 members, the mixed
+    entry): each entry against its plain version, the step and mixed
+    entries bit for bit equal across sizes, the adaptive ones with equal
+    attempts."""
+    results = kernel_checks.check_clusters(cuda_device, dtype)
+    assert {"K6.step", "K6.adaptive", "K6.adaptive_scan"} <= set(results)
+
+
+def test_cluster_check_harness_on_cpu():
+    """The cluster checks on CPU tensors: plain against plain on every
+    case, the forced cluster plans built (every size holds the s = 1 edge
+    grid), nothing launched."""
+    before = _launch.counts()
+    skipped = []
+    results = kernel_checks.check_clusters("cpu", torch.float64, skipped=skipped)
+    assert results["K6.step"] == 0.0 and results["K6.adaptive across K"] == 0.0
+    assert not any("N=1000" in s_ for s_ in skipped)
+    assert _launch.counts() == before
 
 
 @pytest.mark.cuda

@@ -90,9 +90,9 @@ def test_plan_for_gate():
     # multi-launch path serves it
     assert megastep.make_plan(512, 3, 1, False) is None
     assert megastep.plan_for(512, 3, 1, False) is None
-    # the plan is the chunk count of least modelled cost, from the fit alone
-    M = ks.M
-    costs = {C: megastep.plan_cost_us(M, C, 2) for C in (8, 16, 32, 64)}
+    # the plan is the chunk count of least modelled cost on the cluster
+    # cluster_plan places it on, from the fit alone
+    costs = {C: megastep.layout_cost_us(256, 1, 2, True, C) for C in (8, 16, 32, 64)}
     assert ks.C == min(costs, key=costs.get)
 
 

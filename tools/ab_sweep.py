@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the solver kernels and K1's F against a parent commit's, in one
-process on one NVIDIA GPU.
+"""Time the solver kernels, K1's F and K6's entries against a parent
+commit's, in one process on one NVIDIA GPU.
 
     python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS] [GRID ...] [+KERNELS ...]
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``5e69748`` (``git
-archive``), the commit before K4's Woodbury set-up across the card and
-K1's tiled F.  GRID words keep only the grids whose name holds one of them
-(``film``: the falling film's); ``+word`` arguments keep only those
-kernel groups (``KERNEL_GROUPS``: ``k2``, ``k4f``, ``setup``, ``shift``,
-``k3``, ``corr``, ``k5``, ``stencil``; all without).  Both packages load
+repository, it is unpacked there from commit ``5ae668d`` (``git
+archive``), the commit before K6's cluster body.  GRID words keep only
+the grids whose name holds one of them (``film``: the falling film's);
+``+word`` arguments keep only those kernel groups (``KERNEL_GROUPS``:
+``k2``, ``k4f``, ``setup``, ``shift``, ``k3``, ``corr``, ``k5``,
+``stencil``, ``k6``; all without).  ``+k6`` alone times K6's entries on
+``K6_CASES`` (``k6_turns``: the outputs at the parent's chunk plan bit
+for bit or their gap, device µs and host-call ms of the parent, this at
+the parent's plan and this at its own).  Both packages load
 in this process, the parent's under another name, each building its
 kernels from its own ``csrc/`` into its own ``build/``, all libraries at
 once first.
@@ -59,6 +62,7 @@ import tarfile
 import io
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -68,7 +72,7 @@ from triflow_tpu_torch import Model  # noqa: E402
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
                                    pcr, thomas)
 
-PARENT_COMMIT = "5e69748"
+PARENT_COMMIT = "5ae668d"
 #: bytes the inputs of K3's correction rotate over when timed: twice the
 #: H100's 50 MB L2, so that each call reads its inputs from memory
 COLD_BYTES = 100 * 2 ** 20
@@ -185,8 +189,8 @@ def cold_copies(nbytes, first, clone):
 
 #: the kernel groups (``+word`` arguments): K2, K4's factor, its Woodbury
 #: set-up and R-column solve, its solve with shifts, K3's sweep and
-#: correction, K5, K1's F, F_terms and J
-KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil")
+#: correction, K5, K1's F, F_terms and J, K6's entries
+KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "k6")
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 FILM = (["-dxq",
@@ -200,6 +204,133 @@ STENCIL_GRIDS = [("ks 2^20", KS, 1 << 20, 1), ("ks 10^6", KS, 10 ** 6, 1),
                  ("burgers 10^6", BURGERS, 10 ** 6, 1), ("film 10^6", FILM, 10 ** 6, 1),
                  ("ks 999983", KS, 999983, 1), ("ks 1000", KS, 1000, 1),
                  ("config 5", KS, 10 ** 5, 1024)]
+
+
+#: K6's cases (``k6``): (label, model, N, periodic, chunk count or None
+#: for the parent's make_plan, members, entry); the entries: "step" one
+#: fixed RODASPR step (its table without the error row, as the smoke
+#: times it; "step_err" with it, the adaptive entries' table),
+#: "adaptive" the first output step of KS 2^13 (dt 1.0, tol 1e-3),
+#: "shared" / "member" the adaptive scan of two output steps with a
+#: shared dt / per member, "steps100" 100 fixed steps in one launch (the
+#: sweep's ``steps(100)``), "mixed" one df64 mixed step with one residual
+#: pass (float64 only)
+K6_MODELS = {"readme": ("k * dxxU - c * dxU", "U", ["k", "c"]), "ks": KS,
+             "burgers": BURGERS,
+             "two_var": (["-dxq", "-dx(q**2/h) - h * dxxxh + q / h"], ["h", "q"], [])}
+K6_CASES = [("readme N=200", "readme", 200, False, None, 1, "step"),
+            ("ks N=2^13", "ks", 1 << 13, True, None, 1, "step"),
+            ("ks N=2^13 err row", "ks", 1 << 13, True, None, 1, "step_err"),
+            ("ks N=2^13 C=4 woodbury", "ks", 1 << 13, True, 4, 1, "step"),
+            ("burgers N=10^4", "burgers", 10 ** 4, True, None, 1, "step"),
+            ("two_var N=600", "two_var", 600, True, None, 1, "step"),
+            ("ks N=2^13 adaptive", "ks", 1 << 13, True, None, 1, "adaptive"),
+            ("ks B=4 N=200 shared", "ks", 200, True, None, 4, "shared"),
+            ("ks B=64 N=200 shared", "ks", 200, True, None, 64, "shared"),
+            ("ks B=64 N=200 per member", "ks", 200, True, None, 64, "member"),
+            ("ks B=64 N=200 steps(100)", "ks", 200, True, None, 64, "steps100"),
+            ("ks B=4 N=2^13 steps(1)", "ks", 1 << 13, True, None, 4, "step"),
+            ("ks N=2^13 mixed", "ks", 1 << 13, True, None, 1, "mixed"),
+            ("ks N=10^4 mixed", "ks", 10 ** 4, True, None, 1, "mixed")]
+K6_KERNEL = {"step": "step_kernel", "step_err": "step_kernel", "adaptive": "adaptive_kernel",
+             "shared": "scan_kernel", "member": "scan_kernel", "steps100": "step_kernel",
+             "mixed": "step_mixed_kernel"}
+
+
+def k6_state(model, N, periodic, B):
+    """The inputs of a K6 case: kernel_checks' states (the README and KS
+    ones; Burgers the K9 checks' grid), B members stacked."""
+    sysm = model.backend.system
+    if len(sysm.pars) == 1:
+        one = lambda b: kernel_checks.megatheta_state(model, N, "cuda", seed=b)
+        if B == 1:
+            return one(0)
+        parts = [one(b) for b in range(B)]
+        return (*(torch.stack([p[k] for p in parts]) for k in range(3)), parts[0][3])
+    if B == 1:
+        return kernel_checks.mega_state(model, N, periodic, "cuda")
+    return kernel_checks.mega_members(model, N, periodic, "cuda", B)
+
+
+def k6_sides(old_port, case, dtype):
+    """(parent's call, this one's at the parent's chunk plan, this one's at
+    its own plan or None where it is the same, the parent's chunk plan and
+    this one's own) of one case."""
+    from triflow_tpu_torch.ops import megastep
+
+    label, name, N, periodic, C, B, entry = case
+    old_ms = importlib.import_module("parent_port.ops.megastep")
+    old_kc = importlib.import_module("parent_port.ops.kernel_checks")
+    old_rb = importlib.import_module("parent_port.core.rosenbrock")
+    eqs = K6_MODELS[name]
+    mixed = entry == "mixed"
+    double = "df64" if mixed else dtype == torch.float64
+    new_m = Model(*eqs, double=double, device="cuda")
+    old_m = old_port.Model(*eqs, double=double, device="cuda")
+    sysm = new_m.system
+    old_plan = (old_ms.make_plan(N, sysm.nvar, sysm.halo, periodic) if C is None
+                else importlib.import_module("parent_port.ops.chunked").plan_with(
+                    N, sysm.nvar, sysm.halo, periodic, C))
+    old_plan = old_plan._replace(B=B)
+    same = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, old_plan.C, B)
+    own = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)._replace(B=B)
+    args = k6_state(new_m, N, periodic, B)
+    T = np.float64 if new_m.backend.dtype == torch.float64 else np.float32
+    if entry in ("step", "step_err", "steps100", "mixed"):
+        err_row = entry == "step_err"
+        tab, old_tab = kernel_checks.rodaspr_table(err_row), old_kc.rodaspr_table(err_row)
+        dt = 0.0625 if mixed else 0.05
+        gdt = float(T(tab.g00) * T(dt)) if not mixed else tab.g00 * float(np.float32(dt))
+        n = 100 if entry == "steps100" else 1
+
+        def call(ms, b, plan, table):
+            if mixed:
+                return lambda: ms.step_mixed(b, plan, table, periodic, *args, -gdt, gdt, 1)
+            return lambda: ms.step(b, plan, table, periodic, *args, -gdt, gdt, n)
+    else:
+        tab, old_tab = kernel_checks.rodaspr_table(), old_kc.rodaspr_table()
+        per = entry == "member"
+        out_dt = 1.0
+
+        def call(ms, b, plan, table):
+            rb = old_rb if ms is old_ms else None
+            ctl = (rb or importlib.import_module("triflow_tpu_torch.core.rosenbrock"))
+            ctl = ctl.member_controller if per else ctl.adaptive_controller
+            a = (ctl, b, plan, table, periodic, *args, 0.0, out_dt, 1e-6, 1e-3, 0.9, None,
+                 None)
+            if entry == "adaptive":
+                return lambda: ms.row_adaptive_step(*a)
+            return lambda: ms.adaptive_scan(*a, 2, per_member=per, attempts=True)
+    new_b, old_b = new_m.backend, old_m.backend
+    return (call(old_ms, old_b, old_plan, old_tab), call(megastep, new_b, same, tab),
+            None if own.C == same.C else call(megastep, new_b, own, tab), same, own)
+
+
+def k6_gap(new, old):
+    """``gap`` of every output of an entry together and, where they
+    differ, each output's own (u, err or dt_i, attempts, status, ...): a
+    number as "this / parent"."""
+    new, old = flat(new), flat(old)
+    got = gap(new, old)
+    if got == "equal":
+        return got
+    parts = []
+    for a, b in zip(new, old):
+        a, b = a.cpu(), b.cpu()
+        if torch.equal(a, b):
+            parts.append("equal")
+        elif a.numel() == 1:
+            parts.append(f"{float(a)!r} / {float(b)!r}")
+        else:
+            parts.append(gap((a,), (b,)))
+    return f"{got} ({'; '.join(parts)})"
+
+
+def flat(out):
+    """The tensors and numbers of an entry's output, as tensors."""
+    items = out if isinstance(out, tuple) else (out,)
+    return tuple(a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a, float))
+                 for a in items)
 
 
 def gap(new, old):
@@ -223,8 +354,11 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
     old_thomas, old_pcr, old_combine, old_port = load_parent(parent_dir)
-    prebuild([(thomas, pcr, combine, Model), (old_thomas, old_pcr, old_combine, old_port.Model)],
-             kernels)
+    if kernels & {"k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil"}:
+        prebuild([(thomas, pcr, combine, Model),
+                  (old_thomas, old_pcr, old_combine, old_port.Model)], kernels)
+    else:
+        grids = []
     means = {}
 
     def turns(what, old, new, iters):
@@ -391,7 +525,56 @@ def main():
                                                 scale=0.05), "stencil_F_terms")
             torch.cuda.empty_cache()
 
+    def k6_turns():
+        """K6's entries against the parent's (``K6_CASES``): the outputs at
+        the parent's chunk plan bit for bit (or their gap), then device µs
+        (the profiler, 20 launches alone) and host-call ms of the parent,
+        this at the parent's plan and this at its own plan."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from triflow_tpu_torch.ops import megastep
+
+        # every K6 library of both sides at once, one nvcc each
+        jobs = []
+        for make in (Model, old_port.Model):
+            for name in sorted({c[1] for c in K6_CASES}):
+                for double in (True, False):
+                    jobs.append(make(*K6_MODELS[name], double=double,
+                                     device="cuda").backend.megastep.load)
+            jobs.append(make(*K6_MODELS["ks"], double="df64",
+                             device="cuda").backend.megastep_mixed.load)
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            for fut in [pool.submit(job) for job in jobs]:
+                fut.result()
+        for dtype in (torch.float64, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            for case in K6_CASES:
+                label, entry = case[0], case[-1]
+                if entry == "mixed" and dtype != torch.float64:
+                    continue
+                old, new, own, same, own_plan = k6_sides(old_port, case, dtype)
+                mixed = entry == "mixed"
+                cps = [megastep.cluster_plan(p, 6, torch.float64 if mixed else dtype,
+                                             p.B, mixed) for p in (same, own_plan)]
+                print(f"K6 {label} {dt}: the parent's chunk plan C={same.C} (K={cps[0].K}, "
+                      f"{cps[0].bytes} shared bytes a CTA), its own C={own_plan.C} "
+                      f"(K={cps[1].K}, {cps[1].bytes}); {k6_gap(new(), old())}",
+                      flush=True)
+                what = f"K6 {label} {dt}"
+                kern = K6_KERNEL[entry]
+                iters = 3 if "C=4" in label else 10
+                turns(what, old, new, iters)
+                on_device(what, old, new, kern)
+                if own is not None:
+                    turns(f"{what} own plan", old, own, iters)
+                    on_device(f"{what} own plan", old, own, kern)
+                torch.cuda.empty_cache()
+
+    if "k6" in kernels:
+        k6_turns()
     for dtype in (torch.float64, torch.float32):
+        if not grids:
+            break
         dt = str(dtype).replace("torch.", "")
         suffix = "f64" if dtype == torch.float64 else "f32"
         item = torch.finfo(dtype).bits // 8

@@ -3,9 +3,13 @@
 // One call walks chunk c of the block-tridiagonal system of
 // alpha*I + beta*J through the forward and backward sweeps and writes the
 // chunk's per-row operators and its rows of the reduced interface system;
-// spike_factor.cu describes the algebra and the layout.  The pointers carry
-// no __restrict__: K6 reads `bands` after writing it in the same launch, and
-// a read-only (non-coherent) load there could return stale data.
+// spike_factor.cu describes the algebra and the layout.  K6 calls it on its
+// CTA's share of a member's chunks: `bands` of Nb nodes (its own), the
+// chunk rows and the interface rows at stride C of that share, chunk c of
+// it; edge_l / edge_u: the chunk is the grid's first / last and the grid
+// does not wrap (its outer coupling is zero).  The pointers carry no
+// __restrict__: K6 reads `bands` after writing it in the same launch, and a
+// read-only (non-coherent) load there could return stale data.
 #pragma once
 
 #include "common.cuh"
@@ -45,9 +49,10 @@ __device__ __forceinline__ Blk<T, S> sub(const Blk<T, S>& a, const Blk<T, S>& b)
 
 template <typename T, int S>
 __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dhinv, T* DU,
-                                                   T* Wsp, T* Vsp, T* Lred, T* Ured, int N,
+                                                   T* Wsp, T* Vsp, T* Lred, T* Ured, int Nb,
                                                    int nvar, int g, int h, int Mc, int C,
-                                                   int wrap, T alpha, T beta, int c) {
+                                                   bool edge_l, bool edge_u, T alpha, T beta,
+                                                   int c) {
   Blk<T, S> dh, up, wt, Tl, Tr;
   zero(dh);
   zero(up);
@@ -56,17 +61,17 @@ __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dh
   zero(Tr);
   for (int j = 0; j < Mc; ++j) {
     const long I = (long)c * Mc + j;
-    Blk<T, S> L = band_block<T, S>(bands, I, -1, alpha, beta, N, nvar, g, h);
-    Blk<T, S> D = band_block<T, S>(bands, I, 0, alpha, beta, N, nvar, g, h);
-    Blk<T, S> U = band_block<T, S>(bands, I, 1, alpha, beta, N, nvar, g, h);
+    Blk<T, S> L = band_block<T, S>(bands, I, -1, alpha, beta, Nb, nvar, g, h);
+    Blk<T, S> D = band_block<T, S>(bands, I, 0, alpha, beta, Nb, nvar, g, h);
+    Blk<T, S> U = band_block<T, S>(bands, I, 1, alpha, beta, Nb, nvar, g, h);
     if (j == 0) {
       Tl = L;
-      if (!wrap && c == 0) zero(Tl);
+      if (edge_l) zero(Tl);
       zero(L);
     }
     if (j == Mc - 1) {
       Tr = U;
-      if (!wrap && c == C - 1) zero(Tr);
+      if (edge_u) zero(Tr);
       zero(U);
     }
     const Blk<T, S> f = mm(L, dh);
@@ -111,8 +116,8 @@ __device__ __forceinline__ void spike_factor_chunk(const T* bands, T* fac, T* Dh
   W0 = Wn;
   V0 = Vn;
 
-  const bool keep_l = wrap || c != 0;
-  const bool keep_u = wrap || c != C - 1;
+  const bool keep_l = !edge_l;
+  const bool keep_u = !edge_u;
 #pragma unroll
   for (int r = 0; r < 2 * S; ++r)
 #pragma unroll

@@ -1,5 +1,6 @@
 // The band walk of one output row of a block-banded product, shared by K7
-// (matvec.cu), K8 (mixed_residual.cu) and K6's mixed entry (megastep.cu):
+// (matvec.cu) and K8 (mixed_residual.cu); K6's mixed entry walks its
+// cluster's shares in the same order (megastep.cu: band_row_at):
 //   sum_k sum_q A[k, m, q, i] * v[q, i + k - h],   h = W / 2,
 // for one grid's bands A (W, nvar, nvar, N) and vector v (nvar, N) in the
 // node layout.  In edge mode a column outside [0, N) contributes zero (the
@@ -7,26 +8,19 @@
 // the column index wraps.  The terms are summed in (k, q) order.
 //
 // Every load goes through `load`: ReadOnlyLoad (__ldg, the read-only data
-// path) where A and v do not change during the launch (K7, K8; the walk
-// inlined with plain loads ran K7's float32 instance 7 % slower on an H100,
-// PERF.md), PlainLoad in K6, which reads bands and vectors it
-// wrote earlier in the same launch (a read-only load there could return
-// stale data).
+// path), as A and v do not change during the launch (the walk inlined
+// with plain loads ran K7's float32 instance 7 % slower on an H100,
+// PERF.md).
 #pragma once
 
 namespace tf {
-
-struct PlainLoad {
-  template <typename T>
-  __device__ __forceinline__ T operator()(const T* p) const { return *p; }
-};
 
 struct ReadOnlyLoad {
   template <typename T>
   __device__ __forceinline__ T operator()(const T* p) const { return __ldg(p); }
 };
 
-template <typename T, typename Load = PlainLoad>
+template <typename T, typename Load>
 __device__ __forceinline__ T band_row(const T* A, const T* v, int W, int nvar, long N,
                                       int periodic, long i, int m, Load load = Load()) {
   const long n = (long)nvar * N;

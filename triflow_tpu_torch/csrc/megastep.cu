@@ -13,18 +13,19 @@
 // one launch, shared or per-member clocks), which only the reference's
 // ensembles call.
 //
-// Two entries; a member (one grid of an ensemble of B; B = 1 for one
-// grid) is stepped by ONE thread block of kThreads threads, and the grid
-// has nblk = min(B, the blocks the card holds at once) blocks, block k
-// taking members k, k + nblk, ...:
+// A member (one grid of an ensemble of B; B = 1 for one grid) is stepped by
+// ONE thread-block cluster of K CTAs (K = 1, 2, 4, 8 or 16; K = 1 is a
+// plain block), and the grid has ncl = min(B, the clusters the card holds
+// at once) clusters, cluster k taking members k, k + ncl, ...  Two
+// entries:
 //   step:          nsteps >= 1 steps of fixed dt from u0 (beta = -gamma00*dt
 //                  or -theta*dt factor shift, scale = the F scale, numbers
 //                  or per-member device arrays), writing the last state and
 //                  each member's last err;
 //   adaptive:      nsteps >= 1 output steps of the clamp-and-recompute
-//                  controller of ROW_general._adaptive, run by thread 0 in
-//                  the model's type with every product, sum and quotient
-//                  rounded as the host rounds it, every output step
+//                  controller of ROW_general._adaptive, run by thread 0 of
+//                  every CTA in the model's type with every product, sum and
+//                  quotient rounded as the host rounds it, every output step
 //                  re-clamping its starting dt to the output dt and the loop
 //                  ending at the first nonzero status; it writes the
 //                  accepted state, dt_i, the attempts, the status (1:
@@ -35,65 +36,93 @@
 // An ensemble's adaptive steps run scan_kernel in two modes.
 // Shared dt (one clock for the ensemble, the reference's shared-dt
 // controller): an attempt's err is the max over all members, so every
-// attempt ends in a grid-wide barrier (the kernel is launched
-// cooperatively, every block resident: an atomic counter, a generation
-// word, and the block maxima in a double buffer); each block's thread 0
-// then runs the same controller on the same err, so the blocks agree with
-// no further traffic.  Per member (per_member_dt): each member's clock,
-// dt, attempts and status are its own (the reference's masked per-member
+// attempt ends in a grid-wide barrier (every CTA resident: a cooperative
+// launch of one-CTA clusters, or as many clusters as
+// cudaOccupancyMaxActiveClusters admits; an atomic counter, a generation
+// word, and the CTA maxima in a double buffer); each CTA's thread 0 then
+// runs the same controller on the same err, so the CTAs agree with no
+// further traffic.  Per member (per_member_dt): each member's clock, dt,
+// attempts and status are its own (the reference's masked per-member
 // controller, where a member that reached the output time is frozen), so
-// members never wait for each other.  The per-block scratch (bands, factor
-// rows, interface operators, stage vectors) is reused by the block's
-// members one after the other; the accepted and trial states are kept per
-// member.  One grid (B = 1) runs kernels without member offsets
-// (kMembers false: the scratch addresses straight from the parameters)
-// and its one-output-step adaptive entry its own kernel (adaptive_kernel):
-// the member versions cost one grid registers and time (PERF.md).
+// members never wait for each other.  A cluster's working set is reused by
+// its members one after the other; the accepted and trial states are kept
+// per member in global memory and switched by pointer.  One grid (B = 1)
+// runs kernels without member offsets (kMembers false) and its
+// one-output-step adaptive entry its own kernel (adaptive_kernel): the
+// member versions cost one grid registers and time (PERF.md).
 // A df64 model's mixed library (TF_MIXED, built only where its mixed
 // solve runs) has one entry instead, K6's mixed entry (step_mixed, one
-// grid): nsteps >= 1 steps of the df64 precision mode's mixed-precision
-// stage solve, the reference's row_step_df_folded / theta_step_df_folded
-// (ops/megastep.py) on native float64.  Per step: J in double (K1's node
-// body), its bands rounded to float, the chunked factor, the PCR factor
-// and on a Woodbury plan the closure's set-up in float (the float
-// instantiations of factor.cuh and pcr.cuh); per stage the stage sums and
-// F in double, the first solve in float on the rounded right-hand side,
-// then `passes` times K8's residual body (matvec.cuh's band walk against
-// the block's double bands, rounded to float) and a float solve whose
+// grid, one cluster): nsteps >= 1 steps of the df64 precision mode's
+// mixed-precision stage solve, the reference's row_step_df_folded /
+// theta_step_df_folded (ops/megastep.py) on native float64.  Per step: J in
+// double (K1's node body), its bands rounded to float, the chunked factor,
+// the PCR factor and on a Woodbury plan the closure's set-up in float (the
+// float instantiations of factor.cuh and pcr.cuh); per stage the stage
+// sums and F in double, the first solve in float on the rounded right-hand
+// side, then `passes` times K8's residual body (matvec.cuh's band walk
+// against the double bands, rounded to float) and a float solve whose
 // widened result is added to the stage's double solution; the final
 // combination and err in double.  The factor takes the rounded bands of
 // J(u), not J of the rounded state: both are float-accurate
 // preconditioners, and the residual passes correct against the double
-// operator either way.  Its scratch is two slabs, one double and one float.
-// It shares one_step's stage sums, final combination and err (stage_sums,
-// finish) and the step loop (run_steps).
+// operator either way.  It shares one_step's stage sums, final combination
+// and err (stage_sums, finish) and the step loop (run_steps).
 // One step, in the order of the multi-launch path (K1-K5):
 //   1. J at every node (K1's body), the chunked factor of I + beta*J (K2's
 //      body, one thread per chunk) and the PCR factor of the interface
 //      system (K4's body); on a Woodbury plan (a ring whose chunk count is
 //      no power of two >= 8) the closure's set-up (K4's solve body: Z and
-//      the capacitance inverse, kept in shared memory);
+//      the capacitance inverse, which every CTA inverts itself into its
+//      shared memory);
 //   2. per stage: the stage input sum a*u_j and bias sum c*u_j (K5's
 //      arithmetic), rhs = scale*F + bias (K1), the chunk sweep (K3), the
 //      reduced solve with the Woodbury correction where the plan has one
 //      and the shifts (K4) and the spike correction (K3);
 //   3. the final combination and err = max|sum (m - mhat)*u_j|, NaN and inf
-//      becoming inf.
-// Phases are separated by __syncthreads(); threads stride over nodes for F,
-// J and the combinations, and over chunks for the sweeps and PCR levels.
-// The working set (bands, factor rows, interface operators, stage vectors)
-// is global scratch the wrapper allocates; at the sizes the gate admits it
-// stays in L2.
+//      becoming inf, reduced over the cluster through distributed shared
+//      memory.
+// Ownership: CTA `rank` of the cluster owns the contiguous chunks [rank Cc,
+// rank Cc + Cc) (the last may own fewer) and their Nr = Cc Mc g nodes, and
+// holds its share of every buffer of the member's working set: the state
+// u (copied in at each step), J's bands, the factor rows (fac, Dhinv, DU,
+// Wsp, Vsp), the interface rows and operators (Lred, Ured, alphas, betas,
+// Dinv, Z), the PCR scratch, and the stage vectors (us, ui, bias, rhs, y,
+// yred, xm1, xp1); in the mixed entry the double bands beside the float
+// ones.  Each buffer's home is the CTA's dynamic shared memory or, where a
+// share does not fit, the CTA's own slab of global memory (L2-resident at
+// these sizes): the host's plan (ops/megastep.py:cluster_plan) places
+// them, the buffers other CTAs read (u, ui, the interface rows, the PCR
+// scratch, Z; us in the mixed entry) always in shared memory.  F's and J's
+// 2h halo nodes, the PCR levels' neighbours c -+ d, the shifts' neighbour
+// chunks and the closure's end chunks are read from the owning CTA's
+// shared memory through cluster.map_shared_rank (rank K-1 and rank 0 are
+// neighbours on a ring).  Phases that read another CTA's share are
+// separated from the phases that wrote it by a cluster barrier
+// (barrier.cluster arrive / wait), the others by __syncthreads(); threads
+// stride over the CTA's nodes for F, J and the combinations and over its
+// chunks for the sweeps and PCR levels.  Each chunk's, node's and level's
+// arithmetic is the one-block body's (the headers' bodies, in their order):
+// only the home of the data moved, so at the same chunk plan the outputs
+// are the L2-scratch body's bit for bit (the adaptive kernels' where nvcc
+// fuses their products and sums alike: PERF.md).  A member on one CTA with
+// every buffer in shared memory (s <= 2) runs the kOne instantiation of
+// each kernel: the same body with every chunk its own (tf::Local, the PCR
+// factor's inverses stored once) and every address in the shared window.
 //
-// Bound: a member's step is a chain of dependent phases on one SM, about
-// n_stages * (2 Mc + 2 log2 C) row and level latencies plus the factor's
-// Mc rows and log2 C levels, each an L2 round trip; the bytes (a few state
-// vectors per stage) and the operations are far below the card's rates at
-// these sizes.  The design spends no launch, no host round trip and no
-// device-memory round trip between phases; what it leaves on the table is
-// the L2 latency of every phase (shared memory would shorten it) and, for
-// one grid, the other 131 SMs.
+// Bound: a member's step is a chain of dependent phases, about
+// n_stages * (2 Mc + log2 C + 4) row and level latencies plus the factor's
+// 2 Mc rows and log2 C levels (and on a Woodbury plan log2 C more), each a
+// shared-memory round trip and, between CTAs, a cluster barrier; the bytes
+// (a few state vectors per stage) and the operations are far below the
+// card's rates at these sizes.  The design spends no launch, no host round
+// trip and no device-memory round trip between phases, and keeps the
+// working set next to the threads that use it; what it leaves on the table
+// is the barrier latency of every level, and for one grid the SMs beyond
+// its cluster.
+#include <cooperative_groups.h>
+
 #include <cuda/std/limits>
+#include <cuda/std/type_traits>
 
 #include "common.cuh"
 
@@ -102,26 +131,48 @@
 // ---- end of generated block ----
 
 #include "factor.cuh"
-#include "matvec.cuh"
 #include "pcr.cuh"
 #include "stencil.cuh"
 #include "sweep.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
+
+constexpr int kMaxThreads = 256;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxDevices = 16;
+constexpr int kSmemPerCta = 232448;  // the card's opt-in shared memory per block
 constexpr int kG = TF_H > 1 ? TF_H : 1;
 constexpr int kS = TF_NVAR * kG;
+constexpr int kS2 = 2 * kS;
 constexpr int kMaxStages = 6;
 constexpr int kCombos = kMaxStages + 1;
 constexpr int kCols = kMaxStages + 1;
-constexpr int kPtrs = 34;
 constexpr int kInfo = 5;  // per member: err, dt_i, attempts, status, output steps done
 
 using tf::add_rn;
 using tf::div_rn;
 using tf::mul_rn;
 using tf::sub_rn;
+
+// The buffers of a member's working set, in the order of
+// ops/megastep.py:BUFFERS
+enum Buf : int {
+  bU, bBands, bFac, bDhinv, bDU, bWsp, bVsp, bLred, bUred, bAlphas, bBetas, bDinv, bPscr, bZ,
+  bUs, bUi, bBias, bRhs, bY, bYred, bXm1, bXp1, bBands32, bR32, bD32, kBufs
+};
+
+// The host's cluster plan: K CTAs of `threads` threads per member, Cc
+// chunks and Nr = Cc Mc g nodes per CTA, `smem` bytes of dynamic shared
+// memory and `gslab` bytes of global memory per CTA, and each buffer's
+// share: home 0 at byte off in the shared memory, home 1 in the CTA's
+// global slab.
+struct Layout {
+  int K, threads, Cc, Nr, smem, gslab;
+  int off[kBufs];
+  unsigned char home[kBufs];
+};
 
 // The combinations of one step.  Combination k < n_stages gives stage k's
 // input (row 0) and, with rows[k] = 2, its bias (row 1), over the columns
@@ -146,6 +197,8 @@ struct Grid {
   const T* x;
   double* info;        // (B, kInfo), or kInfo for the shared adaptive mode
   T* out;
+  unsigned char* gwork;  // the CTAs' global slabs, CTA k's at k * gslab bytes
+  T *buf0, *buf1;      // accepted and trial states, member m's at m * n
   int N, Mc, C, cyclic, wrap, periodic;
 };
 
@@ -155,12 +208,8 @@ struct Work : Grid<T> {
   const T* scale_b;    // per-member F scale of the step entry, or null
   const T* idt_b;      // per-member starting internal dt (per-member mode)
   unsigned* sync;      // grid barrier: arrivals, generation
-  T* errs;             // 2 x nblk block maxima of err (shared mode)
-  // block 0's scratch; block k's at k * slab elements further
-  T *bands, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr, *Z;
-  T *us, *ui, *bias, *rhs, *y, *yred, *xm1, *xp1;
-  T *buf0, *buf1;      // accepted and trial states, member m's at m * n
-  int B, slab;
+  T* errs;             // 2 x gridDim CTA maxima of err (shared mode)
+  int B;
 };
 
 template <typename T>
@@ -172,54 +221,193 @@ struct Ctl {
 template <typename T>
 using Lim = cuda::std::numeric_limits<T>;
 
-// Stage k's input sum a*u_j into ui (unless the input is u itself) and, with
-// rows[k] = 2, its bias sum c*u_j into bias, over the columns (src, us_0,
-// ...).  All threads of the block must call it.
-template <typename T>
-__device__ void stage_sums(const Table<T>& tab, int k, const T* src, const T* us, T* ui,
-                           T* bias, long n) {
-  const bool with_bias = tab.rows[k] == 2;
-  if (tab.is_u[k] && !with_bias) return;
-  for (long e = threadIdx.x; e < n; e += kThreads) {
-    auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
-    if (!tab.is_u[k])
-      ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
-    if (with_bias)
-      bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
-  }
-  __syncthreads();
-}
+// This CTA's part of a member: its chunks (sp) and its nodes [i0, i0 + nn)
+// of Nr per CTA.  kOne: a member on one CTA with its whole working set in
+// shared memory (tf::Local, and every buffer addressed from the shared
+// window: the same arithmetic without the cluster's address mapping).
+template <bool kOne>
+struct Part {
+  using Sp = typename cuda::std::conditional<kOne, tf::Local, tf::Spread>::type;
+  Sp sp;
+  int N, Nr;
+  long i0, nn;
 
-// The final combination into dst and the step's err = max|error row|, which
-// every thread gets (inf without an error row, and where a term is not
-// finite).  All threads of the block must call it.
-template <typename T>
-__device__ T finish(const Table<T>& tab, const T* src, const T* us, T* dst, long n) {
-  __shared__ T s_max[kThreads];
-  __shared__ int s_bad;
-  const int tid = threadIdx.x;
-  const int fin = tab.n_stages;
-  const bool with_err = tab.rows[fin] == 2;
-  T mx = T(0);
-  int bad = 0;
-  for (long e = tid; e < n; e += kThreads) {
-    auto value = [&](int j) { return j == 0 ? src[e] : us[(long)(j - 1) * n + e]; };
-    dst[e] = tf::lin_comb(fin + 1, tab.coef[fin][0], tab.role[fin][0], value);
-    if (with_err) {
-      const T d = fabs(tf::lin_comb(fin + 1, tab.coef[fin][1], tab.role[fin][1], value));
-      // fmax drops NaN: a non-finite term is flagged on its own
-      if (isfinite(d))
-        mx = fmax(mx, d);
-      else
-        bad = 1;
+  // node i's entry 0 in its owner's share of the node buffer whose share
+  // here is `share` (a shared-memory buffer, when i is another's)
+  template <typename U>
+  __device__ __forceinline__ U* node(U* share, long i) const {
+    if constexpr (kOne) {
+      return share + i;
+    } else {
+      const long l = i - i0;
+      if (l >= 0 && l < nn) return share + l;
+      const int r = (int)(i / Nr);
+      return cg::this_cluster().map_shared_rank(share, r) + (i - (long)r * Nr);
     }
   }
+
+  // no CTA leaves while another may still read its shared memory
+  __device__ __forceinline__ void end() const {
+    if (sp.K > 1) sp.sync();
+  }
+};
+
+template <bool kOne, typename T>
+__device__ __forceinline__ Part<kOne> part_of(const Grid<T>& g, const Layout& L) {
+  Part<kOne> P;
+  const int rank = !kOne && L.K > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int c0 = rank * L.Cc;
+  const int nc = max(0, min(L.Cc, g.C - c0));
+  P.sp = typename Part<kOne>::Sp{L.K, rank, L.Cc, g.C, c0, nc};
+  P.N = g.N;
+  P.Nr = L.Nr;
+  P.i0 = (long)rank * L.Nr;
+  P.nn = (long)nc * g.Mc * kG;
+  return P;
+}
+
+template <bool kOne, typename U>
+__device__ __forceinline__ U* share_of(const Layout& L, unsigned char* sm, unsigned char* gl,
+                                       int b) {
+  if constexpr (kOne) return reinterpret_cast<U*>(sm + L.off[b]);
+  return reinterpret_cast<U*>((L.home[b] ? gl : sm) + L.off[b]);
+}
+
+// The solver's buffers (type F: the model's, or float in the mixed entry)
+template <typename F>
+struct Solver {
+  F *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr, *Z;
+  F *y, *yred, *xm1, *xp1;
+};
+
+template <bool kOne, typename F>
+__device__ __forceinline__ Solver<F> solver_of(const Layout& L, unsigned char* sm,
+                                               unsigned char* gl) {
+  Solver<F> s;
+  s.fac = share_of<kOne, F>(L, sm, gl, bFac);
+  s.Dhinv = share_of<kOne, F>(L, sm, gl, bDhinv);
+  s.DU = share_of<kOne, F>(L, sm, gl, bDU);
+  s.Wsp = share_of<kOne, F>(L, sm, gl, bWsp);
+  s.Vsp = share_of<kOne, F>(L, sm, gl, bVsp);
+  s.Lred = share_of<kOne, F>(L, sm, gl, bLred);
+  s.Ured = share_of<kOne, F>(L, sm, gl, bUred);
+  s.alphas = share_of<kOne, F>(L, sm, gl, bAlphas);
+  s.betas = share_of<kOne, F>(L, sm, gl, bBetas);
+  s.Dinv = share_of<kOne, F>(L, sm, gl, bDinv);
+  s.pscr = share_of<kOne, F>(L, sm, gl, bPscr);
+  s.Z = share_of<kOne, F>(L, sm, gl, bZ);
+  s.y = share_of<kOne, F>(L, sm, gl, bY);
+  s.yred = share_of<kOne, F>(L, sm, gl, bYred);
+  s.xm1 = share_of<kOne, F>(L, sm, gl, bXm1);
+  s.xp1 = share_of<kOne, F>(L, sm, gl, bXp1);
+  return s;
+}
+
+// The stage vectors and J's bands, in the model's type T
+template <typename T>
+struct Stage {
+  T *u, *bands, *us, *ui, *bias, *rhs;
+};
+
+template <bool kOne, typename T>
+__device__ __forceinline__ Stage<T> stage_of(const Layout& L, unsigned char* sm,
+                                             unsigned char* gl) {
+  return Stage<T>{share_of<kOne, T>(L, sm, gl, bU),   share_of<kOne, T>(L, sm, gl, bBands),
+                  share_of<kOne, T>(L, sm, gl, bUs),  share_of<kOne, T>(L, sm, gl, bUi),
+                  share_of<kOne, T>(L, sm, gl, bBias), share_of<kOne, T>(L, sm, gl, bRhs)};
+}
+
+// This CTA's nodes of the state src (global, the grid's layout) into its
+// share of u; the caller syncs over the cluster before J or F read it.
+template <typename T, typename Pt>
+__device__ __forceinline__ void load_state(const Pt& P, const T* src, T* u) {
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = threadIdx.x; l < P.nn; l += blockDim.x)
+      u[(long)v * P.Nr + l] = src[(long)v * P.N + P.i0 + l];
+}
+
+// the state read by the stencil bodies: variable v at node j, wherever its
+// owner keeps it
+template <typename T, typename Pt>
+__device__ __forceinline__ auto reader(const Pt& P, const T* share) {
+  return [&P, share](int v, long j, int) { return P.node(share, j)[(long)v * P.Nr]; };
+}
+
+// Stage k's input sum a*u_j into ui (unless the input is u itself) and,
+// with rows[k] = 2, its bias sum c*u_j into bias, over the columns (u,
+// us_0, ...), at this CTA's nodes.  The caller syncs.
+template <typename T, typename Pt>
+__device__ void stage_sums(const Table<T>& tab, int k, const Pt& P, const T* u, const T* us,
+                           T* ui, T* bias) {
+  const bool with_bias = tab.rows[k] == 2;
+  if (tab.is_u[k] && !with_bias) return;
+  const long n = (long)TF_NVAR * P.Nr;
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = threadIdx.x; l < P.nn; l += blockDim.x) {
+      const long e = (long)v * P.Nr + l;
+      auto value = [&](int j) { return j == 0 ? u[e] : us[(long)(j - 1) * n + e]; };
+      if (!tab.is_u[k])
+        ui[e] = tf::lin_comb(k + 1, tab.coef[k][0], tab.role[k][0], value);
+      if (with_bias)
+        bias[e] = tf::lin_comb(k + 1, tab.coef[k][1], tab.role[k][1], value);
+    }
+}
+
+// The final combination into dst (global, the grid's layout) and the
+// step's err = max|error row| over the member, which every thread of every
+// CTA gets (inf without an error row, and where a term is not finite).
+template <typename T, typename Pt>
+__device__ T finish(const Table<T>& tab, const Pt& P, const T* u, const T* us, T* dst) {
+  __shared__ T s_max[kMaxThreads];
+  __shared__ T s_cta;
+  __shared__ int s_bad, s_cta_bad;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int fin = tab.n_stages;
+  const bool with_err = tab.rows[fin] == 2;
+  const long n = (long)TF_NVAR * P.Nr;
+  T mx = T(0);
+  int bad = 0;
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = tid; l < P.nn; l += nt) {
+      const long e = (long)v * P.Nr + l;
+      auto value = [&](int j) { return j == 0 ? u[e] : us[(long)(j - 1) * n + e]; };
+      dst[(long)v * P.N + P.i0 + l] = tf::lin_comb(fin + 1, tab.coef[fin][0], tab.role[fin][0], value);
+      if (with_err) {
+        const T d = fabs(tf::lin_comb(fin + 1, tab.coef[fin][1], tab.role[fin][1], value));
+        // fmax drops NaN: a non-finite term is flagged on its own
+        if (isfinite(d))
+          mx = fmax(mx, d);
+        else
+          bad = 1;
+      }
+    }
   if (tid == 0) s_bad = 0;
   s_max[tid] = mx;
   __syncthreads();
   if (bad) s_bad = 1;
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
+  for (int off = nt / 2; off > 0; off >>= 1) {
     if (tid < off) s_max[tid] = fmax(s_max[tid], s_max[tid + off]);
+    __syncthreads();
+  }
+  if (P.sp.K > 1) {
+    // the cluster's max and flag from every CTA's (max is exact in any order)
+    if (tid == 0) {
+      s_cta = s_max[0];
+      s_cta_bad = s_bad;
+    }
+    P.sp.sync();
+    if (tid == 0) {
+      cg::cluster_group cluster = cg::this_cluster();
+      T m = s_cta;
+      int b = s_cta_bad;
+      for (int r = 0; r < P.sp.K; ++r) {
+        if (r == P.sp.rank) continue;
+        m = fmax(m, *cluster.map_shared_rank(&s_cta, r));
+        b |= *cluster.map_shared_rank(&s_cta_bad, r);
+      }
+      s_max[0] = m;
+      s_bad = b;
+    }
     __syncthreads();
   }
   const T err = (with_err && !s_bad) ? s_max[0] : Lim<T>::infinity();
@@ -240,89 +428,153 @@ __device__ T run_steps(const T* src, T* out, T* buf0, T* buf1, int nsteps, OneSt
   return err;
 }
 
-// One step of member m's grid from src to dst; every thread gets err (inf
-// without an error row).  All threads of the block must call it.
-template <typename T, bool kMembers>
-__device__ T one_step(const Work<T>& w, const Table<T>& tab, int m, const T* src, T* dst,
-                      T beta, T scale) {
-  __shared__ T s_cap_inv[4 * kS * kS];
-  const int tid = threadIdx.x;
-  const int N = w.N;
-  const long n = (long)TF_NVAR * N;
-  const bool wood = w.wrap && !w.cyclic;
-  const T* hlp = kMembers ? w.hlp + (long)m * TF_NHELP * N : w.hlp;
-  const T* par = kMembers ? w.par + (long)m * TF_NPAR * N : w.par;
-  // this block's scratch (block 0's for one grid: the parameters as they are)
-  const long o = kMembers ? (long)blockIdx.x * w.slab : 0;
-  T *bands = w.bands + o, *fac = w.fac + o, *Dhinv = w.Dhinv + o, *DU = w.DU + o;
-  T *Wsp = w.Wsp + o, *Vsp = w.Vsp + o, *Lred = w.Lred + o, *Ured = w.Ured + o;
-  T *alphas = w.alphas + o, *betas = w.betas + o, *Dinv = w.Dinv + o, *pscr = w.pscr + o;
-  T *Z = w.Z + o, *us = w.us + o, *ui = w.ui + o, *bias = w.bias + o, *rhs = w.rhs + o;
-  T *y = w.y + o, *yred = w.yred + o, *xm1 = w.xm1 + o, *xp1 = w.xp1 + o;
-
-  for (long i = tid; i < N; i += kThreads)
-    tf::stencil_J_node<T>(src, hlp, par, w.x, bands, N, w.periodic, i);
-  __syncthreads();
-  for (int c = tid; c < w.C; c += kThreads)
-    tf::spike_factor_chunk<T, kS>(bands, fac, Dhinv, DU, Wsp, Vsp, Lred, Ured, N, TF_NVAR, kG,
-                                  TF_H, w.Mc, w.C, w.wrap, T(1), beta, c);
-  __syncthreads();
-  tf::pcr_factor_block<T, 2 * kS>(Lred, Ured, alphas, betas, Dinv, pscr, w.C, w.cyclic);
-  __syncthreads();
-  if (wood) {
-    tf::woodbury_block<T, 2 * kS>(alphas, betas, Dinv, Lred, Ured, Z, s_cap_inv, pscr, w.C);
-    __syncthreads();
+// J at this CTA's nodes into its share of the bands, `round` (a float copy,
+// or null) beside them; the state is its share of u and its neighbours'.
+template <typename T, typename R, typename Pt>
+__device__ __forceinline__ void eval_J(const Pt& P, const Grid<T>& g, const T* hlp,
+                                       const T* par, const T* u, T* bands, R* round) {
+  for (long l = threadIdx.x; l < P.nn; l += blockDim.x) {
+    T b[tf::kNJ];
+    tf::stencil_J_vals<T>(reader<T>(P, u), hlp, par, g.x, P.N, g.periodic, P.i0 + l, b);
+#pragma unroll
+    for (int e = 0; e < tf::kNJ; ++e) {
+      bands[(long)e * P.Nr + l] = b[e];
+      if (round) round[(long)e * P.Nr + l] = (R)b[e];
+    }
   }
-
-  for (int k = 0; k < tab.n_stages; ++k) {
-    stage_sums<T>(tab, k, src, us, ui, bias, n);
-    const T* stage_u = tab.is_u[k] ? src : ui;
-    for (long i = tid; i < N; i += kThreads)
-      tf::stencil_F_node<T>(stage_u, hlp, par, w.x, tab.rows[k] == 2 ? bias : nullptr, rhs,
-                            N, w.periodic, scale, i);
-    __syncthreads();
-    for (int c = tid; c < w.C; c += kThreads)
-      tf::thomas_sweep_chunk<T, kS>(fac, Dhinv, DU, rhs, y, yred, N, TF_NVAR, kG, w.Mc, w.C, c);
-    __syncthreads();
-    if (wood)
-      tf::pcr_solve_shift_block<T, 2 * kS, true>(alphas, betas, Dinv, yred, Z, s_cap_inv, xm1,
-                                                 xp1, pscr, w.C, w.wrap);
-    else
-      tf::pcr_solve_shift_block<T, 2 * kS, false>(alphas, betas, Dinv, yred, nullptr, nullptr,
-                                                  xm1, xp1, pscr, w.C, w.wrap);
-    __syncthreads();
-    T* uk = us + (long)k * n;
-    for (long i = tid; i < N; i += kThreads)
-      tf::spike_correct_node<T, kS>(y, Wsp, Vsp, xm1, xp1, nullptr, uk, N, TF_NVAR, kG, w.Mc,
-                                    w.C, i);
-    __syncthreads();
-  }
-  return finish<T>(tab, src, us, dst, n);
 }
 
-template <typename T, bool kMembers>
-__global__ void __launch_bounds__(kThreads, 1)
-    step_kernel(const Work<T> w, const Table<T> tab_in, T beta, T scale, int nsteps) {
+// rhs = scale*F(stage_u) + bias at this CTA's nodes, `round` (a float copy,
+// or null) beside it
+template <typename T, typename R, typename Pt>
+__device__ __forceinline__ void eval_F(const Pt& P, const Grid<T>& g, const T* hlp,
+                                       const T* par, const T* stage_u, const T* bias, T* rhs,
+                                       T scale, R* round) {
+  for (long l = threadIdx.x; l < P.nn; l += blockDim.x) {
+    T f[TF_NVAR];
+    tf::stencil_F_vals<T>(reader<T>(P, stage_u), hlp, par, g.x, P.N, g.periodic, P.i0 + l, f);
+#pragma unroll
+    for (int m = 0; m < TF_NVAR; ++m) {
+      const long e = (long)m * P.Nr + l;
+      const T v = scale * f[m];
+      rhs[e] = bias ? v + bias[e] : v;
+      if (round) round[e] = (R)rhs[e];
+    }
+  }
+}
+
+// The chunked factor of alpha I + beta J from this CTA's share of the
+// bands, the PCR factor of the interface system and, on a Woodbury plan,
+// the closure's set-up (cap_inv this CTA's own); the caller syncs (a block
+// barrier) before the stages.
+template <typename F, typename G, typename Pt>
+__device__ __forceinline__ void factor(const Pt& P, const G& g, const Solver<F>& s,
+                                       const F* bands, F beta, F* cap_inv) {
+  for (int l = threadIdx.x; l < P.sp.nc; l += blockDim.x) {
+    const int c = P.sp.c0 + l;
+    tf::spike_factor_chunk<F, kS>(bands, s.fac, s.Dhinv, s.DU, s.Wsp, s.Vsp, s.Lred, s.Ured, P.Nr,
+                                  TF_NVAR, kG, TF_H, g.Mc, P.sp.Cc, !g.wrap && c == 0,
+                                  !g.wrap && c == g.C - 1, F(1), beta, l);
+  }
+  __syncthreads();
+  tf::pcr_factor_cluster<F, kS2>(s.Lred, s.Ured, s.alphas, s.betas, s.Dinv, s.pscr, P.sp,
+                                 g.cyclic);
+  __syncthreads();
+  if (g.wrap && !g.cyclic) {
+    tf::woodbury_cluster<F, kS2>(s.alphas, s.betas, s.Dinv, s.Lred, s.Ured, s.Z, cap_inv, s.pscr,
+                                 P.sp);
+    __syncthreads();
+  }
+}
+
+// One solve of rhs (this CTA's share) on the factor: the chunk sweep, the
+// reduced solve with shifts over the cluster, and the spike correction
+// into out, each node then handed to post(l); the caller syncs.
+template <typename F, typename G, typename Post, typename Pt>
+__device__ __forceinline__ void solve(const Pt& P, const G& g, const Solver<F>& s, const F* rhs,
+                                      const F* cap_inv, F* out, Post post) {
+  for (int l = threadIdx.x; l < P.sp.nc; l += blockDim.x)
+    tf::thomas_sweep_chunk<F, kS>(s.fac, s.Dhinv, s.DU, rhs, s.y, s.yred, P.Nr, TF_NVAR, kG, g.Mc,
+                                  P.sp.Cc, l);
+  __syncthreads();
+  if (g.wrap && !g.cyclic)
+    tf::pcr_solve_shift_cluster<F, kS2, true>(s.alphas, s.betas, s.Dinv, s.yred, s.Z, cap_inv,
+                                              s.xm1, s.xp1, s.pscr, P.sp, g.wrap);
+  else
+    tf::pcr_solve_shift_cluster<F, kS2, false>(s.alphas, s.betas, s.Dinv, s.yred, nullptr,
+                                               nullptr, s.xm1, s.xp1, s.pscr, P.sp, g.wrap);
+  __syncthreads();
+  for (long l = threadIdx.x; l < P.nn; l += blockDim.x) {
+    tf::spike_correct_node<F, kS>(s.y, s.Wsp, s.Vsp, s.xm1, s.xp1, nullptr, out, P.Nr, TF_NVAR,
+                                  kG, g.Mc, P.sp.Cc, l);
+    post(l);
+  }
+}
+
+// One step of member m's grid from src to dst (global); every thread gets
+// err (inf without an error row).  All threads of the cluster must call it.
+template <typename T, bool kMembers, typename Pt>
+__device__ T one_step(const Work<T>& w, const Table<T>& tab, const Pt& P, const Stage<T>& st,
+                      const Solver<T>& s, int m, const T* src, T* dst, T beta, T scale) {
+  __shared__ T s_cap_inv[kS2 * kS2];
+  const T* hlp = kMembers ? w.hlp + (long)m * TF_NHELP * w.N : w.hlp;
+  const T* par = kMembers ? w.par + (long)m * TF_NPAR * w.N : w.par;
+  T* none = nullptr;
+
+  load_state<T>(P, src, st.u);
+  P.sp.sync();
+  eval_J<T>(P, w, hlp, par, st.u, st.bands, none);
+  __syncthreads();
+  factor<T>(P, w, s, st.bands, beta, s_cap_inv);
+
+  const long n = (long)TF_NVAR * P.Nr;
+  for (int k = 0; k < tab.n_stages; ++k) {
+    stage_sums<T>(tab, k, P, st.u, st.us, st.ui, st.bias);
+    // F reads the neighbours' stage input
+    if (!tab.is_u[k])
+      P.sp.sync();
+    else
+      __syncthreads();
+    eval_F<T>(P, w, hlp, par, tab.is_u[k] ? st.u : st.ui, tab.rows[k] == 2 ? st.bias : nullptr,
+              st.rhs, scale, none);
+    __syncthreads();
+    solve<T>(P, w, s, st.rhs, s_cap_inv, st.us + (long)k * n, [](long) {});
+    __syncthreads();
+  }
+  return finish<T>(tab, P, st.u, st.us, dst);
+}
+
+template <typename T, bool kMembers, bool kOne>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    step_kernel(const Work<T> w, const Layout L, const Table<T> tab_in, T beta, T scale,
+                int nsteps) {
   __shared__ Table<T> tab;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
+  const Part<kOne> P = part_of<kOne>(w, L);
+  const Stage<T> st = stage_of<kOne, T>(L, smem, gl);
+  const Solver<T> s = solver_of<kOne, T>(L, smem, gl);
   if (threadIdx.x == 0) tab = tab_in;
   __syncthreads();
   const long n = (long)TF_NVAR * w.N;
-  for (int m = kMembers ? (int)blockIdx.x : 0; m < (kMembers ? w.B : 1);
-       m += kMembers ? gridDim.x : 1) {
+  const int cid = blockIdx.x / L.K, ncl = gridDim.x / L.K;
+  for (int m = kMembers ? cid : 0; m < (kMembers ? w.B : 1); m += kMembers ? ncl : 1) {
     const long at = kMembers ? m * n : 0;
     const T bm = w.beta_b ? w.beta_b[m] : beta;
     const T sm = w.scale_b ? w.scale_b[m] : scale;
     const T err = run_steps<T>(w.u0 + at, w.out + at, w.buf0 + at, w.buf1 + at, nsteps,
                                [&](const T* src, T* dst) {
-                                 return one_step<T, kMembers>(w, tab, m, src, dst, bm, sm);
+                                 return one_step<T, kMembers>(w, tab, P, st, s, m, src, dst, bm,
+                                                              sm);
                                });
-    if (threadIdx.x == 0) w.info[(long)m * kInfo] = (double)err;
+    if (threadIdx.x == 0 && P.sp.rank == 0) w.info[(long)m * kInfo] = (double)err;
   }
+  P.end();
 }
 
-// All blocks of a cooperative launch meet here (the kernel's thread 0 of
-// every block arrives; the last arrival resets the count and bumps the
-// generation the others spin on).
+// All CTAs of a grid that is resident at once meet here (the kernel's
+// thread 0 of every CTA arrives; the last arrival resets the count and
+// bumps the generation the others spin on).
 __device__ __forceinline__ void grid_sync(unsigned* sync) {
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -343,13 +595,19 @@ __device__ __forceinline__ void grid_sync(unsigned* sync) {
 
 // One adaptive output step of one grid (the entry ROW_general._adaptive
 // launches, with no member axis): the controller's state in shared memory,
-// the accepted and trial states switched by pointer.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    adaptive_kernel(const Work<T> w, const Table<T> tab_in, const Ctl<T> ctl) {
+// the same in every CTA, the accepted and trial states switched by
+// pointer.
+template <typename T, bool kOne>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    adaptive_kernel(const Work<T> w, const Layout L, const Table<T> tab_in, const Ctl<T> ctl) {
   __shared__ Table<T> tab;
   __shared__ T s_t, s_next_t, s_eps, s_floor, s_dt_i, s_dt_eff;
   __shared__ int s_go, s_accept, s_clamped, s_niter, s_status;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
+  const Part<kOne> P = part_of<kOne>(w, L);
+  const Stage<T> st = stage_of<kOne, T>(L, smem, gl);
+  const Solver<T> s = solver_of<kOne, T>(L, smem, gl);
   const int tid = threadIdx.x;
   const T tiny = Lim<T>::min();
   if (tid == 0) {
@@ -380,7 +638,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     const T dt_eff = s_dt_eff;
     const T gdt = mul_rn(tab.g00, dt_eff);
-    err = one_step<T, false>(w, tab, 0, cur, trial, -gdt, gdt);
+    err = one_step<T, false>(w, tab, P, st, s, 0, cur, trial, -gdt, gdt);
     if (tid == 0) {
       const bool accept = err <= ctl.tol;
       T dt_next = mul_rn(mul_rn(ctl.safety, dt_eff), sqrt(div_rn(ctl.tol, fmax(err, tiny))));
@@ -399,38 +657,49 @@ __global__ void __launch_bounds__(kThreads, 1)
       trial = trial == w.buf0 ? w.buf1 : w.buf0;
     }
   }
-  const long n = (long)TF_NVAR * w.N;
-  for (long e = tid; e < n; e += kThreads) w.out[e] = cur[e];
-  if (tid == 0) {
+  // this CTA's nodes of the accepted state (it wrote them itself)
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = tid; l < P.nn; l += blockDim.x) {
+      const long e = (long)v * w.N + P.i0 + l;
+      w.out[e] = cur[e];
+    }
+  if (tid == 0 && P.sp.rank == 0) {
     w.info[0] = (double)err;
     w.info[1] = (double)s_dt_i;
     w.info[2] = (double)s_niter;
     w.info[3] = (double)s_status;
     w.info[4] = 1.0;
   }
+  P.end();
 }
 
 // nsteps adaptive output steps of an ensemble.  shared: one clock and dt
-// for every member, err the max over all members (blocks agree through
-// grid_sync); otherwise each member of the block runs its own clock, dt
+// for every member, err the max over all members (clusters agree through
+// grid_sync); otherwise each member of the cluster runs its own clock, dt
 // and attempts.
 // The mode is a runtime flag: a template parameter doubled the kernel's
 // code and the s = 4 library's build time (96 s against 47 s on H100).
 // The controller's state lives in shared memory, written by thread 0:
 // across a member's step (one_step, the kernel's register peak) only the
-// member index and the block's err maximum stay in registers.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    scan_kernel(const Work<T> w, const Table<T> tab_in, const Ctl<T> ctl, int nsteps,
-                int shared) {
+// member index and the CTA's err maximum stay in registers.
+template <typename T, bool kOne>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    scan_kernel(const Work<T> w, const Layout L, const Table<T> tab_in, const Ctl<T> ctl,
+                int nsteps, int shared) {
   __shared__ Table<T> tab;
   __shared__ T s_tout, s_t, s_next_t, s_eps, s_floor, s_dt_i, s_dt_eff, s_err;
   __shared__ int s_go, s_clamped, s_niter, s_total, s_status, s_done, s_cur, s_par;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
+  const Part<kOne> P = part_of<kOne>(w, L);
+  const Stage<T> st = stage_of<kOne, T>(L, smem, gl);
+  const Solver<T> s = solver_of<kOne, T>(L, smem, gl);
   const int tid = threadIdx.x;
+  const int cid = blockIdx.x / L.K, ncl = gridDim.x / L.K;
   if (tid == 0) tab = tab_in;
-  // shared: one pass of the controller for all of the block's members
-  // (blocks k, k + nblk, ...); otherwise one pass per member
-  for (int mm = blockIdx.x; mm < w.B; mm += shared ? w.B : gridDim.x) {
+  // shared: one pass of the controller for all of the cluster's members
+  // (clusters k, k + ncl, ...); otherwise one pass per member
+  for (int mm = cid; mm < w.B; mm += shared ? w.B : ncl) {
     if (tid == 0) {
       s_tout = ctl.t;
       s_dt_i = shared ? ctl.internal_dt : w.idt_b[mm];
@@ -466,14 +735,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         __syncthreads();
         T bmax = T(0);
-        for (int m = shared ? (int)blockIdx.x : mm; m < w.B; m += shared ? gridDim.x : w.B) {
+        for (int m = shared ? cid : mm; m < w.B; m += shared ? ncl : w.B) {
           const long at = (long)m * TF_NVAR * w.N;
           const T* src = s_cur == 0 ? w.u0 + at : (s_cur == 1 ? w.buf0 : w.buf1) + at;
           T* dst = (s_cur == 1 ? w.buf1 : w.buf0) + at;
           const T gdt = mul_rn(tab.g00, s_dt_eff);
-          bmax = fmax(bmax, one_step<T, true>(w, tab, m, src, dst, -gdt, gdt));
+          bmax = fmax(bmax, one_step<T, true>(w, tab, P, st, s, m, src, dst, -gdt, gdt));
         }
-        if (shared && gridDim.x > 1) {
+        if (shared && ncl > 1) {
           if (tid == 0) w.errs[s_par * gridDim.x + blockIdx.x] = bmax;
           grid_sync(w.sync);
           if (tid == 0) {
@@ -511,11 +780,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();
     }
-    for (int m = shared ? (int)blockIdx.x : mm; m < w.B; m += shared ? gridDim.x : w.B) {
+    for (int m = shared ? cid : mm; m < w.B; m += shared ? ncl : w.B) {
       const long at = (long)m * TF_NVAR * w.N;
       const T* src = s_cur == 0 ? w.u0 + at : (s_cur == 1 ? w.buf0 : w.buf1) + at;
-      for (long e = tid; e < (long)TF_NVAR * w.N; e += kThreads) w.out[at + e] = src[e];
-      if (tid == 0 && (!shared || m == 0)) {
+      for (int v = 0; v < TF_NVAR; ++v)
+        for (long l = tid; l < P.nn; l += blockDim.x) {
+          const long e = (long)v * w.N + P.i0 + l;
+          w.out[at + e] = src[e];
+        }
+      if (tid == 0 && P.sp.rank == 0 && (!shared || m == 0)) {
         double* info = w.info + (long)m * kInfo;
         info[0] = (double)s_err;
         info[1] = (double)s_dt_i;
@@ -526,186 +799,180 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
   }
+  P.end();
 }
 
 #if TF_MIXED
 // ---- K6's mixed entry (a df64 model's mixed library only) ----
 static_assert(!TF_F32, "the mixed entry steps a float64 state");
 
-// The mixed entry's scratch (one grid): the double slab (bands, stage
-// solutions, stage input, bias, right-hand side, the states between steps)
-// and the float slab (the rounded bands, the factor, the interface
-// operators, the solve's vectors).
-struct MixedWork : Grid<double> {
-  double *bands, *us, *ui, *bias, *rhs, *buf0, *buf1;
-  float *bands32, *fac, *Dhinv, *DU, *Wsp, *Vsp, *Lred, *Ured, *alphas, *betas, *Dinv, *pscr,
-      *Z, *r32, *y, *yred, *xm1, *xp1, *d32;
-  int passes;
-};
+// K8's residual body at this CTA's node l, variable m: matvec.cuh's band
+// walk sum_k sum_q A[k, m, q, i] * v[q, i + k - h] in (k, q) order, A this
+// CTA's share of the double bands, v the stage solution wherever its
+// owner keeps it
+template <typename Pt>
+__device__ __forceinline__ double band_row_at(const Pt& P, int periodic, const double* A,
+                                              const double* v, long l, int m) {
+  constexpr int h = tf::kW / 2;
+  const long i = P.i0 + l, N = P.N, n = (long)TF_NVAR * P.Nr;
+  double acc = 0.0;
+  for (int k = 0; k < tf::kW; ++k) {
+    long j = i + k - h;
+    if (j < 0 || j >= N) {
+      if (!periodic) continue;
+      j = ((j % N) + N) % N;
+    }
+    const double* Akm = A + (long)(k * TF_NVAR + m) * n;
+    const double* vj = P.node(v, j);
+    for (int q = 0; q < TF_NVAR; ++q) acc += Akm[(long)q * P.Nr + l] * vj[(long)q * P.Nr];
+  }
+  return acc;
+}
 
 // One mixed-precision step of the grid from src to dst; every thread gets
-// err (inf without an error row).  All threads of the block must call it.
-__device__ double one_step_mixed(const MixedWork& w, const Table<double>& tab,
-                                 const double* src, double* dst, double beta, double scale) {
-  __shared__ float s_cap_inv[4 * kS * kS];
-  const int tid = threadIdx.x;
-  const int N = w.N;
-  const long n = (long)TF_NVAR * N;
-  const bool wood = w.wrap && !w.cyclic;
+// err (inf without an error row).  All threads of the cluster must call
+// it.
+template <typename Pt>
+__device__ double one_step_mixed(const Grid<double>& w, const Table<double>& tab, const Pt& P,
+                                 const Stage<double>& st, const Solver<float>& s, float* bands32,
+                                 float* r32, float* d32, int passes, const double* src,
+                                 double* dst, double beta, double scale) {
+  __shared__ float s_cap_inv[kS2 * kS2];
   // the residual's coefficient: the system is I + beta J = I - coef J
   const double coef = -beta;
+  const long n = (long)TF_NVAR * P.Nr;
 
   // J in double, and the bands the float factor takes: each thread rounds
-  // the entries of its own nodes, which it has just written
-  for (long i = tid; i < N; i += kThreads) {
-    tf::stencil_J_node<double>(src, w.hlp, w.par, w.x, w.bands, N, w.periodic, i);
-    for (int e = 0; e < tf::kNJ; ++e) w.bands32[e * N + i] = (float)w.bands[e * N + i];
-  }
+  // the entries of its own nodes
+  load_state<double>(P, src, st.u);
+  P.sp.sync();
+  eval_J<double>(P, w, w.hlp, w.par, st.u, st.bands, bands32);
   __syncthreads();
-  for (int c = tid; c < w.C; c += kThreads)
-    tf::spike_factor_chunk<float, kS>(w.bands32, w.fac, w.Dhinv, w.DU, w.Wsp, w.Vsp, w.Lred,
-                                      w.Ured, N, TF_NVAR, kG, TF_H, w.Mc, w.C, w.wrap, 1.0f,
-                                      (float)beta, c);
-  __syncthreads();
-  tf::pcr_factor_block<float, 2 * kS>(w.Lred, w.Ured, w.alphas, w.betas, w.Dinv, w.pscr, w.C,
-                                      w.cyclic);
-  __syncthreads();
-  if (wood) {
-    tf::woodbury_block<float, 2 * kS>(w.alphas, w.betas, w.Dinv, w.Lred, w.Ured, w.Z, s_cap_inv,
-                                      w.pscr, w.C);
-    __syncthreads();
-  }
+  factor<float>(P, w, s, bands32, (float)beta, s_cap_inv);
 
   for (int k = 0; k < tab.n_stages; ++k) {
-    stage_sums<double>(tab, k, src, w.us, w.ui, w.bias, n);
-    const double* stage_u = tab.is_u[k] ? src : w.ui;
-    double* uk = w.us + (long)k * n;
+    stage_sums<double>(tab, k, P, st.u, st.us, st.ui, st.bias);
+    if (!tab.is_u[k])
+      P.sp.sync();
+    else
+      __syncthreads();
+    double* uk = st.us + (long)k * n;
     // rhs = scale F + bias in double; the first solve takes its rounding
-    for (long i = tid; i < N; i += kThreads) {
-      tf::stencil_F_node<double>(stage_u, w.hlp, w.par, w.x, tab.rows[k] == 2 ? w.bias : nullptr,
-                                 w.rhs, N, w.periodic, scale, i);
-      for (int m = 0; m < TF_NVAR; ++m) w.r32[m * N + i] = (float)w.rhs[m * N + i];
-    }
+    eval_F<double>(P, w, w.hlp, w.par, tab.is_u[k] ? st.u : st.ui,
+                   tab.rows[k] == 2 ? st.bias : nullptr, st.rhs, scale, r32);
     __syncthreads();
-    for (int pass = 0; pass <= w.passes; ++pass) {
+    for (int pass = 0; pass <= passes; ++pass) {
       if (pass > 0) {
         // K8's residual body: float((rhs - k) + coef * J k) against the
-        // double bands
-        for (long i = tid; i < N; i += kThreads)
+        // double bands, k read at the neighbours' nodes too
+        P.sp.sync();
+        for (long l = threadIdx.x; l < P.nn; l += blockDim.x)
           for (int m = 0; m < TF_NVAR; ++m) {
-            const long e = (long)m * N + i;
-            const double Jk = tf::band_row(w.bands, uk, tf::kW, TF_NVAR, N, w.periodic, i, m);
-            w.r32[e] = (float)((w.rhs[e] - uk[e]) + coef * Jk);
+            const long e = (long)m * P.Nr + l;
+            const double Jk = band_row_at(P, w.periodic, st.bands, uk, l, m);
+            r32[e] = (float)((st.rhs[e] - uk[e]) + coef * Jk);
           }
         __syncthreads();
       }
-      for (int c = tid; c < w.C; c += kThreads)
-        tf::thomas_sweep_chunk<float, kS>(w.fac, w.Dhinv, w.DU, w.r32, w.y, w.yred, N, TF_NVAR,
-                                          kG, w.Mc, w.C, c);
-      __syncthreads();
-      if (wood)
-        tf::pcr_solve_shift_block<float, 2 * kS, true>(w.alphas, w.betas, w.Dinv, w.yred, w.Z,
-                                                       s_cap_inv, w.xm1, w.xp1, w.pscr, w.C,
-                                                       w.wrap);
-      else
-        tf::pcr_solve_shift_block<float, 2 * kS, false>(w.alphas, w.betas, w.Dinv, w.yred,
-                                                        nullptr, nullptr, w.xm1, w.xp1, w.pscr,
-                                                        w.C, w.wrap);
-      __syncthreads();
       // the float correction, widened into the stage's double solution by
       // the thread that wrote it
-      for (long i = tid; i < N; i += kThreads) {
-        tf::spike_correct_node<float, kS>(w.y, w.Wsp, w.Vsp, w.xm1, w.xp1, nullptr, w.d32, N,
-                                          TF_NVAR, kG, w.Mc, w.C, i);
+      solve<float>(P, w, s, r32, s_cap_inv, d32, [&](long l) {
         for (int m = 0; m < TF_NVAR; ++m) {
-          const long e = (long)m * N + i;
-          uk[e] = pass == 0 ? (double)w.d32[e] : uk[e] + (double)w.d32[e];
+          const long e = (long)m * P.Nr + l;
+          uk[e] = pass == 0 ? (double)d32[e] : uk[e] + (double)d32[e];
         }
-      }
+      });
       __syncthreads();
     }
   }
-  return finish<double>(tab, src, w.us, dst, n);
+  return finish<double>(tab, P, st.u, st.us, dst);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    step_mixed_kernel(const MixedWork w, const Table<double> tab_in, double beta, double scale,
-                      int nsteps) {
+template <bool kOne>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    step_mixed_kernel(const Grid<double> w, const Layout L, const Table<double> tab_in,
+                      double beta, double scale, int passes, int nsteps) {
   __shared__ Table<double> tab;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
+  const Part<kOne> P = part_of<kOne>(w, L);
+  const Stage<double> st = stage_of<kOne, double>(L, smem, gl);
+  const Solver<float> s = solver_of<kOne, float>(L, smem, gl);
+  float* bands32 = share_of<kOne, float>(L, smem, gl, bBands32);
+  float* r32 = share_of<kOne, float>(L, smem, gl, bR32);
+  float* d32 = share_of<kOne, float>(L, smem, gl, bD32);
   if (threadIdx.x == 0) tab = tab_in;
   __syncthreads();
   const double err = run_steps<double>(w.u0, w.out, w.buf0, w.buf1, nsteps,
                                        [&](const double* src, double* dst) {
-                                         return one_step_mixed(w, tab, src, dst, beta, scale);
+                                         return one_step_mixed(w, tab, P, st, s, bands32, r32,
+                                                               d32, passes, src, dst, beta,
+                                                               scale);
                                        });
-  if (threadIdx.x == 0) w.info[0] = err;
+  if (threadIdx.x == 0 && P.sp.rank == 0) w.info[0] = err;
+  P.end();
 }
 #endif
 
-// ptrs (kPtrs device addresses, in the order of Work: block 0's scratch),
-// ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter (-1:
-// none), has_dt_min, B, nblk, slab, then the rows of the kCombos
-// combinations) and reals (beta, scale, g00, t, dt, internal_dt, tol,
-// safety, dt_min, then the kCombos x 2 x kCols coefficients
-// [combination][row][column]) live in host memory and are read before the
-// launch returns.
-constexpr int kInts = 13;
+// ---- host side ----
+
+// ptrs (device addresses: u0, hlp, par, x, info, out, gwork, buf0, buf1,
+// then for the step and adaptive entries beta_b, scale_b, idt_b, sync,
+// errs), ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter
+// (-1: none), has_dt_min, B, ncl (clusters launched), then the cluster
+// plan's K, threads, Cc, Nr, smem, gslab, then the rows of the kCombos
+// combinations, then kBufs homes and kBufs byte offsets) and reals (beta,
+// scale, g00, t, dt, internal_dt, tol, safety, dt_min, then the kCombos x 2
+// x kCols coefficients [combination][row][column]) live in host memory and
+// are read before the launch returns.
+constexpr int kInts = 18;
 constexpr int kReals = 9;
 
+// The plan's integers, the cluster plan and the table: 0 or a CUDA error.
 template <typename T>
-int fill_table(const void* ints, const void* reals, Table<T>& tab);
-
-// The operands (the first six addresses, in the order of Grid), the plan's
-// integers and the table: 0 or a CUDA error.
-template <typename T>
-int fill_grid(const void* ptrs, const void* ints, const void* reals, Grid<T>& g,
+int fill_grid(const void* ptrs, const void* ints, const void* reals, Grid<T>& g, Layout& L,
               Table<T>& tab) {
   const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
+  const double* rv = static_cast<const double*>(reals);
   g.u0 = reinterpret_cast<const T*>(p[0]);
   g.hlp = reinterpret_cast<const T*>(p[1]);
   g.par = reinterpret_cast<const T*>(p[2]);
   g.x = reinterpret_cast<const T*>(p[3]);
   g.info = reinterpret_cast<double*>(p[4]);
   g.out = reinterpret_cast<T*>(p[5]);
-  g.N = iv[0];
-  g.Mc = iv[1];
-  g.C = iv[2];
-  g.cyclic = iv[3];
-  g.wrap = iv[4];
-  g.periodic = iv[5];
-  return fill_table<T>(ints, reals, tab);
-}
-
-template <typename T>
-int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Table<T>& tab) {
-  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
-  const int* iv = static_cast<const int*>(ints);
-  w.beta_b = reinterpret_cast<const T*>(p[6]);
-  w.scale_b = reinterpret_cast<const T*>(p[7]);
-  w.idt_b = reinterpret_cast<const T*>(p[8]);
-  w.sync = reinterpret_cast<unsigned*>(p[9]);
-  w.errs = reinterpret_cast<T*>(p[10]);
-  T** slots[] = {&w.bands, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
-                 &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.us,
-                 &w.ui, &w.bias, &w.rhs, &w.y, &w.yred, &w.xm1, &w.xp1, &w.buf0, &w.buf1};
-  for (int k = 0; k < kPtrs - 11; ++k) *slots[k] = reinterpret_cast<T*>(p[11 + k]);
-  w.B = iv[10];
-  w.slab = iv[12];
-  if (w.B < 1 || iv[11] < 1 || iv[11] > w.B) return static_cast<int>(cudaErrorInvalidValue);
-  return fill_grid<T>(ptrs, ints, reals, w, tab);
-}
-
-// The plan's integers and the table, as fill_grid reads them: 0 or a CUDA
-// error.
-template <typename T>
-int fill_table(const void* ints, const void* reals, Table<T>& tab) {
-  const int* iv = static_cast<const int*>(ints);
-  const double* rv = static_cast<const double*>(reals);
+  g.gwork = reinterpret_cast<unsigned char*>(p[6]);
+  g.buf0 = reinterpret_cast<T*>(p[7]);
+  g.buf1 = reinterpret_cast<T*>(p[8]);
   const int N = iv[0], Mc = iv[1], C = iv[2], cyclic = iv[3], wrap = iv[4];
+  g.N = N;
+  g.Mc = Mc;
+  g.C = C;
+  g.cyclic = cyclic;
+  g.wrap = wrap;
+  g.periodic = iv[5];
   tab.n_stages = iv[6];
   if (N < 1 || Mc < 1 || C < 1 || (long)Mc * C * kG != N || tab.n_stages < 1 ||
       tab.n_stages > kMaxStages || (cyclic && !wrap) || (wrap && !cyclic && C < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  L.K = iv[12];
+  L.threads = iv[13];
+  L.Cc = iv[14];
+  L.Nr = iv[15];
+  L.smem = iv[16];
+  L.gslab = iv[17];
+  for (int b = 0; b < kBufs; ++b) {
+    L.home[b] = (unsigned char)iv[kInts + kCombos + b];
+    L.off[b] = iv[kInts + kCombos + kBufs + b];
+    if (L.home[b] > 1 || L.off[b] < 0 || L.off[b] % 16) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // K CTAs of Cc chunks each, every one holding at least one; a power of
+  // two of threads (the err reduction) of at least 2 S2^2 (the
+  // capacitance's Gauss-Jordan)
+  if (L.K < 1 || L.K > kMaxCluster || (L.K & (L.K - 1)) || L.Cc < 1 || (long)L.K * L.Cc < C ||
+      (long)(L.K - 1) * L.Cc >= C || L.Nr != L.Cc * Mc * kG || L.threads < 2 * kS2 * kS2 ||
+      L.threads < 32 || L.threads > kMaxThreads || (L.threads & (L.threads - 1)) || L.smem < 0 ||
+      L.smem > kSmemPerCta || L.gslab < 0 || (L.gslab % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kCombos; ++k) {
     tab.rows[k] = (unsigned char)iv[kInts + k];
@@ -727,55 +994,176 @@ int fill_table(const void* ints, const void* reals, Table<T>& tab) {
   return 0;
 }
 
-// Blocks of each kernel the card holds at once (its SMs times the blocks
-// per SM): kind 0 step, 1 and 2 adaptive (a shared dt, per member);
-// negative: a CUDA error.
 template <typename T>
-int capacity(int kind) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) {
-    if (kind == 0)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<T, true>,
-                                                        kThreads, 0);
-    else
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<T>, kThreads, 0);
+int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Layout& L,
+         Table<T>& tab) {
+  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
+  const int* iv = static_cast<const int*>(ints);
+  w.beta_b = reinterpret_cast<const T*>(p[9]);
+  w.scale_b = reinterpret_cast<const T*>(p[10]);
+  w.idt_b = reinterpret_cast<const T*>(p[11]);
+  w.sync = reinterpret_cast<unsigned*>(p[12]);
+  w.errs = reinterpret_cast<T*>(p[13]);
+  w.B = iv[10];
+  if (w.B < 1 || iv[11] < 1 || iv[11] > w.B) return static_cast<int>(cudaErrorInvalidValue);
+  return fill_grid<T>(ptrs, ints, reals, w, L, tab);
+}
+
+// The kernel with id kId (a static record per kernel, per device): the
+// shared memory opted in only ever grows (a smaller setting would refuse a
+// larger plan launched before), and clusters of 16 are allowed once.
+template <int kId, typename Kern>
+cudaError_t opt_in(Kern fn, int smem, int K) {
+  static int set[2][kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kMaxDevices) return err ? err : cudaErrorInvalidDevice;
+  if (smem > set[0][dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) set[0][dev] = smem;
   }
-  return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
+  if (err == cudaSuccess && K > 8 && !set[1][dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) set[1][dev] = 1;
+  }
+  return err;
+}
+
+cudaLaunchConfig_t config_of(cudaLaunchAttribute* attr, int ncl, const Layout& L, bool coop,
+                             cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ncl * L.K);
+  cfg.blockDim = dim3(L.threads);
+  cfg.dynamicSmemBytes = (size_t)L.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 0;
+  if (L.K > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = L.K;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.numAttrs = 1;
+  } else if (coop) {
+    // every CTA resident for the grid barrier: the cooperative launch
+    // refuses a grid the card cannot hold at once
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// ncl clusters of the kernel kId: 0 or a CUDA error
+template <int kId, typename... Exp, typename... Act>
+int launch(void (*fn)(Exp...), int ncl, const Layout& L, bool coop, cudaStream_t stream,
+           Act&&... args) {
+  cudaError_t err = opt_in<kId>(fn, L.smem, L.K);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config_of(attr, ncl, L, coop, stream);
+  err = cudaLaunchKernelEx(&cfg, fn, static_cast<Act&&>(args)...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum KernelId { kStepMembers = 0, kStepOne = 2, kAdaptive = 4, kScan = 6, kMixed = 8 };
+
+// A layout of one CTA with every buffer in shared memory: the kernels'
+// kOne instantiation (built at s <= 2 only: at s = 4 the body spills
+// either way, and a second instantiation doubled the library's build)
+constexpr bool kOneBody = kS <= 2;
+
+bool one_cta(const Layout& L) {
+  if (!kOneBody || L.K != 1) return false;
+  for (int b = 0; b < kBufs; ++b)
+    if (L.home[b]) return false;
+  return true;
+}
+
+// Clusters of the kernel kId the card holds at once for the layout;
+// negative: a CUDA error
+template <int kId, typename... Exp>
+int clusters_of(void (*fn)(Exp...), const Layout& L) {
+  cudaError_t err = opt_in<kId>(fn, L.smem, L.K);
+  int dev = 0, n = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && L.K == 1) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, L.threads, L.smem);
+    n = per_sm * sms;
+  } else if (err == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config_of(attr, 1, L, false, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// kind 0 step, 1 and 2 adaptive (a shared dt, per member), at the cluster
+// plan (K, threads, smem; one: every buffer in shared memory)
+template <typename T>
+int capacity(int kind, int K, int threads, int smem, int one) {
+  Layout L = {};
+  L.K = K;
+  L.threads = threads;
+  L.smem = smem;
+  if (K < 1 || K > kMaxCluster || threads < 32 || threads > kMaxThreads || smem < 0 ||
+      smem > kSmemPerCta || (one && K != 1))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kOneBody) {
+    if (one)
+      return kind == 0 ? clusters_of<kStepMembers + 1>(step_kernel<T, true, true>, L)
+                       : clusters_of<kScan + 1>(scan_kernel<T, true>, L);
+  } else if (one) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  return kind == 0 ? clusters_of<kStepMembers>(step_kernel<T, true, false>, L)
+                   : clusters_of<kScan>(scan_kernel<T, false>, L);
 }
 
 template <typename T>
 int step(const void* ptrs, const void* ints, const void* reals, void* stream) {
   Work<T> w = {};
+  Layout L = {};
   Table<T> tab = {};
-  const int rc = fill<T>(ptrs, ints, reals, w, tab);
+  const int rc = fill<T>(ptrs, ints, reals, w, L, tab);
   if (rc) return rc;
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
   const int nsteps = iv[7];
   if (nsteps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w.B > 1)
-    step_kernel<T, true><<<iv[11], kThreads, 0, s>>>(w, tab, T(rv[0]), T(rv[1]), nsteps);
-  else
-    step_kernel<T, false><<<1, kThreads, 0, s>>>(w, tab, T(rv[0]), T(rv[1]), nsteps);
-  return static_cast<int>(cudaGetLastError());
+  const T beta = T(rv[0]), scale = T(rv[1]);
+  if constexpr (kOneBody) {
+    if (one_cta(L))
+      return w.B > 1 ? launch<kStepMembers + 1>(step_kernel<T, true, true>, iv[11], L, false, s,
+                                                w, L, tab, beta, scale, nsteps)
+                     : launch<kStepOne + 1>(step_kernel<T, false, true>, 1, L, false, s, w, L,
+                                            tab, beta, scale, nsteps);
+  }
+  return w.B > 1 ? launch<kStepMembers>(step_kernel<T, true, false>, iv[11], L, false, s, w, L,
+                                        tab, beta, scale, nsteps)
+                 : launch<kStepOne>(step_kernel<T, false, false>, 1, L, false, s, w, L, tab,
+                                    beta, scale, nsteps);
 }
 
 template <typename T>
 int adaptive(const void* ptrs, const void* ints, const void* reals, int per_member, int scan,
              void* stream) {
   Work<T> w = {};
+  Layout L = {};
   Table<T> tab = {};
-  const int rc = fill<T>(ptrs, ints, reals, w, tab);
+  const int rc = fill<T>(ptrs, ints, reals, w, L, tab);
   if (rc) return rc;
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
   int nsteps = iv[7];
-  const int nblk = iv[11];
+  const int ncl = iv[11];
   if (tab.rows[tab.n_stages] != 2 || nsteps < 1 || (per_member && !w.idt_b) ||
-      (!per_member && nblk > 1 && (!w.sync || !w.errs)) ||
+      (!per_member && ncl > 1 && (!w.sync || !w.errs)) ||
       (!scan && (per_member || w.B != 1 || nsteps != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Ctl<T> ctl;
@@ -788,45 +1176,45 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   ctl.max_iter = iv[8];
   ctl.has_dt_min = iv[9];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int shared = !per_member;
-  if (!scan) {
-    adaptive_kernel<T><<<1, kThreads, 0, s>>>(w, tab, ctl);
-  } else if (!shared || nblk == 1) {
-    scan_kernel<T><<<nblk, kThreads, 0, s>>>(w, tab, ctl, nsteps, shared);
-  } else {
-    // every block must be resident for the grid barrier: the cooperative
-    // launch refuses a grid the card cannot hold at once
-    void* args[] = {&w, &tab, &ctl, &nsteps, &shared};
-    return static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(scan_kernel<T>), dim3(nblk), dim3(kThreads), args, 0, s));
+  const int shared = !per_member;
+  // a shared dt over several clusters meets at grid_sync: cooperative
+  // where the clusters are single CTAs, else no more clusters than
+  // cudaOccupancyMaxActiveClusters holds at once (the caller's ncl)
+  const bool coop = shared && ncl > 1;
+  if constexpr (kOneBody) {
+    if (one_cta(L))
+      return scan ? launch<kScan + 1>(scan_kernel<T, true>, ncl, L, coop, s, w, L, tab, ctl,
+                                      nsteps, shared)
+                  : launch<kAdaptive + 1>(adaptive_kernel<T, true>, 1, L, false, s, w, L, tab,
+                                          ctl);
   }
-  return static_cast<int>(cudaGetLastError());
+  return scan ? launch<kScan>(scan_kernel<T, false>, ncl, L, coop, s, w, L, tab, ctl, nsteps,
+                              shared)
+              : launch<kAdaptive>(adaptive_kernel<T, false>, 1, L, false, s, w, L, tab, ctl);
 }
 
 #if TF_MIXED
-// ptrs (6 + 7 + 19 device addresses, in the order of MixedWork), ints and
-// reals as the step entry's (B = 1); passes >= 0 residual passes.
+// ptrs (the first nine of the step entry's), ints and reals as the step
+// entry's (B = 1); passes >= 0 residual passes.
 int step_mixed(const void* ptrs, const void* ints, const void* reals, int passes,
                void* stream) {
-  MixedWork w = {};
+  Grid<double> w = {};
+  Layout L = {};
   Table<double> tab = {};
-  const int rc = fill_grid<double>(ptrs, ints, reals, w, tab);
+  const int rc = fill_grid<double>(ptrs, ints, reals, w, L, tab);
   if (rc) return rc;
-  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
   const int* iv = static_cast<const int*>(ints);
   const double* rv = static_cast<const double*>(reals);
-  double** dslots[] = {&w.bands, &w.us, &w.ui, &w.bias, &w.rhs, &w.buf0, &w.buf1};
-  for (int k = 0; k < 7; ++k) *dslots[k] = reinterpret_cast<double*>(p[6 + k]);
-  float** fslots[] = {&w.bands32, &w.fac, &w.Dhinv, &w.DU, &w.Wsp, &w.Vsp, &w.Lred,
-                      &w.Ured, &w.alphas, &w.betas, &w.Dinv, &w.pscr, &w.Z, &w.r32,
-                      &w.y, &w.yred, &w.xm1, &w.xp1, &w.d32};
-  for (int k = 0; k < 19; ++k) *fslots[k] = reinterpret_cast<float*>(p[13 + k]);
-  w.passes = passes;
   const int nsteps = iv[7];
   if (nsteps < 1 || passes < 0 || iv[10] != 1) return static_cast<int>(cudaErrorInvalidValue);
-  step_mixed_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(w, tab, rv[0], rv[1],
-                                                                            nsteps);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kOneBody) {
+    if (one_cta(L))
+      return launch<kMixed + 1>(step_mixed_kernel<true>, 1, L, false, s, w, L, tab, rv[0],
+                                rv[1], passes, nsteps);
+  }
+  return launch<kMixed>(step_mixed_kernel<false>, 1, L, false, s, w, L, tab, rv[0], rv[1], passes,
+                        nsteps);
 }
 #endif
 
@@ -842,9 +1230,10 @@ int step_mixed(const void* ptrs, const void* ints, const void* reals, int passes
                                            void* stream) {                                 \
     return adaptive<T>(ptrs, ints, reals, per_member, scan, stream);                       \
   }                                                                                        \
-  extern "C" int tf_mega_capacity_##SUFFIX(int kind, void* stream) {                       \
+  extern "C" int tf_mega_capacity_##SUFFIX(int kind, int K, int threads, int smem, int one, \
+                                           void* stream) {                                 \
     (void)stream;                                                                          \
-    return capacity<T>(kind);                                                              \
+    return capacity<T>(kind, K, threads, smem, one);                                       \
   }
 
 // a model computes in one dtype: its library carries that dtype's entries;

@@ -77,9 +77,8 @@
 // keep about 64 chunks each, and at least as many as fit the state into
 // 16 CTAs' shared memory.
 //
-// The bodies of the one-block entries live in pcr.cuh, shared with K6
-// (megastep.cu), which also keeps the one-block solve with shifts
-// (pcr_solve_shift_block) and the one-block Woodbury set-up.
+// The bodies of the one-block entries live in pcr.cuh, beside K6's
+// (megastep.cu) cluster bodies of the same arithmetic.
 //
 // Wide interface blocks (S2 = 10..16, of K2's S = 5..8) are built into a
 // library of their own, from this file with TF_WIDE defined.  The R-column
@@ -493,7 +492,7 @@ enum ClusterMode { kShifts = 0, kShiftsWood = 1, kColumns = 2 };
 // of two: a chunk's owner and place are a shift and a mask).  Thread (r,
 // cl) of a tile of Ct chunks (r = tid / Ct < S2) computes row r of chunk
 // cl, the same products and sums in the same order as pcr.cuh's
-// pcr_solve_shift_block and pcr_solve_cols_block.  The level operators
+// pcr_solve_shift_cluster and pcr_solve_cols_block.  The level operators
 // (and Dinv after them) stream through a ring of D slabs, each one
 // level's row r of both operators for the thread's chunks of a tile,
 // which the thread copies itself with cp.async D - 1 slabs ahead (all of

@@ -2,7 +2,9 @@
 // Include after the generated block that defines TF_NVAR, TF_NHELP,
 // TF_NPAR, TF_H, TF_NARGS, tf_F and tf_J; stencil.cu describes the layouts,
 // the boundary closure and the edge fold.  No __restrict__ on the
-// pointers: K6 evaluates F at stage states it wrote in the same launch.
+// pointers: K6 evaluates F at stage states it wrote in the same launch, and
+// reads them through a callable (stencil_F_vals, stencil_J_vals) where they
+// are spread over a cluster's shared memory.
 #pragma once
 
 namespace tf {
@@ -37,15 +39,25 @@ __device__ __forceinline__ void gather(T* a, long i, long N, int periodic, UVal 
   a[idx] = (x[N - 1] - x[0]) / T(N - 1);
 }
 
+// f[m] = F_m(i), the state read through uval(v, j, off) (K6 reads it from
+// the cluster's shared memory)
+template <typename T, typename UVal>
+__device__ __forceinline__ void stencil_F_vals(UVal uval, const T* hlp, const T* par,
+                                               const T* x, long N, int periodic, long i,
+                                               T (&f)[TF_NVAR]) {
+  T a[TF_NARGS];
+  gather(a, i, N, periodic, uval, hlp, par, x);
+  tf_F(a, f);
+}
+
 // out[m, i] = scale * F_m(i) (+ bias[m, i] when bias is not null)
 template <typename T>
 __device__ __forceinline__ void stencil_F_node(const T* u, const T* hlp, const T* par,
                                                const T* x, const T* bias, T* out, long N,
                                                int periodic, T scale, long i) {
-  T a[TF_NARGS];
   T f[TF_NVAR];
-  gather(a, i, N, periodic, [&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x);
-  tf_F(a, f);
+  stencil_F_vals<T>([&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x, N, periodic,
+                    i, f);
 #pragma unroll
   for (int m = 0; m < TF_NVAR; ++m) {
     const T v = scale * f[m];
@@ -53,16 +65,16 @@ __device__ __forceinline__ void stencil_F_node(const T* u, const T* hlp, const T
   }
 }
 
-// bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic
-template <typename T>
-__device__ __forceinline__ void stencil_J_node(const T* u, const T* hlp, const T* par,
-                                               const T* x, T* bands, long N, int periodic,
-                                               long i) {
+// b[(k, m, n)] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic,
+// the state read through uval(v, j, off)
+template <typename T, typename UVal>
+__device__ __forceinline__ void stencil_J_vals(UVal uval, const T* hlp, const T* par,
+                                               const T* x, long N, int periodic, long i,
+                                               T (&b)[kNJ]) {
   T a[TF_NARGS];
-  T b[kNJ];
 #pragma unroll
   for (int e = 0; e < kNJ; ++e) b[e] = T(0);
-  gather(a, i, N, periodic, [&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x);
+  gather(a, i, N, periodic, uval, hlp, par, x);
   tf_J(a, b);
   if (!periodic) {
     // ghost-node dependencies fold onto the boundary columns, in the
@@ -92,6 +104,16 @@ __device__ __forceinline__ void stencil_J_node(const T* u, const T* hlp, const T
       }
     }
   }
+}
+
+// bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic
+template <typename T>
+__device__ __forceinline__ void stencil_J_node(const T* u, const T* hlp, const T* par,
+                                               const T* x, T* bands, long N, int periodic,
+                                               long i) {
+  T b[kNJ];
+  stencil_J_vals<T>([&](int v, long j, int) { return u[v * N + j]; }, hlp, par, x, N, periodic,
+                    i, b);
 #pragma unroll
   for (int e = 0; e < kNJ; ++e) bands[e * N + i] = b[e];
 }

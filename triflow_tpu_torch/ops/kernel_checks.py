@@ -1103,6 +1103,200 @@ def check_all_megasteps(device, dtype, results=None):
     return results
 
 
+#: (model, N, periodic, chunk count, fixed dt, adaptive (output dt,
+#: internal dt, tol) or None) of K6's cluster checks: every cluster size
+#: on a plan each can hold (chunk counts not divisible by K where K = 16
+#: still gives every CTA a chunk): an edge grid (s = 1, C = 125), rings
+#: block-cyclic (KS, C = 64 with the adaptive case of MEGA_CASES, C = 128)
+#: and one closed by the Woodbury correction (KS, C = 125), s = 4 on a
+#: Woodbury ring (C = 200) and an edge grid (C = 128); KS at 2 to 4 rows a
+#: chunk and at N = 500, 512 a dt of 0.005, where float32 resolves a step
+#: well inside the solver tolerance (KS at N = 2048 and dt 0.05 rounds
+#: by 1.5e-3 on the card, plain against plain float64; N = 500 at 0.05
+#: by 1.3e-4, kernel against plain)
+CLUSTER_CASES = [("readme", 1000, False, 125, 0.5, (0.5, 1e-6, 1e-1)),
+                 ("ks", 256, True, 64, 0.05, (1.0, 1e-6, 1e-3)),
+                 ("ks", 512, True, 128, 0.005, None),
+                 ("ks", 500, True, 125, 0.005, None),
+                 ("two_var", 1200, True, 200, 0.02, None),
+                 ("two_var", 1024, False, 128, 0.02, None)]
+#: K6's cluster checks of B members (the step on a Woodbury ring, the step
+#: and the adaptive scan with a shared dt and per member on the adaptive
+#: case of BATCH_MEGA_CASES), and of the mixed entry
+CLUSTER_MEMBER_CASES = [("ks", 500, True, 125, 0.005, None),
+                        ("ks", 256, True, 64, 0.05, (1.0, 1e-6, 1e-3))]
+CLUSTER_MIXED_CASES = [("ks", 512, True, 128, 0.0625), ("ks", 500, True, 125, 0.0625),
+                       ("two_var", 1200, True, 200, 0.02)]
+
+
+def _same(outs, what):
+    """Raise unless every output of ``outs`` ({cluster size: tuple of
+    tensors or numbers}) equals the first's bit for bit."""
+    ks = sorted(outs)
+    first = outs[ks[0]]
+    for k in ks[1:]:
+        for a, b in zip(first, outs[k]):
+            same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else np.array_equal(np.asarray(a), np.asarray(b)))
+            if not same:
+                raise CheckFailed(f"{what}: K = {k} differs from K = {ks[0]}")
+
+
+def _agree(outs, dtype, what, results, key):
+    """The adaptive entries' outputs ({cluster size: (u, dt_i, attempts,
+    status, ...)}) across cluster sizes: attempts and status equal, u
+    within the solver tolerance and dt_i within the dt limit of the
+    first's (the one-CTA and cluster instantiations round apart where
+    nvcc contracts a product and a sum in one and not the other; PERF.md
+    §6); the largest u gap is recorded under ``key``."""
+    ks = sorted(outs)
+    first = outs[ks[0]]
+    for k in ks[1:]:
+        got = outs[k]
+        if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(first[2:], got[2:])):
+            raise CheckFailed(f"{what}: K = {k} takes other attempts or status than "
+                              f"K = {ks[0]}: {got[2:]} against {first[2:]}")
+        _record(results, key, got[0], first[0], TOL[dtype]["solve"], f"K={k} {what}")
+        dt_a, dt_b = (np.asarray(x, np.float64) for x in (got[1], first[1]))
+        gap = float(np.max(np.abs(dt_a - dt_b) / np.abs(dt_b)))
+        if not gap <= TOL[dtype]["dt"]:
+            raise CheckFailed(f"{what}: dt_i of K = {k} {gap:.3e} from K = {ks[0]}'s")
+
+
+def check_clusters(device, dtype, results=None, sizes=None, B=None, skipped=None):
+    """K6 on every cluster size of ``sizes`` (``megastep.CLUSTER_SIZES``)
+    that holds each of ``CLUSTER_CASES`` (a size that cannot is skipped
+    and listed): the step entry (RODASPR, Theta) and its 3-step launch,
+    the adaptive entry, B members' step and adaptive scans (a shared dt
+    and per member) and, in float64, the mixed entry; each against its
+    plain version within the solver tolerance, the adaptive ones with
+    equal attempts; every cluster size's outputs of the step and mixed
+    entries bit for bit equal to the others' (only where the working set
+    lives changes with K), the adaptive entries' with equal attempts and
+    within the tolerances (``_agree``).
+    Returns {kernel entry: max abs error}; the sizes that hold no member
+    are appended to ``skipped``."""
+    from ..core.model import Model
+    from ..core.rosenbrock import adaptive_controller, member_controller
+
+    results = {} if results is None else results
+    skipped = [] if skipped is None else skipped
+    sizes = megastep.CLUSTER_SIZES if sizes is None else sizes
+    B = BATCH if B is None else B
+    T = np.float64 if dtype == torch.float64 else np.float32
+    tol = TOL[dtype]["solve"]
+    ros = rodaspr_table()
+
+    def clusters(plan, n_stages, mixed=False):
+        out = {}
+        for K in sizes:
+            try:
+                out[K] = megastep.cluster_plan(plan, n_stages, torch.float64 if mixed
+                                               else dtype, plan.B, mixed, K=K)
+            except ValueError:
+                skipped.append(f"K={K} N={plan.N} C={plan.C} s={plan.s} B={plan.B}"
+                               f"{' mixed' if mixed else ''} {dtype}")
+        return out
+
+    for name, N, periodic, C, dt, adaptive in CLUSTER_CASES:
+        model = Model(*MEGA_MODELS[name], double=dtype == torch.float64, device=device)
+        b = model.backend
+        sysm = b.system
+        plan = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C)
+        what = f"N={N} s={plan.s} C={C} woodbury={plan.woodbury} {dtype}"
+        args = mega_state(model, N, periodic, device)
+        gdt = float(T(ros.g00) * T(dt))
+        for tname, table, beta, scale in (("rodaspr", ros, -gdt, gdt),
+                                          ("theta=1", megastep.theta_table(1.0),
+                                           -float(T(dt)), float(T(dt)))):
+            want = megastep.step_plain(b, plan, table, periodic, *args, beta, scale)
+            want3 = megastep.scan_plain(b, plan, table, periodic, *args, beta, scale, 3)
+            outs = {}
+            for K, cp in clusters(plan, len(table.stages)).items():
+                got = megastep.step(b, plan, table, periodic, *args, beta, scale,
+                                    cluster=cp)
+                got3 = megastep.step(b, plan, table, periodic, *args, beta, scale, 3,
+                                     cluster=cp)[0]
+                _record(results, "K6.step", got[0], want[0], tol, f"{tname} K={K} {what}")
+                _record(results, "K6.step", got3, want3, tol,
+                        f"{tname} 3 steps K={K} {what}")
+                outs[K] = (got[0], got[1], got3)
+            _same(outs, f"K6.step {tname} {what}")
+        if adaptive is not None:
+            out_dt, internal_dt, atol = adaptive
+            a_args = (adaptive_controller, b, plan, ros, periodic, *args, 0.0, out_dt,
+                      internal_dt, atol, 0.9, None, None)
+            want = megastep.adaptive_plain(*a_args)
+            outs = {}
+            for K, cp in clusters(plan, len(ros.stages)).items():
+                got = megastep.row_adaptive_step(*a_args, cluster=cp)
+                if got[2:] != want[2:]:
+                    raise CheckFailed(f"K6.adaptive K={K} {what}: (attempts, status) "
+                                      f"{got[2:]} against the plain {want[2:]}")
+                _record(results, "K6.adaptive", got[0], want[0], tol, f"K={K} {what}")
+                if not _dt_gap(got[1], want[1]) <= TOL[dtype]["dt"]:
+                    raise CheckFailed(f"K6.adaptive dt_i K={K} {what}")
+                outs[K] = got
+            _agree(outs, dtype, f"K6.adaptive {what}", results, "K6.adaptive across K")
+    for name, N, periodic, C, dt, adaptive in CLUSTER_MEMBER_CASES:
+        model = Model(*MEGA_MODELS[name], double=dtype == torch.float64, device=device)
+        b = model.backend
+        sysm = b.system
+        plan = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C, B)
+        what = f"B={B} N={N} C={C} {dtype}"
+        args = mega_members(model, N, periodic, device, B)
+        dts = np.asarray(dt * (1.0 + 0.25 * np.arange(B)), dtype=T)
+        gdt_b = megastep.gdt_of(T, ros.g00, dts, device)
+        want = megastep.step_plain(b, plan, ros, periodic, *args, -gdt_b, gdt_b)
+        outs = {}
+        for K, cp in clusters(plan, len(ros.stages)).items():
+            got = megastep.step(b, plan, ros, periodic, *args, -gdt_b, gdt_b, cluster=cp)
+            _record(results, "K6.step", got[0], want[0], tol, f"K={K} {what}")
+            outs[K] = got
+        _same(outs, f"K6.step {what}")
+        if adaptive is None:
+            continue
+        out_dt, internal_dt, atol = adaptive
+        for per_member, ctl in ((False, adaptive_controller), (True, member_controller)):
+            mode = "per-member" if per_member else "shared"
+            a_args = (ctl, b, plan, ros, periodic, *args, 0.0, out_dt, internal_dt, atol,
+                      0.9, None, None)
+            plain = megastep.adaptive_scan_plain(*a_args, 2, per_member=per_member)
+            outs = {}
+            for K, cp in clusters(plan, len(ros.stages)).items():
+                got = megastep.adaptive_scan(*a_args, 2, per_member=per_member,
+                                             attempts=True, cluster=cp)
+                _record(results, "K6.adaptive_scan", got[0], plain[0], tol,
+                        f"{mode} K={K} {what}")
+                if not np.array_equal(got[4], plain[4]):
+                    raise CheckFailed(f"K6.adaptive_scan {mode} K={K} {what}: attempts "
+                                      f"{got[4]} against the plain {plain[4]}")
+                outs[K] = (got[0], got[2], got[4], got[3], got[1])
+            _agree(outs, dtype, f"K6.adaptive_scan {mode} {what}", results,
+                   "K6.adaptive_scan across K")
+    if dtype != torch.float64:
+        return results
+    for name, N, periodic, C, dt in CLUSTER_MIXED_CASES:
+        model = Model(*MEGA_MODELS[name], double="df64", device=device)
+        b = model.backend
+        sysm = b.system
+        plan = chunked.plan_with(N, sysm.nvar, sysm.halo, periodic, C)
+        what = f"mixed N={N} s={plan.s} C={C}"
+        args = mega_state(model, N, periodic, device)
+        dt = float(np.float32(dt))
+        gdt = ros.g00 * dt
+        want = megastep.step_plain(b, plan, ros, periodic, *args, -gdt, gdt, 1)
+        outs = {}
+        for K, cp in clusters(plan, len(ros.stages), mixed=True).items():
+            got = megastep.step_mixed(b, plan, ros, periodic, *args, -gdt, gdt, 1,
+                                      cluster=cp)
+            _record(results, "K6.step_mixed", got[0], want[0], tol, f"K={K} {what}")
+            outs[K] = got
+        _same(outs, f"K6.step_mixed {what}")
+    return results
+
+
 def megatheta_state(model, N, device, seed=0):
     """(u, helpers, pstack, x) of the K9 checks: the reference benchmark's
     Burgers grid (x = 0.5 i, cos(8 pi i / N), nu = 0.5; KS takes the same

@@ -8,8 +8,11 @@ or theta steps: ``row_step_folded``, ``theta_step_folded``,
 ``row_adaptive_scan_folded`` (``nsteps`` adaptive output steps, shared or
 per-member clocks: ``adaptive_scan``).  Source ``csrc/megastep.cu``, generated
 per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
-(shared through the headers in ``csrc/``) phase after phase in one thread
-block, so a step costs one launch instead of 7 (theta) or 38 (RODASPR).
+(shared through the headers in ``csrc/``) phase after phase on one
+thread-block cluster of K CTAs per member (K = 1 a plain block), each CTA
+holding its run of the chunks and their share of the working set in its
+shared memory (``cluster_plan``), so a step costs one launch instead of 7
+(theta) or 38 (RODASPR).
 
 A third entry, **K6's mixed entry** (``step_mixed``, counter
 ``K6.step_mixed``, one grid), is a library of its own, built from the same
@@ -26,11 +29,18 @@ passes per stage is K8's body against the float64 bands.  Its own gate,
 ``mixed_plan_for`` (``MIXED_MAX_N``), decides where it serves.
 
 Every entry takes a leading member axis (an ensemble's B grids, u
-``(B, nvar, N)``): one thread block per member, as many blocks as the card
+``(B, nvar, N)``): one cluster per member, as many clusters as the card
 holds at once, each looping over its share of the members.  With a shared
 dt the adaptive kernels take every attempt's err as the max over all
-members (a cooperative launch with a grid-wide barrier per attempt); with
+members (every CTA resident, a grid-wide barrier per attempt); with
 ``per_member=True`` each member runs its own controller.
+
+``cluster_plan`` (host code, tested on the CPU) places a member: of the
+cluster sizes ``CLUSTER_SIZES`` that give each CTA a run of chunks and
+hold the buffers other CTAs read in shared memory (the rest in shared
+memory where they fit, else in the CTA's slab of global memory), the one
+of least ``cluster_cost_us``.  ``plan_for`` and ``mixed_plan_for`` admit
+no grid that no cluster holds.
 
 ``plan_for`` alone decides whether a grid takes K6 or the multi-launch
 path (K1-K5), on the CPU as on the card.  The plain versions compose the
@@ -44,6 +54,7 @@ arithmetic.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -70,29 +81,71 @@ MAX_STAGES = 6
 #: ``thomas.MAX_S``, but csrc/megastep.cu, which shares their s <= 4
 #: bodies, has no wider instantiation
 MAX_S = 4
-#: threads of the one block (kThreads in csrc/megastep.cu)
-BLOCK_THREADS = 256
+#: threads per CTA (at most kMaxThreads in csrc/megastep.cu, its launch
+#: bound: the s = 4 body takes the registers 256 threads leave it)
+THREADS = 256
 #: largest grid K6 takes, by block size s = nvar * max(halo, 1): the
-#: largest N at which K6 beat the multi-launch path in every pairing of
-#: chip_smoke.py's crossover sweep, for fixed RODASPR and Theta steps alike
-#: (PERF.md); a block size no sweep measured takes the multi-launch path
-MAX_N = {1: 1 << 14, 2: 1 << 13, 4: 1 << 12}
+#: largest N up to which K6's fixed RODASPR step beat the multi-launch
+#: path in every pairing of chip_smoke.py's crossover sweep (N = 2^10 ..
+#: 2^16, both dtypes; PERF.md), capped by the sweep's top: at s = 1 and 2
+#: K6 won every pairing, Theta's too, at s = 4 RODASPR's up to 2^13 while
+#: Theta's float64 step lost to the host-bound multi-launch path at 2^10,
+#: 2^11 and from 2^13 (PERF.md §7); ``plan_for`` also refuses a grid no
+#: cluster holds (``fits``); a block size no sweep measured takes the
+#: multi-launch path
+MAX_N = {1: 1 << 16, 2: 1 << 16, 4: 1 << 13}
 
 #: largest grid K6's mixed entry takes, by block size s: the largest N at
 #: which the mixed entry beat the multi-launch mixed path (K1, K2-K4 in
 #: float32, K8) in every pairing of chip_smoke.py's crossover sweep of
 #: fixed df64 RODASPR and Theta steps with one residual pass, over N =
-#: 2^10 .. 2^15 and the reference's 10^4, in each of two runs (PERF.md):
-#: RODASPR sets it at s = 2 (2^14 lost in one run to the host-bound
-#: multi-launch path) and s = 4 (2^13 lost)
-MIXED_MAX_N = {1: 1 << 14, 2: 10 ** 4, 4: 1 << 12}
+#: 2^10 .. 2^15 and the reference's 10^4 (PERF.md): every pairing won up
+#: to the sweep's top, 2^15, at s = 1 and 2; at s = 4 up to 2^14, where no
+#: cluster holds 2^15
+MIXED_MAX_N = {1: 1 << 15, 2: 1 << 15, 4: 1 << 14}
 
-#: cost model of K6's plan by block size s, in microseconds of one RODASPR
-#: step, fitted to chip_smoke.py's device-time chunk-count sweeps (float64,
-#: PERF.md): every pass of the block's threads over the chunks walks Mc rows
-#: one after the other, and every PCR level is a dependent phase
-ROW_US = {1: 2.20, 2: 3.41, 4: 6.57}
-LEVEL_US = {1: 3.33, 2: 10.42, 4: 70.47}
+#: the cost model of a step on a cluster (``cluster_cost_us``), by block
+#: size s, in microseconds of a step: per row of a chunk walk (a sweep's
+#: forward and backward row; ROW_US with the factor rows in shared memory,
+#: L2_ROW_US in L2), per PCR level of one solve (LEVEL_US, L2_LEVEL_US with
+#: the level operators in L2), per pass of a CTA's threads over its nodes
+#: in one stage (NODE_US: the sums, F and the correction, with each stage's
+#: fixed phases; L2_NODE_US with a node vector in L2); every phase that
+#: reads another CTA's share waits for a cluster barrier (SYNC_US).  Fitted
+#: (non-negative least squares, relative residuals) to chip_smoke.py's
+#: layout sweeps in float64 (``cluster_sweep``; PERF.md)
+ROW_US = {1: 0.0672, 2: 0.1688, 4: 0.4994}
+L2_ROW_US = {1: 0.2509, 2: 0.1789, 4: 0.5683}
+LEVEL_US = {1: 0.3708, 2: 0.7007, 4: 8.1228}
+L2_LEVEL_US = {1: 0.6942, 2: 0.7461, 4: 9.5615}
+NODE_US = {1: 1.839, 2: 3.7699, 4: 14.1843}
+L2_NODE_US = {1: 2.9411, 2: 4.6001, 4: 11.7167}
+SYNC_US = 0.9619
+
+
+def cluster_cost_us(M, C, s, g, K, n_stages=MAX_STAGES, rows_in_l2=False,
+                    levels_in_l2=False, nodes_in_l2=False, threads=THREADS):
+    """Modelled microseconds of one step on C chunks of ceil(M / C) rows of
+    block size s (g nodes a row), on a cluster of K CTAs: the factor and
+    every stage walk their chunks' rows (threads in passes over a CTA's
+    chunks) and the PCR levels, and pass over the CTA's nodes; the levels
+    and three node phases a stage, plus one, read other CTAs (a cluster
+    barrier each where K > 1).  ``rows_in_l2`` / ``levels_in_l2`` /
+    ``nodes_in_l2``: a factor row, level operator or node vector lives in
+    L2."""
+    Cc = -(-C // K)
+    Mc = -(-M // C)
+    nlev = pcr.n_levels(C)
+    passes = -(-Cc // threads)
+    node_passes = -(-(Cc * Mc * g) // threads)
+    walks = n_stages + 1
+    row = L2_ROW_US[s] if rows_in_l2 else ROW_US[s]
+    level = L2_LEVEL_US[s] if levels_in_l2 else LEVEL_US[s]
+    node = L2_NODE_US[s] if nodes_in_l2 else NODE_US[s]
+    cost = walks * (row * Mc * passes + level * nlev + node * node_passes)
+    if K > 1:
+        cost += SYNC_US * walks * (nlev + 3)
+    return cost
 
 
 #: K6 declines a grid whose plan costs more than PAD_MARGIN times the
@@ -105,17 +158,32 @@ PAD_MARGIN = 2.0
 MULTI_LAUNCH_US = 2000.0
 
 
-def plan_cost_us(M: int, C: int, s: int) -> float:
-    """Modelled time of the sequential parts of one K6 step with C chunks of
-    ceil(M / C) rows of block size s."""
-    passes = -(-C // BLOCK_THREADS)
-    return passes * (ROW_US[s] * -(-M // C) + LEVEL_US[s] * pcr.n_levels(C))
+def plan_cost_us(M: int, C: int, s: int, g: int = 1) -> float:
+    """Modelled time of one RODASPR step of K6 with C chunks of ceil(M / C)
+    rows of block size s (g nodes a row) on the cluster size that serves
+    it fastest, every buffer in shared memory (``cluster_cost_us`` over
+    ``CLUSTER_SIZES``): a bound below ``layout_cost_us``, which places the
+    buffers."""
+    return min(cluster_cost_us(M, C, s, g, K) for K in CLUSTER_SIZES
+               if K <= C and (K - 1) * -(-C // K) < C)
+
+
+def layout_cost_us(N, nvar, halo, periodic, C):
+    """Modelled time of one RODASPR step of K6 in float64 on C chunks, on
+    the cluster ``cluster_plan`` places it on; None where no cluster holds
+    it."""
+    plan = chunked.plan_with(N, nvar, halo, periodic, C)
+    try:
+        return cluster_plan(plan, MAX_STAGES, torch.float64).cost_us
+    except ValueError:
+        return None
 
 
 def make_plan(N: int, nvar: int, halo: int, periodic: bool):
     """K6's chunk plan of a grid: the admissible chunk count
     (``chunked.chunk_counts``: any divisor with at least 2 rows per chunk,
-    C >= 2 on a ring) of least ``plan_cost_us``, whatever N is; None when
+    C >= 2 on a ring) of least ``layout_cost_us`` (of least
+    ``plan_cost_us`` where no cluster holds any), whatever N is; None when
     the grid has none, when its block size has no fitted cost, or when a
     chunk count that pads the grid (``chunked.padded_counts``) costs less
     than the plan's cost over ``PAD_MARGIN`` and the plan costs more than
@@ -129,9 +197,12 @@ def make_plan(N: int, nvar: int, halo: int, periodic: bool):
     cands = chunked.chunk_counts(N, halo, periodic)
     if not cands:
         return None
-    C = min(cands, key=lambda C: (plan_cost_us(M, C, s), C))
-    padded = min(plan_cost_us(M, c, s) for c in chunked.padded_counts(N, halo))
-    cost = plan_cost_us(M, C, s)
+    placed = {C: layout_cost_us(N, nvar, halo, periodic, C) for C in cands}
+    costs = ({C: c for C, c in placed.items() if c is not None}
+             or {C: plan_cost_us(M, C, s, g) for C in cands})
+    C = min(costs, key=lambda C: (costs[C], C))
+    padded = min(plan_cost_us(M, c, s, g) for c in chunked.padded_counts(N, halo))
+    cost = costs[C]
     if padded * PAD_MARGIN < cost and cost > MULTI_LAUNCH_US:
         return None
     return chunked.plan_with(N, nvar, halo, periodic, C)
@@ -144,7 +215,10 @@ def plan_for(N: int, nvar: int, halo: int, periodic: bool, B: int = 1):
     if N > MAX_N.get(nvar * max(halo, 1), 0):
         return None
     plan = make_plan(N, nvar, halo, periodic)
-    return None if plan is None else plan._replace(B=B)
+    if plan is None:
+        return None
+    plan = plan._replace(B=B)
+    return plan if fits(plan) else None
 
 
 def mixed_plan_for(N: int, nvar: int, halo: int, periodic: bool):
@@ -154,7 +228,8 @@ def mixed_plan_for(N: int, nvar: int, halo: int, periodic: bool):
     carried over: the chunk plan is ``make_plan``'s."""
     if N > MIXED_MAX_N.get(nvar * max(halo, 1), 0):
         return None
-    return make_plan(N, nvar, halo, periodic)
+    plan = make_plan(N, nvar, halo, periodic)
+    return plan if plan is not None and fits(plan, mixed=True) else None
 
 
 class Table(NamedTuple):
@@ -324,37 +399,239 @@ def adaptive_scan_plain(controller, backend, plan, table, periodic, u,
 
 # --------------------------------------------------------------- kernel
 
-#: the per-block scratch buffers of one launch, in the order of
-#: csrc/megastep.cu's Work after its 11 leading addresses (block 0's; block
-#: k's lie k slabs further); then the per-member states buf0 and buf1
-_BUFFERS = ("bands", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
-            "alphas", "betas", "Dinv", "pscr", "Z", "us", "ui", "bias", "rhs",
-            "y", "yred", "xm1", "xp1")
+#: the buffers of a member's working set, in the order of
+#: csrc/megastep.cu's enum Buf: each CTA holds its share of every one
+BUFFERS = ("u", "bands", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
+           "alphas", "betas", "Dinv", "pscr", "Z", "us", "ui", "bias", "rhs",
+           "y", "yred", "xm1", "xp1", "bands32", "r32", "d32")
+#: buffers other CTAs of the cluster read (F's and J's halos, the closure's
+#: end chunks, the PCR levels' neighbours and the shifts' neighbour
+#: chunks): their shares always live in shared memory; in the mixed entry
+#: the stage solutions too (the residual's halo)
+NEIGHBOUR_READ = frozenset({"u", "ui", "Lred", "Ured", "pscr", "Z"})
+MIXED_NEIGHBOUR_READ = NEIGHBOUR_READ | {"us"}
+#: the order in which the other buffers take the shared memory left:
+#: the vectors every stage touches first, then the per-level operators,
+#: the factor rows each sweep walks, and last the bands (read once a step)
+SHARED_FIRST = ("yred", "xm1", "xp1", "Dinv", "rhs", "y", "r32", "d32",
+                "alphas", "betas", "fac", "Dhinv", "DU", "Wsp", "Vsp", "bias",
+                "us", "bands32", "bands")
+#: the factor rows the chunk walks read, and the PCR levels' operators:
+#: where any of them lives in L2 the model charges L2_ROW_US / L2_LEVEL_US
+ROW_BUFFERS = frozenset({"fac", "Dhinv", "DU", "Wsp", "Vsp"})
+LEVEL_BUFFERS = frozenset({"alphas", "betas", "Dinv"})
+#: the node vectors the stages read and write (L2_NODE_US where in L2)
+NODE_BUFFERS = frozenset({"bands", "us", "bias", "rhs", "y", "bands32", "r32", "d32"})
+#: the float32 buffers of the mixed entry (the rest are float64)
+MIXED32 = frozenset({"bands32", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred",
+                     "Ured", "alphas", "betas", "Dinv", "pscr", "Z", "r32",
+                     "y", "yred", "xm1", "xp1", "d32"})
+
+#: shared memory one CTA may take (an H100's opt-in limit per block, static
+#: and dynamic together), and a bound on what K6's kernels take statically
+#: beside the plan's dynamic shares (the step table, the err reduction, the
+#: capacitance and its Gauss-Jordan: under 5 KB at s = 4 in float64;
+#: chip_smoke.py phase 0 prints each library's figure)
+SMEM_PER_CTA = 232448
+STATIC_SMEM = 8192
+#: CTAs per member's cluster (16 is a non-portable size the kernels opt in
+#: to); K = 1 is a plain block
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: SMs of the card the plans are made for (an H100), for the members a
+#: cluster steps one after the other
+SMS = 132
+#: widest block size with a one-CTA instantiation (kOneBody in
+#: csrc/megastep.cu: at s = 4 the body spills either way, and a second
+#: instantiation doubled the library's build)
+ONE_MAX_S = 2
 #: doubles per member of a launch's info: err, dt_i, attempts, status,
 #: output steps done
 INFO = 5
+#: element offsets align to 16 bytes
+_ALIGN = 16
 #: kernel kinds of the capacity query: the step entry, the adaptive entries
 #: with a shared dt, and per member
 STEP_KIND, SHARED_KIND, MEMBER_KIND = 0, 1, 2
 
 
-def _sizes(plan, n_stages):
-    N, nvar, s, C, Mc = plan.N, plan.nvar, plan.s, plan.C, plan.Mc
-    n, s2 = nvar * N, 2 * plan.s
-    rows, red = Mc * s * s * C, s2 * s2 * C
-    return dict(bands=plan.W * nvar * nvar * N, fac=rows, Dhinv=rows,
-                DU=rows, Wsp=rows, Vsp=rows, Lred=red, Ured=red,
-                alphas=pcr.n_levels(C) * red, betas=pcr.n_levels(C) * red,
-                Dinv=red, pscr=7 * red, Z=red, us=n_stages * n, ui=n, bias=n,
-                rhs=n, y=n, yred=s2 * C, xm1=s * C, xp1=s * C)
+class ClusterPlan(NamedTuple):
+    """Where a member's step runs: K CTAs of ``threads`` threads, Cc chunks
+    and Nr = Cc Mc g nodes per CTA, each buffer of ``BUFFERS`` in shared
+    memory (home 0, at byte ``offsets[i]`` of the dynamic shared memory) or
+    in the CTA's own slab of global memory (home 1, at that byte of it),
+    ``smem`` dynamic shared bytes and ``gslab`` global bytes per CTA, the
+    modelled µs of a step (``cluster_cost_us``), and ``one``: one CTA with
+    every buffer in shared memory at s <= ONE_MAX_S, which the kernels run
+    in their one-CTA instantiation (no cluster address mapping, every
+    access in the shared-memory window)."""
+
+    K: int
+    threads: int
+    Cc: int
+    Nr: int
+    homes: tuple
+    offsets: tuple
+    smem: int
+    gslab: int
+    cost_us: float
+    one: bool  # the kernels' one-CTA instantiation (ONE_MAX_S)
+
+    @property
+    def bytes(self):
+        """Shared memory per CTA, the kernels' static part included."""
+        return self.smem + STATIC_SMEM
+
+    def home(self, name):
+        return "shared" if self.homes[BUFFERS.index(name)] == 0 else "L2"
+
+
+def _cluster_shape(C, K):
+    """Chunks per CTA (the last may hold fewer) of C chunks over K CTAs, or
+    None where a CTA would hold none."""
+    Cc = -(-C // K)
+    if K > C or (K - 1) * Cc >= C:
+        return None
+    return Cc
+
+
+def shares(plan, n_stages, K, mixed=False):
+    """Elements of each buffer's share in one CTA of K (a dict by name of
+    ``BUFFERS``)."""
+    Cc = _cluster_shape(plan.C, K)
+    s, nvar, Mc = plan.s, plan.nvar, plan.Mc
+    s2, nlev = 2 * s, pcr.n_levels(plan.C)
+    Nr = Cc * Mc * plan.g
+    n, blk = nvar * Nr, s2 * s2 * Cc
+    rows = Mc * s * s * Cc
+    out = dict(u=n, bands=plan.W * nvar * nvar * Nr, fac=rows, Dhinv=rows,
+               DU=rows, Wsp=rows, Vsp=rows, Lred=blk, Ured=blk,
+               alphas=nlev * blk, betas=nlev * blk, Dinv=blk,
+               pscr=(7 if K == 1 else 6) * blk,
+               Z=blk if plan.woodbury else 0, us=n_stages * n, ui=n, bias=n,
+               rhs=n, y=n, yred=s2 * Cc, xm1=s * Cc, xp1=s * Cc, bands32=0,
+               r32=0, d32=0)
+    if mixed:
+        out.update(bands32=out["bands"], r32=n, d32=n)
+    return out
+
+
+def _place(sizes, item_of, must):
+    """(homes, offsets, smem, gslab) of the shares: the ``must`` buffers in
+    shared memory, then ``SHARED_FIRST`` while they fit, the rest in the
+    CTA's global slab; None where the ``must`` buffers do not fit."""
+    budget = SMEM_PER_CTA - STATIC_SMEM
+    nbytes = {k: -(-sizes[k] * item_of(k) // _ALIGN) * _ALIGN for k in BUFFERS}
+    home = dict.fromkeys(BUFFERS, 1)
+    smem = sum(nbytes[k] for k in BUFFERS if k in must)
+    if smem > budget:
+        return None
+    for k in must:
+        home[k] = 0
+    for k in SHARED_FIRST:
+        if k not in must and smem + nbytes[k] <= budget:
+            home[k] = 0
+            smem += nbytes[k]
+    at = [0, 0]
+    offsets = []
+    for k in BUFFERS:
+        offsets.append(at[home[k]])
+        at[home[k]] += nbytes[k]
+    return tuple(home[k] for k in BUFFERS), tuple(offsets), at[0], at[1]
+
+
+def cluster_plan(plan, n_stages, dtype, B=1, mixed=False, K=None):
+    """The cluster a member's step runs on (``ClusterPlan``): of the sizes
+    ``CLUSTER_SIZES`` that give every CTA a chunk and fit the buffers other
+    CTAs read into shared memory (the rest where they fit, else the CTA's
+    global slab), the one of least ``cluster_cost_us`` for B members (the
+    members a cluster steps one after the other counted on a card of
+    ``SMS`` SMs); ``K`` forces a size.  Pure Python (the CPU tests check
+    it), cached by its arguments.  Raises ValueError where no cluster fits
+    the member."""
+    return _cluster_plan(plan, n_stages, dtype, B, mixed, K)
+
+
+@functools.lru_cache(maxsize=4096)
+def _cluster_plan(plan, n_stages, dtype, B, mixed, K):
+    item = torch.finfo(dtype).bits // 8
+    must = MIXED_NEIGHBOUR_READ if mixed else NEIGHBOUR_READ
+    item_of = ((lambda k: 4 if k in MIXED32 else 8) if mixed
+               else (lambda k: item))
+    best = None
+    for k in (CLUSTER_SIZES if K is None else (K,)):
+        Cc = _cluster_shape(plan.C, k)
+        if Cc is None or k > SMS:
+            continue
+        placed = _place(shares(plan, n_stages, k, mixed), item_of, must)
+        if placed is None:
+            continue
+        homes, offsets, smem, gslab = placed
+        rounds = -(-B // max(1, SMS // k))
+        in_l2 = {name for name, h in zip(BUFFERS, homes) if h}
+        one = k == 1 and not in_l2 and plan.s <= ONE_MAX_S
+        cost = rounds * cluster_cost_us(
+            plan.M, plan.C, plan.s, plan.g, k, n_stages, bool(in_l2 & ROW_BUFFERS),
+            bool(in_l2 & LEVEL_BUFFERS), bool(in_l2 & NODE_BUFFERS))
+        cand = ClusterPlan(k, THREADS, Cc, Cc * plan.Mc * plan.g, homes,
+                           offsets, smem, gslab, cost, one)
+        if best is None or cand.cost_us < best.cost_us:
+            best = cand
+    if best is None:
+        raise ValueError(
+            f"K6: no cluster of {CLUSTER_SIZES if K is None else (K,)} CTAs "
+            f"holds a member of N = {plan.N}, C = {plan.C}, s = {plan.s} "
+            f"({n_stages} stages, {dtype}{', mixed' if mixed else ''}) in "
+            f"{SMEM_PER_CTA} bytes of shared memory per CTA")
+    return best
+
+
+def fits(plan, mixed=False):
+    """Whether a cluster holds a member of ``plan`` at the widest table
+    (``MAX_STAGES``) in float64: the gates admit no grid that fails."""
+    try:
+        cluster_plan(plan, MAX_STAGES, torch.float64, plan.B, mixed)
+    except ValueError:
+        return False
+    return True
+
+
+def step_phases(plan, n_stages, cluster):
+    """(cluster barriers, block barriers, rows walked one after the other)
+    of one step of csrc/megastep.cu on ``cluster``: the phases whose
+    latency bounds the step (a cluster barrier where K > 1 for a phase
+    that reads another CTA's share, else a block barrier), and the rows a
+    thread walks in the chunk sweeps (2 Mc a walk, forward and back, in
+    passes of the CTA's threads over its chunks)."""
+    nlev = pcr.n_levels(plan.C)
+    s2 = 2 * plan.s
+    stored = cluster.one
+    # the state copied in; the factor's copy, levels (and, on one CTA, the
+    # stored inverses); on a Woodbury plan the columns' copy and levels,
+    # the columns visible, the capacitance's Gauss-Jordan (4 a column)
+    remote = 1 + 1 + nlev * (2 if stored else 1)
+    local = 3 + 1
+    if plan.woodbury:
+        remote += 1 + nlev + 1
+        local += 4 * s2 + 2
+    # per stage: the stage input, the solve's copy, levels and solution;
+    # the sums (bias only), F, the sweep, the correction and the Woodbury
+    # coefficients
+    remote += n_stages * (1 + 1 + nlev + 1)
+    local += n_stages * (3 + 1 + (2 if plan.woodbury else 0))
+    # err over the CTA (a tree over its threads) and the cluster
+    local += (cluster.threads - 1).bit_length() + 2
+    remote += 1 if cluster.K > 1 else 0
+    rows = 2 * plan.Mc * -(-cluster.Cc // cluster.threads) * (n_stages + 1)
+    if cluster.K == 1:
+        return 0, remote + local, rows
+    return remote, local, rows
 
 
 class _Prepared(NamedTuple):
     """What one launch configuration passes the kernel besides the tensor
     addresses and the scalars: built once, reused by every launch."""
 
-    offsets: tuple  # element offset of each _BUFFERS entry in a block's slab
-    slab: int       # scratch elements of one block
+    cluster: ClusterPlan
     ints: object    # ctypes int array
     reals: object   # ctypes double array; the first 9 are set per launch
 
@@ -363,30 +640,29 @@ _PREPARED = {}
 _CAPACITY = {}
 
 
-def capacity(backend, dtype, kind):
-    """Blocks of a K6 kernel the card holds at once (its SMs times the
-    blocks per SM at the kernel's registers), by kernel kind."""
-    key = (id(backend.megastep), dtype, kind)
+def capacity(backend, dtype, kind, cluster):
+    """Clusters of a K6 kernel the card holds at once at the cluster plan
+    (blocks per SM times SMs for one-CTA clusters,
+    ``cudaOccupancyMaxActiveClusters`` otherwise), by kernel kind."""
+    one = int(cluster.one)
+    key = (id(backend.megastep), dtype, kind, cluster.K, cluster.threads,
+           cluster.smem, one)
     if key not in _CAPACITY:
-        fn = backend.megastep.fn(f"tf_mega_capacity_{suffix(dtype)}", 0, 1)
-        got = fn(kind, None)
+        fn = backend.megastep.fn(f"tf_mega_capacity_{suffix(dtype)}", 0, 5)
+        got = fn(kind, cluster.K, cluster.threads, cluster.smem, one, None)
         if got <= 0:
             backend.megastep.check(-got or 1, "K6 capacity")
         _CAPACITY[key] = got
     return _CAPACITY[key]
 
 
-def _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk):
+def _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, ncl,
+             cluster):
     key = (plan, table, periodic, nsteps, max_iter, dt_min is not None, B,
-           nblk)
+           ncl, cluster)
     if key in _PREPARED:
         return _PREPARED[key]
     n_stages = len(table.stages)
-    sizes = _sizes(plan, n_stages)
-    offsets, at = [], 0
-    for name in _BUFFERS:
-        offsets.append(at)
-        at += sizes[name]
     coefs = np.zeros((MAX_STAGES + 1, 2, MAX_STAGES + 1))
     for k, (a_row, c_row) in enumerate(table.stages):
         coefs[k, 0, :len(a_row)] = a_row
@@ -396,14 +672,16 @@ def _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk):
         coefs[n_stages, r, :len(row)] = row
     rows = [1 + (c is not None) for _, c in table.stages] + [len(table.final)]
     rows += [1] * (MAX_STAGES + 1 - len(rows))
+    cp = cluster
     ints = [plan.N, plan.Mc, plan.C, int(plan.cyclic), int(plan.wrap),
             int(bool(periodic)), n_stages, nsteps,
             -1 if max_iter is None else int(max_iter),
-            int(dt_min is not None), B, nblk, at] + rows
-    if at >= 2 ** 31:
-        raise ValueError(f"K6: {at} scratch elements per block, more than the "
-                         "kernel's 32-bit slab size")
-    prepared = _Prepared(tuple(offsets), at, (ctypes.c_int * len(ints))(*ints),
+            int(dt_min is not None), B, ncl, cp.K, cp.threads, cp.Cc, cp.Nr,
+            cp.smem, cp.gslab] + rows + list(cp.homes) + list(cp.offsets)
+    if cp.gslab >= 2 ** 31 or plan.N * plan.nvar * B >= 2 ** 31:
+        raise ValueError(f"K6: {cp.gslab} bytes of global memory per CTA, "
+                         "more than the kernel's 32-bit slab size")
+    prepared = _Prepared(cp, (ctypes.c_int * len(ints))(*ints),
                          (ctypes.c_double * (9 + coefs.size))(*[0.0] * 9,
                                                               *coefs.ravel()))
     _PREPARED[key] = prepared
@@ -427,9 +705,12 @@ def _ptr(t):
 
 def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
             pstack, x, reals, nsteps=1, max_iter=None, dt_min=None,
-            kind=STEP_KIND, beta_b=None, scale_b=None, idt_b=None):
-    """Check the inputs, allocate the outputs and the scratch, launch one
-    K6 entry; returns (u_out, info (B, INFO) float64 on the device)."""
+            kind=STEP_KIND, beta_b=None, scale_b=None, idt_b=None,
+            cluster=None):
+    """Check the inputs, allocate the outputs, the states and the CTAs'
+    global slabs, launch one K6 entry on the cluster plan (``cluster``, or
+    ``cluster_plan``'s); returns (u_out, info (B, INFO) float64 on the
+    device)."""
     what = f"K6 {entry}"
     sysm = backend.system
     check_plan(plan, sysm, what)
@@ -446,25 +727,28 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")
-    nblk = min(B, capacity(backend, u.dtype, kind))
-    prep = _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, nblk)
+    if cluster is None:
+        cluster = cluster_plan(plan, len(table.stages), u.dtype, B)
+    ncl = min(B, capacity(backend, u.dtype, kind, cluster))
+    prep = _prepare(plan, table, periodic, nsteps, max_iter, dt_min, B, ncl,
+                    cluster)
     n = sysm.nvar * N
-    work = torch.empty(nblk * prep.slab + 2 * B * n, dtype=u.dtype,
-                       device=u.device)
+    states = torch.empty(2 * B * n, dtype=u.dtype, device=u.device)
+    gwork = torch.empty(max(1, ncl * cluster.K * cluster.gslab),
+                        dtype=torch.uint8, device=u.device)
     info = torch.empty((B, INFO), dtype=torch.float64, device=u.device)
     out = torch.empty_like(u)
     sync = errs = None
-    if kind == SHARED_KIND and nblk > 1:
+    if kind == SHARED_KIND and ncl > 1:
         sync = torch.zeros(2, dtype=torch.int32, device=u.device)
-        errs = torch.empty(2 * nblk, dtype=u.dtype, device=u.device)
-    item, base = u.element_size(), work.data_ptr()
-    states = base + nblk * prep.slab * item
-    ptrs = (ctypes.c_uint64 * (11 + len(_BUFFERS) + 2))(
+        errs = torch.empty(2 * ncl * cluster.K, dtype=u.dtype,
+                           device=u.device)
+    item = u.element_size()
+    ptrs = (ctypes.c_uint64 * 14)(
         u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-        info.data_ptr(), out.data_ptr(), _ptr(beta_b), _ptr(scale_b),
-        _ptr(idt_b), _ptr(sync), _ptr(errs),
-        *(base + at * item for at in prep.offsets), states,
-        states + B * n * item)
+        info.data_ptr(), out.data_ptr(), gwork.data_ptr(), states.data_ptr(),
+        states.data_ptr() + B * n * item, _ptr(beta_b), _ptr(scale_b),
+        _ptr(idt_b), _ptr(sync), _ptr(errs))
     prep.reals[:9] = reals
     lib = backend.megastep
     args = (ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
@@ -499,13 +783,14 @@ def _member_arg(v):
 
 
 def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
-         nsteps=1):
+         nsteps=1, cluster=None):
     """``nsteps`` steps of the table with factor shift ``beta`` and F scale
     ``scale`` (values of the model's dtype, or per-member (B,) tensors for
     u ``(B, nvar, N)``): returns (u_new, err), err of the last step (a 0-d
     tensor, or (B,) with a member axis; inf without an error row or where
     not finite).  CPU tensors take the plain version; CUDA tensors launch
-    K6's step entry once."""
+    K6's step entry once, on ``cluster`` (a ``ClusterPlan``) or
+    ``cluster_plan``'s."""
     if u.device.type == "cpu":
         if nsteps == 1:
             return step_plain(backend, plan, table, periodic, u, helpers,
@@ -520,7 +805,8 @@ def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
     out, info = _launch("step", STEP_LAUNCHES, backend, plan, table, periodic,
                         u, helpers, pstack, x,
                         _reals(beta=beta_v, scale=scale_v),
-                        nsteps=int(nsteps), beta_b=beta_b, scale_b=scale_b)
+                        nsteps=int(nsteps), beta_b=beta_b, scale_b=scale_b,
+                        cluster=cluster)
     return out, (info[:, 0] if u.ndim == 3 else info[0, 0])
 
 
@@ -557,40 +843,15 @@ def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
                       dt, nsteps)
 
 
-#: the mixed entry's scratch: the float64 slab's buffers, then the float32
-#: slab's, in the order of csrc/megastep.cu's MixedWork after its six
-#: leading addresses
-_MIXED64 = ("bands", "us", "ui", "bias", "rhs", "buf0", "buf1")
-_MIXED32 = ("bands32", "fac", "Dhinv", "DU", "Wsp", "Vsp", "Lred", "Ured",
-            "alphas", "betas", "Dinv", "pscr", "Z", "r32", "y", "yred", "xm1",
-            "xp1", "d32")
-
-
-def _mixed_offsets(plan, n_stages):
-    """(float64 offsets, float64 elements, float32 offsets, float32
-    elements) of the mixed entry's two slabs."""
-    sizes = _sizes(plan, n_stages)
-    n = plan.nvar * plan.N
-    sizes.update(bands32=sizes["bands"], r32=n, d32=n, buf0=n, buf1=n)
-    out = []
-    for names in (_MIXED64, _MIXED32):
-        offsets, at = [], 0
-        for name in names:
-            offsets.append(at)
-            at += sizes[name]
-        out += [offsets, at]
-    return out
-
-
 def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
-               scale, passes, nsteps=1):
+               scale, passes, nsteps=1, cluster=None):
     """``nsteps`` mixed-precision steps of the table (module doc) with
     factor shift ``beta`` and F scale ``scale`` (numbers) and ``passes``
     residual passes per stage solve, of one float64 grid: returns (u_new,
     err), err of the last step (a 0-d tensor; inf without an error row or
     where not finite).  CPU tensors take the plain version
     (``step_plain`` with ``passes``); CUDA tensors launch K6's mixed entry
-    once."""
+    once, on ``cluster`` or ``cluster_plan``'s (``mixed=True``)."""
     if u.device.type == "cpu":
         if nsteps == 1:
             return step_plain(backend, plan, table, periodic, u, helpers,
@@ -611,17 +872,21 @@ def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
                                   f"kernel takes 1 to {MAX_STAGES}")
     if nsteps < 1 or passes < 0:
         raise ValueError(f"{what}: nsteps = {nsteps}, passes = {passes}")
-    prep = _prepare(plan, table, periodic, int(nsteps), None, None, 1, 1)
-    off64, n64, off32, n32 = _mixed_offsets(plan, len(table.stages))
-    work64 = torch.empty(n64, dtype=torch.float64, device=u.device)
-    work32 = torch.empty(n32, dtype=torch.float32, device=u.device)
+    if cluster is None:
+        cluster = cluster_plan(plan, len(table.stages), torch.float64, 1,
+                               mixed=True)
+    prep = _prepare(plan, table, periodic, int(nsteps), None, None, 1, 1,
+                    cluster)
+    n = sysm.nvar * N
+    states = torch.empty(2 * n, dtype=torch.float64, device=u.device)
+    gwork = torch.empty(max(1, cluster.K * cluster.gslab), dtype=torch.uint8,
+                        device=u.device)
     info = torch.empty((1, INFO), dtype=torch.float64, device=u.device)
     out = torch.empty_like(u)
-    b64, b32 = work64.data_ptr(), work32.data_ptr()
-    ptrs = (ctypes.c_uint64 * (6 + len(_MIXED64) + len(_MIXED32)))(
+    ptrs = (ctypes.c_uint64 * 9)(
         u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-        info.data_ptr(), out.data_ptr(), *(b64 + 8 * at for at in off64),
-        *(b32 + 4 * at for at in off32))
+        info.data_ptr(), out.data_ptr(), gwork.data_ptr(), states.data_ptr(),
+        states.data_ptr() + n * 8)
     prep.reals[:9] = _reals(beta=float(beta), scale=float(scale))
     lib = backend.megastep_mixed
     fn = lib.fn("tf_mega_step_mixed_f64", 3, 1)
@@ -652,7 +917,7 @@ def theta_step_mixed(backend, plan, theta, periodic, u, helpers, pstack, x,
 
 def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                      t, dt, internal_dt, tol, safety, max_iter, dt_min, nsteps,
-                     per_member):
+                     per_member, cluster=None):
     """One launch of the adaptive entry; (u, info rows on the host).  One
     output step of one grid with a shared dt launches adaptive_kernel
     (counted as K6.adaptive), anything else scan_kernel (counted as
@@ -673,13 +938,14 @@ def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                internal_dt=float(internal_dt), tol=float(tol),
                safety=float(safety), dt_min=dt_min),
         nsteps=nsteps, max_iter=max_iter, dt_min=dt_min,
-        kind=MEMBER_KIND if per_member else SHARED_KIND, idt_b=idt_b)
+        kind=MEMBER_KIND if per_member else SHARED_KIND, idt_b=idt_b,
+        cluster=cluster)
     return out, info.cpu().numpy()
 
 
 def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
                       pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                      dt_min, per_member=False):
+                      dt_min, per_member=False, cluster=None):
     """One adaptive output step from ``t`` to ``t + dt`` (clamp and
     recompute): returns (u, dt_i, niter, status) with dt_i a scalar of the
     model's dtype, or with ``per_member`` (u of B members, each its own
@@ -689,7 +955,8 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
     tensors launch K6's adaptive entry, which runs that controller's
     arithmetic, once and read its results back once: one grid with a
     shared dt its adaptive_kernel (K6.adaptive), B > 1 members or per
-    member its scan_kernel (K6.adaptive_scan)."""
+    member its scan_kernel (K6.adaptive_scan); ``cluster`` (a
+    ``ClusterPlan``) overrides ``cluster_plan``'s."""
     if len(table.final) != 2:
         raise ValueError("K6 adaptive: the table has no error row")
     if u.device.type == "cpu":
@@ -698,7 +965,7 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
                               safety, max_iter, dt_min, per_member)
     out, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
                                  pstack, x, t, dt, internal_dt, tol, safety,
-                                 max_iter, dt_min, 1, per_member)
+                                 max_iter, dt_min, 1, per_member, cluster)
     T = _np_type(u)
     if per_member:
         return (out, info[:, 1].astype(T), info[:, 2].astype(np.int64),
@@ -708,7 +975,8 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
 
 def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
                   pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                  dt_min, nsteps, per_member=False, attempts=False):
+                  dt_min, nsteps, per_member=False, attempts=False,
+                  cluster=None):
     """``nsteps`` adaptive output steps of ``dt`` from ``t`` in one launch
     (the reference's ``row_adaptive_scan_folded``): every output step
     re-clamps its starting dt to ``dt``, and the loop stops after the first
@@ -733,7 +1001,8 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
         return out if per_member or attempts else out[:4]
     u2, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
                                 pstack, x, t, dt, internal_dt, tol, safety,
-                                max_iter, dt_min, int(nsteps), per_member)
+                                max_iter, dt_min, int(nsteps), per_member,
+                                cluster)
     T = _np_type(u)
     if per_member:
         return (u2, int(info[:, 4].min()), info[:, 1].astype(T),
