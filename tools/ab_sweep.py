@@ -11,7 +11,7 @@ archive``), the commit before K6's cluster body.  GRID words keep only
 the grids whose name holds one of them (``film``: the falling film's);
 ``+word`` arguments keep only those kernel groups (``KERNEL_GROUPS``:
 ``k2``, ``k4f``, ``setup``, ``shift``, ``k3``, ``corr``, ``k5``,
-``stencil``, ``k6``; all without).  ``+k6`` alone times K6's entries on
+``stencil``, ``k6``, ``batched``; all without).  ``+k6`` alone times K6's entries on
 ``K6_CASES`` (``k6_turns``: the outputs at the parent's chunk plan bit
 for bit or their gap, device µs and host-call ms of the parent, this at
 the parent's plan and this at its own).  Both packages load
@@ -36,8 +36,9 @@ C = 1024 and 4096), KS N = 10^6 (Woodbury), the padded ring of KS N =
 film (s = 6, three fields: K2's and K4's wide factors) at N = 10^6 under
 ``make_plan``'s plan and at C = 500, 1000, 2000 and 4000 (Woodbury), at N
 = 2^20 at C = 512, 2048 and 4096, and at 8192 chunks of 2^15 nodes
-(block-cyclic), config 5 (B = 1024 members of KS N = 10^5) and B = 16 and
-132 members at C = 100; K5 (``combine.combine``: A = 7 arrays, R = 2
+(block-cyclic), config 5 (B = 1024 members of KS N = 10^5), KS 2^13 at C
+= 64 (K4's one-block factor of one grid) and B = 16 and 132 members at C
+= 100 (its one-block-per-member factor and set-up); K5 (``combine.combine``: A = 7 arrays, R = 2
 rows, KS 2^20's shape) beside one ``torch.mm`` of the same coefficients
 over stacked operands; and K1's F (a scale and a bias, a RODASPR stage's
 call) on ``STENCIL_GRIDS`` with its outputs and J's against the parent's,
@@ -154,6 +155,7 @@ GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
          ("film 2^20 C=4096", 5, 3, 1 << 20, 1, 4096, 5),
          ("film 2^15 C=8192", 5, 3, 1 << 15, 1, 8192, 5),
          ("config 5", 5, 1, 10 ** 5, 1024, None, 3),
+         ("ks 2^13 C=64", 5, 1, 1 << 13, 1, 64, 20),
          ("ks 10^5 B=16 C=100", 5, 1, 10 ** 5, 16, 100, 5),
          ("ks 10^5 B=132 C=100", 5, 1, 10 ** 5, 132, 100, 5)]
 
@@ -189,8 +191,10 @@ def cold_copies(nbytes, first, clone):
 
 #: the kernel groups (``+word`` arguments): K2, K4's factor, its Woodbury
 #: set-up and R-column solve, its solve with shifts, K3's sweep and
-#: correction, K5, K1's F, F_terms and J, K6's entries
-KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "k6")
+#: correction, K5, K1's F, F_terms and J, K6's entries, K6's member-axis
+#: checks at B = 64 (``batched``)
+KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "k6",
+                 "batched")
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 FILM = (["-dxq",
@@ -340,6 +344,73 @@ def gap(new, old):
         return "equal"
     return "relative gap %.2e" % max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
                                      for a, b in zip(new, old))
+
+
+def batched_checks(old_port, B=64):
+    """Each side's own ``kernel_checks.check_megastep_batched`` at B
+    members on ``BATCH_MEGA_CASES``, both dtypes: its largest errors, or
+    the check that failed; beside it, per table of the check (RODASPR with
+    a shared and a per-member dt, Theta), whether either side's 3-step
+    launch holds a non-finite value, and how far the plain float32 step
+    lies from the plain float64 step of the same inputs (the rounding of
+    the problem itself)."""
+    from triflow_tpu_torch.ops import megastep
+
+    old_kc = importlib.import_module("parent_port.ops.kernel_checks")
+    old_ms = importlib.import_module("parent_port.ops.megastep")
+    for dtype in (torch.float64, torch.float32):
+        dt_name = str(dtype).replace("torch.", "")
+        T = np.float64 if dtype == torch.float64 else np.float32
+        for name, N, periodic, dt, adaptive in kernel_checks.BATCH_MEGA_CASES:
+            eqs = kernel_checks.MEGA_MODELS[name]
+            what = f"K6 batched {name} N={N} B={B} {dt_name}"
+            for side, make, kc in (("parent", old_port.Model, old_kc),
+                                   ("this", Model, kernel_checks)):
+                model = make(*eqs, double=dtype == torch.float64, device="cuda")
+                try:
+                    got = kc.check_megastep_batched(model, N, periodic, dt, "cuda",
+                                                    adaptive=adaptive, B=B)
+                    print(f"{what} {side}: passed, "
+                          + json.dumps({k: float(v) for k, v in got.items()}), flush=True)
+                except kc.CheckFailed as exc:
+                    print(f"{what} {side}: FAILED {exc}", flush=True)
+            model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+            m64 = Model(*eqs, double=True, device="cuda")
+            sysm = model.backend.system
+            plan = megastep.plan_for(N, sysm.nvar, sysm.halo, periodic, B)
+            if plan is None:
+                plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)._replace(B=B)
+            args = kernel_checks.mega_members(model, N, periodic, "cuda", B)
+            ros = kernel_checks.rodaspr_table()
+            dts = np.asarray(dt * (1.0 + 0.25 * np.arange(B)), dtype=T)
+            gdt_b = megastep.gdt_of(T, ros.g00, dts, "cuda")
+            g = float(T(ros.g00) * T(dt))
+            old_b = old_port.Model(*eqs, double=dtype == torch.float64, device="cuda").backend
+            old_plan = importlib.import_module("parent_port.ops.chunked").plan_with(
+                N, sysm.nvar, sysm.halo, periodic, plan.C, B)
+            parts = []
+            for tname, tables, beta, scale in (
+                    ("rodaspr", (old_kc.rodaspr_table(), ros), -g, g),
+                    ("rodaspr per-member", (old_kc.rodaspr_table(), ros), -gdt_b, gdt_b),
+                    ("theta=1", (old_ms.theta_table(1.0), megastep.theta_table(1.0)),
+                     -float(T(dt)), float(T(dt)))):
+                fin = []
+                for ms, b, pl, table in ((old_ms, old_b, old_plan, tables[0]),
+                                         (megastep, model.backend, plan, tables[1])):
+                    u3 = ms.step(b, pl, table, periodic, *args, beta, scale, nsteps=3)[0]
+                    fin.append(bool(torch.isfinite(u3).all()))
+                table = tables[1]
+                want = megastep.step_plain(model.backend, plan, table, periodic, *args, beta,
+                                           scale)[0]
+                b64 = (beta.double() if isinstance(beta, torch.Tensor) else beta,
+                       scale.double() if isinstance(scale, torch.Tensor) else scale)
+                want64 = megastep.step_plain(m64.backend, plan, table, periodic,
+                                             *(a.double() for a in args), *b64)[0]
+                rel = float((want.double() - want64).abs().max() / want64.abs().max())
+                parts.append(f"{tname}: 3-step launch finite parent {fin[0]} this {fin[1]}, "
+                             f"plain against plain float64 {rel:.3e}")
+            print(f"{what} (C={plan.C}): " + "; ".join(parts), flush=True)
+            torch.cuda.empty_cache()
 
 
 def main():
@@ -572,6 +643,8 @@ def main():
 
     if "k6" in kernels:
         k6_turns()
+    if "batched" in kernels:
+        batched_checks(old_port)
     for dtype in (torch.float64, torch.float32):
         if not grids:
             break

@@ -30,9 +30,10 @@
 //                  ending at the first nonzero status; it writes the
 //                  accepted state, dt_i, the attempts, the status (1:
 //                  max_iter exceeded, 2: dt below its floor) and the output
-//                  steps done.  Its caller picks the kernel: adaptive_kernel
-//                  (one output step of one grid with a shared dt) or
-//                  scan_kernel (everything else), and counts that kernel.
+//                  steps done.  Its caller counts the entry it asked for:
+//                  adaptive_kernel runs one output step of one grid with a
+//                  shared dt on a cluster, scan_kernel everything else
+//                  (one grid's output step on one CTA too).
 // An ensemble's adaptive steps run scan_kernel in two modes.
 // Shared dt (one clock for the ensemble, the reference's shared-dt
 // controller): an attempt's err is the max over all members, so every
@@ -47,8 +48,8 @@
 // members never wait for each other.  A cluster's working set is reused by
 // its members one after the other; the accepted and trial states are kept
 // per member in global memory and switched by pointer.  One grid (B = 1)
-// runs kernels without member offsets (kMembers false) and its
-// one-output-step adaptive entry its own kernel (adaptive_kernel): the
+// runs kernels without member offsets (kMembers false) and, on a cluster,
+// its one-output-step adaptive entry its own kernel (adaptive_kernel): the
 // member versions cost one grid registers and time (PERF.md).
 // A df64 model's mixed library (TF_MIXED, built only where its mixed
 // solve runs) has one entry instead, K6's mixed entry (step_mixed, one
@@ -594,10 +595,13 @@ __device__ __forceinline__ void grid_sync(unsigned* sync) {
 }
 
 // One adaptive output step of one grid (the entry ROW_general._adaptive
-// launches, with no member axis): the controller's state in shared memory,
-// the same in every CTA, the accepted and trial states switched by
-// pointer.
-template <typename T, bool kOne>
+// launches, with no member axis) on a cluster: the controller's state in
+// shared memory, the same in every CTA, the accepted and trial states
+// switched by pointer.  A one-grid output step on one CTA with every
+// buffer in shared memory runs scan_kernel's kOne instantiation instead:
+// a kOne instantiation of this kernel rounded a product and a sum of the
+// step apart from step_kernel's (PERF.md), which check_clusters catches.
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     adaptive_kernel(const Work<T> w, const Layout L, const Table<T> tab_in, const Ctl<T> ctl) {
   __shared__ Table<T> tab;
@@ -605,9 +609,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __shared__ int s_go, s_accept, s_clamped, s_niter, s_status;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
-  const Part<kOne> P = part_of<kOne>(w, L);
-  const Stage<T> st = stage_of<kOne, T>(L, smem, gl);
-  const Solver<T> s = solver_of<kOne, T>(L, smem, gl);
+  const Part<false> P = part_of<false>(w, L);
+  const Stage<T> st = stage_of<false, T>(L, smem, gl);
+  const Solver<T> s = solver_of<false, T>(L, smem, gl);
   const int tid = threadIdx.x;
   const T tiny = Lim<T>::min();
   if (tid == 0) {
@@ -1182,15 +1186,14 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   // cudaOccupancyMaxActiveClusters holds at once (the caller's ncl)
   const bool coop = shared && ncl > 1;
   if constexpr (kOneBody) {
+    // one CTA: the scan kernel also for one grid's output step
     if (one_cta(L))
-      return scan ? launch<kScan + 1>(scan_kernel<T, true>, ncl, L, coop, s, w, L, tab, ctl,
-                                      nsteps, shared)
-                  : launch<kAdaptive + 1>(adaptive_kernel<T, true>, 1, L, false, s, w, L, tab,
-                                          ctl);
+      return launch<kScan + 1>(scan_kernel<T, true>, ncl, L, coop, s, w, L, tab, ctl, nsteps,
+                               shared);
   }
   return scan ? launch<kScan>(scan_kernel<T, false>, ncl, L, coop, s, w, L, tab, ctl, nsteps,
                               shared)
-              : launch<kAdaptive>(adaptive_kernel<T, false>, 1, L, false, s, w, L, tab, ctl);
+              : launch<kAdaptive>(adaptive_kernel<T>, 1, L, false, s, w, L, tab, ctl);
 }
 
 #if TF_MIXED

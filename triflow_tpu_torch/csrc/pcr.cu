@@ -24,11 +24,11 @@
 // alpha / beta of those rows are zero) and closed by a rank-S2 Woodbury
 // correction A^-1 b = y - Z (I + V^T Z)^-1 V^T y, y = A0^-1 b, where the
 // columns U carry the corner blocks and V^T reads the two ring-end
-// unknowns (pcr.cuh: woodbury_block).  The solve entry sets it up once
+// unknowns (pcr.cuh: woodbury_cluster).  The solve entry sets it up once
 // per factor: the S2 columns of Z are solved like any R right-hand sides
 // (below), then one block per member forms the S2 x S2 capacitance from
 // the columns' ring-end chunks and inverts it in shared memory
-// (woodbury_cap_kernel: woodbury_block's Gauss-Jordan, in its order).
+// (woodbury_cap_kernel: woodbury_cap_block's Gauss-Jordan).
 //
 // The R-column solve (the set-up's columns, or given right-hand sides)
 // runs one thread-block cluster per (member, column): the cluster solve
@@ -143,8 +143,8 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 // it is read with ld.global.cg, past the reading SM's L1, which may hold a
 // line another SM rewrote since.  The inputs Lred / Ured and the outputs
 // (alphas, betas, Dinv) keep the chunk-minor layout (S2, S2, C) of the
-// other entries.  The products, sums and inverses are pcr_factor_block's,
-// in the same order.
+// other entries.  The products, sums and inverses are pcr.cuh's
+// pcr_factor_cluster's, in the same order.
 //
 // Two bodies, fixed by S2 at compile time (grid_factor_kernel):
 // - lane groups (pcr_factor_grid_kernel, S2 = 4..16): one group of S2
@@ -408,6 +408,9 @@ __global__ void __launch_bounds__(kGridFactorThreads)
 }
 #endif
 
+// A member's C chunks all on this thread block (pcr.cuh's bodies)
+__device__ __forceinline__ tf::Local one_block(int C) { return tf::Local{1, 0, C, C, 0, C}; }
+
 __device__ __forceinline__ int levels(int C) {
   int n = 0;
   for (int d = 1; d < C; d *= 2) ++n;
@@ -420,8 +423,9 @@ __global__ void __launch_bounds__(kThreads)
                       T* betas, T* Dinv, T* scratch, int C, int cyclic) {
   const long b = kMembers ? blockIdx.x : 0, blk = (long)S2 * S2 * C,
              ops = kMembers ? levels(C) * blk : 0;
-  tf::pcr_factor_block<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
-                              betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk, C, cyclic);
+  tf::pcr_factor_cluster<T, S2>(Lred + b * blk, Ured + b * blk, alphas + b * ops,
+                                betas + b * ops, Dinv + b * blk, scratch + b * 7 * blk,
+                                one_block(C), cyclic);
 }
 
 template <typename T, int S2, bool kMembers>
@@ -430,21 +434,22 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ Dinv, const T* __restrict__ b,
                      const T* __restrict__ Lred, const T* __restrict__ Ured, T* out, T* cap_inv,
                      T* scratch, int C, int R) {
-  // woodbury_block inverts the capacitance with one thread per entry of
+  // woodbury_cluster inverts the capacitance with one thread per entry of
   // [cap | I]: every instantiated S2 needs 2 S2^2 <= kThreads (512 at 16)
   static_assert(2 * S2 * S2 <= kThreads, "the Woodbury set-up needs 2 S2^2 threads");
+  const tf::Local sp = one_block(C);
   if constexpr (kMembers) {
     const long m = blockIdx.x, blk = (long)S2 * S2 * C, ops = levels(C) * blk;
     const long col = (long)S2 * C, cols = R * col;
     if (b) {
-      tf::pcr_solve_cols_block<T, S2>(
+      tf::pcr_solve_cols_cluster<T, S2>(
           alphas + m * ops, betas + m * ops, Dinv + m * blk,
           [&](int r, int row, int c) { return b[m * cols + r * col + (long)row * C + c]; },
-          out + m * cols, scratch + m * 2 * cols, C, R);
+          out + m * cols, scratch + m * 2 * cols, sp, R);
     } else {
-      tf::woodbury_block<T, S2>(alphas + m * ops, betas + m * ops, Dinv + m * blk,
-                                Lred + m * blk, Ured + m * blk, out + m * blk,
-                                cap_inv + m * S2 * S2, scratch + m * 2 * cols, C);
+      tf::woodbury_cluster<T, S2>(alphas + m * ops, betas + m * ops, Dinv + m * blk,
+                                  Lred + m * blk, Ured + m * blk, out + m * blk,
+                                  cap_inv + m * S2 * S2, scratch + m * 2 * cols, sp);
     }
   } else {
     // one grid: the body without member offsets, as it was before them (the
@@ -452,11 +457,11 @@ __global__ void __launch_bounds__(kThreads)
     // H100 for the Woodbury set-up, with as many instructions; PERF.md)
     if (b) {
       const long col = (long)S2 * C;
-      tf::pcr_solve_cols_block<T, S2>(
+      tf::pcr_solve_cols_cluster<T, S2>(
           alphas, betas, Dinv, [&](int r, int row, int c) { return b[r * col + (long)row * C + c]; },
-          out, scratch, C, R);
+          out, scratch, sp, R);
     } else {
-      tf::woodbury_block<T, S2>(alphas, betas, Dinv, Lred, Ured, out, cap_inv, scratch, C);
+      tf::woodbury_cluster<T, S2>(alphas, betas, Dinv, Lred, Ured, out, cap_inv, scratch, sp);
     }
   }
 }
@@ -492,7 +497,7 @@ enum ClusterMode { kShifts = 0, kShiftsWood = 1, kColumns = 2 };
 // of two: a chunk's owner and place are a shift and a mask).  Thread (r,
 // cl) of a tile of Ct chunks (r = tid / Ct < S2) computes row r of chunk
 // cl, the same products and sums in the same order as pcr.cuh's
-// pcr_solve_shift_cluster and pcr_solve_cols_block.  The level operators
+// pcr_solve_shift_cluster and pcr_solve_cols_cluster.  The level operators
 // (and Dinv after them) stream through a ring of D slabs, each one
 // level's row r of both operators for the thread's chunks of a tile,
 // which the thread copies itself with cp.async D - 1 slabs ahead (all of
@@ -741,7 +746,7 @@ auto cluster_kernel() {
 }
 
 // The capacitance of the Woodbury closure of each member (pcr.cuh:
-// woodbury_cap_block, the Gauss-Jordan of the one-block set-up), one block
+// woodbury_cap_block, the Gauss-Jordan of woodbury_cluster), one block
 // of 2 S2^2 threads (rounded up to a warp) per member, after the cluster
 // solve of its columns Z
 template <typename T, int S2>

@@ -1,16 +1,15 @@
 // The bodies of K4 (pcr.cu) and K6 (megastep.cu) for the PCR of the
-// chunk-interface system.  One-block bodies (K4's, where they win: the
-// factor on few chunks, the R-column solve where members fill the card,
-// and K4's own capacitance kernel takes woodbury_cap_block): the PCR
-// factor and the solve of R right-hand sides (and with it the Woodbury
-// set-up of a ring factored acyclic), each run by ONE thread block whose
-// threads stride over the C chunks.  Cluster bodies (K6's, below): the
-// factor, the R-column solve, the Woodbury set-up and the reduced solve
-// with neighbour shifts over a member's chunks spread on a thread-block
-// cluster, the same products and sums per chunk.  pcr.cu describes the
-// algebra.  Every caller's threads must all enter (the bodies hold
-// barriers).  No __restrict__ on the pointers: K6 reads buffers it wrote
-// earlier in the same launch.
+// chunk-interface system: the PCR factor, the solve of R right-hand sides
+// (and with it the Woodbury set-up of a ring factored acyclic) and the
+// reduced solve with neighbour shifts, over a member's chunks spread on a
+// thread-block cluster (tf::Spread, K6) or all on one thread block whose
+// threads stride over them (tf::Local: K6's one-CTA members and K4's
+// one-block kernels, where they win: the factor on few chunks, the
+// R-column solve where members fill the card).  K4's own capacitance
+// kernel takes woodbury_cap_block.  pcr.cu describes the algebra.  Every
+// caller's threads must all enter (the bodies hold barriers).  No
+// __restrict__ on the pointers: K6 reads buffers it wrote earlier in the
+// same launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -39,110 +38,10 @@ __device__ __forceinline__ Blk<T, S> neg(const Blk<T, S>& a) {
   return c;
 }
 
-// scratch: 7 x (S2, S2, C)
-template <typename T, int S2>
-__device__ __forceinline__ void pcr_factor_block(const T* Lred, const T* Ured, T* alphas,
-                                                 T* betas, T* Dinv, T* scratch, int C,
-                                                 int cyclic) {
-  const long sz = (long)S2 * S2 * C;
-  T* Lb[2] = {scratch, scratch + 3 * sz};
-  T* Db[2] = {scratch + sz, scratch + 4 * sz};
-  T* Ub[2] = {scratch + 2 * sz, scratch + 5 * sz};
-  T* Dt = scratch + 6 * sz;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    Blk<T, S2> I;
-    eye(I);
-    store_blk(Lb[0], 0, c, C, load_blk<T, S2>(Lred, 0, c, C));
-    store_blk(Ub[0], 0, c, C, load_blk<T, S2>(Ured, 0, c, C));
-    store_blk(Db[0], 0, c, C, I);
-  }
-  __syncthreads();
-  int cur = 0, lev = 0;
-  for (int d = 1; d < C; d *= 2, ++lev) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      store_blk(Dt, 0, c, C, inv(load_blk<T, S2>(Db[cur], 0, c, C)));
-    __syncthreads();
-    const int nxt = cur ^ 1;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const int cm = (c - d + C) % C, cp = (c + d) % C;
-      Blk<T, S2> alpha = neg(mm(load_blk<T, S2>(Lb[cur], 0, c, C), load_blk<T, S2>(Dt, 0, cm, C)));
-      Blk<T, S2> beta = neg(mm(load_blk<T, S2>(Ub[cur], 0, c, C), load_blk<T, S2>(Dt, 0, cp, C)));
-      if (!cyclic && c < d) zero(alpha);
-      if (!cyclic && c >= C - d) zero(beta);
-      const Blk<T, S2> Lm = load_blk<T, S2>(Lb[cur], 0, cm, C);
-      const Blk<T, S2> Um = load_blk<T, S2>(Ub[cur], 0, cm, C);
-      const Blk<T, S2> Lp = load_blk<T, S2>(Lb[cur], 0, cp, C);
-      const Blk<T, S2> Up = load_blk<T, S2>(Ub[cur], 0, cp, C);
-      const Blk<T, S2> D = add(add(load_blk<T, S2>(Db[cur], 0, c, C), mm(alpha, Um)),
-                               mm(beta, Lp));
-      store_blk(Db[nxt], 0, c, C, D);
-      store_blk(Lb[nxt], 0, c, C, mm(alpha, Lm));
-      store_blk(Ub[nxt], 0, c, C, mm(beta, Up));
-      store_blk(alphas, lev, c, C, alpha);
-      store_blk(betas, lev, c, C, beta);
-    }
-    __syncthreads();
-    cur = nxt;
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    Blk<T, S2> D = load_blk<T, S2>(Db[cur], 0, c, C);
-    if (cyclic) D = add(D, add(load_blk<T, S2>(Lb[cur], 0, c, C), load_blk<T, S2>(Ub[cur], 0, c, C)));
-    store_blk(Dinv, 0, c, C, inv(D));
-  }
-}
-
 template <typename T, int S2>
 __device__ __forceinline__ void load_vec(const T* p, int c, int C, T (&v)[S2]) {
 #pragma unroll
   for (int r = 0; r < S2; ++r) v[r] = p[(long)r * C + c];
-}
-
-// Solve of R right-hand sides, rhs(r, row, c) the entry `row` of column r
-// at chunk c, into out (R, S2, C).  Every level is one phase for all R
-// columns: each thread takes its chunks of every column before the
-// level's sync (nested loops: a flat stride over the R * C pairs costs an
-// integer division per pair).  The last phase writes out; the caller
-// syncs before reading it.
-// scratch: 2 x (R, S2, C)
-template <typename T, int S2, typename Rhs>
-__device__ __forceinline__ void pcr_solve_cols_block(const T* alphas, const T* betas,
-                                                     const T* Dinv, Rhs rhs, T* out, T* scratch,
-                                                     int C, int R) {
-  const long col = (long)S2 * C;
-  T* bb[2] = {scratch, scratch + R * col};
-  for (int r = 0; r < R; ++r)
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-#pragma unroll
-      for (int row = 0; row < S2; ++row) bb[0][r * col + (long)row * C + c] = rhs(r, row, c);
-  __syncthreads();
-  int cur = 0, lev = 0;
-  for (int d = 1; d < C; d *= 2, ++lev) {
-    for (int r = 0; r < R; ++r) {
-      const T* src = bb[cur] + r * col;
-      T* dst = bb[cur ^ 1] + r * col;
-      for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        const int cm = (c - d + C) % C, cp = (c + d) % C;
-        T b[S2], bm[S2], bp[S2], ta[S2], tb[S2];
-        load_vec<T, S2>(src, c, C, b);
-        load_vec<T, S2>(src, cm, C, bm);
-        load_vec<T, S2>(src, cp, C, bp);
-        mv(load_blk<T, S2>(alphas, lev, c, C), bm, ta);
-        mv(load_blk<T, S2>(betas, lev, c, C), bp, tb);
-#pragma unroll
-        for (int row = 0; row < S2; ++row) dst[(long)row * C + c] = b[row] + ta[row] + tb[row];
-      }
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-  for (int r = 0; r < R; ++r)
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      T b[S2], z[S2];
-      load_vec<T, S2>(bb[cur] + r * col, c, C, b);
-      mv(load_blk<T, S2>(Dinv, 0, c, C), b, z);
-#pragma unroll
-      for (int row = 0; row < S2; ++row) out[r * col + (long)row * C + c] = z[row];
-    }
 }
 
 // The capacitance of the Woodbury closure: cap_inv (S2 x S2) is the
@@ -187,30 +86,7 @@ __device__ __forceinline__ void woodbury_cap_block(const T* Z, T* cap_inv, int C
                          cap_inv, C);
 }
 
-// The Woodbury closure of a ring factored acyclic in one block: Z (S2
-// columns j, S2, C) solves the columns u_j = e_0 (x) Lred[:, S+j, 0] (j < S)
-// and u_j = e_{C-1} (x) Ured[:, j-S, C-1] (j >= S), and cap_inv is the
-// inverse of its capacitance (woodbury_cap_block): blockDim must be >= 2
-// S2^2.  K6's body; K4 solves the columns over thread-block clusters
-// (pcr.cu).  The caller syncs before reading cap_inv.
-// scratch: 2 x (S2, S2, C)
-template <typename T, int S2>
-__device__ __forceinline__ void woodbury_block(const T* alphas, const T* betas, const T* Dinv,
-                                               const T* Lred, const T* Ured, T* Z, T* cap_inv,
-                                               T* scratch, int C) {
-  constexpr int S = S2 / 2;
-  pcr_solve_cols_block<T, S2>(
-      alphas, betas, Dinv,
-      [&](int j, int row, int c) -> T {
-        if (j < S) return c == 0 ? Lred[((long)row * S2 + S + j) * C] : T(0);
-        return c == C - 1 ? Ured[((long)row * S2 + j - S) * C + C - 1] : T(0);
-      },
-      Z, scratch, C, S2);
-  __syncthreads();
-  woodbury_cap_block<T, S2>(Z, cap_inv, C);
-}
-
-// ---- the cluster bodies (K6: a member's step on a thread-block cluster) ----
+// ---- the bodies over a member's chunks ----
 //
 // A member's C chunks spread over the K CTAs of a thread-block cluster:
 // CTA `rank` owns chunks [c0, c0 + nc), c0 = rank Cc, and holds every
@@ -222,9 +98,10 @@ __device__ __forceinline__ void woodbury_block(const T* alphas, const T* betas, 
 // that wrote them (a cluster barrier, arrive with release and wait with
 // acquire semantics; a block barrier for a cluster of one CTA).  A member
 // on one CTA takes Local instead, the same interface with every chunk its
-// own, so that the compiler keeps every address in the shared-memory
-// window.  Every thread of every CTA must call the bodies.  Each chunk's products and
-// sums are the one-block bodies' above, in their order: only where the
+// own (Cc = nc = C, c0 = 0), so that the compiler keeps every address in
+// K6's shared-memory window; K4's one-block kernels take it on global
+// memory.  Every thread of every CTA must call the bodies.  Each chunk's
+// products and sums are the same whatever the policy: only where the
 // entries live moves.
 struct Spread {
   // the PCR factor inverts a neighbour's diagonal block where it reads it:
@@ -251,10 +128,10 @@ struct Spread {
   }
 };
 
-// A member's chunks all on one CTA (Spread's interface)
+// A member's chunks all on one thread block (Spread's interface)
 struct Local {
-  // the PCR factor inverts each block once and stores it (Dt), as the
-  // one-block body does: a block barrier is cheap, an S2 x S2 inverse not
+  // the PCR factor inverts each block once and stores it (Dt): a block
+  // barrier is cheap, an S2 x S2 inverse not
   static constexpr bool kStoredInverse = true;
   int K, rank, Cc, C, c0, nc;
 
@@ -267,18 +144,18 @@ struct Local {
 };
 
 // c - d and c + d around a ring of C chunks (0 <= c < C, 0 < d < C): a
-// compare and an add where the one-block bodies take a remainder
+// compare and an add, not a remainder
 __device__ __forceinline__ int ring_sub(int c, int d, int C) { return c < d ? c - d + C : c - d; }
 __device__ __forceinline__ int ring_add(int c, int d, int C) { return c + d >= C ? c + d - C : c + d; }
 
-// pcr_factor_block on the cluster: Lred, Ured, alphas, betas and Dinv are
-// this CTA's shares; scratch (7 x (S2, S2, Cc), shared memory) holds both
-// level buffers of L, D and U and the inverted diagonal blocks Dt.  Across
-// CTAs each thread inverts its neighbours' diagonal blocks itself (the
-// one-block body's Dt, computed where it is read), so a level is one phase
-// and one barrier; on one CTA (Sp::kStoredInverse) each block is inverted
-// once into Dt, a block barrier before the level reads it.  The caller
-// syncs (a block barrier) before reading Dinv.
+// The PCR factor (pcr.cu): Lred, Ured, alphas, betas and Dinv are this
+// CTA's shares; scratch (7 x (S2, S2, Cc); shared memory on a cluster)
+// holds both level buffers of L, D and U and the inverted diagonal blocks
+// Dt.  Across CTAs each thread inverts its neighbours' diagonal blocks
+// itself (Dt computed where it is read), so a level is one phase and one
+// barrier; on one block (Sp::kStoredInverse) each block is inverted once
+// into Dt, a block barrier before the level reads it.  The caller syncs
+// (a block barrier) before reading Dinv.
 template <typename T, int S2, typename Sp>
 __device__ __forceinline__ void pcr_factor_cluster(const T* Lred, const T* Ured, T* alphas,
                                                    T* betas, T* Dinv, T* scratch, const Sp& sp,
@@ -307,16 +184,17 @@ __device__ __forceinline__ void pcr_factor_cluster(const T* Lred, const T* Ured,
     }
     for (int l = threadIdx.x; l < sp.nc; l += blockDim.x) {
       const int c = sp.c0 + l, cm = ring_sub(c, d, C), cp = ring_add(c, d, C);
-      Blk<T, S2> im, ip;
-      if constexpr (Sp::kStoredInverse) {
-        im = load_blk<T, S2>(sp.at(Dt, cm), 0, 0, Cc);
-        ip = load_blk<T, S2>(sp.at(Dt, cp), 0, 0, Cc);
-      } else {
-        im = inv(load_blk<T, S2>(sp.at(Db[cur], cm), 0, 0, Cc));
-        ip = inv(load_blk<T, S2>(sp.at(Db[cur], cp), 0, 0, Cc));
-      }
-      Blk<T, S2> alpha = neg(mm(load_blk<T, S2>(Lb[cur], 0, l, Cc), im));
-      Blk<T, S2> beta = neg(mm(load_blk<T, S2>(Ub[cur], 0, l, Cc), ip));
+      // the inverted neighbour block where alpha (beta) takes it: one of the
+      // two alive at a time (both at once spilled more of the f64 S2 = 4
+      // factor at 128 registers)
+      auto dinv = [&](int cc) -> Blk<T, S2> {
+        if constexpr (Sp::kStoredInverse)
+          return load_blk<T, S2>(sp.at(Dt, cc), 0, 0, Cc);
+        else
+          return inv(load_blk<T, S2>(sp.at(Db[cur], cc), 0, 0, Cc));
+      };
+      Blk<T, S2> alpha = neg(mm(load_blk<T, S2>(Lb[cur], 0, l, Cc), dinv(cm)));
+      Blk<T, S2> beta = neg(mm(load_blk<T, S2>(Ub[cur], 0, l, Cc), dinv(cp)));
       if (!cyclic && c < d) zero(alpha);
       if (!cyclic && c >= C - d) zero(beta);
       const Blk<T, S2> Lm = load_blk<T, S2>(sp.at(Lb[cur], cm), 0, 0, Cc);
@@ -341,9 +219,13 @@ __device__ __forceinline__ void pcr_factor_cluster(const T* Lred, const T* Ured,
   }
 }
 
-// pcr_solve_cols_block on the cluster: rhs(r, row, c) for the global chunk
-// c, out (R, S2, Cc) this CTA's share; scratch 2 x (R, S2, Cc), shared
-// memory.  The caller syncs before reading out.
+// Solve of R right-hand sides, rhs(r, row, c) the entry `row` of column r
+// at the global chunk c, into out (R, S2, Cc), this CTA's share.  Every
+// level is one phase for all R columns: each thread takes its chunks of
+// every column before the level's barrier (nested loops: a flat stride
+// over the R * C pairs costs an integer division per pair).  scratch 2 x
+// (R, S2, Cc), shared memory on a cluster.  The caller syncs before
+// reading out.
 template <typename T, int S2, typename Rhs, typename Sp>
 __device__ __forceinline__ void pcr_solve_cols_cluster(const T* alphas, const T* betas,
                                                        const T* Dinv, Rhs rhs, T* out,
@@ -386,11 +268,14 @@ __device__ __forceinline__ void pcr_solve_cols_cluster(const T* alphas, const T*
     }
 }
 
-// woodbury_block on the cluster: Z (S2 columns, S2, Cc) this CTA's share
-// (shared memory), read by the others; Lred and Ured shared memory too
-// (the columns start at chunk 0 and C-1); every CTA inverts the
-// capacitance itself into its own cap_inv (blockDim >= 2 S2^2).  The
-// caller syncs before reading cap_inv.
+// The Woodbury closure of a ring factored acyclic: Z (S2 columns j, S2,
+// Cc, this CTA's share) solves the columns u_j = e_0 (x) Lred[:, S+j, 0]
+// (j < S) and u_j = e_{C-1} (x) Ured[:, j-S, C-1] (j >= S), and cap_inv is
+// the inverse of its capacitance (woodbury_cap_at), which every CTA
+// inverts itself into its own cap_inv (blockDim >= 2 S2^2).  On a cluster
+// Z, Lred and Ured are in shared memory (the others read Z, and the
+// columns start at chunk 0 and C-1).  The caller syncs before reading
+// cap_inv.
 template <typename T, int S2, typename Sp>
 __device__ __forceinline__ void woodbury_cluster(const T* alphas, const T* betas, const T* Dinv,
                                                  const T* Lred, const T* Ured, T* Z, T* cap_inv,
@@ -416,7 +301,7 @@ __device__ __forceinline__ void woodbury_cluster(const T* alphas, const T* betas
 // woodbury_cluster) the acyclic solution z is corrected first, z - sum_j
 // coef_j Z_j with coef = cap_inv V^T z: the 2 S2 scalars vt and coef sit in
 // shared memory, and every thread corrects the neighbour entries it
-// shifts.  The levels are pcr_solve_cols_block's with one column.  yred
+// shifts.  The levels are pcr_solve_cols_cluster's with one column.  yred
 // (S2, Cc), xm1 and xp1 (S, Cc)
 // this CTA's shares; Z (a Woodbury plan) shared memory; cap_inv this
 // CTA's; scratch 3 x (S2, Cc), shared memory: the level buffers and the

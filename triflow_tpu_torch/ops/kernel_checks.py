@@ -1142,28 +1142,6 @@ def _same(outs, what):
                 raise CheckFailed(f"{what}: K = {k} differs from K = {ks[0]}")
 
 
-def _agree(outs, dtype, what, results, key):
-    """The adaptive entries' outputs ({cluster size: (u, dt_i, attempts,
-    status, ...)}) across cluster sizes: attempts and status equal, u
-    within the solver tolerance and dt_i within the dt limit of the
-    first's (the one-CTA and cluster instantiations round apart where
-    nvcc contracts a product and a sum in one and not the other; PERF.md
-    §6); the largest u gap is recorded under ``key``."""
-    ks = sorted(outs)
-    first = outs[ks[0]]
-    for k in ks[1:]:
-        got = outs[k]
-        if not all(np.array_equal(np.asarray(a), np.asarray(b))
-                   for a, b in zip(first[2:], got[2:])):
-            raise CheckFailed(f"{what}: K = {k} takes other attempts or status than "
-                              f"K = {ks[0]}: {got[2:]} against {first[2:]}")
-        _record(results, key, got[0], first[0], TOL[dtype]["solve"], f"K={k} {what}")
-        dt_a, dt_b = (np.asarray(x, np.float64) for x in (got[1], first[1]))
-        gap = float(np.max(np.abs(dt_a - dt_b) / np.abs(dt_b)))
-        if not gap <= TOL[dtype]["dt"]:
-            raise CheckFailed(f"{what}: dt_i of K = {k} {gap:.3e} from K = {ks[0]}'s")
-
-
 def check_clusters(device, dtype, results=None, sizes=None, B=None, skipped=None):
     """K6 on every cluster size of ``sizes`` (``megastep.CLUSTER_SIZES``)
     that holds each of ``CLUSTER_CASES`` (a size that cannot is skipped
@@ -1171,10 +1149,10 @@ def check_clusters(device, dtype, results=None, sizes=None, B=None, skipped=None
     the adaptive entry, B members' step and adaptive scans (a shared dt
     and per member) and, in float64, the mixed entry; each against its
     plain version within the solver tolerance, the adaptive ones with
-    equal attempts; every cluster size's outputs of the step and mixed
-    entries bit for bit equal to the others' (only where the working set
-    lives changes with K), the adaptive entries' with equal attempts and
-    within the tolerances (``_agree``).
+    equal attempts; every cluster size's outputs of every entry bit for
+    bit equal to the others' (only where the working set lives changes
+    with K), and the adaptive entry's first attempt, accepted, bit for bit
+    the step entry's step.
     Returns {kernel entry: max abs error}; the sizes that hold no member
     are appended to ``skipped``."""
     from ..core.model import Model
@@ -1238,7 +1216,17 @@ def check_clusters(device, dtype, results=None, sizes=None, B=None, skipped=None
                 if not _dt_gap(got[1], want[1]) <= TOL[dtype]["dt"]:
                     raise CheckFailed(f"K6.adaptive dt_i K={K} {what}")
                 outs[K] = got
-            _agree(outs, dtype, f"K6.adaptive {what}", results, "K6.adaptive across K")
+            _same(outs, f"K6.adaptive {what}")
+            # the first attempt at the fixed dt, accepted (tol huge), is one
+            # step of the step entry's arithmetic, bit for bit
+            for K, cp in clusters(plan, len(ros.stages)).items():
+                got = megastep.row_adaptive_step(
+                    adaptive_controller, b, plan, ros, periodic, *args, 0.0, float(T(dt)),
+                    float(T(dt)), 1e30, 0.9, None, None, cluster=cp)
+                want = megastep.step(b, plan, ros, periodic, *args, -gdt, gdt, cluster=cp)[0]
+                if got[2] != 1 or not torch.equal(got[0], want):
+                    raise CheckFailed(f"K6.adaptive K={K} {what}: the first attempt accepted "
+                                      "is not bit for bit the step entry's step")
     for name, N, periodic, C, dt, adaptive in CLUSTER_MEMBER_CASES:
         model = Model(*MEGA_MODELS[name], double=dtype == torch.float64, device=device)
         b = model.backend
@@ -1273,8 +1261,7 @@ def check_clusters(device, dtype, results=None, sizes=None, B=None, skipped=None
                     raise CheckFailed(f"K6.adaptive_scan {mode} K={K} {what}: attempts "
                                       f"{got[4]} against the plain {plain[4]}")
                 outs[K] = (got[0], got[2], got[4], got[3], got[1])
-            _agree(outs, dtype, f"K6.adaptive_scan {mode} {what}", results,
-                   "K6.adaptive_scan across K")
+            _same(outs, f"K6.adaptive_scan {mode} {what}")
     if dtype != torch.float64:
         return results
     for name, N, periodic, C, dt in CLUSTER_MIXED_CASES:

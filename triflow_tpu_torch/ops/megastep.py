@@ -65,9 +65,10 @@ from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
 from .thomas import members
 
 #: launches of the fixed-step entry (1 or nsteps steps) and of the adaptive
-#: entry's two kernels: adaptive_kernel (one output step of one grid with a
-#: shared dt) and scan_kernel (the adaptive scan: nsteps output steps, and
-#: every adaptive output step of B > 1 members or per member)
+#: entry's two uses: one output step of one grid with a shared dt
+#: (adaptive_kernel on a cluster, scan_kernel on one CTA with every buffer
+#: in shared memory) and the adaptive scan (scan_kernel: nsteps output
+#: steps, and every adaptive output step of B > 1 members or per member)
 STEP_LAUNCHES = Counter("K6.step")
 ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
 SCAN_LAUNCHES = Counter("K6.adaptive_scan")
@@ -919,9 +920,9 @@ def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                      t, dt, internal_dt, tol, safety, max_iter, dt_min, nsteps,
                      per_member, cluster=None):
     """One launch of the adaptive entry; (u, info rows on the host).  One
-    output step of one grid with a shared dt launches adaptive_kernel
-    (counted as K6.adaptive), anything else scan_kernel (counted as
-    K6.adaptive_scan)."""
+    output step of one grid with a shared dt is counted as K6.adaptive (the
+    library runs adaptive_kernel on a cluster, scan_kernel on one CTA),
+    anything else as K6.adaptive_scan (scan_kernel)."""
     B, _ = members(u, 2)
     scan = per_member or B > 1 or nsteps > 1
     entry = "adaptive_scan" if scan else "adaptive"
@@ -954,8 +955,8 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
     ``adaptive_controller``, or ``member_controller`` per member); CUDA
     tensors launch K6's adaptive entry, which runs that controller's
     arithmetic, once and read its results back once: one grid with a
-    shared dt its adaptive_kernel (K6.adaptive), B > 1 members or per
-    member its scan_kernel (K6.adaptive_scan); ``cluster`` (a
+    shared dt K6.adaptive, B > 1 members or per member K6.adaptive_scan
+    (``_adaptive_launch``); ``cluster`` (a
     ``ClusterPlan``) overrides ``cluster_plan``'s."""
     if len(table.final) != 2:
         raise ValueError("K6 adaptive: the table has no error row")
@@ -987,8 +988,8 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
     attempts summed over the steps.  CPU tensors take the plain version
     (``adaptive_scan_plain``, decided by ``controller``); CUDA tensors
     launch K6's scan_kernel (K6.adaptive_scan) once and read its results
-    back once; one output step of one grid with a shared dt launches
-    adaptive_kernel (K6.adaptive) instead.
+    back once; one output step of one grid with a shared dt is the
+    adaptive entry (K6.adaptive) instead.
     Per member a member stops at its own first nonzero status;
     steps_done is the fewest any member did and status the largest."""
     if nsteps < 1:
