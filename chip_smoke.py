@@ -214,6 +214,25 @@ the refit (``REDESIGN_SHAPES``, ``REFIT_SHAPES``: host ms, device µs on
 inputs cold in L2, the bytes bound), and K1's tiled F beside the F entry
 of before (``STENCIL_SHAPES``).
 
+K1's J entry on warp tiles (a warp per 32 nodes of one member, the
+span's halo exchanged by shuffles) and K7's tiled body (v's span of a tile
+in shared memory, the bands streamed by 16-byte loads, (W, nvar) fixed at
+compile time for W = 3, 5, 7 and nvar = 1, 2, 3 and at run time for the
+rest) run in each phase too: phase 0 prints the registers and spills of
+every model's J and of every K7 instantiation; phase 1 holds J at
+``kernel_checks.TILED_F_SHAPES`` and past 65535 members on every model of
+``STENCIL_MODELS``, periodic and edge (``check_all_tiled_J``), and K7 at
+``kernel_checks.MATVEC_SHAPES`` (one grid and B = 4, a number and a
+per-member scale, inputs off a 16-byte boundary) and on the refine and
+solver paths' bands, each against its plain version and bit for bit
+against the body of before its tiles (``stencil.eval_J_nodes``,
+``matvec.banded_matvec_nodes``); ``phase3_redesign`` times each beside
+that body (``redesign_J`` at ``J_SHAPES``: STENCIL_SHAPES, config 5 and
+the film; ``redesign_matvec`` at ``K7_SHAPES``, with K7's scalar loads
+on inputs off 16 bytes): host ms, device µs on inputs cold in L2 by the
+profiler and by a CUDA graph of the same calls (``graph_us``), the bytes
+bound.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -361,7 +380,7 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "step_mixed_kernel": "K6.step_mixed",
                "step_kernel": "K6.step", "mixed_residual": "K8.residual",
                "adaptive_kernel": "K6.adaptive", "scan_kernel": "K6.adaptive_scan",
-               "matvec_kernel": "K7.matvec",
+               "matvec_": "K7.matvec",
                "megatheta_interface_kernel": "K9.interface",
                "megatheta_correct_kernel": "K9.correct"}
 
@@ -859,10 +878,18 @@ def phase0():
                 if smem.get(fn, 0) > megastep.STATIC_SMEM:
                     raise RuntimeError(f"K6 {fn}: {smem[fn]} bytes of static shared "
                                        f"memory, over megastep.STATIC_SMEM")
-            # K1's tiled F and F_terms, each model and dtype
-            if fn and path.name.startswith("stencil") and "stencil_F" in fn:
+            # K1's tiled F, F_terms and J, each model and dtype
+            if fn and path.name.startswith("stencil") and re.search(
+                    r"stencil_(F|F_terms|J)_kernel", fn):
                 log(f"    K1 {path.stem} {fn}: {regs} registers, {stack} bytes stack, "
                     f"{spill} bytes spill stores")
+            # K7's tiled instantiations (W, nvar) and its per-node body
+            k7 = re.search(r"matvec_(tiled|nodes)_kernelI([df])(?:Li(\d+)ELi(\d+)E)?", fn or "")
+            if k7 and path.name.startswith("matvec"):
+                body, typ, W, nv = k7.groups()
+                log(f"    K7 {body}<{'double' if typ == 'd' else 'float'}"
+                    + (f", W={W}, nvar={nv}" if W else "") + f">: {regs} registers, "
+                    f"{stack} bytes stack, {spill} bytes spill stores")
             if path in k9_logs:
                 log(f"    K9 {k9_logs[path]} {fn}: {regs} registers, {stack} bytes "
                     f"stack, {spill} bytes spill stores")
@@ -1063,6 +1090,9 @@ def phase1():
         # bit for bit the per-node body
         kernel_checks.check_all_setups("cuda", dtype, res)
         kernel_checks.check_all_tiled_F("cuda", dtype, res)
+        # K1's tiled J on every model, periodic and edge, at the same
+        # shapes and beyond 65535 members, bit for bit the per-node body
+        kernel_checks.check_all_tiled_J("cuda", dtype, res)
         # K6's cluster body at every cluster size (K = 1, 2, 4, 8, 16 forced):
         # edge grids, block-cyclic and Woodbury rings, C not divisible by K,
         # s = 1, 2, 4, B = 4 members and the mixed entry, each entry against
@@ -1608,6 +1638,37 @@ def launch_us(fn, key, launches=20, tries=3, names=TRACE_NAMES, kernels=1):
     return None, len(times)
 
 
+def graph_us(fn, launches, replays=3):
+    """Device µs per call of ``fn`` without the host's time: ``launches``
+    calls captured in a CUDA graph (outputs from the graph's own pool),
+    replayed ``replays`` times between CUDA events; the least replay."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(replays):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        us = start.elapsed_time(end) * 1e3 / launches
+        best = us if best is None else min(best, us)
+    del graph
+    torch.cuda.empty_cache()
+    return best
+
+
 def log_launch_us(what, fn, key, launches=20, names=TRACE_NAMES):
     us, seen = launch_us(fn, key, launches, names=names)
     log(f"  {what}: " + (f"{us:.4f} device us per launch over {launches} launches"
@@ -1680,6 +1741,12 @@ def phase3():
                 if N == N_BIG and name != "K7.matvec" or N == N_REF and name in (
                         "K4.pcr_solve", "K7.matvec"):
                     times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, lib_ms)
+                if name in ("K1.J", "K7.matvec"):
+                    # a second reading of the host call beside the kernels
+                    # line's 5 calls: 200 back to back, the lower of two
+                    long_ms = min(cuda_ms(kern, 200) for _ in range(2))
+                    log(f"  {name} {grid} {dt_name}: kernel {long_ms:.4f} ms "
+                        "(200 calls back to back)")
                 log(f"  {name} {grid} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
                     f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, "
                     f"{ops} operations)"
@@ -3289,6 +3356,18 @@ STENCIL_SHAPES = [("ks N=2^20", KS, N_BIG), ("ks N=10^6", KS, N_REF),
                   ("burgers N=10^6", BURGERS, N_REF)]
 
 
+#: (label, model, N, members) of phase 3's device times of K1's tiled J
+#: against the J entry of before: STENCIL_SHAPES, config 5 and the film
+J_SHAPES = [(label, eqs, N, 1) for label, eqs, N in STENCIL_SHAPES] + [
+    ("config 5", KS, N_ENS, B_ENS), ("film N=10^6", FILM, N_REF, 1)]
+#: (label, W, nvar, N, members) of phase 3's device times of K7 against its
+#: body of before: KS 10^6's refine=1 residual, the advection-diffusion
+#: trajectory's (N = 1024) and the refined ensemble's (B = 4 KS members at
+#: N = 10^5)
+K7_SHAPES = [("ks N=10^6", 5, 1, N_REF, 1), ("advdiff N=1024", 3, 1, 1024, 1),
+             (f"refine B={B_REFINE} N=10^5", 5, 1, N_ENS, B_REFINE)]
+
+
 #: bytes the inputs of a cold-L2 timing rotate over (``cold_sets``): twice
 #: the H100's 50 MB L2
 COLD_BYTES = 100 * 2 ** 20
@@ -3391,6 +3470,83 @@ def redesign_stencil(dtype, dt_name):
             us, _ = launch_us(cold_call(sets, call), "K1.F")
             log_device(f"{what} {label} {dt_name} (host call back to back, device cold L2)",
                        ms, us, b_ms, nbytes)
+
+
+def redesign_J(dtype, dt_name):
+    """K1's tiled J entry against the J entry of before (one thread per
+    node, ``stencil.eval_J_nodes``) at J_SHAPES, periodic: the host call's
+    ms back to back and the device µs on inputs cold in L2 (the profiler's,
+    and a CUDA graph's of the same calls, ``graph_us``), beside the bytes
+    bound (the inputs read once, the bands written once)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for label, eqs, N, B in J_SHAPES:
+        model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+        b, sysm = model.backend, model.system
+        lead = (B,) if B > 1 else ()
+
+        def rand(rows):
+            return 1.0 + 0.1 * torch.randn((*lead, rows, N), dtype=dtype, device="cuda",
+                                           generator=gen)
+
+        args = (rand(sysm.nvar), rand(len(sysm.help_funcs)), rand(len(sysm.pars)),
+                torch.linspace(0.0, 0.5 * N, N, dtype=dtype, device="cuda"))
+        nbytes = (sum(a.numel() for a in args)
+                  + B * b.window * sysm.nvar ** 2 * N) * args[0].element_size()
+        b_ms, _ = bound(nbytes, expr_ops(sysm.J_band_exprs.values()) * N * B, dtype)
+        sets = cold_sets(nbytes, lambda i: args if i == 0 else tuple(a.clone() for a in args))
+        for what, fn in (("K1.J (tiled)", stencil.eval_J),
+                         ("K1.J of before (a thread a node)", stencil.eval_J_nodes)):
+            def call(u, h, p_, x_, fn=fn):
+                return fn(b, u, h, p_, x_, True)
+
+            hot = functools.partial(call, *args)
+            ms = min(cuda_ms(hot, 3 if B > 1 else 200) for _ in range(2))
+            cold = cold_call(sets, call)
+            us, _ = launch_us(cold, "K1.J", launches=5 if B > 1 else 20)
+            g_us = graph_us(cold, 3 if B > 1 else max(50, len(sets)))
+            log_device(f"{what} {label} {dt_name} (B={B}; host call back to back, device "
+                       "cold L2)", ms, us, b_ms, nbytes, f"; graph {g_us:.3f} device us, "
+                       f"{b_ms * 1e3 / g_us:.1%} of the bound")
+        del sets, args
+        torch.cuda.empty_cache()
+
+
+def redesign_matvec(dtype, dt_name):
+    """K7 (a number scale, periodic) against its body of before (one
+    thread per node, ``matvec.banded_matvec_nodes``) at K7_SHAPES, and
+    the tiled body on the same inputs one element off a 16-byte boundary
+    (scalar loads of the bands): the host call's ms back to back and the
+    device µs on inputs cold in L2 (profiler and ``graph_us``), beside the
+    bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, W, nvar, N, B in K7_SHAPES:
+        lead = (B,) if B > 1 else ()
+        bands = torch.randn((*lead, W, nvar, nvar, N), dtype=dtype, device="cuda",
+                            generator=gen)
+        v = torch.randn((*lead, nvar, N), dtype=dtype, device="cuda", generator=gen)
+        nbytes = (bands.numel() + 2 * v.numel()) * v.element_size()
+        b_ms, _ = bound(nbytes, (2 * W * nvar + 1) * nvar * N * B, dtype)
+        sets = cold_sets(nbytes, lambda i: (bands, v) if i == 0 else (bands.clone(),
+                                                                      v.clone()))
+        off = [tuple(kernel_checks.offset_view(a) for a in inputs) for inputs in sets]
+        for what, fn, ins in (("K7 (tiled)", matvec.banded_matvec, sets),
+                              ("K7 tiled, scalar loads (inputs off 16 bytes)",
+                               matvec.banded_matvec, off),
+                              ("K7 of before (a thread a node)", matvec.banded_matvec_nodes,
+                               sets)):
+            def call(bd, vv, fn=fn):
+                return fn(bd, vv, True, 0.0125)
+
+            hot = functools.partial(call, *ins[0])
+            ms = min(cuda_ms(hot, 200) for _ in range(2))
+            cold = cold_call(ins, call)
+            us, _ = launch_us(cold, "K7.matvec")
+            g_us = graph_us(cold, max(50, len(ins)))
+            log_device(f"{what} {label} {dt_name} (B={B}; host call back to back, device "
+                       "cold L2)", ms, us, b_ms, nbytes, f"; graph {g_us:.3f} device us, "
+                       f"{b_ms * 1e3 / g_us:.1%} of the bound")
+        del sets, off, bands, v
+        torch.cuda.empty_cache()
 
 
 #: K6's rows of the kernels table (19-22) at the chunk plans of before
@@ -3534,6 +3690,8 @@ def phase3_redesign():
             del fact, y, add, xm1, xp1
             torch.cuda.empty_cache()
         redesign_stencil(dtype, dt_name)
+        redesign_J(dtype, dt_name)
+        redesign_matvec(dtype, dt_name)
     return times
 
 

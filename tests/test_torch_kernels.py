@@ -635,6 +635,31 @@ def test_tiled_F_matches_plain_version(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
+def test_tiled_J_matches_plain_version(cuda_device, dtype):
+    """K1's tiled J against its plain version at ``TILED_F_SHAPES`` (fewer
+    nodes than the halo spans, N no multiple of the tile, B = 1, 4 and
+    1024) and at more members than a grid's y takes, periodic and edge,
+    halos 1 and 2; bit for bit K6's per-node body launched alone."""
+    results = kernel_checks.check_all_tiled_J(cuda_device, dtype)
+    assert set(results) == {"K1.J"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_matvec_matches_plain_version_and_nodes_body(cuda_device, dtype):
+    """K7's tiled body (compile-time W = 3, 5, 7 and nvar = 1, 2, 3, vector
+    and scalar loads) and, at shapes not compiled in, its per-node body
+    against the plain version at ``MATVEC_SHAPES``, one grid and B = 4 with a number and a
+    per-member scale, periodic and edge, and on inputs off a 16-byte
+    boundary; bit for bit the per-node body of before."""
+    results = kernel_checks.check_all_matvecs(cuda_device, dtype)
+    assert set(results) == {"K7.matvec"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
 def test_woodbury_setup_matches_plain_version(cuda_device, dtype):
     """K4's Woodbury set-up and R-column solve across the card against their
     plain versions at block sizes 1..8 (narrow and wide), C = 2 to the

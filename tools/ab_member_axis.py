@@ -177,7 +177,7 @@ def run(root):
             out[f"{dt_name} ks N=10^6 {name} ms"] = cuda_ms(torch, fn, 20)
         bands = b.J_bands(u, helpers, pstack, x, periodic=True)
         out[f"{dt_name} ks N=10^6 K7.matvec device us"] = kernel_us(
-            torch, lambda: matvec.banded_matvec(bands, u, True, gdt), "matvec_kernel")
+            torch, lambda: matvec.banded_matvec(bands, u, True, gdt), "matvec_")
         if mixed is not None and dtype == torch.float64:
             rhs = 0.5 * u
             out[f"{dt_name} ks N=10^6 K8.residual device us"] = kernel_us(

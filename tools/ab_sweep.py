@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Time the solver kernels, K1's F and K6's entries against a parent
-commit's, in one process on one NVIDIA GPU.
+"""Time the solver kernels, K1's F and J, K6's entries and K7 against a
+parent commit's, in one process on one NVIDIA GPU.
 
     python3 tools/ab_sweep.py [PARENT_DIR] [PAIRS] [GRID ...] [+KERNELS ...]
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``5ae668d`` (``git
-archive``), the commit before K6's cluster body.  GRID words keep only
+repository, it is unpacked there from commit ``e229420`` (``git
+archive``), the commit before K7's and K1.J's tiled bodies.  GRID words keep only
 the grids whose name holds one of them (``film``: the falling film's);
 ``+word`` arguments keep only those kernel groups (``KERNEL_GROUPS``:
 ``k2``, ``k4f``, ``setup``, ``shift``, ``k3``, ``corr``, ``k5``,
-``stencil``, ``k6``, ``batched``; all without).  ``+k6`` alone times K6's entries on
+``stencil``, ``j``, ``k7``, ``k6``, ``batched``; all without).  ``+k6`` alone times K6's entries on
 ``K6_CASES`` (``k6_turns``: the outputs at the parent's chunk plan bit
 for bit or their gap, device µs and host-call ms of the parent, this at
 the parent's plan and this at its own).  Both packages load
@@ -43,7 +43,13 @@ rows, KS 2^20's shape) beside one ``torch.mm`` of the same coefficients
 over stacked operands; and K1's F (a scale and a bias, a RODASPR stage's
 call) on ``STENCIL_GRIDS`` with its outputs and J's against the parent's,
 the host call back to back, the device µs on inputs cold in L2 and a
-cProfile of 1000 calls at KS 2^20, and F_terms at config 5's shape.
+cProfile of 1000 calls at KS 2^20, and F_terms at config 5's shape; K1's
+J (``j``) on ``J_GRIDS`` and K7 (``k7``, a number scale and, on members,
+a per-member one) on ``K7_GRIDS`` the same way: outputs against the
+parent's, periodic and edge, the host call back to back and the device
+µs on inputs cold in L2 (the profiler's, and a CUDA graph's of the same
+calls: ``chip_smoke.graph_us``, parent, this, this, parent) beside the
+bytes bound.
 Float64 and float32; CUDA-event ms per call over back-to-back calls, in
 the order parent, this, this, parent, PAIRS times (default 2).  It
 checks that both give the same outputs (bit for bit, or within the
@@ -71,9 +77,9 @@ sys.path.insert(0, str(ROOT))
 
 from triflow_tpu_torch import Model  # noqa: E402
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
-                                   pcr, thomas)
+                                   matvec, pcr, thomas)
 
-PARENT_COMMIT = "5ae668d"
+PARENT_COMMIT = "e229420"
 #: bytes the inputs of K3's correction rotate over when timed: twice the
 #: H100's 50 MB L2, so that each call reads its inputs from memory
 COLD_BYTES = 100 * 2 ** 20
@@ -98,7 +104,7 @@ def load_parent(path: Path):
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"parent_port{name}")
-                 for name in (".ops.thomas", ".ops.pcr", ".ops.combine", ""))
+                 for name in (".ops.thomas", ".ops.pcr", ".ops.combine", ".ops.matvec", ""))
 
 
 def cuda_ms(fn, iters):
@@ -162,19 +168,24 @@ GRIDS = [("ks 2^20", 5, 1, 1 << 20, 1, None, 20),
 
 def prebuild(sides, kernels):
     """Build both checkouts' libraries that the run needs at once, one nvcc
-    each (the K1 libraries of STENCIL_GRIDS' models where ``stencil`` is
-    timed)."""
+    each: the solver libraries and K5 where a group of them is timed, the
+    K1 libraries of STENCIL_GRIDS' and J_GRIDS' models where ``stencil`` or
+    ``j`` is, K7's where ``k7`` is."""
     from concurrent.futures import ThreadPoolExecutor
 
     jobs = []
-    for th, pc, co, model in sides:
-        for lib in (th.FACTOR_LIB, th.SOLVE_LIB, pc.LIB, co.LIB, th.FACTOR_WIDE_LIB,
-                    th.SOLVE_WIDE_LIB, pc.WIDE_LIB):
-            jobs += lib.builds()
-        if "stencil" in kernels:
-            for eqs in {id(g[1]): g[1] for g in STENCIL_GRIDS}.values():
-                for double in (True, False):
-                    jobs.append(model(*eqs, double=double, device="cuda").backend.stencil.load)
+    for th, pc, co, mv, model in sides:
+        if kernels & (SOLVER_GROUPS | {"k5"}):
+            for lib in (th.FACTOR_LIB, th.SOLVE_LIB, pc.LIB, co.LIB, th.FACTOR_WIDE_LIB,
+                        th.SOLVE_WIDE_LIB, pc.WIDE_LIB):
+                jobs += lib.builds()
+        if "k7" in kernels:
+            jobs += getattr(mv.LIB, "builds", lambda lib=mv.LIB: [lib.load])()
+        grids = (STENCIL_GRIDS if "stencil" in kernels else []) + (
+            J_GRIDS if "j" in kernels else [])
+        for eqs in {id(g[1]): g[1] for g in grids}.values():
+            for double in (True, False):
+                jobs.append(model(*eqs, double=double, device="cuda").backend.stencil.load)
     with ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
             fut.result()
@@ -191,10 +202,12 @@ def cold_copies(nbytes, first, clone):
 
 #: the kernel groups (``+word`` arguments): K2, K4's factor, its Woodbury
 #: set-up and R-column solve, its solve with shifts, K3's sweep and
-#: correction, K5, K1's F, F_terms and J, K6's entries, K6's member-axis
-#: checks at B = 64 (``batched``)
-KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "k6",
-                 "batched")
+#: correction, K5, K1's F and F_terms, K1's J, K7, K6's entries, K6's
+#: member-axis checks at B = 64 (``batched``)
+KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "j", "k7",
+                 "k6", "batched")
+#: the groups timed on the solver grids (``GRIDS``)
+SOLVER_GROUPS = {"k2", "k4f", "setup", "shift", "k3", "corr"}
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
 BURGERS = ("-U * dxU + nu * dxxU", "U", ["nu"])
 FILM = (["-dxq",
@@ -208,6 +221,16 @@ STENCIL_GRIDS = [("ks 2^20", KS, 1 << 20, 1), ("ks 10^6", KS, 10 ** 6, 1),
                  ("burgers 10^6", BURGERS, 10 ** 6, 1), ("film 10^6", FILM, 10 ** 6, 1),
                  ("ks 999983", KS, 999983, 1), ("ks 1000", KS, 1000, 1),
                  ("config 5", KS, 10 ** 5, 1024)]
+#: (label, equations, N, members) of K1's J timings
+J_GRIDS = [("ks 2^20", KS, 1 << 20, 1), ("ks 10^6", KS, 10 ** 6, 1),
+           ("config 5", KS, 10 ** 5, 1024), ("film 10^6", FILM, 10 ** 6, 1)]
+#: (label, W, nvar, N, members) of K7's timings: KS 10^6's refine=1
+#: residual, the advection-diffusion trajectory's (N = 1024) and the refined
+#: ensemble's (B = 4 KS members at N = 10^5)
+K7_GRIDS = [("ks 10^6", 5, 1, 10 ** 6, 1), ("advdiff 1024", 3, 1, 1024, 1),
+            ("refine B=4 10^5", 5, 1, 10 ** 5, 4)]
+#: the card's memory rate (NVIDIA H100 SXM data sheet, at the 700 W limit)
+BYTES_PER_S = 3.35e12
 
 
 #: K6's cases (``k6``): (label, model, N, periodic, chunk count or None
@@ -424,11 +447,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
-    old_thomas, old_pcr, old_combine, old_port = load_parent(parent_dir)
-    if kernels & {"k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil"}:
-        prebuild([(thomas, pcr, combine, Model),
-                  (old_thomas, old_pcr, old_combine, old_port.Model)], kernels)
-    else:
+    old_thomas, old_pcr, old_combine, old_matvec, old_port = load_parent(parent_dir)
+    if kernels & (SOLVER_GROUPS | {"k5", "stencil", "j", "k7"}):
+        prebuild([(thomas, pcr, combine, matvec, Model),
+                  (old_thomas, old_pcr, old_combine, old_matvec, old_port.Model)], kernels)
+    if not kernels & SOLVER_GROUPS:
         grids = []
     means = {}
 
@@ -596,6 +619,103 @@ def main():
                                                 scale=0.05), "stencil_F_terms")
             torch.cuda.empty_cache()
 
+    def on_graph(what, old, new, launches):
+        """Device µs per call of each side without the host's time
+        (``chip_smoke.graph_us``: the calls captured in a CUDA graph),
+        parent, this, this, parent."""
+        from chip_smoke import graph_us
+
+        got = {"parent": [], "this": []}
+        for side, fn in (("parent", old), ("this", new), ("this", new), ("parent", old)):
+            got[side].append(graph_us(fn, launches))
+        for side, us in got.items():
+            means[f"{what} {side} graph us"] = sum(us) / len(us)
+        print(f"  {what}: graph device us parent " + " / ".join(f"{u:.3f}" for u in got["parent"])
+              + ", this " + " / ".join(f"{u:.3f}" for u in got["this"]), flush=True)
+
+    def log_bound(what, nbytes):
+        print(f"  {what}: bound {nbytes / BYTES_PER_S * 1e6:.3f} device us "
+              f"({nbytes} bytes)", flush=True)
+
+    def j_turns(dt, dtype):
+        """K1's J entry against the parent's on J_GRIDS: outputs bit for bit
+        (periodic and edge), the host call's ms back to back, the device µs
+        on inputs cold in L2 (periodic) beside the bytes bound (inputs read
+        once, the bands written once)."""
+        double = dtype == torch.float64
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for label, eqs, N, B in J_GRIDS:
+            new_b = Model(*eqs, double=double, device="cuda").backend
+            old_b = old_port.Model(*eqs, double=double, device="cuda").backend
+            sysm = new_b.system
+            lead = (B,) if B > 1 else ()
+
+            def rand(*shape):
+                return torch.randn(shape, dtype=dtype, device="cuda", generator=gen)
+
+            # positive states and parameters: the film divides by h
+            args = (1.0 + 0.1 * rand(*lead, sysm.nvar, N),
+                    rand(*lead, len(sysm.help_funcs), N),
+                    0.5 + rand(*lead, len(sysm.pars), N).abs(),
+                    torch.linspace(0.0, 0.5 * N, N, dtype=dtype, device="cuda"))
+            what = f"K1.J {label} {dt}"
+            for periodic in (True, False):
+                print(f"{what} periodic={periodic}: "
+                      + gap((new_b.J_bands(*args, periodic=periodic),),
+                            (old_b.J_bands(*args, periodic=periodic),)), flush=True)
+                torch.cuda.empty_cache()
+            nbytes = (sum(a.numel() for a in args)
+                      + B * new_b.window * sysm.nvar ** 2 * N) * args[0].element_size()
+            sets = cold_copies(nbytes, args, lambda *a: tuple(v.clone() for v in a))
+
+            def cold(b):
+                turn = itertools.cycle(sets)
+                return lambda: b.J_bands(*next(turn), periodic=True)
+
+            turns(what, lambda: old_b.J_bands(*args, periodic=True),
+                  lambda: new_b.J_bands(*args, periodic=True), 3 if B > 1 else 200)
+            on_device(f"{what} cold", cold(old_b), cold(new_b), "stencil_J")
+            on_graph(f"{what} cold", cold(old_b), cold(new_b), 3 if B > 1 else max(50, len(sets)))
+            log_bound(what, nbytes)
+            del sets, args
+            torch.cuda.empty_cache()
+
+    def k7_turns(dt, dtype):
+        """K7 against the parent's on K7_GRIDS: outputs bit for bit (periodic
+        and edge; a number scale and on members a per-member one), the host
+        call's ms back to back, the device µs on inputs cold in L2 beside
+        the bytes bound (bands and v read once, the product written once)."""
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        for label, W, nvar, N, B in K7_GRIDS:
+            lead = (B,) if B > 1 else ()
+            bands = torch.randn((*lead, W, nvar, nvar, N), dtype=dtype, device="cuda",
+                                generator=gen)
+            v = torch.randn((*lead, nvar, N), dtype=dtype, device="cuda", generator=gen)
+            scales = [0.0125] + ([0.01 + torch.rand(B, dtype=dtype, device="cuda",
+                                                    generator=gen)] if B > 1 else [])
+            what = f"K7 {label} {dt}"
+            for periodic in (True, False):
+                for sc in scales:
+                    kind = "per-member" if isinstance(sc, torch.Tensor) else "number"
+                    print(f"{what} periodic={periodic} scale {kind}: "
+                          + gap((matvec.banded_matvec(bands, v, periodic, sc),),
+                                (old_matvec.banded_matvec(bands, v, periodic, sc),)),
+                          flush=True)
+            nbytes = (bands.numel() + 2 * v.numel()) * v.element_size()
+            sets = cold_copies(nbytes, (bands, v), lambda a, b: (a.clone(), b.clone()))
+
+            def cold(mod):
+                turn = itertools.cycle(sets)
+                return lambda: mod.banded_matvec(*next(turn), True, 0.0125)
+
+            turns(what, lambda: old_matvec.banded_matvec(bands, v, True, 0.0125),
+                  lambda: matvec.banded_matvec(bands, v, True, 0.0125), 1000)
+            on_device(f"{what} cold", cold(old_matvec), cold(matvec), "matvec")
+            on_graph(f"{what} cold", cold(old_matvec), cold(matvec), max(50, len(sets)))
+            log_bound(what, nbytes)
+            del sets, bands, v
+            torch.cuda.empty_cache()
+
     def k6_turns():
         """K6's entries against the parent's (``K6_CASES``): the outputs at
         the parent's chunk plan bit for bit (or their gap), then device µs
@@ -646,8 +766,6 @@ def main():
     if "batched" in kernels:
         batched_checks(old_port)
     for dtype in (torch.float64, torch.float32):
-        if not grids:
-            break
         dt = str(dtype).replace("torch.", "")
         suffix = "f64" if dtype == torch.float64 else "f32"
         item = torch.finfo(dtype).bits // 8
@@ -761,6 +879,10 @@ def main():
             torch.cuda.empty_cache()
         if "stencil" in kernels:
             stencil_turns(dt, dtype)
+        if "j" in kernels:
+            j_turns(dt, dtype)
+        if "k7" in kernels:
+            k7_turns(dt, dtype)
         if "k5" not in kernels:
             continue
         n = 1 << 20

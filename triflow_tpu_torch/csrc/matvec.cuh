@@ -1,6 +1,7 @@
-// The band walk of one output row of a block-banded product, shared by K7
-// (matvec.cu) and K8 (mixed_residual.cu); K6's mixed entry walks its
-// cluster's shares in the same order (megastep.cu: band_row_at):
+// The band walk of one output row of a block-banded product, shared by
+// K7's per-node body (matvec.cu: matvec_nodes_kernel, on no path) and K8
+// (mixed_residual.cu); K7's tiled body and K6's mixed entry (megastep.cu:
+// band_row_at) sum in the same order:
 //   sum_k sum_q A[k, m, q, i] * v[q, i + k - h],   h = W / 2,
 // for one grid's bands A (W, nvar, nvar, N) and vector v (nvar, N) in the
 // node layout.  In edge mode a column outside [0, N) contributes zero (the
@@ -9,8 +10,8 @@
 //
 // Every load goes through `load`: ReadOnlyLoad (__ldg, the read-only data
 // path), as A and v do not change during the launch (the walk inlined
-// with plain loads ran K7's float32 instance 7 % slower on an H100,
-// PERF.md).
+// with plain loads ran K7's float32 per-node instance 7 % slower on an
+// H100, PERF.md).
 #pragma once
 
 namespace tf {

@@ -3,20 +3,22 @@
 // the block marked GENERATED below) and compiled at first use.  The
 // per-node bodies live in stencil.cuh, shared with K6 (megastep.cu).
 //
-// Replaces, on the TPU: ops/folded.py eval_F_folded (the theta step's
+// Replaces, on the TPU: ops/folded.py:469 eval_F_folded (the theta step's
 // dt * F and, in its scale/bias mode, the ROW stage right-hand side
-// g00 dt F(u_i) + csum) and, for J, ops/folded.py eval_J_folded and ops/pallas_stencil.py
-// eval_F / eval_J_bands, which compute the same functions in other layouts.
+// g00 dt F(u_i) + csum), ops/folded.py:667 eval_J_folded (J), and
+// ops/pallas_stencil.py:180 eval_F / :203 eval_J_bands, which compute the
+// same functions in other layouts.
 //
 // In the reference's node layout: u (nvar, N), helpers (nhelp, N),
 // parameters (npar, N), x (N,).  Each node's argument vector of the
 // expressions holds x, every variable and helper at every stencil offset,
 // the parameters and dx, with the boundary closure applied to the index
-// (periodic: modular; edge: clamped, as compiler.shift does).  J takes one
-// thread per node, which gathers its arguments from device memory
-// (stencil.cuh); F and F_terms take a block per tile of nodes, which loads
-// the tile and its halo once into shared memory, the closure applied to
-// the halo's indices only, and every thread gathers from there:
+// (periodic: modular; edge: clamped, as compiler.shift does).  Every entry
+// reads each row's span once, coalesced, the closure applied to the halo's
+// indices only: F and F_terms take a block per tile of nodes, which loads
+// the tile and its halo into shared memory, and every thread gathers from
+// there; J takes a warp per 32 nodes, whose lanes exchange the span by
+// shuffles (below):
 //   F entry: out[m, i] = scale * F_m (+ bias[m, i] when a bias is given;
 //            a null bias pointer means none, as add_to in K3)
 //   F_terms entry (the reference's u_terms mode, run by its ensemble
@@ -32,18 +34,29 @@
 // never reads the grid back to the host.  F and F_terms evaluate the same
 // expression on the same operands as a gather from device memory would.
 //
-// Member axis: every entry takes B grids (an ensemble) in one launch: J
-// one thread per (member, node), F and F_terms the member along the
-// grid's y (B <= 65535).  u, helpers, parameters, bias, out and the
-// stage vectors lead with B (member b at b times one grid's size), x is
-// shared; the F scale is a number, or (scale_b not null) member b's entry
-// of a device array, so shared and per-member step sizes take one code.
-// One grid (B = 1) launches J without member offsets (kMembers).
+// Member axis: every entry takes B grids (an ensemble) in one launch, the
+// member along the grid's y (F and F_terms: B <= 65535; J any B, a block
+// going on to member b + 65535 past the grid's y).  u, helpers,
+// parameters, bias, out and the stage vectors lead with B (member b at b
+// times one grid's size), x is shared; the F scale is a number, or
+// (scale_b not null) member b's entry of a device array, so shared and
+// per-member step sizes take one code.  The per-node bodies of F and J
+// (K6's, stencil.cuh) stay as entries of their own on no path
+// (tf_stencil_F_nodes_*, tf_stencil_J_nodes_*), which the kernel checks
+// hold the tiled entries to bit for bit.
 //
 // Bound: a stencil of a few flops per loaded value, so every entry is
-// bound by device-memory bandwidth: F reads the (nvar + nhelp) rows once
-// (and 2h halo nodes a tile more), J W times (neighbours hit in L1/L2),
-// and they write nvar (F) or W * nvar^2 (J) rows once, all coalesced.
+// bound by device-memory bandwidth: each reads the (nvar + nhelp + npar)
+// rows and x once (and 2h halo nodes a tile more) and writes nvar (F) or
+// W nvar^2 (J) rows once, all coalesced.  J writes the most: at KS N =
+// 2^20 (W = 5, nvar 1) 5 rows of bands beside 2 rows read, 58.7 MB in
+// float64, 17.5 us at the H100's 3.35 TB/s (NVIDIA H100 80GB HBM3, 700 W
+// power limit; PERF.md); at config 5 (B = 1024 KS members at N = 10^5)
+// 4.1 GB of bands, about 1.2 ms.  The per-node J gathered W stencil points
+// of every row from device memory through L1 and paid a 64-bit division
+// per point on a ring, one per node for its member and dx's per node; the
+// warp-tiled J reads each span once, closes only the halo's indices and
+// divides once a warp.
 // The bias costs one more coalesced read of nvar rows, which saves the
 // separate pass of the stage algebra that would re-read F and the bias
 // and write the sum.  F_terms reads the A stage vectors once and writes
@@ -256,10 +269,121 @@ __global__ void __launch_bounds__(kTile)
   }
 }
 
+// The J entry: a warp per 32 consecutive nodes of one member (kJThreads
+// threads a block), the member along the grid's y.  Each lane loads its
+// node of every variable and helper row, and lanes 0..2h-1 the warp's h
+// halo nodes on each side, once and coalesced, the boundary closure
+// applied to those indices only (close_index: the lanes past the grid's
+// end load the wrapped or clamped node their neighbours read); the stencil
+// neighbours come from the other lanes by shuffles (warp_at), so a warp
+// waits on no other warp.  Each thread then builds its node's argument
+// vector in stencil.cuh's gather order (the per-node body's operands, dx
+// by one division a warp), evaluates tf_J, folds the edge on the boundary
+// nodes (fold_edges, the per-node body's) and writes its kNJ rows, each
+// coalesced across the warp.  (F's block tiles, load_tiles and a barrier,
+// measured 3-14 % slower than the per-node J at KS and config 5, and the
+// warp tiles as fast or faster everywhere: PERF.md.)  Past the 65535
+// members a grid's y takes, each block goes on to member b + gridDim.y
+// (kLoop; the loop cost a warp tile 5-10 % at KS and config 5, so it runs
+// only there).
+constexpr int kJThreads = 64;
+
+// A row's value at node i0w + lane + off (|off| <= h), where each lane of
+// the warp holds the row at its own node in c and lanes 0..2h-1 hold the
+// h nodes left of the warp's 32, then the h right of them, in e
+template <typename T>
+__device__ __forceinline__ T warp_at(T c, T e, int lane, int off) {
+  const int src = lane + off;
+  const T own = __shfl_sync(0xffffffffu, c, src & 31);
+  const T halo = __shfl_sync(0xffffffffu, e, (src < 0 ? src + TF_H : src - 32 + TF_H) & 31);
+  return src >= 0 && src < 32 ? own : halo;
+}
+
+// Member b's J at node i = i0w + lane (jc, je: the closed indices of the
+// lane's node and of its halo node)
+template <typename T>
+__device__ __forceinline__ void stencil_J_warp(const T* __restrict__ u,
+                                               const T* __restrict__ hlp,
+                                               const T* __restrict__ par,
+                                               const T* __restrict__ x,
+                                               T* __restrict__ bands, long N, int periodic,
+                                               long b, long i, long jc, long je, int lane) {
+  const T* ub = u + b * TF_NVAR * N;
+  const T* hb = hlp + b * TF_NHELP * N;
+  const T* pb = par + b * TF_NPAR * N;
+  const bool halo = lane < 2 * TF_H;
+  T cu[TF_NVAR], eu[TF_NVAR], ch[kHelpRows], eh[kHelpRows], pi[kParRows];
+#pragma unroll
+  for (int v = 0; v < TF_NVAR; ++v) {
+    cu[v] = ub[v * N + jc];
+    eu[v] = halo ? ub[v * N + je] : T(0);
+  }
+#pragma unroll
+  for (int v = 0; v < TF_NHELP; ++v) {
+    ch[v] = hb[v * N + jc];
+    eh[v] = halo ? hb[v * N + je] : T(0);
+  }
+  const T xi = i < N ? x[i] : T(0);
+#pragma unroll
+  for (int q = 0; q < TF_NPAR; ++q) pi[q] = i < N ? pb[q * N + i] : T(0);
+  T dx = T(0);
+  if (lane == 0) dx = (x[N - 1] - x[0]) / T(N - 1);
+  dx = __shfl_sync(0xffffffffu, dx, 0);
+  // the argument vector in stencil.cuh's gather order
+  T a[TF_NARGS];
+  int idx = 0;
+  a[idx++] = xi;
+#pragma unroll
+  for (int off = -TF_H; off <= TF_H; ++off) {
+#pragma unroll
+    for (int v = 0; v < TF_NVAR; ++v) a[idx++] = off ? warp_at(cu[v], eu[v], lane, off) : cu[v];
+#pragma unroll
+    for (int v = 0; v < TF_NHELP; ++v) a[idx++] = off ? warp_at(ch[v], eh[v], lane, off) : ch[v];
+  }
+#pragma unroll
+  for (int q = 0; q < TF_NPAR; ++q) a[idx++] = pi[q];
+  a[idx] = dx;
+  if (i >= N) return;
+  T e[tf::kNJ];
+#pragma unroll
+  for (int k = 0; k < tf::kNJ; ++k) e[k] = T(0);
+  tf_J(a, e);
+  if (!periodic) tf::fold_edges(e, i, N);
+  T* out = bands + b * tf::kNJ * N + i;
+#pragma unroll
+  for (int k = 0; k < tf::kNJ; ++k) out[k * N] = e[k];
+}
+
+template <typename T, bool kLoop>
+__global__ void __launch_bounds__(kJThreads)
+    stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                     const T* __restrict__ par, const T* __restrict__ x,
+                     T* __restrict__ bands, long N, int B, int periodic) {
+  const int lane = threadIdx.x & 31;
+  const long i0w = (long)blockIdx.x * kJThreads + (threadIdx.x & ~31);
+  if (i0w >= N) return;
+  const long i = i0w + lane;
+  const long jc = close_index(i, N, periodic);
+  const long je = close_index(lane < TF_H ? i0w - TF_H + lane : i0w + 32 + lane - TF_H, N,
+                              periodic);
+  if (kLoop) {
+    for (long b = blockIdx.y; b < B; b += gridDim.y)
+      stencil_J_warp(u, hlp, par, x, bands, N, periodic, b, i, jc, je, lane);
+  } else {
+    stencil_J_warp(u, hlp, par, x, bands, N, periodic, (long)blockIdx.y, i, jc, je, lane);
+  }
+}
+
+// The J entry of before the tiles: one thread per (member, node) running
+// K6's per-node body (stencil.cuh: stencil_J_node), which gathers from
+// device memory; launched alone, on no path: the kernel checks hold the
+// tiled entry to it bit for bit (ops/kernel_checks.py: check_tiled_J), and
+// chip_smoke.py times the two side by side.  One grid without member
+// offsets (kMembers).
 template <typename T, bool kMembers>
-__global__ void stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
-                                 const T* __restrict__ par, const T* __restrict__ x,
-                                 T* __restrict__ bands, long N, int B, int periodic) {
+__global__ void stencil_J_nodes_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
+                                       const T* __restrict__ par, const T* __restrict__ x,
+                                       T* __restrict__ bands, long N, int B, int periodic) {
   const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= B * N) return;
   const long b = kMembers ? q / N : 0, i = kMembers ? q % N : q;
@@ -268,6 +392,9 @@ __global__ void stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ 
 }
 
 long blocks_of(long n, int threads) { return (n + threads - 1) / threads; }
+
+// the most blocks a grid's y takes
+constexpr int kMaxGridY = 65535;
 
 template <typename T>
 int launch_F(const T* u, const T* hlp, const T* par, const T* x, const T* bias, T* out,
@@ -323,12 +450,26 @@ int launch_F_terms(const void* in_ptrs, const void* coefs, const T* hlp, const T
 template <typename T>
 int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long N, int B,
              int periodic, cudaStream_t stream) {
+  if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)blocks_of(N, kJThreads), (unsigned)(B < kMaxGridY ? B : kMaxGridY));
+  if (B > kMaxGridY)
+    stencil_J_kernel<T, true><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands, N, B,
+                                                              periodic);
+  else
+    stencil_J_kernel<T, false><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands, N, B,
+                                                               periodic);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_J_nodes(const T* u, const T* hlp, const T* par, const T* x, T* bands, long N,
+                   int B, int periodic, cudaStream_t stream) {
   const int threads = 256;
   if (B > 1)
-    stencil_J_kernel<T, true><<<blocks_of(B * N, threads), threads, 0, stream>>>(
+    stencil_J_nodes_kernel<T, true><<<blocks_of(B * N, threads), threads, 0, stream>>>(
         u, hlp, par, x, bands, N, B, periodic);
   else
-    stencil_J_kernel<T, false><<<blocks_of(N, threads), threads, 0, stream>>>(
+    stencil_J_nodes_kernel<T, false><<<blocks_of(N, threads), threads, 0, stream>>>(
         u, hlp, par, x, bands, N, B, periodic);
   return static_cast<int>(cudaGetLastError());
 }
@@ -373,6 +514,14 @@ int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long 
                        static_cast<const T*>(par), static_cast<const T*>(x),               \
                        static_cast<T*>(bands), N, B, periodic,                             \
                        static_cast<cudaStream_t>(stream));                                 \
+  }                                                                                        \
+  extern "C" int tf_stencil_J_nodes_##SUFFIX(const void* u, const void* hlp, const void* par, \
+                                             const void* x, void* bands, int N, int B,     \
+                                             int periodic, void* stream) {                 \
+    return launch_J_nodes<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),         \
+                             static_cast<const T*>(par), static_cast<const T*>(x),         \
+                             static_cast<T*>(bands), N, B, periodic,                       \
+                             static_cast<cudaStream_t>(stream));                           \
   }
 
 // a model computes in one dtype: its library carries that dtype's entries

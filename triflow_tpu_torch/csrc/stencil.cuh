@@ -65,6 +65,38 @@ __device__ __forceinline__ void stencil_F_node(const T* u, const T* hlp, const T
   }
 }
 
+// The edge fold of node i's J entries b[(k, m, n)] (not periodic): the
+// ghost-node dependencies fold onto the boundary columns, in the order of
+// compiler.fold_edges; shared by the per-node J (stencil_J_vals) and K1's
+// tiled J entry (stencil.cu), so that the two round alike
+template <typename T>
+__device__ __forceinline__ void fold_edges(T (&b)[kNJ], long i, long N) {
+  constexpr int NN = TF_NVAR * TF_NVAR;
+#pragma unroll
+  for (int ii = 0; ii < TF_H; ++ii) {
+    if (i == ii) {
+#pragma unroll
+      for (int k = 0; k < TF_H - ii; ++k)
+#pragma unroll
+        for (int e = 0; e < NN; ++e) {
+          b[(TF_H - ii) * NN + e] += b[k * NN + e];
+          b[k * NN + e] = T(0);
+        }
+    }
+    if (i == N - 1 - ii) {
+#pragma unroll
+      for (int k = 0; k < TF_H - ii; ++k) {
+        const int koff = kW - 1 - k;
+#pragma unroll
+        for (int e = 0; e < NN; ++e) {
+          b[(TF_H + ii) * NN + e] += b[koff * NN + e];
+          b[koff * NN + e] = T(0);
+        }
+      }
+    }
+  }
+}
+
 // b[(k, m, n)] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic,
 // the state read through uval(v, j, off)
 template <typename T, typename UVal>
@@ -76,34 +108,7 @@ __device__ __forceinline__ void stencil_J_vals(UVal uval, const T* hlp, const T*
   for (int e = 0; e < kNJ; ++e) b[e] = T(0);
   gather(a, i, N, periodic, uval, hlp, par, x);
   tf_J(a, b);
-  if (!periodic) {
-    // ghost-node dependencies fold onto the boundary columns, in the
-    // order of compiler.fold_edges
-    constexpr int NN = TF_NVAR * TF_NVAR;
-#pragma unroll
-    for (int ii = 0; ii < TF_H; ++ii) {
-      if (i == ii) {
-#pragma unroll
-        for (int k = 0; k < TF_H - ii; ++k)
-#pragma unroll
-          for (int e = 0; e < NN; ++e) {
-            b[(TF_H - ii) * NN + e] += b[k * NN + e];
-            b[k * NN + e] = T(0);
-          }
-      }
-      if (i == N - 1 - ii) {
-#pragma unroll
-        for (int k = 0; k < TF_H - ii; ++k) {
-          const int koff = kW - 1 - k;
-#pragma unroll
-          for (int e = 0; e < NN; ++e) {
-            b[(TF_H + ii) * NN + e] += b[koff * NN + e];
-            b[koff * NN + e] = T(0);
-          }
-        }
-      }
-    }
-  }
+  if (!periodic) fold_edges(b, i, N);
 }
 
 // bands[k, m, n, i] = dF_m(i) / du_n(i + k - h), edge-folded when not periodic

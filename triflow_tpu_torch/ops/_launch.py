@@ -1,5 +1,5 @@
-"""What every kernel wrapper shares: launch counters, input checks and the
-stream to launch on."""
+"""What every kernel wrapper shares: launch counters, input checks, the
+short launch paths' shape cache and the stream to launch on."""
 
 from __future__ import annotations
 
@@ -74,6 +74,26 @@ def check_shapes(what: str, **named):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
+
+
+#: the short launch paths' shape checks: (entry, shapes...) -> what the
+#: entry's checks returned (its bound C entry and sizes), emptied when an
+#: insert finds it full
+_SHAPES = {}
+MAX_SHAPES = 256
+
+
+def shape_cache(key, make, *args):
+    """``make(*args)`` (which checks the shapes, raises on a fault and binds
+    the entry), run once per ``key`` and then read back.  A call that
+    raises leaves nothing in the cache."""
+    hit = _SHAPES.get(key)
+    if hit is None:
+        hit = make(*args)
+        if len(_SHAPES) >= MAX_SHAPES:
+            _SHAPES.clear()
+        _SHAPES[key] = hit
+    return hit
 
 
 def suffix(dtype) -> str:

@@ -27,14 +27,17 @@ the attempts on KS, and moves it by 0.23 and more on the README grid; in
 float32 on KS the two ranges meet, and it is the equal attempts that
 catch a wrong err there.
 
-K4's Woodbury set-up and R-column solve across the card, and K1's tiled F,
-are also held bit for bit to the bodies they replace, launched alone: the
-one-block body (K6's) and the per-node F body (``check_setup``,
-``check_tiled_F``).
+K4's Woodbury set-up and R-column solve across the card, and K1's tiled F
+and J, are also held bit for bit to the bodies they replace, launched
+alone: the one-block body (K6's) and the per-node F and J bodies
+(``check_setup``, ``check_tiled_F``, ``check_tiled_J``).
 
 K7 (the banded matvec) is held to the F/J tolerance of the size of its
 terms, ``max |scale| |A| |v|``, not of its result: the product of J's
-bands with a smooth state cancels to far below its terms.
+bands with a smooth state cancels to far below its terms; on the card
+also bit for bit to the per-node body of before its tiles
+(``matvec.banded_matvec_nodes``), which sums the same terms in the same
+order.
 
 The df64 mode's kernels (float64 only): K8 (the mixed solve's residual,
 rounded to float32) is held entry by entry to one float32 ulp of its
@@ -67,6 +70,8 @@ of adaptive launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -528,17 +533,9 @@ def check_tiled_F(model, N, B, periodic, device, seed=0, results=None):
     b = model.backend
     dtype = b.dtype
     rng = np.random.default_rng(seed)
-    sysm = b.system
-    lead = (B,) if B > 1 else ()
-
-    def t(a):
-        return torch.tensor(a, dtype=dtype, device=device)
-
-    u = t(rng.standard_normal((*lead, sysm.nvar, N)))
-    helpers = t(rng.standard_normal((*lead, len(sysm.help_funcs), N)))
-    pstack = t(0.5 + rng.random((*lead, len(sysm.pars), 1)) * np.ones((1, N)))
-    x = t(np.linspace(0.0, 0.001 * N, N))
-    bias = t(rng.standard_normal((*lead, sysm.nvar, N)))
+    u, helpers, pstack, x = _tiled_inputs(b, N, B, rng, device)
+    t = functools.partial(torch.tensor, dtype=dtype, device=device)
+    bias = t(rng.standard_normal(u.shape))
     scale = t(0.05 * (1.0 + np.arange(B))) if B > 1 else 0.05
     tol = TOL[dtype]["FJ"]
     what = f"N={N} B={B} periodic={periodic}"
@@ -548,7 +545,7 @@ def check_tiled_F(model, N, B, periodic, device, seed=0, results=None):
     plain_F = b.F(u, helpers, pstack, x, periodic=periodic, scale=scale)
     _record(results, "K1.F", plain_F, stencil.eval_F_plain(
         b, u, helpers, pstack, x, periodic, scale), tol, what)
-    stages = [t(1e-2 * rng.standard_normal((*lead, sysm.nvar, N))) for _ in range(5)]
+    stages = [t(1e-2 * rng.standard_normal(u.shape)) for _ in range(5)]
     coefs = [(1.0, 0.0), (0.75, 0.3), (0.0, -1.2), (1.0, 1.0), (2.5, 0.0), (-0.4, 0.7)]
     terms = [(a, c, arr) for (a, c), arr in zip(coefs, [u] + stages)]
     _record(results, "K1.F_terms",
@@ -568,9 +565,53 @@ def check_tiled_F(model, N, B, periodic, device, seed=0, results=None):
     return results
 
 
-def check_all_tiled_F(device, dtype, results=None, shapes=TILED_F_SHAPES):
-    """``check_tiled_F`` on every model of ``STENCIL_MODELS`` (halos 1 and
-    2) at every shape, periodic and edge."""
+#: (N, B) of K1's tiled J checks beyond ``TILED_F_SHAPES``: more members
+#: than a grid's y takes (65535), so that blocks go on to a second member
+TILED_J_MEMBERS = [(3, 66000)]
+
+
+def check_tiled_J(model, N, B, periodic, device, seed=0, results=None):
+    """K1's tiled J entry against its plain version at N nodes and B
+    members; on the card also bit for bit against K6's per-node body
+    launched alone (``stencil.cu``: ``tf_stencil_J_nodes_*``), which
+    evaluates the same expressions on the same operands and folds the
+    edge with the same code (``stencil.cuh: fold_edges``)."""
+    results = {} if results is None else results
+    b = model.backend
+    u, helpers, pstack, x = _tiled_inputs(b, N, B, np.random.default_rng(seed), device)
+    what = f"N={N} B={B} periodic={periodic}"
+    got = b.J_bands(u, helpers, pstack, x, periodic=periodic)
+    _record(results, "K1.J", got, b.J_bands_impl(u, helpers, pstack, x, periodic=periodic),
+            TOL[b.dtype]["FJ"], what)
+    if torch.device(device).type == "cuda":
+        if not torch.equal(got, stencil.eval_J_nodes(b, u, helpers, pstack, x, periodic)):
+            raise CheckFailed(f"K1.J {what}: not bit for bit K6's per-node body")
+    return results
+
+
+def check_all_tiled_J(device, dtype, results=None,
+                      shapes=TILED_F_SHAPES + TILED_J_MEMBERS):
+    """``check_tiled_J`` on every model of ``STENCIL_MODELS`` at every
+    shape, periodic and edge: the edge fold on first and last tiles that
+    are full, part-full or the whole grid."""
+    return _on_stencil_models(check_tiled_J, device, dtype, results, shapes)
+
+
+def _tiled_inputs(backend, N, B, rng, device):
+    """(u, helpers, pstack, x) of K1's tiled checks: random rows of B
+    members (none for one grid), parameters constant along the grid."""
+    sysm = backend.system
+    lead = (B,) if B > 1 else ()
+    t = functools.partial(torch.tensor, dtype=backend.dtype, device=device)
+    return (t(rng.standard_normal((*lead, sysm.nvar, N))),
+            t(rng.standard_normal((*lead, len(sysm.help_funcs), N))),
+            t(0.5 + rng.random((*lead, len(sysm.pars), 1)) * np.ones((1, N))),
+            t(np.linspace(0.0, 0.001 * N, N)))
+
+
+def _on_stencil_models(check, device, dtype, results, shapes):
+    """``check`` on every model of ``STENCIL_MODELS`` (halos 1 and 2) at
+    every (N, B) of ``shapes``, periodic and edge."""
     from ..core.model import Model
 
     results = {} if results is None else results
@@ -578,8 +619,14 @@ def check_all_tiled_F(device, dtype, results=None, shapes=TILED_F_SHAPES):
         model = Model(eqs, dep, pars, double=dtype == torch.float64, device=device)
         for i, (N, B) in enumerate(shapes):
             for periodic in (True, False):
-                check_tiled_F(model, N, B, periodic, device, seed=i, results=results)
+                check(model, N, B, periodic, device, seed=i, results=results)
     return results
+
+
+def check_all_tiled_F(device, dtype, results=None, shapes=TILED_F_SHAPES):
+    """``check_tiled_F`` on every model of ``STENCIL_MODELS`` at every
+    shape, periodic and edge."""
+    return _on_stencil_models(check_tiled_F, device, dtype, results, shapes)
 
 
 #: (s, C, B) of the Woodbury set-up checks: every block size s = 1..8 (the
@@ -669,29 +716,47 @@ def check_matvec(bands, v, periodic, scale=1.0, results=None, what=""):
     """K7 against its plain version on the same bands, vector and scale, at
     the F/J tolerance of the size of the terms, ``max |scale| |A| |v|``:
     a product that cancels (J u of a smooth state) carries the rounding of
-    its terms, which the two versions sum in different orders."""
+    its terms, which the two versions sum in different orders; on the card
+    also bit for bit against the per-node body of before the tiles
+    (``matvec.banded_matvec_nodes``)."""
     results = {} if results is None else results
     got = matvec.banded_matvec(bands, v, periodic, scale)
     want = matvec.banded_matvec_plain(bands, v, periodic, scale)
     terms = matvec.banded_matvec_plain(bands.abs(), v.abs(), periodic,
                                        abs(scale))
     kind = "per-member" if isinstance(scale, torch.Tensor) else "number"
-    _record(results, "K7.matvec", got, want, TOL[v.dtype]["FJ"],
-            f"bands {tuple(bands.shape)} periodic={periodic} scale {kind} "
-            f"{what}", scale=float(terms.max()))
+    what = f"bands {tuple(bands.shape)} periodic={periodic} scale {kind} {what}"
+    _record(results, "K7.matvec", got, want, TOL[v.dtype]["FJ"], what,
+            scale=float(terms.max()))
+    if v.is_cuda and not torch.equal(got, matvec.banded_matvec_nodes(bands, v, periodic,
+                                                                    scale)):
+        raise CheckFailed(f"K7.matvec {what}: not bit for bit the per-node body")
     return results
 
 
 #: (nvar, W, N) of K7's small-shape checks: one to three variables, three
-#: band widths, a grid narrower than a warp and grids no multiple of the
-#: block (256)
+#: band widths (the tiled body's compile-time shapes), a grid narrower than
+#: a warp and odd (7: scalar loads), grids under one tile (64) and over
+#: several, no multiple of a tile (1000); then shapes not compiled in,
+#: which the entry runs on the per-node body (four variables, W = 9), and
+#: the compile-time one's scalar loads on a grid of many tiles (1001)
 MATVEC_SHAPES = [(nvar, W, N) for nvar in (1, 2, 3) for W in (3, 5, 7)
-                 for N in (7, 64, 1000)]
+                 for N in (7, 64, 1000)] + [(4, 3, 1000), (2, 9, 999), (1, 5, 1001)]
+
+
+def offset_view(a):
+    """``a`` as a contiguous view one element into a larger buffer: no
+    row of it starts on a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
 
 
 def check_all_matvecs(device, dtype, results=None, seed=0):
     """K7 at every ``MATVEC_SHAPES`` shape, edge and periodic, for one grid
-    (a number scale) and B = 4 members (a number and a per-member scale)."""
+    (a number scale) and B = 4 members (a number and a per-member scale);
+    at N = 1000 also on bands and v one element off a 16-byte boundary."""
     results = {} if results is None else results
     rng = np.random.default_rng(seed)
 
@@ -706,6 +771,9 @@ def check_all_matvecs(device, dtype, results=None, seed=0):
             for periodic in (True, False):
                 for scale in scales:
                     check_matvec(bands, v, periodic, scale, results)
+            if N == 1000:
+                check_matvec(offset_view(bands), offset_view(v), True, scales[-1],
+                             results, "unaligned")
     return results
 
 

@@ -32,7 +32,7 @@ import torch
 from sympy.printing.c import C99CodePrinter
 
 from . import _build
-from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from ._launch import Counter, check_cuda, check_shapes, shape_cache, stream_of, suffix
 from .banded import per_member
 from .thomas import beta_args, members
 
@@ -200,13 +200,6 @@ def eval_F_plain(backend, u, helpers, pstack, x, periodic, scale=1.0,
     return out if bias is None else out + bias
 
 
-#: (backend, shapes of u, helpers, pstack, x and bias) -> (C entry, N, B):
-#: the F entry's shape checks, made once per shape that reaches it; emptied
-#: when it reaches _MAX_SHAPES
-_F_SHAPES = {}
-_MAX_SHAPES = 256
-
-
 def _F_entry(backend, u, helpers, pstack, x, bias):
     """(bound C entry, N, B) of the F entry at these inputs' shapes, which
     it checks (and raises on)."""
@@ -216,10 +209,7 @@ def _F_entry(backend, u, helpers, pstack, x, bias):
     if B > MAX_MEMBERS:
         raise ValueError(f"K1 stencil F: {B} members; the kernel takes at most "
                          f"{MAX_MEMBERS}")
-    fn = backend.stencil.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1)
-    if len(_F_SHAPES) >= _MAX_SHAPES:
-        _F_SHAPES.clear()
-    return fn, N, B
+    return backend.stencil.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1), N, B
 
 
 def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
@@ -229,18 +219,16 @@ def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
 
     The launch path is short, since a step calls it once per stage: every
     call checks the tensors' device, dtype and contiguity, and the shapes
-    are checked (and the entry bound) once per shape (``_F_SHAPES``)."""
-    if not u.is_cuda and u.device.type == "cpu":
+    are checked (and the entry bound) once per shape
+    (``_launch.shape_cache``)."""
+    if u.device.type == "cpu":
         return eval_F_plain(backend, u, helpers, pstack, x, periodic, scale,
                             bias)
     check_cuda((u, helpers, pstack, x) if bias is None else
                (u, helpers, pstack, x, bias), backend.dtype, "K1 stencil F")
-    key = (backend, u.shape, helpers.shape, pstack.shape, x.shape,
-           None if bias is None else bias.shape)
-    hit = _F_SHAPES.get(key)
-    if hit is None:
-        hit = _F_SHAPES[key] = _F_entry(backend, u, helpers, pstack, x, bias)
-    fn, N, B = hit
+    fn, N, B = shape_cache(("F", backend, u.shape, helpers.shape, pstack.shape,
+                            x.shape, None if bias is None else bias.shape),
+                           _F_entry, backend, u, helpers, pstack, x, bias)
     scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device,
                                      "K1 stencil F scale")
     out = torch.empty_like(u)
@@ -337,20 +325,48 @@ def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale):
     return out
 
 
+def _J_entry(backend, u, helpers, pstack, x, name="tf_stencil_J"):
+    """(bound C entry ``name``, N, B, bands' shape) of the J entry at these
+    inputs' shapes, which it checks (and raises on)."""
+    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
+    nvar = backend.system.nvar
+    return (backend.stencil.fn(f"{name}_{suffix(u.dtype)}", 5, 3), N, B,
+            (*lead, backend.window, nvar, nvar, N))
+
+
 def eval_J(backend, u, helpers, pstack, x, periodic):
     """Banded J, shape ((B,) W, nvar, nvar, N), edge-folded when not
     periodic.  CPU tensors take the plain version; CUDA tensors launch K1's
-    J entry."""
+    J entry.
+
+    The launch path is short, as F's: every call checks the tensors'
+    device, dtype and contiguity, and the shapes are checked (and the
+    entry bound) once per shape (``_launch.shape_cache``)."""
     if u.device.type == "cpu":
         return backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
-    N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
-    nvar = backend.system.nvar
-    bands = torch.empty((*lead, backend.window, nvar, nvar, N), dtype=u.dtype,
-                        device=u.device)
-    lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_J_{suffix(u.dtype)}", 5, 3)
+    check_cuda((u, helpers, pstack, x), backend.dtype, "K1 stencil J")
+    fn, N, B, shape = shape_cache(("J", backend, u.shape, helpers.shape, pstack.shape,
+                                   x.shape), _J_entry, backend, u, helpers, pstack, x)
+    bands = torch.empty(shape, dtype=u.dtype, device=u.device)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            bands.data_ptr(), N, B, int(bool(periodic)), stream_of(u))
-    lib.check(rc, "K1 stencil J")
+            bands.data_ptr(), N, B, 1 if periodic else 0, stream_of(u))
+    if rc:
+        backend.stencil.check(rc, "K1 stencil J")
     J_LAUNCHES.add()
+    return bands
+
+
+def eval_J_nodes(backend, u, helpers, pstack, x, periodic):
+    """``eval_J`` of CUDA tensors through the J entry of before the tiles
+    (``tf_stencil_J_nodes_*``: one thread per node running K6's per-node
+    body, which gathers from device memory): on no path and uncounted; the
+    kernel checks hold the tiled entry to it bit for bit, and
+    ``chip_smoke.py`` times the two side by side."""
+    what = "K1 stencil J (per-node body)"
+    check_cuda((u, helpers, pstack, x), backend.dtype, what)
+    fn, N, B, shape = _J_entry(backend, u, helpers, pstack, x, "tf_stencil_J_nodes")
+    bands = torch.empty(shape, dtype=u.dtype, device=u.device)
+    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+            bands.data_ptr(), N, B, 1 if periodic else 0, stream_of(u))
+    backend.stencil.check(rc, what)
     return bands
