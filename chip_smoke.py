@@ -2623,23 +2623,26 @@ def phase2_megatheta(launches):
 
 def k9_work(model, plan):
     """(bytes, operations) of K9's interface and correct entries: each reads
-    u, the helpers, the parameters and x once; the interface pass writes the
-    reduced system and its right-hand side, the correction pass reads the
-    2s interface unknowns of every chunk and writes u2.  Operations: F and
-    J at every node and, per supernode row, the band scaling and the block
-    elimination (two products, an inverse, a matrix-vector product: about
-    4 s^3 + 4 s^2), once per sweep (two sweeps each; the interface pass
-    carries a spike column in each, 2 s^3 more)."""
+    u, the helpers, the parameters and, where the model reads it, x once;
+    the interface pass writes the reduced system and its right-hand side,
+    the correction pass reads the 2s interface unknowns of every chunk and
+    writes u2.  Operations: F and J at every node and, per supernode row,
+    the band scaling, the elimination (two products, an inverse, a
+    matrix-vector product: about 4 s^3 + 4 s^2) and the back substitution
+    to the sub-chunk's first row (three products: 4 s^3 + 2 s^2; the
+    correction pass a second, 4 s^2, for its solution); the interface pass
+    carries a spike column (2 s^3 more)."""
     sysm, item = model.system, torch.finfo(model.dtype).bits // 8
     N, s, C, g = plan.N, plan.s, plan.C, plan.g
     M = N // g
-    n_in = (sysm.nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N
+    reads_x = stencil.uses_x(sysm, model.backend.args_symbols)
+    n_in = (sysm.nvar + len(sysm.help_funcs) + len(sysm.pars) + int(reads_x)) * N
     evals = (expr_ops(sysm.F_exprs) + expr_ops(sysm.J_band_exprs.values())
              + sysm.nvar) * N + 3 * s * s * M
-    elim = (4 * s ** 3 + 4 * s * s) * M
+    elim = (8 * s ** 3 + 6 * s * s) * M
     interface = ((n_in + (2 * (2 * s) ** 2 + 2 * s) * C) * item,
-                 2 * (evals + elim + 2 * s ** 3 * M))
-    correct = ((n_in + 2 * s * C + sysm.nvar * N) * item, 2 * (evals + elim))
+                 evals + elim + 2 * s ** 3 * M)
+    correct = ((n_in + 2 * s * C + sysm.nvar * N) * item, evals + elim + 4 * s * s * M)
     return interface, correct
 
 
@@ -2649,14 +2652,75 @@ MEGATHETA_SWEEPS = [("burgers N=10^6", BURGERS, burgers_case(N_REF)),
                     ("ks N=2^20", KS, ks_case(0.05, 0.2))]
 
 
+def k9_pieces(model, plan, args, dt):
+    """({piece: (call, another call on inputs cold in L2 or None)}, the
+    entries' (bytes, operations), the cold sets, the shifts (xm1, xp1)) of
+    one K9 step on ``plan``: K9's entries (cold: on copies of the state, in
+    turn), K4's factor, its Woodbury set-up on a Woodbury plan, its solve
+    with shifts, and the whole step."""
+    b = model.backend
+    beta, dts = megatheta.scalars(model.dtype, 1.0, dt)
+    Lred, Ured, yred = megatheta.interface(b, plan, *args, beta, dts)
+    red = pcr.pcr_factor(Lred, Ured, plan.cyclic)
+    wood = pcr.woodbury(red, Lred, Ured) if plan.woodbury else ()
+    xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
+    work = k9_work(model, plan)
+    sets = cold_sets(work[1][0], lambda i: args if i == 0 else tuple(a.clone() for a in args))
+    pieces = {
+        "K9.interface": (lambda: megatheta.interface(b, plan, *args, beta, dts),
+                         cold_call(sets, lambda *a: megatheta.interface(b, plan, *a, beta,
+                                                                        dts))),
+        "K9.correct": (lambda: megatheta.correct(b, plan, *args, beta, dts, xm1, xp1),
+                       cold_call(sets, lambda *a: megatheta.correct(b, plan, *a, beta, dts,
+                                                                    xm1, xp1))),
+        "K4.pcr_factor": (lambda: pcr.pcr_factor(Lred, Ured, plan.cyclic), None),
+        "K4.pcr_solve": ((lambda: pcr.woodbury(red, Lred, Ured)) if plan.woodbury else None,
+                         None),
+        "K4.pcr_solve_shift": (lambda: pcr.pcr_solve_shift(red, yred, plan.wrap, *wood), None),
+        "step": (lambda: megatheta.theta_step(b, plan, 1.0, *args, dt), None),
+    }
+    return {k: v for k, v in pieces.items() if v[0] is not None}, work, len(sets), (xm1, xp1)
+
+
+def k9_fit(points):
+    """Non-negative least squares (relative weights; an offset per grid and
+    dtype) of each piece's device µs over its ``megatheta.plan_features``:
+    {constant name: value}, and each fit's largest relative residual."""
+    keys = sorted({(label, d) for label, d, *_ in points})
+    terms = {"K9": ((0, 1), ("CHAIN_US", "CHUNK_US"),
+                    lambda t: t["K9.interface"] + t["K9.correct"]),
+             "K4.pcr_factor": ((2, 3), ("LEVEL_US", "LEVEL_KC_US"),
+                               lambda t: t["K4.pcr_factor"]),
+             "K4.pcr_solve_shift": ((4,), ("SHIFT_US",), lambda t: t["K4.pcr_solve_shift"]),
+             "K4.pcr_solve": ((5,), ("WOOD_US",), lambda t: t.get("K4.pcr_solve"))}
+    consts, resid = {}, {}
+    for piece, (idx, names, value) in terms.items():
+        rows = [(f, (label, d), value(t)) for label, d, _, f, t in points
+                if value(t) is not None]
+        if not rows:
+            continue
+        A = np.array([[f[i] for i in idx] + [float(k == key) for key in keys]
+                      for f, k, _ in rows])
+        y = np.array([v for *_, v in rows])
+        coef = nnls_fit(A, y / 1e3)
+        consts.update(zip(names, coef[:len(idx)]))
+        resid[piece] = float(np.max(np.abs(A @ coef - y) / y))
+    return consts, resid
+
+
 def phase3_megatheta():
     """K9 at Burgers N = 10^6 and KS N = 2^20: ms per step against the
     K1-K4 route of the same entry without the opt-in (alternated, CUDA
-    events over 10 steps); at Burgers each step under torch.profiler and
-    each entry against its plain version and its bound; then the
-    chunk-count sweep of the K9 step at both grids with the fit of
-    ``megatheta.plan_cost_us`` it gives."""
-    log("phase 3: the opt-in two-pass theta step (CUDA events)")
+    events over 10 steps: the host's pace) and the K9 step's device µs (a
+    CUDA graph of its calls, ``graph_us``); at Burgers each step under
+    torch.profiler; each entry against its plain version (host call) and,
+    by ``graph_us`` on inputs cold in L2, its device µs beside its bound;
+    then the chunk-count sweep at both grids: each piece's device µs (K9's
+    entries, K4's factor, Woodbury set-up and solve with shifts, the whole
+    step; ``graph_us``) at every chunk count the step takes, the fit of
+    ``megatheta.plan_cost_us`` they give, and the plan's pick against the
+    fastest step."""
+    log("phase 3: the opt-in two-pass theta step (CUDA events; device us by CUDA graphs)")
     for label, eqs, case in MEGATHETA_SWEEPS:
         for dt_name, dtype in DTYPES.items():
             _, plan, k9, args = megatheta_entry(eqs, case, "cuda", dtype, True)
@@ -2665,79 +2729,85 @@ def phase3_megatheta():
             ms = [cuda_ms(lambda: f(u), 10) for f in (k14, k9, k9, k14)]
             log(f"  theta step {label} {dt_name}, K1-K4 (C={plan14.C}) / K9 (C={plan.C}) "
                 "/ K9 / K1-K4: " + " / ".join(f"{m:.4f}" for m in ms)
-                + " ms/step (CUDA events over 10 steps)")
+                + " ms/step (CUDA events over 10 steps); K9 step "
+                f"{min(graph_us(lambda: k9(u), 10) for _ in range(2)):.2f} device us")
     times = {}
     _, eqs, case, *_ = MEGATHETA_CASES[0]
     for dt_name, dtype in DTYPES.items():
-        times[dt_name] = {}
-        model, plan, k9, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+        _, _, k9, args = megatheta_entry(eqs, case, "cuda", dtype, True)
         _, _, k14, _ = megatheta_entry(eqs, case, "cuda", dtype, False)
         u = args[0]
         for label, f in (("K9", k9), ("K1-K4", k14)):
             log_profile(f"theta step burgers N=10^6 {label}", dt_name,
                         profile_calls(lambda: f(u), 5))
-        b = model.backend
-        beta, dts = megatheta.scalars(dtype, 1.0, case[2])
-        Lred, Ured, yred = megatheta.interface(b, plan, *args, beta, dts)
-        red = pcr.pcr_factor(Lred, Ured, plan.cyclic)
-        wood = pcr.woodbury(red, Lred, Ured) if plan.woodbury else ()
-        xm1, xp1 = pcr.pcr_solve_shift(red, yred, plan.wrap, *wood)
-        work = k9_work(model, plan)
-        pairs = {
-            "K9.interface": (lambda: megatheta.interface(b, plan, *args, beta, dts),
-                             lambda: megatheta.interface_plain(b, plan, *args, beta, dts)),
-            "K9.correct": (lambda: megatheta.correct(b, plan, *args, beta, dts, xm1, xp1),
-                           lambda: megatheta.correct_plain(b, plan, *args, beta, dts, xm1,
-                                                           xp1)),
-        }
-        for (key, (kern, plain)), (nbytes, ops) in zip(pairs.items(), work):
-            p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
-            b_ms, b_by = bound(nbytes, ops, dtype)
-            times[dt_name][key] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
-            log(f"  {key} burgers N=10^6 {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} "
-                "operations), library none (no PyTorch call does an implicit step)")
-            log_launch_us(f"{key} alone burgers N=10^6 {dt_name}", kern, key)
-    # the chunk-count sweep: ms per K9 step at every chunk count it takes
-    fit = {}
+    for label, eqs, case in MEGATHETA_SWEEPS:
+        for dt_name, dtype in DTYPES.items():
+            model, plan, _, args = megatheta_entry(eqs, case, "cuda", dtype, True)
+            b = model.backend
+            beta, dts = megatheta.scalars(dtype, 1.0, case[2])
+            pieces, work, n_sets, shifts = k9_pieces(model, plan, args, case[2])
+            plains = {
+                "K9.interface": lambda: megatheta.interface_plain(b, plan, *args, beta, dts),
+                "K9.correct": lambda: megatheta.correct_plain(b, plan, *args, beta, dts,
+                                                              *shifts)}
+            for key, (nbytes, ops) in zip(("K9.interface", "K9.correct"), work):
+                kern, cold = pieces[key]
+                p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plains[key], kern, kern, plains[key]))
+                us = min(graph_us(cold, max(20, n_sets)) for _ in range(2))
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                if label == MEGATHETA_SWEEPS[0][0]:
+                    times.setdefault(dt_name, {})[key] = (min(k1, k2), min(p1, p2), b_ms, b_by,
+                                                          None)
+                log(f"  {key} {label} {dt_name} (C={plan.C} Mc={plan.Mc}): kernel "
+                    f"{k1:.4f}/{k2:.4f} ms host call, plain {p1:.4f}/{p2:.4f} ms; {us:.2f} "
+                    f"device us cold in L2, bound {b_ms * 1e3:.2f} us ({b_by}: {nbytes} bytes, "
+                    f"{ops} operations, {us / (b_ms * 1e3):.2f}x); library none (no PyTorch "
+                    "call does an implicit step)")
+            del pieces
+            torch.cuda.empty_cache()
+    # the chunk-count sweep: each piece's device µs at every chunk count
+    points = {}
     for label, eqs, case in MEGATHETA_SWEEPS:
         for dt_name, dtype in DTYPES.items():
             model, plan0, _, args = megatheta_entry(eqs, case, "cuda", dtype, True)
             sysm, N = model.system, plan0.N
-            M = N // plan0.g
             row = {}
             for C in megatheta.chunk_counts(N, sysm.nvar, sysm.halo):
                 plan = megatheta.plan_for(N, sysm.nvar, sysm.halo, C)
-                row[C] = min(cuda_ms(lambda: megatheta.theta_step(
-                    model.backend, plan, 1.0, *args, case[2]), 10) for _ in range(2))
-                fit.setdefault(plan.s, []).append((dt_name, M, C, row[C]))
-            best = min(row, key=row.get)
-            log(f"  K9 chunk sweep {label} {dt_name} (ms per step, the lower of two CUDA-event "
-                "means over 10 steps): " + "; ".join(f"C={C} Mc={M // C}: {v:.4f}"
-                                                    for C, v in row.items())
-                + f" -> fastest C={best}; plan_for's C={plan0.C} at "
-                f"{row[plan0.C] / row[best] - 1:+.2%}")
-    for s_blk, points in sorted(fit.items()):
-        # t = ROW_US Mc + SLAB_US levels slabs + an offset per dtype,
-        # non-negative least squares over both dtypes: the constants of
-        # megatheta.plan_cost_us
-        dts = sorted({dt_name for dt_name, *_ in points})
-
-        def feats(M, C):
-            return [M // C, pcr.n_levels(C) * -(-C // pcr.BLOCK_THREADS)]
-
-        coef = nnls_fit([feats(M, C) + [float(dt_name == d) for d in dts]
-                         for dt_name, M, C, _ in points], [t for *_, t in points])
+                pieces = k9_pieces(model, plan, args, case[2])[0]
+                t = {k: min(graph_us(call, 20) for _ in range(2))
+                     for k, (call, _) in pieces.items()}
+                row[C] = t
+                points.setdefault(plan.s, []).append(
+                    (label, dt_name, C, megatheta.plan_features(plan.M, C, plan.s,
+                                                                plan.woodbury), t))
+                del pieces
+                torch.cuda.empty_cache()
+            best = min(row, key=lambda C: row[C]["step"])
+            log(f"  K9 chunk sweep {label} {dt_name} (device us, the lower of two CUDA-graph "
+                "readings): " + "; ".join(
+                    f"C={C} Mc={plan0.M // C}: " + ", ".join(
+                        f"{k.split('.')[-1]} {v:.2f}" for k, v in t.items())
+                    for C, t in row.items())
+                + f" -> fastest step C={best}; plan_for's C={plan0.C} at "
+                f"{row[plan0.C]['step'] / row[best]['step'] - 1:+.2%}")
+    for s_blk, pts in sorted(points.items()):
+        consts, resid = k9_fit(pts)
         picks = []
-        for d in dts:
-            rows = [(C, M, t) for dt_name, M, C, t in points if dt_name == d]
-            pick = min(rows, key=lambda r: (float(np.dot(coef[:2], feats(r[1], r[0]))), r[0]))
-            best = min(rows, key=lambda r: r[2])
-            picks.append(f"{d}: the fit picks C={pick[0]} "
-                         f"({pick[2] / best[2] - 1:+.2%}), fastest C={best[0]}")
-        log(f"  K9 cost fit s={s_blk}: ROW_US = {coef[0]:.3f}, SLAB_US = {coef[1]:.3f} "
-            f"(megatheta's {megatheta.ROW_US[s_blk]}, {megatheta.SLAB_US[s_blk]}); "
-            + "; ".join(picks))
+        for label, d in sorted({(lb, d) for lb, d, *_ in pts}):
+            rows = [(C, f, t) for lb, dd, C, f, t in pts if (lb, dd) == (label, d)]
+            key = {name: i for i, name in enumerate(
+                ("CHAIN_US", "CHUNK_US", "LEVEL_US", "LEVEL_KC_US", "SHIFT_US", "WOOD_US"))}
+            pick = min(rows, key=lambda r: (sum(consts.get(n, 0.0) * r[1][i]
+                                                for n, i in key.items()), r[0]))
+            best = min(rows, key=lambda r: r[2]["step"])
+            picks.append(f"{label} {d}: the fit picks C={pick[0]} "
+                         f"({pick[2]['step'] / best[2]['step'] - 1:+.2%}), fastest C={best[0]}")
+        log(f"  K9 cost fit s={s_blk}: " + ", ".join(f"{k} = {v:.4f}" for k, v in consts.items())
+            + " (megatheta's " + ", ".join(
+                f"{k} {getattr(megatheta, k)[s_blk]}" for k in consts)
+            + "); largest relative residuals " + ", ".join(
+                f"{k} {v:.1%}" for k, v in resid.items()) + "; " + "; ".join(picks))
     return times
 
 

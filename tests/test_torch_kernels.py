@@ -337,7 +337,7 @@ def test_megatheta_kernels_match_plain_versions(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,wood", [(30000, True), (1 << 15, False)],
+@pytest.mark.parametrize("N,wood", [(30030, True), (1 << 15, False)],
                          ids=["woodbury", "block-cyclic"])
 def test_megatheta_entry_launches_k9_twice_per_step(cuda_device, monkeypatch, N, wood):
     """Theta's ``device_fixed_step_folded`` with ``TRIFLOW_MEGATHETA=1``: one
@@ -354,7 +354,8 @@ def test_megatheta_entry_launches_k9_twice_per_step(cuda_device, monkeypatch, N,
     u9 = fixed(0.0, *args, 0.5, 0.05)[0]
     counts = _launch.counts()
     want = dict.fromkeys(counts, 0)
-    want.update({"K9.interface": 1, "K9.correct": 1, "K4.pcr_factor": 1,
+    want.update({"K9.interface": 1, "K9.correct": 1,
+                 kernel_checks.factor_entry(plan.s, plan.C): 1,
                  "K4.pcr_solve_shift": 1, "K4.pcr_solve": int(wood)})
     assert counts == want
     monkeypatch.delenv("TRIFLOW_MEGATHETA")

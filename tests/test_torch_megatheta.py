@@ -34,7 +34,7 @@ import torch
 import triflow_tpu as tj
 import triflow_tpu_torch as tt
 from triflow_tpu.ops import folded as jfolded
-from triflow_tpu_torch.ops import megatheta, pcr, thomas
+from triflow_tpu_torch.ops import _launch, megastep, megatheta, pcr, thomas
 from triflow_tpu_torch.utils.convert import state_from_numpy
 
 torch.set_num_threads(1)
@@ -203,7 +203,7 @@ def test_plan_and_gate():
     none for s > 2 or N no multiple of the supernode size."""
     burgers = megatheta.plan_for(10 ** 6, 1, 1)
     assert burgers.woodbury and burgers.C <= pcr.MAX_C
-    assert burgers.Mc <= megatheta.MAX_MC and burgers.C * burgers.Mc == 10 ** 6
+    assert burgers.Mc <= megatheta.MAX_MC[1] and burgers.C * burgers.Mc == 10 ** 6
     ks = megatheta.plan_for(1 << 20, 1, 2)
     assert ks.cyclic and ks.s == 2
     assert megatheta.plan_for(1 << 20, 1, 2, C=ks.C) == ks
@@ -216,19 +216,83 @@ def test_plan_and_gate():
     assert not megatheta.applicable(model, burgers._replace(B=4), True)
 
 
-@pytest.mark.parametrize("eqs,N", [(BURGERS, 1000), (BURGERS, 4096), (KS, 1200),
-                                   (KS, 4096)],
+#: the chunk counts the plan weighs at the reference's grids: every divisor
+#: of the supernode count with at most MAX_MC rows (4096 at s = 1, 2048 at
+#: s = 2) and at most pcr.MAX_C chunks
+ADMITTED = {
+    (10 ** 6, 1): [250, 320, 400, 500, 625, 800, 1000, 1250, 1600, 2000,
+                   2500, 3125, 4000, 5000, 6250, 8000, 10000, 12500, 15625],
+    (1 << 20, 2): [256, 512, 1024, 2048, 4096, 8192, 16384],
+}
+
+
+@pytest.mark.parametrize("N,halo", list(ADMITTED), ids=["burgers-10^6", "ks-2^20"])
+def test_plan_weighs_admitted_chunk_counts(N, halo):
+    """The chunk counts at Burgers 10^6 and KS 2^20, and the plan's pick
+    the least modelled cost among them."""
+    counts = megatheta.chunk_counts(N, 1, halo)
+    assert counts == ADMITTED[(N, halo)]
+    plan = megatheta.plan_for(N, 1, halo)
+    costs = {C: megatheta.plan_cost_us(N // halo, C, halo, not (C & (C - 1) == 0))
+             for C in counts}
+    assert plan.C == min(costs, key=lambda C: (costs[C], C))
+
+
+@pytest.mark.parametrize("N,halo,Mc", [(8192, 1, 4096), (8192, 2, 2048)],
+                         ids=["s=1", "s=2"])
+def test_plan_limits(N, halo, Mc):
+    """MAX_MC by block size: a chunk of MAX_MC rows is admitted, one of
+    twice as many is not; the lanes split a chunk of Mc rows into a chain
+    of ceil(Mc / LANES) rows and log2 min(Mc, LANES) levels."""
+    assert megatheta.LANES == 32
+    assert megatheta.MAX_MC[halo] == Mc
+    assert megatheta.plan_for(N, 1, halo, C=2).Mc == Mc
+    assert megatheta.plan_for(2 * N, 1, halo, C=2) is None
+    for rows, chain in ((2, 2), (32, 6), (50, 7), (500, 21), (Mc, Mc // 32 + 5)):
+        assert megatheta.chain_rows(rows) == chain
+
+
+def test_block_bytes_gate():
+    """The gate refuses a plan whose chunk's block does not fit the shared
+    memory a block may take: Burgers at MAX_MC (its one parameter staged)
+    fits in float64; with x read and two more parameters it does not, and
+    at a chunk of 500 rows it does."""
+    item = 8
+    assert megatheta.smem_bytes(1, 0, 1, 1, 4096, item) == 167176
+    assert megatheta.smem_bytes(1, 0, 0, 2, 2048, item) == 196128
+    assert megatheta.smem_bytes(1, 0, 0, 2, 2048, 4) < 196128 // 2 + 4096
+    # float32 rows pad every 16 elements where the lanes' stride is 31
+    assert megatheta.smem_bytes(1, 0, 1, 1, 1000, 4) == 4 * (1064 + 1062 + 31 * 3 * 32)
+    assert megatheta.smem_bytes(1, 0, 1, 1, 800, 4) == 4 * (827 + 824 + 24 * 3 * 32)
+    # x beside the parameter: one more row of 4096 nodes, padded
+    assert (megatheta.smem_bytes(1, 0, 1, 1, 4096, item, True)
+            == 167176 + item * (4095 + 4095 // 16 + 1))
+    big = megatheta.plan_for(8192, 1, 1, C=2)
+    small = megatheta.plan_for(8000, 1, 1, C=16)
+    model = tt.Model(*BURGERS, device="cpu")
+    assert megatheta.block_bytes(model, big) <= megastep.SMEM_PER_CTA
+    assert megatheta.applicable(model, big, True)
+    two = tt.Model("-U * dxU + nu * dxxU + k * U + c * x", "U",
+                   ["nu", "k", "c"], device="cpu")
+    assert megatheta.block_bytes(two, big) > megastep.SMEM_PER_CTA
+    assert not megatheta.applicable(two, big, True)
+    assert megatheta.applicable(two, small, True)
+
+
+@pytest.mark.parametrize("eqs,N,C", [(BURGERS, 1000, 125), (BURGERS, 4096, 256),
+                                     (KS, 1200, 15), (KS, 4096, 64)],
                          ids=["burgers-woodbury", "burgers-cyclic", "ks-woodbury",
                               "ks-cyclic"])
-def test_interface_pass_matches_k2_k3(eqs, N):
+def test_interface_pass_matches_k2_k3(eqs, N, C):
     """The plain interface pass against the plain K2 factor of I - dt J and
-    K3 sweep of dt F at the same plan."""
+    K3 sweep of dt F at the same plan, one of each closure per block
+    size."""
     model = tt.Model(*eqs, device="cpu")
     b = model.backend
     f, p = state_from_numpy(*state(eqs, N), model)
     u, helpers, x = b.split_fields(f)
     pstack = b.pack_pars(p, x)
-    plan = megatheta.plan_for(N, 1, model.halo)
+    plan = megatheta.plan_for(N, 1, model.halo, C)
     assert plan.woodbury == (N in (1000, 1200))
     beta, dt = megatheta.scalars(u.dtype, 1.0, DT)
     got = megatheta.interface_plain(b, plan, u, helpers, pstack, x, beta, dt)
@@ -290,3 +354,52 @@ def test_wrappers_refuse_devices_without_a_kernel():
     shifts = [torch.empty((1, plan.C), **meta)] * 2
     with pytest.raises(ValueError, match="CUDA"):
         megatheta.correct(model.backend, plan, *args, -0.05, 0.05, *shifts)
+
+
+def _k9_inputs(N=64, **bad):
+    from .test_torch_stencil_J_plans import FakeCuda
+
+    args = {"u": FakeCuda((1, N)), "helpers": FakeCuda((0, N)),
+            "pstack": FakeCuda((1, N)), "x": FakeCuda((N,)),
+            "xm1": FakeCuda((1, 2)), "xp1": FakeCuda((1, 2))}
+    args.update({k: v if not isinstance(v, tuple) else FakeCuda(*v)
+                 for k, v in bad.items()})
+    return args
+
+
+#: (id, bad inputs (shape, device, dtype, contiguous), error, message) of
+#: K9's refusals at the plan of N = 64 nodes in two chunks
+K9_FAULTS = [
+    ("cpu-beside-cuda", {"helpers": ((0, 64), -1)}, ValueError, "CUDA tensors"),
+    ("other-dtype", {"pstack": ((1, 64), 0, torch.float32)}, TypeError, "expected"),
+    ("not-contiguous", {"x": ((64,), 0, torch.float64, False)}, ValueError,
+     "contiguous"),
+    ("x-shape", {"x": ((65,),)}, ValueError, "x has shape"),
+    ("pstack-rows", {"pstack": ((2, 64),)}, ValueError, "pstack has shape"),
+    ("other-grid", {"u": ((1, 128),)}, ValueError, "u has shape"),
+    ("shifts-shape", {"xm1": ((1, 3),)}, ValueError, "expected"),
+]
+
+
+@pytest.mark.parametrize("bad,err,match", [c[1:] for c in K9_FAULTS],
+                         ids=[c[0] for c in K9_FAULTS])
+def test_wrappers_refuse_each_fault(monkeypatch, bad, err, match):
+    """K9's entries, whose shapes are checked once per (plan, shapes):
+    every call raises on a tensor off the card or beside CPU ones, of
+    another dtype, not contiguous or of another shape (the correct entry
+    also on its neighbours' unknowns), and a refused shape is never taken
+    as checked."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    backend = tt.Model(*BURGERS, device="cpu").backend
+    plan = megatheta.plan_for(64, 1, 1, C=2)
+    args = _k9_inputs(**bad)
+    before = dict(_launch._SHAPES)
+    for _ in range(2):
+        with pytest.raises(err, match=match):
+            ins = [args[k] for k in ("u", "helpers", "pstack", "x")]
+            if "xm1" in bad:
+                megatheta.correct(backend, plan, *ins, -0.05, 0.05, args["xm1"],
+                                  args["xp1"])
+            else:
+                megatheta.interface(backend, plan, *ins, -0.05, 0.05)
+    assert _launch._SHAPES == before

@@ -14,6 +14,7 @@ import torch
 import triflow_tpu as tj
 import triflow_tpu_torch as tt
 from triflow_tpu.core.compiler import NumpyBackend
+from triflow_tpu_torch.ops import stencil
 from triflow_tpu_torch.ops.stencil import BARE_LITERAL
 
 torch.set_num_threads(1)
@@ -104,6 +105,26 @@ def test_stencil_codegen_deterministic_and_typed(name):
     assert "tf_F" in block and "tf_J" in block
     assert BARE_LITERAL.findall(block) == []
     assert "double" not in block
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_megatheta_codegen_takes_inverse_dx(name):
+    """K9's library prints the model's bodies with 1 / dx in dx's slot (the
+    last argument): deterministic, typed, and with no division by it; it
+    says whether the bodies read x (the first argument)."""
+    eqs, dep, pars = MODELS[name]
+    b = tt.Model(eqs, dep, pars, device="cpu").backend
+    first = b.megatheta.source()
+    second = tt.Model(eqs, dep, pars, double=False, device="cpu").backend.megatheta.source()
+    assert first.replace("#define TF_F32 0", "#define TF_F32 1") == second
+    block = _generated_block(first)
+    last = f"a[{len(b.args_symbols) - 1}]"
+    assert BARE_LITERAL.findall(block) == [] and "double" not in block
+    assert f"/{last}" not in block.replace(" ", "") and f"/(({last})" not in block
+    reads_x = "a[0]" in block
+    assert f"#define TF_USES_X {int(reads_x)}" in block
+    assert stencil.uses_x(b.system, b.args_symbols) is reads_x
+    assert "TF_USES_X" not in b.stencil.source()
 
 
 def test_bare_literal_pattern():

@@ -6,16 +6,16 @@ parent commit's, in one process on one NVIDIA GPU.
 
 PARENT_DIR holds the parent's ``triflow_tpu_torch`` package (default
 ``build/ab_parent``); where it is missing and the checkout is a git
-repository, it is unpacked there from commit ``e229420`` (``git
-archive``), the commit before K7's and K1.J's tiled bodies.  GRID words keep only
+repository, it is unpacked there from commit ``ffd78f9`` (``git
+archive``), the commit before K9's lane-split bodies.  GRID words keep only
 the grids whose name holds one of them (``film``: the falling film's);
 ``+word`` arguments keep only those kernel groups (``KERNEL_GROUPS``:
 ``k2``, ``k4f``, ``setup``, ``shift``, ``k3``, ``corr``, ``k5``,
-``stencil``, ``j``, ``k7``, ``k6``, ``batched``; all without).  ``+k6`` alone times K6's entries on
-``K6_CASES`` (``k6_turns``: the outputs at the parent's chunk plan bit
-for bit or their gap, device µs and host-call ms of the parent, this at
-the parent's plan and this at its own).  Both packages load
-in this process, the parent's under another name, each building its
+``stencil``, ``j``, ``k7``, ``k6``, ``batched``, ``k9``; all without).
+``+k6`` alone times K6's entries on ``K6_CASES`` (``k6_turns``: the
+outputs at the parent's chunk plan bit for bit or their gap, device µs
+and host-call ms of the parent, this at the parent's plan and this at
+its own).  Both packages load in this process, the parent's under another name, each building its
 kernels from its own ``csrc/`` into its own ``build/``, all libraries at
 once first.
 
@@ -49,7 +49,14 @@ a per-member one) on ``K7_GRIDS`` the same way: outputs against the
 parent's, periodic and edge, the host call back to back and the device
 µs on inputs cold in L2 (the profiler's, and a CUDA graph's of the same
 calls: ``chip_smoke.graph_us``, parent, this, this, parent) beside the
-bytes bound.
+bytes bound.  ``k9``: K9's interface and correct entries and its whole
+step (``megatheta.theta_step``, with K4) on ``kernel_checks.megatheta_state``
+at ``K9_GRIDS`` (Burgers N = 10^6, KS N = 2^20), at the parent's plan and
+at this one's (``megatheta.plan_for`` of each side): the outputs against
+the parent's at the same plan within the solver pieces' limits (the
+entries on the increment where they make one), the host call back to
+back, and the device µs of each entry on inputs cold in L2 and of the
+step (``chip_smoke.graph_us``).
 Float64 and float32; CUDA-event ms per call over back-to-back calls, in
 the order parent, this, this, parent, PAIRS times (default 2).  It
 checks that both give the same outputs (bit for bit, or within the
@@ -79,7 +86,7 @@ from triflow_tpu_torch import Model  # noqa: E402
 from triflow_tpu_torch.ops import (chunked, combine, kernel_checks,  # noqa: E402
                                    matvec, pcr, thomas)
 
-PARENT_COMMIT = "e229420"
+PARENT_COMMIT = "ffd78f9"
 #: bytes the inputs of K3's correction rotate over when timed: twice the
 #: H100's 50 MB L2, so that each call reads its inputs from memory
 COLD_BYTES = 100 * 2 ** 20
@@ -170,7 +177,8 @@ def prebuild(sides, kernels):
     """Build both checkouts' libraries that the run needs at once, one nvcc
     each: the solver libraries and K5 where a group of them is timed, the
     K1 libraries of STENCIL_GRIDS' and J_GRIDS' models where ``stencil`` or
-    ``j`` is, K7's where ``k7`` is."""
+    ``j`` is, K7's where ``k7`` is, K4's and the K9 libraries of K9_GRIDS'
+    models where ``k9`` is."""
     from concurrent.futures import ThreadPoolExecutor
 
     jobs = []
@@ -181,6 +189,11 @@ def prebuild(sides, kernels):
                 jobs += lib.builds()
         if "k7" in kernels:
             jobs += getattr(mv.LIB, "builds", lambda lib=mv.LIB: [lib.load])()
+        if "k9" in kernels:
+            jobs += pc.LIB.builds()
+            for _, eqs, _ in K9_GRIDS:
+                for double in (True, False):
+                    jobs.append(model(*eqs, double=double, device="cuda").backend.megatheta.load)
         grids = (STENCIL_GRIDS if "stencil" in kernels else []) + (
             J_GRIDS if "j" in kernels else [])
         for eqs in {id(g[1]): g[1] for g in grids}.values():
@@ -203,9 +216,9 @@ def cold_copies(nbytes, first, clone):
 #: the kernel groups (``+word`` arguments): K2, K4's factor, its Woodbury
 #: set-up and R-column solve, its solve with shifts, K3's sweep and
 #: correction, K5, K1's F and F_terms, K1's J, K7, K6's entries, K6's
-#: member-axis checks at B = 64 (``batched``)
+#: member-axis checks at B = 64 (``batched``), K9's entries and step
 KERNEL_GROUPS = ("k2", "k4f", "setup", "shift", "k3", "corr", "k5", "stencil", "j", "k7",
-                 "k6", "batched")
+                 "k6", "batched", "k9")
 #: the groups timed on the solver grids (``GRIDS``)
 SOLVER_GROUPS = {"k2", "k4f", "setup", "shift", "k3", "corr"}
 KS = ("-dxxU - dxxxxU - U * dxU", "U", [])
@@ -229,6 +242,9 @@ J_GRIDS = [("ks 2^20", KS, 1 << 20, 1), ("ks 10^6", KS, 10 ** 6, 1),
 #: ensemble's (B = 4 KS members at N = 10^5)
 K7_GRIDS = [("ks 10^6", 5, 1, 10 ** 6, 1), ("advdiff 1024", 3, 1, 1024, 1),
             ("refine B=4 10^5", 5, 1, 10 ** 5, 4)]
+#: (label, equations, N) of K9's timings: bench.py's config 2 grid and KS
+#: at 2^20, the opt-in step's cells
+K9_GRIDS = [("burgers 10^6", BURGERS, 10 ** 6), ("ks 2^20", KS, 1 << 20)]
 #: the card's memory rate (NVIDIA H100 SXM data sheet, at the 700 W limit)
 BYTES_PER_S = 3.35e12
 
@@ -448,7 +464,7 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card {smi}", flush=True)
     old_thomas, old_pcr, old_combine, old_matvec, old_port = load_parent(parent_dir)
-    if kernels & (SOLVER_GROUPS | {"k5", "stencil", "j", "k7"}):
+    if kernels & (SOLVER_GROUPS | {"k5", "stencil", "j", "k7", "k9"}):
         prebuild([(thomas, pcr, combine, matvec, Model),
                   (old_thomas, old_pcr, old_combine, old_matvec, old_port.Model)], kernels)
     if not kernels & SOLVER_GROUPS:
@@ -716,6 +732,78 @@ def main():
             del sets, bands, v
             torch.cuda.empty_cache()
 
+    def k9_turns(dt, dtype):
+        """K9's entries and step against the parent's on K9_GRIDS (see the
+        module's docstring)."""
+        from triflow_tpu_torch.ops import megatheta
+
+        old_k9 = importlib.import_module("parent_port.ops.megatheta")
+        tol = kernel_checks.TOL[dtype]["solve"]
+        for label, eqs, N in K9_GRIDS:
+            new_m = Model(*eqs, double=dtype == torch.float64, device="cuda")
+            old_m = old_port.Model(*eqs, double=dtype == torch.float64, device="cuda")
+            new_b, old_b = new_m.backend, old_m.backend
+            sysm = new_m.system
+            args = kernel_checks.megatheta_state(new_m, N, "cuda")
+            u = args[0]
+            beta, dts = megatheta.scalars(dtype, 1.0, 0.05)
+            own_new = megatheta.plan_for(N, sysm.nvar, sysm.halo)
+            own_old = old_k9.plan_for(N, sysm.nvar, sysm.halo)
+            nbytes = sum(a.numel() for a in args) * u.element_size()
+            sets = cold_copies(nbytes, args, lambda *a: tuple(v.clone() for v in a))
+            for plan in {own_old.C: own_old, own_new.C: own_new}.values():
+                what = f"K9 {label} {dt} C={plan.C} Mc={plan.Mc}"
+                whose = " and ".join(w for w, p in (("the parent's", own_old),
+                                                    ("this", own_new)) if p.C == plan.C)
+                red_new = megatheta.interface(new_b, plan, *args, beta, dts)
+                red_old = old_k9.interface(old_b, plan, *args, beta, dts)
+                errs = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(red_new, red_old)]
+                Lred, Ured, yred = red_old
+                fac = pcr.pcr_factor(Lred, Ured, plan.cyclic)
+                wood = pcr.woodbury(fac, Lred, Ured) if plan.woodbury else ()
+                xm1, xp1 = pcr.pcr_solve_shift(fac, yred, plan.wrap, *wood)
+                outs = [(megatheta.correct(new_b, plan, *args, beta, dts, xm1, xp1),
+                         old_k9.correct(old_b, plan, *args, beta, dts, xm1, xp1)),
+                        (megatheta.theta_step(new_b, plan, 1.0, *args, 0.05),
+                         old_k9.theta_step(old_b, plan, 1.0, *args, 0.05))]
+                errs += [kernel_checks.increment_error(a, b, u, tol, what)[1]
+                         for a, b in outs]
+                print(f"{what} ({whose} plan): Lred, Ured, yred relative gaps "
+                      + ", ".join(f"{e:.3e}" for e in errs[:3])
+                      + f"; correct and step on the increment {errs[3]:.3e}, {errs[4]:.3e}"
+                      f" (limit {tol:.0e})", flush=True)
+                if not all(e <= tol for e in errs):
+                    raise SystemExit(f"{what}: outside the solver pieces' limits")
+                del outs, red_new, red_old
+                entries = {
+                    "interface": lambda k9, b, a: k9.interface(b, plan, *a, beta, dts),
+                    "correct": lambda k9, b, a: k9.correct(b, plan, *a, beta, dts, xm1, xp1)}
+                for entry, call in entries.items():
+                    turns(f"{what} {entry}", lambda: call(old_k9, old_b, args),
+                          lambda: call(megatheta, new_b, args), 50)
+
+                    def cold(k9, b, call=call):
+                        turn = itertools.cycle(sets)
+                        return lambda: call(k9, b, next(turn))
+
+                    on_graph(f"{what} {entry} cold", cold(old_k9, old_b),
+                             cold(megatheta, new_b), max(50, len(sets)))
+                    log_bound(f"{what} {entry}", nbytes + (u.numel() if entry == "correct"
+                                                           else 0) * u.element_size())
+            # the whole step, each side under its own plan
+            what = f"K9 step {label} {dt} (C={own_old.C} / C={own_new.C})"
+            old_step = lambda: old_k9.theta_step(old_b, own_old, 1.0, *args, 0.05)  # noqa: E731
+            new_step = lambda: megatheta.theta_step(new_b, own_new, 1.0, *args, 0.05)  # noqa: E731
+            turns(what, old_step, new_step, 20)
+            try:
+                on_graph(what, old_step, new_step, 20)
+            except RuntimeError as err:
+                torch.cuda.synchronize()
+                print(f"  {what}: graph device us not measured ({err})", flush=True)
+            del sets, args
+            torch.cuda.empty_cache()
+
     def k6_turns():
         """K6's entries against the parent's (``K6_CASES``): the outputs at
         the parent's chunk plan bit for bit (or their gap), then device µs
@@ -883,6 +971,8 @@ def main():
             j_turns(dt, dtype)
         if "k7" in kernels:
             k7_turns(dt, dtype)
+        if "k9" in kernels:
+            k9_turns(dt, dtype)
         if "k5" not in kernels:
             continue
         n = 1 << 20

@@ -28,7 +28,7 @@ import torch
 from sympy import Symbol
 from sympy.printing.pytorch import TorchPrinter
 
-from ..ops import megatheta, stencil
+from ..ops import stencil
 from .symbolic import DiscreteSystem, offset_symbol
 
 
@@ -157,9 +157,8 @@ class TorchBackend:
                                        dtype=dtype)
         self.megastep = stencil.library(system, self.args_symbols,
                                         "megastep.cu", dtype)
-        self.megatheta = stencil.library(
-            system, self.args_symbols, "megatheta.cu", dtype,
-            defines={"TF_MAX_MC": megatheta.MAX_MC})
+        self.megatheta = stencil.library(system, self.args_symbols,
+                                         "megatheta.cu", dtype)
         self.megastep_mixed = stencil.library(system, self.args_symbols,
                                               "megastep.cu", dtype, True)
 

@@ -1411,15 +1411,30 @@ def check_megatheta(model, N, dt, theta, device, results=None, plan=None):
 
 
 #: (model, N, chunk count or None for plan_for's, dt, theta) of K9's
-#: small-shape checks: block sizes 1 and 2, Woodbury (C = 50, 300, 2) and
-#: block-cyclic (C = 256, 64) rings, chunks that are no multiple of the
-#: warp, and the most rows a chunk takes (Mc = megatheta.MAX_MC = 1024)
+#: small-shape checks: block sizes 1 and 2; Woodbury (C = 2, 10, 20, 300)
+#: and block-cyclic (C = 8, 64) rings; chunks that split raggedly over the
+#: warp's 32 lanes (Mc = 50, 100, 500), chunks of fewer than two rows a
+#: lane (Mc = 2, 32, 50), and the most rows a chunk takes at each block
+#: size (``megatheta.MAX_MC``: Mc = 4096 at s = 1, 2048 at s = 2); and a
+#: model whose bodies read x
 MEGATHETA_CASES = [("burgers", 1000, None, 0.05, 1.0),
                    ("burgers", 4096, None, 0.05, 0.5),
+                   ("burgers", 1000, 2, 0.05, 1.0),
+                   ("burgers", 1000, 20, 0.05, 1.0),
+                   ("burgers", 800, 8, 0.05, 1.0),
                    ("burgers", 2048, 2, 0.05, 1.0),
+                   ("burgers", 8192, 2, 0.05, 1.0),
                    ("ks", 1200, 300, 0.05, 1.0),
                    ("ks", 4096, None, 0.05, 1.0),
-                   ("ks", 4096, 2, 0.01, 0.5)]
+                   ("ks", 4096, 64, 0.05, 1.0),
+                   ("ks", 2000, 10, 0.05, 1.0),
+                   ("ks", 4096, 2, 0.01, 0.5),
+                   ("ks", 8192, 2, 0.01, 0.5),
+                   ("forced", 1200, 4, 0.05, 1.0)]
+#: the K9 checks' models: K1's, and Burgers forced by sin(x), whose bodies
+#: read x (K9 stages x only for such a model: ``TF_USES_X``)
+MEGATHETA_MODELS = {**STENCIL_MODELS,
+                    "forced": ("-U * dxU + nu * dxxU + sin(x)", "U", ["nu"])}
 
 
 def check_all_megathetas(device, dtype, results=None):
@@ -1427,7 +1442,7 @@ def check_all_megathetas(device, dtype, results=None):
 
     results = {} if results is None else results
     for name, N, C, dt, theta in MEGATHETA_CASES:
-        model = Model(*STENCIL_MODELS[name], double=dtype == torch.float64,
+        model = Model(*MEGATHETA_MODELS[name], double=dtype == torch.float64,
                       device=device)
         sysm = model.system
         plan = megatheta.plan_for(N, sysm.nvar, sysm.halo, C)

@@ -126,14 +126,25 @@ class KernelPrinter(C99CodePrinter):
 
 
 def generate_source(system, args_symbols, template="stencil.cu",
-                    dtype=torch.float64, mixed=False, defines=None) -> str:
+                    dtype=torch.float64, mixed=False, inverse_dx=False) -> str:
     """A per-model CUDA source: ``csrc/<template>`` (K1's ``stencil.cu``,
     K6's ``megastep.cu`` or K9's ``megatheta.cu``) with the constants and
     the expression bodies of ``system`` spliced in, and the entries of the
     model's ``dtype`` only (the one it computes in: half the build of
-    both); ``mixed``: K6's mixed entry alone (float64); ``defines``: more
-    constants {name: value} of the template, owned by its Python module."""
-    printer = KernelPrinter({s: i for i, s in enumerate(args_symbols)})
+    both); ``mixed``: K6's mixed entry alone (float64).  ``inverse_dx``
+    (K9's): the bodies take 1 / dx in dx's place, so that a stencil's
+    divisions by powers of dx print as products, and ``TF_USES_X`` says
+    whether they read x."""
+    index = {s: i for i, s in enumerate(args_symbols)}
+    F_exprs, J_exprs = list(system.F_exprs), dict(system.J_band_exprs)
+    extra = []
+    if inverse_dx:
+        dx, idx = args_symbols[-1], sp.Symbol("inverse dx")
+        index[idx] = index.pop(dx)
+        F_exprs = [e.subs(dx, 1 / idx) for e in F_exprs]
+        J_exprs = {k: e.subs(dx, 1 / idx) for k, e in J_exprs.items()}
+        extra.append(f"#define TF_USES_X {int(uses_x(system, args_symbols))}")
+    printer = KernelPrinter(index)
     nvar = system.nvar
     lines = [
         f"#define TF_F32 {int(dtype == torch.float32)}",
@@ -143,19 +154,25 @@ def generate_source(system, args_symbols, template="stencil.cu",
         f"#define TF_NPAR {len(system.pars)}",
         f"#define TF_H {system.halo}",
         f"#define TF_NARGS {len(args_symbols)}",
-        *(f"#define {k} {v}" for k, v in (defines or {}).items()),
+        *extra,
         "template <typename T>",
         "__device__ __forceinline__ void tf_F(const T* a, T* f) {",
     ]
-    for m, expr in enumerate(system.F_exprs):
+    for m, expr in enumerate(F_exprs):
         lines.append(f"  f[{m}] = {printer.doprint(expr)};")
     lines += ["}", "template <typename T>",
               "__device__ __forceinline__ void tf_J(const T* a, T* b) {"]
-    for (m, n, k), expr in system.J_band_exprs.items():
+    for (m, n, k), expr in J_exprs.items():
         lines.append(f"  b[{(k * nvar + m) * nvar + n}] = {printer.doprint(expr)};")
     lines.append("}")
     text = (_build.CSRC / template).read_text()
     return text.replace("// @GENERATED@", "\n".join(lines))
+
+
+def uses_x(system, args_symbols) -> bool:
+    """Whether the model's F or J reads x (``TF_USES_X`` of K9's source)."""
+    return any(args_symbols[0] in e.free_symbols
+               for e in list(system.F_exprs) + list(system.J_band_exprs.values()))
 
 
 #: a floating-point literal that does not sit directly inside ``T(...)``
@@ -165,14 +182,15 @@ BARE_LITERAL = re.compile(
 
 
 def library(system, args_symbols, template="stencil.cu",
-            dtype=torch.float64, mixed=False, defines=None) -> _build.Library:
+            dtype=torch.float64, mixed=False) -> _build.Library:
     """The model's K1 library (or, with ``template="megastep.cu"``, its K6
     library; with ``mixed`` too, its library of K6's mixed entry; with
-    ``template="megatheta.cu"``, its K9 library) for ``dtype``, generated
-    and built at its first launch."""
+    ``template="megatheta.cu"``, its K9 library, whose bodies take 1 / dx)
+    for ``dtype``, generated and built at its first launch."""
     name = template.split(".")[0] + ("_mixed" if mixed else "")
     return _build.Library(name, lambda: generate_source(
-        system, args_symbols, template, dtype, mixed, defines))
+        system, args_symbols, template, dtype, mixed,
+        inverse_dx=template == "megatheta.cu"))
 
 
 def _kernel_inputs(backend, u, helpers, pstack, x):
