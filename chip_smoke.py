@@ -233,6 +233,27 @@ on inputs off 16 bytes): host ms, device µs on inputs cold in L2 by the
 profiler and by a CUDA graph of the same calls (``graph_us``), the bytes
 bound.
 
+The chunked run (``Simulation.run(device_chunk=n)`` through the schemes'
+``device_steps``) has a phase 2 and a phase 3 of its own, each dtype:
+``phase2_chunked`` holds KS N = 10^6 fixed RODASPR and Burgers N = 10^6
+Theta (``CHUNK_CASES``, 100 output steps, ``device_chunk=50``: the graph
+route) against their stepwise runs, every emission's i, t and state bit
+for bit and the launch counts 100 times one step's; KS N = 2^13 adaptive
+at tol 1e-3 (``ADAPTIVE_CHUNK``, one chunk of 8 output steps: K6's
+adaptive scan with snapshots, ``K6.adaptive_snapshots``) with the same
+attempts per output step and every emission bit for bit, the snapshot
+entry's final state bit for bit the entry's without snapshots, and a
+failure's valid prefix (from the stepwise state after the first output
+step, ``max_iter`` below the first later step that takes more attempts
+than every one before it; ``device_chunk=2``) against the stepwise run's;
+phase 1 holds the snapshot outputs of K6's step and adaptive scan
+against their plain versions (``kernel_checks.check_snapshots``).
+``phase3_chunked`` prints ms per output step stepwise against chunked
+(host clock, synchronised, in turns), each window's idle share under
+``torch.profiler``, and K6.adaptive_snapshots against its plain version
+and its bound (the snapshots' bytes counted), beside the card's name and
+power limit.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -325,6 +346,12 @@ KERNELS = {
                     "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded"),
     "K6.adaptive_scan": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                          "triflow_tpu/ops/megastep.py:1313 row_adaptive_scan_folded"),
+    # the adaptive scan of one grid writing each output step's snapshot
+    # (Simulation.run(device_chunk=n), device_steps)
+    "K6.adaptive_snapshots": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                              "triflow_tpu/ops/megastep.py:1313 row_adaptive_scan_folded "
+                              "(per-output-step snapshots of triflow_tpu/core/schemes.py:268 "
+                              "device_steps)"),
     "K7.matvec": ("cuda", "triflow_tpu_torch/csrc/matvec.cu",
                   "triflow_tpu/ops/pallas_stencil.py:381 banded_matvec_pallas + "
                   "triflow_tpu/ops/folded.py:700 matvec_folded"),
@@ -3765,6 +3792,292 @@ def phase3_redesign():
     return times
 
 
+# ---- the chunked run: Simulation.run(device_chunk=n) through device_steps ----
+
+#: output steps of the chunked fixed cells, and the chunk they run in
+CHUNK_STEPS = 100
+CHUNK = 50
+#: (label, model, case, scheme kwargs) of the fixed cells of the chunked
+#: run, on the graph route (K1-K5, K1-K4)
+CHUNK_CASES = [
+    ("ks N=10^6 rodaspr fixed", KS, ks_case(0.05, CHUNK_STEPS * 0.05, N_REF), FIXED),
+    ("burgers N=10^6 theta", BURGERS, burgers_case(N_REF, 0.05, CHUNK_STEPS * 0.05), THETA),
+]
+#: the adaptive cell (K6's adaptive scan with snapshots): 8 output steps of
+#: 1.0 in one chunk, and the failure run's chunk
+ADAPTIVE_CHUNK = ("ks N=2^13 rodaspr adaptive tol 1e-3", KS, ks_case(1.0, 8.0, N_SMALL),
+                  dict(tol=1e-3))
+FAIL_CHUNK = 2
+
+
+def chunk_sim(eqs, case, dtype, kwargs, t=0.0, fields=None, internal_dt=None):
+    """A Simulation of the case on the card (from ``fields`` at ``t`` where
+    given, its scheme's internal dt set where given) and the list its
+    stream sink fills with (i, t, U, attempts, internal dt) of every
+    emission."""
+    fields_np, pars, dt, tmax, _ = case
+    model = Model(*eqs, double=dtype == torch.float64)
+    f0, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = Simulation(model, f0 if fields is None else fields, pars_t, dt=dt, t=t,
+                     tmax=tmax, **kwargs)
+    if internal_dt is not None:
+        sim._scheme._internal_dt = internal_dt
+    seen = []
+    sim.stream.sink(lambda s: seen.append((s.i, s.t, s.fields["U"].clone(),
+                                           getattr(s._scheme, "_internal_iter", None),
+                                           getattr(s._scheme, "_internal_dt", None))))
+    return sim, seen
+
+
+def chunk_run(sim, seen, device_chunk, expect_failure=False):
+    """Run ``sim`` with ``device_chunk`` and the launch counts set to 0
+    just before: (emissions after the first, counts, seconds, the
+    RuntimeError raised or None)."""
+    torch.cuda.synchronize()
+    _launch.reset_counters()
+    start = time.perf_counter()
+    failure = None
+    try:
+        sim.run(progress=False, device_chunk=device_chunk)
+    except RuntimeError as exc:
+        if not expect_failure:
+            raise
+        failure = exc
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    if expect_failure and (failure is None or sim.status != "failed"):
+        raise RuntimeError(f"device_chunk={device_chunk}: no failure (status {sim.status})")
+    return seen[1:], _launch.counts(), secs, failure
+
+
+def same_emissions(label, a, b):
+    """Raise unless two runs emitted the same i, t and U bit for bit."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{label}: {len(a)} emissions against {len(b)}")
+    for (ia, ta, ua, *_), (ib, tb, ub, *_) in zip(a, b):
+        if (ia, ta) != (ib, tb) or not torch.equal(ua, ub):
+            gap = float((ua.double() - ub.double()).abs().max())
+            raise RuntimeError(f"{label}: emission {ia} (t={ta!r}) against {ib} "
+                               f"(t={tb!r}): max|du| = {gap:.3e}")
+
+
+def phase2_chunked(launches):
+    """``Simulation.run(device_chunk=n)`` against the stepwise run on the
+    card, f64 and f32: the fixed cells of ``CHUNK_CASES`` (the graph route,
+    launch counts CHUNK_STEPS times one step's), the adaptive cell (K6's
+    adaptive scan with snapshots, attempts per output step), the adaptive
+    entry with snapshots against the one without, and a failure's prefix.
+    Every emission bit for bit."""
+    log("phase 2: the chunked run (Simulation.run(device_chunk=n), device_steps)")
+    launches = dict(launches)
+    for label, eqs, case, kwargs in CHUNK_CASES:
+        for dt_name, dtype in DTYPES.items():
+            sim_a, seen_a = chunk_sim(eqs, case, dtype, kwargs)
+            a, counts_a, _, _ = chunk_run(sim_a, seen_a, 1)
+            sim_b, seen_b = chunk_sim(eqs, case, dtype, kwargs)
+            b, counts_b, _, _ = chunk_run(sim_b, seen_b, CHUNK)
+            route = sim_b._scheme.steps_route
+            same_emissions(f"{label} {dt_name}", a, b)
+            per_step = {k: v // CHUNK_STEPS for k, v in counts_a.items() if v}
+            off = {k: (counts_b[k], counts_a[k]) for k in KERNELS
+                   if counts_b[k] != counts_a[k] or counts_a[k] % CHUNK_STEPS}
+            log(f"  {label} {dt_name}: {len(b)} emissions bit for bit (i, t, U) against "
+                f"the stepwise run; route {route}; launches per step "
+                f"{json.dumps(per_step)}")
+            if (route != "graph" or off or len(b) != CHUNK_STEPS or sim_b.i != sim_a.i
+                    or sim_b.status != "finished" or not per_step):
+                raise RuntimeError(f"{label} {dt_name}: route {route}, launches off "
+                                   f"{CHUNK_STEPS} x one step's {off}, i {sim_b.i} "
+                                   f"against {sim_a.i}, status {sim_b.status}")
+            for k in KERNELS:
+                launches[k] += counts_b[k]
+    label, eqs, case, kwargs = ADAPTIVE_CHUNK
+    n_out = int(round(case[3] / case[2]))
+    for dt_name, dtype in DTYPES.items():
+        sim_a, seen_a = chunk_sim(eqs, case, dtype, kwargs)
+        a, _, _, _ = chunk_run(sim_a, seen_a, 1)
+        sim_b, seen_b = chunk_sim(eqs, case, dtype, kwargs)
+        b, counts_b, _, _ = chunk_run(sim_b, seen_b, n_out)
+        scheme = sim_b._scheme
+        att_a = [e[3] for e in a]
+        same_emissions(f"{label} {dt_name}", a, b)
+        log(f"  {label} {dt_name}: {len(b)} emissions bit for bit against the stepwise "
+            f"run; attempts per output step {scheme.steps_attempts} (stepwise {att_a}); "
+            f"route {scheme.steps_route}; launches "
+            + json.dumps({k: v for k, v in counts_b.items() if v}))
+        if (scheme.steps_route != "K6_adaptive" or scheme.steps_attempts != att_a
+                or counts_b["K6.adaptive_snapshots"] != 1
+                or sum(counts_b.values()) != 1):
+            raise RuntimeError(f"{label} {dt_name}: route {scheme.steps_route}, "
+                               f"attempts {scheme.steps_attempts} against {att_a}, "
+                               f"launches {counts_b}")
+        for k in KERNELS:
+            launches[k] += counts_b[k]
+        # the snapshot entry's final state against the entry without
+        model, _, _, args, _ = path_inputs(eqs, case, dtype)
+        plan = megastep.plan_for(N_SMALL, 1, 2, True)
+        a_args = (adaptive_controller, model.backend, plan, kernel_checks.rodaspr_table(),
+                  True, *args, 0.0, 1.0, 1e-6, 1e-3, 0.9, None, None, n_out)
+        bare = megastep.adaptive_scan(*a_args)
+        snap = megastep.adaptive_scan(*a_args, snapshots=True)
+        if not (torch.equal(bare[0], snap[0]) and bare[1:] == snap[1:4]
+                and torch.equal(snap[-1][0][-1], snap[0])):
+            raise RuntimeError(f"{label} {dt_name}: the snapshot entry's final state "
+                               "differs from the entry's without snapshots")
+        log(f"  {label} {dt_name}: the snapshot entry's final u bit for bit the entry's "
+            f"without snapshots ({n_out} output steps, {bare[1]} done)")
+        # a failure at a known output step: from the stepwise run's state
+        # after its first output step (where the ramp from the seed dt is
+        # over), max_iter below the first later step that takes more
+        # attempts than every step before it
+        att = att_a[1:]
+        k = next((j for j in range(1, len(att)) if att[j] > max(att[:j])), None)
+        if k is None:
+            raise RuntimeError(f"{label} {dt_name}: no output step to fail at in {att_a}")
+        max_iter = max(att[:k])
+        fields_1 = sim_a._scheme._model.fields_template(
+            x=torch.as_tensor(case[0]["x"], dtype=dtype, device="cuda"), U=a[0][2])
+        runs = []
+        for device_chunk in (1, FAIL_CHUNK):
+            # the stepwise run's internal dt after its first output step
+            sim_f, seen_f = chunk_sim(eqs, case, dtype, dict(kwargs, max_iter=max_iter),
+                                      t=a[0][1], fields=fields_1.copy(),
+                                      internal_dt=a[0][4])
+            runs.append(chunk_run(sim_f, seen_f, device_chunk, expect_failure=True)[0])
+        same_emissions(f"{label} {dt_name} failure prefix", *runs)
+        log(f"  {label} {dt_name}: max_iter={max_iter} fails at output step {k + 1}; both "
+            f"runs raise RuntimeError with status failed after the same {len(runs[1])} "
+            f"emissions, bit for bit (device_chunk={FAIL_CHUNK})")
+        if len(runs[1]) != k:
+            raise RuntimeError(f"{label} {dt_name}: {len(runs[1])} emissions before the "
+                               f"failure, expected {k}")
+    return launches
+
+
+def chunk_scheme(eqs, case, dtype, kwargs):
+    """(scheme, fields, parameters, dt) of a case on the card: the scheme
+    ``Simulation`` builds from ``kwargs``."""
+    fields_np, pars, dt, tmax, _ = case
+    model = Model(*eqs, double=dtype == torch.float64)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    sim = Simulation(model, fields, pars_t, dt=dt, tmax=tmax, **kwargs)
+    return sim._scheme, sim.fields, pars_t, dt
+
+
+def stepwise_ms(scheme, fields, pars, dt, n):
+    """ms per output step of n calls of the scheme (host clock,
+    synchronised)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    t, f = 0.0, fields
+    for _ in range(n):
+        t, f = scheme(t, f, dt, pars)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / n
+
+
+def chunked_ms(scheme, fields, pars, dt, n):
+    """ms per output step of one ``device_steps`` call of n steps."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    scheme.device_steps(0.0, fields, n, dt, pars)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / n
+
+
+def log_idle(what, prof, per):
+    if prof is None:
+        log(f"    {what}: idle share not measured (the profiler recorded no device time)")
+        return
+    log(f"    {what}: device busy {prof['busy_us_per_step'] / per:.2f} us of a "
+        f"{prof['span_us_per_step'] / per:.2f} us span per output step, idle share "
+        f"{prof['idle_share']:.4f} (torch.profiler)")
+
+
+def phase3_chunked(smi):
+    """ms per output step of the stepwise loop against ``device_steps`` (the
+    captured graph of CHUNK steps) on the fixed cells, per output step of
+    the adaptive cell (the host controller's K6.adaptive launches against
+    one K6.adaptive_snapshots launch), each window's idle share under
+    torch.profiler, and K6.adaptive_snapshots' times against its plain
+    version and its bound."""
+    log(f"phase 3: the chunked run's times ({smi})")
+    times = {dt_name: {} for dt_name in DTYPES}
+    for label, eqs, case, kwargs in CHUNK_CASES:
+        for dt_name, dtype in DTYPES.items():
+            scheme, fields, pars, dt = chunk_scheme(eqs, case, dtype, kwargs)
+            scheme(0.0, fields, dt, pars)
+            scheme.device_steps(0.0, fields, CHUNK, dt, pars)
+            s1, c1, c2, s2 = (fn(scheme, fields, pars, dt, CHUNK) for fn in (
+                stepwise_ms, chunked_ms, chunked_ms, stepwise_ms))
+            log(f"  {label} {dt_name}: {s1:.4f}/{s2:.4f} ms per step stepwise, "
+                f"{c1:.4f}/{c2:.4f} ms per step chunked ({CHUNK} steps a graph replay; "
+                f"host clock, synchronised; {smi})")
+            log_idle("stepwise, 10 steps", profile_calls(
+                lambda: scheme(0.0, fields, dt, pars), 10), 1)
+            log_idle("chunked, one call of 10 steps", profile_calls(
+                lambda: scheme.device_steps(0.0, fields, 10, dt, pars), 1), 10)
+    label, eqs, case, kwargs = ADAPTIVE_CHUNK
+    n_out = int(round(case[3] / case[2]))
+    for dt_name, dtype in DTYPES.items():
+        per = []
+        for how in ("stepwise", "chunked", "chunked", "stepwise"):
+            scheme, fields, pars, dt = chunk_scheme(eqs, case, dtype, kwargs)
+            fn = stepwise_ms if how == "stepwise" else chunked_ms
+            per.append(fn(scheme, fields, pars, dt, n_out))
+        log(f"  {label} {dt_name}: {per[0]:.4f}/{per[3]:.4f} ms per output step stepwise "
+            f"(K6.adaptive), {per[1]:.4f}/{per[2]:.4f} ms chunked (one "
+            f"K6.adaptive_snapshots launch for {n_out} output steps; host clock, "
+            f"synchronised; {smi})")
+        # both windows: the n_out output steps from the initial state, the
+        # internal dt from its seed
+        scheme, fields, pars, dt = chunk_scheme(eqs, case, dtype, kwargs)
+
+        def stepwise():
+            scheme._internal_dt = None
+            t, f = 0.0, fields
+            for _ in range(n_out):
+                t, f = scheme(t, f, dt, pars)
+
+        def chunked():
+            scheme._internal_dt = None
+            scheme.device_steps(0.0, fields, n_out, dt, pars)
+
+        log_idle(f"stepwise, {n_out} output steps", profile_calls(stepwise, 1), n_out)
+        log_idle(f"chunked, one call of {n_out} output steps", profile_calls(chunked, 1),
+                 n_out)
+        # K6.adaptive_snapshots against its plain version and its bound
+        model, _, _, args, _ = path_inputs(eqs, case, dtype)
+        plan = megastep.plan_for(N_SMALL, 1, 2, True)
+        table = kernel_checks.rodaspr_table()
+        a_args = (adaptive_controller, model.backend, plan, table, True, *args, 0.0, 1.0,
+                  1e-6, 1e-3, 0.9, None, None, n_out)
+        got = megastep.adaptive_scan(*a_args, attempts=True, snapshots=True)
+        attempts, done = got[4], got[1]
+
+        def plain():
+            snap = (torch.empty((n_out,) + tuple(args[0].shape), dtype=dtype,
+                                device="cuda"),
+                    np.zeros((n_out, megastep.SNAP_INFO)))
+            return megastep.adaptive_scan_plain(*a_args, snap=snap)
+
+        def kernel():
+            return megastep.adaptive_scan(*a_args, snapshots=True)
+
+        p1, k1, k2, p2 = (cuda_ms(fn, 1) for fn in (plain, kernel, kernel, plain))
+        nbytes, ops = k6_work(model, plan, table, dtype, attempts)
+        snap_bytes = done * args[0].numel() * args[0].element_size() \
+            + done * megastep.SNAP_INFO * 8
+        b_ms, b_by = bound(nbytes + snap_bytes, ops, dtype)
+        times[dt_name]["K6.adaptive_snapshots"] = (min(k1, k2), min(p1, p2), b_ms, b_by,
+                                                   None)
+        log(f"  K6.adaptive_snapshots ks N=2^13 {n_out} output steps ({attempts} attempts) "
+            f"{dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}: {nbytes + snap_bytes} bytes of which {snap_bytes} "
+            f"the snapshots, {ops} operations; CUDA events)")
+    return times
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -3790,10 +4103,11 @@ def run():
     launches = timed(phase2_megatheta, launches)
     launches = timed(phase2_film, launches)
     launches = timed(phase2_padded, launches)
+    launches = timed(phase2_chunked, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
                  timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded),
-                 timed(phase3_redesign)):
+                 timed(phase3_redesign), timed(phase3_chunked, smi)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

@@ -11,11 +11,11 @@ import logging
 
 from . import parallel  # noqa: F401
 from .core import schemes  # noqa: F401
-from .core.fields import Fields, factory1D  # noqa: F401
+from .core.fields import Fields, factory, factory1D  # noqa: F401
 from .core.model import Model  # noqa: F401
 from .core.simulation import Simulation  # noqa: F401
 
 logging.getLogger(__name__).addHandler(logging.NullHandler())
 
-__all__ = ["Model", "Simulation", "schemes", "Fields", "factory1D",
-           "parallel"]
+__all__ = ["Model", "Simulation", "schemes", "Fields", "factory",
+           "factory1D", "parallel"]

@@ -17,9 +17,17 @@ sizes, ``df64_mixed_solve=``) and computes it in native ``torch.float64``.
 The model's tensors and kernels
 live on ``device``, which is the card (``"cuda"``) unless the caller asks
 for ``"cpu"``; asking for the card on a machine without one raises.
+
+A model pickles as the reference's does (``save``, ``load``,
+``__reduce__``): by its equation strings, rebuilt and compiled again with
+the same ``double``, compiler name and device.  A custom callable compiler
+cannot be pickled by name, so it is saved as ``"torch"``, the port's own
+backend (the reference saves ``"jax"``, its own).
 """
 
 from __future__ import annotations
+
+from pickle import dump, load
 
 import numpy as np
 import sympy as sp
@@ -43,6 +51,12 @@ def _coerce(arg):
 #: "numpy" on the CPU (the kernels' plain versions, what the reference's
 #: NumpyBackend is to its JAX backend), the others on the model's device
 COMPILERS = ("jax", "numpy", "theano", "torch")
+
+
+def _reduce_model(eq_diffs, dep_vars, pars, help_functions, bdc_conditions,
+                  compiler, double, device):
+    return Model(eq_diffs, dep_vars, pars, help_functions, bdc_conditions,
+                 compiler=compiler, double=double, device=device)
 
 
 def resolve_device(device) -> torch.device:
@@ -140,6 +154,7 @@ class Model:
                              f"{sorted(COMPILERS)})")
         self.backend = backend
         self.device = backend.device
+        self._compiler_name = compiler
         var_names = self._dep_vars + self._help_funcs
         self.F = F_Routine(self.F_array, var_names, self._pars, backend)
         self.J = J_Routine(self.J_array[self.J_array != 0], var_names,
@@ -168,6 +183,26 @@ class Model:
     @property
     def dtype(self):
         return self.backend.dtype
+
+    def save(self, filename):
+        """Save the model as a binary pickle file."""
+        with open(filename, "wb") as f:
+            dump(self, f)
+
+    @staticmethod
+    def load(filename):
+        """Load a saved model: rebuilt from its equation strings and
+        compiled for its device (module doc)."""
+        with open(filename, "rb") as f:
+            return load(f)
+
+    def __reduce__(self):
+        compiler = getattr(self, "_compiler_name", "torch")
+        if not isinstance(compiler, str):
+            compiler = "torch"
+        return (_reduce_model,
+                (self._diff_eqs, self._dep_vars, self._pars, self._help_funcs,
+                 self._bdcs, compiler, self._double, str(self.device)))
 
     def __repr__(self):
         return "\n".join([

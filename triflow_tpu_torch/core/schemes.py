@@ -37,6 +37,12 @@ quantity (t, dt, err, the new dt) is a numpy scalar (or a kernel value) of
 the model's dtype, so a float32 run takes the decisions the float32
 reference takes in ``u.dtype``.
 
+The reference's raw device entries are here too: ``device_fixed_step``,
+``device_stepper`` and ``device_steps`` (n output steps and their
+snapshots, by the routes of ``_SchemeBase``: one K6 launch, a captured
+CUDA graph of the fixed steps (``core/graphs.py``), K6's adaptive scan, or
+the stepper's loop), and ``device_fixed_scan_folded`` /
+``device_fixed_scan_df_folded`` (n fixed steps in one submission).
 ``device_fixed_step_folded`` is the reference's entry for a caller that
 steps on its own (its benchmark's loop): a fixed step with no hook, in the
 node layout.  For Theta, ``TRIFLOW_MEGATHETA`` opts into the two-pass
@@ -61,6 +67,8 @@ per attempt.  Hooks see float64 fields and set float64 values.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
@@ -68,7 +76,7 @@ from ..ops import chunked, megastep, megatheta, mixed
 from ..ops.banded import axpy_bands
 from ..ops.combine import combine
 from ..ops.matvec import banded_matvec
-from . import rosenbrock
+from . import graphs, rosenbrock
 
 
 def null_hook(t, fields, pars):
@@ -162,7 +170,31 @@ class _SchemeBase:
     -> (u', helpers', pstack', x', err)``: the hook at ``t``, then one step
     of ``dt`` (the counterpart of the reference's ``_fixed_step_fn``).
     ``err`` is the embedded error estimate as a 0-d tensor, or None for a
-    scheme without one."""
+    scheme without one.  They define ``_output_step`` too, the body of
+    ``device_stepper``: one output step with its hook at the output time.
+
+    The raw device entries are the reference's: ``device_fixed_step``,
+    ``device_stepper`` and ``device_steps`` (``n`` output steps and their
+    snapshots).  ``device_steps`` takes one of four routes, chosen by
+    declared conditions only and recorded in ``steps_route``:
+
+    * ``"K6"``: fixed steps, the null hook, a grid K6's plan admits: K6's
+      step entry, ``n`` steps in one launch, each step's state written
+      into its slot of a snapshot buffer (K6's plain version on the CPU);
+    * ``"graph"``: fixed steps, the null hook and no custom solver, on any
+      other grid, CUDA tensors: the ``n`` steps captured once as a CUDA
+      graph and replayed (``core/graphs.py``);
+    * ``"K6_adaptive"``: a ROW scheme's own controller with the null hook,
+      ``recompute_target=True``, a grid K6 admits and not the df64 mode:
+      K6's adaptive scan, ``n`` output steps in one launch, with a
+      snapshot per output step (its plain version on the CPU);
+    * ``"eager"``: anything else (hooks, step doubling, the host
+      controller, a custom solver, fixed steps on CPU tensors off K6's
+      plan): ``device_stepper``'s step ``n`` times.
+
+    Each route gives the states, times and statuses the same number of
+    ``__call__`` calls gives, bit for bit where it launches the same
+    kernels on the same inputs."""
 
     _time_control = False
     #: residual refinement passes per stage solve (ROW ``refine=``)
@@ -171,12 +203,19 @@ class _SchemeBase:
     _solver = None
     #: residual passes of the df64 mode's mixed solve (0: the full solve)
     _mixed = 0
+    #: the message a failed output step raises, by status
+    _failures = {}
 
     def __init__(self, model):
         self._model = model
         self._problems = {}
         self._plans = {}
         self._mega_plans = {}
+        self._graphs = OrderedDict()
+        #: the route of the last ``device_steps`` call (class doc), and the
+        #: attempts of each output step it ran
+        self.steps_route = None
+        self.steps_attempts = []
         self._np_dtype = np.float64 if model.dtype == torch.float64 \
             else np.float32
         self._df64 = model.precision == "df64"
@@ -270,6 +309,204 @@ class _SchemeBase:
             data[name] = helpers[i]
         return self._model.fields_template(**data)
 
+    # ---- the raw device entries (the reference's) ------------------------
+    def _bound_step(self, hook, periodic, batched=False):
+        """``fixed_step`` (or ``fixed_step_batched``) bound to the problem
+        of ``hook`` and ``periodic``: err None for a scheme without an
+        estimate."""
+        step = getattr(self, "fixed_step_batched" if batched
+                       else "fixed_step", None)
+        if step is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not expose a single fixed step")
+        problem = self._problem(hook, periodic)
+
+        def fixed(t, u, helpers, pstack, x, dt):
+            return step(problem, t, u, helpers, pstack, x, dt)
+
+        return fixed
+
+    def device_fixed_step(self, hook=null_hook, periodic=True, batched=False):
+        """``fixed(t, u, helpers, pstack, x, dt) -> (u', helpers', pstack',
+        x', err)``: the hook at ``t`` and one fixed step of ``dt``
+        (``fixed_step``), or with ``batched`` the step of B members with a
+        leading member axis (``fixed_step_batched``, where the reference
+        vmaps its step); err is zero for a scheme without an estimate, as
+        the reference's, and a scheme with neither step raises, as the
+        reference's."""
+        step = self._bound_step(hook, periodic, batched)
+
+        def fixed(t, u, helpers, pstack, x, dt):
+            u2, h2, p2, x2, err = step(t, u, helpers, pstack, x, dt)
+            if err is None:
+                err = torch.zeros(u.shape[:-2], dtype=u.dtype, device=u.device)
+            return u2, h2, p2, x2, err
+
+        return fixed
+
+    def device_stepper(self, hook=null_hook, periodic=True):
+        """``step(t, u, helpers, pstack, x, dt, internal_dt) -> (t', u',
+        helpers', pstack', x', internal_dt', niter, status)``: one output
+        step from ``t`` to ``t + dt`` on the route and with the output-time
+        hook ``__call__`` takes.  A fixed-step scheme returns niter 0,
+        status 0 and internal_dt as it came; status 1 (max_iter) or 2 (the
+        dt floor) is returned, not raised, and the hook then does not run
+        on the failed state."""
+        problem = self._problem(hook, periodic)
+
+        def step(t, u, helpers, pstack, x, dt, internal_dt):
+            return self._output_step(problem, t, u, helpers, pstack, x, dt,
+                                     internal_dt)
+
+        return step
+
+    def _start_dt(self, dt):
+        """The internal dt an output step starts from: the last one kept,
+        or the first call's seed."""
+        internal_dt = getattr(self, "_internal_dt", None)
+        return _seed_internal_dt(self, dt) if internal_dt is None \
+            else internal_dt
+
+    def _keep_dt(self, dt_i, niter):
+        """Keep an output step's internal dt and attempts, on a scheme
+        that carries them."""
+        if hasattr(self, "_internal_dt"):
+            self._internal_dt = float(dt_i)
+            self._internal_iter = int(niter)
+
+    def __call__(self, t, fields, dt, pars, hook=null_hook):
+        """Advance from t to t + dt (one output step, any number of
+        internal attempts): ``device_stepper``'s step; a failed step raises
+        ``RuntimeError``."""
+        u, helpers, pstack, x = self._split(fields, pars)
+        step = self.device_stepper(hook, bool(pars.get("periodic", False)))
+        t2, u2, h2, p2, x2, dt_i, niter, status = step(
+            t, u, helpers, pstack, x, dt, self._start_dt(dt))
+        if status:
+            raise RuntimeError(self._failures[status])
+        self._keep_dt(dt_i, niter)
+        return float(t2), self._rebuild(u2, h2, x2)
+
+    def _fixed_dt(self, dt):
+        """The dt ``_output_step`` hands ``fixed_step`` for an output dt."""
+        return dt
+
+    def _k6_fixed(self, N, periodic):
+        """K6's plan where ``fixed_step`` takes K6's step entry (then the
+        scheme's ``_k6_scan`` runs n of them into a snapshot buffer), else
+        None."""
+        return self._mega_plan(N, periodic)
+
+    def _k6_adaptive(self, hook, N, periodic):
+        """K6's plan where an output step is one launch of K6's adaptive
+        entry (then ``_steps_k6_adaptive`` runs n of them in one), else
+        None."""
+        return None
+
+    def steps_route_for(self, hook, periodic, u, x):
+        """The route ``device_steps`` takes (class doc) for this state."""
+        N = x.shape[-1]
+        if hook is null_hook and not self._time_control:
+            if u.ndim == 2 and self._k6_fixed(N, periodic) is not None:
+                return "K6"
+            if u.device.type == "cuda" and self._solver is None:
+                return "graph"
+        elif self._k6_adaptive(hook, N, periodic) is not None:
+            return "K6_adaptive"
+        return "eager"
+
+    def device_steps(self, t, fields, n, dt, pars, hook=null_hook):
+        """Advance ``n`` output steps of ``dt`` from ``t`` and return
+        ``(t_final, snapshots, status)``: snapshots a list of ``(t_i,
+        Fields)``, one per output step before the first that failed, and
+        status 0, 1 (max_iter) or 2 (the dt floor), not raised.  t_final is
+        the output time of the n-th step, as the reference's scan reaches
+        it.  The internal dt and attempts are kept as ``__call__`` keeps
+        them, from the last step run.  The route (class doc) is recorded
+        in ``steps_route``.  Snapshot states of the fixed and K6 routes are
+        views of one ``(n, nvar, N)`` tensor; memory grows as n times the
+        state (``Simulation`` caps it per call)."""
+        periodic = bool(pars.get("periodic", False))
+        u, helpers, pstack, x = self._split(fields, pars)
+        n = int(n)
+        route = self.steps_route_for(hook, periodic, u, x)
+        self.steps_route, self.steps_attempts = route, []
+        if n < 1:
+            return float(t), [], 0
+        internal_dt = self._start_dt(dt)
+        if route == "eager":
+            return self._steps_eager(t, u, helpers, pstack, x, n, dt,
+                                     internal_dt, hook, periodic)
+        if route == "K6_adaptive":
+            return self._steps_k6_adaptive(t, u, helpers, pstack, x, n, dt,
+                                           internal_dt, periodic)
+        N = x.shape[-1]
+        if route == "K6":
+            snap = torch.empty((n,) + tuple(u.shape), dtype=u.dtype,
+                               device=u.device)
+            self._k6_scan(self._k6_fixed(N, periodic), periodic, u, helpers,
+                          pstack, x, dt, n, snap)
+        else:
+            snap = graphs.fixed_steps(
+                self._graphs, self._bound_step(null_hook, periodic),
+                periodic, u, helpers, pstack, x, self._fixed_dt(dt), n, True)
+        snapshots = []
+        for k in range(n):
+            t = float(self._advance(t, dt))
+            snapshots.append((t, self._rebuild(snap[k], helpers, x)))
+        self._keep_dt(self._dt_type(internal_dt), 0)
+        self.steps_attempts = [0] * n
+        return t, snapshots, 0
+
+    def _fixed_scan_entry(self, N, periodic):
+        """(plan, scan_f) of ``device_fixed_scan_folded``: one K6 launch
+        (of its mixed entry with the df64 mode's mixed solve) where a K6
+        plan admits the grid, else the captured graph on CUDA tensors and
+        a loop over ``fixed_step`` on CPU tensors."""
+        plan = self._mega_plan(N, periodic) or self._mixed_plan(N, periodic)
+        single = self.device_fixed_scan(N, periodic)
+        fixed = self._bound_step(null_hook, periodic)
+
+        def scan_f(t, u, helpers, pstack, x, dx, dt, nsteps):
+            if single is not None:
+                return single(t, u, helpers, pstack, x, dt, nsteps)
+            if u.device.type == "cuda":
+                return graphs.fixed_steps(self._graphs, fixed, periodic, u,
+                                          helpers, pstack, x,
+                                          self._fixed_dt(dt), nsteps, False)
+            for _ in range(int(nsteps)):
+                u, helpers, pstack, x, _ = fixed(t, u, helpers, pstack, x,
+                                                 self._fixed_dt(dt))
+            return u
+
+        return plan or self._plan(N, periodic), scan_f
+
+    def _steps_eager(self, t, u, helpers, pstack, x, n, dt, internal_dt,
+                     hook, periodic):
+        """``device_steps``' eager route: ``device_stepper``'s step n times,
+        each from the output time the last one returned (as ``__call__``
+        returns it).  A hook may update the state in place, so with one the
+        step after a snapshot starts from a copy of it."""
+        step = self.device_stepper(hook, periodic)
+        snapshots, status = [], 0
+        for k in range(n):
+            t2, u, helpers, pstack, x, dt_i, niter, status = step(
+                t, u, helpers, pstack, x, dt, internal_dt)
+            self._keep_dt(dt_i, niter)
+            self.steps_attempts.append(int(niter))
+            internal_dt = dt_i
+            if status:
+                # the clock runs on to the n-th output time, as the
+                # reference's scan does
+                for _ in range(n - k):
+                    t = float(self._advance(t, dt))
+                return t, snapshots, status
+            t = float(t2)
+            snapshots.append((t, self._rebuild(u, helpers, x)))
+            if hook is not null_hook:
+                u, helpers = u.clone(), helpers.clone()
+        return t, snapshots, 0
+
 
 class Theta(_SchemeBase):
     """One-step theta scheme: theta=0 forward Euler, 1 backward Euler,
@@ -340,13 +577,46 @@ class Theta(_SchemeBase):
     #: member axis
     fixed_step_batched = fixed_step
 
+    def _k6_fixed(self, N, periodic):
+        return None if self._theta == 0 else self._mega_plan(N, periodic)
+
+    def _k6_scan(self, plan, periodic, u, helpers, pstack, x, dt, n, snap):
+        dt = float(self._np_dtype(self._step_dt(dt)))
+        megastep.theta_scan(self._model.backend, plan, self._theta, periodic,
+                            u, helpers, pstack, x, dt, n, snap)
+
+    def _output_step(self, problem, t, u, helpers, pstack, x, dt,
+                     internal_dt):
+        u2, helpers, pstack, x, _ = self.fixed_step(problem, t, u, helpers,
+                                                    pstack, x, dt)
+        t2 = self._advance(t, dt)
+        u2, helpers, pstack, x = problem.apply_hook(float(t2), u2, helpers,
+                                                    pstack, x)
+        return t2, u2, helpers, pstack, x, internal_dt, 0, 0
+
+    def device_fixed_scan_folded(self, N, periodic=True):
+        """``(plan, scan_f)`` with ``scan_f(t, u, helpers, pstack, x, dx,
+        dt, nsteps) -> u'``: ``nsteps`` theta steps of ``dt`` (no hook) in
+        one submission, in the node layout (``dx`` taken and not read, as
+        ``device_fixed_step_folded``'s); None with theta = 0, a custom
+        solver or the df64 mode, as the reference's.  Where K6's plan
+        admits the grid it is one K6 launch; on any other grid, CUDA
+        tensors replay the captured graph of the ``nsteps`` steps
+        (``core/graphs.py``) and CPU tensors loop over ``fixed_step``.
+        The reference returns None off its single-launch kernel's grids and
+        its caller scans the folded step; the port's body covers those
+        grids too: the same ``nsteps`` steps in one submission."""
+        if self._theta == 0 or self._solver is not None or self._df64:
+            return None
+        return self._fixed_scan_entry(N, periodic)
+
     def device_fixed_scan(self, N, periodic=True):
         """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
         theta steps of ``dt`` (no hook) in ONE K6 launch (of its mixed
         entry with the df64 mode's mixed solve), in the node layout; None
-        where K6's plan does not apply or theta = 0.  The counterpart of the
-        reference's ``device_fixed_scan_folded`` (the port has no folded
-        layout)."""
+        where K6's plan does not apply or theta = 0.  The port's name for
+        the single-launch route of ``device_fixed_scan_folded`` (the port
+        has no folded layout)."""
         if self._theta == 0:
             return None
         plan, mplan = self._mega_plan(N, periodic), self._mixed_plan(N, periodic)
@@ -398,15 +668,6 @@ class Theta(_SchemeBase):
 
         return plan, fixed_f
 
-    def __call__(self, t, fields, dt, pars, hook=null_hook):
-        problem = self._problem(hook, bool(pars.get("periodic", False)))
-        u, helpers, pstack, x = self._split(fields, pars)
-        u2, helpers, pstack, x, _ = self.fixed_step(problem, t, u, helpers,
-                                                    pstack, x, dt)
-        t2 = self._advance(t, dt)
-        u2, helpers, pstack, x = problem.apply_hook(float(t2), u2, helpers,
-                                                    pstack, x)
-        return float(t2), self._rebuild(u2, helpers, x)
 
 
 def _combos(rows, arrays):
@@ -602,13 +863,85 @@ class ROW_general(_SchemeBase):
                               torch.full_like(err, np.inf))
         return u_new, helpers, pstack, x, err
 
+    def _fixed_dt(self, dt):
+        return self._dt_type(dt)
+
+    def _k6_scan(self, plan, periodic, u, helpers, pstack, x, dt, n, snap):
+        megastep.row_scan(self._model.backend, plan,
+                          self._table(self._with_err()), periodic, u, helpers,
+                          pstack, x, self._step_dt(self._dt_type(dt)), n, snap)
+
+    def _k6_adaptive(self, hook, N, periodic):
+        if (not self._time_control or hook is not null_hook
+                or not self._recompute_target or self._df64):
+            return None
+        return self._mega_plan(N, periodic)
+
+    def _steps_k6_adaptive(self, t, u, helpers, pstack, x, n, dt,
+                           internal_dt, periodic):
+        """``device_steps``' route through K6's adaptive scan: one launch
+        for the n output steps, each one's state, time, dt, attempts and
+        status in its snapshot slot."""
+        plan = self._k6_adaptive(null_hook, x.shape[-1], periodic)
+        out = megastep.adaptive_scan(
+            rosenbrock.adaptive_controller, self._model.backend, plan,
+            self._table(True), periodic, u, helpers, pstack, x, t, dt,
+            internal_dt, self._tol, self._safety_factor, self._max_iter,
+            self._dt_min, n, attempts=True, snapshots=True)
+        _, done, dt_i, status, _, (states, rows) = out
+        snapshots = []
+        for k in range(done):
+            if rows[k, 3]:
+                break
+            snapshots.append((float(rows[k, 0]),
+                              self._rebuild(states[k], helpers, x)))
+        self._keep_dt(dt_i, rows[done - 1, 2])
+        self.steps_attempts = [int(a) for a in rows[:done, 2]]
+        t_final = float(rows[done - 1, 0])
+        for _ in range(n - done):
+            t_final = float(self._advance(t_final, dt))
+        return t_final, snapshots, status
+
+    def device_fixed_scan_folded(self, N, periodic=True):
+        """``(plan, scan_f)`` with ``scan_f(t, u, helpers, pstack, x, dx,
+        dt, nsteps) -> u'``: ``nsteps`` fixed ROW steps of ``dt`` (no hook)
+        in one submission, in the node layout (``dx`` taken and not read,
+        as ``device_fixed_step_folded``'s); None in the df64 mode, as the
+        reference's.  Where K6's plan admits the grid it is one K6 launch;
+        on any other grid, CUDA tensors replay the captured graph of the
+        ``nsteps`` steps (``core/graphs.py``) and CPU tensors loop over
+        ``fixed_step``.  The reference returns None off its single-launch
+        kernel's grids and its caller scans the folded step (its
+        benchmark); the port's body covers those grids too: the same
+        ``nsteps`` steps in one submission."""
+        if self._df64:
+            return None
+        return self._fixed_scan_entry(N, periodic)
+
+    def device_fixed_scan_df_folded(self, N, periodic=True):
+        """``(plan, scan_f)`` with ``scan_f(u, helpers, pstack, x, dx, dt,
+        nsteps) -> u'`` (the reference's argument order: no t): ``nsteps``
+        fixed steps of the df64 mode's mixed solve in one submission, by
+        the routes of ``device_fixed_scan_folded`` (one launch of K6's
+        mixed entry where its gate admits the grid); None off the df64
+        mode, without the mixed solve or with ``refine=``, as the
+        reference's."""
+        if not self._df64 or not self._mixed or self._refine:
+            return None
+        plan, scan = self._fixed_scan_entry(N, periodic)
+
+        def scan_f(u, helpers, pstack, x, dx, dt, nsteps):
+            return scan(0.0, u, helpers, pstack, x, dx, dt, nsteps)
+
+        return plan, scan_f
+
     def device_fixed_scan(self, N, periodic=True):
         """``scan(t, u, helpers, pstack, x, dt, nsteps) -> u``: ``nsteps``
         fixed steps of ``dt`` (no hook, no error estimate) in ONE K6 launch
-        (of its mixed entry with the df64 mode's mixed solve: the
-        reference's ``device_fixed_scan_df_folded``), in the node layout;
-        None where K6's plan does not apply.  The counterpart of the
-        reference's ``device_fixed_scan_folded`` (the port has no folded
+        (of its mixed entry with the df64 mode's mixed solve), in the node
+        layout; None where K6's plan does not apply.  The port's name for
+        the single-launch route of ``device_fixed_scan_folded`` and
+        ``device_fixed_scan_df_folded`` (the port has no folded
         layout)."""
         plan, mplan = self._mega_plan(N, periodic), self._mixed_plan(N, periodic)
         backend, table, passes = self._model.backend, self._table(False), self._mixed
@@ -676,15 +1009,15 @@ class ROW_general(_SchemeBase):
                 (u, helpers, pstack), self._clock)
         return next_t, u, helpers, pstack, x, dt_i, niter, status
 
-    def __call__(self, t, fields, dt, pars, hook=null_hook):
-        """Advance from t to t + dt (one output step, any number of
-        internal attempts)."""
+    _failures = {
+        1: "Rosenbrock internal iteration above max iterations authorized",
+        2: "Rosenbrock internal time step less than authorized"}
+
+    def _output_step(self, problem, t, u, helpers, pstack, x, dt,
+                     internal_dt):
+        """One output step: the adaptive controller (``_adaptive``), or
+        one fixed step; then the hook at the output time."""
         T = self._dt_type
-        problem = self._problem(hook, bool(pars.get("periodic", False)))
-        u, helpers, pstack, x = self._split(fields, pars)
-        internal_dt = self._internal_dt
-        if internal_dt is None:
-            internal_dt = _seed_internal_dt(self, dt)
         if self._time_control:
             t2, u2, h2, p2, x2, dt_i, niter, status = self._adaptive(
                 problem, t, u, helpers, pstack, x, dt, internal_dt)
@@ -693,16 +1026,9 @@ class ROW_general(_SchemeBase):
                                                 pstack, x, T(dt))
             t2, dt_i, niter, status = (self._advance(t, dt), T(internal_dt),
                                        0, 0)
-        if status == 1:
-            raise RuntimeError(
-                "Rosenbrock internal iteration above max iterations authorized")
-        if status == 2:
-            raise RuntimeError(
-                "Rosenbrock internal time step less than authorized")
-        u2, h2, p2, x2 = problem.apply_hook(float(t2), u2, h2, p2, x2)
-        self._internal_dt = float(dt_i)
-        self._internal_iter = int(niter)
-        return float(t2), self._rebuild(u2, h2, x2)
+        if status == 0:
+            u2, h2, p2, x2 = problem.apply_hook(float(t2), u2, h2, p2, x2)
+        return t2, u2, h2, p2, x2, dt_i, niter, status
 
 
 class ROS2(ROW_general):
@@ -853,17 +1179,22 @@ class DeviceTimeStepping(_SchemeBase):
             err = T(np.inf)
         return uf, hf, pf, err
 
-    def __call__(self, t, fields, dt, pars, hook=null_hook):
+    _failures = {2: "step-doubling internal time step less than authorized"}
+
+    def device_fixed_step(self, hook=null_hook, periodic=True, batched=False):
+        """The wrapped scheme's fixed step (step doubling has none of its
+        own)."""
+        return self._inner.device_fixed_step(hook, periodic, batched)
+
+    def _output_step(self, problem, t, u, helpers, pstack, x, dt,
+                     internal_dt):
+        """One output step of step-doubling attempts, then the hook at the
+        output time; status 2 where dt fell below its floor."""
         # the df64 mode: float32 step sizes and decisions on a float64
         # clock, as in ``rosenbrock.adaptive_controller``
         T = self._dt_type
         Tc = self._clock or T
         info = np.finfo(T)
-        problem = self._problem(hook, bool(pars.get("periodic", False)))
-        u, helpers, pstack, x = self._split(fields, pars)
-        internal_dt = self._internal_dt
-        if internal_dt is None:
-            internal_dt = _seed_internal_dt(self, dt)
         tol = T(self._tol)
         next_t = Tc(t) + Tc(T(dt))
         eps = Tc(1e-12) * np.maximum(abs(next_t), Tc(1.0))
@@ -889,14 +1220,10 @@ class DeviceTimeStepping(_SchemeBase):
             niter += 1
             if dt_i < dt_floor:
                 status = 2
-        if status == 2:
-            raise RuntimeError(
-                "step-doubling internal time step less than authorized")
-        u, helpers, pstack, x = problem.apply_hook(float(next_t), u, helpers,
-                                                   pstack, x)
-        self._internal_dt = float(dt_i)
-        self._internal_iter = int(niter)
-        return float(next_t), self._rebuild(u, helpers, x)
+        if status == 0:
+            u, helpers, pstack, x = problem.apply_hook(float(next_t), u,
+                                                       helpers, pstack, x)
+        return next_t, u, helpers, pstack, x, dt_i, niter, status
 
 
 def time_stepping(scheme, tol=1e-1, ord=2, m=10, reject_factor=2):

@@ -8,9 +8,12 @@ lifecycle.  A ``double="df64"`` model keeps float64 fields and rounds the
 output dt to float32, as the reference does.  The default scheme is
 ``RODASPR`` with its own adaptive controller; a scheme without one is
 wrapped in the step-doubling controller (``schemes.time_stepping``) unless
-``time_stepping=False``.
-Persistence containers, checkpoints and scan-chunked runs are not ported
-yet and raise ``NotImplementedError``.
+``time_stepping=False``.  ``run(device_chunk=n)`` advances up to n output
+steps per call of the scheme's ``device_steps`` (one K6 launch, one
+captured CUDA graph, or the eager loop: ``schemes._SchemeBase``) and emits
+every snapshot as the stepwise run does.
+Persistence containers and checkpoints are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -160,11 +163,15 @@ class Simulation:
             raise
 
     def run(self, progress=True, verbose=False, device_chunk=1):
-        """Compute all steps (never returns when tmax is not set)."""
-        if device_chunk and device_chunk > 1:
-            raise NotImplementedError(
-                "device_chunk > 1 (several output steps per device call) is "
-                "not ported yet (ROADMAP A1c)")
+        """Compute all steps (never returns when tmax is not set).
+
+        ``device_chunk > 1`` (with tmax set) advances up to that many
+        output steps per call of the scheme's ``device_steps`` and then
+        emits each snapshot to the post-processes and the stream: the
+        observable sequence (``i``, the times, the states, the emissions)
+        is the stepwise run's."""
+        if device_chunk and device_chunk > 1 and self.tmax:
+            return self._run_chunked(progress, verbose, int(device_chunk))
         log = logger.info if verbose else logger.debug
         t, fields = self.t, self.fields
         ran = False
@@ -186,6 +193,93 @@ class Simulation:
         if not ran:
             warnings.warn("Simulation already ended")
         return t, fields
+
+    #: cap on the snapshot bytes of one ``device_steps`` call (its
+    #: snapshots are held on the device together)
+    _CHUNK_SNAPSHOT_BYTES = 1 << 30
+
+    def _chunk_cap(self):
+        """Output steps whose snapshots fit ``_CHUNK_SNAPSHOT_BYTES``."""
+        state_bytes = sum(self.fields[k].nelement()
+                          * self.fields[k].element_size()
+                          for k in self.fields.keys())
+        return max(1, self._CHUNK_SNAPSHOT_BYTES // max(state_bytes, 1))
+
+    def _full_steps(self, most):
+        """How many of the next output steps (at most ``most``) the
+        stepwise loop would take with the full dt: each from a time not
+        close to tmax with ``t + dt < tmax`` (or ``tmax - t == dt``, which
+        the clamp leaves as it is), the clock advanced as the scheme
+        advances it.  The stepwise loop clamps the step that would pass
+        tmax, and the chunked run leaves that one to it."""
+        t, n = self.t, 0
+        while (n < most and not np.isclose(t, self.tmax)
+               and (t + self.dt < self.tmax or self.tmax - t == self.dt)):
+            t = float(self._scheme._advance(t, self.dt))
+            n += 1
+        return n
+
+    def _emit(self, pbar, log):
+        self.i += 1
+        for pprocess in self.post_processes:
+            pprocess.function(self)
+        self.stream.emit(self)
+        if pbar is not None:
+            pbar.update(1)
+        log("%s running: t: %g" % (self.id, self.t))
+
+    def _run_chunked(self, progress, verbose, device_chunk):
+        """The chunked run: the full-dt output steps in calls of the
+        scheme's ``device_steps`` of at most ``device_chunk`` steps (and
+        ``_chunk_cap``), each snapshot emitted as the stepwise loop emits
+        it (on failure the valid prefix, then ``RuntimeError``), the rest
+        (the step clamped to land on tmax) through ``_compute_one_step``.
+        The reference falls back to the stepwise loop where its hook fails
+        to trace; a hook here is never traced (the eager route runs it on
+        the host), so there is nothing to fall back from."""
+        log = logger.info if verbose else logger.debug
+        total = int(round(self.tmax / self.user_dt))
+        pbar = None
+        if progress:
+            import tqdm
+
+            pbar = tqdm.tqdm(initial=min(self.i, total), total=total)
+        if self.status == "created":
+            self._started_timestamp = datetime.now()
+            self.stream.emit(self)
+            self.status = "running"
+        device_chunk = min(device_chunk, self._chunk_cap())
+        try:
+            while True:
+                n = self._full_steps(device_chunk)
+                if n < 1:
+                    break
+                before = time.monotonic()
+                t2, snapshots, status = self._scheme.device_steps(
+                    self.t, self.fields, n, self.dt, self.parameters,
+                    hook=self._hook)
+                elapsed = time.monotonic() - before
+                self._last_running = elapsed / n
+                self._total_running += elapsed
+                self._last_timestamp = self._actual_timestamp
+                self._actual_timestamp = datetime.now()
+                for t_i, fields_i in snapshots:
+                    self.t, self.fields = t_i, fields_i
+                    self._emit(pbar, log)
+                if status:
+                    raise RuntimeError(self._scheme._failures[status])
+            while not np.isclose(self.t, self.tmax):
+                self.t, self.fields, self.parameters = self._compute_one_step(
+                    self.t, self.fields, self.parameters)
+                self._emit(pbar, log)
+            self.status = "finished"
+        except RuntimeError:
+            self.status = "failed"
+            raise
+        finally:
+            if pbar is not None:
+                pbar.close()
+        return self.t, self.fields
 
     # ------------------------------------------------------------- plumbing
     def attach_container(self, *args, **kwargs):

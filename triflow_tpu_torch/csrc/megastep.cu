@@ -21,7 +21,8 @@
 //   step:          nsteps >= 1 steps of fixed dt from u0 (beta = -gamma00*dt
 //                  or -theta*dt factor shift, scale = the F scale, numbers
 //                  or per-member device arrays), writing the last state and
-//                  each member's last err;
+//                  each member's last err, or for one grid with a snapshot
+//                  buffer every step's state into its slot instead;
 //   adaptive:      nsteps >= 1 output steps of the clamp-and-recompute
 //                  controller of ROW_general._adaptive, run by thread 0 of
 //                  every CTA in the model's type with every product, sum and
@@ -30,7 +31,10 @@
 //                  ending at the first nonzero status; it writes the
 //                  accepted state, dt_i, the attempts, the status (1:
 //                  max_iter exceeded, 2: dt below its floor) and the output
-//                  steps done.  Its caller counts the entry it asked for:
+//                  steps done; with a snapshot buffer (one grid, the
+//                  scan) also each output step's state, t_i, dt_i,
+//                  attempts and status in its slot.  Its caller counts the
+//                  entry it asked for:
 //                  adaptive_kernel runs one output step of one grid with a
 //                  shared dt on a cluster, scan_kernel everything else
 //                  (one grid's output step on one CTA too).
@@ -151,6 +155,7 @@ constexpr int kMaxStages = 6;
 constexpr int kCombos = kMaxStages + 1;
 constexpr int kCols = kMaxStages + 1;
 constexpr int kInfo = 5;  // per member: err, dt_i, attempts, status, output steps done
+constexpr int kSnapInfo = 4;  // per output step: t_i, dt_i, attempts, status
 
 using tf::add_rn;
 using tf::div_rn;
@@ -210,6 +215,8 @@ struct Work : Grid<T> {
   const T* idt_b;      // per-member starting internal dt (per-member mode)
   unsigned* sync;      // grid barrier: arrivals, generation
   T* errs;             // 2 x gridDim CTA maxima of err (shared mode)
+  T* snap;             // one grid's per-step states (nsteps, nvar, N), or null
+  double* snap_info;   // (nsteps, kSnapInfo) of the adaptive scan, or null
   int B;
 };
 
@@ -417,12 +424,14 @@ __device__ T finish(const Table<T>& tab, const Pt& P, const T* u, const T* us, T
 }
 
 // nsteps steps of one_step(src, dst) from src, between the state buffers
-// buf0 and buf1, the last into out: the last step's err.
+// buf0 and buf1, the last into out, or with snap (one grid) step k into
+// snap + k * n and no write to out: the last step's err.
 template <typename T, typename OneStep>
-__device__ T run_steps(const T* src, T* out, T* buf0, T* buf1, int nsteps, OneStep one_step) {
+__device__ T run_steps(const T* src, T* out, T* buf0, T* buf1, T* snap, long n, int nsteps,
+                       OneStep one_step) {
   T err = Lim<T>::infinity();
   for (int k = 0; k < nsteps; ++k) {
-    T* dst = k == nsteps - 1 ? out : (k % 2 ? buf1 : buf0);
+    T* dst = snap ? snap + k * n : (k == nsteps - 1 ? out : (k % 2 ? buf1 : buf0));
     err = one_step(src, dst);
     src = dst;
   }
@@ -563,8 +572,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const long at = kMembers ? m * n : 0;
     const T bm = w.beta_b ? w.beta_b[m] : beta;
     const T sm = w.scale_b ? w.scale_b[m] : scale;
-    const T err = run_steps<T>(w.u0 + at, w.out + at, w.buf0 + at, w.buf1 + at, nsteps,
-                               [&](const T* src, T* dst) {
+    const T err = run_steps<T>(w.u0 + at, w.out + at, w.buf0 + at, w.buf1 + at,
+                               kMembers ? nullptr : w.snap, n, nsteps, [&](const T* src, T* dst) {
                                  return one_step<T, kMembers>(w, tab, P, st, s, m, src, dst, bm,
                                                               sm);
                                });
@@ -783,6 +792,24 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         s_done += 1;
       }
       __syncthreads();
+      if (w.snap) {
+        // one grid: this CTA's nodes of the accepted state, and the step's
+        // clock, dt, attempts and status, into output step s_done - 1's slots
+        const long n = (long)TF_NVAR * w.N, k = s_done - 1;
+        const T* src = s_cur == 0 ? w.u0 : (s_cur == 1 ? w.buf0 : w.buf1);
+        for (int v = 0; v < TF_NVAR; ++v)
+          for (long l = tid; l < P.nn; l += blockDim.x) {
+            const long e = (long)v * w.N + P.i0 + l;
+            w.snap[k * n + e] = src[e];
+          }
+        if (tid == 0 && P.sp.rank == 0) {
+          double* si = w.snap_info + k * kSnapInfo;
+          si[0] = (double)s_tout;
+          si[1] = (double)s_dt_i;
+          si[2] = (double)s_niter;
+          si[3] = (double)s_status;
+        }
+      }
     }
     for (int m = shared ? cid : mm; m < w.B; m += shared ? ncl : w.B) {
       const long at = (long)m * TF_NVAR * w.N;
@@ -907,7 +934,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float* d32 = share_of<kOne, float>(L, smem, gl, bD32);
   if (threadIdx.x == 0) tab = tab_in;
   __syncthreads();
-  const double err = run_steps<double>(w.u0, w.out, w.buf0, w.buf1, nsteps,
+  const double err = run_steps<double>(w.u0, w.out, w.buf0, w.buf1, nullptr, 0, nsteps,
                                        [&](const double* src, double* dst) {
                                          return one_step_mixed(w, tab, P, st, s, bands32, r32,
                                                                d32, passes, src, dst, beta,
@@ -922,7 +949,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 // ptrs (device addresses: u0, hlp, par, x, info, out, gwork, buf0, buf1,
 // then for the step and adaptive entries beta_b, scale_b, idt_b, sync,
-// errs), ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter
+// errs, snap, snap_info: null, or one grid's per-step states and the
+// adaptive scan's per-step (t_i, dt_i, attempts, status)), ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter
 // (-1: none), has_dt_min, B, ncl (clusters launched), then the cluster
 // plan's K, threads, Cc, Nr, smem, gslab, then the rows of the kCombos
 // combinations, then kBufs homes and kBufs byte offsets) and reals (beta,
@@ -1008,8 +1036,11 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Layo
   w.idt_b = reinterpret_cast<const T*>(p[11]);
   w.sync = reinterpret_cast<unsigned*>(p[12]);
   w.errs = reinterpret_cast<T*>(p[13]);
+  w.snap = reinterpret_cast<T*>(p[14]);
+  w.snap_info = reinterpret_cast<double*>(p[15]);
   w.B = iv[10];
-  if (w.B < 1 || iv[11] < 1 || iv[11] > w.B) return static_cast<int>(cudaErrorInvalidValue);
+  if (w.B < 1 || iv[11] < 1 || iv[11] > w.B || (w.snap && w.B != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   return fill_grid<T>(ptrs, ints, reals, w, L, tab);
 }
 
@@ -1167,6 +1198,7 @@ int adaptive(const void* ptrs, const void* ints, const void* reals, int per_memb
   int nsteps = iv[7];
   const int ncl = iv[11];
   if (tab.rows[tab.n_stages] != 2 || nsteps < 1 || (per_member && !w.idt_b) ||
+      (w.snap && (!scan || !w.snap_info)) ||
       (!per_member && ncl > 1 && (!w.sync || !w.errs)) ||
       (!scan && (per_member || w.B != 1 || nsteps != 1)))
     return static_cast<int>(cudaErrorInvalidValue);

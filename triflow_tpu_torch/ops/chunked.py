@@ -374,9 +374,11 @@ def padded_system(alpha, beta, bands, plan: Plan):
     A = banded.axpy_bands(alpha, beta, bands)
     corners = banded.extract_wrap(A) if plan.ring else None
     if plan.padded:
-        h, idx = plan.halo, torch.arange(plan.nvar, device=A.device)
         A = torch.nn.functional.pad(A, (0, plan.Np - plan.N))
-        A[..., h, idx, idx, plan.N:] = 1.0
+        # a fill of each diagonal slice: no host value is copied, so a
+        # captured graph (core/graphs.py) may hold it
+        for m in range(plan.nvar):
+            A[..., plan.halo, m, m, plan.N:].fill_(1.0)
     return A.contiguous(), corners
 
 

@@ -1024,7 +1024,18 @@ def check_megastep(model, N, periodic, dt, device, results=None,
                               "from 3 launches")
         want3 = megastep.scan_plain(b, plan, table, periodic, *args, beta, scale, 3)
         _record(results, "K6.step", u3, want3, tol, f"{name} 3 steps {what}")
+        # the same launch writing each step into its snapshot slot
+        snap = torch.empty((3,) + tuple(args[0].shape), dtype=dtype, device=device)
+        megastep.step(b, plan, table, periodic, *args, beta, scale, nsteps=3, snap=snap)
+        seq = args[0]
+        for k in range(3):
+            seq = megastep.step(b, plan, table, periodic, seq, *args[1:], beta,
+                                scale)[0]
+            if not torch.equal(snap[k], seq):
+                raise CheckFailed(f"K6.step {name} {what}: snapshot {k} of a 3-step "
+                                  "launch differs from its step launched alone")
     if adaptive is not None:
+        check_snapshots(model, plan, periodic, args, adaptive, ros, results, what)
         got, want = (_adaptive(fn, model, plan, periodic, args, adaptive, ros)
                      for fn in (megastep.row_adaptive_step,
                                 megastep.adaptive_plain))
@@ -1038,6 +1049,50 @@ def check_megastep(model, N, periodic, dt, device, results=None,
                               f"> {TOL[dtype]['dt']:.0e}")
         results["K6.adaptive dt_i"] = max(results.get("K6.adaptive dt_i", 0.0), gap)
         results["K6.adaptive attempts"] = got[2]
+    return results
+
+
+def check_snapshots(model, plan, periodic, args, adaptive, table, results, what,
+                    nsteps=3):
+    """K6's adaptive scan of one grid with per-output-step snapshots
+    (K6.adaptive_snapshots): its final state bit for bit the scan's
+    without snapshots, its last snapshot that state, and each snapshot's
+    state, time, attempts and status against the plain version's (the
+    states within the solver tolerance, dt_i within the dt limit)."""
+    from ..core.rosenbrock import adaptive_controller
+
+    dtype = model.backend.dtype
+    tol = TOL[dtype]["solve"]
+    out_dt, internal_dt, atol = adaptive
+    a_args = (adaptive_controller, model.backend, plan, table, periodic, *args, 0.0,
+              out_dt, internal_dt, atol, 0.9, None, None, nsteps)
+    bare = megastep.adaptive_scan(*a_args)
+    got = megastep.adaptive_scan(*a_args, snapshots=True)
+    # the plain version on the same tensors (on the card: torch operations
+    # on CUDA tensors)
+    want_snap = (torch.zeros_like(got[-1][0]), np.zeros_like(got[-1][1]))
+    megastep.adaptive_scan_plain(*a_args, snap=want_snap)
+    want = (None, want_snap)
+    states, rows = got[-1]
+    if not (torch.equal(got[0], bare[0]) and got[1:4] == bare[1:4]):
+        raise CheckFailed(f"K6.adaptive_snapshots {what}: the final state or the "
+                          "controller differs from the scan without snapshots")
+    if not torch.equal(states[got[1] - 1], got[0]):
+        raise CheckFailed(f"K6.adaptive_snapshots {what}: the last snapshot is not "
+                          "the final state")
+    w_states, w_rows = want[-1]
+    if not (np.array_equal(rows[:, 2:], w_rows[:, 2:])
+            and np.array_equal(rows[:, 0], w_rows[:, 0])):
+        raise CheckFailed(f"K6.adaptive_snapshots {what}: (t_i, attempts, status) "
+                          f"{rows[:, [0, 2, 3]].tolist()} against the plain "
+                          f"version's {w_rows[:, [0, 2, 3]].tolist()}")
+    gap = float(np.max(np.abs(rows[:, 1] - w_rows[:, 1]) / np.abs(w_rows[:, 1])))
+    if not gap <= TOL[dtype]["dt"]:
+        raise CheckFailed(f"K6.adaptive_snapshots dt_i {what}: relative error "
+                          f"{gap:.3e} > {TOL[dtype]['dt']:.0e}")
+    for k in range(got[1]):
+        _record(results, "K6.adaptive_snapshots", states[k], w_states[k].to(states),
+                tol, f"output step {k} {what}")
     return results
 
 

@@ -6,7 +6,11 @@ or theta steps: ``row_step_folded``, ``theta_step_folded``,
 ``row_scan_folded``, ``theta_scan_folded``), ``row_adaptive_step_folded``
 (one adaptive output step with its accept/reject loop in the kernel) and
 ``row_adaptive_scan_folded`` (``nsteps`` adaptive output steps, shared or
-per-member clocks: ``adaptive_scan``).  Source ``csrc/megastep.cu``, generated
+per-member clocks: ``adaptive_scan``).  For one grid the step entry and the
+adaptive scan also write each (output) step's state into a snapshot
+buffer, and the scan each output step's time, dt, attempts and status
+(counter ``K6.adaptive_snapshots``): the reference's ``device_steps``
+collects its scan's snapshots this way.  Source ``csrc/megastep.cu``, generated
 per model like K1 (``backend.megastep``); it runs K1-K5's arithmetic
 (shared through the headers in ``csrc/``) phase after phase on one
 thread-block cluster of K CTAs per member (K = 1 a plain block), each CTA
@@ -72,6 +76,8 @@ from .thomas import members
 STEP_LAUNCHES = Counter("K6.step")
 ADAPTIVE_LAUNCHES = Counter("K6.adaptive")
 SCAN_LAUNCHES = Counter("K6.adaptive_scan")
+#: the adaptive scan of one grid with per-output-step snapshots
+SNAP_LAUNCHES = Counter("K6.adaptive_snapshots")
 #: launches of the mixed entry (1 or nsteps mixed-precision steps)
 MIXED_LAUNCHES = Counter("K6.step_mixed")
 
@@ -336,10 +342,14 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
 
 
 def scan_plain(backend, plan, table, periodic, u, helpers, pstack, x, beta,
-               scale, nsteps, passes=None):
-    for _ in range(nsteps):
+               scale, nsteps, passes=None, snap=None):
+    """``nsteps`` plain steps; with ``snap`` (nsteps, nvar, N) step k's
+    state is also written into ``snap[k]``."""
+    for k in range(nsteps):
         u = step_plain(backend, plan, table, periodic, u, helpers, pstack, x,
                        beta, scale, passes)[0]
+        if snap is not None:
+            snap[k] = u
     return u
 
 
@@ -380,11 +390,15 @@ def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
 
 def adaptive_scan_plain(controller, backend, plan, table, periodic, u,
                         helpers, pstack, x, t, dt, internal_dt, tol, safety,
-                        max_iter, dt_min, nsteps, per_member=False):
+                        max_iter, dt_min, nsteps, per_member=False,
+                        snap=None):
     """``nsteps`` output steps of ``adaptive_plain``, each from the last
     one's output time, stopping after the first with a nonzero status:
     (u, steps_done, dt_i, status, attempts), dt_i and the attempts summed
-    over the steps per member with ``per_member``."""
+    over the steps per member with ``per_member``.  With ``snap`` (one
+    grid: a pair of an (nsteps, nvar, N) tensor and an (nsteps, 4) float64
+    array) output step k writes its state into ``snap[0][k]`` and its (t_i,
+    dt_i, attempts, status) into ``snap[1][k]``, as the kernel does."""
     T = _np_type(u)
     t_, dt_i, done, status, total = T(t), internal_dt, 0, 0, 0
     while done < nsteps and status == 0:
@@ -392,6 +406,9 @@ def adaptive_scan_plain(controller, backend, plan, table, periodic, u,
             controller, backend, plan, table, periodic, u, helpers, pstack, x,
             t_, dt, dt_i, tol, safety, max_iter, dt_min, per_member)
         t_ = t_ + T(dt)
+        if snap is not None:
+            snap[0][done] = u
+            snap[1][done] = (t_, dt_i, niter, st)
         done += 1
         total = total + niter
         status = max(status, st)
@@ -448,6 +465,9 @@ ONE_MAX_S = 2
 #: doubles per member of a launch's info: err, dt_i, attempts, status,
 #: output steps done
 INFO = 5
+#: per output step of the adaptive scan's snapshots: t_i, dt_i, attempts,
+#: status (csrc/megastep.cu kSnapInfo)
+SNAP_INFO = 4
 #: element offsets align to 16 bytes
 _ALIGN = 16
 #: kernel kinds of the capacity query: the step entry, the adaptive entries
@@ -707,11 +727,14 @@ def _ptr(t):
 def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
             pstack, x, reals, nsteps=1, max_iter=None, dt_min=None,
             kind=STEP_KIND, beta_b=None, scale_b=None, idt_b=None,
-            cluster=None):
+            cluster=None, snap=None, snap_info=None):
     """Check the inputs, allocate the outputs, the states and the CTAs'
     global slabs, launch one K6 entry on the cluster plan (``cluster``, or
     ``cluster_plan``'s); returns (u_out, info (B, INFO) float64 on the
-    device)."""
+    device).  ``snap`` (one grid: (nsteps, nvar, N) of u's dtype) takes
+    every step's or output step's state, ``snap_info`` ((nsteps,
+    SNAP_INFO) float64, the adaptive scan's) each output step's (t_i, dt_i,
+    attempts, status); the step entry then leaves u_out unwritten."""
     what = f"K6 {entry}"
     sysm = backend.system
     check_plan(plan, sysm, what)
@@ -725,6 +748,12 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
     check_cuda(per_member, backend.dtype, what)
     check_shapes(what, **{f"per-member[{k}]": (t, (B,))
                           for k, t in enumerate(per_member)})
+    if snap is not None:
+        if u.ndim != 2:
+            raise ValueError(f"{what}: snapshots are of one grid")
+        check_cuda((snap,), backend.dtype, what, (nsteps, sysm.nvar, N))
+    if snap_info is not None:
+        check_cuda((snap_info,), torch.float64, what, (nsteps, SNAP_INFO))
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")
@@ -745,11 +774,11 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
         errs = torch.empty(2 * ncl * cluster.K, dtype=u.dtype,
                            device=u.device)
     item = u.element_size()
-    ptrs = (ctypes.c_uint64 * 14)(
+    ptrs = (ctypes.c_uint64 * 16)(
         u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
         info.data_ptr(), out.data_ptr(), gwork.data_ptr(), states.data_ptr(),
         states.data_ptr() + B * n * item, _ptr(beta_b), _ptr(scale_b),
-        _ptr(idt_b), _ptr(sync), _ptr(errs))
+        _ptr(idt_b), _ptr(sync), _ptr(errs), _ptr(snap), _ptr(snap_info))
     prep.reals[:9] = reals
     lib = backend.megastep
     args = (ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
@@ -784,20 +813,21 @@ def _member_arg(v):
 
 
 def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
-         nsteps=1, cluster=None):
+         nsteps=1, cluster=None, snap=None):
     """``nsteps`` steps of the table with factor shift ``beta`` and F scale
     ``scale`` (values of the model's dtype, or per-member (B,) tensors for
     u ``(B, nvar, N)``): returns (u_new, err), err of the last step (a 0-d
     tensor, or (B,) with a member axis; inf without an error row or where
-    not finite).  CPU tensors take the plain version; CUDA tensors launch
-    K6's step entry once, on ``cluster`` (a ``ClusterPlan``) or
-    ``cluster_plan``'s."""
+    not finite).  With ``snap`` (one grid, (nsteps, nvar, N)) step k's
+    state is written into ``snap[k]`` and u_new is ``snap[-1]``.  CPU
+    tensors take the plain version; CUDA tensors launch K6's step entry
+    once, on ``cluster`` (a ``ClusterPlan``) or ``cluster_plan``'s."""
     if u.device.type == "cpu":
-        if nsteps == 1:
+        if nsteps == 1 and snap is None:
             return step_plain(backend, plan, table, periodic, u, helpers,
                               pstack, x, beta, scale)
         u2 = scan_plain(backend, plan, table, periodic, u, helpers, pstack, x,
-                        beta, scale, nsteps)
+                        beta, scale, nsteps, snap=snap)
         return u2, torch.full(u.shape[:-2], np.inf, dtype=u.dtype)
     if nsteps < 1:
         raise ValueError(f"K6 step: nsteps = {nsteps} < 1")
@@ -807,41 +837,45 @@ def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
                         u, helpers, pstack, x,
                         _reals(beta=beta_v, scale=scale_v),
                         nsteps=int(nsteps), beta_b=beta_b, scale_b=scale_b,
-                        cluster=cluster)
+                        cluster=cluster, snap=snap)
+    if snap is not None:
+        out = snap[-1]
     return out, (info[:, 0] if u.ndim == 3 else info[0, 0])
 
 
 def row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-             nsteps=1):
+             nsteps=1, snap=None):
     """``nsteps`` ROW steps of ``dt`` -> (u_new, err): the factor shift is
     ``-g00*dt`` and the F scale ``g00*dt``, rounded as the model's dtype
     multiplies them; ``dt`` may be a per-member array."""
     gdt = gdt_of(_np_type(u), table.g00, dt, u.device)
     return step(backend, plan, table, periodic, u, helpers, pstack, x, -gdt,
-                gdt, nsteps)
+                gdt, nsteps, snap=snap)
 
 
 def theta_step(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
-               nsteps=1):
+               nsteps=1, snap=None):
     """``nsteps`` linearized theta steps of ``dt`` -> u_new."""
     dt = float(_np_type(u)(dt))
     return step(backend, plan, theta_table(theta), periodic, u, helpers,
-                pstack, x, -theta * dt, dt, nsteps)[0]
+                pstack, x, -theta * dt, dt, nsteps, snap=snap)[0]
 
 
 def row_scan(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-             nsteps):
+             nsteps, snap=None):
     """``nsteps`` fixed ROW steps in one launch -> u (no controller reads
-    err, so the table should carry no error row)."""
+    err, so the table should carry no error row); with ``snap`` (one grid,
+    (nsteps, nvar, N)) every step's state in its slot."""
     return row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-                    nsteps)[0]
+                    nsteps, snap)[0]
 
 
 def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
-               nsteps):
-    """``nsteps`` fixed theta steps in one launch -> u."""
+               nsteps, snap=None):
+    """``nsteps`` fixed theta steps in one launch -> u; ``snap`` as
+    ``row_scan``'s."""
     return theta_step(backend, plan, theta, periodic, u, helpers, pstack, x,
-                      dt, nsteps)
+                      dt, nsteps, snap)
 
 
 def step_mixed(backend, plan, table, periodic, u, helpers, pstack, x, beta,
@@ -918,14 +952,20 @@ def theta_step_mixed(backend, plan, theta, periodic, u, helpers, pstack, x,
 
 def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                      t, dt, internal_dt, tol, safety, max_iter, dt_min, nsteps,
-                     per_member, cluster=None):
-    """One launch of the adaptive entry; (u, info rows on the host).  One
-    output step of one grid with a shared dt is counted as K6.adaptive (the
-    library runs adaptive_kernel on a cluster, scan_kernel on one CTA),
-    anything else as K6.adaptive_scan (scan_kernel)."""
+                     per_member, cluster=None, snap=None):
+    """One launch of the adaptive entry; (u, info rows on the host, and
+    with ``snap`` (one grid's (states, info) on the device) the snapshots'
+    info rows on the host).  One output step of one grid with a shared dt
+    and no snapshots is counted as K6.adaptive (the library runs
+    adaptive_kernel on a cluster, scan_kernel on one CTA), the scan with
+    snapshots as K6.adaptive_snapshots, anything else as K6.adaptive_scan
+    (scan_kernel)."""
     B, _ = members(u, 2)
-    scan = per_member or B > 1 or nsteps > 1
+    scan = per_member or B > 1 or nsteps > 1 or snap is not None
     entry = "adaptive_scan" if scan else "adaptive"
+    counter = SCAN_LAUNCHES if scan else ADAPTIVE_LAUNCHES
+    if snap is not None:
+        counter = SNAP_LAUNCHES
     if len(table.final) != 2:
         raise ValueError(f"K6 {entry}: the table has no error row")
     idt_b = None
@@ -933,15 +973,21 @@ def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
         idt_b = torch.as_tensor(np.broadcast_to(
             np.asarray(internal_dt, _np_type(u)), (B,)).copy(), device=u.device)
         internal_dt = 0.0
+    states, snap_info = (None, None) if snap is None else snap
     out, info = _launch(
-        entry, SCAN_LAUNCHES if scan else ADAPTIVE_LAUNCHES, backend, plan, table, periodic, u, helpers, pstack, x,
+        entry, counter, backend, plan, table, periodic, u, helpers, pstack, x,
         _reals(g00=table.g00, t=float(t), dt=float(dt),
                internal_dt=float(internal_dt), tol=float(tol),
                safety=float(safety), dt_min=dt_min),
         nsteps=nsteps, max_iter=max_iter, dt_min=dt_min,
         kind=MEMBER_KIND if per_member else SHARED_KIND, idt_b=idt_b,
-        cluster=cluster)
-    return out, info.cpu().numpy()
+        cluster=cluster, snap=states, snap_info=snap_info)
+    if snap is None:
+        return out, info.cpu().numpy()
+    # one read-back of both
+    both = torch.cat([info.reshape(-1), snap_info.reshape(-1)]).cpu().numpy()
+    return out, both[:info.numel()].reshape(info.shape), \
+        both[info.numel():].reshape(snap_info.shape)
 
 
 def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
@@ -977,7 +1023,7 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
 def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
                   pstack, x, t, dt, internal_dt, tol, safety, max_iter,
                   dt_min, nsteps, per_member=False, attempts=False,
-                  cluster=None):
+                  cluster=None, snapshots=False):
     """``nsteps`` adaptive output steps of ``dt`` from ``t`` in one launch
     (the reference's ``row_adaptive_scan_folded``): every output step
     re-clamps its starting dt to ``dt``, and the loop stops after the first
@@ -991,22 +1037,44 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
     back once; one output step of one grid with a shared dt is the
     adaptive entry (K6.adaptive) instead.
     Per member a member stops at its own first nonzero status;
-    steps_done is the fewest any member did and status the largest."""
+    steps_done is the fewest any member did and status the largest.
+
+    ``snapshots`` (one grid, a shared dt) appends ``(states, rows)``:
+    states (nsteps, nvar, N) on u's device, output step k's accepted state
+    in ``states[k]``, and rows an (nsteps, 4) float64 numpy array of each
+    output step's (t_i, dt_i, attempts, status); the steps after the first
+    with a nonzero status are not written.  On the card that is scan_kernel
+    with a snapshot buffer (K6.adaptive_snapshots), whose final state is
+    the one it returns without snapshots."""
     if nsteps < 1:
         raise ValueError(f"K6 adaptive_scan: nsteps = {nsteps} < 1")
+    if snapshots and (per_member or u.ndim != 2):
+        raise ValueError("K6 adaptive_scan: snapshots are of one grid with "
+                         "a shared dt")
+    snap = None
+    if snapshots:
+        shape = (int(nsteps),) + tuple(u.shape)
+        snap = (torch.zeros(shape, dtype=u.dtype, device=u.device),
+                torch.zeros((int(nsteps), SNAP_INFO), dtype=torch.float64,
+                            device=u.device))
     if u.device.type == "cpu":
+        rows = None if snap is None else snap[1].numpy()
         out = adaptive_scan_plain(controller, backend, plan, table, periodic,
                                   u, helpers, pstack, x, t, dt, internal_dt,
                                   tol, safety, max_iter, dt_min, nsteps,
-                                  per_member)
-        return out if per_member or attempts else out[:4]
-    u2, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
+                                  per_member,
+                                  None if snap is None else (snap[0], rows))
+        out = out if per_member or attempts else out[:4]
+        return out if snap is None else out + ((snap[0], rows),)
+    launched = _adaptive_launch(backend, plan, table, periodic, u, helpers,
                                 pstack, x, t, dt, internal_dt, tol, safety,
                                 max_iter, dt_min, int(nsteps), per_member,
-                                cluster)
+                                cluster, snap)
+    u2, info = launched[:2]
     T = _np_type(u)
     if per_member:
         return (u2, int(info[:, 4].min()), info[:, 1].astype(T),
                 int(info[:, 3].max()), info[:, 2].astype(np.int64))
     out = (u2, int(info[0, 4]), T(info[0, 1]), int(info[0, 3]))
-    return out + (int(info[0, 2]),) if attempts else out
+    out = out + (int(info[0, 2]),) if attempts else out
+    return out if snap is None else out + ((snap[0], launched[2]),)
