@@ -254,6 +254,39 @@ against their plain versions (``kernel_checks.check_snapshots``).
 and its bound (the snapshots' bytes counted), beside the card's name and
 power limit.
 
+df64 ensembles and the Kahan carry (``compensated=True``) run in each
+phase too: phase 0 prints every K6 kernel's registers, stack, spills and
+static shared memory (the carry's code is compiled in; PERF.md keeps what
+it cost against the kernels without it); phase 1 (``carry_checks``) holds
+K6's step, adaptive and adaptive-scan entries, each from a seeded carry,
+bit for bit against bare step-entry launches folded by ``kahan_update``
+and the adaptive controller replayed on them (u, carry, dt_i, attempts),
+and against their plain versions (KS 2^13 one grid and B = 4,
+``kernel_checks.COMPENSATED_CASES``, f32 and f64, to
+``kernel_checks.TOL``'s solver tolerance of max|u|), and
+(``mixed_path_checks``) the member-axis mixed solve of
+``ops.mixed.MixedFactorization`` at B = 4 with per-member coef against
+its plain version; ``phase2_precision`` runs bench.py's df64 ensemble
+(B = 64 KS members at N = 10^5, ``df64_mixed_solve=1``, ``steps(10,
+0.05)``: the host route, exactly 60 K8 launches and the counts of the
+mixed solve) with members 0, 31 and 63 within 1e-12 of their single-grid
+df64 runs on the card and the same clock, a ``per_member_dt`` df64
+ensemble (B = 4, KS 10^4, tol 1e-3) against its members' single-grid runs
+(equal attempts), compensated RODASPR (tol 1e-3, 2 output steps of 1.0)
+through ``device_steps`` at KS 2^13 (the eager route, one K6.compensated
+launch of the adaptive entry per output step, f32 and f64) and at KS 10^6
+(the host controller, f32, no K6) against the CPU f64 runs, beside the
+same run without the flag, a compensated ensemble (B = 4 x KS 2^13,
+shared and per-member dt, f32 and f64) on K6's adaptive scan bit for bit
+against the host route a hook sends it to, and fixed compensated RODASPR
+at KS 10^6 on ``device_steps``' graph route (the carry captured in the
+graph) bit for bit against the eager route, with and without the flag;
+``phase3_precision`` times the df64 ensemble as aggregate cell-updates/s
+(the best of three ``steps(10)`` calls) with a profile of its step,
+K6.compensated (the KS 2^13 first output step with the carry) against the
+same step without it, its plain version and its bound, and the README
+step entry's device µs with and without the carry.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -361,6 +394,10 @@ KERNELS = {
     "K6.step_mixed": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                       "triflow_tpu/ops/megastep.py:821 row_step_df_folded + "
                       ":907 theta_step_df_folded"),
+    # the step and adaptive entries with the Kahan carry (compensated=True)
+    "K6.compensated": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
+                       "triflow_tpu/ops/megastep.py:1242 row_adaptive_step_folded + "
+                       ":1313 row_adaptive_scan_folded + :1491 _launch (compensated)"),
     "K9.interface": ("cuda", "triflow_tpu_torch/csrc/megatheta.cu",
                      "triflow_tpu/ops/megatheta.py:284 theta_step_tiled (kernel_a)"),
     "K9.correct": ("cuda", "triflow_tpu_torch/csrc/megatheta.cu",
@@ -628,9 +665,12 @@ def ensemble_state(B, N, seed, waves):
     return 0.5 * i, np.cos(2 * np.pi * i[None] / N * waves + phases) + 0.1 * rng.randn(B, N)
 
 
-def make_ensemble(B, N, seed, waves, dtype, device, kwargs):
+def make_ensemble(B, N, seed, waves, dtype, device, kwargs, double=None):
+    """An ensemble of KS members of ``ensemble_state``; ``double`` overrides
+    the model's mode (``"df64"``)."""
     x, u0 = ensemble_state(B, N, seed, waves)
-    model = Model(*KS, double=dtype == torch.float64, device=device)
+    model = Model(*KS, double=dtype == torch.float64 if double is None else double,
+                  device=device)
     return Ensemble(model, **ensemble_from_numpy(model, u0, x, dict(periodic=True)),
                     **kwargs)
 
@@ -994,6 +1034,28 @@ def matvec_path_checks(dtype, res):
                                    f"B={B_REFINE} N={N_ENS} stage 1")
 
 
+def carry_checks(sm, sargs, dtype, dt_name, res):
+    """K6's Kahan carry, each entry from a seeded carry
+    (``kernel_checks.check_compensated``): the step entry bit for bit three
+    bare launches folded by kahan_update, the adaptive entry's output step
+    and the adaptive scan's two (shared dt, and per member for B = 4) bit
+    for bit the controller replayed on the host on step-entry launches
+    folded by kahan_update (u, carry, dt_i, attempts), and every entry
+    against its plain version, to the solver tolerance of
+    ``kernel_checks.TOL`` (KS 2^13 on its path's state and plan, one grid
+    and B = 4, and ``COMPENSATED_CASES``: s = 1, 2, 4, one grid and
+    B = 4)."""
+    for B in (1, kernel_checks.BATCH):
+        kernel_checks.check_compensated(sm, N_SMALL, True, 0.05, "cuda", res,
+                                        (1.0, 1e-6, 1e-3), B, state=sargs)
+    kernel_checks.check_all_compensated("cuda", dtype, res)
+    log(f"  K6.compensated {dt_name}: the step entry, the adaptive entry and the "
+        "adaptive scan bit for bit their bare launches folded by kahan_update and the "
+        "controller replayed on them; against its plain version: max abs error "
+        f"{res['K6.compensated']:.3e} (tolerance {kernel_checks.TOL[dtype]['solve']:.0e} "
+        f"of max|u|), dt_i {res['K6.compensated dt_i']:.3e}")
+
+
 def mixed_path_checks(res):
     """The df64 mode's kernels on the main paths' inputs: K8 on the bands,
     the first stage's solution and right-hand side of the KS N = 10^6 df64
@@ -1018,6 +1080,13 @@ def mixed_path_checks(res):
         m, _, _, a, _ = path_inputs(eqs, case, torch.float64, "df64")
         kernel_checks.check_megastep_mixed(m, a[-1].shape[-1], True, DF64_DT, "cuda",
                                            res, state=a, passes=(1,))
+    # the member-axis mixed solve of the df64 ensembles (B = 4, per-member
+    # coef): K2, K4 in float32, K3 and K4's solves in float32, K8
+    kernel_checks.check_all_mixed_members("cuda", res)
+    log(f"  mixed solve with a member axis (B = {kernel_checks.BATCH}, per-member coef): "
+        f"max abs error {res['mixed solve members']:.3e} against its plain version, "
+        f"{res['mixed solve members alone']:.3e} against each member's one-grid solve "
+        f"(tolerance {kernel_checks.TOL[torch.float64]['solve']:.0e} of max|k|)")
 
 
 def phase1():
@@ -1071,6 +1140,7 @@ def phase1():
         sm, _, _, sargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
         kernel_checks.check_megastep(sm, N_SMALL, True, 0.05, "cuda", res,
                                      adaptive=(1.0, 1e-6, 1e-3), state=sargs)
+        carry_checks(sm, sargs, dtype, dt_name, res)
         # the reference's grids, Woodbury plans: the solver at Burgers and KS
         # N = 10^6 and KS N = 10^4, K6 on Burgers N = 10^4
         for eqs, case, g00 in ((BURGERS, burgers_case(N_REF), 1.0),
@@ -1290,6 +1360,182 @@ def phase2_df64(launches):
     return launches
 
 
+#: bench.py:632 bench_df64_ensemble: B = 64 KS members at N = 10^5 in the
+#: df64 mode, fixed RODASPR with one mixed residual pass, steps(10, 0.05),
+#: bench.py's ensemble state (seed 1, 10 waves); members 0, 31 and 63 are
+#: held to their single-grid df64 runs on the card
+B_DF64, N_DF64, STEPS_DF64, DT_DF64 = 64, 10 ** 5, 10, 0.05
+DF64_ENS = dict(scheme=schemes.RODASPR, time_stepping=False, tol=None, df64_mixed_solve=1)
+DF64_ENS_MEMBERS = (0, 31, 63)
+#: per_member_dt in the df64 mode: B = 4 KS members at N = 10^4, tol 1e-3,
+#: one mixed pass, steps(2, 1.0) on the host route
+B_DF64_PM, N_DF64_PM = 4, N_REF_SMALL
+DF64_PM = dict(scheme=schemes.RODASPR, tol=1e-3, df64_mixed_solve=1, per_member_dt=True)
+#: compensated=True: f32 RODASPR adaptive (tol 1e-3, 2 output steps of 1.0)
+#: through device_steps, held to phase 2's CPU f64 runs of the cases: at KS
+#: 2^13 the eager route (a compensated scheme's outer carry), one launch of
+#: K6's adaptive entry with the carry per output step; at KS 10^6 the host
+#: controller
+COMPENSATED_CASES = [("ks N=2^13 rodaspr adaptive tol 1e-3 (2 x 1.0), no hook",
+                      N_SMALL, "eager", {"K6.compensated": 2, "K6.adaptive": 0,
+                                         "K6.adaptive_scan": 0,
+                                         "K6.adaptive_snapshots": 0}),
+                     ("ks N=10^6 rodaspr adaptive tol 1e-3 (2 x 1.0)", N_REF, "eager",
+                      {"K6.compensated": 0, "K6.adaptive": 0, "K6.adaptive_scan": 0,
+                       "K6.adaptive_snapshots": 0})]
+
+
+def df64_ensemble(B, N, kwargs):
+    """A df64 ensemble on the card of bench.py's state (seed 1, 10 waves)."""
+    return make_ensemble(B, N, 1, 10, torch.float64, "cuda", kwargs, "df64")
+
+
+def df64_ensemble_launches(plan, steps, stages=6, passes=1):
+    """The launches of ``steps`` fixed df64 RODASPR steps of an ensemble on
+    the host route with the mixed solve: per step J, the float32 factor (K2,
+    K4, the Woodbury set-up), the final combination, and per stage F_terms,
+    (1 + passes) float32 solves and ``passes`` K8 residuals."""
+    solves = stages * (1 + passes) * steps
+    return {"K1.J": steps, "K2.spike_factor": steps,
+            kernel_checks.factor_entry(plan.s, plan.C): steps,
+            kernel_checks.setup_entry(plan.s, plan.C, plan.B):
+            steps if plan.woodbury else 0, "K1.F_terms": stages * steps,
+            "K3.thomas_sweep": solves, "K4.pcr_solve_shift": solves,
+            "K3.spike_correct": solves, "K5.combine": steps,
+            "K8.residual": stages * passes * steps}
+
+
+def counted(what, fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after: (its result, the counts, the seconds it took)."""
+    torch.cuda.synchronize()
+    _launch.reset_counters()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _launch.counts(), time.perf_counter() - start
+
+
+def phase2_precision(launches):
+    """df64 ensembles and compensated=True through the port's entry points
+    on the card, each case's launches counted exactly
+    (``phase2_df64_ensembles``, ``phase2_compensated``)."""
+    log("phase 2: df64 ensembles and compensated=True on the card")
+    return phase2_compensated_routes(phase2_compensated(phase2_df64_ensembles(launches)))
+
+
+def phase2_df64_ensembles(launches):
+    """bench.py's df64 ensemble (B = 64 x KS N = 10^5, mixed=1, steps(10,
+    0.05): the host route, K8 stages x passes x steps times) with members
+    0, 31 and 63 against their single-grid df64 runs to 1e-12, and
+    per_member_dt in the df64 mode (B = 4, KS 10^4) against its members'
+    single-grid runs (equal attempts and clock)."""
+    ens = df64_ensemble(B_DF64, N_DF64, DF64_ENS)
+    plan = ens._scheme._plan(N_DF64, True, B_DF64)
+    if ens.route != "host":
+        raise RuntimeError(f"df64 ensemble: route {ens.route}, expected host")
+    _, counts, secs = counted("df64 ensemble", lambda: ens.steps(STEPS_DF64, DT_DF64))
+    want = {**dict.fromkeys(counts, 0), **df64_ensemble_launches(plan, STEPS_DF64)}
+    log(f"  df64 ensemble B={B_DF64} x ks N={N_DF64} rodaspr mixed=1 "
+        f"(steps({STEPS_DF64}, {DT_DF64})): route host, plan C={plan.C} Mc={plan.Mc} "
+        f"woodbury={plan.woodbury}; launches "
+        + json.dumps({k: v for k, v in counts.items() if v})
+        + f"; {secs:.3f} s wall (first call); t {ens.t!r}")
+    if counts != want:
+        raise RuntimeError(f"df64 ensemble: launches {counts}, expected {want}")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    u = ens.u
+    if u.dtype != torch.float64 or not bool(torch.isfinite(u).all()):
+        raise RuntimeError("df64 ensemble: not a finite float64 state")
+    for b, (ub, _, t) in member_runs(B_DF64, N_DF64, 1, 10, torch.float64, DF64_ENS,
+                                     [(STEPS_DF64, DT_DF64)], DF64_ENS_MEMBERS,
+                                     "df64").items():
+        err = float((u[b] - ub).abs().max())
+        log(f"    member {b} against its single-grid df64 run on the card: max|du| = "
+            f"{err:.3e} (limit 1e-12), max|u| {float(ub.abs().max()):.3f}; clock "
+            f"{t!r}")
+        if not err <= 1e-12 or t != ens.t:
+            raise RuntimeError(f"df64 ensemble: member {b} off its single-grid run")
+    del ens, u
+    torch.cuda.empty_cache()
+    # per_member_dt in the df64 mode
+    pm = df64_ensemble(B_DF64_PM, N_DF64_PM, DF64_PM)
+    calls = [(2, 1.0)]
+    _, counts, secs = counted("df64 per member", lambda: drive(pm, calls))
+    log(f"  df64 ensemble B={B_DF64_PM} x ks N={N_DF64_PM} rodaspr tol 1e-3 mixed=1 "
+        f"per_member_dt (steps(2, 1.0)): route {pm.route}; member attempts "
+        f"{pm.member_iters.tolist()}; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}) + f"; {secs:.3f} s wall")
+    if pm.route != "host" or counts["K8.residual"] <= 0 or any(
+            counts[k] for k in KERNELS if k.startswith("K6")):
+        raise RuntimeError("df64 per-member ensemble: not the host route's mixed solve")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    members = member_runs(B_DF64_PM, N_DF64_PM, 1, 10, torch.float64, DF64_PM, calls,
+                          double="df64")
+    for b, (ub, att, t) in members.items():
+        err = float((pm.u[b] - ub).abs().max() / ub.abs().max())
+        log(f"    member {b} against its single-grid df64 run: max|du| / max|u| = "
+            f"{err:.3e} (limit 1e-9); attempts {att} / {int(pm.member_iters[b])}; "
+            f"clock {t!r} / {pm.t!r}")
+        if not err <= 1e-9 or att != int(pm.member_iters[b]) or t != pm.t:
+            raise RuntimeError(f"df64 per-member ensemble: member {b} off its run")
+    del pm
+    return launches
+
+
+def phase2_compensated(launches):
+    """compensated=True: f32 (and at KS 2^13 f64) RODASPR through
+    device_steps on the eager route (KS 2^13: one launch of K6's adaptive
+    entry with the carry per output step, counted as K6.compensated; KS
+    10^6: the host controller, no K6), against phase 2's CPU f64 runs of
+    the cases."""
+    for name, N, route, exact in COMPENSATED_CASES:
+        _, eqs, case, kwargs, tol32, tol64, *_ = next(c for c in CASES if c[0] == name)
+        fields_np, pars, dt, tmax, _ = case
+        steps = int(round(tmax / dt))
+        ref_steps, ref_u, ref_attempts, _ = cpu_refs()[name]
+        ref = torch.from_numpy(ref_u)
+        for dt_name, dtype in DTYPES.items():
+            if N == N_REF and dtype == torch.float64:
+                continue
+            model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+            fields, pars_t = state_from_numpy(fields_np, pars, model)
+            sch = schemes.RODASPR(model, compensated=True, **kwargs)
+            (t, snaps, status), counts, secs = counted(
+                name, lambda: sch.device_steps(0.0, fields, steps, dt, pars_t))
+            got = snaps[-1][1]["U"].double().cpu()
+            err = float((got - ref).abs().max() / ref.abs().max())
+            tol = tol64 if dtype == torch.float64 else tol32
+            log(f"  compensated {name} {dt_name}: route {sch.steps_route} (expected "
+                f"{route}), launches " + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; attempts {sch.steps_attempts} (CPU f64 {ref_attempts}); against "
+                f"the CPU f64 run max|du| / max|u| = {err:.3e} (tolerance {tol:.0e}); "
+                f"{secs:.3f} s wall")
+            off = {k: counts[k] for k, v in exact.items() if counts[k] != v}
+            if (sch.steps_route != route or status or off or not err <= tol
+                    or (dtype == torch.float64 and sch.steps_attempts != ref_attempts)):
+                raise RuntimeError(f"compensated {name} {dt_name}: route, launches {off}, "
+                                   "status or result off")
+            # the same run without the flag: each step's update u_new - u is
+            # exact where the states lie within a factor of two (Sterbenz),
+            # so the carry stays zero
+            bare = schemes.RODASPR(model, **kwargs)
+            _, bare_snaps, _ = bare.device_steps(0.0, fields, steps, dt, pars_t)
+            bare_u = bare_snaps[-1][1]["U"].double().cpu()
+            same = torch.equal(bare_snaps[-1][1]["U"], snaps[-1][1]["U"])
+            log(f"    without compensated: {'bit for bit equal' if same else 'differs'} "
+                f"(max|du| {float((bare_u - got).abs().max()):.3e}), attempts "
+                f"{bare.steps_attempts}, against the CPU f64 run max|du| / max|u| = "
+                f"{float((bare_u - ref).abs().max() / ref.abs().max()):.3e}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+    log("  launches over phase 2 with df64 ensembles and compensated: "
+        + json.dumps(launches))
+    return launches
+
+
 def cpu_reference_runs(conn):
     """The port's CPU f64 runs (the plain versions) of phase 2's cases, of
     the ensemble cases that compare with one and of the df64 cases held to
@@ -1368,14 +1614,16 @@ def stop_cpu_refs():
             proc.join()
 
 
-def member_runs(B, N, seed, waves, dtype, kwargs, calls):
-    """Members 0 and B - 1 of an ensemble case run alone on the card (the
-    port's single-grid scheme): {member: (u, attempts)}."""
+def member_runs(B, N, seed, waves, dtype, kwargs, calls, members=None, double=None):
+    """Members (0 and B - 1 by default) of an ensemble case run alone on the
+    card (the port's single-grid scheme; ``double`` overrides the model's
+    mode): {member: (u, attempts, t)}."""
     x, u0 = ensemble_state(B, N, seed, waves)
     kw = {k: v for k, v in kwargs.items() if k not in ("scheme", "per_member_dt")}
     out = {}
-    for b in (0, B - 1):
-        model = Model(*KS, double=dtype == torch.float64, device="cuda")
+    for b in (0, B - 1) if members is None else members:
+        model = Model(*KS, double=dtype == torch.float64 if double is None else double,
+                      device="cuda")
         fields, pars = state_from_numpy({"x": x, "U": u0[b]}, {"periodic": True}, model)
         scheme = kwargs["scheme"](model, **kw)
         t, attempts = 0.0, 0
@@ -1383,8 +1631,97 @@ def member_runs(B, N, seed, waves, dtype, kwargs, calls):
             for _ in range(n or 1):
                 t, fields = scheme(t, fields, dt, pars)
                 attempts += getattr(scheme, "_internal_iter", None) or 0
-        out[b] = (fields["U"], attempts)
+        out[b] = (fields["U"], attempts, t)
     return out
+
+
+def _null(t, fields, pars):
+    return fields, pars
+
+
+#: a compensated ensemble on K6's route: B members of KS 2^13, RODASPR tol
+#: 1e-3, steps(2, 1.0), shared and per-member dt
+COMP_ENS_B, COMP_ENS_N, COMP_ENS_CALLS = kernel_checks.BATCH, N_SMALL, [(2, 1.0)]
+#: the graph route with the carry: phase 2's fixed KS 10^6 case
+COMP_GRAPH = "ks N=10^6 rodaspr fixed (4 x 0.05)"
+
+
+def phase2_compensated_routes(launches):
+    """compensated=True on K6's adaptive scan and on device_steps' graph
+    route, each held bit for bit to the route a hook sends it to.  The
+    ensemble (``COMP_ENS_*``, f32 and f64, shared and per-member dt) on
+    the K6 route (one K6.compensated launch: the scan kernel's carry, each
+    output step from zero) against the same ensemble with a hook on the
+    host route (a K6 step-entry launch per attempt, the host controller,
+    kahan_update); fixed f32 RODASPR at KS 10^6 (``COMP_GRAPH``) through
+    the graph route (the carry captured) against the eager route (a hook),
+    with and without the flag, the compensated run also against phase 2's
+    CPU f64 run of the case."""
+    for dt_name, dtype in DTYPES.items():
+        for mode, extra in (("shared dt", {}), ("per-member dt", {"per_member_dt": True})):
+            kwargs = dict(scheme=schemes.RODASPR, tol=1e-3, compensated=True, **extra)
+            ens = make_ensemble(COMP_ENS_B, COMP_ENS_N, 2, 10, dtype, "cuda", kwargs)
+            _, counts, secs = counted(mode, lambda: drive(ens, COMP_ENS_CALLS))
+            host = make_ensemble(COMP_ENS_B, COMP_ENS_N, 2, 10, dtype, "cuda",
+                                 {**kwargs, "hook": _null})
+            drive(host, COMP_ENS_CALLS)
+            k6 = {k: v for k, v in counts.items() if k.startswith("K6") and v}
+            same = (torch.equal(ens.u, host.u) and ens.t == host.t
+                    and np.array_equal(np.asarray(ens.attempts),
+                                       np.asarray(host.attempts))
+                    and np.array_equal(np.asarray(ens.member_iters),
+                                       np.asarray(host.member_iters)))
+            log(f"  compensated ensemble B={COMP_ENS_B} x ks N={COMP_ENS_N} rodaspr tol "
+                f"1e-3 {mode} {dt_name} (steps(2, 1.0)): route {ens.route}, K6 launches "
+                f"{json.dumps(k6)}; attempts {ens.attempts} / member "
+                f"{np.asarray(ens.member_iters).tolist()}; against the hooked host route "
+                f"({host.route}): {'bit for bit equal' if same else 'differs'}; "
+                f"{secs:.3f} s wall")
+            if (ens.route != "K6" or host.route != "host" or k6 != {"K6.compensated": 1}
+                    or not same or not bool(torch.isfinite(ens.u).all())):
+                raise RuntimeError(f"compensated ensemble {mode} {dt_name}: route, "
+                                   "launches or result off the hooked host route")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            del ens, host
+    _, eqs, case, kwargs, tol32, *_ = next(c for c in CASES if c[0] == COMP_GRAPH)
+    fields_np, pars, dt, tmax, _ = case
+    steps = int(round(tmax / dt))
+    ref = torch.from_numpy(cpu_refs()[COMP_GRAPH][1])
+    model = Model(*eqs, double=False, device="cuda")
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    finals = {}
+    for comp in (True, False):
+        sch = schemes.RODASPR(model, compensated=comp, **{
+            k: v for k, v in kwargs.items() if k != "scheme"})
+        (_, snaps, status), counts, secs = counted(
+            COMP_GRAPH, lambda: sch.device_steps(0.0, fields, steps, dt, pars_t))
+        route = sch.steps_route
+        _, eager, status_e = sch.device_steps(0.0, fields, steps, dt, pars_t, hook=_null)
+        same = len(eager) == len(snaps) == steps and all(
+            torch.equal(a[1]["U"], b[1]["U"]) for a, b in zip(snaps, eager))
+        got = snaps[-1][1]["U"]
+        finals[comp] = got
+        err = float((got.double().cpu() - ref).abs().max() / ref.abs().max())
+        log(f"  {COMP_GRAPH} f32 compensated={comp}: route {route}, launches "
+            + json.dumps({k: v for k, v in counts.items() if v})
+            + f"; against the eager route (a hook, {sch.steps_route}): "
+            f"{'bit for bit equal' if same else 'differs'}; against the CPU f64 run "
+            f"max|du| / max|u| = {err:.3e} (tolerance {tol32:.0e}); {secs:.3f} s wall")
+        if (route != "graph" or sch.steps_route != "eager" or status or status_e
+                or not same or not err <= tol32
+                or any(counts[k] for k in KERNELS if k.startswith("K6"))):
+            raise RuntimeError(f"{COMP_GRAPH} compensated={comp}: route, launches or "
+                               "result off the eager route")
+        if comp:
+            for k in KERNELS:
+                launches[k] += counts[k]
+    log(f"    compensated against bare on the graph route: "
+        f"{'bit for bit equal' if torch.equal(finals[True], finals[False]) else 'differs'}"
+        f" (max|du| {float((finals[True] - finals[False]).abs().max()):.3e}, "
+        f"{int((finals[True] != finals[False]).sum())} nodes)")
+    log("  launches over phase 2 with compensated routes: " + json.dumps(launches))
+    return launches
 
 
 def phase2_ensembles(launches):
@@ -1430,8 +1767,8 @@ def phase2_ensembles(launches):
                 1e-9 if adaptive else 1e-10)
             if kwargs is not SHARED:
                 # alone, a member takes the same steps (fixed, or its own dt)
-                for b, (ub, att) in member_runs(B, N, seed, waves, dtype, kwargs,
-                                                calls).items():
+                for b, (ub, att, _) in member_runs(B, N, seed, waves, dtype, kwargs,
+                                                   calls).items():
                     err = float((u[b].double() - ub.double()).abs().max()
                                 / ub.double().abs().max())
                     same = ens.member_iters is None or int(ens.member_iters[b]) == att
@@ -2534,6 +2871,97 @@ def phase3_df64():
             + " / ".join(f"{m:.4f}" for m in r) + " ms/step (CUDA events over 10 steps)")
     mixed_crossover()
     return {"float64": times}
+
+def phase3_precision(smi):
+    """bench.py's df64 ensemble as aggregate cell-updates/s (B = 64 x KS N =
+    10^5, mixed=1, the best of three steps(10, 0.05) calls after one, with
+    a profile of its step by kernel), and what the Kahan carry costs K6:
+    the KS 2^13 first adaptive output step with and without the carry (in
+    turns, CUDA events), K6.compensated against its plain version and its
+    bound, and the README step entry's device µs with and without the
+    carry (a CUDA graph of 20 launches)."""
+    log(f"phase 3: df64 ensembles and the carry (CUDA events; card {smi})")
+    ens = df64_ensemble(B_DF64, N_DF64, DF64_ENS)
+    ens.steps(STEPS_DF64, DT_DF64)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ens.steps(STEPS_DF64, DT_DF64)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - start)
+    if not bool(torch.isfinite(ens.u).all()):
+        raise RuntimeError("df64 ensemble: non-finite state")
+    rate = B_DF64 * N_DF64 * STEPS_DF64 / min(secs)
+    log(f"  df64 ensemble B={B_DF64} x ks N={N_DF64} rodaspr mixed=1 (bench.py:632): "
+        f"{rate:.6e} cell-updates/s, the best of steps({STEPS_DF64}, {DT_DF64}) in "
+        + " / ".join(f"{x:.4f}" for x in secs) + f" s (host clock, synchronised); {smi}")
+    log_profile(f"df64 ensemble step B={B_DF64} x ks N={N_DF64} mixed=1", "float64",
+                profile_calls(lambda: ens.step(DT_DF64), 2))
+    del ens
+    torch.cuda.empty_cache()
+    times = {}
+    for dt_name, dtype in DTYPES.items():
+        km, _, _, kargs, _ = path_inputs(KS, ks_case(1.0, 2.0, N_SMALL), dtype)
+        kplan = megastep.plan_for(N_SMALL, 1, 2, True)
+        table = kernel_checks.rodaspr_table()
+        a_args = (adaptive_controller, km.backend, kplan, table, True, *kargs, 0.0, 1.0,
+                  1e-6, 1e-3, 0.9, None, None)
+        u = kargs[0]
+
+        def carried(fn):
+            return lambda: fn(*a_args, carry=torch.zeros_like(u))
+
+        seen = []
+
+        def counting(attempt, *args, **kw):
+            def recorded(t_, state, dt_eff):
+                out = attempt(t_, state, dt_eff)
+                seen.append(out[1])
+                return out
+            return adaptive_controller(recorded, *args, **kw)
+
+        attempts = megastep.adaptive_plain(counting, *a_args[1:],
+                                           carry=torch.zeros_like(u))[2]
+        accepted = sum(1 for e in seen if e <= 1e-3)
+        bare = lambda: megastep.row_adaptive_step(*a_args)
+        kern = carried(megastep.row_adaptive_step)
+        plain = carried(megastep.adaptive_plain)
+        p1, k1, b1, k2, b2, p2 = (cuda_ms(f, 2) for f in (plain, kern, bare, kern, bare,
+                                                          plain))
+        nbytes, ops = k6_work(km, kplan, table, dtype, attempts)
+        n = u.numel()
+        # the carry read and written once, four operations per node and
+        # accepted attempt
+        nbytes += 2 * n * u.element_size()
+        ops += 4 * n * accepted
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        times[dt_name] = {"K6.compensated": (min(k1, k2), min(p1, p2), b_ms, b_by, None)}
+        log(f"  K6.compensated ks N=2^13 first output step ({attempts} attempts, "
+            f"{accepted} accepted) {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, without the "
+            f"carry {b1:.4f}/{b2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}: {nbytes} bytes, {ops} operations), plan C={kplan.C}")
+        # the step entry's device time with and without the carry
+        rm = Model(*README, double=dtype == torch.float64, device="cuda")
+        fields_np, pars, rdt, _, _ = readme_case()
+        rf, rp = state_from_numpy(fields_np, pars, rm)
+        ru, rh, rx = rm.backend.split_fields(rf)
+        rargs = (ru, rh, rm.backend.pack_pars(rp, rx), rx)
+        rplan = megastep.plan_for(200, 1, 1, False)
+        fixed = kernel_checks.rodaspr_table(False)
+        T = np.float64 if dtype == torch.float64 else np.float32
+        gdt = float(T(fixed.g00) * T(rdt))
+        rc = torch.zeros_like(ru)
+        step_bare = lambda: megastep.step(rm.backend, rplan, fixed, False, *rargs, -gdt,
+                                          gdt, nsteps=10)
+        step_carry = lambda: megastep.step(rm.backend, rplan, fixed, False, *rargs, -gdt,
+                                           gdt, nsteps=10, carry=rc)
+        us = [graph_us(f, 20) / 10 for f in (step_bare, step_carry, step_carry, step_bare)]
+        log(f"  K6 step entry readme N=200 rodaspr {dt_name}, device us per step at 10 "
+            "steps a launch, without / with / with / without the carry: "
+            + " / ".join(f"{v:.3f}" for v in us) + " (a CUDA graph of 20 launches)")
+    return times
+
 
 @contextlib.contextmanager
 def megatheta_opt_in(on):
@@ -4100,12 +4528,14 @@ def run():
     smi = timed(phase0)
     errs = timed(phase1_film, timed(phase1))
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
+    launches = timed(phase2_precision, launches)
     launches = timed(phase2_megatheta, launches)
     launches = timed(phase2_film, launches)
     launches = timed(phase2_padded, launches)
     launches = timed(phase2_chunked, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
+                 timed(phase3_precision, smi),
                  timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded),
                  timed(phase3_redesign), timed(phase3_chunked, smi)):
         for dt_name, more in part.items():

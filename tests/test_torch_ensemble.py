@@ -563,18 +563,15 @@ def test_refusals():
         _port(KS, _U256, _X256, dict(periodic=True), mesh=object())
     with pytest.raises(NotImplementedError, match="A9"):
         _port(KS, _U256, _X256, dict(periodic=True), space_axis="space")
-    # one grid of a df64 model runs (tests/test_torch_df64.py); an ensemble
-    # of them waits for A8b
+    # an ensemble of a df64 model is ported (tests/test_torch_df64_ensemble.py):
+    # float64 state and parameters, the mixed solve on the host route
     df64 = tt.Model(*KS, double="df64", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Ensemble(df64, **ensemble_from_numpy(df64, _U256, _X256,
-                                             dict(periodic=True)))
-
-    class Df64Model:
-        precision = "df64"
-
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Ensemble(Df64Model(), _U256, dict(periodic=True), _X256)
+    ens = Ensemble(df64, **ensemble_from_numpy(df64, _U256, _X256,
+                                               dict(periodic=True)),
+                   scheme=tt.schemes.RODASPR, time_stepping=False,
+                   df64_mixed_solve=1)
+    assert ens.u.dtype == ens.pstack.dtype == torch.float64
+    assert ens.route == "host"
     ens = _port(KS, _U256, _X256, dict(periodic=True))
     for call in (lambda: ens.attach_container("out"),
                  lambda: ens.save_checkpoint("ckpt"),

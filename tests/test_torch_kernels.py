@@ -277,6 +277,43 @@ def test_df64_check_harness_on_cpu():
 
 
 @pytest.mark.cuda
+def test_mixed_solve_with_members_matches_plain_version(cuda_device):
+    """The df64 ensembles' mixed solve with a member axis (B = 4, a coef
+    per member: K2 and K4 in float32, K3 and K4's solves, K8) against its
+    plain version and against each member's one-grid solve."""
+    results = kernel_checks.check_all_mixed_members(cuda_device)
+    assert set(results) == {"mixed solve members", "mixed solve members alone"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_carry_matches_plain_version(cuda_device, dtype):
+    """K6 with the Kahan carry (``kernel_checks.COMPENSATED_CASES``: s = 1,
+    2, 4, one grid and B = 4), from a seeded carry: bit for bit the step
+    entry's bare launches and the adaptive controller replayed on them,
+    folded by kahan_update, and against its plain version."""
+    results = kernel_checks.check_all_compensated(cuda_device, dtype)
+    assert "K6.compensated" in results
+
+
+def test_carry_check_harness_on_cpu():
+    """The carry checks and the member-axis mixed solve on CPU tensors:
+    plain against plain (the carried step equal to the bare steps folded
+    by kahan_update, the adaptive entries equal to the controller
+    replayed on plain steps, every seeded carry nonzero where the check
+    asks it), the members against their one-grid solves, nothing
+    launched."""
+    before = _launch.counts()
+    results = kernel_checks.check_all_compensated("cpu", torch.float64)
+    assert results == {"K6.compensated": 0.0, "K6.compensated dt_i": 0.0}
+    mixed = kernel_checks.check_all_mixed_members("cpu")
+    assert mixed["mixed solve members"] == 0.0
+    assert mixed["mixed solve members alone"] < 1e-12
+    assert _launch.counts() == before
+
+
+@pytest.mark.cuda
 def test_df64_mixed_steps_launch_k8_or_the_mixed_entry(cuda_device):
     """A df64 RODASPR step with ``df64_mixed_solve=n``: above the mixed
     entry's gate K8 6 n times, K2 and K4's factor once (float32) and no

@@ -163,9 +163,9 @@ def _adaptive_route(N, monkeypatch):
     calls = []
     adaptive = megastep.row_adaptive_step
 
-    def counting(*args):
+    def counting(*args, **kw):
         calls.append(1)
-        return adaptive(*args)
+        return adaptive(*args, **kw)
 
     monkeypatch.setattr(megastep, "row_adaptive_step", counting)
     errs = _record_plain_errors(monkeypatch)
@@ -234,9 +234,9 @@ def test_status_codes_raise_through_the_route(knob, message, monkeypatch):
     calls = []
     adaptive = megastep.row_adaptive_step
 
-    def counting(*args):
+    def counting(*args, **kw):
         calls.append(1)
-        return adaptive(*args)
+        return adaptive(*args, **kw)
 
     monkeypatch.setattr(megastep, "row_adaptive_step", counting)
     with pytest.raises(RuntimeError, match=message):

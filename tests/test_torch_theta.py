@@ -197,10 +197,10 @@ def test_unported_features_raise():
     fields_np, pars = readme_state(40)
     model = tt.Model(*README, device="cpu")
     fields, pars_t = state_from_numpy(fields_np, pars, model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        tt.schemes.RODASPR(model, compensated=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        tt.Simulation(model, fields, pars_t, dt=1.0, compensated=True)
+    # the Kahan carry is ported (tests/test_torch_compensated.py)
+    assert tt.schemes.RODASPR(model, compensated=True)._compensated
+    sim = tt.Simulation(model, fields, pars_t, dt=1.0, compensated=True)
+    assert sim._scheme._compensated
     # df64_mixed_solve= is taken on every model and ignored off the df64
     # mode, as in the reference
     tt.schemes.RODASPR(model, df64_mixed_solve=2)
@@ -217,12 +217,14 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         tt.Simulation(model, fields, pars_t, dt=1.0, time_stepping=False,
                       mesh=object())
+    # an ensemble hands a custom solver one member at a time
+    # (tests/test_torch_df64_ensemble.py holds it against one grid)
     x = fields_np["x"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.parallel.Ensemble(
-            model, **ensemble_from_numpy(model, np.stack([fields_np["U"]] * 2),
-                                         x, pars),
-            scheme=tt.schemes.Theta, solver=dense_solver_torch)
+    ens = tt.parallel.Ensemble(
+        model, **ensemble_from_numpy(model, np.stack([fields_np["U"]] * 2),
+                                     x, pars),
+        scheme=tt.schemes.Theta, solver=dense_solver_torch)
+    assert ens.route == "host"
 
 
 def test_yielded_states_stay_as_yielded():

@@ -10,9 +10,12 @@ enqueues one graph instead of 7 (Theta) to 38 (RODASPR) launches per step.
 
 A graph is valid for the values it was captured with: the kernels take dt
 (and the products made of it) as host scalars, so a graph is keyed by
-(N, periodic, dtype, device, dt, n, snapshots, the shapes of helpers and
-parameters).  The scheme keeps a few graphs (``MAX_GRAPHS``, least recently
-used dropped).  Inputs are copied into the graph's static buffers before
+(N, periodic, dtype, device, dt, n, snapshots, compensated, the shapes of
+helpers and parameters).  A compensated graph (a ``compensated=True``
+scheme's) folds each step's state into a Kahan carry
+(``ops.compensated.kahan_update``) that the graph zeroes before its first
+step, so every replay starts it at zero.  The scheme keeps a few graphs
+(``MAX_GRAPHS``, least recently used dropped).  Inputs are copied into the graph's static buffers before
 each replay; the snapshots (each step's u in a slot of an ``(n, nvar, N)``
 tensor written inside the graph) or the final state are cloned after it.
 
@@ -37,6 +40,7 @@ import gc
 import torch
 
 from ..ops import _launch
+from ..ops.compensated import kahan_update
 
 #: graphs kept per scheme
 MAX_GRAPHS = 4
@@ -45,9 +49,12 @@ MAX_GRAPHS = 4
 class FixedGraph:
     """``n`` fixed steps of ``fixed(t, u, helpers, pstack, x, dt)`` (the
     scheme's ``device_fixed_step`` under the null hook), captured on
-    static copies of the first call's inputs."""
+    static copies of the first call's inputs; with ``compensated`` each
+    step's state is the Kahan update of the last, the carry zeroed at the
+    start of every replay."""
 
-    def __init__(self, fixed, u, helpers, pstack, x, dt, n, snapshots):
+    def __init__(self, fixed, u, helpers, pstack, x, dt, n, snapshots,
+                 compensated=False):
         if n < 1:
             raise ValueError(f"a fixed-step graph of n = {n} < 1 steps")
         self.n = n
@@ -62,8 +69,12 @@ class FixedGraph:
         try:
             with torch.cuda.graph(self.graph):
                 su, sh, sp, sx = self.static
+                carry = torch.zeros_like(su) if compensated else None
                 for k in range(n):
-                    su, sh, sp, sx, _ = fixed(0.0, su, sh, sp, sx, dt)
+                    su2, sh, sp, sx, _ = fixed(0.0, su, sh, sp, sx, dt)
+                    if carry is not None:
+                        su2, carry = kahan_update(su, carry, su2)
+                    su = su2
                     if self.snap is not None:
                         self.snap[k].copy_(su)
                 self.out = su
@@ -89,19 +100,19 @@ class FixedGraph:
 
 
 def fixed_steps(cache, fixed, periodic, u, helpers, pstack, x, dt, n,
-                snapshots):
+                snapshots, compensated=False):
     """``n`` fixed steps of ``dt`` from (u, helpers, pstack, x), CUDA
     tensors of one grid, by ``fixed`` (the scheme's null-hook fixed step on
     the ``periodic`` boundary) through the graph of ``cache`` (a scheme's
     ``OrderedDict``, least recently used first) for this key, captured at
-    its first use."""
+    its first use; ``compensated``: through a Kahan carry (module doc)."""
     key = (bool(periodic), tuple(u.shape), tuple(helpers.shape),
            tuple(pstack.shape), u.dtype, u.device, float(dt), int(n),
-           bool(snapshots))
+           bool(snapshots), bool(compensated))
     graph = cache.get(key)
     if graph is None:
         graph = FixedGraph(fixed, u, helpers, pstack, x, dt, int(n),
-                           snapshots)
+                           snapshots, compensated)
         if len(cache) >= MAX_GRAPHS:
             cache.popitem(last=False)
         cache[key] = graph

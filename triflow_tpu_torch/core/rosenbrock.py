@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.compensated import kahan_update
+
 
 def transformed(alpha, gamma, b, b_pred=None):
     """The Hairer-Wanner transformed tables (Solving ODEs II, ch. IV.7) of
@@ -83,7 +85,8 @@ def rodaspr_coefficients():
 
 
 def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
-                        max_iter, dt_min, interpolate, state, clock=None):
+                        max_iter, dt_min, interpolate, state, clock=None,
+                        carry=None):
     """One output step from ``t`` to ``t + dt`` through accepted attempts:
     the counterpart of the reference's ``_adaptive_embedded_loop`` with the
     ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt, 10*dt)``,
@@ -101,7 +104,12 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
     float32 clock does: every attempt's dt is still a ``T`` value, the
     remaining time rounded to ``T`` where the attempt is clamped to the
     output time, so the clamped attempt may leave a remainder below ``T``'s
-    resolution that one more attempt takes, as in the reference."""
+    resolution that one more attempt takes, as in the reference.
+
+    ``carry`` (``compensated=True``: a tensor of u's shape, updated in
+    place) makes every accepted u the Kahan update of the last one by the
+    attempt's (``ops.compensated.kahan_update``), as the reference's loop
+    does; a rejected attempt leaves u and the carry as they were."""
     info = np.finfo(T)
     Tc = T if clock is None else clock
     tol, safety = T(tol), T(safety)
@@ -131,6 +139,10 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
         if accept:
             tp, sp_ = t_, state
             t_ = t_ + dt_eff
+            if carry is not None:
+                u2, c2 = kahan_update(state[0], carry, state2[0])
+                carry.copy_(c2)
+                state2 = (u2,) + tuple(state2[1:])
             state = state2
         if not (accept and clamped):
             dt_i = dt_next
@@ -140,8 +152,11 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
         if dt_i < dt_floor:
             status = 2
     if interpolate:
-        span = np.maximum(t_ - tp, info.tiny)
-        w = np.clip((next_t - tp) / span, T(0.0), T(1.0))
+        # the weight in T from the clock's values rounded to T, as the
+        # reference weighs it from its (hi, lo) clock's hi + lo; the lerp
+        # in the state's type
+        span = np.maximum(T(t_) - T(tp), info.tiny)
+        w = np.clip((T(next_t) - T(tp)) / span, T(0.0), T(1.0))
         state = (sp_[0] + float(w) * (state[0] - sp_[0]),) + tuple(state[1:])
     return next_t, state, dt_i, niter, status
 
@@ -152,7 +167,7 @@ def _where_members(mask, a, b):
 
 
 def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
-                      dt_min, interpolate, state):
+                      dt_min, interpolate, state, clock=None, carry=None):
     """One output step from ``t`` to ``t + dt`` in which every member of an
     ensemble runs its own clock and step size: the counterpart of the
     reference's ``_per_member_adaptive_loop`` (masked freezing: a member
@@ -169,18 +184,29 @@ def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
     steps.  Returns (next_t, state, dt_b, niter_b, status): status 1 when
     an active member exceeds ``max_iter`` attempts, 2 when a member still
     short of ``t + dt`` has its dt below the floor; the loop stops for all
-    members at the first."""
+    members at the first.
+
+    ``clock`` (the df64 mode: float64, with ``T`` float32) carries every
+    member's clock in a type of its own, as ``adaptive_controller``'s, the
+    reference's compensated (hi, lo) member clocks: each dt_eff a ``T``
+    value, a clamped one the member's remaining time rounded to ``T``, and
+    the weight of ``recompute_target=False``'s interpolation taken in ``T``
+    from the clocks rounded to ``T``, as the reference takes it from hi +
+    lo, the interpolation itself in the state's type.  ``carry`` (a member-leading tensor of u's shape, updated in
+    place) makes each accepting member's u the Kahan update of its last
+    one, the reference's ``compensated`` members."""
     info = np.finfo(T)
+    Tc = T if clock is None else clock
     tol, safety = T(tol), T(safety)
-    next_t = T(t) + T(dt)
-    eps = T(1e-12) * np.maximum(abs(next_t), T(1.0))
+    next_t = Tc(t) + Tc(dt)
+    eps = Tc(1e-12) * np.maximum(abs(next_t), Tc(1.0))
     if dt_min is not None:
         dt_floor = T(dt_min)
     else:
-        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * abs(next_t)
+        dt_floor = T(1e3) * info.tiny + T(2.0) * info.eps * T(abs(next_t))
     device = state[0].device
     B = state[0].shape[0]
-    tb = np.full(B, T(t), dtype=T)
+    tb = np.full(B, Tc(t), dtype=Tc)
     idt = np.broadcast_to(np.asarray(internal_dt, dtype=T), (B,)).copy()
     dtb = idt if interpolate else np.minimum(idt, T(dt))
     tpb, sp_ = tb.copy(), state
@@ -194,7 +220,7 @@ def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
             dt_eff = dtb
         else:
             clamped = dtb >= remaining
-            dt_eff = np.minimum(dtb, remaining)
+            dt_eff = np.minimum(dtb, remaining).astype(T)
         state2, errs = attempt(tb, state, dt_eff)
         errs = np.asarray(errs, dtype=T)
         accept = (errs <= tol) & active
@@ -207,6 +233,10 @@ def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
             tpb = np.where(accept, tb, tpb)
             sp_ = tuple(_where_members(mask, a, b) for a, b in zip(state, sp_))
         tb = np.where(accept, tb + dt_eff, tb)
+        if carry is not None:
+            u2, c2 = kahan_update(state[0], carry, state2[0])
+            carry.copy_(_where_members(mask, c2, carry))
+            state2 = (u2,) + tuple(state2[1:])
         state = tuple(_where_members(mask, a, b) for a, b in zip(state2, state))
         nb += active
         if max_iter is not None and np.any(active & (nb > max_iter)):
@@ -214,8 +244,8 @@ def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
         if np.any((next_t - tb > eps) & (dtb < dt_floor)):
             status = 2
     if interpolate:
-        span = np.maximum(tb - tpb, info.tiny)
-        w = np.clip((next_t - tpb) / span, T(0.0), T(1.0))
+        span = np.maximum(tb.astype(T) - tpb.astype(T), info.tiny)
+        w = np.clip((T(next_t) - tpb.astype(T)) / span, T(0.0), T(1.0))
         w = torch.as_tensor(w, device=device).reshape(
             (-1,) + (1,) * (state[0].ndim - 1))
         state = (sp_[0] + w * (state[0] - sp_[0]),) + tuple(state[1:])

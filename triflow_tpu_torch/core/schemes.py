@@ -63,6 +63,13 @@ float64 bands (kernel K8, ``ops/mixed.py``).  On a grid its own gate
 admits (``megastep.mixed_plan_for``) a whole mixed step is one launch of
 K6's mixed entry; the adaptive loop then runs on the host with one launch
 per attempt.  Hooks see float64 fields and set float64 values.
+
+``compensated=True`` (ROW; ignored in the df64 mode, as in the reference)
+carries the state through a Kahan carry (``ops.compensated``), as the
+reference does: the adaptive controller, on the host or in K6, folds every
+accepted attempt of an output step into a carry that starts at zero in the
+step, and ``device_steps`` folds each of its n steps into an outer carry
+that starts at zero in the call (on the K6 route inside K6's step entry).
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ import torch
 from ..ops import chunked, megastep, megatheta, mixed
 from ..ops.banded import axpy_bands
 from ..ops.combine import combine
+from ..ops.compensated import kahan_update
 from ..ops.matvec import banded_matvec
 from . import graphs, rosenbrock
 
@@ -185,7 +193,9 @@ class _SchemeBase:
       other grid, CUDA tensors: the ``n`` steps captured once as a CUDA
       graph and replayed (``core/graphs.py``);
     * ``"K6_adaptive"``: a ROW scheme's own controller with the null hook,
-      ``recompute_target=True``, a grid K6 admits and not the df64 mode:
+      ``recompute_target=True``, a grid K6 admits, not the df64 mode and
+      not ``compensated`` (whose outer carry needs each output step's
+      start on the host):
       K6's adaptive scan, ``n`` output steps in one launch, with a
       snapshot per output step (its plain version on the CPU);
     * ``"eager"``: anything else (hooks, step doubling, the host
@@ -194,7 +204,9 @@ class _SchemeBase:
 
     Each route gives the states, times and statuses the same number of
     ``__call__`` calls gives, bit for bit where it launches the same
-    kernels on the same inputs."""
+    kernels on the same inputs; with ``compensated`` every route folds
+    its n steps into a Kahan carry that starts at zero in the call, as the
+    reference's scan does (on the K6 route inside the kernel)."""
 
     _time_control = False
     #: residual refinement passes per stage solve (ROW ``refine=``)
@@ -203,6 +215,8 @@ class _SchemeBase:
     _solver = None
     #: residual passes of the df64 mode's mixed solve (0: the full solve)
     _mixed = 0
+    #: a Kahan carry on the state (ROW ``compensated=True``)
+    _compensated = False
     #: the message a failed output step raises, by status
     _failures = {}
 
@@ -449,7 +463,8 @@ class _SchemeBase:
         else:
             snap = graphs.fixed_steps(
                 self._graphs, self._bound_step(null_hook, periodic),
-                periodic, u, helpers, pstack, x, self._fixed_dt(dt), n, True)
+                periodic, u, helpers, pstack, x, self._fixed_dt(dt), n, True,
+                self._compensated)
         snapshots = []
         for k in range(n):
             t = float(self._advance(t, dt))
@@ -486,10 +501,14 @@ class _SchemeBase:
         """``device_steps``' eager route: ``device_stepper``'s step n times,
         each from the output time the last one returned (as ``__call__``
         returns it).  A hook may update the state in place, so with one the
-        step after a snapshot starts from a copy of it."""
+        step after a snapshot starts from a copy of it.  With
+        ``compensated`` each output step's state is the Kahan update of the
+        last by the step's result, one carry across the n steps."""
         step = self.device_stepper(hook, periodic)
         snapshots, status = [], 0
+        carry = torch.zeros_like(u) if self._compensated else None
         for k in range(n):
+            u_prev = u if hook is null_hook or carry is None else u.clone()
             t2, u, helpers, pstack, x, dt_i, niter, status = step(
                 t, u, helpers, pstack, x, dt, internal_dt)
             self._keep_dt(dt_i, niter)
@@ -501,6 +520,8 @@ class _SchemeBase:
                 for _ in range(n - k):
                     t = float(self._advance(t, dt))
                 return t, snapshots, status
+            if carry is not None:
+                u, carry = kahan_update(u_prev, carry, u)
             t = float(t2)
             snapshots.append((t, self._rebuild(u, helpers, x)))
             if hook is not null_hook:
@@ -522,7 +543,11 @@ class Theta(_SchemeBase):
     torch tensors of the model's device, the step is the reference's: J's
     bands and dt*F (K1), ``B = dt*F - theta*dt*J*u + u`` (K7, K5), and
     ``A = I - theta*dt*J`` in banded form handed to the solver (theta = 0
-    stays forward Euler, with no solver call).
+    stays forward Euler, with no solver call).  In an ensemble
+    (``parallel.Ensemble``, u of B members) the solver is called once per
+    member, ``solver(A_bands[b], B[b], periodic)`` with that member's (W,
+    nvar, nvar, N) bands and (nvar, N) right-hand side, as the reference's
+    vmapped scheme hands it one member's; the B solutions are stacked.
 
     ``df64_mixed_solve=n`` on a df64 model solves ``A`` by the mixed solve
     (the module doc): one launch of K6's mixed entry where its gate admits
@@ -567,8 +592,12 @@ class Theta(_SchemeBase):
             bands = problem.J_bands(u, helpers, pstack, x)
             Ju = banded_matvec(bands, u, problem.periodic, -theta * dt)
             B = combine([[1.0, 1.0, 1.0]], [rhs, Ju, u])[0]
-            u2 = self._solver(axpy_bands(1.0, -theta * dt, bands), B,
-                              problem.periodic)
+            A = axpy_bands(1.0, -theta * dt, bands)
+            if batched:
+                u2 = torch.stack([self._solver(A[b], B[b], problem.periodic)
+                                  for b in range(B.shape[0])])
+            else:
+                u2 = self._solver(A, B, problem.periodic)
             return u2, helpers, pstack, x, None
         fact, _ = self._factor(problem, u, helpers, pstack, x, -theta * dt)
         return fact.solve(rhs, add_to=u), helpers, pstack, x, None
@@ -702,17 +731,19 @@ class ROW_general(_SchemeBase):
     multi-launch path, or one launch of K6's mixed entry per step where
     its gate admits the grid; ``refine=`` wraps the mixed solve as it
     wraps the full one.  On another model the argument is ignored, as in
-    the reference."""
+    the reference.
+
+    ``compensated=True`` carries the state through a Kahan carry (the
+    module doc) in float32 and float64; a df64 model ignores it, as the
+    reference's does.  A single fixed step (``__call__``, ``fixed_step``)
+    takes no carry, as in the reference."""
 
     def __init__(self, model, alpha, gamma, b, b_pred=None,
                  time_stepping=False, tol=None, max_iter=None, dt_min=None,
                  safety_factor=0.9, recompute_target=True,
                  compensated=False, refine=0, df64_mixed_solve=None):
-        if compensated:
-            raise NotImplementedError(
-                "compensated=True (the Kahan-summed float32 state) is not "
-                "ported yet (ROADMAP A8b)")
         super().__init__(model)
+        self._compensated = bool(compensated) and not self._df64
         self._mixed = int(df64_mixed_solve or 0) if self._df64 else 0
         self._refine = int(refine)
         self._alpha = np.asarray(alpha, dtype=np.float64)
@@ -866,14 +897,21 @@ class ROW_general(_SchemeBase):
     def _fixed_dt(self, dt):
         return self._dt_type(dt)
 
+    def _carry(self, u):
+        """A zero Kahan carry for u where the scheme is compensated, else
+        None."""
+        return torch.zeros_like(u) if self._compensated else None
+
     def _k6_scan(self, plan, periodic, u, helpers, pstack, x, dt, n, snap):
         megastep.row_scan(self._model.backend, plan,
                           self._table(self._with_err()), periodic, u, helpers,
-                          pstack, x, self._step_dt(self._dt_type(dt)), n, snap)
+                          pstack, x, self._step_dt(self._dt_type(dt)), n, snap,
+                          self._carry(u))
 
     def _k6_adaptive(self, hook, N, periodic):
         if (not self._time_control or hook is not null_hook
-                or not self._recompute_target or self._df64):
+                or not self._recompute_target or self._df64
+                or self._compensated):
             return None
         return self._mega_plan(N, periodic)
 
@@ -984,17 +1022,20 @@ class ROW_general(_SchemeBase):
         ``recompute_target=True`` on a grid K6 admits, the whole output
         step is one K6 launch; otherwise (and always in the df64 mode, whose
         controller decides in float32 on a float64 clock) every attempt is
-        a ``fixed_step`` decided on the host.  Returns (next_t, u, helpers,
-        pstack, x, dt_i, niter, status), status 1 for max_iter and 2 for
-        the dt floor."""
+        a ``fixed_step`` decided on the host.  With ``compensated`` every
+        accepted attempt is folded into a Kahan carry that starts at zero.
+        Returns (next_t, u, helpers, pstack, x, dt_i, niter, status), status
+        1 for max_iter and 2 for the dt floor."""
         T = self._dt_type
         plan = self._mega_plan(x.shape[-1], problem.periodic)
+        carry = self._carry(u)
         if (plan is not None and problem.hook is null_hook
                 and self._recompute_target and not self._df64):
             u2, dt_i, niter, status = megastep.row_adaptive_step(
-                rosenbrock.adaptive_controller, self._model.backend, plan, self._table(True), problem.periodic,
-                u, helpers, pstack, x, t, dt, internal_dt, self._tol,
-                self._safety_factor, self._max_iter, self._dt_min)
+                rosenbrock.adaptive_controller, self._model.backend, plan,
+                self._table(True), problem.periodic, u, helpers, pstack, x, t,
+                dt, internal_dt, self._tol, self._safety_factor,
+                self._max_iter, self._dt_min, carry=carry)
             return T(t) + T(dt), u2, helpers, pstack, x, dt_i, niter, status
 
         def attempt(t_, state, dt_eff):
@@ -1006,7 +1047,7 @@ class ROW_general(_SchemeBase):
             rosenbrock.adaptive_controller(
                 attempt, T, t, dt, internal_dt, self._tol, self._safety_factor,
                 self._max_iter, self._dt_min, not self._recompute_target,
-                (u, helpers, pstack), self._clock)
+                (u, helpers, pstack), self._clock, carry)
         return next_t, u, helpers, pstack, x, dt_i, niter, status
 
     _failures = {

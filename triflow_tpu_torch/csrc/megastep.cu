@@ -38,6 +38,16 @@
 //                  adaptive_kernel runs one output step of one grid with a
 //                  shared dt on a cluster, scan_kernel everything else
 //                  (one grid's output step on one CTA too).
+// Both entries take an optional Kahan carry c ((B, nvar, N), the caller's;
+// null: no carry): every accepted state is then the Kahan update of the
+// state before it by the step's result (kahan_nodes, ops/compensated.py's
+// four operations in their order), and c keeps the rounding residual.  The
+// step entry carries c in and out across its nsteps steps.  The adaptive
+// entries start the first output step from c as given (zero from every
+// caller of the port, as the reference's steppers start theirs; a check
+// seeds it) and every later one from zero (zero_nodes), and leave the last
+// output step's carry in c.  Like the accepted state, c lives in global
+// memory beside the member's states, so the cluster plan does not change.
 // An ensemble's adaptive steps run scan_kernel in two modes.
 // Shared dt (one clock for the ensemble, the reference's shared-dt
 // controller): an attempt's err is the max over all members, so every
@@ -217,6 +227,7 @@ struct Work : Grid<T> {
   T* errs;             // 2 x gridDim CTA maxima of err (shared mode)
   T* snap;             // one grid's per-step states (nsteps, nvar, N), or null
   double* snap_info;   // (nsteps, kSnapInfo) of the adaptive scan, or null
+  T* carry;            // the Kahan carry (B, nvar, N), or null
   int B;
 };
 
@@ -423,6 +434,33 @@ __device__ T finish(const Table<T>& tab, const Pt& P, const T* u, const T* us, T
   return err;
 }
 
+// The Kahan update of an accepted state at this CTA's nodes (Neumaier's
+// variant, ops/compensated.py's kahan_update in its order): dst = fl(src +
+// ((dst - src) + c)) and c the rounding residual of that addition, src the
+// state the step started from and dst its result, each node by the thread
+// that wrote it in finish.  Every entry with a carry calls it where a state
+// is accepted.
+template <typename T, typename Pt>
+__device__ __forceinline__ void kahan_nodes(const Pt& P, const T* src, T* dst, T* c) {
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = threadIdx.x; l < P.nn; l += blockDim.x) {
+      const long e = (long)v * P.N + P.i0 + l;
+      const T u = src[e];
+      const T y = add_rn(sub_rn(dst[e], u), c[e]);
+      const T u2 = add_rn(u, y);
+      c[e] = sub_rn(y, sub_rn(u2, u));
+      dst[e] = u2;
+    }
+  __syncthreads();
+}
+
+// c = 0 at this CTA's nodes, each by the thread that kahan_nodes gives it.
+template <typename T, typename Pt>
+__device__ __forceinline__ void zero_nodes(const Pt& P, T* c) {
+  for (int v = 0; v < TF_NVAR; ++v)
+    for (long l = threadIdx.x; l < P.nn; l += blockDim.x) c[(long)v * P.N + P.i0 + l] = T(0);
+}
+
 // nsteps steps of one_step(src, dst) from src, between the state buffers
 // buf0 and buf1, the last into out, or with snap (one grid) step k into
 // snap + k * n and no write to out: the last step's err.
@@ -574,8 +612,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const T sm = w.scale_b ? w.scale_b[m] : scale;
     const T err = run_steps<T>(w.u0 + at, w.out + at, w.buf0 + at, w.buf1 + at,
                                kMembers ? nullptr : w.snap, n, nsteps, [&](const T* src, T* dst) {
-                                 return one_step<T, kMembers>(w, tab, P, st, s, m, src, dst, bm,
-                                                              sm);
+                                 const T e = one_step<T, kMembers>(w, tab, P, st, s, m, src, dst,
+                                                                   bm, sm);
+                                 if (w.carry) kahan_nodes<T>(P, src, dst, w.carry + at);
+                                 return e;
                                });
     if (threadIdx.x == 0 && P.sp.rank == 0) w.info[(long)m * kInfo] = (double)err;
   }
@@ -666,6 +706,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     __syncthreads();
     if (s_accept) {
+      if (w.carry) kahan_nodes<T>(P, cur, trial, w.carry);
       cur = trial;
       trial = trial == w.buf0 ? w.buf1 : w.buf0;
     }
@@ -702,6 +743,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __shared__ Table<T> tab;
   __shared__ T s_tout, s_t, s_next_t, s_eps, s_floor, s_dt_i, s_dt_eff, s_err;
   __shared__ int s_go, s_clamped, s_niter, s_total, s_status, s_done, s_cur, s_par;
+  __shared__ int s_prev;  // the accepted state before the last accept
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* gl = w.gwork + (long)blockIdx.x * L.gslab;
   const Part<kOne> P = part_of<kOne>(w, L);
@@ -739,6 +781,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         s_niter = 0;
         s_go = sub_rn(next_t, s_t) > s_eps;
       }
+      if (w.carry && s_done > 0)
+        for (int m = shared ? cid : mm; m < w.B; m += shared ? ncl : w.B)
+          zero_nodes<T>(P, w.carry + (long)m * TF_NVAR * w.N);
       __syncthreads();
       while (s_go) {
         if (tid == 0) {
@@ -780,11 +825,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           // a member that reached the output time is frozen: its dt floor
           // no longer trips (the per-member controller)
           if (s_dt_i < s_floor && (shared || still)) s_status = 2;
+          s_prev = accept ? s_cur : -1;
           if (accept) s_cur = s_cur == 1 ? 2 : 1;
           s_err = err;
           s_go = still && s_status == 0;
         }
         __syncthreads();
+        if (w.carry && s_prev >= 0)
+          for (int m = shared ? cid : mm; m < w.B; m += shared ? ncl : w.B) {
+            const long at = (long)m * TF_NVAR * w.N;
+            const T* src = s_prev == 0 ? w.u0 + at : (s_prev == 1 ? w.buf0 : w.buf1) + at;
+            kahan_nodes<T>(P, src, (s_cur == 1 ? w.buf0 : w.buf1) + at, w.carry + at);
+          }
       }
       if (tid == 0) {
         s_tout = s_next_t;
@@ -950,7 +1002,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // ptrs (device addresses: u0, hlp, par, x, info, out, gwork, buf0, buf1,
 // then for the step and adaptive entries beta_b, scale_b, idt_b, sync,
 // errs, snap, snap_info: null, or one grid's per-step states and the
-// adaptive scan's per-step (t_i, dt_i, attempts, status)), ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter
+// adaptive scan's per-step (t_i, dt_i, attempts, status), and the Kahan
+// carry or null), ints (N, Mc, C, cyclic, wrap, periodic, n_stages, nsteps, max_iter
 // (-1: none), has_dt_min, B, ncl (clusters launched), then the cluster
 // plan's K, threads, Cc, Nr, smem, gslab, then the rows of the kCombos
 // combinations, then kBufs homes and kBufs byte offsets) and reals (beta,
@@ -1038,6 +1091,7 @@ int fill(const void* ptrs, const void* ints, const void* reals, Work<T>& w, Layo
   w.errs = reinterpret_cast<T*>(p[13]);
   w.snap = reinterpret_cast<T*>(p[14]);
   w.snap_info = reinterpret_cast<double*>(p[15]);
+  w.carry = reinterpret_cast<T*>(p[16]);
   w.B = iv[10];
   if (w.B < 1 || iv[11] < 1 || iv[11] > w.B || (w.snap && w.B != 1))
     return static_cast<int>(cudaErrorInvalidValue);

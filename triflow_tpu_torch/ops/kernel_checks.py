@@ -1887,3 +1887,218 @@ def run_wide(device, dtypes=(torch.float64, torch.float32), B=BATCH):
                                  results=results, C=C)
         out[str(dtype).replace("torch.", "")] = results
     return out
+
+
+# ------------------------------------------------------- K6's Kahan carry
+
+def member_copies(state, B):
+    """B members made from one grid's (u, helpers, pstack, x): member b's u
+    is u * (1 + 0.05 b), x shared."""
+    u, h, p, x = state
+    scale = 1.0 + 0.05 * torch.arange(B, dtype=u.dtype, device=u.device)
+    return (u[None] * scale[:, None, None], h[None].expand(B, *h.shape).contiguous(),
+            p[None].expand(B, *p.shape).contiguous(), x)
+
+
+def _k6_args(model, N, periodic, device, B, state):
+    """(plan, (u, helpers, pstack, x)) of a K6 check of B members: one
+    grid's ``state`` (``mega_state`` by default) copied into B members
+    (``member_copies``) where B > 1."""
+    sysm = model.backend.system
+    plan = megastep.plan_for(N, sysm.nvar, sysm.halo, periodic, B)
+    if plan is None:
+        plan = megastep.make_plan(N, sysm.nvar, sysm.halo, periodic)._replace(B=B)
+    one = mega_state(model, N, periodic, device) if state is None else state
+    return plan, (one if B == 1 else member_copies(one, B))
+
+
+def seeded_carry(u, seed=0):
+    """A nonzero Kahan carry for u: each node a residual below half an ulp
+    of its value (eps/2 |u| times a normal draw, clipped to +-1).  Folding
+    a step's own result into a zero carry leaves the carry zero (the
+    residual of u + (u_new - u) is exact in these runs), so a check that
+    must see the carry's arithmetic starts from this one."""
+    eps = float(torch.finfo(u.dtype).eps)
+    g = np.random.default_rng(seed).standard_normal(tuple(u.shape)).clip(-1, 1)
+    return (0.5 * eps) * u * torch.as_tensor(g, dtype=u.dtype, device=u.device)
+
+
+def check_compensated(model, N, periodic, dt, device, results=None,
+                      adaptive=None, B=1, state=None):
+    """K6's entries with a Kahan carry (counted as K6.compensated), each
+    started from a nonzero carry (``seeded_carry``).
+
+    Bit for bit: the step entry's 3 RODASPR steps against three launches
+    without the carry folded by ``ops.compensated.kahan_update`` (state and
+    carry); with ``adaptive = (output dt, internal dt, tol)``, the adaptive
+    entry's output step and the adaptive scan's two (shared dt, and per
+    member for B > 1; the second output step starts from a zero carry)
+    against the controller replayed on the host with every attempt one
+    launch of the step entry and every accepted state folded by
+    ``kahan_update`` (``megastep.adaptive_scan_plain`` with
+    ``step_fn=megastep.step``): u, the carry, dt_i, attempts and status.
+    The carries out of the step entry and of one output step must be
+    nonzero.  Against the plain versions with the carry (``scan_plain``,
+    ``adaptive_plain``, ``adaptive_scan_plain``): u to the solver
+    tolerance, the carries to |u| times it, equal attempts and status,
+    dt_i within the dt limit."""
+    from ..core.rosenbrock import adaptive_controller, member_controller
+    from .compensated import kahan_update
+
+    results = {} if results is None else results
+    b = model.backend
+    dtype = b.dtype
+    T = np.float64 if dtype == torch.float64 else np.float32
+    tol = TOL[dtype]["solve"]
+    plan, args = _k6_args(model, N, periodic, device, B, state)
+    u = args[0]
+    what = f"N={N} B={B} C={plan.C} s={plan.s} {dtype}"
+    fixed = rodaspr_table(False)
+    gdt = float(T(fixed.g00) * T(dt))
+    seed = seeded_carry(u)
+    carry = seed.clone()
+    got = megastep.step(b, plan, fixed, periodic, *args, -gdt, gdt, nsteps=3,
+                        carry=carry)[0]
+    seq, c = u, seed.clone()
+    for _ in range(3):
+        u2 = megastep.step(b, plan, fixed, periodic, seq, *args[1:], -gdt, gdt)[0]
+        seq, c = kahan_update(seq, c, u2)
+    if not (torch.equal(got, seq) and torch.equal(carry, c)):
+        raise CheckFailed(f"K6.compensated step {what}: 3 steps with the carry "
+                          "differ from 3 launches folded by kahan_update")
+    if not bool((carry != 0).any()):
+        raise CheckFailed(f"K6.compensated step {what}: the carry stayed zero")
+    c_p = seed.clone()
+    want = megastep.scan_plain(b, plan, fixed, periodic, *args, -gdt, gdt, 3,
+                               carry=c_p)
+    _record(results, "K6.compensated", got, want, tol, f"step {what}")
+    scale = float(want.abs().max())
+    _record(results, "K6.compensated", carry, c_p, tol, f"step carry {what}",
+            scale=scale)
+    if adaptive is None:
+        return results
+    out_dt, internal_dt, atol = adaptive
+    modes = [(False, adaptive_controller)] + ([(True, member_controller)]
+                                              if B > 1 else [])
+    for per_member, ctl in modes:
+        a_args = (ctl, b, plan, rodaspr_table(), periodic, *args, 0.0, out_dt,
+                  internal_dt, atol, 0.9, None, None)
+        for nsteps in (1, 2):
+            entry = (f"{'adaptive' if nsteps == 1 else 'adaptive_scan'} "
+                     f"{'per-member' if per_member else 'shared'} {what}")
+            ck = seed.clone()
+            if nsteps == 1:
+                u_k, dt_k, att_k, st_k = megastep.row_adaptive_step(
+                    *a_args, per_member=per_member, carry=ck)
+            else:
+                u_k, _, dt_k, st_k, att_k = megastep.adaptive_scan(
+                    *a_args, nsteps, per_member=per_member, attempts=True,
+                    carry=ck)
+            runs = {}
+            for name, step_fn in (("replay", megastep.step),
+                                  ("plain", megastep.step_plain)):
+                c_r = seed.clone()
+                u_r, _, dt_r, st_r, att_r = megastep.adaptive_scan_plain(
+                    *a_args, nsteps, per_member=per_member, carry=c_r,
+                    step_fn=step_fn)
+                runs[name] = u_r, c_r, dt_r, st_r, att_r
+                if not (np.array_equal(att_k, att_r) and st_k == st_r):
+                    raise CheckFailed(
+                        f"K6.compensated {entry}: (attempts, status) "
+                        f"{(att_k, st_k)} against the {name} controller's "
+                        f"{(att_r, st_r)}")
+            u_r, c_r, dt_r = runs["replay"][:3]
+            if not (torch.equal(u_k, u_r) and torch.equal(ck, c_r)
+                    and np.array_equal(np.asarray(dt_k, T), np.asarray(dt_r, T))):
+                raise CheckFailed(
+                    f"K6.compensated {entry}: u, carry or dt_i not bit for bit "
+                    "the controller replayed on step-entry launches folded by "
+                    "kahan_update")
+            if nsteps == 1 and not bool((ck != 0).any()):
+                raise CheckFailed(f"K6.compensated {entry}: the carry came out zero")
+            u_p, c_p, dt_p = runs["plain"][:3]
+            _record(results, "K6.compensated", u_k, u_p, tol, f"{entry} u")
+            _record(results, "K6.compensated", ck, c_p, tol, f"{entry} carry",
+                    scale=float(u_p.abs().max()))
+            gap = float(np.max(np.abs(np.asarray(dt_k, np.float64)
+                                      - np.asarray(dt_p, np.float64))
+                               / np.abs(np.asarray(dt_p, np.float64))))
+            if not gap <= TOL[dtype]["dt"]:
+                raise CheckFailed(f"K6.compensated {entry} dt_i: relative error "
+                                  f"{gap:.3e} > {TOL[dtype]['dt']:.0e}")
+            results["K6.compensated dt_i"] = max(
+                results.get("K6.compensated dt_i", 0.0), gap)
+    return results
+
+
+#: (model, N, periodic, fixed dt, adaptive) of the small carry checks: the
+#: one-CTA body (README, s = 1), a cluster (KS, s = 2, with rejected
+#: attempts in every mode) and s = 4.  The output steps are short enough
+#: that a seeded carry outlives them (a step that moves u by O(1) absorbs
+#: it); the tolerances are far enough above float32 rounding that the plain
+#: float32 runs keep their attempts when u is perturbed by an ulp (README at
+#: tol 1e-4 or below does not), so the kernel's rounding keeps them too
+COMPENSATED_CASES = [("readme", 200, False, 0.5, (0.2, 1e-6, 1e-3)),
+                     ("ks", 256, True, 0.05, (0.1, 1e-6, 1e-3)),
+                     ("two_var", 600, True, 0.02, None)]
+
+
+def check_all_compensated(device, dtype, results=None, B=BATCH):
+    """``check_compensated`` at ``COMPENSATED_CASES``, one grid and B
+    members (the adaptive case per member too)."""
+    from ..core.model import Model
+
+    results = {} if results is None else results
+    for name, N, periodic, dt, adaptive in COMPENSATED_CASES:
+        model = Model(*MEGA_MODELS[name], double=dtype == torch.float64,
+                      device=device)
+        for members in (1, B):
+            check_compensated(model, N, periodic, dt, device, results, adaptive,
+                              members)
+    return results
+
+
+def check_mixed_members(W, nvar, N, periodic, device, results=None, B=BATCH,
+                        passes=1, seed=0):
+    """The mixed solve of B members with their own coef
+    (``mixed.MixedFactorization`` on float64 bands ((B,) W, nvar, nvar, N):
+    K2 and K4 in float32 with each member's shift, K3 and K4's solves in
+    float32, K8 per pass) against its plain version on the same plan
+    (``megastep._plain_solver``'s mixed solve, ``mixed solve members``) and
+    each member against its one-grid factorization (``mixed solve members
+    alone``), to the float64 solve tolerance of max|k|."""
+    results = {} if results is None else results
+    tol = TOL[torch.float64]["solve"]
+    bands = torch.stack([random_bands(W, nvar, N, torch.float64, device, seed=seed + b)
+                         for b in range(B)])
+    rng = np.random.default_rng(seed)
+    rhs = torch.tensor(rng.standard_normal((B, nvar, N)), dtype=torch.float64,
+                       device=device)
+    coef = torch.tensor(0.1 + 0.05 * np.arange(B), dtype=torch.float64, device=device)
+    plan = chunked.make_plan(N, nvar, W // 2, periodic, B)
+    if plan.padded or plan.ring:
+        raise ValueError(f"mixed members: N = {N} takes a padded plan")
+    what = f"W={W} nvar={nvar} N={N} B={B} C={plan.C} periodic={periodic}"
+    got = mixed.MixedFactorization(bands, coef, periodic, plan, passes).solve(rhs)
+    want = megastep._plain_solver(bands, -coef, plan, periodic, passes)(rhs)
+    _record(results, "mixed solve members", got, want, tol, what)
+    one = chunked.make_plan(N, nvar, W // 2, periodic)
+    for b in range(B):
+        alone = mixed.MixedFactorization(bands[b], float(coef[b]), periodic, one,
+                                         passes).solve(rhs[b])
+        _record(results, "mixed solve members alone", got[b], alone, tol,
+                f"member {b} {what}")
+    return results
+
+
+#: (W, nvar, N, periodic) of the member-axis mixed solve checks: the KS
+#: ensemble's block (s = 2) on a block-cyclic and a Woodbury ring, and s = 4
+MIXED_MEMBER_CASES = [(5, 1, 8192, True), (5, 1, 10000, True), (3, 2, 1200, False)]
+
+
+def check_all_mixed_members(device, results=None):
+    """``check_mixed_members`` at ``MIXED_MEMBER_CASES``."""
+    results = {} if results is None else results
+    for i, (W, nvar, N, periodic) in enumerate(MIXED_MEMBER_CASES):
+        check_mixed_members(W, nvar, N, periodic, device, results, seed=i)
+    return results

@@ -32,6 +32,21 @@ float32 on J's bands rounded to float32; each of the ``passes`` residual
 passes per stage is K8's body against the float64 bands.  Its own gate,
 ``mixed_plan_for`` (``MIXED_MAX_N``), decides where it serves.
 
+The step and adaptive entries take an optional **Kahan carry** (``carry``: a
+tensor of u's shape, written in place), the reference's
+``compensated=True``: every accepted state is then the Kahan update
+(``ops.compensated.kahan_update``) of the state before it by the step's
+result.  The step entry carries it in and out across its steps, as the
+reference's fixed scans do.  The adaptive entries start their first output
+step from the carry as given (every caller passes zeros, as the reference's
+steppers start from zero; a check seeds it) and every later output step
+from zero, and leave the last output step's carry in the tensor.  A
+launch with a carry counts as
+``K6.compensated`` instead of its entry's counter.  The carry lives in
+global memory beside the member's accepted states, not in the cluster's
+shared memory, so ``cluster_plan`` and ``fits`` place every grid as they
+place it without one.  The plain versions take the same carry.
+
 Every entry takes a leading member axis (an ensemble's B grids, u
 ``(B, nvar, N)``): one cluster per member, as many clusters as the card
 holds at once, each looping over its share of the members.  With a shared
@@ -66,6 +81,7 @@ import torch
 
 from . import chunked, combine, mixed, pcr, stencil, thomas
 from ._launch import Counter, check_cuda, check_shapes, stream_of, suffix
+from .compensated import kahan_update
 from .thomas import members
 
 #: launches of the fixed-step entry (1 or nsteps steps) and of the adaptive
@@ -80,6 +96,9 @@ SCAN_LAUNCHES = Counter("K6.adaptive_scan")
 SNAP_LAUNCHES = Counter("K6.adaptive_snapshots")
 #: launches of the mixed entry (1 or nsteps mixed-precision steps)
 MIXED_LAUNCHES = Counter("K6.step_mixed")
+#: launches of the step and adaptive entries with a Kahan carry (each
+#: counted here instead of under its entry's name)
+COMPENSATED_LAUNCHES = Counter("K6.compensated")
 
 #: stages of the widest table (RODASPR); kMaxStages in csrc/megastep.cu
 MAX_STAGES = 6
@@ -296,7 +315,10 @@ def _plain_solver(bands, beta, plan, periodic, passes):
     float32 solve of the rounded rhs, then per pass the residual (K8's
     plain version) solved and added, widened."""
     fbands = bands if passes is None else bands.float()
-    fact = thomas.spike_factor_plain(fbands, 1.0, beta, plan)
+    # a member's shift rounds to float32 as the factor takes it
+    fbeta = (beta.float() if passes is not None and isinstance(beta, torch.Tensor)
+             else beta)
+    fact = thomas.spike_factor_plain(fbands, 1.0, fbeta, plan)
     red = pcr.pcr_factor_plain(fact.Lred, fact.Ured, plan.cyclic)
     wood = (pcr.woodbury_plain(red, fact.Lred, fact.Ured) if plan.woodbury
             else ())
@@ -342,12 +364,17 @@ def step_plain(backend, plan, table: Table, periodic, u, helpers, pstack, x,
 
 
 def scan_plain(backend, plan, table, periodic, u, helpers, pstack, x, beta,
-               scale, nsteps, passes=None, snap=None):
+               scale, nsteps, passes=None, snap=None, carry=None):
     """``nsteps`` plain steps; with ``snap`` (nsteps, nvar, N) step k's
-    state is also written into ``snap[k]``."""
+    state is also written into ``snap[k]``; with ``carry`` (u's shape,
+    updated in place) each step's state is the Kahan update of the last."""
     for k in range(nsteps):
-        u = step_plain(backend, plan, table, periodic, u, helpers, pstack, x,
-                       beta, scale, passes)[0]
+        u2 = step_plain(backend, plan, table, periodic, u, helpers, pstack, x,
+                        beta, scale, passes)[0]
+        if carry is not None:
+            u2, c2 = kahan_update(u, carry, u2)
+            carry.copy_(c2)
+        u = u2
         if snap is not None:
             snap[k] = u
     return u
@@ -364,47 +391,57 @@ def gdt_of(T, g00, dt, device):
 
 def adaptive_plain(controller, backend, plan, table, periodic, u, helpers,
                    pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                   dt_min, per_member=False):
+                   dt_min, per_member=False, carry=None, step_fn=None):
     """One adaptive output step (clamp and recompute) of plain steps,
     decided by ``controller``: the scheme's
     ``core.rosenbrock.adaptive_controller`` (a shared dt: with a member
     axis err is the max over the members), or with ``per_member``
     ``core.rosenbrock.member_controller`` (each member's own clock and
     dt).  K6's adaptive entries run the same arithmetic.  Returns (u,
-    dt_i, niter, status), dt_i and niter per member with ``per_member``."""
+    dt_i, niter, status), dt_i and niter per member with ``per_member``;
+    ``carry`` goes to the controller (Kahan updates where it accepts).
+    ``step_fn`` runs each attempt (``step``'s arguments to ``scale``;
+    ``step_plain`` by default): with K6's ``step`` entry on CUDA tensors
+    it replays the adaptive entries' decisions on the card."""
     T = _np_type(u)
+    step_fn = step_plain if step_fn is None else step_fn
 
     def attempt(_t, state, dt_eff):
         gdt = gdt_of(T, table.g00, dt_eff, u.device)
-        u2, err = step_plain(backend, plan, table, periodic, state[0], helpers,
-                             pstack, x, -gdt, gdt)
+        u2, err = step_fn(backend, plan, table, periodic, state[0], helpers,
+                          pstack, x, -gdt, gdt)
         if per_member:
             return (u2,), err.cpu().numpy().astype(T)
         return (u2,), T(err.max().item())
 
     _, (u2,), dt_i, niter, status = controller(
         attempt, T, t, dt, internal_dt, tol, safety, max_iter, dt_min, False,
-        (u,))
+        (u,), carry=carry)
     return u2, dt_i, niter, status
 
 
 def adaptive_scan_plain(controller, backend, plan, table, periodic, u,
                         helpers, pstack, x, t, dt, internal_dt, tol, safety,
                         max_iter, dt_min, nsteps, per_member=False,
-                        snap=None):
+                        snap=None, carry=None, step_fn=None):
     """``nsteps`` output steps of ``adaptive_plain``, each from the last
     one's output time, stopping after the first with a nonzero status:
     (u, steps_done, dt_i, status, attempts), dt_i and the attempts summed
     over the steps per member with ``per_member``.  With ``snap`` (one
     grid: a pair of an (nsteps, nvar, N) tensor and an (nsteps, 4) float64
     array) output step k writes its state into ``snap[0][k]`` and its (t_i,
-    dt_i, attempts, status) into ``snap[1][k]``, as the kernel does."""
+    dt_i, attempts, status) into ``snap[1][k]``, as the kernel does.  A
+    ``carry``: the first output step starts from it, every later one from
+    zero, as in the kernel; ``step_fn`` as ``adaptive_plain``'s."""
     T = _np_type(u)
     t_, dt_i, done, status, total = T(t), internal_dt, 0, 0, 0
     while done < nsteps and status == 0:
+        if carry is not None and done:
+            carry.zero_()
         u, dt_i, niter, st = adaptive_plain(
             controller, backend, plan, table, periodic, u, helpers, pstack, x,
-            t_, dt, dt_i, tol, safety, max_iter, dt_min, per_member)
+            t_, dt, dt_i, tol, safety, max_iter, dt_min, per_member, carry,
+            step_fn)
         t_ = t_ + T(dt)
         if snap is not None:
             snap[0][done] = u
@@ -727,14 +764,16 @@ def _ptr(t):
 def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
             pstack, x, reals, nsteps=1, max_iter=None, dt_min=None,
             kind=STEP_KIND, beta_b=None, scale_b=None, idt_b=None,
-            cluster=None, snap=None, snap_info=None):
+            cluster=None, snap=None, snap_info=None, carry=None):
     """Check the inputs, allocate the outputs, the states and the CTAs'
     global slabs, launch one K6 entry on the cluster plan (``cluster``, or
     ``cluster_plan``'s); returns (u_out, info (B, INFO) float64 on the
     device).  ``snap`` (one grid: (nsteps, nvar, N) of u's dtype) takes
     every step's or output step's state, ``snap_info`` ((nsteps,
     SNAP_INFO) float64, the adaptive scan's) each output step's (t_i, dt_i,
-    attempts, status); the step entry then leaves u_out unwritten."""
+    attempts, status); the step entry then leaves u_out unwritten.
+    ``carry`` (u's shape and dtype) is the Kahan carry, read and written in
+    place; the launch then counts as ``K6.compensated``."""
     what = f"K6 {entry}"
     sysm = backend.system
     check_plan(plan, sysm, what)
@@ -754,6 +793,9 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
         check_cuda((snap,), backend.dtype, what, (nsteps, sysm.nvar, N))
     if snap_info is not None:
         check_cuda((snap_info,), torch.float64, what, (nsteps, SNAP_INFO))
+    if carry is not None:
+        check_cuda((carry,), backend.dtype, what, tuple(u.shape))
+        counter = COMPENSATED_LAUNCHES
     if not 1 <= len(table.stages) <= MAX_STAGES:
         raise NotImplementedError(f"{what}: {len(table.stages)} stages; the "
                                   f"kernel takes 1 to {MAX_STAGES}")
@@ -774,11 +816,12 @@ def _launch(entry, counter, backend, plan, table, periodic, u, helpers,
         errs = torch.empty(2 * ncl * cluster.K, dtype=u.dtype,
                            device=u.device)
     item = u.element_size()
-    ptrs = (ctypes.c_uint64 * 16)(
+    ptrs = (ctypes.c_uint64 * 17)(
         u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
         info.data_ptr(), out.data_ptr(), gwork.data_ptr(), states.data_ptr(),
         states.data_ptr() + B * n * item, _ptr(beta_b), _ptr(scale_b),
-        _ptr(idt_b), _ptr(sync), _ptr(errs), _ptr(snap), _ptr(snap_info))
+        _ptr(idt_b), _ptr(sync), _ptr(errs), _ptr(snap), _ptr(snap_info),
+        _ptr(carry))
     prep.reals[:9] = reals
     lib = backend.megastep
     args = (ctypes.addressof(ptrs), ctypes.addressof(prep.ints),
@@ -813,7 +856,7 @@ def _member_arg(v):
 
 
 def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
-         nsteps=1, cluster=None, snap=None):
+         nsteps=1, cluster=None, snap=None, carry=None):
     """``nsteps`` steps of the table with factor shift ``beta`` and F scale
     ``scale`` (values of the model's dtype, or per-member (B,) tensors for
     u ``(B, nvar, N)``): returns (u_new, err), err of the last step (a 0-d
@@ -821,13 +864,15 @@ def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
     not finite).  With ``snap`` (one grid, (nsteps, nvar, N)) step k's
     state is written into ``snap[k]`` and u_new is ``snap[-1]``.  CPU
     tensors take the plain version; CUDA tensors launch K6's step entry
-    once, on ``cluster`` (a ``ClusterPlan``) or ``cluster_plan``'s."""
+    once, on ``cluster`` (a ``ClusterPlan``) or ``cluster_plan``'s.
+    ``carry`` (u's shape, updated in place): each step's state is the Kahan
+    update of the last (module doc)."""
     if u.device.type == "cpu":
-        if nsteps == 1 and snap is None:
+        if nsteps == 1 and snap is None and carry is None:
             return step_plain(backend, plan, table, periodic, u, helpers,
                               pstack, x, beta, scale)
         u2 = scan_plain(backend, plan, table, periodic, u, helpers, pstack, x,
-                        beta, scale, nsteps, snap=snap)
+                        beta, scale, nsteps, snap=snap, carry=carry)
         return u2, torch.full(u.shape[:-2], np.inf, dtype=u.dtype)
     if nsteps < 1:
         raise ValueError(f"K6 step: nsteps = {nsteps} < 1")
@@ -837,20 +882,21 @@ def step(backend, plan, table, periodic, u, helpers, pstack, x, beta, scale,
                         u, helpers, pstack, x,
                         _reals(beta=beta_v, scale=scale_v),
                         nsteps=int(nsteps), beta_b=beta_b, scale_b=scale_b,
-                        cluster=cluster, snap=snap)
+                        cluster=cluster, snap=snap, carry=carry)
     if snap is not None:
         out = snap[-1]
     return out, (info[:, 0] if u.ndim == 3 else info[0, 0])
 
 
 def row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-             nsteps=1, snap=None):
+             nsteps=1, snap=None, carry=None):
     """``nsteps`` ROW steps of ``dt`` -> (u_new, err): the factor shift is
     ``-g00*dt`` and the F scale ``g00*dt``, rounded as the model's dtype
-    multiplies them; ``dt`` may be a per-member array."""
+    multiplies them; ``dt`` may be a per-member array; ``carry`` as
+    ``step``'s."""
     gdt = gdt_of(_np_type(u), table.g00, dt, u.device)
     return step(backend, plan, table, periodic, u, helpers, pstack, x, -gdt,
-                gdt, nsteps, snap=snap)
+                gdt, nsteps, snap=snap, carry=carry)
 
 
 def theta_step(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
@@ -862,12 +908,13 @@ def theta_step(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
 
 
 def row_scan(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-             nsteps, snap=None):
+             nsteps, snap=None, carry=None):
     """``nsteps`` fixed ROW steps in one launch -> u (no controller reads
     err, so the table should carry no error row); with ``snap`` (one grid,
-    (nsteps, nvar, N)) every step's state in its slot."""
+    (nsteps, nvar, N)) every step's state in its slot; ``carry`` as
+    ``step``'s."""
     return row_step(backend, plan, table, periodic, u, helpers, pstack, x, dt,
-                    nsteps, snap)[0]
+                    nsteps, snap, carry)[0]
 
 
 def theta_scan(backend, plan, theta, periodic, u, helpers, pstack, x, dt,
@@ -952,14 +999,14 @@ def theta_step_mixed(backend, plan, theta, periodic, u, helpers, pstack, x,
 
 def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                      t, dt, internal_dt, tol, safety, max_iter, dt_min, nsteps,
-                     per_member, cluster=None, snap=None):
+                     per_member, cluster=None, snap=None, carry=None):
     """One launch of the adaptive entry; (u, info rows on the host, and
     with ``snap`` (one grid's (states, info) on the device) the snapshots'
     info rows on the host).  One output step of one grid with a shared dt
     and no snapshots is counted as K6.adaptive (the library runs
     adaptive_kernel on a cluster, scan_kernel on one CTA), the scan with
     snapshots as K6.adaptive_snapshots, anything else as K6.adaptive_scan
-    (scan_kernel)."""
+    (scan_kernel); with a ``carry``, as K6.compensated."""
     B, _ = members(u, 2)
     scan = per_member or B > 1 or nsteps > 1 or snap is not None
     entry = "adaptive_scan" if scan else "adaptive"
@@ -981,7 +1028,7 @@ def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
                safety=float(safety), dt_min=dt_min),
         nsteps=nsteps, max_iter=max_iter, dt_min=dt_min,
         kind=MEMBER_KIND if per_member else SHARED_KIND, idt_b=idt_b,
-        cluster=cluster, snap=states, snap_info=snap_info)
+        cluster=cluster, snap=states, snap_info=snap_info, carry=carry)
     if snap is None:
         return out, info.cpu().numpy()
     # one read-back of both
@@ -992,7 +1039,7 @@ def _adaptive_launch(backend, plan, table, periodic, u, helpers, pstack, x,
 
 def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
                       pstack, x, t, dt, internal_dt, tol, safety, max_iter,
-                      dt_min, per_member=False, cluster=None):
+                      dt_min, per_member=False, cluster=None, carry=None):
     """One adaptive output step from ``t`` to ``t + dt`` (clamp and
     recompute): returns (u, dt_i, niter, status) with dt_i a scalar of the
     model's dtype, or with ``per_member`` (u of B members, each its own
@@ -1003,16 +1050,19 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
     arithmetic, once and read its results back once: one grid with a
     shared dt K6.adaptive, B > 1 members or per member K6.adaptive_scan
     (``_adaptive_launch``); ``cluster`` (a
-    ``ClusterPlan``) overrides ``cluster_plan``'s."""
+    ``ClusterPlan``) overrides ``cluster_plan``'s.  ``carry`` (u's shape,
+    updated in place): every accepted state is the Kahan update of the
+    last (module doc)."""
     if len(table.final) != 2:
         raise ValueError("K6 adaptive: the table has no error row")
     if u.device.type == "cpu":
         return adaptive_plain(controller, backend, plan, table, periodic, u,
                               helpers, pstack, x, t, dt, internal_dt, tol,
-                              safety, max_iter, dt_min, per_member)
+                              safety, max_iter, dt_min, per_member, carry)
     out, info = _adaptive_launch(backend, plan, table, periodic, u, helpers,
                                  pstack, x, t, dt, internal_dt, tol, safety,
-                                 max_iter, dt_min, 1, per_member, cluster)
+                                 max_iter, dt_min, 1, per_member, cluster,
+                                 carry=carry)
     T = _np_type(u)
     if per_member:
         return (out, info[:, 1].astype(T), info[:, 2].astype(np.int64),
@@ -1023,7 +1073,7 @@ def row_adaptive_step(controller, backend, plan, table, periodic, u, helpers,
 def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
                   pstack, x, t, dt, internal_dt, tol, safety, max_iter,
                   dt_min, nsteps, per_member=False, attempts=False,
-                  cluster=None, snapshots=False):
+                  cluster=None, snapshots=False, carry=None):
     """``nsteps`` adaptive output steps of ``dt`` from ``t`` in one launch
     (the reference's ``row_adaptive_scan_folded``): every output step
     re-clamps its starting dt to ``dt``, and the loop stops after the first
@@ -1045,7 +1095,9 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
     output step's (t_i, dt_i, attempts, status); the steps after the first
     with a nonzero status are not written.  On the card that is scan_kernel
     with a snapshot buffer (K6.adaptive_snapshots), whose final state is
-    the one it returns without snapshots."""
+    the one it returns without snapshots.  ``carry`` (u's shape, updated
+    in place): the first output step starts from it, every later one from
+    zero (module doc)."""
     if nsteps < 1:
         raise ValueError(f"K6 adaptive_scan: nsteps = {nsteps} < 1")
     if snapshots and (per_member or u.ndim != 2):
@@ -1063,13 +1115,14 @@ def adaptive_scan(controller, backend, plan, table, periodic, u, helpers,
                                   u, helpers, pstack, x, t, dt, internal_dt,
                                   tol, safety, max_iter, dt_min, nsteps,
                                   per_member,
-                                  None if snap is None else (snap[0], rows))
+                                  None if snap is None else (snap[0], rows),
+                                  carry)
         out = out if per_member or attempts else out[:4]
         return out if snap is None else out + ((snap[0], rows),)
     launched = _adaptive_launch(backend, plan, table, periodic, u, helpers,
                                 pstack, x, t, dt, internal_dt, tol, safety,
                                 max_iter, dt_min, int(nsteps), per_member,
-                                cluster, snap)
+                                cluster, snap, carry)
     u2, info = launched[:2]
     T = _np_type(u)
     if per_member:

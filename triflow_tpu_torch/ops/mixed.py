@@ -75,17 +75,23 @@ def mixed_residual(bands, k, rhs, coef, periodic):
 
 
 class MixedFactorization:
-    """``(I - coef J)^-1`` of one grid (``coef`` a number) by a float32
-    factor and ``passes`` residual passes against the float64 bands
-    (module doc); ``solve`` has the signature of
-    ``chunked.ChunkedFactorization.solve``."""
+    """``(I - coef J)^-1`` by a float32 factor and ``passes`` residual
+    passes against the float64 bands (module doc), of one grid (bands (W,
+    nvar, nvar, N), ``coef`` a number) or of B members (bands (B, W, nvar,
+    nvar, N), ``coef`` a number or a (B,) float64 tensor: an ensemble's
+    per-member dt); ``solve`` has the signature of
+    ``chunked.ChunkedFactorization.solve``.  The members' float32 factor
+    takes each member's shift rounded to float32 (K2 and K4 with a member
+    axis, as ``chunked.factor`` takes an ensemble's), and K8 each member's
+    float64 coef."""
 
     def __init__(self, bands, coef, periodic, plan, passes):
         self.bands = bands
         self.coef = coef
         self.periodic = periodic
         self.passes = int(passes)
-        self.fact32 = chunked.factor(1.0, -coef, bands.float(), periodic, plan)
+        shift = -coef.float() if isinstance(coef, torch.Tensor) else -coef
+        self.fact32 = chunked.factor(1.0, shift, bands.float(), periodic, plan)
 
     def solve(self, rhs, add_to=None):
         """``add_to + k`` (or ``k``) for the float64 solution k of the

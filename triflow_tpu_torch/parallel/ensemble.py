@@ -14,19 +14,56 @@ member count (``ops.chunked.Plan.B``).
 Routes (``route``):
 
 * ``"K6"``: a grid K6 admits (``ops.megastep.plan_for``), no hook, for
-  an adaptive scheme ``recompute_target=True``, and no ``refine=`` (the
-  scheme's ``_mega_plan`` gate).  ``steps(n, dt)`` is ONE
+  an adaptive scheme ``recompute_target=True`` and not the df64 mode, and
+  no ``refine=``, custom ``solver=`` or df64 mixed solve (the scheme's
+  ``_mega_plan`` gate).  ``steps(n, dt)`` is ONE
   launch: K6's step entry for a fixed scheme, its ``adaptive_scan`` entry
   for an adaptive ROW scheme (a shared dt, or each member's own with
   ``per_member_dt``); ``step(dt)`` is one launch of the step or adaptive
   entry.
 * ``"host"``: otherwise.  Every output step runs on the host: the scheme's
   ``fixed_step_batched`` (K1-K5 with a member axis, with ``refine=`` also
-  K7 with each member's g00*dt as its scale, or one K6 launch where K6's
-  plan admits the grid), under the shared-dt controller
+  K7 with each member's g00*dt as its scale, with the df64 mixed solve K2-K4
+  in float32 and K8, or one K6 launch where K6's plan admits the grid),
+  under the shared-dt controller
   (``core.rosenbrock.adaptive_controller`` on the max member error, one
   scalar read per attempt) or the per-member one
   (``core.rosenbrock.member_controller``, one (B,) read per attempt).
+
+**df64 models** (``Model(double="df64")``) step as one grid of the mode
+steps: a native float64 state (``stack_parameters`` stacks float64, the
+model's dtype), every step size the float32 value of the scheme's
+``_step_dt`` (the output dt is rounded once, as the reference's ensemble
+rounds it), the output clock advanced in float64 by the scheme's
+``_advance`` (so it equals the single grid's bit for bit), and the
+controllers deciding in float32 on float64 clocks (``clock=``: the
+reference's compensated (hi, lo) member clocks), on the host route.  The
+full solver (``df64_mixed_solve`` None or 0) takes the routes of a float64
+ensemble: K6 for fixed steps where its plan admits the grid, else K1-K5;
+``df64_mixed_solve=n`` takes the host route, each stage solve the
+member-axis mixed solve (``ops.mixed.MixedFactorization``: K2-K4 in
+float32 with each member's shift, n K8 passes).  The reference folds a
+df64 ensemble into one chunk system and runs ``df64_mixed_solve or 2``
+residual passes there (its ``_build_merged_df``), so with 0 it runs 2
+mixed passes where the port runs the full float64 solve, the single
+grid's route; both land within the 1e-12 of the single-grid run that the
+reference's tests ask of it.  K6's mixed entry has no member axis, and the
+reference gives df64 ensembles no single-launch kernel either.
+
+``compensated=True`` (ROW schemes), on both routes as in the reference's
+vmapped paths: the adaptive controllers fold each member's accepted
+attempts into a Kahan carry that starts at zero in each output step (per
+member where it accepts; no carry runs across output steps, as the
+reference's ensemble scan takes none for an adaptive scheme), and fixed
+``steps(n)`` folds its n steps into one carry (a single ``step`` takes
+none).  On the K6 route the kernel does both (``ops.megastep``'s module
+doc), so the two routes agree bit for bit where they step by the same
+kernel.
+
+``Theta(solver=f)``: the reference vmaps the scheme, so its solver sees one
+member's bands; here the solver is called once per member with that
+member's ``(W, nvar, nvar, N)`` bands and right-hand side (``Theta``'s
+doc), on the host route.
 
 A shared dt controls every member by the max error over the members, so
 every member meets the tolerance; ``per_member_dt`` gives each member its
@@ -37,9 +74,7 @@ Python calls and one stack per application, so a hooked ensemble is
 host-bound at small N.
 
 Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9),
-df64 models (A8b), Theta with a custom ``solver=`` (A12: what a user's
-solver gets per member is not defined in the port), containers and
-checkpoints (A10).
+containers and checkpoints (A10).
 """
 
 from __future__ import annotations
@@ -53,13 +88,15 @@ from ..core import rosenbrock
 from ..core import schemes as schemes_mod
 from ..core.schemes import null_hook
 from ..ops import megastep
+from ..ops.compensated import kahan_update
 from ..utils.streams import Stream
 
 
 def stack_parameters(model, parameter_sets, N):
     """Stack a list of parameter dicts (numbers, or (N,) arrays or
     tensors) into a batched pstack of shape (B, npar, N) on the model's
-    device; numbers fill on the device."""
+    device, in its dtype (float64 for a df64 model); numbers fill on the
+    device."""
     backend = model.backend
     rows = []
     for pars in parameter_sets:
@@ -117,10 +154,6 @@ class Ensemble:
             raise NotImplementedError(
                 "Ensemble(mesh=..., space_axis=...): sharding an ensemble "
                 "over devices is not ported yet (ROADMAP A9)")
-        if getattr(model, "precision", None) == "df64":
-            raise NotImplementedError(
-                "df64 ensembles: one grid of a df64 model runs on the port, "
-                "an ensemble of them is not ported yet (ROADMAP A8b)")
         self.model = model
         backend = model.backend
         nvar = backend.system.nvar
@@ -157,10 +190,6 @@ class Ensemble:
             raise NotImplementedError(
                 f"{type(self._scheme).__name__} has no batched step in the "
                 "port (ensembles take Theta and the ROW family)")
-        if self._scheme._solver is not None:
-            raise NotImplementedError(
-                "Ensemble with Theta(solver=...): a custom solver's contract "
-                "for a member axis is not defined in the port (ROADMAP A12)")
         self._adaptive = bool(getattr(self._scheme, "_time_control", False))
         self._hook = hook
         self._per_member_dt = bool(per_member_dt) and self._adaptive
@@ -183,17 +212,23 @@ class Ensemble:
         plan = self._scheme._mega_plan(self.N, self.periodic, self.B)
         if plan is None or self._hook is not null_hook:
             return "host"
-        if self._adaptive and not self._scheme._recompute_target:
+        if self._adaptive and (not self._scheme._recompute_target
+                               or self._scheme._df64):
             return "host"
         return "K6"
 
     def _k6_steps(self, n, dt, internal_dt, scan):
-        """n output steps through K6: (t, dt_i, status, niter)."""
+        """n output steps through K6: (t, dt_i, status, niter).  A
+        compensated scheme's launch takes a Kahan carry (the kernel zeroes
+        an adaptive entry's in every output step), but for a single fixed
+        ``step``."""
         sch = self._scheme
         T = sch._np_dtype
         backend = self.model.backend
         plan = sch._mega_plan(self.N, self.periodic, self.B)
         state = (self.u, self.helpers, self.pstack, self.x)
+        carry = (torch.zeros_like(self.u) if sch._compensated
+                 and (scan or self._adaptive) else None)
         if not self._adaptive:
             if isinstance(sch, schemes_mod.Theta):
                 self.u = megastep.theta_step(backend, plan, sch._theta,
@@ -202,7 +237,7 @@ class Ensemble:
             else:
                 self.u = megastep.row_step(backend, plan, sch._table(False),
                                            self.periodic, *state, T(dt),
-                                           nsteps=n)[0]
+                                           nsteps=n, carry=carry)[0]
             return self._advanced(n, dt), internal_dt, 0, None
         per_member = self._per_member_dt
         controller = (rosenbrock.member_controller if per_member
@@ -212,32 +247,43 @@ class Ensemble:
                 sch._max_iter, sch._dt_min)
         if scan:
             out = megastep.adaptive_scan(*args, n, per_member=per_member,
-                                         attempts=True)
+                                         attempts=True, carry=carry)
             self.u, done, dt_i, status, niter = out
         else:
             self.u, dt_i, niter, status = megastep.row_adaptive_step(
-                *args, per_member=per_member)
+                *args, per_member=per_member, carry=carry)
             done = 1
         return self._advanced(done, dt), dt_i, status, niter
 
     def _advanced(self, n, dt):
-        """The clock after n output steps of dt, added in the model's
-        dtype as the steppers add it."""
-        T = self._scheme._np_dtype
-        t = T(self.t)
+        """The clock after n output steps of dt, added as the scheme's
+        steppers add it (``_SchemeBase._advance``: in the model's dtype, or
+        in float64 in the df64 mode)."""
+        t = self.t
         for _ in range(n):
-            t = t + T(dt)
+            t = self._scheme._advance(t, dt)
         return float(t)
 
-    def _host_step(self, dt, internal_dt):
-        """One output step on the host: (t, dt_i, status, niter)."""
+    def _host_step(self, dt, internal_dt, carry=None):
+        """One output step on the host: (t, dt_i, status, niter).  The
+        controllers decide in the scheme's step-size type on its clock
+        (the df64 mode's float32 on float64); a compensated adaptive
+        scheme's controller takes a zero Kahan carry, and ``carry`` (fixed
+        steps: the carry of a ``steps`` call) folds the step into it."""
         sch, problem = self._scheme, self._problem
-        T = sch._np_dtype
+        T, clock = sch._dt_type, sch._clock
         state = (self.u, self.helpers, self.pstack)
+        step_carry = (torch.zeros_like(self.u)
+                      if sch._compensated and self._adaptive else None)
+        u_prev = self.u
+        if carry is not None and self._hook is not null_hook:
+            # the hook may update the state in place
+            u_prev = self.u.clone()
         if not self._adaptive:
             u2, h2, p2, _, _ = sch.fixed_step_batched(
-                problem, self.t, *state, self.x, T(dt))
-            next_t, dt_i, status, niter = T(self.t) + T(dt), internal_dt, 0, None
+                problem, self.t, *state, self.x, sch._fixed_dt(dt))
+            next_t, dt_i, status, niter = (sch._advance(self.t, dt),
+                                           internal_dt, 0, None)
         elif self._per_member_dt:
             def attempt(tb, state_, dt_eff):
                 u2, h2, p2, _, errs = sch.fixed_step_batched(
@@ -248,7 +294,7 @@ class Ensemble:
                 rosenbrock.member_controller(
                     attempt, T, self.t, dt, internal_dt, sch._tol,
                     sch._safety_factor, sch._max_iter, sch._dt_min,
-                    not sch._recompute_target, state)
+                    not sch._recompute_target, state, clock, step_carry)
         else:
             def attempt(t_, state_, dt_eff):
                 u2, h2, p2, _, errs = sch.fixed_step_batched(
@@ -259,14 +305,21 @@ class Ensemble:
                 rosenbrock.adaptive_controller(
                     attempt, T, self.t, dt, internal_dt, sch._tol,
                     sch._safety_factor, sch._max_iter, sch._dt_min,
-                    not sch._recompute_target, state)
+                    not sch._recompute_target, state, clock, step_carry)
         # the output-time hook, as the reference's steppers end every
         # output step
-        self.u, self.helpers, self.pstack, _ = problem.apply_hook_members(
+        u2, self.helpers, self.pstack, _ = problem.apply_hook_members(
             float(next_t), u2, h2, p2, self.x)
+        if carry is not None:
+            u2, c2 = kahan_update(u_prev, carry, u2)
+            carry.copy_(c2)
+        self.u = u2
         return float(next_t), dt_i, status, niter
 
     def _advance(self, n, dt, scan):
+        # the df64 mode steps by the float32 value of dt, and its clock
+        # adds that value
+        dt = self._scheme._step_dt(dt)
         internal_dt = self._internal_dt
         if internal_dt is None:
             internal_dt = schemes_mod._seed_internal_dt(self._scheme, dt)
@@ -276,8 +329,10 @@ class Ensemble:
         else:
             total, status = None, 0
             t, dt_i = self.t, internal_dt
+            carry = (torch.zeros_like(self.u) if self._scheme._compensated
+                     and scan and not self._adaptive else None)
             for _ in range(n):
-                t, dt_i, status, niter = self._host_step(dt, dt_i)
+                t, dt_i, status, niter = self._host_step(dt, dt_i, carry)
                 self.t = t
                 total = niter if total is None else total + niter
                 if status:
