@@ -287,6 +287,24 @@ K6.compensated (the KS 2^13 first output step with the carry) against the
 same step without it, its plain version and its bound, and the README
 step entry's device µs with and without the carry.
 
+The explicit RK family runs in each phase too: phase 0 builds the wave
+model's K1 (example 05: ``["c**2 * dxxu", "v"]``, ``["v", "u"]``);
+``phase1_erk`` holds K5 with RK4's, BS32's and DOPRI5's rows (dt columns,
+dts not exact in float32, a member axis and one dt per member: the
+members body, ``K5.combine_members``) bit for bit against its plain
+version; ``phase2_erk`` runs the wave model at N = 10^6 (DOPRI5's FSAL
+and generic loops, BS32, RK4 stepwise and through ``device_steps``' graph
+route) with exact K1.F / K5 launches per attempt against the port's CPU
+f64 run over the first output step (``erk_cpu_runs``; output steps of
+``ERK_DT``, under the stability limit), B = 64 wave members at N = 10^4
+with per-member dt against their single-grid runs bit for bit, scipy_ode
+(vode, vode/BDF with the Jacobian) on the README model against the CPU,
+and a Simulation with a container and a checkpoint; ``phase3_erk`` times
+a DOPRI5 attempt at 10^6 against its bytes bound, K1.F and K5 under the
+profiler, K5's dt entry and members body against plain, bound and one
+PyTorch call, RK4 stepwise against the graph route, and one
+stability-limited output step.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -299,6 +317,7 @@ null float32 keys), the card's ``nvidia-smi`` name and power limit, and
 
 import contextlib
 import functools
+import importlib.util
 import json
 import itertools
 import multiprocessing
@@ -373,6 +392,11 @@ KERNELS = {
                              "(vmapped over members)"),
     "K5.combine": ("cuda", "triflow_tpu_torch/csrc/combine.cu",
                    "triflow_tpu/ops/folded.py:543 combine_folded"),
+    # the explicit RK family's stage sums of ensemble members that step by
+    # their own dt (combine_members_kernel)
+    "K5.combine_members": ("cuda", "triflow_tpu_torch/csrc/combine.cu",
+                           "triflow_tpu/ops/folded.py:543 combine_folded (members with "
+                           "their own dt)"),
     "K6.step": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
                 "triflow_tpu/ops/megastep.py:1491 _launch"),
     "K6.adaptive": ("cuda", "triflow_tpu_torch/csrc/megastep.cu",
@@ -427,7 +451,8 @@ DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9")) and k not in WIDE
                 and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual",
-                              "K4.pcr_factor_members", "K4.pcr_solve_members")]
+                              "K4.pcr_factor_members", "K4.pcr_solve_members",
+                              "K5.combine_members")]
 THETA_KERNELS = [k for k in MULTI_LAUNCH if k != "K5.combine"]
 WOOD = ["K4.pcr_solve"]
 K7 = ["K7.matvec"]
@@ -440,6 +465,7 @@ TRACE_NAMES = {"stencil_F_terms": "K1.F_terms", "stencil_F": "K1.F", "stencil_J"
                "pcr_factor": "K4.pcr_factor", "pcr_solve_shift": "K4.pcr_solve_shift",
                "pcr_solve_cols_cluster": "K4.pcr_solve", "woodbury_cap": "K4.pcr_solve",
                "pcr_solve_kernel": "K4.pcr_solve_members",
+               "combine_members_kernel": "K5.combine_members",
                "combine_kernel": "K5.combine", "combine_vec_kernel": "K5.combine",
                "step_mixed_kernel": "K6.step_mixed",
                "step_kernel": "K6.step", "mixed_residual": "K8.residual",
@@ -900,8 +926,10 @@ def phase0():
     jobs = [job for lib in (thomas.FACTOR_LIB, thomas.SOLVE_LIB, pcr.LIB, combine.LIB,
                             matvec.LIB, mixed.LIB, thomas.FACTOR_WIDE_LIB,
                             thomas.SOLVE_WIDE_LIB, pcr.WIDE_LIB) for job in lib.builds()]
-    # the falling film's K1 (S = 6), both dtypes
-    jobs += [Model(*FILM, double=d).backend.stencil.load for d in (True, False)]
+    # the falling film's K1 (S = 6) and the wave model's (the explicit RK
+    # family's cases), both dtypes
+    jobs += [Model(*eqs, double=d).backend.stencil.load for eqs in (FILM, WAVE)
+             for d in (True, False)]
     jobs += [b.stencil.load for b in models] + [b.megastep.load for b in models]
     jobs += [b.megastep_mixed.load for b in models[::2]]
     # K9 for Burgers (s = 1) and KS (s = 2), both dtypes
@@ -1579,12 +1607,13 @@ _CPU = {}
 
 
 def start_cpu_refs():
-    """Start the CPU f64 runs, in three processes of their own: phase 2's
-    cases (``cpu_reference_runs``), the falling film's (``film_cpu_runs``)
-    and the padded grids' (``padded_cpu_runs``)."""
+    """Start the CPU f64 runs, in four processes of their own: phase 2's
+    cases (``cpu_reference_runs``), the falling film's (``film_cpu_runs``),
+    the padded grids' (``padded_cpu_runs``) and the explicit RK family's
+    (``erk_cpu_runs``)."""
     ctx = multiprocessing.get_context("spawn")
     for key, target in (("main", cpu_reference_runs), ("film", film_cpu_runs),
-                        ("padded", padded_cpu_runs)):
+                        ("padded", padded_cpu_runs), ("erk", erk_cpu_runs)):
         mine, theirs = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=target, args=(theirs,))
         proc.start()
@@ -4506,6 +4535,485 @@ def phase3_chunked(smi):
     return times
 
 
+# ------------------------------------------------- the explicit RK family
+#: example 05's wave equation as a first-order system (variables v, u)
+WAVE = (["c**2 * dxxu", "v"], ["v", "u"], ["c"])
+#: output step of the runs held to the CPU run at N = 10^6 (dx = 1e-5):
+#: below DOPRI5's explicit stability limit there (about 8e-6), so every
+#: attempt's err comes from the solution's truncation (far below tol) and
+#: the decisions are the same on the card and the CPU.  At a longer output
+#: step (ERK_LONG_DT) the adapted dt sits at the stability limit, where an
+#: attempt's err comes from rounding noise that the step amplifies, which
+#: the card (its F contracts multiply-adds) and the CPU round differently:
+#: that run is counted and timed on the card alone (phase 3).
+ERK_DT = 5e-6
+ERK_LONG_DT = 1e-3
+#: the tolerances of the adaptive ERK runs by dtype
+ERK_TOL = {torch.float64: 1e-8, torch.float32: 1e-6}
+#: (label, scheme, periodic, hook, output steps); the hook is example 05's
+#: Dirichlet walls
+ERK_CASES = [
+    ("wave N=10^6 dopri5 periodic (FSAL loop)", schemes.DOPRI5, True, False, 4),
+    ("wave N=10^6 dopri5 dirichlet (generic loop)", schemes.DOPRI5, False, True, 4),
+    ("wave N=10^6 bs32 periodic (FSAL loop)", schemes.BS32, True, False, 4),
+    ("wave N=10^6 rk4 periodic fixed", schemes.RK4, True, False, 20),
+]
+#: the ERK ensemble: B wave members at N, each with its own speed c from
+#: 0.5 to 3 (the faster members' stability limit, about 0.85 dx / c, lies
+#: below the output step ERK_LONG_DT, so their dt is their own)
+ERK_B, ERK_B_N, ERK_B_STEPS = 64, N_REF_SMALL, 4
+
+
+def wave_state(N, shift=0.0):
+    x = np.linspace(0, 10, N, endpoint=False)
+    return {"x": x, "v": np.zeros(N), "u": np.exp(-4 * (x - 5 - shift) ** 2)}
+
+
+def wave_dirichlet(t, fields, pars):
+    for key in ("v", "u"):
+        fields[key][0] = 0.0
+        fields[key][-1] = 0.0
+    return fields, pars
+
+
+def erk_f32_limit(steps):
+    """The float32 runs' limit on v against the CPU f64 run at N = 10^6
+    after ``steps`` steps of the first output step: a state rounded to
+    float32 differs from the float64 one by up to d = max|u0 -
+    float32(u0)| at a node, which excites the grid's fastest waves
+    (frequency w = 2c/dx = 2e5) with a v of amplitude w d (about 6e-3:
+    float32 cannot resolve u_xx at dx = 1e-5), whatever the scheme; the
+    initial state and each step's result are rounded so, hence (steps + 1)
+    w d.  u is held to 1e-4."""
+    u0 = wave_state(N_REF)["u"]
+    d = float(np.abs(u0 - u0.astype(np.float32)).max())
+    return (steps + 1) * (2 * 1.0 / (10 / N_REF)) * d
+
+
+def erk_scheme(cls, model, dtype):
+    if cls is schemes.RK4:
+        return cls(model)
+    return cls(model, tol=ERK_TOL[dtype])
+
+
+def erk_stage_launches(scheme):
+    """K5 launches of one step of the scheme's tableau: one per stage whose
+    input row has a nonzero coefficient, and the final one."""
+    return sum(1 for i in range(1, scheme._s) if scheme._a[i, :i].any()) + 1
+
+
+def erk_expected(scheme, attempts, fsal):
+    """Exact K1.F and K5 launches of output steps of ``attempts`` attempts
+    each (fixed steps: one per step): the FSAL loop evaluates s - 1 F per
+    attempt and one per output step, the generic loop s per attempt."""
+    s = scheme._s
+    F = sum((s - 1) * a + 1 for a in attempts) if fsal else s * sum(attempts)
+    return {"K1.F": F, "K5.combine": erk_stage_launches(scheme) * sum(attempts)}
+
+
+def erk_run(case, device, dtype, n=None):
+    """(u after the first output step, final u, attempts per output step,
+    every attempt's err, launches) of an ERK case driven through the
+    scheme's own call, the counts read over the run."""
+    label, cls, periodic, hooked, steps = case
+    n = steps if n is None else n
+    model = Model(*WAVE, double=dtype == torch.float64, device=device)
+    fields, pars = state_from_numpy(wave_state(N_REF), dict(periodic=periodic, c=1.0),
+                                    model)
+    scheme = erk_scheme(cls, model, dtype)
+    errs, stages = [], scheme._stages
+
+    def recording(*args, **kwargs):
+        out = stages(*args, **kwargs)
+        errs.append(float(out[1]))
+        return out
+
+    scheme._stages = recording
+    hook = wave_dirichlet if hooked else schemes.null_hook
+    attempts, first, t = [], None, 0.0
+    _launch.reset_counters()
+    for _ in range(n):
+        t, fields = scheme(t, fields, ERK_DT, pars, hook)
+        attempts.append(scheme._internal_iter or 1)
+        if first is None:
+            first = torch.stack([fields["v"], fields["u"]]).double().cpu()
+    counts = _launch.counts()
+    u = torch.stack([fields["v"], fields["u"]])
+    return first, u, attempts, errs, counts, scheme
+
+
+def erk_cpu_runs(conn):
+    """The port's CPU f64 runs of each ``ERK_CASES`` case over its first
+    output step, sent through ``conn``: {label: (u, attempts, s)}, or
+    ("error", traceback)."""
+    try:
+        torch.set_num_threads(2)
+        out = {}
+        for case in ERK_CASES:
+            start = time.perf_counter()
+            first, _, attempts, _, _, _ = erk_run(case, "cpu", torch.float64, 1)
+            out[case[0]] = (first.numpy(), attempts, time.perf_counter() - start)
+        conn.send(out)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def phase1_erk(errs):
+    """K5 with the explicit RK family's rows (dt columns) bit for bit its
+    plain version, f32 and f64: every stage input of RK4, BS32 and DOPRI5
+    and their final rows (DOPRI5's two over u and all 7 stages, 8 arrays),
+    at dts not exact in float32, on the wave state's shape at N = 10^6 and
+    with a member axis at the ensemble's (64 x (2, 10^4)), a scalar dt and
+    one dt per member (``combine_members_kernel``)."""
+    log("phase 1: K5 with the explicit RK family's rows against its plain version")
+    for dt_name, dtype in DTYPES.items():
+        res = kernel_checks.check_erk_combines((2, N_REF), "cuda", dtype, seed=3)
+        kernel_checks.check_erk_combines((2, ERK_B_N), "cuda", dtype, res, seed=4,
+                                         B=ERK_B)
+        kernel_checks.check_erk_combines((2, 777), "cuda", dtype, res, seed=5, B=3)
+        log(f"  ERK rows {dt_name}: bit for bit; " + json.dumps(res))
+        for name, err in res.items():
+            errs[dt_name][name] = max(errs[dt_name].get(name, 0.0), err)
+    return errs
+
+
+def erk_member_runs(dtype, members):
+    """The ERK ensemble on the card (B wave members at N, per-member dt,
+    ERK_B_STEPS output steps of ERK_LONG_DT each) and the given members
+    run alone: (ensemble, launches, attempts per step, {member: (u,
+    attempts)})."""
+    model = Model(*WAVE, double=dtype == torch.float64, device="cuda")
+    rng = np.random.default_rng(7)
+    shifts = rng.uniform(-1, 1, ERK_B)
+    cs = np.linspace(0.5, 3.0, ERK_B)
+    states = [wave_state(ERK_B_N, s) for s in shifts]
+    u0 = np.stack([np.stack([st["v"], st["u"]]) for st in states])
+    pars = [dict(periodic=True, c=float(c)) for c in cs]
+    dt = ERK_LONG_DT
+    ens = Ensemble(model, **ensemble_from_numpy(model, u0, states[0]["x"], pars),
+                   scheme=schemes.DOPRI5, tol=ERK_TOL[dtype], per_member_dt=True)
+    _launch.reset_counters()
+    per_step = []
+    for _ in range(ERK_B_STEPS):
+        ens.step(dt)
+        per_step.append(ens.member_iters.copy())
+    counts = _launch.counts()
+    alone = {}
+    for b in members:
+        scheme = erk_scheme(schemes.DOPRI5, model, dtype)
+        fields, p = state_from_numpy(states[b], pars[b], model)
+        t, att = 0.0, 0
+        for _ in range(ERK_B_STEPS):
+            t, fields = scheme(t, fields, dt, p)
+            att += scheme._internal_iter
+        alone[b] = (torch.stack([fields["v"], fields["u"]]), att)
+    return ens, counts, per_step, alone
+
+
+def erk_container_run(dtype):
+    """The wave DOPRI5 run (4 output steps of ERK_DT) through Simulation with
+    an in-memory container, checkpointed after 2 steps and resumed: (the
+    uninterrupted run, the resumed one, how the checkpoint was taken)."""
+    from triflow_tpu_torch.utils import checkpoint
+
+    model = Model(*WAVE, double=dtype == torch.float64, device="cuda")
+
+    def simulation():
+        fields, pars = state_from_numpy(wave_state(N_REF), dict(periodic=True, c=1.0),
+                                        model)
+        return Simulation(model, fields, pars, dt=ERK_DT, tmax=4 * ERK_DT,
+                          scheme=schemes.DOPRI5, tol=ERK_TOL[dtype])
+
+    full = simulation()
+    full.attach_container(None)
+    full.run(progress=False)
+    first = simulation()
+    for _ in range(2):
+        next(first)
+    if importlib.util.find_spec("h5py") is not None:
+        path = Path("build") / f"erk_checkpoint_{str(dtype)[6:]}.h5"
+        first.save_checkpoint(path)
+        resumed = Simulation.from_checkpoint(path, model, scheme=schemes.DOPRI5,
+                                             tol=ERK_TOL[dtype])
+        how = f"through {path}"
+    else:
+        attrs, fields = checkpoint.checkpoint_state(first)
+        resumed = checkpoint.simulation_from_state(attrs, fields, model,
+                                                   scheme=schemes.DOPRI5,
+                                                   tol=ERK_TOL[dtype])
+        how = ("in memory (checkpoint_state / simulation_from_state: h5py is not "
+               "installed here, so the HDF5 file itself is not written on the card)")
+    resumed.run(progress=False)
+    return full, resumed, how
+
+
+def phase2_erk(launches):
+    """The explicit RK family through the port's entry points on the card,
+    f64 and f32, each run with the counts set to 0 just before it: the wave
+    model of example 05 at N = 10^6 (DOPRI5's FSAL loop, its generic loop
+    under the Dirichlet hook, BS32, RK4 at a fixed dt under the stability
+    limit), exact K1.F and K5 launches per attempt, no other kernel, each
+    against the port's CPU f64 run over its first output step; RK4 through
+    ``device_steps`` (the graph route) bit for bit its stepwise run; B = 64
+    wave members at N = 10^4 with per-member dt (stability-limited), members
+    bit for bit their single-grid runs on the card; ``scipy_ode`` (vode, and
+    vode's BDF with the Jacobian) on the README model at N = 200 against the
+    CPU run; a Simulation with a container and a checkpoint, the resumed
+    run bit for bit the uninterrupted one."""
+    log(f"phase 2: the explicit RK family (wave N = 10^6, output steps of {ERK_DT}: "
+        "under DOPRI5's stability limit there, so every err is far below tol)")
+    launches = dict(launches)
+    refs = cpu_refs("erk")
+    for case in ERK_CASES:
+        label, cls, periodic, hooked, steps = case
+        for dt_name, dtype in DTYPES.items():
+            first, u, attempts, errs, counts, scheme = erk_run(case, "cuda", dtype)
+            fixed = cls is schemes.RK4
+            fsal = not fixed and scheme._fsal(wave_dirichlet if hooked else
+                                              schemes.null_hook)
+            want = erk_expected(scheme, attempts if not fixed else [1] * steps, fsal)
+            off = {k: counts[k] for k in KERNELS if counts[k] != want.get(k, 0)}
+            u_ref, att_ref, secs = refs[label]
+            gaps = np.abs(first.numpy() - u_ref).max(axis=1)
+            gap = float(gaps.max())
+            lim = 1e-10 if dtype == torch.float64 else erk_f32_limit(attempts[0])
+            tol = None if fixed else ERK_TOL[dtype]
+            margin = None if fixed else min(abs(e / tol - 1.0) for e in errs)
+            log(f"  {label} {dt_name}: attempts {attempts} (CPU f64 first output step "
+                f"{att_ref}, {secs:.1f} s), launches {json.dumps(want)}; first output "
+                f"step against the CPU f64 run: v {gaps[0]:.3e}, u {gaps[1]:.3e} (limit "
+                f"{lim:.3e}{', u 1e-4' if dtype == torch.float32 else ''}); largest "
+                f"err/tol {max(errs) / tol if tol else 0:.3e}, margin to tol "
+                f"{margin if margin is not None else 'n/a'}")
+            if (off or not torch.isfinite(u).all() or gap > lim
+                    or (dtype == torch.float32 and gaps[1] > 1e-4)
+                    or (dtype == torch.float64 and attempts[:1] != att_ref[:1])
+                    or (margin is not None and margin <= 1e-6)):
+                raise RuntimeError(f"{label} {dt_name}: launches off {off}, gap {gap}, "
+                                   f"attempts {attempts} against {att_ref}, margin "
+                                   f"{margin}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+    # RK4 through device_steps (the captured graph) against its stepwise run
+    for dt_name, dtype in DTYPES.items():
+        runs = []
+        for chunk in (1, 10):
+            model = Model(*WAVE, double=dtype == torch.float64, device="cuda")
+            fields, pars = state_from_numpy(wave_state(N_REF), dict(periodic=True, c=1.0),
+                                            model)
+            sim = Simulation(model, fields, pars, dt=ERK_DT, tmax=20 * ERK_DT,
+                             scheme=schemes.RK4, time_stepping=False)
+            _launch.reset_counters()
+            sim.run(progress=False, device_chunk=chunk)
+            runs.append((sim, _launch.counts()))
+        (a, ca), (b, cb) = runs
+        same = torch.equal(a.fields["u"], b.fields["u"]) and torch.equal(
+            a.fields["v"], b.fields["v"])
+        off = {k: (cb[k], ca[k]) for k in KERNELS if cb[k] != ca[k]}
+        log(f"  wave N=10^6 rk4 device_chunk=10 {dt_name}: route "
+            f"{b._scheme.steps_route}, {b.i} steps, "
+            f"{'bit for bit' if same else 'NOT bit for bit'} the stepwise run; launches "
+            + json.dumps({k: v for k, v in cb.items() if v}))
+        if not same or off or b._scheme.steps_route != "graph" or cb["K1.F"] != 80:
+            raise RuntimeError(f"rk4 device_steps {dt_name}: same {same}, launches off "
+                               f"{off}, route {b._scheme.steps_route}")
+        for k in KERNELS:
+            launches[k] += cb[k]
+    # B = 64 wave members with per-member dt against their single-grid runs
+    members = (0, ERK_B // 3, 2 * ERK_B // 3, ERK_B - 1)
+    for dt_name, dtype in DTYPES.items():
+        ens, counts, per_step, alone = erk_member_runs(dtype, members)
+        iters = sum(int(it.max()) for it in per_step)
+        want = {"K1.F": 7 * iters, "K5.combine_members": 7 * iters}
+        off = {k: counts[k] for k in KERNELS if counts[k] != want.get(k, 0)}
+        bad = [b for b in members if not torch.equal(ens.u[b], alone[b][0])
+               or sum(int(it[b]) for it in per_step) != alone[b][1]]
+        spread = ", ".join(f"{int(it.min())}..{int(it.max())}" for it in per_step)
+        log(f"  wave B={ERK_B} x N=10^4 dopri5 per-member dt ({ERK_B_STEPS} x "
+            f"{ERK_LONG_DT}) {dt_name}: member attempts per output step {spread}; "
+            f"launches "
+            f"{json.dumps(want)}; members {members} "
+            f"{'bit for bit' if not bad else 'NOT bit for bit'} their single-grid runs "
+            f"with the same attempts")
+        if off or bad or not torch.isfinite(ens.u).all():
+            raise RuntimeError(f"erk ensemble {dt_name}: launches off {off}, members "
+                               f"off {bad}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+    # scipy_ode on the README model, on the card against the CPU
+    for jac, kw in ((False, {}), (True, {"method": "bdf"})):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            fields_np, pars, dt, _, hook = readme_case()
+            model = Model(*README, device=device)
+            fields, pars_t = state_from_numpy(fields_np, pars, model)
+            scheme = schemes.scipy_ode(model, jac=jac, atol=1e-10, rtol=1e-10,
+                                       nsteps=100000, **kw)
+            _launch.reset_counters()
+            t = 0.0
+            for _ in range(2):
+                t, fields = scheme(t, fields, dt, pars_t, hook)
+            outs[device] = (fields["U"].double().cpu().numpy(), _launch.counts())
+        gap = float(np.abs(outs["cuda"][0] - outs["cpu"][0]).max())
+        counts = outs["cuda"][1]
+        log(f"  readme N=200 scipy_ode vode{'/bdf with jac' if jac else ''} f64: "
+            f"against the CPU run {gap:.3e}; launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+        if (gap > 1e-8 or counts["K1.F"] < 1 or (jac and counts["K1.J"] < 1)
+                or any(counts[k] for k in KERNELS if k not in ("K1.F", "K1.J"))):
+            raise RuntimeError(f"scipy_ode jac={jac}: gap {gap}, launches {counts}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+    # a container and a checkpoint
+    for dt_name, dtype in DTYPES.items():
+        _launch.reset_counters()
+        full, resumed, how = erk_container_run(dtype)
+        counts = _launch.counts()
+        data = full.container.data
+        same = all(torch.equal(full.fields[k], resumed.fields[k]) for k in ("u", "v"))
+        frame = np.array_equal(data["u"][-1], full.fields["u"].cpu().numpy())
+        log(f"  wave N=10^6 dopri5 Simulation with a container, checkpointed after 2 "
+            f"of 4 output steps {how} {dt_name}: {len(data.t)} frames, the last "
+            f"{'equal to' if frame else 'NOT equal to'} the final state; the resumed run "
+            f"{'bit for bit' if same else 'NOT bit for bit'} the uninterrupted one")
+        if not same or not frame or len(data.t) != 5 or resumed.i != 4:
+            raise RuntimeError(f"container/checkpoint {dt_name}: same {same}, frame "
+                               f"{frame}, frames {len(data.t)}, i {resumed.i}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+    log("  launches over phase 2: " + json.dumps(launches))
+    return launches
+
+
+def erk_attempt_bytes(scheme, N, nvar, itemsize):
+    """Bytes one FSAL attempt must move (each input read once, each output
+    written once): per F its state, parameter row and x in, F out; per
+    stage input and the final call their arrays in and rows out; the error
+    row read once for its max."""
+    s = scheme._s
+    F = (s - 1) * (nvar + 1 + 1 + nvar) * N
+    stage = sum(1 + np.count_nonzero(scheme._a[i, :i]) + 1 for i in range(1, s)) * nvar * N
+    cols = 1 + np.count_nonzero((scheme._b != 0) | (scheme._b != scheme._b_pred))
+    final = (cols + 2) * nvar * N
+    return (F + stage + final + nvar * N) * itemsize
+
+
+def phase3_erk(smi):
+    """DOPRI5 at N = 10^6, f32 and f64: ms per FSAL attempt (the
+    controller's work: its stages and one err read) and cell updates per
+    second, K1.F and K5 device µs and the idle share under torch.profiler,
+    the attempt's bytes bound; one stability-limited adaptive output step
+    (f64, output dt ERK_LONG_DT) with its exact launches; K5's dt entry (the
+    final two rows) and its members body against their plain versions,
+    bounds and one PyTorch call; RK4 stepwise against the graph route with
+    each window's idle share."""
+    log(f"phase 3: the explicit RK family ({smi})")
+    times = {name: {} for name in DTYPES}
+    for dt_name, dtype in DTYPES.items():
+        model = Model(*WAVE, double=dtype == torch.float64, device="cuda")
+        fields, pars = state_from_numpy(wave_state(N_REF), dict(periodic=True, c=1.0),
+                                        model)
+        scheme = schemes.DOPRI5(model, tol=ERK_TOL[dtype])
+        problem = scheme._problem(schemes.null_hook, True)
+        u, h, p, x = scheme._split(fields, pars)
+        k1 = problem.F(u, h, p, x)
+        T = scheme._dt_type
+
+        def attempt():
+            return T(scheme._stages(problem, u, h, p, x, ERK_DT, k1)[1].item())
+
+        attempt()
+        torch.cuda.synchronize()
+        n_att = 50
+        start = time.perf_counter()
+        for _ in range(n_att):
+            attempt()
+        ms = (time.perf_counter() - start) * 1e3 / n_att
+        nbytes = erk_attempt_bytes(scheme, N_REF, 2, u.element_size())
+        b_ms, b_by = bound(nbytes, 0, dtype)
+        prof = profile_calls(attempt, 10)
+        log(f"  dopri5 FSAL attempt N=10^6 {dt_name}: {ms:.4f} ms per attempt (host "
+            f"clock, synchronised by its err read), {N_REF / ms * 1e3:.4e} cell updates "
+            f"per second; bound {b_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s), "
+            f"{b_ms / ms:.3f} of it")
+        log_profile("dopri5 FSAL attempt N=10^6", dt_name, prof)
+        # K5's dt entry: the final two rows over u and 6 stages
+        rows = [r for r in kernel_checks.erk_rows(scheme._a, scheme._b,
+                                                  scheme._b_pred)][-1]
+        cols = [0] + [j + 1 for j in range(7) if rows[0][j + 1] or rows[1][j + 1]]
+        rows = [[r[j] for j in cols] for r in rows]
+        rng = np.random.default_rng(9)
+        arrays = [torch.tensor(rng.standard_normal((2, N_REF)), dtype=dtype,
+                               device="cuda") for _ in cols]
+        dt_cols = tuple(range(1, len(cols)))
+        k_ms = cuda_ms(lambda: combine.combine(rows, arrays, ERK_DT, dt_cols), 50)
+        p_ms = cuda_ms(lambda: combine.combine_plain(rows, arrays, ERK_DT, dt_cols), 20)
+        stacked = torch.stack([a.reshape(-1) for a in arrays])
+        coef = torch.tensor([[c * (ERK_DT if j else 1.0) for j, c in enumerate(r)]
+                             for r in rows], dtype=dtype, device="cuda")
+        l_ms = cuda_ms(lambda: torch.mm(coef, stacked), 50)
+        kb = (len(cols) + 2) * 2 * N_REF * u.element_size()
+        kb_ms, kb_by = bound(kb, 2 * len(cols) * 2 * 2 * N_REF, dtype)
+        log(f"  K5 dt entry (DOPRI5 final rows, {len(cols)} arrays of (2, 10^6)) "
+            f"{dt_name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.mm "
+            f"{l_ms:.4f} ms, bound {kb_ms:.4f} ms ({kb_by}; CUDA events)")
+        # the members body at the ensemble's shapes
+        arrays = [torch.tensor(rng.standard_normal((ERK_B, 2, ERK_B_N)), dtype=dtype,
+                               device="cuda") for _ in cols]
+        dts = torch.tensor(ERK_DT * (1 + rng.random(ERK_B)), dtype=dtype, device="cuda")
+        m_ms = cuda_ms(lambda: combine.combine(rows, arrays, dts, dt_cols), 50)
+        mp_ms = cuda_ms(lambda: combine.combine_plain(rows, arrays, dts, dt_cols), 20)
+        stacked = torch.stack([a.reshape(ERK_B, -1) for a in arrays], dim=1)
+        mcoef = torch.stack([torch.stack([
+            (c * dts) if j else torch.full_like(dts, c) for j, c in enumerate(r)], dim=1)
+            for r in rows], dim=1)
+        ml_ms = cuda_ms(lambda: torch.bmm(mcoef, stacked), 50)
+        mb = (len(cols) + 2) * ERK_B * 2 * ERK_B_N * u.element_size()
+        mb_ms, mb_by = bound(mb, 2 * len(cols) * 2 * ERK_B * 2 * ERK_B_N, dtype)
+        log(f"  K5.combine_members (DOPRI5 final rows, B={ERK_B} x (2, 10^4), one dt "
+            f"per member) {dt_name}: kernel {m_ms:.4f} ms, plain {mp_ms:.4f} ms, "
+            f"torch.bmm {ml_ms:.4f} ms, bound {mb_ms:.4f} ms ({mb_by}; CUDA events)")
+        times[dt_name]["K5.combine_members"] = (m_ms, mp_ms, mb_ms, mb_by, ml_ms)
+        # RK4 stepwise against the graph route
+        rk4 = schemes.RK4(model)
+        n = 20
+        rk4.device_steps(0.0, fields, n, ERK_DT, pars)  # captures the graph
+        s_ms = stepwise_ms(rk4, fields, pars, ERK_DT, n)
+        g_ms = chunked_ms(rk4, fields, pars, ERK_DT, n)
+        route = rk4.steps_route
+        log(f"  rk4 N=10^6 {dt_name}: stepwise {s_ms:.4f} ms per step, device_steps "
+            f"({route}) {g_ms:.4f} ms per step")
+        log_idle(f"rk4 stepwise {dt_name}",
+                 profile_calls(lambda: rk4(0.0, fields, ERK_DT, pars), n), 1)
+        log_idle(f"rk4 device_steps {dt_name}",
+                 profile_calls(lambda: rk4.device_steps(0.0, fields, n, ERK_DT, pars), 2),
+                 n)
+    # the stability-limited adaptive output step, f64
+    model = Model(*WAVE, double=True, device="cuda")
+    fields, pars = state_from_numpy(wave_state(N_REF), dict(periodic=True, c=1.0), model)
+    scheme = schemes.DOPRI5(model, tol=ERK_TOL[torch.float64])
+    t, fields = scheme(0.0, fields, ERK_DT, pars)
+    _launch.reset_counters()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    t, fields = scheme(t, fields, ERK_LONG_DT, pars)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    att = scheme._internal_iter
+    counts = _launch.counts()
+    want = erk_expected(scheme, [att], True)
+    log(f"  dopri5 N=10^6 f64 stability-limited output step of {ERK_LONG_DT}: {att} "
+        f"attempts, {secs * 1e3 / att:.4f} ms per attempt (the controller included), "
+        f"adapted dt {scheme._internal_dt:.4e}; launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    if any(counts[k] != want.get(k, 0) for k in KERNELS) or not all(
+            torch.isfinite(fields[k]).all() for k in ("u", "v")):
+        raise RuntimeError(f"stability-limited dopri5: launches {counts}, want {want}")
+    return times
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -4526,18 +5034,20 @@ def main():
 
 def run():
     smi = timed(phase0)
-    errs = timed(phase1_film, timed(phase1))
+    errs = timed(phase1_erk, timed(phase1_film, timed(phase1)))
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
     launches = timed(phase2_precision, launches)
     launches = timed(phase2_megatheta, launches)
     launches = timed(phase2_film, launches)
     launches = timed(phase2_padded, launches)
     launches = timed(phase2_chunked, launches)
+    launches = timed(phase2_erk, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
                  timed(phase3_precision, smi),
                  timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded),
-                 timed(phase3_redesign), timed(phase3_chunked, smi)):
+                 timed(phase3_redesign), timed(phase3_chunked, smi),
+                 timed(phase3_erk, smi)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

@@ -20,6 +20,10 @@ def test_import_loads_no_jax():
             "import triflow_tpu_torch.core.simulation; "
             "import triflow_tpu_torch.parallel.ensemble; "
             "import triflow_tpu_torch.ops.matvec, triflow_tpu_torch.ops.mixed; "
+            "import triflow_tpu_torch.plugins.container, "
+            "triflow_tpu_torch.plugins.displays; "
+            "import triflow_tpu_torch.utils.checkpoint, "
+            "triflow_tpu_torch.utils.profiling; "
             "print('jax' in sys.modules, "
             "any(m.startswith('triflow_tpu.') or m == 'triflow_tpu' "
             "for m in sys.modules))")

@@ -2,7 +2,8 @@
 transform of a table, RODASPR's coefficients, and the embedded-error
 step-size controller.
 
-``core.schemes`` builds its ROW schemes on them; kernel K6's plain
+``core.schemes`` builds its ROW schemes on them, and its explicit RK
+family on the controller (with the pair's exponent); kernel K6's plain
 adaptive step (``ops.megastep.adaptive_plain``) is handed the controller,
 and the kernel checks build RODASPR's table from the coefficients.  An
 ensemble (``parallel.Ensemble``) runs the shared controller on the max
@@ -84,13 +85,28 @@ def rodaspr_coefficients():
     return alpha, gamma, b, b_pred
 
 
+def _dt_next(T, safety, dt_eff, tol, err, tiny, exponent):
+    """``safety*dt_eff*(tol/err)**exponent`` clipped to [0.1, 10] dt_eff in
+    ``T``: ``np.sqrt`` at the exponent 1/2 (the ROW controller, the
+    reference's own branch), a power in ``T`` otherwise (the explicit RK
+    pairs' 1/(order + 1))."""
+    ratio = tol / np.maximum(err, tiny)
+    if exponent == 0.5:
+        dt_next = safety * dt_eff * np.sqrt(ratio)
+    else:
+        dt_next = safety * dt_eff * np.power(ratio, T(exponent))
+    return np.minimum(np.maximum(dt_next, T(0.1) * dt_eff), T(10.0) * dt_eff)
+
+
 def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
                         max_iter, dt_min, interpolate, state, clock=None,
-                        carry=None):
+                        carry=None, exponent=0.5):
     """One output step from ``t`` to ``t + dt`` through accepted attempts:
     the counterpart of the reference's ``_adaptive_embedded_loop`` with the
-    ROW controller ``dt <- clip(safety*dt*sqrt(tol/err), 0.1*dt, 10*dt)``,
-    every quantity a numpy scalar of ``T`` (the model's dtype).
+    controller ``dt <- clip(safety*dt*(tol/err)**exponent, 0.1*dt, 10*dt)``
+    (``exponent`` 1/2 for the ROW family, taken by ``np.sqrt``, and
+    1/(order + 1) for an explicit RK pair), every quantity a numpy scalar
+    of ``T`` (the model's dtype).
 
     ``attempt(t_, state, dt_eff) -> (state2, err)`` runs one step of
     ``dt_eff`` (err a ``T`` scalar); ``state[0]`` is u.  ``interpolate``
@@ -133,9 +149,7 @@ def adaptive_controller(attempt, T, t, dt, internal_dt, tol, safety,
             dt_eff = T(np.minimum(dt_i, remaining))
         state2, err = attempt(t_, state, dt_eff)
         accept = err <= tol
-        dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(err, info.tiny))
-        dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
-                             T(10.0) * dt_eff)
+        dt_next = _dt_next(T, safety, dt_eff, tol, err, info.tiny, exponent)
         if accept:
             tp, sp_ = t_, state
             t_ = t_ + dt_eff
@@ -167,13 +181,14 @@ def _where_members(mask, a, b):
 
 
 def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
-                      dt_min, interpolate, state, clock=None, carry=None):
+                      dt_min, interpolate, state, clock=None, carry=None,
+                      exponent=0.5):
     """One output step from ``t`` to ``t + dt`` in which every member of an
     ensemble runs its own clock and step size: the counterpart of the
     reference's ``_per_member_adaptive_loop`` (masked freezing: a member
     that reached ``t + dt`` no longer moves while the others retry), with
-    the same controller as ``adaptive_controller`` per member, every
-    quantity a numpy array of ``T`` over the B members.
+    the same controller as ``adaptive_controller`` (and its ``exponent``)
+    per member, every quantity a numpy array of ``T`` over the B members.
 
     ``attempt(tb, state, dt_eff) -> (state2, errs)`` steps every member
     from its clock ``tb`` by its ``dt_eff`` (arrays of B) and returns the
@@ -224,9 +239,7 @@ def member_controller(attempt, T, t, dt, internal_dt, tol, safety, max_iter,
         state2, errs = attempt(tb, state, dt_eff)
         errs = np.asarray(errs, dtype=T)
         accept = (errs <= tol) & active
-        dt_next = safety * dt_eff * np.sqrt(tol / np.maximum(errs, info.tiny))
-        dt_next = np.minimum(np.maximum(dt_next, T(0.1) * dt_eff),
-                             T(10.0) * dt_eff)
+        dt_next = _dt_next(T, safety, dt_eff, tol, errs, info.tiny, exponent)
         dtb = np.where(active & ~(accept & clamped), dt_next, dtb)
         mask = torch.as_tensor(accept, device=device)
         if interpolate:

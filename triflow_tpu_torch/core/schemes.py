@@ -1,12 +1,17 @@
 """Temporal schemes: callables ``scheme(t, fields, dt, pars, hook) -> (t,
 fields)`` that step the discretized system on the model's device.
 
-Counterpart of the parts of ``triflow_tpu.core.schemes`` on the implicit
-main path: ``null_hook``, the device-state plumbing (``_DeviceProblem``,
-``_SchemeBase``), ``Theta``, the Rosenbrock-Wanner family (``ROW_general``,
-``ROS2``, ``ROS3PRw``, ``ROS3PRL``, ``RODASPR``) with its embedded-error
-controller, and the step-doubling wrapper (``DeviceTimeStepping``,
-``time_stepping``).  The explicit Runge-Kutta family is queued.
+Counterpart of ``triflow_tpu.core.schemes``: ``null_hook``, the
+device-state plumbing (``_DeviceProblem``, ``_SchemeBase``), ``Theta``, the
+Rosenbrock-Wanner family (``ROW_general``, ``ROS2``, ``ROS3PRw``,
+``ROS3PRL``, ``RODASPR``) with its embedded-error controller, the explicit
+Runge-Kutta family (``ERK_general``, ``RK4``, ``BS32``, ``DOPRI5``: K1's F
+and K5 with a dt factor, the same host controller with the pair's
+exponent, never K6), the step-doubling wrappers (``DeviceTimeStepping``
+for the port's schemes, ``_host_time_stepping`` for any other callable,
+chosen by ``time_stepping``) and the ``scipy_ode`` proxy (scipy's
+integrators over the model's host routines; duck-typed hand-written
+models step through it).
 
 Hooks keep the reference contract ``hook(t, fields, pars) -> (fields,
 pars)``.  The fields hold torch tensors, so a Dirichlet condition is the
@@ -74,6 +79,7 @@ that starts at zero in the call (on the K6 route inside K6's step entry).
 
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -84,6 +90,7 @@ from ..ops.banded import axpy_bands
 from ..ops.combine import combine
 from ..ops.compensated import kahan_update
 from ..ops.matvec import banded_matvec
+from ..utils.convert import host_array
 from . import graphs, rosenbrock
 
 
@@ -699,16 +706,61 @@ class Theta(_SchemeBase):
 
 
 
-def _combos(rows, arrays):
+class _EmbeddedScheme(_SchemeBase):
+    """What the schemes with their own embedded-error controller share (the
+    ROW and explicit RK families): an output step is the adaptive loop
+    (``_adaptive``) or one fixed step, then the hook at the output time;
+    fixed steps take dt in the step-size type; a compensated scheme starts
+    each carry at zero."""
+
+    def _fixed_dt(self, dt):
+        return self._dt_type(dt)
+
+    def _carry(self, u):
+        """A zero Kahan carry for u where the scheme is compensated, else
+        None."""
+        return torch.zeros_like(u) if self._compensated else None
+
+    def _output_step(self, problem, t, u, helpers, pstack, x, dt,
+                     internal_dt):
+        """One output step: the adaptive controller (``_adaptive``), or
+        one fixed step; then the hook at the output time."""
+        T = self._dt_type
+        if self._time_control:
+            t2, u2, h2, p2, x2, dt_i, niter, status = self._adaptive(
+                problem, t, u, helpers, pstack, x, dt, internal_dt)
+        else:
+            u2, h2, p2, x2, _ = self.fixed_step(problem, t, u, helpers,
+                                                pstack, x, T(dt))
+            t2, dt_i, niter, status = (self._advance(t, dt), T(internal_dt),
+                                       0, 0)
+        if status == 0:
+            u2, h2, p2, x2 = problem.apply_hook(float(t2), u2, h2, p2, x2)
+        return t2, u2, h2, p2, x2, dt_i, niter, status
+
+
+def _combos(rows, arrays, dt=None):
     """``combine`` (K5) with the columns that are zero in every row
-    dropped, as the reference's stage algebra does."""
+    dropped, as the reference's stage algebra does; with ``dt`` (the
+    explicit RK family's ``[u, k_0, k_1, ...]``, u's column first and
+    kept), every column but the first is weighed by dt (K5's dt columns:
+    coefficient ``T(c) * T(dt)``)."""
     cols = [j for j in range(len(arrays))
             if any(rows[k][j] for k in range(len(rows)))]
-    return combine([[rows[k][j] for j in cols] for k in range(len(rows))],
-                   [arrays[j] for j in cols])
+    rows = [[float(rows[k][j]) for j in cols] for k in range(len(rows))]
+    arrays = [arrays[j] for j in cols]
+    if dt is None:
+        return combine(rows, arrays)
+    return combine(rows, arrays, dt, range(1, len(cols)))
 
 
-class ROW_general(_SchemeBase):
+def _finite_err(err):
+    """inf where the error estimate is not finite, so the controller
+    rejects a step that blew up."""
+    return torch.where(torch.isfinite(err), err, torch.full_like(err, np.inf))
+
+
+class ROW_general(_EmbeddedScheme):
     """Generic s-stage Rosenbrock-Wanner solver with one banded
     factorization per step reused across all stages, an embedded-order
     error estimate and an adaptive-dt controller.
@@ -844,9 +896,7 @@ class ROW_general(_SchemeBase):
         else:
             d_t = [float(m - p) for m, p in zip(self._m_t, self._m_pred_t)]
             u_new, diff = _combos([[1.0] + m_t, [0.0] + d_t], [u] + us)
-            err = diff.abs().max()
-            err = torch.where(torch.isfinite(err), err,
-                              torch.full_like(err, np.inf))
+            err = _finite_err(diff.abs().max())
         return u_new, helpers, pstack, x, err
 
     def fixed_step_batched(self, problem, t, u, helpers, pstack, x, dt):
@@ -889,18 +939,8 @@ class ROW_general(_SchemeBase):
         else:
             d_t = [float(m - p) for m, p in zip(self._m_t, self._m_pred_t)]
             u_new, diff = _combos([[1.0] + m_t, [0.0] + d_t], [u] + us)
-            err = diff.abs().amax(dim=(-2, -1))
-            err = torch.where(torch.isfinite(err), err,
-                              torch.full_like(err, np.inf))
+            err = _finite_err(diff.abs().amax(dim=(-2, -1)))
         return u_new, helpers, pstack, x, err
-
-    def _fixed_dt(self, dt):
-        return self._dt_type(dt)
-
-    def _carry(self, u):
-        """A zero Kahan carry for u where the scheme is compensated, else
-        None."""
-        return torch.zeros_like(u) if self._compensated else None
 
     def _k6_scan(self, plan, periodic, u, helpers, pstack, x, dt, n, snap):
         megastep.row_scan(self._model.backend, plan,
@@ -1054,23 +1094,6 @@ class ROW_general(_SchemeBase):
         1: "Rosenbrock internal iteration above max iterations authorized",
         2: "Rosenbrock internal time step less than authorized"}
 
-    def _output_step(self, problem, t, u, helpers, pstack, x, dt,
-                     internal_dt):
-        """One output step: the adaptive controller (``_adaptive``), or
-        one fixed step; then the hook at the output time."""
-        T = self._dt_type
-        if self._time_control:
-            t2, u2, h2, p2, x2, dt_i, niter, status = self._adaptive(
-                problem, t, u, helpers, pstack, x, dt, internal_dt)
-        else:
-            u2, h2, p2, x2, _ = self.fixed_step(problem, t, u, helpers,
-                                                pstack, x, T(dt))
-            t2, dt_i, niter, status = (self._advance(t, dt), T(internal_dt),
-                                       0, 0)
-        if status == 0:
-            u2, h2, p2, x2 = problem.apply_hook(float(t2), u2, h2, p2, x2)
-        return t2, u2, h2, p2, x2, dt_i, niter, status
-
 
 class ROS2(ROW_general):
     """2nd-order 2-stage Rosenbrock scheme, no time stepping."""
@@ -1170,6 +1193,248 @@ class RODASPR(ROW_general):
                          df64_mixed_solve=df64_mixed_solve)
 
 
+class ERK_general(_EmbeddedScheme):
+    """Generic s-stage explicit Runge-Kutta scheme with an optional embedded
+    error estimate and the host adaptive controller of the ROW family
+    (``rosenbrock.adaptive_controller``), with the pair's exponent.
+
+    Butcher arrays: ``a`` strictly lower triangular (s x s), ``b`` the
+    update weights, ``b_pred`` the embedded lower-order weights (required
+    for ``time_stepping=True``).  ``order`` is the lower order of the pair:
+    the controller is ``dt <- safety*dt*(tol/err)**(1/(order + 1))``.
+
+    A step is the reference's ``_erk_stage_combination``: per stage one
+    stage input ``u + Σ_j (a_ij dt) k_j`` (one K5 launch with dt as its
+    launch argument; u itself where the row is empty) and one
+    ``k_i = F(u_i)`` (one K1.F launch, no scale, no bias), then one
+    two-row K5 launch for ``u_new = u + Σ (b_i dt) k_i`` and the error row
+    ``Σ ((b - b_pred)_i dt) k_i``; ``err = max|error row|``, inf where not
+    finite.  With neither a tolerance nor time stepping no controller
+    reads err: the final launch has one row and err is inf.  No kernel
+    takes a whole step (the reference has no single-launch ERK kernel), so
+    K6 never takes an explicit scheme (``_mega_plan`` is None), and
+    ``device_steps`` runs fixed steps through the captured CUDA graph of
+    K1/K5 (the null hook, CUDA tensors) or the eager loop.
+
+    First-same-as-last pairs (DOPRI5, BS32: the last stage's input is the
+    accepted state) carry the last stage's F across the attempts of an
+    output step, as the reference's FSAL stepper does: one F of the output
+    step's start, then s - 1 per attempt.  The carried F rides in the
+    controller's state (kept on a reject, replaced on an accept), so the
+    loop is the generic one's attempt for attempt and bit for bit.  It
+    applies where the reference applies it: the null hook,
+    ``recompute_target=True``, not compensated and not the df64 mode.
+
+    ``compensated=True`` folds every accepted attempt into a Kahan carry
+    (the controller's ``carry``); the df64 mode ignores it.  In the df64
+    mode (float64 state) every step size is a float32 value on a float64
+    clock, as for the ROW family."""
+
+    def __init__(self, model, a, b, b_pred=None, order=2,
+                 time_stepping=False, tol=None, max_iter=None, dt_min=None,
+                 safety_factor=0.9, recompute_target=True,
+                 compensated=False):
+        super().__init__(model)
+        self._compensated = bool(compensated) and not self._df64
+        self._a = np.asarray(a, dtype=np.float64)
+        self._b = np.asarray(b, dtype=np.float64)
+        self._b_pred = (None if b_pred is None
+                        else np.asarray(b_pred, dtype=np.float64))
+        self._s = s = len(b)
+        self._order = int(order)
+        self._recompute_target = recompute_target
+        self._time_control = time_stepping
+        self._tol = tol
+        self._safety_factor = safety_factor
+        self._max_iter = max_iter
+        self._dt_min = dt_min
+        self._err_exponent = 1.0 / (self._order + 1)
+        self._internal_dt = None
+        self._internal_iter = None
+        if time_stepping and b_pred is None:
+            raise NotImplementedError(
+                "time stepping requires the predictor (b_pred) coefficients")
+        if time_stepping and tol is None:
+            raise ValueError("time_stepping=True requires a tolerance (tol)")
+        self._fsal_pair = (self._b_pred is not None and self._b[s - 1] == 0.0
+                           and np.allclose(self._a[s - 1, :s - 1],
+                                           self._b[:s - 1]))
+
+    def _mega_plan(self, N, periodic, B=1):
+        """None: no kernel takes a whole explicit step."""
+        return None
+
+    def _with_err(self):
+        """Whether a controller reads the embedded error of a step (the
+        reference drops ``b_pred`` otherwise)."""
+        return self._b_pred is not None and (self._tol is not None
+                                             or self._time_control)
+
+    def _stages(self, problem, u, helpers, pstack, x, dt, k1=None):
+        """``(u_new, err, k_last)`` of one step of ``dt`` from u (the hook
+        already applied), ``k1`` the carried F of u or None; err a 0-d
+        tensor (or one per member), inf where not finite or with no error
+        row; ``dt`` a number or, for an ensemble's members, a (B,) tensor."""
+        a, s = self._a, self._s
+        ks = [] if k1 is None else [k1]
+        for i in range(len(ks), s):
+            row = [1.0] + [a[i, j] for j in range(i)]
+            u_i = _combos([row], [u] + ks, dt)[0] if any(row[1:]) else u
+            ks.append(problem.F(u_i, helpers, pstack, x))
+        rows = [[1.0] + list(self._b)]
+        if self._with_err():
+            rows.append([0.0] + list(self._b - self._b_pred))
+        outs = _combos(rows, [u] + ks, dt)
+        lead = u.shape[:-2]
+        if len(outs) == 1:
+            err = torch.full(lead, np.inf, dtype=u.dtype, device=u.device)
+        else:
+            err = _finite_err(outs[1].abs().amax(dim=(-2, -1)))
+        return outs[0], err, ks[s - 1]
+
+    def fixed_step(self, problem, t, u, helpers, pstack, x, dt):
+        """The hook at ``t``, then one step of ``dt`` (class doc); an
+        ensemble's state (u (B, nvar, N)) runs the hook on every member
+        (``t`` one time or one per member) and steps the B members with a
+        member axis through the same kernels, ``dt`` one step size or one
+        per member (a numpy array: K5 then takes each member's)."""
+        batched = u.ndim == 3
+        hook = problem.apply_hook_members if batched else problem.apply_hook
+        u, helpers, pstack, x = hook(t, u, helpers, pstack, x)
+        if np.ndim(dt):
+            dt = torch.as_tensor(np.asarray(dt, dtype=self._dt_type),
+                                 dtype=u.dtype, device=u.device)
+        else:
+            dt = float(self._step_dt(dt))
+        u_new, err, _ = self._stages(problem, u, helpers, pstack, x, dt)
+        return u_new, helpers, pstack, x, err
+
+    #: an ensemble's step (``parallel.Ensemble``): ``fixed_step`` takes the
+    #: member axis
+    fixed_step_batched = fixed_step
+
+    def _fsal(self, hook):
+        """Whether the adaptive loop carries the last stage's F (class
+        doc)."""
+        return (self._fsal_pair and hook is null_hook
+                and self._recompute_target and not self._compensated
+                and not self._df64)
+
+    def _adaptive(self, problem, t, u, helpers, pstack, x, dt, internal_dt):
+        """Advance from ``t`` to ``t + dt`` through accepted attempts, each
+        decided on the host by its err (one scalar read), under
+        ``rosenbrock.adaptive_controller`` with the pair's exponent; with
+        the FSAL loop (``_fsal``) the carried F rides in the state.
+        Returns (next_t, u, helpers, pstack, x, dt_i, niter, status)."""
+        T = self._dt_type
+        if self._fsal(problem.hook):
+            def attempt(t_, state, dt_eff):
+                u2, err, k_last = self._stages(
+                    problem, state[0], helpers, pstack, x,
+                    float(self._step_dt(dt_eff)), state[1])
+                return (u2, k_last), T(err.item())
+
+            state = (u, problem.F(u, helpers, pstack, x))
+        else:
+            def attempt(t_, state, dt_eff):
+                u2, h2, p2, _x2, err = self.fixed_step(
+                    problem, float(t_), *state, x, dt_eff)
+                return (u2, h2, p2), T(err.item())
+
+            state = (u, helpers, pstack)
+        next_t, state, dt_i, niter, status = rosenbrock.adaptive_controller(
+            attempt, T, t, dt, internal_dt, self._tol, self._safety_factor,
+            self._max_iter, self._dt_min, not self._recompute_target, state,
+            self._clock, self._carry(u), self._err_exponent)
+        if len(state) == 3:
+            u, helpers, pstack = state
+        else:
+            u = state[0]
+        return next_t, u, helpers, pstack, x, dt_i, niter, status
+
+    _failures = {
+        1: "explicit RK internal iteration above max iterations authorized",
+        2: "explicit RK internal time step less than authorized"}
+
+
+def rk4_tableau():
+    """``(a, b, None)`` of the classic 4th-order Runge-Kutta scheme."""
+    a = np.array([[0, 0, 0, 0],
+                  [1 / 2, 0, 0, 0],
+                  [0, 1 / 2, 0, 0],
+                  [0, 0, 1, 0]])
+    return a, np.array([1 / 6, 1 / 3, 1 / 3, 1 / 6]), None
+
+
+def bs32_tableau():
+    """``(a, b, b_pred)`` of the Bogacki-Shampine 3(2) pair."""
+    a = np.array([[0, 0, 0, 0],
+                  [1 / 2, 0, 0, 0],
+                  [0, 3 / 4, 0, 0],
+                  [2 / 9, 1 / 3, 4 / 9, 0]])
+    b = np.array([2 / 9, 1 / 3, 4 / 9, 0])
+    b_pred = np.array([7 / 24, 1 / 4, 1 / 3, 1 / 8])
+    return a, b, b_pred
+
+
+def dopri5_tableau():
+    """``(a, b, b_pred)`` of the Dormand-Prince 5(4) pair."""
+    a = np.zeros((7, 7))
+    a[1, 0] = 1 / 5
+    a[2, :2] = [3 / 40, 9 / 40]
+    a[3, :3] = [44 / 45, -56 / 15, 32 / 9]
+    a[4, :4] = [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729]
+    a[5, :5] = [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176,
+                -5103 / 18656]
+    a[6, :6] = [35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84]
+    b = np.array([35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84,
+                  0])
+    b_pred = np.array([5179 / 57600, 0, 7571 / 16695, 393 / 640,
+                       -92097 / 339200, 187 / 2100, 1 / 40])
+    return a, b, b_pred
+
+
+class RK4(ERK_general):
+    """Classic 4th-order Runge-Kutta, fixed dt (no embedded estimate; wrap
+    in :func:`time_stepping` for step-doubling adaptivity)."""
+
+    def __init__(self, model, compensated=False):
+        a, b, _ = rk4_tableau()
+        super().__init__(model, a, b, time_stepping=False,
+                         compensated=compensated)
+
+
+class BS32(ERK_general):
+    """Bogacki-Shampine 3(2) embedded pair (4 stages, FSAL; scipy's
+    RK23)."""
+
+    def __init__(self, model, time_stepping=True, tol=1e-2, max_iter=None,
+                 dt_min=None, safety_factor=0.9, recompute_target=True,
+                 compensated=False):
+        a, b, b_pred = bs32_tableau()
+        super().__init__(model, a, b, b_pred=b_pred, order=2,
+                         time_stepping=time_stepping, tol=tol,
+                         max_iter=max_iter, dt_min=dt_min,
+                         safety_factor=safety_factor,
+                         recompute_target=recompute_target,
+                         compensated=compensated)
+
+
+class DOPRI5(ERK_general):
+    """Dormand-Prince 5(4) embedded pair (7 stages, FSAL)."""
+
+    def __init__(self, model, time_stepping=True, tol=1e-2, max_iter=None,
+                 dt_min=None, safety_factor=0.9, recompute_target=True,
+                 compensated=False):
+        a, b, b_pred = dopri5_tableau()
+        super().__init__(model, a, b, b_pred=b_pred, order=4,
+                         time_stepping=time_stepping, tol=tol,
+                         max_iter=max_iter, dt_min=dt_min,
+                         safety_factor=safety_factor,
+                         recompute_target=recompute_target,
+                         compensated=compensated)
+
+
 class DeviceTimeStepping(_SchemeBase):
     """Richardson (step-doubling) error control for a scheme without its
     own estimator: every attempt compares one coarse step of ``dt`` with
@@ -1267,8 +1532,124 @@ class DeviceTimeStepping(_SchemeBase):
         return next_t, u, helpers, pstack, x, dt_i, niter, status
 
 
+def _host_time_stepping(scheme, tol=1e-1, ord=2, m=10, reject_factor=2):
+    """Step doubling driven through the ``scheme(t, fields, dt, pars,
+    hook)`` surface, for schemes that exist only as host callables
+    (``scipy_ode``, a duck-typed hand-written model's): the controller of
+    ``DeviceTimeStepping`` on whole calls, the error norm on the host.
+
+    The adapted step size is carried per trajectory, keyed on the identity
+    of the fields object handed back to the caller (a weak reference), so
+    two simulations sharing one wrapped scheme keep their own dt."""
+    carried = {}  # id(fields) -> (weakref, adapted dt)
+
+    def _recall(fields, default):
+        entry = carried.pop(id(fields), None)
+        if entry is not None:
+            ref, h = entry
+            if ref() is fields:
+                return h
+        return default
+
+    def _remember(fields, h):
+        try:
+            carried[id(fields)] = (weakref.ref(fields), h)
+        except TypeError:  # a container that takes no weak reference
+            return
+        while len(carried) > 64:  # bound abandoned trajectories' entries
+            carried.pop(next(iter(carried)))
+
+    def controlled(t, fields, dt, pars, hook=null_hook):
+        target = t + dt
+        h = _recall(fields, dt)
+        while target - t > 1e-10 * max(1.0, abs(target)):
+            # clamp the attempt, not the carried step size: the clamped
+            # final sliver fed back into h would collapse the adapted dt at
+            # every output step
+            h_eff = min(h, target - t)
+            clamped = h_eff < h
+            _tc, coarse = scheme(t, fields, h_eff, pars, hook)
+            t_f, fine = t, fields
+            for _ in range(m):
+                t_f, fine = scheme(t_f, fine, h_eff / m, pars, hook)
+            err = max(
+                np.linalg.norm(host_array(coarse[v]) - host_array(fine[v]),
+                               ord) / (m * m - 1)
+                for v in fields.dependent_variables)
+            h_next = (np.sqrt(h_eff * h_eff * tol / err) if err > 0
+                      else 2 * h_eff)
+            h_next = float(np.clip(h_next, 0.1 * h_eff, 10.0 * h_eff))
+            if h_next < h_eff / reject_factor:
+                h = h_next  # rejected: retry the same interval smaller
+                continue
+            t, fields = t_f, fine
+            if not clamped:
+                h = h_next
+        _remember(fields, h)
+        return target, fields
+
+    return controlled
+
+
 def time_stepping(scheme, tol=1e-1, ord=2, m=10, reject_factor=2):
     """Step-doubling adaptive wrapper around a scheme without its own error
-    control (every scheme of the port exposes a fixed step)."""
-    return DeviceTimeStepping(scheme, tol=tol, ord=ord, m=m,
-                              reject_factor=reject_factor)
+    control: ``DeviceTimeStepping`` for a scheme of the port (every one
+    exposes a fixed step), the host loop (``_host_time_stepping``) for any
+    other callable scheme."""
+    if isinstance(scheme, _SchemeBase):
+        return DeviceTimeStepping(scheme, tol=tol, ord=ord, m=m,
+                                  reject_factor=reject_factor)
+    return _host_time_stepping(scheme, tol=tol, ord=ord, m=m,
+                               reject_factor=reject_factor)
+
+
+class scipy_ode:
+    """Proxy around ``scipy.integrate.ode`` (vode, BDF, dopri5, ...) on the
+    host, through the model's host routines: ``model.F(fields, pars)`` and,
+    with ``jac=True``, ``model.J(fields, pars, sparse=False)``, which run
+    where the model lives (K1 on the card for a model of the port) and
+    return host numpy.  Any object with ``.F(fields, pars)`` and
+    ``fields_template`` (a duck-typed hand-written model) steps the same
+    way.
+
+    The integrator sees the interleaved flat state (``Fields.uflat``);
+    each right-hand side or Jacobian call scatters it back into a Fields
+    workspace (``Fields.fill``), re-applies the hook (so boundary values
+    hold at every internal evaluation) and calls the model.  The explicit
+    RK family (DOPRI5, BS32) and the ROW family step on the device
+    instead; this proxy stays for scipy's own trajectories and for models
+    whose F is host code."""
+
+    def __init__(self, model, jac=False, integrator="vode",
+                 **integrator_kwargs):
+        from scipy.integrate import ode
+
+        self._model = model
+        self._solver = ode(self._rhs, jac=self._jacobian if jac else None)
+        self._solver.set_integrator(integrator, **integrator_kwargs)
+
+    def _sync(self, t, flat, workspace, pars, hook):
+        workspace.fill(flat)
+        return hook(t, workspace, pars)
+
+    def _rhs(self, t, flat, workspace, pars, hook):
+        fields, pars = self._sync(t, flat, workspace, pars, hook)
+        return host_array(self._model.F(fields, pars))
+
+    def _jacobian(self, t, flat, workspace, pars, hook):
+        fields, pars = self._sync(t, flat, workspace, pars, hook)
+        return host_array(self._model.J(fields, pars, sparse=False))
+
+    def __call__(self, t, fields, dt, pars, hook=null_hook):
+        solver = self._solver
+        workspace, pars = hook(t, fields.copy(), pars)
+        callback_args = (workspace, pars, hook)
+        solver.set_initial_value(host_array(workspace.uflat), t)
+        solver.set_f_params(*callback_args)
+        solver.set_jac_params(*callback_args)
+        flat = solver.integrate(t + dt)
+        if not solver.successful():
+            raise RuntimeError("scipy_ode integrator reported failure")
+        workspace.fill(flat)
+        workspace, _ = hook(t + dt, workspace, pars)
+        return t + dt, workspace

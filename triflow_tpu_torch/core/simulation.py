@@ -12,8 +12,17 @@ wrapped in the step-doubling controller (``schemes.time_stepping``) unless
 steps per call of the scheme's ``device_steps`` (one K6 launch, one
 captured CUDA graph, or the eager loop: ``schemes._SchemeBase``) and emits
 every snapshot as the stepwise run does.
-Persistence containers and checkpoints are not ported yet and raise
-``NotImplementedError``.
+
+Persistence: ``attach_container`` feeds a ``plugins.container.Container``
+from the stream, one frame per emission (the chunked run emits one per
+snapshot, as the stepwise loop does); a finished run flushes and merges
+it, a failed one flushes what it buffered.  ``save_checkpoint`` /
+``from_checkpoint`` (``utils.checkpoint``) write and rebuild the
+restartable state.
+
+A duck-typed model (any object with ``.F(fields, pars)`` and
+``fields_template``, stepped by ``schemes.scipy_ode``) keeps its fields as
+given: only a model of the port has a backend to convert them with.
 """
 
 from __future__ import annotations
@@ -89,11 +98,14 @@ class Simulation:
         self.model = model
         self.parameters = dict(parameters)
         keys = fields.keys()
-        tensor = model.backend.as_tensor
-        self.fields = model.fields_template(
-            **{k: tensor(fields[k]).clone() for k in keys})
+        if hasattr(model, "backend"):
+            tensor = model.backend.as_tensor
+            self.fields = model.fields_template(
+                **{k: tensor(fields[k]).clone() for k in keys})
+        else:
+            self.fields = model.fields_template(**{k: fields[k] for k in keys})
         self.t = t
-        if model.precision == "df64":
+        if getattr(model, "precision", None) == "df64":
             # the df64 mode's steps are float32 values (as the reference's
             # device steps are): round the requested dt to one up front, so
             # the float64 clock advances by the dt the state integrates with
@@ -111,7 +123,8 @@ class Simulation:
         kwargs["time_stepping"] = time_stepping
         self._scheme = scheme(model, **accepted(scheme.__init__))
         # a scheme with its own adaptive controller is not wrapped again
-        if time_stepping and not self._scheme._time_control:
+        if time_stepping and not getattr(self._scheme, "_time_control",
+                                         False):
             self._scheme = schemes.time_stepping(
                 self._scheme, **accepted(schemes.time_stepping))
         self.status = "created"
@@ -122,6 +135,7 @@ class Simulation:
         self._last_timestamp = None
         self._actual_timestamp = datetime.now()
         self._hook = hook
+        self._container = None
         self._iterator = self.compute()
 
     # ------------------------------------------------------------------ loop
@@ -149,7 +163,7 @@ class Simulation:
         try:
             while True:
                 if self.tmax and np.isclose(t, self.tmax):
-                    self.status = "finished"
+                    self._end_simulation()
                     return
                 t, fields, pars = self._compute_one_step(t, fields, pars)
                 self.i += 1
@@ -159,8 +173,24 @@ class Simulation:
                 self.stream.emit(self)
                 yield self.t, self.fields
         except RuntimeError:
-            self.status = "failed"
+            self._fail()
             raise
+
+    def _end_simulation(self):
+        self.status = "finished"
+        if self.container:
+            self.container.flush()
+            self.container.merge()
+
+    def _fail(self):
+        """A failed run: its status, and the container's buffered frames
+        written (best effort: the run's own error is the one raised)."""
+        self.status = "failed"
+        if self.container:
+            try:
+                self.container.flush()
+            except Exception:  # noqa: BLE001 - the run's error wins
+                logger.exception("container flush failed during teardown")
 
     def run(self, progress=True, verbose=False, device_chunk=1):
         """Compute all steps (never returns when tmax is not set).
@@ -170,7 +200,8 @@ class Simulation:
         emits each snapshot to the post-processes and the stream: the
         observable sequence (``i``, the times, the states, the emissions)
         is the stepwise run's."""
-        if device_chunk and device_chunk > 1 and self.tmax:
+        if (device_chunk and device_chunk > 1 and self.tmax
+                and hasattr(self._scheme, "device_steps")):
             return self._run_chunked(progress, verbose, int(device_chunk))
         log = logger.info if verbose else logger.debug
         t, fields = self.t, self.fields
@@ -272,9 +303,9 @@ class Simulation:
                 self.t, self.fields, self.parameters = self._compute_one_step(
                     self.t, self.fields, self.parameters)
                 self._emit(pbar, log)
-            self.status = "finished"
+            self._end_simulation()
         except RuntimeError:
-            self.status = "failed"
+            self._fail()
             raise
         finally:
             if pbar is not None:
@@ -282,16 +313,34 @@ class Simulation:
         return self.t, self.fields
 
     # ------------------------------------------------------------- plumbing
-    def attach_container(self, *args, **kwargs):
-        raise NotImplementedError(
-            "persistence containers are not ported yet (ROADMAP A10)")
+    def attach_container(self, path=None, save="all", mode="w",
+                         nbuffer=50, force=False):
+        """Attach a persistence container fed from the stream, in
+        ``path/<id>`` (in memory with no path), the parameters as its
+        metadata."""
+        from ..plugins.container import Container
+
+        self._container = Container(
+            "%s/%s" % (path, self.id) if path else None, save=save,
+            mode=mode, metadata=self.parameters, force=force,
+            nbuffer=nbuffer)
+        self._container.connect(self.stream)
+        return self._container
 
     def save_checkpoint(self, path):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
+        """One-call restartable snapshot (t, i, dt, the scheme's internal
+        dt, the fields, the parameters): ``utils.checkpoint``."""
+        from ..utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(path, self)
 
     @staticmethod
     def from_checkpoint(path, model, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
+        """Rebuild a Simulation from a checkpoint file and the (re)built
+        model; extra kwargs (hook, scheme, tol, ...) are forwarded."""
+        from ..utils.checkpoint import load_checkpoint
+
+        return load_checkpoint(path, model, **kwargs)
 
     @property
     def post_processes(self):
@@ -303,7 +352,7 @@ class Simulation:
 
     @property
     def container(self):
-        return None
+        return self._container
 
     @property
     def timer(self):

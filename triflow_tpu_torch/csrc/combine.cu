@@ -1,7 +1,9 @@
 // K5: R linear combinations of A same-shape arrays in one pass,
 //   out[k][i] = sum_j rows[k][j] * in[j][i],   k < R, j < A,
 // the stage algebra of one Rosenbrock step (stage inputs u_i with their
-// bias sums, and the final (u_new, u_new - u_pred) pair).
+// bias sums, and the final (u_new, u_new - u_pred) pair) and of one
+// explicit RK step (stage inputs u + sum_j (a_ij dt) k_j, and the final
+// (u_new, error row) pair).
 //
 // Replaces, on the TPU: ops/folded.py combine_folded, which fetched each
 // input block into VMEM once and wrote every output once.
@@ -30,7 +32,15 @@
 //     float64 moves one element per step.
 // Each role is decided on the host from the coefficient's double value, as
 // the reference decides it: 0 skips the column, 1 adds the input
-// unmultiplied, anything else multiplies.  Products and sums are rounded
+// unmultiplied, anything else multiplies.  A fourth role, kScaleDt, marks a
+// column that the launch's dt scales (the explicit RK family's stage
+// weights a_ij * dt): the entry replaces its coefficient by T(c) * T(dt),
+// one product rounded in T (the same for every element, so formed once per
+// launch into the launch's copy of the block), and the body multiplies it
+// in as a kScale column.  The cached block stays keyed on the tableau.  An
+// ensemble whose members step by their own dt passes one dt per member
+// (dt_b, on the device): combine_members_kernel forms member b's products
+// T(c) * dt_b[b] on the device, the same rounding, one element per step.  Products and sums are rounded
 // one at a time (__fmul_rn, __fadd_rn and their double twins are never
 // contracted into an FMA), in the reference's column order, so the kernel
 // computes exactly what the plain PyTorch loop computes.
@@ -44,6 +54,8 @@ constexpr int kMaxR = 2;
 using tf::kScale;
 using tf::kSkip;
 using tf::kUnit;
+// a column scaled by the launch's dt (the wrapper's _SCALE_DT)
+constexpr unsigned char kScaleDt = 3;
 
 // The cached argument block: R x A coefficients rounded to T and their
 // roles (the wrapper's ``_coef_block`` writes exactly this layout).
@@ -58,6 +70,8 @@ struct Args {
   const T* in[kMaxA];
   T* out[kMaxR];
   Coefs<T> c;
+  const T* dt_b;  // each member's dt, or null: the launch's one dt (formed in c)
+  int B;          // members of dt_b
 };
 
 constexpr int kVecBlocksPerSm = 4;
@@ -113,10 +127,50 @@ __global__ void combine_kernel(const Args<T> args, long n) {
     combine_one<T, A, R>(args, i);
 }
 
+// An ensemble stepping each member by its own dt (the per-member
+// controller): member b's kScaleDt coefficients are T(c) * dt_b[b], formed
+// once per thread from the member's dt; a block row per member
+// (blockIdx.y), one element per step of a grid-stride loop over the
+// member's member_n elements.
+template <typename T, int A, int R>
+__global__ void combine_members_kernel(const Args<T> args, const T* __restrict__ dt_b,
+                                       long member_n) {
+  const long base = (long)blockIdx.y * member_n;
+  const T dt = __ldg(dt_b + blockIdx.y);
+  T coef[R][A];
+  unsigned char role[R][A];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+      const unsigned char r = args.c.role[k][j];
+      role[k][j] = r == kScaleDt ? kScale : r;
+      coef[k][j] = r == kScaleDt ? tf::mul_rn(args.c.coef[k][j], dt) : args.c.coef[k][j];
+    }
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < member_n; i += stride) {
+    T v[A];
+#pragma unroll
+    for (int j = 0; j < A; ++j) v[j] = __ldg(args.in[j] + base + i);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      args.out[k][base + i] = tf::lin_comb(A, coef[k], role[k], [&](int j) { return v[j]; });
+  }
+}
+
 // float4 where every pointer allows it (float32), else one element per
 // step; the grid from the SM count.
 template <typename T, int A, int R>
 void launch(const Args<T>& args, long n, bool aligned, int sms, cudaStream_t stream) {
+  if (args.dt_b) {
+    const long member_n = n / args.B;
+    const long cap = ((long)sms * kBlocksPerSm + args.B - 1) / args.B;
+    const long want = (member_n + 255) / 256;
+    const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
+    combine_members_kernel<T, A, R><<<dim3(blocks, args.B), 256, 0, stream>>>(args, args.dt_b,
+                                                                              member_n);
+    return;
+  }
   const long per_thread = aligned ? 4 : 1;
   const long cap = (long)sms * (aligned ? kVecBlocksPerSm : kBlocksPerSm);
   const long want = (n / per_thread + 255) / 256;
@@ -131,13 +185,25 @@ void launch(const Args<T>& args, long n, bool aligned, int sms, cudaStream_t str
 }
 
 template <typename T>
-int combine(const void* coefs, const void* const* ins, void* const* outs, int A, int R, int n,
-            int sms, void* stream) {
+int combine(const void* coefs, const void* const* ins, void* const* outs, const void* dt_b,
+            int A, int R, int n, int sms, int B, double dt, void* stream) {
   if (A < 1 || A > kMaxA || R < 1 || R > kMaxR || n < 0 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dt_b && (B < 1 || B > 65535 || n % B)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   Args<T> args;
   args.c = *static_cast<const Coefs<T>*>(coefs);
+  args.dt_b = static_cast<const T*>(dt_b);
+  args.B = B;
+  if (!dt_b) {
+    const T dt_t = static_cast<T>(dt);
+    for (int k = 0; k < R; ++k)
+      for (int j = 0; j < A; ++j)
+        if (args.c.role[k][j] == kScaleDt) {
+          args.c.coef[k][j] = args.c.coef[k][j] * dt_t;
+          args.c.role[k][j] = kScale;
+        }
+  }
   unsigned long long bits = 0;
   for (int j = 0; j < A; ++j) {
     args.in[j] = static_cast<const T*>(ins[j]);
@@ -171,16 +237,19 @@ int combine(const void* coefs, const void* const* ins, void* const* outs, int A,
 
 // coefs: the host address of a cached ``Coefs<T>`` block, read before the
 // launch returns; i0..i7: the A input arrays (the rest null), o0, o1: the
-// R outputs; sms: the card's SM count, which sizes the grid.
+// R outputs; sms: the card's SM count, which sizes the grid; dt: the factor
+// of the kScaleDt columns (read only where the block has one), or, where
+// dt_b is not null, dt_b: the device address of B members' factors, the
+// arrays being B members of n / B elements each.
 #define TF_ENTRIES(SUFFIX, T)                                                               \
   extern "C" int tf_combine_##SUFFIX(const void* coefs, const void* i0, const void* i1,    \
                                      const void* i2, const void* i3, const void* i4,       \
                                      const void* i5, const void* i6, const void* i7,       \
-                                     void* o0, void* o1, int A, int R, int n,              \
-                                     int sms, void* stream) {                              \
+                                     void* o0, void* o1, const void* dt_b, int A, int R,   \
+                                     int n, int sms, int B, double dt, void* stream) {     \
     const void* const ins[kMaxA] = {i0, i1, i2, i3, i4, i5, i6, i7};                       \
     void* const outs[kMaxR] = {o0, o1};                                                    \
-    return combine<T>(coefs, ins, outs, A, R, n, sms, stream);                             \
+    return combine<T>(coefs, ins, outs, dt_b, A, R, n, sms, B, dt, stream);                \
   }
 
 TF_ENTRIES(f32, float)

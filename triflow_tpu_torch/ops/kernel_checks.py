@@ -256,6 +256,71 @@ def check_combines_exact(device, dtype, results=None, seed=0):
     return results
 
 
+def check_combine_dt_exact(rows, arrays, dt, results=None, what=""):
+    """K5 with every column but the first weighed by ``dt`` (the explicit
+    RK family's rows) equal to its plain version bit for bit; ``dt`` one
+    number, or one per member (a (B,) tensor: the members body, recorded as
+    ``K5.combine_members``)."""
+    results = {} if results is None else results
+    cols = tuple(range(1, len(arrays)))
+    name = "K5.combine_members" if isinstance(dt, torch.Tensor) else "K5.combine"
+    got = combine.combine(rows, arrays, dt, cols)
+    want = combine.combine_plain(rows, arrays, dt, cols)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise CheckFailed(f"{name} {what}: not bit for bit equal to its "
+                              f"plain version (max gap {_err(g, w)[0]:.3e})")
+        _record(results, name, g, w, 0.0, what)
+    return results
+
+
+def erk_rows(a, b, b_pred):
+    """The K5 rows of one explicit RK step of tableau (a, b, b_pred): each
+    stage input's ``[1] + a[i, :i]`` over u and the i stages before it, and
+    the final ``[1] + b`` (with ``b_pred``, ``[0] + (b - b_pred)`` too) over
+    u and all s stages, zero coefficients kept."""
+    s = len(b)
+    rows = [[[1.0] + [float(c) for c in a[i, :i]]] for i in range(1, s)]
+    final = [[1.0] + [float(c) for c in b]]
+    if b_pred is not None:
+        final.append([0.0] + [float(c) for c in np.asarray(b) - b_pred])
+    return rows + [final]
+
+
+#: step sizes of the ERK checks, none exact in float32
+ERK_DTS = (1.234567e-5, 0.1 / 3)
+
+
+def check_erk_combines(shape, device, dtype, results=None, seed=0, B=None):
+    """K5 bit for bit its plain version with the rows of RK4, BS32 and
+    DOPRI5 (every stage input and the final rows over u and all stages, 8
+    arrays for DOPRI5) at ``shape`` and each of ``ERK_DTS``; with ``B``
+    members, a scalar dt and one dt per member (the members body)."""
+    from ..core import schemes
+
+    results = {} if results is None else results
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+    for tableau in (schemes.rk4_tableau, schemes.bs32_tableau,
+                    schemes.dopri5_tableau):
+        a, b, b_pred = tableau()
+        arrays = [torch.tensor(rng.standard_normal(lead + tuple(shape)),
+                               dtype=dtype, device=device)
+                  for _ in range(len(b) + 1)]
+        for rows in erk_rows(a, b, b_pred):
+            cols = arrays[:len(rows[0])]
+            for dt in ERK_DTS:
+                what = (f"{tableau.__name__} A={len(cols)} R={len(rows)} "
+                        f"shape={tuple(cols[0].shape)} dt={dt}")
+                check_combine_dt_exact(rows, cols, dt, results, what)
+                if B is not None:
+                    dts = torch.tensor(dt * (1 + rng.random(B)), dtype=dtype,
+                                       device=device)
+                    check_combine_dt_exact(rows, cols, dts, results,
+                                           what + " per member")
+    return results
+
+
 #: (W, nvar) of each block size s = nvar * max(W // 2, 1), 1..8
 SWEEP_BLOCKS = {1: (3, 1), 2: (5, 1), 3: (3, 3), 4: (9, 1), 5: (3, 5),
                 6: (5, 3), 7: (3, 7), 8: (5, 4)}
@@ -1533,6 +1598,8 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
             bands = random_bands(W, nvar, N, dtype, device, seed=i)
             check_solver(bands, 1.0, -0.3, periodic, seed=i, results=results)
         check_all_combines(device, dtype, results)
+        check_erk_combines((2, 777), device, dtype, results)
+        check_erk_combines((2, 1000), device, dtype, results, B=4)
         check_all_matvecs(device, dtype, results)
         check_all_megasteps(device, dtype, results)
         check_all_megathetas(device, dtype, results)

@@ -73,8 +73,19 @@ as a loop over member views (``_DeviceProblem.apply_hook_members``): B
 Python calls and one stack per application, so a hooked ensemble is
 host-bound at small N.
 
-Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9),
-containers and checkpoints (A10).
+The explicit RK family (``schemes.ERK_general``: RK4, BS32, DOPRI5) steps
+on the host route (no kernel takes a whole explicit step, so never K6):
+its ``fixed_step_batched`` runs K1.F and K5 with a member axis, K5 taking
+each member's dt under ``per_member_dt``; both controllers use the pair's
+exponent 1/(order + 1), as the reference passes its ``_err_exponent``.
+
+Persistence: ``attach_container`` persists the whole sweep in one
+container whose frames carry a ``member`` axis
+(``TimeSeries.from_ensemble_state``), fed once per ``step`` and once per
+``steps`` call, flushed at the end of ``run``; ``save_checkpoint`` /
+``from_checkpoint`` (``utils.checkpoint``) write and rebuild the sweep.
+
+Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -109,13 +120,6 @@ def stack_parameters(model, parameter_sets, N):
     return torch.stack(rows).contiguous()
 
 
-def _status_error(status):
-    if status == 1:
-        raise RuntimeError(
-            "Rosenbrock internal iteration above max iterations authorized")
-    if status == 2:
-        raise RuntimeError(
-            "Rosenbrock internal time step less than authorized")
 
 
 class Ensemble:
@@ -189,7 +193,8 @@ class Ensemble:
         if not hasattr(self._scheme, "fixed_step_batched"):
             raise NotImplementedError(
                 f"{type(self._scheme).__name__} has no batched step in the "
-                "port (ensembles take Theta and the ROW family)")
+                "port (ensembles take Theta, the ROW and the explicit RK "
+                "families)")
         self._adaptive = bool(getattr(self._scheme, "_time_control", False))
         self._hook = hook
         self._per_member_dt = bool(per_member_dt) and self._adaptive
@@ -272,6 +277,7 @@ class Ensemble:
         steps: the carry of a ``steps`` call) folds the step into it."""
         sch, problem = self._scheme, self._problem
         T, clock = sch._dt_type, sch._clock
+        exponent = getattr(sch, "_err_exponent", 0.5)
         state = (self.u, self.helpers, self.pstack)
         step_carry = (torch.zeros_like(self.u)
                       if sch._compensated and self._adaptive else None)
@@ -294,7 +300,8 @@ class Ensemble:
                 rosenbrock.member_controller(
                     attempt, T, self.t, dt, internal_dt, sch._tol,
                     sch._safety_factor, sch._max_iter, sch._dt_min,
-                    not sch._recompute_target, state, clock, step_carry)
+                    not sch._recompute_target, state, clock, step_carry,
+                    exponent)
         else:
             def attempt(t_, state_, dt_eff):
                 u2, h2, p2, _, errs = sch.fixed_step_batched(
@@ -305,7 +312,8 @@ class Ensemble:
                 rosenbrock.adaptive_controller(
                     attempt, T, self.t, dt, internal_dt, sch._tol,
                     sch._safety_factor, sch._max_iter, sch._dt_min,
-                    not sch._recompute_target, state, clock, step_carry)
+                    not sch._recompute_target, state, clock, step_carry,
+                    exponent)
         # the output-time hook, as the reference's steppers end every
         # output step
         u2, self.helpers, self.pstack, _ = problem.apply_hook_members(
@@ -345,7 +353,7 @@ class Ensemble:
         if status:
             # a failed call leaves the ensemble as it was
             self.t, self.u, self.helpers, self.pstack = before
-            _status_error(status)
+            raise RuntimeError(self._scheme._failures[status])
         self.t = t
         self._internal_dt = (np.asarray(dt_i) if np.ndim(dt_i)
                              else float(dt_i))
@@ -376,6 +384,8 @@ class Ensemble:
                 self.steps(min(int(steps_per_call), n_full), dt)
         while self.t < tmax - eps:
             self.step(min(dt, tmax - self.t))
+        if self._container is not None:
+            self._container.flush()
         return self.t, self.u
 
     def _emit(self):
@@ -394,18 +404,44 @@ class Ensemble:
     def container(self):
         return self._container
 
-    def attach_container(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Ensemble.attach_container: containers are not ported yet "
-            "(ROADMAP A10)")
+    def attach_container(self, path=None, save="all", mode="w",
+                         nbuffer=50, force=False):
+        """Persist the whole sweep into one container, in ``path/<id>``
+        (in memory with no path): every frame carries a ``member`` axis,
+        so ``retrieve(path).data[var]`` has shape (T, B, N); the members'
+        parameter values are in the metadata.  The current state is the
+        first frame."""
+        from ..plugins.container import Container, TimeSeries
+
+        metadata = {"B": self.B, "N": self.N, "periodic": self.periodic,
+                    "ensemble": True}
+        keys = sorted({k for p in self._parameter_sets for k in p}
+                      - {"periodic"})
+        for k in keys:
+            metadata[k] = [p.get(k) for p in self._parameter_sets]
+        self._container = Container(
+            "%s/%s" % (path, self.id) if path else None, save=save,
+            mode=mode, metadata=metadata, force=force, nbuffer=nbuffer)
+        self._container.connect(
+            self.stream,
+            snapshot=lambda ens: TimeSeries.from_ensemble_state(
+                ens.t, ens, metadata))
+        self._emit()
+        return self._container
 
     def save_checkpoint(self, path):
-        raise NotImplementedError(
-            "Ensemble.save_checkpoint: checkpoints are not ported yet "
-            "(ROADMAP A10)")
+        """One-call restartable snapshot of the whole sweep (t, member
+        states, helpers, shared or per-member internal dt, member
+        parameter sets): ``utils.checkpoint``."""
+        from ..utils.checkpoint import save_ensemble_checkpoint
+
+        return save_ensemble_checkpoint(path, self)
 
     @staticmethod
     def from_checkpoint(path, model, **kwargs):
-        raise NotImplementedError(
-            "Ensemble.from_checkpoint: checkpoints are not ported yet "
-            "(ROADMAP A10)")
+        """Rebuild an Ensemble from a checkpoint file and the (re)built
+        model; extra kwargs (scheme, tol, per_member_dt, ...) are
+        forwarded."""
+        from ..utils.checkpoint import load_ensemble_checkpoint
+
+        return load_ensemble_checkpoint(path, model, **kwargs)

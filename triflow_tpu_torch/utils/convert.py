@@ -1,8 +1,19 @@
-"""Hand a state to the port: numpy arrays in, the model's tensors out."""
+"""Hand a state to the port: numpy arrays in, the model's tensors out, and
+back: a tensor's numpy array for the host (containers, checkpoints,
+displays, scipy)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def host_array(value):
+    """A numpy array of ``value``: a tensor through ``.detach().cpu()
+    .numpy()`` (from any device), anything else through ``np.asarray``."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def state_from_numpy(fields, pars, model):
