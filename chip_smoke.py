@@ -305,6 +305,26 @@ profiler, K5's dt entry and members body against plain, bound and one
 PyTorch call, RK4 stepwise against the graph route, and one
 stability-limited output step.
 
+Spatial sharding runs its own phases, on a ``parallel.Mesh`` of one card:
+``phase1_spatial`` holds K1's shard entries (``K1.F_shards``,
+``K1.F_terms_shards``, ``K1.J_shards``) and every kernel of the
+distributed factorization on the shard axis (K2-K4 of the shards' local
+systems, the wrap off; K3 on a spike column; K4 over the shards,
+block-cyclic and Woodbury; K3's correction with the shards as chunks)
+against their plain versions at small shapes and at the path's own (KS
+2^20 over 8 shards, the ring of 999996 over 6, the README grid at 10^6
+over 8 in edge mode, 16 Burgers members of 2^16 over 4);
+``phase2_spatial`` drives ``Simulation(mesh=)`` (KS 2^20 fixed and
+adaptive RODASPR and ``refine=1``, the Woodbury ring, the README grid with its Dirichlet
+hook under Theta, DOPRI5 at 2^20), its ``run(device_chunk=2)`` on the
+graph route, the df64 mode's mixed solve and ``Ensemble(space_axis=)``
+(RODASPR per member, ROS2), each with its launches as the plan predicts
+(``shard_launches``) and against the card's single grid and the port's
+CPU f64 sharded run (``spatial_cpu_runs``); ``phase3_spatial`` times the
+sharded KS 2^20 step against the single grid, the interface system's and
+the spike columns' shares of its device µs, the dp x sp output step, and
+K1's shard entries against plain and bound.
+
 The last three lines are the kernels' JSON record (launches in phase 2,
 largest error against the plain version, f32 ms of kernel, plain version,
 bound and library call, with f64 beside them; K4.pcr_solve and K7 at KS
@@ -340,7 +360,7 @@ from triflow_tpu_torch.core.rosenbrock import adaptive_controller, member_contro
 from triflow_tpu_torch.ops import (_build, _launch, chunked, combine, kernel_checks,
                                    matvec, megastep, megatheta, mixed, pcr, stencil,
                                    thomas)
-from triflow_tpu_torch.parallel import Ensemble
+from triflow_tpu_torch.parallel import Ensemble, Mesh, spatial
 from triflow_tpu_torch.utils.convert import ensemble_from_numpy, state_from_numpy
 
 N_BIG = 1 << 20
@@ -441,15 +461,31 @@ KERNELS = {
                                 "triflow_tpu/ops/pallas_pcr.py:298 interface_shift_solve"),
     "K4.pcr_solve_wide": ("cuda", "triflow_tpu_torch/csrc/pcr.cu",
                           "triflow_tpu/ops/pallas_pcr.py:408 pcr_solve_fused_sub"),
+    # K1 on the haloed shards of a grid on a mesh (the reference's
+    # SpatialModel._local_F / _local_J under shard_map, whose stencils are
+    # these kernels' work): each shard's halo from its ring neighbours, its
+    # own dx
+    "K1.F_shards": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
+                    "triflow_tpu/ops/folded.py:469 eval_F_folded (on the haloed shards of "
+                    "triflow_tpu/parallel/spatial.py:422 _local_F)"),
+    "K1.F_terms_shards": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
+                          "triflow_tpu/ops/folded.py:469 eval_F_folded (u_terms mode, on the "
+                          "haloed shards of triflow_tpu/parallel/spatial.py:422 _local_F)"),
+    "K1.J_shards": ("cuda", "triflow_tpu_torch/csrc/stencil.cu",
+                    "triflow_tpu/ops/folded.py:667 eval_J_folded (on the haloed shards of "
+                    "triflow_tpu/parallel/spatial.py:430 _local_J)"),
 }
 #: the wide instantiations of K2-K4 (block sizes 5..8), which count apart
 WIDE = [k for k in KERNELS if k.endswith("_wide")]
+#: K1's entries of a grid cut into shards (parallel/spatial.py)
+SHARDS = [k for k in KERNELS if k.endswith("_shards")]
 #: the kernel entries of the df64 mode's mixed solve: float64 operands only
 DF64_ONLY = ("K8.residual", "K6.step_mixed")
 #: the kernel entries of the multi-launch path on a block-cyclic plan; a
 #: Woodbury plan adds K4.pcr_solve, ``refine=`` and ``Theta(solver=)`` add
 #: K7.matvec
 MULTI_LAUNCH = [k for k in KERNELS if not k.startswith(("K6", "K9")) and k not in WIDE
+                and k not in SHARDS
                 and k not in ("K4.pcr_solve", "K1.F_terms", "K7.matvec", "K8.residual",
                               "K4.pcr_factor_members", "K4.pcr_solve_members",
                               "K5.combine_members")]
@@ -1607,13 +1643,14 @@ _CPU = {}
 
 
 def start_cpu_refs():
-    """Start the CPU f64 runs, in four processes of their own: phase 2's
+    """Start the CPU f64 runs, in five processes of their own: phase 2's
     cases (``cpu_reference_runs``), the falling film's (``film_cpu_runs``),
-    the padded grids' (``padded_cpu_runs``) and the explicit RK family's
-    (``erk_cpu_runs``)."""
+    the padded grids' (``padded_cpu_runs``), the explicit RK family's
+    (``erk_cpu_runs``) and the sharded grids' (``spatial_cpu_runs``)."""
     ctx = multiprocessing.get_context("spawn")
     for key, target in (("main", cpu_reference_runs), ("film", film_cpu_runs),
-                        ("padded", padded_cpu_runs), ("erk", erk_cpu_runs)):
+                        ("padded", padded_cpu_runs), ("erk", erk_cpu_runs),
+                        ("spatial", spatial_cpu_runs)):
         mine, theirs = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=target, args=(theirs,))
         proc.start()
@@ -5014,6 +5051,517 @@ def phase3_erk(smi):
     return times
 
 
+# ---------------------------------------------------------------- spatial sharding
+
+#: the reference's 8-device mesh on the card: one grid cut into shards
+SPACE_AXIS = ("space",)
+#: the Woodbury ring: KS on 999996 nodes over 6 shards of 166666 (an even
+#: shard, no padding; a ring of 6 shards, no power of two)
+N_RING6 = 999996
+#: dp x sp: B Burgers members of N_DPSP nodes on a (2, 4) mesh of
+#: ("ensemble", "space")
+DPSP_B, DPSP_N, DPSP_MESH = 16, 1 << 16, (2, 4)
+DPSP_BURGERS = ("k * dxxU - U * dxU", "U", "k")
+
+
+def space_mesh(ndev, device="cuda"):
+    return Mesh.on(device, ndev, SPACE_AXIS)
+
+
+def advdiff_erk_case(N=N_BIG, dt=1e-5, tmax=2e-5):
+    """The reference's sharded DOPRI5 model (``k * dxxU - c * dxU``) on
+    [0, 10) at N nodes, c = 0.5 and k = 1e-7, with output steps of 1e-5:
+    under the explicit limits at dx = 10 / N (advection ~6e-5, diffusion
+    ~7e-4 at N = 2^20), so each attempt's err is the truncation error of a
+    smooth field, not amplified rounding; the spacing is exact in binary,
+    so every shard's dx is the whole grid's."""
+    x = np.linspace(0, 10, N, endpoint=False)
+    return ({"x": x, "U": np.cos(2 * np.pi * x / 10) + 0.1 * np.sin(2 * np.pi * x * 64 / 10)},
+            dict(periodic=True, k=1e-7, c=0.5), dt, tmax, None)
+
+
+def readme_edge_case(N=N_REF, steps=2):
+    """The README case tiled to N nodes at about its own spacing (2^-8
+    against 1 / 199) and its wavelength, ``steps`` output steps.  I - 5 J
+    keeps about the README grid's condition (10^3); on [0, 1] at N = 10^6
+    (dx = 1e-6) it would be about 10^10, and any two solvers of it differ by
+    eps times that.  x = i 2^-8 is exact in float32 as in float64, so every
+    shard's x[1] - x[0] is the whole grid's dx: in float32 a grid whose x
+    takes 20 bits leaves a shard's difference of two x values a few bits
+    (the reference's shards take dx that way too)."""
+    fields, pars, dt, _, hook = readme_case()
+    x = np.arange(N) * 2.0 ** -8
+    return {"x": x, "U": np.cos(2 * np.pi * x * 5)}, pars, dt, steps * dt, hook
+
+
+#: (label, equations, case, shards, scheme kwargs, f32 limit against the CPU
+#: f64 sharded run, kind): kind "rodaspr" / "theta" / "dopri5" / "ros2
+#: mixed"; ``tol`` None in the kwargs of "dopri5" takes ERK_TOL by dtype
+SPATIAL_CASES = [
+    ("ks N=2^20 8 shards rodaspr fixed (2 x 0.05)", KS, ks_case(0.05, 0.1), 8,
+     FIXED, 1e-4, "rodaspr"),
+    ("ks N=2^20 8 shards rodaspr adaptive tol 1e-3 (1 x 1.0)", KS, ks_case(1.0, 1.0), 8,
+     dict(tol=1e-3), 1e-2, "rodaspr"),
+    ("ks N=2^20 8 shards rodaspr fixed refine=1 (2 x 0.05)", KS, ks_case(0.05, 0.1), 8,
+     REFINED, 1e-4, "rodaspr"),
+    ("ks N=999996 6 shards rodaspr fixed (2 x 0.05), woodbury ring", KS,
+     ks_case(0.05, 0.1, N_RING6), 6, FIXED, 1e-4, "rodaspr"),
+    ("readme N=10^6 8 shards theta, edge, dirichlet (2 x 5.0)", README,
+     readme_edge_case(), 8, THETA, 1e-4, "theta"),
+    ("advdiff N=2^20 8 shards dopri5 (2 x 1e-5)", README, advdiff_erk_case(), 8,
+     dict(scheme=schemes.DOPRI5, tol=None), 1e-4, "dopri5"),
+]
+#: df64: KS 2^20 over 8 shards, ROS2 with df64_mixed_solve=2 at a dt exact
+#: in float32, against the card's double=True single grid
+SPATIAL_DF64 = ("ks N=2^20 8 shards df64 ros2 df64_mixed_solve=2 (2 x 0.0625)", KS,
+                ks_case(0.0625, 0.125), 8,
+                dict(scheme=schemes.ROS2, time_stepping=False, df64_mixed_solve=2))
+#: dp x sp: (label, scheme kwargs, output steps of dt, dtypes).  The
+#: reference's tol 1e-6 runs in float64 only (float32's rounding of a
+#: stage difference is not far below it); the fixed ROS2 case runs in both
+DPSP_CASES = [
+    ("dp x sp burgers B=16 N=2^16 (2, 4) rodaspr tol 1e-6 per_member_dt (1 x 0.5)",
+     dict(scheme=schemes.RODASPR, tol=1e-6, per_member_dt=True), 1, 0.5, ("float64",)),
+    ("dp x sp burgers B=16 N=2^16 (2, 4) ros2 fixed (2 x 0.05)",
+     dict(scheme=schemes.ROS2), 2, 0.05, ("float64", "float32")),
+]
+
+
+def spatial_kwargs(kwargs, dtype):
+    kw = dict(kwargs)
+    if kw.get("scheme") is schemes.DOPRI5 and kw.get("tol") is None:
+        kw["tol"] = ERK_TOL[dtype]
+    return kw
+
+
+def spatial_run(eqs, case, ndev, kwargs, device, dtype, double=None, device_chunk=None):
+    """(simulation, final u, attempts per output step, emissions) of a case
+    through ``Simulation(mesh=)`` (ndev shards; None: the single grid);
+    emissions are (t, u) of every output step."""
+    fields_np, pars, dt, tmax, hook = case
+    double = dtype == torch.float64 if double is None else double
+    model = Model(*eqs, double=double, device=device)
+    fields, pars_t = state_from_numpy(fields_np, pars, model)
+    mesh = None if ndev is None else space_mesh(ndev, device)
+    sim = Simulation(model, fields, pars_t, dt=dt, tmax=tmax, mesh=mesh,
+                     hook=hook or schemes.null_hook, **spatial_kwargs(kwargs, dtype))
+    seen, attempts = [], []
+    sim.stream.sink(lambda s: seen.append((s.t, s.fields["U"].clone())))
+    if device_chunk:
+        sim.run(progress=False, device_chunk=device_chunk)
+    else:
+        for _ in sim:
+            attempts.append(getattr(sim._scheme, "_internal_iter", None))
+    if sim.status != "finished":
+        raise RuntimeError(f"simulation ended at t={sim.t} with status {sim.status}")
+    return sim, sim.fields["U"], attempts, seen[1:]
+
+
+def dpsp_state(B=DPSP_B, N=DPSP_N):
+    """The sweep of the reference's dp x sp tests (B Burgers members, k
+    from 0.5 to 2, random phases) tiled to N nodes at its spacing, 10 / 256:
+    on [0, 10) at N = 2^16 I - g00 dt J would have a condition of about
+    10^7, past what float32 solves."""
+    x = np.linspace(0, 10 * N / 256, N, endpoint=False)
+    rng = np.random.RandomState(0)
+    u0 = np.stack([np.cos(2 * np.pi * x / 10 + phi) for phi in rng.rand(B)])
+    pars = [dict(k=float(k), periodic=True) for k in np.linspace(0.5, 2.0, B)]
+    return x, u0, pars
+
+
+def dpsp_run(kwargs, steps, dt, device, dtype, mesh=True):
+    """The dp x sp ensemble (or, ``mesh=False``, the unsharded one) after
+    ``steps`` calls of ``step(dt)``: (ensemble, member attempts per call)."""
+    x, u0, pars = dpsp_state()
+    model = Model(*DPSP_BURGERS, double=dtype == torch.float64, device=device)
+    kw = dict(kwargs)
+    if mesh:
+        kw.update(mesh=Mesh.on(device, DPSP_MESH, ("ensemble", "space")),
+                  space_axis="space")
+    ens = Ensemble(model, **ensemble_from_numpy(model, u0, x, pars), **kw)
+    iters = []
+    for _ in range(steps):
+        ens.step(dt)
+        iters.append(None if ens.member_iters is None else ens.member_iters.tolist())
+    return ens, iters
+
+
+def spatial_cpu_runs(conn):
+    """The port's CPU f64 sharded runs of the spatial cases (and the df64
+    and dp x sp ones), sent through ``conn``: {label: (u, attempts, s)}, or
+    ("error", traceback)."""
+    try:
+        torch.set_num_threads(2)
+        out = {}
+        for label, eqs, case, ndev, kwargs, _, _ in SPATIAL_CASES:
+            start = time.perf_counter()
+            _, u, attempts, _ = spatial_run(eqs, case, ndev, kwargs, "cpu", torch.float64)
+            out[label] = (u.numpy(), attempts, time.perf_counter() - start)
+        label, eqs, case, ndev, kwargs = SPATIAL_DF64
+        start = time.perf_counter()
+        _, u, _, _ = spatial_run(eqs, case, ndev, kwargs, "cpu", torch.float64, "df64")
+        out[label] = (u.numpy(), [], time.perf_counter() - start)
+        for label, kwargs, steps, dt, _ in DPSP_CASES:
+            start = time.perf_counter()
+            ens, iters = dpsp_run(kwargs, steps, dt, "cpu", torch.float64)
+            out[label] = (ens.u.numpy(), iters, time.perf_counter() - start)
+        conn.send(out)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def shard_launches(splan, factors, solves, F=0, F_terms=0, K8=0):
+    """The launches of ``factors`` distributed factorizations and ``solves``
+    solves of ``parallel.spatial`` on ``splan`` (``F`` / ``F_terms`` K1
+    shard launches, ``K8`` mixed residuals beside them): per factor K1.J,
+    the local factor (K2, K4), 2P spike columns through the local solve
+    (K3, K4, K3), the interface factor over the shards (K4, with the
+    Woodbury set-up on a ring that is not block-cyclic); per solve the
+    local solve and the interface's solve with shifts (K4) and correction
+    (K3)."""
+    lp, ip = splan.local, splan.iface
+    want = dict.fromkeys(KERNELS, 0)
+
+    def n(name, s):
+        return kernel_checks.solver_entry(name, s)
+
+    local = solves + 2 * ip.s * factors
+    for name, count in ((n("K2.spike_factor", lp.s), factors),
+                        (kernel_checks.factor_entry(lp.s, lp.C), factors),
+                        (n("K3.thomas_sweep", lp.s), local),
+                        (n("K4.pcr_solve_shift", lp.s), local),
+                        (n("K3.spike_correct", lp.s), local),
+                        (kernel_checks.factor_entry(ip.s, ip.C), factors),
+                        (n("K4.pcr_solve_shift", ip.s), solves),
+                        (n("K3.spike_correct", ip.s), solves),
+                        ("K1.J_shards", factors), ("K1.F_shards", F),
+                        ("K1.F_terms_shards", F_terms), ("K8.residual", K8)):
+        want[name] += count
+    if ip.woodbury:
+        cols = ("K4.pcr_solve_members" if pcr.cols_route(2 * ip.s, ip.C, ip.B) == "members"
+                else n("K4.pcr_solve", ip.s))
+        want[cols] += factors
+    return want
+
+
+def spatial_plan(eqs, N, ndev, periodic, B=1):
+    sysm = Model(*eqs, device="cpu").system
+    return spatial.shard_plan(N, sysm.nvar, sysm.halo, ndev, periodic, B)
+
+
+def expected_spatial(kind, splan, attempts, k5_per_attempt, passes=0, refine=0):
+    """A sharded case's launches from its plan and attempts (stages of
+    RODASPR 6, ROS2 2, DOPRI5 7 F and no solve, Theta 1 F and 1 solve;
+    ``refine`` more solves and K7 residuals a stage); K5 per attempt as the
+    single grid's run of the same scheme launched it."""
+    if kind == "dopri5":
+        want = dict.fromkeys(KERNELS, 0)
+        want["K1.F_shards"] = 7 * attempts
+    else:
+        stages = {"rodaspr": 6, "ros2": 2, "theta": 1}[kind.split()[0]]
+        solves = stages * attempts * (1 + passes) * (1 + refine)
+        want = shard_launches(splan, attempts, solves, F=stages * attempts,
+                              K8=stages * attempts * passes)
+        want["K7.matvec"] = stages * attempts * refine
+    want["K5.combine"] = round(k5_per_attempt * attempts)
+    return want
+
+
+def attempts_of(attempts, steps):
+    """Attempts of a run: the sum of its output steps' (adaptive), else one
+    a step."""
+    return sum(attempts) if any(attempts) else steps
+
+
+def phase1_spatial(errs):
+    """Every kernel the spatial path launches on a shard axis against its
+    plain version (``kernel_checks.check_all_shards`` at small shapes, then
+    at the path's own: K1's shard entries and the distributed
+    factorization's K2-K4 at KS 2^20 over 8 shards, the Woodbury ring of 6,
+    the README grid's 10^6 over 8 in edge mode and dp x sp's 16 members of
+    2^16 over 4), f64 and f32."""
+    log("phase 1: the spatial path's kernels on the shard axis against their plain "
+        "versions")
+    for dt_name, dtype in DTYPES.items():
+        res = kernel_checks.check_all_shards("cuda", dtype)
+        path = [(KS, N_BIG, 8, True, None), (KS, N_RING6, 6, True, None),
+                (README, N_REF, 8, False, None),
+                (DPSP_BURGERS, DPSP_N, DPSP_MESH[1], True, DPSP_B)]
+        for i, (eqs, N, ndev, periodic, B) in enumerate(path):
+            model = Model(*eqs, double=dtype == torch.float64, device="cuda")
+            b = model.backend
+            args = kernel_checks.shard_inputs(model, N, B, "cuda", seed=10 + i)
+            what = f"{eqs[0]} N={N} shards={ndev} periodic={periodic} B={B}"
+            kernel_checks.check_shard_stencil(model, *args, periodic, ndev, what, res)
+            bands = b.J_bands(*args, periodic=periodic, shards=ndev)
+            beta0 = -0.5 / float(bands.abs().amax())
+            beta = (beta0 if B is None else
+                    torch.tensor(beta0 * (1 + np.arange(B)) / B, dtype=dtype, device="cuda"))
+            splan = spatial.shard_plan(N, b.system.nvar, b.halo, ndev, periodic,
+                                       1 if B is None else B)
+            kernel_checks.check_shard_solver(bands, beta, splan, seed=i, results=res)
+            log(f"  {what}: local plan C={splan.local.C} Mc={splan.local.Mc} "
+                f"padded={splan.local.padded}, interface cyclic={splan.iface.cyclic} "
+                f"woodbury={splan.iface.woodbury}: held")
+        log(f"  shard checks {dt_name}: " + json.dumps(res))
+        for name, err in res.items():
+            errs[dt_name][name] = max(errs[dt_name].get(name, 0.0), err)
+    return errs
+
+
+def phase2_spatial(launches):
+    """The sharded paths through the port's entry points on the card, f64 and
+    f32, each run with the counts set to 0 just before it:
+    ``Simulation(mesh=)`` on KS 2^20 over 8 shards (fixed and adaptive
+    RODASPR, and ``refine=1``: K7 on the global bands), the Woodbury ring (KS 999996 over 6), the README grid at 10^6
+    over 8 in edge mode with its Dirichlet hook (Theta) and DOPRI5 at 2^20
+    over 8; each against the card's single grid (f64 within 1e-9 of max|u|,
+    f32 within 1e-4; DOPRI5 bit for bit: the same F, no solve) and the
+    port's CPU f64 sharded run (f64 within 1e-10 and the same attempts),
+    with its launches the plan's; the fixed KS case's ``run(device_chunk=2)``
+    bit for bit its stepwise run on the graph route; the df64 mode (ROS2,
+    df64_mixed_solve=2) against the card's double=True single grid (1e-11)
+    and its CPU run; dp x sp (RODASPR per_member_dt, ROS2) against the
+    unsharded ensemble on the card (member attempts equal) and the CPU."""
+    log("phase 2: spatial sharding through Simulation(mesh=) and Ensemble(space_axis=)")
+    refs = cpu_refs("spatial")
+    for label, eqs, case, ndev, kwargs, tol32, kind in SPATIAL_CASES:
+        fields_np, pars, dt, tmax, _ = case
+        N = len(fields_np["x"])
+        splan = spatial_plan(eqs, N, ndev, pars["periodic"])
+        u_cpu, att_cpu, cpu_s = refs[label]
+        scale = float(np.abs(u_cpu).max())
+        log(f"  {label}: local plan C={splan.local.C} Mc={splan.local.Mc} padded="
+            f"{splan.local.padded}, interface C={splan.iface.C} cyclic="
+            f"{splan.iface.cyclic} woodbury={splan.iface.woodbury}; CPU f64 attempts "
+            f"{att_cpu} ({cpu_s:.1f} s)")
+        for dt_name, dtype in DTYPES.items():
+            torch.cuda.synchronize()
+            _launch.reset_counters()
+            start = time.perf_counter()
+            sim, u, attempts, seen = spatial_run(eqs, case, ndev, kwargs, "cuda", dtype)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            counts = _launch.counts()
+            _launch.reset_counters()
+            _, u1, att1, _ = spatial_run(eqs, case, None, kwargs, "cuda", dtype)
+            single = _launch.counts()
+            steps = len(seen)
+            n_att = attempts_of(attempts, steps)
+            k5 = single["K5.combine"] / attempts_of(att1, steps)
+            want = expected_spatial(kind, splan, n_att, k5,
+                                    refine=kwargs.get("refine", 0))
+            off = {k: (counts[k], want[k]) for k in KERNELS if counts[k] != want[k]}
+            if off:
+                raise RuntimeError(f"{label} {dt_name}: launches (got, predicted) {off}")
+            gap1 = float((u - u1).abs().max() / u1.abs().max())
+            gap_cpu = float((u.double().cpu() - torch.from_numpy(u_cpu)).abs().max()) / scale
+            log(f"    {dt_name}: {steps} output steps in {secs:.3f} s wall (first call); "
+                f"attempts {attempts} (single grid {att1}); launches as predicted "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; max|u - u_single| / max|u| = {gap1:.3e}; "
+                f"against the CPU f64 sharded run {gap_cpu:.3e}")
+            if not bool(torch.isfinite(u).all()):
+                raise RuntimeError(f"{label} {dt_name}: non-finite state")
+            if kind == "dopri5":
+                if not torch.equal(u, u1) or attempts != att1:
+                    raise RuntimeError(f"{label} {dt_name}: not bit for bit the single grid")
+            elif not gap1 <= (1e-9 if dtype == torch.float64 else 1e-4):
+                raise RuntimeError(f"{label} {dt_name}: off the single grid")
+            if dtype == torch.float64:
+                if not gap_cpu <= 1e-10 or attempts != att_cpu:
+                    raise RuntimeError(f"{label} f64: off the CPU f64 sharded run")
+            elif not gap_cpu <= tol32:
+                raise RuntimeError(f"{label} f32: off the CPU f64 sharded run")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            if label == SPATIAL_CASES[0][0]:
+                # the chunked run: every emission bit for bit the stepwise one
+                _launch.reset_counters()
+                sim_c, _, _, seen_c = spatial_run(eqs, case, ndev, kwargs, "cuda", dtype,
+                                                  device_chunk=2)
+                chunk_counts = _launch.counts()
+                route = sim_c._scheme.steps_route
+                same = len(seen_c) == len(seen) and all(
+                    ta == tb and torch.equal(ua, ub)
+                    for (ta, ua), (tb, ub) in zip(seen, seen_c))
+                log(f"    {dt_name}: run(device_chunk=2) route {route}, emissions bit for "
+                    f"bit the stepwise run: {same}")
+                if route != "graph" or not same or any(
+                        chunk_counts[k] for k in KERNELS if k.startswith(("K6", "K9"))):
+                    raise RuntimeError(f"{label} {dt_name}: the chunked run is off")
+                for k in KERNELS:
+                    launches[k] += chunk_counts[k]
+    # df64
+    label, eqs, case, ndev, kwargs = SPATIAL_DF64
+    fields_np, pars, dt, tmax, _ = case
+    splan = spatial_plan(eqs, len(fields_np["x"]), ndev, True)
+    _launch.reset_counters()
+    _, u, _, seen = spatial_run(eqs, case, ndev, kwargs, "cuda", torch.float64, "df64")
+    counts = _launch.counts()
+    _launch.reset_counters()
+    single_kw = {k: v for k, v in kwargs.items() if k != "df64_mixed_solve"}
+    _, u1, _, _ = spatial_run(eqs, case, None, single_kw, "cuda", torch.float64)
+    single = _launch.counts()
+    want = expected_spatial("ros2", splan, len(seen),
+                            single["K5.combine"] / len(seen), passes=2)
+    off = {k: (counts[k], want[k]) for k in KERNELS if counts[k] != want[k]}
+    u_cpu = torch.from_numpy(refs[label][0])
+    gap1 = float((u - u1).abs().max() / u1.abs().max())
+    gap_cpu = float((u.cpu() - u_cpu).abs().max() / u_cpu.abs().max())
+    log(f"  {label}: launches " + json.dumps({k: v for k, v in counts.items() if v})
+        + f"; max|u - u_double| / max|u| = {gap1:.3e} (limit 1e-11); against the CPU "
+        f"df64 sharded run {gap_cpu:.3e} (limit 1e-10)")
+    if off or not gap1 <= 1e-11 or not gap_cpu <= 1e-10:
+        raise RuntimeError(f"{label}: off (launches (got, predicted) {off})")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    # dp x sp
+    for label, kwargs, steps, dt, dt_names in DPSP_CASES:
+        u_cpu, iters_cpu, cpu_s = refs[label]
+        splan = spatial_plan(DPSP_BURGERS, DPSP_N, DPSP_MESH[1], True, DPSP_B)
+        for dt_name in dt_names:
+            dtype = DTYPES[dt_name]
+            _launch.reset_counters()
+            ens, iters = dpsp_run(kwargs, steps, dt, "cuda", dtype)
+            counts = _launch.counts()
+            ref, iters1 = dpsp_run(kwargs, steps, dt, "cuda", dtype, mesh=False)
+            attempts = counts["K1.J_shards"]
+            want = shard_launches(splan, attempts, 6 * attempts if "rodaspr" in label
+                                  else 2 * attempts,
+                                  F_terms=(6 if "rodaspr" in label else 2) * attempts)
+            want["K5.combine"] = attempts
+            off = {k: (counts[k], want[k]) for k in KERNELS if counts[k] != want[k]}
+            gap1 = float((ens.u - ref.u).abs().max() / ref.u.abs().max())
+            gap_cpu = float((ens.u.double().cpu() - torch.from_numpy(u_cpu)).abs().max()
+                            / np.abs(u_cpu).max())
+            log(f"  {label} {dt_name}: route {ens.route}, {attempts} member-axis attempts, "
+                f"member attempts {iters} (unsharded {iters1}, CPU {iters_cpu}); launches "
+                + json.dumps({k: v for k, v in counts.items() if v})
+                + f"; against the unsharded ensemble {gap1:.3e}, the CPU {gap_cpu:.3e}")
+            lim = 1e-9 if dtype == torch.float64 else 1e-4
+            if off or not gap1 <= lim or iters != iters1:
+                raise RuntimeError(f"{label} {dt_name}: off (launches (got, predicted) "
+                                   f"{off})")
+            if dtype == torch.float64 and (not gap_cpu <= 1e-10 or iters != iters_cpu):
+                raise RuntimeError(f"{label} f64: off the CPU f64 run")
+            for k in KERNELS:
+                launches[k] += counts[k]
+    log("  launches over phase 2 with spatial sharding: " + json.dumps(launches))
+    return launches
+
+
+def interface_pieces(fact, rhs):
+    """The interface system's share of a sharded step's solves: its K4
+    factor (and Woodbury set-up), then per stage (6) the solve with shifts
+    over the shards (K4) and the correction (K3)."""
+    ip = fact.plan.iface
+    sp_ = fact.spikes
+    yred = torch.zeros(sp_.Lred.shape[:-3] + (2 * ip.s, ip.C), dtype=rhs.dtype,
+                       device=rhs.device)
+
+    def run():
+        red = pcr.pcr_factor(sp_.Lred, sp_.Ured, ip.cyclic)
+        wood = pcr.woodbury(red, sp_.Lred, sp_.Ured) if ip.woodbury else ()
+        for _ in range(6):
+            xm1, xp1 = pcr.pcr_solve_shift(red, yred, ip.wrap, *wood)
+            thomas.spike_correct(sp_, rhs, xm1, xp1, ip)
+
+    return run
+
+
+def phase3_spatial(smi):
+    """ms per fixed RODASPR step of KS 2^20 over 8 shards against the single
+    grid (in turns: single, sharded, sharded, single; CUDA events), the
+    step's device µs under the profiler and the interface system's share of
+    them, the spike columns' share, the dp x sp output step (ROS2, B = 16 x
+    2^16 over (2, 4)) against the unsharded ensemble, and K1's shard entries
+    against their plain versions and bounds; f64 and f32."""
+    log(f"phase 3: spatial sharding timed ({smi})")
+    times = {}
+    for dt_name, dtype in DTYPES.items():
+        times[dt_name] = {}
+        model, fields, pars_t, (u, helpers, pstack, x), dt = path_inputs(
+            KS, ks_case(0.05, 0.1), dtype)
+        single = schemes.RODASPR(model, time_stepping=False, tol=None)
+        sm = spatial.SpatialModel(model, space_mesh(8), periodic=True)
+        sharded = sm._make_scheme(schemes.RODASPR, time_stepping=False, tol=None)
+        ms = [cuda_ms(lambda s=s: s(0.0, fields, dt, pars_t), 10)
+              for s in (single, sharded, sharded, single)]
+        log(f"  ks N=2^20 rodaspr fixed step {dt_name}, single / 8 shards / 8 shards / "
+            "single: " + " / ".join(f"{m:.4f}" for m in ms) + " ms/step (CUDA events); "
+            f"sharded {min(ms[1:3]) / min(ms[0], ms[3]):.3f}x the single grid")
+        prof = profile_step(sharded, fields, pars_t, dt)
+        log_profile("rodaspr fixed step ks N=2^20 8 shards", dt_name, prof)
+        log_profile("rodaspr fixed step ks N=2^20 single grid", dt_name,
+                    profile_step(single, fields, pars_t, dt))
+        g00 = rodaspr_rows()[1]
+        bands = sm._local_J(u, helpers, pstack, x)
+        fact = sm.factor(-g00 * dt, bands)
+        iface = profile_calls(interface_pieces(fact, u), 5)
+        cols = profile_calls(lambda: [fact.local._tri_solve(
+            torch.zeros((8, 1, N_BIG // 8), dtype=dtype, device="cuda"))
+            for _ in range(4)], 5)
+        if prof and iface and cols:
+            log(f"  interface system over the 8 shards {dt_name}: "
+                f"{iface['busy_us_per_step']:.1f} device us per step (its factor, 6 solves "
+                f"with shifts and corrections) of the step's {prof['busy_us_per_step']:.1f}: "
+                f"{iface['busy_us_per_step'] / prof['busy_us_per_step']:.2%}; the 4 spike "
+                f"columns' local solves {cols['busy_us_per_step']:.1f} us, "
+                f"{cols['busy_us_per_step'] / prof['busy_us_per_step']:.2%}")
+        else:
+            log(f"  interface share {dt_name}: not measured (no device time recorded)")
+        # dp x sp's output step
+        ens, _ = dpsp_run(DPSP_CASES[1][1], 1, 0.05, "cuda", dtype)
+        ref, _ = dpsp_run(DPSP_CASES[1][1], 1, 0.05, "cuda", dtype, mesh=False)
+        d_ms = [cuda_ms(lambda e=e: e.step(0.05), 5) for e in (ref, ens, ens, ref)]
+        log(f"  dp x sp ros2 output step B={DPSP_B} x N=2^16 {dt_name}, unsharded "
+            f"(route {ref.route}) / (2, 4) mesh (route {ens.route}) / mesh / unsharded: "
+            + " / ".join(f"{m:.4f}" for m in d_ms) + " ms")
+        # K1's shard entries at KS 2^20 over 8 (F, J) and at dp x sp's step
+        # (F_terms: RODASPR's six terms over 16 members of 2^16)
+        b, sysm = model.backend, model.system
+        item = torch.finfo(dtype).bits // 8
+        n_in = (sysm.nvar + len(sysm.help_funcs) + len(sysm.pars) + 1) * N_BIG
+        rng = np.random.default_rng(5)
+        bias = torch.tensor(rng.standard_normal(u.shape), dtype=dtype, device="cuda")
+        gdt = g00 * dt
+        pairs = {
+            "K1.F_shards": (
+                lambda: b.F(u, helpers, pstack, x, periodic=True, scale=gdt, bias=bias,
+                            shards=8),
+                lambda: stencil.eval_F_plain(b, u, helpers, pstack, x, True, gdt, bias, 8),
+                (n_in + 2 * N_BIG) * item, (expr_ops(sysm.F_exprs) + 2) * N_BIG),
+            "K1.J_shards": (
+                lambda: b.J_bands(u, helpers, pstack, x, periodic=True, shards=8),
+                lambda: stencil.eval_J_plain(b, u, helpers, pstack, x, True, 8),
+                (n_in + 5 * N_BIG) * item, expr_ops(sysm.J_band_exprs.values()) * N_BIG),
+        }
+        dmodel = Model(*DPSP_BURGERS, double=dtype == torch.float64, device="cuda")
+        db = dmodel.backend
+        du, dh, dp, dx = kernel_checks.shard_inputs(dmodel, DPSP_N, DPSP_B, "cuda")
+        terms = [(a, c, du + 1e-3 * k) for k, (a, c) in enumerate(
+            [(1.0, 0.0), (0.75, 0.3), (0.0, -1.2), (1.0, 1.0), (2.5, 0.0), (-0.4, 0.7)])]
+        nodes = DPSP_B * DPSP_N
+        pairs["K1.F_terms_shards"] = (
+            lambda: db.F_terms(terms, dh, dp, dx, periodic=True, scale=gdt,
+                               shards=DPSP_MESH[1]),
+            lambda: stencil.eval_F_terms_plain(db, terms, dh, dp, dx, True, gdt,
+                                               DPSP_MESH[1]),
+            ((len(terms) + 1 + 1) * nodes + DPSP_N) * item,
+            (expr_ops(db.system.F_exprs) + 4 * len(terms)) * nodes)
+        for name, (kern, plain, nbytes, ops) in pairs.items():
+            p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
+            b_ms, b_by = bound(nbytes, ops, dtype)
+            times[dt_name][name] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+            log(f"  {name} {dt_name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
+                f"{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} "
+                "operations), no library call")
+    return times
+
+
 def timed(fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -5034,7 +5582,7 @@ def main():
 
 def run():
     smi = timed(phase0)
-    errs = timed(phase1_erk, timed(phase1_film, timed(phase1)))
+    errs = timed(phase1_spatial, timed(phase1_erk, timed(phase1_film, timed(phase1))))
     launches = timed(phase2_df64, timed(phase2_ensembles, timed(phase2)))
     launches = timed(phase2_precision, launches)
     launches = timed(phase2_megatheta, launches)
@@ -5042,12 +5590,13 @@ def run():
     launches = timed(phase2_padded, launches)
     launches = timed(phase2_chunked, launches)
     launches = timed(phase2_erk, launches)
+    launches = timed(phase2_spatial, launches)
     times = timed(phase3)
     for part in (timed(phase3_small), timed(phase3_ensembles, errs), timed(phase3_df64),
                  timed(phase3_precision, smi),
                  timed(phase3_megatheta), timed(phase3_film), timed(phase3_padded),
                  timed(phase3_redesign), timed(phase3_chunked, smi),
-                 timed(phase3_erk, smi)):
+                 timed(phase3_erk, smi), timed(phase3_spatial, smi)):
         for dt_name, more in part.items():
             times[dt_name].update(more)
     record = []

@@ -558,10 +558,16 @@ def test_run_lands_on_tmax_with_steps_per_call():
 
 
 def test_refusals():
-    """What the port does not have yet raises, naming its queue item."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        _port(KS, _U256, _X256, dict(periodic=True), mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    """What the port does not have yet raises, naming its queue item: a
+    mesh across devices is ROADMAP A9b (one device's mesh, and dp x sp on
+    it, are ported: tests/test_torch_dp_sp.py), and a space axis needs a
+    mesh that carries it, as in the reference."""
+    from triflow_tpu_torch.parallel import Mesh
+
+    with pytest.raises(NotImplementedError, match="A9b"):
+        _port(KS, _U256, _X256, dict(periodic=True),
+              mesh=Mesh(["cpu", "cuda:1", "cpu"], ("ensemble",)))
+    with pytest.raises(ValueError, match="space_axis requires a mesh"):
         _port(KS, _U256, _X256, dict(periodic=True), space_axis="space")
     # an ensemble of a df64 model is ported (tests/test_torch_df64_ensemble.py):
     # float64 state and parameters, the mixed solve on the host route

@@ -19,6 +19,8 @@ def test_import_loads_no_jax():
     code = ("import sys, triflow_tpu_torch, triflow_tpu_torch.utils.convert; "
             "import triflow_tpu_torch.core.simulation; "
             "import triflow_tpu_torch.parallel.ensemble; "
+            "import triflow_tpu_torch.parallel.spatial, "
+            "triflow_tpu_torch.parallel.mesh; "
             "import triflow_tpu_torch.ops.matvec, triflow_tpu_torch.ops.mixed; "
             "import triflow_tpu_torch.plugins.container, "
             "triflow_tpu_torch.plugins.displays; "

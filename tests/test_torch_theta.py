@@ -214,9 +214,11 @@ def test_unported_features_raise():
     sim.run(progress=False, device_chunk=4)
     assert sim.status == "finished" and sim.i == 2
     assert len(sim.container.data.t) == 3
-    with pytest.raises(NotImplementedError):
+    # a mesh of one device's shards is ported (tests/test_torch_spatial.py);
+    # one across devices is ROADMAP A9b
+    with pytest.raises(NotImplementedError, match="A9b"):
         tt.Simulation(model, fields, pars_t, dt=1.0, time_stepping=False,
-                      mesh=object())
+                      mesh=tt.parallel.Mesh(["cpu", "cuda:1"], ("space",)))
     # an ensemble hands a custom solver one member at a time
     # (tests/test_torch_df64_ensemble.py holds it against one grid)
     x = fields_np["x"]

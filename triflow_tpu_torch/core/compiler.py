@@ -16,6 +16,17 @@ and in edge mode the ghost-node dependencies are folded onto the boundary
 columns (``fold_edges``).  Each also takes a leading member axis (an
 ensemble's B grids: ``(B, nvar, N)`` and ``(B, W, nvar, nvar, N)``, x
 shared).
+
+A grid cut into ``shards`` (``parallel/spatial.py``: the reference's
+mesh of devices, here views of one tensor) evaluates F and J shard by
+shard, as the reference's ``shard_map`` body does: each shard's rows
+extended by ``halo_extend`` (its ring neighbours' edge nodes, or the clamped
+edge at the global ends in edge mode), the stencil evaluated on the
+shard's interior with the shard's own dx = x[1] - x[0]
+(``F_ext_impl``, ``J_bands_ext_impl``), and in edge mode the global edges
+folded (``fold_edges`` on the global view: the first shard's left edge
+and the last shard's right edge).  The kernel K1 computes the same from
+the whole grid's tensor (``ops/stencil.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +107,36 @@ def shift(arr, off: int, periodic: bool):
     return arr[..., idx]
 
 
+def to_shards(a, ndev: int):
+    """The shard view of a node-layout tensor: (..., rows, N) -> (..., ndev,
+    rows, N // ndev), shard d holding nodes [d Nl, (d + 1) Nl)."""
+    return a.unflatten(-1, (ndev, a.shape[-1] // ndev)).movedim(-2, -3)
+
+
+def from_shards(a):
+    """Inverse of ``to_shards``: (..., ndev, rows, Nl) -> (..., rows, ndev
+    Nl), contiguous."""
+    return a.movedim(-3, -2).flatten(-2).contiguous()
+
+
+def halo_extend(shards, h: int, periodic: bool):
+    """Each shard of ``shards`` (..., ndev, rows, Nl) extended by h ghost
+    nodes per side from its ring neighbours: the last h nodes of shard d-1
+    on the left, the first h of shard d+1 on the right (two rolls of the
+    shards' edge slices over the shard axis: the reference's two ppermute
+    rings); without ``periodic`` the global ends are edge-padded (the first
+    shard's left ghosts repeat its first node, the last shard's right ghosts
+    its last).  Returns (..., ndev, rows, Nl + 2h)."""
+    if h == 0:
+        return shards
+    left = torch.roll(shards[..., -h:], 1, dims=-3)
+    right = torch.roll(shards[..., :h], -1, dims=-3)
+    if not periodic:
+        left[..., 0, :, :] = shards[..., 0, :, :1]
+        right[..., -1, :, :] = shards[..., -1, :, -1:]
+    return torch.cat([left, shards, right], dim=-1)
+
+
 def fold_edges(bands, halo: int):
     """Fold out-of-domain band entries onto the clamped boundary columns
     (in place on ``bands``, shape (W, nvar, nvar, N)).
@@ -164,23 +205,91 @@ class TorchBackend:
 
     # ------------------------------------------------------- kernel route
     def F(self, u, helpers, pstack, x, *, periodic: bool, scale=1.0,
-          bias=None):
+          bias=None, shards=1):
         """``scale * F (+ bias)``, shape ((B,) nvar, N): kernel K1 on CUDA
-        tensors."""
+        tensors; ``shards > 1``: of the grid cut into that many shards
+        (module doc)."""
         return stencil.eval_F(self, u, helpers, pstack, x, periodic, scale,
-                              bias)
+                              bias, shards)
 
-    def F_terms(self, terms, helpers, pstack, x, *, periodic: bool, scale):
+    def F_terms(self, terms, helpers, pstack, x, *, periodic: bool, scale,
+                shards=1):
         """``scale * F(Σ a_j u_j) + Σ c_j u_j`` for ``terms = [(a_j, c_j,
         u_j), ...]``: kernel K1's F_terms entry on CUDA tensors."""
         return stencil.eval_F_terms(self, terms, helpers, pstack, x, periodic,
-                                    scale)
+                                    scale, shards)
 
-    def J_bands(self, u, helpers, pstack, x, *, periodic: bool):
+    def J_bands(self, u, helpers, pstack, x, *, periodic: bool, shards=1):
         """Banded J, shape (W, nvar, nvar, N): kernel K1 on CUDA tensors."""
-        return stencil.eval_J(self, u, helpers, pstack, x, periodic)
+        return stencil.eval_J(self, u, helpers, pstack, x, periodic, shards)
 
     # ------------------------------------------------------ plain versions
+    def _ext_args(self, u_ext, helpers_ext, pstack, x, dx):
+        """The argument rows of the expressions on pre-haloed rows: u_ext
+        (..., nvar, Nl + 2h) and helpers_ext, with pstack (..., npar, Nl), x
+        (..., Nl) and dx broadcastable against them."""
+        h, Nl = self.halo, x.shape[-1]
+        named = {}
+        for i, name in enumerate(self.system.dep_vars):
+            named[name] = u_ext[..., i, :]
+        for i, name in enumerate(self.system.help_funcs):
+            named[name] = helpers_ext[..., i, :]
+        args = [x]
+        for var, off in self._offset_args:
+            args.append(named[var][..., h + off:h + off + Nl])
+        for i, _p in enumerate(self.system.pars):
+            args.append(pstack[..., i, :])
+        args.append(dx)
+        return args, Nl
+
+    def F_ext_impl(self, u_ext, helpers_ext, pstack, x, dx):
+        """Plain RHS on pre-haloed rows (the reference's ``F_ext_impl``):
+        the interior's F, shape (..., nvar, Nl)."""
+        args, Nl = self._ext_args(u_ext, helpers_ext, pstack, x, dx)
+        shape = (*u_ext.shape[:-2], Nl)
+        return torch.stack([self._row(fn(*args), x, shape)
+                            for fn in self._F_fns], dim=-2)
+
+    def J_bands_ext_impl(self, u_ext, helpers_ext, pstack, x, dx):
+        """Plain banded J on pre-haloed rows, unfolded: shape (..., W, nvar,
+        nvar, Nl)."""
+        args, Nl = self._ext_args(u_ext, helpers_ext, pstack, x, dx)
+        nvar = self.system.nvar
+        lead = u_ext.shape[:-2]
+        bands = torch.zeros((*lead, self.window, nvar, nvar, Nl),
+                            dtype=x.dtype, device=x.device)
+        for (m, n, k), fn in self._J_fns.items():
+            bands[..., k, m, n, :] = self._row(fn(*args), x, (*lead, Nl))
+        return bands
+
+    def _shard_args(self, u, helpers, pstack, x, periodic, shards):
+        """The haloed shards of u and helpers and the shards of pstack, x
+        and dx (each shard's x[1] - x[0])."""
+        h = self.halo
+        xs = to_shards(x[None], shards)[..., 0, :]
+        return (halo_extend(to_shards(u, shards), h, periodic),
+                halo_extend(to_shards(helpers, shards), h, periodic),
+                to_shards(pstack, shards), xs, (xs[:, 1] - xs[:, 0])[:, None])
+
+    def F_shards_impl(self, u, helpers, pstack, x, *, periodic: bool,
+                      shards: int):
+        """Plain RHS of a grid cut into ``shards`` (module doc), shape
+        ((B,) nvar, N)."""
+        return from_shards(self.F_ext_impl(
+            *self._shard_args(u, helpers, pstack, x, periodic, shards)))
+
+    def J_bands_shards_impl(self, u, helpers, pstack, x, *, periodic: bool,
+                            shards: int):
+        """Plain banded J of a grid cut into ``shards`` (module doc), shape
+        ((B,) W, nvar, nvar, N), the global edges folded when not
+        periodic."""
+        bands = self.J_bands_ext_impl(
+            *self._shard_args(u, helpers, pstack, x, periodic, shards))
+        bands = bands.movedim(-5, -2).flatten(-2).contiguous()
+        if not periodic:
+            fold_edges(bands, self.halo)
+        return bands
+
     def _eval_args(self, u, helpers, pstack, x, periodic: bool):
         named = {}
         for i, name in enumerate(self.system.dep_vars):

@@ -224,6 +224,10 @@ class _SchemeBase:
     _mixed = 0
     #: a Kahan carry on the state (ROW ``compensated=True``)
     _compensated = False
+    #: the ``parallel.spatial.SpatialModel`` of a sharded scheme
+    #: (``SpatialModel.scheme_class``), whose mixin rebinds the problem, the
+    #: plans and the factor to the shards and withholds K6 and K9
+    _spatial = None
     #: the message a failed output step raises, by status
     _failures = {}
 
@@ -687,7 +691,7 @@ class Theta(_SchemeBase):
             return None
         model, theta = self._model, self._theta
         zero = torch.zeros((), dtype=model.dtype, device=model.device)
-        if megatheta.opted_in():
+        if self._spatial is None and megatheta.opted_in():
             plan = megatheta.plan_for(N, model.system.nvar, model.halo)
             if megatheta.applicable(model, plan, periodic):
                 def fixed_t(t, u, helpers, pstack, x, dx, dt):
@@ -1491,6 +1495,16 @@ class DeviceTimeStepping(_SchemeBase):
         """The wrapped scheme's fixed step (step doubling has none of its
         own)."""
         return self._inner.device_fixed_step(hook, periodic, batched)
+
+    def _problem(self, hook, periodic):
+        """The wrapped scheme's problem: a sharded scheme's evaluates F and
+        J on its shards (``parallel.spatial``)."""
+        return self._inner._problem(hook, periodic)
+
+    def _split(self, fields, pars):
+        """The wrapped scheme's split, with its guards (a sharded scheme's
+        on the grid's size)."""
+        return self._inner._split(fields, pars)
 
     def _output_step(self, problem, t, u, helpers, pstack, x, dt,
                      internal_dt):

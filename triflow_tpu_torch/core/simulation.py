@@ -20,6 +20,12 @@ it, a failed one flushes what it buffered.  ``save_checkpoint`` /
 ``from_checkpoint`` (``utils.checkpoint``) write and rebuild the
 restartable state.
 
+``mesh=`` (a ``parallel.Mesh`` on the model's device, the grid on its
+``mesh_axis``, default "space") steps the grid cut into shards: the scheme
+is rebound by ``parallel.spatial.SpatialModel.scheme_class`` (the ROW and
+explicit RK families and Theta), and everything above runs on it, the
+chunked run on the eager or graph route (never K6).
+
 A duck-typed model (any object with ``.F(fields, pars)`` and
 ``fields_template``, stepped by ``schemes.scipy_ode``) keeps its fields as
 given: only a model of the port has a backend to convert them with.
@@ -84,16 +90,23 @@ class Simulation:
     time_stepping : bool, passed to the scheme where its signature takes
         it; a scheme left without its own controller is wrapped in
         ``schemes.time_stepping`` (step doubling) when True
+    mesh : ``parallel.Mesh`` or None; with one, the grid is sharded over
+        its ``mesh_axis`` (module doc)
+    mesh_axis : str, the mesh axis that carries the grid
     **kwargs : passed to the scheme, and to ``schemes.time_stepping`` when
         it wraps the scheme, where their signatures take them
     """
 
     def __init__(self, model, fields, parameters, dt, t=0, tmax=None,
                  id=None, hook=null_hook, scheme=schemes.RODASPR,
-                 time_stepping=True, mesh=None, **kwargs):
+                 time_stepping=True, mesh=None, mesh_axis="space", **kwargs):
         if mesh is not None:
-            raise NotImplementedError(
-                "spatial sharding (mesh=...) is not ported yet (ROADMAP A9)")
+            from ..parallel.spatial import SpatialModel
+
+            spatial = SpatialModel(
+                model, mesh, axis=mesh_axis,
+                periodic=bool(parameters.get("periodic", False)))
+            scheme = spatial.scheme_class(scheme)
         self.id = str(uuid1())[:6] if not id else id
         self.model = model
         self.parameters = dict(parameters)

@@ -34,6 +34,16 @@
 // never reads the grid back to the host.  F and F_terms evaluate the same
 // expression on the same operands as a gather from device memory would.
 //
+// Shards (parallel/spatial.py): the F, F_terms and J entries also come as
+// *_shards entries of a grid cut into shards of Nl consecutive nodes,
+// each a device of the reference's mesh.  A shard's stencil reads h halo
+// nodes from its ring neighbours' edges (the reference's two ppermute
+// rings, or the edge clamp at the global ends in edge mode), which are the
+// grid's own nodes under its boundary closure: the tile load is the halo
+// exchange.  What differs from the whole grid's entries is dx: each
+// shard's own x[1] - x[0] (shard_dx), as the reference's shard_map body
+// computes it, in place of (x[N-1] - x[0]) / (N - 1).
+//
 // Member axis: every entry takes B grids (an ensemble) in one launch, the
 // member along the grid's y (F and F_terms: B <= 65535; J any B, a block
 // going on to member b + 65535 past the grid's y).  u, helpers,
@@ -139,6 +149,14 @@ __device__ __forceinline__ void gather_tile(T* a, int lt, const T (*tu)[kSpan],
 // into the tiles, and the thread's node's x and parameters into xi / pi;
 // dx = (x[N-1] - x[0]) / (N - 1) once, by thread 0, into s_dx (the same
 // division every thread of the per-node body makes)
+// dx of the shard of node i (shards of Nl nodes): x[j + 1] - x[j] at the
+// shard's first node j
+template <typename T>
+__device__ __forceinline__ T shard_dx(const T* x, long i, long Nl) {
+  const long j = i - i % Nl;
+  return x[j + 1] - x[j];
+}
+
 template <typename T, typename Load>
 __device__ __forceinline__ void load_tiles(T (*tu)[kSpan], T (*th)[kSpan], T* s_dx, long i0,
                                            long N, int periodic, Load load, const T* hlp,
@@ -161,12 +179,14 @@ __device__ __forceinline__ void load_tiles(T (*tu)[kSpan], T (*th)[kSpan], T* s_
   __syncthreads();
 }
 
-template <typename T>
+// kShards: shards of Nl nodes, each with its own dx (shard_dx)
+template <typename T, bool kShards>
 __global__ void __launch_bounds__(kTile)
     stencil_F_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
                      const T* __restrict__ par, const T* __restrict__ x,
                      const T* __restrict__ bias, T* __restrict__ out,
-                     const T* __restrict__ scale_b, long N, int periodic, T scale) {
+                     const T* __restrict__ scale_b, long N, int periodic, T scale,
+                     long Nl) {
   __shared__ T tu[TF_NVAR][kSpan];
   __shared__ T th[kHelpRows][kSpan];
   __shared__ T s_dx;
@@ -179,7 +199,10 @@ __global__ void __launch_bounds__(kTile)
   if (i >= N) return;
   T a[TF_NARGS];
   T f[TF_NVAR];
-  gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
+  if constexpr (kShards)
+    gather_tile(a, threadIdx.x, tu, th, xi, pi, shard_dx(x, i, Nl));
+  else
+    gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
   tf_F(a, f);
   const T sc = scale_b ? scale_b[b] : scale;
   // the bias added as the per-node body adds it, read under the same test
@@ -238,12 +261,12 @@ __device__ __forceinline__ T terms_sum(const Terms<T>& terms, const T* c,
 // and adds the bias terms.  Combining at each of the W stencil points
 // instead read the A vectors W times per node: 1.5x the time of the
 // separate combination and biased F at config 5 (PERF.md).
-template <typename T>
+template <typename T, bool kShards>
 __global__ void __launch_bounds__(kTile)
     stencil_F_terms_kernel(const Terms<T> terms, const T* __restrict__ hlp,
                            const T* __restrict__ par, const T* __restrict__ x,
                            T* __restrict__ out, const T* __restrict__ scale_b, long N,
-                           int periodic, T scale) {
+                           int periodic, T scale, long Nl) {
   __shared__ T tu[TF_NVAR][kSpan];
   __shared__ T th[kHelpRows][kSpan];
   __shared__ T s_dx;
@@ -259,7 +282,10 @@ __global__ void __launch_bounds__(kTile)
   if (i >= N) return;
   T a[TF_NARGS];
   T f[TF_NVAR];
-  gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
+  if constexpr (kShards)
+    gather_tile(a, threadIdx.x, tu, th, xi, pi, shard_dx(x, i, Nl));
+  else
+    gather_tile(a, threadIdx.x, tu, th, xi, pi, s_dx);
   tf_F(a, f);
   const T sc = scale_b ? scale_b[b] : scale;
 #pragma unroll
@@ -300,14 +326,16 @@ __device__ __forceinline__ T warp_at(T c, T e, int lane, int off) {
 }
 
 // Member b's J at node i = i0w + lane (jc, je: the closed indices of the
-// lane's node and of its halo node)
-template <typename T>
+// lane's node and of its halo node); kShards: shards of Nl nodes, each lane
+// its shard's dx
+template <typename T, bool kShards>
 __device__ __forceinline__ void stencil_J_warp(const T* __restrict__ u,
                                                const T* __restrict__ hlp,
                                                const T* __restrict__ par,
                                                const T* __restrict__ x,
                                                T* __restrict__ bands, long N, int periodic,
-                                               long b, long i, long jc, long je, int lane) {
+                                               long b, long i, long jc, long je, int lane,
+                                               long Nl) {
   const T* ub = u + b * TF_NVAR * N;
   const T* hb = hlp + b * TF_NHELP * N;
   const T* pb = par + b * TF_NPAR * N;
@@ -327,8 +355,12 @@ __device__ __forceinline__ void stencil_J_warp(const T* __restrict__ u,
 #pragma unroll
   for (int q = 0; q < TF_NPAR; ++q) pi[q] = i < N ? pb[q * N + i] : T(0);
   T dx = T(0);
-  if (lane == 0) dx = (x[N - 1] - x[0]) / T(N - 1);
-  dx = __shfl_sync(0xffffffffu, dx, 0);
+  if constexpr (kShards) {
+    if (i < N) dx = shard_dx(x, i, Nl);
+  } else {
+    if (lane == 0) dx = (x[N - 1] - x[0]) / T(N - 1);
+    dx = __shfl_sync(0xffffffffu, dx, 0);
+  }
   // the argument vector in stencil.cuh's gather order
   T a[TF_NARGS];
   int idx = 0;
@@ -354,11 +386,11 @@ __device__ __forceinline__ void stencil_J_warp(const T* __restrict__ u,
   for (int k = 0; k < tf::kNJ; ++k) out[k * N] = e[k];
 }
 
-template <typename T, bool kLoop>
+template <typename T, bool kLoop, bool kShards>
 __global__ void __launch_bounds__(kJThreads)
     stencil_J_kernel(const T* __restrict__ u, const T* __restrict__ hlp,
                      const T* __restrict__ par, const T* __restrict__ x,
-                     T* __restrict__ bands, long N, int B, int periodic) {
+                     T* __restrict__ bands, long N, int B, int periodic, long Nl) {
   const int lane = threadIdx.x & 31;
   const long i0w = (long)blockIdx.x * kJThreads + (threadIdx.x & ~31);
   if (i0w >= N) return;
@@ -368,9 +400,10 @@ __global__ void __launch_bounds__(kJThreads)
                               periodic);
   if (kLoop) {
     for (long b = blockIdx.y; b < B; b += gridDim.y)
-      stencil_J_warp(u, hlp, par, x, bands, N, periodic, b, i, jc, je, lane);
+      stencil_J_warp<T, kShards>(u, hlp, par, x, bands, N, periodic, b, i, jc, je, lane, Nl);
   } else {
-    stencil_J_warp(u, hlp, par, x, bands, N, periodic, (long)blockIdx.y, i, jc, je, lane);
+    stencil_J_warp<T, kShards>(u, hlp, par, x, bands, N, periodic, (long)blockIdx.y, i, jc,
+                               je, lane, Nl);
   }
 }
 
@@ -396,13 +429,22 @@ long blocks_of(long n, int threads) { return (n + threads - 1) / threads; }
 // the most blocks a grid's y takes
 constexpr int kMaxGridY = 65535;
 
+// Nl > 0: shards of Nl nodes (N a multiple of Nl, Nl >= 2)
+bool bad_shards(long N, long Nl) { return Nl < 0 || (Nl > 0 && (Nl < 2 || N % Nl)); }
+
 template <typename T>
 int launch_F(const T* u, const T* hlp, const T* par, const T* x, const T* bias, T* out,
-             const T* scale_b, long N, int B, int periodic, double scale,
+             const T* scale_b, long N, int B, int periodic, double scale, long Nl,
              cudaStream_t stream) {
-  if (B < 1 || B > 65535 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  stencil_F_kernel<T><<<dim3(blocks_of(N, kTile), B), kTile, 0, stream>>>(
-      u, hlp, par, x, bias, out, scale_b, N, periodic, T(scale));
+  if (B < 1 || B > 65535 || N < 1 || bad_shards(N, Nl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks_of(N, kTile), B);
+  if (Nl)
+    stencil_F_kernel<T, true><<<grid, kTile, 0, stream>>>(u, hlp, par, x, bias, out, scale_b,
+                                                           N, periodic, T(scale), Nl);
+  else
+    stencil_F_kernel<T, false><<<grid, kTile, 0, stream>>>(u, hlp, par, x, bias, out, scale_b,
+                                                            N, periodic, T(scale), 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,8 +469,9 @@ int launch_F_nodes(const T* u, const T* hlp, const T* par, const T* x, const T* 
 template <typename T>
 int launch_F_terms(const void* in_ptrs, const void* coefs, const T* hlp, const T* par,
                    const T* x, T* out, const T* scale_b, int A, long N, int B, int periodic,
-                   double scale, cudaStream_t stream) {
-  if (A < 1 || A > kMaxTerms) return static_cast<int>(cudaErrorInvalidValue);
+                   double scale, long Nl, cudaStream_t stream) {
+  if (A < 1 || A > kMaxTerms || bad_shards(N, Nl))
+    return static_cast<int>(cudaErrorInvalidValue);
   Terms<T> terms = {};
   const unsigned long long* ins = static_cast<const unsigned long long*>(in_ptrs);
   const double* c = static_cast<const double*>(coefs);
@@ -442,22 +485,38 @@ int launch_F_terms(const void* in_ptrs, const void* coefs, const T* hlp, const T
   }
   terms.A = A;
   if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  stencil_F_terms_kernel<T><<<dim3(blocks_of(N, kTile), B), kTile, 0, stream>>>(
-      terms, hlp, par, x, out, scale_b, N, periodic, T(scale));
+  const dim3 grid(blocks_of(N, kTile), B);
+  if (Nl)
+    stencil_F_terms_kernel<T, true><<<grid, kTile, 0, stream>>>(terms, hlp, par, x, out,
+                                                                 scale_b, N, periodic,
+                                                                 T(scale), Nl);
+  else
+    stencil_F_terms_kernel<T, false><<<grid, kTile, 0, stream>>>(terms, hlp, par, x, out,
+                                                                  scale_b, N, periodic,
+                                                                  T(scale), 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kShards>
+void launch_J_grid(const dim3& grid, const T* u, const T* hlp, const T* par, const T* x,
+                   T* bands, long N, int B, int periodic, long Nl, cudaStream_t stream) {
+  if (B > kMaxGridY)
+    stencil_J_kernel<T, true, kShards><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands,
+                                                                       N, B, periodic, Nl);
+  else
+    stencil_J_kernel<T, false, kShards><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands,
+                                                                        N, B, periodic, Nl);
 }
 
 template <typename T>
 int launch_J(const T* u, const T* hlp, const T* par, const T* x, T* bands, long N, int B,
-             int periodic, cudaStream_t stream) {
-  if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+             int periodic, long Nl, cudaStream_t stream) {
+  if (B < 1 || N < 1 || bad_shards(N, Nl)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)blocks_of(N, kJThreads), (unsigned)(B < kMaxGridY ? B : kMaxGridY));
-  if (B > kMaxGridY)
-    stencil_J_kernel<T, true><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands, N, B,
-                                                              periodic);
+  if (Nl)
+    launch_J_grid<T, true>(grid, u, hlp, par, x, bands, N, B, periodic, Nl, stream);
   else
-    stencil_J_kernel<T, false><<<grid, kJThreads, 0, stream>>>(u, hlp, par, x, bands, N, B,
-                                                               periodic);
+    launch_J_grid<T, false>(grid, u, hlp, par, x, bands, N, B, periodic, 0, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,7 +543,19 @@ int launch_J_nodes(const T* u, const T* hlp, const T* par, const T* x, T* bands,
     return launch_F<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
                        static_cast<const T*>(par), static_cast<const T*>(x),               \
                        static_cast<const T*>(bias), static_cast<T*>(out),                  \
-                       static_cast<const T*>(scale_b), N, B, periodic, scale,              \
+                       static_cast<const T*>(scale_b), N, B, periodic, scale, 0,           \
+                       static_cast<cudaStream_t>(stream));                                 \
+  }                                                                                        \
+  extern "C" int tf_stencil_F_shards_##SUFFIX(const void* u, const void* hlp,              \
+                                              const void* par, const void* x,              \
+                                              const void* bias, void* out,                 \
+                                              const void* scale_b, int N, int B,           \
+                                              int periodic, int Nl, double scale,          \
+                                              void* stream) {                              \
+    return launch_F<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
+                       static_cast<const T*>(par), static_cast<const T*>(x),               \
+                       static_cast<const T*>(bias), static_cast<T*>(out),                  \
+                       static_cast<const T*>(scale_b), N, B, periodic, scale, Nl,          \
                        static_cast<cudaStream_t>(stream));                                 \
   }                                                                                        \
   extern "C" int tf_stencil_F_nodes_##SUFFIX(const void* u, const void* hlp, const void* par, \
@@ -505,14 +576,34 @@ int launch_J_nodes(const T* u, const T* hlp, const T* par, const T* x, T* bands,
     return launch_F_terms<T>(in_ptrs, coefs, static_cast<const T*>(hlp),                   \
                              static_cast<const T*>(par), static_cast<const T*>(x),         \
                              static_cast<T*>(out), static_cast<const T*>(scale_b), A, N,   \
-                             B, periodic, scale, static_cast<cudaStream_t>(stream));       \
+                             B, periodic, scale, 0, static_cast<cudaStream_t>(stream));    \
+  }                                                                                        \
+  extern "C" int tf_stencil_F_terms_shards_##SUFFIX(const void* in_ptrs, const void* coefs, \
+                                                    const void* hlp, const void* par,      \
+                                                    const void* x, void* out,              \
+                                                    const void* scale_b, int A, int N,     \
+                                                    int B, int periodic, int Nl,           \
+                                                    double scale, void* stream) {          \
+    return launch_F_terms<T>(in_ptrs, coefs, static_cast<const T*>(hlp),                   \
+                             static_cast<const T*>(par), static_cast<const T*>(x),         \
+                             static_cast<T*>(out), static_cast<const T*>(scale_b), A, N,   \
+                             B, periodic, scale, Nl, static_cast<cudaStream_t>(stream));   \
   }                                                                                        \
   extern "C" int tf_stencil_J_##SUFFIX(const void* u, const void* hlp, const void* par,    \
                                        const void* x, void* bands, int N, int B,           \
                                        int periodic, void* stream) {                       \
     return launch_J<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
                        static_cast<const T*>(par), static_cast<const T*>(x),               \
-                       static_cast<T*>(bands), N, B, periodic,                             \
+                       static_cast<T*>(bands), N, B, periodic, 0,                          \
+                       static_cast<cudaStream_t>(stream));                                 \
+  }                                                                                        \
+  extern "C" int tf_stencil_J_shards_##SUFFIX(const void* u, const void* hlp,              \
+                                              const void* par, const void* x, void* bands, \
+                                              int N, int B, int periodic, int Nl,          \
+                                              void* stream) {                              \
+    return launch_J<T>(static_cast<const T*>(u), static_cast<const T*>(hlp),               \
+                       static_cast<const T*>(par), static_cast<const T*>(x),               \
+                       static_cast<T*>(bands), N, B, periodic, Nl,                         \
                        static_cast<cudaStream_t>(stream));                                 \
   }                                                                                        \
   extern "C" int tf_stencil_J_nodes_##SUFFIX(const void* u, const void* hlp, const void* par, \

@@ -67,6 +67,15 @@ against their plain versions at the same tolerances; K6's adaptive entries
 with a shared dt and per member (the same attempts per member as the plain
 controllers), and its adaptive scan bit for bit against the same number
 of adaptive launches.
+
+Spatial sharding (``check_all_shards``, in ``run_all``): K1's ``*_shards``
+entries against their plain versions (the reference's halo ring and each
+shard's dx) at the F/J tolerances, and every kernel of the distributed
+factorization on the shard axis at the solver tolerances: K2-K4 of the
+shards' local systems (B ndev members, the wrap off) with a spike column
+as the right-hand side, K4's factor, Woodbury set-up and solve with shifts
+of the interface system over the shards, K3's correction with the shards
+as chunks, and the whole solve's residual against the global operator.
 """
 
 from __future__ import annotations
@@ -1608,6 +1617,9 @@ def run_all(device, dtypes=(torch.float64, torch.float32)):
         # ``pcr.factor_route`` and ``cols_route``)
         check_grid_factor(2, 100, 132, True, dtype, device, results=results)
         check_setup(2, 100, 132, dtype, device, results=results)
+        # K1's shard entries and the kernels of the distributed
+        # factorization on the shard axis (parallel/spatial.py)
+        check_all_shards(device, dtype, results)
         if dtype == torch.float64:
             check_all_mixed(device, results)
         out[str(dtype).replace("torch.", "")] = results
@@ -1674,9 +1686,10 @@ def check_J(backend, u, helpers, pstack, x, periodic, what, results=None):
     return results
 
 
-def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
-    """K2 (factor of ``I + beta*J``, beta a number or one per member), K4
-    (PCR factor, the Woodbury set-up on a Woodbury plan, an R-column
+def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None,
+                        alpha=1.0):
+    """K2 (factor of ``alpha*I + beta*J``, beta a number or one per member),
+    K4 (PCR factor, the Woodbury set-up on a Woodbury plan, an R-column
     solve, the per-stage solve and shifts) and K3 (sweep of ``rhs``,
     correction added to ``add``) on J's bands ((B,) W, nvar, nvar, N)
     against their plain versions, each kernel on its plain inputs."""
@@ -1691,8 +1704,8 @@ def check_solver_pieces(bands, beta, plan, rhs, add, seed=0, results=None):
         return solver_entry(name, plan.s)
 
     rng = np.random.default_rng(seed)
-    sp_k = thomas.spike_factor(bands, 1.0, beta, plan)
-    sp_p = thomas.spike_factor_plain(bands, 1.0, beta, plan)
+    sp_k = thomas.spike_factor(bands, alpha, beta, plan)
+    sp_p = thomas.spike_factor_plain(bands, alpha, beta, plan)
     for got, want in zip(sp_k, sp_p):
         _record(results, n("K2.spike_factor"), got, want, tol, what)
     red_k = pcr.pcr_factor(sp_p.Lred, sp_p.Ured, plan.cyclic)
@@ -2168,4 +2181,182 @@ def check_all_mixed_members(device, results=None):
     results = {} if results is None else results
     for i, (W, nvar, N, periodic) in enumerate(MIXED_MEMBER_CASES):
         check_mixed_members(W, nvar, N, periodic, device, results, seed=i)
+    return results
+
+
+# ------------------------------------------------------- spatial sharding
+
+def shard_inputs(model, N, B, device, seed=0):
+    """(u, helpers, pstack, x) of the shard checks: 1 plus noise of 0.3 (so
+    that J and the factor have every entry, and the two-variable model's
+    h stays away from 0), parameters in [0.5, 1.5), and x =
+    0.1 + 0.5 i, a spacing that float64 does not hold exactly from node to
+    node, so that the shards' dx differ from the whole grid's in the last
+    bits."""
+    b = model.backend
+    sysm = b.system
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+
+    def t(a):
+        return torch.tensor(a, dtype=b.dtype, device=device)
+
+    return (t(1.0 + 0.3 * rng.standard_normal((*lead, sysm.nvar, N))),
+            t(rng.standard_normal((*lead, len(sysm.help_funcs), N))),
+            t(0.5 + rng.random((*lead, len(sysm.pars), 1)) * np.ones((1, N))),
+            t(0.1 + 0.5 * np.arange(N)))
+
+
+def check_shard_stencil(model, u, helpers, pstack, x, periodic, shards, what,
+                        results=None):
+    """K1's ``*_shards`` entries (F with a scale and a bias, F_terms with
+    RODASPR's last stage's terms, J) on a grid cut into ``shards`` against
+    their plain versions (the halo ring, each shard's dx)."""
+    results = {} if results is None else results
+    b = model.backend
+    tol = TOL[b.dtype]["FJ"]
+    rng = np.random.default_rng(len(what))
+    bias = torch.tensor(rng.standard_normal(u.shape), dtype=u.dtype, device=u.device)
+    got = b.F(u, helpers, pstack, x, periodic=periodic, scale=0.05, bias=bias,
+              shards=shards)
+    want = stencil.eval_F_plain(b, u, helpers, pstack, x, periodic, 0.05, bias,
+                                shards)
+    _record(results, "K1.F_shards", got, want, tol, what)
+    stages = [1e-2 * torch.tensor(rng.standard_normal(u.shape), dtype=u.dtype,
+                                  device=u.device) for _ in range(5)]
+    coefs = [(1.0, 0.0), (0.75, 0.3), (0.0, -1.2), (1.0, 1.0), (2.5, 0.0),
+             (-0.4, 0.7)]
+    terms = [(a, c, arr) for (a, c), arr in zip(coefs, [u] + stages)]
+    got = b.F_terms(terms, helpers, pstack, x, periodic=periodic, scale=0.0125,
+                    shards=shards)
+    want = stencil.eval_F_terms_plain(b, terms, helpers, pstack, x, periodic,
+                                      0.0125, shards)
+    _record(results, "K1.F_terms_shards", got, want, tol, what)
+    got = b.J_bands(u, helpers, pstack, x, periodic=periodic, shards=shards)
+    want = stencil.eval_J_plain(b, u, helpers, pstack, x, periodic, shards)
+    _record(results, "K1.J_shards", got, want, tol, what)
+    return results
+
+
+def check_shard_solver(bands, beta, splan, seed=0, results=None):
+    """Every kernel of the distributed factorization and solve
+    (``parallel.spatial``) on the shard axis against its plain version on
+    the same inputs: K2, K3 and K4 of the shards' local systems (B ndev
+    members, the wrap off) with a spike column as the right-hand side; K4's
+    factor of the interface system over the shards (block-cyclic, acyclic,
+    or acyclic with the Woodbury set-up on a ring), its solve with shifts,
+    and K3's correction with the shards as chunks; then the whole solve by
+    its residual against the global operator.  ``bands`` are J's global
+    bands ((B,) W, nvar, nvar, N)."""
+    from ..parallel import spatial
+
+    results = {} if results is None else results
+    dtype, device = bands.dtype, bands.device
+    tol = TOL[dtype]["solve"]
+    W, nvar, _, N = bands.shape[-4:]
+    h, ndev = W // 2, splan.ndev
+    what = (f"shards N={N} ndev={ndev} B={splan.B} local C={splan.local.C} "
+            f"Mc={splan.local.Mc} iface cyclic={splan.iface.cyclic} "
+            f"woodbury={splan.iface.woodbury}")
+    rng = np.random.default_rng(seed)
+    fact = spatial.spike_factor(1.0, beta, bands, splan.periodic, splan)
+    # the local systems: the shards' bands with the couplings peeled out
+    J = spatial._bands_to_shards(bands, ndev)
+    T, Bc = banded.extract_wrap(J)
+    beta_t = (beta.repeat_interleave(ndev) if isinstance(beta, torch.Tensor)
+              else beta)
+    b3 = banded.per_member(beta_t, 3)
+    col = banded.ring_columns(b3 * T, b3 * Bc, nvar, splan.Nl)[:, 0]
+    alpha, A, lp = 1.0, J, splan.local
+    if lp.padded:
+        A, _ = chunked.padded_system(1.0, beta_t, J, lp)
+        alpha, beta_t = 0.0, 1.0
+    col = torch.nn.functional.pad(col, (0, lp.Np - lp.N)).contiguous()
+    add = torch.tensor(rng.standard_normal(col.shape), dtype=dtype, device=device)
+    check_solver_pieces(A, beta_t, lp, col, add, seed, results, alpha=alpha)
+    # the interface system over the shards
+    ip = splan.iface
+    Lred, Ured = fact.spikes.Lred, fact.spikes.Ured
+    red_k = pcr.pcr_factor(Lred, Ured, ip.cyclic)
+    Lm, Um = Lred.clone(), Ured.clone()
+    if not ip.cyclic:
+        Lm[..., 0] = 0.0
+        Um[..., -1] = 0.0
+    red_p = pcr.pcr_factor_plain(Lm, Um, ip.cyclic)
+    for got, want in zip(red_k, red_p):
+        _record(results, factor_entry(ip.s, ip.C), got, want, tol, f"iface {what}")
+    wood = ()
+    if ip.woodbury:
+        wood = pcr.woodbury_plain(red_p, Lred, Ured)
+        for got, want in zip(pcr.woodbury(red_p, Lred, Ured), wood):
+            _record(results, solver_entry("K4.pcr_solve", ip.s), got, want, tol,
+                    f"iface woodbury {what}")
+    lead = tuple(bands.shape[:-4])
+    yred = torch.tensor(rng.standard_normal((*lead, 2 * ip.s, ndev)), dtype=dtype,
+                        device=device)
+    sh_k = pcr.pcr_solve_shift(red_p, yred, ip.wrap, *wood)
+    sh_p = pcr.pcr_solve_shift_plain(red_p, yred, ip.wrap, *wood)
+    for got, want in zip(sh_k, sh_p):
+        _record(results, solver_entry("K4.pcr_solve_shift", ip.s), got, want, tol,
+                f"iface {what}")
+    y = torch.tensor(rng.standard_normal((*lead, nvar, ip.N)), dtype=dtype,
+                     device=device)
+    add = torch.tensor(rng.standard_normal(y.shape), dtype=dtype, device=device)
+    x_k = thomas.spike_correct(fact.spikes, y, *sh_p, ip, add_to=add)
+    x_p = thomas.spike_correct_plain(fact.spikes, y, *sh_p, ip, add_to=add)
+    _record(results, solver_entry("K3.spike_correct", ip.s), x_k, x_p, tol,
+            f"iface {what}")
+    rhs = torch.tensor(rng.standard_normal((*lead, nvar, N)), dtype=dtype,
+                       device=device)
+    x = fact.solve(rhs)
+    r = (x.double() + matvec.banded_matvec_plain(
+        bands.double(), x.double(), splan.periodic,
+        beta.double() if isinstance(beta, torch.Tensor) else beta)
+        - rhs.double())
+    res = float(r.norm() / rhs.double().norm())
+    if not res <= tol:
+        raise CheckFailed(f"sharded solve residual {res:.3e} > {tol:.0e} ({what})")
+    results["residual"] = max(results.get("residual", 0.0), res)
+    return results
+
+
+#: (model, N, shards, periodic, B) of the small shard checks: KS (s = 2)
+#: over 8 shards (block-cyclic interface) and 6 of an odd size (padded in
+#: the interface level, Woodbury), in edge mode over 3; the two-variable
+#: model (s = 4) over 4 (Woodbury); Burgers (s = 1) with 3 members over 4;
+#: 16 shards (block-cyclic over two levels more) of 2 supernodes each
+SHARD_CASES = [("ks", 4096, 8, True, None), ("ks", 510, 6, True, None),
+               ("ks", 999, 3, False, None), ("two_var", 1200, 4, True, None),
+               ("burgers", 2048, 4, True, 3), ("ks", 64, 16, True, None)]
+
+SHARD_MODELS = {**STENCIL_MODELS, "two_var": MEGA_MODELS["two_var"]}
+
+
+def check_all_shards(device, dtype, results=None, cases=SHARD_CASES):
+    """The shard checks at ``SHARD_CASES``: K1's shard entries and the
+    distributed factorization's kernels (``check_shard_stencil``,
+    ``check_shard_solver``)."""
+    from ..core.model import Model
+    from ..parallel import spatial
+
+    results = {} if results is None else results
+    models = {}
+    for i, (name, N, shards, periodic, B) in enumerate(cases):
+        if name not in models:
+            models[name] = Model(*SHARD_MODELS[name], double=dtype == torch.float64,
+                                 device=device)
+        model = models[name]
+        args = shard_inputs(model, N, B, device, seed=i)
+        what = f"{name} N={N} shards={shards} periodic={periodic} B={B}"
+        check_shard_stencil(model, *args, periodic, shards, what, results)
+        b = model.backend
+        bands = b.J_bands(*args, periodic=periodic, shards=shards)
+        # shifts that keep I + beta J well conditioned: |beta J| <= 0.5
+        beta0 = -0.5 / float(bands.abs().amax())
+        beta = (beta0 if B is None else
+                torch.tensor(beta0 * (1 + np.arange(B)) / B, dtype=dtype,
+                             device=device))
+        splan = spatial.shard_plan(N, b.system.nvar, b.halo, shards, periodic,
+                                   1 if B is None else B)
+        check_shard_solver(bands, beta, splan, seed=i, results=results)
     return results

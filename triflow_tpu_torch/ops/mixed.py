@@ -83,15 +83,19 @@ class MixedFactorization:
     ``chunked.ChunkedFactorization.solve``.  The members' float32 factor
     takes each member's shift rounded to float32 (K2 and K4 with a member
     axis, as ``chunked.factor`` takes an ensemble's), and K8 each member's
-    float64 coef."""
+    float64 coef.  ``factor`` (default ``chunked.factor``) makes the float32
+    factor from its plan: a sharded grid's is ``parallel.spatial``'s
+    ``spike_factor``, and K8's residual then runs on the global bands, the
+    distributed operator."""
 
-    def __init__(self, bands, coef, periodic, plan, passes):
+    def __init__(self, bands, coef, periodic, plan, passes, factor=None):
         self.bands = bands
         self.coef = coef
         self.periodic = periodic
         self.passes = int(passes)
         shift = -coef.float() if isinstance(coef, torch.Tensor) else -coef
-        self.fact32 = chunked.factor(1.0, shift, bands.float(), periodic, plan)
+        self.fact32 = (factor or chunked.factor)(1.0, shift, bands.float(),
+                                                 periodic, plan)
 
     def solve(self, rhs, add_to=None):
         """``add_to + k`` (or ``k``) for the float64 solution k of the

@@ -20,6 +20,16 @@ bias``, the same with the terms combined in the kernel's order, and
 Every entry takes a leading member axis (an ensemble's B grids: u,
 helpers, parameters, bias and the stage vectors ``(B, rows, N)``, x shared)
 and a per-member F scale, a (B,) tensor on the card, beside the number.
+
+``shards > 1`` (``parallel/spatial.py``: a grid cut into shards of N /
+shards nodes, the reference's mesh devices) launches the ``*_shards``
+entries (counted as ``K1.F_shards``, ``K1.F_terms_shards``,
+``K1.J_shards``): each shard's halo read from its ring neighbours' edges in
+the tile load, each shard's dx its own x[1] - x[0], as the reference's
+``shard_map`` body computes F and J on its haloed shards.  Their plain
+versions are that algorithm itself: ``TorchBackend.F_shards_impl`` /
+``J_bands_shards_impl`` (``compiler.halo_extend``, the stencil on each
+shard's interior, the global edges folded).
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ from .thomas import beta_args, members
 F_LAUNCHES = Counter("K1.F")
 F_TERMS_LAUNCHES = Counter("K1.F_terms")
 J_LAUNCHES = Counter("K1.J")
+F_SHARDS_LAUNCHES = Counter("K1.F_shards")
+F_TERMS_SHARDS_LAUNCHES = Counter("K1.F_terms_shards")
+J_SHARDS_LAUNCHES = Counter("K1.J_shards")
 
 #: most stage vectors of one F_terms launch (kMaxTerms in csrc/stencil.cu):
 #: u and RODASPR's five earlier stages, with room for one more
@@ -211,28 +224,52 @@ def _scaled(scale, out):
     return out if scale == 1.0 else scale * out
 
 
+def _F_rows(backend, u, helpers, pstack, x, periodic, shards):
+    """The plain F of the whole grid, or of its shards."""
+    if shards > 1:
+        return backend.F_shards_impl(u, helpers, pstack, x, periodic=periodic,
+                                     shards=shards)
+    return backend.F_impl(u, helpers, pstack, x, periodic=periodic)
+
+
 def eval_F_plain(backend, u, helpers, pstack, x, periodic, scale=1.0,
-                 bias=None):
-    out = _scaled(scale, backend.F_impl(u, helpers, pstack, x,
-                                        periodic=periodic))
+                 bias=None, shards=1):
+    out = _scaled(scale, _F_rows(backend, u, helpers, pstack, x, periodic,
+                                 shards))
     return out if bias is None else out + bias
 
 
-def _F_entry(backend, u, helpers, pstack, x, bias):
-    """(bound C entry, N, B) of the F entry at these inputs' shapes, which
-    it checks (and raises on)."""
+def check_shards(what, N, shards):
+    """Raise unless the grid's N nodes cut into ``shards`` shards of at
+    least 2 nodes each (the kernels' own test); returns the shard size."""
+    if shards < 1 or N % shards or N // shards < 2:
+        raise ValueError(f"{what}: N = {N} does not cut into {shards} shards "
+                         "of at least 2 nodes")
+    return N // shards if shards > 1 else 0
+
+
+def _F_entry(backend, u, helpers, pstack, x, bias, shards=1):
+    """(bound C entry, N, B, shard size or 0) of the F entry (the shards'
+    entry where ``shards > 1``) at these inputs' shapes, which it checks
+    (and raises on)."""
     N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
     if bias is not None:
         check_shapes("K1 stencil F", bias=(bias, (*lead, backend.system.nvar, N)))
     if B > MAX_MEMBERS:
         raise ValueError(f"K1 stencil F: {B} members; the kernel takes at most "
                          f"{MAX_MEMBERS}")
-    return backend.stencil.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1), N, B
+    Nl = check_shards("K1 stencil F", N, shards)
+    if Nl:
+        return (backend.stencil.fn(f"tf_stencil_F_shards_{suffix(u.dtype)}", 7, 4, 1),
+                N, B, Nl)
+    return backend.stencil.fn(f"tf_stencil_F_{suffix(u.dtype)}", 7, 3, 1), N, B, 0
 
 
-def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
+def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None,
+           shards=1):
     """``scale * F(u) (+ bias)``, shape ((B,) nvar, N); ``bias`` is None
-    or of u's shape, ``scale`` a number or a per-member (B,) tensor.  CPU
+    or of u's shape, ``scale`` a number or a per-member (B,) tensor;
+    ``shards > 1``: the grid cut into that many shards (module doc).  CPU
     tensors take the plain version; CUDA tensors launch K1's F entry.
 
     The launch path is short, since a step calls it once per stage: every
@@ -241,21 +278,25 @@ def eval_F(backend, u, helpers, pstack, x, periodic, scale=1.0, bias=None):
     (``_launch.shape_cache``)."""
     if u.device.type == "cpu":
         return eval_F_plain(backend, u, helpers, pstack, x, periodic, scale,
-                            bias)
+                            bias, shards)
     check_cuda((u, helpers, pstack, x) if bias is None else
                (u, helpers, pstack, x, bias), backend.dtype, "K1 stencil F")
-    fn, N, B = shape_cache(("F", backend, u.shape, helpers.shape, pstack.shape,
-                            x.shape, None if bias is None else bias.shape),
-                           _F_entry, backend, u, helpers, pstack, x, bias)
+    fn, N, B, Nl = shape_cache(("F", backend, u.shape, helpers.shape, pstack.shape,
+                                x.shape, None if bias is None else bias.shape, shards),
+                               _F_entry, backend, u, helpers, pstack, x, bias, shards)
     scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device,
                                      "K1 stencil F scale")
     out = torch.empty_like(u)
-    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+    args = (u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), scale_ptr,
-            N, B, 1 if periodic else 0, scale_val, stream_of(u))
+            N, B, 1 if periodic else 0)
+    if Nl:
+        rc = fn(*args, Nl, scale_val, stream_of(u))
+    else:
+        rc = fn(*args, scale_val, stream_of(u))
     if rc:
         backend.stencil.check(rc, "K1 stencil F")
-    F_LAUNCHES.add()
+    (F_SHARDS_LAUNCHES if Nl else F_LAUNCHES).add()
     return out
 
 
@@ -269,7 +310,7 @@ def eval_F_nodes(backend, u, helpers, pstack, x, periodic, scale=1.0,
     what = "K1 stencil F (per-node body)"
     check_cuda((u, helpers, pstack, x) if bias is None else
                (u, helpers, pstack, x, bias), backend.dtype, what)
-    _, N, B = _F_entry(backend, u, helpers, pstack, x, bias)
+    _, N, B, _ = _F_entry(backend, u, helpers, pstack, x, bias)
     scale_ptr, scale_val = beta_args(scale, B, u.dtype, u.device, f"{what} scale")
     out = torch.empty_like(u)
     fn = backend.stencil.fn(f"tf_stencil_F_nodes_{suffix(u.dtype)}", 7, 3, 1)
@@ -291,12 +332,13 @@ def _lin(coefs, arrays):
     return acc
 
 
-def eval_F_terms_plain(backend, terms, helpers, pstack, x, periodic, scale):
+def eval_F_terms_plain(backend, terms, helpers, pstack, x, periodic, scale,
+                       shards=1):
     arrays = [t[2] for t in terms]
     u = _lin([float(t[0]) for t in terms], arrays)
     if u is None:
         u = torch.zeros_like(arrays[0])
-    out = backend.F_impl(u, helpers, pstack, x, periodic=periodic)
+    out = _F_rows(backend, u, helpers, pstack, x, periodic, shards)
     out = (per_member(scale, out.ndim) if isinstance(scale, torch.Tensor)
            else scale) * out
     for c, arr in zip((float(t[1]) for t in terms), arrays):
@@ -305,19 +347,20 @@ def eval_F_terms_plain(backend, terms, helpers, pstack, x, periodic, scale):
     return out
 
 
-def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale):
+def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale,
+                 shards=1):
     """The fused ROW stage right-hand side ``scale * F(Σ a_j u_j) +
     Σ c_j u_j`` for ``terms = [(a_j, c_j, u_j), ...]`` (Python numbers;
     stage vectors of one shape ((B,) nvar, N)), in one pass over the stage
     vectors: the reference's ``eval_F_folded(..., u_terms=terms)``.  The
-    bias terms are added one by one after the scaled F, in term order.
-    CPU tensors take the plain version; CUDA tensors launch K1's F_terms
-    entry."""
+    bias terms are added one by one after the scaled F, in term order;
+    ``shards > 1``: the grid cut into shards (module doc).  CPU tensors take
+    the plain version; CUDA tensors launch K1's F_terms entry."""
     arrays = [t[2] for t in terms]
     u0 = arrays[0]
     if u0.device.type == "cpu":
         return eval_F_terms_plain(backend, terms, helpers, pstack, x,
-                                  periodic, scale)
+                                  periodic, scale, shards)
     what = "K1 stencil F_terms"
     A = len(terms)
     if not 1 <= A <= MAX_TERMS:
@@ -327,6 +370,7 @@ def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale):
     check_cuda(arrays, backend.dtype, what)
     check_shapes(what, **{f"terms[{k}]": (a, u0.shape)
                           for k, a in enumerate(arrays)})
+    Nl = check_shards(what, N, shards)
     scale_ptr, scale_val = beta_args(scale, B, u0.dtype, u0.device,
                                      f"{what} scale")
     out = torch.empty_like(u0)
@@ -334,43 +378,61 @@ def eval_F_terms(backend, terms, helpers, pstack, x, periodic, scale):
     coefs = (ctypes.c_double * (2 * A))(*(float(t[0]) for t in terms),
                                         *(float(t[1]) for t in terms))
     lib = backend.stencil
-    fn = lib.fn(f"tf_stencil_F_terms_{suffix(u0.dtype)}", 7, 4, 1)
-    rc = fn(ctypes.addressof(in_ptrs), ctypes.addressof(coefs),
+    args = (ctypes.addressof(in_ptrs), ctypes.addressof(coefs),
             helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(), out.data_ptr(),
-            scale_ptr, A, N, B, int(bool(periodic)), scale_val, stream_of(u0))
+            scale_ptr, A, N, B, int(bool(periodic)))
+    if Nl:
+        fn = lib.fn(f"tf_stencil_F_terms_shards_{suffix(u0.dtype)}", 7, 5, 1)
+        rc = fn(*args, Nl, scale_val, stream_of(u0))
+    else:
+        fn = lib.fn(f"tf_stencil_F_terms_{suffix(u0.dtype)}", 7, 4, 1)
+        rc = fn(*args, scale_val, stream_of(u0))
     lib.check(rc, what)
-    F_TERMS_LAUNCHES.add()
+    (F_TERMS_SHARDS_LAUNCHES if Nl else F_TERMS_LAUNCHES).add()
     return out
 
 
-def _J_entry(backend, u, helpers, pstack, x, name="tf_stencil_J"):
-    """(bound C entry ``name``, N, B, bands' shape) of the J entry at these
-    inputs' shapes, which it checks (and raises on)."""
+def _J_entry(backend, u, helpers, pstack, x, name="tf_stencil_J", shards=1):
+    """(bound C entry ``name`` (the shards' entry where ``shards > 1``), N,
+    B, bands' shape, shard size or 0) of the J entry at these inputs'
+    shapes, which it checks (and raises on)."""
     N, B, lead = _kernel_inputs(backend, u, helpers, pstack, x)
     nvar = backend.system.nvar
-    return (backend.stencil.fn(f"{name}_{suffix(u.dtype)}", 5, 3), N, B,
-            (*lead, backend.window, nvar, nvar, N))
+    Nl = check_shards("K1 stencil J", N, shards)
+    fn = (backend.stencil.fn(f"{name}_shards_{suffix(u.dtype)}", 5, 4) if Nl
+          else backend.stencil.fn(f"{name}_{suffix(u.dtype)}", 5, 3))
+    return fn, N, B, (*lead, backend.window, nvar, nvar, N), Nl
 
 
-def eval_J(backend, u, helpers, pstack, x, periodic):
+def eval_J_plain(backend, u, helpers, pstack, x, periodic, shards=1):
+    if shards > 1:
+        return backend.J_bands_shards_impl(u, helpers, pstack, x,
+                                           periodic=periodic, shards=shards)
+    return backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+
+
+def eval_J(backend, u, helpers, pstack, x, periodic, shards=1):
     """Banded J, shape ((B,) W, nvar, nvar, N), edge-folded when not
-    periodic.  CPU tensors take the plain version; CUDA tensors launch K1's
-    J entry.
+    periodic; ``shards > 1``: the grid cut into that many shards (module
+    doc).  CPU tensors take the plain version; CUDA tensors launch K1's J
+    entry.
 
     The launch path is short, as F's: every call checks the tensors'
     device, dtype and contiguity, and the shapes are checked (and the
     entry bound) once per shape (``_launch.shape_cache``)."""
     if u.device.type == "cpu":
-        return backend.J_bands_impl(u, helpers, pstack, x, periodic=periodic)
+        return eval_J_plain(backend, u, helpers, pstack, x, periodic, shards)
     check_cuda((u, helpers, pstack, x), backend.dtype, "K1 stencil J")
-    fn, N, B, shape = shape_cache(("J", backend, u.shape, helpers.shape, pstack.shape,
-                                   x.shape), _J_entry, backend, u, helpers, pstack, x)
+    fn, N, B, shape, Nl = shape_cache(
+        ("J", backend, u.shape, helpers.shape, pstack.shape, x.shape, shards),
+        _J_entry, backend, u, helpers, pstack, x, "tf_stencil_J", shards)
     bands = torch.empty(shape, dtype=u.dtype, device=u.device)
-    rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
-            bands.data_ptr(), N, B, 1 if periodic else 0, stream_of(u))
+    args = (u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
+            bands.data_ptr(), N, B, 1 if periodic else 0)
+    rc = fn(*args, Nl, stream_of(u)) if Nl else fn(*args, stream_of(u))
     if rc:
         backend.stencil.check(rc, "K1 stencil J")
-    J_LAUNCHES.add()
+    (J_SHARDS_LAUNCHES if Nl else J_LAUNCHES).add()
     return bands
 
 
@@ -382,7 +444,7 @@ def eval_J_nodes(backend, u, helpers, pstack, x, periodic):
     ``chip_smoke.py`` times the two side by side."""
     what = "K1 stencil J (per-node body)"
     check_cuda((u, helpers, pstack, x), backend.dtype, what)
-    fn, N, B, shape = _J_entry(backend, u, helpers, pstack, x, "tf_stencil_J_nodes")
+    fn, N, B, shape, _ = _J_entry(backend, u, helpers, pstack, x, "tf_stencil_J_nodes")
     bands = torch.empty(shape, dtype=u.dtype, device=u.device)
     rc = fn(u.data_ptr(), helpers.data_ptr(), pstack.data_ptr(), x.data_ptr(),
             bands.data_ptr(), N, B, 1 if periodic else 0, stream_of(u))

@@ -85,7 +85,19 @@ container whose frames carry a ``member`` axis
 ``steps`` call, flushed at the end of ``run``; ``save_checkpoint`` /
 ``from_checkpoint`` (``utils.checkpoint``) write and rebuild the sweep.
 
-Not ported yet, and refused: ``mesh=`` / ``space_axis=`` (ROADMAP A9).
+**A mesh** (``mesh=``, a ``parallel.Mesh`` on the model's device): the
+members lie on its ``mesh_axis`` (default "ensemble"), whose size must
+divide B (the reference's check); they share the one device, so the routes
+above are unchanged.  With ``space_axis`` naming an axis of size > 1 every
+member's grid is also cut into shards over it (the reference's dp x sp):
+the scheme is rebound by ``parallel.spatial.SpatialModel.scheme_class``,
+and the B members x ndev shards step on the host route as B * ndev local
+systems (K2-K4 with B * ndev members, the wrap off), B interface systems
+over the shards (K4) and K1's ``*_shards`` entries, under the shared dt on
+the max error or ``per_member_dt``: the fixed and adaptive ROW family, the
+explicit RK family, Theta and the df64 mode (its stage solves the mixed
+solve, 2 residual passes unless ``df64_mixed_solve`` says otherwise).  A
+mesh across cards is ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -137,7 +149,10 @@ class Ensemble:
         classes use a shared dt controlled by the max member error)
     hook : ``hook(t, fields, pars)`` applied per member, at attempt and
         output time
-    mesh, mesh_axis, space_axis : refused (ROADMAP A9)
+    mesh : ``parallel.Mesh`` or None (module doc)
+    mesh_axis : str, the mesh axis of the members
+    space_axis : str or None, a mesh axis over which every member's grid
+        is sharded (dp x sp, module doc)
     helpers0 : (B, nhelp, N) initial helper functions
     per_member_dt : bool, adaptive schemes only: every member carries its
         own internal clock and step size (masked freezing) instead of the
@@ -154,10 +169,11 @@ class Ensemble:
                  hook=null_hook, mesh=None, mesh_axis="ensemble",
                  space_axis=None, helpers0=None, per_member_dt=False,
                  **scheme_kwargs):
-        if mesh is not None or space_axis is not None:
-            raise NotImplementedError(
-                "Ensemble(mesh=..., space_axis=...): sharding an ensemble "
-                "over devices is not ported yet (ROADMAP A9)")
+        if space_axis is not None and (mesh is None
+                                       or space_axis not in mesh.shape):
+            raise ValueError("space_axis requires a mesh carrying that axis")
+        if mesh is not None:
+            mesh.check_device(model.device)
         self.model = model
         backend = model.backend
         nvar = backend.system.nvar
@@ -189,6 +205,19 @@ class Ensemble:
         self.t = 0.0
 
         scheme = schemes_mod.ROS2 if scheme is None else scheme
+        self.spatial = None
+        if mesh is not None:
+            if mesh_axis in mesh.shape and self.B % mesh.shape[mesh_axis]:
+                raise ValueError(f"B={self.B} must divide the '{mesh_axis}' "
+                                 f"axis ({mesh.shape[mesh_axis]})")
+            if space_axis is not None and mesh.shape[space_axis] > 1:
+                from .spatial import SpatialModel
+
+                #: the members' grids sharded (dp x sp), or None
+                self.spatial = SpatialModel(model, mesh, axis=space_axis,
+                                            periodic=self.periodic)
+                self.spatial.check_grid(self.N)
+                scheme = self.spatial.scheme_class(scheme)
         self._scheme = scheme(model, **scheme_kwargs)
         if not hasattr(self._scheme, "fixed_step_batched"):
             raise NotImplementedError(
